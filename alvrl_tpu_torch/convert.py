@@ -1,0 +1,76 @@
+"""State carried across from alvrl_tpu, as numpy arrays.
+
+`scene_from_numpy` and `vrls_from_numpy` take the leaves of an
+alvrl_tpu scene or VRL buffer, converted to numpy by the caller (this
+package does not import jax), and build the port's objects on a device.
+Keys are the leaves' attribute paths, e.g. "materials.albedo".
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
+from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
+from alvrl_tpu_torch.scene.scene import (
+    Camera,
+    Materials,
+    PointEmitters,
+    Scene,
+)
+
+SCENE_KEYS = (
+    "vertices", "faces", "material", "materials.kind", "materials.albedo",
+    "emitters.position", "emitters.intensity", "medium.sigma_a",
+    "medium.sigma_s", "medium.g", "medium.sampling_weight",
+    "medium.phase_kind", "camera.to_world", "camera.fov_x_deg",
+    "camera.width", "camera.height", "camera.kind",
+)
+VRL_KEYS = ("start", "end", "power", "valid", "particle_count")
+
+
+def _missing(d, keys):
+    missing = [k for k in keys if k not in d]
+    if missing:
+        raise KeyError(f"missing leaves: {missing}")
+
+
+def scene_from_numpy(d, device="cpu") -> Scene:
+    _missing(d, SCENE_KEYS)
+
+    def f32(k):
+        return torch.tensor(d[k], dtype=torch.float32, device=device)
+
+    def i64(k):
+        return torch.tensor(d[k], dtype=torch.int64, device=device)
+
+    return Scene(
+        vertices=f32("vertices"),
+        faces=i64("faces"),
+        material=i64("material"),
+        materials=Materials(kind=i64("materials.kind"),
+                            albedo=f32("materials.albedo")),
+        emitters=PointEmitters(position=f32("emitters.position"),
+                               intensity=f32("emitters.intensity")),
+        medium=HomogeneousMedium(
+            sigma_a=f32("medium.sigma_a"), sigma_s=f32("medium.sigma_s"),
+            g=f32("medium.g"), sampling_weight=f32("medium.sampling_weight"),
+            phase_kind=int(d["medium.phase_kind"])),
+        camera=Camera(to_world=f32("camera.to_world"),
+                      fov_x_deg=f32("camera.fov_x_deg"),
+                      width=int(d["camera.width"]),
+                      height=int(d["camera.height"]),
+                      kind=int(d["camera.kind"])),
+    )
+
+
+def vrls_from_numpy(d, device="cpu") -> VRLs:
+    _missing(d, VRL_KEYS)
+
+    def f32(k):
+        return torch.tensor(d[k], dtype=torch.float32, device=device)
+
+    return VRLs(start=f32("start"), end=f32("end"), power=f32("power"),
+                valid=torch.tensor(d["valid"], dtype=torch.bool,
+                                   device=device),
+                particle_count=f32("particle_count"))

@@ -1,0 +1,125 @@
+"""Sampling of the VRL x eye-ray double integral.
+
+Counterpart of the homogeneous parts of
+alvrl_tpu/integrators/vrl/integrate.py: the render configuration and
+the two samplers of the estimator (Kulla-Fajardo equi-angular sampling,
+and inverse-distance sampling of a point on the VRL by the sinh/asinh
+warp), as branchless batched tensor code. The plain version of the
+render kernel (ops.vrl_sum.vrl_sum_reference) is built from them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from alvrl_tpu_torch.core import math as m
+
+_H_EPS = 1e-6
+
+
+@dataclass(frozen=True)
+class VRLConfig:
+    vol_vol_samples: int = 2   # (U on the eye ray, V on the VRL) pairs
+    vol_surf_samples: int = 2  # V on the VRL against the eye ray's hit
+    short_vrls: bool = True    # divide by the VRL segment's pdfFailure
+
+
+def closest_points_segments(a0, a1, b0, b1):
+    """Closest points between segments [a0, a1] and [b0, b1] (the
+    clamped segment-segment algorithm). Returns (pa, pb, dist)."""
+    u = a1 - a0
+    v = b1 - b0
+    w = a0 - b0
+    a = m.dot(u, u)
+    b = m.dot(u, v)
+    c = m.dot(v, v)
+    d = m.dot(u, w)
+    e = m.dot(v, w)
+    denom = a * c - b * b
+    zero = torch.zeros_like(a)
+    one = torch.ones_like(a)
+
+    parallel = denom < 1e-9 * a * c + 1e-30
+    s_n = torch.where(parallel, zero, b * e - c * d)
+    s_d = torch.where(parallel, one, denom)
+    t_n = torch.where(parallel, e, a * e - b * d)
+    t_d = torch.where(parallel, c, denom)
+
+    # clamp s to [0, 1]
+    below = s_n < 0.0
+    above = s_n > s_d
+    t_n = torch.where(below, e, torch.where(above, e + b, t_n))
+    t_d = torch.where(below | above, c, t_d)
+    s_n = torch.where(below, zero, torch.where(above, s_d, s_n))
+
+    # clamp t to [0, 1] and recompute s on the clamped edge
+    t_below = t_n < 0.0
+    t_above = t_n > t_d
+    s_edge_lo = torch.minimum(torch.clamp(-d, min=0.0), a)
+    s_edge_hi = torch.minimum(torch.clamp(-d + b, min=0.0), a)
+    s_n = torch.where(t_below, s_edge_lo, torch.where(t_above, s_edge_hi, s_n))
+    s_d = torch.where(t_below | t_above, torch.clamp(a, min=1e-30), s_d)
+    t_n = torch.where(t_below, zero, torch.where(t_above, t_d, t_n))
+
+    sc = s_n / torch.clamp(s_d, min=1e-30)
+    tc = t_n / torch.clamp(t_d, min=1e-30)
+    pa = a0 + sc[..., None] * (a1 - a0)
+    pb = b0 + tc[..., None] * (b1 - b0)
+    return pa, pb, m.distance(pa, pb)
+
+
+def kulla_sampling(a, b, d_pt, u):
+    """Equi-angular sampling of a point on segment [a, b] with respect
+    to point d_pt (Kulla & Fajardo 2012). Returns (point, pdf), the pdf
+    per unit length on [a, b]."""
+    dirn = m.normalize(b - a)
+    dot_pr = m.dot(dirn, d_pt - a)
+    i_pt = a + dot_pr[..., None] * dirn
+    dis = torch.clamp(m.distance(d_pt, i_pt), min=_H_EPS)
+    dist_ai = m.distance(a, i_pt)
+    dist_ib = m.distance(i_pt, b)
+    angle_a = torch.atan(dist_ai / dis)
+    angle_b = torch.atan(dist_ib / dis)
+    pos = dot_pr > 0
+    angle_a = torch.where(pos, -angle_a, angle_a)
+    past_b = pos & (dist_ai > m.distance(a, b))
+    angle_b = torch.where(past_b, -angle_b, angle_b)
+    t = dis * torch.tan((1.0 - u) * angle_a + u * angle_b)
+    span = angle_b - angle_a
+    pdf = m.safe_divide(dis, span * (dis * dis + t * t))
+    point = i_pt + t[..., None] * dirn
+    return point, pdf
+
+
+def sample_v_to_distance(eye_o, eye_d, eye_hit, vrl_s, vrl_e, u):
+    """Sample V on the VRL proportionally to the inverse distance from
+    the eye segment (sinh/asinh inversion); uniform along the VRL when
+    the two are nearly parallel. Returns (V, pdf per unit length)."""
+    vrl_len = torch.clamp(m.distance(vrl_s, vrl_e), min=1e-30)
+    vrl_dir = (vrl_e - vrl_s) / vrl_len[..., None]
+    cos_theta = m.dot(m.normalize(eye_d), vrl_dir)
+    sin_theta = m.safe_sqrt(1.0 - cos_theta * cos_theta)
+    near_parallel = sin_theta < 1e-4
+
+    _, vh, h = closest_points_segments(eye_o, eye_hit, vrl_s, vrl_e)
+    h = torch.clamp(h, min=_H_EPS)
+    sin_safe = torch.clamp(sin_theta, min=1e-4)
+
+    v0c = -m.distance(vh, vrl_s)
+    v1c = m.distance(vh, vrl_e)
+    a0 = torch.asinh(v0c / h * sin_safe)
+    a1 = torch.asinh(v1c / h * sin_safe)
+    new_v = h * torch.sinh(a0 + u * (a1 - a0)) / sin_safe
+    inv_dist = 1.0 / torch.sqrt(h * h + new_v * new_v * sin_safe * sin_safe)
+    denom = torch.clamp((a1 - a0) / sin_safe, min=1e-30)
+    arc = new_v + m.distance(vh, vrl_s)
+    v_kulla = vrl_s + arc[..., None] * vrl_dir
+    pdf_kulla = inv_dist / denom
+
+    v_uni = vrl_s + u[..., None] * (vrl_e - vrl_s)
+    pdf_uni = 1.0 / vrl_len
+    v = torch.where(near_parallel[..., None], v_uni, v_kulla)
+    pdf = torch.where(near_parallel, pdf_uni, pdf_kulla)
+    return v, pdf

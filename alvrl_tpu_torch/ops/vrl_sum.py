@@ -1,0 +1,347 @@
+"""The VRL x eye-ray sum: the hot loop of the render.
+
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas. For each eye ray,
+the sum over all valid VRLs of the vol-vol and vol-surf estimators
+(Kulla equi-angular + sinh/asinh inverse-distance sampling, short-VRL
+pdfFailure division, shadow tests against the opaque triangles),
+(3, B) float32, not yet normalised by the particle count.
+
+What bounds it on the H100 is fp32 ALU and special-function throughput
+(about a thousand flops and twenty transcendentals per pair-sample, on
+under 1 MB of input); the CUDA kernel (csrc/vrl_sum.cu, whose header
+gives the design) keeps everything on chip and splits both the ray and
+the VRL axes over the grid so that the card is full.
+
+Beside the kernel:
+  * `vrl_sum_reference`, the plain PyTorch version on the same packs,
+    built from integrators.vrl.integrate's samplers, with explicit
+    uniforms;
+  * `philox_uniforms`, the kernel's random stream (Philox4x32-10) in
+    plain torch, so that a live-RNG kernel run is checked exactly;
+  * `vrl_sum`, the wrapper: the kernel for CUDA tensors (or an error;
+    there is no fallback), the plain version for CPU tensors;
+  * `homog_bar`, the agreement bar between two homogeneous renders.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from alvrl_tpu_torch.core import math as m
+from alvrl_tpu_torch.integrators.vrl import integrate
+from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.ops import _build
+from alvrl_tpu_torch.ops import pack as pk
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 (Salmon et al., Random123) on int64 tensors holding uint32
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_RAY_CHUNK = 2048  # rays per block of philox_uniforms
+_PLAIN_RAY_CHUNK = 256    # rays per block of vrl_sum_reference
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(a: int, b):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant a and
+    the uint32 tensor b, with every partial product below 2^49."""
+    x = a * (b >> 16)
+    y = a * (b & 0xFFFF)
+    lo = (((x & 0xFFFF) << 16) + y) & _MASK32
+    hi = (x + (y >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of `counter` ((..., 4) int64 tensor of uint32 words)
+    under `key` (two ints); returns (..., 4) int64 of uint32 words."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_uniforms(seed: int, n_rays: int, n_vrls: int, n_draws: int,
+                    device="cpu"):
+    """(n_rays, n_vrls, n_draws) float32 uniforms of the kernel's stream:
+    key (seed, 0), counter (ray, vrl, j, 0); draw d is word d % 4 of call
+    j = d // 4, mapped to (bits >> 8) * 2^-24."""
+    n_calls = -(-n_draws // 4)
+    out = torch.empty((n_rays, n_vrls, n_draws), dtype=torch.float32,
+                      device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    n = torch.arange(n_vrls, **i64)[None, :, None]
+    j = torch.arange(n_calls, **i64)[None, None, :]
+    for b0 in range(0, n_rays, _PHILOX_RAY_CHUNK):
+        b = torch.arange(b0, min(n_rays, b0 + _PHILOX_RAY_CHUNK),
+                         **i64)[:, None, None]
+        b, nn, jj = torch.broadcast_tensors(b, n, j)
+        ctr = torch.stack([b, nn, jj, torch.zeros_like(b)], dim=-1)
+        bits = philox4x32_10(ctr, (seed, 0)).reshape(
+            len(b), n_vrls, 4 * n_calls)
+        out[b0:b0 + len(b)] = (bits[..., :n_draws] >> 8).to(
+            torch.float32) * 2.0 ** -24
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _occluded_packed(p, q, tris):
+    """(...,) bool: does a packed triangle block the open segment p -> q
+    (ends shrunk by 1e-3 * max(|q - p|, 1))? The division-free Wald test
+    of the kernel, vectorised over the triangles."""
+    dd = q - p
+    len2 = m.dot(dd, dd)
+    idist = 1.0 / torch.sqrt(torch.clamp(len2, min=1e-30))
+    dist = len2 * idist
+    u = (dd * idist[..., None])[..., None, :]
+    lo = (1e-3 * torch.clamp(dist, min=1.0))[..., None]
+    hi = dist[..., None] - lo
+    p0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    pv = m.cross(u, e2)
+    det = m.dot(e1, pv)
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    adet = det * sgn
+    tv = p[..., None, :] - p0
+    uu = m.dot(tv, pv) * sgn
+    qv = m.cross(tv, e1)
+    vv = m.dot(u, qv) * sgn
+    tt = m.dot(e2, qv) * sgn
+    mn = torch.minimum(uu, vv)
+    mn = torch.minimum(mn, adet - (uu + vv))
+    mn = torch.minimum(mn, tt - lo * adet)
+    mn = torch.minimum(mn, hi * adet - tt)
+    mn = torch.minimum(mn, adet - 1e-12)
+    return (mn > 0.0).any(dim=-1)
+
+
+def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
+               phase_kind):
+    """(R, 3) sums over the VRLs for a block of R rays; u: (R, N, D)."""
+    def rows(pack, r):
+        return pack[r:r + 3].T
+
+    o, d, hp = rows(rays, pk.RO)[:, None], rows(rays, pk.RD)[:, None], \
+        rows(rays, pk.HP)[:, None]
+    ng, alb, tau = rows(rays, pk.NG)[:, None], rows(rays, pk.ALB)[:, None], \
+        rows(rays, pk.TAU)[:, None]
+    s, e, pw = rows(vrls, pk.VS)[None], rows(vrls, pk.VE)[None], \
+        rows(vrls, pk.VP)[None]
+    pair_ok = (rays[pk.VALID][:, None] > 0.5) & (vrls[pk.VVALID][None] > 0.5)
+    sig_t, sig_s, g, msw = medium[0:3], medium[3:6], medium[6], medium[7]
+    uv = m.normalize(e - s)
+
+    def phase(wi, wo):
+        return ph.eval_phase(phase_kind, g, wi, wo)
+
+    def pdf_failure(x):
+        pf = torch.exp(-sig_t * x[..., None]).sum(dim=-1) * (1.0 / 3.0)
+        return msw * pf + (1.0 - msw)
+
+    def segment(p, q):
+        duv = p - q
+        d_uv2 = m.dot(duv, duv)
+        d_uv = torch.sqrt(torch.clamp(d_uv2, min=1e-30))
+        return d_uv2, d_uv, duv / d_uv[..., None]
+
+    total = torch.zeros(pair_ok.shape + (3,), dtype=torch.float32,
+                        device=rays.device)
+    for i in range(svv):
+        v, pdf_v = integrate.sample_v_to_distance(o, d, hp, s, e,
+                                                  u[..., 2 * i])
+        up, pdf_u = integrate.kulla_sampling(o, hp, v, u[..., 2 * i + 1])
+        pdf = pdf_v * pdf_u
+        d_uv2, d_uv, vu = segment(up, v)
+        ok = pair_ok & (d_uv2 > 0.0) & (pdf > 0.0)
+        ok = ok & ~_occluded_packed(up, v, tris)
+        geo = phase(-vu, -d) * phase(-uv, vu) / torch.clamp(pdf * d_uv2,
+                                                            min=1e-30)
+        d_sv = m.distance(s, v)
+        if short_vrls:
+            geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
+        path = m.distance(o, up) + d_uv + d_sv
+        term = pw * sig_s * sig_s * torch.exp(-sig_t * path[..., None]) \
+            * geo[..., None]
+        total += torch.where(ok[..., None], term, 0.0) * (1.0 / svv)
+
+    alb_any = alb.sum(dim=-1) > 0.0
+    for k in range(svs):
+        v, pdf_v = integrate.kulla_sampling(s, e, hp, u[..., 2 * svv + k])
+        d_uv2, d_uv, vu = segment(hp, v)
+        ok = pair_ok & alb_any & (d_uv2 > 0.0) & (pdf_v > 0.0)
+        ok = ok & ~_occluded_packed(hp, v, tris)
+        cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
+        geo = phase(-uv, vu) * cos_o * (1.0 / math.pi) / torch.clamp(
+            pdf_v * d_uv2, min=1e-30)
+        d_sv = m.distance(s, v)
+        if short_vrls:
+            geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
+        term = pw * sig_s * alb * tau \
+            * torch.exp(-sig_t * (d_uv + d_sv)[..., None]) * geo[..., None]
+        total += torch.where(ok[..., None], term, 0.0) * (1.0 / svs)
+    return total.sum(dim=1)
+
+
+def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
+                      vol_vol_samples=2, vol_surf_samples=2,
+                      short_vrls=True, phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel on the same packs, with
+    explicit (B, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
+    Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size."""
+    n_rays = rays.shape[1]
+    out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
+    for b0 in range(0, n_rays, _PLAIN_RAY_CHUNK):
+        b1 = min(n_rays, b0 + _PLAIN_RAY_CHUNK)
+        out[:, b0:b1] = _pair_sums(
+            rays[:, b0:b1], vrls, tris, medium, uniforms[b0:b1],
+            vol_vol_samples, vol_surf_samples, short_vrls, phase_kind).T
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
+            short_vrls, phase_kind):
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
+    partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
+                          device=rays.device)
+    out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
+    err = lib.alvrl_vrl_sum(
+        rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
+        tris.shape[0], medium.data_ptr(),
+        None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+        int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
+        out.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("vrl_sum kernel launch failed: CUDA error "
+                           f"{err} ({lib.alvrl_error_string(err).decode()})")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load_library()
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, u, i, i, i, i,
+                                  p, i, p, p]
+    lib.alvrl_vrl_sum.restype = i
+    lib.alvrl_vrl_chunk.restype = i
+    lib.alvrl_max_tris.restype = i
+    lib.alvrl_error_string.argtypes = [i]
+    lib.alvrl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind):
+    named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
+    if uniforms is not None:
+        named["uniforms"] = uniforms
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != rays.device:
+            raise ValueError(f"{name} is on {t.device}, rays on {rays.device}")
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rays.device}")
+    if rays.dim() != 2 or rays.shape[0] != pk.RAY_ROWS:
+        raise ValueError(f"rays must be ({pk.RAY_ROWS}, B), got "
+                         f"{tuple(rays.shape)}")
+    if vrls.dim() != 2 or vrls.shape[0] != pk.VRL_ROWS:
+        raise ValueError(f"vrls must be ({pk.VRL_ROWS}, N), got "
+                         f"{tuple(vrls.shape)}")
+    if tris.dim() != 2 or tris.shape[1] != pk.TRI_COLS:
+        raise ValueError(f"tris must be (T, {pk.TRI_COLS}), got "
+                         f"{tuple(tris.shape)}")
+    if tuple(medium.shape) != (pk.MED_LEN,):
+        raise ValueError(f"medium must be ({pk.MED_LEN},), got "
+                         f"{tuple(medium.shape)}")
+    if svv < 0 or svs < 0:
+        raise ValueError("sample counts must be >= 0")
+    shape = (rays.shape[1], vrls.shape[1], 2 * svv + svs)
+    if uniforms is not None and tuple(uniforms.shape) != shape:
+        raise ValueError(f"uniforms must be {shape}, got "
+                         f"{tuple(uniforms.shape)}")
+    if phase_kind not in (ph.HG, ph.RAYLEIGH):
+        raise ValueError(f"phase kind {phase_kind} is not ported")
+    if not 0 <= seed <= _MASK32:
+        raise ValueError(f"seed {seed} is not a uint32")
+
+
+def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
+            vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+            phase_kind=ph.HG):
+    """(3, B) per-ray VRL sums (not normalised by the particle count).
+
+    rays (RAY_ROWS, B), vrls (VRL_ROWS, N), tris (T, TRI_COLS) and
+    medium (MED_LEN,) are the packs of ops.pack, float32 and contiguous,
+    on one device. Random numbers come from the Philox stream of `seed`,
+    or from `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples)
+    when given. CUDA tensors go through the CUDA kernel, CPU tensors
+    through vrl_sum_reference."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
+        return vrl_sum_reference(
+            rays, vrls, tris, medium, uniforms, vol_vol_samples=svv,
+            vol_surf_samples=svs, short_vrls=short_vrls,
+            phase_kind=phase_kind)
+    lib = _library()
+    if tris.shape[0] > lib.alvrl_max_tris():
+        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
+                         f"shared-memory cap of {lib.alvrl_max_tris()}")
+    if n_rays == 0 or n_vrls == 0:
+        return torch.zeros((3, n_rays), dtype=torch.float32,
+                           device=rays.device)
+    with torch.cuda.device(rays.device):
+        out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
+                      svs, short_vrls, phase_kind)
+    vrl_sum.launches += 1
+    return out
+
+
+vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
+
+
+# ---------------------------------------------------------------------------
+# Agreement bar
+# ---------------------------------------------------------------------------
+
+HOMOG_MEDIAN = 1e-5  # bar on the median relative error
+HOMOG_SHARE = 0.02   # bar on the share of rays over 1e-2
+HOMOG_FLOOR = 1e-3   # smallest |ref| a relative error divides by
+
+
+def homog_bar(out, ref):
+    """(median, share over 1e-2) of the per-ray relative error between
+    two homogeneous results with channels last, (..., 3): the largest
+    channel error |out - ref| / max(|ref|, HOMOG_FLOOR) of each ray. The bar
+    is median < HOMOG_MEDIAN and share < HOMOG_SHARE: the sums agree to
+    f32 rounding, except for the few rays where the two pipelines round
+    one occlusion-edge test differently."""
+    rel = (out - ref).abs() / torch.clamp(ref.abs(), min=HOMOG_FLOOR)
+    rel = rel.reshape(-1, 3).amax(dim=-1).double()
+    return float(rel.median()), float((rel > 1e-2).double().mean())
