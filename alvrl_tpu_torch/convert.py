@@ -10,18 +10,19 @@ from __future__ import annotations
 
 import torch
 
+from alvrl_tpu_torch.emitters.emitters import Emitters
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
 from alvrl_tpu_torch.scene.scene import (
     Camera,
     Materials,
-    PointEmitters,
     Scene,
 )
 
 SCENE_KEYS = (
     "vertices", "faces", "material", "materials.kind", "materials.albedo",
-    "emitters.position", "emitters.intensity", "medium.sigma_a",
+    "emitters.kind", "emitters.position", "emitters.intensity",
+    "emitters.pmf", "medium.sigma_a",
     "medium.sigma_s", "medium.g", "medium.sampling_weight",
     "medium.phase_kind", "camera.to_world", "camera.fov_x_deg",
     "camera.width", "camera.height", "camera.kind",
@@ -50,8 +51,10 @@ def scene_from_numpy(d, device="cpu") -> Scene:
         material=i64("material"),
         materials=Materials(kind=i64("materials.kind"),
                             albedo=f32("materials.albedo")),
-        emitters=PointEmitters(position=f32("emitters.position"),
-                               intensity=f32("emitters.intensity")),
+        emitters=Emitters(kind=i64("emitters.kind"),
+                          position=f32("emitters.position"),
+                          intensity=f32("emitters.intensity"),
+                          pmf=f32("emitters.pmf")),
         medium=HomogeneousMedium(
             sigma_a=f32("medium.sigma_a"), sigma_s=f32("medium.sigma_s"),
             g=f32("medium.g"), sampling_weight=f32("medium.sampling_weight"),

@@ -46,3 +46,33 @@ def safe_divide(num, den):
     den_ok = den != 0.0
     den_safe = torch.where(den_ok, den, torch.ones_like(den))
     return torch.where(den_ok, num / den_safe, torch.zeros_like(den))
+
+
+def build_frame(n):
+    """Orthonormal (s, t) around the unit normal n, with s x t = n:
+    the branchless construction of Duff et al. 2017."""
+    nx, ny, nz = n.unbind(-1)
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    s = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
+    t = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return s, t
+
+
+def frame_to_world(s, t, n, v_local):
+    """Local (x, y, z) in the frame (s, t, n) -> world."""
+    return v_local[..., 0:1] * s + v_local[..., 1:2] * t \
+        + v_local[..., 2:3] * n
+
+
+def frame_to_local(s, t, n, v_world):
+    return torch.stack([dot(v_world, s), dot(v_world, t), dot(v_world, n)],
+                       dim=-1)
+
+
+def spherical_direction(cos_theta, phi):
+    """(cos_theta, phi) -> unit vector in the local frame (z the pole)."""
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)

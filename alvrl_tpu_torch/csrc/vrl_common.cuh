@@ -1,0 +1,329 @@
+// Device code shared by the VRL sum (vrl_sum.cu) and its VJP
+// (vrl_sum_bwd.cu): the pack layouts, the Philox stream, the phase
+// functions, the shadow test and the two samplers of the estimator. The
+// backward replays the forward's samples, so both kernels take them
+// from the same functions here, in the same draw order.
+// Precise math functions throughout (no --use_fast_math).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// pack layouts: ops/pack.py
+constexpr int RO = 0, RD = 3, HP = 6, NG = 9, ALB = 12, TAU = 15, VALID = 18;
+constexpr int VS = 0, VE = 3, VP = 6, VVALID = 9, VRL_ROWS = 10;
+constexpr int TRI_COLS = 9;
+
+constexpr int RAY_BLOCK = 128;  // threads (rays) per block
+constexpr int VRL_CHUNK = 32;   // VRLs per block
+constexpr int MAX_TRIS = 1024;  // shared memory: 36 KB of triangles
+constexpr int MAX_GRID_Y = 65535;
+
+constexpr float INV_FOURPI = 0.0795774715459476679f;
+constexpr float INV_PI = 0.318309886183790672f;
+constexpr float RAYLEIGH_NORM = 0.0596831036594607510f;  // 3 / (16 pi)
+constexpr float H_EPS = 1e-6f;
+
+struct f3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ f3 operator+(f3 a, f3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ f3 operator-(f3 a, f3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ f3 operator*(f3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ float dot3(f3 a, f3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ f3 cross3(f3 a, f3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// The uniforms of one (ray, VRL) pair, drawn in order d = 0, 1, 2, ...:
+// key (seed, 0), counter (b, n, d / 4, 0), word d % 4, (bits >> 8) * 2^-24;
+// or this pair's row of the injected (B, N, n_draws) uniforms.
+struct PairUniforms {
+  const float* injected;  // this pair's row of `uniforms`, or nullptr
+  uint32_t b, n, seed;
+  uint4 block;
+  int block_j;
+
+  __device__ float operator()(int d) {
+    if (injected) return injected[d];
+    const int j = d >> 2;
+    if (j != block_j) {
+      block = philox4x32_10(make_uint4(b, n, (uint32_t)j, 0u), seed, 0u);
+      block_j = j;
+    }
+    const int w = d & 3;
+    const uint32_t bits = w == 0 ? block.x : w == 1 ? block.y : w == 2 ? block.z : block.w;
+    return (float)(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
+  }
+};
+
+// PHASE 0: Henyey-Greenstein, 1: Rayleigh; c = dot(wi, wo)
+template <int PHASE>
+__device__ __forceinline__ float phase_eval(float g, float c) {
+  if (PHASE == 1) return RAYLEIGH_NORM * (1.0f + c * c);
+  const float temp = fmaxf(1.0f + g * g + 2.0f * g * c, 1e-12f);
+  return INV_FOURPI * (1.0f - g * g) / (temp * sqrtf(temp));
+}
+
+// The homogeneous medium: sigma_t, sigma_s, g, sampling weight (ops/pack.py).
+struct Medium {
+  float sig_t[3], sig_s[3], g, msw;
+
+  __device__ explicit Medium(const float* __restrict__ med)
+      : sig_t{med[0], med[1], med[2]}, sig_s{med[3], med[4], med[5]}, g(med[6]), msw(med[7]) {}
+
+  // short-VRL pdfFailure of the VRL segment up to arc length x; e[c] =
+  // exp(-sig_t[c] x), which its derivative reads
+  __device__ float pdf_failure(float x, float e[3]) const {
+    e[0] = expf(-sig_t[0] * x);
+    e[1] = expf(-sig_t[1] * x);
+    e[2] = expf(-sig_t[2] * x);
+    const float pf = (e[0] + e[1] + e[2]) * (1.0f / 3.0f);
+    return msw * pf + (1.0f - msw);
+  }
+};
+
+// One eye ray of the ray pack (RAY_ROWS, B); `ok` only for a valid hit.
+struct Ray {
+  f3 o, d, hp, ng, ee;  // ee: the eye segment hp - o
+  float alb[3], tau[3], elen;
+  bool ok, alb_any;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, int b) {
+  auto row = [&](int r) { return rays[(size_t)r * B + b]; };
+  auto row3 = [&](int r) { return f3{row(r), row(r + 1), row(r + 2)}; };
+  Ray ray;
+  ray.o = row3(RO);
+  ray.d = row3(RD);
+  ray.hp = row3(HP);
+  ray.ng = row3(NG);
+  for (int ch = 0; ch < 3; ++ch) {
+    ray.alb[ch] = row(ALB + ch);
+    ray.tau[ch] = row(TAU + ch);
+  }
+  ray.ok = row(VALID) > 0.5f;
+  ray.ee = ray.hp - ray.o;
+  ray.elen = sqrtf(fmaxf(dot3(ray.ee, ray.ee), 1e-30f));
+  ray.alb_any = (ray.alb[0] + ray.alb[1] + ray.alb[2]) > 0.0f;
+  return ray;
+}
+
+// Stage all T triangles and the block's chunk of VRLs (zero-padded to
+// VRL_CHUNK) in shared memory; returns the chunk's VRL count.
+__device__ __forceinline__ int stage_block(const float* __restrict__ tris, int T,
+                                           const float* __restrict__ vrls, int N, int n0,
+                                           float* s_tri, float* s_vrl) {
+  const int nc = min(VRL_CHUNK, N - n0);
+  for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+  for (int i = threadIdx.x; i < VRL_ROWS * VRL_CHUNK; i += blockDim.x) {
+    const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
+    s_vrl[i] = c < nc ? vrls[(size_t)r * N + n0 + c] : 0.0f;
+  }
+  return nc;
+}
+
+// Any triangle blocking the open segment p -> q (ends shrunk by
+// 1e-3 * max(|q - p|, 1))? Division-free Wald test.
+__device__ bool occluded(const float* __restrict__ s_tri, int T, f3 p, f3 q) {
+  const f3 dd = q - p;
+  const float len2 = dot3(dd, dd);
+  const float idist = 1.0f / sqrtf(fmaxf(len2, 1e-30f));
+  const float dist = len2 * idist;
+  const f3 u = dd * idist;
+  const float lo = 1e-3f * fmaxf(dist, 1.0f);
+  const float hi = dist - lo;
+  for (int t = 0; t < T; ++t) {
+    const float* tr = s_tri + t * TRI_COLS;
+    const f3 p0 = {tr[0], tr[1], tr[2]};
+    const f3 e1 = {tr[3], tr[4], tr[5]};
+    const f3 e2 = {tr[6], tr[7], tr[8]};
+    const f3 pv = cross3(u, e2);
+    const float det = dot3(e1, pv);
+    const float sgn = det >= 0.0f ? 1.0f : -1.0f;
+    const float adet = det * sgn;
+    const f3 tv = p - p0;
+    const float uu = dot3(tv, pv) * sgn;
+    const f3 qv = cross3(tv, e1);
+    const float vv = dot3(u, qv) * sgn;
+    const float tt = dot3(e2, qv) * sgn;
+    float mn = fminf(uu, vv);
+    mn = fminf(mn, adet - (uu + vv));
+    mn = fminf(mn, tt - lo * adet);
+    mn = fminf(mn, hi * adet - tt);
+    mn = fminf(mn, adet - 1e-12f);
+    if (mn > 0.0f) return true;
+  }
+  return false;
+}
+
+// Equi-angular (Kulla-Fajardo) sampling of a point at arc length `arc`
+// along the segment a + t * dir, t in [0, len], around point x.
+__device__ __forceinline__ void kulla(f3 a, f3 dir, float len, f3 x, float u, float& arc,
+                                      float& pdf) {
+  const float dot_pr = dot3(dir, x - a);
+  const f3 dd = x - (a + dir * dot_pr);
+  const float dis = fmaxf(sqrtf(dot3(dd, dd)), H_EPS);
+  const float dist_ai = fabsf(dot_pr);
+  const float dist_ib = fabsf(len - dot_pr);
+  float angle_a = atanf(dist_ai / dis);
+  float angle_b = atanf(dist_ib / dis);
+  const bool pos = dot_pr > 0.0f;
+  if (pos) angle_a = -angle_a;
+  if (pos && dist_ai > len) angle_b = -angle_b;
+  const float t = dis * tanf((1.0f - u) * angle_a + u * angle_b);
+  const float span = angle_b - angle_a;
+  pdf = fabsf(span) > 1e-12f ? dis / fmaxf(span * (dis * dis + t * t), 1e-30f) : 0.0f;
+  arc = dot_pr + t;
+}
+
+// Parameter tc in [0, 1] of the point of segment (s, s + v) closest to
+// segment (o, o + u), and the distance between the closest points.
+__device__ __forceinline__ void seg_seg_closest(f3 o, f3 u, f3 s, f3 v, float& tc, float& h) {
+  const f3 w = o - s;
+  const float a = dot3(u, u), b = dot3(u, v), c = dot3(v, v);
+  const float d = dot3(u, w), e = dot3(v, w);
+  const float denom = a * c - b * b;
+  const bool par = denom < 1e-9f * a * c + 1e-30f;
+  float s_n = par ? 0.0f : b * e - c * d;
+  float s_d = par ? 1.0f : denom;
+  float t_n = par ? e : a * e - b * d;
+  float t_d = par ? c : denom;
+  const bool below = s_n < 0.0f, above = s_n > s_d;
+  t_n = below ? e : (above ? e + b : t_n);
+  t_d = (below || above) ? c : t_d;
+  s_n = below ? 0.0f : (above ? s_d : s_n);
+  const bool t_below = t_n < 0.0f, t_above = t_n > t_d;
+  const float s_lo = fminf(fmaxf(-d, 0.0f), a);
+  const float s_hi = fminf(fmaxf(-d + b, 0.0f), a);
+  s_n = t_below ? s_lo : (t_above ? s_hi : s_n);
+  s_d = (t_below || t_above) ? fmaxf(a, 1e-30f) : s_d;
+  t_n = t_below ? 0.0f : (t_above ? t_d : t_n);
+  const float sc = s_n / fmaxf(s_d, 1e-30f);
+  tc = t_n / fmaxf(t_d, 1e-30f);
+  const f3 dp = (o + u * sc) - (s + v * tc);
+  h = sqrtf(fmaxf(dot3(dp, dp), 0.0f));
+}
+
+// A VRL (from column c of the staged chunk) and what its samples against
+// one eye ray share: the inverse-distance sampler's setup.
+struct VrlPair {
+  f3 s, uv;  // start, unit direction
+  float pw[3], vlen, ivl, sin_safe, h, arc_h, a0, a1;
+  bool near_par;
+};
+
+__device__ __forceinline__ VrlPair pair_setup(const Ray& ray, const float* s_vrl, int c) {
+  auto vrl = [&](int r) { return s_vrl[r * VRL_CHUNK + c]; };
+  VrlPair p;
+  p.s = {vrl(VS), vrl(VS + 1), vrl(VS + 2)};
+  const f3 vd = f3{vrl(VE), vrl(VE + 1), vrl(VE + 2)} - p.s;
+  for (int ch = 0; ch < 3; ++ch) p.pw[ch] = vrl(VP + ch);
+  p.vlen = sqrtf(fmaxf(dot3(vd, vd), 1e-30f));
+  p.ivl = 1.0f / p.vlen;
+  p.uv = vd * p.ivl;
+  float tc, h_close;
+  seg_seg_closest(ray.o, ray.ee, p.s, vd, tc, h_close);
+  const float cos_theta = dot3(ray.d, p.uv);
+  const float sin_theta = sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
+  p.near_par = sin_theta < 1e-4f;
+  p.sin_safe = fmaxf(sin_theta, 1e-4f);
+  p.h = fmaxf(h_close, H_EPS);
+  p.arc_h = tc * p.vlen;  // closest point's arc position on the VRL
+  p.a0 = asinhf(-p.arc_h / p.h * p.sin_safe);
+  p.a1 = asinhf((p.vlen - p.arc_h) / p.h * p.sin_safe);
+  return p;
+}
+
+// The geometry of one unoccluded sample: the phase cosines, the
+// denominator max(pdf * d_uv^2, 1e-30), the VRL arc length d_sv that the
+// short-VRL pdfFailure reads, and the transmittance path length.
+struct Sample {
+  float c_u, c_v, cos_o, den, d_sv, path;
+};
+
+// Vol-vol: V on the VRL ~ inverse distance to the eye ray, U on the eye
+// ray ~ equi-angular around V. False if the sample is dropped.
+__device__ __forceinline__ bool vol_vol_sample(const Ray& ray, const VrlPair& p, float u1, float u2,
+                                               const float* s_tri, int T, Sample& sm) {
+  float arc_v, pdf_v;
+  if (p.near_par) {
+    arc_v = u1 * p.vlen;
+    pdf_v = p.ivl;
+  } else {
+    const float new_v = p.h * sinhf(p.a0 + u1 * (p.a1 - p.a0)) / p.sin_safe;
+    const float inv_dist =
+        1.0f / sqrtf(fmaxf(p.h * p.h + new_v * new_v * p.sin_safe * p.sin_safe, 1e-30f));
+    const float denom = fmaxf((p.a1 - p.a0) / p.sin_safe, 1e-30f);
+    arc_v = new_v + p.arc_h;
+    pdf_v = inv_dist / denom;
+  }
+  const f3 vp = p.s + p.uv * arc_v;
+  float arc_u, pdf_u;
+  kulla(ray.o, ray.d, ray.elen, vp, u2, arc_u, pdf_u);
+  const f3 up = ray.o + ray.d * arc_u;
+  const float pdf = pdf_v * pdf_u;
+  const f3 duv = up - vp;
+  const float d_uv2 = dot3(duv, duv);
+  if (!(d_uv2 > 0.0f && pdf > 0.0f)) return false;
+  if (occluded(s_tri, T, up, vp)) return false;
+  const float d_uv = sqrtf(fmaxf(d_uv2, 1e-30f));
+  const f3 vu = duv * (1.0f / d_uv);
+  sm.c_u = dot3(vu, ray.d);
+  sm.c_v = -dot3(p.uv, vu);
+  sm.den = fmaxf(pdf * d_uv2, 1e-30f);
+  sm.d_sv = fabsf(arc_v);
+  sm.path = fabsf(arc_u) + d_uv + sm.d_sv;
+  return true;
+}
+
+// Vol-surf: V on the VRL ~ equi-angular around the eye ray's hit point.
+__device__ __forceinline__ bool vol_surf_sample(const Ray& ray, const VrlPair& p, float u1,
+                                                const float* s_tri, int T, Sample& sm) {
+  float arc_v, pdf_v;
+  kulla(p.s, p.uv, p.vlen, ray.hp, u1, arc_v, pdf_v);
+  const f3 vp = p.s + p.uv * arc_v;
+  const f3 duv = ray.hp - vp;
+  const float d_uv2 = dot3(duv, duv);
+  if (!(d_uv2 > 0.0f && pdf_v > 0.0f)) return false;
+  if (occluded(s_tri, T, ray.hp, vp)) return false;
+  const float d_uv = sqrtf(fmaxf(d_uv2, 1e-30f));
+  const f3 vu = duv * (1.0f / d_uv);
+  sm.cos_o = fmaxf(-dot3(ray.ng, vu), 0.0f);
+  sm.c_v = -dot3(p.uv, vu);
+  sm.den = fmaxf(pdf_v * d_uv2, 1e-30f);
+  sm.d_sv = fabsf(arc_v);
+  sm.path = d_uv + sm.d_sv;
+  return true;
+}
+
+// out[i] = sum over parts p of part[p, i] (part: (n_parts, len)), in
+// part order: deterministic, one thread per output.
+__global__ void reduce_parts(const float* __restrict__ part, int n_parts, int len,
+                             float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  float s = 0.0f;
+  for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * len + i];
+  out[i] = s;
+}
+
+}  // namespace

@@ -2,7 +2,8 @@
 
 Counterpart of alvrl_tpu/integrators/vrl/integrator.py for the
 unclustered render of the main path: every eye ray integrates against
-every VRL, normalised by the traced-particle count.
+every VRL, normalised by the traced-particle count; plain, or
+differentiable through the seed-replay VJP.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_sum import vrl_sum
+from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff
 from alvrl_tpu_torch.scene.scene import Scene
 from alvrl_tpu_torch.sensors import perspective
 
@@ -53,9 +55,24 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     the CPU). `uniforms`, (W * H, N, 2 * vol_vol + vol_surf) float32 on
     the scene's device, replaces the random stream (for exact checks).
     Returns the (H, W, 3) image."""
+    return _render(vrl_sum, scene, vrls, generator, cfg, uniforms)
+
+
+def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
+                                 cfg: VRLConfig = VRLConfig(), *,
+                                 uniforms=None):
+    """render_with_vrls_kernel, differentiable through
+    ops.vrl_sum_bwd.vrl_sum_diff (the seed-replay VJP) in the medium's
+    sigma_a, sigma_s and g, the VRL powers, and the eye-to-surface
+    transmittance; geometry is detached. Counterpart of
+    render_with_vrls_pallas_diff."""
+    return _render(vrl_sum_diff, scene, vrls, generator, cfg, uniforms)
+
+
+def _render(sum_fn, scene, vrls, generator, cfg, uniforms):
     px, py, hit, packs = pack_frame(scene, vrls)
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-    sums = vrl_sum(
+    sums = sum_fn(
         *packs, seed=seed, uniforms=uniforms,
         vol_vol_samples=cfg.vol_vol_samples,
         vol_surf_samples=cfg.vol_surf_samples,

@@ -1,0 +1,171 @@
+"""VRL generation by volumetric photon tracing, differentiable.
+
+Counterpart of alvrl_tpu/integrators/vrl/tracer.py (trace, _trace_one)
+for point emitters, diffuse surfaces and a homogeneous medium with an
+HG or Rayleigh phase. All particles advance in lockstep, as tensors
+with a leading particle axis, through a Python loop over bounce depth;
+each (particle, depth) slot holds at most one VRL, so the buffer has
+num_particles * max_depth slots, particle-major.
+
+Per step, as traceOneParticle (vrlTracer.h:91-230): a free-flight
+sample against the closest surface; a medium event multiplies the
+throughput by tau sigma_s / pdfSuccess and a phase sample and starts a
+new VRL at the scatter point; a surface event multiplies it by
+tau / pdfFailure and a BSDF sample and starts one at the surface; past
+rr_depth, Russian roulette with q = min(max(throughput), 0.95) (the
+reference's eta^2 factor is 1 for diffuse surfaces).
+
+Gradients follow the reference's detached-sampling contract: sampled
+positions and directions are detached, the free-flight pdf denominators
+too (media/api.py), and with score_phase an HG phase sample carries the
+factor phase / detach(phase), 1 in value, whose derivative is the score
+term d/dg log phase. The throughput factors and the emitted power carry
+all the dependence on sigma_a, sigma_s, g and the intensity.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from alvrl_tpu_torch.bsdf import api as bsdf_api
+from alvrl_tpu_torch.core import math as m
+from alvrl_tpu_torch.emitters import emitters as em_mod
+from alvrl_tpu_torch.geometry import intersect
+from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
+from alvrl_tpu_torch.media import api as mapi
+from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.scene.scene import Scene
+
+N_EMIT_DIMS = 3   # emitter choice, then the 2 direction uniforms
+# uniforms of one step, in the reference's key order: distance (2),
+# phase (2), BSDF (N_SAMPLE_DIMS), roulette (1)
+U_DIST, U_PHASE, U_BSDF = slice(0, 2), slice(2, 4), slice(4, 9)
+U_RR = 9
+N_STEP_DIMS = 10
+SURFACE_MISS = 1e30  # free-flight segment length of a ray that hits nothing
+
+
+@dataclass(frozen=True)
+class TracerConfig:
+    max_depth: int = 16
+    rr_depth: int = 5
+    short_vrls: bool = True   # VRLs end at the scatter point, else at the
+                              # next surface
+    score_phase: bool = True  # the HG score surrogate (module docstring)
+
+
+def trace(scene: Scene, generator, num_particles: int,
+          cfg: TracerConfig = TracerConfig()) -> VRLs:
+    """Trace num_particles light paths with uniforms drawn from
+    `generator` (a torch.Generator); see trace_u."""
+    def rand(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(scene.device)
+
+    return trace_u(scene, rand(num_particles, N_EMIT_DIMS),
+                   rand(num_particles, cfg.max_depth, N_STEP_DIMS), cfg)
+
+
+def trace_u(scene: Scene, u_emit, u_walk,
+            cfg: TracerConfig = TracerConfig()) -> VRLs:
+    """The walk of trace as a function of its uniforms: u_emit
+    (P, N_EMIT_DIMS) and u_walk (P, max_depth, N_STEP_DIMS). Returns a
+    VRL buffer of P * max_depth slots, particle-major."""
+    n_particles = u_emit.shape[0]
+    if tuple(u_walk.shape) != (n_particles, cfg.max_depth, N_STEP_DIMS):
+        raise ValueError(f"u_walk must be ({n_particles}, {cfg.max_depth}, "
+                         f"{N_STEP_DIMS}), got {tuple(u_walk.shape)}")
+    med = scene.medium
+    pos, d, weight = em_mod.sample_emission(scene.emitters, u_emit)
+    state = dict(
+        ray_o=pos, ray_d=d, cur_start=pos,
+        cur_power=weight,             # beta of the VRL being built
+        beta=weight,                  # throughput times emitted power
+        tp=torch.ones_like(weight),   # unitless throughput, for roulette
+        active=~(weight == 0.0).all(dim=-1),
+    )
+    slots = []
+    for depth in range(1, cfg.max_depth + 1):
+        state, out = _step(scene, med, state, u_walk[:, depth - 1], depth,
+                           cfg)
+        slots.append(out)
+
+    def flat(k):
+        a = torch.stack([s[k] for s in slots], dim=1)
+        return a.reshape((-1,) + a.shape[2:])
+
+    return VRLs(start=flat("start"), end=flat("end"), power=flat("power"),
+                valid=flat("valid"),
+                particle_count=torch.tensor(float(n_particles),
+                                            device=scene.device))
+
+
+def _step(scene, med, state, u, depth, cfg):
+    """One bounce of every particle; returns (next state, this slot)."""
+    ray_o, ray_d, active = state["ray_o"], state["ray_d"], state["active"]
+    hit = intersect.intersect_all(ray_o, ray_d, scene.vertices, scene.faces)
+    # misses' points moved to the origin, so that masked lanes stay finite
+    hit_p = torch.where(hit.valid[..., None], hit.p, ray_o)
+    dist_surf = torch.where(hit.valid, hit.t, SURFACE_MISS)
+    ms = mapi.sample_distance_seg_u(med, u[:, U_DIST], ray_o, ray_d,
+                                    dist_surf)
+    medium_event = ms.success & active
+    surface_event = ~ms.success & hit.valid & active
+
+    # medium scattering; the no-interaction sentinel point is replaced
+    # by the origin (0 * inf poisons reverse mode through masked math)
+    p_scatter = torch.where(medium_event[..., None], ms.p, ray_o)
+    wo_phase, w_phase, _ = ph.sample_phase(med.phase_kind, med.g, -ray_d,
+                                           u[:, U_PHASE])
+    wo_phase = wo_phase.detach()
+    if cfg.score_phase and med.phase_kind == ph.HG:
+        ph_val = ph.eval_phase(med.phase_kind, med.g, -ray_d, wo_phase)
+        w_phase = w_phase * ph_val / torch.clamp(ph_val, min=1e-30).detach()
+    beta_med = state["beta"] * ms.w_scatter * w_phase[..., None]
+    tp_med = state["tp"] * ms.w_scatter * w_phase[..., None]
+    if cfg.short_vrls:
+        endpoint, med_store_ok = p_scatter, torch.ones_like(active)
+    else:  # long VRLs run on to the next surface; none on a miss
+        endpoint, med_store_ok = hit_p, hit.valid
+
+    # surface scattering
+    mat_id = scene.material[hit.prim.clamp(min=0)]
+    bs = bsdf_api.sample_from_uniforms(scene, u[:, U_BSDF], mat_id, hit.ng)
+    beta_surf = state["beta"] * ms.w_pass * bs.weight
+    tp_surf = state["tp"] * ms.w_pass * bs.weight
+    bsdf_dead = surface_event & (bs.weight == 0.0).all(dim=-1)
+
+    # the VRL that ends at this event
+    store_end = torch.where(medium_event[..., None], endpoint, hit_p)
+    store = (((medium_event & med_store_ok) | surface_event)
+             & (m.distance(state["cur_start"], store_end) > 0.0)
+             & ~(state["cur_power"] == 0.0).all(dim=-1))
+    out = dict(start=state["cur_start"], end=store_end,
+               power=state["cur_power"], valid=store)
+
+    new_o = torch.where(medium_event[..., None], p_scatter, hit_p).detach()
+    new_d = torch.where(medium_event[..., None], wo_phase, bs.wo).detach()
+    new_beta = torch.where(medium_event[..., None], beta_med, beta_surf)
+    new_tp = torch.where(medium_event[..., None], tp_med, tp_surf)
+    survive = (medium_event & med_store_ok) | (surface_event & ~bsdf_dead)
+
+    # Russian roulette (vrlTracer.h:218-228)
+    q = torch.clamp(new_tp.amax(dim=-1), max=0.95).detach()
+    if depth >= cfg.rr_depth:
+        rr_kill = u[:, U_RR] >= q
+        rr_scale = torch.where(rr_kill, 1.0, 1.0 / torch.clamp(q, min=1e-30))
+        survive = survive & ~rr_kill
+    else:
+        rr_scale = torch.ones_like(q)
+    rr_scale = rr_scale[..., None]
+    new_state = dict(ray_o=new_o, ray_d=new_d, cur_start=new_o,
+                     cur_power=new_beta * rr_scale,
+                     beta=new_beta * rr_scale, tp=new_tp * rr_scale,
+                     active=survive)
+    # lanes that were inactive keep their state
+    new_state = {k: torch.where(active if v.dim() == 1 else active[..., None],
+                                v, state[k])
+                 for k, v in new_state.items()}
+    return new_state, out

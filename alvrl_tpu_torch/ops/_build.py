@@ -1,10 +1,12 @@
 """Build of the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a into one shared
-library with a plain C interface, which the wrappers load with ctypes.
-The library goes to ``alvrl_tpu_torch/_build/`` (ignored by git) under a
-name that carries the hash of the sources and flags, so a change to
-either rebuilds it at first use. A failed build raises.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a, one process per
+source, all started together, and the objects are linked into one
+shared library with a plain C interface, which the wrappers load with
+ctypes. The library goes to ``alvrl_tpu_torch/_build/`` (ignored by
+git) under a name that carries the hash of the sources (headers
+included) and flags, so a change to either rebuilds it at first use. A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -15,15 +17,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
 
 
 def _nvcc() -> str:
@@ -39,11 +41,23 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libalvrl_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def _run(procs):
+    """Wait for all (cmd, Popen) pairs, then raise if one failed."""
+    logs = ["".join(proc.communicate()) for _, proc in procs]
+    done = [(cmd, proc.returncode, log)
+            for (cmd, proc), log in zip(procs, logs)]
+    for cmd, code, log in done:
+        if code != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {code}:\n{' '.join(cmd)}\n{log}")
+    return "".join(log for _, _, log in done)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,16 +66,24 @@ def load_library() -> ctypes.CDLL:
     lib_path = _library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs, procs = [], []
+            for src in sorted(CSRC_DIR.glob("*.cu")):
+                obj = os.path.join(tmp, f"{src.stem}.o")
+                cmd = [nvcc, *COMPILE_FLAGS, "-o", obj, str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+                objs.append(obj)
+            log = _run(procs)
+            tmp_lib = os.path.join(tmp, lib_path.name)
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib, *objs]
+            log += _run([(cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))])
+            lib_path.with_suffix(".log").write_text(log)
+            os.replace(tmp_lib, lib_path)
     return ctypes.CDLL(str(lib_path))
 
 

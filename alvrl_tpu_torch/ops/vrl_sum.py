@@ -131,7 +131,13 @@ def _occluded_packed(p, q, tris):
 
 def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
                phase_kind):
-    """(R, 3) sums over the VRLs for a block of R rays; u: (R, N, D)."""
+    """(R, 3) sums over the VRLs for a block of R rays; u: (R, N, D).
+
+    Differentiable by autograd in the VP rows of `vrls`, the TAU rows of
+    `rays` and medium[0:7] (ops.vrl_sum_bwd's plain version): the
+    geometry of each sample is replaced by harmless values where the
+    sample is masked out, since torch.where passes NaN or inf of the
+    unselected branch into the gradient."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -158,7 +164,14 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         d_uv = torch.sqrt(torch.clamp(d_uv2, min=1e-30))
         return d_uv2, d_uv, duv / d_uv[..., None]
 
-    total = torch.zeros(pair_ok.shape + (3,), dtype=torch.float32,
+    def masked(ok, *xs):
+        """xs where ok, else 0 (or 1 for the last, a denominator)."""
+        *xs, den = xs
+        xs = [torch.where(ok[..., None] if x.dim() > ok.dim() else ok, x,
+                          0.0) for x in xs]
+        return xs + [torch.where(ok, den, 1.0)]
+
+    total = torch.zeros(pair_ok.shape + (3,), dtype=rays.dtype,
                         device=rays.device)
     for i in range(svv):
         v, pdf_v = integrate.sample_v_to_distance(o, d, hp, s, e,
@@ -168,12 +181,13 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         d_uv2, d_uv, vu = segment(up, v)
         ok = pair_ok & (d_uv2 > 0.0) & (pdf > 0.0)
         ok = ok & ~_occluded_packed(up, v, tris)
-        geo = phase(-vu, -d) * phase(-uv, vu) / torch.clamp(pdf * d_uv2,
-                                                            min=1e-30)
         d_sv = m.distance(s, v)
+        path = m.distance(o, up) + d_uv + d_sv
+        vu, path, d_sv, pdf_d2 = masked(ok, vu, path, d_sv, pdf * d_uv2)
+        geo = phase(-vu, -d) * phase(-uv, vu) / torch.clamp(pdf_d2,
+                                                            min=1e-30)
         if short_vrls:
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
-        path = m.distance(o, up) + d_uv + d_sv
         term = pw * sig_s * sig_s * torch.exp(-sig_t * path[..., None]) \
             * geo[..., None]
         total += torch.where(ok[..., None], term, 0.0) * (1.0 / svv)
@@ -184,10 +198,11 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         d_uv2, d_uv, vu = segment(hp, v)
         ok = pair_ok & alb_any & (d_uv2 > 0.0) & (pdf_v > 0.0)
         ok = ok & ~_occluded_packed(hp, v, tris)
+        vu, d_uv, d_sv, pdf_d2 = masked(ok, vu, d_uv, m.distance(s, v),
+                                        pdf_v * d_uv2)
         cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
         geo = phase(-uv, vu) * cos_o * (1.0 / math.pi) / torch.clamp(
-            pdf_v * d_uv2, min=1e-30)
-        d_sv = m.distance(s, v)
+            pdf_d2, min=1e-30)
         if short_vrls:
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
         term = pw * sig_s * alb * tau \
@@ -203,7 +218,7 @@ def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
     explicit (B, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
     Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size."""
     n_rays = rays.shape[1]
-    out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
+    out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
     for b0 in range(0, n_rays, _PLAIN_RAY_CHUNK):
         b1 = min(n_rays, b0 + _PLAIN_RAY_CHUNK)
         out[:, b0:b1] = _pair_sums(

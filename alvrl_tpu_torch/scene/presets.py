@@ -10,13 +10,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.emitters.emitters import make_point_emitters
 from alvrl_tpu_torch.geometry import shapes
 from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.scene.scene import (
     DIFFUSE,
     Camera,
     Materials,
-    PointEmitters,
     Scene,
     look_at,
 )
@@ -74,10 +74,8 @@ def cornell_smoke(
             [0.725, 0.71, 0.68],   # blocker
         ], **f32),
     )
-    emitters = PointEmitters(
-        position=torch.tensor([[0.0, 0.75, 0.2]], **f32),
-        intensity=torch.tensor([list(intensity)], **f32),
-    )
+    emitters = make_point_emitters([[0.0, 0.75, 0.2]], [list(intensity)],
+                                   device=device)
     camera = Camera(
         to_world=torch.as_tensor(
             look_at([0, 0, -0.99], [0, 0, 1], [0, 1, 0]), **f32),

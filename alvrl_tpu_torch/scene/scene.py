@@ -1,7 +1,7 @@
 """Scene, camera and material table as dataclasses of tensors.
 
 Counterpart of alvrl_tpu/scene/scene.py, reduced to the columns the VRL
-render reads. Materials are a struct-of-arrays table indexed by the
+render and tracer read. Materials are a struct-of-arrays table indexed by the
 per-face material id; the BSDF kind selects the arithmetic.
 """
 
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.emitters.emitters import Emitters
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
 
 # material kinds, numbered as in alvrl_tpu.scene.scene
@@ -26,15 +27,6 @@ PERSPECTIVE = 0
 class Materials:
     kind: torch.Tensor    # (M,) int64
     albedo: torch.Tensor  # (M, 3) f32 diffuse reflectance
-
-
-@dataclass(frozen=True)
-class PointEmitters:
-    """Point lights, kept as data (the VRL tracer that reads them is not
-    ported yet)."""
-
-    position: torch.Tensor   # (E, 3) f32
-    intensity: torch.Tensor  # (E, 3) f32 radiant intensity
 
 
 @dataclass(frozen=True)
@@ -55,7 +47,7 @@ class Scene:
     faces: torch.Tensor     # (T, 3) int64
     material: torch.Tensor  # (T,) int64 per-face material id
     materials: Materials
-    emitters: PointEmitters
+    emitters: Emitters
     medium: HomogeneousMedium  # global medium filling the scene
     camera: Camera
 
@@ -66,6 +58,10 @@ class Scene:
     def opaque_faces(self):
         """(T,) bool: triangles that block shadow rays (non-null BSDF)."""
         return self.materials.kind[self.material] != NULL
+
+    def aabb(self):
+        """(lo, hi) corners of the geometry's bounding box."""
+        return self.vertices.amin(dim=0), self.vertices.amax(dim=0)
 
 
 def look_at(origin, target, up):

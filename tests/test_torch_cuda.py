@@ -1,6 +1,7 @@
-"""The CUDA kernel of alvrl_tpu_torch against its plain PyTorch version.
+"""The CUDA kernels of alvrl_tpu_torch against their plain PyTorch
+versions: the VRL sum (csrc/vrl_sum.cu) and its VJP (csrc/vrl_sum_bwd.cu).
 
-These tests need a CUDA card (the kernel has no CPU mode) and skip
+These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
 without jax run them without it:
 
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from alvrl_tpu_torch.integrators.vrl import integrator, vrl
+from alvrl_tpu_torch.integrators.vrl import integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
+from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN,
     HOMOG_SHARE,
@@ -23,6 +26,11 @@ from alvrl_tpu_torch.ops.vrl_sum import (
     vrl_sum,
     vrl_sum_reference,
 )
+from alvrl_tpu_torch.ops.vrl_sum_bwd import (
+    vrl_sum_bwd,
+    vrl_sum_bwd_reference,
+)
+from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
 
 BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
@@ -98,3 +106,101 @@ def test_cuda_rejects_too_many_triangles(cuda):
     packs[2] = torch.zeros((100000, 9), device=cuda)
     with pytest.raises(ValueError):
         vrl_sum(*packs)
+
+
+# --- the backward kernel -----------------------------------------------------
+
+PAR_RTOL = 1e-3  # d_par: sums of the same terms in another order
+
+
+def _ragged_packs(device, g, kind):
+    """20x13 = 260 eye rays (not a multiple of the kernel's 128-ray
+    blocks) x 77 VRLs (not a multiple of its 32-VRL chunks), 7 invalid."""
+    vrls = _bench_vrls(device)
+    valid = vrls.valid[:77].clone()
+    valid[3::11] = False
+    vrls = replace(vrls, start=vrls.start[:77], end=vrls.end[:77],
+                   power=vrls.power[:77], valid=valid)
+    return integrator.pack_frame(_scene(device, 20, 13, g, kind), vrls)[3]
+
+
+def _assert_bwd_close(out, ref, kind):
+    d_power, d_par, d_tau = out
+    r_power, r_par, r_tau = ref
+    for o, r in ((d_power, r_power), (d_tau, r_tau)):
+        assert torch.isfinite(o).all() and float(o.abs().sum()) > 0.0
+        median, share = homog_bar(o.T, r.T)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    assert float(d_par[7]) == 0.0
+    if kind == 1:
+        assert float(d_par[6]) == 0.0 and float(r_par[6]) == 0.0
+    for i in range(7 if kind == 0 else 6):
+        d, r = float(d_par[i]), float(r_par[i])
+        # exactly 0 where every term carries a zero factor (a zero channel)
+        assert d == 0.0 if r == 0.0 else abs(d - r) < PAR_RTOL * abs(r), \
+            (i, d, r)
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_bwd_kernel_matches_plain(cuda, medium, injected, short_vrls):
+    """Backward kernel vs plain backward (autograd through the plain
+    forward) on ragged shapes, for every template: d_power and d_tau at
+    the homogeneous bar, d_par to PAR_RTOL, Rayleigh's d g exactly 0."""
+    g, kind = MEDIA[medium]
+    packs = _ragged_packs(cuda, g, kind)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    if injected:
+        u = torch.as_tensor(np.random.default_rng(6).random(
+            (n_rays, n_vrls, 6), dtype=np.float32), device=cuda)
+    else:
+        u = philox_uniforms(97, n_rays, n_vrls, 6, device=cuda)
+    before = vrl_sum_bwd.launches
+    out = vrl_sum_bwd(*packs, gbar, seed=97, uniforms=u if injected else None,
+                      short_vrls=short_vrls, phase_kind=kind)
+    torch.cuda.synchronize()
+    assert vrl_sum_bwd.launches == before + 1
+    ref = vrl_sum_bwd_reference(*packs, gbar, u, short_vrls=short_vrls,
+                                phase_kind=kind)
+    _assert_bwd_close(out, ref, kind)
+
+
+def test_cuda_bwd_kernel_zero_channels(cuda):
+    """ROADMAP C7: with VRL power channel 1 and sigma_s channel 2 at 0,
+    the kernel's d power[1] and d sigma_s[2] are not 0 and match the
+    plain backward."""
+    rays, vrls, tris, med = _ragged_packs(cuda, 0.4, 0)
+    vrls = vrls.clone()
+    vrls[pk.VP + 1] = 0.0
+    med = med.clone()
+    med[2] -= med[5]  # sigma_t = sigma_a
+    med[5] = 0.0
+    gbar = torch.ones((3, rays.shape[1]), device=cuda)
+    out = vrl_sum_bwd(rays, vrls, tris, med, gbar, seed=3)
+    ref = vrl_sum_bwd_reference(
+        rays, vrls, tris, med, gbar,
+        philox_uniforms(3, rays.shape[1], vrls.shape[1], 6, device=cuda))
+    _assert_bwd_close(out, ref, 0)
+    assert float(out[0][1].abs().max()) > 0.0 and float(out[1][5]) != 0.0
+
+
+def test_cuda_bwd_kernel_is_deterministic(cuda):
+    packs = _ragged_packs(cuda, 0.6, 0)
+    gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
+    a, b = vrl_sum_bwd(*packs, gbar, seed=5), vrl_sum_bwd(*packs, gbar, seed=5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cuda_train_step_launches_both_kernels(cuda):
+    scene = presets.cornell_smoke(16, 16, device=cuda)
+    target = torch.zeros((16, 16, 3), device=cuda)
+    fwd, bwd = vrl_sum.launches, vrl_sum_bwd.launches
+    loss, grads = train_step(scene, torch.Generator().manual_seed(0), target,
+                             VRLConfig(), 8, tracer.TracerConfig(max_depth=4))
+    assert vrl_sum.launches == fwd + 1 and vrl_sum_bwd.launches == bwd + 1
+    assert float(loss) > 0.0
+    for k in PARAMS:
+        assert grads[k].is_cuda and torch.isfinite(grads[k]).all(), k

@@ -27,8 +27,10 @@ def jax_scene_leaves(scene):
         "material": np.asarray(scene.material),
         "materials.kind": np.asarray(scene.materials.kind),
         "materials.albedo": np.asarray(scene.materials.albedo),
+        "emitters.kind": np.asarray(scene.emitters.kind),
         "emitters.position": np.asarray(scene.emitters.position),
         "emitters.intensity": np.asarray(scene.emitters.intensity),
+        "emitters.pmf": np.asarray(scene.emitters.pmf),
         "medium.sigma_a": np.asarray(med.sigma_a),
         "medium.sigma_s": np.asarray(med.sigma_s),
         "medium.g": np.asarray(med.g),
@@ -45,6 +47,43 @@ def jax_scene_leaves(scene):
 def jax_vrls_leaves(vrls):
     return {k: np.asarray(getattr(vrls, k))
             for k in ("start", "end", "power", "valid", "particle_count")}
+
+
+def jax_tracer_uniforms(key, num_particles, max_depth):
+    """The uniforms alvrl_tpu's tracer.trace(scene, key, num_particles,
+    TracerConfig(max_depth=...)) draws, rebuilt from its key tree, in
+    the layout of the port's trace_u: u_emit (P, 3) and u_walk (P, D,
+    10), as numpy arrays.
+
+    The key tree: key -> one key per particle (tracer.py:91) -> (emit,
+    walk) (:109); emit -> (select, direction, position)
+    (emitters.py:116), the direction from uniform2 (:122); walk -> one
+    key per depth (:240) -> (distance, phase, bsdf, roulette) (:127);
+    distance -> two scalar uniforms (homogeneous.py:144-146), phase ->
+    uniform2, bsdf -> N_SAMPLE_DIMS uniforms (bsdf/api.py:337),
+    roulette -> one. The emitter choice is jax.random.choice, which no
+    uniform reproduces: u_emit[:, 0] is the select key's uniform, and
+    the choice agrees when the scene has one emitter."""
+    import jax
+    import jax.numpy as jnp
+
+    def step(k):
+        k_dist, k_phase, k_bsdf, k_rr = jax.random.split(k, 4)
+        k1, k2 = jax.random.split(k_dist)
+        return jnp.concatenate([
+            jax.random.uniform(k1, (1,)), jax.random.uniform(k2, (1,)),
+            jax.random.uniform(k_phase, (2,)),
+            jax.random.uniform(k_bsdf, (5,)), jax.random.uniform(k_rr, (1,))])
+
+    def particle(k):
+        k_emit, k_walk = jax.random.split(k)
+        k_sel, k_dir, _ = jax.random.split(k_emit, 3)
+        u_emit = jnp.concatenate([jax.random.uniform(k_sel, (1,)),
+                                  jax.random.uniform(k_dir, (2,))])
+        return u_emit, jax.vmap(step)(jax.random.split(k_walk, max_depth))
+
+    u_emit, u_walk = jax.vmap(particle)(jax.random.split(key, num_particles))
+    return np.asarray(u_emit), np.asarray(u_walk)
 
 
 def hit_from_jax(hit):
