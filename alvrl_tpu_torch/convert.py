@@ -4,10 +4,12 @@
 alvrl_tpu scene or VRL buffer, converted to numpy by the caller (this
 package does not import jax), and build the port's objects on a device.
 Keys are the leaves' attribute paths, e.g. "materials.albedo".
+`cluster_tables_from_numpy` takes the clustered render's tables.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from alvrl_tpu_torch.emitters.emitters import Emitters
@@ -36,7 +38,7 @@ def _missing(d, keys):
         raise KeyError(f"missing leaves: {missing}")
 
 
-def scene_from_numpy(d, device="cpu") -> Scene:
+def scene_from_numpy(d, device="cuda") -> Scene:
     _missing(d, SCENE_KEYS)
 
     def f32(k):
@@ -67,7 +69,7 @@ def scene_from_numpy(d, device="cpu") -> Scene:
     )
 
 
-def vrls_from_numpy(d, device="cpu") -> VRLs:
+def vrls_from_numpy(d, device="cuda") -> VRLs:
     _missing(d, VRL_KEYS)
 
     def f32(k):
@@ -77,3 +79,15 @@ def vrls_from_numpy(d, device="cpu") -> VRLs:
                 valid=torch.tensor(d["valid"], dtype=torch.bool,
                                    device=device),
                 particle_count=f32("particle_count"))
+
+
+def cluster_tables_from_numpy(sop, tv, tw, device="cuda"):
+    """The tables of alvrl_tpu's prepare_clustering (slice_of_pixel,
+    table_vrls, table_weights), as numpy arrays, in the form
+    integrators.vrl.integrator.render_clustered_kernel takes: (the rows
+    (W * H,) int32 numpy, ids (S, C) int32 and weights (S, C) float32 on
+    `device`). A row of zero weights (the JAX package's row for
+    fall-back pixels) renders 0."""
+    return (np.asarray(sop, np.int32),
+            torch.tensor(np.asarray(tv), dtype=torch.int32, device=device),
+            torch.tensor(np.asarray(tw), dtype=torch.float32, device=device))

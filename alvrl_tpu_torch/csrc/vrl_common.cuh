@@ -1,14 +1,18 @@
-// Device code shared by the VRL sum (vrl_sum.cu) and its VJP
-// (vrl_sum_bwd.cu): the pack layouts, the Philox stream, the phase
-// functions, the shadow test and the two samplers of the estimator. The
-// backward replays the forward's samples, so both kernels take them
-// from the same functions here, in the same draw order.
+// Device code shared by the VRL sum (vrl_sum.cu), its VJP
+// (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu) and the
+// transfer matrix (vrl_r.cu): the pack layouts, the Philox stream, the
+// phase functions, the shadow test, the two samplers of the estimator
+// and the estimator itself (pair_terms). The backward replays the
+// forward's samples, so all kernels take them from the same functions
+// here, in the same draw order.
 // Precise math functions throughout (no --use_fast_math).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -313,6 +317,66 @@ __device__ __forceinline__ bool vol_surf_sample(const Ray& ray, const VrlPair& p
   sm.d_sv = fabsf(arc_v);
   sm.path = d_uv + sm.d_sv;
   return true;
+}
+
+// The estimator of one (ray, VRL) pair, shared by the three forward
+// kernels (vrl_sum.cu, vrl_sum_clustered.cu, vrl_r.cu), which differ only
+// in how they reduce its terms: for each sample that is not dropped, in
+// draw order, emit(family, t) with family 0 for vol-vol and 1 for
+// vol-surf and t[3] the raw per-sample contribution (not divided by the
+// family's sample count). A dropped sample contributes 0 and is not
+// emitted.
+template <int PHASE, bool SHORT_VRLS, class Emit>
+__device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Medium& m,
+                                           PairUniforms& draw, int svv, int svs,
+                                           const float* s_tri, int T, Emit&& emit) {
+  float e[3];
+  for (int i = 0; i < svv; ++i) {
+    const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
+    Sample sm;
+    if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
+    float geo = phase_eval<PHASE>(m.g, sm.c_u) * phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
+    if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+    float t[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      t[ch] = p.pw[ch] * m.sig_s[ch] * m.sig_s[ch] * expf(-m.sig_t[ch] * sm.path) * geo;
+    emit(0, t);
+  }
+  for (int k = 0; k < svs && ray.alb_any; ++k) {
+    const float u1 = draw(2 * svv + k);
+    Sample sm;
+    if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
+    float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+    if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+    float t[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      t[ch] = p.pw[ch] * m.sig_s[ch] * ray.alb[ch] * ray.tau[ch] * expf(-m.sig_t[ch] * sm.path) *
+              geo;
+    emit(1, t);
+  }
+}
+
+// Picks one of a kernel's four instantiations {HG, Rayleigh} x {short,
+// long VRLs}: calls launch(phase, short_vrls) with two
+// std::integral_constant values, whose ::value the launching lambda
+// passes as the kernel's template arguments.
+template <class Launch>
+void dispatch(int phase_kind, int short_vrls, Launch&& launch) {
+  using Hg = std::integral_constant<int, 0>;
+  using Rayleigh = std::integral_constant<int, 1>;
+  if (phase_kind == 0) {
+    if (short_vrls)
+      launch(Hg{}, std::true_type{});
+    else
+      launch(Hg{}, std::false_type{});
+  } else {
+    if (short_vrls)
+      launch(Rayleigh{}, std::true_type{});
+    else
+      launch(Rayleigh{}, std::false_type{});
+  }
 }
 
 // out[i] = sum over parts p of part[p, i] (part: (n_parts, len)), in

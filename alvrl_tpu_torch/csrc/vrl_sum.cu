@@ -9,10 +9,12 @@
 // vrl_common.cuh.
 //
 // What bounds it on the H100: fp32 ALU and SFU throughput. One
-// pair-sample costs about a thousand flops and twenty transcendentals
-// (sinh/asinh, atan, tan, exp, sqrt), against an input of under 1 MB,
-// so neither device memory nor tensor cores matter. The design keeps the
-// whole working set on chip and spreads the pairs over enough threads:
+// pair-sample costs about 150 float32 operations and 20 special-function
+// operations (sqrt, division, exp; beside sinh/asinh, atan, tan), and 59
+// operations per triangle of its shadow sweep, as chip_smoke.py's OPS
+// counts them, against an input of under 1 MB, so neither device memory
+// nor tensor cores matter. The design keeps the whole working set on chip
+// and spreads the pairs over enough threads:
 //   * grid = ray tiles (RAY_BLOCK threads, one ray each) x VRL chunks of
 //     VRL_CHUNK; one thread per ray alone would fill about a sixteenth
 //     of the card at 16k rays, so the VRL axis is split as well;
@@ -66,40 +68,15 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     const VrlPair p = pair_setup(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    float e[3];
-    for (int i = 0; i < svv; ++i) {
-      const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
-      Sample sm;
-      if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
-      float geo = phase_eval<PHASE>(m.g, sm.c_u) * phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
-      if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T,
+                                  [&](int family, const float* t) {
+                                    const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        acc[ch] += p.pw[ch] * m.sig_s[ch] * m.sig_s[ch] * expf(-m.sig_t[ch] * sm.path) * geo *
-                   inv_vv;
-    }
-    for (int k = 0; k < svs && ray.alb_any; ++k) {
-      const float u1 = draw(2 * svv + k);
-      Sample sm;
-      if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
-      float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
-      if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        acc[ch] += p.pw[ch] * m.sig_s[ch] * ray.alb[ch] * ray.tau[ch] *
-                   expf(-m.sig_t[ch] * sm.path) * geo * inv_vs;
-    }
+                                    for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+                                  });
   }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
-}
-
-template <int PHASE, bool SHORT_VRLS>
-void launch(dim3 grid, size_t smem, cudaStream_t st, const float* rays, int B, const float* vrls,
-            int N, const float* tris, int T, const float* med, const float* uniforms,
-            uint32_t seed, int svv, int svs, float* partial) {
-  vrl_sum_kernel<PHASE, SHORT_VRLS><<<grid, RAY_BLOCK, smem, st>>>(
-      rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
 }
 
 }  // namespace
@@ -124,17 +101,10 @@ int alvrl_vrl_sum(const float* rays, int B, const float* vrls, int N, const floa
   const dim3 grid((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
   const size_t smem = (size_t)(T * TRI_COLS + VRL_ROWS * VRL_CHUNK) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (phase_kind == 0) {
-    if (short_vrls)
-      launch<0, true>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
-    else
-      launch<0, false>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
-  } else {
-    if (short_vrls)
-      launch<1, true>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
-    else
-      launch<1, false>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
-  }
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    vrl_sum_kernel<decltype(phase)::value, decltype(short_)::value><<<grid, RAY_BLOCK, smem, st>>>(
+        rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
+  });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * B;

@@ -223,16 +223,6 @@ __global__ void __launch_bounds__(TREE)
   if (threadIdx.x == 0) out[i] = s[0];
 }
 
-template <int PHASE, bool SHORT_VRLS>
-void launch(dim3 grid, size_t smem, cudaStream_t st, const float* rays, int B, const float* vrls,
-            int N, const float* tris, int T, const float* med, const float* uniforms,
-            uint32_t seed, int svv, int svs, const float* gbar, float* tau_part, float* pw_part,
-            float* par_part) {
-  vrl_sum_bwd_kernel<PHASE, SHORT_VRLS><<<grid, RAY_BLOCK, smem, st>>>(
-      rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, gbar, tau_part, pw_part,
-      par_part);
-}
-
 }  // namespace
 
 extern "C" {
@@ -258,21 +248,11 @@ int alvrl_vrl_sum_bwd(const float* rays, int B, const float* vrls, int N, const 
                                N_WARPS * N_SUMS) *
                       sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (phase_kind == 0) {
-    if (short_vrls)
-      launch<0, true>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
-                      gbar, tau_part, pw_part, par_part);
-    else
-      launch<0, false>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
-                       gbar, tau_part, pw_part, par_part);
-  } else {
-    if (short_vrls)
-      launch<1, true>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
-                      gbar, tau_part, pw_part, par_part);
-    else
-      launch<1, false>(grid, smem, st, rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
-                       gbar, tau_part, pw_part, par_part);
-  }
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value>
+        <<<grid, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
+                                        gbar, tau_part, pw_part, par_part);
+  });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_parts<<<(3 * B + 255) / 256, 256, 0, st>>>(tau_part, n_chunks, 3 * B, d_tau);

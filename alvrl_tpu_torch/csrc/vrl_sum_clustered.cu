@@ -1,0 +1,141 @@
+// Clustered VRL sum for homogeneous media, hand-written for Hopper (sm_90a).
+//
+// Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered (its body
+// `_kernel` with clustered=True, hetero=False). Each eye ray b sums the
+// estimator over the representatives of its slice only: row r of a table
+// of VRL ids (S, C) int32 and weights (S, C) float32, the weight
+// multiplied into the VRL's power before anything else and a column
+// valid where the VRL is valid and its weight is > 0 (an id outside
+// [0, N) counts as invalid). Out (3, B) float32 in ray order, not
+// normalised by the particle count. Plain PyTorch twin:
+// ops/vrl_sum_clustered.py:vrl_sum_clustered_reference. The estimator is
+// the one of vrl_sum.cu, from vrl_common.cuh (pair_terms).
+//
+// What bounds it on the H100: fp32 ALU and SFU throughput, as vrl_sum
+// (per pair-sample about 150 float32 operations and 20 special-function
+// operations, and 59 operations per triangle of its shadow sweep, as
+// chip_smoke.py's OPS counts them), on an input under 1 MB.
+// A clustered pass has ~10 representatives per ray (config 2), about 50x
+// fewer pairs than the unclustered sum. The design:
+//   * the host groups the rays by table row into tiles of RAY_BLOCK
+//     (tile_rays: the ray index of each tile slot, -1 for padding;
+//     tile_row: each tile's row), so that a block shares one row;
+//   * the block stages the triangles, then its row's table in VRL_CHUNK
+//     pieces, each column gathered from the full VRL pack by id, and
+//     loops over all pieces: there is no cap on the table width and one
+//     launch covers it (the TPU kernel took 128 columns per launch);
+//   * each thread owns one ray and writes its (3,) sum to out[:, b]
+//     directly, in ray order: no cross-block reduction, no scatter pass,
+//     and a deterministic result. Rays in no tile are not written (the
+//     wrapper zeroes out);
+//   * at config 2 the grid is ~164 blocks of 128 threads on 132 SMs, so
+//     the card is under-filled; splitting a row's table across blocks
+//     would fill it.
+//
+// Random numbers: Philox4x32-10 with key (seed, 0) and counter (b, VRL
+// id, call, 0), b the ray's index in the ray pack (the pixel in frame
+// order), in the draw order of vrl_sum.cu: the stream does not depend on
+// the grouping or the table layout, and with a table that holds every VRL
+// at weight 1 the result is vrl_sum's (up to f32 summation order).
+// `uniforms`, when given, is read instead, as (B, C, 2 * svv + svs)
+// float32 indexed by ray and table column.
+// Precise math functions throughout (no --use_fast_math).
+
+#include "vrl_common.cuh"
+
+namespace {
+
+template <int PHASE, bool SHORT_VRLS>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_clustered_kernel(const float* __restrict__ rays, int B,
+                             const float* __restrict__ vrls, int N,
+                             const float* __restrict__ tris, int T,
+                             const float* __restrict__ med, const int* __restrict__ tile_rays,
+                             const int* __restrict__ tile_row,
+                             const int* __restrict__ table_ids,
+                             const float* __restrict__ table_w, int C,
+                             const float* __restrict__ uniforms, uint32_t seed, int svv,
+                             int svs, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* s_tri = smem;                                       // (T, TRI_COLS)
+  float* s_vrl = s_tri + T * TRI_COLS;                       // (VRL_ROWS, VRL_CHUNK)
+  int* s_id = reinterpret_cast<int*>(s_vrl + VRL_ROWS * VRL_CHUNK);  // (VRL_CHUNK,)
+  for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+
+  const int b = tile_rays[(size_t)blockIdx.x * RAY_BLOCK + threadIdx.x];
+  const int* ids = table_ids + (size_t)tile_row[blockIdx.x] * C;
+  const float* ws = table_w + (size_t)tile_row[blockIdx.x] * C;
+  Ray ray{};  // padding slots keep ok = false, but join every barrier
+  if (b >= 0) ray = load_ray(rays, B, b);
+  const Medium m(med);
+  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
+  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
+  const int n_draws = 2 * svv + svs;
+
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
+    const int nc = min(VRL_CHUNK, C - c0);
+    __syncthreads();  // the previous piece is consumed (and the triangles staged)
+    for (int i = threadIdx.x; i < VRL_ROWS * VRL_CHUNK; i += blockDim.x) {
+      const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
+      const int id = c < nc ? ids[c0 + c] : -1;
+      const float w = c < nc ? ws[c0 + c] : 0.0f;
+      float v = 0.0f;
+      if (id >= 0 && id < N) {
+        v = vrls[(size_t)r * N + id];
+        if (r >= VP && r < VP + 3) v *= w;
+        if (r == VVALID) v = (v > 0.5f && w > 0.0f) ? 1.0f : 0.0f;
+      }
+      s_vrl[i] = v;
+      if (r == 0) s_id[c] = id;
+    }
+    __syncthreads();
+    for (int c = 0; ray.ok && c < nc; ++c) {
+      if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;
+      const VrlPair p = pair_setup(ray, s_vrl, c);
+      PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + c) * n_draws : nullptr,
+                        (uint32_t)b, (uint32_t)s_id[c], seed, make_uint4(0u, 0u, 0u, 0u), -1};
+      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T,
+                                    [&](int family, const float* t) {
+                                      const float inv = family == 0 ? inv_vv : inv_vs;
+#pragma unroll
+                                      for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+                                    });
+    }
+  }
+  if (b >= 0) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) out[(size_t)ch * B + b] = acc[ch];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the clustered sum on `stream`; returns a cudaError_t (0 =
+// launched). tile_rays (n_tiles * RAY_BLOCK,) int32 ray indices or -1,
+// tile_row (n_tiles,) int32 table rows, table_ids / table_w (S, C); `out`
+// is (3, B), written only at the rays of the tiles. `uniforms` may be
+// null (Philox stream from `seed`).
+int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
+                            const float* tris, int T, const float* med, const int* tile_rays,
+                            const int* tile_row, int n_tiles, const int* table_ids,
+                            const float* table_w, int C, const float* uniforms, unsigned int seed,
+                            int svv, int svs, int short_vrls, int phase_kind, float* out,
+                            void* stream) {
+  if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
+      svs < 0 || (phase_kind != 0 && phase_kind != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(T * TRI_COLS + VRL_ROWS * VRL_CHUNK) * sizeof(float) + VRL_CHUNK * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    vrl_sum_clustered_kernel<decltype(phase)::value, decltype(short_)::value>
+        <<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays, tile_row,
+                                           table_ids, table_w, C, uniforms, seed, svv, svs, out);
+  });
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

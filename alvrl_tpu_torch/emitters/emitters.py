@@ -28,7 +28,7 @@ class Emitters:
     pmf: torch.Tensor        # (E,) f32 selection pmf, a stored constant
 
 
-def make_point_emitters(position, intensity, device="cpu") -> Emitters:
+def make_point_emitters(position, intensity, device="cuda") -> Emitters:
     """Point lights with the reference's luminance-weighted selection
     pmf (Scene::m_emitterPDF)."""
     f32 = dict(dtype=torch.float32, device=device)

@@ -1,13 +1,17 @@
 """VRL integrator: per-pixel radiance as a sum of VRL x eye-ray integrals.
 
-Counterpart of alvrl_tpu/integrators/vrl/integrator.py for the
-unclustered render of the main path: every eye ray integrates against
-every VRL, normalised by the traced-particle count; plain, or
-differentiable through the seed-replay VJP.
+Counterpart of alvrl_tpu/integrators/vrl/integrator.py for homogeneous
+media: the unclustered render (every eye ray against every VRL; plain,
+or differentiable through the seed-replay VJP), and the two device
+stages of the clustered render (integrators.vrl.alvrl): the transfer
+matrix R over representative rays, and the render of each pixel against
+its slice's representatives. Sums are normalised by the traced-particle
+count.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from alvrl_tpu_torch.film import film as film_mod
@@ -15,8 +19,10 @@ from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops.vrl_r import vrl_r
 from alvrl_tpu_torch.ops.vrl_sum import vrl_sum
 from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff
+from alvrl_tpu_torch.ops.vrl_sum_clustered import vrl_sum_clustered
 from alvrl_tpu_torch.scene.scene import Scene
 from alvrl_tpu_torch.sensors import perspective
 
@@ -69,16 +75,69 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     return _render(vrl_sum_diff, scene, vrls, generator, cfg, uniforms)
 
 
+def draw_seed(generator) -> int:
+    """A kernel seed in [0, 2^31 - 1) from a torch.Generator."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def _kernel_args(scene, cfg):
+    return dict(vol_vol_samples=cfg.vol_vol_samples,
+                vol_surf_samples=cfg.vol_surf_samples,
+                short_vrls=cfg.short_vrls,
+                phase_kind=scene.medium.phase_kind)
+
+
 def _render(sum_fn, scene, vrls, generator, cfg, uniforms):
     px, py, hit, packs = pack_frame(scene, vrls)
-    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-    sums = sum_fn(
-        *packs, seed=seed, uniforms=uniforms,
-        vol_vol_samples=cfg.vol_vol_samples,
-        vol_surf_samples=cfg.vol_surf_samples,
-        short_vrls=cfg.short_vrls,
-        phase_kind=scene.medium.phase_kind,
-    )
+    sums = sum_fn(*packs, seed=draw_seed(generator), uniforms=uniforms,
+                  **_kernel_args(scene, cfg))
+    return develop_sums(scene, vrls, px, py, hit, sums)
+
+
+def build_R_kernel(scene: Scene, ray_o, ray_d, vrls: VRLs, seed: int,
+                   cfg: VRLConfig = VRLConfig(), *, uniforms=None):
+    """The transfer matrix over the representative eye rays (ray_o,
+    ray_d) (P, 3) through ops.vrl_r: per (ray, VRL) pair the luminance
+    mean and variance of the mean, (P, N) each, normalised by the
+    particle count and its square (getVRLContributions). Counterpart of
+    alvrl_tpu's build_R_pallas for homogeneous media; `uniforms` (P, N,
+    2 * vol_vol + vol_surf) replaces the Philox stream of `seed`."""
+    hit, mat = trace_eye_rays(scene, ray_o, ray_d)
+    out = vrl_r(pk.pack_rays(scene, ray_o, ray_d, hit, mat),
+                pk.pack_vrls(vrls), pk.pack_tris(scene),
+                pk.pack_medium(scene), seed=seed, uniforms=uniforms,
+                **_kernel_args(scene, cfg))
+    norm = 1.0 / torch.clamp(vrls.particle_count, min=1.0)
+    return out[0] * norm, out[1] * (norm * norm)
+
+
+def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
+                            table_ids, table_weights, generator,
+                            cfg: VRLConfig = VRLConfig(), *, fallback=None,
+                            uniforms=None):
+    """Full-frame clustered render through ops.vrl_sum_clustered:
+    pixel i (row-major) integrates against row slice_of_pixel[i] of the
+    tables (S, C) (VRL ids int32, weights float32, on the scene's
+    device); counterpart of alvrl_tpu's render_clustered_pallas.
+
+    slice_of_pixel (W * H,) integer rows, read on the host, where the
+    kernel's wrapper groups the pixels by row. Pixels at row -1 render
+    0, or, with fallback = (ids (Cf,) int32, weights (Cf,) float32) on
+    the scene's device, through a second launch of the same kernel
+    against that one-row table, with the same seed: each pixel's pairs
+    are drawn in one launch only. The seed is drawn from `generator`;
+    `uniforms` (W * H, C, 2 * vol_vol + vol_surf) replaces the main
+    launch's random stream. Returns the (H, W, 3) image."""
+    px, py, hit, packs = pack_frame(scene, vrls)
+    kw = dict(seed=draw_seed(generator), **_kernel_args(scene, cfg))
+    sums = vrl_sum_clustered(*packs, slice_of_pixel, table_ids,
+                             table_weights, uniforms=uniforms, **kw)
+    fb_pixels = np.asarray(torch.as_tensor(slice_of_pixel).cpu()) < 0
+    if fallback is not None and fb_pixels.any():
+        fb_ids, fb_weights = fallback
+        sums = sums + vrl_sum_clustered(
+            *packs, np.where(fb_pixels, 0, -1), fb_ids[None].contiguous(),
+            fb_weights[None].contiguous(), **kw)
     return develop_sums(scene, vrls, px, py, hit, sums)
 
 

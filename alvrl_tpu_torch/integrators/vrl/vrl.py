@@ -85,7 +85,7 @@ def save_ascii(vrls: VRLs, path: str):
 
 
 def load_ascii(path: str, particle_count: float | None = None,
-               device="cpu") -> VRLs:
+               device="cuda") -> VRLs:
     """Load the ASCII VRL format. The file does not store the particle
     count; like the reference, it defaults to the VRL count."""
     rows = torch.as_tensor(np.loadtxt(path, dtype=np.float32, ndmin=2),

@@ -29,7 +29,7 @@ class HomogeneousMedium:
         return self.sigma_a + self.sigma_s
 
 
-def make_medium(sigma_a, sigma_s, g=0.0, device="cpu"):
+def make_medium(sigma_a, sigma_s, g=0.0, device="cuda"):
     """HG medium with the reference's default sampling weight: the
     largest channel albedo, clamped to >= 0.5 when the medium scatters."""
     f32 = dict(dtype=torch.float32, device=device)

@@ -1,0 +1,132 @@
+"""The transfer matrix R of the clustered render: per (representative
+eye ray, VRL) pair, the luminance mean and variance of the mean of the
+VRL estimator.
+
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_r_pallas. Out (2, P, N)
+float32, not normalised by the particle count: [0] the sum over the two
+sample families (vol-vol, vol-surf) of the mean of the per-sample
+luminances, [1] the sum of their variances of the mean,
+max(sum x^2 - n mu^2, 0) / (n - 1) / n for a family of n > 1 samples
+(getLiLuminanceVrlContributions, vrlIntegrator.cpp:527-539, through
+vrl_pallas.py:502-517, 697-715). A dropped sample counts as 0.
+
+What bounds it on the H100 is fp32 ALU and special-function throughput,
+as for ops.vrl_sum: the CUDA kernel (csrc/vrl_r.cu, whose header gives
+the design) runs the same estimator (csrc/vrl_common.cuh) on the same
+grid and writes each pair's two numbers once.
+
+Beside the kernel:
+  * `vrl_r_reference`, the plain PyTorch version on the same packs and
+    explicit uniforms, reducing ops.vrl_sum's per-sample terms;
+  * `vrl_r`, the wrapper: the kernel for CUDA tensors (or an error;
+    there is no fallback), the plain version for CPU tensors. Its Philox
+    stream is vrl_sum's, with the representative row as the ray index.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.ops import vrl_sum as vs
+
+
+def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind):
+    """(mean, var), each (R, N), for a block of R rays (see module)."""
+    shape = (rays.shape[1], vrls.shape[1])
+    sums = {f: torch.zeros(shape, dtype=rays.dtype, device=rays.device)
+            for f in (vs.VV, vs.VS)}
+    squares = {f: torch.zeros_like(sums[f]) for f in sums}
+    w0, w1, w2 = LUM_WEIGHTS
+    for family, term in vs._pair_terms(rays, vrls, tris, medium, u, svv, svs,
+                                       short_vrls, phase_kind):
+        lum = w0 * term[..., 0] + w1 * term[..., 1] + w2 * term[..., 2]
+        sums[family] += lum
+        squares[family] += lum * lum
+    mean = torch.zeros(shape, dtype=rays.dtype, device=rays.device)
+    var = torch.zeros_like(mean)
+    for family, n in ((vs.VV, svv), (vs.VS, svs)):
+        if n == 0:
+            continue
+        mu = sums[family] / n
+        mean += mu
+        if n > 1:
+            var += torch.clamp(squares[family] - n * mu * mu, min=0.0) \
+                / (n - 1) / n
+    return mean, var
+
+
+def vrl_r_reference(rays, vrls, tris, medium, uniforms, *,
+                    vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                    phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel on the same packs, with
+    explicit (P, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
+    Returns (2, P, N)."""
+    n_rays = rays.shape[1]
+    out = torch.zeros((2, n_rays, vrls.shape[1]), dtype=rays.dtype,
+                      device=rays.device)
+    for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
+        b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
+        mean, var = _pair_r(rays[:, b0:b1], vrls, tris, medium,
+                            uniforms[b0:b1], vol_vol_samples,
+                            vol_surf_samples, short_vrls, phase_kind)
+        out[0, b0:b1], out[1, b0:b1] = mean, var
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = vs._library()
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, u, i, i, i, i, p, p]
+    lib.alvrl_vrl_r.restype = i
+    return lib
+
+
+def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
+          vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+          phase_kind=ph.HG):
+    """(2, P, N) per-pair luminance [mean, variance of the mean] (not
+    normalised by the particle count) of the P eye rays of `rays`
+    (RAY_ROWS, P) against the VRLs of `vrls` (VRL_ROWS, N); packs as
+    ops.vrl_sum.vrl_sum takes them. Random numbers come from the Philox
+    stream of `seed`, counter (p, n, call, 0), or from `uniforms` (P, N,
+    2 * vol_vol_samples + vol_surf_samples) when given. CUDA tensors go
+    through the CUDA kernel, CPU tensors through vrl_r_reference."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
+        return vrl_r_reference(
+            rays, vrls, tris, medium, uniforms, vol_vol_samples=svv,
+            vol_surf_samples=svs, short_vrls=short_vrls,
+            phase_kind=phase_kind)
+    lib = _library()
+    if tris.shape[0] > lib.alvrl_max_tris():
+        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
+                         f"shared-memory cap of {lib.alvrl_max_tris()}")
+    out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
+                      device=rays.device)
+    if n_rays == 0 or n_vrls == 0:
+        return out
+    with torch.cuda.device(rays.device):
+        err = lib.alvrl_vrl_r(
+            rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
+            tris.shape[0], medium.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(), seed, svv,
+            svs, int(short_vrls), phase_kind, out.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("vrl_r kernel launch failed: CUDA error "
+                           f"{err} ({lib.alvrl_error_string(err).decode()})")
+    vrl_r.launches += 1
+    return out
+
+
+vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel

@@ -7,8 +7,8 @@ pdfFailure division, shadow tests against the opaque triangles),
 (3, B) float32, not yet normalised by the particle count.
 
 What bounds it on the H100 is fp32 ALU and special-function throughput
-(about a thousand flops and twenty transcendentals per pair-sample, on
-under 1 MB of input); the CUDA kernel (csrc/vrl_sum.cu, whose header
+(about 150 float32 and 20 special-function operations per pair-sample
+and 59 per triangle of its shadow sweep, on under 1 MB of input); the CUDA kernel (csrc/vrl_sum.cu, whose header
 gives the design) keeps everything on chip and splits both the ray and
 the VRL axes over the grid so that the card is full.
 
@@ -73,26 +73,33 @@ def philox4x32_10(counter, key):
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
+def philox_draws(seed: int, ray_idx, vrl_idx, n_draws: int):
+    """(..., n_draws) float32 uniforms of the kernels' stream for the
+    pairs (ray_idx, vrl_idx), two int64 tensors that broadcast together:
+    key (seed, 0), counter (ray, vrl, j, 0); draw d is word d % 4 of
+    call j = d // 4, mapped to (bits >> 8) * 2^-24."""
+    n_calls = -(-n_draws // 4)
+    j = torch.arange(n_calls, dtype=torch.int64, device=vrl_idx.device)
+    b, n, j = torch.broadcast_tensors(ray_idx[..., None], vrl_idx[..., None],
+                                      j)
+    ctr = torch.stack([b, n, j, torch.zeros_like(b)], dim=-1)
+    bits = philox4x32_10(ctr, (seed, 0)).reshape(b.shape[:-1]
+                                                  + (4 * n_calls,))
+    return (bits[..., :n_draws] >> 8).to(torch.float32) * 2.0 ** -24
+
+
 def philox_uniforms(seed: int, n_rays: int, n_vrls: int, n_draws: int,
                     device="cpu"):
-    """(n_rays, n_vrls, n_draws) float32 uniforms of the kernel's stream:
-    key (seed, 0), counter (ray, vrl, j, 0); draw d is word d % 4 of call
-    j = d // 4, mapped to (bits >> 8) * 2^-24."""
-    n_calls = -(-n_draws // 4)
+    """(n_rays, n_vrls, n_draws) float32 uniforms of the kernel's stream
+    for every pair (ray b, VRL n) of a vrl_sum launch."""
     out = torch.empty((n_rays, n_vrls, n_draws), dtype=torch.float32,
                       device=device)
     i64 = dict(dtype=torch.int64, device=device)
-    n = torch.arange(n_vrls, **i64)[None, :, None]
-    j = torch.arange(n_calls, **i64)[None, None, :]
+    n = torch.arange(n_vrls, **i64)[None, :]
     for b0 in range(0, n_rays, _PHILOX_RAY_CHUNK):
         b = torch.arange(b0, min(n_rays, b0 + _PHILOX_RAY_CHUNK),
-                         **i64)[:, None, None]
-        b, nn, jj = torch.broadcast_tensors(b, n, j)
-        ctr = torch.stack([b, nn, jj, torch.zeros_like(b)], dim=-1)
-        bits = philox4x32_10(ctr, (seed, 0)).reshape(
-            len(b), n_vrls, 4 * n_calls)
-        out[b0:b0 + len(b)] = (bits[..., :n_draws] >> 8).to(
-            torch.float32) * 2.0 ** -24
+                         **i64)[:, None]
+        out[b0:b0 + len(b)] = philox_draws(seed, b, n, n_draws)
     return out
 
 
@@ -129,9 +136,28 @@ def _occluded_packed(p, q, tris):
     return (mn > 0.0).any(dim=-1)
 
 
-def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
-               phase_kind):
-    """(R, 3) sums over the VRLs for a block of R rays; u: (R, N, D).
+VV, VS = "vol-vol", "vol-surf"  # the two sample families
+
+
+def _vrl_side(vrls):
+    """The VRL side of the pair grid: start, end, power (G, N, 3) and
+    valid (G, N), from a (VRL_ROWS, N) pack (G = 1, every ray against
+    every VRL) or a (VRL_ROWS, R, C) gather (G = R, a table per ray)."""
+    if vrls.dim() == 2:
+        vrls = vrls[:, None]
+    def rows(r):
+        return vrls[r:r + 3].movedim(0, -1)
+    return rows(pk.VS), rows(pk.VE), rows(pk.VP), vrls[pk.VVALID] > 0.5
+
+
+def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
+                phase_kind):
+    """The estimator, once: yields (family, term) for each sample of the
+    pairs of a block of R rays, in draw order, where term (R, N, 3) is
+    the raw per-sample contribution (not divided by the family's sample
+    count) and 0 where the sample is dropped; u: (R, N, 2 * svv + svs).
+    vrls as _vrl_side takes it. The sum, the clustered sum and R mode
+    reduce the same terms (_pair_sums, _pair_r).
 
     Differentiable by autograd in the VP rows of `vrls`, the TAU rows of
     `rays` and medium[0:7] (ops.vrl_sum_bwd's plain version): the
@@ -145,9 +171,8 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         rows(rays, pk.HP)[:, None]
     ng, alb, tau = rows(rays, pk.NG)[:, None], rows(rays, pk.ALB)[:, None], \
         rows(rays, pk.TAU)[:, None]
-    s, e, pw = rows(vrls, pk.VS)[None], rows(vrls, pk.VE)[None], \
-        rows(vrls, pk.VP)[None]
-    pair_ok = (rays[pk.VALID][:, None] > 0.5) & (vrls[pk.VVALID][None] > 0.5)
+    s, e, pw, v_ok = _vrl_side(vrls)
+    pair_ok = (rays[pk.VALID][:, None] > 0.5) & v_ok
     sig_t, sig_s, g, msw = medium[0:3], medium[3:6], medium[6], medium[7]
     uv = m.normalize(e - s)
 
@@ -171,8 +196,6 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
                           0.0) for x in xs]
         return xs + [torch.where(ok, den, 1.0)]
 
-    total = torch.zeros(pair_ok.shape + (3,), dtype=rays.dtype,
-                        device=rays.device)
     for i in range(svv):
         v, pdf_v = integrate.sample_v_to_distance(o, d, hp, s, e,
                                                   u[..., 2 * i])
@@ -190,7 +213,7 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
         term = pw * sig_s * sig_s * torch.exp(-sig_t * path[..., None]) \
             * geo[..., None]
-        total += torch.where(ok[..., None], term, 0.0) * (1.0 / svv)
+        yield VV, torch.where(ok[..., None], term, 0.0)
 
     alb_any = alb.sum(dim=-1) > 0.0
     for k in range(svs):
@@ -207,7 +230,18 @@ def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
         term = pw * sig_s * alb * tau \
             * torch.exp(-sig_t * (d_uv + d_sv)[..., None]) * geo[..., None]
-        total += torch.where(ok[..., None], term, 0.0) * (1.0 / svs)
+        yield VS, torch.where(ok[..., None], term, 0.0)
+
+
+def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
+               phase_kind):
+    """(R, 3) sums over the VRLs for a block of R rays: each family's
+    samples averaged, the families added (see _pair_terms)."""
+    total = torch.zeros((rays.shape[1], 1, 3), dtype=rays.dtype,
+                        device=rays.device)
+    for family, term in _pair_terms(rays, vrls, tris, medium, u, svv, svs,
+                                    short_vrls, phase_kind):
+        total = total + term * (1.0 / (svv if family == VV else svs))
     return total.sum(dim=1)
 
 
@@ -264,7 +298,10 @@ def _library():
     return lib
 
 
-def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind):
+def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
+           n_cols=None):
+    """Raise on what the kernels do not take. The uniforms must be
+    (B, n_cols, 2 * svv + svs), n_cols the VRL count by default."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
@@ -293,7 +330,8 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind):
                          f"{tuple(medium.shape)}")
     if svv < 0 or svs < 0:
         raise ValueError("sample counts must be >= 0")
-    shape = (rays.shape[1], vrls.shape[1], 2 * svv + svs)
+    n_cols = vrls.shape[1] if n_cols is None else n_cols
+    shape = (rays.shape[1], n_cols, 2 * svv + svs)
     if uniforms is not None and tuple(uniforms.shape) != shape:
         raise ValueError(f"uniforms must be {shape}, got "
                          f"{tuple(uniforms.shape)}")
@@ -350,13 +388,14 @@ HOMOG_SHARE = 0.02   # bar on the share of rays over 1e-2
 HOMOG_FLOOR = 1e-3   # smallest |ref| a relative error divides by
 
 
-def homog_bar(out, ref):
-    """(median, share over 1e-2) of the per-ray relative error between
-    two homogeneous results with channels last, (..., 3): the largest
-    channel error |out - ref| / max(|ref|, HOMOG_FLOOR) of each ray. The bar
-    is median < HOMOG_MEDIAN and share < HOMOG_SHARE: the sums agree to
-    f32 rounding, except for the few rays where the two pipelines round
-    one occlusion-edge test differently."""
+def homog_bar(out, ref, channels=3):
+    """(median, share over 1e-2) of the per-item relative error between
+    two homogeneous results with channels last, (..., channels): the
+    largest channel error |out - ref| / max(|ref|, HOMOG_FLOOR) of each
+    ray (or, with channels=1, of each entry, as for the transfer
+    matrix). The bar is median < HOMOG_MEDIAN and share < HOMOG_SHARE:
+    the sums agree to f32 rounding, except for the few items where the
+    two pipelines round one occlusion-edge test differently."""
     rel = (out - ref).abs() / torch.clamp(ref.abs(), min=HOMOG_FLOOR)
-    rel = rel.reshape(-1, 3).amax(dim=-1).double()
+    rel = rel.reshape(-1, channels).amax(dim=-1).double()
     return float(rel.median()), float((rel > 1e-2).double().mean())

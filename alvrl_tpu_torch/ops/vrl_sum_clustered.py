@@ -1,0 +1,229 @@
+"""The clustered VRL x eye-ray sum: each eye ray against the
+representatives of its slice (Adaptive LightSlice).
+
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered. Each ray
+b sums the estimator of ops.vrl_sum over row ray_slice[b] of a table of
+VRL ids (S, C) int32 and weights (S, C) float32, a column's weight
+multiplied into the VRL's power (weights enter linearly) and a column
+valid where its VRL is valid and its weight is > 0 (integrator.py:412,
+422); an id outside [0, N) counts as invalid. Rays with row -1 are left
+out and sum to 0. Out (3, B) float32 in ray order, not normalised by
+the particle count.
+
+What bounds it on the H100 is fp32 ALU and special-function throughput,
+as for ops.vrl_sum; the CUDA kernel (csrc/vrl_sum_clustered.cu, whose
+header gives the design) takes rays grouped by row into tiles of its
+block size (group_by_slice, on the host, as the JAX render groups
+pixels) and gathers each tile's table from the full VRL pack.
+
+Beside the kernel:
+  * `vrl_sum_clustered_reference`, the plain PyTorch version on the
+    same inputs and explicit uniforms (B, C, D) indexed by ray and table
+    column, summing ops.vrl_sum's per-sample terms over each ray's
+    gathered table;
+  * `vrl_sum_clustered`, the wrapper: the kernel for CUDA tensors (or an
+    error; there is no fallback), the plain version for CPU tensors.
+    Its Philox stream is vrl_sum's with counter (ray, VRL id, call, 0),
+    independent of the grouping and the table layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_sum as vs
+
+
+def group_by_slice(ray_slice, ray_block):
+    """Host grouping of the rays by table row into tiles of ray_block
+    slots: (tile_rays (n_tiles * ray_block,) int32, the ray index of each
+    slot or -1 for padding; tile_row (n_tiles,) int32, each tile's row).
+    Rows ascend; within a row the rays keep their order. Rays with row
+    -1 are in no tile."""
+    sl = np.asarray(ray_slice, np.int64)
+    kept = np.flatnonzero(sl >= 0)
+    order = kept[np.argsort(sl[kept], kind="stable")]
+    rows, first, counts = np.unique(sl[order], return_index=True,
+                                    return_counts=True)
+    tiles = -(-counts // ray_block)
+    tile_start = np.concatenate([[0], np.cumsum(tiles)[:-1]]) * ray_block
+    rank = np.arange(len(order)) - np.repeat(first, counts)
+    tile_rays = np.full(int(tiles.sum()) * ray_block, -1, np.int32)
+    tile_rays[np.repeat(tile_start, counts) + rank] = order
+    return tile_rays, np.repeat(rows, tiles).astype(np.int32)
+
+
+def _gather_tables(vrls, rows, table_ids, table_weights):
+    """(VRL_ROWS, R, C) pack of each ray's table row (row -1: all
+    invalid), weights folded into the power rows."""
+    n_vrls = vrls.shape[1]
+    kept = rows >= 0
+    r = rows.clamp(min=0)
+    ids = table_ids[r].long()
+    w = torch.where(kept[:, None], table_weights[r], 0.0)
+    id_ok = (ids >= 0) & (ids < n_vrls)
+    g = vrls[:, ids.clamp(0, n_vrls - 1)]
+    pw = g[pk.VP:pk.VP + 3] * w
+    valid = ((g[pk.VVALID] > 0.5) & id_ok & (w > 0.0)).to(g.dtype)
+    return torch.cat([g[:pk.VP], pw, valid[None]])
+
+
+def vrl_sum_clustered_reference(rays, vrls, tris, medium, ray_slice,
+                                table_ids, table_weights, uniforms, *,
+                                vol_vol_samples=2, vol_surf_samples=2,
+                                short_vrls=True, phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel on the same inputs, with
+    explicit (B, C, 2 * vol_vol_samples + vol_surf_samples) uniforms
+    indexed by ray and table column. Returns (3, B)."""
+    n_rays = rays.shape[1]
+    out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
+    if table_ids.shape[0] == 0 or vrls.shape[1] == 0:
+        return out
+    rows = torch.as_tensor(ray_slice, device=rays.device).long()
+    for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
+        b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
+        tables = _gather_tables(vrls, rows[b0:b1], table_ids, table_weights)
+        out[:, b0:b1] = vs._pair_sums(
+            rays[:, b0:b1], tables, tris, medium, uniforms[b0:b1],
+            vol_vol_samples, vol_surf_samples, short_vrls, phase_kind).T
+    return out
+
+
+def philox_table_uniforms(seed, ray_slice, table_ids, n_draws):
+    """(B, C, n_draws) uniforms of the kernel's Philox stream, indexed by
+    ray and table column: pair (b, table_ids[ray_slice[b], c]); 0 for
+    rays with row -1."""
+    rows = torch.as_tensor(ray_slice, device=table_ids.device).long()
+    n_rays, n_cols = rows.shape[0], table_ids.shape[1]
+    out = torch.zeros((n_rays, n_cols, n_draws), dtype=torch.float32,
+                      device=table_ids.device)
+    if table_ids.shape[0] == 0:
+        return out
+    for b0 in range(0, n_rays, vs._PHILOX_RAY_CHUNK):
+        b1 = min(n_rays, b0 + vs._PHILOX_RAY_CHUNK)
+        r = rows[b0:b1]
+        b = torch.arange(b0, b1, dtype=torch.int64,
+                         device=table_ids.device)[:, None]
+        u = vs.philox_draws(seed, b, table_ids[r.clamp(min=0)].long(),
+                            n_draws)
+        out[b0:b1] = torch.where((r >= 0)[:, None, None], u, 0.0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = vs._library()
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.alvrl_vrl_sum_clustered.argtypes = [
+        p, i, p, i, p, i, p, p, p, i, p, p, i, p, u, i, i, i, i, p, p]
+    lib.alvrl_vrl_sum_clustered.restype = i
+    lib.alvrl_ray_block.restype = i
+    return lib
+
+
+def _check_tables(rays, ray_slice, table_ids, table_weights):
+    """Raise on tables the kernel does not take; returns ray_slice as a
+    host numpy array."""
+    if not isinstance(table_ids, torch.Tensor) \
+            or table_ids.dtype != torch.int32 or table_ids.dim() != 2:
+        raise TypeError("table_ids must be a 2-D int32 tensor")
+    if not isinstance(table_weights, torch.Tensor) \
+            or table_weights.dtype != torch.float32 \
+            or tuple(table_weights.shape) != tuple(table_ids.shape):
+        raise TypeError("table_weights must be a float32 tensor shaped as "
+                        "table_ids")
+    for name, t in (("table_ids", table_ids),
+                    ("table_weights", table_weights)):
+        if t.device != rays.device:
+            raise ValueError(f"{name} is on {t.device}, rays on "
+                             f"{rays.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    sl = np.asarray(torch.as_tensor(ray_slice).cpu())
+    if sl.ndim != 1 or not np.issubdtype(sl.dtype, np.integer):
+        raise TypeError("ray_slice must be a 1-D integer array")
+    if len(sl) != rays.shape[1]:
+        raise ValueError(f"ray_slice has {len(sl)} rows, rays "
+                         f"{rays.shape[1]}")
+    if len(sl) and (sl.min() < -1 or sl.max() >= table_ids.shape[0]):
+        raise ValueError(f"ray_slice rows must lie in [-1, "
+                         f"{table_ids.shape[0]})")
+    return sl
+
+
+def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
+                      table_weights, *, seed=0, uniforms=None,
+                      vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                      phase_kind=ph.HG):
+    """(3, B) per-ray sums over each ray's table row (not normalised by
+    the particle count; see module). rays (RAY_ROWS, B), vrls (VRL_ROWS,
+    N), tris and medium are ops.vrl_sum's packs; ray_slice (B,) integer
+    rows in [-1, S) (numpy or a tensor; read on the host); table_ids
+    (S, C) int32 and table_weights (S, C) float32 on the rays' device.
+    Random numbers come from the Philox stream of `seed`, counter (b,
+    VRL id, call, 0), or from `uniforms` (B, C, 2 * vol_vol_samples +
+    vol_surf_samples) when given. CUDA tensors go through the CUDA
+    kernel, CPU tensors through vrl_sum_clustered_reference."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
+        raise TypeError("table_ids must be a 2-D int32 tensor")
+    vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
+              n_cols=table_ids.shape[1])
+    sl = _check_tables(rays, ray_slice, table_ids, table_weights)
+    n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = philox_table_uniforms(seed, sl, table_ids,
+                                             2 * svv + svs)
+        return vrl_sum_clustered_reference(
+            rays, vrls, tris, medium, sl, table_ids, table_weights,
+            uniforms, vol_vol_samples=svv, vol_surf_samples=svs,
+            short_vrls=short_vrls, phase_kind=phase_kind)
+    lib = _library()
+    if tris.shape[0] > lib.alvrl_max_tris():
+        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
+                         f"shared-memory cap of {lib.alvrl_max_tris()}")
+    out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
+    tile_rays, tile_row = group_by_slice(sl, lib.alvrl_ray_block())
+    if len(tile_row) == 0 or n_vrls == 0 or n_cols == 0:
+        return out
+    tile_rays = torch.as_tensor(tile_rays).to(rays.device)
+    tile_row = torch.as_tensor(tile_row).to(rays.device)
+    with torch.cuda.device(rays.device):
+        _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row,
+                table_ids, table_weights, uniforms, seed, svv, svs, short_vrls,
+                phase_kind, out)
+    vrl_sum_clustered.launches += 1
+    return out
+
+
+def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
+            table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
+            out):
+    """The kernel on inputs the wrapper has checked and grouped
+    (tile_rays, tile_row: group_by_slice's arrays on the device), into
+    `out` (3, B), written at the rays of the tiles; on the current
+    stream. The wrapper's own step, apart so that chip_smoke.py can time
+    the kernel without the wrapper's host work; it counts no launch."""
+    err = lib.alvrl_vrl_sum_clustered(
+        rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
+        tris.data_ptr(), tris.shape[0], medium.data_ptr(),
+        tile_rays.data_ptr(), tile_row.data_ptr(), len(tile_row),
+        table_ids.data_ptr(), table_weights.data_ptr(), table_ids.shape[1],
+        None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+        int(short_vrls), phase_kind, out.data_ptr(),
+        torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
+                           f"error {err} "
+                           f"({lib.alvrl_error_string(err).decode()})")
+
+
+vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
+                                # used the kernel

@@ -33,7 +33,7 @@ def cornell_smoke(
     g=0.0,
     intensity=(8.0, 8.0, 8.0),
     with_blocker=True,
-    device="cpu",
+    device="cuda",
 ):
     """Cornell box [-1,1]^3 filled with a homogeneous medium: white
     floor, ceiling, back and front walls, red left (-x) and green right

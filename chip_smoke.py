@@ -1,6 +1,8 @@
 """Smoke run of alvrl_tpu_torch on one CUDA card (an H100): the config-1
-VRL render and the config-1 train step end to end through the
-hand-written CUDA kernels (the VRL sum and its seed-replay VJP).
+VRL render, the config-1 train step and the config-2 clustered render
+(Adaptive LightSlice) end to end through the hand-written CUDA kernels
+(the VRL sum, its seed-replay VJP, the transfer matrix R and the
+clustered sum).
 
     python3 chip_smoke.py
 
@@ -33,8 +35,25 @@ Phases, one line each; any failure exits non-zero:
   9. timing of the train step (ms per step, and the tracer, forward and
      backward kernels alone on its inputs) and of the backward kernel
      against its plain version;
- 10. profile: device activity of traced train steps, as phase 6.
-Then one JSON line of per-kernel results and, last, the device line
+ 10. profile: device activity of traced train steps, as phase 6;
+ 11. R kernel vs plain at config-2 shapes (the representative rays of
+     the port's slicing of cornell_smoke 128x128 x the 512 VRLs of a
+     config-2 trace), injected uniforms and Philox, the media and modes
+     of phase 3: the mean at the homogeneous bar, the variance of the
+     mean to a median relative error of 1e-4, and the row sums against
+     vrl_sum's luminance;
+ 12. clustered kernel vs plain on the config-2 tables over all 16,384
+     eye rays, the same cases, a fall-back launch, an identity table of
+     all 512 VRLs against vrl_sum, and a bit-identical repeat;
+ 13. the main path: alvrl.render_alvrl at full config 2 (BASELINE,
+     scripts/bench_suite.py:55-87); both new kernels' launch counts must
+     move, the image must be finite and non-zero, and over 3 seeds the
+     mean clustered image over the mean unclustered image of the same
+     VRLs must lie in 0.85-1.15;
+ 14. timing of a warm clustered pass, per stage on the host clock, each
+     new kernel alone and its plain version, and a profile as phase 6.
+Then one JSON line of per-kernel results (with each kernel's bound,
+as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
 device the script fails.
 """
@@ -56,16 +75,25 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from alvrl_tpu_torch.integrators.vrl import integrator, tracer, vrl
+from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import _build
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
+from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
+from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_reference
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_uniforms, vrl_sum,
     vrl_sum_reference)
+from alvrl_tpu_torch.ops.vrl_sum_clustered import (
+    group_by_slice, philox_table_uniforms, vrl_sum_clustered,
+    vrl_sum_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.sensors import perspective
 
 WIDTH = HEIGHT = 128
 N_VRLS = 512
@@ -77,6 +105,62 @@ PAR_RTOL = 1e-3  # d_par, and the step's gradients: the BASELINE bar
 FD_TOL = 5e-3    # same-seed central differences (tests/test_pallas_bwd.py)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_VRLS = os.path.join(ROOT, "data", "bench_vrls.txt")
+# config 2 (scripts/bench_suite.py:55-87): cornell_smoke 128x128, 512
+# VRLs of 128 particles x depth 16, 100 slices, pixel undersampling 64
+C2_PARAMS = dict(vrl_target_num=512, num_particles=128, seed=0)
+C2_CLUSTER = dict(target_num_slices=100, target_pixel_undersampling=64.0)
+C2_BAND = (0.85, 1.15)  # clustered / unclustered image mean, 3 seeds
+R_VAR_MEDIAN, R_VAR_FLOOR = 1e-4, 1e-12  # tests/test_hetero_pallas.py:227
+
+# bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes over the memory rate and its operations over the
+# peak rate of their type (NVIDIA H100 SXM, 700 W: 3.35 TB/s, 67
+# TFLOP/s float32 outside the tensor cores, a fused multiply-add counting
+# 2; special functions at 16 results per clock per SM against float32's
+# 128, the CUDA programming guide's throughput table for compute
+# capability 9.0). The operations are OPS's counts times this run's
+# samples as the kernel meets them (SweepCount).
+HBM_BYTES_PER_S = 3.35e12
+FP32_PER_S = 67e12
+SFU_PER_S = FP32_PER_S / 16.0  # 16 vs 128 results, an FMA counting 2
+
+# (float32 operations, special-function operations) per call of the
+# device code in alvrl_tpu_torch/csrc/vrl_common.cuh, counted from the
+# source by rules that make every count a lower bound: an add, subtract,
+# multiply, min, max or comparison is 1 (a fused multiply-add 2, as the
+# peak counts it); a negation, absolute value or select is 0; a square
+# root, division, reciprocal or exp is one special-function operation
+# (its one MUFU instruction; the rest of its precise sequence counts 0);
+# asinhf, sinhf, atanf and tanf count 0 (the arithmetic of their
+# arguments counts); a product the compiler can hoist out of its loop
+# (g * g, sigma_s^2, a pair's power times sigma_s, a ray's |ee|^2, a
+# pair's a1 - a0) counts 0; integer work (Philox, indices), loads and
+# loop control count 0. Near-parallel pairs (sin theta < 1e-4) are
+# counted on the common path.
+OPS = {
+    # pair_setup: vd, |vd| and its reciprocal, uv (12, 2);
+    # seg_seg_closest (63, 3: w; the dots b, d, e; the numerators and the
+    # clamps; sc, tc; the closest points; h); cos and sin theta (8, 1);
+    # near_par, sin_safe, h, arc_h (4); the arguments of a0, a1 (3, 2)
+    "pair": (90, 8),
+    # vol_vol_sample up to its shadow test: V by inverse distance (8, 4),
+    # vp (6), kulla (39, 4: x - a and its dot; the foot point; dis; the
+    # angles' arguments; the tangent's argument and t; span; pdf; arc),
+    # up (6), pdf (1), duv and its square (8), the two tests (2)
+    "vv": (70, 8),
+    # past an open shadow test: d_uv, vu, c_u, c_v, den, path
+    "vv_open": (18, 2),
+    # vol_surf_sample up to its shadow test: kulla (39, 4), vp (6), duv
+    # and its square (8), the two tests (2)
+    "vs": (55, 4),
+    # past an open shadow test: d_uv, vu, cos_o, c_v, den, path
+    "vs_open": (18, 2),
+    # occluded: the segment's set-up (16, 2), then each triangle the
+    # sweep tests (two cross and three dot products, the sign, adet, tv,
+    # the five-way min and its test: 59)
+    "segment": (16, 2),
+    "triangle": (59, 0),
+}
 
 
 def check(cond, msg):
@@ -155,7 +239,8 @@ def ptxas_summary(log):
     in the compiler's report."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(vrl_sum(?:_bwd)?_kernel)"
+        m = re.search(r"Compiling entry function '.*?"
+                      r"(vrl_(?:sum|sum_bwd|sum_clustered|r)_kernel)"
                       r"ILi(\d)ELb(\d)E", line)
         if "Compiling entry function" in line:
             name = f"{m[1]}<{m[2]},{m[3]}>" if m else None
@@ -240,6 +325,471 @@ def host_ms(fn, n_warm, n_timed):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return times
+
+
+def cuda_ms_batched(fn, n_warm, n_timed, batch):
+    """Per-call device times (ms) of fn by CUDA events around `batch`
+    calls in a row, after warm-up: the host work of one call overlaps
+    the previous call's kernel, so a kernel shorter than a window's
+    launch overhead is still timed."""
+    for _ in range(n_warm):
+        fn()
+    times = []
+    for _ in range(n_timed):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return times
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def estimator_ops(kernel, vol_vol, hg, short_vrls):
+    """(float32, special-function) operations, by OPS's rules, of one
+    open sample's estimator and its reduction: pair_terms and the
+    kernel's emit (forward), or vrl_sum_bwd.cu's cotangents."""
+    n_phase = 2 if vol_vol else 1
+    f, s = n_phase * (4 if hg else 3), n_phase * (2 if hg else 0)  # phase
+    f, s = f + (1 if vol_vol else 2), s + 1                          # geo
+    if short_vrls:  # pdf_failure (8, 3), its clamp and the division
+        f, s = f + 9, s + 4
+    if kernel != "vrl_sum_bwd":
+        # exp(-sigma_t path) and two products per channel; the emit:
+        # acc += t * inv (vrl_sum, vrl_sum_clustered) or the luminance,
+        # its sum and its square's (vrl_r)
+        return f + 9 + (8 if kernel == "vrl_r" else 6), s + 3
+    if hg:  # phase_dg beside each phase_eval (6, 2), then geo_g
+        f, s = f + 6 * n_phase + (3 if vol_vol else 2), s + 2 * n_phase + 1
+    if short_vrls:  # geo_g's division; d sigma_t through 1 / pdf_failure
+        f, s = f + 10, s + 4
+    # per channel: w (2, 1) and gbar * term, d_pw, d_ss, d_st, d_g and
+    # gt_all (12), with d_tau for vol-surf (14)
+    return f + 3 * (2 + (12 if vol_vol else 14)), s + 3
+
+
+def kernel_ops(kernel, sweep, hg, short_vrls):
+    """(float32, special-function) operations of `kernel` on this run's
+    samples (a SweepCount), by OPS's rules."""
+    # per pair beyond pair_setup: R's mean and variance of the mean (two
+    # families: the division, the sum, k mu^2, the clamp, two divisions,
+    # the sum), the backward's warp sums of d_power (3 x 5 adds)
+    extra = {"vrl_r": (12, 6), "vrl_sum_bwd": (15, 0)}.get(kernel, (0, 0))
+    rows = [(sweep.pairs, (OPS["pair"][0] + extra[0],
+                           OPS["pair"][1] + extra[1])),
+            (sweep.drawn[0], OPS["vv"]), (sweep.drawn[1], OPS["vs"]),
+            (sum(sweep.tested), OPS["segment"]),
+            (sweep.tri_tests, OPS["triangle"])]
+    for fam, name in enumerate(("vv_open", "vs_open")):
+        est = estimator_ops(kernel, fam == 0, hg, short_vrls)
+        rows.append((sweep.open[fam], (OPS[name][0] + est[0],
+                                       OPS[name][1] + est[1])))
+    return (sum(n * f for n, (f, _) in rows),
+            sum(n * s for n, (_, s) in rows))
+
+
+class SweepCount:
+    """This run's samples as a kernel meets them, counted while a plain
+    version runs inside `with SweepCount(pair_ok, alb_ok) as sweep:`.
+
+    pair_ok (B, G): the pairs the kernel evaluates (a valid ray, and a
+    valid VRL or table column); alb_ok (B,): the rays whose vol-surf
+    samples it draws. ops.vrl_sum._occluded_packed is wrapped so that
+    each shadow segment's sweep length is the kernel's (occluded() stops
+    at the first blocking triangle): the plain test itself, applied one
+    triangle at a time. The plain versions call the test per block of
+    rays, in ray order, svv vol-vol then svs vol-surf times a block.
+    Counts per family [vol-vol, vol-surf]: drawn samples, tested
+    segments (the kernel skips the test where d_uv^2 = 0, seen here, or
+    the pdf is 0, not seen here), open segments; and tri_tests, the
+    triangles of all sweeps."""
+
+    def __init__(self, pair_ok, alb_ok, svv=2, svs=2):
+        self.pair_ok, self.alb_ok, self.svv, self.svs = pair_ok, alb_ok, svv, svs
+        self.pairs = int(pair_ok.sum())
+        self.drawn = [svv * self.pairs,
+                      svs * int((pair_ok & alb_ok[:, None]).sum())]
+        self.tested, self.open, self.tri_tests = [0, 0], [0, 0], 0
+        self._calls = self._b0 = 0
+
+    def __enter__(self):
+        self._test = vs._occluded_packed
+        vs._occluded_packed = self._count
+        return self
+
+    def __exit__(self, *exc):
+        vs._occluded_packed = self._test
+
+    def _count(self, p, q, tris):
+        n_tris = tris.shape[0]
+        hits = torch.stack([self._test(p, q, tris[t:t + 1])
+                            for t in range(n_tris)], dim=-1)
+        blocked = hits.any(dim=-1)
+        sweep = torch.where(blocked, hits.int().argmax(dim=-1) + 1, n_tris)
+        k = self._calls % (self.svv + self.svs)
+        self._calls += 1
+        fam, n = int(k >= self.svv), blocked.shape[0]
+        ok = self.pair_ok[self._b0:self._b0 + n]
+        if fam:
+            ok = ok & self.alb_ok[self._b0:self._b0 + n, None]
+        dd = q - p
+        ok = ok & ((dd * dd).sum(dim=-1) > 0.0)
+        self.tested[fam] += int(ok.sum())
+        self.open[fam] += int((ok & ~blocked).sum())
+        self.tri_tests += int(sweep[ok].sum())
+        if k == self.svv + self.svs - 1:
+            self._b0 += n
+        return blocked
+
+    def __str__(self):
+        tested = sum(self.tested)
+        return (f"{self.pairs} pairs, {sum(self.drawn)} samples, "
+                f"{sum(self.open) / tested:.3f} of {tested} shadow segments "
+                f"open, {self.tri_tests / tested:.3f} triangles per sweep")
+
+
+def pair_masks(rays, vrls):
+    """SweepCount's (pair_ok, alb_ok) of an unclustered kernel."""
+    return ((rays[pk.VALID] > 0.5)[:, None] & (vrls[pk.VVALID] > 0.5)[None],
+            rays[pk.ALB:pk.ALB + 3].sum(dim=0) > 0.0)
+
+
+def bound(ops, n_bytes):
+    """(ms, "bytes" or "operations"): the least time of the work (see
+    the constants' comment), the larger of its bytes over the memory
+    rate and its (float32, special-function) operations over the peak
+    rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(ops[0] / FP32_PER_S, ops[1] / SFU_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def table_pair_ok(rays, vrls, ray_slice, table_ids, table_weights):
+    """(B, C) the table columns each ray evaluates: a valid ray, a valid
+    VRL id, weight > 0; none for rays at row -1."""
+    n = vrls.shape[1]
+    ids = table_ids.long()
+    ok = (ids >= 0) & (ids < n) & (table_weights > 0) \
+        & (vrls[pk.VVALID][ids.clamp(0, n - 1)] > 0.5)
+    rows = torch.as_tensor(ray_slice, device=rays.device).long()
+    return ok[rows.clamp(min=0)] & ((rows >= 0)
+                                    & (rays[pk.VALID] > 0.5))[:, None]
+
+
+def rep_packs(scene, vrls, slice_info):
+    """ops.pack's packs of the representative pixels' centre rays (the
+    R kernel's rays, as alvrl.build_R_device makes them)."""
+    rows = torch.as_tensor(np.concatenate(slice_info.repr_rows),
+                           device=scene.device)
+    w = scene.camera.width
+    ray_o, ray_d = perspective.sample_ray(scene.camera, rows % w, rows // w)
+    hit, mat = integrator.trace_eye_rays(scene, ray_o, ray_d)
+    return (pk.pack_rays(scene, ray_o, ray_d, hit, mat), pk.pack_vrls(vrls),
+            pk.pack_tris(scene), pk.pack_medium(scene))
+
+
+def media_scenes(dev):
+    out = {}
+    for name, (g, kind) in MEDIA.items():
+        scene = presets.cornell_smoke(WIDTH, HEIGHT, g=g, device=dev)
+        out[name] = replace(scene, medium=replace(scene.medium,
+                                                  phase_kind=kind))
+    return out
+
+
+def config2(dev, card, cfg):
+    """Phases 11-14, the config-2 clustered render; returns the kernels
+    line's entries of vrl_r and vrl_sum_clustered."""
+    tcfg = tracer.TracerConfig()  # max_depth 16, rr_depth 5, short VRLs
+    params = alvrl.ALVRLParams(**C2_PARAMS,
+                               cluster=cl.ClusterParams(**C2_CLUSTER))
+    scene = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
+    t0 = time.perf_counter()
+    info = alvrl.build_slice_info(scene, params)
+    slice_ms = (time.perf_counter() - t0) * 1e3
+    vrls = vrl.compact(
+        tracer.trace(scene, torch.Generator().manual_seed(11),
+                     params.num_particles, tcfg),
+        params.vrl_target_num, slots_per_particle=tcfg.max_depth)
+    n_vrls, n_rays = vrls.capacity, WIDTH * HEIGHT
+    n_rep = sum(len(r) for r in info.repr_rows)
+    check(n_vrls == params.vrl_target_num
+          and len(info.repr_rows) == C2_CLUSTER["target_num_slices"],
+          f"config-2 shapes: {n_vrls} VRLs, {len(info.repr_rows)} slices")
+    seed = 20261017
+    rng = np.random.default_rng(12)
+    scenes = media_scenes(dev)
+
+    # 11. the R kernel against its plain version
+    u_inj = torch.as_tensor(rng.random((n_rep, n_vrls, 6), dtype=np.float32),
+                            device=dev)
+    u_philox = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    r_err, results = 0.0, []
+    for name, sc in scenes.items():
+        kind = MEDIA[name][1]
+        packs = rep_packs(sc, vrls, info)
+        for mode in ("injected", "philox", "long"):
+            short = mode != "long"
+            u = u_philox if mode == "philox" else u_inj
+            out = vrl_r(*packs, seed=seed,
+                        uniforms=None if mode == "philox" else u,
+                        short_vrls=short, phase_kind=kind)
+            ref = vrl_r_reference(*packs, u, short_vrls=short,
+                                  phase_kind=kind)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"R {name}/{mode} finite")
+            median, share = homog_bar(out[0], ref[0], channels=1)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"R mean {name}/{mode}: median {median}, share {share}")
+            nz = ref[1] > R_VAR_FLOOR
+            check(int(nz.sum()) > 1000, f"R {name}/{mode}: variances")
+            v_med = float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median())
+            check(v_med < R_VAR_MEDIAN, f"R var {name}/{mode}: {v_med}")
+            r_err = max(r_err, float((out - ref).abs().max()))
+            line = (f"{name}/{mode} mean median {median:.2e} share "
+                    f"{share:.4f}, var median {v_med:.2e}")
+            if mode == "philox":  # the same stream as vrl_sum's
+                sums = vrl_sum(*packs, seed=seed, phase_kind=kind)
+                lum = sum(w * c for w, c in zip(LUM_WEIGHTS, sums))
+                rs_med, rs_share = homog_bar(out[0].sum(dim=1), lum,
+                                             channels=1)
+                check(rs_med < HOMOG_MEDIAN and rs_share < HOMOG_SHARE,
+                      f"R row sums {name}/{mode}: {rs_med}, {rs_share}")
+                line += f", row sums vs vrl_sum median {rs_med:.2e}"
+            results.append(line)
+    print(f"[11 R kernel vs plain on {card}, P={n_rep} N={n_vrls} (slicing "
+          f"{slice_ms:.1f} ms)] " + " | ".join(results), flush=True)
+    del u_inj
+
+    # 12. the clustered kernel against its plain version, real tables
+    sop, tv, tw, cinfo = alvrl.prepare_clustering(scene, vrls, seed, params,
+                                                  cfg, info)
+    n_cols = tv.shape[1]
+    u_inj = torch.as_tensor(rng.random((n_rays, n_cols, 6),
+                                       dtype=np.float32), device=dev)
+    u_philox = philox_table_uniforms(seed, sop, tv, 6)
+    c_err, results = 0.0, []
+    for name, sc in scenes.items():
+        kind = MEDIA[name][1]
+        packs = integrator.pack_frame(sc, vrls)[3]
+        for mode in ("injected", "philox", "long"):
+            short = mode != "long"
+            u = u_philox if mode == "philox" else u_inj
+            kw = dict(seed=seed, uniforms=None if mode == "philox" else u,
+                      short_vrls=short, phase_kind=kind)
+            out = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
+            again = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
+            ref = vrl_sum_clustered_reference(*packs, sop, tv, tw, u,
+                                              short_vrls=short,
+                                              phase_kind=kind)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"clustered {name}/{mode}: a "
+                  "repeat launch is not bit-identical")
+            check(bool(torch.isfinite(out).all())
+                  and float(out.abs().sum()) > 0.0,
+                  f"clustered {name}/{mode} finite, non-zero")
+            median, share = homog_bar(out.T, ref.T)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"clustered {name}/{mode}: median {median}, share {share}")
+            c_err = max(c_err, float((out - ref).abs().max()))
+            results.append(f"{name}/{mode} median {median:.2e} share "
+                           f"{share:.4f}")
+    packs = integrator.pack_frame(scene, vrls)[3]
+    ids = torch.arange(n_vrls, dtype=torch.int32, device=dev)[None]
+    ident = vrl_sum_clustered(*packs, np.zeros(n_rays, np.int64), ids,
+                              torch.ones((1, n_vrls), device=dev), seed=seed)
+    median, share = homog_bar(ident.T, vrl_sum(*packs, seed=seed).T)
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"identity table vs vrl_sum: median {median}, share {share}")
+    results.append(f"identity table ({n_vrls} columns) vs vrl_sum median "
+                   f"{median:.2e} share {share:.4f}")
+    fb_rows = np.where(rng.random(n_rays) < 0.05, 0, -1)
+    fb_ids, fb_ws = alvrl.fallback_table(
+        replace(cinfo, pixel_to_slice=fb_rows.astype(np.int32)), dev)
+    fb = vrl_sum_clustered(*packs, fb_rows, fb_ids[None], fb_ws[None],
+                           seed=seed)
+    fb_ref = vrl_sum_clustered_reference(
+        *packs, fb_rows, fb_ids[None], fb_ws[None],
+        philox_table_uniforms(seed, fb_rows, fb_ids[None], 6))
+    median, share = homog_bar(fb.T, fb_ref.T)
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE
+          and not fb[:, torch.as_tensor(fb_rows < 0, device=dev)].any(),
+          f"fall-back launch vs plain: median {median}, share {share}")
+    results.append(f"fall-back launch ({len(fb_ids)} columns, "
+                   f"{int((fb_rows >= 0).sum())} rays) median {median:.2e}")
+    print(f"[12 clustered kernel vs plain on {card}, B={n_rays} S={tv.shape[0]}"
+          f" C={n_cols}, repeats bit-identical] " + " | ".join(results),
+          flush=True)
+    del u_inj, u_philox
+
+    # 13. the main path, through the entry point a user calls
+    vrl_r.launches = vrl_sum_clustered.launches = 0
+    img, vrls_m, info_m = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(100), params, cfg, tcfg,
+        slice_info=info)
+    torch.cuda.synchronize()
+    launches = (vrl_r.launches, vrl_sum_clustered.launches)
+    check(min(launches) >= 1, f"render_alvrl's kernel launches {launches}")
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), "clustered image finite")
+    check(float(img.abs().max()) > 0.0, "clustered image non-zero")
+    means = [(float(img.mean()), float(integrator.render_with_vrls_kernel(
+        scene, vrls_m, torch.Generator().manual_seed(1000), cfg).mean()))]
+    for k in (1, 2):
+        img_k, vrls_k, _ = alvrl.render_alvrl(
+            scene, torch.Generator().manual_seed(100 + k), params, cfg, tcfg,
+            slice_info=info)
+        means.append((float(img_k.mean()), float(
+            integrator.render_with_vrls_kernel(
+                scene, vrls_k, torch.Generator().manual_seed(1000 + k),
+                cfg).mean())))
+    ratio = np.mean([m[0] for m in means]) / np.mean([m[1] for m in means])
+    check(C2_BAND[0] < ratio < C2_BAND[1],
+          f"clustered / unclustered image mean {ratio} ({means})")
+    reps = (info_m.slice_weights > 0).sum(axis=1)
+    n_fb = int((info_m.pixel_to_slice < 0).sum())
+    print(f"[13 main path on {card}] render_alvrl, config 2: launches vrl_r "
+          f"{launches[0]} vrl_sum_clustered {launches[1]}; S "
+          f"{len(info.repr_rows)}, P {n_rep}, representatives per slice "
+          f"mean {reps.mean():.2f} max {reps.max()}, undersampling "
+          f"{n_vrls / reps.mean():.1f}, fall-back pixels {n_fb} ("
+          f"{len(info_m.fallback_vrls)} VRLs); image mean "
+          f"{float(img.mean()):.6f}; clustered / unclustered mean over 3 "
+          f"seeds {ratio:.4f} (" + ", ".join(f"{a:.5f}/{b:.5f}"
+                                             for a, b in means) + ")",
+          flush=True)
+
+    # 14. a warm pass: per stage, each kernel alone, a profile
+    lib_block = vsc._library().alvrl_ray_block()  # rays per block
+
+    def staged(gen):
+        t, out = {}, {}
+
+        def stage(name, fn):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            t[name] = (time.perf_counter() - t0) * 1e3
+            return out[name]
+
+        v = stage("trace+compact", lambda: vrl.compact(
+            tracer.trace(scene, gen, params.num_particles, tcfg),
+            params.vrl_target_num, slots_per_particle=tcfg.max_depth))
+        r = stage("R kernel", lambda: alvrl.build_R_device(
+            scene, v, cfg, info, integrator.draw_seed(gen)))
+        r_host = stage("bf16 transfer", lambda: alvrl.transfer_R(*r))
+        clusters = stage("host clustering", lambda: alvrl.slice_clusters(
+            *r_host, params, info))
+        tables = stage("table packing", lambda: alvrl.pack_tables(
+            info, *clusters, dev))
+        stage("grouping", lambda: group_by_slice(tables[0], lib_block))
+        img = stage("clustered render", lambda: (
+            integrator.render_clustered_kernel(
+                scene, v, *tables[:3], gen, cfg,
+                fallback=alvrl.fallback_table(tables[3], dev))))
+        return t, img
+
+    t_staged, img_staged = staged(torch.Generator().manual_seed(100))
+    check(torch.equal(img_staged, img), "the staged pass is render_alvrl's")
+    stages = {k: [] for k in t_staged}
+    gen = torch.Generator().manual_seed(7)
+    for i in range(13):
+        t_i, _ = staged(gen)
+        if i >= 3:
+            for k, v in t_i.items():
+                stages[k].append(v)
+    pass_ms = host_ms(lambda: alvrl.render_alvrl(
+        scene, gen, params, cfg, tcfg, slice_info=info), 3, 10)
+    packs_r = rep_packs(scene, vrls, info)
+    r_ms = cuda_ms_batched(lambda: vrl_r(*packs_r, seed=seed), 3, 10, 10)
+    u_r = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    r_plain_ms = cuda_ms(lambda: vrl_r_reference(*packs_r, u_r), 1, 5)
+    # the kernel alone: the wrapper's host grouping (timed above) is
+    # longer than the kernel, so the launches go on pre-grouped tiles
+    tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
+        sop, lib_block)]
+    c_out = torch.zeros((3, n_rays), device=dev)
+    c_ms = cuda_ms_batched(lambda: vsc._launch(
+        vsc._library(), *packs, *tiles, tv, tw, None, seed, 2, 2, True,
+        scene.medium.phase_kind, c_out), 3, 10, 10)
+    wrapper_ms = host_ms(lambda: vrl_sum_clustered(*packs, sop, tv, tw,
+                                                   seed=seed), 3, 10)
+    check(torch.equal(c_out, vrl_sum_clustered(*packs, sop, tv, tw,
+                                               seed=seed)),
+          "the bare launch is the wrapper's")
+    u_c = philox_table_uniforms(seed, sop, tv, 6)
+    c_plain_ms = cuda_ms(lambda: vrl_sum_clustered_reference(
+        *packs, sop, tv, tw, u_c), 1, 5)
+    (r_med, r_spread), (rp_med, _), (c_med, c_spread), (cp_med, _), \
+        (p_med, p_spread) = map(summary, (r_ms, r_plain_ms, c_ms, c_plain_ms,
+                                          pass_ms))
+    hg = scene.medium.phase_kind == 0
+    with SweepCount(*pair_masks(packs_r[0], packs_r[1])) as r_sweep:
+        vrl_r_reference(*packs_r, u_r)
+    with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
+                    pair_masks(*packs[:2])[1]) as c_sweep:
+        vrl_sum_clustered_reference(*packs, sop, tv, tw, u_c)
+    tile_rays, tile_row = group_by_slice(sop, lib_block)
+    r_bound = bound(kernel_ops("vrl_r", r_sweep, hg, True),
+                    nbytes(*packs_r) + 2 * n_rep * n_vrls * 4)
+    c_bound = bound(kernel_ops("vrl_sum_clustered", c_sweep, hg, True),
+                    nbytes(*packs, tv, tw) + 4 * (len(tile_rays)
+                                                  + len(tile_row))
+                    + 3 * n_rays * 4)
+    print(f"[14 timing on {card}] warm pass (render_alvrl, host clock) "
+          f"{p_med:.3f} ms (spread {p_spread:.1%}); stages, median of 10 "
+          "(spread): " + " | ".join(
+              f"{k} {statistics.median(v):.3f} ms ({summary(v)[1]:.1%})"
+              for k, v in stages.items())
+          + f" | alone (CUDA events over 10 launches in a row): vrl_r "
+          f"{r_med:.4f} ms (spread "
+          f"{r_spread:.1%}, {r_sweep}, bound {r_bound[0]:.4f}"
+          f" ms by {r_bound[1]}), plain {rp_med:.3f} ms; vrl_sum_clustered "
+          f"{c_med:.4f} ms (spread {c_spread:.1%}, {len(tile_row)} blocks, "
+          f"{c_sweep}, bound {c_bound[0]:.4f} ms by "
+          f"{c_bound[1]}; the wrapper with its host grouping "
+          f"{statistics.median(wrapper_ms):.3f} ms), plain {cp_med:.3f} ms",
+          flush=True)
+    prof = profile_device(lambda: alvrl.render_alvrl(
+        scene, gen, params, cfg, tcfg, slice_info=info), 2, 5)
+    if prof is None:
+        print("[14 profile] the profiler saw no device operation: not "
+              "measured", flush=True)
+    else:
+        span, busy, n_ops, by_name = prof
+        mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
+                for k in ("vrl_r_kernel", "vrl_sum_clustered_kernel")}
+        top = sorted(((v, k) for k, v in by_name.items()
+                      if not any(m + "<" in k for m in mine)),
+                     reverse=True)[:4]
+        print(f"[14 profile on {card}] per traced pass: device span "
+              f"{span:.3f} ms, busy {busy:.3f} ms, idle share "
+              f"{1 - busy / span:.1%}, {n_ops:g} device ops; "
+              + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%} of busy)"
+                          for k, v in mine.items()) + "; next: "
+              + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
+              flush=True)
+    return [{
+        "name": "vrl_r", "route": "cuda",
+        "source": "alvrl_tpu_torch/csrc/vrl_r.cu",
+        "replaces": "alvrl_tpu/ops/vrl_pallas.py:1019",
+        "launches": launches[0], "max_abs_err": r_err,
+        "ms": r_med, "plain_ms": rp_med, "bound_ms": r_bound[0],
+        "bound_by": r_bound[1], "library_ms": None,
+    }, {
+        "name": "vrl_sum_clustered", "route": "cuda",
+        "source": "alvrl_tpu_torch/csrc/vrl_sum_clustered.cu",
+        "replaces": "alvrl_tpu/ops/vrl_pallas.py:785",
+        "launches": launches[1], "max_abs_err": c_err,
+        "ms": c_med, "plain_ms": cp_med, "bound_ms": c_bound[0],
+        "bound_by": c_bound[1], "library_ms": None,
+    }]
 
 
 def main():
@@ -341,13 +891,19 @@ def main():
         if i >= 3:
             render_s.append((time.perf_counter() - t) * 1e3)
     pair_evals = n_rays * N_VRLS * n_draws
+    with SweepCount(*pair_masks(packs[0], packs[1])) as sum_sweep:
+        vrl_sum_reference(*packs, u_render)
+    sum_bound = bound(kernel_ops("vrl_sum", sum_sweep,
+                                 scene.medium.phase_kind == 0, cfg.short_vrls),
+                      nbytes(*packs) + 3 * n_rays * 4)
     k_med, k_spread = summary(kernel_ms)
     p_med, p_spread = summary(plain_ms)
     r_med, r_spread = summary(render_s)
     print(f"[5 timing on {card}] kernel {k_med:.3f} ms/pass (spread "
           f"{k_spread:.1%}, {pair_evals / (k_med / 1e3):.4g} pair-sample "
           f"evals/s) | plain {p_med:.3f} ms/pass (spread {p_spread:.1%}, "
-          f"uniforms precomputed) | render {r_med:.3f} ms/pass (spread "
+          f"uniforms precomputed) | bound {sum_bound[0]:.4f} ms by "
+          f"{sum_bound[1]} ({sum_sweep}) | render {r_med:.3f} ms/pass (spread "
           f"{r_spread:.1%}, {pair_evals / (r_med / 1e3):.4g} evals/s)",
           flush=True)
 
@@ -516,11 +1072,16 @@ def main():
     u_step = philox_uniforms(seed, n_rays, n_slots, n_draws, device=dev)
     plain_bwd_ms = cuda_ms(
         lambda: bwd.vrl_sum_bwd_reference(*packs, gbar, u_step), 1, 3)
+    with SweepCount(*pair_masks(packs[0], packs[1])) as bwd_sweep:
+        vrl_sum_reference(*packs, u_step)  # the samples the backward replays
     del u_step
     tracer_ms = host_ms(
         lambda: tracer.trace(scene2, gen(), N_PARTICLES, tcfg), 3, 10)
     step_ms = host_ms(lambda: step(scene2), 3, 10)
     valid_evals = n_rays * n_valid * n_draws
+    bwd_bound = bound(kernel_ops("vrl_sum_bwd", bwd_sweep,
+                                 scene2.medium.phase_kind == 0, cfg.short_vrls),
+                      nbytes(*packs, gbar) + 4 * (6 * n_rays + 3 * n_slots + 8))
     (s_med, s_spread), (t_med, _), (f_med, _), (b_med, b_spread), \
         (pb_med, pb_spread) = map(summary, (step_ms, tracer_ms, fwd_ms, bwd_ms,
                                             plain_bwd_ms))
@@ -530,7 +1091,9 @@ def main():
           f"ms (spread {b_spread:.1%}, {valid_evals / (b_med / 1e3):.4g} "
           f"valid pair-sample evals/s), rest {s_med - t_med - f_med - b_med:.3f}"
           f" ms | plain backward {pb_med:.3f} ms (spread {pb_spread:.1%}, "
-          f"uniforms precomputed, {valid_evals / (pb_med / 1e3):.4g} evals/s)",
+          f"uniforms precomputed, {valid_evals / (pb_med / 1e3):.4g} evals/s)"
+          f" | backward bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]} "
+          f"({bwd_sweep})",
           flush=True)
 
     # 10. where the train step's device time goes
@@ -553,19 +1116,23 @@ def main():
               + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
               flush=True)
 
+    c2_kernels = config2(dev, card, cfg)
+
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
         "source": "alvrl_tpu_torch/csrc/vrl_sum.cu",
         "replaces": "alvrl_tpu/ops/vrl_pallas.py:726",
         "launches": launches, "max_abs_err": max_abs_err,
-        "ms": k_med, "plain_ms": p_med,
+        "ms": k_med, "plain_ms": p_med, "bound_ms": sum_bound[0],
+        "bound_by": sum_bound[1], "library_ms": None,
     }, {
         "name": "vrl_sum_bwd", "route": "cuda",
         "source": "alvrl_tpu_torch/csrc/vrl_sum_bwd.cu",
         "replaces": "alvrl_tpu/ops/vrl_pallas_bwd.py:845",
         "launches": step_launches[1], "max_abs_err": bwd_err,
-        "ms": b_med, "plain_ms": pb_med,
-    }]}))
+        "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1], "library_ms": None,
+    }, *c2_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """The CUDA kernels of alvrl_tpu_torch against their plain PyTorch
-versions: the VRL sum (csrc/vrl_sum.cu) and its VJP (csrc/vrl_sum_bwd.cu).
+versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
+the transfer matrix R (csrc/vrl_r.cu) and the clustered sum
+(csrc/vrl_sum_clustered.cu).
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -15,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from alvrl_tpu_torch.integrators.vrl import integrator, tracer, vrl
+from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_reference
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN,
     HOMOG_SHARE,
@@ -29,6 +34,11 @@ from alvrl_tpu_torch.ops.vrl_sum import (
 from alvrl_tpu_torch.ops.vrl_sum_bwd import (
     vrl_sum_bwd,
     vrl_sum_bwd_reference,
+)
+from alvrl_tpu_torch.ops.vrl_sum_clustered import (
+    philox_table_uniforms,
+    vrl_sum_clustered,
+    vrl_sum_clustered_reference,
 )
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
@@ -204,3 +214,137 @@ def test_cuda_train_step_launches_both_kernels(cuda):
     assert float(loss) > 0.0
     for k in PARAMS:
         assert grads[k].is_cuda and torch.isfinite(grads[k]).all(), k
+
+
+# --- the R kernel and the clustered kernel -----------------------------------
+
+# the variance of the mean is a difference of two sums of squares: its
+# bar (tests/test_hetero_pallas.py:227), where the plain value is above
+# the floor
+R_VAR_MEDIAN, R_VAR_FLOOR = 1e-4, 1e-12
+
+
+def _uniforms(device, injected, seed, shape):
+    if injected:
+        return torch.as_tensor(np.random.default_rng(seed).random(
+            shape, dtype=np.float32), device=device)
+    return None
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_r_kernel_matches_plain(cuda, medium, injected, short_vrls):
+    """R kernel vs plain version on the ragged 260 x 77 shapes, for every
+    template: the mean at the homogeneous bar (per entry), the variance
+    of the mean at R_VAR_MEDIAN."""
+    g, kind = MEDIA[medium]
+    packs = _ragged_packs(cuda, g, kind)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    u = _uniforms(cuda, injected, 8, (n_rays, n_vrls, 6))
+    before = vrl_r.launches
+    out = vrl_r(*packs, seed=55, uniforms=u, short_vrls=short_vrls,
+                phase_kind=kind)
+    torch.cuda.synchronize()
+    assert vrl_r.launches == before + 1
+    if u is None:
+        u = philox_uniforms(55, n_rays, n_vrls, 6, device=cuda)
+    ref = vrl_r_reference(*packs, u, short_vrls=short_vrls, phase_kind=kind)
+    assert out.shape == (2, n_rays, n_vrls) and torch.isfinite(out).all()
+    median, share = homog_bar(out[0], ref[0], channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    nz = ref[1] > R_VAR_FLOOR
+    assert int(nz.sum()) > 100
+    rel = (out[1] - ref[1]).abs()[nz] / ref[1][nz]
+    assert float(rel.median()) < R_VAR_MEDIAN
+
+
+def test_cuda_r_row_sums_are_vrl_sum_luminance(cuda):
+    """sum_n mean[p, n] of the R kernel is the luminance of the vrl_sum
+    kernel's out[:, p] on the same rays and seed."""
+    packs = _ragged_packs(cuda, 0.0, 0)
+    out = vrl_r(*packs, seed=9)
+    lum = sum(w * c for w, c in zip(LUM_WEIGHTS, vrl_sum(*packs, seed=9)))
+    median, share = homog_bar(out[0].sum(dim=1), lum, channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def _tables(device, n_rays, n_vrls, n_rows=5, n_cols=45):
+    """Random tables of n_cols columns (not a multiple of the kernel's
+    32-VRL pieces), ids partly out of range, some weights 0, and ray rows
+    in [-1, n_rows)."""
+    rng = np.random.default_rng(4)
+    ids = torch.as_tensor(rng.integers(-2, n_vrls + 3, (n_rows, n_cols)),
+                          dtype=torch.int32, device=device)
+    ws = rng.uniform(0.2, 2.0, (n_rows, n_cols)).astype(np.float32)
+    ws[rng.random((n_rows, n_cols)) < 0.1] = 0.0
+    return (rng.integers(-1, n_rows, n_rays), ids,
+            torch.as_tensor(ws, device=device))
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_clustered_kernel_matches_plain(cuda, medium, injected,
+                                             short_vrls):
+    """Clustered kernel vs plain version on the ragged 260 x 77 shapes
+    with 45-column tables, for every template: the homogeneous bar;
+    rays at row -1 sum to 0."""
+    g, kind = MEDIA[medium]
+    packs = _ragged_packs(cuda, g, kind)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    rows, ids, ws = _tables(cuda, n_rays, n_vrls)
+    u = _uniforms(cuda, injected, 9, (n_rays, ids.shape[1], 6))
+    before = vrl_sum_clustered.launches
+    out = vrl_sum_clustered(*packs, rows, ids, ws, seed=31, uniforms=u,
+                            short_vrls=short_vrls, phase_kind=kind)
+    torch.cuda.synchronize()
+    assert vrl_sum_clustered.launches == before + 1
+    if u is None:
+        u = philox_table_uniforms(31, rows, ids, 6)
+    ref = vrl_sum_clustered_reference(*packs, rows, ids, ws, u,
+                                      short_vrls=short_vrls, phase_kind=kind)
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_clustered_identity_table_is_vrl_sum(cuda):
+    """One row of all 77 VRLs at weight 1 (three 32-VRL pieces) gives the
+    vrl_sum kernel's result on the same rays and seed."""
+    packs = _ragged_packs(cuda, 0.6, 0)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    ids = torch.arange(n_vrls, dtype=torch.int32, device=cuda)[None]
+    out = vrl_sum_clustered(*packs, np.zeros(n_rays, np.int64), ids,
+                            torch.ones((1, n_vrls), device=cuda), seed=13)
+    median, share = homog_bar(out.T, vrl_sum(*packs, seed=13).T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_clustered_kernel_is_deterministic(cuda):
+    packs = _ragged_packs(cuda, 0.0, 1)
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    a = vrl_sum_clustered(*packs, rows, ids, ws, seed=5)
+    assert torch.equal(a, vrl_sum_clustered(*packs, rows, ids, ws, seed=5))
+    assert not torch.equal(a, vrl_sum_clustered(*packs, rows, ids, ws,
+                                                 seed=6))
+
+
+def test_cuda_render_alvrl_launches_both_kernels(cuda):
+    scene = presets.cornell_smoke(16, 16, device=cuda)
+    params = alvrl.ALVRLParams(
+        vrl_target_num=128, num_particles=16,
+        cluster=cl.ClusterParams(target_num_slices=8,
+                                 target_pixel_undersampling=8.0))
+    r, c = vrl_r.launches, vrl_sum_clustered.launches
+    img, vrls, info = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(0), params, VRLConfig(),
+        tracer.TracerConfig(max_depth=8))
+    # a second clustered launch where pixels fall back (a centre ray
+    # through a crack between two triangles hits nothing)
+    fallback = alvrl.fallback_table(info, cuda) is not None
+    assert vrl_r.launches == r + 1
+    assert vrl_sum_clustered.launches == c + 1 + fallback
+    assert img.is_cuda and img.shape == (16, 16, 3)
+    assert torch.isfinite(img).all() and float(img.mean()) > 0.0

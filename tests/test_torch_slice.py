@@ -56,9 +56,10 @@ def _fields(obj):
 def test_cornell_smoke_matches_jax_preset(g):
     """The port's preset equals the JAX preset carried across by
     convert.scene_from_numpy, leaf by leaf, exactly."""
-    ours = presets.cornell_smoke(width=24, height=16, g=g)
+    ours = presets.cornell_smoke(width=24, height=16, g=g, device="cpu")
     ref = convert.scene_from_numpy(
-        jax_scene_leaves(jpresets.cornell_smoke(width=24, height=16, g=g)))
+        jax_scene_leaves(jpresets.cornell_smoke(width=24, height=16, g=g)),
+        device="cpu")
     for name in ("vertices", "faces", "material"):
         assert torch.equal(getattr(ours, name), getattr(ref, name)), name
     for part in ("materials", "emitters", "medium", "camera"):
@@ -73,7 +74,7 @@ def test_cornell_smoke_matches_jax_preset(g):
 
 def test_sample_ray_matches():
     jscene = jpresets.cornell_smoke(width=20, height=12)
-    scene = presets.cornell_smoke(width=20, height=12)
+    scene = presets.cornell_smoke(width=20, height=12, device="cpu")
     px, py = _pixels(20, 12)
     jo, jd = jperspective.sample_ray(jscene.camera, jnp.asarray(px),
                                      jnp.asarray(py))
@@ -86,7 +87,7 @@ def test_sample_ray_matches():
 def test_intersect_all_matches():
     """Closest hits of rays from random points in the box in random
     directions: t, prim, valid, p, ng."""
-    scene = presets.cornell_smoke()
+    scene = presets.cornell_smoke(device="cpu")
     rng = np.random.default_rng(1)
     o = rng.uniform(-0.95, 0.95, (512, 3)).astype(np.float32)
     d = rng.normal(size=(512, 3)).astype(np.float32)
@@ -121,7 +122,7 @@ def test_intersect_all_misses():
 
 def test_occluded_matches():
     """Random segments inside the box, the blocker counted as opaque."""
-    scene = presets.cornell_smoke()
+    scene = presets.cornell_smoke(device="cpu")
     rng = np.random.default_rng(2)
     p = rng.uniform(-0.98, 0.98, (1024, 3)).astype(np.float32)
     q = rng.uniform(-0.98, 0.98, (1024, 3)).astype(np.float32)
@@ -138,7 +139,7 @@ def test_occluded_matches():
 
 def test_trace_eye_rays_matches():
     jscene = jpresets.cornell_smoke(width=16, height=16)
-    scene = presets.cornell_smoke(width=16, height=16)
+    scene = presets.cornell_smoke(width=16, height=16, device="cpu")
     px, py = _pixels(16, 16)
     jo, jd = jperspective.sample_ray(jscene.camera, jnp.asarray(px),
                                      jnp.asarray(py))
@@ -162,7 +163,7 @@ def test_spectrum_matches():
 def test_eval_transmittance_matches():
     dist = np.random.default_rng(3).uniform(0.0, 4.0, 257).astype(np.float32)
     jmed = jhmed.make_medium((0.05, 0.1, 0.2), (0.8, 0.5, 0.3))
-    med = hmed.make_medium((0.05, 0.1, 0.2), (0.8, 0.5, 0.3))
+    med = hmed.make_medium((0.05, 0.1, 0.2), (0.8, 0.5, 0.3), device="cpu")
     assert float(med.sampling_weight) == float(jmed.sampling_weight)
     _close(hmed.eval_transmittance(med, torch.as_tensor(dist)),
            jhmed.eval_transmittance(jmed, jnp.asarray(dist)), atol=1e-7)
@@ -229,7 +230,7 @@ def test_sample_v_to_distance_matches():
 def test_empty_or_invalid_vrls_render_zeros(capacity):
     """An empty buffer, or one whose VRLs are all invalid, renders
     finite zeros."""
-    scene = presets.cornell_smoke(width=8, height=8)
+    scene = presets.cornell_smoke(width=8, height=8, device="cpu")
     z = torch.zeros((capacity, 3))
     vrls = vrl.VRLs(start=z, end=z + 0.5, power=z + 1.0,
                     valid=torch.zeros((capacity,), dtype=torch.bool),
@@ -244,7 +245,7 @@ def test_ascii_roundtrip(tmp_path):
     """load_ascii matches the JAX loader; save_ascii writes the valid
     VRLs only, and they load back."""
     ref = jvrl.load_ascii(BENCH_VRLS, particle_count=78.0)
-    vrls = vrl.load_ascii(BENCH_VRLS, particle_count=78.0)
+    vrls = vrl.load_ascii(BENCH_VRLS, particle_count=78.0, device="cpu")
     for k, a in jax_vrls_leaves(ref).items():
         assert torch.equal(getattr(vrls, k), _t(a)), k
     valid = torch.ones(vrls.capacity, dtype=torch.bool)
@@ -253,7 +254,7 @@ def test_ascii_roundtrip(tmp_path):
                     vrls.particle_count)
     path = tmp_path / "vrls.txt"
     vrl.save_ascii(vrls, str(path))
-    back = vrl.load_ascii(str(path))
+    back = vrl.load_ascii(str(path), device="cpu")
     assert back.capacity == int(valid.sum())
     assert float(back.particle_count) == back.capacity
     for k in ("start", "end", "power"):
@@ -276,7 +277,7 @@ def test_compact_matches_jax(capacity, slots):
     ref = jvrl.compact(jvrl.VRLs(**{k: jnp.asarray(v)
                                     for k, v in leaves.items()}),
                        capacity, slots_per_particle=slots)
-    out = vrl.compact(convert.vrls_from_numpy(leaves), capacity,
+    out = vrl.compact(convert.vrls_from_numpy(leaves, device="cpu"), capacity,
                       slots_per_particle=slots)
     for k, a in jax_vrls_leaves(ref).items():
         assert torch.equal(getattr(out, k), torch.as_tensor(a)), k
@@ -288,7 +289,7 @@ def test_compact_refuses_partial_particles():
               "power": np.ones((12, 3), np.float32),
               "valid": np.ones(12, bool),
               "particle_count": np.float32(2.0)}
-    vrls = convert.vrls_from_numpy(leaves)
+    vrls = convert.vrls_from_numpy(leaves, device="cpu")
     with pytest.raises(ValueError):
         vrl.compact(vrls, 8)  # would split a particle
     with pytest.raises(ValueError):
@@ -298,12 +299,13 @@ def test_compact_refuses_partial_particles():
 def test_package_imports_no_jax():
     """No module of alvrl_tpu_torch imports jax, flax or alvrl_tpu."""
     banned = ("jax", "flax", "alvrl_tpu")
-    found = []
+    found, walked = [], set()
     for root, _, files in os.walk(PKG_DIR):
         for name in files:
             if not name.endswith(".py"):
                 continue
             path = os.path.join(root, name)
+            walked.add(os.path.relpath(path, PKG_DIR))
             with open(path) as f:
                 tree = ast.parse(f.read(), path)
             for node in ast.walk(tree):
@@ -316,3 +318,6 @@ def test_package_imports_no_jax():
                 found += [(path, mod) for mod in mods
                           if mod.split(".")[0] in banned]
     assert found == []
+    assert {"integrators/vrl/alvrl.py", "integrators/vrl/cluster.py",
+            "integrators/vrl/cluster_native.py", "ops/vrl_r.py",
+            "ops/vrl_sum_clustered.py"} <= walked

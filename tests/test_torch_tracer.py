@@ -122,7 +122,7 @@ def test_sample_distance_matches(sigma_a, sigma_s):
     o = rng.normal(size=(1024, 3)).astype(np.float32)
     d = rng.normal(size=(1024, 3)).astype(np.float32)
     jmed = jhmed.make_medium(sigma_a, sigma_s)
-    med = hmed.make_medium(sigma_a, sigma_s)
+    med = hmed.make_medium(sigma_a, sigma_s, device="cpu")
     ref = jmapi.sample_distance_seg_u(jmed, jnp.asarray(u2), jnp.asarray(o),
                                       jnp.asarray(d), jnp.asarray(dist))
     out = mapi.sample_distance_seg_u(med, _t(u2), _t(o), _t(d), _t(dist))
@@ -140,7 +140,7 @@ def test_sample_emission_matches():
     the JAX sampler, whose direction uniforms come from its key."""
     jscene = jpresets.cornell_smoke(width=4, height=4,
                                     intensity=(8.0, 0.0, 2.5))
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     keys = jax.random.split(jax.random.key(7), 64)
     ref = jax.vmap(lambda k: jem.sample_emission(
         jscene.emitters, k, jnp.zeros(3), 1.0))(keys)
@@ -156,7 +156,8 @@ def test_sample_emission_picks_by_pmf():
     """Two lights: the emitter choice inverts the CDF of the stored pmf,
     and the weight divides by the chosen light's pmf."""
     ems = em.make_point_emitters([[0, 0, 0], [1, 1, 1]],
-                                 [[1.0, 1.0, 1.0], [3.0, 3.0, 3.0]])
+                                 [[1.0, 1.0, 1.0], [3.0, 3.0, 3.0]],
+                                 device="cpu")
     torch.testing.assert_close(ems.pmf, torch.tensor([0.25, 0.75]))
     u = torch.tensor([[0.1, 0.5, 0.5], [0.3, 0.5, 0.5], [0.999, 0.5, 0.5]])
     pos, _, w = em.sample_emission(ems, u)
@@ -166,7 +167,7 @@ def test_sample_emission_picks_by_pmf():
 
 
 def test_sample_emission_rejects_other_kinds():
-    ems = em.make_point_emitters([[0, 0, 0]], [[1.0, 1.0, 1.0]])
+    ems = em.make_point_emitters([[0, 0, 0]], [[1.0, 1.0, 1.0]], device="cpu")
     ems = replace(ems, kind=torch.tensor([jem.SPOT]))
     with pytest.raises(ValueError):
         em.sample_emission(ems, torch.zeros(1, 3))
@@ -175,7 +176,7 @@ def test_sample_emission_rejects_other_kinds():
 def test_bsdf_sample_matches():
     """Diffuse sampling at random hits of the Cornell box."""
     jscene = jpresets.cornell_smoke(width=4, height=4)
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     rng = np.random.default_rng(8)
     n = 256
     ng = rng.normal(size=(n, 3)).astype(np.float32)
@@ -194,7 +195,7 @@ def test_bsdf_sample_matches():
 
 
 def test_bsdf_sample_rejects_other_kinds():
-    scene = presets.cornell_smoke(width=4, height=4)
+    scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
         scene.materials, kind=torch.tensor([0, 0, 0, 1])))
     with pytest.raises(ValueError):
@@ -204,7 +205,7 @@ def test_bsdf_sample_rejects_other_kinds():
 
 def test_scene_aabb_matches():
     jscene = jpresets.cornell_smoke(width=4, height=4)
-    lo, hi = presets.cornell_smoke(width=4, height=4).aabb()
+    lo, hi = presets.cornell_smoke(width=4, height=4, device="cpu").aabb()
     jlo, jhi = jscene.aabb()
     assert torch.equal(lo, _t(jlo)) and torch.equal(hi, _t(jhi))
 
@@ -227,7 +228,7 @@ def test_trace_u_matches_jax_trace(case):
     key = jax.random.key(3)
     jscene, jcfg, cfg, u_emit, u_walk = _trace_both(case, key)
     ref = jtracer.trace(jscene, key, N_PARTICLES, jcfg)
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     out = tracer.trace_u(scene, u_emit, u_walk, cfg)
     valid = _t(ref.valid)
     assert out.capacity == N_PARTICLES * DEPTH
@@ -270,7 +271,7 @@ def test_trace_gradients_match_jax(case, score_phase):
           "g": jscene.medium.g, "intensity": jscene.emitters.intensity}
     jgrad = jax.grad(jloss)(jp)
 
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     p = {k: _t(jp[k]).requires_grad_() for k in names}
     sc = replace(scene, medium=replace(scene.medium, sigma_a=p["sigma_a"],
                                        sigma_s=p["sigma_s"], g=p["g"]),

@@ -93,7 +93,7 @@ def test_train_step_matches_jax(seq_uniform_kernels):
     k_trace, _ = jax.random.split(key)
     u_emit, u_walk = jax_tracer_uniforms(k_trace, N_PARTICLES, DEPTH)
     loss, grads = train_step(
-        convert.scene_from_numpy(jax_scene_leaves(jscene)),
+        convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu"),
         torch.Generator().manual_seed(0), _t(_target()), VRLConfig(),
         N_PARTICLES, tracer.TracerConfig(max_depth=DEPTH),
         tracer_uniforms=(_t(u_emit), _t(u_walk)),
@@ -116,7 +116,7 @@ def test_zero_intensity_channel_has_gradient():
     throughput), so central differences through the whole step, on the
     same uniforms, give its derivative; the port's must match."""
     scene = presets.cornell_smoke(width=W, height=H, g=0.4,
-                                  intensity=(8.0, 0.0, 8.0))
+                                  intensity=(8.0, 0.0, 8.0), device="cpu")
     rng = np.random.default_rng(4)
     u = (_t(rng.random((N_PARTICLES, tracer.N_EMIT_DIMS), np.float32)),
          _t(rng.random((N_PARTICLES, DEPTH, tracer.N_STEP_DIMS),
@@ -146,7 +146,7 @@ def test_train_step_draws_from_the_generator():
     """Without injected uniforms the step draws the tracer's uniforms and
     the render's seed from the generator: a seed repeats exactly, and
     the loss and gradients are finite."""
-    scene = presets.cornell_smoke(width=4, height=4)
+    scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     target = torch.zeros((4, 4, 3))
 
     def step(seed):

@@ -67,12 +67,12 @@ def _assert_bar(out, ref):
 
 
 def _packs(jscene, ray_o, ray_d, jhit, jvrls):
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     mat = torch.as_tensor(np.asarray(jhit.mat), dtype=torch.int64)
     rays = pk.pack_rays(scene, torch.as_tensor(np.asarray(ray_o)),
                         torch.as_tensor(np.asarray(ray_d)), hit_from_jax(jhit),
                         mat)
-    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls))
+    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device="cpu")
     return rays, pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene)
 
 
@@ -142,8 +142,8 @@ def test_plain_slice_matches_pallas_interpret(seq_uniform_kernel):
             jscene, jvrls, jax.random.key(1), JVRLConfig()))
     assert seq_uniform_kernel["i"] == len(SEQ_UNIFORMS)
 
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
-    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
+    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device="cpu")
     u = torch.tensor(SEQ_UNIFORMS).expand(256, 512, 6).contiguous()
     img = integrator.render_with_vrls_kernel(
         scene, vrls, torch.Generator().manual_seed(0), VRLConfig(),
@@ -188,7 +188,8 @@ def test_philox_uniforms_layout():
 
 def _small_packs(n_rays=4, n_vrls=3):
     scene = convert.scene_from_numpy(
-        jax_scene_leaves(jpresets.cornell_smoke(width=2, height=2)))
+        jax_scene_leaves(jpresets.cornell_smoke(width=2, height=2)),
+        device="cpu")
     rng = np.random.default_rng(0)
     vrls = vrl.VRLs(
         start=torch.as_tensor(rng.uniform(-0.9, 0.9, (n_vrls, 3)),
@@ -206,8 +207,10 @@ def test_wrapper_cpu_takes_the_plain_version():
     """On CPU tensors the wrapper runs vrl_sum_reference on the Philox
     stream of its seed, and counts no kernel launch."""
     scene = convert.scene_from_numpy(
-        jax_scene_leaves(jpresets.cornell_smoke(width=4, height=4)))
-    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0))
+        jax_scene_leaves(jpresets.cornell_smoke(width=4, height=4)),
+        device="cpu")
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device="cpu"))
     packs = integrator.pack_frame(scene, vrls)[3]
     before = vrl_sum.launches
     out = vrl_sum(*packs, seed=99)

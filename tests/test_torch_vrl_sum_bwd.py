@@ -100,12 +100,12 @@ def _jax_setup(g, kind, sigma_s=(0.8, 0.8, 0.8), power_scale=(1, 1, 1)):
 
 
 def _port_packs(jscene, ray_o, ray_d, jhit, jvrls):
-    scene = convert.scene_from_numpy(jax_scene_leaves(jscene))
+    scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     mat = torch.as_tensor(np.asarray(jhit.mat), dtype=torch.int64)
     rays = pk.pack_rays(scene, torch.as_tensor(np.asarray(ray_o)),
                         torch.as_tensor(np.asarray(ray_d)), hit_from_jax(jhit),
                         mat)
-    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls))
+    vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device="cpu")
     return rays, pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene)
 
 
@@ -195,9 +195,10 @@ def test_port_vjp_matches_same_seed_fd(kind):
     """Autograd through vrl_sum_diff (pack gradients chained to sigma_a,
     sigma_s, g and a power scale) against central differences of the
     plain forward on the same Philox stream."""
-    scene = presets.cornell_smoke(width=W, height=H, g=0.4)
+    scene = presets.cornell_smoke(width=W, height=H, g=0.4, device="cpu")
     scene = replace(scene, medium=replace(scene.medium, phase_kind=kind))
-    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0))
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device="cpu"))
     vrls = replace(vrls, start=vrls.start[:N_VRLS], end=vrls.end[:N_VRLS],
                    power=vrls.power[:N_VRLS], valid=vrls.valid[:N_VRLS])
     gbar = torch.as_tensor(np.random.default_rng(2).uniform(
@@ -275,8 +276,9 @@ def test_zero_channels_have_gradients(seq_uniform_kernels):
 def test_wrapper_cpu_takes_the_plain_version():
     """On CPU tensors vrl_sum_bwd runs the plain version on the Philox
     stream of its seed, and counts no kernel launch."""
-    scene = presets.cornell_smoke(width=4, height=4)
-    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0))
+    scene = presets.cornell_smoke(width=4, height=4, device="cpu")
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device="cpu"))
     packs = integrator.pack_frame(scene, vrls)[3]
     gbar = torch.ones((3, 16))
     before = vrl_sum_bwd.launches
@@ -295,8 +297,9 @@ def test_wrapper_cpu_takes_the_plain_version():
                                   torch.ones((16, 3)).T],
                          ids=["rays", "channels", "float64", "strided"])
 def test_wrapper_rejects_bad_gbar(gbar):
-    scene = presets.cornell_smoke(width=4, height=4)
-    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0))
+    scene = presets.cornell_smoke(width=4, height=4, device="cpu")
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device="cpu"))
     packs = integrator.pack_frame(scene, vrls)[3]
     with pytest.raises((TypeError, ValueError)):
         vrl_sum_bwd(*packs, gbar)

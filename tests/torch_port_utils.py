@@ -9,6 +9,8 @@ import torch
 
 from alvrl_tpu_torch.geometry.intersect import Hit
 
+CPU = "cpu"  # the device the CPU tests ask the port's entry points for
+
 BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "bench_vrls.txt")
 
