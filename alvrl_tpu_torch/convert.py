@@ -3,7 +3,9 @@
 `scene_from_numpy` and `vrls_from_numpy` take the leaves of an
 alvrl_tpu scene or VRL buffer, converted to numpy by the caller (this
 package does not import jax), and build the port's objects on a device.
-Keys are the leaves' attribute paths, e.g. "materials.albedo".
+Keys are the leaves' attribute paths, e.g. "materials.albedo"; a scene
+holds the leaves of a homogeneous medium (HOMOG_MEDIUM_KEYS) or of a
+grid medium (GRID_MEDIUM_KEYS, recognised by "medium.density").
 `cluster_tables_from_numpy` takes the clustered render's tables.
 """
 
@@ -14,6 +16,7 @@ import torch
 
 from alvrl_tpu_torch.emitters.emitters import Emitters
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
+from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
 from alvrl_tpu_torch.scene.scene import (
     Camera,
@@ -24,11 +27,14 @@ from alvrl_tpu_torch.scene.scene import (
 SCENE_KEYS = (
     "vertices", "faces", "material", "materials.kind", "materials.albedo",
     "emitters.kind", "emitters.position", "emitters.intensity",
-    "emitters.pmf", "medium.sigma_a",
-    "medium.sigma_s", "medium.g", "medium.sampling_weight",
-    "medium.phase_kind", "camera.to_world", "camera.fov_x_deg",
+    "emitters.pmf", "camera.to_world", "camera.fov_x_deg",
     "camera.width", "camera.height", "camera.kind",
 )
+HOMOG_MEDIUM_KEYS = ("medium.sigma_a", "medium.sigma_s", "medium.g",
+                     "medium.sampling_weight", "medium.phase_kind")
+GRID_MEDIUM_KEYS = ("medium.density", "medium.sigma_t_color",
+                    "medium.albedo", "medium.g", "medium.box_min",
+                    "medium.box_max", "medium.scale", "medium.phase_kind")
 VRL_KEYS = ("start", "end", "power", "valid", "particle_count")
 
 
@@ -39,7 +45,9 @@ def _missing(d, keys):
 
 
 def scene_from_numpy(d, device="cuda") -> Scene:
-    _missing(d, SCENE_KEYS)
+    grid = "medium.density" in d
+    _missing(d, SCENE_KEYS + (GRID_MEDIUM_KEYS if grid
+                              else HOMOG_MEDIUM_KEYS))
 
     def f32(k):
         return torch.tensor(d[k], dtype=torch.float32, device=device)
@@ -47,6 +55,17 @@ def scene_from_numpy(d, device="cuda") -> Scene:
     def i64(k):
         return torch.tensor(d[k], dtype=torch.int64, device=device)
 
+    if grid:
+        medium = make_grid_medium(
+            *(d[f"medium.{k}"] for k in ("density", "sigma_t_color",
+                                         "albedo", "g", "box_min",
+                                         "box_max", "scale")),
+            phase_kind=int(d["medium.phase_kind"]), device=device)
+    else:
+        medium = HomogeneousMedium(
+            sigma_a=f32("medium.sigma_a"), sigma_s=f32("medium.sigma_s"),
+            g=f32("medium.g"), sampling_weight=f32("medium.sampling_weight"),
+            phase_kind=int(d["medium.phase_kind"]))
     return Scene(
         vertices=f32("vertices"),
         faces=i64("faces"),
@@ -57,10 +76,7 @@ def scene_from_numpy(d, device="cuda") -> Scene:
                           position=f32("emitters.position"),
                           intensity=f32("emitters.intensity"),
                           pmf=f32("emitters.pmf")),
-        medium=HomogeneousMedium(
-            sigma_a=f32("medium.sigma_a"), sigma_s=f32("medium.sigma_s"),
-            g=f32("medium.g"), sampling_weight=f32("medium.sampling_weight"),
-            phase_kind=int(d["medium.phase_kind"])),
+        medium=medium,
         camera=Camera(to_world=f32("camera.to_world"),
                       fov_x_deg=f32("camera.fov_x_deg"),
                       width=int(d["camera.width"]),

@@ -1,10 +1,11 @@
 // Device code shared by the VRL sum (vrl_sum.cu), its VJP
 // (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu) and the
 // transfer matrix (vrl_r.cu): the pack layouts, the Philox stream, the
-// phase functions, the shadow test, the two samplers of the estimator
-// and the estimator itself (pair_terms). The backward replays the
-// forward's samples, so all kernels take them from the same functions
-// here, in the same draw order.
+// phase functions, the shadow test, the two samplers of the estimator,
+// the two media (homogeneous, Medium; grid, GridMedium) and the
+// estimator itself (pair_terms, templated on the medium). The backward
+// replays the forward's samples, so all kernels take them from the same
+// functions here, in the same draw order.
 // Precise math functions throughout (no --use_fast_math).
 
 #pragma once
@@ -20,6 +21,12 @@ namespace {
 constexpr int RO = 0, RD = 3, HP = 6, NG = 9, ALB = 12, TAU = 15, VALID = 18;
 constexpr int VS = 0, VE = 3, VP = 6, VVALID = 9, VRL_ROWS = 10;
 constexpr int TRI_COLS = 9;
+// grid packs: NQ + 1 cumulative optical-depth rows after the ray pack's
+// (EOD) and the VRL pack's (VOD) rows; the grid medium pack
+constexpr int NQ = 16;
+constexpr int EOD = 19, VOD = VRL_ROWS, GRID_VRL_ROWS = VOD + NQ + 1;
+constexpr int G_SIG_T = 0, G_SIG_S = 3, G_G = 6, G_CHAN = 7, G_BOX0 = 8, G_INV_E = 11,
+              G_INDEX_SCALE = 14, G_SCALE = 17, GRID_MED_LEN = 18;
 
 constexpr int RAY_BLOCK = 128;  // threads (rays) per block
 constexpr int VRL_CHUNK = 32;   // VRLs per block
@@ -106,10 +113,14 @@ struct Medium {
 };
 
 // One eye ray of the ray pack (RAY_ROWS, B); `ok` only for a valid hit.
+// Grid packs: eod is this ray's eye cumulative-OD table, NQ + 1 entries
+// eod_stride apart (set by the grid kernels).
 struct Ray {
   f3 o, d, hp, ng, ee;  // ee: the eye segment hp - o
   float alb[3], tau[3], elen;
   bool ok, alb_any;
+  const float* eod;
+  int eod_stride;
 };
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, int b) {
@@ -131,14 +142,16 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, i
   return ray;
 }
 
-// Stage all T triangles and the block's chunk of VRLs (zero-padded to
-// VRL_CHUNK) in shared memory; returns the chunk's VRL count.
+// Stage all T triangles and the block's chunk of VRLs (n_rows rows of
+// the pack, zero-padded to VRL_CHUNK) in shared memory; returns the
+// chunk's VRL count.
 __device__ __forceinline__ int stage_block(const float* __restrict__ tris, int T,
                                            const float* __restrict__ vrls, int N, int n0,
-                                           float* s_tri, float* s_vrl) {
+                                           float* s_tri, float* s_vrl,
+                                           int n_rows = VRL_ROWS) {
   const int nc = min(VRL_CHUNK, N - n0);
   for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
-  for (int i = threadIdx.x; i < VRL_ROWS * VRL_CHUNK; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n_rows * VRL_CHUNK; i += blockDim.x) {
     const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
     s_vrl[i] = c < nc ? vrls[(size_t)r * N + n0 + c] : 0.0f;
   }
@@ -228,11 +241,14 @@ __device__ __forceinline__ void seg_seg_closest(f3 o, f3 u, f3 s, f3 v, float& t
 }
 
 // A VRL (from column c of the staged chunk) and what its samples against
-// one eye ray share: the inverse-distance sampler's setup.
+// one eye ray share: the inverse-distance sampler's setup. Grid packs:
+// vod is the VRL's cumulative-OD column in shared memory, NQ + 1
+// entries VRL_CHUNK apart (set by pair_at<true>).
 struct VrlPair {
   f3 s, uv;  // start, unit direction
   float pw[3], vlen, ivl, sin_safe, h, arc_h, a0, a1;
   bool near_par;
+  const float* vod;
 };
 
 __device__ __forceinline__ VrlPair pair_setup(const Ray& ray, const float* s_vrl, int c) {
@@ -257,11 +273,21 @@ __device__ __forceinline__ VrlPair pair_setup(const Ray& ray, const float* s_vrl
   return p;
 }
 
+template <bool GRID>
+__device__ __forceinline__ VrlPair pair_at(const Ray& ray, const float* s_vrl, int c) {
+  VrlPair p = pair_setup(ray, s_vrl, c);
+  if constexpr (GRID) p.vod = s_vrl + VOD * VRL_CHUNK + c;
+  return p;
+}
+
 // The geometry of one unoccluded sample: the phase cosines, the
 // denominator max(pdf * d_uv^2, 1e-30), the VRL arc length d_sv that the
-// short-VRL pdfFailure reads, and the transmittance path length.
+// short-VRL pdfFailure reads, and the transmittance path length; for the
+// grid medium also the points U (vol-vol) and V, |U - V| and the eye arc
+// length |E - U| (vol-vol).
 struct Sample {
-  float c_u, c_v, cos_o, den, d_sv, path;
+  float c_u, c_v, cos_o, den, d_sv, path, d_uv, d_eu;
+  f3 up, vp;
 };
 
 // Vol-vol: V on the VRL ~ inverse distance to the eye ray, U on the eye
@@ -295,7 +321,11 @@ __device__ __forceinline__ bool vol_vol_sample(const Ray& ray, const VrlPair& p,
   sm.c_v = -dot3(p.uv, vu);
   sm.den = fmaxf(pdf * d_uv2, 1e-30f);
   sm.d_sv = fabsf(arc_v);
-  sm.path = fabsf(arc_u) + d_uv + sm.d_sv;
+  sm.d_eu = fabsf(arc_u);
+  sm.path = sm.d_eu + d_uv + sm.d_sv;
+  sm.d_uv = d_uv;
+  sm.up = up;
+  sm.vp = vp;
   return true;
 }
 
@@ -316,44 +346,199 @@ __device__ __forceinline__ bool vol_surf_sample(const Ray& ray, const VrlPair& p
   sm.den = fmaxf(pdf_v * d_uv2, 1e-30f);
   sm.d_sv = fabsf(arc_v);
   sm.path = d_uv + sm.d_sv;
+  sm.d_uv = d_uv;
+  sm.vp = vp;
   return true;
+}
+
+// The raw terms t[3] of one unoccluded sample in the homogeneous medium
+// (pair_terms): vol-vol, then vol-surf.
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_vol_term(const Medium& m, const Ray& ray, const VrlPair& p,
+                                             const Sample& sm, float t[3]) {
+  float e[3];
+  float geo = phase_eval<PHASE>(m.g, sm.c_u) * phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
+  if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * m.sig_s[ch] * m.sig_s[ch] * expf(-m.sig_t[ch] * sm.path) * geo;
+}
+
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_surf_term(const Medium& m, const Ray& ray, const VrlPair& p,
+                                              const Sample& sm, float t[3]) {
+  float e[3];
+  float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * m.sig_s[ch] * ray.alb[ch] * ray.tau[ch] * expf(-m.sig_t[ch] * sm.path) *
+            geo;
+}
+
+// The grid medium's extra kernel arguments: the supersampled density
+// (nz, ny, nx) in device memory and the U-V quadrature's step count.
+struct GridArgs {
+  const float* density;
+  int nz, ny, nx, uv_steps;
+};
+
+// Host check of a launch's grid arguments (none for homogeneous media).
+template <bool GRID>
+bool grid_ok(const GridArgs& g) {
+  return !GRID || (g.density != nullptr && g.nz > 0 && g.ny > 0 && g.nx > 0 && g.uv_steps > 0);
+}
+
+// Linear interpolation of a cumulative-OD table (NQ + 1 entries, stride
+// apart) at a fraction of its segment clipped to [0, 1]
+// (media.heterogeneous.interp_od).
+__device__ __forceinline__ float interp_od(const float* cum, int stride, float frac) {
+  const float x = fminf(fmaxf(frac, 0.0f), 1.0f) * (float)NQ;
+  const float k0f = fminf(fmaxf(floorf(x), 0.0f), (float)(NQ - 1));
+  const float w = x - k0f;
+  const int k0 = (int)k0f;
+  return cum[k0 * stride] * (1.0f - w) + cum[(k0 + 1) * stride] * w;
+}
+
+// The grid medium: its pack (ops/pack.py pack_medium_hetero), staged in
+// shared memory by the kernel, and the supersampled density, read
+// directly from device memory through the read-only path (3.4 MB at
+// config 4: it stays in the 50 MB L2). The scattering coefficient at a
+// point is sigma_s_color times the nearest density; the transmittance of
+// a sample is exp(-sigma_t_color od) with od the eye table's and the VRL
+// table's entries at the sample's fractions of their segments plus the
+// uv_steps-point midpoint quadrature of the U-V segment; the short-VRL
+// pdfFailure is exp(-chan od(S -> V)), with no sampling-weight mixture.
+// The values are those of the JAX package's XLA table path
+// (integrate.py:248-335), not of its CP-factored Pallas kernel (no CP
+// factors here; ROADMAP C9).
+struct GridMedium {
+  const float* m;  // the pack, GRID_MED_LEN floats in shared memory
+  GridArgs grid;
+
+  __device__ GridMedium(const float* s_med, const GridArgs& args) : m(s_med), grid(args) {}
+
+  // the density at p: the nearest supersampled entry (indices rounded
+  // half to even, like jnp.round in lookup_density_nn) times the scale,
+  // 0 outside the box
+  __device__ __forceinline__ float density(f3 p) const {
+    const float qx = (p.x - m[G_BOX0]) * m[G_INV_E];
+    const float qy = (p.y - m[G_BOX0 + 1]) * m[G_INV_E + 1];
+    const float qz = (p.z - m[G_BOX0 + 2]) * m[G_INV_E + 2];
+    if (!(qx >= 0.0f && qx <= 1.0f && qy >= 0.0f && qy <= 1.0f && qz >= 0.0f && qz <= 1.0f))
+      return 0.0f;
+    const int ix = min((int)fminf(rintf(qx * m[G_INDEX_SCALE]), m[G_INDEX_SCALE]), grid.nx - 1);
+    const int iy = min((int)fminf(rintf(qy * m[G_INDEX_SCALE + 1]), m[G_INDEX_SCALE + 1]),
+                       grid.ny - 1);
+    const int iz = min((int)fminf(rintf(qz * m[G_INDEX_SCALE + 2]), m[G_INDEX_SCALE + 2]),
+                       grid.nz - 1);
+    return __ldg(grid.density + ((size_t)iz * grid.ny + iy) * grid.nx + ix) * m[G_SCALE];
+  }
+
+  // midpoint optical depth of the segment a -> b of length dist
+  __device__ __forceinline__ float segment_od(f3 a, f3 b, float dist) const {
+    const f3 delta = b - a;
+    float total = 0.0f;
+    for (int i = 0; i < grid.uv_steps; ++i) {
+      const float t = ((float)i + 0.5f) / (float)grid.uv_steps;
+      total += density(a + delta * t);
+    }
+    return total * dist / (float)grid.uv_steps;
+  }
+
+  // geo divided by the short-VRL pdfFailure exp(-chan od_sv)
+  template <bool SHORT_VRLS>
+  __device__ __forceinline__ float short_geo(float geo, float od_sv) const {
+    return SHORT_VRLS ? geo / fmaxf(expf(-m[G_CHAN] * od_sv), 1e-30f) : geo;
+  }
+};
+
+// The raw terms t[3] of one unoccluded sample in the grid medium
+// (pair_terms): vol-vol, then vol-surf.
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_vol_term(const GridMedium& gm, const Ray& ray,
+                                             const VrlPair& p, const Sample& sm, float t[3]) {
+  const float* m = gm.m;
+  const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
+  const float od = interp_od(ray.eod, ray.eod_stride, sm.d_eu / ray.elen) +
+                   gm.segment_od(sm.up, sm.vp, sm.d_uv) + od_sv;
+  const float dens_u = gm.density(sm.up), dens_v = gm.density(sm.vp);
+  const float geo = gm.short_geo<SHORT_VRLS>(
+      phase_eval<PHASE>(m[G_G], sm.c_u) * phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den, od_sv);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * (m[G_SIG_S + ch] * dens_v) * (m[G_SIG_S + ch] * dens_u) *
+            expf(-m[G_SIG_T + ch] * od) * geo;
+}
+
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_surf_term(const GridMedium& gm, const Ray& ray,
+                                              const VrlPair& p, const Sample& sm, float t[3]) {
+  const float* m = gm.m;
+  const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
+  const float od = gm.segment_od(ray.hp, sm.vp, sm.d_uv) + od_sv;
+  const float dens_v = gm.density(sm.vp);
+  const float geo = gm.short_geo<SHORT_VRLS>(
+      phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den, od_sv);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * (m[G_SIG_S + ch] * dens_v) * ray.alb[ch] * ray.tau[ch] *
+            expf(-m[G_SIG_T + ch] * od) * geo;
+}
+
+// The medium of a kernel instantiation: Medium read from the pack `med`
+// (homogeneous), or GridMedium on the pack staged at s_med.
+template <bool GRID>
+__device__ __forceinline__ std::conditional_t<GRID, GridMedium, Medium> make_medium(
+    const float* __restrict__ med, const float* s_med, const GridArgs& grid) {
+  if constexpr (GRID)
+    return GridMedium(s_med, grid);
+  else
+    return Medium(med);
+}
+
+// The grid kernels' per-block set-up: the medium pack into s_med (before
+// the block's first barrier) and the ray's eye-OD table.
+template <bool GRID>
+__device__ __forceinline__ void stage_medium(const float* __restrict__ med, float* s_med) {
+  if constexpr (GRID)
+    for (int i = threadIdx.x; i < GRID_MED_LEN; i += blockDim.x) s_med[i] = med[i];
+}
+
+template <bool GRID>
+__device__ __forceinline__ void attach_eod(Ray& ray, const float* __restrict__ rays, int B, int b) {
+  if constexpr (GRID) {
+    ray.eod = rays + (size_t)EOD * B + b;
+    ray.eod_stride = B;
+  }
 }
 
 // The estimator of one (ray, VRL) pair, shared by the three forward
 // kernels (vrl_sum.cu, vrl_sum_clustered.cu, vrl_r.cu), which differ only
-// in how they reduce its terms: for each sample that is not dropped, in
-// draw order, emit(family, t) with family 0 for vol-vol and 1 for
-// vol-surf and t[3] the raw per-sample contribution (not divided by the
-// family's sample count). A dropped sample contributes 0 and is not
-// emitted.
-template <int PHASE, bool SHORT_VRLS, class Emit>
-__device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Medium& m,
+// in how they reduce its terms, and by both media (Med: Medium or
+// GridMedium), which differ only in the terms of a sample: for each
+// sample that is not dropped, in draw order, emit(family, t) with family
+// 0 for vol-vol and 1 for vol-surf and t[3] the raw per-sample
+// contribution (not divided by the family's sample count). A dropped
+// sample contributes 0 and is not emitted.
+template <int PHASE, bool SHORT_VRLS, class Med, class Emit>
+__device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
                                            PairUniforms& draw, int svv, int svs,
                                            const float* s_tri, int T, Emit&& emit) {
-  float e[3];
   for (int i = 0; i < svv; ++i) {
     const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
     Sample sm;
     if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
-    float geo = phase_eval<PHASE>(m.g, sm.c_u) * phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
-    if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
     float t[3];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      t[ch] = p.pw[ch] * m.sig_s[ch] * m.sig_s[ch] * expf(-m.sig_t[ch] * sm.path) * geo;
+    vol_vol_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
     emit(0, t);
   }
   for (int k = 0; k < svs && ray.alb_any; ++k) {
     const float u1 = draw(2 * svv + k);
     Sample sm;
     if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
-    float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
-    if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
     float t[3];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      t[ch] = p.pw[ch] * m.sig_s[ch] * ray.alb[ch] * ray.tau[ch] * expf(-m.sig_t[ch] * sm.path) *
-              geo;
+    vol_surf_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
     emit(1, t);
   }
 }

@@ -1,20 +1,27 @@
-// VRL x eye-ray sum for homogeneous media, hand-written for Hopper (sm_90a).
+// VRL x eye-ray sum, hand-written for Hopper (sm_90a).
 //
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas (its body `_kernel`
-// with hetero=False, clustered=False, r_mode=False and the triangle sweep).
+// with hetero=False, clustered=False, r_mode=False and the triangle
+// sweep; entry point alvrl_vrl_sum) and, for grid media,
+// vrl_sum_pallas_hetero (hetero=True; entry point alvrl_vrl_sum_hetero).
 // For each eye ray b it returns the sum over the valid VRLs n of the
 // vol-vol and vol-surf estimators, (3, B) float32, not normalised by the
-// particle count. Plain PyTorch twin: ops/vrl_sum.py:vrl_sum_reference.
-// The samplers, shared with the VJP (vrl_sum_bwd.cu), are in
-// vrl_common.cuh.
+// particle count. Plain PyTorch twins: ops/vrl_sum.py:vrl_sum_reference
+// and vrl_sum_hetero_reference. The samplers, shared with the VJP
+// (vrl_sum_bwd.cu), and both media are in vrl_common.cuh; the medium is
+// the kernel's third template parameter.
 //
 // What bounds it on the H100: fp32 ALU and SFU throughput. One
 // pair-sample costs about 150 float32 operations and 20 special-function
 // operations (sqrt, division, exp; beside sinh/asinh, atan, tan), and 59
 // operations per triangle of its shadow sweep, as chip_smoke.py's OPS
 // counts them, against an input of under 1 MB, so neither device memory
-// nor tensor cores matter. The design keeps the whole working set on chip
-// and spreads the pairs over enough threads:
+// nor tensor cores matter. A grid-medium sample adds about 100 float32
+// and 4 special-function operations at 4 U-V steps (the density reads,
+// the two OD-table interpolations, the quadrature; GRID_OPS there) and
+// reads the 3.4 MB config-4 density grid, which stays in L2: still bound
+// by operations. The design keeps the working set on chip and spreads
+// the pairs over enough threads:
 //   * grid = ray tiles (RAY_BLOCK threads, one ray each) x VRL chunks of
 //     VRL_CHUNK; one thread per ray alone would fill about a sixteenth
 //     of the card at 16k rays, so the VRL axis is split as well;
@@ -24,6 +31,12 @@
 //   * each thread loops over its chunk in a fixed order; partial sums go
 //     to (n_chunks, 3, B) scratch and a second kernel adds the chunks in
 //     a fixed order, so the result is deterministic;
+//   * grid media: the block also stages its chunk's VRL-OD rows (17 x
+//     VRL_CHUNK floats) and the medium pack in shared memory; each thread
+//     reads its ray's eye-OD rows from the ray pack, and the density
+//     grid from device memory (read-only path; 3.4 MB at config 4, held
+//     in L2), by nearest lookup: no CP factors (the TPU kernel's lane
+//     gathers worked around Mosaic's lack of general gathers);
 //   * shadow segments use the division-free Wald test, one sweep over
 //     the triangles per sample segment, with an early exit on the first
 //     blocker;
@@ -39,24 +52,28 @@
 
 namespace {
 
-template <int PHASE, bool SHORT_VRLS>
+template <int PHASE, bool SHORT_VRLS, bool GRID>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
                    const float* __restrict__ tris, int T, const float* __restrict__ med,
-                   const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
-                   float* __restrict__ partial) {
+                   GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
+                   int svs, float* __restrict__ partial) {
+  constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
-  float* s_tri = smem;                   // (T, TRI_COLS)
-  float* s_vrl = smem + T * TRI_COLS;    // (VRL_ROWS, VRL_CHUNK)
+  float* s_tri = smem;                    // (T, TRI_COLS)
+  float* s_vrl = smem + T * TRI_COLS;     // (V_ROWS, VRL_CHUNK)
+  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;  // grid: (GRID_MED_LEN,)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
-  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl);
+  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
+  stage_medium<GRID>(med, s_med);
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Ray ray = load_ray(rays, B, b);
-  const Medium m(med);
+  Ray ray = load_ray(rays, B, b);
+  attach_eod<GRID>(ray, rays, B, b);
+  const auto m = make_medium<GRID>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -65,7 +82,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   for (int c = 0; ray.ok && c < nc; ++c) {
     if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;
     const int n = n0 + c;
-    const VrlPair p = pair_setup(ray, s_vrl, c);
+    const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
     pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T,
@@ -79,6 +96,34 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
 }
 
+// Launches the sum and the chunk reduction on `stream`; returns a
+// cudaError_t (0 = launched).
+template <bool GRID>
+int launch_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
+               const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
+               int svs, int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
+               void* stream) {
+  if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
+      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
+      n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid))
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
+  const size_t smem = (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+                               (GRID ? GRID_MED_LEN : 0)) *
+                      sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    vrl_sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID>
+        <<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
+                                          svv, svs, partial);
+  });
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = 3 * B;
+  reduce_parts<<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -87,29 +132,27 @@ int alvrl_vrl_chunk() { return VRL_CHUNK; }
 int alvrl_max_tris() { return MAX_TRIS; }
 const char* alvrl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Launches the sum and the chunk reduction on `stream`; returns a
-// cudaError_t (0 = launched). `partial` is (n_chunks, 3, B) scratch,
-// `out` is (3, B); `uniforms` may be null (Philox stream from `seed`).
+// The homogeneous sum. `partial` is (n_chunks, 3, B) scratch, `out` is
+// (3, B); `uniforms` may be null (Philox stream from `seed`).
 int alvrl_vrl_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
                   const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
                   int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
                   void* stream) {
-  if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  const size_t smem = (size_t)(T * TRI_COLS + VRL_ROWS * VRL_CHUNK) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    vrl_sum_kernel<decltype(phase)::value, decltype(short_)::value><<<grid, RAY_BLOCK, smem, st>>>(
-        rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, partial);
-  });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int len = 3 * B;
-  reduce_parts<<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
-  return (int)cudaGetLastError();
+  return launch_sum<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
+                           short_vrls, phase_kind, partial, n_chunks, out, stream);
+}
+
+// The grid-medium sum: the grid packs (ops/pack.py), the supersampled
+// density (nz, ny, nx) and the U-V quadrature's step count; the rest as
+// alvrl_vrl_sum.
+int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
+                         int T, const float* med, const float* density, int nz, int ny, int nx,
+                         int uv_steps, const float* uniforms, unsigned int seed, int svv, int svs,
+                         int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
+                         void* stream) {
+  return launch_sum<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
+                          uniforms, seed, svv, svs, short_vrls, phase_kind, partial, n_chunks, out,
+                          stream);
 }
 
 }  // extern "C"

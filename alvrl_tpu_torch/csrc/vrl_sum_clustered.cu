@@ -1,20 +1,28 @@
-// Clustered VRL sum for homogeneous media, hand-written for Hopper (sm_90a).
+// Clustered VRL sum, hand-written for Hopper (sm_90a).
 //
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered (its body
-// `_kernel` with clustered=True, hetero=False). Each eye ray b sums the
+// `_kernel` with clustered=True, hetero=False; entry point
+// alvrl_vrl_sum_clustered) and, for grid media,
+// vrl_sum_pallas_hetero_clustered (hetero=True;
+// alvrl_vrl_sum_hetero_clustered: each column's VRL-OD rows are gathered
+// by id with its other rows, and the grid estimator is vrl_sum.cu's).
+// Each eye ray b sums the
 // estimator over the representatives of its slice only: row r of a table
 // of VRL ids (S, C) int32 and weights (S, C) float32, the weight
 // multiplied into the VRL's power before anything else and a column
 // valid where the VRL is valid and its weight is > 0 (an id outside
 // [0, N) counts as invalid). Out (3, B) float32 in ray order, not
-// normalised by the particle count. Plain PyTorch twin:
-// ops/vrl_sum_clustered.py:vrl_sum_clustered_reference. The estimator is
-// the one of vrl_sum.cu, from vrl_common.cuh (pair_terms).
+// normalised by the particle count. Plain PyTorch twins:
+// ops/vrl_sum_clustered.py:vrl_sum_clustered_reference and
+// vrl_sum_hetero_clustered_reference. The estimator is the one of
+// vrl_sum.cu, from vrl_common.cuh (pair_terms, templated on the medium).
 //
 // What bounds it on the H100: fp32 ALU and SFU throughput, as vrl_sum
 // (per pair-sample about 150 float32 operations and 20 special-function
 // operations, and 59 operations per triangle of its shadow sweep, as
-// chip_smoke.py's OPS counts them), on an input under 1 MB.
+// chip_smoke.py's OPS counts them; a grid sample about 100 and 4 more,
+// GRID_OPS), on an input under 1 MB (the 3.4 MB config-4 density grid
+// aside, which stays in L2).
 // A clustered pass has ~10 representatives per ray (config 2), about 50x
 // fewer pairs than the unclustered sum. The design:
 //   * the host groups the rays by table row into tiles of RAY_BLOCK
@@ -45,29 +53,36 @@
 
 namespace {
 
-template <int PHASE, bool SHORT_VRLS>
+template <int PHASE, bool SHORT_VRLS, bool GRID>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_clustered_kernel(const float* __restrict__ rays, int B,
                              const float* __restrict__ vrls, int N,
                              const float* __restrict__ tris, int T,
-                             const float* __restrict__ med, const int* __restrict__ tile_rays,
+                             const float* __restrict__ med, GridArgs grid,
+                             const int* __restrict__ tile_rays,
                              const int* __restrict__ tile_row,
                              const int* __restrict__ table_ids,
                              const float* __restrict__ table_w, int C,
                              const float* __restrict__ uniforms, uint32_t seed, int svv,
                              int svs, float* __restrict__ out) {
+  constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
-  float* s_tri = smem;                                       // (T, TRI_COLS)
-  float* s_vrl = s_tri + T * TRI_COLS;                       // (VRL_ROWS, VRL_CHUNK)
-  int* s_id = reinterpret_cast<int*>(s_vrl + VRL_ROWS * VRL_CHUNK);  // (VRL_CHUNK,)
+  float* s_tri = smem;                                             // (T, TRI_COLS)
+  float* s_vrl = s_tri + T * TRI_COLS;                             // (V_ROWS, VRL_CHUNK)
+  int* s_id = reinterpret_cast<int*>(s_vrl + V_ROWS * VRL_CHUNK);  // (VRL_CHUNK,)
+  float* s_med = reinterpret_cast<float*>(s_id + VRL_CHUNK);      // grid: (GRID_MED_LEN,)
   for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+  stage_medium<GRID>(med, s_med);
 
   const int b = tile_rays[(size_t)blockIdx.x * RAY_BLOCK + threadIdx.x];
   const int* ids = table_ids + (size_t)tile_row[blockIdx.x] * C;
   const float* ws = table_w + (size_t)tile_row[blockIdx.x] * C;
   Ray ray{};  // padding slots keep ok = false, but join every barrier
-  if (b >= 0) ray = load_ray(rays, B, b);
-  const Medium m(med);
+  if (b >= 0) {
+    ray = load_ray(rays, B, b);
+    attach_eod<GRID>(ray, rays, B, b);
+  }
+  const auto m = make_medium<GRID>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -76,7 +91,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
     const int nc = min(VRL_CHUNK, C - c0);
     __syncthreads();  // the previous piece is consumed (and the triangles staged)
-    for (int i = threadIdx.x; i < VRL_ROWS * VRL_CHUNK; i += blockDim.x) {
+    for (int i = threadIdx.x; i < V_ROWS * VRL_CHUNK; i += blockDim.x) {
       const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
       const int id = c < nc ? ids[c0 + c] : -1;
       const float w = c < nc ? ws[c0 + c] : 0.0f;
@@ -92,7 +107,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     __syncthreads();
     for (int c = 0; ray.ok && c < nc; ++c) {
       if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;
-      const VrlPair p = pair_setup(ray, s_vrl, c);
+      const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + c) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)s_id[c], seed, make_uint4(0u, 0u, 0u, 0u), -1};
       pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T,
@@ -109,33 +124,64 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   }
 }
 
+// Launches the clustered sum on `stream`; returns a cudaError_t (0 =
+// launched).
+template <bool GRID>
+int launch_clustered(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
+                     const float* med, GridArgs grid, const int* tile_rays, const int* tile_row,
+                     int n_tiles, const int* table_ids, const float* table_w, int C,
+                     const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
+                     int phase_kind, float* out, void* stream) {
+  if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
+      svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+                               (GRID ? GRID_MED_LEN : 0)) *
+                          sizeof(float) +
+                      VRL_CHUNK * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    vrl_sum_clustered_kernel<decltype(phase)::value, decltype(short_)::value, GRID>
+        <<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
+                                           tile_row, table_ids, table_w, C, uniforms, seed, svv,
+                                           svs, out);
+  });
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the clustered sum on `stream`; returns a cudaError_t (0 =
-// launched). tile_rays (n_tiles * RAY_BLOCK,) int32 ray indices or -1,
-// tile_row (n_tiles,) int32 table rows, table_ids / table_w (S, C); `out`
-// is (3, B), written only at the rays of the tiles. `uniforms` may be
-// null (Philox stream from `seed`).
+// The homogeneous clustered sum. tile_rays (n_tiles * RAY_BLOCK,) int32
+// ray indices or -1, tile_row (n_tiles,) int32 table rows, table_ids /
+// table_w (S, C); `out` is (3, B), written only at the rays of the
+// tiles. `uniforms` may be null (Philox stream from `seed`).
 int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
                             const float* tris, int T, const float* med, const int* tile_rays,
                             const int* tile_row, int n_tiles, const int* table_ids,
                             const float* table_w, int C, const float* uniforms, unsigned int seed,
                             int svv, int svs, int short_vrls, int phase_kind, float* out,
                             void* stream) {
-  if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
-      svs < 0 || (phase_kind != 0 && phase_kind != 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(T * TRI_COLS + VRL_ROWS * VRL_CHUNK) * sizeof(float) + VRL_CHUNK * sizeof(int);
-  cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    vrl_sum_clustered_kernel<decltype(phase)::value, decltype(short_)::value>
-        <<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays, tile_row,
-                                           table_ids, table_w, C, uniforms, seed, svv, svs, out);
-  });
-  return (int)cudaGetLastError();
+  return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays, tile_row,
+                                 n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
+                                 short_vrls, phase_kind, out, stream);
+}
+
+// The grid-medium clustered sum: the grid packs (ops/pack.py), the
+// supersampled density (nz, ny, nx) and the U-V quadrature's step count;
+// the rest as alvrl_vrl_sum_clustered.
+int alvrl_vrl_sum_hetero_clustered(const float* rays, int B, const float* vrls, int N,
+                                   const float* tris, int T, const float* med,
+                                   const float* density, int nz, int ny, int nx, int uv_steps,
+                                   const int* tile_rays, const int* tile_row, int n_tiles,
+                                   const int* table_ids, const float* table_w, int C,
+                                   const float* uniforms, unsigned int seed, int svv, int svs,
+                                   int short_vrls, int phase_kind, float* out, void* stream) {
+  return launch_clustered<true>(rays, B, vrls, N, tris, T, med,
+                                GridArgs{density, nz, ny, nx, uv_steps}, tile_rays, tile_row,
+                                n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
+                                short_vrls, phase_kind, out, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
 """Sampling of the VRL x eye-ray double integral.
 
-Counterpart of the homogeneous parts of
-alvrl_tpu/integrators/vrl/integrate.py: the render configuration and
-the two samplers of the estimator (Kulla-Fajardo equi-angular sampling,
-and inverse-distance sampling of a point on the VRL by the sinh/asinh
-warp), as branchless batched tensor code. The plain version of the
-render kernel (ops.vrl_sum.vrl_sum_reference) is built from them.
+Counterpart of alvrl_tpu/integrators/vrl/integrate.py: the render
+configuration, the two samplers of the estimator (Kulla-Fajardo
+equi-angular sampling, and inverse-distance sampling of a point on the
+VRL by the sinh/asinh warp), and the grid-medium reads of
+pair_contribution's table branch (integrate.py:248-335): the density at
+a point and the optical depth of a U-V segment, from the kernels' grid
+medium pack, and the eye and VRL cumulative-OD tables interpolated by
+media.heterogeneous.interp_od. All branchless batched tensor code; the
+plain versions of the kernels (ops.vrl_sum, ops.vrl_r,
+ops.vrl_sum_clustered) are built from them.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ class VRLConfig:
     vol_vol_samples: int = 2   # (U on the eye ray, V on the VRL) pairs
     vol_surf_samples: int = 2  # V on the VRL against the eye ray's hit
     short_vrls: bool = True    # divide by the VRL segment's pdfFailure
+    uv_tau_steps: int = 4      # grid media: midpoint steps of the U-V
+                               # segment's optical depth
 
 
 def closest_points_segments(a0, a1, b0, b1):
@@ -123,3 +129,37 @@ def sample_v_to_distance(eye_o, eye_d, eye_hit, vrl_s, vrl_e, u):
     v = torch.where(near_parallel[..., None], v_uni, v_kulla)
     pdf = torch.where(near_parallel, pdf_uni, pdf_kulla)
     return v, pdf
+
+
+# grid medium pack rows (ops.pack.GRID_MED_LEN)
+_BOX0, _INV_EXTENT, _INDEX_SCALE, _SCALE = slice(8, 11), slice(11, 14), \
+    slice(14, 17), 17
+
+
+def grid_density(medium, density_ss, p):
+    """Density at the points p (..., 3) of the grid medium packed in
+    `medium` (ops.pack.pack_medium_hetero): the nearest entry of the
+    supersampled grid density_ss (2Z - 1, 2Y - 1, 2X - 1), indices
+    rounded half to even (as jnp.round in lookup_density_nn), times the
+    density scale; 0 outside the box. p must be finite."""
+    q = (p - medium[_BOX0]) * medium[_INV_EXTENT]
+    inside = ((q >= 0.0) & (q <= 1.0)).all(dim=-1)
+    scales = medium[_INDEX_SCALE]
+    idx = torch.minimum(torch.clamp(torch.round(q * scales), min=0.0),
+                        scales).to(torch.int64)
+    _, ny, nx = density_ss.shape
+    flat = (idx[..., 2] * ny + idx[..., 1]) * nx + idx[..., 0]
+    d = density_ss.reshape(-1)[flat]
+    return torch.where(inside, d * medium[_SCALE], 0.0)
+
+
+def grid_segment_od(medium, density_ss, p0, p1, dist, n_steps):
+    """Midpoint-rule optical depth of the segment p0 -> p1 of length
+    dist: the densities at (i + 0.5) / n_steps of the way, summed in
+    step order, times dist / n_steps (the per-sample U-V quadrature)."""
+    delta = p1 - p0
+    total = torch.zeros_like(dist)
+    for i in range(n_steps):
+        t = (i + 0.5) / n_steps
+        total = total + grid_density(medium, density_ss, p0 + t * delta)
+    return total * dist / n_steps

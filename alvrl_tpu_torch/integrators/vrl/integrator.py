@@ -1,12 +1,15 @@
 """VRL integrator: per-pixel radiance as a sum of VRL x eye-ray integrals.
 
-Counterpart of alvrl_tpu/integrators/vrl/integrator.py for homogeneous
-media: the unclustered render (every eye ray against every VRL; plain,
-or differentiable through the seed-replay VJP), and the two device
+Counterpart of alvrl_tpu/integrators/vrl/integrator.py: the unclustered
+render (every eye ray against every VRL; plain, or, in a homogeneous
+medium, differentiable through the seed-replay VJP), and the two device
 stages of the clustered render (integrators.vrl.alvrl): the transfer
 matrix R over representative rays, and the render of each pixel against
-its slice's representatives. Sums are normalised by the traced-particle
-count.
+its slice's representatives. Each entry dispatches on the scene's
+medium: a grid medium goes through the grid packs and the grid kernels
+(vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered), with the
+supersampled density computed once per call. Sums are normalised by
+the traced-particle count.
 """
 
 from __future__ import annotations
@@ -18,11 +21,16 @@ from alvrl_tpu_torch.film import film as film_mod
 from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
+from alvrl_tpu_torch.media import api as mapi
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import pack as pk
-from alvrl_tpu_torch.ops.vrl_r import vrl_r
-from alvrl_tpu_torch.ops.vrl_sum import vrl_sum
+from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
+from alvrl_tpu_torch.ops.vrl_sum import vrl_sum, vrl_sum_hetero
 from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff
-from alvrl_tpu_torch.ops.vrl_sum_clustered import vrl_sum_clustered
+from alvrl_tpu_torch.ops.vrl_sum_clustered import (
+    vrl_sum_clustered,
+    vrl_sum_hetero_clustered,
+)
 from alvrl_tpu_torch.scene.scene import Scene
 from alvrl_tpu_torch.sensors import perspective
 
@@ -36,32 +44,53 @@ def trace_eye_rays(scene: Scene, ray_o, ray_d):
     return hit, scene.material[hit.prim.clamp(min=0)]
 
 
+def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs):
+    """The eye rays' closest hits and the packs of the scene's kernels:
+    (hit, packs), packs = (rays, vrls, tris, medium) for a homogeneous
+    medium (ops.vrl_sum.vrl_sum's), and (rays, vrls, tris, medium,
+    density_ss) for a grid medium (vrl_sum_hetero's: the grid packs and
+    the supersampled density, computed here from the current density)."""
+    hit, mat = trace_eye_rays(scene, ray_o, ray_d)
+    med = scene.medium
+    if mapi.is_homogeneous(med):
+        return hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
+                     pk.pack_vrls(vrls), pk.pack_tris(scene),
+                     pk.pack_medium(scene))
+    density_ss = gmed.upsample2(med.density)
+    return hit, (pk.pack_rays_hetero(scene, ray_o, ray_d, hit, mat,
+                                     density_ss),
+                 pk.pack_vrls_hetero(vrls, med, density_ss),
+                 pk.pack_tris(scene), pk.pack_medium_hetero(med),
+                 density_ss.contiguous())
+
+
 def pack_frame(scene: Scene, vrls: VRLs):
     """Eye rays through every pixel centre (row-major), their closest
-    hits, and the packs of ops.vrl_sum.
-    Returns (px, py, hit, (rays, vrls, tris, medium) packs)."""
+    hits, and the packs of the scene's kernels (pack_rays_vrls).
+    Returns (px, py, hit, packs)."""
     w, h = scene.camera.width, scene.camera.height
     px, py = torch.meshgrid(torch.arange(w, device=scene.device),
                             torch.arange(h, device=scene.device),
                             indexing="xy")
     px, py = px.reshape(-1), py.reshape(-1)
     ray_o, ray_d = perspective.sample_ray(scene.camera, px, py)
-    hit, mat = trace_eye_rays(scene, ray_o, ray_d)
-    packs = (pk.pack_rays(scene, ray_o, ray_d, hit, mat), pk.pack_vrls(vrls),
-             pk.pack_tris(scene), pk.pack_medium(scene))
+    hit, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
     return px, py, hit, packs
 
 
 def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
                             cfg: VRLConfig = VRLConfig(), *, uniforms=None):
-    """Full-frame unclustered render through ops.vrl_sum; counterpart of
-    alvrl_tpu.integrators.vrl.integrator.render_with_vrls_pallas.
+    """Full-frame unclustered render through ops.vrl_sum (vrl_sum_hetero
+    in a grid medium); counterpart of
+    alvrl_tpu.integrators.vrl.integrator.render_with_vrls_pallas and
+    render_with_vrls_pallas_hetero.
 
     The kernel's seed is drawn from `generator` (a torch.Generator on
     the CPU). `uniforms`, (W * H, N, 2 * vol_vol + vol_surf) float32 on
     the scene's device, replaces the random stream (for exact checks).
     Returns the (H, W, 3) image."""
-    return _render(vrl_sum, scene, vrls, generator, cfg, uniforms)
+    return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
+                   generator, cfg, uniforms)
 
 
 def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
@@ -71,7 +100,11 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     ops.vrl_sum_bwd.vrl_sum_diff (the seed-replay VJP) in the medium's
     sigma_a, sigma_s and g, the VRL powers, and the eye-to-surface
     transmittance; geometry is detached. Counterpart of
-    render_with_vrls_pallas_diff."""
+    render_with_vrls_pallas_diff. Homogeneous media only (the grid
+    backward kernels are not ported: ROADMAP A6)."""
+    if not mapi.is_homogeneous(scene.medium):
+        raise NotImplementedError("the differentiable render takes a "
+                                  "homogeneous medium")
     return _render(vrl_sum_diff, scene, vrls, generator, cfg, uniforms)
 
 
@@ -80,11 +113,19 @@ def draw_seed(generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
 
 
+def _kernel(scene, homogeneous, grid):
+    """The entry's kernel wrapper for the scene's medium."""
+    return homogeneous if mapi.is_homogeneous(scene.medium) else grid
+
+
 def _kernel_args(scene, cfg):
-    return dict(vol_vol_samples=cfg.vol_vol_samples,
-                vol_surf_samples=cfg.vol_surf_samples,
-                short_vrls=cfg.short_vrls,
-                phase_kind=scene.medium.phase_kind)
+    kw = dict(vol_vol_samples=cfg.vol_vol_samples,
+              vol_surf_samples=cfg.vol_surf_samples,
+              short_vrls=cfg.short_vrls,
+              phase_kind=scene.medium.phase_kind)
+    if not mapi.is_homogeneous(scene.medium):
+        kw["uv_steps"] = cfg.uv_tau_steps
+    return kw
 
 
 def _render(sum_fn, scene, vrls, generator, cfg, uniforms):
@@ -97,16 +138,15 @@ def _render(sum_fn, scene, vrls, generator, cfg, uniforms):
 def build_R_kernel(scene: Scene, ray_o, ray_d, vrls: VRLs, seed: int,
                    cfg: VRLConfig = VRLConfig(), *, uniforms=None):
     """The transfer matrix over the representative eye rays (ray_o,
-    ray_d) (P, 3) through ops.vrl_r: per (ray, VRL) pair the luminance
-    mean and variance of the mean, (P, N) each, normalised by the
-    particle count and its square (getVRLContributions). Counterpart of
-    alvrl_tpu's build_R_pallas for homogeneous media; `uniforms` (P, N,
-    2 * vol_vol + vol_surf) replaces the Philox stream of `seed`."""
-    hit, mat = trace_eye_rays(scene, ray_o, ray_d)
-    out = vrl_r(pk.pack_rays(scene, ray_o, ray_d, hit, mat),
-                pk.pack_vrls(vrls), pk.pack_tris(scene),
-                pk.pack_medium(scene), seed=seed, uniforms=uniforms,
-                **_kernel_args(scene, cfg))
+    ray_d) (P, 3) through ops.vrl_r (vrl_r_hetero in a grid medium): per
+    (ray, VRL) pair the luminance mean and variance of the mean, (P, N)
+    each, normalised by the particle count and its square
+    (getVRLContributions). Counterpart of alvrl_tpu's build_R_pallas;
+    `uniforms` (P, N, 2 * vol_vol + vol_surf) replaces the Philox stream
+    of `seed`."""
+    _, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
+    out = _kernel(scene, vrl_r, vrl_r_hetero)(
+        *packs, seed=seed, uniforms=uniforms, **_kernel_args(scene, cfg))
     norm = 1.0 / torch.clamp(vrls.particle_count, min=1.0)
     return out[0] * norm, out[1] * (norm * norm)
 
@@ -115,10 +155,11 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
                             table_ids, table_weights, generator,
                             cfg: VRLConfig = VRLConfig(), *, fallback=None,
                             uniforms=None):
-    """Full-frame clustered render through ops.vrl_sum_clustered:
-    pixel i (row-major) integrates against row slice_of_pixel[i] of the
-    tables (S, C) (VRL ids int32, weights float32, on the scene's
-    device); counterpart of alvrl_tpu's render_clustered_pallas.
+    """Full-frame clustered render through ops.vrl_sum_clustered
+    (vrl_sum_hetero_clustered in a grid medium): pixel i (row-major)
+    integrates against row slice_of_pixel[i] of the tables (S, C) (VRL
+    ids int32, weights float32, on the scene's device); counterpart of
+    alvrl_tpu's render_clustered_pallas[_hetero].
 
     slice_of_pixel (W * H,) integer rows, read on the host, where the
     kernel's wrapper groups the pixels by row. Pixels at row -1 render
@@ -130,12 +171,13 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
     launch's random stream. Returns the (H, W, 3) image."""
     px, py, hit, packs = pack_frame(scene, vrls)
     kw = dict(seed=draw_seed(generator), **_kernel_args(scene, cfg))
-    sums = vrl_sum_clustered(*packs, slice_of_pixel, table_ids,
-                             table_weights, uniforms=uniforms, **kw)
+    clustered = _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered)
+    sums = clustered(*packs, slice_of_pixel, table_ids, table_weights,
+                     uniforms=uniforms, **kw)
     fb_pixels = np.asarray(torch.as_tensor(slice_of_pixel).cpu()) < 0
     if fallback is not None and fb_pixels.any():
         fb_ids, fb_weights = fallback
-        sums = sums + vrl_sum_clustered(
+        sums = sums + clustered(
             *packs, np.where(fb_pixels, 0, -1), fb_ids[None].contiguous(),
             fb_weights[None].contiguous(), **kw)
     return develop_sums(scene, vrls, px, py, hit, sums)

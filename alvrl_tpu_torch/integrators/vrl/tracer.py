@@ -1,8 +1,8 @@
 """VRL generation by volumetric photon tracing, differentiable.
 
 Counterpart of alvrl_tpu/integrators/vrl/tracer.py (trace, _trace_one)
-for point emitters, diffuse surfaces and a homogeneous medium with an
-HG or Rayleigh phase. All particles advance in lockstep, as tensors
+for point emitters, diffuse surfaces and a homogeneous or grid medium
+with an HG or Rayleigh phase. All particles advance in lockstep, as tensors
 with a leading particle axis, through a Python loop over bounce depth;
 each (particle, depth) slot holds at most one VRL, so the buffer has
 num_particles * max_depth slots, particle-major.
@@ -13,7 +13,9 @@ throughput by tau sigma_s / pdfSuccess and a phase sample and starts a
 new VRL at the scatter point; a surface event multiplies it by
 tau / pdfFailure and a BSDF sample and starts one at the surface; past
 rr_depth, Russian roulette with q = min(max(throughput), 0.95) (the
-reference's eta^2 factor is 1 for diffuse surfaces).
+reference's eta^2 factor is 1 for diffuse surfaces). In a grid medium
+the free flight is Woodcock tracking (media.heterogeneous.sample_distance)
+over the supersampled density computed once per call.
 
 Gradients follow the reference's detached-sampling contract: sampled
 positions and directions are detached, the free-flight pdf denominators
@@ -35,6 +37,7 @@ from alvrl_tpu_torch.emitters import emitters as em_mod
 from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media import api as mapi
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.scene.scene import Scene
 
@@ -59,25 +62,39 @@ class TracerConfig:
 def trace(scene: Scene, generator, num_particles: int,
           cfg: TracerConfig = TracerConfig()) -> VRLs:
     """Trace num_particles light paths with uniforms drawn from
-    `generator` (a torch.Generator); see trace_u."""
+    `generator` (a torch.Generator), in this order: u_emit, u_walk and,
+    in a grid medium, u_track; see trace_u."""
     def rand(*shape):
         return torch.rand(shape, generator=generator,
                           device=generator.device).to(scene.device)
 
-    return trace_u(scene, rand(num_particles, N_EMIT_DIMS),
-                   rand(num_particles, cfg.max_depth, N_STEP_DIMS), cfg)
+    u_emit = rand(num_particles, N_EMIT_DIMS)
+    u_walk = rand(num_particles, cfg.max_depth, N_STEP_DIMS)
+    u_track = None
+    if not mapi.is_homogeneous(scene.medium):
+        u_track = rand(num_particles, cfg.max_depth, gmed.TRACKING_DRAWS, 2)
+    return trace_u(scene, u_emit, u_walk, cfg, u_track)
 
 
 def trace_u(scene: Scene, u_emit, u_walk,
-            cfg: TracerConfig = TracerConfig()) -> VRLs:
+            cfg: TracerConfig = TracerConfig(), u_track=None) -> VRLs:
     """The walk of trace as a function of its uniforms: u_emit
-    (P, N_EMIT_DIMS) and u_walk (P, max_depth, N_STEP_DIMS). Returns a
-    VRL buffer of P * max_depth slots, particle-major."""
+    (P, N_EMIT_DIMS), u_walk (P, max_depth, N_STEP_DIMS) and, in a grid
+    medium, the Woodcock tracking uniforms u_track (P, max_depth,
+    TRACKING_DRAWS, 2), which replace u_walk's distance uniforms.
+    Returns a VRL buffer of P * max_depth slots, particle-major."""
     n_particles = u_emit.shape[0]
     if tuple(u_walk.shape) != (n_particles, cfg.max_depth, N_STEP_DIMS):
         raise ValueError(f"u_walk must be ({n_particles}, {cfg.max_depth}, "
                          f"{N_STEP_DIMS}), got {tuple(u_walk.shape)}")
     med = scene.medium
+    density_ss = None
+    if not mapi.is_homogeneous(med):
+        shape = (n_particles, cfg.max_depth, gmed.TRACKING_DRAWS, 2)
+        if u_track is None or tuple(u_track.shape) != shape:
+            got = None if u_track is None else tuple(u_track.shape)
+            raise ValueError(f"a grid medium needs u_track {shape}, got {got}")
+        density_ss = gmed.upsample2(med.density)
     pos, d, weight = em_mod.sample_emission(scene.emitters, u_emit)
     state = dict(
         ray_o=pos, ray_d=d, cur_start=pos,
@@ -88,8 +105,9 @@ def trace_u(scene: Scene, u_emit, u_walk,
     )
     slots = []
     for depth in range(1, cfg.max_depth + 1):
+        track = None if u_track is None else u_track[:, depth - 1]
         state, out = _step(scene, med, state, u_walk[:, depth - 1], depth,
-                           cfg)
+                           cfg, track, density_ss)
         slots.append(out)
 
     def flat(k):
@@ -102,7 +120,7 @@ def trace_u(scene: Scene, u_emit, u_walk,
                                             device=scene.device))
 
 
-def _step(scene, med, state, u, depth, cfg):
+def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
     """One bounce of every particle; returns (next state, this slot)."""
     ray_o, ray_d, active = state["ray_o"], state["ray_d"], state["active"]
     hit = intersect.intersect_all(ray_o, ray_d, scene.vertices, scene.faces)
@@ -110,7 +128,8 @@ def _step(scene, med, state, u, depth, cfg):
     hit_p = torch.where(hit.valid[..., None], hit.p, ray_o)
     dist_surf = torch.where(hit.valid, hit.t, SURFACE_MISS)
     ms = mapi.sample_distance_seg_u(med, u[:, U_DIST], ray_o, ray_d,
-                                    dist_surf)
+                                    dist_surf, u_track=u_track,
+                                    density_ss=density_ss, active=active)
     medium_event = ms.success & active
     surface_event = ~ms.success & hit.valid & active
 

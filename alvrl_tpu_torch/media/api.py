@@ -1,7 +1,11 @@
-"""Free-flight sampling along a ray segment as the tracer consumes it.
+"""One interface over the homogeneous and the grid medium, as the tracer
+and the render consume it.
 
-Counterpart of the homogeneous part of alvrl_tpu/media/api.py
-(sample_distance_seg_u, _homog_to_distance_sample).
+Counterpart of alvrl_tpu/media/api.py (is_homogeneous, transmittance,
+sigma_s_at, sample_distance_seg[_u], _homog_to_distance_sample). Grid
+media read the supersampled density that the caller computed once per
+entry-point call (media.heterogeneous.upsample2), and their free-flight
+sampler (Woodcock tracking) reads explicit tracking uniforms.
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from alvrl_tpu_torch.core import math as m
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import homogeneous as hmed
 
 
@@ -25,12 +31,41 @@ class DistanceSample(NamedTuple):
     w_pass: torch.Tensor
 
 
-def sample_distance_seg_u(med: hmed.HomogeneousMedium, u2, ray_o, ray_d,
-                          dist_surf) -> DistanceSample:
-    """Free-flight sample along ray_o + t ray_d, t in [0, dist_surf],
-    from the uniforms u2 (..., 2)."""
-    ms = hmed.sample_distance_u(med, u2, dist_surf)
-    return _homog_to_distance_sample(ms, ray_o, ray_d)
+def is_homogeneous(med) -> bool:
+    return isinstance(med, hmed.HomogeneousMedium)
+
+
+def transmittance(med, p0, p1, density_ss=None):
+    """Spectral tau along the open segment p0 -> p1 (no occlusion test)."""
+    if is_homogeneous(med):
+        return hmed.eval_transmittance(med, m.distance(p0, p1))
+    return gmed.eval_transmittance(med, density_ss, p0, p1)
+
+
+def sigma_s_at(med, p, density_ss=None):
+    """(..., 3) scattering coefficient at p (grid media: the nearest
+    supersampled density, as the quadratures read it)."""
+    if is_homogeneous(med):
+        return med.sigma_s.expand(p.shape)
+    return gmed.lookup_density_nn(med, density_ss, p)[..., None] \
+        * med.sigma_s_color
+
+
+def sample_distance_seg_u(med, u2, ray_o, ray_d, dist_surf, *, u_track=None,
+                          density_ss=None, active=None) -> DistanceSample:
+    """Free-flight sample along ray_o + t ray_d, t in [0, dist_surf]:
+    homogeneous media from the uniforms u2 (..., 2); grid media by
+    Woodcock tracking from u_track (..., TRACKING_DRAWS, 2), with lanes
+    where `active` is False frozen (media.heterogeneous.sample_distance)."""
+    if is_homogeneous(med):
+        ms = hmed.sample_distance_u(med, u2, dist_surf)
+        return _homog_to_distance_sample(ms, ray_o, ray_d)
+    gs = gmed.sample_distance(med, density_ss, u_track, ray_o, ray_d,
+                              dist_surf, active)
+    ok = gs.success[..., None]
+    return DistanceSample(success=gs.success, t=gs.t, p=gs.p,
+                          w_scatter=torch.where(ok, gs.weight, 0.0),
+                          w_pass=torch.where(ok, 0.0, gs.weight))
 
 
 def _homog_to_distance_sample(ms: hmed.MediumSample, ray_o, ray_d):

@@ -2,10 +2,15 @@
 render kernel reads.
 
 Counterpart of alvrl_tpu/ops/pack.py (pack_rays, pack_vrls, pack_tris,
-pack_medium), with layouts chosen for the CUDA kernel: structure of
-arrays, one row per scalar, so that neighbouring threads (rays) read
-neighbouring addresses. Nothing is padded; the kernel masks the ragged
-edge of the last block itself.
+pack_medium, and the grid-medium pack_rays_hetero, pack_vrls_hetero,
+pack_medium_hetero), with layouts chosen for the CUDA kernels: structure
+of arrays, one row per scalar, so that neighbouring threads (rays) read
+neighbouring addresses. Nothing is padded; the kernels mask the ragged
+edge of the last block themselves. The grid packs append the
+cumulative optical-depth tables (media.heterogeneous.cumulative_od,
+plain torch, as the JAX package builds them outside its kernel) to the
+ray and VRL packs; the supersampled density goes to the kernels as its
+own contiguous (2Z - 1, 2Y - 1, 2X - 1) tensor.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from alvrl_tpu_torch.core import math as m
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import homogeneous as hmed
 from alvrl_tpu_torch.scene.scene import DIFFUSE, Scene
 
@@ -28,17 +34,44 @@ VRL_ROWS = 10
 TRI_COLS = 9
 # medium pack, (MED_LEN,): sigma_t (3), sigma_s (3), g, sampling weight
 MED_LEN = 8
+# grid packs: the ray pack's rows, then the eye segment's cumulative
+# optical depth (NQ + 1 rows), its TAU rows exp(-sigma_t_color * eye
+# OD); the VRL pack's rows, then the VRL's cumulative optical depth
+NQ = gmed.N_TAU_STEPS
+EOD = RAY_ROWS
+GRID_RAY_ROWS = EOD + NQ + 1
+VOD = VRL_ROWS
+GRID_VRL_ROWS = VOD + NQ + 1
+# grid medium pack, (GRID_MED_LEN,): sigma_t_color (3), sigma_s_color (3),
+# g, chan = mean(sigma_t_color), box_min (3), 1 / extent (3), the
+# half-cell index scales 2 (d - 1) of x, y, z (3), the density scale
+GRID_MED_LEN = 18
+
+
+def _ray_cols(scene: Scene, ray_o, ray_d, hit, mat, tau_eu):
+    diffuse = (scene.materials.kind[mat] == DIFFUSE)[..., None]
+    albedo = torch.where(diffuse, scene.materials.albedo[mat], 0.0)
+    tau_eu = torch.where(hit.valid[..., None], tau_eu, 0.0)
+    return [ray_o, ray_d, hit.p, hit.ng, albedo, tau_eu,
+            hit.valid.to(torch.float32)[..., None]]
 
 
 def pack_rays(scene: Scene, ray_o, ray_d, hit, mat):
     """(RAY_ROWS, B) rows of the eye rays and their closest hits, as
     integrators.vrl.integrator.trace_eye_rays gives them (hit, mat)."""
-    diffuse = (scene.materials.kind[mat] == DIFFUSE)[..., None]
-    albedo = torch.where(diffuse, scene.materials.albedo[mat], 0.0)
     tau_eu = hmed.eval_transmittance(scene.medium, m.length(hit.p - ray_o))
-    tau_eu = torch.where(hit.valid[..., None], tau_eu, 0.0)
-    cols = [ray_o, ray_d, hit.p, hit.ng, albedo, tau_eu,
-            hit.valid.to(torch.float32)[..., None]]
+    return torch.cat(_ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu),
+                     dim=-1).T.contiguous()
+
+
+def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss):
+    """(GRID_RAY_ROWS, B): pack_rays' rows for a grid medium, then the
+    eye segment's cumulative optical depth; TAU is exp(-sigma_t_color
+    times the table's total)."""
+    med = scene.medium
+    eye_od = gmed.cumulative_od(med, density_ss, ray_o, hit.p)
+    tau_eu = torch.exp(-med.sigma_t_color * eye_od[..., -1:])
+    cols = _ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu) + [eye_od]
     return torch.cat(cols, dim=-1).T.contiguous()
 
 
@@ -46,6 +79,15 @@ def pack_vrls(vrls):
     """(VRL_ROWS, N) rows of the VRL buffer."""
     cols = [vrls.start, vrls.end, vrls.power,
             vrls.valid.to(torch.float32)[..., None]]
+    return torch.cat(cols, dim=-1).T.contiguous()
+
+
+def pack_vrls_hetero(vrls, med, density_ss):
+    """(GRID_VRL_ROWS, N): pack_vrls' rows, then each VRL's cumulative
+    optical depth in the grid medium `med`."""
+    vrl_od = gmed.cumulative_od(med, density_ss, vrls.start, vrls.end)
+    cols = [vrls.start, vrls.end, vrls.power,
+            vrls.valid.to(torch.float32)[..., None], vrl_od]
     return torch.cat(cols, dim=-1).T.contiguous()
 
 
@@ -66,3 +108,15 @@ def pack_medium(scene: Scene):
     med = scene.medium
     return torch.cat([med.sigma_t, med.sigma_s, med.g.reshape(1),
                       med.sampling_weight.reshape(1)]).to(torch.float32)
+
+
+def pack_medium_hetero(med):
+    """(GRID_MED_LEN,) grid medium parameters (see GRID_MED_LEN)."""
+    dz, dy, dx = med.density.shape
+    scales = torch.tensor([2.0 * (dx - 1), 2.0 * (dy - 1), 2.0 * (dz - 1)],
+                          dtype=torch.float32, device=med.density.device)
+    return torch.cat([
+        med.sigma_t_color, med.sigma_s_color, med.g.reshape(1),
+        med.sigma_t_color.mean().reshape(1), med.box_min,
+        1.0 / (med.box_max - med.box_min), scales,
+        med.scale.reshape(1)]).to(torch.float32)

@@ -2,7 +2,8 @@
 eye ray, VRL) pair, the luminance mean and variance of the mean of the
 VRL estimator.
 
-Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_r_pallas. Out (2, P, N)
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_r_pallas and, for grid media,
+vrl_r_pallas_hetero (the grid estimator of ops.vrl_sum). Out (2, P, N)
 float32, not normalised by the particle count: [0] the sum over the two
 sample families (vol-vol, vol-surf) of the mean of the per-sample
 luminances, [1] the sum of their variances of the mean,
@@ -16,11 +17,13 @@ the design) runs the same estimator (csrc/vrl_common.cuh) on the same
 grid and writes each pair's two numbers once.
 
 Beside the kernel:
-  * `vrl_r_reference`, the plain PyTorch version on the same packs and
-    explicit uniforms, reducing ops.vrl_sum's per-sample terms;
-  * `vrl_r`, the wrapper: the kernel for CUDA tensors (or an error;
-    there is no fallback), the plain version for CPU tensors. Its Philox
-    stream is vrl_sum's, with the representative row as the ray index.
+  * `vrl_r_reference` and `vrl_r_hetero_reference`, the plain PyTorch
+    versions on the same packs and explicit uniforms, reducing
+    ops.vrl_sum's per-sample terms;
+  * `vrl_r` and `vrl_r_hetero`, the wrappers: the kernel for CUDA
+    tensors (or an error; there is no fallback), the plain version for
+    CPU tensors. Their Philox stream is vrl_sum's, with the
+    representative row as the ray index.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import vrl_sum as vs
 
 
-def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind):
+def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind,
+            grid):
     """(mean, var), each (R, N), for a block of R rays (see module)."""
     shape = (rays.shape[1], vrls.shape[1])
     sums = {f: torch.zeros(shape, dtype=rays.dtype, device=rays.device)
@@ -43,7 +47,7 @@ def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind):
     squares = {f: torch.zeros_like(sums[f]) for f in sums}
     w0, w1, w2 = LUM_WEIGHTS
     for family, term in vs._pair_terms(rays, vrls, tris, medium, u, svv, svs,
-                                       short_vrls, phase_kind):
+                                       short_vrls, phase_kind, grid):
         lum = w0 * term[..., 0] + w1 * term[..., 1] + w2 * term[..., 2]
         sums[family] += lum
         squares[family] += lum * lum
@@ -60,31 +64,86 @@ def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind):
     return mean, var
 
 
-def vrl_r_reference(rays, vrls, tris, medium, uniforms, *,
-                    vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                    phase_kind=ph.HG):
-    """Plain PyTorch version of the kernel on the same packs, with
-    explicit (P, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
-    Returns (2, P, N)."""
+def _reference(rays, vrls, tris, medium, uniforms, svv, svs, short_vrls,
+               phase_kind, grid):
     n_rays = rays.shape[1]
     out = torch.zeros((2, n_rays, vrls.shape[1]), dtype=rays.dtype,
                       device=rays.device)
     for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
         b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
         mean, var = _pair_r(rays[:, b0:b1], vrls, tris, medium,
-                            uniforms[b0:b1], vol_vol_samples,
-                            vol_surf_samples, short_vrls, phase_kind)
+                            uniforms[b0:b1], svv, svs, short_vrls,
+                            phase_kind, grid)
         out[0, b0:b1], out[1, b0:b1] = mean, var
     return out
+
+
+def vrl_r_reference(rays, vrls, tris, medium, uniforms, *,
+                    vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                    phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel on the same packs, with
+    explicit (P, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
+    Returns (2, P, N)."""
+    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind, None)
+
+
+def vrl_r_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
+                           vol_vol_samples=2, vol_surf_samples=2,
+                           short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+    """vrl_r_reference on ops.pack's grid packs and the supersampled
+    density (as ops.vrl_sum.vrl_sum_hetero takes them)."""
+    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind,
+                      (density, uv_steps))
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, u, i, i, i, i, p, p]
-    lib.alvrl_vrl_r.restype = i
+    tail = [p, u, i, i, i, i, p, p]
+    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, *tail]
+    lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
+                                       *tail]
+    lib.alvrl_vrl_r.restype = lib.alvrl_vrl_r_hetero.restype = i
     return lib
+
+
+def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
+       phase_kind, grid):
+    """The wrappers' body (see vrl_r), counting a launch on `fn`."""
+    vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
+              grid=grid)
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
+        return _reference(rays, vrls, tris, medium, uniforms, svv, svs,
+                          short_vrls, phase_kind, grid)
+    lib = _library()
+    if tris.shape[0] > lib.alvrl_max_tris():
+        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
+                         f"shared-memory cap of {lib.alvrl_max_tris()}")
+    out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
+                      device=rays.device)
+    if n_rays == 0 or n_vrls == 0:
+        return out
+    head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
+            tris.shape[0], medium.data_ptr())
+    with torch.cuda.device(rays.device):
+        tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
+                svs, int(short_vrls), phase_kind, out.data_ptr(),
+                torch.cuda.current_stream(rays.device).cuda_stream)
+        if grid is None:
+            err = lib.alvrl_vrl_r(*head, *tail)
+        else:
+            err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid), *tail)
+    if err != 0:
+        raise RuntimeError("vrl_r kernel launch failed: CUDA error "
+                           f"{err} ({lib.alvrl_error_string(err).decode()})")
+    fn.launches += 1
+    return out
 
 
 def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
@@ -97,36 +156,22 @@ def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     stream of `seed`, counter (p, n, call, 0), or from `uniforms` (P, N,
     2 * vol_vol_samples + vol_surf_samples) when given. CUDA tensors go
     through the CUDA kernel, CPU tensors through vrl_r_reference."""
-    svv, svs = vol_vol_samples, vol_surf_samples
-    vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
-    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
-    if rays.device.type == "cpu":
-        if uniforms is None:
-            uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
-        return vrl_r_reference(
-            rays, vrls, tris, medium, uniforms, vol_vol_samples=svv,
-            vol_surf_samples=svs, short_vrls=short_vrls,
-            phase_kind=phase_kind)
-    lib = _library()
-    if tris.shape[0] > lib.alvrl_max_tris():
-        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
-                         f"shared-memory cap of {lib.alvrl_max_tris()}")
-    out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
-                      device=rays.device)
-    if n_rays == 0 or n_vrls == 0:
-        return out
-    with torch.cuda.device(rays.device):
-        err = lib.alvrl_vrl_r(
-            rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
-            tris.shape[0], medium.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(), seed, svv,
-            svs, int(short_vrls), phase_kind, out.data_ptr(),
-            torch.cuda.current_stream(rays.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("vrl_r kernel launch failed: CUDA error "
-                           f"{err} ({lib.alvrl_error_string(err).decode()})")
-    vrl_r.launches += 1
-    return out
+    return _r(vrl_r, rays, vrls, tris, medium, seed, uniforms,
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None)
 
 
 vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel
+
+
+def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
+                 vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                 phase_kind=ph.HG, uv_steps=4):
+    """vrl_r in a grid medium, on the packs and density that
+    ops.vrl_sum.vrl_sum_hetero takes; the CUDA kernel's launches are
+    counted here, the CPU goes through vrl_r_hetero_reference."""
+    return _r(vrl_r_hetero, rays, vrls, tris, medium, seed, uniforms,
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+              (density, uv_steps))
+
+
+vrl_r_hetero.launches = 0  # kernel launches, as vrl_r.launches

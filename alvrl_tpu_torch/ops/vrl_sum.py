@@ -1,26 +1,35 @@
 """The VRL x eye-ray sum: the hot loop of the render.
 
-Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas. For each eye ray,
-the sum over all valid VRLs of the vol-vol and vol-surf estimators
-(Kulla equi-angular + sinh/asinh inverse-distance sampling, short-VRL
-pdfFailure division, shadow tests against the opaque triangles),
-(3, B) float32, not yet normalised by the particle count.
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas and, for grid
+media, vrl_sum_pallas_hetero. For each eye ray, the sum over all valid
+VRLs of the vol-vol and vol-surf estimators (Kulla equi-angular +
+sinh/asinh inverse-distance sampling, short-VRL pdfFailure division,
+shadow tests against the opaque triangles), (3, B) float32, not yet
+normalised by the particle count. In a grid medium the transmittances
+come from the eye and VRL cumulative-OD tables of the grid packs and a
+uv_steps-point quadrature of the U-V segment, the scattering
+coefficients from the supersampled density read directly (no CP
+factors: ROADMAP C9), and the short-VRL division is by exp(-chan od).
 
 What bounds it on the H100 is fp32 ALU and special-function throughput
 (about 150 float32 and 20 special-function operations per pair-sample
-and 59 per triangle of its shadow sweep, on under 1 MB of input); the CUDA kernel (csrc/vrl_sum.cu, whose header
-gives the design) keeps everything on chip and splits both the ray and
-the VRL axes over the grid so that the card is full.
+and 59 per triangle of its shadow sweep, on under 1 MB of input; a grid
+sample adds its density reads and OD interpolations); the CUDA kernel
+(csrc/vrl_sum.cu, whose header gives the design) keeps everything on
+chip and splits both the ray and the VRL axes over the grid so that the
+card is full.
 
 Beside the kernel:
-  * `vrl_sum_reference`, the plain PyTorch version on the same packs,
-    built from integrators.vrl.integrate's samplers, with explicit
+  * `vrl_sum_reference` and `vrl_sum_hetero_reference`, the plain
+    PyTorch versions on the same packs, built from
+    integrators.vrl.integrate's samplers and grid reads, with explicit
     uniforms;
   * `philox_uniforms`, the kernel's random stream (Philox4x32-10) in
     plain torch, so that a live-RNG kernel run is checked exactly;
-  * `vrl_sum`, the wrapper: the kernel for CUDA tensors (or an error;
-    there is no fallback), the plain version for CPU tensors;
-  * `homog_bar`, the agreement bar between two homogeneous renders.
+  * `vrl_sum` and `vrl_sum_hetero`, the wrappers: the kernel for CUDA
+    tensors (or an error; there is no fallback), the plain version for
+    CPU tensors;
+  * `homog_bar`, the agreement bar between two renders.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from alvrl_tpu_torch.core import math as m
 from alvrl_tpu_torch.integrators.vrl import integrate
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import _build
 from alvrl_tpu_torch.ops import pack as pk
@@ -140,18 +150,21 @@ VV, VS = "vol-vol", "vol-surf"  # the two sample families
 
 
 def _vrl_side(vrls):
-    """The VRL side of the pair grid: start, end, power (G, N, 3) and
-    valid (G, N), from a (VRL_ROWS, N) pack (G = 1, every ray against
-    every VRL) or a (VRL_ROWS, R, C) gather (G = R, a table per ray)."""
+    """The VRL side of the pair grid: start, end, power (G, N, 3), valid
+    (G, N) and the cumulative-OD table (G, N, NQ + 1) of a grid pack
+    ((G, N, 0) otherwise), from a (rows, N) pack (G = 1, every ray
+    against every VRL) or a (rows, R, C) gather (G = R, a table per
+    ray)."""
     if vrls.dim() == 2:
         vrls = vrls[:, None]
     def rows(r):
         return vrls[r:r + 3].movedim(0, -1)
-    return rows(pk.VS), rows(pk.VE), rows(pk.VP), vrls[pk.VVALID] > 0.5
+    return (rows(pk.VS), rows(pk.VE), rows(pk.VP), vrls[pk.VVALID] > 0.5,
+            vrls[pk.VOD:].movedim(0, -1))
 
 
 def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
-                phase_kind):
+                phase_kind, grid=None):
     """The estimator, once: yields (family, term) for each sample of the
     pairs of a block of R rays, in draw order, where term (R, N, 3) is
     the raw per-sample contribution (not divided by the family's sample
@@ -159,11 +172,18 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     vrls as _vrl_side takes it. The sum, the clustered sum and R mode
     reduce the same terms (_pair_sums, _pair_r).
 
+    grid = (density_ss, uv_steps) for the grid packs (ops.pack's
+    GRID_* layouts), None for the homogeneous ones. The grid terms read
+    the eye and VRL cumulative-OD tables at the sample's fractions of
+    its segments, integrate the U-V segment in uv_steps midpoint steps,
+    and take sigma_s times the density at U and V (integrate.py's table
+    branch of pair_contribution, in the Pallas kernel's order).
+
     Differentiable by autograd in the VP rows of `vrls`, the TAU rows of
-    `rays` and medium[0:7] (ops.vrl_sum_bwd's plain version): the
-    geometry of each sample is replaced by harmless values where the
-    sample is masked out, since torch.where passes NaN or inf of the
-    unselected branch into the gradient."""
+    `rays` and medium[0:7] (ops.vrl_sum_bwd's plain version) for
+    homogeneous packs: the geometry of each sample is replaced by
+    harmless values where the sample is masked out, since torch.where
+    passes NaN or inf of the unselected branch into the gradient."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -171,17 +191,38 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         rows(rays, pk.HP)[:, None]
     ng, alb, tau = rows(rays, pk.NG)[:, None], rows(rays, pk.ALB)[:, None], \
         rows(rays, pk.TAU)[:, None]
-    s, e, pw, v_ok = _vrl_side(vrls)
+    s, e, pw, v_ok, vrl_od = _vrl_side(vrls)
     pair_ok = (rays[pk.VALID][:, None] > 0.5) & v_ok
-    sig_t, sig_s, g, msw = medium[0:3], medium[3:6], medium[6], medium[7]
+    sig_t, sig_s, g = medium[0:3], medium[3:6], medium[6]
     uv = m.normalize(e - s)
 
     def phase(wi, wo):
         return ph.eval_phase(phase_kind, g, wi, wo)
 
-    def pdf_failure(x):
-        pf = torch.exp(-sig_t * x[..., None]).sum(dim=-1) * (1.0 / 3.0)
-        return msw * pf + (1.0 - msw)
+    if grid is None:
+        msw = medium[7]
+
+        def pdf_failure(x):
+            pf = torch.exp(-sig_t * x[..., None]).sum(dim=-1) * (1.0 / 3.0)
+            return msw * pf + (1.0 - msw)
+    else:
+        density_ss, uv_steps = grid
+        chan = medium[7]
+        eye_od = rays[pk.EOD:].T[:, None]
+        elen = torch.clamp(m.distance(o, hp), min=1e-20)
+        vlen = torch.clamp(m.distance(s, e), min=1e-20)
+
+        def density(p):
+            return integrate.grid_density(medium, density_ss, p)
+
+        def od_uv(p, q, dist):
+            return integrate.grid_segment_od(medium, density_ss, p, q, dist,
+                                             uv_steps)
+
+        def grid_geo(geo, od_sv):
+            if short_vrls:
+                geo = geo / torch.clamp(torch.exp(-chan * od_sv), min=1e-30)
+            return geo[..., None]
 
     def segment(p, q):
         duv = p - q
@@ -205,10 +246,23 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         ok = pair_ok & (d_uv2 > 0.0) & (pdf > 0.0)
         ok = ok & ~_occluded_packed(up, v, tris)
         d_sv = m.distance(s, v)
-        path = m.distance(o, up) + d_uv + d_sv
+        d_eu = m.distance(o, up)
+        path = d_eu + d_uv + d_sv
         vu, path, d_sv, pdf_d2 = masked(ok, vu, path, d_sv, pdf * d_uv2)
         geo = phase(-vu, -d) * phase(-uv, vu) / torch.clamp(pdf_d2,
                                                             min=1e-30)
+        if grid is not None:
+            up, v = (torch.where(ok[..., None], x, x0)
+                     for x, x0 in ((up, o), (v, s)))
+            d_eu, d_uv = (torch.where(ok, x, 0.0) for x in (d_eu, d_uv))
+            od_sv = gmed.interp_od(vrl_od, d_sv / vlen)
+            od = gmed.interp_od(eye_od, d_eu / elen) + od_uv(up, v, d_uv) \
+                + od_sv
+            term = pw * (sig_s * density(v)[..., None]) \
+                * (sig_s * density(up)[..., None]) \
+                * torch.exp(-sig_t * od[..., None]) * grid_geo(geo, od_sv)
+            yield VV, torch.where(ok[..., None], term, 0.0)
+            continue
         if short_vrls:
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
         term = pw * sig_s * sig_s * torch.exp(-sig_t * path[..., None]) \
@@ -226,6 +280,14 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
         geo = phase(-uv, vu) * cos_o * (1.0 / math.pi) / torch.clamp(
             pdf_d2, min=1e-30)
+        if grid is not None:
+            v = torch.where(ok[..., None], v, s)
+            od_sv = gmed.interp_od(vrl_od, d_sv / vlen)
+            od = od_uv(hp, v, d_uv) + od_sv
+            term = pw * (sig_s * density(v)[..., None]) * alb * tau \
+                * torch.exp(-sig_t * od[..., None]) * grid_geo(geo, od_sv)
+            yield VS, torch.where(ok[..., None], term, 0.0)
+            continue
         if short_vrls:
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
         term = pw * sig_s * alb * tau \
@@ -234,15 +296,27 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
 
 
 def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
-               phase_kind):
+               phase_kind, grid=None):
     """(R, 3) sums over the VRLs for a block of R rays: each family's
     samples averaged, the families added (see _pair_terms)."""
     total = torch.zeros((rays.shape[1], 1, 3), dtype=rays.dtype,
                         device=rays.device)
     for family, term in _pair_terms(rays, vrls, tris, medium, u, svv, svs,
-                                    short_vrls, phase_kind):
+                                    short_vrls, phase_kind, grid):
         total = total + term * (1.0 / (svv if family == VV else svs))
     return total.sum(dim=1)
+
+
+def _reference(rays, vrls, tris, medium, uniforms, svv, svs, short_vrls,
+               phase_kind, grid):
+    n_rays = rays.shape[1]
+    out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
+    for b0 in range(0, n_rays, _PLAIN_RAY_CHUNK):
+        b1 = min(n_rays, b0 + _PLAIN_RAY_CHUNK)
+        out[:, b0:b1] = _pair_sums(
+            rays[:, b0:b1], vrls, tris, medium, uniforms[b0:b1], svv, svs,
+            short_vrls, phase_kind, grid).T
+    return out
 
 
 def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
@@ -251,33 +325,46 @@ def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
     """Plain PyTorch version of the kernel on the same packs, with
     explicit (B, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
     Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size."""
-    n_rays = rays.shape[1]
-    out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
-    for b0 in range(0, n_rays, _PLAIN_RAY_CHUNK):
-        b1 = min(n_rays, b0 + _PLAIN_RAY_CHUNK)
-        out[:, b0:b1] = _pair_sums(
-            rays[:, b0:b1], vrls, tris, medium, uniforms[b0:b1],
-            vol_vol_samples, vol_surf_samples, short_vrls, phase_kind).T
-    return out
+    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind, None)
+
+
+def vrl_sum_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
+                             vol_vol_samples=2, vol_surf_samples=2,
+                             short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+    """vrl_sum_reference on grid packs (ops.pack's GRID_* layouts) and the
+    supersampled density (2Z - 1, 2Y - 1, 2X - 1)."""
+    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind,
+                      (density, uv_steps))
 
 
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
 
+def grid_args(density, uv_steps):
+    """The grid kernels' extra C arguments: the density pointer, its
+    (Z, Y, X) extents and the U-V quadrature's step count."""
+    return (density.data_ptr(), *density.shape, uv_steps)
+
+
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
-            short_vrls, phase_kind):
+            short_vrls, phase_kind, grid=None):
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
                           device=rays.device)
     out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
-    err = lib.alvrl_vrl_sum(
-        rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
-        tris.shape[0], medium.data_ptr(),
-        None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-        int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
-        out.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
+            tris.data_ptr(), tris.shape[0], medium.data_ptr())
+    tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
+            svs, int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
+            out.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    if grid is None:
+        err = lib.alvrl_vrl_sum(*head, *tail)
+    else:
+        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid), *tail)
     if err != 0:
         raise RuntimeError("vrl_sum kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -288,23 +375,30 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
 def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, u, i, i, i, i,
-                                  p, i, p, p]
-    lib.alvrl_vrl_sum.restype = i
-    lib.alvrl_vrl_chunk.restype = i
-    lib.alvrl_max_tris.restype = i
+    tail = [p, u, i, i, i, i, p, i, p, p]
+    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, *tail]
+    lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
+                                         *tail]
+    for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
+               lib.alvrl_vrl_chunk, lib.alvrl_max_tris):
+        fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None):
+           n_cols=None, grid=None):
     """Raise on what the kernels do not take. The uniforms must be
-    (B, n_cols, 2 * svv + svs), n_cols the VRL count by default."""
+    (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
+    (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
+    constants give, with the supersampled density (2Z - 1, 2Y - 1,
+    2X - 1)."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
+    if grid is not None:
+        named["density"] = grid[0]
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
@@ -316,18 +410,28 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
             raise ValueError(f"{name} is on {t.device}, rays on {rays.device}")
     if rays.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rays.device}")
-    if rays.dim() != 2 or rays.shape[0] != pk.RAY_ROWS:
-        raise ValueError(f"rays must be ({pk.RAY_ROWS}, B), got "
+    ray_rows, vrl_rows, med_len = (
+        (pk.RAY_ROWS, pk.VRL_ROWS, pk.MED_LEN) if grid is None
+        else (pk.GRID_RAY_ROWS, pk.GRID_VRL_ROWS, pk.GRID_MED_LEN))
+    if rays.dim() != 2 or rays.shape[0] != ray_rows:
+        raise ValueError(f"rays must be ({ray_rows}, B), got "
                          f"{tuple(rays.shape)}")
-    if vrls.dim() != 2 or vrls.shape[0] != pk.VRL_ROWS:
-        raise ValueError(f"vrls must be ({pk.VRL_ROWS}, N), got "
+    if vrls.dim() != 2 or vrls.shape[0] != vrl_rows:
+        raise ValueError(f"vrls must be ({vrl_rows}, N), got "
                          f"{tuple(vrls.shape)}")
     if tris.dim() != 2 or tris.shape[1] != pk.TRI_COLS:
         raise ValueError(f"tris must be (T, {pk.TRI_COLS}), got "
                          f"{tuple(tris.shape)}")
-    if tuple(medium.shape) != (pk.MED_LEN,):
-        raise ValueError(f"medium must be ({pk.MED_LEN},), got "
+    if tuple(medium.shape) != (med_len,):
+        raise ValueError(f"medium must be ({med_len},), got "
                          f"{tuple(medium.shape)}")
+    if grid is not None:
+        density, uv_steps = grid
+        if density.dim() != 3 or min(density.shape) < 1:
+            raise ValueError("density must be a non-empty (Z, Y, X) grid, "
+                             f"got {tuple(density.shape)}")
+        if uv_steps < 1:
+            raise ValueError(f"uv_steps must be >= 1, got {uv_steps}")
     if svv < 0 or svs < 0:
         raise ValueError("sample counts must be >= 0")
     n_cols = vrls.shape[1] if n_cols is None else n_cols
@@ -341,6 +445,32 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         raise ValueError(f"seed {seed} is not a uint32")
 
 
+def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
+         phase_kind, grid):
+    """The wrappers' body: checks, then the plain version on the CPU or
+    the kernel on the card, counting its launch on `fn`."""
+    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
+           grid=grid)
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
+        return _reference(rays, vrls, tris, medium, uniforms, svv, svs,
+                          short_vrls, phase_kind, grid)
+    lib = _library()
+    if tris.shape[0] > lib.alvrl_max_tris():
+        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
+                         f"shared-memory cap of {lib.alvrl_max_tris()}")
+    if n_rays == 0 or n_vrls == 0:
+        return torch.zeros((3, n_rays), dtype=torch.float32,
+                           device=rays.device)
+    with torch.cuda.device(rays.device):
+        out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
+                      svs, short_vrls, phase_kind, grid)
+    fn.launches += 1
+    return out
+
+
 def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
             vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
             phase_kind=ph.HG):
@@ -352,31 +482,30 @@ def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     or from `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples)
     when given. CUDA tensors go through the CUDA kernel, CPU tensors
     through vrl_sum_reference."""
-    svv, svs = vol_vol_samples, vol_surf_samples
-    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
-    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
-    if rays.device.type == "cpu":
-        if uniforms is None:
-            uniforms = philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
-        return vrl_sum_reference(
-            rays, vrls, tris, medium, uniforms, vol_vol_samples=svv,
-            vol_surf_samples=svs, short_vrls=short_vrls,
-            phase_kind=phase_kind)
-    lib = _library()
-    if tris.shape[0] > lib.alvrl_max_tris():
-        raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
-                         f"shared-memory cap of {lib.alvrl_max_tris()}")
-    if n_rays == 0 or n_vrls == 0:
-        return torch.zeros((3, n_rays), dtype=torch.float32,
-                           device=rays.device)
-    with torch.cuda.device(rays.device):
-        out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
-                      svs, short_vrls, phase_kind)
-    vrl_sum.launches += 1
-    return out
+    return _sum(vrl_sum, rays, vrls, tris, medium, seed, uniforms,
+                vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+                None)
 
 
 vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
+
+
+def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
+                   uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
+                   short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+    """vrl_sum in a grid medium: rays (GRID_RAY_ROWS, B), vrls
+    (GRID_VRL_ROWS, N) and medium (GRID_MED_LEN,) are ops.pack's grid
+    packs, density the supersampled grid (2Z - 1, 2Y - 1, 2X - 1)
+    (media.heterogeneous.upsample2), uv_steps the U-V quadrature's steps;
+    the random stream is vrl_sum's. CUDA tensors go through the CUDA
+    kernel (a launch of its own, counted here), CPU tensors through
+    vrl_sum_hetero_reference."""
+    return _sum(vrl_sum_hetero, rays, vrls, tris, medium, seed, uniforms,
+                vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+                (density, uv_steps))
+
+
+vrl_sum_hetero.launches = 0  # kernel launches, as vrl_sum.launches
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """The clustered VRL x eye-ray sum: each eye ray against the
 representatives of its slice (Adaptive LightSlice).
 
-Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered. Each ray
+Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered and, for
+grid media, vrl_sum_pallas_hetero_clustered (the grid estimator of
+ops.vrl_sum; each column's VRL-OD rows gathered by id from the full
+grid VRL pack, as the other rows are). Each ray
 b sums the estimator of ops.vrl_sum over row ray_slice[b] of a table of
 VRL ids (S, C) int32 and weights (S, C) float32, a column's weight
 multiplied into the VRL's power (weights enter linearly) and a column
@@ -17,12 +20,14 @@ block size (group_by_slice, on the host, as the JAX render groups
 pixels) and gathers each tile's table from the full VRL pack.
 
 Beside the kernel:
-  * `vrl_sum_clustered_reference`, the plain PyTorch version on the
-    same inputs and explicit uniforms (B, C, D) indexed by ray and table
-    column, summing ops.vrl_sum's per-sample terms over each ray's
+  * `vrl_sum_clustered_reference` and
+    `vrl_sum_hetero_clustered_reference`, the plain PyTorch versions on
+    the same inputs and explicit uniforms (B, C, D) indexed by ray and
+    table column, summing ops.vrl_sum's per-sample terms over each ray's
     gathered table;
-  * `vrl_sum_clustered`, the wrapper: the kernel for CUDA tensors (or an
-    error; there is no fallback), the plain version for CPU tensors.
+  * `vrl_sum_clustered` and `vrl_sum_hetero_clustered`, the wrappers:
+    the kernel for CUDA tensors (or an error; there is no fallback), the
+    plain version for CPU tensors.
     Its Philox stream is vrl_sum's with counter (ray, VRL id, call, 0),
     independent of the grouping and the table layout.
 """
@@ -60,8 +65,9 @@ def group_by_slice(ray_slice, ray_block):
 
 
 def _gather_tables(vrls, rows, table_ids, table_weights):
-    """(VRL_ROWS, R, C) pack of each ray's table row (row -1: all
-    invalid), weights folded into the power rows."""
+    """(rows of vrls, R, C) pack of each ray's table row (row -1: all
+    invalid), weights folded into the power rows; a grid pack's VRL-OD
+    rows come along."""
     n_vrls = vrls.shape[1]
     kept = rows >= 0
     r = rows.clamp(min=0)
@@ -71,16 +77,12 @@ def _gather_tables(vrls, rows, table_ids, table_weights):
     g = vrls[:, ids.clamp(0, n_vrls - 1)]
     pw = g[pk.VP:pk.VP + 3] * w
     valid = ((g[pk.VVALID] > 0.5) & id_ok & (w > 0.0)).to(g.dtype)
-    return torch.cat([g[:pk.VP], pw, valid[None]])
+    return torch.cat([g[:pk.VP], pw, valid[None], g[pk.VVALID + 1:]])
 
 
-def vrl_sum_clustered_reference(rays, vrls, tris, medium, ray_slice,
-                                table_ids, table_weights, uniforms, *,
-                                vol_vol_samples=2, vol_surf_samples=2,
-                                short_vrls=True, phase_kind=ph.HG):
-    """Plain PyTorch version of the kernel on the same inputs, with
-    explicit (B, C, 2 * vol_vol_samples + vol_surf_samples) uniforms
-    indexed by ray and table column. Returns (3, B)."""
+def _reference(rays, vrls, tris, medium, ray_slice, table_ids,
+               table_weights, uniforms, svv, svs, short_vrls, phase_kind,
+               grid):
     n_rays = rays.shape[1]
     out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
     if table_ids.shape[0] == 0 or vrls.shape[1] == 0:
@@ -90,9 +92,34 @@ def vrl_sum_clustered_reference(rays, vrls, tris, medium, ray_slice,
         b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
         tables = _gather_tables(vrls, rows[b0:b1], table_ids, table_weights)
         out[:, b0:b1] = vs._pair_sums(
-            rays[:, b0:b1], tables, tris, medium, uniforms[b0:b1],
-            vol_vol_samples, vol_surf_samples, short_vrls, phase_kind).T
+            rays[:, b0:b1], tables, tris, medium, uniforms[b0:b1], svv, svs,
+            short_vrls, phase_kind, grid).T
     return out
+
+
+def vrl_sum_clustered_reference(rays, vrls, tris, medium, ray_slice,
+                                table_ids, table_weights, uniforms, *,
+                                vol_vol_samples=2, vol_surf_samples=2,
+                                short_vrls=True, phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel on the same inputs, with
+    explicit (B, C, 2 * vol_vol_samples + vol_surf_samples) uniforms
+    indexed by ray and table column. Returns (3, B)."""
+    return _reference(rays, vrls, tris, medium, ray_slice, table_ids,
+                      table_weights, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind, None)
+
+
+def vrl_sum_hetero_clustered_reference(rays, vrls, tris, medium, density,
+                                       ray_slice, table_ids, table_weights,
+                                       uniforms, *, vol_vol_samples=2,
+                                       vol_surf_samples=2, short_vrls=True,
+                                       phase_kind=ph.HG, uv_steps=4):
+    """vrl_sum_clustered_reference on ops.pack's grid packs and the
+    supersampled density (as ops.vrl_sum.vrl_sum_hetero takes them)."""
+    return _reference(rays, vrls, tris, medium, ray_slice, table_ids,
+                      table_weights, uniforms, vol_vol_samples,
+                      vol_surf_samples, short_vrls, phase_kind,
+                      (density, uv_steps))
 
 
 def philox_table_uniforms(seed, ray_slice, table_ids, n_draws):
@@ -120,10 +147,13 @@ def philox_table_uniforms(seed, ray_slice, table_ids, n_draws):
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.alvrl_vrl_sum_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, p, i, p, p, i, p, u, i, i, i, i, p, p]
-    lib.alvrl_vrl_sum_clustered.restype = i
-    lib.alvrl_ray_block.restype = i
+    tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, p]
+    lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, *tail]
+    lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
+        p, i, p, i, p, i, p, p, i, i, i, i, *tail]
+    for fn in (lib.alvrl_vrl_sum_clustered,
+               lib.alvrl_vrl_sum_hetero_clustered, lib.alvrl_ray_block):
+        fn.restype = i
     return lib
 
 
@@ -157,34 +187,24 @@ def _check_tables(rays, ray_slice, table_ids, table_weights):
     return sl
 
 
-def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
-                      table_weights, *, seed=0, uniforms=None,
-                      vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                      phase_kind=ph.HG):
-    """(3, B) per-ray sums over each ray's table row (not normalised by
-    the particle count; see module). rays (RAY_ROWS, B), vrls (VRL_ROWS,
-    N), tris and medium are ops.vrl_sum's packs; ray_slice (B,) integer
-    rows in [-1, S) (numpy or a tensor; read on the host); table_ids
-    (S, C) int32 and table_weights (S, C) float32 on the rays' device.
-    Random numbers come from the Philox stream of `seed`, counter (b,
-    VRL id, call, 0), or from `uniforms` (B, C, 2 * vol_vol_samples +
-    vol_surf_samples) when given. CUDA tensors go through the CUDA
-    kernel, CPU tensors through vrl_sum_clustered_reference."""
-    svv, svs = vol_vol_samples, vol_surf_samples
+def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
+               table_weights, seed, uniforms, svv, svs, short_vrls, phase_kind,
+               grid):
+    """The wrappers' body (see vrl_sum_clustered), counting a launch on
+    `fn`."""
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              n_cols=table_ids.shape[1])
+              n_cols=table_ids.shape[1], grid=grid)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
             uniforms = philox_table_uniforms(seed, sl, table_ids,
                                              2 * svv + svs)
-        return vrl_sum_clustered_reference(
-            rays, vrls, tris, medium, sl, table_ids, table_weights,
-            uniforms, vol_vol_samples=svv, vol_surf_samples=svs,
-            short_vrls=short_vrls, phase_kind=phase_kind)
+        return _reference(rays, vrls, tris, medium, sl, table_ids,
+                          table_weights, uniforms, svv, svs, short_vrls,
+                          phase_kind, grid)
     lib = _library()
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
@@ -198,32 +218,76 @@ def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
     with torch.cuda.device(rays.device):
         _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row,
                 table_ids, table_weights, uniforms, seed, svv, svs, short_vrls,
-                phase_kind, out)
-    vrl_sum_clustered.launches += 1
+                phase_kind, out, grid)
+    fn.launches += 1
     return out
 
 
-def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
-            table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
-            out):
-    """The kernel on inputs the wrapper has checked and grouped
-    (tile_rays, tile_row: group_by_slice's arrays on the device), into
-    `out` (3, B), written at the rays of the tiles; on the current
-    stream. The wrapper's own step, apart so that chip_smoke.py can time
-    the kernel without the wrapper's host work; it counts no launch."""
-    err = lib.alvrl_vrl_sum_clustered(
-        rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
-        tris.data_ptr(), tris.shape[0], medium.data_ptr(),
-        tile_rays.data_ptr(), tile_row.data_ptr(), len(tile_row),
-        table_ids.data_ptr(), table_weights.data_ptr(), table_ids.shape[1],
-        None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-        int(short_vrls), phase_kind, out.data_ptr(),
-        torch.cuda.current_stream(rays.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
-                           f"error {err} "
-                           f"({lib.alvrl_error_string(err).decode()})")
+def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
+                      table_weights, *, seed=0, uniforms=None,
+                      vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                      phase_kind=ph.HG):
+    """(3, B) per-ray sums over each ray's table row (not normalised by
+    the particle count; see module). rays (RAY_ROWS, B), vrls (VRL_ROWS,
+    N), tris and medium are ops.vrl_sum's packs; ray_slice (B,) integer
+    rows in [-1, S) (numpy or a tensor; read on the host); table_ids
+    (S, C) int32 and table_weights (S, C) float32 on the rays' device.
+    Random numbers come from the Philox stream of `seed`, counter (b,
+    VRL id, call, 0), or from `uniforms` (B, C, 2 * vol_vol_samples +
+    vol_surf_samples) when given. CUDA tensors go through the CUDA
+    kernel, CPU tensors through vrl_sum_clustered_reference."""
+    return _clustered(vrl_sum_clustered, rays, vrls, tris, medium,
+                      ray_slice, table_ids, table_weights, seed, uniforms,
+                      vol_vol_samples, vol_surf_samples, short_vrls,
+                      phase_kind, None)
 
 
 vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
                                 # used the kernel
+
+
+def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
+                             table_ids, table_weights, *, seed=0,
+                             uniforms=None, vol_vol_samples=2,
+                             vol_surf_samples=2, short_vrls=True,
+                             phase_kind=ph.HG, uv_steps=4):
+    """vrl_sum_clustered in a grid medium, on the packs and density that
+    ops.vrl_sum.vrl_sum_hetero takes; the CUDA kernel's launches are
+    counted here, the CPU goes through
+    vrl_sum_hetero_clustered_reference."""
+    return _clustered(vrl_sum_hetero_clustered, rays, vrls, tris, medium,
+                      ray_slice, table_ids, table_weights, seed, uniforms,
+                      vol_vol_samples, vol_surf_samples, short_vrls,
+                      phase_kind, (density, uv_steps))
+
+
+vrl_sum_hetero_clustered.launches = 0  # kernel launches, as
+                                       # vrl_sum_clustered.launches
+
+
+def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
+            table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
+            out, grid=None):
+    """The kernel on inputs the wrapper has checked and grouped
+    (tile_rays, tile_row: group_by_slice's arrays on the device), into
+    `out` (3, B), written at the rays of the tiles; on the current
+    stream; grid = (density, uv_steps) for the grid kernel. The
+    wrapper's own step, apart so that chip_smoke.py can time the kernel
+    without the wrapper's host work; it counts no launch."""
+    head = (rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
+            tris.data_ptr(), tris.shape[0], medium.data_ptr())
+    tail = (tile_rays.data_ptr(), tile_row.data_ptr(), len(tile_row),
+            table_ids.data_ptr(), table_weights.data_ptr(),
+            table_ids.shape[1],
+            None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+            int(short_vrls), phase_kind, out.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if grid is None:
+        err = lib.alvrl_vrl_sum_clustered(*head, *tail)
+    else:
+        err = lib.alvrl_vrl_sum_hetero_clustered(*head, *vs.grid_args(*grid),
+                                                 *tail)
+    if err != 0:
+        raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
+                           f"error {err} "
+                           f"({lib.alvrl_error_string(err).decode()})")

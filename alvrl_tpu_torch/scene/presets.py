@@ -1,17 +1,22 @@
 """Benchmark scenes.
 
-Counterpart of alvrl_tpu/scene/presets.py (cornell_smoke, BASELINE
-config 1): a closed Cornell box filled with a homogeneous medium, a box
-blocker, one point light, and the camera inside the medium.
+Counterpart of alvrl_tpu/scene/presets.py: cornell_smoke (BASELINE
+configs 1-2), a closed Cornell box filled with a homogeneous medium, a
+box blocker, one point light, and the camera inside the medium; and
+cornell_grid_smoke (BASELINE config 4), the same box without the
+blocker, filled with a plume-like grid medium.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from alvrl_tpu_torch.emitters.emitters import make_point_emitters
 from alvrl_tpu_torch.geometry import shapes
+from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.scene.scene import (
     DIFFUSE,
@@ -92,3 +97,24 @@ def cornell_smoke(
         medium=make_medium(sigma_a, sigma_s, g=g, device=device),
         camera=camera,
     )
+
+
+def cornell_grid_smoke(width=512, height=512, grid_res=48, device="cuda"):
+    """BASELINE config 4: cornell_smoke without the blocker, filled with
+    a grid medium on [-1, 1]^3 of grid_res^3 voxels, a vertical gaussian
+    plume with pseudo-turbulent harmonics (made in float64 numpy, then
+    cast, as the JAX preset makes it), sigma_t_color (1, 1.05, 1.1),
+    albedo 0.92, HG g = 0.3."""
+    r = grid_res
+    z, y, x = np.meshgrid(np.linspace(-1, 1, r), np.linspace(-1, 1, r),
+                          np.linspace(-1, 1, r), indexing="ij")
+    rad2 = x ** 2 + z ** 2
+    plume = np.exp(-6.0 * rad2 / (0.35 + 0.65 * (y + 1) / 2))
+    turb = (0.5 * np.sin(7 * x + 5 * y) * np.cos(6 * z - 4 * y)
+            + 0.3 * np.sin(13 * z + 11 * x))
+    dens = np.clip(plume * (1.0 + 0.5 * turb), 0.0, None) * 2.5
+    medium = make_grid_medium(dens.astype(np.float32), [1.0, 1.05, 1.1],
+                              [0.92, 0.92, 0.92], g=0.3, device=device)
+    base = cornell_smoke(width=width, height=height, with_blocker=False,
+                         device=device)
+    return replace(base, medium=medium)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from alvrl_tpu_torch.emitters.emitters import Emitters
+from alvrl_tpu_torch.media.heterogeneous import GridMedium
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
 
 # material kinds, numbered as in alvrl_tpu.scene.scene
@@ -48,7 +49,7 @@ class Scene:
     material: torch.Tensor  # (T,) int64 per-face material id
     materials: Materials
     emitters: Emitters
-    medium: HomogeneousMedium  # global medium filling the scene
+    medium: HomogeneousMedium | GridMedium  # global medium filling the scene
     camera: Camera
 
     @property

@@ -1,8 +1,9 @@
 """Smoke run of alvrl_tpu_torch on one CUDA card (an H100): the config-1
-VRL render, the config-1 train step and the config-2 clustered render
-(Adaptive LightSlice) end to end through the hand-written CUDA kernels
-(the VRL sum, its seed-replay VJP, the transfer matrix R and the
-clustered sum).
+VRL render, the config-1 train step, the config-2 clustered render
+(Adaptive LightSlice) and the config-4 clustered render in a grid
+medium end to end through the hand-written CUDA kernels (the VRL sum,
+its seed-replay VJP, the transfer matrix R and the clustered sum, and
+the grid-medium sum, R and clustered sum).
 
     python3 chip_smoke.py
 
@@ -51,7 +52,28 @@ Phases, one line each; any failure exits non-zero:
      mean clustered image over the mean unclustered image of the same
      VRLs must lie in 0.85-1.15;
  14. timing of a warm clustered pass, per stage on the host clock, each
-     new kernel alone and its plain version, and a profile as phase 6.
+     new kernel alone and its plain version, and a profile as phase 6;
+ 15. the three grid kernels (vrl_sum_hetero, vrl_r_hetero,
+     vrl_sum_hetero_clustered) vs their plain versions at config-4
+     shapes (BASELINE, scripts/bench_suite.py:111-149: cornell_grid_smoke
+     512x512 with its 48^3 grid, 512 VRLs of 192 particles x depth 10,
+     128 slices, pixel undersampling 128; R over all ~2,000
+     representative rays). Each kernel runs at its full main-path shape;
+     the sums are compared on a subset (C4_SUBSET_RAYS: the eye rays of
+     image rows 128-159 for vrl_sum_hetero, the rays of the first whole
+     slices for the clustered sum), R on all of it. Cases: the preset's
+     HG g=0.3 with injected and Philox uniforms, Rayleigh, and long VRLs;
+     also an identity table against vrl_sum_hetero and R's row sums
+     against its luminance (kernel against kernel, full shapes);
+ 16. the main path: alvrl.render_alvrl at full config 4; the launch
+     counts of vrl_r_hetero and vrl_sum_hetero_clustered must move, and
+     vrl_sum_hetero's in the unclustered renders of the band check; the
+     image finite and non-zero; over 3 seeds the mean clustered image
+     over the mean unclustered image of the same VRLs in 0.85-1.15;
+ 17. timing of a warm config-4 pass, per stage (the tracer stage with
+     Woodcock tracking), each grid kernel alone at its full shape and
+     its plain version on the same inputs, and each one's bound;
+ 18. profile of the config-4 pass, as phase 6.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -84,13 +106,15 @@ from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
-from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_reference
+from alvrl_tpu_torch.ops.vrl_r import (
+    vrl_r, vrl_r_hetero, vrl_r_hetero_reference, vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
-    HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_uniforms, vrl_sum,
-    vrl_sum_reference)
+    HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws, philox_uniforms,
+    vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference, vrl_sum_reference)
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
-    vrl_sum_clustered_reference)
+    vrl_sum_clustered_reference, vrl_sum_hetero_clustered,
+    vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.sensors import perspective
@@ -111,6 +135,15 @@ C2_PARAMS = dict(vrl_target_num=512, num_particles=128, seed=0)
 C2_CLUSTER = dict(target_num_slices=100, target_pixel_undersampling=64.0)
 C2_BAND = (0.85, 1.15)  # clustered / unclustered image mean, 3 seeds
 R_VAR_MEDIAN, R_VAR_FLOOR = 1e-4, 1e-12  # tests/test_hetero_pallas.py:227
+# config 4 (scripts/bench_suite.py:111-149): cornell_grid_smoke 512x512
+# with a 48^3 grid, 512 VRLs of 192 particles x depth 10, 128 slices,
+# pixel undersampling 128, 2+2 samples, 4 U-V quadrature steps
+C4_SIZE, C4_GRID, C4_DEPTH = 512, 48, 10
+C4_PARAMS = dict(vrl_target_num=512, num_particles=192, seed=0)
+C4_CLUSTER = dict(target_num_slices=128, target_pixel_undersampling=128.0)
+C4_ROWS = (128, 160)     # image rows of the unclustered sum's subset
+C4_SUBSET_RAYS = 16384   # rays of the clustered sum's subset, at most
+C4_PLAIN_CHUNK = 2048    # rays per block of the plain versions on the card
 
 # bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes over the memory rate and its operations over the
@@ -160,6 +193,19 @@ OPS = {
     # the five-way min and its test: 59)
     "segment": (16, 2),
     "triangle": (59, 0),
+}
+# the grid medium's device functions (GridMedium, interp_od), by OPS's
+# rules; rintf and the integer index arithmetic count 0
+GRID_OPS = {
+    # GridMedium::density: the box coordinates (6), the inside test (6),
+    # the scaled indices and their clamps (6), the scale (1)
+    "density": (19, 0),
+    # interp_od: the clamps (4), x (1), w and 1 - w (2), the lerp (3)
+    "interp": (10, 0),
+    # segment_od: delta, the final product and division
+    "segment": (4, 1),
+    # each of its steps: t's add and division, the point (3 FMA), the sum
+    "segment_step": (8, 1),
 }
 
 
@@ -235,15 +281,17 @@ def profile_device(fn, n_warm, n_traced):
 
 
 def ptxas_summary(log):
-    """'name<phase,short> R regs S B spill' for each kernel instantiation
-    in the compiler's report."""
+    """'name<phase,short[,medium]> R regs S B spill' for each kernel
+    instantiation in the compiler's report."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
                       r"(vrl_(?:sum|sum_bwd|sum_clustered|r)_kernel)"
-                      r"ILi(\d)ELb(\d)E", line)
+                      r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?", line)
         if "Compiling entry function" in line:
-            name = f"{m[1]}<{m[2]},{m[3]}>" if m else None
+            medium = "" if not m or m[4] is None else (
+                ",grid" if m[4] == "1" else ",homog")
+            name = f"{m[1]}<{m[2]},{m[3]}{medium}>" if m else None
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
         elif name and "registers" in line:
@@ -350,6 +398,27 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def grid_estimator_ops(kernel, vol_vol, hg, short_vrls, uv_steps):
+    """(float32, special-function) operations, by OPS's rules, of one
+    open sample's grid terms (vol_vol_term / vol_surf_term of
+    GridMedium) and the forward kernel's emit."""
+    n_phase = 2 if vol_vol else 1
+    f, s = n_phase * (4 if hg else 3), n_phase * (2 if hg else 0)  # phase
+    f, s = f + (1 if vol_vol else 2), s + 1                          # geo
+    f += 1 + GRID_OPS["interp"][0]          # the VRL table's fraction, entry
+    f += GRID_OPS["segment"][0] + uv_steps * GRID_OPS["segment_step"][0]
+    s += GRID_OPS["segment"][1] + uv_steps * GRID_OPS["segment_step"][1]
+    f += n_phase * GRID_OPS["density"][0]   # the density at V (and U)
+    if vol_vol:  # the eye table's fraction (a division) and entry; od's sum
+        f, s = f + GRID_OPS["interp"][0] + 2, s + 1
+    else:
+        f += 1
+    if short_vrls:  # chan * od, exp, the clamp, the division
+        f, s = f + 2, s + 2
+    # exp(-sigma_t od) and six products per channel; the emit (6 or 8)
+    return f + 3 * 7 + (8 if kernel == "vrl_r" else 6), s + 3
+
+
 def estimator_ops(kernel, vol_vol, hg, short_vrls):
     """(float32, special-function) operations, by OPS's rules, of one
     open sample's estimator and its reduction: pair_terms and the
@@ -373,9 +442,11 @@ def estimator_ops(kernel, vol_vol, hg, short_vrls):
     return f + 3 * (2 + (12 if vol_vol else 14)), s + 3
 
 
-def kernel_ops(kernel, sweep, hg, short_vrls):
+def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
     """(float32, special-function) operations of `kernel` on this run's
-    samples (a SweepCount), by OPS's rules."""
+    samples (a SweepCount), by OPS's rules; uv_steps for the grid
+    kernels (whose open samples skip the homogeneous path length: 2 and
+    1 adds)."""
     # per pair beyond pair_setup: R's mean and variance of the mean (two
     # families: the division, the sum, k mu^2, the clamp, two divisions,
     # the sum), the backward's warp sums of d_power (3 x 5 adds)
@@ -386,7 +457,12 @@ def kernel_ops(kernel, sweep, hg, short_vrls):
             (sum(sweep.tested), OPS["segment"]),
             (sweep.tri_tests, OPS["triangle"])]
     for fam, name in enumerate(("vv_open", "vs_open")):
-        est = estimator_ops(kernel, fam == 0, hg, short_vrls)
+        if uv_steps is None:
+            est = estimator_ops(kernel, fam == 0, hg, short_vrls)
+        else:
+            est = grid_estimator_ops(kernel, fam == 0, hg, short_vrls,
+                                     uv_steps)
+            est = (est[0] - (2 if fam == 0 else 1), est[1])
         rows.append((sweep.open[fam], (OPS[name][0] + est[0],
                                        OPS[name][1] + est[1])))
     return (sum(n * f for n, (f, _) in rows),
@@ -483,15 +559,27 @@ def table_pair_ok(rays, vrls, ray_slice, table_ids, table_weights):
 
 
 def rep_packs(scene, vrls, slice_info):
-    """ops.pack's packs of the representative pixels' centre rays (the
-    R kernel's rays, as alvrl.build_R_device makes them)."""
+    """The packs of the representative pixels' centre rays (the R
+    kernel's rays, as alvrl.build_R_device makes them), grid packs and
+    the supersampled density in a grid medium."""
     rows = torch.as_tensor(np.concatenate(slice_info.repr_rows),
                            device=scene.device)
     w = scene.camera.width
     ray_o, ray_d = perspective.sample_ray(scene.camera, rows % w, rows // w)
-    hit, mat = integrator.trace_eye_rays(scene, ray_o, ray_d)
-    return (pk.pack_rays(scene, ray_o, ray_d, hit, mat), pk.pack_vrls(vrls),
-            pk.pack_tris(scene), pk.pack_medium(scene))
+    return integrator.pack_rays_vrls(scene, ray_o, ray_d, vrls)[1]
+
+
+@contextlib.contextmanager
+def plain_chunk(n_rays):
+    """The plain versions in blocks of n_rays rays instead of
+    ops.vrl_sum._PLAIN_RAY_CHUNK (their results do not depend on it):
+    fewer, larger operations on the card."""
+    old = vs._PLAIN_RAY_CHUNK
+    vs._PLAIN_RAY_CHUNK = n_rays
+    try:
+        yield
+    finally:
+        vs._PLAIN_RAY_CHUNK = old
 
 
 def media_scenes(dev):
@@ -790,6 +878,314 @@ def config2(dev, card, cfg):
         "ms": c_med, "plain_ms": cp_med, "bound_ms": c_bound[0],
         "bound_by": c_bound[1], "library_ms": None,
     }]
+
+# (name, uniforms, short VRLs, phase kind) of phase 15's comparisons
+C4_CASES = [("hg_g03", "injected", True, 0), ("hg_g03", "philox", True, 0),
+            ("rayleigh", "philox", True, 1), ("hg_g03", "long", False, 0)]
+
+
+def config4(dev, card, cfg):
+    """Phases 15-18, the config-4 clustered render in a grid medium;
+    returns the kernels line's entries of the three grid kernels."""
+    tcfg = tracer.TracerConfig(max_depth=C4_DEPTH)
+    params = alvrl.ALVRLParams(**C4_PARAMS,
+                               cluster=cl.ClusterParams(**C4_CLUSTER))
+    scene = presets.cornell_grid_smoke(C4_SIZE, C4_SIZE, grid_res=C4_GRID,
+                                       device=dev)
+    kw = dict(uv_steps=cfg.uv_tau_steps)
+    t0 = time.perf_counter()
+    info = alvrl.build_slice_info(scene, params)
+    slice_ms = (time.perf_counter() - t0) * 1e3
+    vrls = vrl.compact(
+        tracer.trace(scene, torch.Generator().manual_seed(41),
+                     params.num_particles, tcfg),
+        params.vrl_target_num, slots_per_particle=C4_DEPTH)
+    n_vrls, n_rays = vrls.capacity, C4_SIZE * C4_SIZE
+    n_rep = sum(len(r) for r in info.repr_rows)
+    px, py, hit, packs = integrator.pack_frame(scene, vrls)
+    density = packs[4]
+    check(n_vrls == params.vrl_target_num
+          and len(info.repr_rows) == C4_CLUSTER["target_num_slices"]
+          and packs[0].shape == (pk.GRID_RAY_ROWS, n_rays)
+          and tuple(density.shape) == (2 * C4_GRID - 1,) * 3,
+          f"config-4 shapes: {n_vrls} VRLs, {len(info.repr_rows)} slices, "
+          f"rays {tuple(packs[0].shape)}, density {tuple(density.shape)}")
+    seed = 20261018
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    # 15. the grid kernels against their plain versions
+    b0, b1 = C4_ROWS[0] * C4_SIZE, C4_ROWS[1] * C4_SIZE
+    sub = (packs[0][:, b0:b1].contiguous(), *packs[1:])
+    u_full = torch.rand((n_rays, n_vrls, 6), generator=gen, device=dev)
+    u_sub = philox_draws(seed, torch.arange(b0, b1, device=dev)[:, None],
+                         torch.arange(n_vrls, device=dev)[None], 6)
+    packs_r = rep_packs(scene, vrls, info)
+    u_r = torch.rand((n_rep, n_vrls, 6), generator=gen, device=dev)
+    u_r_philox = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    sop, tv, tw, cinfo = alvrl.prepare_clustering(scene, vrls, seed, params,
+                                                  cfg, info)
+    n_cols = tv.shape[1]
+    rows, counts = np.unique(sop[sop >= 0], return_counts=True)
+    n_sl = max(1, int(np.searchsorted(np.cumsum(counts), C4_SUBSET_RAYS,
+                                      side="right")))
+    idx = np.flatnonzero(np.isin(sop, rows[:n_sl]))
+    idx_t = torch.as_tensor(idx, device=dev)
+    sub_c = (packs[0][:, idx_t].contiguous(), *packs[1:])
+    u_c = torch.rand((n_rays, n_cols, 6), generator=gen, device=dev)
+    u_c_sub = philox_draws(seed, idx_t[:, None], tv[torch.as_tensor(
+        sop[idx], device=dev).long()].long(), 6)
+    errs, results = {"sum": 0.0, "r": 0.0, "clustered": 0.0}, []
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for name, mode, short, kind in C4_CASES:
+            inj = mode != "philox"
+            case = dict(short_vrls=short, phase_kind=kind, **kw)
+            out = vrl_sum_hetero(*packs, seed=seed,
+                                 uniforms=u_full if inj else None, **case)
+            ref = vrl_sum_hetero_reference(
+                *sub, u_full[b0:b1] if inj else u_sub, **case)
+            r = vrl_r_hetero(*packs_r, seed=seed,
+                             uniforms=u_r if inj else None, **case)
+            r_ref = vrl_r_hetero_reference(
+                *packs_r, u_r if inj else u_r_philox, **case)
+            c = vrl_sum_hetero_clustered(*packs, sop, tv, tw, seed=seed,
+                                         uniforms=u_c if inj else None, **case)
+            c_again = vrl_sum_hetero_clustered(
+                *packs, sop, tv, tw, seed=seed,
+                uniforms=u_c if inj else None, **case)
+            c_ref = vrl_sum_hetero_clustered_reference(
+                *sub_c, sop[idx], tv, tw, u_c[idx_t] if inj else u_c_sub,
+                **case)
+            torch.cuda.synchronize()
+            tag = f"{name}/{mode}"
+            for t in (out, r, c):
+                check(bool(torch.isfinite(t).all())
+                      and float(t.abs().sum()) > 0.0,
+                      f"grid kernels {tag}: finite, non-zero")
+            check(torch.equal(c, c_again), f"grid clustered {tag}: a repeat "
+                  "launch is not bit-identical")
+            s_bar = homog_bar(out[:, b0:b1].T, ref.T)
+            r_bar = homog_bar(r[0], r_ref[0], channels=1)
+            c_bar = homog_bar(c[:, idx_t].T, c_ref.T)
+            nz = r_ref[1] > R_VAR_FLOOR
+            check(int(nz.sum()) > 1000, f"grid R {tag}: variances")
+            v_med = float(((r[1] - r_ref[1]).abs()[nz] / r_ref[1][nz])
+                          .median())
+            for what, (median, share) in (("sum", s_bar), ("R mean", r_bar),
+                                          ("clustered", c_bar)):
+                check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                      f"grid {what} {tag}: median {median}, share {share}")
+            check(v_med < R_VAR_MEDIAN, f"grid R var {tag}: {v_med}")
+            errs["sum"] = max(errs["sum"], float((out[:, b0:b1] - ref).abs()
+                                                 .max()))
+            errs["r"] = max(errs["r"], float((r - r_ref).abs().max()))
+            errs["clustered"] = max(errs["clustered"], float(
+                (c[:, idx_t] - c_ref).abs().max()))
+            results.append(
+                f"{tag}: sum median {s_bar[0]:.2e} share {s_bar[1]:.4f}, R "
+                f"mean {r_bar[0]:.2e} share {r_bar[1]:.4f} var {v_med:.2e}, "
+                f"clustered {c_bar[0]:.2e} share {c_bar[1]:.4f}")
+    del u_full, u_c
+    sums = vrl_sum_hetero(*packs, seed=seed, **kw)
+    ident = vrl_sum_hetero_clustered(
+        *packs, np.zeros(n_rays, np.int64),
+        torch.arange(n_vrls, dtype=torch.int32, device=dev)[None],
+        torch.ones((1, n_vrls), device=dev), seed=seed, **kw)
+    id_bar = homog_bar(ident.T, sums.T)
+    lum = sum(w * ch for w, ch in zip(LUM_WEIGHTS, vrl_sum_hetero(
+        *packs_r, seed=seed, **kw)))
+    rs_bar = homog_bar(vrl_r_hetero(*packs_r, seed=seed, **kw)[0].sum(dim=1),
+                       lum, channels=1)
+    for what, (median, share) in (("identity table", id_bar),
+                                  ("R row sums", rs_bar)):
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"grid {what}: median {median}, share {share}")
+    print(f"[15 grid kernels vs plain on {card}, config 4: B={n_rays} "
+          f"N={n_vrls} P={n_rep} S={tv.shape[0]} C={n_cols}, density "
+          f"{tuple(density.shape)} (slicing {slice_ms:.1f} ms); sums "
+          f"compared on rows {C4_ROWS[0]}-{C4_ROWS[1] - 1} ({b1 - b0} rays), "
+          f"the clustered sum on slices {int(rows[0])}-{int(rows[n_sl - 1])} "
+          f"({len(idx)} rays), R in full; repeats bit-identical] "
+          + " | ".join(results) + f" | identity table vs vrl_sum_hetero "
+          f"median {id_bar[0]:.2e} share {id_bar[1]:.4f}; R row sums vs "
+          f"vrl_sum_hetero luminance median {rs_bar[0]:.2e}", flush=True)
+
+    # 16. the main path, through the entry point a user calls
+    vrl_sum_hetero.launches = vrl_r_hetero.launches = 0
+    vrl_sum_hetero_clustered.launches = 0
+    img, vrls_m, info_m = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(100), params, cfg, tcfg,
+        slice_info=info)
+    torch.cuda.synchronize()
+    check(min(vrl_r_hetero.launches, vrl_sum_hetero_clustered.launches) >= 1,
+          f"render_alvrl's grid launches {vrl_r_hetero.launches}, "
+          f"{vrl_sum_hetero_clustered.launches}")
+    check(tuple(img.shape) == (C4_SIZE, C4_SIZE, 3), f"image {img.shape}")
+    check(bool(torch.isfinite(img).all()), "config-4 image finite")
+    check(float(img.abs().max()) > 0.0, "config-4 image non-zero")
+    means = [(float(img.mean()), float(integrator.render_with_vrls_kernel(
+        scene, vrls_m, torch.Generator().manual_seed(1000), cfg).mean()))]
+    for k in (1, 2):
+        img_k, vrls_k, _ = alvrl.render_alvrl(
+            scene, torch.Generator().manual_seed(100 + k), params, cfg, tcfg,
+            slice_info=info)
+        means.append((float(img_k.mean()), float(
+            integrator.render_with_vrls_kernel(
+                scene, vrls_k, torch.Generator().manual_seed(1000 + k),
+                cfg).mean())))
+    torch.cuda.synchronize()
+    launches = (vrl_sum_hetero.launches, vrl_r_hetero.launches,
+                vrl_sum_hetero_clustered.launches)
+    check(launches[0] >= 1, "the band check's vrl_sum_hetero launches")
+    ratio = np.mean([m[0] for m in means]) / np.mean([m[1] for m in means])
+    check(C2_BAND[0] < ratio < C2_BAND[1],
+          f"config-4 clustered / unclustered image mean {ratio} ({means})")
+    reps = (info_m.slice_weights > 0).sum(axis=1)
+    print(f"[16 main path on {card}] render_alvrl, config 4: launches over 3 "
+          f"passes and their unclustered renders vrl_sum_hetero {launches[0]}"
+          f" vrl_r_hetero {launches[1]} vrl_sum_hetero_clustered "
+          f"{launches[2]}; {int(vrls_m.valid.sum())} valid VRLs, particle "
+          f"count {float(vrls_m.particle_count):g}; representatives per slice"
+          f" mean {reps.mean():.2f} max {reps.max()}, fall-back pixels "
+          f"{int((info_m.pixel_to_slice < 0).sum())}; image mean "
+          f"{float(img.mean()):.6f}; clustered / unclustered mean over 3 "
+          f"seeds {ratio:.4f} (" + ", ".join(f"{a:.5f}/{b:.5f}"
+                                             for a, b in means) + ")",
+          flush=True)
+
+    # 17. a warm pass per stage, each kernel alone, the plain versions
+    lib_block = vsc._library().alvrl_ray_block()
+
+    def staged(g):
+        t = {}
+
+        def stage(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        v = stage("trace (Woodcock) + compact", lambda: vrl.compact(
+            tracer.trace(scene, g, params.num_particles, tcfg),
+            params.vrl_target_num, slots_per_particle=C4_DEPTH))
+        r = stage("R stage", lambda: alvrl.build_R_device(
+            scene, v, cfg, info, integrator.draw_seed(g)))
+        r_host = stage("bf16 transfer", lambda: alvrl.transfer_R(*r))
+        clusters = stage("host clustering", lambda: alvrl.slice_clusters(
+            *r_host, params, info))
+        tables = stage("table packing", lambda: alvrl.pack_tables(
+            info, *clusters, dev))
+        stage("grouping", lambda: group_by_slice(tables[0], lib_block))
+        stage("clustered render", lambda: integrator.render_clustered_kernel(
+            scene, v, *tables[:3], g, cfg,
+            fallback=alvrl.fallback_table(tables[3], dev)))
+        return t
+
+    gen_t = torch.Generator().manual_seed(7)
+    stages = {}
+    for i in range(8):
+        t_i = staged(gen_t)
+        if i >= 2:
+            for k, v in t_i.items():
+                stages.setdefault(k, []).append(v)
+    pass_ms = host_ms(lambda: alvrl.render_alvrl(
+        scene, gen_t, params, cfg, tcfg, slice_info=info), 2, 6)
+    grid_arg = (density, cfg.uv_tau_steps)
+    tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
+        sop, lib_block)]
+    c_out = torch.zeros((3, n_rays), device=dev)
+    sum_ms = cuda_ms(lambda: vrl_sum_hetero(*packs, seed=seed, **kw), 1, 5)
+    r_ms = cuda_ms_batched(lambda: vrl_r_hetero(*packs_r, seed=seed, **kw),
+                           2, 5, 5)
+    c_ms = cuda_ms_batched(lambda: vsc._launch(
+        vsc._library(), *packs[:4], *tiles, tv, tw, None, seed, 2, 2, True,
+        scene.medium.phase_kind, c_out, grid_arg), 2, 5, 5)
+    check(torch.equal(c_out, vrl_sum_hetero_clustered(
+        *packs, sop, tv, tw, seed=seed, **kw)), "the bare grid launch is the "
+        "wrapper's")
+    with plain_chunk(C4_PLAIN_CHUNK):
+        u = philox_uniforms(seed, n_rays, n_vrls, 6, device=dev)
+        sum_plain_ms = cuda_ms(lambda: vrl_sum_hetero_reference(
+            *packs, u, **kw), 0, 1)
+        with SweepCount(*pair_masks(packs[0], packs[1])) as s_sweep:
+            vrl_sum_hetero_reference(*packs, u, **kw)
+        del u
+        r_plain_ms = cuda_ms(lambda: vrl_r_hetero_reference(
+            *packs_r, u_r_philox, **kw), 1, 3)
+        with SweepCount(*pair_masks(packs_r[0], packs_r[1])) as r_sweep:
+            vrl_r_hetero_reference(*packs_r, u_r_philox, **kw)
+        u = philox_table_uniforms(seed, sop, tv, 6)
+        c_plain_ms = cuda_ms(lambda: vrl_sum_hetero_clustered_reference(
+            *packs, sop, tv, tw, u, **kw), 0, 2)
+        with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
+                        pair_masks(*packs[:2])[1]) as c_sweep:
+            vrl_sum_hetero_clustered_reference(*packs, sop, tv, tw, u, **kw)
+        del u
+    uv = cfg.uv_tau_steps
+    bounds = {
+        "sum": bound(kernel_ops("vrl_sum", s_sweep, True, True, uv),
+                     nbytes(*packs) + 3 * n_rays * 4),
+        "r": bound(kernel_ops("vrl_r", r_sweep, True, True, uv),
+                   nbytes(*packs_r) + 2 * n_rep * n_vrls * 4),
+        "clustered": bound(kernel_ops("vrl_sum_clustered", c_sweep, True,
+                                      True, uv),
+                           nbytes(*packs, tv, tw, *tiles) + 3 * n_rays * 4)}
+    (s_med, s_spread), (r_med, r_spread), (c_med, c_spread), \
+        (sp_med, _), (rp_med, _), (cp_med, _), (p_med, p_spread) = map(
+            summary, (sum_ms, r_ms, c_ms, sum_plain_ms, r_plain_ms,
+                      c_plain_ms, pass_ms))
+    print(f"[17 timing on {card}] warm config-4 pass (render_alvrl, host "
+          f"clock) {p_med:.3f} ms (spread {p_spread:.1%}); stages, median of"
+          " 6 (spread): " + " | ".join(
+              f"{k} {statistics.median(v):.3f} ms ({summary(v)[1]:.1%})"
+              for k, v in stages.items())
+          + f" | alone (CUDA events), plain on the same inputs: "
+          f"vrl_sum_hetero (B={n_rays}) {s_med:.3f} ms (spread "
+          f"{s_spread:.1%}, {s_sweep}, bound {bounds['sum'][0]:.4f} ms by "
+          f"{bounds['sum'][1]}), plain {sp_med:.1f} ms; vrl_r_hetero "
+          f"{r_med:.4f} ms (spread {r_spread:.1%}, {r_sweep}, bound "
+          f"{bounds['r'][0]:.4f} ms by {bounds['r'][1]}), plain {rp_med:.1f} "
+          f"ms; vrl_sum_hetero_clustered {c_med:.4f} ms (spread "
+          f"{c_spread:.1%}, {len(tiles[1])} blocks, {c_sweep}, bound "
+          f"{bounds['clustered'][0]:.4f} ms by {bounds['clustered'][1]}), "
+          f"plain {cp_med:.1f} ms", flush=True)
+
+    # 18. where the config-4 pass's device time goes
+    prof = profile_device(lambda: alvrl.render_alvrl(
+        scene, gen_t, params, cfg, tcfg, slice_info=info), 1, 3)
+    if prof is None:
+        print("[18 profile] the profiler saw no device operation: not "
+              "measured", flush=True)
+    else:
+        span, busy, n_ops, by_name = prof
+        mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
+                for k in ("vrl_r_kernel", "vrl_sum_clustered_kernel")}
+        top = sorted(((v, k) for k, v in by_name.items()
+                      if not any(m + "<" in k for m in mine)),
+                     reverse=True)[:4]
+        print(f"[18 profile on {card}] per traced config-4 pass: device span "
+              f"{span:.3f} ms, busy {busy:.3f} ms, idle share "
+              f"{1 - busy / span:.1%}, {n_ops:g} device ops; "
+              + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%} of busy)"
+                          for k, v in mine.items()) + "; next: "
+              + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
+              flush=True)
+
+    def entry(name, src, line, n, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda",
+                "source": f"alvrl_tpu_torch/csrc/{src}",
+                "replaces": f"alvrl_tpu/ops/vrl_pallas.py:{line}",
+                "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": None}
+
+    return [entry("vrl_sum_hetero", "vrl_sum.cu", 863, launches[0],
+                  errs["sum"], s_med, sp_med, bounds["sum"]),
+            entry("vrl_r_hetero", "vrl_r.cu", 1082, launches[1], errs["r"],
+                  r_med, rp_med, bounds["r"]),
+            entry("vrl_sum_hetero_clustered", "vrl_sum_clustered.cu", 937,
+                  launches[2], errs["clustered"], c_med, cp_med,
+                  bounds["clustered"])]
 
 
 def main():
@@ -1117,6 +1513,7 @@ def main():
               flush=True)
 
     c2_kernels = config2(dev, card, cfg)
+    c4_kernels = config4(dev, card, cfg)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -1132,7 +1529,7 @@ def main():
         "launches": step_launches[1], "max_abs_err": bwd_err,
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
-    }, *c2_kernels]}))
+    }, *c2_kernels, *c4_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """The CUDA kernels of alvrl_tpu_torch against their plain PyTorch
 versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
 the transfer matrix R (csrc/vrl_r.cu) and the clustered sum
-(csrc/vrl_sum_clustered.cu).
+(csrc/vrl_sum_clustered.cu), in a homogeneous and (but the VJP) in a
+grid medium.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -22,13 +23,20 @@ from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
-from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_reference
+from alvrl_tpu_torch.ops.vrl_r import (
+    vrl_r,
+    vrl_r_hetero,
+    vrl_r_hetero_reference,
+    vrl_r_reference,
+)
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN,
     HOMOG_SHARE,
     homog_bar,
     philox_uniforms,
     vrl_sum,
+    vrl_sum_hetero,
+    vrl_sum_hetero_reference,
     vrl_sum_reference,
 )
 from alvrl_tpu_torch.ops.vrl_sum_bwd import (
@@ -39,6 +47,8 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     philox_table_uniforms,
     vrl_sum_clustered,
     vrl_sum_clustered_reference,
+    vrl_sum_hetero_clustered,
+    vrl_sum_hetero_clustered_reference,
 )
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
@@ -346,5 +356,127 @@ def test_cuda_render_alvrl_launches_both_kernels(cuda):
     fallback = alvrl.fallback_table(info, cuda) is not None
     assert vrl_r.launches == r + 1
     assert vrl_sum_clustered.launches == c + 1 + fallback
+    assert img.is_cuda and img.shape == (16, 16, 3)
+    assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+
+
+# --- the grid-medium kernels -------------------------------------------------
+
+
+def _grid_packs(device, phase_kind=0):
+    """The ragged 20x13 eye rays x 77 VRLs (7 invalid) of _ragged_packs
+    in cornell_grid_smoke (8^3 grid): the grid packs and the supersampled
+    density."""
+    vrls = _bench_vrls(device)
+    valid = vrls.valid[:77].clone()
+    valid[3::11] = False
+    vrls = replace(vrls, start=vrls.start[:77], end=vrls.end[:77],
+                   power=vrls.power[:77], valid=valid)
+    scene = presets.cornell_grid_smoke(20, 13, grid_res=8, device=device)
+    scene = replace(scene, medium=replace(scene.medium,
+                                          phase_kind=phase_kind))
+    return integrator.pack_frame(scene, vrls)[3]
+
+
+def _grid_case(device, kernel, packs, injected, seed, short_vrls, kind):
+    """(kernel output, plain output) of one grid kernel on `packs`, with
+    injected uniforms or the Philox stream of `seed`."""
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    kw = dict(short_vrls=short_vrls, phase_kind=kind)
+    if kernel == "clustered":
+        rows, ids, ws = _tables(device, n_rays, n_vrls)
+        u = _uniforms(device, injected, 10, (n_rays, ids.shape[1], 6))
+        out = vrl_sum_hetero_clustered(*packs, rows, ids, ws, seed=seed,
+                                       uniforms=u, **kw)
+        if u is None:
+            u = philox_table_uniforms(seed, rows, ids, 6)
+        return out, vrl_sum_hetero_clustered_reference(*packs, rows, ids, ws,
+                                                       u, **kw), rows
+    u = _uniforms(device, injected, 11, (n_rays, n_vrls, 6))
+    fn, ref = ((vrl_r_hetero, vrl_r_hetero_reference) if kernel == "r"
+               else (vrl_sum_hetero, vrl_sum_hetero_reference))
+    out = fn(*packs, seed=seed, uniforms=u, **kw)
+    if u is None:
+        u = philox_uniforms(seed, n_rays, n_vrls, 6, device=device)
+    return out, ref(*packs, u, **kw), None
+
+
+GRID_LAUNCHES = {"sum": vrl_sum_hetero, "r": vrl_r_hetero,
+                 "clustered": vrl_sum_hetero_clustered}
+
+
+@pytest.mark.parametrize("kernel", sorted(GRID_LAUNCHES))
+@pytest.mark.parametrize("kind", [0, 1], ids=["hg", "rayleigh"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_grid_kernels_match_plain(cuda, kernel, kind, injected,
+                                       short_vrls):
+    """Each grid kernel vs its plain version on the ragged shapes, every
+    template: the homogeneous bar (R's mean per entry, its variance of
+    the mean to R_VAR_MEDIAN); the clustered sum's rows -1 sum to 0."""
+    packs = _grid_packs(cuda, kind)
+    before = GRID_LAUNCHES[kernel].launches
+    out, ref, rows = _grid_case(cuda, kernel, packs, injected, 77,
+                                short_vrls, kind)
+    torch.cuda.synchronize()
+    assert GRID_LAUNCHES[kernel].launches == before + 1
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    if kernel == "r":
+        median, share = homog_bar(out[0], ref[0], channels=1)
+        nz = ref[1] > R_VAR_FLOOR
+        assert int(nz.sum()) > 100
+        assert float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median()) \
+            < R_VAR_MEDIAN
+    else:
+        median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    if rows is not None:
+        assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+
+
+@pytest.mark.parametrize("kernel", sorted(GRID_LAUNCHES))
+def test_cuda_grid_kernels_are_deterministic(cuda, kernel):
+    packs = _grid_packs(cuda)
+    a = _grid_case(cuda, kernel, packs, False, 5, True, 0)[0]
+    b = _grid_case(cuda, kernel, packs, False, 5, True, 0)[0]
+    c = _grid_case(cuda, kernel, packs, False, 6, True, 0)[0]
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_cuda_grid_identity_table_is_vrl_sum_hetero(cuda):
+    """One row of all 77 VRLs at weight 1 (their VRL-OD rows gathered by
+    id) gives the grid sum kernel's result on the same rays and seed."""
+    packs = _grid_packs(cuda)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    ids = torch.arange(n_vrls, dtype=torch.int32, device=cuda)[None]
+    out = vrl_sum_hetero_clustered(*packs, np.zeros(n_rays, np.int64), ids,
+                                   torch.ones((1, n_vrls), device=cuda),
+                                   seed=13)
+    median, share = homog_bar(out.T, vrl_sum_hetero(*packs, seed=13).T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_grid_r_row_sums_are_vrl_sum_hetero_luminance(cuda):
+    packs = _grid_packs(cuda)
+    out = vrl_r_hetero(*packs, seed=9)
+    lum = sum(w * c for w, c in zip(LUM_WEIGHTS, vrl_sum_hetero(*packs,
+                                                                seed=9)))
+    median, share = homog_bar(out[0].sum(dim=1), lum, channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_render_alvrl_in_a_grid_launches_the_grid_kernels(cuda):
+    scene = presets.cornell_grid_smoke(16, 16, grid_res=8, device=cuda)
+    params = alvrl.ALVRLParams(
+        vrl_target_num=128, num_particles=16,
+        cluster=cl.ClusterParams(target_num_slices=8,
+                                 target_pixel_undersampling=8.0))
+    r, c = vrl_r_hetero.launches, vrl_sum_hetero_clustered.launches
+    img, vrls, info = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(0), params, VRLConfig(),
+        tracer.TracerConfig(max_depth=8))
+    fallback = alvrl.fallback_table(info, cuda) is not None
+    assert vrl_r_hetero.launches == r + 1
+    assert vrl_sum_hetero_clustered.launches == c + 1 + fallback
     assert img.is_cuda and img.shape == (16, 16, 3)
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0

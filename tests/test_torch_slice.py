@@ -297,27 +297,28 @@ def test_compact_refuses_partial_particles():
 
 
 def test_package_imports_no_jax():
-    """No module of alvrl_tpu_torch imports jax, flax or alvrl_tpu."""
+    """No module of alvrl_tpu_torch, and not chip_smoke.py, imports jax,
+    flax or alvrl_tpu."""
     banned = ("jax", "flax", "alvrl_tpu")
-    found, walked = [], set()
-    for root, _, files in os.walk(PKG_DIR):
-        for name in files:
-            if not name.endswith(".py"):
+    paths = [os.path.join(root, name) for root, _, files in os.walk(PKG_DIR)
+             for name in files if name.endswith(".py")]
+    paths.append(os.path.join(os.path.dirname(PKG_DIR), "chip_smoke.py"))
+    found = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
                 continue
-            path = os.path.join(root, name)
-            walked.add(os.path.relpath(path, PKG_DIR))
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom):
-                    mods = [node.module or ""]
-                else:
-                    continue
-                found += [(path, mod) for mod in mods
-                          if mod.split(".")[0] in banned]
+            found += [(path, mod) for mod in mods
+                      if mod.split(".")[0] in banned]
     assert found == []
+    walked = {os.path.relpath(path, PKG_DIR) for path in paths}
     assert {"integrators/vrl/alvrl.py", "integrators/vrl/cluster.py",
             "integrators/vrl/cluster_native.py", "ops/vrl_r.py",
-            "ops/vrl_sum_clustered.py"} <= walked
+            "ops/vrl_sum_clustered.py", "media/heterogeneous.py",
+            "../chip_smoke.py"} <= walked

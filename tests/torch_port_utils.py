@@ -20,9 +20,22 @@ BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
 SEQ_UNIFORMS = (0.3, 0.7, 0.62, 0.41, 0.23, 0.77)
 
 
+def jax_medium_leaves(med):
+    """The leaves of an alvrl_tpu medium that convert.scene_from_numpy
+    reads: a homogeneous medium's, or an unoriented grid medium's."""
+    if hasattr(med, "sigma_t_color"):
+        keys = ("density", "sigma_t_color", "albedo", "g", "box_min",
+                "box_max", "scale")
+    else:
+        keys = ("sigma_a", "sigma_s", "g", "sampling_weight")
+    out = {f"medium.{k}": np.asarray(getattr(med, k)) for k in keys}
+    out["medium.phase_kind"] = med.phase_kind
+    return out
+
+
 def jax_scene_leaves(scene):
     """The leaves of an alvrl_tpu Scene that convert.scene_from_numpy reads."""
-    med, cam = scene.medium, scene.camera
+    cam = scene.camera
     return {
         "vertices": np.asarray(scene.vertices),
         "faces": np.asarray(scene.faces),
@@ -33,11 +46,7 @@ def jax_scene_leaves(scene):
         "emitters.position": np.asarray(scene.emitters.position),
         "emitters.intensity": np.asarray(scene.emitters.intensity),
         "emitters.pmf": np.asarray(scene.emitters.pmf),
-        "medium.sigma_a": np.asarray(med.sigma_a),
-        "medium.sigma_s": np.asarray(med.sigma_s),
-        "medium.g": np.asarray(med.g),
-        "medium.sampling_weight": np.asarray(med.sampling_weight),
-        "medium.phase_kind": med.phase_kind,
+        **jax_medium_leaves(scene.medium),
         "camera.to_world": np.asarray(cam.to_world),
         "camera.fov_x_deg": np.asarray(cam.fov_x_deg),
         "camera.width": cam.width,
@@ -51,11 +60,30 @@ def jax_vrls_leaves(vrls):
             for k in ("start", "end", "power", "valid", "particle_count")}
 
 
-def jax_tracer_uniforms(key, num_particles, max_depth):
+def jax_tracking_uniforms(k_dist, n_steps):
+    """The (n_steps, 2) uniforms alvrl_tpu's Woodcock tracking
+    (media/heterogeneous.py:sample_distance) draws from the key k_dist,
+    one row per step: step k splits its key into (k1, k2, next)
+    (:437) and draws uniform(k1), uniform(k2)."""
+    import jax
+    import jax.numpy as jnp
+
+    def body(k, _):
+        k1, k2, k_next = jax.random.split(k, 3)
+        return k_next, jnp.stack([jax.random.uniform(k1),
+                                  jax.random.uniform(k2)])
+
+    return jax.lax.scan(body, k_dist, None, length=n_steps)[1]
+
+
+def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0):
     """The uniforms alvrl_tpu's tracer.trace(scene, key, num_particles,
     TracerConfig(max_depth=...)) draws, rebuilt from its key tree, in
     the layout of the port's trace_u: u_emit (P, 3) and u_walk (P, D,
-    10), as numpy arrays.
+    10), as numpy arrays; with tracking_steps > 0 also the grid medium's
+    Woodcock uniforms u_track (P, D, tracking_steps, 2), rebuilt from
+    each step's distance key (jax_tracking_uniforms), which a grid
+    medium reads instead of u_walk's two distance uniforms.
 
     The key tree: key -> one key per particle (tracer.py:91) -> (emit,
     walk) (:109); emit -> (select, direction, position)
@@ -72,10 +100,13 @@ def jax_tracer_uniforms(key, num_particles, max_depth):
     def step(k):
         k_dist, k_phase, k_bsdf, k_rr = jax.random.split(k, 4)
         k1, k2 = jax.random.split(k_dist)
-        return jnp.concatenate([
+        u = jnp.concatenate([
             jax.random.uniform(k1, (1,)), jax.random.uniform(k2, (1,)),
             jax.random.uniform(k_phase, (2,)),
             jax.random.uniform(k_bsdf, (5,)), jax.random.uniform(k_rr, (1,))])
+        if not tracking_steps:
+            return u, jnp.zeros((0, 2))
+        return u, jax_tracking_uniforms(k_dist, tracking_steps)
 
     def particle(k):
         k_emit, k_walk = jax.random.split(k)
@@ -84,7 +115,10 @@ def jax_tracer_uniforms(key, num_particles, max_depth):
                                   jax.random.uniform(k_dir, (2,))])
         return u_emit, jax.vmap(step)(jax.random.split(k_walk, max_depth))
 
-    u_emit, u_walk = jax.vmap(particle)(jax.random.split(key, num_particles))
+    u_emit, (u_walk, u_track) = jax.vmap(particle)(
+        jax.random.split(key, num_particles))
+    if tracking_steps:
+        return np.asarray(u_emit), np.asarray(u_walk), np.asarray(u_track)
     return np.asarray(u_emit), np.asarray(u_walk)
 
 
