@@ -2,10 +2,11 @@
 // (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu) and the
 // transfer matrix (vrl_r.cu): the pack layouts, the Philox stream, the
 // phase functions, the shadow test, the two samplers of the estimator,
-// the two media (homogeneous, Medium; grid, GridMedium) and the
-// estimator itself (pair_terms, templated on the medium). The backward
+// the two media (homogeneous, Medium; grid, GridMedium), the estimator
+// itself (pair_terms, templated on the medium) and its cotangents
+// (vol_vol_cot / vol_surf_cot, one overload per medium). The backward
 // replays the forward's samples, so all kernels take them from the same
-// functions here, in the same draw order.
+// loop here (pair_samples), in the same draw order.
 // Precise math functions throughout (no --use_fast_math).
 
 #pragma once
@@ -92,6 +93,16 @@ __device__ __forceinline__ float phase_eval(float g, float c) {
   if (PHASE == 1) return RAYLEIGH_NORM * (1.0f + c * c);
   const float temp = fmaxf(1.0f + g * g + 2.0f * g * c, 1e-12f);
   return INV_FOURPI * (1.0f - g * g) / (temp * sqrtf(temp));
+}
+
+// d phase / d g; c = dot(wi, wo). Rayleigh has no g.
+template <int PHASE>
+__device__ __forceinline__ float phase_dg(float g, float c) {
+  if (PHASE == 1) return 0.0f;
+  const float raw = 1.0f + g * g + 2.0f * g * c;
+  const float temp = fmaxf(raw, 1e-12f);
+  const float dtemp = raw >= 1e-12f ? 2.0f * (g + c) : 0.0f;  // 0 where clamped
+  return INV_FOURPI * (-2.0f * g - 1.5f * (1.0f - g * g) * dtemp / temp) / (temp * sqrtf(temp));
 }
 
 // The homogeneous medium: sigma_t, sigma_s, g, sampling weight (ops/pack.py).
@@ -389,15 +400,29 @@ bool grid_ok(const GridArgs& g) {
   return !GRID || (g.density != nullptr && g.nz > 0 && g.ny > 0 && g.nx > 0 && g.uv_steps > 0);
 }
 
-// Linear interpolation of a cumulative-OD table (NQ + 1 entries, stride
-// apart) at a fraction of its segment clipped to [0, 1]
-// (media.heterogeneous.interp_od).
-__device__ __forceinline__ float interp_od(const float* cum, int stride, float frac) {
+// Where a cumulative-OD table (NQ + 1 entries) is read at a fraction of
+// its segment clipped to [0, 1] (media.heterogeneous.interp_od): the
+// entries k0 and k0 + 1 (returned), with weights 1 - w and w.
+__device__ __forceinline__ int interp_at(float frac, float& w) {
   const float x = fminf(fmaxf(frac, 0.0f), 1.0f) * (float)NQ;
   const float k0f = fminf(fmaxf(floorf(x), 0.0f), (float)(NQ - 1));
-  const float w = x - k0f;
-  const int k0 = (int)k0f;
+  w = x - k0f;
+  return (int)k0f;
+}
+
+// The table (entries `stride` apart) at that fraction.
+__device__ __forceinline__ float interp_od(const float* cum, int stride, float frac) {
+  float w;
+  const int k0 = interp_at(frac, w);
   return cum[k0 * stride] * (1.0f - w) + cum[(k0 + 1) * stride] * w;
+}
+
+// The cotangent c of a table read at `frac`, added to its two entries.
+__device__ __forceinline__ void interp_od_cot(float* d_cum, int stride, float frac, float c) {
+  float w;
+  const int k0 = interp_at(frac, w);
+  d_cum[k0 * stride] += c * (1.0f - w);
+  d_cum[(k0 + 1) * stride] += c * w;
 }
 
 // The grid medium: its pack (ops/pack.py pack_medium_hetero), staged in
@@ -418,38 +443,76 @@ struct GridMedium {
 
   __device__ GridMedium(const float* s_med, const GridArgs& args) : m(s_med), grid(args) {}
 
-  // the density at p: the nearest supersampled entry (indices rounded
-  // half to even, like jnp.round in lookup_density_nn) times the scale,
-  // 0 outside the box
-  __device__ __forceinline__ float density(f3 p) const {
+  // the supersampled entry that the density at p reads, as a flat index
+  // into (nz, ny, nx): the nearest one (indices rounded half to even,
+  // like jnp.round in lookup_density_nn); -1 outside the box. The
+  // forward's reads and the backward's scatters both go through here.
+  __device__ __forceinline__ int voxel(f3 p) const {
     const float qx = (p.x - m[G_BOX0]) * m[G_INV_E];
     const float qy = (p.y - m[G_BOX0 + 1]) * m[G_INV_E + 1];
     const float qz = (p.z - m[G_BOX0 + 2]) * m[G_INV_E + 2];
     if (!(qx >= 0.0f && qx <= 1.0f && qy >= 0.0f && qy <= 1.0f && qz >= 0.0f && qz <= 1.0f))
-      return 0.0f;
+      return -1;
     const int ix = min((int)fminf(rintf(qx * m[G_INDEX_SCALE]), m[G_INDEX_SCALE]), grid.nx - 1);
     const int iy = min((int)fminf(rintf(qy * m[G_INDEX_SCALE + 1]), m[G_INDEX_SCALE + 1]),
                        grid.ny - 1);
     const int iz = min((int)fminf(rintf(qz * m[G_INDEX_SCALE + 2]), m[G_INDEX_SCALE + 2]),
                        grid.nz - 1);
-    return __ldg(grid.density + ((size_t)iz * grid.ny + iy) * grid.nx + ix) * m[G_SCALE];
+    return (iz * grid.ny + iy) * grid.nx + ix;
+  }
+
+  // the density read at voxel v: its entry times the scale, 0 for -1
+  __device__ __forceinline__ float value(int v) const {
+    return v < 0 ? 0.0f : __ldg(grid.density + v) * m[G_SCALE];
+  }
+
+  // the density at p
+  __device__ __forceinline__ float density(f3 p) const { return value(voxel(p)); }
+
+  // the voxel of step i of the midpoint quadrature of a -> a + delta
+  __device__ __forceinline__ int step_voxel(f3 a, f3 delta, int i) const {
+    const float t = ((float)i + 0.5f) / (float)grid.uv_steps;
+    return voxel(a + delta * t);
   }
 
   // midpoint optical depth of the segment a -> b of length dist
   __device__ __forceinline__ float segment_od(f3 a, f3 b, float dist) const {
     const f3 delta = b - a;
     float total = 0.0f;
-    for (int i = 0; i < grid.uv_steps; ++i) {
-      const float t = ((float)i + 0.5f) / (float)grid.uv_steps;
-      total += density(a + delta * t);
-    }
+    for (int i = 0; i < grid.uv_steps; ++i) total += value(step_voxel(a, delta, i));
     return total * dist / (float)grid.uv_steps;
   }
 
-  // geo divided by the short-VRL pdfFailure exp(-chan od_sv)
-  template <bool SHORT_VRLS>
-  __device__ __forceinline__ float short_geo(float geo, float od_sv) const {
-    return SHORT_VRLS ? geo / fmaxf(expf(-m[G_CHAN] * od_sv), 1e-30f) : geo;
+  // The cotangent c of a density read at voxel v: c * scale onto the
+  // entry of d_density (an atomic add whose result is unused, so it
+  // compiles to a reduction), and c * raw(v) returned, the read's share
+  // of d scale. Nothing for a read outside the box, whose value is
+  // forced to 0, or for a cotangent of exactly 0.
+  __device__ __forceinline__ float scatter(float* d_density, int v, float c) const {
+    if (v < 0 || c == 0.0f) return 0.0f;
+    atomicAdd(d_density + v, c * m[G_SCALE]);
+    return c * __ldg(grid.density + v);
+  }
+
+  // The cotangent c of segment_od(a, b, dist), onto every step's read;
+  // returns their share of d scale.
+  __device__ __forceinline__ float segment_od_cot(float* d_density, f3 a, f3 b, float dist,
+                                                  float c) const {
+    const float c_step = c * dist / (float)grid.uv_steps;
+    const f3 delta = b - a;
+    float d_scale = 0.0f;
+    for (int i = 0; i < grid.uv_steps; ++i)
+      d_scale += scatter(d_density, step_voxel(a, delta, i), c_step);
+    return d_scale;
+  }
+
+  // the short-VRL pdfFailure exp(-chan od_sv), clamped at 1e-30; *open
+  // (if given) where it is not clamped, and there the term, which it
+  // divides, goes as exp(chan od_sv)
+  __device__ __forceinline__ float pdf_failure(float od_sv, bool* open = nullptr) const {
+    const float e = expf(-m[G_CHAN] * od_sv);
+    if (open) *open = e >= 1e-30f;
+    return fmaxf(e, 1e-30f);
   }
 };
 
@@ -463,8 +526,8 @@ __device__ __forceinline__ void vol_vol_term(const GridMedium& gm, const Ray& ra
   const float od = interp_od(ray.eod, ray.eod_stride, sm.d_eu / ray.elen) +
                    gm.segment_od(sm.up, sm.vp, sm.d_uv) + od_sv;
   const float dens_u = gm.density(sm.up), dens_v = gm.density(sm.vp);
-  const float geo = gm.short_geo<SHORT_VRLS>(
-      phase_eval<PHASE>(m[G_G], sm.c_u) * phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den, od_sv);
+  float geo = phase_eval<PHASE>(m[G_G], sm.c_u) * phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den;
+  if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
     t[ch] = p.pw[ch] * (m[G_SIG_S + ch] * dens_v) * (m[G_SIG_S + ch] * dens_u) *
@@ -478,8 +541,8 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium& gm, const Ray& r
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
   const float od = gm.segment_od(ray.hp, sm.vp, sm.d_uv) + od_sv;
   const float dens_v = gm.density(sm.vp);
-  const float geo = gm.short_geo<SHORT_VRLS>(
-      phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den, od_sv);
+  float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
     t[ch] = p.pw[ch] * (m[G_SIG_S + ch] * dens_v) * ray.alb[ch] * ray.tau[ch] *
@@ -513,34 +576,234 @@ __device__ __forceinline__ void attach_eod(Ray& ray, const float* __restrict__ r
   }
 }
 
-// The estimator of one (ray, VRL) pair, shared by the three forward
-// kernels (vrl_sum.cu, vrl_sum_clustered.cu, vrl_r.cu), which differ only
-// in how they reduce its terms, and by both media (Med: Medium or
-// GridMedium), which differ only in the terms of a sample: for each
-// sample that is not dropped, in draw order, emit(family, t) with family
-// 0 for vol-vol and 1 for vol-surf and t[3] the raw per-sample
-// contribution (not divided by the family's sample count). A dropped
-// sample contributes 0 and is not emitted.
-template <int PHASE, bool SHORT_VRLS, class Med, class Emit>
-__device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
-                                           PairUniforms& draw, int svv, int svs,
-                                           const float* s_tri, int T, Emit&& emit) {
+// The samples of one (ray, VRL) pair, shared by every kernel: for each
+// sample that is not dropped, in draw order, on_sample(family, sm) with
+// family 0 for vol-vol and 1 for vol-surf. A dropped sample contributes
+// 0 and is not passed on.
+template <class OnSample>
+__device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, PairUniforms& draw,
+                                             int svv, int svs, const float* s_tri, int T,
+                                             OnSample&& on_sample) {
   for (int i = 0; i < svv; ++i) {
     const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
     Sample sm;
     if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
-    float t[3];
-    vol_vol_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
-    emit(0, t);
+    on_sample(0, sm);
   }
   for (int k = 0; k < svs && ray.alb_any; ++k) {
     const float u1 = draw(2 * svv + k);
     Sample sm;
     if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
-    float t[3];
-    vol_surf_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
-    emit(1, t);
+    on_sample(1, sm);
   }
+}
+
+// The estimator of one (ray, VRL) pair, shared by the three forward
+// kernels (vrl_sum.cu, vrl_sum_clustered.cu, vrl_r.cu), which differ only
+// in how they reduce its terms, and by both media (Med: Medium or
+// GridMedium), which differ only in the terms of a sample: for each
+// sample of pair_samples, emit(family, t) with t[3] the raw per-sample
+// contribution (not divided by the family's sample count).
+template <int PHASE, bool SHORT_VRLS, class Med, class Emit>
+__device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
+                                           PairUniforms& draw, int svv, int svs,
+                                           const float* s_tri, int T, Emit&& emit) {
+  pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
+    float t[3];
+    if (family == 0)
+      vol_vol_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
+    else
+      vol_surf_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
+    emit(family, t);
+  });
+}
+
+// The backward's accumulators of one thread (one eye ray), for the
+// output cotangent gb of its ray: the medium's sums over its pairs
+// (sigma_t, sigma_s, g; grid: chan and the density scale), its ray's
+// d_tau, and the current pair's d_power; for the grid medium also the
+// cotangent columns of its eye-OD table (summed over the block's VRLs)
+// and of the current VRL's OD table (entries RAY_BLOCK apart, in shared
+// memory), and the density cotangent grid in device memory.
+struct Cot {
+  float gb[3];
+  float d_st[3], d_ss[3], d_g, d_chan, d_scale;
+  float d_tau[3], d_pw[3];
+  float* d_eod;
+  float* d_vod;
+  float* d_density;
+};
+
+// The cotangents of one sample's terms (vol_vol_term, vol_surf_term) at
+// the weight inv (1 / the family's sample count), one overload per
+// medium. Each is a product of the term's other factors, never the term
+// divided by the value it differentiates, so a zero channel of power,
+// sigma_s, tau or density still gets its derivative (ROADMAP C7).
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_vol_cot(const Medium& m, const Ray& ray, const VrlPair& p,
+                                            const Sample& sm, float inv, Cot& c) {
+  float e[3];
+  const float ph_u = phase_eval<PHASE>(m.g, sm.c_u);
+  const float ph_v = phase_eval<PHASE>(m.g, sm.c_v);
+  float geo = ph_u * ph_v / sm.den;  // the term per unit power and sigma_s^2 tau
+  float geo_g = (phase_dg<PHASE>(m.g, sm.c_u) * ph_v + ph_u * phase_dg<PHASE>(m.g, sm.c_v)) / sm.den;
+  float pf = 1.0f;
+  if (SHORT_VRLS) {
+    pf = m.pdf_failure(sm.d_sv, e);
+    geo = geo / fmaxf(pf, 1e-30f);
+    geo_g = geo_g / fmaxf(pf, 1e-30f);
+  }
+  float gt_all = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float ss = m.sig_s[ch], pw = p.pw[ch];
+    const float w = c.gb[ch] * expf(-m.sig_t[ch] * sm.path) * inv;
+    const float gt = w * pw * ss * ss * geo;  // gbar * term
+    c.d_pw[ch] += w * ss * ss * geo;
+    c.d_ss[ch] += w * pw * 2.0f * ss * geo;
+    c.d_st[ch] -= sm.path * gt;
+    c.d_g += w * pw * ss * ss * geo_g;
+    gt_all += gt;
+  }
+  if (SHORT_VRLS && pf >= 1e-30f) {  // the term goes as 1 / pf
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) c.d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
+  }
+}
+
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, const VrlPair& p,
+                                             const Sample& sm, float inv, Cot& c) {
+  float e[3];
+  float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float geo_g = phase_dg<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float pf = 1.0f;
+  if (SHORT_VRLS) {
+    pf = m.pdf_failure(sm.d_sv, e);
+    geo = geo / fmaxf(pf, 1e-30f);
+    geo_g = geo_g / fmaxf(pf, 1e-30f);
+  }
+  float gt_all = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float ss = m.sig_s[ch], pw = p.pw[ch], alb = ray.alb[ch], tau = ray.tau[ch];
+    const float w = c.gb[ch] * expf(-m.sig_t[ch] * sm.path) * inv;
+    const float gt = w * pw * ss * alb * tau * geo;  // gbar * term
+    c.d_pw[ch] += w * ss * alb * tau * geo;
+    c.d_ss[ch] += w * pw * alb * tau * geo;
+    c.d_tau[ch] += w * pw * ss * alb * geo;
+    c.d_st[ch] -= sm.path * gt;
+    c.d_g += w * pw * ss * alb * tau * geo_g;
+    gt_all += gt;
+  }
+  if (SHORT_VRLS && pf >= 1e-30f) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) c.d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
+  }
+}
+
+// Grid vol-vol: the term is pw (sigma_s dens_v) (sigma_s dens_u)
+// exp(-sigma_t od) geo, od = the eye table at d_eu / |E|, the U-V
+// quadrature and the VRL table at d_sv / |VRL|. The od cotangent goes
+// onto the two table entries each read touches and onto every
+// quadrature step's voxel; the density cotangents onto the voxels of U
+// and V; each voxel read also adds its share of d scale.
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_vol_cot(const GridMedium& gm, const Ray& ray,
+                                            const VrlPair& p, const Sample& sm, float inv,
+                                            Cot& c) {
+  const float* m = gm.m;
+  const float f_sv = sm.d_sv * p.ivl, f_eu = sm.d_eu / ray.elen;
+  const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
+  const float od = interp_od(ray.eod, ray.eod_stride, f_eu) +
+                   gm.segment_od(sm.up, sm.vp, sm.d_uv) + od_sv;
+  const int vox_u = gm.voxel(sm.up), vox_v = gm.voxel(sm.vp);
+  const float dens_u = gm.value(vox_u), dens_v = gm.value(vox_v);
+  const float ph_u = phase_eval<PHASE>(m[G_G], sm.c_u);
+  const float ph_v = phase_eval<PHASE>(m[G_G], sm.c_v);
+  float geo = ph_u * ph_v / sm.den;
+  float geo_g =
+      (phase_dg<PHASE>(m[G_G], sm.c_u) * ph_v + ph_u * phase_dg<PHASE>(m[G_G], sm.c_v)) / sm.den;
+  bool open = false;  // the term goes as exp(chan od_sv): slopes od_sv, chan
+  if (SHORT_VRLS) {
+    const float pf = gm.pdf_failure(od_sv, &open);
+    geo = geo / pf;
+    geo_g = geo_g / pf;
+  }
+  float gt_all = 0.0f, c_od = 0.0f, c_du = 0.0f, c_dv = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float ss = m[G_SIG_S + ch], pw = p.pw[ch];
+    const float w = c.gb[ch] * expf(-m[G_SIG_T + ch] * od) * inv;
+    const float a = w * geo;
+    const float su = ss * dens_u, sv = ss * dens_v;
+    const float gt = a * pw * sv * su;  // gbar * term
+    c.d_pw[ch] += a * sv * su;
+    c.d_ss[ch] += a * pw * 2.0f * ss * dens_v * dens_u;
+    c.d_st[ch] -= od * gt;
+    c.d_g += w * geo_g * pw * sv * su;
+    c_du += a * pw * sv * ss;
+    c_dv += a * pw * su * ss;
+    c_od -= m[G_SIG_T + ch] * gt;
+    gt_all += gt;
+  }
+  float c_sv = c_od;
+  if (open) {
+    c.d_chan += gt_all * od_sv;
+    c_sv += gt_all * m[G_CHAN];
+  }
+  interp_od_cot(c.d_eod, RAY_BLOCK, f_eu, c_od);
+  interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
+  c.d_scale += gm.segment_od_cot(c.d_density, sm.up, sm.vp, sm.d_uv, c_od);
+  c.d_scale += gm.scatter(c.d_density, vox_u, c_du);
+  c.d_scale += gm.scatter(c.d_density, vox_v, c_dv);
+}
+
+// Grid vol-surf: pw (sigma_s dens_v) alb tau exp(-sigma_t od) geo, od =
+// the quadrature from the hit point to V and the VRL table at d_sv.
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_surf_cot(const GridMedium& gm, const Ray& ray,
+                                             const VrlPair& p, const Sample& sm, float inv,
+                                             Cot& c) {
+  const float* m = gm.m;
+  const float f_sv = sm.d_sv * p.ivl;
+  const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
+  const float od = gm.segment_od(ray.hp, sm.vp, sm.d_uv) + od_sv;
+  const int vox_v = gm.voxel(sm.vp);
+  const float dens_v = gm.value(vox_v);
+  float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float geo_g = phase_dg<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  bool open = false;
+  if (SHORT_VRLS) {
+    const float pf = gm.pdf_failure(od_sv, &open);
+    geo = geo / pf;
+    geo_g = geo_g / pf;
+  }
+  float gt_all = 0.0f, c_od = 0.0f, c_dv = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float ss = m[G_SIG_S + ch], pw = p.pw[ch], alb = ray.alb[ch], tau = ray.tau[ch];
+    const float w = c.gb[ch] * expf(-m[G_SIG_T + ch] * od) * inv;
+    const float a = w * geo;
+    const float sv = ss * dens_v;
+    const float gt = a * pw * sv * alb * tau;  // gbar * term
+    c.d_pw[ch] += a * sv * alb * tau;
+    c.d_ss[ch] += a * pw * dens_v * alb * tau;
+    c.d_tau[ch] += a * pw * sv * alb;
+    c.d_st[ch] -= od * gt;
+    c.d_g += w * geo_g * pw * sv * alb * tau;
+    c_dv += a * pw * ss * alb * tau;
+    c_od -= m[G_SIG_T + ch] * gt;
+    gt_all += gt;
+  }
+  float c_sv = c_od;
+  if (open) {
+    c.d_chan += gt_all * od_sv;
+    c_sv += gt_all * m[G_CHAN];
+  }
+  interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
+  c.d_scale += gm.segment_od_cot(c.d_density, ray.hp, sm.vp, sm.d_uv, c_od);
+  c.d_scale += gm.scatter(c.d_density, vox_v, c_dv);
 }
 
 // Picks one of a kernel's four instantiations {HG, Rayleigh} x {short,

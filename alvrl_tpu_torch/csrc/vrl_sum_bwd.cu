@@ -1,35 +1,60 @@
-// VJP of the VRL x eye-ray sum (vrl_sum.cu) for homogeneous media,
-// hand-written for Hopper (sm_90a).
+// VJP of the VRL x eye-ray sum (vrl_sum.cu), hand-written for Hopper
+// (sm_90a), for homogeneous and grid media.
 //
 // Replaces alvrl_tpu/ops/vrl_pallas_bwd.py:vrl_sum_pallas_bwd (its body
-// `_bwd_kernel` with hetero=False, clustered=False). Given the output
+// `_bwd_kernel` with hetero=False, clustered=False; entry point
+// alvrl_vrl_sum_bwd) and, for grid media, vrl_sum_pallas_hetero_bwd
+// (hetero=True; entry point alvrl_vrl_sum_hetero_bwd). Given the output
 // cotangent gbar (3, B), it replays the forward's samples (the same
 // Philox counters (b, n, call) or injected uniforms, in the same draw
-// order, through the same functions of vrl_common.cuh) and accumulates
+// order, through pair_samples of vrl_common.cuh) and accumulates
 //   d_power (3, N)  per VRL, summed over the rays;
-//   d_par   (8,)    sigma_t 0:3, sigma_s 3:6, g 6, and 0 at 7;
-//   d_tau   (3, B)  per ray, summed over the VRLs.
-// Plain PyTorch twin: ops/vrl_sum_bwd.py:vrl_sum_bwd_reference.
+//   d_par           the medium pack's cotangents: homogeneous (8,):
+//                   sigma_t 0:3, sigma_s 3:6, g 6, and 0 at 7; grid
+//                   (GRID_MED_LEN,): sigma_t_color 0:3, sigma_s_color
+//                   3:6, g 6, chan 7, the density scale 17, 0 elsewhere;
+//   d_tau   (3, B)  per ray, summed over the VRLs;
+// and for grid media
+//   d_eod   (NQ + 1, B)  the eye-OD table entries of each ray;
+//   d_vod   (NQ + 1, N)  the VRL-OD table entries of each VRL;
+//   d_density (nz, ny, nx)  the supersampled density grid: one scatter
+//                   per density read of a term (at U, at V, and at each
+//                   U-V quadrature step), through the same voxel index
+//                   as the forward's read (GridMedium::voxel).
+// The TPU kernel's CP-factor cotangents (d_fac) have no counterpart: the
+// port reads the grid directly (ROADMAP C9), and d_density is the exact
+// derivative of its forward. Plain PyTorch twins:
+// ops/vrl_sum_bwd.py:vrl_sum_bwd_reference and
+// vrl_sum_hetero_bwd_reference.
 //
 // Every cotangent is a product of the other factors of the term, never
-// the term divided by the value it differentiates: d tau of vol-surf is
-// gbar * pw * sigma_s * alb * tau_seg * geo / svs, not gbar * term / tau.
-// The reference's quotients are 0 wherever that channel of power,
-// sigma_s or tau is 0, though the term is linear in it.
+// the term divided by the value it differentiates (vol_vol_cot,
+// vol_surf_cot in vrl_common.cuh): the reference's quotients are 0
+// wherever that channel of power, sigma_s or tau is 0, though the term is
+// linear in it (ROADMAP C7).
 //
 // What bounds it: as the forward, fp32 ALU and SFU work per pair-sample
 // (the replay costs the forward's samples; the cotangents add a few
-// dozen flops and one phase derivative per sample). The design follows
-// the forward's grid (RAY_BLOCK rays x VRL_CHUNK VRLs per block) and
-// reduces with no atomics, in a fixed order, so a repeat is
-// bit-identical:
-//   * d_tau: each thread sums its ray's cotangent over the block's VRLs
-//     into (n_chunks, 3, B) partials, added in chunk order;
-//   * d_power: after each VRL, the block's rays are summed by warp
-//     shuffles (a fixed butterfly) and the warps in order, into
-//     (n_ray_blocks, 3, N) partials, added in ray-block order;
-//   * d_par: each block sums its threads the same way into
-//     (n_blocks, 8) partials, added by a fixed tree.
+// dozen flops and one phase derivative per sample; a grid sample adds its
+// table and voxel scatters). The design follows the forward's grid
+// (RAY_BLOCK rays x VRL_CHUNK VRLs per block) and reduces everything but
+// d_density with no atomics, in a fixed order, so a repeat is
+// bit-identical there:
+//   * per ray (d_tau, and d_eod from a column of shared memory per
+//     thread): each thread sums its ray's cotangents over the block's
+//     VRLs into (n_chunks, 3 [+ NQ + 1], B) partials, added in chunk
+//     order;
+//   * per VRL (d_power, and d_vod from a second per-thread column,
+//     cleared for each VRL): after each VRL, the block's rays are summed
+//     by warp shuffles (a fixed butterfly) and the warps in order, into
+//     (n_ray_blocks, 3 [+ NQ + 1], N) partials, added in ray-block order;
+//   * d_par: each block sums its threads the same way into (n_blocks,
+//     n_par) partials, added by a fixed tree;
+//   * d_density: atomicAdd onto the grid (zeroed first), with the result
+//     unused so that it compiles to a reduction (RED); reads outside the
+//     box (forced to 0) and cotangents of exactly 0 add nothing. The
+//     order of the adds varies between runs, so a repeat agrees to
+//     float32 rounding of each voxel's sum, not bit for bit.
 // Threads past the last ray stay in the loop (with no samples) so that
 // every lane takes part in the shuffles.
 
@@ -37,8 +62,7 @@
 
 namespace {
 
-constexpr int N_PAR = 8;   // d_par rows
-constexpr int N_SUMS = 7;  // of which accumulated: sigma_t (3), sigma_s (3), g
+constexpr int N_PAR = 8;  // homogeneous d_par rows
 constexpr int N_WARPS = RAY_BLOCK / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -47,158 +71,128 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// d phase / d g; c = dot(wi, wo). Rayleigh has no g.
-template <int PHASE>
-__device__ __forceinline__ float phase_dg(float g, float c) {
-  if (PHASE == 1) return 0.0f;
-  const float raw = 1.0f + g * g + 2.0f * g * c;
-  const float temp = fmaxf(raw, 1e-12f);
-  const float dtemp = raw >= 1e-12f ? 2.0f * (g + c) : 0.0f;  // 0 where clamped
-  return INV_FOURPI * (-2.0f * g - 1.5f * (1.0f - g * g) * dtemp / temp) / (temp * sqrtf(temp));
-}
+// The layout of one instantiation: the rows of its per-ray and per-VRL
+// outputs (3, and NQ + 1 OD-table rows in a grid medium), its sums
+// (sigma_t (3), sigma_s (3), g; grid: chan, scale) and d_par's length.
+template <bool GRID>
+struct Layout {
+  static constexpr int N_OD = GRID ? NQ + 1 : 0;
+  static constexpr int ROWS = 3 + N_OD;
+  static constexpr int N_SUMS = GRID ? 9 : 7;
+  static constexpr int N_PAR_OUT = GRID ? GRID_MED_LEN : N_PAR;
 
-template <int PHASE, bool SHORT_VRLS>
+  // d_par's entry t: the index of its sum, or -1 for a constant 0
+  __host__ __device__ static constexpr int sum_of(int t) {
+    return t < 8 ? (t < N_SUMS ? t : -1) : (GRID && t == G_SCALE ? 8 : -1);
+  }
+
+  // dynamic shared memory, in floats, with T triangles
+  static constexpr size_t smem_floats(int T) {
+    return (size_t)T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+           (GRID ? GRID_MED_LEN : 0) + N_WARPS * ROWS * VRL_CHUNK + N_WARPS * N_SUMS +
+           2 * N_OD * RAY_BLOCK;
+  }
+};
+
+template <int PHASE, bool SHORT_VRLS, bool GRID>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                        int N, const float* __restrict__ tris, int T,
-                       const float* __restrict__ med, const float* __restrict__ uniforms,
-                       uint32_t seed, int svv, int svs, const float* __restrict__ gbar,
-                       float* __restrict__ tau_part, float* __restrict__ pw_part,
-                       float* __restrict__ par_part) {
+                       const float* __restrict__ med, GridArgs grid,
+                       const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
+                       const float* __restrict__ gbar, float* __restrict__ ray_part,
+                       float* __restrict__ vrl_part, float* __restrict__ par_part,
+                       float* __restrict__ d_density) {
+  using L = Layout<GRID>;
+  constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
-  float* s_tri = smem;                              // (T, TRI_COLS)
-  float* s_vrl = s_tri + T * TRI_COLS;              // (VRL_ROWS, VRL_CHUNK)
-  float* s_dpw = s_vrl + VRL_ROWS * VRL_CHUNK;      // (N_WARPS, 3, VRL_CHUNK)
-  float* s_par = s_dpw + N_WARPS * 3 * VRL_CHUNK;   // (N_WARPS, N_SUMS)
+  float* s_tri = smem;                                   // (T, TRI_COLS)
+  float* s_vrl = s_tri + T * TRI_COLS;                   // (V_ROWS, VRL_CHUNK)
+  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;             // grid: (GRID_MED_LEN,)
+  float* s_out = s_med + (GRID ? GRID_MED_LEN : 0);      // (N_WARPS, ROWS, VRL_CHUNK)
+  float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
+  float* s_eod = s_par + N_WARPS * L::N_SUMS;            // grid: (N_OD, RAY_BLOCK)
+  float* s_vod = s_eod + L::N_OD * RAY_BLOCK;            // grid: (N_OD, RAY_BLOCK)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
-  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl);
-  for (int i = threadIdx.x; i < N_WARPS * 3 * VRL_CHUNK; i += blockDim.x) s_dpw[i] = 0.0f;
+  const int t = threadIdx.x;
+  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
+  stage_medium<GRID>(med, s_med);
+  for (int i = t; i < N_WARPS * L::ROWS * VRL_CHUNK; i += blockDim.x) s_out[i] = 0.0f;
+  for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int b = blockIdx.x * blockDim.x + t;
   const bool in_range = b < B;
   Ray ray{};
-  float gb[3] = {0.0f, 0.0f, 0.0f};
+  Cot c{};
   if (in_range) {
     ray = load_ray(rays, B, b);
-    for (int ch = 0; ch < 3; ++ch) gb[ch] = gbar[(size_t)ch * B + b];
+    attach_eod<GRID>(ray, rays, B, b);
+    for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
-  const Medium m(med);
+  c.d_eod = s_eod + t;
+  c.d_vod = s_vod + t;
+  c.d_density = d_density;
+  const auto m = make_medium<GRID>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
 
-  float d_st[3] = {0.0f, 0.0f, 0.0f}, d_ss[3] = {0.0f, 0.0f, 0.0f}, d_g = 0.0f;
-  float d_tau[3] = {0.0f, 0.0f, 0.0f};
-  for (int c = 0; c < nc; ++c) {
-    if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;  // the same for the whole block
-    float d_pw[3] = {0.0f, 0.0f, 0.0f};
+  for (int cc = 0; cc < nc; ++cc) {
+    if (s_vrl[VVALID * VRL_CHUNK + cc] <= 0.5f) continue;  // the same for the whole block
+    for (int ch = 0; ch < 3; ++ch) c.d_pw[ch] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < L::N_OD; ++k) c.d_vod[k * RAY_BLOCK] = 0.0f;
     if (ray.ok) {
-      const int n = n0 + c;
-      const VrlPair p = pair_setup(ray, s_vrl, c);
+      const int n = n0 + cc;
+      const VrlPair p = pair_at<GRID>(ray, s_vrl, cc);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      float e[3];
-      for (int i = 0; i < svv; ++i) {
-        const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
-        Sample sm;
-        if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
-        const float ph_u = phase_eval<PHASE>(m.g, sm.c_u);
-        const float ph_v = phase_eval<PHASE>(m.g, sm.c_v);
-        float geo = ph_u * ph_v / sm.den;  // the term per unit power and sigma_s^2 tau
-        float geo_g =
-            (phase_dg<PHASE>(m.g, sm.c_u) * ph_v + ph_u * phase_dg<PHASE>(m.g, sm.c_v)) / sm.den;
-        float pf = 1.0f;
-        if (SHORT_VRLS) {
-          pf = m.pdf_failure(sm.d_sv, e);
-          geo = geo / fmaxf(pf, 1e-30f);
-          geo_g = geo_g / fmaxf(pf, 1e-30f);
-        }
-        float gt_all = 0.0f;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float ss = m.sig_s[ch], pw = p.pw[ch];
-          const float w = gb[ch] * expf(-m.sig_t[ch] * sm.path) * inv_vv;
-          const float gt = w * pw * ss * ss * geo;  // gbar * term
-          d_pw[ch] += w * ss * ss * geo;
-          d_ss[ch] += w * pw * 2.0f * ss * geo;
-          d_st[ch] -= sm.path * gt;
-          d_g += w * pw * ss * ss * geo_g;
-          gt_all += gt;
-        }
-        if (SHORT_VRLS && pf >= 1e-30f) {  // the term goes as 1 / pf
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
-        }
-      }
-      for (int k = 0; k < svs && ray.alb_any; ++k) {
-        const float u1 = draw(2 * svv + k);
-        Sample sm;
-        if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
-        float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
-        float geo_g = phase_dg<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
-        float pf = 1.0f;
-        if (SHORT_VRLS) {
-          pf = m.pdf_failure(sm.d_sv, e);
-          geo = geo / fmaxf(pf, 1e-30f);
-          geo_g = geo_g / fmaxf(pf, 1e-30f);
-        }
-        float gt_all = 0.0f;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float ss = m.sig_s[ch], pw = p.pw[ch], alb = ray.alb[ch], tau = ray.tau[ch];
-          const float w = gb[ch] * expf(-m.sig_t[ch] * sm.path) * inv_vs;
-          const float gt = w * pw * ss * alb * tau * geo;  // gbar * term
-          d_pw[ch] += w * ss * alb * tau * geo;
-          d_ss[ch] += w * pw * alb * tau * geo;
-          d_tau[ch] += w * pw * ss * alb * geo;
-          d_st[ch] -= sm.path * gt;
-          d_g += w * pw * ss * alb * tau * geo_g;
-          gt_all += gt;
-        }
-        if (SHORT_VRLS && pf >= 1e-30f) {
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
-        }
-      }
+      pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
+        if (family == 0)
+          vol_vol_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vv, c);
+        else
+          vol_surf_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vs, c);
+      });
     }
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      const float v = warp_sum(d_pw[ch]);
-      if (lane == 0) s_dpw[(warp * 3 + ch) * VRL_CHUNK + c] = v;
+    for (int r = 0; r < L::ROWS; ++r) {
+      const float v = warp_sum(r < 3 ? c.d_pw[r] : c.d_vod[(r - 3) * RAY_BLOCK]);
+      if (lane == 0) s_out[(warp * L::ROWS + r) * VRL_CHUNK + cc] = v;
     }
   }
 
   if (in_range) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) tau_part[((size_t)chunk * 3 + ch) * B + b] = d_tau[ch];
+    for (int r = 0; r < L::ROWS; ++r)
+      ray_part[((size_t)chunk * L::ROWS + r) * B + b] =
+          r < 3 ? c.d_tau[r] : c.d_eod[(r - 3) * RAY_BLOCK];
   }
-  const float sums[N_SUMS] = {d_st[0], d_st[1], d_st[2], d_ss[0], d_ss[1], d_ss[2], d_g};
+  const float sums[9] = {c.d_st[0], c.d_st[1], c.d_st[2], c.d_ss[0], c.d_ss[1],
+                         c.d_ss[2], c.d_g,     c.d_chan,  c.d_scale};
 #pragma unroll
-  for (int i = 0; i < N_SUMS; ++i) {
+  for (int i = 0; i < L::N_SUMS; ++i) {
     const float v = warp_sum(sums[i]);
-    if (lane == 0) s_par[warp * N_SUMS + i] = v;
+    if (lane == 0) s_par[warp * L::N_SUMS + i] = v;
   }
   __syncthreads();
 
-  const int t = threadIdx.x;
-  if (t < 3 * VRL_CHUNK) {
-    const int ch = t / VRL_CHUNK, c = t % VRL_CHUNK;
-    if (c < nc) {
+  for (int i = t; i < L::ROWS * VRL_CHUNK; i += blockDim.x) {
+    const int r = i / VRL_CHUNK, cc = i % VRL_CHUNK;
+    if (cc < nc) {
       float v = 0.0f;
-      for (int w = 0; w < N_WARPS; ++w) v += s_dpw[(w * 3 + ch) * VRL_CHUNK + c];
-      pw_part[((size_t)blockIdx.x * 3 + ch) * N + n0 + c] = v;
+      for (int w = 0; w < N_WARPS; ++w) v += s_out[(w * L::ROWS + r) * VRL_CHUNK + cc];
+      vrl_part[((size_t)blockIdx.x * L::ROWS + r) * N + n0 + cc] = v;
     }
   }
-  if (t < N_PAR) {
+  if (t < L::N_PAR_OUT) {
     float v = 0.0f;
-    if (t < N_SUMS)
-      for (int w = 0; w < N_WARPS; ++w) v += s_par[w * N_SUMS + t];
-    par_part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * N_PAR + t] = v;
+    const int s = L::sum_of(t);
+    if (s >= 0)
+      for (int w = 0; w < N_WARPS; ++w) v += s_par[w * L::N_SUMS + s];
+    par_part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * L::N_PAR_OUT + t] = v;
   }
 }
 
@@ -223,42 +217,91 @@ __global__ void __launch_bounds__(TREE)
   if (threadIdx.x == 0) out[i] = s[0];
 }
 
+// Launches the backward and its three ordered reductions on `stream`
+// (grid media: after zeroing d_density); returns a cudaError_t (0 =
+// launched). Scratch: ray_part (n_chunks, ROWS, B), vrl_part
+// (n_ray_blocks, ROWS, N), par_part (n_ray_blocks * n_chunks, n_par).
+// Out: d_ray (ROWS, B) = d_tau [, d_eod], d_vrl (ROWS, N) = d_power [,
+// d_vod], d_par (n_par,) and, for grid media, d_density (nz, ny, nx).
+template <bool GRID>
+int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
+               const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
+               int svs, int short_vrls, int phase_kind, const float* gbar, float* ray_part,
+               int n_chunks, float* vrl_part, int n_ray_blocks, float* par_part, float* d_vrl,
+               float* d_par, float* d_ray, float* d_density, void* stream) {
+  using L = Layout<GRID>;
+  if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
+      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
+      n_chunks > MAX_GRID_Y || n_ray_blocks != (B + RAY_BLOCK - 1) / RAY_BLOCK ||
+      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (GRID) {
+    const cudaError_t err = cudaMemsetAsync(
+        d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 blocks(n_ray_blocks, n_chunks);
+  const size_t smem = L::smem_floats(T) * sizeof(float);
+  cudaError_t attr = cudaSuccess;
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    auto kernel = vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID>;
+    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
+      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr == cudaSuccess)
+      kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms,
+                                              seed, svv, svs, gbar, ray_part, vrl_part, par_part,
+                                              d_density);
+  });
+  if (attr != cudaSuccess) return (int)attr;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_parts<<<(L::ROWS * B + 255) / 256, 256, 0, st>>>(ray_part, n_chunks, L::ROWS * B, d_ray);
+  reduce_parts<<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(vrl_part, n_ray_blocks, L::ROWS * N,
+                                                          d_vrl);
+  reduce_parts_tree<<<L::N_PAR_OUT, TREE, 0, st>>>(par_part, n_ray_blocks * n_chunks,
+                                                   L::N_PAR_OUT, d_par);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int alvrl_ray_block() { return RAY_BLOCK; }
 
-// Launches the backward and its three ordered reductions on `stream`;
-// returns a cudaError_t (0 = launched). Scratch: tau_part (n_chunks, 3,
-// B), pw_part (n_ray_blocks, 3, N), par_part (n_ray_blocks * n_chunks,
-// 8). Out: d_power (3, N), d_par (8,), d_tau (3, B). `uniforms` may be
-// null (the Philox stream of `seed`, as the forward's).
+// The homogeneous backward. Scratch: tau_part (n_chunks, 3, B), pw_part
+// (n_ray_blocks, 3, N), par_part (n_ray_blocks * n_chunks, 8). Out:
+// d_power (3, N), d_par (8,), d_tau (3, B). `uniforms` may be null (the
+// Philox stream of `seed`, as the forward's).
 int alvrl_vrl_sum_bwd(const float* rays, int B, const float* vrls, int N, const float* tris,
                       int T, const float* med, const float* uniforms, unsigned int seed, int svv,
                       int svs, int short_vrls, int phase_kind, const float* gbar, float* tau_part,
                       int n_chunks, float* pw_part, int n_ray_blocks, float* par_part,
                       float* d_power, float* d_par, float* d_tau, void* stream) {
-  if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || n_ray_blocks != (B + RAY_BLOCK - 1) / RAY_BLOCK)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_ray_blocks, n_chunks);
-  const size_t smem = (size_t)(T * TRI_COLS + VRL_ROWS * VRL_CHUNK + N_WARPS * 3 * VRL_CHUNK +
-                               N_WARPS * N_SUMS) *
-                      sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value>
-        <<<grid, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs,
-                                        gbar, tau_part, pw_part, par_part);
-  });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_parts<<<(3 * B + 255) / 256, 256, 0, st>>>(tau_part, n_chunks, 3 * B, d_tau);
-  reduce_parts<<<(3 * N + 255) / 256, 256, 0, st>>>(pw_part, n_ray_blocks, 3 * N, d_power);
-  reduce_parts_tree<<<N_PAR, TREE, 0, st>>>(par_part, n_ray_blocks * n_chunks, N_PAR, d_par);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
+                           short_vrls, phase_kind, gbar, tau_part, n_chunks, pw_part,
+                           n_ray_blocks, par_part, d_power, d_par, d_tau, nullptr, stream);
+}
+
+// The grid-medium backward: the grid packs (ops/pack.py), the
+// supersampled density (nz, ny, nx) and the U-V quadrature's step count,
+// as alvrl_vrl_sum_hetero takes them. Scratch: ray_part (n_chunks,
+// 3 + NQ + 1, B), vrl_part (n_ray_blocks, 3 + NQ + 1, N), par_part
+// (n_ray_blocks * n_chunks, GRID_MED_LEN). Out: d_vrl (3 + NQ + 1, N) =
+// d_power, d_vod; d_par (GRID_MED_LEN,); d_ray (3 + NQ + 1, B) = d_tau,
+// d_eod; d_density (nz, ny, nx), zeroed here first.
+int alvrl_vrl_sum_hetero_bwd(const float* rays, int B, const float* vrls, int N,
+                             const float* tris, int T, const float* med, const float* density,
+                             int nz, int ny, int nx, int uv_steps, const float* uniforms,
+                             unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
+                             const float* gbar, float* ray_part, int n_chunks, float* vrl_part,
+                             int n_ray_blocks, float* par_part, float* d_vrl, float* d_par,
+                             float* d_ray, float* d_density, void* stream) {
+  return launch_bwd<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
+                          uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, ray_part,
+                          n_chunks, vrl_part, n_ray_blocks, par_part, d_vrl, d_par, d_ray,
+                          d_density, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """VRL integrator: per-pixel radiance as a sum of VRL x eye-ray integrals.
 
 Counterpart of alvrl_tpu/integrators/vrl/integrator.py: the unclustered
-render (every eye ray against every VRL; plain, or, in a homogeneous
-medium, differentiable through the seed-replay VJP), and the two device
+render (every eye ray against every VRL; plain, or differentiable
+through the seed-replay VJP), and the two device
 stages of the clustered render (integrators.vrl.alvrl): the transfer
 matrix R over representative rays, and the render of each pixel against
 its slice's representatives. Each entry dispatches on the scene's
@@ -26,7 +26,7 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
 from alvrl_tpu_torch.ops.vrl_sum import vrl_sum, vrl_sum_hetero
-from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff
+from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff, vrl_sum_hetero_diff
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_clustered,
     vrl_sum_hetero_clustered,
@@ -96,16 +96,22 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
 def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
                                  cfg: VRLConfig = VRLConfig(), *,
                                  uniforms=None):
-    """render_with_vrls_kernel, differentiable through
-    ops.vrl_sum_bwd.vrl_sum_diff (the seed-replay VJP) in the medium's
-    sigma_a, sigma_s and g, the VRL powers, and the eye-to-surface
-    transmittance; geometry is detached. Counterpart of
-    render_with_vrls_pallas_diff. Homogeneous media only (the grid
-    backward kernels are not ported: ROADMAP A6)."""
-    if not mapi.is_homogeneous(scene.medium):
-        raise NotImplementedError("the differentiable render takes a "
-                                  "homogeneous medium")
-    return _render(vrl_sum_diff, scene, vrls, generator, cfg, uniforms)
+    """render_with_vrls_kernel, differentiable through the seed-replay VJP;
+    geometry is detached. Counterpart of render_with_vrls_pallas_diff
+    and render_with_vrls_pallas_hetero_diff.
+
+    In a homogeneous medium (ops.vrl_sum_bwd.vrl_sum_diff): in the
+    medium's sigma_a, sigma_s and g, the VRL powers and the
+    eye-to-surface transmittance. In a grid medium (vrl_sum_hetero_diff):
+    in sigma_t_color, albedo, g, scale and the density voxels (through
+    upsample2, the eye and VRL cumulative-OD tables of the grid packs
+    and the kernel's density scatter, all chained by autograd), the VRL
+    powers and the eye transmittance. The grid signature has neither
+    the CP factors nor their `dens_scale` multiplier (ROADMAP C9, C10): a
+    density multiplier is the medium's `scale` or a product on its
+    density, through which autograd chains."""
+    return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
+                   vrls, generator, cfg, uniforms)
 
 
 def draw_seed(generator) -> int:

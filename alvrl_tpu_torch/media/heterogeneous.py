@@ -16,7 +16,8 @@ constant albedo. What the VRL render and tracer read:
   * sample_distance, Woodcock delta tracking in the mean-sigma_t
     channel, from explicit uniforms: the JAX package splits a key per
     tracking step, the port reads step k's two uniforms from
-    u_track[..., k, :], and all lanes advance in lockstep.
+    u_track[..., k, :], and all lanes advance in lockstep;
+  * with_density, the medium with a new density and its majorant.
 
 Not ported: oriented and microflake media (dir_factor is 1), the
 quadrature-inversion sampler (sampling=1) and the trilinear quadrature
@@ -25,7 +26,7 @@ quadrature-inversion sampler (sampling=1) and the trilinear quadrature
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
@@ -70,6 +71,16 @@ def make_grid_medium(density, sigma_t_color, albedo, g=0.0,
         albedo=f32(albedo), g=f32(g), box_min=f32(box_min),
         box_max=f32(box_max), scale=scale,
         max_density=density.max() * scale, phase_kind=phase_kind)
+
+
+def with_density(med: GridMedium, density) -> GridMedium:
+    """med with its density replaced and the Woodcock majorant recomputed,
+    max_density = max(density) * scale, detached. Every caller that swaps
+    the density goes through here: dataclasses.replace(med,
+    density=...) would keep the old majorant, and tracking would be
+    biased wherever the new density exceeds it (ROADMAP C11)."""
+    return replace(med, density=density,
+                   max_density=(density.max() * med.scale).detach())
 
 
 def _up1(a, dim):

@@ -179,11 +179,15 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     and take sigma_s times the density at U and V (integrate.py's table
     branch of pair_contribution, in the Pallas kernel's order).
 
-    Differentiable by autograd in the VP rows of `vrls`, the TAU rows of
-    `rays` and medium[0:7] (ops.vrl_sum_bwd's plain version) for
-    homogeneous packs: the geometry of each sample is replaced by
-    harmless values where the sample is masked out, since torch.where
-    passes NaN or inf of the unselected branch into the gradient."""
+    Differentiable by autograd (ops.vrl_sum_bwd's plain versions) in
+    the VP rows of `vrls`, the TAU rows of `rays` and medium[0:7] for
+    homogeneous packs; for grid packs also in the VOD and EOD rows, the
+    density scale and density_ss. The geometry of each sample is
+    replaced by harmless values where the sample is masked out (on the
+    grid branch also the points U and V, moved to the segments' starts,
+    and |E - U|, |U - V|, set to 0, so that their voxel indices are
+    finite and in range), since torch.where passes NaN or inf of the
+    unselected branch into the gradient."""
     def rows(pack, r):
         return pack[r:r + 3].T
 

@@ -1,9 +1,10 @@
 """Smoke run of alvrl_tpu_torch on one CUDA card (an H100): the config-1
 VRL render, the config-1 train step, the config-2 clustered render
-(Adaptive LightSlice) and the config-4 clustered render in a grid
-medium end to end through the hand-written CUDA kernels (the VRL sum,
-its seed-replay VJP, the transfer matrix R and the clustered sum, and
-the grid-medium sum, R and clustered sum).
+(Adaptive LightSlice), the config-4 clustered render in a grid medium,
+and the config-4 gradient path and density-recovery trainer end to end
+through the hand-written CUDA kernels (the VRL sum, its seed-replay VJP,
+the transfer matrix R and the clustered sum, and the grid-medium sum,
+VJP, R and clustered sum).
 
     python3 chip_smoke.py
 
@@ -73,7 +74,29 @@ Phases, one line each; any failure exits non-zero:
  17. timing of a warm config-4 pass, per stage (the tracer stage with
      Woodcock tracking), each grid kernel alone at its full shape and
      its plain version on the same inputs, and each one's bound;
- 18. profile of the config-4 pass, as phase 6.
+ 18. profile of the config-4 pass, as phase 6;
+ 19. the grid backward kernel (vrl_sum_hetero_bwd) vs the plain grid
+     backward on the eye rays of image rows 128-159 x the 512 VRLs of
+     phase 15, for phase 15's cases and a zero power channel with a zero
+     albedo channel: d_power, d_tau, d_eod, d_vod and the voxels of
+     d_density (those above 1e-3 of the largest |grad|) at the
+     homogeneous bar, d_par to 1e-3; a repeat bit-identical but for
+     d_density (atomics), which agrees to DENSITY_REPEAT;
+ 20. the gradient path at full config 4: render_with_vrls_kernel_diff
+     with an L2 loss against a render at the preset's values, from
+     albedo x 0.8 and density x 1.25; both grid kernels' launch counts
+     must move, every gradient must be finite, and same-seed central
+     differences of the kernel forward must agree to 5e-3 (sigma_t_color,
+     albedo, g, scale, the two voxels of largest |grad|);
+ 21. the trainer: scripts.recover_density at its defaults for 16 steps
+     (across a retrace): the loss per step and each step's split, finite,
+     the loss of step 15 below step 0's;
+ 22. timing of the full-width gradient step and its parts, the backward
+     kernel alone against its forward and its plain version, its bound,
+     and a profile of the step; the kernel's output at that full shape
+     (262,144 rays x 512 VRLs) held against the timed plain backward's
+     at phase 19's bars (d_par to 1e-3), a repeat bit-identical but for
+     d_density, which agrees to DENSITY_REPEAT.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -111,12 +134,14 @@ from alvrl_tpu_torch.ops.vrl_r import (
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws, philox_uniforms,
     vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference, vrl_sum_reference)
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
     vrl_sum_clustered_reference, vrl_sum_hetero_clustered,
     vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.scripts import recover_density as rd
 from alvrl_tpu_torch.sensors import perspective
 
 WIDTH = HEIGHT = 128
@@ -442,6 +467,47 @@ def estimator_ops(kernel, vol_vol, hg, short_vrls):
     return f + 3 * (2 + (12 if vol_vol else 14)), s + 3
 
 
+def grid_cot_ops(vol_vol, hg, short_vrls, uv_steps):
+    """(float32, special-function) operations, by OPS's rules, of one
+    open sample's grid cotangents (vol_vol_cot / vol_surf_cot of
+    GridMedium), as few as the VJP needs: each U-V quadrature step's t,
+    point and voxel count once (GRID_OPS's forward read, the voxel
+    lookup GRID_OPS["density"] less its scale product), though the
+    kernel computes them again for the scatter; the atomic add itself is
+    counted in bytes, not operations. The per-VRL sums over rays count
+    the adds the function needs: 3 per pair for d_power (kernel_ops), 2
+    per open sample for the d_vod entries it touches (here)."""
+    n_phase = 2 if vol_vol else 1
+    f, s = 1, 0                                   # the VRL fraction
+    f += GRID_OPS["interp"][0]                    # od_sv
+    f += GRID_OPS["segment"][0] + uv_steps * (
+        GRID_OPS["segment_step"][0] + GRID_OPS["density"][0] - 1)
+    s += GRID_OPS["segment"][1] + uv_steps * GRID_OPS["segment_step"][1]
+    f += n_phase * GRID_OPS["density"][0]         # the voxels of U (and V)
+    if vol_vol:  # the eye fraction (a division), its entry, od's two adds
+        f, s = f + GRID_OPS["interp"][0] + 2, s + 1
+    else:
+        f += 1
+    if hg:  # phase_eval and phase_dg at each vertex (4, 2) + (6, 2)
+        f, s = f + 10 * n_phase, s + 4 * n_phase
+    else:
+        f += 3 * n_phase
+    f, s = f + (1 if vol_vol else 2), s + 1       # geo
+    if hg:
+        f, s = f + (3 if vol_vol else 2), s + 1   # geo_g
+    if short_vrls:  # exp(-chan od_sv), the clamp, two divisions, the test;
+        f, s = f + 3 + 4, s + 3                   # d chan, the VRL-OD cot
+    # per channel: w (3, 1), a, the density factors, gt and the sums of
+    # d_pw, d_ss, d_st, d_g, the density cotangents, c_od, gt_all
+    f, s = f + 3 * (32 if vol_vol else 38), s + 3
+    n_tables = 2 if vol_vol else 1                # interp_od_cot: 12 each
+    f += 12 * n_tables + 2                        # d_vod's sum over rays
+    # segment_od_cot: c_step (1, 1); per step the scatter and its d scale
+    # share (4), on the read's voxel
+    f, s = f + 1 + uv_steps * 4, s + 1
+    return f + 5 * n_phase + 1, s                 # the U, V scatters
+
+
 def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
     """(float32, special-function) operations of `kernel` on this run's
     samples (a SweepCount), by OPS's rules; uv_steps for the grid
@@ -449,8 +515,10 @@ def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
     1 adds)."""
     # per pair beyond pair_setup: R's mean and variance of the mean (two
     # families: the division, the sum, k mu^2, the clamp, two divisions,
-    # the sum), the backward's warp sums of d_power (3 x 5 adds)
-    extra = {"vrl_r": (12, 6), "vrl_sum_bwd": (15, 0)}.get(kernel, (0, 0))
+    # the sum), the backward's warp sums of d_power (3 x 5 adds), and in a
+    # grid medium d_power's sum over rays (3; d_vod's: grid_cot_ops)
+    extra = {"vrl_r": (12, 6), "vrl_sum_bwd": (15, 0),
+             "vrl_sum_hetero_bwd": (3, 0)}.get(kernel, (0, 0))
     rows = [(sweep.pairs, (OPS["pair"][0] + extra[0],
                            OPS["pair"][1] + extra[1])),
             (sweep.drawn[0], OPS["vv"]), (sweep.drawn[1], OPS["vs"]),
@@ -459,6 +527,9 @@ def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
     for fam, name in enumerate(("vv_open", "vs_open")):
         if uv_steps is None:
             est = estimator_ops(kernel, fam == 0, hg, short_vrls)
+        elif kernel == "vrl_sum_hetero_bwd":
+            est = grid_cot_ops(fam == 0, hg, short_vrls, uv_steps)
+            est = (est[0] - (2 if fam == 0 else 1), est[1])
         else:
             est = grid_estimator_ops(kernel, fam == 0, hg, short_vrls,
                                      uv_steps)
@@ -886,7 +957,9 @@ C4_CASES = [("hg_g03", "injected", True, 0), ("hg_g03", "philox", True, 0),
 
 def config4(dev, card, cfg):
     """Phases 15-18, the config-4 clustered render in a grid medium;
-    returns the kernels line's entries of the three grid kernels."""
+    returns the kernels line's entries of the three grid kernels, and
+    what phases 19-22 take from it (the scene, its VRLs and packs, the
+    seed, and the samples of vrl_sum_hetero on them)."""
     tcfg = tracer.TracerConfig(max_depth=C4_DEPTH)
     params = alvrl.ALVRLParams(**C4_PARAMS,
                                cluster=cl.ClusterParams(**C4_CLUSTER))
@@ -1185,7 +1258,318 @@ def config4(dev, card, cfg):
                   r_med, rp_med, bounds["r"]),
             entry("vrl_sum_hetero_clustered", "vrl_sum_clustered.cu", 937,
                   launches[2], errs["clustered"], c_med, cp_med,
-                  bounds["clustered"])]
+                  bounds["clustered"])], dict(
+        scene=scene, vrls=vrls, packs=packs, seed=seed, sweep=s_sweep)
+
+
+# phase 19's cases: phase 15's, and a zero VRL power channel with a zero
+# albedo (so sigma_s_color) channel (ROADMAP C7)
+C4_BWD_CASES = C4_CASES + [("zero_channels", "philox", True, 0)]
+# d_density is summed by atomics in an order that varies between runs: a
+# repeat agrees per voxel to float32 rounding of its sum, bounded here by
+# this share of the largest |d_density|. Each voxel's sum has up to ~1e5
+# terms at phase 19's shapes, of both signs (the density factors'
+# cotangents are positive, the optical depths' negative), so its rounding
+# scales with the sum of their magnitudes, which can exceed the sum:
+# sqrt(1e5) * 2^-24 ~ 2e-5 of that, times the cancellation
+DENSITY_REPEAT = 1e-4
+VOXEL_FLOOR = 1e-3  # voxels compared: |grad| above this share of the largest
+GRID_LIVE = [0, 1, 2, 3, 4, 5, 6, 7, pk.GRID_MED_LEN - 1]  # d_par's entries
+C4_START = dict(albedo=0.8, density=1.25)  # phase 20's start: the preset x
+
+
+def grid_bwd_check(out, ref, ref64, kind):
+    """(bars of d_power, d_tau, d_eod, d_vod and d_density's voxels, the
+    largest relative d_par error of the kernel and of the plain version
+    in float32 against it in float64) of the grid backward kernel
+    against the plain backward; raises if a bar is missed (d_par: as
+    bwd_check, or with ref64 None to PAR_RTOL alone, the second error
+    then 0)."""
+    bars = [homog_bar(o.T, r.T, channels=o.shape[0])
+            for o, r in zip(out[:5], ref[:5]) if o.dim() == 2]
+    d, r = out[5].reshape(-1), ref[5].reshape(-1)
+    nz = r.abs() > VOXEL_FLOOR * float(r.abs().max())
+    check(int(nz.sum()) > 1000, f"d_density: {int(nz.sum())} voxels")
+    bars.append(homog_bar(d[nz][:, None], r[nz][:, None], channels=1))
+    for median, share in bars:
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"grid backward median {median}, share {share}")
+    check(float(out[1][8:-1].abs().sum()) == 0.0, "d_par's box entries 0")
+    par_rel = plain_rel = 0.0
+    for i in GRID_LIVE:
+        d, r = float(out[1][i]), float(ref[1][i])
+        if r == 0.0:  # a zero factor in every term; Rayleigh's d g
+            check(d == 0.0, f"d_par[{i}] {d}, plain 0")
+            continue
+        par_rel = max(par_rel, abs(d - r) / abs(r))
+        if ref64 is None:
+            check(abs(d - r) <= PAR_RTOL * abs(r), f"d_par[{i}] {d}, plain {r}")
+            continue
+        r64 = float(ref64[1][i])
+        plain_rel = max(plain_rel, abs(r - r64) / abs(r64))
+        check(abs(d - r) <= max(PAR_RTOL * abs(r), abs(r - r64)),
+              f"d_par[{i}] {d}, plain {r}, plain in float64 {r64}")
+    if kind == 1:
+        check(float(out[1][6]) == 0.0, "Rayleigh d g is 0")
+    return bars, (par_rel, plain_rel)
+
+
+def config4_grad(dev, card, cfg, c4):
+    """Phases 19-22, the gradient path of config 4 (the grid VJP, a
+    full-width gradient step, the density-recovery trainer); returns the
+    kernels line's entry of vrl_sum_hetero_bwd."""
+    scene, vrls, packs, seed = c4["scene"], c4["vrls"], c4["packs"], c4["seed"]
+    kw = dict(uv_steps=cfg.uv_tau_steps)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    b0, b1 = C4_ROWS[0] * C4_SIZE, C4_ROWS[1] * C4_SIZE
+    sub = (packs[0][:, b0:b1].contiguous(), *packs[1:])
+    n_sub = b1 - b0
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    # 19. the grid backward kernel against the plain backward
+    u_inj = torch.rand((n_sub, n_vrls, 6), generator=gen, device=dev)
+    u_philox = philox_uniforms(seed, n_sub, n_vrls, 6, device=dev)
+    gbar = torch.as_tensor(np.random.default_rng(19).uniform(
+        0.5, 1.5, (3, n_sub)).astype(np.float32), device=dev)
+    zero = list(sub)
+    zero[1] = zero[1].clone()
+    zero[1][pk.VP + 1] = 0.0  # a VRL power channel at 0
+    zero[3] = zero[3].clone()
+    zero[3][5] = 0.0          # sigma_s_color[2]: an albedo channel at 0
+    err, results, t0 = 0.0, [], time.perf_counter()
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for name, mode, short, kind in C4_BWD_CASES:
+            p = zero if name == "zero_channels" else sub
+            case = dict(short_vrls=short, phase_kind=kind, **kw)
+            u = u_philox if mode == "philox" else u_inj
+            kern = dict(seed=seed, uniforms=None if mode == "philox" else u)
+            out = bwd.vrl_sum_hetero_bwd(*p, gbar, **kern, **case)
+            again = bwd.vrl_sum_hetero_bwd(*p, gbar, **kern, **case)
+            ref, ref64 = (bwd.vrl_sum_hetero_bwd_reference(
+                *(x.to(dt) for x in (*p, gbar, u)), **case)
+                for dt in (torch.float32, torch.float64))
+            torch.cuda.synchronize()
+            tag = f"{name}/{mode}"
+            check(all(torch.equal(a, b) for a, b in zip(out[:5], again[:5])),
+                  f"grid backward {tag}: a repeat is not bit-identical")
+            rep = float((out[5] - again[5]).abs().max())
+            check(rep <= DENSITY_REPEAT * float(out[5].abs().max()),
+                  f"grid backward {tag}: d_density repeat differs by {rep}")
+            check(all(bool(torch.isfinite(o).all()) for o in out),
+                  f"grid backward {tag} finite")
+            bars, (par_rel, plain_rel) = grid_bwd_check(out, ref, ref64, kind)
+            if name == "zero_channels":
+                check(float(out[0][1].abs().max()) > 0.0
+                      and float(out[1][5]) != 0.0,
+                      "zero channels: d power[1] and d sigma_s[2] are not 0")
+            err = max(err, *(float((o - r).abs().max())
+                             for o, r in zip(out, ref)))
+            results.append(f"{tag}: " + ", ".join(
+                f"{k} {m:.2e}/{sh:.4f}" for k, (m, sh) in zip(
+                    ("d_power", "d_tau", "d_eod", "d_vod", "d_density"), bars))
+                + f", d_par rel {par_rel:.2e} (plain f32 vs f64 "
+                f"{plain_rel:.2e}), d_density repeat {rep:.3g} of max "
+                f"{float(out[5].abs().max()):.4g}")
+    print(f"[19 grid backward kernel vs plain on {card}, config 4: rows "
+          f"{C4_ROWS[0]}-{C4_ROWS[1] - 1} ({n_sub} rays) x {n_vrls} VRLs, "
+          f"density {tuple(packs[4].shape)}; median/share per item; "
+          f"{time.perf_counter() - t0:.1f} s] " + " | ".join(results),
+          flush=True)
+    del u_inj, zero
+
+    # 20. the gradient path at full config 4, through the entry point
+    t0 = time.perf_counter()
+    target = integrator.render_with_vrls_kernel(
+        scene, vrls, torch.Generator().manual_seed(2000), cfg)
+    med0 = scene.medium
+    start = dict(density=med0.density * C4_START["density"],
+                 sigma_t_color=med0.sigma_t_color,
+                 albedo=med0.albedo * C4_START["albedo"], g=med0.g,
+                 scale=med0.scale)
+
+    def grid_loss(p, render):
+        med = replace(gmed.with_density(med0, p["density"]),
+                      sigma_t_color=p["sigma_t_color"], albedo=p["albedo"],
+                      g=p["g"], scale=p["scale"])
+        img = render(replace(scene, medium=med), vrls,
+                     torch.Generator().manual_seed(3), cfg)
+        return ((img.double() - target.double()) ** 2).mean()
+
+    def grad_step():
+        p = {k: v.clone().requires_grad_() for k, v in start.items()}
+        loss = grid_loss(p, integrator.render_with_vrls_kernel_diff)
+        return loss, dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    vrl_sum_hetero.launches = bwd.vrl_sum_hetero_bwd.launches = 0
+    loss, grads = grad_step()
+    torch.cuda.synchronize()
+    step_launches = (vrl_sum_hetero.launches, bwd.vrl_sum_hetero_bwd.launches)
+    check(min(step_launches) >= 1,
+          f"the grid gradient step's launches {step_launches}")
+    loss = float(loss.detach())
+    check(math.isfinite(loss) and loss > 0.0, f"loss {loss}")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0,
+              f"gradient {k}")
+    n_vox = int((grads["density"] != 0.0).sum())
+    top = [int(i) for i in grads["density"].reshape(-1).abs().argsort(
+        descending=True)[:2]]
+
+    def shifted(name, idx, eps):
+        q = {k: v.clone() for k, v in start.items()}
+        with torch.no_grad():
+            q[name].reshape(-1)[0 if idx is None else idx] += eps
+            return float(grid_loss(q, integrator.render_with_vrls_kernel))
+
+    fd_results = []
+    for name, idx, eps in [("sigma_t_color", 0, 2e-3), ("albedo", 1, 2e-3),
+                           ("g", None, 2e-3), ("scale", None, 2e-3),
+                           *(("density", i, 2e-2) for i in top)]:
+        fd = (shifted(name, idx, eps) - shifted(name, idx, -eps)) / (2 * eps)
+        a = float(grads[name].reshape(-1)[0 if idx is None else idx])
+        check(fd != 0.0 and abs(a - fd) <= FD_TOL * abs(fd),
+              f"FD {name}[{idx}]: {a} vs {fd}")
+        fd_results.append(f"{name}{'' if idx is None else [idx]} ad {a:.6g} "
+                          f"fd {fd:.6g}")
+    print(f"[20 grid gradient path on {card}] render_with_vrls_kernel_diff, "
+          f"config 4 ({C4_SIZE}x{C4_SIZE}, {C4_GRID}^3, {n_vrls} VRLs) from "
+          f"albedo x {C4_START['albedo']}, density x {C4_START['density']}: "
+          f"launches vrl_sum_hetero {step_launches[0]} vrl_sum_hetero_bwd "
+          f"{step_launches[1]}, loss {loss:.6g}, {n_vox} of "
+          f"{grads['density'].numel()} voxels with a non-zero gradient; "
+          + ", ".join(f"d{k} {grads[k].flatten().tolist()}" for k in
+                      ("sigma_t_color", "albedo", "g", "scale"))
+          + " | same-seed FD: " + ", ".join(fd_results)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 21. the trainer: the density recovery at its defaults, 16 steps
+    t0 = time.perf_counter()
+    vrl_sum_hetero.launches = bwd.vrl_sum_hetero_bwd.launches = 0
+    state = rd.setup(device=dev)
+    setup_s = time.perf_counter() - t0
+    steps = [rd.density_step(state, i) for i in range(16)]
+    torch.cuda.synchronize()
+    losses = [o["loss"] for o in steps]
+    check(all(math.isfinite(x) for x in losses)
+          and bool(torch.isfinite(state.theta).all()), f"losses {losses}")
+    check(losses[15] < losses[0], f"trainer losses {losses}")
+    check(min(vrl_sum_hetero.launches, bwd.vrl_sum_hetero_bwd.launches)
+          >= 16 * len(state.scenes), "the trainer's grid launches")
+    truth = state.medium.density
+    print(f"[21 trainer on {card}] recover_density (64x64, 16^3, 4 views, "
+          f"{rd.N_VRLS} VRLs of {rd.N_PARTICLES} particles, retrace every "
+          f"{rd.RETRACE_EVERY}; setup with targets {setup_s:.1f} s): launches "
+          f"vrl_sum_hetero {vrl_sum_hetero.launches} vrl_sum_hetero_bwd "
+          f"{bwd.vrl_sum_hetero_bwd.launches}; rel_err "
+          f"{rd.rel_err(state.density, truth):.4f} corr "
+          f"{rd.corr(state.density, truth):.3f} after 16; per step loss "
+          "(ms trace/forward/backward/adam): " + " | ".join(
+              f"{i} {o['loss']:.5g} ("
+              + "/".join(f"{v:.1f}" for v in o["ms"].values()) + ")"
+              for i, o in enumerate(steps)), flush=True)
+    del state
+
+    # 22. timing: the step and its parts, the kernel alone, a profile
+    step_ms = host_ms(grad_step, 2, 5)
+    scene_s = replace(scene, medium=replace(
+        gmed.with_density(med0, start["density"]), albedo=start["albedo"]))
+    packs_s = integrator.pack_frame(scene_s, vrls)[3]
+    gbar_s = torch.as_tensor(np.random.default_rng(22).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=dev)
+    pack_ms = host_ms(lambda: integrator.pack_frame(scene_s, vrls), 2, 5)
+    fwd_s_ms = cuda_ms(lambda: vrl_sum_hetero(*packs_s, seed=seed, **kw), 1, 3)
+    bwd_s_ms = cuda_ms(lambda: bwd.vrl_sum_hetero_bwd(
+        *packs_s, gbar_s, seed=seed, **kw), 1, 3)
+    # the kernel alone on phase 17's inputs (whose samples c4["sweep"]
+    # counted), against the forward there; its output at this full shape
+    # held against the timed plain backward's, and a repeat
+    gbar_f = torch.as_tensor(np.random.default_rng(23).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=dev)
+    fwd_ms = cuda_ms(lambda: vrl_sum_hetero(*packs, seed=seed, **kw), 1, 5)
+    bwd_ms = cuda_ms(lambda: bwd.vrl_sum_hetero_bwd(
+        *packs, gbar_f, seed=seed, **kw), 1, 5)
+    full = [bwd.vrl_sum_hetero_bwd(*packs, gbar_f, seed=seed, **kw)
+            for _ in range(2)]
+    with plain_chunk(C4_PLAIN_CHUNK):
+        sub_plain_ms = cuda_ms(lambda: bwd.vrl_sum_hetero_bwd_reference(
+            *sub, gbar, u_philox, **kw), 0, 1)
+        sub_ms = cuda_ms(lambda: bwd.vrl_sum_hetero_bwd(
+            *sub, gbar, seed=seed, **kw), 1, 5)
+        u = philox_uniforms(seed, n_rays, n_vrls, 6, device=dev)
+
+        def plain_full():
+            full.append(bwd.vrl_sum_hetero_bwd_reference(
+                *packs, gbar_f, u, **kw))
+        plain_ms = cuda_ms(plain_full, 0, 1)
+        del u
+    out, again, ref = full
+    check(all(torch.equal(a, b) for a, b in zip(out[:5], again[:5])),
+          "grid backward at full shape: a repeat is not bit-identical")
+    full_rep = float((out[5] - again[5]).abs().max())
+    check(full_rep <= DENSITY_REPEAT * float(out[5].abs().max()),
+          f"grid backward at full shape: d_density repeat differs by "
+          f"{full_rep}")
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          "grid backward at full shape finite")
+    full_bars, (full_par_rel, _) = grid_bwd_check(out, ref, None, 0)
+    full_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    err = max(err, full_err)
+    del full, out, again, ref
+    sweep, uv = c4["sweep"], cfg.uv_tau_steps
+    n_scatter = sweep.open[0] * (2 + uv) + sweep.open[1] * (1 + uv)
+    rows = 3 + pk.NQ + 1
+    bwd_bound = bound(
+        kernel_ops("vrl_sum_hetero_bwd", sweep, True, True, uv),
+        nbytes(*packs, gbar_f) + 4 * (rows * (n_rays + n_vrls)
+                                      + pk.GRID_MED_LEN + packs[4].numel()
+                                      + n_scatter))
+    (st_med, st_spread), (pk_med, _), (fs_med, _), (bs_med, _), \
+        (f_med, _), (b_med, b_spread), (sb_med, _), (sp_med, _), \
+        (p_med, _) = map(summary, (step_ms, pack_ms, fwd_s_ms, bwd_s_ms,
+                                   fwd_ms, bwd_ms, sub_ms, sub_plain_ms,
+                                   plain_ms))
+    print(f"[22 grid gradient timing on {card}] step (host clock, median of 5"
+          f" after 2) {st_med:.3f} ms (spread {st_spread:.1%}); alone on its "
+          f"inputs: packs {pk_med:.3f} ms, forward kernel {fs_med:.3f} ms, "
+          f"backward kernel {bs_med:.3f} ms, rest (autograd of the packs and "
+          f"the upsample, film, loss) {st_med - pk_med - fs_med - bs_med:.3f}"
+          f" ms | on phase 17's inputs (CUDA events): backward kernel "
+          f"{b_med:.3f} ms (spread {b_spread:.1%}) against the forward "
+          f"{f_med:.3f} ms ({b_med / f_med:.2f}x); bound {bwd_bound[0]:.4f} ms"
+          f" by {bwd_bound[1]} ({sweep}, {n_scatter} density scatters); "
+          f"plain backward {p_med:.1f} ms | on phase 19's subset: kernel "
+          f"{sb_med:.3f} ms, plain {sp_med:.1f} ms | the kernel vs the plain "
+          f"backward at full shape ({n_rays} rays x {n_vrls} VRLs; median/"
+          "share per item): " + ", ".join(
+              f"{k} {m:.2e}/{sh:.4f}" for k, (m, sh) in zip(
+                  ("d_power", "d_tau", "d_eod", "d_vod", "d_density"),
+                  full_bars))
+          + f", d_par rel {full_par_rel:.2e}, max abs err {full_err:.4g}, "
+          f"d_density repeat {full_rep:.3g}", flush=True)
+    prof = profile_device(grad_step, 1, 3)
+    if prof is None:
+        print("[22 profile] the profiler saw no device operation: not "
+              "measured", flush=True)
+    else:
+        span, busy, n_ops, by_name = prof
+        mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
+                for k in ("vrl_sum_kernel", "vrl_sum_bwd_kernel")}
+        top = sorted(((v, k) for k, v in by_name.items()
+                      if not any(m + "<" in k for m in mine)),
+                     reverse=True)[:4]
+        print(f"[22 profile on {card}] per traced grid gradient step: device "
+              f"span {span:.3f} ms, busy {busy:.3f} ms, idle share "
+              f"{1 - busy / span:.1%}, {n_ops:g} device ops; "
+              + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%} of busy)"
+                          for k, v in mine.items()) + "; next: "
+              + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
+              flush=True)
+    return {"name": "vrl_sum_hetero_bwd", "route": "cuda",
+            "source": "alvrl_tpu_torch/csrc/vrl_sum_bwd.cu",
+            "replaces": "alvrl_tpu/ops/vrl_pallas_bwd.py:924",
+            "launches": step_launches[1], "max_abs_err": err, "ms": b_med,
+            "plain_ms": p_med, "bound_ms": bwd_bound[0],
+            "bound_by": bwd_bound[1], "library_ms": None}
 
 
 def main():
@@ -1513,7 +1897,8 @@ def main():
               flush=True)
 
     c2_kernels = config2(dev, card, cfg)
-    c4_kernels = config4(dev, card, cfg)
+    c4_kernels, c4 = config4(dev, card, cfg)
+    c4_grad_kernel = config4_grad(dev, card, cfg, c4)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -1529,7 +1914,7 @@ def main():
         "launches": step_launches[1], "max_abs_err": bwd_err,
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
-    }, *c2_kernels, *c4_kernels]}))
+    }, *c2_kernels, *c4_kernels, c4_grad_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,7 @@
 """The CUDA kernels of alvrl_tpu_torch against their plain PyTorch
 versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
 the transfer matrix R (csrc/vrl_r.cu) and the clustered sum
-(csrc/vrl_sum_clustered.cu), in a homogeneous and (but the VJP) in a
-grid medium.
+(csrc/vrl_sum_clustered.cu), in a homogeneous and in a grid medium.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -42,6 +41,8 @@ from alvrl_tpu_torch.ops.vrl_sum import (
 from alvrl_tpu_torch.ops.vrl_sum_bwd import (
     vrl_sum_bwd,
     vrl_sum_bwd_reference,
+    vrl_sum_hetero_bwd,
+    vrl_sum_hetero_bwd_reference,
 )
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     philox_table_uniforms,
@@ -480,3 +481,111 @@ def test_cuda_render_alvrl_in_a_grid_launches_the_grid_kernels(cuda):
     assert vrl_sum_hetero_clustered.launches == c + 1 + fallback
     assert img.is_cuda and img.shape == (16, 16, 3)
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+
+
+# --- the grid-medium backward kernel -----------------------------------------
+
+# d_density is summed by atomics in an order that varies between runs: a
+# repeat agrees per voxel to float32 rounding of its sum (terms of both
+# signs), bounded here by this share of the largest |d_density|, as
+# chip_smoke.py bounds it
+DENSITY_REPEAT = 1e-4
+VOXEL_FLOOR = 1e-3  # voxels compared: |grad| above this share of the largest
+
+
+def _assert_grid_bwd_close(out, ref, kind):
+    d_power, d_par, d_tau, d_eod, d_vod, d_dens = out
+    r_power, r_par, r_tau, r_eod, r_vod, r_dens = ref
+    for o, r in ((d_power, r_power), (d_tau, r_tau), (d_eod, r_eod),
+                 (d_vod, r_vod)):
+        assert torch.isfinite(o).all() and float(o.abs().sum()) > 0.0
+        median, share = homog_bar(o.T, r.T, channels=o.shape[0])
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    nz = r_dens.abs() > VOXEL_FLOOR * float(r_dens.abs().max())
+    assert torch.isfinite(d_dens).all() and int(nz.sum()) > 20
+    median, share = homog_bar(d_dens[nz][:, None], r_dens[nz][:, None],
+                              channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    live = [0, 1, 2, 3, 4, 5, 6, 7, pk.GRID_MED_LEN - 1]
+    assert float(d_par[8:-1].abs().sum()) == 0.0
+    for i in live:
+        d, r = float(d_par[i]), float(r_par[i])
+        if kind == 1 and i == 6:
+            assert d == 0.0 and r == 0.0
+            continue
+        assert d == 0.0 if r == 0.0 else abs(d - r) < PAR_RTOL * abs(r), \
+            (i, d, r)
+
+
+@pytest.mark.parametrize("kind", [0, 1], ids=["hg", "rayleigh"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_grid_bwd_kernel_matches_plain(cuda, kind, injected, short_vrls):
+    """The grid backward kernel vs the plain grid backward on the ragged
+    grid packs, every template: d_power, d_tau, d_eod, d_vod and the
+    voxels of d_density at the homogeneous bar, d_par to PAR_RTOL."""
+    packs = _grid_packs(cuda, kind)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    u = _uniforms(cuda, injected, 12, (n_rays, n_vrls, 6))
+    before = vrl_sum_hetero_bwd.launches
+    out = vrl_sum_hetero_bwd(*packs, gbar, seed=31, uniforms=u,
+                             short_vrls=short_vrls, phase_kind=kind)
+    torch.cuda.synchronize()
+    assert vrl_sum_hetero_bwd.launches == before + 1
+    if u is None:
+        u = philox_uniforms(31, n_rays, n_vrls, 6, device=cuda)
+    ref = vrl_sum_hetero_bwd_reference(*packs, gbar, u, short_vrls=short_vrls,
+                                       phase_kind=kind)
+    _assert_grid_bwd_close(out, ref, kind)
+
+
+def test_cuda_grid_bwd_kernel_zero_channels(cuda):
+    """ROADMAP C7 in a grid medium: VRL power channel 1 and sigma_s_color
+    channel 2 at 0; the kernel's d power[1] and d sigma_s_color[2] are
+    not 0 and match the plain backward."""
+    rays, vrls, tris, med, dss = _grid_packs(cuda)
+    vrls = vrls.clone()
+    vrls[pk.VP + 1] = 0.0
+    med = med.clone()
+    med[5] = 0.0
+    gbar = torch.ones((3, rays.shape[1]), device=cuda)
+    out = vrl_sum_hetero_bwd(rays, vrls, tris, med, dss, gbar, seed=3)
+    ref = vrl_sum_hetero_bwd_reference(
+        rays, vrls, tris, med, dss, gbar,
+        philox_uniforms(3, rays.shape[1], vrls.shape[1], 6, device=cuda))
+    _assert_grid_bwd_close(out, ref, 0)
+    assert float(out[0][1].abs().max()) > 0.0 and float(out[1][5]) != 0.0
+
+
+def test_cuda_grid_bwd_kernel_repeats(cuda):
+    """A repeat is bit-identical but for d_density (atomics), which
+    agrees to DENSITY_REPEAT of its largest entry."""
+    packs = _grid_packs(cuda)
+    gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
+    a = vrl_sum_hetero_bwd(*packs, gbar, seed=5)
+    b = vrl_sum_hetero_bwd(*packs, gbar, seed=5)
+    assert all(torch.equal(x, y) for x, y in zip(a[:5], b[:5]))
+    assert float((a[5] - b[5]).abs().max()) \
+        <= DENSITY_REPEAT * float(a[5].abs().max())
+
+
+def test_cuda_grid_render_diff_launches_both_grid_kernels(cuda):
+    """render_with_vrls_kernel_diff on a grid medium goes through
+    vrl_sum_hetero and vrl_sum_hetero_bwd, and its gradients reach the
+    density voxels, sigma_t_color, albedo, g and scale."""
+    scene = presets.cornell_grid_smoke(16, 16, grid_res=8, device=cuda)
+    med = scene.medium
+    params = {k: getattr(med, k).clone().requires_grad_()
+              for k in ("density", "sigma_t_color", "albedo", "g", "scale")}
+    scene = replace(scene, medium=replace(med, **params))
+    fwd, bwd = vrl_sum_hetero.launches, vrl_sum_hetero_bwd.launches
+    img = integrator.render_with_vrls_kernel_diff(
+        scene, _bench_vrls(cuda), torch.Generator().manual_seed(0))
+    grads = torch.autograd.grad(img.mean(), list(params.values()))
+    assert vrl_sum_hetero.launches == fwd + 1
+    assert vrl_sum_hetero_bwd.launches == bwd + 1
+    for g in grads:
+        assert g.is_cuda and torch.isfinite(g).all() and float(
+            g.abs().sum()) > 0.0

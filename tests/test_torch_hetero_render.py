@@ -193,10 +193,21 @@ def test_grid_wrapper_rejects_bad_input(bad):
 
 
 def test_differentiable_render_refuses_a_grid():
+    """The differentiable render takes a grid medium (its gradients are
+    held in tests/test_torch_hetero_bwd.py): its image is the plain
+    render's on the same seed. It refuses the reference's `dens_scale`,
+    a multiplier on CP factors the port does not have (ROADMAP C9,
+    C10)."""
     scene = convert.scene_from_numpy(jax_scene_leaves(_jax_scene(4, 4, 6)),
                                      device="cpu")
     vrls = convert.vrls_from_numpy(jax_vrls_leaves(_jax_vrls(8)),
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
+    img = integrator.render_with_vrls_kernel_diff(
+        scene, vrls, torch.Generator().manual_seed(0))
+    ref = integrator.render_with_vrls_kernel(
+        scene, vrls, torch.Generator().manual_seed(0))
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+    assert torch.equal(img, ref)
+    with pytest.raises(TypeError):
         integrator.render_with_vrls_kernel_diff(
-            scene, vrls, torch.Generator().manual_seed(0))
+            scene, vrls, torch.Generator().manual_seed(0), dens_scale=1.0)
