@@ -1,12 +1,14 @@
 // Device code shared by the VRL sum (vrl_sum.cu), its VJP
-// (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu) and the
-// transfer matrix (vrl_r.cu): the pack layouts, the Philox stream, the
-// phase functions, the shadow test, the two samplers of the estimator,
-// the two media (homogeneous, Medium; grid, GridMedium), the estimator
-// itself (pair_terms, templated on the medium) and its cotangents
-// (vol_vol_cot / vol_surf_cot, one overload per medium). The backward
-// replays the forward's samples, so all kernels take them from the same
-// loop here (pair_samples), in the same draw order.
+// (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu), its VJP
+// (vrl_sum_clustered_bwd.cu) and the transfer matrix (vrl_r.cu): the pack
+// layouts, the Philox stream, the phase functions, the shadow test, the
+// clustered tables' staging (stage_table_piece), the two samplers of the
+// estimator, the two media (homogeneous, Medium; grid, GridMedium), the
+// estimator itself (pair_terms, templated on the medium), its cotangents
+// (vol_vol_cot / vol_surf_cot, one overload per medium) and the
+// backwards' fixed-order reductions. The backward replays the forward's
+// samples, so all kernels take them from the same loop here
+// (pair_samples), in the same draw order.
 // Precise math functions throughout (no --use_fast_math).
 
 #pragma once
@@ -165,6 +167,42 @@ __device__ __forceinline__ int stage_block(const float* __restrict__ tris, int T
   for (int i = threadIdx.x; i < n_rows * VRL_CHUNK; i += blockDim.x) {
     const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
     s_vrl[i] = c < nc ? vrls[(size_t)r * N + n0 + c] : 0.0f;
+  }
+  return nc;
+}
+
+// Is a clustered table's column (VRL id, weight w) evaluated? Its id
+// lies in [0, N), its VRL is valid and its weight is > 0.
+__device__ __forceinline__ bool column_valid(const float* __restrict__ vrls, int N, int id,
+                                             float w) {
+  return id >= 0 && id < N && vrls[(size_t)VVALID * N + id] > 0.5f && w > 0.0f;
+}
+
+// Stage columns c0 .. c0 + VRL_CHUNK of one clustered table row (ids,
+// ws: the row's C VRL ids and weights) in shared memory, each gathered
+// by id from the full pack (n_rows rows of N columns) and zero-padded to
+// VRL_CHUNK: the weight folded into the power rows, VVALID set to 1
+// where column_valid (an id outside [0, N) stages an all-zero column),
+// the id into s_id. The clustered sum and its VJP both stage through
+// here, so the replay reads what the forward read. Returns the piece's
+// column count.
+__device__ __forceinline__ int stage_table_piece(const float* __restrict__ vrls, int N,
+                                                 int n_rows, const int* __restrict__ ids,
+                                                 const float* __restrict__ ws, int C, int c0,
+                                                 float* s_vrl, int* s_id) {
+  const int nc = min(VRL_CHUNK, C - c0);
+  for (int i = threadIdx.x; i < n_rows * VRL_CHUNK; i += blockDim.x) {
+    const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
+    const int id = c < nc ? ids[c0 + c] : -1;
+    const float w = c < nc ? ws[c0 + c] : 0.0f;
+    float v = 0.0f;
+    if (id >= 0 && id < N) {
+      v = vrls[(size_t)r * N + id];
+      if (r >= VP && r < VP + 3) v *= w;
+      if (r == VVALID) v = column_valid(vrls, N, id, w) ? 1.0f : 0.0f;
+    }
+    s_vrl[i] = v;
+    if (r == 0) s_id[c] = id;
   }
   return nc;
 }
@@ -836,6 +874,137 @@ __global__ void reduce_parts(const float* __restrict__ part, int n_parts, int le
   float s = 0.0f;
   for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * len + i];
   out[i] = s;
+}
+
+// --- the backward kernels' reductions (vrl_sum_bwd.cu, vrl_sum_clustered_bwd.cu)
+
+constexpr int N_PAR = 8;  // homogeneous d_par rows
+constexpr int N_WARPS = RAY_BLOCK / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The layout of one backward instantiation: the rows of its per-ray and
+// per-VRL (or per-column) outputs (3, and NQ + 1 OD-table rows in a grid
+// medium), its sums (sigma_t (3), sigma_s (3), g; grid: chan, scale) and
+// d_par's length.
+template <bool GRID>
+struct Layout {
+  static constexpr int N_OD = GRID ? NQ + 1 : 0;
+  static constexpr int ROWS = 3 + N_OD;
+  static constexpr int N_SUMS = GRID ? 9 : 7;
+  static constexpr int N_PAR_OUT = GRID ? GRID_MED_LEN : N_PAR;
+
+  // d_par's entry t: the index of its sum, or -1 for a constant 0
+  __host__ __device__ static constexpr int sum_of(int t) {
+    return t < 8 ? (t < N_SUMS ? t : -1) : (GRID && t == G_SCALE ? 8 : -1);
+  }
+
+  // dynamic shared memory, in floats, with T triangles: the triangles,
+  // the VRL piece, the grid medium, the per-warp column sums, the
+  // per-warp d_par sums, and each thread's d_eod and d_vod columns
+  static constexpr size_t smem_floats(int T) {
+    return (size_t)T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+           (GRID ? GRID_MED_LEN : 0) + N_WARPS * ROWS * VRL_CHUNK + N_WARPS * N_SUMS +
+           2 * N_OD * RAY_BLOCK;
+  }
+};
+
+// The cotangents of one (ray, VRL) pair's samples, added into c: the
+// forward's samples (pair_samples, the same draws), each through its
+// family's cotangent (weights inv_vv, inv_vs).
+template <int PHASE, bool SHORT_VRLS, class Med>
+__device__ __forceinline__ void pair_cots(const Ray& ray, const VrlPair& p, const Med& m,
+                                          PairUniforms& draw, int svv, int svs,
+                                          const float* s_tri, int T, float inv_vv,
+                                          float inv_vs, Cot& c) {
+  pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
+    if (family == 0)
+      vol_vol_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vv, c);
+    else
+      vol_surf_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vs, c);
+  });
+}
+
+// Clear the per-VRL cotangents of a thread before its next pair: d_pw
+// and, in a grid medium, its d_vod column.
+template <bool GRID>
+__device__ __forceinline__ void clear_pair_cots(Cot& c) {
+  for (int ch = 0; ch < 3; ++ch) c.d_pw[ch] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < Layout<GRID>::N_OD; ++k) c.d_vod[k * RAY_BLOCK] = 0.0f;
+}
+
+// After a VRL (or table column) cc: each warp's sum of its threads'
+// d_pw (and d_vod column) by a fixed butterfly, into s_out (N_WARPS,
+// ROWS, VRL_CHUNK) at [warp, r, cc]. Every thread of the block calls it.
+template <bool GRID>
+__device__ __forceinline__ void warp_column_sums(const Cot& c, float* s_out, int cc) {
+  using L = Layout<GRID>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < L::ROWS; ++r) {
+    const float v = warp_sum(r < 3 ? c.d_pw[r] : c.d_vod[(r - 3) * RAY_BLOCK]);
+    if (lane == 0) s_out[(warp * L::ROWS + r) * VRL_CHUNK + cc] = v;
+  }
+}
+
+// The block's sum of row r, column cc of s_out: the warps in order.
+template <bool GRID>
+__device__ __forceinline__ float block_column_sum(const float* s_out, int r, int cc) {
+  float v = 0.0f;
+  for (int w = 0; w < N_WARPS; ++w) v += s_out[(w * Layout<GRID>::ROWS + r) * VRL_CHUNK + cc];
+  return v;
+}
+
+// A block's d_par sums (the cotangents' sums of its threads) into its
+// row of par_part (n_blocks, N_PAR_OUT): each warp by shuffles, then the
+// warps in order (s_par: (N_WARPS, N_SUMS) of shared memory). Every
+// thread of the block calls it; it ends on a barrier's far side.
+template <bool GRID>
+__device__ __forceinline__ void block_par_sums(const Cot& c, float* s_par, float* par_part,
+                                               size_t block) {
+  using L = Layout<GRID>;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const float sums[9] = {c.d_st[0], c.d_st[1], c.d_st[2], c.d_ss[0], c.d_ss[1],
+                         c.d_ss[2], c.d_g,     c.d_chan,  c.d_scale};
+#pragma unroll
+  for (int i = 0; i < L::N_SUMS; ++i) {
+    const float v = warp_sum(sums[i]);
+    if (lane == 0) s_par[warp * L::N_SUMS + i] = v;
+  }
+  __syncthreads();
+  if (t < L::N_PAR_OUT) {
+    float v = 0.0f;
+    const int s = L::sum_of(t);
+    if (s >= 0)
+      for (int w = 0; w < N_WARPS; ++w) v += s_par[w * L::N_SUMS + s];
+    par_part[block * L::N_PAR_OUT + t] = v;
+  }
+}
+
+// out[i] = sum over parts p of part[p, i] for many parts and few outputs:
+// one block per output; thread t adds parts t, t + TREE, ... in order,
+// then the block adds its threads by a fixed tree. Deterministic.
+constexpr int TREE = 256;
+
+__global__ void __launch_bounds__(TREE)
+    reduce_parts_tree(const float* __restrict__ part, int n_parts, int len,
+                      float* __restrict__ out) {
+  __shared__ float s[TREE];
+  const int i = blockIdx.x;
+  float v = 0.0f;
+  for (int p = threadIdx.x; p < n_parts; p += TREE) v += part[(size_t)p * len + i];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = TREE / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[i] = s[0];
 }
 
 }  // namespace

@@ -62,38 +62,6 @@
 
 namespace {
 
-constexpr int N_PAR = 8;  // homogeneous d_par rows
-constexpr int N_WARPS = RAY_BLOCK / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// The layout of one instantiation: the rows of its per-ray and per-VRL
-// outputs (3, and NQ + 1 OD-table rows in a grid medium), its sums
-// (sigma_t (3), sigma_s (3), g; grid: chan, scale) and d_par's length.
-template <bool GRID>
-struct Layout {
-  static constexpr int N_OD = GRID ? NQ + 1 : 0;
-  static constexpr int ROWS = 3 + N_OD;
-  static constexpr int N_SUMS = GRID ? 9 : 7;
-  static constexpr int N_PAR_OUT = GRID ? GRID_MED_LEN : N_PAR;
-
-  // d_par's entry t: the index of its sum, or -1 for a constant 0
-  __host__ __device__ static constexpr int sum_of(int t) {
-    return t < 8 ? (t < N_SUMS ? t : -1) : (GRID && t == G_SCALE ? 8 : -1);
-  }
-
-  // dynamic shared memory, in floats, with T triangles
-  static constexpr size_t smem_floats(int T) {
-    return (size_t)T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-           (GRID ? GRID_MED_LEN : 0) + N_WARPS * ROWS * VRL_CHUNK + N_WARPS * N_SUMS +
-           2 * N_OD * RAY_BLOCK;
-  }
-};
-
 template <int PHASE, bool SHORT_VRLS, bool GRID>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
@@ -122,7 +90,6 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
   __syncthreads();
 
-  const int warp = t / 32, lane = t % 32;
   const int b = blockIdx.x * blockDim.x + t;
   const bool in_range = b < B;
   Ray ray{};
@@ -142,26 +109,15 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 
   for (int cc = 0; cc < nc; ++cc) {
     if (s_vrl[VVALID * VRL_CHUNK + cc] <= 0.5f) continue;  // the same for the whole block
-    for (int ch = 0; ch < 3; ++ch) c.d_pw[ch] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < L::N_OD; ++k) c.d_vod[k * RAY_BLOCK] = 0.0f;
+    clear_pair_cots<GRID>(c);
     if (ray.ok) {
       const int n = n0 + cc;
       const VrlPair p = pair_at<GRID>(ray, s_vrl, cc);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
-        if (family == 0)
-          vol_vol_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vv, c);
-        else
-          vol_surf_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vs, c);
-      });
+      pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T, inv_vv, inv_vs, c);
     }
-#pragma unroll
-    for (int r = 0; r < L::ROWS; ++r) {
-      const float v = warp_sum(r < 3 ? c.d_pw[r] : c.d_vod[(r - 3) * RAY_BLOCK]);
-      if (lane == 0) s_out[(warp * L::ROWS + r) * VRL_CHUNK + cc] = v;
-    }
+    warp_column_sums<GRID>(c, s_out, cc);
   }
 
   if (in_range) {
@@ -170,51 +126,14 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       ray_part[((size_t)chunk * L::ROWS + r) * B + b] =
           r < 3 ? c.d_tau[r] : c.d_eod[(r - 3) * RAY_BLOCK];
   }
-  const float sums[9] = {c.d_st[0], c.d_st[1], c.d_st[2], c.d_ss[0], c.d_ss[1],
-                         c.d_ss[2], c.d_g,     c.d_chan,  c.d_scale};
-#pragma unroll
-  for (int i = 0; i < L::N_SUMS; ++i) {
-    const float v = warp_sum(sums[i]);
-    if (lane == 0) s_par[warp * L::N_SUMS + i] = v;
-  }
-  __syncthreads();
+  block_par_sums<GRID>(c, s_par, par_part, (size_t)blockIdx.y * gridDim.x + blockIdx.x);
 
   for (int i = t; i < L::ROWS * VRL_CHUNK; i += blockDim.x) {
     const int r = i / VRL_CHUNK, cc = i % VRL_CHUNK;
-    if (cc < nc) {
-      float v = 0.0f;
-      for (int w = 0; w < N_WARPS; ++w) v += s_out[(w * L::ROWS + r) * VRL_CHUNK + cc];
-      vrl_part[((size_t)blockIdx.x * L::ROWS + r) * N + n0 + cc] = v;
-    }
+    if (cc < nc)
+      vrl_part[((size_t)blockIdx.x * L::ROWS + r) * N + n0 + cc] =
+          block_column_sum<GRID>(s_out, r, cc);
   }
-  if (t < L::N_PAR_OUT) {
-    float v = 0.0f;
-    const int s = L::sum_of(t);
-    if (s >= 0)
-      for (int w = 0; w < N_WARPS; ++w) v += s_par[w * L::N_SUMS + s];
-    par_part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * L::N_PAR_OUT + t] = v;
-  }
-}
-
-// out[i] = sum over parts p of part[p, i] for many parts and few outputs:
-// one block per output; thread t adds parts t, t + TREE, ... in order,
-// then the block adds its threads by a fixed tree. Deterministic.
-constexpr int TREE = 256;
-
-__global__ void __launch_bounds__(TREE)
-    reduce_parts_tree(const float* __restrict__ part, int n_parts, int len,
-                      float* __restrict__ out) {
-  __shared__ float s[TREE];
-  const int i = blockIdx.x;
-  float v = 0.0f;
-  for (int p = threadIdx.x; p < n_parts; p += TREE) v += part[(size_t)p * len + i];
-  s[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = TREE / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[i] = s[0];
 }
 
 // Launches the backward and its three ordered reductions on `stream`

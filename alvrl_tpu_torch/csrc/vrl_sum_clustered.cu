@@ -29,9 +29,11 @@
 //     (tile_rays: the ray index of each tile slot, -1 for padding;
 //     tile_row: each tile's row), so that a block shares one row;
 //   * the block stages the triangles, then its row's table in VRL_CHUNK
-//     pieces, each column gathered from the full VRL pack by id, and
-//     loops over all pieces: there is no cap on the table width and one
-//     launch covers it (the TPU kernel took 128 columns per launch);
+//     pieces, each column gathered from the full VRL pack by id
+//     (vrl_common.cuh's stage_table_piece, which the VJP's replay stages
+//     through too), and loops over all pieces: there is no cap on the
+//     table width and one launch covers it (the TPU kernel took 128
+//     columns per launch);
 //   * each thread owns one ray and writes its (3,) sum to out[:, b]
 //     directly, in ray order: no cross-block reduction, no scatter pass,
 //     and a deterministic result. Rays in no tile are not written (the
@@ -89,21 +91,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
-    const int nc = min(VRL_CHUNK, C - c0);
     __syncthreads();  // the previous piece is consumed (and the triangles staged)
-    for (int i = threadIdx.x; i < V_ROWS * VRL_CHUNK; i += blockDim.x) {
-      const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
-      const int id = c < nc ? ids[c0 + c] : -1;
-      const float w = c < nc ? ws[c0 + c] : 0.0f;
-      float v = 0.0f;
-      if (id >= 0 && id < N) {
-        v = vrls[(size_t)r * N + id];
-        if (r >= VP && r < VP + 3) v *= w;
-        if (r == VVALID) v = (v > 0.5f && w > 0.0f) ? 1.0f : 0.0f;
-      }
-      s_vrl[i] = v;
-      if (r == 0) s_id[c] = id;
-    }
+    const int nc = stage_table_piece(vrls, N, V_ROWS, ids, ws, C, c0, s_vrl, s_id);
     __syncthreads();
     for (int c = 0; ray.ok && c < nc; ++c) {
       if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;

@@ -1,0 +1,295 @@
+// VJP of the clustered VRL sum (vrl_sum_clustered.cu), hand-written for
+// Hopper (sm_90a), for homogeneous and grid media.
+//
+// Replaces alvrl_tpu/ops/vrl_pallas_bwd.py:vrl_sum_pallas_clustered_bwd
+// (its body `_bwd_kernel` with clustered=True, hetero=False; entry point
+// alvrl_vrl_sum_clustered_bwd) and vrl_sum_pallas_hetero_clustered_bwd
+// (hetero=True; alvrl_vrl_sum_hetero_clustered_bwd), with the per-slice
+// scatter-add of their table cotangents (vrl_sum_clustered_diff,
+// vrl_sum_hetero_clustered_diff). Given the output cotangent gbar (3, B)
+// it replays the clustered forward's samples (the same tiles, the same
+// table pieces staged by vrl_common.cuh's stage_table_piece, the same
+// Philox counters (b, VRL id, call) or injected uniforms indexed by ray
+// and table column) through vrl_sum_bwd.cu's cotangents (pair_cots), and
+// returns
+//   d_tau   (3, B)  per ray, and in a grid medium d_eod (NQ + 1, B);
+//   d_par           the medium pack's cotangents, as vrl_sum_bwd.cu's;
+//   d_weights (S, C) the table weights';
+//   d_power (3, N)  per VRL, and in a grid medium d_vod (NQ + 1, N);
+//   d_density       grid media: the supersampled grid's, as
+//                   vrl_sum_bwd.cu's (one scatter per density read).
+// The reference returns per-tile cotangents of its materialised tables
+// (weights folded into the power rows), which its caller adds per slice
+// and chains through the table build. The port's tables are VRL ids and
+// weights over the full pack, so the chain is here: with d_table (S,
+// ROWS, C) the per-row sums of the tiles' column cotangents,
+//   d_weights[s, c] = sum_ch d_table[s, ch, c] power[ch, id],
+//   d_power[:, id] += w[s, c] d_table[s, :3, c],
+//   d_vod[:, id]   += d_table[s, 3:, c],
+// and a column that is not valid (column_valid: an id outside [0, N), an
+// invalid VRL, or w <= 0) gives nothing, as the reference's valid =
+// vrls.valid[idx] & (tw > 0) (integrator.py:412). Plain PyTorch twins:
+// ops/vrl_sum_clustered_bwd.py:vrl_sum_clustered_bwd_reference and
+// vrl_sum_hetero_clustered_bwd_reference.
+//
+// What bounds it: as the clustered forward, fp32 ALU and SFU work per
+// pair-sample; the replay costs the forward's samples and the
+// cotangents add vrl_sum_bwd.cu's work per sample. The design follows the
+// clustered forward's grid (one block per tile of RAY_BLOCK rays of one
+// table row, looping over the row's table in VRL_CHUNK pieces) and sums
+// everything but d_density in a fixed order, so a repeat is
+// bit-identical there:
+//   * per ray (d_tau, d_eod): each ray lies in exactly one tile, so its
+//     thread writes its sums over the row's columns straight to its
+//     column of the output (zeroed first for rays in no tile): no
+//     partials, no atomics;
+//   * per column (d_table): after each column, the block's rays are
+//     summed by warp shuffles and the warps in order into per-tile
+//     partials (n_tiles, ROWS, C); table_sums adds each row's tiles in
+//     tile order (group_by_slice makes them contiguous: row_tiles gives
+//     each row's first tile, for any number of tiles per row) and forms
+//     d_weights;
+//   * per VRL (d_power, d_vod): vrl_sums adds the table slots that hold
+//     each VRL in slot order (slots, slot_start: a CSR of the slots by
+//     id, built on the host with the tiles);
+//   * d_par: per-block partials, added by reduce_parts_tree;
+//   * d_density: atomicAdd with its result unused (RED), zeroed first;
+//     a repeat agrees to float32 rounding of each voxel's sum.
+// Padding slots of a tile stay in the loop with no samples so that every
+// lane takes part in the shuffles.
+
+#include "vrl_common.cuh"
+
+namespace {
+
+template <int PHASE, bool SHORT_VRLS, bool GRID>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_clustered_bwd_kernel(const float* __restrict__ rays, int B,
+                                 const float* __restrict__ vrls, int N,
+                                 const float* __restrict__ tris, int T,
+                                 const float* __restrict__ med, GridArgs grid,
+                                 const int* __restrict__ tile_rays,
+                                 const int* __restrict__ tile_row,
+                                 const int* __restrict__ table_ids,
+                                 const float* __restrict__ table_w, int C,
+                                 const float* __restrict__ uniforms, uint32_t seed, int svv,
+                                 int svs, const float* __restrict__ gbar,
+                                 float* __restrict__ d_ray, float* __restrict__ tile_part,
+                                 float* __restrict__ par_part, float* __restrict__ d_density) {
+  using L = Layout<GRID>;
+  constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
+  extern __shared__ float smem[];
+  float* s_tri = smem;                                   // (T, TRI_COLS)
+  float* s_vrl = s_tri + T * TRI_COLS;                   // (V_ROWS, VRL_CHUNK)
+  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;             // grid: (GRID_MED_LEN,)
+  float* s_out = s_med + (GRID ? GRID_MED_LEN : 0);      // (N_WARPS, ROWS, VRL_CHUNK)
+  float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
+  float* s_eod = s_par + N_WARPS * L::N_SUMS;            // grid: (N_OD, RAY_BLOCK)
+  float* s_vod = s_eod + L::N_OD * RAY_BLOCK;            // grid: (N_OD, RAY_BLOCK)
+  int* s_id = reinterpret_cast<int*>(s_vod + L::N_OD * RAY_BLOCK);  // (VRL_CHUNK,)
+  const int t = threadIdx.x;
+  for (int i = t; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+  stage_medium<GRID>(med, s_med);
+  for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
+
+  const int tile = blockIdx.x;
+  const int b = tile_rays[(size_t)tile * RAY_BLOCK + t];
+  const int* ids = table_ids + (size_t)tile_row[tile] * C;
+  const float* ws = table_w + (size_t)tile_row[tile] * C;
+  Ray ray{};  // padding slots keep ok = false, but join every barrier
+  Cot c{};
+  if (b >= 0) {
+    ray = load_ray(rays, B, b);
+    attach_eod<GRID>(ray, rays, B, b);
+    for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
+  }
+  c.d_eod = s_eod + t;
+  c.d_vod = s_vod + t;
+  c.d_density = d_density;
+  const auto m = make_medium<GRID>(med, s_med, grid);
+  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
+  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
+  const int n_draws = 2 * svv + svs;
+  float* part = tile_part + (size_t)tile * L::ROWS * C;  // this tile's (ROWS, C)
+
+  for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
+    __syncthreads();  // the previous piece is consumed (and the block's set-up done)
+    const int nc = stage_table_piece(vrls, N, V_ROWS, ids, ws, C, c0, s_vrl, s_id);
+    __syncthreads();
+    for (int cc = 0; cc < nc; ++cc) {
+      clear_pair_cots<GRID>(c);
+      // VVALID is the same for the whole block; an invalid column sums 0
+      if (ray.ok && s_vrl[VVALID * VRL_CHUNK + cc] > 0.5f) {
+        const VrlPair p = pair_at<GRID>(ray, s_vrl, cc);
+        PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
+                          (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u),
+                          -1};
+        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T, inv_vv, inv_vs, c);
+      }
+      warp_column_sums<GRID>(c, s_out, cc);
+    }
+    __syncthreads();
+    for (int i = t; i < L::ROWS * VRL_CHUNK; i += blockDim.x) {
+      const int r = i / VRL_CHUNK, cc = i % VRL_CHUNK;
+      if (cc < nc) part[(size_t)r * C + c0 + cc] = block_column_sum<GRID>(s_out, r, cc);
+    }
+  }
+
+  if (b >= 0) {
+#pragma unroll
+    for (int r = 0; r < L::ROWS; ++r)
+      d_ray[(size_t)r * B + b] = r < 3 ? c.d_tau[r] : c.d_eod[(r - 3) * RAY_BLOCK];
+  }
+  block_par_sums<GRID>(c, s_par, par_part, tile);
+}
+
+// d_table[s, r, c] = the sum of row s's tiles' partials in tile order
+// (its tiles are row_tiles[s] .. row_tiles[s + 1] - 1), and d_weights[s,
+// c] = sum over the power rows of d_table times the VRL's power, 0 for a
+// column that is not valid. One thread per (s, c).
+template <bool GRID>
+__global__ void table_sums(const float* __restrict__ tile_part, const int* __restrict__ row_tiles,
+                           int S, int C, const float* __restrict__ vrls, int N,
+                           const int* __restrict__ table_ids, const float* __restrict__ table_w,
+                           float* __restrict__ d_table, float* __restrict__ d_weights) {
+  constexpr int ROWS = Layout<GRID>::ROWS;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * C) return;
+  const int s = i / C, c = i % C;
+  float dw = 0.0f;
+  const int id = table_ids[i];
+  const bool valid = column_valid(vrls, N, id, table_w[i]);
+  for (int r = 0; r < ROWS; ++r) {
+    float v = 0.0f;
+    for (int k = row_tiles[s]; k < row_tiles[s + 1]; ++k)
+      v += tile_part[((size_t)k * ROWS + r) * C + c];
+    d_table[((size_t)s * ROWS + r) * C + c] = v;
+    if (r < 3 && valid) dw += v * vrls[(size_t)(VP + r) * N + id];
+  }
+  d_weights[i] = dw;
+}
+
+// d_vrl[r, n] = the sum over the table slots that hold VRL n (slots[k],
+// k in slot_start[n] .. slot_start[n + 1] - 1: flat s * C + c, in slot
+// order) of w * d_table[s, r, c] for the power rows (r < 3) and d_table[s,
+// r, c] for the VOD rows, over the slots of weight > 0 (an invalid VRL's
+// d_table is 0). One thread per (r, n).
+template <bool GRID>
+__global__ void vrl_sums(const float* __restrict__ d_table, const int* __restrict__ slots,
+                         const int* __restrict__ slot_start, int N, int C,
+                         const float* __restrict__ table_w, float* __restrict__ d_vrl) {
+  constexpr int ROWS = Layout<GRID>::ROWS;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ROWS * N) return;
+  const int r = i / N, n = i % N;
+  float v = 0.0f;
+  for (int k = slot_start[n]; k < slot_start[n + 1]; ++k) {
+    const int slot = slots[k];
+    const float w = table_w[slot];
+    if (!(w > 0.0f)) continue;
+    v += (r < 3 ? w : 1.0f) * d_table[((size_t)(slot / C) * ROWS + r) * C + slot % C];
+  }
+  d_vrl[i] = v;
+}
+
+// Launches the backward and its ordered reductions on `stream` (after
+// zeroing d_ray and, for grid media, d_density); returns a cudaError_t
+// (0 = launched). Host layout: tile_rays, tile_row (group_by_slice),
+// row_tiles (S + 1,) each row's first tile, slots and slot_start (N + 1,)
+// the table slots by VRL id. Scratch: tile_part (n_tiles, ROWS, C),
+// par_part (n_tiles, n_par), d_table (S, ROWS, C). Out: d_ray (ROWS, B) =
+// d_tau [, d_eod], d_vrl (ROWS, N) = d_power [, d_vod], d_weights (S, C),
+// d_par (n_par,) and, for grid media, d_density (nz, ny, nx).
+template <bool GRID>
+int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, const float* tris,
+                         int T, const float* med, GridArgs grid, const int* tile_rays,
+                         const int* tile_row, int n_tiles, const int* row_tiles, int S,
+                         const int* table_ids, const float* table_w, int C, const int* slots,
+                         const int* slot_start, const float* uniforms, unsigned int seed, int svv,
+                         int svs, int short_vrls, int phase_kind, const float* gbar,
+                         float* tile_part, float* par_part, float* d_table, float* d_ray,
+                         float* d_vrl, float* d_weights, float* d_par, float* d_density,
+                         void* stream) {
+  using L = Layout<GRID>;
+  if (B <= 0 || N <= 0 || n_tiles <= 0 || S <= 0 || C <= 0 || T < 0 || T > MAX_TRIS ||
+      svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
+      (GRID && d_density == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(d_ray, 0, (size_t)L::ROWS * B * sizeof(float), st);
+  if (err == cudaSuccess && GRID)
+    err = cudaMemsetAsync(d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = L::smem_floats(T) * sizeof(float) + VRL_CHUNK * sizeof(int);
+  cudaError_t attr = cudaSuccess;
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    auto kernel =
+        vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID>;
+    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
+      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr == cudaSuccess)
+      kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
+                                               tile_row, table_ids, table_w, C, uniforms, seed,
+                                               svv, svs, gbar, d_ray, tile_part, par_part,
+                                               d_density);
+  });
+  if (attr != cudaSuccess) return (int)attr;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  table_sums<GRID><<<(S * C + 255) / 256, 256, 0, st>>>(tile_part, row_tiles, S, C, vrls, N,
+                                                        table_ids, table_w, d_table, d_weights);
+  vrl_sums<GRID><<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(d_table, slots, slot_start, N, C,
+                                                            table_w, d_vrl);
+  reduce_parts_tree<<<L::N_PAR_OUT, TREE, 0, st>>>(par_part, n_tiles, L::N_PAR_OUT, d_par);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The homogeneous clustered backward. The forward's inputs
+// (alvrl_vrl_sum_clustered) and gbar (3, B); the host layout and scratch
+// of launch_clustered_bwd (ROWS = 3, n_par = 8). Out: d_tau (3, B),
+// d_power (3, N), d_weights (S, C), d_par (8,). `uniforms` may be null
+// (the Philox stream of `seed`, as the forward's).
+int alvrl_vrl_sum_clustered_bwd(const float* rays, int B, const float* vrls, int N,
+                                const float* tris, int T, const float* med,
+                                const int* tile_rays, const int* tile_row, int n_tiles,
+                                const int* row_tiles, int S, const int* table_ids,
+                                const float* table_w, int C, const int* slots,
+                                const int* slot_start, const float* uniforms, unsigned int seed,
+                                int svv, int svs, int short_vrls, int phase_kind,
+                                const float* gbar, float* tile_part, float* par_part,
+                                float* d_table, float* d_tau, float* d_power, float* d_weights,
+                                float* d_par, void* stream) {
+  return launch_clustered_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays,
+                                     tile_row, n_tiles, row_tiles, S, table_ids, table_w, C,
+                                     slots, slot_start, uniforms, seed, svv, svs, short_vrls,
+                                     phase_kind, gbar, tile_part, par_part, d_table, d_tau,
+                                     d_power, d_weights, d_par, nullptr, stream);
+}
+
+// The grid-medium clustered backward: the grid packs, the supersampled
+// density (nz, ny, nx) and the U-V quadrature's step count, as
+// alvrl_vrl_sum_hetero_clustered takes them; ROWS = 3 + NQ + 1, n_par =
+// GRID_MED_LEN. Out: d_ray (ROWS, B) = d_tau, d_eod; d_vrl (ROWS, N) =
+// d_power, d_vod; d_weights (S, C); d_par (GRID_MED_LEN,); d_density
+// (nz, ny, nx), zeroed here first.
+int alvrl_vrl_sum_hetero_clustered_bwd(
+    const float* rays, int B, const float* vrls, int N, const float* tris, int T,
+    const float* med, const float* density, int nz, int ny, int nx, int uv_steps,
+    const int* tile_rays, const int* tile_row, int n_tiles, const int* row_tiles, int S,
+    const int* table_ids, const float* table_w, int C, const int* slots, const int* slot_start,
+    const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
+    const float* gbar, float* tile_part, float* par_part, float* d_table, float* d_ray,
+    float* d_vrl, float* d_weights, float* d_par, float* d_density, void* stream) {
+  return launch_clustered_bwd<true>(rays, B, vrls, N, tris, T, med,
+                                    GridArgs{density, nz, ny, nx, uv_steps}, tile_rays, tile_row,
+                                    n_tiles, row_tiles, S, table_ids, table_w, C, slots,
+                                    slot_start, uniforms, seed, svv, svs, short_vrls, phase_kind,
+                                    gbar, tile_part, par_part, d_table, d_ray, d_vrl, d_weights,
+                                    d_par, d_density, stream);
+}
+
+}  // extern "C"

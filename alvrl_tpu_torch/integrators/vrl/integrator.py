@@ -5,7 +5,8 @@ render (every eye ray against every VRL; plain, or differentiable
 through the seed-replay VJP), and the two device
 stages of the clustered render (integrators.vrl.alvrl): the transfer
 matrix R over representative rays, and the render of each pixel against
-its slice's representatives. Each entry dispatches on the scene's
+its slice's representatives (plain, or differentiable through the
+clustered VJP). Each entry dispatches on the scene's
 medium: a grid medium goes through the grid packs and the grid kernels
 (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered), with the
 supersampled density computed once per call. Sums are normalised by
@@ -30,6 +31,10 @@ from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff, vrl_sum_hetero_diff
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_clustered,
     vrl_sum_hetero_clustered,
+)
+from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
+    vrl_sum_clustered_diff,
+    vrl_sum_hetero_clustered_diff,
 )
 from alvrl_tpu_torch.scene.scene import Scene
 from alvrl_tpu_torch.sensors import perspective
@@ -175,9 +180,36 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
     are drawn in one launch only. The seed is drawn from `generator`;
     `uniforms` (W * H, C, 2 * vol_vol + vol_surf) replaces the main
     launch's random stream. Returns the (H, W, 3) image."""
+    return _render_clustered(
+        _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered), scene,
+        vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
+        fallback, uniforms)
+
+
+def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
+                                 table_ids, table_weights, generator,
+                                 cfg: VRLConfig = VRLConfig(), *,
+                                 fallback=None, uniforms=None):
+    """render_clustered_kernel, differentiable through the clustered
+    seed-replay VJP (ops.vrl_sum_clustered_bwd.vrl_sum_clustered_diff,
+    vrl_sum_hetero_clustered_diff in a grid medium), the fall-back launch
+    included: in what render_with_vrls_kernel_diff is differentiable in,
+    and in the table weights (and the fall-back weights). The table ids
+    and the pixels' rows are fixed (the host clustering's output), and
+    geometry is detached. The composition of the reference's
+    vrl_sum_clustered_diff with render_clustered_pallas's table build
+    (tests/test_pallas_bwd.py:220-235, 277-293); as there, no CP factors
+    and no density multiplier (ROADMAP C9, C10)."""
+    return _render_clustered(
+        _kernel(scene, vrl_sum_clustered_diff, vrl_sum_hetero_clustered_diff),
+        scene, vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
+        fallback, uniforms)
+
+
+def _render_clustered(clustered, scene, vrls, slice_of_pixel, table_ids,
+                      table_weights, generator, cfg, fallback, uniforms):
     px, py, hit, packs = pack_frame(scene, vrls)
     kw = dict(seed=draw_seed(generator), **_kernel_args(scene, cfg))
-    clustered = _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered)
     sums = clustered(*packs, slice_of_pixel, table_ids, table_weights,
                      uniforms=uniforms, **kw)
     fb_pixels = np.asarray(torch.as_tensor(slice_of_pixel).cpu()) < 0

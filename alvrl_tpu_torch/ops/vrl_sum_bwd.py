@@ -56,6 +56,7 @@ import torch
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
+from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 
 N_PAR = 8  # d_par: sigma_t (3), sigma_s (3), g, sampling weight (0)
 N_OD = pk.NQ + 1  # rows of a cumulative-OD table
@@ -73,24 +74,32 @@ def _leaf_rows(pack, rows):
 
 
 def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
-               med_rows, svv, svs, short_vrls, phase_kind, grid=None):
+               med_rows, svv, svs, short_vrls, phase_kind, grid=None,
+               tables=None):
     """torch.autograd.grad of sum(gbar * the plain sums) in blocks of
     ops.vrl_sum's _PLAIN_RAY_CHUNK rays, with leaves at the rows
     `ray_rows` of each block of the ray pack, `vrl_rows` of the VRL
     pack and `med_rows` of the medium pack (lists of slices), and, with
-    grid = (density, uv_steps), the density. Returns the ray rows'
-    cotangents (B columns each), the VRL rows', the medium entries'
-    and the density's (None without a grid)."""
+    grid = (density, uv_steps), the density. With tables = (ray rows
+    (B,) int64, table ids (S, C), table weights (S, C)), the sums are
+    the clustered ones (ops.vrl_sum_clustered's gather of each ray's
+    table row), with a leaf at the table weights too. Returns the ray
+    rows' cotangents (B columns each), the VRL rows', the medium
+    entries', the density's and the table weights' (None without a grid
+    or tables)."""
     rays, vrls, tris, medium, gbar = (
         t.detach() for t in (rays, vrls, tris, medium, gbar))
     n_rays = rays.shape[1]
     d_ray = [torch.zeros_like(rays[r]) for r in ray_rows]
     d_vrl = [torch.zeros_like(vrls[r]) for r in vrl_rows]
     d_med = [torch.zeros_like(medium[r]) for r in med_rows]
-    density = d_density = None
+    density = d_density = weights = d_weights = None
     if grid is not None:
         density = grid[0].detach().requires_grad_()
         d_density = torch.zeros_like(density)
+    if tables is not None:
+        weights = tables[2].detach().requires_grad_()
+        d_weights = torch.zeros_like(weights)
     with torch.enable_grad():
         for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
             b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
@@ -107,6 +116,10 @@ def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
                 leaves.append(leaf)
             if grid is not None:
                 leaves.append(density)
+            if tables is not None:
+                leaves.append(weights)
+                vrl_b = vsc._gather_tables(vrl_b, tables[0][b0:b1],
+                                           tables[1], weights)
             out = vs._pair_sums(
                 ray_b, vrl_b, tris, med_b, uniforms[b0:b1], svv, svs,
                 short_vrls, phase_kind,
@@ -120,7 +133,9 @@ def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
                 d += grads.pop(0)
             if grid is not None:
                 d_density += grads.pop(0)
-    return d_ray, d_vrl, d_med, d_density
+            if tables is not None:
+                d_weights += grads.pop(0)
+    return d_ray, d_vrl, d_med, d_density, d_weights
 
 
 def vrl_sum_bwd_reference(rays, vrls, tris, medium, gbar, uniforms, *,
@@ -132,7 +147,7 @@ def vrl_sum_bwd_reference(rays, vrls, tris, medium, gbar, uniforms, *,
     vol_surf_samples). Rays go in blocks of ops.vrl_sum's
     _PLAIN_RAY_CHUNK; the leaves are the VP rows, medium[0:7] and the
     TAU rows of each block."""
-    (d_tau,), (d_power,), (d_par7,), _ = _plain_vjp(
+    (d_tau,), (d_power,), (d_par7,), _, _ = _plain_vjp(
         rays, vrls, tris, medium, gbar, uniforms,
         [slice(pk.TAU, pk.TAU + 3)], [slice(pk.VP, pk.VP + 3)],
         [slice(0, 7)], vol_vol_samples, vol_surf_samples, short_vrls,
@@ -152,7 +167,7 @@ def vrl_sum_hetero_bwd_reference(rays, vrls, tris, medium, density, gbar,
     explicit uniforms. The leaves are the VP and VOD rows, the medium's
     GRID_PAR entries, the TAU and EOD rows of each block of rays, and
     the supersampled density."""
-    (d_tau, d_eod), (d_power, d_vod), d_med, d_density = _plain_vjp(
+    (d_tau, d_eod), (d_power, d_vod), d_med, d_density, _ = _plain_vjp(
         rays, vrls, tris, medium, gbar, uniforms,
         [slice(pk.TAU, pk.TAU + 3), slice(pk.EOD, pk.EOD + N_OD)],
         [slice(pk.VP, pk.VP + 3), slice(pk.VOD, pk.VOD + N_OD)],

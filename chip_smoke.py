@@ -1,10 +1,10 @@
 """Smoke run of alvrl_tpu_torch on one CUDA card (an H100): the config-1
 VRL render, the config-1 train step, the config-2 clustered render
 (Adaptive LightSlice), the config-4 clustered render in a grid medium,
-and the config-4 gradient path and density-recovery trainer end to end
-through the hand-written CUDA kernels (the VRL sum, its seed-replay VJP,
-the transfer matrix R and the clustered sum, and the grid-medium sum,
-VJP, R and clustered sum).
+the config-4 gradient path and density-recovery trainer, and clustered
+gradient steps at configs 2 and 4 end to end through the hand-written
+CUDA kernels (the VRL sum, its seed-replay VJP, the transfer matrix R,
+the clustered sum and its VJP, each also for the grid medium).
 
     python3 chip_smoke.py
 
@@ -96,7 +96,35 @@ Phases, one line each; any failure exits non-zero:
      and a profile of the step; the kernel's output at that full shape
      (262,144 rays x 512 VRLs) held against the timed plain backward's
      at phase 19's bars (d_par to 1e-3), a repeat bit-identical but for
-     d_density, which agrees to DENSITY_REPEAT.
+     d_density, which agrees to DENSITY_REPEAT; and ROADMAP C12's
+     measurement: the median errors of d_power and d_vod against the
+     plain backward at 16,384, 65,536 and 262,144 rays;
+ 23. the clustered backward kernel (vrl_sum_clustered_bwd) vs the plain
+     clustered backward on all 16,384 eye rays and phase 12's config-2
+     tables, for phase 12's media and modes and a zero power channel
+     with a zero sigma_s channel: d_power, d_tau and d_weights at the
+     homogeneous bar, d_par as phase 7; a fall-back launch; a repeat
+     bit-identical; an identity table of all 512 VRLs against
+     vrl_sum_bwd, its d_weights against sum power * d_power;
+ 24. the grid clustered backward kernel (vrl_sum_hetero_clustered_bwd) at
+     its full config-4 shape (262,144 rays, phase 15's tables) vs the
+     plain grid clustered backward on phase 15's subset of whole slices
+     (gbar 0 on the other rays), phase 19's cases and bars with
+     d_weights at the homogeneous bar; an identity table against
+     vrl_sum_hetero_bwd at full shape;
+ 25. the main path: render_clustered_kernel_diff at full config 2 (from
+     sigma_a x 2) and config 4 (from albedo x 0.8, density x 1.25) on
+     the fixed tables of phases 12 and 15, an L2 loss against a
+     clustered render at the preset's values: all four clustered
+     kernels' launch counts must move, every gradient be finite, and
+     same-seed central differences of the kernel forward agree to 5e-3
+     (config 2: sigma_a, sigma_s, g, the light's intensity, a table-
+     weight scale; config 4: sigma_t_color, albedo, scale, the two
+     voxels of largest |grad|);
+ 26. timing of both clustered gradient steps and the config-4 step's
+     parts, each clustered backward kernel alone against its forward
+     and its plain version on phases 14's and 17's inputs, their bounds,
+     and a profile of the config-4 step.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -129,6 +157,7 @@ from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
+from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r, vrl_r_hetero, vrl_r_hetero_reference, vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
@@ -311,7 +340,8 @@ def ptxas_summary(log):
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(vrl_(?:sum|sum_bwd|sum_clustered|r)_kernel)"
+                      r"(vrl_(?:sum|sum_bwd|sum_clustered|sum_clustered_bwd|r)"
+                      r"_kernel)"
                       r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?", line)
         if "Compiling entry function" in line:
             medium = "" if not m or m[4] is None else (
@@ -664,7 +694,9 @@ def media_scenes(dev):
 
 def config2(dev, card, cfg):
     """Phases 11-14, the config-2 clustered render; returns the kernels
-    line's entries of vrl_r and vrl_sum_clustered."""
+    line's entries of vrl_r and vrl_sum_clustered, and what phases 23-26
+    take from it (the scene, its VRLs, packs and tables, the seed, the
+    clustered sum's samples on them and its time)."""
     tcfg = tracer.TracerConfig()  # max_depth 16, rr_depth 5, short VRLs
     params = alvrl.ALVRLParams(**C2_PARAMS,
                                cluster=cl.ClusterParams(**C2_CLUSTER))
@@ -948,7 +980,8 @@ def config2(dev, card, cfg):
         "launches": launches[1], "max_abs_err": c_err,
         "ms": c_med, "plain_ms": cp_med, "bound_ms": c_bound[0],
         "bound_by": c_bound[1], "library_ms": None,
-    }]
+    }], dict(scene=scene, vrls=vrls, packs=packs, seed=seed, sop=sop, tv=tv,
+             tw=tw, cinfo=cinfo, sweep=c_sweep, fwd_ms=c_med)
 
 # (name, uniforms, short VRLs, phase kind) of phase 15's comparisons
 C4_CASES = [("hg_g03", "injected", True, 0), ("hg_g03", "philox", True, 0),
@@ -1259,7 +1292,9 @@ def config4(dev, card, cfg):
             entry("vrl_sum_hetero_clustered", "vrl_sum_clustered.cu", 937,
                   launches[2], errs["clustered"], c_med, cp_med,
                   bounds["clustered"])], dict(
-        scene=scene, vrls=vrls, packs=packs, seed=seed, sweep=s_sweep)
+        scene=scene, vrls=vrls, packs=packs, seed=seed, sweep=s_sweep,
+        sop=sop, tv=tv, tw=tw, cinfo=cinfo, idx=idx, c_sweep=c_sweep,
+        c_fwd_ms=c_med)
 
 
 # phase 19's cases: phase 15's, and a zero VRL power channel with a zero
@@ -1514,6 +1549,33 @@ def config4_grad(dev, card, cfg, c4):
     full_bars, (full_par_rel, _) = grid_bwd_check(out, ref, None, 0)
     full_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     err = max(err, full_err)
+    # ROADMAP C12, measured: the kernel against the plain backward in
+    # float32 and float64 on the eye rays of image rows 128-159, 128-255
+    # and the full frame (the Philox stream of each block's own ray
+    # indices, gbar_f's columns): the median errors of the per-VRL sums
+    # (d_power, d_vod) as the rays in each sum grow, and which side moves
+    # from the float64 value; no bar is applied or moved here
+    growth = {}
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for row_end in (C4_ROWS[1], 2 * C4_ROWS[0], C4_SIZE):
+            g0 = 0 if row_end == C4_SIZE else C4_ROWS[0] * C4_SIZE
+            g1 = row_end * C4_SIZE
+            p_g = tuple(x.contiguous() for x in (packs[0][:, g0:g1],
+                                                 *packs[1:], gbar_f[:, g0:g1]))
+            u = philox_uniforms(seed, g1 - g0, n_vrls, 6, device=dev)
+            if g1 - g0 == n_rays:
+                o, r = out, ref
+            else:
+                o = bwd.vrl_sum_hetero_bwd(*p_g, seed=seed, **kw)
+                r = bwd.vrl_sum_hetero_bwd_reference(*p_g, u, **kw)
+            r64 = bwd.vrl_sum_hetero_bwd_reference(
+                *(x.double() for x in (*p_g, u)), **kw)
+            del u
+            growth[g1 - g0] = [[homog_bar(a[i].T, b[i].T,
+                                          channels=a[i].shape[0])[0]
+                                for a, b in ((o, r), (o, r64), (r, r64))]
+                               for i in (0, 4)]
+            del o, r, r64
     del full, out, again, ref
     sweep, uv = c4["sweep"], cfg.uv_tau_steps
     n_scatter = sweep.open[0] * (2 + uv) + sweep.open[1] * (1 + uv)
@@ -1546,6 +1608,13 @@ def config4_grad(dev, card, cfg, c4):
                   full_bars))
           + f", d_par rel {full_par_rel:.2e}, max abs err {full_err:.4g}, "
           f"d_density repeat {full_rep:.3g}", flush=True)
+    print(f"[22 C12 on {card}] grid backward, median relative error per "
+          f"VRL of d_power and d_vod by eye rays (x {n_vrls} VRLs), kernel vs "
+          "plain float32 / kernel vs plain float64 / plain float32 vs "
+          "float64: " + " | ".join(
+              f"{b} rays: d_power " + "/".join(f"{m:.3e}" for m in pw)
+              + ", d_vod " + "/".join(f"{m:.3e}" for m in vod)
+              for b, (pw, vod) in growth.items()), flush=True)
     prof = profile_device(grad_step, 1, 3)
     if prof is None:
         print("[22 profile] the profiler saw no device operation: not "
@@ -1570,6 +1639,473 @@ def config4_grad(dev, card, cfg, c4):
             "launches": step_launches[1], "max_abs_err": err, "ms": b_med,
             "plain_ms": p_med, "bound_ms": bwd_bound[0],
             "bound_by": bwd_bound[1], "library_ms": None}
+
+
+def live(out, ref, *more):
+    """The columns of (rows, n) results where some row of ref is not 0:
+    (out, ref[, more...]) cut to them, after checking that out is exactly
+    0 on the others. The clustered VJP's per-VRL and per-column outputs
+    are 0 in both versions for VRLs no compared ray reaches and for the
+    tables' padding, and such items would pull a median to 0."""
+    keep = (ref != 0).any(dim=0)
+    for r in more:
+        keep |= (r != 0).any(dim=0)
+    check(not out[:, ~keep].any(), "an output outside the live items")
+    check(int(keep.sum()) > 20, f"{int(keep.sum())} live items")
+    return out[:, keep], ref[:, keep], *(r[:, keep] for r in more)
+
+
+def weights_bar(d_w, ref):
+    """The homogeneous bar of d_weights against ref, per entry, over the
+    live entries; raises."""
+    bar = homog_bar(*(t.reshape(-1, 1) for t in live(
+        d_w.reshape(1, -1), ref.reshape(1, -1))), channels=1)
+    check(bar[0] < HOMOG_MEDIAN and bar[1] < HOMOG_SHARE,
+          f"d_weights median {bar[0]}, share {bar[1]}")
+    return bar
+
+
+def clustered_bwd_check(out, ref, ref64, kind):
+    """bwd_check of the clustered backward's (d_power over the live VRLs,
+    d_par, d_tau) and its d_weights at the homogeneous bar; returns
+    bwd_check's results with the d_weights bar and the largest absolute
+    error."""
+    d_pw, r_pw = live(out[0], ref[0])
+    bars, pars, err = bwd_check((d_pw, out[1], out[2]), (r_pw, *ref[1:3]),
+                                ref64[:3], kind)
+    w_bar = weights_bar(out[3], ref[3])
+    return (*bars, w_bar), pars, max(err, float((out[3] - ref[3]).abs().max()))
+
+
+def fmt_bars(names, bars):
+    return ", ".join(f"{k} {m:.2e}/{sh:.4f}" for k, (m, sh) in zip(names, bars))
+
+
+def clustered_grad(dev, card, cfg, c2, c4):
+    """Phases 23-26, the clustered gradient path (the clustered VJP
+    kernels against their plain versions, a clustered gradient step at
+    full config 2 and config 4, timing); returns the kernels line's
+    entries of vrl_sum_clustered_bwd and vrl_sum_hetero_clustered_bwd."""
+    # 23. the clustered backward kernel against the plain backward at
+    # config-2 shapes: all eye rays on phase 12's tables
+    t0 = time.perf_counter()
+    scene2, vrls2, seed2 = c2["scene"], c2["vrls"], c2["seed"]
+    sop2, tv2, tw2 = c2["sop"], c2["tv"], c2["tw"]
+    n_rays2, n_cols2, n_vrls2 = WIDTH * HEIGHT, tv2.shape[1], vrls2.capacity
+    rng = np.random.default_rng(23)
+    gbar2 = torch.as_tensor(rng.uniform(0.5, 1.5, (3, n_rays2)).astype(
+        np.float32), device=dev)
+    u_inj = torch.as_tensor(rng.random((n_rays2, n_cols2, 6),
+                                       dtype=np.float32), device=dev)
+    u_philox = philox_table_uniforms(seed2, sop2, tv2, 6)
+    cases = [(name, mode, integrator.pack_frame(sc, vrls2)[3], MEDIA[name][1])
+             for name, sc in media_scenes(dev).items()
+             for mode in ("injected", "philox", "long")]
+    zero = list(cases[3][2])       # hg_g06
+    zero[1] = zero[1].clone()
+    zero[1][pk.VP + 1] = 0.0       # a VRL power channel at 0
+    zero[3] = zero[3].clone()
+    zero[3][2] -= zero[3][5]       # sigma_t = sigma_a in channel 2,
+    zero[3][5] = 0.0               # where sigma_s is 0
+    cases.append(("zero_channels", "philox", zero, 0))
+    names = ("d_power", "d_tau", "d_weights")
+    err10, results = 0.0, []
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for name, mode, packs, kind in cases:
+            short = mode != "long"
+            u = u_philox if mode == "philox" else u_inj
+            kw = dict(seed=seed2, uniforms=None if mode == "philox" else u,
+                      short_vrls=short, phase_kind=kind)
+            out = cb.vrl_sum_clustered_bwd(*packs, sop2, tv2, tw2, gbar2, **kw)
+            again = cb.vrl_sum_clustered_bwd(*packs, sop2, tv2, tw2, gbar2,
+                                             **kw)
+            ref, ref64 = (cb.vrl_sum_clustered_bwd_reference(
+                *(x.to(dt) for x in packs), sop2, tv2, tw2.to(dt),
+                gbar2.to(dt), u.to(dt), short_vrls=short, phase_kind=kind)
+                for dt in (torch.float32, torch.float64))
+            torch.cuda.synchronize()
+            tag = f"{name}/{mode}"
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"clustered backward {tag}: a repeat is not bit-identical")
+            check(all(bool(torch.isfinite(o).all()) for o in out),
+                  f"clustered backward {tag} finite")
+            bars, (par_rel, plain_rel), e = clustered_bwd_check(
+                out, ref, ref64, kind)
+            if name == "zero_channels":
+                check(float(out[0][1].abs().max()) > 0.0
+                      and float(out[1][5]) != 0.0,
+                      "zero channels: d power[1] and d sigma_s[2] are not 0")
+            err10 = max(err10, e)
+            results.append(f"{tag}: {fmt_bars(names, bars)}, d_par rel "
+                           f"{par_rel:.2e} (plain f32 vs f64 {plain_rel:.2e})")
+        packs2 = c2["packs"]
+        fb_rows = np.where(rng.random(n_rays2) < 0.05, 0, -1)
+        fb_ids, fb_ws = alvrl.fallback_table(
+            replace(c2["cinfo"], pixel_to_slice=fb_rows.astype(np.int32)), dev)
+        fb = (fb_rows, fb_ids[None].contiguous(), fb_ws[None].contiguous())
+        out = cb.vrl_sum_clustered_bwd(*packs2, *fb, gbar2, seed=seed2)
+        u = philox_table_uniforms(seed2, fb_rows, fb[1], 6)
+        ref, ref64 = (cb.vrl_sum_clustered_bwd_reference(
+            *(x.to(dt) for x in packs2), fb_rows, fb[1], fb[2].to(dt),
+            gbar2.to(dt), u.to(dt)) for dt in (torch.float32, torch.float64))
+        bars, (par_rel, _), e = clustered_bwd_check(out, ref, ref64, 0)
+        check(not out[2][:, torch.as_tensor(fb_rows < 0, device=dev)].any(),
+              "fall-back launch: rays at row -1 get no d_tau")
+        err10 = max(err10, e)
+        results.append(f"fall-back launch ({fb[1].shape[1]} columns, "
+                       f"{int((fb_rows >= 0).sum())} rays): "
+                       f"{fmt_bars(names, bars)}, d_par rel {par_rel:.2e}")
+    ids = torch.arange(n_vrls2, dtype=torch.int32, device=dev)[None]
+    ident = cb.vrl_sum_clustered_bwd(*packs2, np.zeros(n_rays2, np.int64),
+                                     ids, torch.ones((1, n_vrls2), device=dev),
+                                     gbar2, seed=seed2)
+    unc = bwd.vrl_sum_bwd(*packs2, gbar2, seed=seed2)
+    id_bars = [homog_bar(o.T, r.T) for o, r in ((ident[0], unc[0]),
+                                               (ident[2], unc[2]))]
+    for median, share in id_bars:
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"identity table vs vrl_sum_bwd: median {median}, share {share}")
+    id_par = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                 for a, b in zip(ident[1][:7], unc[1][:7]))
+    check(id_par < PAR_RTOL, f"identity table d_par vs vrl_sum_bwd {id_par}")
+    id_w = weights_bar(ident[3][0], (packs2[1][pk.VP:pk.VP + 3]
+                                     * ident[0]).sum(dim=0))
+    results.append(f"identity table ({n_vrls2} columns) vs vrl_sum_bwd: "
+                   f"{fmt_bars(('d_power', 'd_tau'), id_bars)}, d_par rel "
+                   f"{id_par:.2e}; d_weights vs sum power * d_power "
+                   f"{id_w[0]:.2e}/{id_w[1]:.4f}")
+    print(f"[23 clustered backward kernel vs plain on {card}, config 2: B="
+          f"{n_rays2} S={tv2.shape[0]} C={n_cols2} N={n_vrls2}; median/share "
+          f"per item; repeats bit-identical; {time.perf_counter() - t0:.1f} s] "
+          + " | ".join(results), flush=True)
+    del u_inj, u_philox, cases, zero
+
+    # 24. the grid clustered backward kernel at its full main-path shape
+    # against the plain grid backward on phase 15's subset of whole
+    # slices (gbar 0 on the other rays, so every output is the subset's)
+    t0 = time.perf_counter()
+    scene4, vrls4, packs4, seed4 = (c4[k] for k in ("scene", "vrls", "packs",
+                                                    "seed"))
+    sop4, tv4, tw4, idx = c4["sop"], c4["tv"], c4["tw"], c4["idx"]
+    kw4 = dict(uv_steps=cfg.uv_tau_steps)
+    n_rays4, n_cols4, n_vrls4 = packs4[0].shape[1], tv4.shape[1], vrls4.capacity
+    idx_t = torch.as_tensor(idx, device=dev)
+    rows_sub = sop4[idx]
+    rng = np.random.default_rng(24)
+    gbar_sub = torch.as_tensor(rng.uniform(0.5, 1.5, (3, len(idx))).astype(
+        np.float32), device=dev)
+    gbar4 = torch.zeros((3, n_rays4), device=dev)
+    gbar4[:, idx_t] = gbar_sub
+    gen = torch.Generator(device=dev).manual_seed(24)
+    u_c = torch.rand((n_rays4, n_cols4, 6), generator=gen, device=dev)
+    u_c_sub = philox_draws(seed4, idx_t[:, None], tv4[torch.as_tensor(
+        rows_sub, device=dev).long()].long(), 6)
+    zero = list(packs4)
+    zero[1] = zero[1].clone()
+    zero[1][pk.VP + 1] = 0.0  # a VRL power channel at 0
+    zero[3] = zero[3].clone()
+    zero[3][5] = 0.0          # sigma_s_color[2]: an albedo channel at 0
+    names = ("d_power", "d_tau", "d_eod", "d_vod", "d_density")
+    err11, results = 0.0, []
+    outside = torch.ones(n_rays4, dtype=torch.bool, device=dev)
+    outside[idx_t] = False
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for name, mode, short, kind in C4_BWD_CASES:
+            p = zero if name == "zero_channels" else packs4
+            p_sub = (p[0][:, idx_t].contiguous(), *p[1:])
+            case = dict(short_vrls=short, phase_kind=kind, **kw4)
+            inj = mode != "philox"
+            kern = dict(seed=seed4, uniforms=u_c if inj else None)
+            out = cb.vrl_sum_hetero_clustered_bwd(*p, sop4, tv4, tw4, gbar4,
+                                                  **kern, **case)
+            again = cb.vrl_sum_hetero_clustered_bwd(*p, sop4, tv4, tw4, gbar4,
+                                                    **kern, **case)
+            u = u_c[idx_t] if inj else u_c_sub
+            ref, ref64 = (cb.vrl_sum_hetero_clustered_bwd_reference(
+                *(x.to(dt) for x in p_sub), rows_sub, tv4, tw4.to(dt),
+                gbar_sub.to(dt), u.to(dt), **case)
+                for dt in (torch.float32, torch.float64))
+            torch.cuda.synchronize()
+            tag = f"{name}/{mode}"
+            check(all(torch.equal(out[i], again[i]) for i in (0, 1, 2, 3, 4, 6)),
+                  f"grid clustered backward {tag}: a repeat is not "
+                  "bit-identical")
+            rep = float((out[5] - again[5]).abs().max())
+            check(rep <= DENSITY_REPEAT * float(out[5].abs().max()),
+                  f"grid clustered backward {tag}: d_density repeat {rep}")
+            check(all(bool(torch.isfinite(o).all()) for o in out),
+                  f"grid clustered backward {tag} finite")
+            check(not out[2][:, outside].any() and not out[3][:, outside].any(),
+                  f"grid clustered backward {tag}: rays outside the subset")
+            # the VRLs of the subset's tables (d_power, d_vod)
+            n_pw = out[0].shape[0]
+            vrl_rows, ref_rows = live(torch.cat([out[0], out[4]]),
+                                      torch.cat([ref[0], ref[4]]))
+            on_sub = (vrl_rows[:n_pw], out[1], out[2][:, idx_t],
+                      out[3][:, idx_t], vrl_rows[n_pw:], out[5])
+            bars, (par_rel, plain_rel) = grid_bwd_check(
+                on_sub, (ref_rows[:n_pw], *ref[1:4], ref_rows[n_pw:], ref[5]),
+                ref64[:6], kind)
+            w_bar = weights_bar(out[6], ref[6])
+            if name == "zero_channels":
+                check(float(out[0][1].abs().max()) > 0.0
+                      and float(out[1][5]) != 0.0,
+                      "zero channels: d power[1] and d sigma_s[2] are not 0")
+            err11 = max(err11, *(float((o - r).abs().max()) for o, r in zip(
+                (*on_sub, out[6]), (ref_rows[:n_pw], *ref[1:4],
+                                    ref_rows[n_pw:], *ref[5:]))))
+            results.append(f"{tag} ({vrl_rows.shape[1]} VRLs live): "
+                           f"{fmt_bars(names, bars)}, d_weights "
+                           f"{w_bar[0]:.2e}/{w_bar[1]:.4f}, d_par rel "
+                           f"{par_rel:.2e} (plain f32 vs f64 {plain_rel:.2e}), "
+                           f"d_density repeat {rep:.3g} of max "
+                           f"{float(out[5].abs().max()):.4g}")
+    del u_c, zero
+    gbar4 = torch.as_tensor(rng.uniform(0.5, 1.5, (3, n_rays4)).astype(
+        np.float32), device=dev)
+    ident = cb.vrl_sum_hetero_clustered_bwd(
+        *packs4, np.zeros(n_rays4, np.int64),
+        torch.arange(n_vrls4, dtype=torch.int32, device=dev)[None],
+        torch.ones((1, n_vrls4), device=dev), gbar4, seed=seed4, **kw4)
+    unc = bwd.vrl_sum_hetero_bwd(*packs4, gbar4, seed=seed4, **kw4)
+    id_bars, (id_par, _) = grid_bwd_check(ident[:6], unc, None, 0)
+    id_w = weights_bar(ident[6][0], (packs4[1][pk.VP:pk.VP + 3]
+                                     * ident[0]).sum(dim=0))
+    del ident, unc
+    print(f"[24 grid clustered backward kernel vs plain on {card}, config 4: "
+          f"B={n_rays4} S={tv4.shape[0]} C={n_cols4} N={n_vrls4}, "
+          f"{len(group_by_slice(sop4, 128)[1])} tiles; compared on the "
+          f"{len(idx)} rays of slices {int(rows_sub.min())}-"
+          f"{int(rows_sub.max())} (gbar 0 elsewhere); median/share per item; "
+          f"{time.perf_counter() - t0:.1f} s] " + " | ".join(results)
+          + f" | identity table ({n_vrls4} columns, all {n_rays4} rays) vs "
+          f"vrl_sum_hetero_bwd: {fmt_bars(names, id_bars)}, d_par rel "
+          f"{id_par:.2e}; d_weights vs sum power * d_power "
+          f"{id_w[0]:.2e}/{id_w[1]:.4f}", flush=True)
+
+    # 25. the main path: render_clustered_kernel_diff at full config 2 and
+    # config 4 on one prepare_clustering pass's tables (phases 12, 15),
+    # held fixed; L2 loss against a clustered render at the preset's
+    # values on the same tables
+    t0 = time.perf_counter()
+    fb2 = alvrl.fallback_table(c2["cinfo"], dev)
+    fb4 = alvrl.fallback_table(c4["cinfo"], dev)
+    target2 = integrator.render_clustered_kernel(
+        scene2, vrls2, sop2, tv2, tw2, torch.Generator().manual_seed(2500),
+        cfg, fallback=fb2)
+    target4 = integrator.render_clustered_kernel(
+        scene4, vrls4, sop4, tv4, tw4, torch.Generator().manual_seed(2500),
+        cfg, fallback=fb4)
+    med2, med4 = scene2.medium, scene4.medium
+    intensity0 = scene2.emitters.intensity
+    start2 = dict(sigma_a=med2.sigma_a * 2, sigma_s=med2.sigma_s, g=med2.g,
+                  intensity=intensity0, wscale=torch.tensor(1.0, device=dev))
+    start4 = dict(density=med4.density * C4_START["density"],
+                  sigma_t_color=med4.sigma_t_color,
+                  albedo=med4.albedo * C4_START["albedo"], g=med4.g,
+                  scale=med4.scale)
+
+    def loss2(p, render):
+        sc = replace(scene2, medium=replace(
+            med2, sigma_a=p["sigma_a"], sigma_s=p["sigma_s"], g=p["g"]))
+        vr = replace(vrls2, power=vrls2.power * (p["intensity"] / intensity0))
+        img = render(sc, vr, sop2, tv2, tw2 * p["wscale"],
+                     torch.Generator().manual_seed(3), cfg, fallback=fb2)
+        return ((img.double() - target2.double()) ** 2).mean()
+
+    def loss4(p, render):
+        med = replace(gmed.with_density(med4, p["density"]),
+                      sigma_t_color=p["sigma_t_color"], albedo=p["albedo"],
+                      g=p["g"], scale=p["scale"])
+        img = render(replace(scene4, medium=med), vrls4, sop4, tv4, tw4,
+                     torch.Generator().manual_seed(3), cfg, fallback=fb4)
+        return ((img.double() - target4.double()) ** 2).mean()
+
+    def grad_step(loss, start):
+        p = {k: v.clone().requires_grad_() for k, v in start.items()}
+        value = loss(p, integrator.render_clustered_kernel_diff)
+        return value, dict(zip(p, torch.autograd.grad(value, list(p.values()))))
+
+    counted = (vrl_sum_clustered, cb.vrl_sum_clustered_bwd,
+               vrl_sum_hetero_clustered, cb.vrl_sum_hetero_clustered_bwd)
+    for fn in counted:
+        fn.launches = 0
+    (l2, grads2), (l4, grads4) = grad_step(loss2, start2), grad_step(loss4,
+                                                                     start4)
+    torch.cuda.synchronize()
+    path_launches = [fn.launches for fn in counted]
+    check(min(path_launches) >= 1, f"the clustered steps' launches "
+          f"{path_launches}")
+    fd_results = []
+    top4 = [int(i) for i in grads4["density"].reshape(-1).abs().argsort(
+        descending=True)[:2]]
+    # (name, flat index, step) of each central difference
+    for label, loss, start, grads, params in (
+            ("config 2", loss2, start2, grads2,
+             [("sigma_a", 0, 2e-3), ("sigma_s", 1, 2e-3), ("g", 0, 2e-3),
+              ("intensity", 0, 0.4), ("wscale", 0, 2e-3)]),
+            ("config 4", loss4, start4, grads4,
+             [("sigma_t_color", 0, 2e-3), ("albedo", 1, 2e-3),
+              ("scale", 0, 2e-3)] + [("density", i, 2e-2) for i in top4])):
+        value = float(loss(start, integrator.render_clustered_kernel))
+        check(math.isfinite(value) and value > 0.0, f"{label} loss {value}")
+        for k, g in grads.items():
+            check(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0,
+                  f"{label} gradient {k}")
+        res = []
+        for name, i, eps in params:
+            def shifted(s):
+                q = {k: v.clone() for k, v in start.items()}
+                with torch.no_grad():
+                    q[name].reshape(-1)[i] += s
+                    return float(loss(q, integrator.render_clustered_kernel))
+            fd = (shifted(eps) - shifted(-eps)) / (2 * eps)
+            a = float(grads[name].reshape(-1)[i])
+            check(fd != 0.0 and abs(a - fd) <= FD_TOL * abs(fd),
+                  f"{label} FD {name}[{i}]: {a} vs {fd}")
+            res.append(f"{name}[{i}] ad {a:.6g} fd {fd:.6g}")
+        fd_results.append(f"{label} (loss {value:.6g}): " + ", ".join(res))
+    print(f"[25 clustered gradient path on {card}] render_clustered_kernel_diff"
+          f" on fixed tables: config 2 ({WIDTH}x{HEIGHT}, {n_vrls2} VRLs, "
+          f"S={tv2.shape[0]} C={n_cols2}) from sigma_a x 2, config 4 "
+          f"({C4_SIZE}x{C4_SIZE}, {C4_GRID}^3, S={tv4.shape[0]} C={n_cols4}) "
+          f"from albedo x {C4_START['albedo']}, density x "
+          f"{C4_START['density']}: launches vrl_sum_clustered "
+          f"{path_launches[0]} vrl_sum_clustered_bwd {path_launches[1]} "
+          f"vrl_sum_hetero_clustered {path_launches[2]} "
+          f"vrl_sum_hetero_clustered_bwd {path_launches[3]}; "
+          f"{int((grads4['density'] != 0.0).sum())} of "
+          f"{grads4['density'].numel()} voxels with a non-zero gradient | "
+          "same-seed FD of the kernel forward: " + " | ".join(fd_results)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 26. timing: the steps and their parts, each kernel alone against its
+    # forward and its plain version on the forward's timed inputs
+    # (phases 14, 17, whose samples c2["sweep"], c4["c_sweep"] counted),
+    # the bounds, a profile of the config-4 step
+    lib = cb._library()
+    ray_block = lib.alvrl_ray_block()
+    step2_ms = host_ms(lambda: grad_step(loss2, start2), 2, 5)
+    step4_ms = host_ms(lambda: grad_step(loss4, start4), 2, 5)
+    scene_s = replace(scene4, medium=replace(
+        gmed.with_density(med4, start4["density"]), albedo=start4["albedo"]))
+    packs_s = integrator.pack_frame(scene_s, vrls4)[3]
+    pack_ms = host_ms(lambda: integrator.pack_frame(scene_s, vrls4), 2, 5)
+    layout_ms = host_ms(lambda: cb.host_layout(sop4, tv4, n_vrls4, ray_block,
+                                               dev), 2, 5)
+    grid_arg = (packs_s[4], cfg.uv_tau_steps)
+    layout4 = cb.host_layout(sop4, tv4, n_vrls4, ray_block, dev)
+    c_out = torch.zeros((3, n_rays4), device=dev)
+    kind4 = scene4.medium.phase_kind
+    fwd_s_ms = cuda_ms_batched(lambda: vsc._launch(
+        vsc._library(), *packs_s[:4], *layout4[:2], tv4, tw4, None, seed4, 2,
+        2, True, kind4, c_out, grid_arg), 2, 5, 5)
+    bwd_s_ms = cuda_ms_batched(lambda: cb._launch(
+        lib, *packs_s[:4], layout4, tv4, tw4, None, seed4, 2, 2, True, kind4,
+        gbar4, grid_arg), 2, 5, 5)
+
+    # each kernel alone on its forward's timed inputs, against the forward
+    # there and the plain backward
+    packs2 = c2["packs"]
+    kind2 = scene2.medium.phase_kind
+    layout2 = cb.host_layout(sop2, tv2, n_vrls2, ray_block, dev)
+    tiles2 = layout2[:2]
+    c2_out = torch.zeros((3, n_rays2), device=dev)
+    f2_ms = cuda_ms_batched(lambda: vsc._launch(
+        vsc._library(), *packs2, *tiles2, tv2, tw2, None, seed2, 2, 2, True,
+        kind2, c2_out), 3, 10, 10)
+    b2_ms = cuda_ms_batched(lambda: cb._launch(
+        lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2, True, kind2,
+        gbar2), 3, 10, 10)
+    check(all(torch.equal(a, b) for a, b in zip(
+        cb._launch(lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2, True,
+                   kind2, gbar2),
+        cb.vrl_sum_clustered_bwd(*packs2, sop2, tv2, tw2, gbar2, seed=seed2))),
+        "the bare clustered backward launch is the wrapper's")
+    grid4 = (packs4[4], cfg.uv_tau_steps)
+    c4_out = torch.zeros((3, n_rays4), device=dev)
+    f4_ms = cuda_ms_batched(lambda: vsc._launch(
+        vsc._library(), *packs4[:4], *layout4[:2], tv4, tw4, None, seed4, 2,
+        2, True, kind4, c4_out, grid4), 2, 5, 5)
+    b4_ms = cuda_ms_batched(lambda: cb._launch(
+        lib, *packs4[:4], layout4, tv4, tw4, None, seed4, 2, 2, True, kind4,
+        gbar4, grid4), 2, 5, 5)
+    with plain_chunk(C4_PLAIN_CHUNK):
+        u2 = philox_table_uniforms(seed2, sop2, tv2, 6)
+        p2_ms = cuda_ms(lambda: cb.vrl_sum_clustered_bwd_reference(
+            *packs2, sop2, tv2, tw2, gbar2, u2), 0, 2)
+        u4 = philox_table_uniforms(seed4, sop4, tv4, 6)
+        p4_ms = cuda_ms(lambda: cb.vrl_sum_hetero_clustered_bwd_reference(
+            *packs4, sop4, tv4, tw4, gbar4, u4, **kw4), 0, 1)
+        del u2, u4
+    sweep2, sweep4, uv = c2["sweep"], c4["c_sweep"], cfg.uv_tau_steps
+    n_scatter = sweep4.open[0] * (2 + uv) + sweep4.open[1] * (1 + uv)
+    lay_bytes2 = nbytes(*layout2)
+    b2_bound = bound(
+        kernel_ops("vrl_sum_bwd", sweep2, kind2 == 0, True),
+        nbytes(*packs2, tv2, tw2, gbar2) + lay_bytes2
+        + 4 * (3 * n_rays2 + 3 * n_vrls2 + tv2.numel() + 8))
+    rows4 = 3 + pk.NQ + 1
+    b4_bound = bound(
+        kernel_ops("vrl_sum_hetero_bwd", sweep4, kind4 == 0, True, uv),
+        nbytes(*packs4, tv4, tw4, gbar4, *layout4)
+        + 4 * (rows4 * (n_rays4 + n_vrls4) + tv4.numel() + pk.GRID_MED_LEN
+               + packs4[4].numel() + n_scatter))
+    (s2_med, s2_spread), (s4_med, s4_spread), (pk_med, _), (ly_med, _), \
+        (fs_med, _), (bs_med, _), (f2_med, _), (b2_med, b2_spread), \
+        (f4_med, _), (b4_med, b4_spread), (p2_med, _), (p4_med, _) = map(
+            summary, (step2_ms, step4_ms, pack_ms, layout_ms, fwd_s_ms,
+                      bwd_s_ms, f2_ms, b2_ms, f4_ms, b4_ms, p2_ms, p4_ms))
+    print(f"[26 clustered gradient timing on {card}] config-4 step (host "
+          f"clock, median of 5 after 2) {s4_med:.3f} ms (spread "
+          f"{s4_spread:.1%}); alone on its inputs: packs {pk_med:.3f} ms, "
+          f"host layout (grouping, CSR) {ly_med:.3f} ms, forward kernel "
+          f"{fs_med:.4f} ms, backward kernel {bs_med:.4f} ms, rest (the "
+          f"wrappers' host work, autograd of the packs and the upsample, "
+          f"film, loss) {s4_med - pk_med - ly_med - fs_med - bs_med:.3f} ms; "
+          f"config-2 step {s2_med:.3f} ms (spread {s2_spread:.1%}) | alone "
+          f"(CUDA events over launches in a row) on phase 14's inputs: "
+          f"vrl_sum_clustered_bwd {b2_med:.4f} ms (spread {b2_spread:.1%}) "
+          f"against the forward {f2_med:.4f} ms ({b2_med / f2_med:.2f}x; "
+          f"phase 14 {c2['fwd_ms']:.4f}), bound {b2_bound[0]:.4f} ms by "
+          f"{b2_bound[1]} ({sweep2}), plain {p2_med:.1f} ms | on phase 17's "
+          f"inputs: vrl_sum_hetero_clustered_bwd {b4_med:.4f} ms (spread "
+          f"{b4_spread:.1%}) against the forward {f4_med:.4f} ms "
+          f"({b4_med / f4_med:.2f}x; phase 17 {c4['c_fwd_ms']:.4f}), bound "
+          f"{b4_bound[0]:.4f} ms by {b4_bound[1]} ({sweep4}, {n_scatter} "
+          f"density scatters), plain {p4_med:.1f} ms", flush=True)
+    prof = profile_device(lambda: grad_step(loss4, start4), 1, 3)
+    if prof is None:
+        print("[26 profile] the profiler saw no device operation: not "
+              "measured", flush=True)
+    else:
+        span, busy, n_ops, by_name = prof
+        mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
+                for k in ("vrl_sum_clustered_kernel",
+                          "vrl_sum_clustered_bwd_kernel")}
+        top = sorted(((v, k) for k, v in by_name.items()
+                      if not any(m + "<" in k for m in mine)),
+                     reverse=True)[:4]
+        print(f"[26 profile on {card}] per traced config-4 clustered "
+              f"gradient step: device span {span:.3f} ms, busy {busy:.3f} ms, "
+              f"idle share {1 - busy / span:.1%}, {n_ops:g} device ops; "
+              + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%} of busy)"
+                          for k, v in mine.items()) + "; next: "
+              + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
+              flush=True)
+
+    def entry(name, line, n, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda",
+                "source": "alvrl_tpu_torch/csrc/vrl_sum_clustered_bwd.cu",
+                "replaces": f"alvrl_tpu/ops/vrl_pallas_bwd.py:{line}",
+                "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": None}
+
+    return [entry("vrl_sum_clustered_bwd", 1046, path_launches[1], err10,
+                  b2_med, p2_med, b2_bound),
+            entry("vrl_sum_hetero_clustered_bwd", 1130, path_launches[3],
+                  err11, b4_med, p4_med, b4_bound)]
 
 
 def main():
@@ -1896,9 +2432,10 @@ def main():
               + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
               flush=True)
 
-    c2_kernels = config2(dev, card, cfg)
+    c2_kernels, c2 = config2(dev, card, cfg)
     c4_kernels, c4 = config4(dev, card, cfg)
     c4_grad_kernel = config4_grad(dev, card, cfg, c4)
+    clustered_grad_kernels = clustered_grad(dev, card, cfg, c2, c4)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -1914,7 +2451,7 @@ def main():
         "launches": step_launches[1], "max_abs_err": bwd_err,
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
-    }, *c2_kernels, *c4_kernels, c4_grad_kernel]}))
+    }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

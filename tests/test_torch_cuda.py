@@ -1,7 +1,8 @@
 """The CUDA kernels of alvrl_tpu_torch against their plain PyTorch
 versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
-the transfer matrix R (csrc/vrl_r.cu) and the clustered sum
-(csrc/vrl_sum_clustered.cu), in a homogeneous and in a grid medium.
+the transfer matrix R (csrc/vrl_r.cu), the clustered sum
+(csrc/vrl_sum_clustered.cu) and its VJP (csrc/vrl_sum_clustered_bwd.cu),
+in a homogeneous and in a grid medium.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -50,6 +51,12 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_clustered_reference,
     vrl_sum_hetero_clustered,
     vrl_sum_hetero_clustered_reference,
+)
+from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
+    vrl_sum_clustered_bwd,
+    vrl_sum_clustered_bwd_reference,
+    vrl_sum_hetero_clustered_bwd,
+    vrl_sum_hetero_clustered_bwd_reference,
 )
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
@@ -586,6 +593,183 @@ def test_cuda_grid_render_diff_launches_both_grid_kernels(cuda):
     grads = torch.autograd.grad(img.mean(), list(params.values()))
     assert vrl_sum_hetero.launches == fwd + 1
     assert vrl_sum_hetero_bwd.launches == bwd + 1
+    for g in grads:
+        assert g.is_cuda and torch.isfinite(g).all() and float(
+            g.abs().sum()) > 0.0
+
+
+# --- the clustered backward kernel -------------------------------------------
+
+
+def _assert_weights_close(d_w, r_w):
+    assert torch.isfinite(d_w).all() and float(d_w.abs().sum()) > 0.0
+    median, share = homog_bar(d_w.reshape(-1, 1), r_w.reshape(-1, 1),
+                              channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def _clustered_bwd_case(device, packs, rows, ids, ws, injected, seed,
+                        short_vrls, kind):
+    """(kernel output, plain output) of the clustered backward of either
+    medium (grid packs have the density as a fifth entry)."""
+    n_rays = packs[0].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=device)
+    u = _uniforms(device, injected, 14, (n_rays, ids.shape[1], 6))
+    kw = dict(short_vrls=short_vrls, phase_kind=kind)
+    kernel, plain = ((vrl_sum_clustered_bwd, vrl_sum_clustered_bwd_reference)
+                     if len(packs) == 4 else
+                     (vrl_sum_hetero_clustered_bwd,
+                      vrl_sum_hetero_clustered_bwd_reference))
+    before = kernel.launches
+    out = kernel(*packs, rows, ids, ws, gbar, seed=seed, uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if u is None:
+        u = philox_table_uniforms(seed, rows, ids, 6)
+    return out, plain(*packs, rows, ids, ws, gbar, u, **kw)
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_clustered_bwd_kernel_matches_plain(cuda, medium, injected,
+                                                 short_vrls):
+    """The clustered backward kernel vs the plain clustered backward on
+    the ragged 260 x 77 shapes with the 45-column tables of
+    test_cuda_clustered_kernel_matches_plain, every template: d_power,
+    d_tau and d_weights at the homogeneous bar, d_par to PAR_RTOL; rays
+    at row -1 get no d_tau."""
+    g, kind = MEDIA[medium]
+    packs = _ragged_packs(cuda, g, kind)
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    out, ref = _clustered_bwd_case(cuda, packs, rows, ids, ws, injected, 41,
+                                   short_vrls, kind)
+    _assert_bwd_close(out[:3], ref[:3], kind)
+    _assert_weights_close(out[3], ref[3])
+    assert not out[2][:, torch.as_tensor(rows < 0, device=cuda)].any()
+
+
+@pytest.mark.parametrize("kind", [0, 1], ids=["hg", "rayleigh"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_grid_clustered_bwd_kernel_matches_plain(cuda, kind, injected,
+                                                      short_vrls):
+    """The grid clustered backward kernel vs its plain version on the
+    ragged grid packs and 45-column tables, every template: the grid
+    backward's bars and d_weights at the homogeneous bar."""
+    packs = _grid_packs(cuda, kind)
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    out, ref = _clustered_bwd_case(cuda, packs, rows, ids, ws, injected, 43,
+                                   short_vrls, kind)
+    _assert_grid_bwd_close(out[:6], ref[:6], kind)
+    _assert_weights_close(out[6], ref[6])
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
+def test_cuda_clustered_bwd_rows_over_several_tiles(cuda, grid):
+    """Rows of 130-260 rays, so each spans two or three 128-ray tiles
+    whose column sums add in tile order: one row of every ray, and two
+    rows at random."""
+    packs = _grid_packs(cuda) if grid else _ragged_packs(cuda, 0.6, 0)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    _, ids, ws = _tables(cuda, n_rays, n_vrls, n_rows=2)
+    for rows in (np.zeros(n_rays, np.int64),
+                 np.random.default_rng(2).integers(0, 2, n_rays)):
+        out, ref = _clustered_bwd_case(cuda, packs, rows, ids, ws, False, 47,
+                                       True, 0)
+        if grid:
+            _assert_grid_bwd_close(out[:6], ref[:6], 0)
+        else:
+            _assert_bwd_close(out[:3], ref[:3], 0)
+        _assert_weights_close(out[-1], ref[-1])
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
+def test_cuda_clustered_bwd_kernel_zero_channels(cuda, grid):
+    """ROADMAP C7 on the clustered path: VRL power channel 1 and sigma_s
+    (grid: sigma_s_color) channel 2 at 0; the kernel's d power[1] and d
+    sigma_s[2] are not 0 and match the plain version."""
+    packs = list(_grid_packs(cuda) if grid else _ragged_packs(cuda, 0.4, 0))
+    packs[1] = packs[1].clone()
+    packs[1][pk.VP + 1] = 0.0
+    packs[3] = packs[3].clone()
+    if not grid:
+        packs[3][2] -= packs[3][5]  # sigma_t = sigma_a
+    packs[3][5] = 0.0
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    out, ref = _clustered_bwd_case(cuda, packs, rows, ids, ws, False, 3, True,
+                                   0)
+    if grid:
+        _assert_grid_bwd_close(out[:6], ref[:6], 0)
+    else:
+        _assert_bwd_close(out[:3], ref[:3], 0)
+    assert float(out[0][1].abs().max()) > 0.0 and float(out[1][5]) != 0.0
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
+def test_cuda_clustered_bwd_kernel_repeats(cuda, grid):
+    """A repeat is bit-identical but for d_density (atomics), which
+    agrees to DENSITY_REPEAT of its largest entry; another seed differs."""
+    packs = _grid_packs(cuda) if grid else _ragged_packs(cuda, 0.0, 1)
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
+    fn = vrl_sum_hetero_clustered_bwd if grid else vrl_sum_clustered_bwd
+    a, b, c = (fn(*packs, rows, ids, ws, gbar, seed=s) for s in (5, 5, 6))
+    exact = [0, 1, 2, 3, 4, 6] if grid else [0, 1, 2, 3]
+    assert all(torch.equal(a[i], b[i]) for i in exact)
+    assert not torch.equal(a[0], c[0])
+    if grid:
+        assert float((a[5] - b[5]).abs().max()) \
+            <= DENSITY_REPEAT * float(a[5].abs().max())
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
+def test_cuda_clustered_bwd_identity_table_is_the_unclustered_vjp(cuda,
+                                                                  grid):
+    """One row of all 77 VRLs at weight 1 gives the unclustered backward
+    kernel's result on the same rays and seed, and d_weights is the sum
+    over channels of the power times d_power."""
+    packs = _grid_packs(cuda) if grid else _ragged_packs(cuda, 0.6, 0)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(8).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    ids = torch.arange(n_vrls, dtype=torch.int32, device=cuda)[None]
+    fn, ref_fn = ((vrl_sum_hetero_clustered_bwd, vrl_sum_hetero_bwd) if grid
+                  else (vrl_sum_clustered_bwd, vrl_sum_bwd))
+    out = fn(*packs, np.zeros(n_rays, np.int64), ids,
+             torch.ones((1, n_vrls), device=cuda), gbar, seed=13)
+    ref = ref_fn(*packs, gbar, seed=13)
+    if grid:
+        _assert_grid_bwd_close(out[:6], ref, 0)
+    else:
+        _assert_bwd_close(out[:3], ref, 0)
+    _assert_weights_close(out[-1][0], (packs[1][pk.VP:pk.VP + 3]
+                                       * ref[0]).sum(dim=0))
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
+def test_cuda_clustered_render_diff_launches_both_kernels(cuda, grid):
+    """render_clustered_kernel_diff goes through the clustered sum and its
+    backward kernel, and its gradients reach the medium and the table
+    weights."""
+    scene = (presets.cornell_grid_smoke(16, 16, grid_res=8, device=cuda)
+             if grid else presets.cornell_smoke(16, 16, device=cuda))
+    med = scene.medium
+    names = (("density", "sigma_t_color", "albedo", "g", "scale") if grid
+             else ("sigma_a", "sigma_s", "g"))
+    params = {k: getattr(med, k).clone().requires_grad_() for k in names}
+    scene = replace(scene, medium=replace(med, **params))
+    rows, ids, ws = _tables(cuda, 256, 512)
+    ws.requires_grad_()
+    fwd, bwd = ((vrl_sum_hetero_clustered, vrl_sum_hetero_clustered_bwd)
+                if grid else (vrl_sum_clustered, vrl_sum_clustered_bwd))
+    before = (fwd.launches, bwd.launches)
+    img = integrator.render_clustered_kernel_diff(
+        scene, _bench_vrls(cuda), rows, ids, ws,
+        torch.Generator().manual_seed(0))
+    grads = torch.autograd.grad(img.mean(), [*params.values(), ws])
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     for g in grads:
         assert g.is_cuda and torch.isfinite(g).all() and float(
             g.abs().sum()) > 0.0
