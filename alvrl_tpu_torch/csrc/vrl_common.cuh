@@ -1,7 +1,9 @@
 // Device code shared by the VRL sum (vrl_sum.cu), its VJP
 // (vrl_sum_bwd.cu), the clustered sum (vrl_sum_clustered.cu), its VJP
-// (vrl_sum_clustered_bwd.cu) and the transfer matrix (vrl_r.cu): the pack
-// layouts, the Philox stream, the phase functions, the shadow test, the
+// (vrl_sum_clustered_bwd.cu), the transfer matrix (vrl_r.cu) and the
+// BVH-occlusion sum (vrl_sum_bvh.cu): the pack layouts, the Philox
+// stream, the phase functions, the shadow test (the Wald test of one
+// triangle, and the flat sweep as one occlusion policy), the
 // clustered tables' staging (stage_table_piece), the two samplers of the
 // estimator, the two media (homogeneous, Medium; grid, GridMedium), the
 // estimator itself (pair_terms, templated on the medium), its cotangents
@@ -207,39 +209,69 @@ __device__ __forceinline__ int stage_table_piece(const float* __restrict__ vrls,
   return nc;
 }
 
-// Any triangle blocking the open segment p -> q (ends shrunk by
-// 1e-3 * max(|q - p|, 1))? Division-free Wald test.
-__device__ bool occluded(const float* __restrict__ s_tri, int T, f3 p, f3 q) {
+// A shadow segment p -> q: its unit direction u and the open interval
+// (lo, hi) of arc length it tests (ends shrunk by 1e-3 * max(|q - p|, 1)).
+struct Segment {
+  f3 p, u;
+  float lo, hi;
+};
+
+__device__ __forceinline__ Segment make_segment(f3 p, f3 q) {
   const f3 dd = q - p;
   const float len2 = dot3(dd, dd);
   const float idist = 1.0f / sqrtf(fmaxf(len2, 1e-30f));
   const float dist = len2 * idist;
-  const f3 u = dd * idist;
-  const float lo = 1e-3f * fmaxf(dist, 1.0f);
-  const float hi = dist - lo;
+  Segment s;
+  s.p = p;
+  s.u = dd * idist;
+  s.lo = 1e-3f * fmaxf(dist, 1.0f);
+  s.hi = dist - s.lo;
+  return s;
+}
+
+// Does the triangle (p0, e1 = p1 - p0, e2 = p2 - p0) block segment s?
+// The division-free Wald test; both occlusion policies (FlatTris here,
+// BvhTris in vrl_sum_bvh.cu) call it, so they agree bit for bit.
+__device__ __forceinline__ bool wald_hit(const Segment& s, f3 p0, f3 e1, f3 e2) {
+  const f3 pv = cross3(s.u, e2);
+  const float det = dot3(e1, pv);
+  const float sgn = det >= 0.0f ? 1.0f : -1.0f;
+  const float adet = det * sgn;
+  const f3 tv = s.p - p0;
+  const float uu = dot3(tv, pv) * sgn;
+  const f3 qv = cross3(tv, e1);
+  const float vv = dot3(s.u, qv) * sgn;
+  const float tt = dot3(e2, qv) * sgn;
+  float mn = fminf(uu, vv);
+  mn = fminf(mn, adet - (uu + vv));
+  mn = fminf(mn, tt - s.lo * adet);
+  mn = fminf(mn, s.hi * adet - tt);
+  mn = fminf(mn, adet - 1e-12f);
+  return mn > 0.0f;
+}
+
+// Any of the T triangles staged at s_tri blocking the open segment
+// p -> q? One sweep, ending at the first blocker.
+__device__ bool occluded(const float* __restrict__ s_tri, int T, f3 p, f3 q) {
+  const Segment s = make_segment(p, q);
   for (int t = 0; t < T; ++t) {
     const float* tr = s_tri + t * TRI_COLS;
-    const f3 p0 = {tr[0], tr[1], tr[2]};
-    const f3 e1 = {tr[3], tr[4], tr[5]};
-    const f3 e2 = {tr[6], tr[7], tr[8]};
-    const f3 pv = cross3(u, e2);
-    const float det = dot3(e1, pv);
-    const float sgn = det >= 0.0f ? 1.0f : -1.0f;
-    const float adet = det * sgn;
-    const f3 tv = p - p0;
-    const float uu = dot3(tv, pv) * sgn;
-    const f3 qv = cross3(tv, e1);
-    const float vv = dot3(u, qv) * sgn;
-    const float tt = dot3(e2, qv) * sgn;
-    float mn = fminf(uu, vv);
-    mn = fminf(mn, adet - (uu + vv));
-    mn = fminf(mn, tt - lo * adet);
-    mn = fminf(mn, hi * adet - tt);
-    mn = fminf(mn, adet - 1e-12f);
-    if (mn > 0.0f) return true;
+    if (wald_hit(s, {tr[0], tr[1], tr[2]}, {tr[3], tr[4], tr[5]}, {tr[6], tr[7], tr[8]}))
+      return true;
   }
   return false;
 }
+
+// The shadow test of the estimator is a policy: occl(p, q) is true when
+// the open segment p -> q is blocked. FlatTris sweeps the triangles a
+// block staged in shared memory (every kernel but vrl_sum_bvh.cu's,
+// whose BvhTris walks a BVH in device memory).
+struct FlatTris {
+  const float* s_tri;
+  int T;
+
+  __device__ __forceinline__ bool operator()(f3 p, f3 q) const { return occluded(s_tri, T, p, q); }
+};
 
 // Equi-angular (Kulla-Fajardo) sampling of a point at arc length `arc`
 // along the segment a + t * dir, t in [0, len], around point x.
@@ -341,8 +373,9 @@ struct Sample {
 
 // Vol-vol: V on the VRL ~ inverse distance to the eye ray, U on the eye
 // ray ~ equi-angular around V. False if the sample is dropped.
+template <class Occl>
 __device__ __forceinline__ bool vol_vol_sample(const Ray& ray, const VrlPair& p, float u1, float u2,
-                                               const float* s_tri, int T, Sample& sm) {
+                                               const Occl& occl, Sample& sm) {
   float arc_v, pdf_v;
   if (p.near_par) {
     arc_v = u1 * p.vlen;
@@ -363,7 +396,7 @@ __device__ __forceinline__ bool vol_vol_sample(const Ray& ray, const VrlPair& p,
   const f3 duv = up - vp;
   const float d_uv2 = dot3(duv, duv);
   if (!(d_uv2 > 0.0f && pdf > 0.0f)) return false;
-  if (occluded(s_tri, T, up, vp)) return false;
+  if (occl(up, vp)) return false;
   const float d_uv = sqrtf(fmaxf(d_uv2, 1e-30f));
   const f3 vu = duv * (1.0f / d_uv);
   sm.c_u = dot3(vu, ray.d);
@@ -379,15 +412,16 @@ __device__ __forceinline__ bool vol_vol_sample(const Ray& ray, const VrlPair& p,
 }
 
 // Vol-surf: V on the VRL ~ equi-angular around the eye ray's hit point.
+template <class Occl>
 __device__ __forceinline__ bool vol_surf_sample(const Ray& ray, const VrlPair& p, float u1,
-                                                const float* s_tri, int T, Sample& sm) {
+                                                const Occl& occl, Sample& sm) {
   float arc_v, pdf_v;
   kulla(p.s, p.uv, p.vlen, ray.hp, u1, arc_v, pdf_v);
   const f3 vp = p.s + p.uv * arc_v;
   const f3 duv = ray.hp - vp;
   const float d_uv2 = dot3(duv, duv);
   if (!(d_uv2 > 0.0f && pdf_v > 0.0f)) return false;
-  if (occluded(s_tri, T, ray.hp, vp)) return false;
+  if (occl(ray.hp, vp)) return false;
   const float d_uv = sqrtf(fmaxf(d_uv2, 1e-30f));
   const f3 vu = duv * (1.0f / d_uv);
   sm.cos_o = fmaxf(-dot3(ray.ng, vu), 0.0f);
@@ -616,22 +650,22 @@ __device__ __forceinline__ void attach_eod(Ray& ray, const float* __restrict__ r
 
 // The samples of one (ray, VRL) pair, shared by every kernel: for each
 // sample that is not dropped, in draw order, on_sample(family, sm) with
-// family 0 for vol-vol and 1 for vol-surf. A dropped sample contributes
-// 0 and is not passed on.
-template <class OnSample>
+// family 0 for vol-vol and 1 for vol-surf. A dropped sample (occl, the
+// shadow test, blocks it) contributes 0 and is not passed on.
+template <class Occl, class OnSample>
 __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, PairUniforms& draw,
-                                             int svv, int svs, const float* s_tri, int T,
+                                             int svv, int svs, const Occl& occl,
                                              OnSample&& on_sample) {
   for (int i = 0; i < svv; ++i) {
     const float u1 = draw(2 * i), u2 = draw(2 * i + 1);
     Sample sm;
-    if (!vol_vol_sample(ray, p, u1, u2, s_tri, T, sm)) continue;
+    if (!vol_vol_sample(ray, p, u1, u2, occl, sm)) continue;
     on_sample(0, sm);
   }
   for (int k = 0; k < svs && ray.alb_any; ++k) {
     const float u1 = draw(2 * svv + k);
     Sample sm;
-    if (!vol_surf_sample(ray, p, u1, s_tri, T, sm)) continue;
+    if (!vol_surf_sample(ray, p, u1, occl, sm)) continue;
     on_sample(1, sm);
   }
 }
@@ -642,11 +676,11 @@ __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, P
 // GridMedium), which differ only in the terms of a sample: for each
 // sample of pair_samples, emit(family, t) with t[3] the raw per-sample
 // contribution (not divided by the family's sample count).
-template <int PHASE, bool SHORT_VRLS, class Med, class Emit>
+template <int PHASE, bool SHORT_VRLS, class Med, class Occl, class Emit>
 __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
-                                           PairUniforms& draw, int svv, int svs,
-                                           const float* s_tri, int T, Emit&& emit) {
-  pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
+                                           PairUniforms& draw, int svv, int svs, const Occl& occl,
+                                           Emit&& emit) {
+  pair_samples(ray, p, draw, svv, svs, occl, [&](int family, const Sample& sm) {
     float t[3];
     if (family == 0)
       vol_vol_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
@@ -916,12 +950,11 @@ struct Layout {
 // The cotangents of one (ray, VRL) pair's samples, added into c: the
 // forward's samples (pair_samples, the same draws), each through its
 // family's cotangent (weights inv_vv, inv_vs).
-template <int PHASE, bool SHORT_VRLS, class Med>
+template <int PHASE, bool SHORT_VRLS, class Med, class Occl>
 __device__ __forceinline__ void pair_cots(const Ray& ray, const VrlPair& p, const Med& m,
-                                          PairUniforms& draw, int svv, int svs,
-                                          const float* s_tri, int T, float inv_vv,
-                                          float inv_vs, Cot& c) {
-  pair_samples(ray, p, draw, svv, svs, s_tri, T, [&](int family, const Sample& sm) {
+                                          PairUniforms& draw, int svv, int svs, const Occl& occl,
+                                          float inv_vv, float inv_vs, Cot& c) {
+  pair_samples(ray, p, draw, svv, svs, occl, [&](int family, const Sample& sm) {
     if (family == 0)
       vol_vol_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vv, c);
     else

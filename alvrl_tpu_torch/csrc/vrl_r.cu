@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T,
+      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
                                     [&](int family, const float* t) {
                                       const float lum = LUM_R * t[0] + LUM_G * t[1] +
                                                         LUM_B * t[2];

@@ -124,7 +124,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
         PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
                           (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u),
                           -1};
-        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, s_tri, T, inv_vv, inv_vs, c);
+        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T}, inv_vv,
+                                     inv_vs, c);
       }
       warp_column_sums<GRID>(c, s_out, cc);
     }

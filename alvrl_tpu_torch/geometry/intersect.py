@@ -31,8 +31,12 @@ class Hit(NamedTuple):
 def ray_triangle(o, d, p0, p1, p2):
     """Moller-Trumbore; returns (t, u, v, hit_mask). o, d: (..., 3);
     p0/p1/p2 broadcast against them."""
-    e1 = p1 - p0
-    e2 = p2 - p0
+    return ray_triangle_edges(o, d, p0, p1 - p0, p2 - p0)
+
+
+def ray_triangle_edges(o, d, p0, e1, e2):
+    """ray_triangle on a triangle given as p0, e1 = p1 - p0, e2 = p2 -
+    p0 (the BVH's leaf-ordered triangles)."""
     pvec = m.cross(d, e2)
     det = m.dot(e1, pvec)
     nonzero = det.abs() > 1e-12
@@ -60,14 +64,18 @@ def intersect_all(o, d, verts, faces):
     t_best = t.gather(-1, prim[..., None])[..., 0]
     valid = torch.isfinite(t_best)
     prim = torch.where(valid, prim, torch.full_like(prim, -1))
-    p = o + t_best[..., None] * d
+    return hit_record(o, d, t_best, prim, valid, verts, faces)
 
+
+def hit_record(o, d, t, prim, valid, verts, faces):
+    """The Hit of rays (o, d) at distance t on triangle prim (-1, and t
+    inf, for a miss): the point, and the face's normal oriented toward
+    the incoming ray (two-sided shading)."""
     f = faces[prim.clamp(min=0)]
     a, b, c = verts[f[..., 0]], verts[f[..., 1]], verts[f[..., 2]]
     ng_raw = m.normalize(m.cross(b - a, c - a))
-    # orient toward the incoming ray (two-sided shading)
     ng = torch.where(m.dot(ng_raw, d, keepdim=True) > 0, -ng_raw, ng_raw)
-    return Hit(t=t_best, prim=prim, valid=valid, p=p, ng=ng)
+    return Hit(t=t, prim=prim, valid=valid, p=o + t[..., None] * d, ng=ng)
 
 
 def occluded(p_from, p_to, verts, faces):

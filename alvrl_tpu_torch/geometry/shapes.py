@@ -1,8 +1,9 @@
 """Procedural triangle-mesh shapes (host-side numpy).
 
-Counterpart of alvrl_tpu/geometry/shapes.py (rectangle, cube, merge),
-with the outward winding of every cube face. Shapes are triangulated up
-front, so the intersector sees one triangle soup.
+Counterpart of alvrl_tpu/geometry/shapes.py (rectangle, cube, sphere,
+merge), with the outward winding of every cube face and sphere
+triangle. Shapes are triangulated up front, so the intersector sees one
+triangle soup.
 """
 
 from __future__ import annotations
@@ -44,6 +45,28 @@ def cube():
         faces.append(f + sum(len(x) for x in verts))
         verts.append(v)
     return np.concatenate(verts, axis=0), np.concatenate(faces, axis=0).copy()
+
+
+def sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):
+    """UV-sphere of n_theta rings of n_phi quads, each two triangles
+    wound outward. The rings at the poles collapse to a point, so one
+    triangle of each of their quads is degenerate (zero area): the Wald
+    and Moller-Trumbore tests never hit it."""
+    center = np.asarray(center, dtype=np.float32)
+    thetas = np.linspace(0, np.pi, n_theta + 1)
+    phis = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    rings = [np.stack([np.sin(th) * np.cos(phis), np.sin(th) * np.sin(phis),
+                       np.full_like(phis, np.cos(th))], axis=-1)
+             for th in thetas]
+    v = np.concatenate(rings, axis=0).astype(np.float32)
+    i, j = np.meshgrid(np.arange(n_theta), np.arange(n_phi), indexing="ij")
+    a = i * n_phi + j
+    b = i * n_phi + (j + 1) % n_phi
+    c = (i + 1) * n_phi + j
+    d = (i + 1) * n_phi + (j + 1) % n_phi
+    f = np.stack([np.stack([a, d, b], -1), np.stack([a, c, d], -1)],
+                 axis=2).reshape(-1, 3).astype(np.int32)
+    return v * np.float32(radius) + center, f
 
 
 def merge(parts):

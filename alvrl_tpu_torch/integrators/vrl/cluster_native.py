@@ -10,10 +10,8 @@ numpy Generator (whose one draw seeds the refiner's own xoshiro256++
 streams).
 
 The library is compiled by g++ at first use, with the flags of
-native/Makefile, into alvrl_tpu_torch/_build/ under a name that carries
-the hash of the source, the flags and the host CPU (-march=native; as
-ops/_build.py names the kernel library), so a library built on another
-machine is never loaded. It never runs make in native/, whose tracked
+native/Makefile, into alvrl_tpu_torch/_build/ (ops/_build.py's
+gxx_library_path and build_gxx): never by make in native/, whose tracked
 .so stays as it is. A failed build raises.
 """
 
@@ -21,40 +19,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
-from alvrl_tpu_torch.ops._build import BUILD_DIR, PKG_DIR
+from alvrl_tpu_torch.ops import _build
 
-SOURCE = PKG_DIR.parent / "native" / "cluster_refine.cpp"
+SOURCE = _build.PKG_DIR.parent / "native" / "cluster_refine.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-pthread")  # native/Makefile's, for libalvrl_cluster.so
 
 
-def _host_cpu() -> bytes:
-    """The CPU's model and flags (-march=native builds for this CPU)."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            lines = f.read().splitlines()
-    except OSError:
-        return platform.processor().encode()
-    return b"\n".join(next((ln for ln in lines if ln.startswith(key)), b"")
-                      for key in (b"model name", b"flags"))
-
-
-def _library_path() -> Path:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    digest.update(_host_cpu())
-    return BUILD_DIR / f"libalvrl_cluster-{digest.hexdigest()[:16]}.so"
+def _library_path():
+    return _build.gxx_library_path(SOURCE, CXX_FLAGS, "libalvrl_cluster")
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,21 +41,7 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError(f"{SOURCE} not found; the native clustering "
                            "backend cannot be built")
     lib_path = _library_path()
-    if not lib_path.exists():
-        cxx = os.environ.get("CXX") or shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError("g++ not found (set CXX); the native "
-                               "clustering backend cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_lib = os.path.join(tmp, lib_path.name)
-            cmd = [cxx, *CXX_FLAGS, "-o", tmp_lib, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"g++ failed with code {proc.returncode}:\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp_lib, lib_path)
+    _build.build_gxx(SOURCE, CXX_FLAGS, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     c_dp = ctypes.POINTER(ctypes.c_double)
     c_ip = ctypes.POINTER(ctypes.c_int64)

@@ -2,7 +2,8 @@
 
 Counterpart of alvrl_tpu/integrators/vrl/integrator.py: the unclustered
 render (every eye ray against every VRL; plain, or differentiable
-through the seed-replay VJP), and the two device
+through the seed-replay VJP; or, for large meshes, with BVH hits and
+BVH shadow tests), and the two device
 stages of the clustered render (integrators.vrl.alvrl): the transfer
 matrix R over representative rays, and the render of each pixel against
 its slice's representatives (plain, or differentiable through the
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from alvrl_tpu_torch.film import film as film_mod
+from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
@@ -27,6 +29,11 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
 from alvrl_tpu_torch.ops.vrl_sum import vrl_sum, vrl_sum_hetero
+from alvrl_tpu_torch.ops.vrl_sum_bvh import (
+    pack_bvh_tris,
+    sort_vrls_morton,
+    vrl_sum_bvh,
+)
 from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_diff, vrl_sum_hetero_diff
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_clustered,
@@ -44,7 +51,12 @@ def trace_eye_rays(scene: Scene, ray_o, ray_d):
     """Closest hits with misses' points moved to the ray origin (so that
     masked arithmetic stays finite), and the hit material ids.
     Returns (hit, mat)."""
-    hit = intersect.intersect_all(ray_o, ray_d, scene.vertices, scene.faces)
+    return _eye_hits(scene, ray_o, intersect.intersect_all(
+        ray_o, ray_d, scene.vertices, scene.faces))
+
+
+def _eye_hits(scene: Scene, ray_o, hit):
+    """(hit with misses' points at ray_o, the hit material ids)."""
     hit = hit._replace(p=torch.where(hit.valid[..., None], hit.p, ray_o))
     return hit, scene.material[hit.prim.clamp(min=0)]
 
@@ -69,18 +81,52 @@ def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs):
                  density_ss.contiguous())
 
 
-def pack_frame(scene: Scene, vrls: VRLs):
-    """Eye rays through every pixel centre (row-major), their closest
-    hits, and the packs of the scene's kernels (pack_rays_vrls).
-    Returns (px, py, hit, packs)."""
+def frame_rays(scene: Scene):
+    """Eye rays through every pixel centre (row-major): (px, py, ray_o,
+    ray_d)."""
     w, h = scene.camera.width, scene.camera.height
     px, py = torch.meshgrid(torch.arange(w, device=scene.device),
                             torch.arange(h, device=scene.device),
                             indexing="xy")
     px, py = px.reshape(-1), py.reshape(-1)
-    ray_o, ray_d = perspective.sample_ray(scene.camera, px, py)
+    return (px, py, *perspective.sample_ray(scene.camera, px, py))
+
+
+def pack_frame(scene: Scene, vrls: VRLs):
+    """Eye rays through every pixel centre (row-major), their closest
+    hits, and the packs of the scene's kernels (pack_rays_vrls).
+    Returns (px, py, hit, packs)."""
+    px, py, ray_o, ray_d = frame_rays(scene)
     hit, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
     return px, py, hit, packs
+
+
+def trace_eye_rays_bvh(scene: Scene, ray_o, ray_d, tree=None):
+    """trace_eye_rays through a BVH over all faces (geometry.bvh; built
+    here unless `tree` is given): the same (hit, mat)."""
+    if tree is None:
+        tree = bvh_mod.build(scene.vertices, scene.faces)
+    t, prim, valid = bvh_mod.intersect(tree, ray_o, ray_d)
+    return _eye_hits(scene, ray_o, intersect.hit_record(
+        ray_o, ray_d, t, prim, valid, scene.vertices, scene.faces))
+
+
+def pack_frame_bvh(scene: Scene, vrls: VRLs):
+    """pack_frame for the large-mesh render: hits through a BVH over all
+    faces, the VRLs in Morton order (ops.vrl_sum_bvh.sort_vrls_morton)
+    and, in place of the triangle pack, the BVH over the opaque faces
+    (pack_bvh_tris). Homogeneous media only. Returns (px, py, hit,
+    (rays, vrls, bvh, medium))."""
+    if not mapi.is_homogeneous(scene.medium):
+        raise ValueError("the large-mesh render takes a homogeneous medium "
+                         "only, as the JAX package's vrl_sum_pallas_bvh")
+    px, py, ray_o, ray_d = frame_rays(scene)
+    hit, mat = trace_eye_rays_bvh(scene, ray_o, ray_d)
+    return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
+                         pk.pack_vrls(sort_vrls_morton(vrls)),
+                         pack_bvh_tris(scene.vertices, scene.faces,
+                                       scene.opaque_faces()),
+                         pk.pack_medium(scene))
 
 
 def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
@@ -96,6 +142,25 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     Returns the (H, W, 3) image."""
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
                    generator, cfg, uniforms)
+
+
+def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
+                                cfg: VRLConfig = VRLConfig(), *,
+                                uniforms=None):
+    """The large-mesh unclustered render, through ops.vrl_sum_bvh (no cap
+    on the triangle count): primary hits through a BVH, the VRLs in
+    Morton order, shadow tests through a BVH over the opaque faces
+    (pack_frame_bvh). Counterpart of alvrl_tpu's
+    render_with_vrls_pallas_bvh; homogeneous media only.
+
+    The kernel's seed is drawn from `generator`; `uniforms`, (W * H, N,
+    2 * vol_vol + vol_surf) float32 on the scene's device, indexed by
+    the Morton-sorted VRLs, replaces the random stream. Returns the (H,
+    W, 3) image."""
+    px, py, hit, packs = pack_frame_bvh(scene, vrls)
+    sums = vrl_sum_bvh(*packs, seed=draw_seed(generator), uniforms=uniforms,
+                       **_kernel_args(scene, cfg))
+    return develop_sums(scene, vrls, px, py, hit, sums)
 
 
 def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,

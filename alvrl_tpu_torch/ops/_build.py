@@ -1,4 +1,4 @@
-"""Build of the hand-written CUDA kernels.
+"""Build of the hand-written CUDA kernels and of the host libraries.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a, one process per
 source, all started together, and the objects are linked into one
@@ -7,6 +7,14 @@ ctypes. The library goes to ``alvrl_tpu_torch/_build/`` (ignored by
 git) under a name that carries the hash of the sources (headers
 included) and flags, so a change to either rebuilds it at first use. A
 failed build raises.
+
+The C++ sources of ``native/`` that the port calls (the cluster refiner,
+the BVH builder) are compiled by g++ as they are, with native/Makefile's
+flags, into the same directory, under a name that carries the hash of
+the source, the flags and the host CPU (-march=native builds for this
+CPU), so a library built on another machine is never loaded
+(``gxx_library_path``, ``build_gxx``). Nothing runs make in native/,
+whose tracked .so stays as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -92,3 +101,46 @@ def build_log() -> str:
     the library that load_library built, or "" if it has not built one."""
     log = _library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def host_cpu() -> bytes:
+    """The CPU's model and flags (-march=native builds for this CPU)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.processor().encode()
+    return b"\n".join(next((ln for ln in lines if ln.startswith(key)), b"")
+                      for key in (b"model name", b"flags"))
+
+
+def gxx_library_path(source: Path, flags, stem: str) -> Path:
+    """The g++ library of `source` in BUILD_DIR: stem-<hash of the
+    flags, the source and the host CPU>.so."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    digest.update(source.read_bytes())
+    digest.update(host_cpu())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_gxx(source: Path, flags, lib_path: Path) -> None:
+    """Compile `source` with g++ ($CXX if set) and `flags` into lib_path,
+    unless it exists; raise if the source is missing or g++ fails."""
+    if lib_path.exists():
+        return
+    if not source.is_file():
+        raise RuntimeError(f"{source} not found; its library cannot be built")
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found (set CXX); {source.name} cannot "
+                           "be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = os.path.join(tmp, lib_path.name)
+        cmd = [cxx, *flags, "-o", tmp_lib, str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"g++ failed with code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp_lib, lib_path)

@@ -54,6 +54,7 @@ from alvrl_tpu_torch.ops import pack as pk
 _MASK32 = 0xFFFFFFFF
 _PHILOX_RAY_CHUNK = 2048  # rays per block of philox_uniforms
 _PLAIN_RAY_CHUNK = 256    # rays per block of vrl_sum_reference
+_OCCLUSION_TESTS = 2 ** 24  # (segment, triangle) tests per shadow block
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
@@ -120,7 +121,19 @@ def philox_uniforms(seed: int, n_rays: int, n_vrls: int, n_draws: int,
 def _occluded_packed(p, q, tris):
     """(...,) bool: does a packed triangle block the open segment p -> q
     (ends shrunk by 1e-3 * max(|q - p|, 1))? The division-free Wald test
-    of the kernel, vectorised over the triangles."""
+    of the kernel, vectorised over the triangles, in blocks of at most
+    _OCCLUSION_TESTS (segment, triangle) tests."""
+    shape = torch.broadcast_shapes(p.shape, q.shape)[:-1]
+    step = max(1, _OCCLUSION_TESTS // max(math.prod(shape), 1))
+    if tris.shape[0] <= step:
+        return _occluded_block(p, q, tris)
+    blocked = torch.zeros(shape, dtype=torch.bool, device=p.device)
+    for t0 in range(0, tris.shape[0], step):
+        blocked |= _occluded_block(p, q, tris[t0:t0 + step])
+    return blocked
+
+
+def _occluded_block(p, q, tris):
     dd = q - p
     len2 = m.dot(dd, dd)
     idist = 1.0 / torch.sqrt(torch.clamp(len2, min=1e-30))

@@ -1,0 +1,256 @@
+"""The VRL x eye-ray sum with BVH occlusion: the large-mesh render's
+hot loop.
+
+Replaces the BVH section of alvrl_tpu/ops/vrl_pallas.py (:1151-1487):
+sort_vrls_morton, pack_tri_clusters and vrl_sum_pallas_bvh with its
+occlusion _occl_bvh. The function is ops.vrl_sum.vrl_sum's (the same
+estimator, samples and random stream) with no cap on the triangle
+count: the shadow test walks a BVH over the opaque triangles instead of
+sweeping all of them. Homogeneous media only, as the JAX kernel.
+
+What bounds the CUDA kernel (csrc/vrl_sum_bvh.cu, whose header gives the
+design) on the H100 is fp32 ALU throughput and the divergence of the
+shadow traversals, whose node and triangle tests depend on the scene;
+its counting instantiation (vrl_sum_bvh_counts) measures them.
+
+Here:
+  * `sort_vrls_morton`: the VRL buffer in the Morton order of the
+    segments' midpoints (numpy on the host, the JAX package's
+    permutation);
+  * `pack_bvh_tris`: the BVH over the opaque faces as the kernel reads
+    it (a BvhPack: node array, leaf-ordered triangles in pack_tris'
+    p0/e1/e2 layout, depth). Not the JAX package's 64-triangle clusters
+    and super list: those fed a scalar core's DMA walk; here each
+    segment walks the tree itself;
+  * `vrl_sum_bvh_reference`: the plain version, ops.vrl_sum's on the
+    pack's triangles, the shadow test brute force in blocks;
+  * `vrl_sum_bvh`: the wrapper (the kernel for CUDA tensors, or an
+    error; the plain version for CPU tensors), `vrl_sum_bvh_counts` the
+    counting launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from alvrl_tpu_torch.geometry import bvh as bvh_mod
+from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
+from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.ops import _build
+from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_sum as vs
+
+LEAF_SIZE = 4  # triangles per leaf of the occlusion BVH, at most
+NODE_COLS = 8  # a node: lo (3), a, hi (3), b (a, b int32 bits)
+# the kernel's counts (vrl_sum_bvh_counts), in its order
+COUNTS = ("node_tests", "tri_tests", "segments", "open_vv", "open_vs")
+
+
+def sort_vrls_morton(vrls: VRLs) -> VRLs:
+    """The VRLs reordered by the Morton code of their midpoints (10 bits
+    per axis over the midpoints' bounding box), invalid slots last,
+    stable: the JAX package's permutation, computed on the host."""
+    mid = (0.5 * (vrls.start + vrls.end)).cpu().numpy()
+    valid = vrls.valid.cpu().numpy()
+    lo = mid.min(axis=0)
+    ext = np.maximum(mid.max(axis=0) - lo, 1e-12)
+    q = np.clip(((mid - lo) / ext * 1023).astype(np.uint32), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    code = np.where(valid, code, np.uint32(0xFFFFFFFF))
+    order = torch.as_tensor(np.argsort(code, kind="stable"),
+                            device=vrls.start.device)
+    return VRLs(start=vrls.start[order], end=vrls.end[order],
+                power=vrls.power[order], valid=vrls.valid[order],
+                particle_count=vrls.particle_count)
+
+
+class BvhPack(NamedTuple):
+    """The kernel's occlusion BVH: nodes (n, NODE_COLS) float32, node 0
+    the root, each (lo.xyz, a, hi.xyz, b) with a, b int32 bits (an inner
+    node's children a, b; a leaf's first triangle a and -count b), its
+    box padded outward (geometry.bvh.box_pad); tris (T, TRI_COLS)
+    float32 in leaf order, pack_tris' p0, e1, e2; depth, the edges from
+    the root to the deepest leaf."""
+
+    nodes: torch.Tensor
+    tris: torch.Tensor
+    depth: int
+
+
+def pack_bvh_tris(verts, faces, opaque_mask, device=None) -> BvhPack:
+    """The BvhPack of the opaque faces (opaque_mask (T,) bool) of a
+    triangle soup, built on the host (native builder, LEAF_SIZE
+    triangles per leaf at most). Raises if the tree is deeper than the
+    traversal stack allows (geometry.bvh.STACK_DEPTH - 1). `device`: by
+    default the vertices' device, or the card."""
+    if device is None:
+        device = verts.device if isinstance(verts, torch.Tensor) else "cuda"
+    verts = np.asarray(torch.as_tensor(verts).cpu(), np.float32)
+    faces = np.asarray(torch.as_tensor(faces).cpu(), np.int32)
+    faces = faces[np.asarray(torch.as_tensor(opaque_mask).cpu(), bool)]
+    f32 = dict(dtype=torch.float32, device=device)
+    if len(faces) == 0:
+        return BvhPack(torch.zeros((0, NODE_COLS), **f32),
+                       torch.zeros((0, pk.TRI_COLS), **f32), 0)
+    bounds, meta, order = bvh_mod.build_arrays(verts, faces, LEAF_SIZE)
+    depth = bvh_mod.tree_depth(meta)
+    if depth > bvh_mod.STACK_DEPTH - 1:
+        raise ValueError(f"BVH depth {depth} exceeds the traversal stack's "
+                         f"{bvh_mod.STACK_DEPTH - 1}")
+    pad = bvh_mod.box_pad(bounds[0, 0:3], bounds[0, 3:6])
+    leaf = meta[:, 3] > 0
+    nodes = np.empty((len(meta), NODE_COLS), np.float32)
+    nodes[:, 0:3] = bounds[:, 0:3] - pad
+    nodes[:, 3] = np.where(leaf, meta[:, 2], meta[:, 0]).astype(
+        np.int32).view(np.float32)
+    nodes[:, 4:7] = bounds[:, 3:6] + pad
+    nodes[:, 7] = np.where(leaf, -meta[:, 3], meta[:, 1]).astype(
+        np.int32).view(np.float32)
+    tri = verts[faces[order]]
+    tris = np.concatenate([tri[:, 0], tri[:, 1] - tri[:, 0],
+                           tri[:, 2] - tri[:, 0]], axis=1)
+    return BvhPack(torch.as_tensor(nodes, **f32),
+                   torch.as_tensor(tris, **f32), depth)
+
+
+def vrl_sum_bvh_reference(rays, vrls, bvh: BvhPack, medium, uniforms, *,
+                          vol_vol_samples=2, vol_surf_samples=2,
+                          short_vrls=True, phase_kind=ph.HG):
+    """Plain PyTorch version of the kernel: ops.vrl_sum.vrl_sum_reference
+    on the pack's triangles (every segment against every triangle, in
+    blocks), with explicit (B, N, 2 * vol_vol_samples +
+    vol_surf_samples) uniforms."""
+    return vs.vrl_sum_reference(rays, vrls, bvh.tris, medium, uniforms,
+                                vol_vol_samples=vol_vol_samples,
+                                vol_surf_samples=vol_surf_samples,
+                                short_vrls=short_vrls, phase_kind=phase_kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load_library()
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.alvrl_vrl_sum_bvh.argtypes = [p, i, p, i, p, i, p, i, i, p, p, u, i,
+                                      i, i, i, p, i, p, p, p]
+    for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack,
+               lib.alvrl_vrl_chunk):
+        fn.restype = i
+    lib.alvrl_error_string.argtypes = [i]
+    lib.alvrl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind):
+    """Raise on what the kernel does not take: vrl_sum's checks (so grid
+    packs, whose rows differ, raise), and a well-formed BvhPack."""
+    if not isinstance(bvh, BvhPack):
+        raise TypeError(f"bvh must be a BvhPack, got {type(bvh)}")
+    vs._check(rays, vrls, bvh.tris, medium, uniforms, seed, svv, svs,
+              phase_kind)
+    nodes = bvh.nodes
+    if not isinstance(nodes, torch.Tensor) or nodes.dtype != torch.float32 \
+            or not nodes.is_contiguous() or nodes.device != rays.device:
+        raise ValueError("nodes must be a contiguous float32 tensor on the "
+                         "rays' device")
+    if nodes.dim() != 2 or nodes.shape[1] != NODE_COLS:
+        raise ValueError(f"nodes must be (n, {NODE_COLS}), got "
+                         f"{tuple(nodes.shape)}")
+    if (nodes.shape[0] == 0) != (bvh.tris.shape[0] == 0):
+        raise ValueError("a BVH has nodes exactly when it has triangles")
+    if not 0 <= bvh.depth <= bvh_mod.STACK_DEPTH - 1:
+        raise ValueError(f"BVH depth {bvh.depth} exceeds the traversal "
+                         f"stack's {bvh_mod.STACK_DEPTH - 1}")
+
+
+def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
+            short_vrls, phase_kind, counts=None):
+    """The kernel on checked inputs, on the current stream of the rays'
+    card; the counting instantiation when `counts` (len(COUNTS),) int64
+    is given."""
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
+    partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
+                          device=rays.device)
+    out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
+    with torch.cuda.device(rays.device):
+        err = lib.alvrl_vrl_sum_bvh(
+            rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
+            bvh.nodes.data_ptr(), bvh.nodes.shape[0], bvh.tris.data_ptr(),
+            bvh.tris.shape[0], bvh.depth, medium.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+            int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
+            out.data_ptr(), None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("vrl_sum_bvh kernel launch failed: CUDA error "
+                           f"{err} ({lib.alvrl_error_string(err).decode()})")
+    return out
+
+
+def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
+                vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                phase_kind=ph.HG):
+    """(3, B) per-ray VRL sums (not normalised by the particle count),
+    as ops.vrl_sum.vrl_sum computes them, with the shadow tests against
+    the BvhPack's triangles (pack_bvh_tris; any count).
+
+    rays (RAY_ROWS, B), vrls (VRL_ROWS, N) and medium (MED_LEN,) are
+    ops.pack's homogeneous packs (a grid medium's packs raise); random
+    numbers come from vrl_sum's Philox stream of `seed`, or from
+    `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples). CUDA
+    tensors go through the CUDA kernel, CPU tensors through
+    vrl_sum_bvh_reference."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind)
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    if rays.device.type == "cpu":
+        if uniforms is None:
+            uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
+        return vrl_sum_bvh_reference(
+            rays, vrls, bvh, medium, uniforms, vol_vol_samples=svv,
+            vol_surf_samples=svs, short_vrls=short_vrls,
+            phase_kind=phase_kind)
+    if n_rays == 0 or n_vrls == 0:
+        return torch.zeros((3, n_rays), dtype=torch.float32,
+                           device=rays.device)
+    out = _launch(_library(), rays, vrls, bvh, medium, uniforms, seed, svv,
+                  svs, short_vrls, phase_kind)
+    vrl_sum_bvh.launches += 1
+    return out
+
+
+vrl_sum_bvh.launches = 0  # kernel launches, for showing that a run used the kernel
+
+
+def vrl_sum_bvh_counts(rays, vrls, bvh: BvhPack, medium, *, seed=0,
+                       uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
+                       short_vrls=True, phase_kind=ph.HG):
+    """vrl_sum_bvh's sums through the kernel's counting instantiation (a
+    launch counted here, not on vrl_sum_bvh), and {name: total} of what
+    it met (COUNTS): node boxes and triangles tested by the shadow
+    traversals, the shadow segments tested, the open vol-vol and
+    vol-surf samples. CUDA tensors only."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind)
+    if rays.device.type != "cuda":
+        raise ValueError("the counting launch needs CUDA tensors")
+    counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=rays.device)
+    out = _launch(_library(), rays, vrls, bvh, medium, uniforms, seed, svv,
+                  svs, short_vrls, phase_kind, counts)
+    vrl_sum_bvh_counts.launches += 1
+    return out, dict(zip(COUNTS, counts.tolist()))
+
+
+vrl_sum_bvh_counts.launches = 0  # counting launches, as vrl_sum_bvh.launches

@@ -1,10 +1,12 @@
 """Smoke run of alvrl_tpu_torch on one CUDA card (an H100): the config-1
 VRL render, the config-1 train step, the config-2 clustered render
 (Adaptive LightSlice), the config-4 clustered render in a grid medium,
-the config-4 gradient path and density-recovery trainer, and clustered
-gradient steps at configs 2 and 4 end to end through the hand-written
-CUDA kernels (the VRL sum, its seed-replay VJP, the transfer matrix R,
-the clustered sum and its VJP, each also for the grid medium).
+the config-4 gradient path and density-recovery trainer, clustered
+gradient steps at configs 2 and 4, the large-mesh render of up to
+129,612 triangles, and the gather probes end to end through the
+hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
+transfer matrix R, the clustered sum and its VJP, each also for the
+grid medium; the BVH-occlusion sum; three gathers).
 
     python3 chip_smoke.py
 
@@ -124,7 +126,35 @@ Phases, one line each; any failure exits non-zero:
  26. timing of both clustered gradient steps and the config-4 step's
      parts, each clustered backward kernel alone against its forward
      and its plain version on phases 14's and 17's inputs, their bounds,
-     and a profile of the config-4 step.
+     and a profile of the config-4 step;
+ 27. the BVH-occlusion sum (vrl_sum_bvh) against vrl_sum on the same
+     Morton-sorted packs, for phase 3's media and modes: config-1 inputs
+     (24 triangles) and a field of 4^3 cubes (780 triangles, 64x64, the
+     large-mesh bench's VRLs); the sums must be equal, rays that differ
+     are counted and held to the homogeneous bar;
+ 28. vrl_sum_bvh against its plain version at the homogeneous bar on the
+     SUBSET_RAYS eye rays of bench_bvh_large.subset_rays, for the
+     15,984-triangle cube field and the 129,612-triangle blob; the BVH's
+     closest hits against intersect_all on all 4,096 eye rays of both
+     16k scenes (valid and prim equal, t within 1e-4);
+ 29. the main path: render_with_vrls_kernel_bvh at the full large-mesh
+     configuration (scripts/bench_bvh_large.py: 64x64, 64 particles x
+     depth 8 in 256 slots, 2+2 samples) on the 16k cube field, the 16k
+     blob and the 129,612-triangle blob; vrl_sum_bvh's launch count must
+     move, each image be finite and non-zero and match the plain render
+     on the subset's pixels;
+ 30. timing: vrl_sum_bvh over the JAX sweep's six scenes (ms, pair-sample
+     evals/s, node and triangle tests per shadow segment from the
+     counting launch, tree depth, each step's time ratio against its
+     triangle ratio), against vrl_sum at config-1 inputs, the render's
+     stages (host BVH builds, primary hits, Morton sort, packs, kernel)
+     and the kernel's bound (OPS's "node" and "triangle" rows times the
+     counted tests);
+ 31. the gather probes (scripts/probe_gather.py, kernels 12-14): their
+     entry point with its launch counts, each kernel against its plain
+     version (equal), their device times (calls queued behind a spin
+     kernel, so that their host cost is hidden), torch.gather's, and
+     gathers/s.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -149,6 +179,8 @@ import numpy as np
 import torch
 
 from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.geometry import bvh as bvh_mod
+from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
@@ -157,12 +189,14 @@ from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
+from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r, vrl_r_hetero, vrl_r_hetero_reference, vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
-    HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws, philox_uniforms,
-    vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference, vrl_sum_reference)
+    HOMOG_FLOOR, HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws,
+    philox_uniforms, vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference,
+    vrl_sum_reference)
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
@@ -170,6 +204,8 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+from alvrl_tpu_torch.scripts import probe_gather as probe
 from alvrl_tpu_torch.scripts import recover_density as rd
 from alvrl_tpu_torch.sensors import perspective
 
@@ -247,6 +283,12 @@ OPS = {
     # the five-way min and its test: 59)
     "segment": (16, 2),
     "triangle": (59, 0),
+    # BvhTris (vrl_sum_bvh.cu), per shadow segment: the three reciprocals
+    # of its direction; per node box tested (slab_overlaps): six
+    # differences and products (12), the near and far maxima and minima
+    # with the segment's ends (6) and their comparison (1)
+    "bvh_segment": (0, 3),
+    "node": (19, 0),
 }
 # the grid medium's device functions (GridMedium, interp_od), by OPS's
 # rules; rintf and the integer index arithmetic count 0
@@ -340,12 +382,14 @@ def ptxas_summary(log):
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(vrl_(?:sum|sum_bwd|sum_clustered|sum_clustered_bwd|r)"
-                      r"_kernel)"
+                      r"(vrl_(?:sum|sum_bwd|sum_clustered|sum_clustered_bwd|r"
+                      r"|sum_bvh)_kernel)"
                       r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?", line)
         if "Compiling entry function" in line:
+            flag = ((",count", "") if m and "bvh" in m[1]
+                    else (",grid", ",homog"))
             medium = "" if not m or m[4] is None else (
-                ",grid" if m[4] == "1" else ",homog")
+                flag[0] if m[4] == "1" else flag[1])
             name = f"{m[1]}<{m[2]},{m[3]}{medium}>" if m else None
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
@@ -2108,6 +2152,360 @@ def clustered_grad(dev, card, cfg, c2, c4):
                   err11, b4_med, p4_med, b4_bound)]
 
 
+# the large-mesh configuration (scripts/bench_bvh_large.py): the scenes
+# of phases 28-29 and of the timing sweep, as (family, size)
+BVH_CHECKED = (("cubes", 11), ("blob", 180))
+BVH_HITS = (("cubes", 11), ("blob", 64))  # the two 16k scenes
+BVH_MAIN = (("cubes", 11), ("blob", 64), ("blob", 180))
+BVH_SWEEP = tuple(("cubes", n) for n in bbl.CUBE_AXES) + tuple(
+    ("blob", n) for n in bbl.BLOB_THETAS)
+BVH_SEED = 20261019
+HIT_T_TOL = 1e-4  # BVH closest hits against intersect_all
+
+
+class BvhSweep:
+    """kernel_ops' view (SweepCount's attributes) of a vrl_sum_bvh launch
+    whose counting instantiation counted the samples it met: pairs and
+    drawn samples from the packs' masks, tested shadow segments, open
+    samples per family, triangle and node tests from the counts."""
+
+    def __init__(self, rays, vrls, counts):
+        pair_ok, alb_ok = pair_masks(rays, vrls)
+        self.pairs = int(pair_ok.sum())
+        self.drawn = [2 * self.pairs, 2 * int((pair_ok & alb_ok[:, None]).sum())]
+        self.tested = [counts["segments"], 0]
+        self.open = [counts["open_vv"], counts["open_vs"]]
+        self.tri_tests, self.node_tests = counts["tri_tests"], counts["node_tests"]
+
+    def __str__(self):
+        seg = max(self.tested[0], 1)
+        return (f"{self.pairs} pairs, {sum(self.drawn)} samples, "
+                f"{sum(self.open) / seg:.3f} of {self.tested[0]} shadow "
+                f"segments open, {self.node_tests / seg:.2f} nodes and "
+                f"{self.tri_tests / seg:.2f} triangles tested per segment")
+
+
+def bvh_bound(packs, sweep, hg):
+    """vrl_sum_bvh's bound on these packs: vrl_sum's operations on the
+    counted samples, the counted node tests and each segment's
+    reciprocals; the packs read and the sums written."""
+    f, sfu = kernel_ops("vrl_sum", sweep, hg, True)
+    f += sweep.node_tests * OPS["node"][0]
+    sfu += sweep.tested[0] * OPS["bvh_segment"][1]
+    rays, vrls, bvh, medium = packs
+    return bound((f, sfu), nbytes(rays, vrls, bvh.nodes, bvh.tris, medium)
+                 + 3 * rays.shape[1] * 4)
+
+
+def bvh_setup(kind, n, dev):
+    """A large-mesh bench scene on the card, its VRLs and the render's
+    stages on the host clock (each ending in a synchronize): (scene,
+    vrls, packs, hit, {stage: ms})."""
+    t = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    scene = stage("scene", lambda: bbl.scene_of(kind, n, device=dev))
+    vrls = stage("trace", lambda: bbl.bench_vrls(scene))
+    px, py, ray_o, ray_d = integrator.frame_rays(scene)
+    tree = stage("BVH build (hits)", lambda: bvh_mod.build(scene.vertices,
+                                                          scene.faces))
+    hit, mat = stage("primary hits", lambda: integrator.trace_eye_rays_bvh(
+        scene, ray_o, ray_d, tree))
+    vrls_m = stage("Morton sort", lambda: vb.sort_vrls_morton(vrls))
+    pack = stage("BVH build + pack (shadows)", lambda: vb.pack_bvh_tris(
+        scene.vertices, scene.faces, scene.opaque_faces()))
+    packs = stage("ray/VRL/medium packs", lambda: (
+        pk.pack_rays(scene, ray_o, ray_d, hit, mat), pk.pack_vrls(vrls_m),
+        pack, pk.pack_medium(scene)))
+    stage("kernel", lambda: vb.vrl_sum_bvh(*packs, seed=BVH_SEED))
+    return scene, vrls, packs, hit, t
+
+
+def large_mesh(dev, card, cfg, vrls):
+    """Phases 27-30, the large-mesh render; returns the kernels line's
+    entry of vrl_sum_bvh."""
+    rng = np.random.default_rng(27)
+
+    # 27. kernel 7 against kernel 1 on the same Morton-sorted packs
+    n_draws = 2 * cfg.vol_vol_samples + cfg.vol_surf_samples
+    cube4 = bbl.scene_of("cubes", 4, device=dev)
+    media = media_scenes(dev)
+    inputs = [("config 1", media, vb.sort_vrls_morton(vrls)),
+              ("cubes 4", {name: replace(cube4, medium=sc.medium)
+                           for name, sc in media.items()},
+               vb.sort_vrls_morton(bbl.bench_vrls(cube4)))]
+    results, differing, max_rel, k1_packs = [], 0, 0.0, None
+    for label, scenes, vrls_m in inputs:
+        for name, sc in scenes.items():
+            kind = MEDIA[name][1]
+            packs = integrator.pack_frame(sc, vrls_m)[3]
+            bvh = vb.pack_bvh_tris(sc.vertices, sc.faces, sc.opaque_faces())
+            if k1_packs is None:
+                k1_packs = (packs, bvh)
+            n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+            u = torch.as_tensor(rng.random((n_rays, n_vrls, n_draws),
+                                           dtype=np.float32), device=dev)
+            for mode in ("injected", "philox", "long"):
+                kw = dict(seed=BVH_SEED,
+                          uniforms=None if mode == "philox" else u,
+                          short_vrls=mode != "long", phase_kind=kind)
+                a = vrl_sum(*packs, **kw)
+                b = vb.vrl_sum_bvh(packs[0], packs[1], bvh, packs[3], **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(b).all())
+                      and float(b.abs().sum()) > 0.0,
+                      f"{label} {name}/{mode}: finite, non-zero")
+                n_diff = int((a != b).any(dim=0).sum())
+                median, share = homog_bar(b.T, a.T)
+                check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                      f"{label} {name}/{mode}: {n_diff} rays differ, "
+                      f"median {median}, share {share}")
+                rel = float(((b - a).abs() / torch.clamp(
+                    a.abs(), min=HOMOG_FLOOR)).max())
+                differing += n_diff
+                max_rel = max(max_rel, rel)
+                results.append(f"{label} {name}/{mode} " + (
+                    "equal" if not n_diff else
+                    f"{n_diff} rays differ, largest rel {rel:.1e}"))
+            del u
+    print(f"[27 vrl_sum_bvh vs vrl_sum on {card}, config 1 (16384 rays x 512 "
+          f"VRLs, 24 triangles) and a 4^3 cube field (4096 x 256, "
+          f"{int(cube4.faces.shape[0])} triangles), Morton-sorted packs, "
+          f"the homogeneous bar held] {differing} rays differ in all, the "
+          f"largest relative difference {max_rel:.2e} (rounding, not a shadow "
+          "test: a sample that one kernel drops moves its ray's sum by far "
+          "more); " + " | ".join(results), flush=True)
+
+    # 28. kernel 7 against its plain version; the BVH's primary hits
+    setups = {key: bvh_setup(*key, dev) for key in dict.fromkeys(
+        BVH_CHECKED + BVH_HITS + BVH_MAIN + BVH_SWEEP)}
+    results, k7_err = [], 0.0
+    for kind, n in BVH_CHECKED:
+        scene, _, packs, _, _ = setups[(kind, n)]
+        out = vb.vrl_sum_bvh(*packs, seed=BVH_SEED)
+        rows = bbl.subset_rays(out.shape[1])
+        t0 = time.perf_counter()
+        ref = bbl.plain_on_subset(packs, rows, BVH_SEED)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        got = out[:, rows.to(dev)]
+        median, share = homog_bar(got.T, ref.T)
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"vrl_sum_bvh vs plain, {kind} {n}: median {median}, share "
+              f"{share}")
+        k7_err = max(k7_err, float((got - ref).abs().max()))
+        if (kind, n) == BVH_CHECKED[0]:
+            k7_plain_ms = plain_s * 1e3
+        results.append(f"{kind} {n} ({int(scene.faces.shape[0])} triangles, "
+                       f"depth {packs[2].depth}) on {len(rows)} rays: median "
+                       f"{median:.2e} share {share:.4f} (plain {plain_s:.1f} s)")
+    for kind, n in BVH_HITS:
+        scene, _, _, hit, _ = setups[(kind, n)]
+        _, _, ray_o, ray_d = integrator.frame_rays(scene)
+        ref = [intersect.intersect_all(ray_o[i:i + 256], ray_d[i:i + 256],
+                                       scene.vertices, scene.faces)
+               for i in range(0, ray_o.shape[0], 256)]
+        valid = torch.cat([r.valid for r in ref])
+        prim = torch.cat([r.prim for r in ref])
+        t_err = float((torch.cat([r.t for r in ref])[valid]
+                       - hit.t[valid]).abs().max())
+        check(torch.equal(valid, hit.valid) and torch.equal(prim, hit.prim)
+              and t_err <= HIT_T_TOL,
+              f"BVH hits vs intersect_all, {kind} {n}: t error {t_err}")
+        results.append(f"hits of {kind} {n}: {int(valid.sum())} of "
+                       f"{len(valid)} valid, prim equal, t within {t_err:.1e}")
+    print(f"[28 vrl_sum_bvh vs plain on {card}, Philox stream of seed "
+          f"{BVH_SEED}] " + " | ".join(results), flush=True)
+
+    # 29. the main path, through the entry point a user calls
+    vb.vrl_sum_bvh.launches = 0
+    images = {}
+    for key in BVH_MAIN:
+        scene, vrls_b, _, _, _ = setups[key]
+        images[key] = integrator.render_with_vrls_kernel_bvh(
+            scene, vrls_b, torch.Generator().manual_seed(29), cfg)
+    torch.cuda.synchronize()
+    launches = vb.vrl_sum_bvh.launches
+    check(launches >= len(BVH_MAIN), f"vrl_sum_bvh launches {launches}")
+    seed = integrator.draw_seed(torch.Generator().manual_seed(29))
+    results = []
+    for key, img in images.items():
+        scene, vrls_b, packs, hit, _ = setups[key]
+        check(tuple(img.shape) == (bbl.WIDTH, bbl.WIDTH, 3)
+              and bool(torch.isfinite(img).all())
+              and float(img.abs().max()) > 0.0, f"{key} image")
+        rows = bbl.subset_rays(packs[0].shape[1])
+        li = bbl.plain_on_subset(packs, rows, seed).T / torch.clamp(
+            vrls_b.particle_count, min=1.0)
+        li = torch.where(hit.valid[rows.to(dev), None], li, 0.0)
+        median, share = homog_bar(img.reshape(-1, 3)[rows.to(dev)], li)
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"{key} render vs plain: median {median}, share {share}")
+        results.append(f"{key[0]} {key[1]} ({int(scene.faces.shape[0])} "
+                       f"triangles): image mean {float(img.mean()):.6f}, vs "
+                       f"plain on {len(rows)} pixels median {median:.2e} share "
+                       f"{share:.4f}")
+    print(f"[29 main path on {card}] render_with_vrls_kernel_bvh, "
+          f"{bbl.WIDTH}x{bbl.WIDTH}, {bbl.N_PARTICLES} particles x depth "
+          f"{bbl.MAX_DEPTH} in {bbl.N_SLOTS} slots: vrl_sum_bvh launches "
+          f"{launches}; " + " | ".join(results), flush=True)
+
+    # 30. timing: the sweep, kernel 7 against kernel 1, stages, bounds
+    rows, lines = [], []
+    for key in BVH_SWEEP:
+        scene, _, packs, _, stages = setups[key]
+        hg = scene.medium.phase_kind == 0
+        ms = summary(cuda_ms(lambda: vb.vrl_sum_bvh(*packs, seed=BVH_SEED),
+                             2, 5))
+        counted, counts = vb.vrl_sum_bvh_counts(*packs, seed=BVH_SEED)
+        check(torch.equal(counted, vb.vrl_sum_bvh(*packs, seed=BVH_SEED)),
+              f"{key}: the counting launch's sums are the kernel's")
+        sweep = BvhSweep(packs[0], packs[1], counts)
+        b = bvh_bound(packs, sweep, hg)
+        evals = packs[0].shape[1] * packs[1].shape[1] * n_draws
+        rows.append(dict(key=key, tris=int(scene.faces.shape[0]), ms=ms[0],
+                         bound=b, sweep=sweep, packs=packs))
+        lines.append(
+            f"{key[0]} {key[1]}: {int(scene.faces.shape[0])} triangles, depth "
+            f"{packs[2].depth}, {ms[0]:.3f} ms (spread {ms[1]:.1%}), "
+            f"{evals / (ms[0] / 1e3):.4g} pair-sample evals/s, {sweep}, bound "
+            f"{b[0]:.4f} ms by {b[1]}; stages (ms) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in stages.items()))
+    ratios = [f"{a['key'][0]} x{b['tris'] / a['tris']:.2f} triangles -> "
+              f"x{b['ms'] / a['ms']:.2f} time" for a, b in zip(rows, rows[1:])
+              if a["key"][0] == b["key"][0]]
+    packs1, bvh1 = k1_packs
+    k1_ms = summary(cuda_ms(lambda: vrl_sum(*packs1, seed=BVH_SEED), 3, 10))
+    k7_ms = summary(cuda_ms(lambda: vb.vrl_sum_bvh(
+        packs1[0], packs1[1], bvh1, packs1[3], seed=BVH_SEED), 3, 10))
+    print(f"[30 timing on {card}] vrl_sum_bvh (CUDA events, median of 5 "
+          "after 2): " + " | ".join(lines) + " | scaling: " + "; ".join(ratios)
+          + f" | at config-1 inputs (24 triangles, depth {bvh1.depth}): "
+          f"vrl_sum {k1_ms[0]:.3f} ms, vrl_sum_bvh {k7_ms[0]:.3f} ms "
+          f"({k7_ms[0] / k1_ms[0]:.2f}x)", flush=True)
+    for key in (BVH_MAIN[0], BVH_MAIN[-1]):
+        scene, vrls_b = setups[key][:2]
+        pass_ms = summary(host_ms(lambda: integrator.render_with_vrls_kernel_bvh(
+            scene, vrls_b, torch.Generator().manual_seed(30), cfg), 1, 3))
+        prof = profile_device(lambda: integrator.render_with_vrls_kernel_bvh(
+            scene, vrls_b, torch.Generator().manual_seed(30), cfg), 1, 2)
+        head = (f"[30 profile on {card}] render_with_vrls_kernel_bvh, "
+                f"{key[0]} {key[1]}: {pass_ms[0]:.1f} ms per pass (host "
+                f"clock, median of 3 after 1, spread {pass_ms[1]:.1%})")
+        if prof is None:
+            print(head + "; the profiler saw no device operation: not "
+                  "measured", flush=True)
+            continue
+        span, busy, n_ops, by_name = prof
+        k_ms = sum(v for k, v in by_name.items() if "vrl_sum_bvh_kernel" in k)
+        top = sorted(((v, k) for k, v in by_name.items()
+                      if "vrl_sum_bvh_kernel" not in k), reverse=True)[:4]
+        print(head + f"; per traced pass: device span {span:.3f} ms, busy "
+              f"{busy:.3f} ms, idle share {1 - busy / span:.1%}, {n_ops:g} "
+              f"device ops; vrl_sum_bvh_kernel {k_ms:.3f} ms ({k_ms / busy:.1%}"
+              " of busy); next: " + " | ".join(f"{v:.3f} ms {k[:60]}"
+                                               for v, k in top), flush=True)
+    main_row = rows[0]  # the bench's 16k cube field, whose plain phase 28 timed
+    # (on its SUBSET_RAYS rays: the plain time is of that subset)
+    return {
+        "name": "vrl_sum_bvh", "route": "cuda",
+        "source": "alvrl_tpu_torch/csrc/vrl_sum_bvh.cu",
+        "replaces": "alvrl_tpu/ops/vrl_pallas.py:1415",
+        "launches": launches, "max_abs_err": k7_err, "ms": main_row["ms"],
+        "plain_ms": k7_plain_ms, "bound_ms": main_row["bound"][0],
+        "bound_by": main_row["bound"][1], "library_ms": None,
+    }
+
+
+def gather_probes(dev, card):
+    """Phase 31, the gather probes; returns their kernels line entries."""
+    for fn in (probe.lane_gather, probe.row_gather, probe.gather_many):
+        fn.launches = 0
+    result = probe.main(dev)
+    launches = (probe.lane_gather.launches, probe.row_gather.launches,
+                probe.gather_many.launches)
+    check(min(launches) >= 1 and result["lane_gather_equal"]
+          and result["row_gather_equal"], f"probe: {result}, {launches}")
+    tbl, idx, tbl0, idx0 = probe.inputs(dev)
+    idx_l, idx0_l = idx.long(), idx0.long()
+    cases = [
+        ("lane_gather", 42, (tbl, idx), probe.lane_gather_reference,
+         lambda: torch.gather(tbl, 1, idx_l), ()),
+        ("row_gather", 63, (tbl0, idx0), probe.row_gather_reference,
+         lambda: torch.gather(tbl0, 0, idx0_l), ()),
+        ("gather_many", 79, (tbl, idx), probe.gather_many_reference, None,
+         (probe.REPS,)),
+    ]
+    def device_ms(fn, batch=20):
+        """fn's device time per call: CUDA events around `batch` calls in
+        a row, queued behind a spin kernel (torch.cuda._sleep) that
+        outlasts their host cost, so the device runs them back to back
+        (each of these calls takes microseconds, under a launch's host
+        cost); (median of 5, spread)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        torch.cuda.synchronize()
+        cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda._sleep(cycles)  # twice the host time at <= 2 GHz
+            start.record()
+            for _ in range(batch):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / batch)
+        return summary(times)
+
+    entries, lines = [], []
+    for (name, line, args, plain, library, extra), n in zip(cases, launches):
+        out = probe._launch(f"alvrl_{name}", *args, *extra)
+        ref = plain(*args)
+        check(torch.equal(out, ref), f"{name} vs plain")
+        ms, spread = device_ms(lambda: probe._launch(f"alvrl_{name}", *args,
+                                                     *extra))
+        events_ms = summary(cuda_ms_batched(lambda: probe._launch(
+            f"alvrl_{name}", *args, *extra), 3, 10, 20))[0]
+        # the plain many-gather is 512 launches a call: one call a window
+        # keeps the queue behind the spin kernel under CUDA's launch queue
+        plain_ms = device_ms(lambda: plain(*args), 1 if extra else 20)[0]
+        lib_ms = None if library is None else device_ms(library)[0]
+        n_ops = (tbl.numel() * probe.REPS, 0) if extra else (0, 0)
+        b = bound(n_ops, 3 * tbl.numel() * 4)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "alvrl_tpu_torch/csrc/probe_gather.cu",
+            "replaces": f"scripts/probe_gather.py:{line}", "launches": n,
+            "max_abs_err": float((out - ref).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms})
+        lines.append(f"{name} {ms * 1e3:.2f} us (spread {spread:.1%}; "
+                     f"{events_ms * 1e3:.2f} us with the host's launch "
+                     f"cost), plain {plain_ms * 1e3:.2f} us, "
+                     "torch.gather " + ("none" if lib_ms is None
+                                        else f"{lib_ms * 1e3:.2f} us")
+                     + f", bound {b[0] * 1e3:.4f} us by {b[1]}, equal")
+    many_ms = entries[2]["ms"]
+    print(f"[31 gather probes on {card}] probe_gather.main: launches "
+          f"{launches}, {result['gathers_per_s']:.4g} gathers/s over its "
+          f"{probe.N_ITER} calls (host clock), "
+          f"{tbl.numel() * probe.REPS / (many_ms / 1e3):.4g} gathers/s on the "
+          "device | device time per call (CUDA events over 20 calls queued "
+          "behind a spin kernel): " + " | ".join(lines), flush=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -2436,6 +2834,8 @@ def main():
     c4_kernels, c4 = config4(dev, card, cfg)
     c4_grad_kernel = config4_grad(dev, card, cfg, c4)
     clustered_grad_kernels = clustered_grad(dev, card, cfg, c2, c4)
+    bvh_kernel = large_mesh(dev, card, cfg, vrls)
+    probe_kernels = gather_probes(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -2451,7 +2851,8 @@ def main():
         "launches": step_launches[1], "max_abs_err": bwd_err,
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
-    }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels]}))
+    }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
+        bvh_kernel, *probe_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

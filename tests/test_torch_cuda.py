@@ -2,7 +2,8 @@
 versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
 the transfer matrix R (csrc/vrl_r.cu), the clustered sum
 (csrc/vrl_sum_clustered.cu) and its VJP (csrc/vrl_sum_clustered_bwd.cu),
-in a homogeneous and in a grid medium.
+in a homogeneous and in a grid medium; the BVH-occlusion sum
+(csrc/vrl_sum_bvh.cu) and the gather probes (csrc/probe_gather.cu).
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -19,10 +20,12 @@ import pytest
 import torch
 
 from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.geometry import bvh, intersect
 from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r,
     vrl_r_hetero,
@@ -60,6 +63,8 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
 )
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+from alvrl_tpu_torch.scripts import probe_gather as probe
 
 BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "bench_vrls.txt")
@@ -773,3 +778,135 @@ def test_cuda_clustered_render_diff_launches_both_kernels(cuda, grid):
     for g in grads:
         assert g.is_cuda and torch.isfinite(g).all() and float(
             g.abs().sum()) > 0.0
+
+
+# --- the BVH-occlusion sum and the gather probes ----------------------------
+
+
+def _bvh_inputs(device, kind, g, phase_kind):
+    """(flat packs, BvhPack) on Morton-sorted VRLs: cornell_smoke 32x32
+    with the 512 bench VRLs (24 triangles), or a 4^3 cube field 32x32
+    with its bench VRLs (780 triangles)."""
+    if kind == "cornell":
+        scene, vrls = _scene(device, 32, 32, g, phase_kind), _bench_vrls(device)
+    else:
+        scene = bbl.scene_of("cubes", 4, width=32, device=device)
+        scene = replace(scene, medium=replace(scene.medium, g=torch.tensor(
+            g, device=device), phase_kind=phase_kind))
+        vrls = bbl.bench_vrls(scene)
+    packs = integrator.pack_frame(scene, vb.sort_vrls_morton(vrls))[3]
+    return packs, vb.pack_bvh_tris(scene.vertices, scene.faces,
+                                   scene.opaque_faces())
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("kind", ["cornell", "cubes"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_bvh_kernel_matches_flat_kernel(cuda, medium, kind, injected):
+    """Kernel 7 against kernel 1 on the same packs, at 24 and 780
+    triangles: the same samples and shadow tests. The two kernels are
+    separate compilations of the estimator, whose fused multiply-adds
+    differ in places, so sums may differ in their last bits: every ray
+    within 1e-4 relative (a sample dropped by one kernel only would move
+    its ray's sum by far more), and the homogeneous bar."""
+    g, phase_kind = MEDIA[medium]
+    packs, pack = _bvh_inputs(cuda, kind, g, phase_kind)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    u = (torch.as_tensor(np.random.default_rng(8).random(
+        (n_rays, n_vrls, 6), dtype=np.float32), device=cuda)
+        if injected else None)
+    kw = dict(seed=31, uniforms=u, phase_kind=phase_kind)
+    before = vb.vrl_sum_bvh.launches
+    out = vb.vrl_sum_bvh(packs[0], packs[1], pack, packs[3], **kw)
+    ref = vrl_sum(*packs, **kw)
+    torch.cuda.synchronize()
+    assert vb.vrl_sum_bvh.launches == before + 1
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    rel = (out - ref).abs() / torch.clamp(ref.abs(), min=1e-3)
+    assert float(rel.max()) < 1e-4
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_bvh_kernel_matches_plain(cuda, short_vrls):
+    """Kernel 7 against its plain version at 2,604 triangles (a 6^3 cube
+    field), 16x16 eye rays x 256 VRLs, on the Philox stream."""
+    scene = bbl.scene_of("cubes", 6, width=16, device=cuda)
+    packs = integrator.pack_frame_bvh(scene, bbl.bench_vrls(scene))[3]
+    out = vb.vrl_sum_bvh(*packs, seed=5, short_vrls=short_vrls)
+    ref = vb.vrl_sum_bvh_reference(*packs, philox_uniforms(
+        5, 256, packs[1].shape[1], 6, device=cuda), short_vrls=short_vrls)
+    assert float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_bvh_kernel_counts(cuda):
+    """The counting launch gives the kernel's sums (counted on its own
+    launch count) and totals that add up: every tested segment walks at
+    least the root, opens do not exceed the tested segments."""
+    scene = bbl.scene_of("blob", 16, width=16, device=cuda)
+    packs = integrator.pack_frame_bvh(scene, bbl.bench_vrls(scene))[3]
+    before = (vb.vrl_sum_bvh.launches, vb.vrl_sum_bvh_counts.launches)
+    out, counts = vb.vrl_sum_bvh_counts(*packs, seed=3)
+    assert torch.equal(out, vb.vrl_sum_bvh(*packs, seed=3))
+    assert (vb.vrl_sum_bvh.launches, vb.vrl_sum_bvh_counts.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert counts["node_tests"] >= counts["segments"] > 0
+    assert 0 < counts["open_vv"] + counts["open_vs"] <= counts["segments"]
+    assert counts["tri_tests"] > 0
+
+
+def test_cuda_bvh_refuses_a_deep_tree(cuda):
+    """A pack deeper than the kernel's stack is refused by the wrapper
+    and, past it, by the kernel's entry point."""
+    assert vb._library().alvrl_bvh_stack() == bvh.STACK_DEPTH
+    packs = integrator.pack_frame_bvh(_scene(cuda, 8, 8), _bench_vrls(cuda))[3]
+    deep = packs[2]._replace(depth=bvh.STACK_DEPTH)
+    with pytest.raises(ValueError):
+        vb.vrl_sum_bvh(packs[0], packs[1], deep, packs[3])
+    with pytest.raises(RuntimeError):
+        vb._launch(vb._library(), packs[0], packs[1], deep, packs[3], None,
+                   0, 2, 2, True, 0)
+
+
+def test_cuda_bvh_render_counts_launches(cuda):
+    """render_with_vrls_kernel_bvh launches kernel 7 once; its image is
+    the flat render's on the same Morton-sorted VRLs, to rounding."""
+    scene = bbl.scene_of("cubes", 4, width=16, device=cuda)
+    vrls = bbl.bench_vrls(scene)
+    before = vb.vrl_sum_bvh.launches
+    img = integrator.render_with_vrls_kernel_bvh(
+        scene, vrls, torch.Generator().manual_seed(0))
+    assert vb.vrl_sum_bvh.launches == before + 1
+    assert img.shape == (16, 16, 3) and torch.isfinite(img).all()
+    flat = integrator.render_with_vrls_kernel(
+        scene, vb.sort_vrls_morton(vrls), torch.Generator().manual_seed(0))
+    median, share = homog_bar(img, flat)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_bvh_hits_match_intersect_all(cuda):
+    """The BVH's closest hits on the card: intersect_all's, on a 16k
+    cube field's eye rays."""
+    scene = bbl.scene_of("cubes", 11, width=32, device=cuda)
+    _, _, ray_o, ray_d = integrator.frame_rays(scene)
+    t, prim, valid = bvh.intersect(bvh.build(scene.vertices, scene.faces),
+                                   ray_o, ray_d)
+    ref = intersect.intersect_all(ray_o, ray_d, scene.vertices, scene.faces)
+    assert torch.equal(valid, ref.valid) and torch.equal(prim, ref.prim)
+    assert float((t[valid] - ref.t[valid]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["lane_gather", "row_gather", "gather_many"])
+def test_cuda_probe_kernels(cuda, name):
+    """Each gather probe on the JAX script's inputs equals its plain
+    version and counts its launch."""
+    tbl, idx, tbl0, idx0 = probe.inputs(cuda)
+    args = (tbl0, idx0) if name == "row_gather" else (tbl, idx)
+    fn = getattr(probe, name)
+    before = fn.launches
+    out = fn(*args)
+    assert fn.launches == before + 1
+    assert torch.equal(out, getattr(probe, f"{name}_reference")(*args))

@@ -321,4 +321,6 @@ def test_package_imports_no_jax():
     assert {"integrators/vrl/alvrl.py", "integrators/vrl/cluster.py",
             "integrators/vrl/cluster_native.py", "ops/vrl_r.py",
             "ops/vrl_sum_clustered.py", "media/heterogeneous.py",
+            "geometry/bvh.py", "ops/vrl_sum_bvh.py",
+            "scripts/bench_bvh_large.py", "scripts/probe_gather.py",
             "../chip_smoke.py"} <= walked
