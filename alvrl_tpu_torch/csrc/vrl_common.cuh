@@ -504,16 +504,25 @@ __device__ __forceinline__ void interp_od_cot(float* d_cum, int stride, float fr
 // point is sigma_s_color times the nearest density; the transmittance of
 // a sample is exp(-sigma_t_color od) with od the eye table's and the VRL
 // table's entries at the sample's fractions of their segments plus the
-// uv_steps-point midpoint quadrature of the U-V segment; the short-VRL
+// steps-point midpoint quadrature of the U-V segment; the short-VRL
 // pdfFailure is exp(-chan od(S -> V)), with no sampling-weight mixture.
 // The values are those of the JAX package's XLA table path
 // (integrate.py:248-335), not of its CP-factored Pallas kernel (no CP
-// factors here; ROADMAP C9).
+// factors here; ROADMAP C9). UV is the quadrature's step count when it
+// is a compile-time constant (the grid sum and its VJP at the step count
+// every caller passes, UV_STEPS), or 0 for the run-time count
+// grid.uv_steps (their generic instantiation, and the clustered and R
+// kernels).
+constexpr int UV_STEPS = 4;  // VRLConfig.uv_tau_steps
+
+template <int UV = 0>
 struct GridMedium {
   const float* m;  // the pack, GRID_MED_LEN floats in shared memory
   GridArgs grid;
 
   __device__ GridMedium(const float* s_med, const GridArgs& args) : m(s_med), grid(args) {}
+
+  __device__ __forceinline__ int steps() const { return UV > 0 ? UV : grid.uv_steps; }
 
   // the supersampled entry that the density at p reads, as a flat index
   // into (nz, ny, nx): the nearest one (indices rounded half to even,
@@ -533,6 +542,9 @@ struct GridMedium {
     return (iz * grid.ny + iy) * grid.nx + ix;
   }
 
+  // the raw density entry at voxel v, 0 for -1
+  __device__ __forceinline__ float raw(int v) const { return v < 0 ? 0.0f : __ldg(grid.density + v); }
+
   // the density read at voxel v: its entry times the scale, 0 for -1
   __device__ __forceinline__ float value(int v) const {
     return v < 0 ? 0.0f : __ldg(grid.density + v) * m[G_SCALE];
@@ -543,16 +555,8 @@ struct GridMedium {
 
   // the voxel of step i of the midpoint quadrature of a -> a + delta
   __device__ __forceinline__ int step_voxel(f3 a, f3 delta, int i) const {
-    const float t = ((float)i + 0.5f) / (float)grid.uv_steps;
+    const float t = ((float)i + 0.5f) / (float)steps();
     return voxel(a + delta * t);
-  }
-
-  // midpoint optical depth of the segment a -> b of length dist
-  __device__ __forceinline__ float segment_od(f3 a, f3 b, float dist) const {
-    const f3 delta = b - a;
-    float total = 0.0f;
-    for (int i = 0; i < grid.uv_steps; ++i) total += value(step_voxel(a, delta, i));
-    return total * dist / (float)grid.uv_steps;
   }
 
   // The cotangent c of a density read at voxel v: c * scale onto the
@@ -566,18 +570,6 @@ struct GridMedium {
     return c * __ldg(grid.density + v);
   }
 
-  // The cotangent c of segment_od(a, b, dist), onto every step's read;
-  // returns their share of d scale.
-  __device__ __forceinline__ float segment_od_cot(float* d_density, f3 a, f3 b, float dist,
-                                                  float c) const {
-    const float c_step = c * dist / (float)grid.uv_steps;
-    const f3 delta = b - a;
-    float d_scale = 0.0f;
-    for (int i = 0; i < grid.uv_steps; ++i)
-      d_scale += scatter(d_density, step_voxel(a, delta, i), c_step);
-    return d_scale;
-  }
-
   // the short-VRL pdfFailure exp(-chan od_sv), clamped at 1e-30; *open
   // (if given) where it is not clamped, and there the term, which it
   // divides, goes as exp(chan od_sv)
@@ -588,15 +580,113 @@ struct GridMedium {
   }
 };
 
+// The reads of the U-V quadrature of one segment a -> b: each midpoint
+// step's voxel and raw density. UV > 0: all read here, once, into
+// registers (the steps' loads go out together), for the optical depth
+// and the backward's scatters alike. UV = 0: each step recomputed where
+// it is used, for the run-time step count.
+template <int UV>
+struct UvReads {
+  int vox[UV];
+  float raw[UV];
+
+  __device__ __forceinline__ UvReads(const GridMedium<UV>& gm, f3 a, f3 b) {
+    const f3 delta = b - a;
+#pragma unroll
+    for (int i = 0; i < UV; ++i) {
+      vox[i] = gm.step_voxel(a, delta, i);
+      raw[i] = gm.raw(vox[i]);
+    }
+  }
+
+  // midpoint optical depth of the segment, of length dist
+  __device__ __forceinline__ float od(const GridMedium<UV>& gm, float dist) const {
+    float total = 0.0f;
+#pragma unroll
+    for (int i = 0; i < UV; ++i) total += raw[i] * gm.m[G_SCALE];
+    return total * dist / (float)UV;
+  }
+};
+
+template <>
+struct UvReads<0> {
+  f3 a, delta;
+
+  __device__ __forceinline__ UvReads(const GridMedium<0>&, f3 a_, f3 b) : a(a_), delta(b - a_) {}
+
+  __device__ __forceinline__ float od(const GridMedium<0>& gm, float dist) const {
+    float total = 0.0f;
+    for (int i = 0; i < gm.grid.uv_steps; ++i) total += gm.value(gm.step_voxel(a, delta, i));
+    return total * dist / (float)gm.grid.uv_steps;
+  }
+
+  // the cotangent c of od(gm, dist) onto every step's read; returns
+  // their share of d scale
+  __device__ __forceinline__ float cot(const GridMedium<0>& gm, float* d_density, float dist,
+                                       float c) const {
+    const float c_step = c * dist / (float)gm.grid.uv_steps;
+    float d_scale = 0.0f;
+    for (int i = 0; i < gm.grid.uv_steps; ++i)
+      d_scale += gm.scatter(d_density, gm.step_voxel(a, delta, i), c_step);
+    return d_scale;
+  }
+};
+
+// The density cotangents of one grid sample: c_a at the read of voxel
+// va (U; -1 for a vol-surf sample, which has none), c_q spread over the
+// quadrature's steps q of a segment of length dist, and c_b at voxel vb
+// (V). Each read adds cotangent * scale to d_density (a reduction) and
+// cotangent * raw, its share of d scale, to d_scale; reads outside the
+// box and cotangents of exactly 0 add nothing. UV > 0: the reads in path
+// order (U, the steps, V), consecutive reads of one voxel merged into
+// one reduction; UV = 0: one reduction per read, as the clustered VJP
+// makes them.
+template <int UV>
+__device__ __forceinline__ void density_cots(const GridMedium<UV>& gm, float* d_density, int va,
+                                             float ra, float c_a, const UvReads<UV>& q,
+                                             float dist, float c_q, int vb, float rb, float c_b,
+                                             float& d_scale) {
+  if constexpr (UV == 0) {
+    d_scale += q.cot(gm, d_density, dist, c_q);
+    d_scale += gm.scatter(d_density, va, c_a);
+    d_scale += gm.scatter(d_density, vb, c_b);
+  } else {
+    const float c_step = c_q * dist / (float)UV;
+    const float scale = gm.m[G_SCALE];
+    constexpr int R = UV + 2;
+    int vox[R];
+    float val[R];
+    auto read = [&](int k, int v, float r, float c) {
+      const bool live = v >= 0 && c != 0.0f;
+      vox[k] = live ? v : -1;
+      val[k] = c * scale;
+      if (live) d_scale += c * r;
+    };
+    read(0, va, ra, c_a);
+#pragma unroll
+    for (int i = 0; i < UV; ++i) read(i + 1, q.vox[i], q.raw[i], c_step);
+    read(R - 1, vb, rb, c_b);
+#pragma unroll
+    for (int k = 1; k < R; ++k)
+      if (vox[k] >= 0 && vox[k] == vox[k - 1]) {
+        val[k] += val[k - 1];
+        vox[k - 1] = -1;
+      }
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (vox[k] >= 0) atomicAdd(d_density + vox[k], val[k]);
+  }
+}
+
 // The raw terms t[3] of one unoccluded sample in the grid medium
 // (pair_terms): vol-vol, then vol-surf.
-template <int PHASE, bool SHORT_VRLS>
-__device__ __forceinline__ void vol_vol_term(const GridMedium& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV>
+__device__ __forceinline__ void vol_vol_term(const GridMedium<UV>& gm, const Ray& ray,
                                              const VrlPair& p, const Sample& sm, float t[3]) {
   const float* m = gm.m;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
   const float od = interp_od(ray.eod, ray.eod_stride, sm.d_eu / ray.elen) +
-                   gm.segment_od(sm.up, sm.vp, sm.d_uv) + od_sv;
+                   UvReads<UV>(gm, sm.up, sm.vp).od(gm, sm.d_uv) + od_sv;
   const float dens_u = gm.density(sm.up), dens_v = gm.density(sm.vp);
   float geo = phase_eval<PHASE>(m[G_G], sm.c_u) * phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den;
   if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
@@ -606,12 +696,12 @@ __device__ __forceinline__ void vol_vol_term(const GridMedium& gm, const Ray& ra
             expf(-m[G_SIG_T + ch] * od) * geo;
 }
 
-template <int PHASE, bool SHORT_VRLS>
-__device__ __forceinline__ void vol_surf_term(const GridMedium& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV>
+__device__ __forceinline__ void vol_surf_term(const GridMedium<UV>& gm, const Ray& ray,
                                               const VrlPair& p, const Sample& sm, float t[3]) {
   const float* m = gm.m;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
-  const float od = gm.segment_od(ray.hp, sm.vp, sm.d_uv) + od_sv;
+  const float od = UvReads<UV>(gm, ray.hp, sm.vp).od(gm, sm.d_uv) + od_sv;
   const float dens_v = gm.density(sm.vp);
   float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
   if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
@@ -622,12 +712,12 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium& gm, const Ray& r
 }
 
 // The medium of a kernel instantiation: Medium read from the pack `med`
-// (homogeneous), or GridMedium on the pack staged at s_med.
-template <bool GRID>
-__device__ __forceinline__ std::conditional_t<GRID, GridMedium, Medium> make_medium(
+// (homogeneous), or GridMedium<UV> on the pack staged at s_med.
+template <bool GRID, int UV = 0>
+__device__ __forceinline__ std::conditional_t<GRID, GridMedium<UV>, Medium> make_medium(
     const float* __restrict__ med, const float* s_med, const GridArgs& grid) {
   if constexpr (GRID)
-    return GridMedium(s_med, grid);
+    return GridMedium<UV>(s_med, grid);
   else
     return Medium(med);
 }
@@ -645,6 +735,21 @@ __device__ __forceinline__ void attach_eod(Ray& ray, const float* __restrict__ r
   if constexpr (GRID) {
     ray.eod = rays + (size_t)EOD * B + b;
     ray.eod_stride = B;
+  }
+}
+
+// The grid sum's and its VJP's eye-OD table: copied into the thread's
+// column of s_etab (NQ + 1 rows of RAY_BLOCK floats in shared memory),
+// which only this thread reads, so each sample's two reads leave device
+// memory.
+template <bool GRID>
+__device__ __forceinline__ void stage_eod(Ray& ray, const float* __restrict__ rays, int B, int b,
+                                          float* s_etab) {
+  if constexpr (GRID) {
+    float* col = s_etab + threadIdx.x;
+    for (int k = 0; k <= NQ; ++k) col[k * RAY_BLOCK] = rays[(size_t)(EOD + k) * B + b];
+    ray.eod = col;
+    ray.eod_stride = RAY_BLOCK;
   }
 }
 
@@ -780,17 +885,18 @@ __device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, co
 // onto the two table entries each read touches and onto every
 // quadrature step's voxel; the density cotangents onto the voxels of U
 // and V; each voxel read also adds its share of d scale.
-template <int PHASE, bool SHORT_VRLS>
-__device__ __forceinline__ void vol_vol_cot(const GridMedium& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV>
+__device__ __forceinline__ void vol_vol_cot(const GridMedium<UV>& gm, const Ray& ray,
                                             const VrlPair& p, const Sample& sm, float inv,
                                             Cot& c) {
   const float* m = gm.m;
   const float f_sv = sm.d_sv * p.ivl, f_eu = sm.d_eu / ray.elen;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
-  const float od = interp_od(ray.eod, ray.eod_stride, f_eu) +
-                   gm.segment_od(sm.up, sm.vp, sm.d_uv) + od_sv;
+  const UvReads<UV> q(gm, sm.up, sm.vp);
+  const float od = interp_od(ray.eod, ray.eod_stride, f_eu) + q.od(gm, sm.d_uv) + od_sv;
   const int vox_u = gm.voxel(sm.up), vox_v = gm.voxel(sm.vp);
-  const float dens_u = gm.value(vox_u), dens_v = gm.value(vox_v);
+  const float raw_u = gm.raw(vox_u), raw_v = gm.raw(vox_v);
+  const float dens_u = raw_u * m[G_SCALE], dens_v = raw_v * m[G_SCALE];
   const float ph_u = phase_eval<PHASE>(m[G_G], sm.c_u);
   const float ph_v = phase_eval<PHASE>(m[G_G], sm.c_v);
   float geo = ph_u * ph_v / sm.den;
@@ -826,23 +932,24 @@ __device__ __forceinline__ void vol_vol_cot(const GridMedium& gm, const Ray& ray
   }
   interp_od_cot(c.d_eod, RAY_BLOCK, f_eu, c_od);
   interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
-  c.d_scale += gm.segment_od_cot(c.d_density, sm.up, sm.vp, sm.d_uv, c_od);
-  c.d_scale += gm.scatter(c.d_density, vox_u, c_du);
-  c.d_scale += gm.scatter(c.d_density, vox_v, c_dv);
+  density_cots(gm, c.d_density, vox_u, raw_u, c_du, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
+               c.d_scale);
 }
 
 // Grid vol-surf: pw (sigma_s dens_v) alb tau exp(-sigma_t od) geo, od =
 // the quadrature from the hit point to V and the VRL table at d_sv.
-template <int PHASE, bool SHORT_VRLS>
-__device__ __forceinline__ void vol_surf_cot(const GridMedium& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV>
+__device__ __forceinline__ void vol_surf_cot(const GridMedium<UV>& gm, const Ray& ray,
                                              const VrlPair& p, const Sample& sm, float inv,
                                              Cot& c) {
   const float* m = gm.m;
   const float f_sv = sm.d_sv * p.ivl;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
-  const float od = gm.segment_od(ray.hp, sm.vp, sm.d_uv) + od_sv;
+  const UvReads<UV> q(gm, ray.hp, sm.vp);
+  const float od = q.od(gm, sm.d_uv) + od_sv;
   const int vox_v = gm.voxel(sm.vp);
-  const float dens_v = gm.value(vox_v);
+  const float raw_v = gm.raw(vox_v);
+  const float dens_v = raw_v * m[G_SCALE];
   float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
   float geo_g = phase_dg<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
   bool open = false;
@@ -874,8 +981,8 @@ __device__ __forceinline__ void vol_surf_cot(const GridMedium& gm, const Ray& ra
     c_sv += gt_all * m[G_CHAN];
   }
   interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
-  c.d_scale += gm.segment_od_cot(c.d_density, ray.hp, sm.vp, sm.d_uv, c_od);
-  c.d_scale += gm.scatter(c.d_density, vox_v, c_dv);
+  density_cots(gm, c.d_density, -1, 0.0f, 0.0f, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
+               c.d_scale);
 }
 
 // Picks one of a kernel's four instantiations {HG, Rayleigh} x {short,
@@ -899,15 +1006,66 @@ void dispatch(int phase_kind, int short_vrls, Launch&& launch) {
   }
 }
 
+// dispatch for the grid sum and its VJP, whose grid instantiations also
+// take the U-V quadrature's step count as a template argument: launch(phase,
+// short_vrls, uv) with uv an std::integral_constant of UV_STEPS where a
+// grid launch has that many steps, else of 0 (the run-time count; every
+// homogeneous launch).
+template <bool GRID, class Launch>
+void dispatch(int phase_kind, int short_vrls, int uv_steps, Launch&& launch) {
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    if constexpr (GRID) {
+      if (uv_steps == UV_STEPS) {
+        launch(phase, short_, std::integral_constant<int, UV_STEPS>{});
+        return;
+      }
+    }
+    launch(phase, short_, std::integral_constant<int, 0>{});
+  });
+}
+
+// The blocks of RAY_BLOCK threads resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the instantiation
+// that a launch of the grid sum or its VJP with these arguments takes
+// (grid 0 or 1; T triangles; the step count picks the grid
+// instantiation), into *blocks; returns a cudaError_t. kernel_of(grid,
+// phase, short_vrls, uv) names the instantiation and smem_of(grid, T)
+// its dynamic shared memory in bytes (grid etc. as std::integral_constant).
+template <class KernelOf, class SmemOf>
+int occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls, int* blocks,
+              KernelOf&& kernel_of, SmemOf&& smem_of) {
+  cudaError_t err = cudaSuccess;
+  auto query = [&](auto grid_) {
+    const size_t smem = smem_of(grid_, T);
+    dispatch<decltype(grid_)::value>(
+        phase_kind, short_vrls, uv_steps, [&](auto phase, auto short_, auto uv) {
+          auto kernel = kernel_of(grid_, phase, short_, uv);
+          if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+          if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, RAY_BLOCK, smem);
+        });
+  };
+  if (grid)
+    query(std::true_type{});
+  else
+    query(std::false_type{});
+  return (int)err;
+}
+
 // out[i] = sum over parts p of part[p, i] (part: (n_parts, len)), in
-// part order: deterministic, one thread per output.
+// part order, accumulated in Acc (float, or double for long sums that
+// cancel: the grid VJP's per-VRL sums over 2,048 ray blocks, ROADMAP
+// C12): deterministic, one thread per output.
+template <class Acc>
 __global__ void reduce_parts(const float* __restrict__ part, int n_parts, int len,
                              float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= len) return;
-  float s = 0.0f;
+  Acc s = 0;
   for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * len + i];
-  out[i] = s;
+  out[i] = (float)s;
 }
 
 // --- the backward kernels' reductions (vrl_sum_bwd.cu, vrl_sum_clustered_bwd.cu)

@@ -11,7 +11,7 @@
 // (vrl_sum_bwd.cu), and both media are in vrl_common.cuh; the medium is
 // the kernel's third template parameter.
 //
-// What bounds it on the H100: fp32 ALU and SFU throughput. One
+// What bounds it on the H100: fp32 ALU and SFU instruction throughput. One
 // pair-sample costs about 150 float32 operations and 20 special-function
 // operations (sqrt, division, exp; beside sinh/asinh, atan, tan), and 59
 // operations per triangle of its shadow sweep, as chip_smoke.py's OPS
@@ -20,8 +20,14 @@
 // and 4 special-function operations at 4 U-V steps (the density reads,
 // the two OD-table interpolations, the quadrature; GRID_OPS there) and
 // reads the 3.4 MB config-4 density grid, which stays in L2: still bound
-// by operations. The design keeps the working set on chip and spreads
-// the pairs over enough threads:
+// by operations, as the ablations of scripts/time_kernels.py
+// --grid-split show at config 4 (the density gathers, all sent to one
+// address, save about 1 % of the time, the shadow sweep's removal about
+// 40 %; the rest is the samplers' precise special functions and the
+// estimator). Tensor cores, wgmma and TMA do not apply: there is no
+// matrix product or tiled stream, only per-pair scalar and special-
+// function math and gathers. The design keeps the working set on chip
+// and spreads the pairs over enough threads:
 //   * grid = ray tiles (RAY_BLOCK threads, one ray each) x VRL chunks of
 //     VRL_CHUNK; one thread per ray alone would fill about a sixteenth
 //     of the card at 16k rays, so the VRL axis is split as well;
@@ -32,11 +38,21 @@
 //     to (n_chunks, 3, B) scratch and a second kernel adds the chunks in
 //     a fixed order, so the result is deterministic;
 //   * grid media: the block also stages its chunk's VRL-OD rows (17 x
-//     VRL_CHUNK floats) and the medium pack in shared memory; each thread
-//     reads its ray's eye-OD rows from the ray pack, and the density
-//     grid from device memory (read-only path; 3.4 MB at config 4, held
-//     in L2), by nearest lookup: no CP factors (the TPU kernel's lane
-//     gathers worked around Mosaic's lack of general gathers);
+//     VRL_CHUNK floats) and the medium pack in shared memory, and each
+//     thread its ray's eye-OD rows (a column of 17 floats that only it
+//     reads, so a sample's two table reads stay on chip); the density
+//     grid is read from device memory (read-only path; 3.4 MB at config
+//     4, held in L2), by nearest lookup: no CP factors (the TPU kernel's
+//     lane gathers worked around Mosaic's lack of general gathers);
+//   * the U-V quadrature's step count is a template argument (UV): every
+//     caller passes 4 (VRLConfig.uv_tau_steps), whose instantiation has
+//     the steps' points as constants and sends their four density
+//     loads together; any other count takes the generic instantiation
+//     (UV = 0, the run-time count). The 4-step instantiation is bounded
+//     to 96 registers (__launch_bounds__(128, 5): five blocks, 20 warps,
+//     an SM, for latency hiding; 8 B of spill), which measured 5 %
+//     faster than four blocks at its natural 110-115 registers, and
+//     faster than six (PERF.md);
 //   * shadow segments use the division-free Wald test, one sweep over
 //     the triangles per sample segment, with an early exit on the first
 //     blocker;
@@ -52,17 +68,21 @@
 
 namespace {
 
-template <int PHASE, bool SHORT_VRLS, bool GRID>
-__global__ void __launch_bounds__(RAY_BLOCK)
-    vrl_sum_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
-                   const float* __restrict__ tris, int T, const float* __restrict__ med,
-                   GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
-                   int svs, float* __restrict__ partial) {
+// The sum of a block (RAY_BLOCK rays x the chunk of VRLs blockIdx.y),
+// the body of both kernel templates below.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+__device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
+                                          const float* __restrict__ vrls, int N,
+                                          const float* __restrict__ tris, int T,
+                                          const float* __restrict__ med, GridArgs grid,
+                                          const float* __restrict__ uniforms, uint32_t seed,
+                                          int svv, int svs, float* __restrict__ partial) {
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
   float* s_tri = smem;                    // (T, TRI_COLS)
   float* s_vrl = smem + T * TRI_COLS;     // (V_ROWS, VRL_CHUNK)
   float* s_med = s_vrl + V_ROWS * VRL_CHUNK;  // grid: (GRID_MED_LEN,)
+  float* s_etab = s_med + (GRID ? GRID_MED_LEN : 0);  // grid: (NQ + 1, RAY_BLOCK)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
   const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
@@ -72,8 +92,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   Ray ray = load_ray(rays, B, b);
-  attach_eod<GRID>(ray, rays, B, b);
-  const auto m = make_medium<GRID>(med, s_med, grid);
+  stage_eod<GRID>(ray, rays, B, b, s_etab);
+  const auto m = make_medium<GRID, UV>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -96,6 +116,52 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
 }
 
+// The kernel: the homogeneous and the run-time-step (UV = 0) grid
+// instantiations, under the launch bound every kernel of the port has...
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
+                   const float* __restrict__ tris, int T, const float* __restrict__ med,
+                   GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
+                   int svs, float* __restrict__ partial) {
+  sum_block<PHASE, SHORT_VRLS, GRID, UV>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed, svv,
+                                         svs, partial);
+}
+
+// ...and the grid instantiation compiled for UV steps, also bounded to
+// MIN_BLOCKS resident blocks an SM (GRID_MIN_BLOCKS: 96 registers, 20
+// warps), which measured faster than its natural 110-115 registers at 4
+// blocks. A separate template, so that the others keep the registers
+// the compiler gives them without a minimum.
+constexpr int GRID_MIN_BLOCKS = 5;
+
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MIN_BLOCKS>
+__global__ void __launch_bounds__(RAY_BLOCK, MIN_BLOCKS)
+    vrl_sum_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
+                   const float* __restrict__ tris, int T, const float* __restrict__ med,
+                   GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
+                   int svs, float* __restrict__ partial) {
+  sum_block<PHASE, SHORT_VRLS, GRID, UV>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed, svv,
+                                         svs, partial);
+}
+
+// The kernel that a launch of these template arguments takes.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+constexpr auto sum_kernel() {
+  if constexpr (UV > 0)
+    return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV, GRID_MIN_BLOCKS>;
+  else
+    return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV>;
+}
+
+// dynamic shared memory of the sum, in bytes, with T triangles
+template <bool GRID>
+size_t sum_smem_bytes(int T) {
+  return (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+                  (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : 0)) *
+         sizeof(float);
+}
+
 // Launches the sum and the chunk reduction on `stream`; returns a
 // cudaError_t (0 = launched).
 template <bool GRID>
@@ -108,19 +174,23 @@ int launch_sum(const float* rays, int B, const float* vrls, int N, const float* 
       n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid))
     return (int)cudaErrorInvalidValue;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  const size_t smem = (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-                               (GRID ? GRID_MED_LEN : 0)) *
-                      sizeof(float);
+  const size_t smem = sum_smem_bytes<GRID>(T);
   cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    vrl_sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID>
-        <<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
-                                          svv, svs, partial);
+  cudaError_t attr = cudaSuccess;
+  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+    auto kernel =
+        sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID, decltype(uv)::value>();
+    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
+      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr == cudaSuccess)
+      kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
+                                              svv, svs, partial);
   });
+  if (attr != cudaSuccess) return (int)attr;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * B;
-  reduce_parts<<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
+  reduce_parts<float><<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
   return (int)cudaGetLastError();
 }
 
@@ -130,6 +200,8 @@ extern "C" {
 
 int alvrl_vrl_chunk() { return VRL_CHUNK; }
 int alvrl_max_tris() { return MAX_TRIS; }
+// the U-V step count that the grid sum and its VJP are compiled for
+int alvrl_uv_steps() { return UV_STEPS; }
 const char* alvrl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // The homogeneous sum. `partial` is (n_chunks, 3, B) scratch, `out` is
@@ -153,6 +225,19 @@ int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, con
   return launch_sum<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
                           uniforms, seed, svv, svs, short_vrls, phase_kind, partial, n_chunks, out,
                           stream);
+}
+
+// The sum's blocks resident on one SM for the instantiation a launch
+// with these arguments takes, as vrl_common.cuh's occupancy.
+int alvrl_vrl_sum_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,
+                            int* blocks) {
+  return occupancy(
+      grid, T, uv_steps, phase_kind, short_vrls, blocks,
+      [](auto g, auto phase, auto short_, auto uv) {
+        return sum_kernel<decltype(phase)::value, decltype(short_)::value, decltype(g)::value,
+                          decltype(uv)::value>();
+      },
+      [](auto g, int n_tris) { return sum_smem_bytes<decltype(g)::value>(n_tris); });
 }
 
 }  // extern "C"

@@ -206,7 +206,7 @@ int alvrl_vrl_sum_bvh(const float* rays, int B, const float* vrls, int N, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * B;
-  reduce_parts<<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
+  reduce_parts<float><<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
   return (int)cudaGetLastError();
 }
 

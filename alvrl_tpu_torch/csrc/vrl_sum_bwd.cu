@@ -33,13 +33,27 @@
 // wherever that channel of power, sigma_s or tau is 0, though the term is
 // linear in it (ROADMAP C7).
 //
-// What bounds it: as the forward, fp32 ALU and SFU work per pair-sample
-// (the replay costs the forward's samples; the cotangents add a few
-// dozen flops and one phase derivative per sample; a grid sample adds its
-// table and voxel scatters). The design follows the forward's grid
-// (RAY_BLOCK rays x VRL_CHUNK VRLs per block) and reduces everything but
-// d_density with no atomics, in a fixed order, so a repeat is
-// bit-identical there:
+// What bounds it: as the forward, fp32 ALU and SFU instruction throughput per
+// pair-sample (the replay costs the forward's samples; the cotangents
+// add a few dozen flops and one phase derivative per sample; a grid
+// sample adds its table and voxel scatters, about a tenth of the grid
+// instantiation's time at config 4 in the ablations of
+// scripts/time_kernels.py --grid-split). Tensor cores, wgmma and TMA do
+// not apply: per-pair scalar math, gathers and scattered adds. The grid
+// instantiation takes the U-V quadrature's step count as a template
+// argument, as the forward's (4, every caller's; UV = 0 the generic
+// run-time count): its steps' voxels and raw densities are read once,
+// into registers, for the optical depth, the scatters and d_scale alike
+// (the generic instantiation recomputes them for the scatters), and
+// consecutive reads of one voxel on a sample's path (U, the steps, V)
+// are merged into one reduction (about 9 % faster on the trainer's 31^3
+// grid, 0.5 % slower on config 4's 95^3: PERF.md). The eye-OD table is staged per thread
+// in shared memory as in the forward. Aggregating the reductions
+// across a warp (__match_any_sync) cost far more than it saved and was
+// left out (PERF.md). The design follows the forward's grid (RAY_BLOCK
+// rays x VRL_CHUNK VRLs per block) and reduces everything but d_density
+// with no atomics, in a fixed order, so a repeat is bit-identical
+// there:
 //   * per ray (d_tau, and d_eod from a column of shared memory per
 //     thread): each thread sums its ray's cotangents over the block's
 //     VRLs into (n_chunks, 3 [+ NQ + 1], B) partials, added in chunk
@@ -47,7 +61,10 @@
 //   * per VRL (d_power, and d_vod from a second per-thread column,
 //     cleared for each VRL): after each VRL, the block's rays are summed
 //     by warp shuffles (a fixed butterfly) and the warps in order, into
-//     (n_ray_blocks, 3 [+ NQ + 1], N) partials, added in ray-block order;
+//     (n_ray_blocks, 3 [+ NQ + 1], N) partials, added in ray-block order
+//     (grid media: in float64, since these sums over 2,048 ray blocks at
+//     config 4 cancel and their float32 rounding reached the 1e-5 bar,
+//     ROADMAP C12);
 //   * d_par: each block sums its threads the same way into (n_blocks,
 //     n_par) partials, added by a fixed tree;
 //   * d_density: atomicAdd onto the grid (zeroed first), with the result
@@ -62,7 +79,7 @@
 
 namespace {
 
-template <int PHASE, bool SHORT_VRLS, bool GRID>
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                        int N, const float* __restrict__ tris, int T,
@@ -81,6 +98,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
   float* s_eod = s_par + N_WARPS * L::N_SUMS;            // grid: (N_OD, RAY_BLOCK)
   float* s_vod = s_eod + L::N_OD * RAY_BLOCK;            // grid: (N_OD, RAY_BLOCK)
+  float* s_etab = s_vod + L::N_OD * RAY_BLOCK;           // grid: (N_OD, RAY_BLOCK)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
   const int t = threadIdx.x;
@@ -96,13 +114,13 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   Cot c{};
   if (in_range) {
     ray = load_ray(rays, B, b);
-    attach_eod<GRID>(ray, rays, B, b);
+    stage_eod<GRID>(ray, rays, B, b, s_etab);
     for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
   c.d_eod = s_eod + t;
   c.d_vod = s_vod + t;
   c.d_density = d_density;
-  const auto m = make_medium<GRID>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -137,6 +155,13 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   }
 }
 
+// dynamic shared memory of the backward, in bytes, with T triangles:
+// Layout's, and for grid media the staged eye-OD tables
+template <bool GRID>
+size_t bwd_smem_bytes(int T) {
+  return (Layout<GRID>::smem_floats(T) + (GRID ? (NQ + 1) * RAY_BLOCK : 0)) * sizeof(float);
+}
+
 // Launches the backward and its three ordered reductions on `stream`
 // (grid media: after zeroing d_density); returns a cudaError_t (0 =
 // launched). Scratch: ray_part (n_chunks, ROWS, B), vrl_part
@@ -162,10 +187,11 @@ int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* 
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 blocks(n_ray_blocks, n_chunks);
-  const size_t smem = L::smem_floats(T) * sizeof(float);
+  const size_t smem = bwd_smem_bytes<GRID>(T);
   cudaError_t attr = cudaSuccess;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    auto kernel = vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID>;
+  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+    auto kernel = vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
+                                     decltype(uv)::value>;
     if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
       attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr == cudaSuccess)
@@ -176,9 +202,12 @@ int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* 
   if (attr != cudaSuccess) return (int)attr;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_parts<<<(L::ROWS * B + 255) / 256, 256, 0, st>>>(ray_part, n_chunks, L::ROWS * B, d_ray);
-  reduce_parts<<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(vrl_part, n_ray_blocks, L::ROWS * N,
-                                                          d_vrl);
+  reduce_parts<float>
+      <<<(L::ROWS * B + 255) / 256, 256, 0, st>>>(ray_part, n_chunks, L::ROWS * B, d_ray);
+  // the grid's per-VRL sums (d_power, d_vod) over its ray blocks in
+  // float64: long sums of both signs (ROADMAP C12)
+  reduce_parts<std::conditional_t<GRID, double, float>>
+      <<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(vrl_part, n_ray_blocks, L::ROWS * N, d_vrl);
   reduce_parts_tree<<<L::N_PAR_OUT, TREE, 0, st>>>(par_part, n_ray_blocks * n_chunks,
                                                    L::N_PAR_OUT, d_par);
   return (int)cudaGetLastError();
@@ -222,6 +251,18 @@ int alvrl_vrl_sum_hetero_bwd(const float* rays, int B, const float* vrls, int N,
                           uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, ray_part,
                           n_chunks, vrl_part, n_ray_blocks, par_part, d_vrl, d_par, d_ray,
                           d_density, stream);
+}
+
+// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
+int alvrl_vrl_sum_bwd_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,
+                                int* blocks) {
+  return occupancy(
+      grid, T, uv_steps, phase_kind, short_vrls, blocks,
+      [](auto g, auto phase, auto short_, auto uv) {
+        return &vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
+                                   decltype(g)::value, decltype(uv)::value>;
+      },
+      [](auto g, int n_tris) { return bwd_smem_bytes<decltype(g)::value>(n_tris); });
 }
 
 }  // extern "C"

@@ -397,11 +397,40 @@ def _library():
     lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
                                          *tail]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
-               lib.alvrl_vrl_chunk, lib.alvrl_max_tris):
+               lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps):
         fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def compiled_uv_steps():
+    """The U-V step count for which the library compiles the grid sum and
+    its VJP (UV_STEPS); a launch of any other count takes their generic
+    instantiation. It should be VRLConfig().uv_tau_steps, every caller's
+    count."""
+    return _library().alvrl_uv_steps()
+
+
+def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
+              short_vrls=True):
+    """Blocks per SM, by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    of the instantiation that a launch of the kernel behind the C entry
+    `entry` ("vrl_sum" or "vrl_sum_bwd") takes with these arguments: grid
+    or homogeneous medium, n_tris triangles, the U-V quadrature's step
+    count (a grid launch of 4 steps takes the instantiation compiled for
+    4), phase kind and short VRLs. A block is the library's
+    alvrl_ray_block() threads."""
+    fn = getattr(_library(), f"alvrl_{entry}_occupancy")
+    i = ctypes.c_int
+    fn.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    fn.restype = i
+    blocks = i(0)
+    err = fn(int(grid), n_tris, uv_steps, phase_kind, int(short_vrls),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
@@ -513,10 +542,11 @@ def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
     """vrl_sum in a grid medium: rays (GRID_RAY_ROWS, B), vrls
     (GRID_VRL_ROWS, N) and medium (GRID_MED_LEN,) are ops.pack's grid
     packs, density the supersampled grid (2Z - 1, 2Y - 1, 2X - 1)
-    (media.heterogeneous.upsample2), uv_steps the U-V quadrature's steps;
-    the random stream is vrl_sum's. CUDA tensors go through the CUDA
-    kernel (a launch of its own, counted here), CPU tensors through
-    vrl_sum_hetero_reference."""
+    (media.heterogeneous.upsample2), uv_steps the U-V quadrature's steps
+    (4, every caller's, runs the kernel's instantiation compiled for 4
+    steps; any other count its generic one); the random stream is
+    vrl_sum's. CUDA tensors go through the CUDA kernel (a launch of its
+    own, counted here), CPU tensors through vrl_sum_hetero_reference."""
     return _sum(vrl_sum_hetero, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
                 (density, uv_steps))

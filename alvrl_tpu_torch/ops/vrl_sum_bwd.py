@@ -313,8 +313,10 @@ def vrl_sum_hetero_bwd(rays, vrls, tris, medium, density, gbar, *, seed=0,
     the VJP of ops.vrl_sum.vrl_sum_hetero at the output cotangent gbar
     (3, B), on the same samples as the forward of the same seed (or
     uniforms). CUDA tensors go through the grid instantiation of the
-    CUDA kernel (a launch of its own, counted here), CPU tensors through
-    vrl_sum_hetero_bwd_reference."""
+    CUDA kernel (a launch of its own, counted here; 4 steps, every
+    caller's, the one compiled for 4, any other count the generic one),
+    CPU tensors through vrl_sum_hetero_bwd_reference. d_power and d_vod
+    are summed over the ray blocks in float64 (ROADMAP C12)."""
     return _bwd(vrl_sum_hetero_bwd, rays, vrls, tris, medium, gbar, seed,
                 uniforms, vol_vol_samples, vol_surf_samples, short_vrls,
                 phase_kind, (density, uv_steps))

@@ -20,14 +20,42 @@ kernel library's "name<instantiation> R regs S B spill" lines, and per
 kernel the median and spread of windows of launches in a row timed by
 CUDA events (the clustered kernels as bare launches on pre-grouped
 tiles, the rest through their wrappers).
+
+With --grid-split it times only the grid sum (vrl_sum_hetero) and its
+VJP (vrl_sum_hetero_bwd) at config 4, each on the full inputs and with
+one part of its work taken away, to split their time into the shadow
+sweep, the density gathers, the density atomics and the rest: no
+triangles (no wall ever blocks a segment inside the box, so this drops
+the whole sweep), a 1x1x1 density of the grid's mean under the same
+medium pack (every gather then reads one address), a zero output
+cotangent (every cotangent is then 0 and no density scatter is made)
+and a one-step U-V quadrature. Those launches are for timing only;
+their outputs are discarded. It also prints the blocks and warps
+resident per SM of both grid instantiations, where the tree's library
+answers that query.
+
+With --trainer it runs the density-recovery trainer
+(scripts.recover_density at its defaults, as chip_smoke.py phase 21:
+64x64, a 16^3 grid, four views, 256 VRLs): after two warm-up steps, the
+grid sum and its VJP on one step's inputs (the four views' packs at the
+current estimate, a seeded output cotangent; four launches of each per
+window call, as a step makes them) by CUDA events; then eight steps by
+the host clock (each part synchronised, as density_step times them),
+then eight more under torch.profiler, for the device's busy time per
+step (the union of its operations), the two kernels' share of it and
+the idle share. Each set of eight steps holds one retrace.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
+import sys
+import tempfile
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -35,6 +63,7 @@ import torch
 from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import _build
 from alvrl_tpu_torch.ops import vrl_r as vr
 from alvrl_tpu_torch.ops import vrl_sum as vs
@@ -42,6 +71,7 @@ from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
 from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.scripts import recover_density as rd
 from alvrl_tpu_torch.sensors import perspective
 
 BENCH_VRLS = "data/bench_vrls.txt"
@@ -160,6 +190,115 @@ def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
             True, kind, gbar, grid), 10, 5)}
 
 
+def grid_split(dev, cfg):
+    """{kernel/variant: timing} of vrl_sum_hetero and vrl_sum_hetero_bwd
+    at config 4 with parts of their work taken away (the module
+    docstring), and {kernel: blocks per SM} where the library answers."""
+    make_scene, depth, tracer_seed, particles, _, _, seed = CONFIGS["config4"]
+    scene = make_scene(dev)
+    vrls = vrl.compact(
+        tracer.trace(scene, torch.Generator().manual_seed(tracer_seed),
+                     particles, tracer.TracerConfig(max_depth=depth)),
+        512, slots_per_particle=depth)
+    rays, vpack, tris, med, dens = integrator.pack_frame(scene, vrls)[3]
+    gbar = torch.as_tensor(np.random.default_rng(3).uniform(
+        0.5, 1.5, (3, rays.shape[1])).astype(np.float32), device=dev)
+    uv = cfg.uv_tau_steps
+    one_voxel = dens.mean().reshape(1, 1, 1).contiguous()
+    no_tris = tris[:0].contiguous()
+    zero = torch.zeros_like(gbar)
+    variants = {"full": (tris, dens, uv, gbar),
+                "no_triangles": (no_tris, dens, uv, gbar),
+                "one_voxel": (tris, one_voxel, uv, gbar),
+                "uv_steps_1": (tris, dens, 1, gbar),
+                "gbar_0": (tris, dens, uv, zero),
+                "gbar_0_one_voxel": (tris, one_voxel, uv, zero)}
+    times = {}
+    for name, (t, d, u, g) in variants.items():
+        if not name.startswith("gbar_0"):
+            times[f"vrl_sum_hetero/{name}"] = windows(
+                lambda: vs.vrl_sum_hetero(rays, vpack, t, med, d, seed=seed,
+                                          uv_steps=u), 5, 3)
+        times[f"vrl_sum_hetero_bwd/{name}"] = windows(
+            lambda: bwd.vrl_sum_hetero_bwd(rays, vpack, t, med, d, g,
+                                           seed=seed, uv_steps=u), 5, 3)
+    occ = {}
+    if hasattr(vs, "occupancy"):  # trees from the grid redesign on
+        warps_per_block = bwd._library().alvrl_ray_block() // 32
+        for entry in ("vrl_sum", "vrl_sum_bwd"):
+            blocks = vs.occupancy(entry, True, tris.shape[0], uv,
+                                  scene.medium.phase_kind, cfg.short_vrls)
+            occ[f"{entry}<grid>"] = {"blocks": blocks,
+                                     "warps": blocks * warps_per_block}
+    return times, occ
+
+
+def device_ops(prof):
+    """The device operations (kernels, copies, sets) of a torch.profiler
+    run, in start order, as chrome-trace events."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted((e for e in events if e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda e: e["ts"])
+
+
+def trainer(dev, n_warm=2, n_steps=8):
+    """The trainer's kernel times, host times and device profile (the
+    module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    state = rd.setup(device=dev)
+    for i in range(n_warm):
+        rd.density_step(state, i)
+    medium = gmed.with_density(state.medium, state.density)
+    views = [integrator.pack_frame(replace(sc, medium=medium),
+                                   state.vrls)[3] for sc in state.scenes]
+    kw = integrator._kernel_args(state.scenes[0], state.cfg)
+    rng = np.random.default_rng(21)
+    gbars = [torch.as_tensor(rng.uniform(0.5, 1.5, (3, p[0].shape[1]))
+                             .astype(np.float32), device=dev) for p in views]
+    kernels = {
+        "vrl_sum_hetero": windows(lambda: [
+            vs.vrl_sum_hetero(*p, seed=21, **kw) for p in views], 10, 10),
+        "vrl_sum_hetero_bwd": windows(lambda: [
+            bwd.vrl_sum_hetero_bwd(*p, g, seed=21, **kw)
+            for p, g in zip(views, gbars)], 10, 10)}
+    step = n_warm
+    host = []
+    for _ in range(n_steps):
+        host.append(rd.density_step(state, step)["ms"])
+        step += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            rd.density_step(state, step)
+            step += 1
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    busy, end, by_kernel = 0.0, ops[0]["ts"], {}
+    for e in ops:
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        for name in ("vrl_sum_kernel", "vrl_sum_bwd_kernel"):
+            if name in e["name"]:
+                by_kernel[name] = by_kernel.get(name, 0.0) + e["dur"]
+    span = end - ops[0]["ts"]
+    per = 1e3 * n_steps  # trace microseconds -> ms per step
+    parts = {k: statistics.median(h[k] for h in host) for k in host[0]}
+    return {"kernels_4_views": kernels,
+            "host_ms_median": {**parts, "step": statistics.median(
+                sum(h.values()) for h in host)},
+            "device_per_step": {
+                "span_ms": span / per, "busy_ms": busy / per,
+                "idle_share": 1 - busy / span, "ops": len(ops) / n_steps,
+                **{f"{k}_ms": v / per for k, v in by_kernel.items()}}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -170,6 +309,16 @@ def main():
         check=True).stdout.strip()
     cfg = VRLConfig(vol_vol_samples=2, vol_surf_samples=2)
     _build.load_library()
+    if sys.argv[1:] == ["--trainer"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "trainer": trainer(dev)}))
+        return
+    if sys.argv[1:] == ["--grid-split"]:
+        times, occ = grid_split(dev, cfg)
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(), "occupancy": occ,
+                          "split": times}))
+        return
     kernels = config1(dev, cfg)
     for args in CONFIGS.values():
         kernels.update(clustered(dev, *args, cfg))

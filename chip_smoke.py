@@ -234,6 +234,10 @@ C4_CLUSTER = dict(target_num_slices=128, target_pixel_undersampling=128.0)
 C4_ROWS = (128, 160)     # image rows of the unclustered sum's subset
 C4_SUBSET_RAYS = 16384   # rays of the clustered sum's subset, at most
 C4_PLAIN_CHUNK = 2048    # rays per block of the plain versions on the card
+C4_TRIS = 12             # the box's wall triangles
+# the grid sum's and its VJP's times on phase 17's inputs before their
+# redesign (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130}
 
 # bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes over the memory rate and its operations over the
@@ -377,19 +381,23 @@ def profile_device(fn, n_warm, n_traced):
 
 
 def ptxas_summary(log):
-    """'name<phase,short[,medium]> R regs S B spill' for each kernel
-    instantiation in the compiler's report."""
+    """'name<phase,short[,medium[,steps]]> R regs S B spill' for each
+    kernel instantiation in the compiler's report (steps: the U-V
+    quadrature's compile-time step count of the grid sum and its VJP,
+    uv* for their run-time count)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
                       r"(vrl_(?:sum|sum_bwd|sum_clustered|sum_clustered_bwd|r"
                       r"|sum_bvh)_kernel)"
-                      r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?", line)
+                      r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line:
             flag = ((",count", "") if m and "bvh" in m[1]
                     else (",grid", ",homog"))
             medium = "" if not m or m[4] is None else (
                 flag[0] if m[4] == "1" else flag[1])
+            if m and m[4] == "1" and m[5] is not None:  # the step count
+                medium += f",uv{m[5]}" if m[5] != "0" else ",uv*"
             name = f"{m[1]}<{m[2]},{m[3]}{medium}>" if m else None
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
@@ -1057,7 +1065,8 @@ def config4(dev, card, cfg):
     check(n_vrls == params.vrl_target_num
           and len(info.repr_rows) == C4_CLUSTER["target_num_slices"]
           and packs[0].shape == (pk.GRID_RAY_ROWS, n_rays)
-          and tuple(density.shape) == (2 * C4_GRID - 1,) * 3,
+          and tuple(density.shape) == (2 * C4_GRID - 1,) * 3
+          and packs[2].shape[0] == C4_TRIS,
           f"config-4 shapes: {n_vrls} VRLs, {len(info.repr_rows)} slices, "
           f"rays {tuple(packs[0].shape)}, density {tuple(density.shape)}")
     seed = 20261018
@@ -1290,7 +1299,8 @@ def config4(dev, card, cfg):
               f"{k} {statistics.median(v):.3f} ms ({summary(v)[1]:.1%})"
               for k, v in stages.items())
           + f" | alone (CUDA events), plain on the same inputs: "
-          f"vrl_sum_hetero (B={n_rays}) {s_med:.3f} ms (spread "
+          f"vrl_sum_hetero (B={n_rays}) {s_med:.3f} ms (before its "
+          f"redesign {EARLIER_MS['vrl_sum_hetero']} ms; spread "
           f"{s_spread:.1%}, {s_sweep}, bound {bounds['sum'][0]:.4f} ms by "
           f"{bounds['sum'][1]}), plain {sp_med:.1f} ms; vrl_r_hetero "
           f"{r_med:.4f} ms (spread {r_spread:.1%}, {r_sweep}, bound "
@@ -1357,15 +1367,19 @@ GRID_LIVE = [0, 1, 2, 3, 4, 5, 6, 7, pk.GRID_MED_LEN - 1]  # d_par's entries
 C4_START = dict(albedo=0.8, density=1.25)  # phase 20's start: the preset x
 
 
-def grid_bwd_check(out, ref, ref64, kind):
+def grid_bwd_check(out, ref, ref64, kind, vrl_ref=None):
     """(bars of d_power, d_tau, d_eod, d_vod and d_density's voxels, the
     largest relative d_par error of the kernel and of the plain version
     in float32 against it in float64) of the grid backward kernel
     against the plain backward; raises if a bar is missed (d_par: as
     bwd_check, or with ref64 None to PAR_RTOL alone, the second error
-    then 0)."""
+    then 0). With vrl_ref (the plain backward in float64), the per-VRL
+    sums d_power and d_vod are held against it instead (ROADMAP C12)."""
+    refs = list(ref[:5])
+    if vrl_ref is not None:
+        refs[0], refs[4] = vrl_ref[0], vrl_ref[4]
     bars = [homog_bar(o.T, r.T, channels=o.shape[0])
-            for o, r in zip(out[:5], ref[:5]) if o.dim() == 2]
+            for o, r in zip(out[:5], refs) if o.dim() == 2]
     d, r = out[5].reshape(-1), ref[5].reshape(-1)
     nz = r.abs() > VOXEL_FLOOR * float(r.abs().max())
     check(int(nz.sum()) > 1000, f"d_density: {int(nz.sum())} voxels")
@@ -1590,16 +1604,17 @@ def config4_grad(dev, card, cfg, c4):
           f"{full_rep}")
     check(all(bool(torch.isfinite(o).all()) for o in out),
           "grid backward at full shape finite")
-    full_bars, (full_par_rel, _) = grid_bwd_check(out, ref, None, 0)
     full_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     err = max(err, full_err)
-    # ROADMAP C12, measured: the kernel against the plain backward in
-    # float32 and float64 on the eye rays of image rows 128-159, 128-255
-    # and the full frame (the Philox stream of each block's own ray
-    # indices, gbar_f's columns): the median errors of the per-VRL sums
-    # (d_power, d_vod) as the rays in each sum grow, and which side moves
-    # from the float64 value; no bar is applied or moved here
-    growth = {}
+    # ROADMAP C12: the kernel against the plain backward in float32 and
+    # float64 on the eye rays of image rows 128-159, 128-255 and the full
+    # frame (the Philox stream of each block's own ray indices, gbar_f's
+    # columns): the median errors of the per-VRL sums (d_power, d_vod) as
+    # the rays in each sum grow, and which side moves from the float64
+    # value. At the full frame the float32 plain version's own error in
+    # d_vod is above the bar, so the kernel's per-VRL sums are held
+    # against the float64 plain version there (grid_bwd_check's vrl_ref)
+    growth, full64 = {}, None
     with plain_chunk(C4_PLAIN_CHUNK):
         for row_end in (C4_ROWS[1], 2 * C4_ROWS[0], C4_SIZE):
             g0 = 0 if row_end == C4_SIZE else C4_ROWS[0] * C4_SIZE
@@ -1619,8 +1634,12 @@ def config4_grad(dev, card, cfg, c4):
                                           channels=a[i].shape[0])[0]
                                 for a, b in ((o, r), (o, r64), (r, r64))]
                                for i in (0, 4)]
+            if g1 - g0 == n_rays:
+                full64 = r64
             del o, r, r64
-    del full, out, again, ref
+    full_bars, (full_par_rel, _) = grid_bwd_check(out, ref, None, 0,
+                                                  vrl_ref=full64)
+    del full, out, again, ref, full64
     sweep, uv = c4["sweep"], cfg.uv_tau_steps
     n_scatter = sweep.open[0] * (2 + uv) + sweep.open[1] * (1 + uv)
     rows = 3 + pk.NQ + 1
@@ -1640,12 +1659,15 @@ def config4_grad(dev, card, cfg, c4):
           f"backward kernel {bs_med:.3f} ms, rest (autograd of the packs and "
           f"the upsample, film, loss) {st_med - pk_med - fs_med - bs_med:.3f}"
           f" ms | on phase 17's inputs (CUDA events): backward kernel "
-          f"{b_med:.3f} ms (spread {b_spread:.1%}) against the forward "
-          f"{f_med:.3f} ms ({b_med / f_med:.2f}x); bound {bwd_bound[0]:.4f} ms"
+          f"{b_med:.3f} ms (before its redesign "
+          f"{EARLIER_MS['vrl_sum_hetero_bwd']} ms; spread {b_spread:.1%}) "
+          f"against the forward {f_med:.3f} ms ({b_med / f_med:.2f}x; before "
+          f"{EARLIER_MS['vrl_sum_hetero']} ms); bound {bwd_bound[0]:.4f} ms"
           f" by {bwd_bound[1]} ({sweep}, {n_scatter} density scatters); "
           f"plain backward {p_med:.1f} ms | on phase 19's subset: kernel "
           f"{sb_med:.3f} ms, plain {sp_med:.1f} ms | the kernel vs the plain "
-          f"backward at full shape ({n_rays} rays x {n_vrls} VRLs; median/"
+          f"backward at full shape ({n_rays} rays x {n_vrls} VRLs; d_power "
+          "and d_vod against it in float64, the rest in float32; median/"
           "share per item): " + ", ".join(
               f"{k} {m:.2e}/{sh:.4f}" for k, (m, sh) in zip(
                   ("d_power", "d_tau", "d_eod", "d_vod", "d_density"),
@@ -2520,8 +2542,21 @@ def main():
 
     t0 = time.time()
     _build.load_library()
-    print(f"[2 build] {time.time() - t0:.1f} s | ptxas: "
-          + " ; ".join(ptxas_summary(_build.build_log())), flush=True)
+    build_s = time.time() - t0
+    check(vs.compiled_uv_steps() == VRLConfig().uv_tau_steps,
+          f"the grid kernels are compiled for {vs.compiled_uv_steps()} U-V "
+          f"steps, the callers pass {VRLConfig().uv_tau_steps}")
+    occupancy, warps = [], bwd._library().alvrl_ray_block() // 32
+    for entry in ("vrl_sum", "vrl_sum_bwd"):
+        for uv in (4, 3):
+            blocks = vs.occupancy(entry, True, C4_TRIS, uv)
+            occupancy.append(f"{entry}<0,1,grid,uv{uv if uv == 4 else '*'}> "
+                             f"{blocks} blocks {blocks * warps} "
+                             "warps")
+    print(f"[2 build] {build_s:.1f} s | ptxas: "
+          + " ; ".join(ptxas_summary(_build.build_log()))
+          + f" | resident per SM at {C4_TRIS} triangles: "
+          + " ; ".join(occupancy), flush=True)
 
     cfg = VRLConfig(vol_vol_samples=2, vol_surf_samples=2)
     n_draws = 2 * cfg.vol_vol_samples + cfg.vol_surf_samples

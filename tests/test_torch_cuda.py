@@ -35,7 +35,9 @@ from alvrl_tpu_torch.ops.vrl_r import (
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_MEDIAN,
     HOMOG_SHARE,
+    compiled_uv_steps,
     homog_bar,
+    occupancy,
     philox_uniforms,
     vrl_sum,
     vrl_sum_hetero,
@@ -376,16 +378,17 @@ def test_cuda_render_alvrl_launches_both_kernels(cuda):
 # --- the grid-medium kernels -------------------------------------------------
 
 
-def _grid_packs(device, phase_kind=0):
+def _grid_packs(device, phase_kind=0, grid_res=8):
     """The ragged 20x13 eye rays x 77 VRLs (7 invalid) of _ragged_packs
-    in cornell_grid_smoke (8^3 grid): the grid packs and the supersampled
-    density."""
+    in cornell_grid_smoke (grid_res^3 grid): the grid packs and the
+    supersampled density."""
     vrls = _bench_vrls(device)
     valid = vrls.valid[:77].clone()
     valid[3::11] = False
     vrls = replace(vrls, start=vrls.start[:77], end=vrls.end[:77],
                    power=vrls.power[:77], valid=valid)
-    scene = presets.cornell_grid_smoke(20, 13, grid_res=8, device=device)
+    scene = presets.cornell_grid_smoke(20, 13, grid_res=grid_res,
+                                       device=device)
     scene = replace(scene, medium=replace(scene.medium,
                                           phase_kind=phase_kind))
     return integrator.pack_frame(scene, vrls)[3]
@@ -505,7 +508,7 @@ DENSITY_REPEAT = 1e-4
 VOXEL_FLOOR = 1e-3  # voxels compared: |grad| above this share of the largest
 
 
-def _assert_grid_bwd_close(out, ref, kind):
+def _assert_grid_bwd_close(out, ref, kind, min_voxels=20):
     d_power, d_par, d_tau, d_eod, d_vod, d_dens = out
     r_power, r_par, r_tau, r_eod, r_vod, r_dens = ref
     for o, r in ((d_power, r_power), (d_tau, r_tau), (d_eod, r_eod),
@@ -514,7 +517,7 @@ def _assert_grid_bwd_close(out, ref, kind):
         median, share = homog_bar(o.T, r.T, channels=o.shape[0])
         assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
     nz = r_dens.abs() > VOXEL_FLOOR * float(r_dens.abs().max())
-    assert torch.isfinite(d_dens).all() and int(nz.sum()) > 20
+    assert torch.isfinite(d_dens).all() and int(nz.sum()) > min_voxels
     median, share = homog_bar(d_dens[nz][:, None], r_dens[nz][:, None],
                               channels=1)
     assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
@@ -581,6 +584,88 @@ def test_cuda_grid_bwd_kernel_repeats(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a[:5], b[:5]))
     assert float((a[5] - b[5]).abs().max()) \
         <= DENSITY_REPEAT * float(a[5].abs().max())
+
+
+def test_cuda_grid_bwd_kernel_on_a_2x2x2_grid(cuda):
+    """A 2x2x2 density grid (3^3 supersampled voxels): nearly every
+    warp's density reductions collide, and most consecutive reads of a
+    sample share a voxel, so the kernel merges them before its
+    reductions; d_density (on the voxels above VOXEL_FLOOR, at least 10
+    of the 27) still meets the homogeneous bar against the plain
+    backward, as do the other cotangents."""
+    packs = _grid_packs(cuda, grid_res=2)
+    assert tuple(packs[4].shape) == (3, 3, 3)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(8).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    out = vrl_sum_hetero_bwd(*packs, gbar, seed=17)
+    ref = vrl_sum_hetero_bwd_reference(
+        *packs, gbar, philox_uniforms(17, n_rays, n_vrls, 6, device=cuda))
+    _assert_grid_bwd_close(out, ref, 0, min_voxels=10)
+
+
+@pytest.mark.parametrize("kernel", ["sum", "bwd"])
+def test_cuda_grid_kernels_with_3_uv_steps(cuda, kernel):
+    """uv_steps = 3 takes the generic instantiation of the grid sum and
+    of its VJP (the run-time step count; 4 steps, every caller's, take
+    the one compiled for 4): each against its plain version at 3 steps,
+    and different from the 4-step result."""
+    packs = _grid_packs(cuda)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    u = philox_uniforms(23, n_rays, n_vrls, 6, device=cuda)
+    if kernel == "sum":
+        out = vrl_sum_hetero(*packs, seed=23, uv_steps=3)
+        median, share = homog_bar(
+            out.T, vrl_sum_hetero_reference(*packs, u, uv_steps=3).T)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+        assert not torch.equal(out, vrl_sum_hetero(*packs, seed=23))
+        return
+    gbar = torch.as_tensor(np.random.default_rng(9).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    out = vrl_sum_hetero_bwd(*packs, gbar, seed=23, uv_steps=3)
+    _assert_grid_bwd_close(out, vrl_sum_hetero_bwd_reference(
+        *packs, gbar, u, uv_steps=3), 0)
+    assert not torch.equal(out[5], vrl_sum_hetero_bwd(*packs, gbar,
+                                                      seed=23)[5])
+
+
+def test_cuda_grid_bwd_per_vrl_sums_against_float64(cuda):
+    """ROADMAP C12 at a cut-down shape (64x64 eye rays of cornell_grid_
+    smoke, 16^3 grid, the 512 bench VRLs: 32 ray blocks per VRL sum):
+    the kernel's d_power and d_vod, whose ray-block partials it adds in
+    float64, meet the homogeneous bar against the plain backward
+    evaluated in float64, as chip_smoke.py holds them at the full
+    config-4 shape."""
+    scene = presets.cornell_grid_smoke(64, 64, grid_res=16, device=cuda)
+    packs = integrator.pack_frame(scene, _bench_vrls(cuda))[3]
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(12).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    out = vrl_sum_hetero_bwd(*packs, gbar, seed=29)
+    u = philox_uniforms(29, n_rays, n_vrls, 6, device=cuda)
+    ref64 = vrl_sum_hetero_bwd_reference(
+        *(x.double() for x in (*packs, gbar, u)))
+    for i in (0, 4):  # d_power, d_vod
+        assert torch.isfinite(out[i]).all() and float(out[i].abs().sum()) > 0
+        median, share = homog_bar(out[i].T, ref64[i].T,
+                                  channels=out[i].shape[0])
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (i, median,
+                                                               share)
+
+
+def test_cuda_grid_occupancy_query(cuda):
+    """The occupancy entries answer for both grid instantiations of the
+    sum and its VJP: at least one block of each fits on an SM."""
+    for entry in ("vrl_sum", "vrl_sum_bwd"):
+        for uv in (4, 3):
+            assert occupancy(entry, True, 12, uv) >= 1
+
+
+def test_cuda_grid_kernels_compiled_for_the_default_uv_steps(cuda):
+    """The library's grid sum and VJP are compiled for the U-V step count
+    every caller passes (VRLConfig().uv_tau_steps), so the callers take
+    that instantiation and not the generic one."""
+    assert compiled_uv_steps() == VRLConfig().uv_tau_steps
 
 
 def test_cuda_grid_render_diff_launches_both_grid_kernels(cuda):

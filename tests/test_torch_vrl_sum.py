@@ -7,6 +7,10 @@ against the Random123 known answers; the wrapper's input checks. The
 kernel itself runs only on a CUDA card: see tests/test_torch_cuda.py.
 """
 
+import inspect
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,7 @@ from alvrl_tpu.media import api as mapi
 from alvrl_tpu.ops import vrl_pallas as vp
 from alvrl_tpu.scene import presets as jpresets
 from alvrl_tpu.sensors import perspective as jperspective
+import alvrl_tpu_torch
 from alvrl_tpu_torch import convert
 from alvrl_tpu_torch.integrators.vrl import integrator, vrl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
@@ -33,8 +38,10 @@ from alvrl_tpu_torch.ops.vrl_sum import (
     philox4x32_10,
     philox_uniforms,
     vrl_sum,
+    vrl_sum_hetero,
     vrl_sum_reference,
 )
+from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_hetero_bwd, vrl_sum_hetero_diff
 from tests.torch_port_utils import (
     BENCH_VRLS,
     SEQ_UNIFORMS,
@@ -218,6 +225,21 @@ def test_wrapper_cpu_takes_the_plain_version():
     assert torch.equal(out, ref)
     assert vrl_sum.launches == before
     assert torch.isfinite(out).all() and float(out.sum()) > 0.0
+
+
+def test_grid_kernels_are_compiled_for_the_default_uv_steps():
+    """The grid sum and its VJP have an instantiation compiled for
+    UV_STEPS U-V steps (csrc/vrl_common.cuh) and a slower generic one for
+    any other count. Every caller passes VRLConfig().uv_tau_steps and the
+    grid wrappers default to it, so all three agree (on the card the
+    library's alvrl_uv_steps() is held to it as well)."""
+    src = (Path(alvrl_tpu_torch.__file__).parent / "csrc"
+           / "vrl_common.cuh").read_text()
+    (compiled,) = re.findall(r"constexpr int UV_STEPS = (\d+);", src)
+    steps = VRLConfig().uv_tau_steps
+    assert int(compiled) == steps
+    for fn in (vrl_sum_hetero, vrl_sum_hetero_bwd, vrl_sum_hetero_diff):
+        assert inspect.signature(fn).parameters["uv_steps"].default == steps
 
 
 BAD_INPUTS = {
