@@ -158,13 +158,13 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, i
 }
 
 // Stage all T triangles and the block's chunk of VRLs (n_rows rows of
-// the pack, zero-padded to VRL_CHUNK) in shared memory; returns the
-// chunk's VRL count.
+// the pack, the chunk's `chunk` columns zero-padded to VRL_CHUNK) in
+// shared memory; returns the chunk's VRL count.
 __device__ __forceinline__ int stage_block(const float* __restrict__ tris, int T,
                                            const float* __restrict__ vrls, int N, int n0,
                                            float* s_tri, float* s_vrl,
-                                           int n_rows = VRL_ROWS) {
-  const int nc = min(VRL_CHUNK, N - n0);
+                                           int n_rows = VRL_ROWS, int chunk = VRL_CHUNK) {
+  const int nc = min(chunk, N - n0);
   for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
   for (int i = threadIdx.x; i < n_rows * VRL_CHUNK; i += blockDim.x) {
     const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
@@ -271,6 +271,130 @@ struct FlatTris {
   int T;
 
   __device__ __forceinline__ bool operator()(f3 p, f3 q) const { return occluded(s_tri, T, p, q); }
+};
+
+// The flat sweep with a plane pre-reject (kernel 1's homogeneous
+// instantiations, vrl_sum.cu): each triangle comes as PLANE_F4 float4s
+// of a plane pack (vrl_sum.cu plane_pack_kernel; plain twin
+// ops/vrl_sum.py:plane_pack),
+//   (n.xyz, off), (k, k0, p0.x, p0.y), (p0.z, e1.xyz), (e2.xyz, 0),
+// with n = fl(e1 x e2) and off = fl(n . p0) the triangle's plane and k =
+// PLANE_MARGIN |e1|_inf |e2|_inf, k0 = k |p0|_inf rounded up. A triangle
+// is skipped, without its Wald test, when the segment's two tested ends
+// a = p + lo u and b = p + hi u lie on one side of its plane by more than
+// the margin M = k S + k0, S = |p|_inf + max(|lo|, |hi|); the rest go
+// through wald_hit unchanged. The skip implies wald_hit = false, so the
+// sweep decides as FlatTris does on every segment:
+//   * In exact arithmetic, with N = e1 x e2 and sigma(x) = N . (x - p0),
+//     wald_hit's last two conditions read tt - lo adet = sgn sigma(a) > 0
+//     and hi adet - tt = -sgn sigma(b) > 0 (tt = N . (p - p0), det =
+//     -N . u, sgn the sign it takes for det): the ends lie strictly on
+//     opposite sides of the plane. If sigma(a) and sigma(b) have one sign,
+//     one of the two is negative, whichever sgn wald_hit takes.
+//   * wald_hit computes those two quantities in float32. Counting each
+//     rounding (unit eps = 2^-24; |N|_1 <= 6 E1 E2 with E1 = |e1|_inf,
+//     E2 = |e2|_inf, P = |p|_inf, P0 = |p0|_inf, L = max(|lo|, |hi|)):
+//     tv = p - p0 rounded (6 eps E1 E2 (P + P0)), the cross and dot
+//     products of tt (30 eps E1 E2 (P + P0)) and of det (30 eps E1 E2 L
+//     after the product with lo or hi), that product and the final
+//     difference (12 eps E1 E2 (P + P0 + L)): each lies within 48 eps E1
+//     E2 (P + P0 + L) of its exact value, first order.
+//   * The pre-reject's own sigma lies within 42 eps E1 E2 (P + P0 + L)
+//     of the exact sigma: a and b rounded twice per component (12 eps),
+//     n rounded (6 eps), off rounded (6 eps), the three fused
+//     multiply-adds (18 eps).
+//   * So a skip needs |sigma| > 90 eps E1 E2 (P + P0 + L) = 5.4e-6 E1 E2
+//     (P + P0 + L) at both ends; the margin is PLANE_MARGIN = 2^-14
+//     (6.1e-5) of the same, 11 times that, with k, k0 rounded up and the
+//     margin's own two roundings far inside the slack. A NaN anywhere
+//     fails every comparison and skips nothing; a degenerate triangle
+//     (n = 0) has sigma = 0 and is never skipped.
+// The checking instantiation (MODE 1) runs both decisions on every
+// triangle, decides with the Wald test alone (FlatTris' decision) and
+// counts, per thread: segments, triangles the old sweep tests (up to its
+// first blocker), those of them the pre-reject skips, triangles skipped
+// that the Wald test finds blocking, and segments whose two decisions
+// differ; the last two must be 0. MODE 2 is the sweep of the plane pack
+// without the pre-reject (timing only). tris: the block's copy of the
+// pack in shared memory, which every thread of a warp reads at the same
+// float4 in the pre-reject (a broadcast).
+constexpr int PLANE_F4 = 4;  // float4s per triangle of the plane pack
+constexpr float PLANE_MARGIN = 6.103515625e-05f;  // 2^-14
+
+struct CheckCounts {
+  uint32_t segments, considered, skipped, bad_tris, bad_segments;
+};
+
+template <int MODE>
+struct PlaneTris {
+  const float4* tris;
+  int T;
+  CheckCounts* counts;
+
+  // does the pre-reject skip the triangle whose pack starts at float4 i
+  // (km = its second float4)?
+  __device__ __forceinline__ bool skips(int i, float4 km, f3 a, f3 b, float span) const {
+    const float4 pl = tris[i];
+    const float sa = fmaf(pl.x, a.x, fmaf(pl.y, a.y, fmaf(pl.z, a.z, -pl.w)));
+    const float sb = fmaf(pl.x, b.x, fmaf(pl.y, b.y, fmaf(pl.z, b.z, -pl.w)));
+    const float mg = fmaf(km.x, span, km.y);
+    return (sa > mg && sb > mg) || (sa < -mg && sb < -mg);
+  }
+
+  // the Wald test of the triangle whose pack starts at float4 i
+  __device__ __forceinline__ bool hits(const Segment& s, int i) const {
+    const float4 r1 = tris[i + 1], r2 = tris[i + 2], r3 = tris[i + 3];
+    return wald_hit(s, {r1.z, r1.w, r2.x}, {r2.y, r2.z, r2.w}, {r3.x, r3.y, r3.z});
+  }
+
+  __device__ bool operator()(f3 p, f3 q) const {
+    const Segment s = make_segment(p, q);
+    if (MODE == 2) {  // every triangle's Wald test
+      for (int t = 0; t < T; ++t)
+        if (hits(s, PLANE_F4 * t)) return true;
+      return false;
+    }
+    const f3 a = s.p + s.u * s.lo, b = s.p + s.u * s.hi;
+    const float span = fmaxf(fmaxf(fabsf(s.p.x), fabsf(s.p.y)), fabsf(s.p.z)) +
+                       fmaxf(fabsf(s.lo), fabsf(s.hi));
+    if (MODE == 0) {
+      // 32 triangles at a time: the pre-reject of each into a mask of the
+      // ones it keeps (no branch, so a warp's lanes stay together), then
+      // the Wald test of the kept ones in triangle order, to the first
+      // blocker: a lane tests only its own, not every triangle some lane
+      // of its warp keeps
+      for (int t0 = 0; t0 < T; t0 += 32) {
+        const int n = min(32, T - t0);
+        uint32_t kept = 0u;
+        for (int k = 0; k < n; ++k) {
+          const int i = PLANE_F4 * (t0 + k);
+          kept |= (uint32_t)!skips(i, tris[i + 1], a, b, span) << k;
+        }
+        while (kept) {
+          const int k = __ffs(kept) - 1;
+          kept &= kept - 1u;
+          if (hits(s, PLANE_F4 * (t0 + k))) return true;
+        }
+      }
+      return false;
+    }
+    bool old = false, now = false;
+    ++counts->segments;
+    for (int t = 0; t < T; ++t) {
+      const int i = PLANE_F4 * t;
+      const bool skip = skips(i, tris[i + 1], a, b, span);
+      const bool hit = hits(s, i);
+      if (!old) {  // the old sweep ends at its first blocker
+        ++counts->considered;
+        if (skip) ++counts->skipped;
+      }
+      if (skip && hit) ++counts->bad_tris;
+      old = old || hit;
+      now = now || (hit && !skip);
+    }
+    if (old != now) ++counts->bad_segments;
+    return old;
+  }
 };
 
 // Equi-angular (Kulla-Fajardo) sampling of a point at arc length `arc`

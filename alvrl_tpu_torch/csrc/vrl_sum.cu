@@ -31,9 +31,14 @@
 //   * grid = ray tiles (RAY_BLOCK threads, one ray each) x VRL chunks of
 //     VRL_CHUNK; one thread per ray alone would fill about a sixteenth
 //     of the card at 16k rays, so the VRL axis is split as well;
-//   * each block stages its VRL chunk and all T triangles in shared
-//     memory; every thread then reads the same triangle at the same
-//     time (a broadcast, no bank conflicts);
+//   * each block stages its VRL chunk in shared memory; every thread
+//     then reads the same triangle at the same time, a broadcast: the
+//     grid kernels stage all T triangles in shared memory; kernel 1 (the
+//     homogeneous sum, vrl_sum_plane_kernel) reads them from a plane pack
+//     (plane_pack_kernel, made in front of it on the same stream) in
+//     shared memory (the constant bank measured 6-7 % slower on an
+//     H100: the Wald stage reads a different triangle in each lane,
+//     which the constant cache serves one address at a time; PERF.md);
 //   * each thread loops over its chunk in a fixed order; partial sums go
 //     to (n_chunks, 3, B) scratch and a second kernel adds the chunks in
 //     a fixed order, so the result is deterministic;
@@ -55,7 +60,15 @@
 //     faster than six (PERF.md);
 //   * shadow segments use the division-free Wald test, one sweep over
 //     the triangles per sample segment, with an early exit on the first
-//     blocker;
+//     blocker; kernel 1's sweep (vrl_common.cuh PlaneTris) first tests
+//     each triangle's plane against the segment's two tested ends and
+//     skips the Wald test where both lie on one side by a proven margin
+//     (84 % of config 1's tests), deciding every segment as the Wald
+//     test alone does, which its checking instantiation counts; the
+//     pre-reject runs over 32 triangles at a time into a mask with no
+//     branch, and a lane then runs the Wald tests of its own kept
+//     triangles only (a plane record shared by a quad's two halves, or a
+//     list of plane records, measured slower on an H100: PERF.md);
 //   * random numbers come from a counter-based Philox4x32-10, so the
 //     stream does not depend on the tiling: key (seed, 0), counter
 //     (b, n, j, 0), draw d of a pair is word d % 4 of call j = d / 4,
@@ -116,8 +129,8 @@ __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
 }
 
-// The kernel: the homogeneous and the run-time-step (UV = 0) grid
-// instantiations, under the launch bound every kernel of the port has...
+// The grid kernel: the run-time-step (UV = 0) instantiations, under the
+// launch bound every kernel of the port has...
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
@@ -152,6 +165,149 @@ constexpr auto sum_kernel() {
     return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV, GRID_MIN_BLOCKS>;
   else
     return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV>;
+}
+
+// --- the homogeneous sum (kernel 1): the flat sweep with the plane
+// pre-reject (vrl_common.cuh PlaneTris), its triangles' plane pack in
+// shared memory
+
+// The plane pack (PlaneTris) of T triangles (TRI_COLS each: p0, e1, e2):
+// n = e1 x e2 and off = n . p0 in float64 rounded to nearest (the
+// products of two floats are exact in float64, so n is the correctly
+// rounded cross product), the margin's k = PLANE_MARGIN |e1|_inf
+// |e2|_inf and k0 = k |p0|_inf rounded up; then p0, e1, e2 as they are.
+__global__ void plane_pack_kernel(const float* __restrict__ tris, int T,
+                                  float4* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  const float* tr = tris + (size_t)t * TRI_COLS;
+  const double e1[3] = {tr[3], tr[4], tr[5]}, e2[3] = {tr[6], tr[7], tr[8]};
+  const float n[3] = {(float)(e1[1] * e2[2] - e1[2] * e2[1]),
+                      (float)(e1[2] * e2[0] - e1[0] * e2[2]),
+                      (float)(e1[0] * e2[1] - e1[1] * e2[0])};
+  const double off = (double)n[0] * tr[0] + (double)n[1] * tr[1] + (double)n[2] * tr[2];
+  auto inf_norm = [](double x, double y, double z) {
+    return fmax(fmax(fabs(x), fabs(y)), fabs(z));
+  };
+  const double k = (double)PLANE_MARGIN * inf_norm(e1[0], e1[1], e1[2]) *
+                   inf_norm(e2[0], e2[1], e2[2]);
+  const double k0 = k * inf_norm(tr[0], tr[1], tr[2]);
+  float4* o = out + (size_t)PLANE_F4 * t;
+  o[0] = make_float4(n[0], n[1], n[2], (float)off);
+  o[1] = make_float4(__double2float_ru(k), __double2float_ru(k0), tr[0], tr[1]);
+  o[2] = make_float4(tr[2], tr[3], tr[4], tr[5]);
+  o[3] = make_float4(tr[6], tr[7], tr[8], 0.0f);
+}
+
+// kernel 1's modes (PlaneTris' MODE): the pre-reject; the checking
+// instantiation, which counts; no pre-reject (timing only)
+constexpr int MODE_SUM = 0, MODE_CHECK = 1, MODE_NO_REJECT = 2;
+constexpr int N_CHECK = 5;  // CheckCounts' fields, in order
+
+template <int PHASE, bool SHORT_VRLS, int MODE>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_plane_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
+                         int N, const float4* __restrict__ planes, int T,
+                         const float* __restrict__ med, const float* __restrict__ uniforms,
+                         uint32_t seed, int svv, int svs, float* __restrict__ partial,
+                         unsigned long long* __restrict__ counts) {
+  extern __shared__ float4 smem4[];
+  float4* s_planes = smem4;  // (T * PLANE_F4)
+  float* s_vrl = reinterpret_cast<float*>(smem4 + T * PLANE_F4);
+  const int chunk = blockIdx.y;
+  const int n0 = chunk * VRL_CHUNK;
+  for (int i = threadIdx.x; i < T * PLANE_F4; i += blockDim.x) s_planes[i] = planes[i];
+  const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl);
+  __syncthreads();
+
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray ray = load_ray(rays, B, b);
+  const Medium m(med);
+  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
+  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
+  const int n_draws = 2 * svv + svs;
+  CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
+  const PlaneTris<MODE> occl{s_planes, T, &cnt};
+
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int c = 0; ray.ok && c < nc; ++c) {
+    if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;
+    const int n = n0 + c;
+    const VrlPair p = pair_at<false>(ray, s_vrl, c);
+    PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
+                      (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
+    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
+                                  [&](int family, const float* t) {
+                                    const float inv = family == 0 ? inv_vv : inv_vs;
+#pragma unroll
+                                    for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+                                  });
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
+  if (MODE == MODE_CHECK) {
+    const uint32_t all[N_CHECK] = {cnt.segments, cnt.considered, cnt.skipped, cnt.bad_tris,
+                                   cnt.bad_segments};
+#pragma unroll
+    for (int i = 0; i < N_CHECK; ++i) atomicAdd(counts + i, (unsigned long long)all[i]);
+  }
+}
+
+// dynamic shared memory of the homogeneous sum, in bytes
+size_t plane_smem_bytes(int T) {
+  return (size_t)T * PLANE_F4 * sizeof(float4) + (size_t)VRL_ROWS * VRL_CHUNK * sizeof(float);
+}
+
+// The instantiation of kernel 1 for (phase, short VRLs, mode).
+using PlaneKernel = void (*)(const float*, int, const float*, int, const float4*, int,
+                             const float*, const float*, uint32_t, int, int, float*,
+                             unsigned long long*);
+
+template <class Phase, class Short>
+PlaneKernel plane_kernel(Phase, Short, int mode) {
+  constexpr int P = Phase::value;
+  constexpr bool S = Short::value;
+  if (mode == MODE_CHECK) return &vrl_sum_plane_kernel<P, S, MODE_CHECK>;
+  if (mode == MODE_NO_REJECT) return &vrl_sum_plane_kernel<P, S, MODE_NO_REJECT>;
+  return &vrl_sum_plane_kernel<P, S, MODE_SUM>;
+}
+
+// Launches kernel 1 and the chunk reduction on `stream`: the plane pack
+// of the T triangles into `planes` (T * PLANE_F4 float4s of scratch),
+// then the sum, in `mode` (MODE_CHECK adds its counts to
+// counts[N_CHECK]). Returns a cudaError_t (0 = launched).
+int launch_homog(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
+                 const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
+                 int short_vrls, int phase_kind, float* planes, int mode,
+                 unsigned long long* counts, float* partial, int n_chunks, float* out,
+                 void* stream) {
+  if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
+      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
+      n_chunks > MAX_GRID_Y || mode < MODE_SUM || mode > MODE_NO_REJECT ||
+      (T > 0 && planes == nullptr) || (mode == MODE_CHECK && counts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  PlaneKernel kernel = nullptr;
+  dispatch(phase_kind, short_vrls,
+           [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, mode); });
+  cudaStream_t st = (cudaStream_t)stream;
+  float4* pack = reinterpret_cast<float4*>(planes);
+  if (T > 0) plane_pack_kernel<<<(T + 127) / 128, 128, 0, st>>>(tris, T, pack);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
+  const size_t smem = plane_smem_bytes(T);
+  if (smem > 48 * 1024) {  // above the default cap of dynamic shared memory
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, pack, T, med, uniforms, seed, svv,
+                                          svs, partial, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = 3 * B;
+  reduce_parts<float><<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
+  return (int)cudaGetLastError();
 }
 
 // dynamic shared memory of the sum, in bytes, with T triangles
@@ -204,14 +360,32 @@ int alvrl_max_tris() { return MAX_TRIS; }
 int alvrl_uv_steps() { return UV_STEPS; }
 const char* alvrl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The homogeneous sum. `partial` is (n_chunks, 3, B) scratch, `out` is
-// (3, B); `uniforms` may be null (Philox stream from `seed`).
+int alvrl_plane_f4() { return PLANE_F4; }
+
+// The homogeneous sum (kernel 1). `planes` is (T, 4 PLANE_F4) float
+// scratch for the triangles' plane pack, `partial` (n_chunks, 3, B)
+// scratch, `out` (3, B); `uniforms` may be null (Philox stream from
+// `seed`). mode: 0 the sum, 1 the checking instantiation (counts:
+// N_CHECK totals, zeroed by the caller: segments, triangles tested by
+// the Wald-only sweep, those skipped by the pre-reject, skipped
+// triangles that block, segments decided differently), 2 the sweep
+// without the pre-reject (timing only).
 int alvrl_vrl_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
                   const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
-                  int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
+                  int short_vrls, int phase_kind, float* planes, int mode,
+                  unsigned long long* counts, float* partial, int n_chunks, float* out,
                   void* stream) {
-  return launch_sum<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                           short_vrls, phase_kind, partial, n_chunks, out, stream);
+  return launch_homog(rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, short_vrls,
+                      phase_kind, planes, mode, counts, partial, n_chunks, out, stream);
+}
+
+// The plane pack of T triangles into `out` (T, 4 PLANE_F4), as kernel 1
+// makes it; returns a cudaError_t.
+int alvrl_plane_pack(const float* tris, int T, float* out, void* stream) {
+  if (T <= 0) return (int)cudaErrorInvalidValue;
+  plane_pack_kernel<<<(T + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      tris, T, reinterpret_cast<float4*>(out));
+  return (int)cudaGetLastError();
 }
 
 // The grid-medium sum: the grid packs (ops/pack.py), the supersampled
@@ -231,13 +405,29 @@ int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, con
 // with these arguments takes, as vrl_common.cuh's occupancy.
 int alvrl_vrl_sum_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,
                             int* blocks) {
+  if (!grid) {  // kernel 1, the sum as launch_homog takes it
+    if (T < 0 || T > MAX_TRIS || (phase_kind != 0 && phase_kind != 1))
+      return (int)cudaErrorInvalidValue;
+    PlaneKernel kernel = nullptr;
+    dispatch(phase_kind, short_vrls,
+             [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, MODE_SUM); });
+    const size_t smem = plane_smem_bytes(T);
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, RAY_BLOCK, smem);
+    return (int)err;
+  }
+  // the grid sum (the homogeneous medium returned above, so its branch
+  // of the query names the grid kernel too and compiles no other)
   return occupancy(
       grid, T, uv_steps, phase_kind, short_vrls, blocks,
-      [](auto g, auto phase, auto short_, auto uv) {
-        return sum_kernel<decltype(phase)::value, decltype(short_)::value, decltype(g)::value,
+      [](auto, auto phase, auto short_, auto uv) {
+        return sum_kernel<decltype(phase)::value, decltype(short_)::value, true,
                           decltype(uv)::value>();
       },
-      [](auto g, int n_tris) { return sum_smem_bytes<decltype(g)::value>(n_tris); });
+      [](auto, int n_tris) { return sum_smem_bytes<true>(n_tris); });
 }
 
 }  // extern "C"

@@ -8,129 +8,260 @@
 // PyTorch twin ops/vrl_sum_bvh.py:vrl_sum_bvh_reference. Homogeneous
 // media only, as the TPU kernel.
 //
-// What bounds it on the H100: fp32 ALU throughput and the divergence of
-// the shadow traversals. Per pair-sample the estimator costs what it
-// costs in vrl_sum.cu (about 150 float32 and 20 special-function
-// operations); each shadow segment then walks a BVH: 19 operations per
-// node box and 59 per triangle (chip_smoke.py's OPS, "node" and
-// "triangle"), a number of each that depends on the data, which the
-// counting instantiation (COUNT=true) measures. The nodes and triangles
-// (32 + 36 bytes each: about 7 MB at 129,612 triangles) stay resident in
-// the 50 MB L2, so device memory does not bound it. The TPU kernel
-// streamed 64-triangle leaf clusters from HBM behind per-ray-group AABB
-// culling, because its scalar core could not chase pointers per ray; on
-// Hopper each thread walks its own segment:
-//   * grid, staging and reduction are kernel 1's: ray tiles (RAY_BLOCK
-//     threads, one ray each) x chunks of VRL_CHUNK VRLs staged in shared
-//     memory, the Philox counter (b, n, j), partial sums to (n_chunks, 3,
-//     B) scratch added in chunk order by reduce_parts (deterministic);
-//   * the shadow test is the policy BvhTris: an any-hit traversal of the
-//     BVH in device memory, read through the read-only path, one node
-//     box (slab test with IEEE infinities for zero direction components,
-//     the near and far planes picked by the sign, min/max that ignore
-//     the NaN of a segment lying in a box's face) per pop, a fixed stack
-//     of BVH_STACK entries in local memory (the host refuses a deeper
-//     tree; the entry point refuses a depth over BVH_STACK - 1, so the
-//     stack cannot overflow), an exit at the first blocker;
-//   * each triangle goes through vrl_common.cuh's wald_hit, the function
-//     of kernel 1's flat sweep, and the host pads every node box outward
-//     (ops/vrl_sum_bvh.py:BOX_PAD), so the traversal finds every triangle
-//     the sweep finds: both kernels give the same sums, bit for bit,
-//     given the same samples;
+// What bounds it on the H100: by its operations, fp32 ALU throughput
+// (per pair-sample the estimator's, about 150 float32 and 20
+// special-function operations; per shadow segment 19 operations per
+// node box and 59 per triangle tested, chip_smoke.py's OPS, a number of
+// each that depends on the data, which the counting instantiation
+// (COUNT=true) measures). The nodes and triangles (64 and 36 bytes each:
+// about 9 MB at 129,612 triangles) stay resident in the 50 MB L2. What
+// holds it back is latency: each shadow segment walks its own path
+// through the tree, and each step of that walk is a read that depends
+// on the one before. The TPU kernel streamed 64-triangle leaf clusters
+// from HBM behind per-ray-group AABB culling, because its scalar core
+// could not chase pointers per ray; on Hopper each thread walks its own
+// segment, and the design shortens that chain and hides its latency:
+//   * the grid: ray tiles (RAY_BLOCK threads, one ray each) x chunks of
+//     BVH_VRL_CHUNK VRLs (one VRL a block, not kernel 1's 32), so that
+//     the bench launch (4,096 rays x 256 VRLs) makes 8,192 blocks
+//     instead of 256: every SM has warps to switch between, and a block,
+//     which lasts as long as its slowest traversals, holds few of them
+//     (measured faster than chunks of 2-32 on every bench scene on an
+//     H100, PERF.md); the chunk's VRL is staged in shared memory, the
+//     Philox counter (b, n, j) is kernel 1's, and the (n_chunks, 3, B)
+//     partial sums are added in chunk order by reduce_parts
+//     (deterministic);
+//   * the nodes: each node holds both children's boxes and references
+//     (64 bytes, four float4s), so one dependent fetch tests two boxes,
+//     and the children of an inner node are found without a fetch of
+//     their own;
+//   * the traversal: Aila and Laine's "while-while" (Understanding the
+//     efficiency of ray traversal on GPUs, HPG 2009) for an any-hit
+//     test: the inner loop tests both children of a node, descends into
+//     the nearer overlapping one without a push, pushes the other only
+//     when both overlap, and postpones a leaf until every lane of the
+//     warp holds one; the leaf loop tests the leaves' triangles and
+//     exits at the first blocker;
+//   * the stack: only far children are pushed, so a tree of depth d
+//     needs at most d entries; each thread keeps d of them in its own
+//     column of the block's dynamic shared memory (no local-memory
+//     array; 10.5 KB a block for the bench's 21-deep trees), and the
+//     host refuses a tree deeper than BVH_STACK
+//     (ops/vrl_sum_bvh.py:pack_bvh_tris), as the entry point does;
+//   * the box test is a slab test with IEEE infinities for zero
+//     direction components (the near and far planes picked by the sign,
+//     min/max that ignore the NaN of a segment lying in a box's face);
+//     every box is padded outward (ops/vrl_sum_bvh.py:BOX_PAD), and each
+//     triangle goes through vrl_common.cuh's wald_hit, the function of
+//     kernel 1's flat sweep, so the traversal finds every triangle the
+//     sweep finds: both kernels make the same shadow decisions;
 //   * the 32 rays of a warp share a VRL at each loop step, but their
-//     segments differ, so the traversals diverge; this simple kernel
-//     leaves that as it is, and the counting instantiation writes down
-//     the node and triangle tests per segment (PERF.md).
+//     segments differ, so the traversals diverge; the counting
+//     instantiation writes down node fetches, box and triangle tests per
+//     segment, and beside them the work the shadow function needs (the
+//     box and triangle tests of a one-box-per-node traversal in child
+//     order, which stops at its first blocker: needed_work), which
+//     prices the bound (PERF.md).
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
 
 namespace {
 
-constexpr int BVH_STACK = 64;  // stack entries: trees up to BVH_STACK - 1 deep
+constexpr int BVH_STACK = 63;     // the deepest tree served, as geometry/bvh.py's traversal
+constexpr int BVH_VRL_CHUNK = 1;  // VRLs per block
+constexpr int NONE = 0x7fffffff;  // no node: the stack is empty
 
-// A thread's traversal counts (COUNT=true): node boxes tested, triangles
-// tested, shadow segments tested.
+// A thread's traversal counts (COUNT=true): node fetches, boxes tested,
+// triangles tested, shadow segments tested; the boxes and triangles that
+// needed_work tests; segments that it decides otherwise (must be 0).
 struct BvhCounts {
-  uint32_t nodes, tris, segments;
+  uint32_t fetches, boxes, tris, segments, need_boxes, need_tris, differ;
 };
 
 // Does segment s, with per-axis reciprocal directions inv, overlap the
-// box (lo, hi) within its open interval (lo, hi)? On an axis where the
-// segment's direction is 0, inv is +-inf, and the near and far distances
-// are -inf / +inf (outside the slab: +inf / -inf), or NaN where the
-// segment lies in the box's face plane; fmaxf and fminf drop that NaN,
-// leaving the axis unconstrained.
-__device__ __forceinline__ bool slab_overlaps(const Segment& s, f3 inv, float4 lo, float4 hi) {
+// box (lo, hi) within its open interval (lo, hi)? t_in: where it enters.
+// On an axis where the segment's direction is 0, inv is +-inf, and the
+// near and far distances are -inf / +inf (outside the slab: +inf /
+// -inf), or NaN where the segment lies in the box's face plane; fmaxf
+// and fminf drop that NaN, leaving the axis unconstrained.
+__device__ __forceinline__ bool slab_overlaps(const Segment& s, f3 inv, float4 lo, float4 hi,
+                                              float& t_in) {
   const float nx = ((inv.x < 0.0f ? hi.x : lo.x) - s.p.x) * inv.x;
   const float fx = ((inv.x < 0.0f ? lo.x : hi.x) - s.p.x) * inv.x;
   const float ny = ((inv.y < 0.0f ? hi.y : lo.y) - s.p.y) * inv.y;
   const float fy = ((inv.y < 0.0f ? lo.y : hi.y) - s.p.y) * inv.y;
   const float nz = ((inv.z < 0.0f ? hi.z : lo.z) - s.p.z) * inv.z;
   const float fz = ((inv.z < 0.0f ? lo.z : hi.z) - s.p.z) * inv.z;
-  const float t0 = fmaxf(fmaxf(fmaxf(s.lo, nx), ny), nz);
+  t_in = fmaxf(fmaxf(fmaxf(s.lo, nx), ny), nz);
   const float t1 = fminf(fminf(fminf(s.hi, fx), fy), fz);
-  return t0 <= t1;
+  return t_in <= t1;
 }
 
-// The BVH occlusion policy. nodes: (n_nodes, 2) float4, (lo.xyz, a) and
-// (hi.xyz, b) with a, b int32 bits: an inner node's children a and b, or
-// a leaf's first triangle a and -count b; node 0 is the root. tris: the
-// leaf-ordered triangles (T, TRI_COLS), pack_tris' p0, e1, e2.
+// The BVH occlusion policy. nodes: (n_nodes, 4) float4, node 0 holding
+// the root's children; a node is (lo0.xyz, ref0), (hi0.xyz, -), (lo1.xyz,
+// ref1), (hi1.xyz, -), the boxes and references of its two children, a
+// reference (int32 bits) being an inner child's node index (>= 0) or a
+// leaf's ~(first << 3 | count) (< 0: its triangles first .. first +
+// count - 1). An absent child has an empty box (lo = +inf, hi = -inf).
+// tris: the leaf-ordered triangles (T, TRI_COLS), pack_tris' p0, e1, e2.
+// stack: this thread's column of the block's (depth, RAY_BLOCK) shared
+// array.
 template <bool COUNT>
 struct BvhTris {
   const float4* __restrict__ nodes;
   const float* __restrict__ tris;
   int n_nodes;
+  int* stack;
   BvhCounts* counts;
 
-  __device__ bool operator()(f3 p, f3 q) const {
-    if (n_nodes == 0) return false;
-    const Segment s = make_segment(p, q);
-    const f3 inv = {1.0f / s.u.x, 1.0f / s.u.y, 1.0f / s.u.z};
-    if (COUNT) ++counts->segments;
-    int stack[BVH_STACK];
+  // does a triangle of the leaf `ref` block s?
+  __device__ __forceinline__ bool leaf_blocks(const Segment& s, int ref) const {
+    const int first = ~ref >> 3, end = first + (~ref & 7);
+    for (int t = first; t < end; ++t) {
+      if (COUNT) ++counts->tris;
+      const float* tr = tris + (size_t)t * TRI_COLS;
+      if (wald_hit(s, {__ldg(tr), __ldg(tr + 1), __ldg(tr + 2)},
+                   {__ldg(tr + 3), __ldg(tr + 4), __ldg(tr + 5)},
+                   {__ldg(tr + 6), __ldg(tr + 7), __ldg(tr + 8)}))
+        return true;
+    }
+    return false;
+  }
+
+  // The work the shadow function needs, for the bound (COUNT=true): the
+  // box and triangle tests of the one-box-per-node any-hit traversal,
+  // which tests the root's box, then each child of an overlapping inner
+  // node, child 0 first, and stops at the first blocker. Returns its
+  // decision, which must be the while-while's.
+  __device__ bool needed_work(const Segment& s, f3 inv) const {
+    float t;
+    int todo[BVH_STACK + 1];  // (node << 1 | child), both children pushed
     int sp = 0;
-    stack[sp++] = 0;
+    const float4 lo0 = __ldg(nodes), hi0 = __ldg(nodes + 1), lo1 = __ldg(nodes + 2),
+                 hi1 = __ldg(nodes + 3);
+    if (lo1.x > hi1.x) {  // one child: the root is that leaf
+      todo[sp++] = 0;
+    } else {  // the root's box, the union of its children's
+      ++counts->need_boxes;
+      const float4 lo = make_float4(fminf(lo0.x, lo1.x), fminf(lo0.y, lo1.y),
+                                    fminf(lo0.z, lo1.z), 0.0f);
+      const float4 hi = make_float4(fmaxf(hi0.x, hi1.x), fmaxf(hi0.y, hi1.y),
+                                    fmaxf(hi0.z, hi1.z), 0.0f);
+      if (!slab_overlaps(s, inv, lo, hi, t)) return false;
+      todo[sp++] = 1;
+      todo[sp++] = 0;
+    }
     while (sp > 0) {
-      const int n = stack[--sp];
-      const float4 lo = __ldg(nodes + 2 * n), hi = __ldg(nodes + 2 * n + 1);
-      if (COUNT) ++counts->nodes;
-      if (!slab_overlaps(s, inv, lo, hi)) continue;
-      const int a = __float_as_int(lo.w), b = __float_as_int(hi.w);
-      if (b < 0) {
-        for (int t = a; t < a - b; ++t) {
-          if (COUNT) ++counts->tris;
-          const float* tr = tris + (size_t)t * TRI_COLS;
+      const int e = todo[--sp];
+      const float4* box = nodes + 4 * (size_t)(e >> 1) + 2 * (e & 1);
+      const float4 lo = __ldg(box), hi = __ldg(box + 1);
+      ++counts->need_boxes;
+      if (!slab_overlaps(s, inv, lo, hi, t)) continue;
+      const int ref = __float_as_int(lo.w);
+      if (ref < 0) {
+        const int first = ~ref >> 3, end = first + (~ref & 7);
+        for (int i = first; i < end; ++i) {
+          ++counts->need_tris;
+          const float* tr = tris + (size_t)i * TRI_COLS;
           if (wald_hit(s, {__ldg(tr), __ldg(tr + 1), __ldg(tr + 2)},
                        {__ldg(tr + 3), __ldg(tr + 4), __ldg(tr + 5)},
                        {__ldg(tr + 6), __ldg(tr + 7), __ldg(tr + 8)}))
             return true;
         }
       } else {
-        stack[sp++] = b;
-        stack[sp++] = a;
+        todo[sp++] = ref << 1 | 1;
+        todo[sp++] = ref << 1;
       }
     }
     return false;
   }
+
+  __device__ bool operator()(f3 p, f3 q) const {
+    if (n_nodes == 0) return false;
+    const Segment s = make_segment(p, q);
+    const f3 inv = {1.0f / s.u.x, 1.0f / s.u.y, 1.0f / s.u.z};
+    if (COUNT) {
+      ++counts->segments;
+      const bool hit = traverse(s, inv);
+      if (hit != needed_work(s, inv)) ++counts->differ;
+      return hit;
+    }
+    return traverse(s, inv);
+  }
+
+  // the while-while traversal: does a triangle block s?
+  __device__ __forceinline__ bool traverse(const Segment& s, f3 inv) const {
+    int sp = 0;
+    auto pop = [&] { return sp > 0 ? stack[--sp * RAY_BLOCK] : NONE; };
+    int node = 0;     // the next node: inner (>= 0), a leaf (< 0) or NONE
+    int leaf = NONE;  // the postponed leaf
+    while (true) {
+      // inner loop: down the tree until every lane of the warp holds a leaf
+      while (node != NONE && node >= 0) {
+        const float4* nd = nodes + 4 * (size_t)node;
+        const float4 lo0 = __ldg(nd), hi0 = __ldg(nd + 1), lo1 = __ldg(nd + 2),
+                     hi1 = __ldg(nd + 3);
+        if (COUNT) {
+          ++counts->fetches;
+          counts->boxes += 2;
+        }
+        float t0, t1;
+        const bool h0 = slab_overlaps(s, inv, lo0, hi0, t0);
+        const bool h1 = slab_overlaps(s, inv, lo1, hi1, t1);
+        const int c0 = __float_as_int(lo0.w), c1 = __float_as_int(lo1.w);
+        if (h0 && h1) {  // the nearer one next, the other pushed
+          const bool near0 = t0 <= t1;
+          stack[sp++ * RAY_BLOCK] = near0 ? c1 : c0;
+          node = near0 ? c0 : c1;
+        } else if (h0 || h1) {
+          node = h0 ? c0 : c1;
+        } else {
+          node = pop();
+        }
+        if (node < 0 && leaf == NONE) {  // postpone the leaf
+          leaf = node;
+          node = pop();
+        }
+        if (!__any_sync(__activemask(), leaf == NONE)) break;
+      }
+      // leaf loop: the postponed leaf, then the node while it is a leaf
+      while (leaf != NONE) {
+        if (leaf_blocks(s, leaf)) return true;
+        leaf = NONE;
+        if (node < 0) {
+          leaf = node;
+          node = pop();
+        }
+      }
+      if (node == NONE) return false;
+    }
+  }
 };
 
-// counts (COUNT=true): the launch's totals of node tests, triangle tests,
-// shadow segments tested, open vol-vol samples, open vol-surf samples.
-constexpr int N_COUNTS = 5;
+// counts (COUNT=true): the launch's totals of node fetches, box tests,
+// triangle tests, shadow segments tested, open vol-vol samples, open
+// vol-surf samples, needed box tests, needed triangle tests, segments
+// that needed_work decides otherwise.
+constexpr int N_COUNTS = 9;
+
+// Bounded to five resident blocks an SM (96 registers, 12-16 B of
+// spill; 20 warps against 16 at its natural 110-117 registers), which
+// measured 7-13 % faster on every bench scene on an H100 (PERF.md).
+constexpr int BVH_MIN_BLOCKS = 5;
 
 template <int PHASE, bool SHORT_VRLS, bool COUNT>
-__global__ void __launch_bounds__(RAY_BLOCK)
+__global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
     vrl_sum_bvh_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                        int N, const float4* __restrict__ nodes, int n_nodes,
                        const float* __restrict__ tris, const float* __restrict__ med,
                        const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
                        float* __restrict__ partial, unsigned long long* __restrict__ counts) {
-  __shared__ float s_vrl[VRL_ROWS * VRL_CHUNK];
+  __shared__ float s_vrl[VRL_ROWS * VRL_CHUNK];  // the chunk's columns, VRL_CHUNK apart
+  extern __shared__ int s_stack[];               // (depth, RAY_BLOCK)
   const int chunk = blockIdx.y;
-  const int n0 = chunk * VRL_CHUNK;
-  const int nc = stage_block(tris, 0, vrls, N, n0, nullptr, s_vrl);
+  const int n0 = chunk * BVH_VRL_CHUNK;
+  const int nc = stage_block(tris, 0, vrls, N, n0, nullptr, s_vrl, VRL_ROWS, BVH_VRL_CHUNK);
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -140,9 +271,9 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
-  BvhCounts cnt = {0u, 0u, 0u};
+  BvhCounts cnt = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
   uint32_t n_open[2] = {0u, 0u};
-  const BvhTris<COUNT> occl{nodes, tris, n_nodes, &cnt};
+  const BvhTris<COUNT> occl{nodes, tris, n_nodes, s_stack + threadIdx.x, &cnt};
 
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int c = 0; ray.ok && c < nc; ++c) {
@@ -162,7 +293,9 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
   if (COUNT) {
-    const uint32_t all[N_COUNTS] = {cnt.nodes, cnt.tris, cnt.segments, n_open[0], n_open[1]};
+    const uint32_t all[N_COUNTS] = {cnt.fetches,    cnt.boxes,     cnt.tris,
+                                    cnt.segments,   n_open[0],     n_open[1],
+                                    cnt.need_boxes, cnt.need_tris, cnt.differ};
 #pragma unroll
     for (int i = 0; i < N_COUNTS; ++i) atomicAdd(counts + i, (unsigned long long)all[i]);
   }
@@ -174,9 +307,10 @@ extern "C" {
 
 int alvrl_bvh_stack() { return BVH_STACK; }
 
-// The BVH-occlusion sum. nodes (n_nodes, 8) and tris (T, TRI_COLS) are
+// The BVH-occlusion sum. nodes (n_nodes, 16) and tris (T, TRI_COLS) are
 // ops/vrl_sum_bvh.py:pack_bvh_tris' pack, depth its tree's depth (edges
-// from the root to the deepest leaf); the rest as alvrl_vrl_sum.
+// from the root to the deepest leaf), partial (n_chunks, 3, B) with
+// n_chunks = ceil(N / BVH_VRL_CHUNK); the rest as alvrl_vrl_sum.
 // `counts`, when not null, selects the counting instantiation and
 // receives N_COUNTS totals (zeroed by the caller). Returns a cudaError_t
 // (0 = launched).
@@ -186,20 +320,23 @@ int alvrl_vrl_sum_bvh(const float* rays, int B, const float* vrls, int N, const 
                       int phase_kind, float* partial, int n_chunks, float* out,
                       unsigned long long* counts, void* stream) {
   if (B <= 0 || N <= 0 || n_nodes < 0 || T < 0 || (n_nodes == 0) != (T == 0) || depth < 0 ||
-      depth > BVH_STACK - 1 || svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) ||
-      n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK || n_chunks > MAX_GRID_Y)
+      depth > BVH_STACK || svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) ||
+      n_chunks != (N + BVH_VRL_CHUNK - 1) / BVH_VRL_CHUNK || n_chunks > MAX_GRID_Y)
     return (int)cudaErrorInvalidValue;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
+  // the stack: depth entries a thread (one for a tree that is one leaf,
+  // which pushes none); 32 KB a block at the deepest tree served
+  const size_t smem = (size_t)max(depth, 1) * RAY_BLOCK * sizeof(int);
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
   cudaStream_t st = (cudaStream_t)stream;
   dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
     constexpr int P = decltype(phase)::value;
     constexpr bool S = decltype(short_)::value;
     if (counts)
-      vrl_sum_bvh_kernel<P, S, true><<<blocks, RAY_BLOCK, 0, st>>>(
+      vrl_sum_bvh_kernel<P, S, true><<<blocks, RAY_BLOCK, smem, st>>>(
           rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs, partial, counts);
     else
-      vrl_sum_bvh_kernel<P, S, false><<<blocks, RAY_BLOCK, 0, st>>>(
+      vrl_sum_bvh_kernel<P, S, false><<<blocks, RAY_BLOCK, smem, st>>>(
           rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs, partial,
           nullptr);
   });

@@ -134,14 +134,28 @@ def _occluded_packed(p, q, tris):
 
 
 def _occluded_block(p, q, tris):
+    return _wald_hits(p, q, tris).any(dim=-1)
+
+
+def _segment(p, q):
+    """The shadow segment p -> q as the kernels test it: its unit
+    direction u and the open interval (lo, hi) of arc length, each with
+    a trailing axis of 1 (vrl_common.cuh make_segment)."""
     dd = q - p
     len2 = m.dot(dd, dd)
     idist = 1.0 / torch.sqrt(torch.clamp(len2, min=1e-30))
     dist = len2 * idist
     u = (dd * idist[..., None])[..., None, :]
     lo = (1e-3 * torch.clamp(dist, min=1.0))[..., None]
-    hi = dist[..., None] - lo
-    p0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    return u, lo, dist[..., None] - lo
+
+
+def _wald_hits(p, q, tris):
+    """(..., T) bool: the Wald test of each triangle of tris ((T,
+    TRI_COLS), or (..., T, TRI_COLS) per segment) against the open
+    segment p -> q (vrl_common.cuh wald_hit)."""
+    u, lo, hi = _segment(p, q)
+    p0, e1, e2 = tris[..., 0:3], tris[..., 3:6], tris[..., 6:9]
     pv = m.cross(u, e2)
     det = m.dot(e1, pv)
     sgn = torch.where(det >= 0.0, 1.0, -1.0)
@@ -156,7 +170,53 @@ def _occluded_block(p, q, tris):
     mn = torch.minimum(mn, tt - lo * adet)
     mn = torch.minimum(mn, hi * adet - tt)
     mn = torch.minimum(mn, adet - 1e-12)
-    return (mn > 0.0).any(dim=-1)
+    return mn > 0.0
+
+
+PLANE_MARGIN = 2.0 ** -14  # vrl_common.cuh PLANE_MARGIN
+
+
+def plane_pack(tris):
+    """(T, 16) float32: the plane pack of kernel 1's pre-reject
+    (vrl_common.cuh PlaneTris; its kernel csrc/vrl_sum.cu
+    plane_pack_kernel): n = e1 x e2 and off = n . p0 computed in float64
+    and rounded to nearest, k = PLANE_MARGIN |e1|_inf |e2|_inf and k0 =
+    k |p0|_inf rounded up, then p0, e1, e2; per triangle (n, off, k, k0,
+    p0, e1, e2, 0)."""
+    t = tris.double()
+    p0, e1, e2 = t[:, 0:3], t[:, 3:6], t[:, 6:9]
+    n = torch.linalg.cross(e1, e2).float()
+    off = (n.double() * p0).sum(dim=-1).float()
+    k = PLANE_MARGIN * e1.abs().amax(dim=-1) * e2.abs().amax(dim=-1)
+    k0 = k * p0.abs().amax(dim=-1)
+
+    def round_up(x):
+        f = x.float()
+        return torch.where(f.double() < x, torch.nextafter(
+            f, torch.full_like(f, math.inf)), f)
+
+    return torch.cat([n, off[:, None], round_up(k)[:, None],
+                      round_up(k0)[:, None], tris.float(),
+                      torch.zeros_like(off)[:, None]], dim=1)
+
+
+def plane_skip(p, q, planes):
+    """(..., T) bool: the triangles of a plane pack (plane_pack) whose
+    Wald test kernel 1's pre-reject skips on the open segment p -> q:
+    both tested ends on one side of the triangle's plane by more than the
+    margin (vrl_common.cuh PlaneTris, whose comment proves that such a
+    triangle does not block the segment). Plain float32 twin of the
+    kernel's test."""
+    u, lo, hi = _segment(p, q)
+    pp = p[..., None, :]
+    a, b = pp + u * lo[..., None], pp + u * hi[..., None]
+    span = p.abs().amax(dim=-1, keepdim=True) + torch.maximum(lo.abs(),
+                                                              hi.abs())
+    n, off = planes[:, 0:3], planes[:, 3]
+    sa = (a * n).sum(dim=-1) - off
+    sb = (b * n).sum(dim=-1) - off
+    mg = planes[:, 4] * span + planes[:, 5]
+    return ((sa > mg) & (sb > mg)) | ((sa < -mg) & (sb < -mg))
 
 
 VV, VS = "vol-vol", "vol-surf"  # the two sample families
@@ -366,8 +426,19 @@ def grid_args(density, uv_steps):
     return (density.data_ptr(), *density.shape, uv_steps)
 
 
+# kernel 1's modes (alvrl_vrl_sum's `mode`): the sum, the checking
+# instantiation, the sweep without the pre-reject (timing only)
+MODE_SUM, MODE_CHECK, MODE_NO_REJECT = 0, 1, 2
+# the checking launch's counts (vrl_sum_check), in the kernel's order
+CHECK_COUNTS = ("segments", "considered", "skipped", "bad_tris",
+                "bad_segments")
+
+
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
-            short_vrls, phase_kind, grid=None):
+            short_vrls, phase_kind, grid=None, mode=MODE_SUM, counts=None):
+    """The kernel on checked inputs. Homogeneous packs: kernel 1 in
+    `mode` (MODE_CHECK adds its counts to `counts`, (len(CHECK_COUNTS),)
+    int64)."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
@@ -375,13 +446,18 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
     out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
             tris.data_ptr(), tris.shape[0], medium.data_ptr())
-    tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
-            svs, int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
-            out.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
+           svs, int(short_vrls), phase_kind)
+    tail = (partial.data_ptr(), n_chunks, out.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
     if grid is None:
-        err = lib.alvrl_vrl_sum(*head, *tail)
+        planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
+                             dtype=torch.float32, device=rays.device)
+        err = lib.alvrl_vrl_sum(
+            *head, *uni, planes.data_ptr() if tris.shape[0] else None, mode,
+            None if counts is None else counts.data_ptr(), *tail)
     else:
-        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid), *tail)
+        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid), *uni, *tail)
     if err != 0:
         raise RuntimeError("vrl_sum kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -392,12 +468,14 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
 def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    tail = [p, u, i, i, i, i, p, i, p, p]
-    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, *tail]
+    uni, tail = [p, u, i, i, i, i], [p, i, p, p]
+    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, *uni, p, i, p, *tail]
     lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                         *tail]
+                                         *uni, *tail]
+    lib.alvrl_plane_pack.argtypes = [p, i, p, p]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
-               lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps):
+               lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps,
+               lib.alvrl_plane_f4, lib.alvrl_plane_pack):
         fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
@@ -534,6 +612,48 @@ def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
 
 
 vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
+
+
+def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
+                  vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                  phase_kind=ph.HG):
+    """vrl_sum's sums through kernel 1's checking instantiation (a launch
+    counted here, not on vrl_sum), which decides every shadow segment by
+    the Wald test alone and also runs the plane pre-reject beside it,
+    and {name: total} of CHECK_COUNTS: shadow segments, triangles the
+    sweep tests (up to its first blocker), those the pre-reject skips,
+    skipped triangles that block (must be 0) and segments the two
+    decide differently (must be 0). CUDA tensors only."""
+    svv, svs = vol_vol_samples, vol_surf_samples
+    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
+    if rays.device.type != "cuda":
+        raise ValueError("the checking launch needs CUDA tensors")
+    counts = torch.zeros(len(CHECK_COUNTS), dtype=torch.int64,
+                         device=rays.device)
+    with torch.cuda.device(rays.device):
+        out = _launch(_library(), rays, vrls, tris, medium, uniforms, seed,
+                      svv, svs, short_vrls, phase_kind, mode=MODE_CHECK,
+                      counts=counts)
+    vrl_sum_check.launches += 1
+    return out, dict(zip(CHECK_COUNTS, counts.tolist()))
+
+
+vrl_sum_check.launches = 0  # checking launches, as vrl_sum.launches
+
+
+def plane_pack_kernel(tris):
+    """(T, 16) float32: the plane pack that kernel 1 makes of tris on the
+    card (plane_pack's kernel; T >= 1, CUDA tensors only)."""
+    out = torch.empty((tris.shape[0], 16), dtype=torch.float32,
+                      device=tris.device)
+    with torch.cuda.device(tris.device):
+        err = _library().alvrl_plane_pack(
+            tris.data_ptr(), tris.shape[0], out.data_ptr(),
+            torch.cuda.current_stream(tris.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("plane_pack kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,

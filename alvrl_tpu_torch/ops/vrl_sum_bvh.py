@@ -8,20 +8,21 @@ estimator, samples and random stream) with no cap on the triangle
 count: the shadow test walks a BVH over the opaque triangles instead of
 sweeping all of them. Homogeneous media only, as the JAX kernel.
 
-What bounds the CUDA kernel (csrc/vrl_sum_bvh.cu, whose header gives the
-design) on the H100 is fp32 ALU throughput and the divergence of the
-shadow traversals, whose node and triangle tests depend on the scene;
-its counting instantiation (vrl_sum_bvh_counts) measures them.
+The CUDA kernel (csrc/vrl_sum_bvh.cu, whose header gives the design) is
+bound on the H100 by fp32 ALU throughput in its operations, and held
+back by the latency of each shadow traversal's chain of dependent node
+reads; its counting instantiation (vrl_sum_bvh_counts) measures the
+node fetches, box and triangle tests, which depend on the scene.
 
 Here:
   * `sort_vrls_morton`: the VRL buffer in the Morton order of the
     segments' midpoints (numpy on the host, the JAX package's
     permutation);
   * `pack_bvh_tris`: the BVH over the opaque faces as the kernel reads
-    it (a BvhPack: node array, leaf-ordered triangles in pack_tris'
-    p0/e1/e2 layout, depth). Not the JAX package's 64-triangle clusters
-    and super list: those fed a scalar core's DMA walk; here each
-    segment walks the tree itself;
+    it (a BvhPack: nodes that hold both children's boxes, leaf-ordered
+    triangles in pack_tris' p0/e1/e2 layout, depth). Not the JAX
+    package's 64-triangle clusters and super list: those fed a scalar
+    core's DMA walk; here each segment walks the tree itself;
   * `vrl_sum_bvh_reference`: the plain version, ops.vrl_sum's on the
     pack's triangles, the shadow test brute force in blocks;
   * `vrl_sum_bvh`: the wrapper (the kernel for CUDA tensors, or an
@@ -46,9 +47,15 @@ from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 
 LEAF_SIZE = 4  # triangles per leaf of the occlusion BVH, at most
-NODE_COLS = 8  # a node: lo (3), a, hi (3), b (a, b int32 bits)
+# a node: both children's lo (3), reference, hi (3), 0 (int32 bits of
+# the reference: an inner child's node, or a leaf's ~(first << 3 |
+# count))
+NODE_COLS = 16
+BVH_STACK = 63  # the deepest tree the kernel serves, as geometry.bvh's
+LEAF_BITS = 3   # a leaf reference's count bits
 # the kernel's counts (vrl_sum_bvh_counts), in its order
-COUNTS = ("node_tests", "tri_tests", "segments", "open_vv", "open_vs")
+COUNTS = ("node_fetches", "box_tests", "tri_tests", "segments", "open_vv",
+          "open_vs", "needed_box_tests", "needed_tri_tests", "differ")
 
 
 def sort_vrls_morton(vrls: VRLs) -> VRLs:
@@ -77,12 +84,16 @@ def sort_vrls_morton(vrls: VRLs) -> VRLs:
 
 
 class BvhPack(NamedTuple):
-    """The kernel's occlusion BVH: nodes (n, NODE_COLS) float32, node 0
-    the root, each (lo.xyz, a, hi.xyz, b) with a, b int32 bits (an inner
-    node's children a, b; a leaf's first triangle a and -count b), its
-    box padded outward (geometry.bvh.box_pad); tris (T, TRI_COLS)
-    float32 in leaf order, pack_tris' p0, e1, e2; depth, the edges from
-    the root to the deepest leaf."""
+    """The kernel's occlusion BVH: nodes (n, NODE_COLS) float32, one for
+    each inner node of the tree (node 0 the root), each holding its two
+    children as (lo.xyz, ref, hi.xyz, 0): the child's box, padded
+    outward (geometry.bvh.box_pad), and its reference, int32 bits: an
+    inner child's node index (>= 0) or a leaf's ~(first << LEAF_BITS |
+    count) (< 0; its triangles first .. first + count - 1); a tree that
+    is one leaf has one node, its second child absent (an empty box, lo
+    +inf and hi -inf); tris (T, TRI_COLS) float32 in leaf order,
+    pack_tris' p0, e1, e2; depth, the edges from the root to the deepest
+    leaf."""
 
     nodes: torch.Tensor
     tris: torch.Tensor
@@ -93,8 +104,8 @@ def pack_bvh_tris(verts, faces, opaque_mask, device=None) -> BvhPack:
     """The BvhPack of the opaque faces (opaque_mask (T,) bool) of a
     triangle soup, built on the host (native builder, LEAF_SIZE
     triangles per leaf at most). Raises if the tree is deeper than the
-    traversal stack allows (geometry.bvh.STACK_DEPTH - 1). `device`: by
-    default the vertices' device, or the card."""
+    kernel's stack allows (BVH_STACK). `device`: by default the
+    vertices' device, or the card."""
     if device is None:
         device = verts.device if isinstance(verts, torch.Tensor) else "cuda"
     verts = np.asarray(torch.as_tensor(verts).cpu(), np.float32)
@@ -106,18 +117,33 @@ def pack_bvh_tris(verts, faces, opaque_mask, device=None) -> BvhPack:
                        torch.zeros((0, pk.TRI_COLS), **f32), 0)
     bounds, meta, order = bvh_mod.build_arrays(verts, faces, LEAF_SIZE)
     depth = bvh_mod.tree_depth(meta)
-    if depth > bvh_mod.STACK_DEPTH - 1:
-        raise ValueError(f"BVH depth {depth} exceeds the traversal stack's "
-                         f"{bvh_mod.STACK_DEPTH - 1}")
-    pad = bvh_mod.box_pad(bounds[0, 0:3], bounds[0, 3:6])
+    if depth > BVH_STACK:
+        raise ValueError(f"BVH depth {depth} exceeds the kernel's stack of "
+                         f"{BVH_STACK}")
     leaf = meta[:, 3] > 0
-    nodes = np.empty((len(meta), NODE_COLS), np.float32)
-    nodes[:, 0:3] = bounds[:, 0:3] - pad
-    nodes[:, 3] = np.where(leaf, meta[:, 2], meta[:, 0]).astype(
-        np.int32).view(np.float32)
-    nodes[:, 4:7] = bounds[:, 3:6] + pad
-    nodes[:, 7] = np.where(leaf, -meta[:, 3], meta[:, 1]).astype(
-        np.int32).view(np.float32)
+    if meta[leaf, 3].max() >= 1 << LEAF_BITS \
+            or len(order) >= 1 << (31 - LEAF_BITS):
+        raise ValueError("a leaf's reference does not fit its int32 bits")
+    pad = bvh_mod.box_pad(bounds[0, 0:3], bounds[0, 3:6])
+    inner = np.flatnonzero(~leaf)
+    index = np.zeros(len(meta), np.int64)  # an inner node's row
+    index[inner] = np.arange(len(inner))
+    ref = np.where(leaf, ~((meta[:, 2].astype(np.int64) << LEAF_BITS)
+                           | meta[:, 3]), index).astype(np.int32)
+    children = meta[inner, 0:2] if len(inner) else np.zeros((1, 2), np.int64)
+    nodes = np.zeros((len(children), NODE_COLS), np.float32)
+    for k in range(2):
+        c = children[:, k]
+        cols = slice(8 * k, 8 * k + 8)
+        box = np.empty((len(c), 8), np.float32)
+        box[:, 0:3] = bounds[c, 0:3] - pad
+        box[:, 3] = ref[c].view(np.float32)
+        box[:, 4:7] = bounds[c, 3:6] + pad
+        box[:, 7] = 0.0
+        nodes[:, cols] = box
+    if not len(inner):  # the root is a leaf: one node, its second child absent
+        nodes[0, 8:11], nodes[0, 11] = np.inf, np.int32(0).view(np.float32)
+        nodes[0, 12:15] = -np.inf
     tri = verts[faces[order]]
     tris = np.concatenate([tri[:, 0], tri[:, 1] - tri[:, 0],
                            tri[:, 2] - tri[:, 0]], axis=1)
@@ -144,8 +170,7 @@ def _library():
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.alvrl_vrl_sum_bvh.argtypes = [p, i, p, i, p, i, p, i, i, p, p, u, i,
                                       i, i, i, p, i, p, p, p]
-    for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack,
-               lib.alvrl_vrl_chunk):
+    for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack):
         fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
@@ -169,9 +194,9 @@ def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind):
                          f"{tuple(nodes.shape)}")
     if (nodes.shape[0] == 0) != (bvh.tris.shape[0] == 0):
         raise ValueError("a BVH has nodes exactly when it has triangles")
-    if not 0 <= bvh.depth <= bvh_mod.STACK_DEPTH - 1:
-        raise ValueError(f"BVH depth {bvh.depth} exceeds the traversal "
-                         f"stack's {bvh_mod.STACK_DEPTH - 1}")
+    if not 0 <= bvh.depth <= BVH_STACK:
+        raise ValueError(f"BVH depth {bvh.depth} exceeds the kernel's stack "
+                         f"of {BVH_STACK}")
 
 
 def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
@@ -180,7 +205,7 @@ def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
     card; the counting instantiation when `counts` (len(COUNTS),) int64
     is given."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
-    n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
+    n_chunks = n_vrls  # one VRL a block
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
                           device=rays.device)
     out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
@@ -239,9 +264,13 @@ def vrl_sum_bvh_counts(rays, vrls, bvh: BvhPack, medium, *, seed=0,
                        short_vrls=True, phase_kind=ph.HG):
     """vrl_sum_bvh's sums through the kernel's counting instantiation (a
     launch counted here, not on vrl_sum_bvh), and {name: total} of what
-    it met (COUNTS): node boxes and triangles tested by the shadow
-    traversals, the shadow segments tested, the open vol-vol and
-    vol-surf samples. CUDA tensors only."""
+    it met (COUNTS): nodes fetched, boxes and triangles tested by the
+    shadow traversals, the shadow segments tested, the open vol-vol and
+    vol-surf samples; the box and triangle tests that the shadow
+    function needs (a one-box-per-node traversal in child order to the
+    first blocker, csrc/vrl_sum_bvh.cu needed_work), and the segments
+    that traversal decides otherwise (0 unless the kernel is at
+    fault). CUDA tensors only."""
     svv, svs = vol_vol_samples, vol_surf_samples
     _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind)
     if rays.device.type != "cuda":

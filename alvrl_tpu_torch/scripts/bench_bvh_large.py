@@ -193,8 +193,9 @@ def main():
 def scaling_sweep(kind="cubes"):
     """Kernel-only scaling with the triangle count over the JAX script's
     three sizes of one scene family: ms, pair-sample evals/s, the node
-    and triangle tests per shadow segment (counting launch), the depth,
-    and each step's time ratio against its triangle ratio."""
+    fetches, box and triangle tests per shadow segment and those the
+    shadow function needs (counting launch), the depth, and each step's time ratio against its triangle
+    ratio."""
     dev = _card()
     rows = []
     for n in CUBE_AXES if kind == "cubes" else BLOB_THETAS:
@@ -206,10 +207,11 @@ def scaling_sweep(kind="cubes"):
         rows.append(dict(scene=kind, n=n, triangles=int(scene.faces.shape[0]),
                          depth=packs[2].depth, ms=ms,
                          pair_evals_per_s=evals / (ms / 1e3),
-                         nodes_per_segment=counts["node_tests"]
-                         / max(counts["segments"], 1),
-                         tris_per_segment=counts["tri_tests"]
-                         / max(counts["segments"], 1)))
+                         **{f"{k}_per_segment": counts[k]
+                            / max(counts["segments"], 1)
+                            for k in ("node_fetches", "box_tests",
+                                      "tri_tests", "needed_box_tests",
+                                      "needed_tri_tests")}))
         print(json.dumps(rows[-1]), flush=True)
     for a, b in zip(rows, rows[1:]):
         tri_ratio = b["triangles"] / a["triangles"]

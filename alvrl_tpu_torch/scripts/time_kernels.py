@@ -34,6 +34,19 @@ their outputs are discarded. It also prints the blocks and warps
 resident per SM of both grid instantiations, where the tree's library
 answers that query.
 
+With --config1-split it times kernel 1 (vrl_sum) at config 1 whole and
+with each part of its shadow sweep taken away: no triangles (T = 0, no
+sweep), no plane pre-reject (a Wald test for every triangle; trees from
+the pre-reject on); with the checking launch's counts (triangle tests
+and skips per segment), the registers and the blocks resident per SM.
+
+With --bvh it times kernel 7 (vrl_sum_bvh) over chip_smoke.py phase
+30's six large-mesh scenes (scripts/bench_bvh_large.py: cube fields and
+blobs of 16k-130k triangles, 64x64 eye rays x 256 VRLs) with the
+counting launch's counts per shadow segment (node fetches, box and
+triangle tests, and on trees that count it the work the shadow function
+needs), and kernel 1 against kernel 7 at config-1 inputs.
+
 With --trainer it runs the density-recovery trainer
 (scripts.recover_density at its defaults, as chip_smoke.py phase 21:
 64x64, a 16^3 grid, four views, 256 VRLs): after two warm-up steps, the
@@ -233,6 +246,76 @@ def grid_split(dev, cfg):
     return times, occ
 
 
+def config1_packs(dev):
+    scene = presets.cornell_smoke(128, 128, device=dev)
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device=dev), 512)
+    return integrator.pack_frame(scene, vrls)[3]
+
+
+def config1_split(dev):
+    """{variant: timing} of kernel 1 at config 1 with parts of its sweep
+    taken away, the checking launch's counts and the blocks per SM."""
+    packs = config1_packs(dev)
+    rays, vpack, tris, med = packs
+    seed = 20261016
+    times = {"whole": windows(lambda: vs.vrl_sum(*packs, seed=seed), 10, 10),
+             "no_triangles": windows(lambda: vs.vrl_sum(
+                 rays, vpack, tris[:0].contiguous(), med, seed=seed), 10, 10)}
+    out = {"split": times}
+    if hasattr(vs, "MODE_NO_REJECT"):  # trees from the plane pre-reject on
+        lib = vs._library()
+        times["no_pre_reject"] = windows(lambda: vs._launch(
+            lib, *packs, None, seed, 2, 2, True, 0, mode=vs.MODE_NO_REJECT),
+            10, 10)
+        counts = vs.vrl_sum_check(*packs, seed=seed)[1]
+        seg = max(counts["segments"], 1)
+        out["check"] = {**counts, "considered_per_segment":
+                        counts["considered"] / seg, "skipped_share":
+                        counts["skipped"] / max(counts["considered"], 1)}
+    if hasattr(vs, "occupancy"):
+        blocks = vs.occupancy("vrl_sum", False, tris.shape[0])
+        out["occupancy"] = {"blocks": blocks, "warps": blocks * 4}
+    return out
+
+
+BVH_SCENES = (("cubes", 11), ("cubes", 16), ("cubes", 22), ("blob", 64),
+              ("blob", 112), ("blob", 180))  # chip_smoke.py phase 30
+BVH_SEED = 20261019
+
+
+def bvh(dev):
+    """Kernel 7 over phase 30's scenes: {scene: timing and counts per
+    segment}, and kernel 1 against kernel 7 at config-1 inputs."""
+    from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+    from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+    rows = {}
+    for kind, n in BVH_SCENES:
+        scene = bbl.scene_of(kind, n, device=dev)
+        packs = integrator.pack_frame_bvh(scene, bbl.bench_vrls(scene))[3]
+        row = {"triangles": int(scene.faces.shape[0]),
+               "depth": packs[2].depth,
+               "ms": windows(lambda: vb.vrl_sum_bvh(*packs, seed=BVH_SEED),
+                             5, 3)}
+        counts = vb.vrl_sum_bvh_counts(*packs, seed=BVH_SEED)[1]
+        seg = max(counts["segments"], 1)
+        row["per_segment"] = {k: v / seg for k, v in counts.items()
+                              if k not in ("segments", "open_vv", "open_vs",
+                                           "differ")}
+        row["differ"] = counts.get("differ")
+        rows[f"{kind} {n}"] = row
+    vrls_m = vb.sort_vrls_morton(vrl.compact(vrl.load_ascii(
+        BENCH_VRLS, particle_count=78.0, device=dev), 512))
+    scene = presets.cornell_smoke(128, 128, device=dev)
+    packs = integrator.pack_frame(scene, vrls_m)[3]
+    pack = vb.pack_bvh_tris(scene.vertices, scene.faces, scene.opaque_faces())
+    rows["config 1"] = {
+        "vrl_sum": windows(lambda: vs.vrl_sum(*packs, seed=BVH_SEED), 10, 10),
+        "vrl_sum_bvh": windows(lambda: vb.vrl_sum_bvh(
+            packs[0], packs[1], pack, packs[3], seed=BVH_SEED), 10, 10)}
+    return rows
+
+
 def device_ops(prof):
     """The device operations (kernels, copies, sets) of a torch.profiler
     run, in start order, as chrome-trace events."""
@@ -312,6 +395,15 @@ def main():
     if sys.argv[1:] == ["--trainer"]:
         print(json.dumps({"card": card, "package": vs.__file__,
                           "trainer": trainer(dev)}))
+        return
+    if sys.argv[1:] == ["--config1-split"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(),
+                          **config1_split(dev)}))
+        return
+    if sys.argv[1:] == ["--bvh"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(), "bvh": bvh(dev)}))
         return
     if sys.argv[1:] == ["--grid-split"]:
         times, occ = grid_split(dev, cfg)

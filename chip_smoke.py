@@ -17,11 +17,17 @@ Phases, one line each; any failure exits non-zero:
   3. kernel vs plain at config-1 shapes (16384 eye rays of cornell_smoke
      128x128, 512 VRLs, 24 triangles), with injected uniforms and with
      the kernel's own Philox stream, for HG g=0, HG g=0.6 and Rayleigh,
-     and with injected uniforms without the short-VRL division ("long");
+     and with injected uniforms without the short-VRL division ("long"),
+     and the checking instantiation, whose plane pre-reject must never
+     skip a blocking triangle;
   4. the main path: render_with_vrls_kernel on cornell_smoke 128x128
      with the 512 bench VRLs; the kernel's launch count must move, and
-     the image must be finite, non-zero and match the plain render;
-  5. timing of the kernel, the plain version and the whole render;
+     the image must be finite, non-zero and match the plain render; the
+     render's segments through the checking instantiation (0
+     disagreements);
+  5. timing of the kernel, the plain version and the whole render, the
+     kernel's split (no pre-reject, no triangles) and its bound on the
+     pre-reject's counted skips;
   6. profile: device activity of traced renders (torch.profiler): device
      span and busy time per pass, idle share, device operations per
      pass, the kernel's share and the largest other operations;
@@ -37,8 +43,10 @@ Phases, one line each; any failure exits non-zero:
      with the plain backward, and autograd must match same-seed central
      differences of the kernel forward; then five SGD steps on sigma_a;
   9. timing of the train step (ms per step, and the tracer, forward and
-     backward kernels alone on its inputs) and of the backward kernel
-     against its plain version;
+     backward kernels alone on its inputs, the forward's bound at that
+     shape) and of the backward kernel against its plain version; the
+     step's own segments through kernel 1's checking instantiation (0
+     disagreements);
  10. profile: device activity of traced train steps, as phase 6;
  11. R kernel vs plain at config-2 shapes (the representative rays of
      the port's slicing of cornell_smoke 128x128 x the 512 VRLs of a
@@ -100,7 +108,9 @@ Phases, one line each; any failure exits non-zero:
      at phase 19's bars (d_par to 1e-3), a repeat bit-identical but for
      d_density, which agrees to DENSITY_REPEAT; and ROADMAP C12's
      measurement: the median errors of d_power and d_vod against the
-     plain backward at 16,384, 65,536 and 262,144 rays;
+     plain backward at 16,384, 65,536 and 262,144 rays, and at full
+     shape the kernel's against float64 beside the two repairs'
+     recorded figures (C12_REPAIRS);
  23. the clustered backward kernel (vrl_sum_clustered_bwd) vs the plain
      clustered backward on all 16,384 eye rays and phase 12's config-2
      tables, for phase 12's media and modes and a zero power channel
@@ -144,12 +154,15 @@ Phases, one line each; any failure exits non-zero:
      move, each image be finite and non-zero and match the plain render
      on the subset's pixels;
  30. timing: vrl_sum_bvh over the JAX sweep's six scenes (ms, pair-sample
-     evals/s, node and triangle tests per shadow segment from the
-     counting launch, tree depth, each step's time ratio against its
-     triangle ratio), against vrl_sum at config-1 inputs, the render's
-     stages (host BVH builds, primary hits, Morton sort, packs, kernel)
-     and the kernel's bound (OPS's "node" and "triangle" rows times the
-     counted tests);
+     evals/s, node fetches, box and triangle tests per shadow segment
+     from the counting launch beside the counts and times before the
+     redesign, tree depth, each step's time ratio against its triangle
+     ratio), against vrl_sum at config-1 inputs, the render's stages
+     (host BVH builds, primary hits, Morton sort, packs, kernel) and the
+     kernel's bound (OPS's "node" and "triangle" rows times the box and
+     triangle tests that the shadow function needs, as the counting
+     launch counts them, which must decide every segment as the kernel
+     does; and on the kernel's own tests);
  31. the gather probes (scripts/probe_gather.py, kernels 12-14): their
      entry point with its launch counts, each kernel against its plain
      version (equal), their device times (calls queued behind a spin
@@ -238,6 +251,14 @@ C4_TRIS = 12             # the box's wall triangles
 # the grid sum's and its VJP's times on phase 17's inputs before their
 # redesign (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130}
+# ROADMAP C12's two repairs of the grid backward, measured on phase 17's
+# full-shape inputs against the float64 plain backward by instantiations
+# of the kernel that were removed after the measurement (NVIDIA H100
+# 80GB HBM3, 700.00 W; ROADMAP C12): (d_power median, d_vod median, ms);
+# printed beside this run's kernel
+C12_REPAIRS = {"(a) in-block sums in float64": (6.622e-7, 9.4467e-6, 55.08),
+               "(b) sample OD cotangents in float64": (6.620e-7, 9.547e-6,
+                                                       59.91)}
 
 # bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes over the memory rate and its operations over the
@@ -287,6 +308,12 @@ OPS = {
     # the five-way min and its test: 59)
     "segment": (16, 2),
     "triangle": (59, 0),
+    # PlaneTris (kernel 1's sweep), per shadow segment: the two tested
+    # ends (6 FMA) and the span (3 max, 1 add); per triangle it meets:
+    # the two plane distances (6 FMA), the margin (1 FMA) and four
+    # comparisons; the Wald test ("triangle") only where it does not skip
+    "plane_segment": (16, 0),
+    "plane": (18, 0),
     # BvhTris (vrl_sum_bvh.cu), per shadow segment: the three reciprocals
     # of its direction; per node box tested (slab_overlaps): six
     # differences and products (12), the near and far maxima and minima
@@ -380,25 +407,39 @@ def profile_device(fn, n_warm, n_traced):
             {k: v / n_traced for k, v in by_name.items()})
 
 
+# the labels of kernel 1's modes, its template argument after <phase,short>
+PLANE_MODE = ("sum", "check", "noreject")
+
+
 def ptxas_summary(log):
-    """'name<phase,short[,medium[,steps]]> R regs S B spill' for each
-    kernel instantiation in the compiler's report (steps: the U-V
-    quadrature's compile-time step count of the grid sum and its VJP,
-    uv* for their run-time count)."""
+    """'name<phase,short[,...]> R regs S B spill' for each kernel
+    instantiation in the compiler's report: the medium (grid, homog) of
+    the sums, VJPs and R kernels and, for the grid sum and its VJP, the
+    U-V quadrature's compile-time step count (uv* for their run-time
+    count); kernel 1's mode (sum, check, noreject); kernel 7's counting
+    instantiation."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?"
-                      r"(vrl_(?:sum|sum_bwd|sum_clustered|sum_clustered_bwd|r"
-                      r"|sum_bvh)_kernel)"
-                      r"ILi(\d)ELb(\d)E(?:Lb(\d)E)?(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line:
-            flag = ((",count", "") if m and "bvh" in m[1]
-                    else (",grid", ",homog"))
-            medium = "" if not m or m[4] is None else (
-                flag[0] if m[4] == "1" else flag[1])
-            if m and m[4] == "1" and m[5] is not None:  # the step count
-                medium += f",uv{m[5]}" if m[5] != "0" else ",uv*"
-            name = f"{m[1]}<{m[2]},{m[3]}{medium}>" if m else None
+            m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
+                          r"sum_clustered_bwd|r|sum_bvh|sum_plane)"
+                          r"_kernel)I((?:L[ib]\d+E)+)E", line)
+            name = None
+            if m:
+                kernel = m[1]
+                args = [int(v) for _, v in re.findall(r"L([ib])(\d+)E", m[2])]
+                label = [str(args[0]), str(args[1])]
+                rest = args[2:]
+                if kernel == "vrl_sum_bvh_kernel":
+                    label += ["count"] if rest and rest[0] else []
+                elif kernel == "vrl_sum_plane_kernel":
+                    label.append(PLANE_MODE[rest[0]])
+                elif rest:
+                    label.append("grid" if rest[0] else "homog")
+                    if rest[0] and len(rest) > 1:  # the step count
+                        label.append(f"uv{rest[1]}" if rest[1] else "uv*")
+                name = f"{kernel}<{','.join(label)}>"
+            spill = "0"
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
         elif name and "registers" in line:
@@ -680,6 +721,46 @@ class SweepCount:
         return (f"{self.pairs} pairs, {sum(self.drawn)} samples, "
                 f"{sum(self.open) / tested:.3f} of {tested} shadow segments "
                 f"open, {self.tri_tests / tested:.3f} triangles per sweep")
+
+
+def check_line(counts):
+    """A line of kernel 1's checking launch (vrl_sum_check's counts)."""
+    return (f"{counts['segments']} segments, {counts['skipped']} of "
+            f"{counts['considered']} triangle tests skipped by the "
+            "pre-reject "
+            f"({counts['skipped'] / max(counts['considered'], 1):.1%}),"
+            f" {counts['bad_tris']} skipped triangles blocking, "
+            f"{counts['bad_segments']} segments decided differently")
+
+
+def plane_ops(ops, sweep, counts):
+    """kernel_ops' (float32, special-function) operations of kernel 1
+    with its sweep counted as PlaneTris makes it: the plane test of every
+    triangle met and the Wald test of those it does not skip, from the
+    checking launch's counts on the same inputs, in place of a Wald test
+    per triangle swept."""
+    f = (ops[0] - sweep.tri_tests * OPS["triangle"][0]
+         + counts["segments"] * OPS["plane_segment"][0]
+         + counts["considered"] * OPS["plane"][0]
+         + (counts["considered"] - counts["skipped"]) * OPS["triangle"][0])
+    return f, ops[1]
+
+
+def config1_split(packs, seed, kind=0):
+    """{variant: ms} of kernel 1 on packs (CUDA events, median of 20
+    after 3): whole, without the plane pre-reject (a Wald test per
+    triangle), and with no triangles (no shadow sweep)."""
+    lib = vs._library()
+    rays, vrls, tris, med = packs
+
+    def launch(t, **kw):
+        return lambda: vs._launch(lib, rays, vrls, t, med, None, seed, 2, 2,
+                                  True, kind, **kw)
+
+    variants = {"whole": launch(tris),
+                "no pre-reject": launch(tris, mode=vs.MODE_NO_REJECT),
+                "no triangles": launch(tris[:0].contiguous())}
+    return {k: summary(cuda_ms(fn, 3, 20))[0] for k, fn in variants.items()}
 
 
 def pair_masks(rays, vrls):
@@ -1681,6 +1762,13 @@ def config4_grad(dev, card, cfg, c4):
               f"{b} rays: d_power " + "/".join(f"{m:.3e}" for m in pw)
               + ", d_vod " + "/".join(f"{m:.3e}" for m in vod)
               for b, (pw, vod) in growth.items()), flush=True)
+    c12_now = growth[n_rays]  # (d_power, d_vod), each vs float32, float64
+    print(f"[22 C12 variants on {card}] vs the plain backward in float64 at "
+          f"full shape, median d_power / d_vod: this run's kernel (float32) "
+          f"{c12_now[0][1]:.3e} / {c12_now[1][1]:.3e}, {b_med:.3f} ms | the "
+          "two repairs as measured and left out (ROADMAP C12): " + " | ".join(
+              f"{k} {pw:.3e} / {vod:.3e}, {ms:.2f} ms"
+              for k, (pw, vod, ms) in C12_REPAIRS.items()), flush=True)
     prof = profile_device(grad_step, 1, 3)
     if prof is None:
         print("[22 profile] the profiler saw no device operation: not "
@@ -2183,13 +2271,25 @@ BVH_SWEEP = tuple(("cubes", n) for n in bbl.CUBE_AXES) + tuple(
     ("blob", n) for n in bbl.BLOB_THETAS)
 BVH_SEED = 20261019
 HIT_T_TOL = 1e-4  # BVH closest hits against intersect_all
+# kernel 7 before its redesign on phase 30's scenes: (node boxes and
+# triangles tested per shadow segment, ms), one box per node fetch
+# (chip_smoke.py phase 30 of the tree before it, NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's
+EARLIER_BVH = {("cubes", 11): (39.56, 1.89, 3.101),
+               ("cubes", 16): (37.39, 2.02, 2.643),
+               ("cubes", 22): (37.88, 2.99, 2.346),
+               ("blob", 64): (19.90, 5.01, 6.210),
+               ("blob", 112): (20.69, 5.04, 7.904),
+               ("blob", 180): (21.39, 5.03, 9.304)}
 
 
 class BvhSweep:
     """kernel_ops' view (SweepCount's attributes) of a vrl_sum_bvh launch
     whose counting instantiation counted the samples it met: pairs and
     drawn samples from the packs' masks, tested shadow segments, open
-    samples per family, triangle and node tests from the counts."""
+    samples per family, node fetches, box and triangle tests from the
+    counts, and the box and triangle tests that the shadow function
+    needs (the counting launch's needed_work)."""
 
     def __init__(self, rays, vrls, counts):
         pair_ok, alb_ok = pair_masks(rays, vrls)
@@ -2197,26 +2297,44 @@ class BvhSweep:
         self.drawn = [2 * self.pairs, 2 * int((pair_ok & alb_ok[:, None]).sum())]
         self.tested = [counts["segments"], 0]
         self.open = [counts["open_vv"], counts["open_vs"]]
-        self.tri_tests, self.node_tests = counts["tri_tests"], counts["node_tests"]
+        self.tri_tests = counts["tri_tests"]
+        self.box_tests = counts["box_tests"]
+        self.fetches = counts["node_fetches"]
+        self.needed_boxes = counts["needed_box_tests"]
+        self.needed_tris = counts["needed_tri_tests"]
 
     def __str__(self):
         seg = max(self.tested[0], 1)
         return (f"{self.pairs} pairs, {sum(self.drawn)} samples, "
                 f"{sum(self.open) / seg:.3f} of {self.tested[0]} shadow "
-                f"segments open, {self.node_tests / seg:.2f} nodes and "
-                f"{self.tri_tests / seg:.2f} triangles tested per segment")
+                f"segments open, per segment {self.fetches / seg:.2f} node "
+                f"fetches, {self.box_tests / seg:.2f} boxes and "
+                f"{self.tri_tests / seg:.2f} triangles tested (needed: "
+                f"{self.needed_boxes / seg:.2f} boxes and "
+                f"{self.needed_tris / seg:.2f} triangles)")
 
 
-def bvh_bound(packs, sweep, hg):
+def bvh_bound(packs, sweep, hg, own=False):
     """vrl_sum_bvh's bound on these packs: vrl_sum's operations on the
-    counted samples, the counted node tests and each segment's
+    counted samples, the box and triangle tests that the shadow function
+    needs (with own=True: those the kernel made) and each segment's
     reciprocals; the packs read and the sums written."""
-    f, sfu = kernel_ops("vrl_sum", sweep, hg, True)
-    f += sweep.node_tests * OPS["node"][0]
+    boxes, tris = ((sweep.box_tests, sweep.tri_tests) if own
+                   else (sweep.needed_boxes, sweep.needed_tris))
+    f, sfu = kernel_ops("vrl_sum", replace_counts(sweep, tri_tests=tris), hg,
+                        True)
+    f += boxes * OPS["node"][0]
     sfu += sweep.tested[0] * OPS["bvh_segment"][1]
     rays, vrls, bvh, medium = packs
     return bound((f, sfu), nbytes(rays, vrls, bvh.nodes, bvh.tris, medium)
                  + 3 * rays.shape[1] * 4)
+
+
+def replace_counts(sweep, **counts):
+    """A copy of a BvhSweep with some of its counts replaced."""
+    out = BvhSweep.__new__(BvhSweep)
+    out.__dict__.update(sweep.__dict__, **counts)
+    return out
 
 
 def bvh_setup(kind, n, dev):
@@ -2388,17 +2506,25 @@ def large_mesh(dev, card, cfg, vrls):
         counted, counts = vb.vrl_sum_bvh_counts(*packs, seed=BVH_SEED)
         check(torch.equal(counted, vb.vrl_sum_bvh(*packs, seed=BVH_SEED)),
               f"{key}: the counting launch's sums are the kernel's")
+        check(counts["differ"] == 0, f"{key}: the counting launch's "
+              f"one-box-per-node traversal decides {counts['differ']} "
+              "segments otherwise")
         sweep = BvhSweep(packs[0], packs[1], counts)
         b = bvh_bound(packs, sweep, hg)
         evals = packs[0].shape[1] * packs[1].shape[1] * n_draws
         rows.append(dict(key=key, tris=int(scene.faces.shape[0]), ms=ms[0],
                          bound=b, sweep=sweep, packs=packs))
+        old_boxes, old_tris, old_ms = EARLIER_BVH[key]
+        own_bound = bvh_bound(packs, sweep, hg, own=True)
         lines.append(
             f"{key[0]} {key[1]}: {int(scene.faces.shape[0])} triangles, depth "
-            f"{packs[2].depth}, {ms[0]:.3f} ms (spread {ms[1]:.1%}), "
-            f"{evals / (ms[0] / 1e3):.4g} pair-sample evals/s, {sweep}, bound "
-            f"{b[0]:.4f} ms by {b[1]}; stages (ms) " + ", ".join(
-                f"{k} {v:.1f}" for k, v in stages.items()))
+            f"{packs[2].depth}, {ms[0]:.3f} ms (spread {ms[1]:.1%}; before "
+            f"the redesign {old_ms} ms), {evals / (ms[0] / 1e3):.4g} "
+            f"pair-sample evals/s, {sweep} (before: {old_boxes} boxes, one a "
+            f"fetch, and {old_tris} triangles), bound {b[0]:.4f} ms by {b[1]} "
+            f"on the needed tests (on the kernel's own {own_bound[0]:.4f} "
+            f"ms), 0 segments decided otherwise; stages (ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
     ratios = [f"{a['key'][0]} x{b['tris'] / a['tris']:.2f} triangles -> "
               f"x{b['ms'] / a['ms']:.2f} time" for a, b in zip(rows, rows[1:])
               if a["key"][0] == b["key"][0]]
@@ -2570,7 +2696,7 @@ def main():
     seed3 = 20261016
     u_philox = philox_uniforms(seed3, n_rays, N_VRLS, n_draws, device=dev)
     max_abs_err = 0.0
-    results = []
+    results, check_totals = [], dict.fromkeys(vs.CHECK_COUNTS, 0)
     media_packs = {}
     for name, (g, kind) in MEDIA.items():
         scene = presets.cornell_smoke(WIDTH, HEIGHT, g=g, device=dev)
@@ -2586,17 +2712,33 @@ def main():
                           short_vrls=short, phase_kind=kind)
             ref = vrl_sum_reference(*packs, u, short_vrls=short,
                                     phase_kind=kind)
+            # kernel 1's checking instantiation on the same inputs
+            kw = dict(uniforms=None if mode == "philox" else u,
+                      short_vrls=short, phase_kind=kind)
+            out_c, counts = vs.vrl_sum_check(*packs, seed=seed3, **kw)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), f"{name}/{mode} finite")
             median, share = homog_bar(out.T, ref.T)
             err = float((out - ref).abs().max())
             max_abs_err = max(max_abs_err, err)
+            check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
+                  f"{name}/{mode}: the pre-reject disagrees with the Wald "
+                  f"test: {counts}")
+            for k, v in counts.items():
+                check_totals[k] += v
             results.append(f"{name}/{mode} median {median:.2e} "
-                           f"share>1e-2 {share:.4f} max_abs {err:.3e}")
+                           f"share>1e-2 {share:.4f} max_abs {err:.3e}, "
+                           f"checking launch equal {torch.equal(out_c, out)}")
             check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
                   f"{name}/{mode}: median {median}, share {share}")
-    print(f"[3 kernel vs plain on {card}, B={n_rays} N={N_VRLS} T=24] "
-          + " | ".join(results), flush=True)
+    print(f"[3 kernel vs plain on {card}, B={n_rays} N={N_VRLS} T=24 from "
+          f"shared memory] " + " | ".join(results)
+          + f" | pre-reject against the Wald test, all cases: "
+          f"{check_totals['segments']} segments, "
+          f"{check_totals['skipped']} of {check_totals['considered']} "
+          f"triangle tests skipped, {check_totals['bad_tris']} skipped "
+          f"triangles blocking, {check_totals['bad_segments']} segments "
+          "decided differently", flush=True)
 
     # 4. the main path, through the entry point a user calls
     scene = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
@@ -2620,11 +2762,15 @@ def main():
     median, share = homog_bar(img, plain)
     check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
           f"render vs plain render: median {median}, share {share}")
+    _, render_check = vs.vrl_sum_check(*packs, seed=seed)
+    check(render_check["bad_tris"] == 0 and render_check["bad_segments"] == 0,
+          f"the render's segments: the pre-reject disagrees: {render_check}")
     print(f"[4 main path on {card}] cornell_smoke {WIDTH}x{HEIGHT} x "
           f"{N_VRLS} VRLs: "
           f"vrl_sum launches {launches}, image mean {float(img.mean()):.6f} "
           f"max {float(img.max()):.6f}, vs plain render median {median:.2e} "
-          f"share>1e-2 {share:.4f}", flush=True)
+          f"share>1e-2 {share:.4f} | the render's segments in the checking "
+          f"launch: {check_line(render_check)}", flush=True)
 
     # 5. timing (after everything above has synchronised)
     torch.cuda.synchronize()
@@ -2642,9 +2788,14 @@ def main():
     pair_evals = n_rays * N_VRLS * n_draws
     with SweepCount(*pair_masks(packs[0], packs[1])) as sum_sweep:
         vrl_sum_reference(*packs, u_render)
-    sum_bound = bound(kernel_ops("vrl_sum", sum_sweep,
-                                 scene.medium.phase_kind == 0, cfg.short_vrls),
-                      nbytes(*packs) + 3 * n_rays * 4)
+    hg = scene.medium.phase_kind == 0
+    sum_bytes = nbytes(*packs) + 3 * n_rays * 4
+    sweep_bound = bound(kernel_ops("vrl_sum", sum_sweep, hg, cfg.short_vrls),
+                        sum_bytes)
+    sum_bound = bound(plane_ops(kernel_ops("vrl_sum", sum_sweep, hg,
+                                           cfg.short_vrls),
+                                sum_sweep, render_check), sum_bytes)
+    split = config1_split(packs, seed)
     k_med, k_spread = summary(kernel_ms)
     p_med, p_spread = summary(plain_ms)
     r_med, r_spread = summary(render_s)
@@ -2652,9 +2803,14 @@ def main():
           f"{k_spread:.1%}, {pair_evals / (k_med / 1e3):.4g} pair-sample "
           f"evals/s) | plain {p_med:.3f} ms/pass (spread {p_spread:.1%}, "
           f"uniforms precomputed) | bound {sum_bound[0]:.4f} ms by "
-          f"{sum_bound[1]} ({sum_sweep}) | render {r_med:.3f} ms/pass (spread "
-          f"{r_spread:.1%}, {pair_evals / (r_med / 1e3):.4g} evals/s)",
-          flush=True)
+          f"{sum_bound[1]} (the pre-reject's operations on its counted "
+          f"skips; {sweep_bound[0]:.4f} ms with a Wald test for every "
+          f"triangle swept; {sum_sweep}; the kernel's sweep "
+          f"{render_check['considered'] / render_check['segments']:.3f} "
+          f"triangles per segment) | render {r_med:.3f} ms/pass (spread "
+          f"{r_spread:.1%}, {pair_evals / (r_med / 1e3):.4g} evals/s) | "
+          "split (ms, CUDA events, the same launch with a part taken away): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
 
     # 6. where the render's device time goes
     prof = profile_device(
@@ -2665,13 +2821,14 @@ def main():
               "measured", flush=True)
     else:
         span, busy, n_ops, by_name = prof
-        k_ms = sum(v for k, v in by_name.items() if "vrl_sum_kernel" in k)
+        k_ms = sum(v for k, v in by_name.items()
+                   if "vrl_sum_plane_kernel" in k)
         top = sorted(((v, k) for k, v in by_name.items()
-                      if "vrl_sum_kernel" not in k), reverse=True)[:4]
+                      if "vrl_sum_plane_kernel" not in k), reverse=True)[:4]
         print(f"[6 profile on {card}] per traced pass: device span "
               f"{span:.3f} ms, busy {busy:.3f} ms, idle share "
-              f"{1 - busy / span:.1%}, {n_ops:g} device ops; vrl_sum_kernel "
-              f"{k_ms:.3f} ms ({k_ms / busy:.1%} of busy); next: "
+              f"{1 - busy / span:.1%}, {n_ops:g} device ops; "
+              f"vrl_sum_plane_kernel {k_ms:.3f} ms ({k_ms / busy:.1%} of busy); next: "
               + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
               flush=True)
 
@@ -2824,6 +2981,15 @@ def main():
     with SweepCount(*pair_masks(packs[0], packs[1])) as bwd_sweep:
         vrl_sum_reference(*packs, u_step)  # the samples the backward replays
     del u_step
+    # the train step's own segments (its VRLs and render seed, drawn as
+    # train_step draws them) through kernel 1's checking launch
+    g = gen()
+    step_vrls = tracer.trace(scene2, g, N_PARTICLES, tcfg)
+    _, step_check = vs.vrl_sum_check(
+        *integrator.pack_frame(scene2, step_vrls)[3],
+        seed=integrator.draw_seed(g))
+    check(step_check["bad_tris"] == 0 and step_check["bad_segments"] == 0,
+          f"the train step's segments: the pre-reject disagrees: {step_check}")
     tracer_ms = host_ms(
         lambda: tracer.trace(scene2, gen(), N_PARTICLES, tcfg), 3, 10)
     step_ms = host_ms(lambda: step(scene2), 3, 10)
@@ -2831,18 +2997,28 @@ def main():
     bwd_bound = bound(kernel_ops("vrl_sum_bwd", bwd_sweep,
                                  scene2.medium.phase_kind == 0, cfg.short_vrls),
                       nbytes(*packs, gbar) + 4 * (6 * n_rays + 3 * n_slots + 8))
+    # kernel 1 at the step's shape (16,384 x 1,536): its bound on the
+    # timed launch's samples, its sweep counted by the checking launch
+    fwd_counts = vs.vrl_sum_check(*packs, seed=seed)[1]
+    fwd_bound = bound(plane_ops(kernel_ops("vrl_sum", bwd_sweep,
+                                           scene2.medium.phase_kind == 0,
+                                           cfg.short_vrls),
+                                bwd_sweep, fwd_counts),
+                      nbytes(*packs) + 3 * n_rays * 4)
     (s_med, s_spread), (t_med, _), (f_med, _), (b_med, b_spread), \
         (pb_med, pb_spread) = map(summary, (step_ms, tracer_ms, fwd_ms, bwd_ms,
                                             plain_bwd_ms))
     print(f"[9 train timing on {card}] step {s_med:.3f} ms (median of 10, "
           f"spread {s_spread:.1%}); alone on its inputs: tracer {t_med:.3f} "
-          f"ms, forward kernel {f_med:.3f} ms, backward kernel {b_med:.3f} "
+          f"ms, forward kernel {f_med:.3f} ms (bound {fwd_bound[0]:.4f} ms by "
+          f"{fwd_bound[1]}), backward kernel {b_med:.3f} "
           f"ms (spread {b_spread:.1%}, {valid_evals / (b_med / 1e3):.4g} "
           f"valid pair-sample evals/s), rest {s_med - t_med - f_med - b_med:.3f}"
           f" ms | plain backward {pb_med:.3f} ms (spread {pb_spread:.1%}, "
           f"uniforms precomputed, {valid_evals / (pb_med / 1e3):.4g} evals/s)"
           f" | backward bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]} "
-          f"({bwd_sweep})",
+          f"({bwd_sweep}) | the step's segments in kernel 1's checking "
+          f"launch: {check_line(step_check)}",
           flush=True)
 
     # 10. where the train step's device time goes
@@ -2853,9 +3029,9 @@ def main():
     else:
         span, busy, n_ops, by_name = prof
         mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
-                for k in ("vrl_sum_kernel", "vrl_sum_bwd_kernel")}
+                for k in ("vrl_sum_plane_kernel", "vrl_sum_bwd_kernel")}
         top = sorted(((v, k) for k, v in by_name.items()
-                      if "vrl_sum_kernel" not in k
+                      if "vrl_sum_plane_kernel" not in k
                       and "vrl_sum_bwd_kernel" not in k), reverse=True)[:4]
         print(f"[10 train profile on {card}] per traced step: device span "
               f"{span:.3f} ms, busy {busy:.3f} ms, idle share "

@@ -128,8 +128,9 @@ def test_sort_vrls_morton_matches_jax():
 
 def test_pack_bvh_tris_covers_and_bounds():
     """Every opaque triangle is in the pack once, as pack_tris packs it;
-    each leaf's padded box holds its triangles, each inner box its
-    children's; the depth is the tree's."""
+    each node holds two children, each leaf child's padded box holds its
+    triangles, each inner child's box the boxes of its own children; the
+    depth is the tree's."""
     scene = presets.cornell_smoke(16, 16, device="cpu")
     rng = np.random.default_rng(1)
     opaque = torch.as_tensor(rng.random(scene.faces.shape[0]) < 0.7)
@@ -139,39 +140,45 @@ def test_pack_bvh_tris_covers_and_bounds():
     key = lambda t: sorted(map(tuple, t.tolist()))
     assert key(pack.tris) == key(flat)
     nodes = pack.nodes.numpy()
-    a = nodes[:, 3].view(np.int32)
-    b = nodes[:, 7].view(np.int32)
-    lo, hi = nodes[:, 0:3], nodes[:, 4:7]
+    assert nodes.shape[1] == vb.NODE_COLS == 16
+    ref = nodes.view(np.int32)[:, [3, 11]]
+    lo = nodes[:, [[0, 1, 2], [8, 9, 10]]]
+    hi = nodes[:, [[4, 5, 6], [12, 13, 14]]]
     tris = pack.tris.numpy()
     corners = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
                         tris[:, 0:3] + tris[:, 6:9]], axis=1)
-    depth, level, seen = 0, [(0, 0)], []
+    depth, level, seen, leaves = 0, [(0, 1)], [], 0
     while level:
         nxt = []
         for node, d in level:
-            depth = max(depth, d)
-            if b[node] < 0:
-                seen += range(a[node], a[node] - b[node])
-                c = corners[a[node]:a[node] - b[node]].reshape(-1, 3)
-                assert (c >= lo[node]).all() and (c <= hi[node]).all()
-            else:
-                for ch in (a[node], b[node]):
-                    assert (lo[ch] >= lo[node]).all()
-                    assert (hi[ch] <= hi[node]).all()
-                    nxt.append((ch, d + 1))
+            for k in range(2):
+                r = int(ref[node, k])
+                depth = max(depth, d)
+                if r < 0:
+                    first, count = ~r >> vb.LEAF_BITS, ~r & 7
+                    assert 1 <= count <= vb.LEAF_SIZE
+                    leaves += 1
+                    seen += range(first, first + count)
+                    c = corners[first:first + count].reshape(-1, 3)
+                    assert (c >= lo[node, k]).all()
+                    assert (c <= hi[node, k]).all()
+                else:
+                    assert (lo[r] >= lo[node, k]).all()
+                    assert (hi[r] <= hi[node, k]).all()
+                    nxt.append((r, d + 1))
         level = nxt
     assert sorted(seen) == list(range(len(tris)))
     assert depth == pack.depth
-    assert -b[b < 0].max() >= 1 and -b[b < 0].min() <= vb.LEAF_SIZE
+    assert len(nodes) == leaves - 1  # one node per inner node of the tree
 
 
 def test_pack_bvh_tris_refuses_a_deep_tree(monkeypatch):
-    """A tree deeper than the traversal stack allows is refused on the
+    """A tree deeper than the kernel's stack allows is refused on the
     host, as the wrapper refuses such a pack."""
     scene = presets.cornell_smoke(8, 8, device="cpu")
     opaque = scene.opaque_faces()
     pack = vb.pack_bvh_tris(scene.vertices, scene.faces, opaque)
-    monkeypatch.setattr(bvh, "STACK_DEPTH", pack.depth)
+    monkeypatch.setattr(vb, "BVH_STACK", pack.depth - 1)
     with pytest.raises(ValueError):
         vb.pack_bvh_tris(scene.vertices, scene.faces, opaque)
     packs = integrator.pack_frame(scene, vrl.compact(
@@ -312,14 +319,14 @@ def test_grid_medium_raises():
 
 BAD_INPUTS = {
     "not_a_pack": lambda p: dict(bvh=(p.nodes, p.tris, p.depth)),
-    "node_cols": lambda p: dict(bvh=p._replace(nodes=p.nodes[:, :7]
+    "node_cols": lambda p: dict(bvh=p._replace(nodes=p.nodes[:, :15]
                                                .contiguous())),
     "node_dtype": lambda p: dict(bvh=p._replace(nodes=p.nodes.double())),
     "node_strided": lambda p: dict(bvh=p._replace(
         nodes=p.nodes.T.contiguous().T)),
     "nodes_without_tris": lambda p: dict(bvh=p._replace(
         tris=p.tris[:0].contiguous())),
-    "depth": lambda p: dict(bvh=p._replace(depth=bvh.STACK_DEPTH)),
+    "depth": lambda p: dict(bvh=p._replace(depth=vb.BVH_STACK + 1)),
     "tri_cols": lambda p: dict(bvh=p._replace(tris=p.tris[:, :8]
                                               .contiguous())),
     "medium_len": lambda p: dict(medium=torch.zeros(18)),

@@ -25,6 +25,7 @@ from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r,
@@ -67,6 +68,7 @@ from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
 from alvrl_tpu_torch.scripts import probe_gather as probe
+from torch_port_utils import chain_bvh_pack  # tests/ is on the path
 
 BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "bench_vrls.txt")
@@ -141,6 +143,106 @@ def test_cuda_rejects_too_many_triangles(cuda):
     packs[2] = torch.zeros((100000, 9), device=cuda)
     with pytest.raises(ValueError):
         vrl_sum(*packs)
+
+
+# --- kernel 1's triangle paths and plane pre-reject -------------------------
+
+
+def _close(out, ref, tol=1e-4):
+    """Every ray within tol relative (separate compilations of one
+    estimator, whose fused multiply-adds may differ), and the
+    homogeneous bar."""
+    rel = (out - ref).abs() / torch.clamp(ref.abs(), min=1e-3)
+    assert float(rel.max()) < tol
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+@pytest.mark.parametrize("medium", sorted(MEDIA))
+@pytest.mark.parametrize("mode", [vs.MODE_SUM, vs.MODE_NO_REJECT],
+                         ids=["pre_reject", "no_pre_reject"])
+def test_cuda_kernel_sweeps_match_plain(cuda, medium, mode):
+    """Kernel 1's sweep with the plane pre-reject and without it (its
+    timing mode), 32x32 eye rays x 512 VRLs (24 triangles), injected
+    uniforms: both against the plain version."""
+    g, kind = MEDIA[medium]
+    packs = integrator.pack_frame(_scene(cuda, 32, 32, g, kind),
+                                  _bench_vrls(cuda))[3]
+    n_rays = packs[0].shape[1]
+    u = torch.as_tensor(np.random.default_rng(6).random(
+        (n_rays, 512, 6), dtype=np.float32), device=cuda)
+    out = vs._launch(vs._library(), *packs, u, 0, 2, 2, True, kind,
+                     mode=mode)
+    ref = vrl_sum_reference(*packs, u, phase_kind=kind)
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    _close(out, vrl_sum(*packs, uniforms=u, phase_kind=kind))
+
+
+def _cube_packs(device, width=16):
+    """A 4^3 cube field (780 triangles, 49 KB of plane pack: above the
+    default cap of dynamic shared memory) with its bench VRLs."""
+    scene = bbl.scene_of("cubes", 4, width=width, device=device)
+    return integrator.pack_frame(scene, bbl.bench_vrls(scene))[3]
+
+
+def test_cuda_kernel_with_780_triangles(cuda):
+    """780 triangles, whose plane pack takes more shared memory than the
+    default cap: the launch meets the plain version and repeats bit for
+    bit."""
+    packs = _cube_packs(cuda)
+    assert packs[2].shape[0] * 64 > 48 * 1024
+    out = vrl_sum(*packs, seed=9)
+    ref = vrl_sum_reference(*packs, philox_uniforms(
+        9, packs[0].shape[1], packs[1].shape[1], 6, device=cuda))
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    assert torch.equal(out, vrl_sum(*packs, seed=9))
+
+
+def _check_packs(device, case):
+    """(packs, seed) of kernel 1's checking launch: cornell_smoke 32x32
+    with the bench VRLs, the 780-triangle cube field, or a train step's
+    own VRLs and render seed (64x64, 32 particles x depth 6)."""
+    if case == "cornell":
+        return integrator.pack_frame(_scene(device, 32, 32),
+                                     _bench_vrls(device))[3], 17
+    if case == "cubes":
+        return _cube_packs(device), 17
+    scene = _scene(device, 64, 64)
+    g = torch.Generator().manual_seed(3)
+    vrls = tracer.trace(scene, g, 32, tracer.TracerConfig(max_depth=6))
+    return integrator.pack_frame(scene, vrls)[3], integrator.draw_seed(g)
+
+
+@pytest.mark.parametrize("case", ["cornell", "cubes", "train_step"])
+def test_cuda_pre_reject_agrees_with_the_wald_test(cuda, case):
+    """The checking instantiation on every segment of a launch: no
+    triangle the pre-reject skips blocks, no segment is decided
+    differently, most triangle tests are skipped, and the sums are the
+    kernel's."""
+    packs, seed = _check_packs(cuda, case)
+    before = (vrl_sum.launches, vs.vrl_sum_check.launches)
+    out, counts = vs.vrl_sum_check(*packs, seed=seed)
+    assert (vrl_sum.launches, vs.vrl_sum_check.launches) == (
+        before[0], before[1] + 1)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] >= counts["segments"] > 0
+    assert counts["considered"] > counts["skipped"] > 0
+    _close(out, vrl_sum(*packs, seed=seed))
+
+
+def test_cuda_plane_pack_kernel_matches_plain(cuda):
+    """The plane pack that kernel 1 makes on the card is plane_pack's:
+    n, the margin's coefficients and the triangle equal, off to a
+    float32 rounding (both sum three exact products in float64)."""
+    tris = _cube_packs(cuda)[2]
+    got = vs.plane_pack_kernel(tris).cpu()
+    ref = vs.plane_pack(tris.cpu())
+    keep = [i for i in range(16) if i != 3]
+    assert torch.equal(got[:, keep], ref[:, keep])
+    assert torch.allclose(got[:, 3], ref[:, 3], rtol=2 ** -23, atol=0.0)
 
 
 # --- the backward kernel -----------------------------------------------------
@@ -938,17 +1040,40 @@ def test_cuda_bvh_kernel_counts(cuda):
     assert torch.equal(out, vb.vrl_sum_bvh(*packs, seed=3))
     assert (vb.vrl_sum_bvh.launches, vb.vrl_sum_bvh_counts.launches) == (
         before[0] + 1, before[1] + 1)
-    assert counts["node_tests"] >= counts["segments"] > 0
+    assert counts["node_fetches"] >= counts["segments"] > 0
+    assert counts["box_tests"] == 2 * counts["node_fetches"]
     assert 0 < counts["open_vv"] + counts["open_vs"] <= counts["segments"]
     assert counts["tri_tests"] > 0
+    assert counts["needed_box_tests"] >= counts["segments"]
+    assert counts["needed_tri_tests"] > 0 and counts["differ"] == 0
+
+
+def test_cuda_bvh_kernel_on_a_tree_as_deep_as_the_stack(cuda):
+    """Kernel 7 on a chain tree as deep as it serves (BVH_STACK), whose
+    traversal fills the stack: kernel 1's sums on the same triangles to
+    rounding, the plain version's at the homogeneous bar, and the
+    counting launch's needed-work traversal deciding as it does."""
+    packs = integrator.pack_frame(_scene(cuda, 16, 16), _bench_vrls(cuda))[3]
+    chain = chain_bvh_pack(packs[2], vb.BVH_STACK)
+    u = torch.as_tensor(np.random.default_rng(8).random(
+        (packs[0].shape[1], packs[1].shape[1], 6), dtype=np.float32),
+        device=cuda)
+    out = vb.vrl_sum_bvh(packs[0], packs[1], chain, packs[3], uniforms=u)
+    _close(out, vrl_sum(*packs, uniforms=u))
+    median, share = homog_bar(out.T, vrl_sum_reference(*packs, u).T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    counted, counts = vb.vrl_sum_bvh_counts(packs[0], packs[1], chain,
+                                            packs[3], uniforms=u)
+    assert torch.equal(counted, out)
+    assert counts["differ"] == 0 and counts["needed_box_tests"] > 0, counts
 
 
 def test_cuda_bvh_refuses_a_deep_tree(cuda):
     """A pack deeper than the kernel's stack is refused by the wrapper
     and, past it, by the kernel's entry point."""
-    assert vb._library().alvrl_bvh_stack() == bvh.STACK_DEPTH
+    assert vb._library().alvrl_bvh_stack() == vb.BVH_STACK
     packs = integrator.pack_frame_bvh(_scene(cuda, 8, 8), _bench_vrls(cuda))[3]
-    deep = packs[2]._replace(depth=bvh.STACK_DEPTH)
+    deep = packs[2]._replace(depth=vb.BVH_STACK + 1)
     with pytest.raises(ValueError):
         vb.vrl_sum_bvh(packs[0], packs[1], deep, packs[3])
     with pytest.raises(RuntimeError):

@@ -129,3 +129,40 @@ def hit_from_jax(hit):
                valid=torch.as_tensor(np.asarray(hit.valid)),
                p=torch.as_tensor(np.asarray(hit.p)),
                ng=torch.as_tensor(np.asarray(hit.ng)))
+
+
+def chain_bvh_pack(tris, depth):
+    """An ops.vrl_sum_bvh.BvhPack of tris ((T, TRI_COLS), T <= 7 (depth +
+    1)) whose tree is a chain `depth` deep: inner node i holds inner node
+    i + 1 as its child 0 and leaf i as its child 1 (the last inner node
+    leaves depth - 1 and depth), every box the triangles' padded bounding
+    box, the triangles dealt to the leaves in order. Equal boxes make
+    kernel 7's traversal descend child 0 and push child 1 at every level,
+    so its far-child stack fills to the depth."""
+    from alvrl_tpu_torch.geometry import bvh as bvh_mod
+    from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+
+    n_leaves = depth + 1
+    n_tris = tris.shape[0]
+    assert depth >= 1 and n_tris <= 7 * n_leaves
+    pts = tris[:, 0:3].cpu().double()
+    corners = torch.cat([pts, pts + tris[:, 3:6].cpu(),
+                         pts + tris[:, 6:9].cpu()])
+    lo, hi = corners.min(0).values.float(), corners.max(0).values.float()
+    pad = bvh_mod.box_pad(lo.numpy(), hi.numpy())
+    box_lo, box_hi = lo.numpy() - pad, hi.numpy() + pad
+    bounds = [k * n_tris // n_leaves for k in range(n_leaves + 1)]
+
+    def leaf(k):
+        first, count = bounds[k], bounds[k + 1] - bounds[k]
+        return ~((first << vb.LEAF_BITS) | count)
+
+    nodes = np.zeros((depth, vb.NODE_COLS), np.float32)
+    for i in range(depth):
+        refs = (i + 1, leaf(i)) if i < depth - 1 else (leaf(i), leaf(i + 1))
+        for c, ref in enumerate(refs):
+            nodes[i, 8 * c:8 * c + 3] = box_lo
+            nodes[i, 8 * c + 3] = np.int32(ref).view(np.float32)
+            nodes[i, 8 * c + 4:8 * c + 7] = box_hi
+    return vb.BvhPack(torch.as_tensor(nodes, device=tris.device),
+                      tris.contiguous(), depth)
