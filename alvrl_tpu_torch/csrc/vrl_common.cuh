@@ -1196,6 +1196,12 @@ __global__ void reduce_parts(const float* __restrict__ part, int n_parts, int le
 
 constexpr int N_PAR = 8;  // homogeneous d_par rows
 constexpr int N_WARPS = RAY_BLOCK / 32;
+// The backwards' launch bound: BWD_MIN_BLOCKS resident blocks an SM (at
+// most 128 registers a thread). Without it the grid instantiations sit
+// at the 128-register edge and cross it with small changes of code (3
+// blocks: kernels 9 and 11 6-9 % slower); five blocks (96 registers)
+// spill 100-250 B and measured up to 15 % slower (PERF.md).
+constexpr int BWD_MIN_BLOCKS = 4;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -1219,13 +1225,14 @@ struct Layout {
     return t < 8 ? (t < N_SUMS ? t : -1) : (GRID && t == G_SCALE ? 8 : -1);
   }
 
-  // dynamic shared memory, in floats, with T triangles: the triangles,
-  // the VRL piece, the grid medium, the per-warp column sums, the
-  // per-warp d_par sums, and each thread's d_eod and d_vod columns
-  static constexpr size_t smem_floats(int T) {
-    return (size_t)T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+  // dynamic shared memory, in floats, with tri_floats floats of
+  // triangles: the triangles, the VRL piece, the grid medium, the
+  // per-warp column sums, the per-warp d_par sums, and each thread's
+  // d_eod and d_vod columns and staged eye-OD table (stage_eod)
+  static constexpr size_t smem_floats(size_t tri_floats) {
+    return tri_floats + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
            (GRID ? GRID_MED_LEN : 0) + N_WARPS * ROWS * VRL_CHUNK + N_WARPS * N_SUMS +
-           2 * N_OD * RAY_BLOCK;
+           3 * N_OD * RAY_BLOCK;
   }
 };
 
@@ -1256,6 +1263,9 @@ __device__ __forceinline__ void clear_pair_cots(Cot& c) {
 // After a VRL (or table column) cc: each warp's sum of its threads'
 // d_pw (and d_vod column) by a fixed butterfly, into s_out (N_WARPS,
 // ROWS, VRL_CHUNK) at [warp, r, cc]. Every thread of the block calls it.
+// (A reduce-scatter of the grid's 20 rows in 21 shuffles, in place of
+// 100, measured 9-12 % slower in kernels 9 and 11: its 20 live values
+// cost the kernels registers and spills; ROADMAP B.)
 template <bool GRID>
 __device__ __forceinline__ void warp_column_sums(const Cot& c, float* s_out, int cc) {
   using L = Layout<GRID>;

@@ -50,10 +50,18 @@
 // grid, 0.5 % slower on config 4's 95^3: PERF.md). The eye-OD table is staged per thread
 // in shared memory as in the forward. Aggregating the reductions
 // across a warp (__match_any_sync) cost far more than it saved and was
-// left out (PERF.md). The design follows the forward's grid (RAY_BLOCK
-// rays x VRL_CHUNK VRLs per block) and reduces everything but d_density
-// with no atomics, in a fixed order, so a repeat is bit-identical
-// there:
+// left out (PERF.md). The homogeneous instantiations (kernel 8) sweep
+// the shadow segments as kernel 1 does (vrl_common.cuh PlaneTris: a
+// plane pre-reject with a proven margin, then the Wald tests of the
+// triangles it keeps, from a plane pack in shared memory made in front
+// of the kernel by vrl_sum.cu's plane_pack_kernel), which decides every
+// segment as the flat sweep does: the replay's shadow tests were 55 %
+// of its time at the config-1 train step (PERF.md). The grid
+// instantiations keep the flat sweep (FlatTris). Every instantiation is
+// held to 128 registers (BWD_MIN_BLOCKS, 4 blocks an SM). The design
+// follows the forward's grid (RAY_BLOCK rays x VRL_CHUNK VRLs per block)
+// and reduces everything but d_density with no atomics, in a fixed
+// order, so a repeat is bit-identical there:
 //   * per ray (d_tau, and d_eod from a column of shared memory per
 //     thread): each thread sums its ray's cotangents over the block's
 //     VRLs into (n_chunks, 3 [+ NQ + 1], B) partials, added in chunk
@@ -79,8 +87,38 @@
 
 namespace {
 
+// The triangles in shared memory, in floats: the grid media's TRI_COLS
+// a triangle, for the flat sweep (FlatTris); the homogeneous medium's
+// plane pack, PLANE_F4 float4s a triangle, for kernel 1's pre-reject
+// (PlaneTris).
+template <bool GRID>
+__host__ __device__ constexpr size_t tri_floats(int T) {
+  return (size_t)T * (GRID ? TRI_COLS : 4 * PLANE_F4);
+}
+
+template <bool GRID>
+using Sweep = std::conditional_t<GRID, FlatTris, PlaneTris<0>>;
+
+// Stage the T triangles `tris` (TRI_COLS floats each, or the plane pack)
+// at s_tri; returns the sweep over them.
+template <bool GRID>
+__device__ __forceinline__ Sweep<GRID> stage_sweep(const float* __restrict__ tris, int T,
+                                                   float* s_tri) {
+  if constexpr (GRID) {
+    for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+    return FlatTris{s_tri, T};
+  } else {
+    const float4* planes = reinterpret_cast<const float4*>(tris);
+    float4* s_planes = reinterpret_cast<float4*>(s_tri);
+    for (int i = threadIdx.x; i < T * PLANE_F4; i += blockDim.x) s_planes[i] = planes[i];
+    return PlaneTris<0>{s_planes, T, nullptr};
+  }
+}
+
+// tris: the triangles, TRI_COLS floats each (grid media) or their plane
+// pack (homogeneous), as tri_floats
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
-__global__ void __launch_bounds__(RAY_BLOCK)
+__global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                        int N, const float* __restrict__ tris, int T,
                        const float* __restrict__ med, GridArgs grid,
@@ -90,9 +128,9 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                        float* __restrict__ d_density) {
   using L = Layout<GRID>;
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
-  extern __shared__ float smem[];
-  float* s_tri = smem;                                   // (T, TRI_COLS)
-  float* s_vrl = s_tri + T * TRI_COLS;                   // (V_ROWS, VRL_CHUNK)
+  extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
+  float* s_tri = reinterpret_cast<float*>(smem4);        // tri_floats(T)
+  float* s_vrl = s_tri + tri_floats<GRID>(T);            // (V_ROWS, VRL_CHUNK)
   float* s_med = s_vrl + V_ROWS * VRL_CHUNK;             // grid: (GRID_MED_LEN,)
   float* s_out = s_med + (GRID ? GRID_MED_LEN : 0);      // (N_WARPS, ROWS, VRL_CHUNK)
   float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
@@ -102,7 +140,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
   const int t = threadIdx.x;
-  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
+  const auto occl = stage_sweep<GRID>(tris, T, s_tri);
+  const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
   for (int i = t; i < N_WARPS * L::ROWS * VRL_CHUNK; i += blockDim.x) s_out[i] = 0.0f;
   for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
@@ -133,8 +172,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       const VrlPair p = pair_at<GRID>(ray, s_vrl, cc);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T}, inv_vv, inv_vs,
-                                   c);
+      pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs, c);
     }
     warp_column_sums<GRID>(c, s_out, cc);
   }
@@ -155,36 +193,49 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   }
 }
 
-// dynamic shared memory of the backward, in bytes, with T triangles:
-// Layout's, and for grid media the staged eye-OD tables
+// dynamic shared memory of the backward, in bytes, with T triangles
 template <bool GRID>
 size_t bwd_smem_bytes(int T) {
-  return (Layout<GRID>::smem_floats(T) + (GRID ? (NQ + 1) * RAY_BLOCK : 0)) * sizeof(float);
+  return Layout<GRID>::smem_floats(tri_floats<GRID>(T)) * sizeof(float);
 }
 
+}  // namespace
+
+// vrl_sum.cu: the plane pack of T triangles into `out` (T, 4 PLANE_F4)
+extern "C" int alvrl_plane_pack(const float* tris, int T, float* out, void* stream);
+
+namespace {
+
 // Launches the backward and its three ordered reductions on `stream`
-// (grid media: after zeroing d_density); returns a cudaError_t (0 =
-// launched). Scratch: ray_part (n_chunks, ROWS, B), vrl_part
-// (n_ray_blocks, ROWS, N), par_part (n_ray_blocks * n_chunks, n_par).
-// Out: d_ray (ROWS, B) = d_tau [, d_eod], d_vrl (ROWS, N) = d_power [,
-// d_vod], d_par (n_par,) and, for grid media, d_density (nz, ny, nx).
+// (homogeneous: after the plane pack of the triangles into `planes`,
+// (T, 4 PLANE_F4) floats of scratch; grid media: after zeroing
+// d_density); returns a cudaError_t (0 = launched). Scratch: ray_part
+// (n_chunks, ROWS, B), vrl_part (n_ray_blocks, ROWS, N), par_part
+// (n_ray_blocks * n_chunks, n_par). Out: d_ray (ROWS, B) = d_tau [,
+// d_eod], d_vrl (ROWS, N) = d_power [, d_vod], d_par (n_par,) and, for
+// grid media, d_density (nz, ny, nx).
 template <bool GRID>
 int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
                const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
-               int svs, int short_vrls, int phase_kind, const float* gbar, float* ray_part,
-               int n_chunks, float* vrl_part, int n_ray_blocks, float* par_part, float* d_vrl,
-               float* d_par, float* d_ray, float* d_density, void* stream) {
+               int svs, int short_vrls, int phase_kind, const float* gbar, float* planes,
+               float* ray_part, int n_chunks, float* vrl_part, int n_ray_blocks, float* par_part,
+               float* d_vrl, float* d_par, float* d_ray, float* d_density, void* stream) {
   using L = Layout<GRID>;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
       n_chunks > MAX_GRID_Y || n_ray_blocks != (B + RAY_BLOCK - 1) / RAY_BLOCK ||
-      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr))
+      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr) ||
+      (!GRID && T > 0 && planes == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (GRID) {
     const cudaError_t err = cudaMemsetAsync(
         d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
     if (err != cudaSuccess) return (int)err;
+  } else if (T > 0) {
+    const int err = alvrl_plane_pack(tris, T, planes, stream);
+    if (err != 0) return err;
+    tris = planes;
   }
   const dim3 blocks(n_ray_blocks, n_chunks);
   const size_t smem = bwd_smem_bytes<GRID>(T);
@@ -219,17 +270,18 @@ extern "C" {
 
 int alvrl_ray_block() { return RAY_BLOCK; }
 
-// The homogeneous backward. Scratch: tau_part (n_chunks, 3, B), pw_part
-// (n_ray_blocks, 3, N), par_part (n_ray_blocks * n_chunks, 8). Out:
-// d_power (3, N), d_par (8,), d_tau (3, B). `uniforms` may be null (the
-// Philox stream of `seed`, as the forward's).
+// The homogeneous backward. Scratch: planes (T, 4 PLANE_F4) for the
+// triangles' plane pack (may be null for T = 0), tau_part (n_chunks, 3,
+// B), pw_part (n_ray_blocks, 3, N), par_part (n_ray_blocks * n_chunks,
+// 8). Out: d_power (3, N), d_par (8,), d_tau (3, B). `uniforms` may be
+// null (the Philox stream of `seed`, as the forward's).
 int alvrl_vrl_sum_bwd(const float* rays, int B, const float* vrls, int N, const float* tris,
                       int T, const float* med, const float* uniforms, unsigned int seed, int svv,
-                      int svs, int short_vrls, int phase_kind, const float* gbar, float* tau_part,
-                      int n_chunks, float* pw_part, int n_ray_blocks, float* par_part,
-                      float* d_power, float* d_par, float* d_tau, void* stream) {
+                      int svs, int short_vrls, int phase_kind, const float* gbar, float* planes,
+                      float* tau_part, int n_chunks, float* pw_part, int n_ray_blocks,
+                      float* par_part, float* d_power, float* d_par, float* d_tau, void* stream) {
   return launch_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                           short_vrls, phase_kind, gbar, tau_part, n_chunks, pw_part,
+                           short_vrls, phase_kind, gbar, planes, tau_part, n_chunks, pw_part,
                            n_ray_blocks, par_part, d_power, d_par, d_tau, nullptr, stream);
 }
 
@@ -248,9 +300,9 @@ int alvrl_vrl_sum_hetero_bwd(const float* rays, int B, const float* vrls, int N,
                              int n_ray_blocks, float* par_part, float* d_vrl, float* d_par,
                              float* d_ray, float* d_density, void* stream) {
   return launch_bwd<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                          uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, ray_part,
-                          n_chunks, vrl_part, n_ray_blocks, par_part, d_vrl, d_par, d_ray,
-                          d_density, stream);
+                          uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, nullptr,
+                          ray_part, n_chunks, vrl_part, n_ray_blocks, par_part, d_vrl, d_par,
+                          d_ray, d_density, stream);
 }
 
 // The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.

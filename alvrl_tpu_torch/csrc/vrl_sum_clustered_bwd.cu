@@ -34,7 +34,14 @@
 //
 // What bounds it: as the clustered forward, fp32 ALU and SFU work per
 // pair-sample; the replay costs the forward's samples and the
-// cotangents add vrl_sum_bwd.cu's work per sample. The design follows the
+// cotangents add vrl_sum_bwd.cu's work per sample. The grid
+// instantiation (kernel 11) is built as the unclustered grid VJP's: the
+// U-V quadrature's step count a template argument (4, every caller's;
+// UV = 0 the generic run-time count), so that the steps' voxels and raw
+// densities are read once and consecutive reads of one voxel merged
+// into one reduction (vrl_common.cuh density_cots); the ray's eye-OD
+// table staged per thread in shared memory (stage_eod); at most 128
+// registers (BWD_MIN_BLOCKS, 4 blocks an SM). The design follows the
 // clustered forward's grid (one block per tile of RAY_BLOCK rays of one
 // table row, looping over the row's table in VRL_CHUNK pieces) and sums
 // everything but d_density in a fixed order, so a repeat is
@@ -62,8 +69,8 @@
 
 namespace {
 
-template <int PHASE, bool SHORT_VRLS, bool GRID>
-__global__ void __launch_bounds__(RAY_BLOCK)
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+__global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_clustered_bwd_kernel(const float* __restrict__ rays, int B,
                                  const float* __restrict__ vrls, int N,
                                  const float* __restrict__ tris, int T,
@@ -86,7 +93,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
   float* s_eod = s_par + N_WARPS * L::N_SUMS;            // grid: (N_OD, RAY_BLOCK)
   float* s_vod = s_eod + L::N_OD * RAY_BLOCK;            // grid: (N_OD, RAY_BLOCK)
-  int* s_id = reinterpret_cast<int*>(s_vod + L::N_OD * RAY_BLOCK);  // (VRL_CHUNK,)
+  float* s_etab = s_vod + L::N_OD * RAY_BLOCK;           // grid: (N_OD, RAY_BLOCK)
+  int* s_id = reinterpret_cast<int*>(s_etab + L::N_OD * RAY_BLOCK);  // (VRL_CHUNK,)
   const int t = threadIdx.x;
   for (int i = t; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
   stage_medium<GRID>(med, s_med);
@@ -100,13 +108,13 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   Cot c{};
   if (b >= 0) {
     ray = load_ray(rays, B, b);
-    attach_eod<GRID>(ray, rays, B, b);
+    stage_eod<GRID>(ray, rays, B, b, s_etab);
     for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
   c.d_eod = s_eod + t;
   c.d_vod = s_vod + t;
   c.d_density = d_density;
-  const auto m = make_medium<GRID>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -142,6 +150,13 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       d_ray[(size_t)r * B + b] = r < 3 ? c.d_tau[r] : c.d_eod[(r - 3) * RAY_BLOCK];
   }
   block_par_sums<GRID>(c, s_par, par_part, tile);
+}
+
+// dynamic shared memory of the backward, in bytes, with T triangles:
+// Layout's and the staged table piece's VRL ids
+template <bool GRID>
+size_t clustered_bwd_smem_bytes(int T) {
+  return Layout<GRID>::smem_floats((size_t)T * TRI_COLS) * sizeof(float) + VRL_CHUNK * sizeof(int);
 }
 
 // d_table[s, r, c] = the sum of row s's tiles' partials in tile order
@@ -221,11 +236,11 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
   if (err == cudaSuccess && GRID)
     err = cudaMemsetAsync(d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = L::smem_floats(T) * sizeof(float) + VRL_CHUNK * sizeof(int);
+  const size_t smem = clustered_bwd_smem_bytes<GRID>(T);
   cudaError_t attr = cudaSuccess;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    auto kernel =
-        vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID>;
+  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+    auto kernel = vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
+                                               GRID, decltype(uv)::value>;
     if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
       attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr == cudaSuccess)
@@ -291,6 +306,18 @@ int alvrl_vrl_sum_hetero_clustered_bwd(
                                     slot_start, uniforms, seed, svv, svs, short_vrls, phase_kind,
                                     gbar, tile_part, par_part, d_table, d_ray, d_vrl, d_weights,
                                     d_par, d_density, stream);
+}
+
+// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
+int alvrl_vrl_sum_clustered_bwd_occupancy(int grid, int T, int uv_steps, int phase_kind,
+                                          int short_vrls, int* blocks) {
+  return occupancy(
+      grid, T, uv_steps, phase_kind, short_vrls, blocks,
+      [](auto g, auto phase, auto short_, auto uv) {
+        return &vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
+                                             decltype(g)::value, decltype(uv)::value>;
+      },
+      [](auto g, int n_tris) { return clustered_bwd_smem_bytes<decltype(g)::value>(n_tris); });
 }
 
 }  // extern "C"

@@ -188,11 +188,11 @@ def vrl_sum_hetero_bwd_reference(rays, vrls, tris, medium, density, gbar,
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    head = [p, i, p, i, p, i, p]
-    tail = [p, u, i, i, i, i, p, p, i, p, i, p, p, p, p]
-    lib.alvrl_vrl_sum_bwd.argtypes = [*head, *tail, p]
-    lib.alvrl_vrl_sum_hetero_bwd.argtypes = [*head, p, i, i, i, i, *tail, p,
-                                             p]
+    head, uni = [p, i, p, i, p, i, p], [p, u, i, i, i, i, p]
+    tail = [p, i, p, i, p, p, p, p]
+    lib.alvrl_vrl_sum_bwd.argtypes = [*head, *uni, p, *tail, p]
+    lib.alvrl_vrl_sum_hetero_bwd.argtypes = [*head, p, i, i, i, i, *uni,
+                                             *tail, p, p]
     for fn in (lib.alvrl_vrl_sum_bwd, lib.alvrl_vrl_sum_hetero_bwd,
                lib.alvrl_ray_block):
         fn.restype = i
@@ -220,17 +220,22 @@ def _launch(lib, rays, vrls, tris, medium, gbar, uniforms, seed, svv, svs,
     d_vrl, d_par, d_ray = empty(rows, n_vrls), empty(n_par), empty(rows, n_rays)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
             tris.shape[0], medium.data_ptr())
-    tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-            int(short_vrls), phase_kind, gbar.data_ptr(), ray_part.data_ptr(),
-            n_chunks, vrl_part.data_ptr(), n_ray_blocks, par_part.data_ptr(),
-            d_vrl.data_ptr(), d_par.data_ptr(), d_ray.data_ptr())
+    uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+           int(short_vrls), phase_kind, gbar.data_ptr())
+    tail = (ray_part.data_ptr(), n_chunks, vrl_part.data_ptr(), n_ray_blocks,
+            par_part.data_ptr(), d_vrl.data_ptr(), d_par.data_ptr(),
+            d_ray.data_ptr())
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     if grid is None:
-        err = lib.alvrl_vrl_sum_bwd(*head, *tail, stream)
+        # the triangles' plane pack, which the kernel sweeps (kernel 1's)
+        planes = empty(tris.shape[0], 4 * lib.alvrl_plane_f4())
+        err = lib.alvrl_vrl_sum_bwd(
+            *head, *uni, planes.data_ptr() if tris.shape[0] else None, *tail,
+            stream)
     else:
         d_density = torch.empty_like(grid[0])
-        err = lib.alvrl_vrl_sum_hetero_bwd(*head, *vs.grid_args(*grid), *tail,
-                                           d_density.data_ptr(), stream)
+        err = lib.alvrl_vrl_sum_hetero_bwd(*head, *vs.grid_args(*grid), *uni,
+                                           *tail, d_density.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("vrl_sum_bwd kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")

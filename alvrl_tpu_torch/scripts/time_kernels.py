@@ -47,6 +47,30 @@ counting launch's counts per shadow segment (node fetches, box and
 triangle tests, and on trees that count it the work the shadow function
 needs), and kernel 1 against kernel 7 at config-1 inputs.
 
+With --bwd-split it times kernel 8 (vrl_sum_bwd) on chip_smoke.py phase
+9's inputs (config 1's train step at sigma_a x 2: 16,384 rays x 1,536
+traced VRL slots, the timed seed and output cotangent) whole and with
+no triangles (T = 0, no shadow sweep), beside kernel 1 (vrl_sum) on the
+same inputs and seed, whole and with no triangles; with kernel 1's
+checking counts on those samples (the segments kernel 8 replays) and
+the blocks resident per SM of both homogeneous instantiations.
+
+With --clustered-split it times kernel 11 (vrl_sum_hetero_clustered_bwd,
+a bare launch on pre-grouped tiles) on config 4's clustered inputs
+(chip_smoke.py phase 17) whole and with --grid-split's ablations: no
+triangles, a 1x1x1 density of the grid's mean (with the scatters on,
+every reduction then goes to one address: it measures contention; the
+gathers are "gbar_0_one_voxel" against "gbar_0"), a zero output
+cotangent (no density scatter), both, and a one-step U-V quadrature;
+with the
+blocks resident per SM of the grid backward instantiations, where the
+tree's library answers.
+
+Both splits use only functions that every tree of the port since kernel
+1's checking launch has (a tree without the clustered backward's
+occupancy query prints no blocks for it), so they time a parent and a
+change in turn. Each takes about 25 s a tree.
+
 With --trainer it runs the density-recovery trainer
 (scripts.recover_density at its defaults, as chip_smoke.py phase 21:
 64x64, a 16^3 grid, four views, 256 VRLs): after two warm-up steps, the
@@ -147,8 +171,11 @@ def config1(dev, cfg):
                 *packs, gbar, seed=20261016), 10, 10)}
 
 
-def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
-              undersampling, seed, cfg):
+def cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
+                   undersampling, seed, cfg):
+    """The clustered kernels' inputs of one of CONFIGS (chip_smoke.py's):
+    scene, VRLs, slice info, tables, packs, tiles and host layout, and a
+    seeded output cotangent."""
     scene = make_scene(dev)
     params = alvrl.ALVRLParams(
         vrl_target_num=512, num_particles=particles, seed=0,
@@ -164,14 +191,26 @@ def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
     packs = integrator.pack_frame(scene, vrls)[3]
     n_rays = packs[0].shape[1]
     grid = None if len(packs) == 4 else (packs[4], cfg.uv_tau_steps)
-    kind = scene.medium.phase_kind
-    lib = vsc._library()
-    ray_block = lib.alvrl_ray_block()
+    ray_block = vsc._library().alvrl_ray_block()
     tiles = [torch.as_tensor(a, device=dev)
              for a in vsc.group_by_slice(sop, ray_block)]
     layout = cb.host_layout(sop, tv, vrls.capacity, ray_block, dev)
     gbar = torch.as_tensor(np.random.default_rng(3).uniform(
         0.5, 1.5, (3, n_rays)).astype(np.float32), device=dev)
+    return dict(scene=scene, vrls=vrls, info=info, sop=sop, tv=tv, tw=tw,
+                packs=packs, grid=grid, kind=scene.medium.phase_kind,
+                tiles=tiles, layout=layout, gbar=gbar, seed=seed)
+
+
+def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
+              undersampling, seed, cfg):
+    c = cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
+                       undersampling, seed, cfg)
+    scene, vrls, info, tv, tw, packs, grid, kind, tiles, layout, gbar = (
+        c[k] for k in ("scene", "vrls", "info", "tv", "tw", "packs", "grid",
+                       "kind", "tiles", "layout", "gbar"))
+    lib = vsc._library()
+    n_rays = packs[0].shape[1]
     out = torch.zeros((3, n_rays), device=dev)
     rows = torch.as_tensor(np.concatenate(info.repr_rows), device=dev)
     w = scene.camera.width
@@ -277,6 +316,98 @@ def config1_split(dev):
         blocks = vs.occupancy("vrl_sum", False, tris.shape[0])
         out["occupancy"] = {"blocks": blocks, "warps": blocks * 4}
     return out
+
+
+# chip_smoke.py phases 8-9: config 1's tracer (particles, depth), the
+# train step's generator seed and the render seed's generator seed
+STEP_TRACER, STEP_SEED, RENDER_SEED = (128, 12), 7, 1
+
+
+def step_inputs(dev):
+    """chip_smoke.py phase 9's timed inputs: the packs of config 1's train
+    step at sigma_a x 2 (its VRLs traced as the step traces them), the
+    output cotangent and the kernel seed."""
+    preset = presets.cornell_smoke(128, 128, device=dev)
+    scene = replace(preset, medium=replace(
+        preset.medium, sigma_a=preset.medium.sigma_a * 2))
+    particles, depth = STEP_TRACER
+    vrls = tracer.trace(scene, torch.Generator().manual_seed(STEP_SEED),
+                        particles, tracer.TracerConfig(max_depth=depth))
+    packs = integrator.pack_frame(scene, vrls)[3]
+    gbar = torch.as_tensor(np.random.default_rng(2).uniform(
+        0.5, 1.5, (3, packs[0].shape[1])).astype(np.float32), device=dev)
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=torch.Generator()
+                             .manual_seed(RENDER_SEED)))
+    return packs, gbar, seed
+
+
+def bwd_split(dev):
+    """{variant: timing} of kernels 8 and 1 on phase 9's inputs, whole
+    and with no triangles; kernel 1's checking counts there; the blocks
+    per SM of both."""
+    packs, gbar, seed = step_inputs(dev)
+    rays, vpack, tris, med = packs
+    no_tris = tris[:0].contiguous()
+    times = {
+        "vrl_sum_bwd/whole": windows(
+            lambda: bwd.vrl_sum_bwd(*packs, gbar, seed=seed), 10, 10),
+        "vrl_sum_bwd/no_triangles": windows(
+            lambda: bwd.vrl_sum_bwd(rays, vpack, no_tris, med, gbar,
+                                    seed=seed), 10, 10),
+        "vrl_sum/whole": windows(lambda: vs.vrl_sum(*packs, seed=seed),
+                                 10, 10),
+        "vrl_sum/no_triangles": windows(
+            lambda: vs.vrl_sum(rays, vpack, no_tris, med, seed=seed), 10, 10)}
+    counts = vs.vrl_sum_check(*packs, seed=seed)[1]
+    seg = max(counts["segments"], 1)
+    occ = {entry: vs.occupancy(entry, False, tris.shape[0])
+           for entry in ("vrl_sum", "vrl_sum_bwd")}
+    return {"shape": [rays.shape[1], vpack.shape[1], tris.shape[0]],
+            "split": times,
+            "check": {**counts, "considered_per_segment":
+                      counts["considered"] / seg, "skipped_share":
+                      counts["skipped"] / max(counts["considered"], 1)},
+            "occupancy": {k: {"blocks": b, "warps": 4 * b}
+                          for k, b in occ.items()}}
+
+
+def clustered_split(dev, cfg):
+    """{variant: timing} of kernel 11 on config 4's clustered inputs with
+    parts of its work taken away (the module docstring), and {kernel:
+    blocks per SM} of the grid backwards where the library answers."""
+    c = cluster_inputs(dev, *CONFIGS["config4"], cfg)
+    rays, vpack, tris, med, dens = c["packs"]
+    tv, tw, layout, seed, kind = (c[k] for k in ("tv", "tw", "layout", "seed",
+                                                 "kind"))
+    uv = cfg.uv_tau_steps
+    one_voxel = dens.mean().reshape(1, 1, 1).contiguous()
+    zero = torch.zeros_like(c["gbar"])
+    variants = {"full": (tris, dens, uv, c["gbar"]),
+                "no_triangles": (tris[:0].contiguous(), dens, uv, c["gbar"]),
+                "one_voxel": (tris, one_voxel, uv, c["gbar"]),
+                "uv_steps_1": (tris, dens, 1, c["gbar"]),
+                "gbar_0": (tris, dens, uv, zero),
+                "gbar_0_one_voxel": (tris, one_voxel, uv, zero)}
+    lib = cb._library()
+    times = {name: windows(lambda: cb._launch(
+        lib, rays, vpack, t, med, layout, tv, tw, None, seed, 2, 2, True,
+        kind, g, (d, u)), 10, 5)
+        for name, (t, d, u, g) in variants.items()}
+    occ = {}
+    for entry in ("vrl_sum_bwd", "vrl_sum_clustered_bwd"):
+        for steps in (uv, 3):
+            try:
+                blocks = vs.occupancy(entry, True, tris.shape[0], steps, kind,
+                                      cfg.short_vrls)
+            except AttributeError:  # a tree whose library has no such query
+                continue
+            occ[f"{entry}<grid,uv{steps}>"] = {"blocks": blocks,
+                                               "warps": 4 * blocks}
+    return {"shape": {"rays": rays.shape[1], "tiles": len(layout[1]),
+                      "table": list(tv.shape), "triangles": tris.shape[0]},
+            "split": {f"vrl_sum_hetero_clustered_bwd/{k}": v
+                      for k, v in times.items()},
+            "occupancy": occ}
 
 
 BVH_SCENES = (("cubes", 11), ("cubes", 16), ("cubes", 22), ("blob", 64),
@@ -404,6 +535,15 @@ def main():
     if sys.argv[1:] == ["--bvh"]:
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(), "bvh": bvh(dev)}))
+        return
+    if sys.argv[1:] == ["--bwd-split"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(), **bwd_split(dev)}))
+        return
+    if sys.argv[1:] == ["--clustered-split"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(),
+                          **clustered_split(dev, cfg)}))
         return
     if sys.argv[1:] == ["--grid-split"]:
         times, occ = grid_split(dev, cfg)

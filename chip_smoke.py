@@ -677,14 +677,20 @@ class SweepCount:
     Counts per family [vol-vol, vol-surf]: drawn samples, tested
     segments (the kernel skips the test where d_uv^2 = 0, seen here, or
     the pdf is 0, not seen here), open segments; and tri_tests, the
-    triangles of all sweeps."""
+    triangles of all sweeps. With reads = (grid medium pack, supersampled
+    density, U-V steps), also merged_reads: the density reductions of
+    the grid backward's open samples (U, each quadrature step and V, in
+    path order) inside the box, consecutive reads of one voxel counted
+    once, as the backward compiled for the step count merges them (reads
+    whose cotangent is 0, which it skips, are counted)."""
 
-    def __init__(self, pair_ok, alb_ok, svv=2, svs=2):
+    def __init__(self, pair_ok, alb_ok, svv=2, svs=2, reads=None):
         self.pair_ok, self.alb_ok, self.svv, self.svs = pair_ok, alb_ok, svv, svs
         self.pairs = int(pair_ok.sum())
         self.drawn = [svv * self.pairs,
                       svs * int((pair_ok & alb_ok[:, None]).sum())]
         self.tested, self.open, self.tri_tests = [0, 0], [0, 0], 0
+        self.reads, self.merged_reads = reads, 0
         self._calls = self._b0 = 0
 
     def __enter__(self):
@@ -712,15 +718,41 @@ class SweepCount:
         self.tested[fam] += int(ok.sum())
         self.open[fam] += int((ok & ~blocked).sum())
         self.tri_tests += int(sweep[ok].sum())
+        if self.reads is not None:
+            self.merged_reads += self._merged(p, q, ok & ~blocked, fam)
         if k == self.svv + self.svs - 1:
             self._b0 += n
         return blocked
+
+    def _merged(self, p, q, live, fam):
+        med, density, uv = self.reads
+        p, q = torch.broadcast_tensors(p, q)
+        points = ([p] if fam == 0 else []) + [
+            p + (q - p) * ((i + 0.5) / uv) for i in range(uv)] + [q]
+        vox = torch.stack([grid_voxel(med, density, x) for x in points], -1)
+        inside = vox >= 0
+        repeat = inside[..., 1:] & (vox[..., 1:] == vox[..., :-1])
+        return int((inside.sum(-1) - repeat.sum(-1))[live].sum())
 
     def __str__(self):
         tested = sum(self.tested)
         return (f"{self.pairs} pairs, {sum(self.drawn)} samples, "
                 f"{sum(self.open) / tested:.3f} of {tested} shadow segments "
                 f"open, {self.tri_tests / tested:.3f} triangles per sweep")
+
+
+def grid_voxel(med, density, p):
+    """The flat index into the supersampled density of the voxel that the
+    density at p reads (integrate.grid_density's nearest entry;
+    vrl_common.cuh GridMedium::voxel), -1 outside the box."""
+    q = (p - med[8:11]) * med[11:14]
+    inside = ((q >= 0.0) & (q <= 1.0)).all(dim=-1)
+    scales = med[14:17]
+    idx = torch.minimum(torch.clamp(torch.round(q * scales), min=0.0),
+                        scales).long()
+    _, ny, nx = density.shape
+    flat = (idx[..., 2] * ny + idx[..., 1]) * nx + idx[..., 0]
+    return torch.where(inside, flat, -1)
 
 
 def check_line(counts):
@@ -1358,7 +1390,8 @@ def config4(dev, card, cfg):
         c_plain_ms = cuda_ms(lambda: vrl_sum_hetero_clustered_reference(
             *packs, sop, tv, tw, u, **kw), 0, 2)
         with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
-                        pair_masks(*packs[:2])[1]) as c_sweep:
+                        pair_masks(*packs[:2])[1],
+                        reads=(packs[3], packs[4], cfg.uv_tau_steps)) as c_sweep:
             vrl_sum_hetero_clustered_reference(*packs, sop, tv, tw, u, **kw)
         del u
     uv = cfg.uv_tau_steps
@@ -2227,7 +2260,9 @@ def clustered_grad(dev, card, cfg, c2, c4):
           f"{b4_spread:.1%}) against the forward {f4_med:.4f} ms "
           f"({b4_med / f4_med:.2f}x; phase 17 {c4['c_fwd_ms']:.4f}), bound "
           f"{b4_bound[0]:.4f} ms by {b4_bound[1]} ({sweep4}, {n_scatter} "
-          f"density scatters), plain {p4_med:.1f} ms", flush=True)
+          f"density scatters; {sweep4.merged_reads} inside the box with "
+          f"consecutive reads of one voxel merged, as the kernel makes them"
+          f"), plain {p4_med:.1f} ms", flush=True)
     prof = profile_device(lambda: grad_step(loss4, start4), 1, 3)
     if prof is None:
         print("[26 profile] the profiler saw no device operation: not "
@@ -2673,12 +2708,15 @@ def main():
           f"the grid kernels are compiled for {vs.compiled_uv_steps()} U-V "
           f"steps, the callers pass {VRLConfig().uv_tau_steps}")
     occupancy, warps = [], bwd._library().alvrl_ray_block() // 32
-    for entry in ("vrl_sum", "vrl_sum_bwd"):
+    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered_bwd"):
         for uv in (4, 3):
             blocks = vs.occupancy(entry, True, C4_TRIS, uv)
             occupancy.append(f"{entry}<0,1,grid,uv{uv if uv == 4 else '*'}> "
                              f"{blocks} blocks {blocks * warps} "
                              "warps")
+    blocks = vs.occupancy("vrl_sum_bwd", False, 24)
+    occupancy.append(f"vrl_sum_bwd<0,1,homog> at 24 triangles {blocks} "
+                     f"blocks {blocks * warps} warps")
     print(f"[2 build] {build_s:.1f} s | ptxas: "
           + " ; ".join(ptxas_summary(_build.build_log()))
           + f" | resident per SM at {C4_TRIS} triangles: "
@@ -2994,12 +3032,17 @@ def main():
         lambda: tracer.trace(scene2, gen(), N_PARTICLES, tcfg), 3, 10)
     step_ms = host_ms(lambda: step(scene2), 3, 10)
     valid_evals = n_rays * n_valid * n_draws
-    bwd_bound = bound(kernel_ops("vrl_sum_bwd", bwd_sweep,
-                                 scene2.medium.phase_kind == 0, cfg.short_vrls),
-                      nbytes(*packs, gbar) + 4 * (6 * n_rays + 3 * n_slots + 8))
-    # kernel 1 at the step's shape (16,384 x 1,536): its bound on the
-    # timed launch's samples, its sweep counted by the checking launch
+    # kernels 1 and 8 at the step's shape (16,384 x 1,536): their bounds
+    # on the timed launches' samples, the sweep (kernel 1's pre-reject,
+    # which kernel 8 replays) counted by kernel 1's checking launch
     fwd_counts = vs.vrl_sum_check(*packs, seed=seed)[1]
+    check(fwd_counts["bad_tris"] == 0 and fwd_counts["bad_segments"] == 0,
+          f"the timed segments: the pre-reject disagrees: {fwd_counts}")
+    bwd_ops = kernel_ops("vrl_sum_bwd", bwd_sweep,
+                         scene2.medium.phase_kind == 0, cfg.short_vrls)
+    bwd_bytes = nbytes(*packs, gbar) + 4 * (6 * n_rays + 3 * n_slots + 8)
+    bwd_bound = bound(plane_ops(bwd_ops, bwd_sweep, fwd_counts), bwd_bytes)
+    bwd_wald_bound = bound(bwd_ops, bwd_bytes)
     fwd_bound = bound(plane_ops(kernel_ops("vrl_sum", bwd_sweep,
                                            scene2.medium.phase_kind == 0,
                                            cfg.short_vrls),
@@ -3017,8 +3060,11 @@ def main():
           f" ms | plain backward {pb_med:.3f} ms (spread {pb_spread:.1%}, "
           f"uniforms precomputed, {valid_evals / (pb_med / 1e3):.4g} evals/s)"
           f" | backward bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]} "
-          f"({bwd_sweep}) | the step's segments in kernel 1's checking "
-          f"launch: {check_line(step_check)}",
+          f"(the pre-reject's operations on the checking launch's counted "
+          f"skips of the timed samples; {bwd_wald_bound[0]:.4f} ms with a "
+          f"Wald test for every triangle swept; {bwd_sweep}) | the timed "
+          f"segments in kernel 1's checking launch: {check_line(fwd_counts)}"
+          f" | the step's segments there: {check_line(step_check)}",
           flush=True)
 
     # 10. where the train step's device time goes

@@ -305,6 +305,24 @@ def test_cuda_bwd_kernel_matches_plain(cuda, medium, injected, short_vrls):
     _assert_bwd_close(out, ref, kind)
 
 
+@pytest.mark.parametrize("n_tris", [0, 1, 24, 33, 780])
+def test_cuda_bwd_kernel_triangle_counts(cuda, n_tris):
+    """The backward kernel sweeps the triangles' plane pack with kernel
+    1's pre-reject, 32 triangles a mask: against the plain backward with
+    none, one, 24, 33 (a second, one-triangle mask) and all 780 of the
+    cube field's triangles (a plane pack above the default cap of
+    dynamic shared memory)."""
+    rays, vrls, tris, med = _cube_packs(cuda)
+    tris = tris[:n_tris].contiguous()
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    gbar = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    out = vrl_sum_bwd(rays, vrls, tris, med, gbar, seed=19)
+    ref = vrl_sum_bwd_reference(rays, vrls, tris, med, gbar, philox_uniforms(
+        19, n_rays, n_vrls, 6, device=cuda))
+    _assert_bwd_close(out, ref, 0)
+
+
 def test_cuda_bwd_kernel_zero_channels(cuda):
     """ROADMAP C7: with VRL power channel 1 and sigma_s channel 2 at 0,
     the kernel's d power[1] and d sigma_s[2] are not 0 and match the
@@ -706,14 +724,28 @@ def test_cuda_grid_bwd_kernel_on_a_2x2x2_grid(cuda):
     _assert_grid_bwd_close(out, ref, 0, min_voxels=10)
 
 
-@pytest.mark.parametrize("kernel", ["sum", "bwd"])
+@pytest.mark.parametrize("kernel", ["sum", "bwd", "clustered_bwd"])
 def test_cuda_grid_kernels_with_3_uv_steps(cuda, kernel):
-    """uv_steps = 3 takes the generic instantiation of the grid sum and
-    of its VJP (the run-time step count; 4 steps, every caller's, take
-    the one compiled for 4): each against its plain version at 3 steps,
-    and different from the 4-step result."""
+    """uv_steps = 3 takes the generic instantiation of the grid sum, of
+    its VJP and of the clustered VJP (the run-time step count; 4 steps,
+    every caller's, take the one compiled for 4): each against its plain
+    version at 3 steps, and different from the 4-step result."""
     packs = _grid_packs(cuda)
     n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    if kernel == "clustered_bwd":
+        rows, ids, ws = _tables(cuda, n_rays, n_vrls)
+        gbar = torch.as_tensor(np.random.default_rng(9).uniform(
+            0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+        out = vrl_sum_hetero_clustered_bwd(*packs, rows, ids, ws, gbar,
+                                           seed=23, uv_steps=3)
+        ref = vrl_sum_hetero_clustered_bwd_reference(
+            *packs, rows, ids, ws, gbar,
+            philox_table_uniforms(23, rows, ids, 6), uv_steps=3)
+        _assert_grid_bwd_close(out[:6], ref[:6], 0)
+        _assert_weights_close(out[6], ref[6])
+        assert not torch.equal(out[5], vrl_sum_hetero_clustered_bwd(
+            *packs, rows, ids, ws, gbar, seed=23)[5])
+        return
     u = philox_uniforms(23, n_rays, n_vrls, 6, device=cuda)
     if kernel == "sum":
         out = vrl_sum_hetero(*packs, seed=23, uv_steps=3)
@@ -757,8 +789,9 @@ def test_cuda_grid_bwd_per_vrl_sums_against_float64(cuda):
 
 def test_cuda_grid_occupancy_query(cuda):
     """The occupancy entries answer for both grid instantiations of the
-    sum and its VJP: at least one block of each fits on an SM."""
-    for entry in ("vrl_sum", "vrl_sum_bwd"):
+    sum, its VJP and the clustered VJP: at least one block of each fits
+    on an SM."""
+    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered_bwd"):
         for uv in (4, 3):
             assert occupancy(entry, True, 12, uv) >= 1
 

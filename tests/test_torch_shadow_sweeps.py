@@ -9,9 +9,11 @@ holds more entries than the tree is deep. Kernel 1 (csrc/vrl_sum.cu)
 skips a triangle's Wald test when both tested ends of a segment lie on
 one side of its plane by a margin (vrl_common.cuh PlaneTris); the plain
 float32 twin of that pre-reject (ops.vrl_sum.plane_skip) must never skip
-a triangle whose Wald test blocks the segment, on adversarial segments
-and on every shadow segment of a 16x16 cornell_smoke render. The
-kernels themselves run only on a CUDA card: see tests/test_torch_cuda.py.
+a triangle whose Wald test blocks the segment, on adversarial segments,
+on every shadow segment of a 16x16 cornell_smoke render and on every
+one that the plain backward of a 16x16 train step tests, which kernel 8
+(csrc/vrl_sum_bwd.cu) sweeps with the same pre-reject. The kernels
+themselves run only on a CUDA card: see tests/test_torch_cuda.py.
 """
 
 import math
@@ -20,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from alvrl_tpu_torch.integrators.vrl import integrator, vrl
+from alvrl_tpu_torch.integrators.vrl import integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
+from alvrl_tpu_torch.parallel.render import train_step
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
 from tests.torch_port_utils import BENCH_VRLS, chain_bvh_pack
@@ -278,6 +283,44 @@ def test_plane_pre_reject_on_a_renders_segments():
     finally:
         vs._occluded_packed = test
     assert seen["segments"] >= 256 * 508 * 4 // 2
+    assert seen["bad"] == 0
+    assert seen["skips"] > 0.5 * seen["tests"]
+
+
+def test_pre_reject_on_a_train_steps_backward_segments(monkeypatch):
+    """Every shadow segment of the plain backward of a 16x16 cornell_smoke
+    train step (8 particles traced to depth 4, seeded): no triangle that
+    the pre-reject skips blocks the segment, and it skips most tests."""
+    scene = presets.cornell_smoke(16, 16, device="cpu")
+    seen = {"segments": 0, "tests": 0, "skips": 0, "bad": 0}
+    in_backward = [False]
+    test, plain_bwd = vs._occluded_packed, bwd.vrl_sum_bwd_reference
+
+    def spy(p, q, tris):
+        if in_backward[0]:
+            skip = vs.plane_skip(p, q, vs.plane_pack(tris))
+            hits = vs._wald_hits(p, q, tris)
+            seen["segments"] += skip.numel() // tris.shape[0]
+            seen["tests"] += skip.numel()
+            seen["skips"] += int(skip.sum())
+            seen["bad"] += int((skip & hits).sum())
+        return test(p, q, tris)
+
+    def backward(*args, **kw):
+        in_backward[0] = True
+        try:
+            return plain_bwd(*args, **kw)
+        finally:
+            in_backward[0] = False
+
+    monkeypatch.setattr(vs, "_occluded_packed", spy)
+    monkeypatch.setattr(bwd, "vrl_sum_bwd_reference", backward)
+    target = torch.zeros((16, 16, 3))
+    loss, grads = train_step(scene, torch.Generator().manual_seed(5), target,
+                             VRLConfig(), 8, tracer.TracerConfig(max_depth=4))
+    assert float(loss) > 0.0 and all(bool(torch.isfinite(g).all())
+                                     for g in grads.values())
+    assert seen["segments"] >= 256 * 4  # every ray's pairs, four samples
     assert seen["bad"] == 0
     assert seen["skips"] > 0.5 * seen["tests"]
 
