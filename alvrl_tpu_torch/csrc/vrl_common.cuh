@@ -20,6 +20,11 @@
 
 #include <type_traits>
 
+// vrl_sum.cu: the plane pack (PlaneTris) of T >= 1 triangles into `out`
+// (T, 4 PLANE_F4) floats on `stream`; returns a cudaError_t. The kernels
+// that sweep a plane pack make it through here in front of their launch.
+extern "C" int alvrl_plane_pack(const float* tris, int T, float* out, void* stream);
+
 namespace {
 
 // pack layouts: ops/pack.py
@@ -396,6 +401,51 @@ struct PlaneTris {
     return old;
   }
 };
+
+// PlaneTris' modes: the pre-reject; the checking instantiation, which
+// counts; no pre-reject (timing only). A checking launch adds its
+// threads' CheckCounts, in their order, to N_CHECK totals.
+constexpr int MODE_SUM = 0, MODE_CHECK = 1, MODE_NO_REJECT = 2;
+constexpr int N_CHECK = 5;
+
+// The sweep of the triangles a block stages in shared memory: the plane
+// pack swept by PlaneTris<MODE> (PLANES), or the triangles, TRI_COLS
+// floats each, swept by FlatTris.
+template <bool PLANES, int MODE = MODE_SUM>
+using Sweep = std::conditional_t<PLANES, PlaneTris<MODE>, FlatTris>;
+
+// the floats of shared memory that T triangles take in that sweep
+template <bool PLANES>
+__host__ __device__ constexpr size_t sweep_floats(int T) {
+  return (size_t)T * (PLANES ? 4 * PLANE_F4 : TRI_COLS);
+}
+
+// Stage the T triangles `tris` (the plane pack if PLANES, else TRI_COLS
+// floats each) at s_tri, which a plane pack needs float4-aligned;
+// returns the sweep over them, counting into *counts in MODE_CHECK.
+template <bool PLANES, int MODE = MODE_SUM>
+__device__ __forceinline__ Sweep<PLANES, MODE> stage_sweep(const float* __restrict__ tris, int T,
+                                                           float* s_tri,
+                                                           CheckCounts* counts = nullptr) {
+  if constexpr (PLANES) {
+    const float4* planes = reinterpret_cast<const float4*>(tris);
+    float4* s_planes = reinterpret_cast<float4*>(s_tri);
+    for (int i = threadIdx.x; i < T * PLANE_F4; i += blockDim.x) s_planes[i] = planes[i];
+    return PlaneTris<MODE>{s_planes, T, counts};
+  } else {
+    for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
+    return FlatTris{s_tri, T};
+  }
+}
+
+// A checking launch's thread adds its counts to counts[N_CHECK].
+__device__ __forceinline__ void add_check_counts(const CheckCounts& cnt,
+                                                 unsigned long long* counts) {
+  const uint32_t all[N_CHECK] = {cnt.segments, cnt.considered, cnt.skipped, cnt.bad_tris,
+                                 cnt.bad_segments};
+#pragma unroll
+  for (int i = 0; i < N_CHECK; ++i) atomicAdd(counts + i, (unsigned long long)all[i]);
+}
 
 // Equi-angular (Kulla-Fajardo) sampling of a point at arc length `arc`
 // along the segment a + t * dir, t in [0, len], around point x.
@@ -1148,6 +1198,35 @@ void dispatch(int phase_kind, int short_vrls, int uv_steps, Launch&& launch) {
   });
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory (a launch
+// above the default cap of 48 KB needs leave); returns a cudaError_t.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Whether a launch takes `mode`: MODE_SUM, or MODE_CHECK with its
+// counts where the kernel has a checking instantiation (CHECK).
+template <bool CHECK>
+bool mode_ok(int mode, const unsigned long long* counts) {
+  return mode == MODE_SUM || (CHECK && mode == MODE_CHECK && counts != nullptr);
+}
+
+// The front of a launch whose kernel sweeps a plane pack (PLANES): the
+// pack of the T triangles `tris` made on `stream` into `planes` ((T, 4
+// PLANE_F4) floats of scratch; may be null for T = 0), which then
+// stands for `tris`. Without PLANES it does nothing. Returns a
+// cudaError_t.
+template <bool PLANES>
+int pack_planes(const float*& tris, int T, float* planes, void* stream) {
+  if (!PLANES || T == 0) return (int)cudaSuccess;
+  if (planes == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = alvrl_plane_pack(tris, T, planes, stream);
+  if (err == 0) tris = planes;
+  return err;
+}
+
 // The blocks of RAY_BLOCK threads resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the instantiation
 // that a launch of the grid sum or its VJP with these arguments takes
@@ -1164,9 +1243,7 @@ int occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls, int
     dispatch<decltype(grid_)::value>(
         phase_kind, short_vrls, uv_steps, [&](auto phase, auto short_, auto uv) {
           auto kernel = kernel_of(grid_, phase, short_, uv);
-          if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+          err = allow_smem(kernel, smem);
           if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, RAY_BLOCK, smem);
         });

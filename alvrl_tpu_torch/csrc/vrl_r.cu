@@ -22,13 +22,30 @@
 // GRID_OPS), on an input under 1 MB (at config 2: 271 rays x 512 VRLs x
 // 6 draws; config 4 adds its 3.4 MB density grid, which stays in L2).
 // The output, 2 P N floats (1.1 MB at config 2, 8.3 MB at config 4's
-// 2,032 rays), is small beside that work. The design follows
-// vrl_sum.cu's grid (RAY_BLOCK rays x VRL_CHUNK VRLs per block, triangles
-// and the chunk in shared memory) so that a few hundred rays still fill
-// the card: every pair is one thread's loop step, and each pair's two
-// outputs are written once, with no reduction across threads. Threads
-// write with a stride of N floats between neighbouring rays; at 1.1 MB
-// the writes are not what bounds the kernel.
+// 2,032 rays), is small beside that work. Each block takes a tile of
+// rays x VRLs, triangles and its VRL chunk in shared memory, so
+// that a few hundred rays still fill the card: every pair is one
+// thread's loop step, and each pair's two outputs are written once, with
+// no reduction across threads, so a repeat is bit-identical.
+//   * The homogeneous R (kernel 5) keeps vrl_sum.cu's tile: RAY_BLOCK
+//     rays x VRL_CHUNK VRLs, a thread per ray looping over the chunk, the
+//     flat sweep (FlatTris); its threads write with a stride of N floats
+//     between neighbouring rays (1.1 MB at config 2).
+//   * The grid R (kernel 6) fills the card at config 4's 2,032 x 512:
+//     the old tile gave 16 x 16 = 256 blocks, at most 2 an SM. Its tile
+//     is R_RAYS = 16 rays x VRL_CHUNK VRLs (2,032 blocks at config 4, 4
+//     an SM), the lanes of a warp over the VRLs (one ray a warp at a
+//     time), so that a warp's stores of out[b, n0 ..] are contiguous,
+//     each lane reads its own column of the staged VRL-OD rows (no two
+//     lanes in a bank) and the ray's eye-OD table, staged for the
+//     tile's rays in shared memory (a row of NQ + 1 floats a ray), is
+//     read by the whole warp at once. Tiles of 8 x 32 and 32 x 32 with
+//     lanes over VRLs, and of 64 x 32 and 128 x 8 with lanes over rays,
+//     measured within 2-5 % of it on an H100 (PERF.md). It carries
+//     kernel 4's grid items: the U-V step count a template argument
+//     (UV_STEPS; UV = 0 the generic count) and kernel 1's plane
+//     pre-reject (PlaneTris) over the plane pack the C entry makes in
+//     front of the launch, with its checking instantiation (MODE_CHECK).
 //
 // Random numbers: Philox4x32-10 with key (seed, 0) and counter (p, n,
 // call, 0), the draw order of vrl_sum.cu, so that sum_n mean[p, n] is the
@@ -43,79 +60,151 @@ namespace {
 
 constexpr float LUM_R = 0.212671f, LUM_G = 0.715160f, LUM_B = 0.072169f;  // Rec. 709
 
-template <int PHASE, bool SHORT_VRLS, bool GRID>
+// the grid R's tile: R_RAYS rays x VRL_CHUNK VRLs a block, the lanes of
+// a warp over the VRLs (module comment); the homogeneous R's: RAY_BLOCK
+// rays x VRL_CHUNK VRLs, a thread per ray
+constexpr int R_RAYS = 16;
+static_assert((R_RAYS * VRL_CHUNK) % RAY_BLOCK == 0, "a tile of whole rounds");
+
+template <bool GRID>
+__host__ __device__ constexpr int r_tile_rays() {
+  return GRID ? R_RAYS : RAY_BLOCK;
+}
+
+// The pair (ray b, VRL n = column c of the staged chunk): R's two
+// numbers, written to out[:, b, n].
+template <int PHASE, bool SHORT_VRLS, bool GRID, class Med, class Occl>
+__device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int N, int c,
+                                       const float* s_vrl, const Med& m, const Occl& occl,
+                                       const float* __restrict__ uniforms, uint32_t seed,
+                                       int svv, int svs, float* __restrict__ out) {
+  const int n_samples[2] = {svv, svs};
+  float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
+  if (ray.ok && s_vrl[VVALID * VRL_CHUNK + c] > 0.5f) {
+    const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
+    PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * (2 * svv + svs) : nullptr,
+                      (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
+    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
+                                  [&](int family, const float* t) {
+                                    const float lum = LUM_R * t[0] + LUM_G * t[1] +
+                                                      LUM_B * t[2];
+                                    sum[family] += lum;
+                                    sq[family] += lum * lum;
+                                  });
+  }
+  float mean = 0.0f, var = 0.0f;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int k = n_samples[f];
+    if (k == 0) continue;
+    const float mu = sum[f] / (float)k;
+    mean += mu;
+    if (k > 1) var += fmaxf(sq[f] - (float)k * mu * mu, 0.0f) / (float)(k - 1) / (float)k;
+  }
+  out[(size_t)b * N + n] = mean;
+  out[((size_t)B + b) * N + n] = var;
+}
+
+// tris: the triangles, TRI_COLS floats each (homogeneous), or their
+// plane pack (grid media), as sweep_floats<GRID>
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_r_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
                  const float* __restrict__ tris, int T, const float* __restrict__ med,
                  GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
-                 int svs, float* __restrict__ out) {
+                 int svs, float* __restrict__ out, unsigned long long* __restrict__ counts) {
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
-  extern __shared__ float smem[];
-  float* s_tri = smem;                        // (T, TRI_COLS)
-  float* s_vrl = smem + T * TRI_COLS;         // (V_ROWS, VRL_CHUNK)
-  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;  // grid: (GRID_MED_LEN,)
-  const int n0 = blockIdx.y * VRL_CHUNK;
-  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
+  extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
+  float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<GRID>(T)
+  float* s_vrl = s_tri + sweep_floats<GRID>(T);       // (V_ROWS, VRL_CHUNK)
+  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;          // grid: (GRID_MED_LEN,)
+  float* s_etab = s_med + (GRID ? GRID_MED_LEN : 0);  // grid: (R_RAYS, NQ + 1)
+  const int b0 = blockIdx.x * r_tile_rays<GRID>(), n0 = blockIdx.y * VRL_CHUNK;
+  CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
+  const auto occl = stage_sweep<GRID, MODE>(tris, T, s_tri, &cnt);
+  const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
+  if constexpr (GRID)  // each ray's eye-OD table, a row of NQ + 1 floats
+    for (int i = threadIdx.x; i < R_RAYS * (NQ + 1); i += blockDim.x) {
+      const int r = i % R_RAYS, k = i / R_RAYS;
+      s_etab[r * (NQ + 1) + k] = b0 + r < B ? rays[(size_t)(EOD + k) * B + b0 + r] : 0.0f;
+    }
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  Ray ray = load_ray(rays, B, b);
-  attach_eod<GRID>(ray, rays, B, b);
-  const auto m = make_medium<GRID>(med, s_med, grid);
-  const int n_draws = 2 * svv + svs;
-  const int n_samples[2] = {svv, svs};
-
-  for (int c = 0; c < nc; ++c) {
-    const int n = n0 + c;
-    float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
-    if (ray.ok && s_vrl[VVALID * VRL_CHUNK + c] > 0.5f) {
-      const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
-      PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
-                        (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
-                                    [&](int family, const float* t) {
-                                      const float lum = LUM_R * t[0] + LUM_G * t[1] +
-                                                        LUM_B * t[2];
-                                      sum[family] += lum;
-                                      sq[family] += lum * lum;
-                                    });
+  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  if constexpr (GRID) {
+    // pair i of the tile: ray i / VRL_CHUNK, column i % VRL_CHUNK; a
+    // thread takes every RAY_BLOCK-th
+    for (int i = threadIdx.x; i < R_RAYS * VRL_CHUNK; i += RAY_BLOCK) {
+      const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
+      if (b0 + r >= B || c >= nc) continue;
+      Ray ray = load_ray(rays, B, b0 + r);
+      ray.eod = s_etab + r * (NQ + 1);
+      ray.eod_stride = 1;
+      r_pair<PHASE, SHORT_VRLS, GRID>(ray, b0 + r, B, n0 + c, N, c, s_vrl, m, occl, uniforms,
+                                      seed, svv, svs, out);
     }
-    float mean = 0.0f, var = 0.0f;
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      const int k = n_samples[f];
-      if (k == 0) continue;
-      const float mu = sum[f] / (float)k;
-      mean += mu;
-      if (k > 1) var += fmaxf(sq[f] - (float)k * mu * mu, 0.0f) / (float)(k - 1) / (float)k;
+  } else {
+    const int b = b0 + threadIdx.x;
+    if (b < B) {
+      const Ray ray = load_ray(rays, B, b);
+      for (int c = 0; c < nc; ++c)
+        r_pair<PHASE, SHORT_VRLS, GRID>(ray, b, B, n0 + c, N, c, s_vrl, m, occl, uniforms, seed,
+                                        svv, svs, out);
     }
-    out[(size_t)b * N + n] = mean;
-    out[((size_t)B + b) * N + n] = var;
   }
+  if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
 }
 
-// Launches the R kernel on `stream`; returns a cudaError_t (0 =
-// launched).
+using RKernel = void (*)(const float*, int, const float*, int, const float*, int, const float*,
+                         GridArgs, const float*, uint32_t, int, int, float*,
+                         unsigned long long*);
+
+// The instantiation that a launch of these arguments takes.
+template <bool GRID, class Phase, class Short, class Uv>
+RKernel r_kernel(Phase, Short, Uv, int mode) {
+  constexpr int P = Phase::value;
+  constexpr bool S = Short::value;
+  if constexpr (GRID)
+    if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, true, Uv::value, MODE_CHECK>;
+  return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM>;
+}
+
+// dynamic shared memory of the R kernel, in bytes, with T triangles
+template <bool GRID>
+size_t r_smem_bytes(int T) {
+  return (sweep_floats<GRID>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+          (GRID ? GRID_MED_LEN + (NQ + 1) * R_RAYS : 0)) *
+         sizeof(float);
+}
+
+// Launches the R kernel on `stream`, in a grid medium after the plane
+// pack of the T triangles into `planes` ((T, 4 PLANE_F4) floats of
+// scratch) and in `mode` (MODE_CHECK adds its counts to
+// counts[N_CHECK]); returns a cudaError_t (0 = launched).
 template <bool GRID>
 int launch_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
              const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
-             int svs, int short_vrls, int phase_kind, float* out, void* stream) {
+             int svs, int short_vrls, int phase_kind, float* planes, int mode,
+             unsigned long long* counts, float* out, void* stream) {
   const int n_chunks = (N + VRL_CHUNK - 1) / VRL_CHUNK;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid))
+      (phase_kind != 0 && phase_kind != 1) || n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) ||
+      !mode_ok<GRID>(mode, counts))
     return (int)cudaErrorInvalidValue;
-  const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  const size_t smem = (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-                               (GRID ? GRID_MED_LEN : 0)) *
-                      sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    vrl_r_kernel<decltype(phase)::value, decltype(short_)::value, GRID>
-        <<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
-                                          svv, svs, out);
+  const int pack = pack_planes<GRID>(tris, T, planes, stream);
+  if (pack != 0) return pack;
+  const dim3 blocks((B + r_tile_rays<GRID>() - 1) / r_tile_rays<GRID>(), n_chunks);
+  const size_t smem = r_smem_bytes<GRID>(T);
+  cudaError_t err = cudaSuccess;
+  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+    const RKernel kernel = r_kernel<GRID>(phase, short_, uv, mode);
+    err = allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+      kernel<<<blocks, RAY_BLOCK, smem, (cudaStream_t)stream>>>(
+          rays, B, vrls, N, tris, T, med, grid, uniforms, seed, svv, svs, out, counts);
   });
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -129,18 +218,34 @@ int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float*
                 const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
                 int short_vrls, int phase_kind, float* out, void* stream) {
   return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                         short_vrls, phase_kind, out, stream);
+                         short_vrls, phase_kind, nullptr, MODE_SUM, nullptr, out, stream);
 }
 
 // The grid-medium R: the grid packs (ops/pack.py), the supersampled
-// density (nz, ny, nx) and the U-V quadrature's step count; the rest as
+// density (nz, ny, nx) and the U-V quadrature's step count; `planes`
+// (T, 4 PLANE_F4) float scratch for the triangles' plane pack (may be
+// null for T = 0); mode 0 the R, 1 the checking instantiation (counts:
+// N_CHECK totals, zeroed by the caller, as alvrl_vrl_sum's); the rest as
 // alvrl_vrl_r.
 int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
                        int T, const float* med, const float* density, int nz, int ny, int nx,
                        int uv_steps, const float* uniforms, unsigned int seed, int svv, int svs,
-                       int short_vrls, int phase_kind, float* out, void* stream) {
+                       int short_vrls, int phase_kind, float* planes, int mode,
+                       unsigned long long* counts, float* out, void* stream) {
   return launch_r<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                        uniforms, seed, svv, svs, short_vrls, phase_kind, out, stream);
+                        uniforms, seed, svv, svs, short_vrls, phase_kind, planes, mode, counts,
+                        out, stream);
+}
+
+// The R kernel's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
+int alvrl_vrl_r_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,
+                          int* blocks) {
+  return occupancy(
+      grid, T, uv_steps, phase_kind, short_vrls, blocks,
+      [](auto g, auto phase, auto short_, auto uv) {
+        return r_kernel<decltype(g)::value>(phase, short_, uv, MODE_SUM);
+      },
+      [](auto g, int n_tris) { return r_smem_bytes<decltype(g)::value>(n_tris); });
 }
 
 }  // extern "C"

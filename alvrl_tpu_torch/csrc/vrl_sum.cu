@@ -199,11 +199,6 @@ __global__ void plane_pack_kernel(const float* __restrict__ tris, int T,
   o[3] = make_float4(tr[6], tr[7], tr[8], 0.0f);
 }
 
-// kernel 1's modes (PlaneTris' MODE): the pre-reject; the checking
-// instantiation, which counts; no pre-reject (timing only)
-constexpr int MODE_SUM = 0, MODE_CHECK = 1, MODE_NO_REJECT = 2;
-constexpr int N_CHECK = 5;  // CheckCounts' fields, in order
-
 template <int PHASE, bool SHORT_VRLS, int MODE>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_plane_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
@@ -246,12 +241,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
-  if (MODE == MODE_CHECK) {
-    const uint32_t all[N_CHECK] = {cnt.segments, cnt.considered, cnt.skipped, cnt.bad_tris,
-                                   cnt.bad_segments};
-#pragma unroll
-    for (int i = 0; i < N_CHECK; ++i) atomicAdd(counts + i, (unsigned long long)all[i]);
-  }
+  if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
 }
 
 // dynamic shared memory of the homogeneous sum, in bytes
@@ -284,25 +274,20 @@ int launch_homog(const float* rays, int B, const float* vrls, int N, const float
                  void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || mode < MODE_SUM || mode > MODE_NO_REJECT ||
-      (T > 0 && planes == nullptr) || (mode == MODE_CHECK && counts == nullptr))
+      n_chunks > MAX_GRID_Y || (mode != MODE_NO_REJECT && !mode_ok<true>(mode, counts)))
     return (int)cudaErrorInvalidValue;
+  const int pack = pack_planes<true>(tris, T, planes, stream);
+  if (pack != 0) return pack;
   PlaneKernel kernel = nullptr;
   dispatch(phase_kind, short_vrls,
            [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, mode); });
   cudaStream_t st = (cudaStream_t)stream;
-  float4* pack = reinterpret_cast<float4*>(planes);
-  if (T > 0) plane_pack_kernel<<<(T + 127) / 128, 128, 0, st>>>(tris, T, pack);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
   const size_t smem = plane_smem_bytes(T);
-  if (smem > 48 * 1024) {  // above the default cap of dynamic shared memory
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, pack, T, med, uniforms, seed, svv,
-                                          svs, partial, counts);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, reinterpret_cast<const float4*>(tris),
+                                          T, med, uniforms, seed, svv, svs, partial, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * B;
@@ -336,8 +321,7 @@ int launch_sum(const float* rays, int B, const float* vrls, int N, const float* 
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
     auto kernel =
         sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID, decltype(uv)::value>();
-    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
-      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    attr = allow_smem(kernel, smem);
     if (attr == cudaSuccess)
       kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
                                               svv, svs, partial);
@@ -412,9 +396,7 @@ int alvrl_vrl_sum_occupancy(int grid, int T, int uv_steps, int phase_kind, int s
     dispatch(phase_kind, short_vrls,
              [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, MODE_SUM); });
     const size_t smem = plane_smem_bytes(T);
-    cudaError_t err = cudaSuccess;
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = allow_smem(kernel, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, RAY_BLOCK, smem);
     return (int)err;

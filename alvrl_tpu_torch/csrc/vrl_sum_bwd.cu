@@ -87,36 +87,8 @@
 
 namespace {
 
-// The triangles in shared memory, in floats: the grid media's TRI_COLS
-// a triangle, for the flat sweep (FlatTris); the homogeneous medium's
-// plane pack, PLANE_F4 float4s a triangle, for kernel 1's pre-reject
-// (PlaneTris).
-template <bool GRID>
-__host__ __device__ constexpr size_t tri_floats(int T) {
-  return (size_t)T * (GRID ? TRI_COLS : 4 * PLANE_F4);
-}
-
-template <bool GRID>
-using Sweep = std::conditional_t<GRID, FlatTris, PlaneTris<0>>;
-
-// Stage the T triangles `tris` (TRI_COLS floats each, or the plane pack)
-// at s_tri; returns the sweep over them.
-template <bool GRID>
-__device__ __forceinline__ Sweep<GRID> stage_sweep(const float* __restrict__ tris, int T,
-                                                   float* s_tri) {
-  if constexpr (GRID) {
-    for (int i = threadIdx.x; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
-    return FlatTris{s_tri, T};
-  } else {
-    const float4* planes = reinterpret_cast<const float4*>(tris);
-    float4* s_planes = reinterpret_cast<float4*>(s_tri);
-    for (int i = threadIdx.x; i < T * PLANE_F4; i += blockDim.x) s_planes[i] = planes[i];
-    return PlaneTris<0>{s_planes, T, nullptr};
-  }
-}
-
 // tris: the triangles, TRI_COLS floats each (grid media) or their plane
-// pack (homogeneous), as tri_floats
+// pack (homogeneous), as sweep_floats<!GRID>
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
 __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
@@ -129,8 +101,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   using L = Layout<GRID>;
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
-  float* s_tri = reinterpret_cast<float*>(smem4);        // tri_floats(T)
-  float* s_vrl = s_tri + tri_floats<GRID>(T);            // (V_ROWS, VRL_CHUNK)
+  float* s_tri = reinterpret_cast<float*>(smem4);        // sweep_floats<!GRID>(T)
+  float* s_vrl = s_tri + sweep_floats<!GRID>(T);         // (V_ROWS, VRL_CHUNK)
   float* s_med = s_vrl + V_ROWS * VRL_CHUNK;             // grid: (GRID_MED_LEN,)
   float* s_out = s_med + (GRID ? GRID_MED_LEN : 0);      // (N_WARPS, ROWS, VRL_CHUNK)
   float* s_par = s_out + N_WARPS * L::ROWS * VRL_CHUNK;  // (N_WARPS, N_SUMS)
@@ -140,7 +112,7 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
   const int t = threadIdx.x;
-  const auto occl = stage_sweep<GRID>(tris, T, s_tri);
+  const auto occl = stage_sweep<!GRID>(tris, T, s_tri);
   const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
   for (int i = t; i < N_WARPS * L::ROWS * VRL_CHUNK; i += blockDim.x) s_out[i] = 0.0f;
@@ -196,15 +168,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
 // dynamic shared memory of the backward, in bytes, with T triangles
 template <bool GRID>
 size_t bwd_smem_bytes(int T) {
-  return Layout<GRID>::smem_floats(tri_floats<GRID>(T)) * sizeof(float);
+  return Layout<GRID>::smem_floats(sweep_floats<!GRID>(T)) * sizeof(float);
 }
-
-}  // namespace
-
-// vrl_sum.cu: the plane pack of T triangles into `out` (T, 4 PLANE_F4)
-extern "C" int alvrl_plane_pack(const float* tris, int T, float* out, void* stream);
-
-namespace {
 
 // Launches the backward and its three ordered reductions on `stream`
 // (homogeneous: after the plane pack of the triangles into `planes`,
@@ -224,18 +189,15 @@ int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* 
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
       n_chunks > MAX_GRID_Y || n_ray_blocks != (B + RAY_BLOCK - 1) / RAY_BLOCK ||
-      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr) ||
-      (!GRID && T > 0 && planes == nullptr))
+      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int pack = pack_planes<!GRID>(tris, T, planes, stream);
+  if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
   if (GRID) {
     const cudaError_t err = cudaMemsetAsync(
         d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
     if (err != cudaSuccess) return (int)err;
-  } else if (T > 0) {
-    const int err = alvrl_plane_pack(tris, T, planes, stream);
-    if (err != 0) return err;
-    tris = planes;
   }
   const dim3 blocks(n_ray_blocks, n_chunks);
   const size_t smem = bwd_smem_bytes<GRID>(T);
@@ -243,8 +205,7 @@ int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* 
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
     auto kernel = vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
                                      decltype(uv)::value>;
-    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
-      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    attr = allow_smem(kernel, smem);
     if (attr == cudaSuccess)
       kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms,
                                               seed, svv, svs, gbar, ray_part, vrl_part, par_part,

@@ -241,8 +241,7 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
     auto kernel = vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
                                                GRID, decltype(uv)::value>;
-    if (smem > 48 * 1024)  // above the default cap of dynamic shared memory
-      attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    attr = allow_smem(kernel, smem);
     if (attr == cudaSuccess)
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,

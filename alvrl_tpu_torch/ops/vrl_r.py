@@ -13,8 +13,8 @@ vrl_pallas.py:502-517, 697-715). A dropped sample counts as 0.
 
 What bounds it on the H100 is fp32 ALU and special-function throughput,
 as for ops.vrl_sum: the CUDA kernel (csrc/vrl_r.cu, whose header gives
-the design) runs the same estimator (csrc/vrl_common.cuh) on the same
-grid and writes each pair's two numbers once.
+the design) runs the same estimator (csrc/vrl_common.cuh) in tiles of
+rays x VRLs and writes each pair's two numbers once.
 
 Beside the kernel:
   * `vrl_r_reference` and `vrl_r_hetero_reference`, the plain PyTorch
@@ -23,7 +23,9 @@ Beside the kernel:
   * `vrl_r` and `vrl_r_hetero`, the wrappers: the kernel for CUDA
     tensors (or an error; there is no fallback), the plain version for
     CPU tensors. Their Philox stream is vrl_sum's, with the
-    representative row as the ray index.
+    representative row as the ray index;
+  * `vrl_r_hetero_check`, the grid kernel's checking launch (CUDA
+    only), as ops.vrl_sum.vrl_sum_check for kernel 1.
 """
 
 from __future__ import annotations
@@ -105,17 +107,52 @@ def _library():
     tail = [p, u, i, i, i, i, p, p]
     lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, *tail]
     lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                       *tail]
+                                       *tail[:-2], p, i, p, *tail[-2:]]
     lib.alvrl_vrl_r.restype = lib.alvrl_vrl_r_hetero.restype = i
     return lib
 
 
+def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
+            short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM, counts=None):
+    """The kernel on checked inputs, on the current stream: (2, P, N).
+    grid = (density, uv_steps) for the grid kernel, which sweeps the
+    triangles' plane pack (made here into scratch) in `mode` (MODE_CHECK
+    adds its counts to `counts`, (len(vs.CHECK_COUNTS),) int64)."""
+    n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
+                      device=rays.device)
+    head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
+            tris.shape[0], medium.data_ptr())
+    uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+           int(short_vrls), phase_kind)
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    if grid is None:
+        err = lib.alvrl_vrl_r(*head, *uni, out.data_ptr(), stream)
+    else:
+        planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
+                             dtype=torch.float32, device=rays.device)
+        err = lib.alvrl_vrl_r_hetero(
+            *head, *vs.grid_args(*grid), *uni,
+            planes.data_ptr() if tris.shape[0] else None, mode,
+            None if counts is None else counts.data_ptr(), out.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError("vrl_r kernel launch failed: CUDA error "
+                           f"{err} ({lib.alvrl_error_string(err).decode()})")
+    return out
+
+
 def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
-       phase_kind, grid):
-    """The wrappers' body (see vrl_r), counting a launch on `fn`."""
+       phase_kind, grid, mode=vs.MODE_SUM):
+    """The wrappers' body (see vrl_r), counting a launch on `fn`; mode
+    MODE_CHECK (CUDA tensors and grid packs only) returns (out, {name:
+    total} of vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
               grid=grid)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+    checking = mode == vs.MODE_CHECK
+    if checking and rays.device.type != "cuda":
+        raise ValueError("the checking launch needs CUDA tensors")
     if rays.device.type == "cpu":
         if uniforms is None:
             uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
@@ -125,24 +162,18 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
-    out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
-                      device=rays.device)
+    counts = (torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
+                          device=rays.device) if checking else None)
     if n_rays == 0 or n_vrls == 0:
-        return out
-    head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
-            tris.shape[0], medium.data_ptr())
-    with torch.cuda.device(rays.device):
-        tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
-                svs, int(short_vrls), phase_kind, out.data_ptr(),
-                torch.cuda.current_stream(rays.device).cuda_stream)
-        if grid is None:
-            err = lib.alvrl_vrl_r(*head, *tail)
-        else:
-            err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid), *tail)
-    if err != 0:
-        raise RuntimeError("vrl_r kernel launch failed: CUDA error "
-                           f"{err} ({lib.alvrl_error_string(err).decode()})")
-    fn.launches += 1
+        out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
+                          device=rays.device)
+    else:
+        with torch.cuda.device(rays.device):
+            out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
+                          svs, short_vrls, phase_kind, grid, mode, counts)
+        fn.launches += 1
+    if checking:
+        return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
 
 
@@ -175,3 +206,19 @@ def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
 
 
 vrl_r_hetero.launches = 0  # kernel launches, as vrl_r.launches
+
+
+def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
+                       uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
+                       short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+    """vrl_r_hetero's (2, P, N) through kernel 6's checking instantiation
+    (a launch counted here, not on vrl_r_hetero), which decides every
+    shadow segment by the Wald test alone and runs the plane pre-reject
+    beside it, and {name: total} of vs.CHECK_COUNTS, as
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    return _r(vrl_r_hetero_check, rays, vrls, tris, medium, seed, uniforms,
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+              (density, uv_steps), mode=vs.MODE_CHECK)
+
+
+vrl_r_hetero_check.launches = 0  # checking launches

@@ -494,7 +494,8 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
               short_vrls=True):
     """Blocks per SM, by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     of the instantiation that a launch of the kernel behind the C entry
-    `entry` ("vrl_sum" or "vrl_sum_bwd") takes with these arguments: grid
+    `entry` ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered",
+    "vrl_sum_clustered_bwd" or "vrl_r") takes with these arguments: grid
     or homogeneous medium, n_tris triangles, the U-V quadrature's step
     count (a grid launch of 4 steps takes the instantiation compiled for
     4), phase kind and short VRLs. A block is the library's

@@ -29,7 +29,11 @@ Beside the kernel:
     the kernel for CUDA tensors (or an error; there is no fallback), the
     plain version for CPU tensors.
     Its Philox stream is vrl_sum's with counter (ray, VRL id, call, 0),
-    independent of the grouping and the table layout.
+    independent of the grouping and the table layout;
+  * `vrl_sum_hetero_clustered_check`, the grid kernel's checking launch
+    (CUDA only): its shadow segments decided by the Wald test alone,
+    with the counts of the plane pre-reject that its sum instantiation
+    sweeps with (as ops.vrl_sum.vrl_sum_check for kernel 1).
 """
 
 from __future__ import annotations
@@ -150,7 +154,7 @@ def _library():
     tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, p]
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, i, i, i, i, *tail]
+        p, i, p, i, p, i, p, p, i, i, i, i, *tail[:-2], p, i, p, *tail[-2:]]
     for fn in (lib.alvrl_vrl_sum_clustered,
                lib.alvrl_vrl_sum_hetero_clustered, lib.alvrl_ray_block):
         fn.restype = i
@@ -189,15 +193,19 @@ def _check_tables(rays, ray_slice, table_ids, table_weights):
 
 def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                table_weights, seed, uniforms, svv, svs, short_vrls, phase_kind,
-               grid):
+               grid, mode=vs.MODE_SUM):
     """The wrappers' body (see vrl_sum_clustered), counting a launch on
-    `fn`."""
+    `fn`; mode MODE_CHECK (CUDA tensors and grid packs only) returns
+    (out, {name: total} of vs.CHECK_COUNTS)."""
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
               n_cols=table_ids.shape[1], grid=grid)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
+    checking = mode == vs.MODE_CHECK
+    if checking and rays.device.type != "cuda":
+        raise ValueError("the checking launch needs CUDA tensors")
     if rays.device.type == "cpu":
         if uniforms is None:
             uniforms = philox_table_uniforms(seed, sl, table_ids,
@@ -210,16 +218,20 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
     out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
+    counts = (torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
+                          device=rays.device) if checking else None)
     tile_rays, tile_row = group_by_slice(sl, lib.alvrl_ray_block())
-    if len(tile_row) == 0 or n_vrls == 0 or n_cols == 0:
-        return out
-    tile_rays = torch.as_tensor(tile_rays).to(rays.device)
-    tile_row = torch.as_tensor(tile_row).to(rays.device)
-    with torch.cuda.device(rays.device):
-        _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row,
-                table_ids, table_weights, uniforms, seed, svv, svs, short_vrls,
-                phase_kind, out, grid)
-    fn.launches += 1
+    if len(tile_row) and n_vrls and n_cols:
+        tile_rays = torch.as_tensor(tile_rays).to(rays.device)
+        tile_row = torch.as_tensor(tile_row).to(rays.device)
+        with torch.cuda.device(rays.device):
+            _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row,
+                    table_ids, table_weights, uniforms, seed, svv, svs,
+                    short_vrls, phase_kind, out, grid, mode=mode,
+                    counts=counts)
+        fn.launches += 1
+    if checking:
+        return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
 
 
@@ -265,28 +277,55 @@ vrl_sum_hetero_clustered.launches = 0  # kernel launches, as
                                        # vrl_sum_clustered.launches
 
 
+def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
+                                   ray_slice, table_ids, table_weights, *,
+                                   seed=0, uniforms=None, vol_vol_samples=2,
+                                   vol_surf_samples=2, short_vrls=True,
+                                   phase_kind=ph.HG, uv_steps=4):
+    """vrl_sum_hetero_clustered's sums through kernel 4's checking
+    instantiation (a launch counted here, not on the wrapper), which
+    decides every shadow segment by the Wald test alone and runs the
+    plane pre-reject beside it, and {name: total} of vs.CHECK_COUNTS, as
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    return _clustered(vrl_sum_hetero_clustered_check, rays, vrls, tris,
+                      medium, ray_slice, table_ids, table_weights, seed,
+                      uniforms, vol_vol_samples, vol_surf_samples, short_vrls,
+                      phase_kind, (density, uv_steps), mode=vs.MODE_CHECK)
+
+
+vrl_sum_hetero_clustered_check.launches = 0  # checking launches
+
+
 def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
             table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
-            out, grid=None):
+            out, grid=None, mode=vs.MODE_SUM, counts=None):
     """The kernel on inputs the wrapper has checked and grouped
     (tile_rays, tile_row: group_by_slice's arrays on the device), into
     `out` (3, B), written at the rays of the tiles; on the current
-    stream; grid = (density, uv_steps) for the grid kernel. The
-    wrapper's own step, apart so that chip_smoke.py can time the kernel
-    without the wrapper's host work; it counts no launch."""
+    stream; grid = (density, uv_steps) for the grid kernel, which sweeps
+    the triangles' plane pack (made here into scratch) in `mode`
+    (MODE_CHECK adds its counts to `counts`, (len(CHECK_COUNTS),)
+    int64). The wrapper's own step, apart so that chip_smoke.py can time
+    the kernel without the wrapper's host work; it counts no launch."""
     head = (rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
             tris.data_ptr(), tris.shape[0], medium.data_ptr())
     tail = (tile_rays.data_ptr(), tile_row.data_ptr(), len(tile_row),
             table_ids.data_ptr(), table_weights.data_ptr(),
             table_ids.shape[1],
             None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-            int(short_vrls), phase_kind, out.data_ptr(),
-            torch.cuda.current_stream(rays.device).cuda_stream)
+            int(short_vrls), phase_kind)
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
     if grid is None:
-        err = lib.alvrl_vrl_sum_clustered(*head, *tail)
+        err = lib.alvrl_vrl_sum_clustered(*head, *tail, out.data_ptr(),
+                                          stream)
     else:
-        err = lib.alvrl_vrl_sum_hetero_clustered(*head, *vs.grid_args(*grid),
-                                                 *tail)
+        planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
+                             dtype=torch.float32, device=rays.device)
+        err = lib.alvrl_vrl_sum_hetero_clustered(
+            *head, *vs.grid_args(*grid), *tail,
+            planes.data_ptr() if tris.shape[0] else None, mode,
+            None if counts is None else counts.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
                            f"error {err} "

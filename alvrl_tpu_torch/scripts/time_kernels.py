@@ -1,4 +1,4 @@
-"""Time the kernels of kernels 1-6 and 8-11 (PERF.md's table) on one
+"""Time kernels 1-6 and 8-11 (PERF.md's table) on one
 card, with their registers and spills, for A/Bs of two trees.
 
 The inputs are chip_smoke.py's: config 1 (cornell_smoke 128x128, the 512
@@ -70,6 +70,16 @@ Both splits use only functions that every tree of the port since kernel
 1's checking launch has (a tree without the clustered backward's
 occupancy query prints no blocks for it), so they time a parent and a
 change in turn. Each takes about 25 s a tree.
+
+With --grid-clustered-split it times kernel 4 (vrl_sum_hetero_clustered,
+a bare launch on pre-grouped tiles) and kernel 6 (vrl_r_hetero on the
+representative rays) on config 4's clustered inputs, each whole, with
+no triangles, with a 1x1x1 density of the grid's mean and with a
+one-step U-V quadrature (--grid-split's ablations without the
+backward's); with both kernels' checking counts (triangle tests and
+skips per shadow segment) on trees that have the grid pre-reject, and
+the blocks resident per SM of both grid instantiations where the
+tree's library answers. It takes about 25 s a tree.
 
 With --trainer it runs the density-recovery trainer
 (scripts.recover_density at its defaults, as chip_smoke.py phase 21:
@@ -202,6 +212,17 @@ def cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
                 tiles=tiles, layout=layout, gbar=gbar, seed=seed)
 
 
+def rep_packs(c):
+    """The R kernel's packs (the representative pixels' centre rays, as
+    alvrl.build_R_device makes them) of cluster_inputs' result `c`."""
+    scene, info = c["scene"], c["info"]
+    rows = torch.as_tensor(np.concatenate(info.repr_rows),
+                           device=c["packs"][0].device)
+    w = scene.camera.width
+    return integrator.pack_rays_vrls(scene, *perspective.sample_ray(
+        scene.camera, rows % w, rows // w), c["vrls"])[1]
+
+
 def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
               undersampling, seed, cfg):
     c = cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
@@ -212,10 +233,7 @@ def clustered(dev, make_scene, depth, tracer_seed, particles, slices,
     lib = vsc._library()
     n_rays = packs[0].shape[1]
     out = torch.zeros((3, n_rays), device=dev)
-    rows = torch.as_tensor(np.concatenate(info.repr_rows), device=dev)
-    w = scene.camera.width
-    packs_r = integrator.pack_rays_vrls(scene, *perspective.sample_ray(
-        scene.camera, rows % w, rows // w), vrls)[1]
+    packs_r = rep_packs(c)
     kw = dict(seed=seed) if grid is None else dict(seed=seed,
                                                    uv_steps=grid[1])
     if grid is None:
@@ -410,6 +428,65 @@ def clustered_split(dev, cfg):
             "occupancy": occ}
 
 
+def grid_clustered_split(dev, cfg):
+    """{variant: timing} of kernels 4 (vrl_sum_hetero_clustered, a bare
+    launch on pre-grouped tiles) and 6 (vrl_r_hetero on the
+    representative rays) on config 4's clustered inputs with parts of
+    their work taken away (the module docstring); their checking
+    launches' counts and {kernel: blocks per SM}, where the tree's
+    library has them."""
+    c = cluster_inputs(dev, *CONFIGS["config4"], cfg)
+    rays, vpack, tris, med, dens = c["packs"]
+    rays_r = rep_packs(c)[0]
+    tv, tw, tiles, seed, kind = (c[k] for k in ("tv", "tw", "tiles", "seed",
+                                                "kind"))
+    uv = cfg.uv_tau_steps
+    one_voxel = dens.mean().reshape(1, 1, 1).contiguous()
+    variants = {"full": (tris, dens, uv),
+                "no_triangles": (tris[:0].contiguous(), dens, uv),
+                "one_voxel": (tris, one_voxel, uv),
+                "uv_steps_1": (tris, dens, 1)}
+    lib = vsc._library()
+    out = torch.zeros((3, rays.shape[1]), device=dev)
+    times = {}
+    for name, (t, d, u) in variants.items():
+        times[f"vrl_sum_hetero_clustered/{name}"] = windows(
+            lambda: vsc._launch(lib, rays, vpack, t, med, *tiles, tv, tw,
+                                None, seed, 2, 2, True, kind, out, (d, u)),
+            10, 10)
+        times[f"vrl_r_hetero/{name}"] = windows(
+            lambda: vr.vrl_r_hetero(rays_r, vpack, t, med, d, seed=seed,
+                                    uv_steps=u), 10, 10)
+    check = {}
+    if hasattr(vr, "vrl_r_hetero_check"):  # trees from the grid pre-reject on
+        for name, counts in (
+                ("vrl_sum_hetero_clustered", vsc.vrl_sum_hetero_clustered_check(
+                    rays, vpack, tris, med, dens, c["sop"], tv, tw, seed=seed,
+                    uv_steps=uv)[1]),
+                ("vrl_r_hetero", vr.vrl_r_hetero_check(
+                    rays_r, vpack, tris, med, dens, seed=seed,
+                    uv_steps=uv)[1])):
+            seg = max(counts["segments"], 1)
+            check[name] = {**counts, "considered_per_segment":
+                           counts["considered"] / seg, "skipped_per_segment":
+                           counts["skipped"] / seg}
+    occ = {}
+    for entry in ("vrl_sum_clustered", "vrl_r"):
+        for steps in (uv, 3):
+            try:
+                blocks = vs.occupancy(entry, True, tris.shape[0], steps, kind,
+                                      cfg.short_vrls)
+            except AttributeError:  # a tree whose library has no such query
+                continue
+            occ[f"{entry}<grid,uv{steps}>"] = {"blocks": blocks,
+                                               "warps": 4 * blocks}
+    return {"shape": {"rays": rays.shape[1], "tiles": len(tiles[1]),
+                      "table": list(tv.shape), "representatives":
+                      rays_r.shape[1], "vrls": vpack.shape[1],
+                      "triangles": tris.shape[0]},
+            "split": times, "check": check, "occupancy": occ}
+
+
 BVH_SCENES = (("cubes", 11), ("cubes", 16), ("cubes", 22), ("blob", 64),
               ("blob", 112), ("blob", 180))  # chip_smoke.py phase 30
 BVH_SEED = 20261019
@@ -544,6 +621,11 @@ def main():
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(),
                           **clustered_split(dev, cfg)}))
+        return
+    if sys.argv[1:] == ["--grid-clustered-split"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(),
+                          **grid_clustered_split(dev, cfg)}))
         return
     if sys.argv[1:] == ["--grid-split"]:
         times, occ = grid_split(dev, cfg)

@@ -75,7 +75,11 @@ Phases, one line each; any failure exits non-zero:
      slices for the clustered sum), R on all of it. Cases: the preset's
      HG g=0.3 with injected and Philox uniforms, Rayleigh, and long VRLs;
      also an identity table against vrl_sum_hetero and R's row sums
-     against its luminance (kernel against kernel, full shapes);
+     against its luminance (kernel against kernel, full shapes), and the
+     checking launches of the clustered sum and R on their full inputs
+     (the Wald test alone decides; the plane pre-reject runs beside it
+     and must skip no blocking triangle and decide no segment
+     differently, as phases 3-5 hold kernel 1);
  16. the main path: alvrl.render_alvrl at full config 4; the launch
      counts of vrl_r_hetero and vrl_sum_hetero_clustered must move, and
      vrl_sum_hetero's in the unclustered renders of the band check; the
@@ -83,7 +87,10 @@ Phases, one line each; any failure exits non-zero:
      over the mean unclustered image of the same VRLs in 0.85-1.15;
  17. timing of a warm config-4 pass, per stage (the tracer stage with
      Woodcock tracking), each grid kernel alone at its full shape and
-     its plain version on the same inputs, and each one's bound;
+     its plain version on the same inputs, and each one's bound (the
+     clustered sum's and R's on their checking launches' counted skips,
+     beside the bound with a Wald test per swept triangle), beside the
+     clustered sum's and R's times before their redesign;
  18. profile of the config-4 pass, as phase 6;
  19. the grid backward kernel (vrl_sum_hetero_bwd) vs the plain grid
      backward on the eye rays of image rows 128-159 x the 512 VRLs of
@@ -205,7 +212,8 @@ from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
 from alvrl_tpu_torch.ops.vrl_r import (
-    vrl_r, vrl_r_hetero, vrl_r_hetero_reference, vrl_r_reference)
+    vrl_r, vrl_r_hetero, vrl_r_hetero_check, vrl_r_hetero_reference,
+    vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_FLOOR, HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws,
     philox_uniforms, vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference,
@@ -214,7 +222,7 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
     vrl_sum_clustered_reference, vrl_sum_hetero_clustered,
-    vrl_sum_hetero_clustered_reference)
+    vrl_sum_hetero_clustered_check, vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
@@ -248,9 +256,10 @@ C4_ROWS = (128, 160)     # image rows of the unclustered sum's subset
 C4_SUBSET_RAYS = 16384   # rays of the clustered sum's subset, at most
 C4_PLAIN_CHUNK = 2048    # rays per block of the plain versions on the card
 C4_TRIS = 12             # the box's wall triangles
-# the grid sum's and its VJP's times on phase 17's inputs before their
-# redesign (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130}
+# the grid kernels' times on phase 17's inputs before their redesign
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130,
+              "vrl_sum_hetero_clustered": 1.976, "vrl_r_hetero": 0.611}
 # ROADMAP C12's two repairs of the grid backward, measured on phase 17's
 # full-shape inputs against the float64 plain backward by instantiations
 # of the kernel that were removed after the measurement (NVIDIA H100
@@ -1271,6 +1280,25 @@ def config4(dev, card, cfg):
                                   ("R row sums", rs_bar)):
         check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
               f"grid {what}: median {median}, share {share}")
+    # the checking launches of the clustered sum and R on their full
+    # inputs (the Philox stream of phase 17's timed launches)
+    c_chk, c_counts = vrl_sum_hetero_clustered_check(*packs, sop, tv, tw,
+                                                     seed=seed, **kw)
+    r_chk, r_counts = vrl_r_hetero_check(*packs_r, seed=seed, **kw)
+    for what, counts, (median, share) in (
+            ("clustered", c_counts, homog_bar(
+                c_chk.T, vrl_sum_hetero_clustered(*packs, sop, tv, tw,
+                                                  seed=seed, **kw).T)),
+            ("R", r_counts, homog_bar(r_chk[0], vrl_r_hetero(
+                *packs_r, seed=seed, **kw)[0], channels=1))):
+        check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
+              f"grid {what}: the pre-reject disagrees with the Wald test: "
+              f"{counts}")
+        check(counts["segments"] > 0 and counts["skipped"] > 0,
+              f"grid {what}: checking counts {counts}")
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"grid {what}: the checking launch against the kernel: "
+              f"median {median}, share {share}")
     print(f"[15 grid kernels vs plain on {card}, config 4: B={n_rays} "
           f"N={n_vrls} P={n_rep} S={tv.shape[0]} C={n_cols}, density "
           f"{tuple(density.shape)} (slicing {slice_ms:.1f} ms); sums "
@@ -1279,7 +1307,9 @@ def config4(dev, card, cfg):
           f"({len(idx)} rays), R in full; repeats bit-identical] "
           + " | ".join(results) + f" | identity table vs vrl_sum_hetero "
           f"median {id_bar[0]:.2e} share {id_bar[1]:.4f}; R row sums vs "
-          f"vrl_sum_hetero luminance median {rs_bar[0]:.2e}", flush=True)
+          f"vrl_sum_hetero luminance median {rs_bar[0]:.2e} | checking "
+          f"launches on the full inputs: clustered {check_line(c_counts)}; R "
+          f"{check_line(r_counts)}", flush=True)
 
     # 16. the main path, through the entry point a user calls
     vrl_sum_hetero.launches = vrl_r_hetero.launches = 0
@@ -1395,14 +1425,23 @@ def config4(dev, card, cfg):
             vrl_sum_hetero_clustered_reference(*packs, sop, tv, tw, u, **kw)
         del u
     uv = cfg.uv_tau_steps
+    r_ops = kernel_ops("vrl_r", r_sweep, True, True, uv)
+    c_ops = kernel_ops("vrl_sum_clustered", c_sweep, True, True, uv)
+    r_bytes = nbytes(*packs_r) + 2 * n_rep * n_vrls * 4
+    c_bytes = nbytes(*packs, tv, tw, *tiles) + 3 * n_rays * 4
     bounds = {
         "sum": bound(kernel_ops("vrl_sum", s_sweep, True, True, uv),
                      nbytes(*packs) + 3 * n_rays * 4),
-        "r": bound(kernel_ops("vrl_r", r_sweep, True, True, uv),
-                   nbytes(*packs_r) + 2 * n_rep * n_vrls * 4),
-        "clustered": bound(kernel_ops("vrl_sum_clustered", c_sweep, True,
-                                      True, uv),
-                           nbytes(*packs, tv, tw, *tiles) + 3 * n_rays * 4)}
+        "r": bound(plane_ops(r_ops, r_sweep, r_counts), r_bytes),
+        "clustered": bound(plane_ops(c_ops, c_sweep, c_counts), c_bytes)}
+    wald_bounds = {"r": bound(r_ops, r_bytes)[0],
+                   "clustered": bound(c_ops, c_bytes)[0]}
+
+    def skips(counts):
+        seg = max(counts["segments"], 1)
+        return (f"{counts['skipped'] / seg:.3f} of "
+                f"{counts['considered'] / seg:.3f} Wald tests a segment "
+                "skipped")
     (s_med, s_spread), (r_med, r_spread), (c_med, c_spread), \
         (sp_med, _), (rp_med, _), (cp_med, _), (p_med, p_spread) = map(
             summary, (sum_ms, r_ms, c_ms, sum_plain_ms, r_plain_ms,
@@ -1417,12 +1456,18 @@ def config4(dev, card, cfg):
           f"redesign {EARLIER_MS['vrl_sum_hetero']} ms; spread "
           f"{s_spread:.1%}, {s_sweep}, bound {bounds['sum'][0]:.4f} ms by "
           f"{bounds['sum'][1]}), plain {sp_med:.1f} ms; vrl_r_hetero "
-          f"{r_med:.4f} ms (spread {r_spread:.1%}, {r_sweep}, bound "
-          f"{bounds['r'][0]:.4f} ms by {bounds['r'][1]}), plain {rp_med:.1f} "
-          f"ms; vrl_sum_hetero_clustered {c_med:.4f} ms (spread "
-          f"{c_spread:.1%}, {len(tiles[1])} blocks, {c_sweep}, bound "
-          f"{bounds['clustered'][0]:.4f} ms by {bounds['clustered'][1]}), "
-          f"plain {cp_med:.1f} ms", flush=True)
+          f"{r_med:.4f} ms (before its redesign "
+          f"{EARLIER_MS['vrl_r_hetero']} ms; spread {r_spread:.1%}, "
+          f"{r_sweep}, {skips(r_counts)}, bound {bounds['r'][0]:.4f} ms by "
+          f"{bounds['r'][1]} on the counted skips, {wald_bounds['r']:.4f} "
+          f"ms with a Wald test per swept triangle), plain {rp_med:.1f} "
+          f"ms; vrl_sum_hetero_clustered {c_med:.4f} ms (before its "
+          f"redesign {EARLIER_MS['vrl_sum_hetero_clustered']} ms; spread "
+          f"{c_spread:.1%}, {len(tiles[1])} blocks, {c_sweep}, "
+          f"{skips(c_counts)}, bound {bounds['clustered'][0]:.4f} ms by "
+          f"{bounds['clustered'][1]} on the counted skips, "
+          f"{wald_bounds['clustered']:.4f} ms with a Wald test per swept "
+          f"triangle), plain {cp_med:.1f} ms", flush=True)
 
     # 18. where the config-4 pass's device time goes
     prof = profile_device(lambda: alvrl.render_alvrl(
@@ -2708,7 +2753,8 @@ def main():
           f"the grid kernels are compiled for {vs.compiled_uv_steps()} U-V "
           f"steps, the callers pass {VRLConfig().uv_tau_steps}")
     occupancy, warps = [], bwd._library().alvrl_ray_block() // 32
-    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered_bwd"):
+    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered",
+                  "vrl_sum_clustered_bwd", "vrl_r"):
         for uv in (4, 3):
             blocks = vs.occupancy(entry, True, C4_TRIS, uv)
             occupancy.append(f"{entry}<0,1,grid,uv{uv if uv == 4 else '*'}> "

@@ -48,6 +48,7 @@ from tests.torch_port_utils import (
     BENCH_VRLS,
     SEQ_UNIFORMS,
     hit_from_jax,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -227,12 +228,10 @@ def test_reference_matches_pair_contribution(jax_bench_script,
                                       uniforms=torch.as_tensor(u)), out)
 
 
-@pytest.fixture(scope="module")
-def jax_bvh_render(jax_native_bvh):
-    """render_with_vrls_pallas_bvh in interpret mode on cornell_smoke
-    16x8 with 128 bench VRLs, vp._u01 returning the next SEQ_UNIFORMS
-    constant at each call while the kernel is traced (jit caches cleared
-    around it): (the JAX scene, VRLs, image, _u01 calls)."""
+def _interpret_render():
+    """jax_bvh_render's image and _u01 calls, with the JAX package's bvh
+    module on the port's build of native/bvh_builder.cpp (as
+    jax_native_bvh patches it). Run by in_child."""
     calls = {"i": 0}
 
     def mock(shape):
@@ -241,18 +240,32 @@ def jax_bvh_render(jax_native_bvh):
         return jnp.full(shape, v, jnp.float32)
 
     mp = pytest.MonkeyPatch()
+    mp.setattr(jbvh, "_LIB_PATH", str(bvh._library_path()))
+    mp.setattr(jbvh, "_lib", None)
+    bvh.load_library()
     jax.clear_caches()
     mp.setattr(vp, "_u01", mock)
     try:
-        jscene = jpresets.cornell_smoke(width=16, height=8)
-        jvrls = _jax_vrls()
         with pltpu.force_tpu_interpret_mode():
             img = np.asarray(jintegrator.render_with_vrls_pallas_bvh(
-                jscene, jvrls, jax.random.key(1), JVRLConfig()))
+                jpresets.cornell_smoke(width=16, height=8), _jax_vrls(),
+                jax.random.key(1), JVRLConfig()))
     finally:
         mp.undo()
         jax.clear_caches()
-    return jscene, jvrls, img, calls["i"]
+    return img, calls["i"]
+
+
+@pytest.fixture(scope="module")
+def jax_bvh_render(jax_native_bvh):
+    """render_with_vrls_pallas_bvh in interpret mode on cornell_smoke
+    16x8 with 128 bench VRLs, vp._u01 returning the next SEQ_UNIFORMS
+    constant at each call while the kernel is traced (jit caches cleared
+    around it), computed in a child process (in_child): (the JAX scene,
+    VRLs, image, _u01 calls)."""
+    img, n_calls = in_child(_interpret_render)
+    return (jpresets.cornell_smoke(width=16, height=8), _jax_vrls(), img,
+            n_calls)
 
 
 def test_slice_matches_pallas_bvh_interpret(jax_bvh_render):

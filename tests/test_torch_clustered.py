@@ -53,6 +53,7 @@ from tests.torch_port_utils import (
     BENCH_VRLS,
     CPU,
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -86,14 +87,9 @@ def _seq(*shape):
     return torch.tensor(SEQ_UNIFORMS).expand(*shape, 6).contiguous()
 
 
-@pytest.fixture(scope="module")
-def jax_ref():
-    """The JAX package's clustered prepass and render through its Pallas
-    kernels in interpret mode, with the kernels' _u01 returning the next
-    SEQ_UNIFORMS constant at each call while traced (jit caches cleared
-    around the patch): the tables of prepare_clustering(use_pallas=True),
-    the raw R of _build_r_pallas_jit over the representative rays, and
-    render_clustered_pallas's image on those tables."""
+def _interpret_refs():
+    """The body of the `jax_ref` fixture, run in a child process by
+    in_child."""
     jscene = jpresets.cornell_smoke(width=W, height=H)
     jvrls = _jax_vrls()
     jparams = jalvrl.ALVRLParams(vrl_target_num=N_VRLS,
@@ -132,6 +128,18 @@ def jax_ref():
                                             device=CPU)
     out["vrls"] = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device=CPU)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX package's clustered prepass and render through its Pallas
+    kernels in interpret mode, with the kernels' _u01 returning the next
+    SEQ_UNIFORMS constant at each call while traced (jit caches cleared
+    around the patch): the tables of prepare_clustering(use_pallas=True),
+    the raw R of _build_r_pallas_jit over the representative rays, and
+    render_clustered_pallas's image on those tables. Computed in a child process
+    (tests/torch_port_utils.py in_child)."""
+    return in_child(_interpret_refs)
 
 
 def test_build_R_kernel_matches_pallas_interpret(jax_ref):

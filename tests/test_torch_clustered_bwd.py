@@ -64,6 +64,7 @@ from tests.torch_port_utils import (
     CPU,
     SEQ_UNIFORMS,
     hit_from_jax,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -146,13 +147,17 @@ def _jax_vjp(jscene, ray_o, ray_d, jhit, jvrls, gbar):
             (d_pw_t * power[None]).sum(dim=1).float(), _t(d_med)[0, 0:7])
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """The JAX package's clustered VJP on the preset ("vjp") and with a
-    zero VRL power channel and a zero sigma_s channel ("zero"), both
-    kernel modules' _u01 patched to the SEQ cycle while traced (jit
-    caches cleared around the patch; the kernels compile once for the
-    two VJPs)."""
+def _gbars():
+    rng = np.random.default_rng(1)
+    return (rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
+            rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32))
+
+
+def _interpret_refs():
+    """jax_refs' interpret-mode VJPs ("vjp", "zero"), both kernel modules'
+    _u01 patched to the SEQ cycle while traced (jit caches cleared around
+    the patch; the kernels compile once for the two VJPs). Run by
+    in_child."""
     counter = {"i": 0}
 
     def cycle(shape):
@@ -160,22 +165,32 @@ def jax_refs():
         counter["i"] += 1
         return jnp.full(shape, v, jnp.float32)
 
-    rng = np.random.default_rng(1)
-    out = {"gbar": rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
-           "gbar_zero": rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
-           "setup": _setup(),
-           "setup_zero": _setup(sigma_s=(0.8, 0.8, 0.0),
-                                power_scale=(1.0, 0.0, 1.0))}
+    gbar, gbar_zero = _gbars()
+    out = {}
     jax.clear_caches()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(vp, "_u01", cycle)
         mp.setattr(vpb, "_u01", cycle)
-        out["vjp"] = _jax_vjp(*out["setup"], out["gbar"])
-        out["zero"] = _jax_vjp(*out["setup_zero"], out["gbar_zero"])
+        out["vjp"] = _jax_vjp(*_setup(), gbar)
+        out["zero"] = _jax_vjp(*_setup(sigma_s=(0.8, 0.8, 0.0),
+                                       power_scale=(1.0, 0.0, 1.0)), gbar_zero)
     jax.clear_caches()
     # each kernel, traced once (forward and backward), drew the cycle
     assert counter["i"] == 2 * len(SEQ)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's clustered VJP, computed in a child process
+    (in_child), on the preset ("vjp") and with a zero VRL power channel
+    and a zero sigma_s channel ("zero"), with their set-ups and output
+    cotangents."""
+    gbar, gbar_zero = _gbars()
+    return {"gbar": gbar, "gbar_zero": gbar_zero, "setup": _setup(),
+            "setup_zero": _setup(sigma_s=(0.8, 0.8, 0.0),
+                                 power_scale=(1.0, 0.0, 1.0)),
+            **in_child(_interpret_refs)}
 
 
 def _port_packs(jscene, ray_o, ray_d, jhit, jvrls):

@@ -30,6 +30,7 @@ from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r,
     vrl_r_hetero,
+    vrl_r_hetero_check,
     vrl_r_hetero_reference,
     vrl_r_reference,
 )
@@ -56,6 +57,7 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_clustered,
     vrl_sum_clustered_reference,
     vrl_sum_hetero_clustered,
+    vrl_sum_hetero_clustered_check,
     vrl_sum_hetero_clustered_reference,
 )
 from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
@@ -618,6 +620,101 @@ def test_cuda_render_alvrl_in_a_grid_launches_the_grid_kernels(cuda):
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
 
 
+# --- kernels 4 and 6: the plane pre-reject in a grid medium, R's tiles -------
+
+GRID_CHECKS = {"clustered": (vrl_sum_hetero_clustered,
+                             vrl_sum_hetero_clustered_check),
+               "r": (vrl_r_hetero, vrl_r_hetero_check)}
+
+
+def _grid_close(kernel, out, ref, tol=1e-4):
+    """Two launches of one grid estimator (separate instantiations, whose
+    fused multiply-adds may differ): every sum, or R's mean, within tol
+    relative, and the homogeneous bar."""
+    if kernel == "r":
+        out, ref = out[0], ref[0]
+    rel = (out - ref).abs() / torch.clamp(ref.abs(), min=1e-3)
+    assert float(rel.max()) < tol
+    median, share = (homog_bar(out, ref, channels=1) if kernel == "r"
+                     else homog_bar(out.T, ref.T))
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+@pytest.mark.parametrize("kernel", sorted(GRID_CHECKS))
+@pytest.mark.parametrize("case", ["walls", "cubes"])
+def test_cuda_grid_pre_reject_agrees_with_the_wald_test(cuda, kernel, case):
+    """Kernel 4's and kernel 6's checking instantiations on every shadow
+    segment of a launch on the ragged grid shapes, with the box's 12
+    walls or the 780 triangles of a cube field (a plane pack above the
+    default cap of dynamic shared memory): no triangle the pre-reject
+    skips blocks, no segment is decided differently, it skips some
+    tests, and the output is the kernel's; the checking launch is counted
+    on its own entry."""
+    packs = _grid_packs(cuda)
+    if case == "cubes":
+        packs = (*packs[:2], _cube_packs(cuda)[2], *packs[3:])
+    fn, check_fn = GRID_CHECKS[kernel]
+    args = packs
+    if kernel == "clustered":
+        args = (*packs, *_tables(cuda, packs[0].shape[1], packs[1].shape[1]))
+    before = (fn.launches, check_fn.launches)
+    out, counts = check_fn(*args, seed=19)
+    assert (fn.launches, check_fn.launches) == (before[0], before[1] + 1)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] >= counts["segments"] > 0
+    assert counts["considered"] > counts["skipped"] > 0
+    _grid_close(kernel, out, fn(*args, seed=19))
+
+
+@pytest.mark.parametrize("shape", [(5, 77), (37, 33), (16, 32), (129, 8),
+                                   (260, 65)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_grid_r_kernel_on_ragged_tiles(cuda, shape):
+    """Kernel 6 against its plain version with fewer rays than a block
+    takes, ray and VRL counts that are not multiples of its tile, whole
+    tiles, and fewer VRLs than a chunk: R's mean at the homogeneous bar,
+    its variance at R_VAR_MEDIAN, the pairs of an invalid ray or VRL
+    written as 0; a repeat launch is bit-identical."""
+    n_rays, n_vrls = shape
+    packs = _grid_packs(cuda)
+    packs = (packs[0][:, :n_rays].contiguous(),
+             packs[1][:, :n_vrls].contiguous(), *packs[2:])
+    out = vrl_r_hetero(*packs, seed=37)
+    ref = vrl_r_hetero_reference(*packs, philox_uniforms(
+        37, n_rays, n_vrls, 6, device=cuda))
+    assert out.shape == (2, n_rays, n_vrls) and torch.isfinite(out).all()
+    median, share = homog_bar(out[0], ref[0], channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    nz = ref[1] > R_VAR_FLOOR
+    if int(nz.sum()) > 0:
+        assert float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median()) \
+            < R_VAR_MEDIAN
+    idle = ~((packs[0][pk.VALID] > 0.5)[:, None]
+             & (packs[1][pk.VVALID] > 0.5)[None])
+    assert int(idle.sum()) > 0 and not out[:, idle].any()
+    assert torch.equal(out, vrl_r_hetero(*packs, seed=37))
+
+
+@pytest.mark.parametrize("n_cols", [1, 33])
+def test_cuda_grid_clustered_kernel_table_widths(cuda, n_cols):
+    """Kernel 4 against its plain version with a table of one column and
+    with one column more than a staged piece of VRL_CHUNK: the
+    homogeneous bar, rays at row -1 sum to 0; a repeat launch is
+    bit-identical."""
+    packs = _grid_packs(cuda)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    rows, ids, ws = _tables(cuda, n_rays, n_vrls, n_cols=n_cols)
+    out = vrl_sum_hetero_clustered(*packs, rows, ids, ws, seed=41)
+    ref = vrl_sum_hetero_clustered_reference(
+        *packs, rows, ids, ws, philox_table_uniforms(41, rows, ids, 6))
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    assert torch.equal(out, vrl_sum_hetero_clustered(*packs, rows, ids, ws,
+                                                     seed=41))
+
+
 # --- the grid-medium backward kernel -----------------------------------------
 
 # d_density is summed by atomics in an order that varies between runs: a
@@ -724,14 +821,36 @@ def test_cuda_grid_bwd_kernel_on_a_2x2x2_grid(cuda):
     _assert_grid_bwd_close(out, ref, 0, min_voxels=10)
 
 
-@pytest.mark.parametrize("kernel", ["sum", "bwd", "clustered_bwd"])
+@pytest.mark.parametrize("kernel", ["sum", "bwd", "clustered_bwd",
+                                    "clustered", "r"])
 def test_cuda_grid_kernels_with_3_uv_steps(cuda, kernel):
     """uv_steps = 3 takes the generic instantiation of the grid sum, of
-    its VJP and of the clustered VJP (the run-time step count; 4 steps,
-    every caller's, take the one compiled for 4): each against its plain
-    version at 3 steps, and different from the 4-step result."""
+    its VJP, of the clustered sum and VJP and of R (the run-time step
+    count; 4 steps, every caller's, take the one compiled for 4): each
+    against its plain version at 3 steps, and different from the 4-step
+    result."""
     packs = _grid_packs(cuda)
     n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    if kernel == "clustered":
+        rows, ids, ws = _tables(cuda, n_rays, n_vrls)
+        out = vrl_sum_hetero_clustered(*packs, rows, ids, ws, seed=23,
+                                       uv_steps=3)
+        ref = vrl_sum_hetero_clustered_reference(
+            *packs, rows, ids, ws, philox_table_uniforms(23, rows, ids, 6),
+            uv_steps=3)
+        median, share = homog_bar(out.T, ref.T)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+        assert not torch.equal(out, vrl_sum_hetero_clustered(
+            *packs, rows, ids, ws, seed=23))
+        return
+    if kernel == "r":
+        out = vrl_r_hetero(*packs, seed=23, uv_steps=3)
+        ref = vrl_r_hetero_reference(*packs, philox_uniforms(
+            23, n_rays, n_vrls, 6, device=cuda), uv_steps=3)
+        median, share = homog_bar(out[0], ref[0], channels=1)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+        assert not torch.equal(out, vrl_r_hetero(*packs, seed=23))
+        return
     if kernel == "clustered_bwd":
         rows, ids, ws = _tables(cuda, n_rays, n_vrls)
         gbar = torch.as_tensor(np.random.default_rng(9).uniform(
@@ -789,9 +908,10 @@ def test_cuda_grid_bwd_per_vrl_sums_against_float64(cuda):
 
 def test_cuda_grid_occupancy_query(cuda):
     """The occupancy entries answer for both grid instantiations of the
-    sum, its VJP and the clustered VJP: at least one block of each fits
-    on an SM."""
-    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered_bwd"):
+    sum, its VJP, the clustered sum, its VJP and R: at least one block of
+    each fits on an SM."""
+    for entry in ("vrl_sum", "vrl_sum_bwd", "vrl_sum_clustered_bwd",
+                  "vrl_sum_clustered", "vrl_r"):
         for uv in (4, 3):
             assert occupancy(entry, True, 12, uv) >= 1
 

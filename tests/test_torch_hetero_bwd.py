@@ -55,6 +55,7 @@ from tests.test_torch_hetero_render import (
 )
 from tests.torch_port_utils import (
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -169,16 +170,11 @@ def _gbar(seed, n):
         np.float32)
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """The JAX package's results on 8x8 x N_VRLS of cornell_grid_smoke
-    through its Pallas grid kernels in interpret mode, both kernel
-    modules' _u01 patched to the SEQ cycle while traced (jit caches
-    cleared around the patch; the backward kernel compiles once for the
-    two VJPs): vrl_sum_hetero_diff's pack cotangents on the preset
-    ("vjp") and with zero channels ("zero"), and the mean image of
-    render_with_vrls_pallas_hetero_diff and its gradient in an albedo
-    multiplier and g ("render")."""
+def _interpret_refs():
+    """jax_refs' interpret-mode results ("vjp", "zero", "render"), both
+    kernel modules' _u01 patched to the SEQ cycle while traced (jit
+    caches cleared around the patch; the backward kernel compiles once
+    for the two VJPs). Run by in_child."""
     counter = {"i": 0}
 
     def cycle(shape):
@@ -186,11 +182,9 @@ def jax_refs():
         counter["i"] += 1
         return jnp.full(shape, v, jnp.float32)
 
-    out = {"gbar": _gbar(1, 64), "gbar_zero": _gbar(3, 64)}
-    out["setup"] = _setup()
-    out["setup_zero"] = _setup(albedo=(0.92, 0.92, 0.0),
-                               power_scale=(1.0, 0.0, 1.0))
-    jscene, _, _, _, jvrls = out["setup"]
+    out = {}
+    setup = _setup()
+    jscene, _, _, _, jvrls = setup
     cp_pack, _ = jpk.pack_cp(jscene.medium, rank=CP_RANK)
     cfg = JVRLConfig(vol_vol_samples=SVV, vol_surf_samples=SVS)
 
@@ -209,8 +203,10 @@ def jax_refs():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(vp, "_u01", cycle)
         mp.setattr(vpb, "_u01", cycle)
-        out["vjp"] = _jax_vjp(*out["setup"], out["gbar"])
-        out["zero"] = _jax_vjp(*out["setup_zero"], out["gbar_zero"])
+        out["vjp"] = _jax_vjp(*setup, _gbar(1, 64))
+        out["zero"] = _jax_vjp(*_setup(albedo=(0.92, 0.92, 0.0),
+                                       power_scale=(1.0, 0.0, 1.0)),
+                               _gbar(3, 64))
         with pltpu.force_tpu_interpret_mode():
             (_, img), grads = jax.value_and_grad(
                 jloss, argnums=(0, 1), has_aux=True)(jnp.ones((3,)),
@@ -221,6 +217,22 @@ def jax_refs():
     # each kernel, traced once (forward and backward), drew the cycle
     assert counter["i"] == 2 * len(SEQ)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's results on 8x8 x N_VRLS of cornell_grid_smoke
+    through its Pallas grid kernels in interpret mode, computed in a
+    child process (in_child): vrl_sum_hetero_diff's pack cotangents on
+    the preset ("vjp") and with zero channels ("zero"), and the mean
+    image of render_with_vrls_pallas_hetero_diff and its gradient in an
+    albedo multiplier and g ("render"); with their set-ups and output
+    cotangents."""
+    return {"gbar": _gbar(1, 64), "gbar_zero": _gbar(3, 64),
+            "setup": _setup(),
+            "setup_zero": _setup(albedo=(0.92, 0.92, 0.0),
+                                 power_scale=(1.0, 0.0, 1.0)),
+            **in_child(_interpret_refs)}
 
 
 def test_vjp_matches_jax_interpret(jax_refs):

@@ -47,6 +47,7 @@ from tests.test_torch_hetero_pallas import CP_RANK
 from tests.test_torch_hetero_render import N_VRLS, _jax_scene, _jax_vrls
 from tests.torch_port_utils import (
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -58,13 +59,9 @@ SLICING = dict(target_num_slices=8, target_pixel_undersampling=8.0)
 BAND = (0.85, 1.15)  # clustered / unclustered image mean over 3 seeds
 
 
-@pytest.fixture(scope="module")
-def jax_ref():
-    """The JAX package's clustered prepass with its Pallas grid R kernel
-    (rank-CP_RANK CP fit) and its grid clustered render on those tables,
-    both in interpret mode, with the kernels' _u01 returning the next
-    SEQ_UNIFORMS constant at each call while traced (jit caches cleared
-    around the patch)."""
+def _interpret_refs():
+    """The body of the `jax_ref` fixture, run in a child process by
+    in_child."""
     jscene = _jax_scene(W, H, 8)
     jvrls = _jax_vrls()
     jparams = jalvrl.ALVRLParams(vrl_target_num=N_VRLS,
@@ -94,6 +91,17 @@ def jax_ref():
                                                device="cpu"),
                 vrls=convert.vrls_from_numpy(jax_vrls_leaves(jvrls),
                                              device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX package's clustered prepass with its Pallas grid R kernel
+    (rank-CP_RANK CP fit) and its grid clustered render on those tables,
+    both in interpret mode, with the kernels' _u01 returning the next
+    SEQ_UNIFORMS constant at each call while traced (jit caches cleared
+    around the patch). Computed in a child process
+    (tests/torch_port_utils.py in_child)."""
+    return in_child(_interpret_refs)
 
 
 def test_render_clustered_matches_pallas_hetero_interpret(jax_ref):

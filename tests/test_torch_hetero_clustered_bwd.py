@@ -63,6 +63,7 @@ from tests.test_torch_hetero_render import _grid_packs, _jax_scene, _jax_vrls
 from tests.torch_port_utils import (
     CPU,
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -142,13 +143,17 @@ def _jax_vjp(jscene, ray_o, ray_d, jhit, jvrls, gbar):
             (d_pw_t * power[None]).sum(dim=1).float(), _t(d_med)[0, 0:8])
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """The JAX package's grid clustered VJP (CP rank 16, interpret mode)
-    on the preset ("vjp") and with a zero VRL power channel and a zero
-    albedo channel ("zero"), both kernel modules' _u01 patched to the SEQ
-    cycle while traced (jit caches cleared around the patch; the kernels
-    compile once for the two VJPs)."""
+def _gbars():
+    rng = np.random.default_rng(7)
+    return (rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
+            rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32))
+
+
+def _interpret_refs():
+    """jax_refs' interpret-mode VJPs ("vjp", "zero"), both kernel modules'
+    _u01 patched to the SEQ cycle while traced (jit caches cleared around
+    the patch; the kernels compile once for the two VJPs). Run by
+    in_child."""
     counter = {"i": 0}
 
     def cycle(shape):
@@ -156,21 +161,31 @@ def jax_refs():
         counter["i"] += 1
         return jnp.full(shape, v, jnp.float32)
 
-    rng = np.random.default_rng(7)
-    out = {"gbar": rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
-           "gbar_zero": rng.uniform(0.5, 1.5, (3, W * H)).astype(np.float32),
-           "setup": _setup(),
-           "setup_zero": _setup(albedo=(0.92, 0.92, 0.0),
-                                power_scale=(1.0, 0.0, 1.0))}
+    gbar, gbar_zero = _gbars()
+    out = {}
     jax.clear_caches()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(vp, "_u01", cycle)
         mp.setattr(vpb, "_u01", cycle)
-        out["vjp"] = _jax_vjp(*out["setup"], out["gbar"])
-        out["zero"] = _jax_vjp(*out["setup_zero"], out["gbar_zero"])
+        out["vjp"] = _jax_vjp(*_setup(), gbar)
+        out["zero"] = _jax_vjp(*_setup(albedo=(0.92, 0.92, 0.0),
+                                       power_scale=(1.0, 0.0, 1.0)), gbar_zero)
     jax.clear_caches()
     assert counter["i"] == 2 * len(SEQ)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's grid clustered VJP (CP rank 16, interpret mode,
+    computed in a child process: in_child) on the preset ("vjp") and with
+    a zero VRL power channel and a zero albedo channel ("zero"), with
+    their set-ups and output cotangents."""
+    gbar, gbar_zero = _gbars()
+    return {"gbar": gbar, "gbar_zero": gbar_zero, "setup": _setup(),
+            "setup_zero": _setup(albedo=(0.92, 0.92, 0.0),
+                                 power_scale=(1.0, 0.0, 1.0)),
+            **in_child(_interpret_refs)}
 
 
 def _tables():

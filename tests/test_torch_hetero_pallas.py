@@ -28,6 +28,7 @@ from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from tests.test_torch_hetero_render import N_VRLS, _jax_scene, _jax_vrls
 from tests.torch_port_utils import (
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -39,13 +40,9 @@ CP_RANK = 16  # CP fit of the 8^3 plume: 7.4e-4 relative, under the JAX
 R_MEAN_FLOOR = 1e-9
 
 
-@pytest.fixture(scope="module")
-def pallas_ref():
-    """The JAX package's unclustered grid render (fixed uniforms 0.5, 1 +
-    1 samples) and its R over every pixel's centre ray (the 6-cycle, 2 +
-    2 samples) through its Pallas grid kernels in interpret mode, with
-    a rank-CP_RANK CP fit; the kernels' _u01 patched while they are
-    traced, jit caches cleared around the patch."""
+def _interpret_refs():
+    """The body of the `pallas_ref` fixture, run in a child process by
+    in_child."""
     jscene = _jax_scene(8, 8, 8)
     jvrls = _jax_vrls()
     cp_pack, cp_err = jpk.pack_cp(jscene.medium, rank=CP_RANK)
@@ -81,6 +78,17 @@ def pallas_ref():
                 r=np.asarray(r)[:, :64, :N_VRLS],
                 ray_o=torch.as_tensor(np.asarray(ray_o)),
                 ray_d=torch.as_tensor(np.asarray(ray_d)))
+
+
+@pytest.fixture(scope="module")
+def pallas_ref():
+    """The JAX package's unclustered grid render (fixed uniforms 0.5, 1 +
+    1 samples) and its R over every pixel's centre ray (the 6-cycle, 2 +
+    2 samples) through its Pallas grid kernels in interpret mode, with
+    a rank-CP_RANK CP fit; the kernels' _u01 patched while they are
+    traced, jit caches cleared around the patch. Computed in a child process
+    (tests/torch_port_utils.py in_child)."""
+    return in_child(_interpret_refs)
 
 
 def test_render_matches_pallas_hetero_interpret(pallas_ref):

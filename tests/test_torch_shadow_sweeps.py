@@ -10,10 +10,13 @@ skips a triangle's Wald test when both tested ends of a segment lie on
 one side of its plane by a margin (vrl_common.cuh PlaneTris); the plain
 float32 twin of that pre-reject (ops.vrl_sum.plane_skip) must never skip
 a triangle whose Wald test blocks the segment, on adversarial segments,
-on every shadow segment of a 16x16 cornell_smoke render and on every
-one that the plain backward of a 16x16 train step tests, which kernel 8
-(csrc/vrl_sum_bwd.cu) sweeps with the same pre-reject. The kernels
-themselves run only on a CUDA card: see tests/test_torch_cuda.py.
+on every shadow segment of a 16x16 cornell_smoke render, on every one
+that the plain backward of a 16x16 train step tests, which kernel 8
+(csrc/vrl_sum_bwd.cu) sweeps with the same pre-reject, and on every one
+that the plain grid R and grid clustered sum test in a 16x16
+cornell_grid_smoke pass, which kernels 6 (csrc/vrl_r.cu) and 4
+(csrc/vrl_sum_clustered.cu) sweep with it. The kernels themselves run
+only on a CUDA card: see tests/test_torch_cuda.py.
 """
 
 import math
@@ -22,10 +25,13 @@ import numpy as np
 import pytest
 import torch
 
-from alvrl_tpu_torch.integrators.vrl import integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.ops import vrl_r as vr
 from alvrl_tpu_torch.ops import vrl_sum as vs
+from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.parallel.render import train_step
@@ -323,6 +329,80 @@ def test_pre_reject_on_a_train_steps_backward_segments(monkeypatch):
     assert seen["segments"] >= 256 * 4  # every ray's pairs, four samples
     assert seen["bad"] == 0
     assert seen["skips"] > 0.5 * seen["tests"]
+
+
+def test_pre_reject_on_a_grid_clustered_pass_segments(monkeypatch):
+    """Every shadow segment that the plain grid R (kernel 6's) and the
+    plain grid clustered sum (kernel 4's) test in a 16x16
+    cornell_grid_smoke pass (an 8^3 grid, 32 particles traced to depth 6
+    into 128 slots, 6 slices): no triangle that the pre-reject skips
+    blocks the segment. The vol-surf segments that start on a wall hit
+    (their tested end 1e-3 of the segment's length off the wall's plane)
+    are among them, and there the pre-reject skips fewer of the walls'
+    tests than elsewhere."""
+    scene = presets.cornell_grid_smoke(16, 16, grid_res=8, device="cpu")
+    planes = vs.plane_pack(pk.pack_tris(scene))
+    n = planes[:, 0:3]
+    seen = {k: {"segments": 0, "tests": 0, "skips": 0, "bad": 0,
+                "on_wall": 0, "wall_tests": 0, "wall_skips": 0}
+            for k in ("r", "clustered")}
+    stage = ["r"]
+    test = vs._occluded_packed
+
+    def spy(p, q, tris):
+        p, q = torch.broadcast_tensors(p, q)
+        skip = vs.plane_skip(p, q, planes)
+        hits = vs._wald_hits(p, q, tris)
+        # a start on some wall's plane (within 1e-5 of its scale)
+        dist = ((p[..., None, :] * n).sum(-1) - planes[:, 3]).abs()
+        on_wall = (dist <= 1e-5 * n.norm(dim=-1)).any(dim=-1)
+        c = seen[stage[0]]
+        c["segments"] += on_wall.numel()
+        c["tests"] += skip.numel()
+        c["skips"] += int(skip.sum())
+        c["bad"] += int((skip & hits).sum())
+        c["on_wall"] += int(on_wall.sum())
+        c["wall_tests"] += int(on_wall.sum()) * tris.shape[0]
+        c["wall_skips"] += int(skip[on_wall].sum())
+        return test(p, q, tris)
+
+    monkeypatch.setattr(vs, "_occluded_packed", spy)
+    params = alvrl.ALVRLParams(
+        vrl_target_num=128, num_particles=32, seed=0,
+        cluster=cl.ClusterParams(target_num_slices=6,
+                                 target_pixel_undersampling=8.0))
+    cfg = VRLConfig()
+    vrls = vrl.compact(tracer.trace(scene, torch.Generator().manual_seed(3),
+                                    32, tracer.TracerConfig(max_depth=6)),
+                       128, slots_per_particle=6)
+    r_launches = vr.vrl_r_hetero.launches
+    sop, tv, tw, _ = alvrl.prepare_clustering(scene, vrls, 5, params, cfg)
+    assert vr.vrl_r_hetero.launches == r_launches  # the plain version ran
+    stage[0] = "clustered"
+    packs = integrator.pack_frame(scene, vrls)[3]
+    out = vsc.vrl_sum_hetero_clustered(*packs, sop, tv, tw, seed=5,
+                                       uv_steps=cfg.uv_tau_steps)
+    assert bool(torch.isfinite(out).all()) and float(out.abs().sum()) > 0.0
+    for c in seen.values():
+        assert c["bad"] == 0, seen
+        assert c["segments"] > 1000 and c["on_wall"] > 100, seen
+        assert c["skips"] > 0.5 * c["tests"], seen
+        assert c["wall_skips"] / c["wall_tests"] \
+            < c["skips"] / c["tests"], seen
+
+
+def test_grid_checking_launches_need_the_card():
+    """Kernels 4's and 6's checking launches take CUDA tensors only."""
+    scene = presets.cornell_grid_smoke(4, 4, grid_res=4, device="cpu")
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device="cpu"), 512)
+    packs = integrator.pack_frame(scene, vrls)[3]
+    with pytest.raises(ValueError):
+        vr.vrl_r_hetero_check(*packs)
+    ids = torch.arange(32, dtype=torch.int32)[None]
+    with pytest.raises(ValueError):
+        vsc.vrl_sum_hetero_clustered_check(*packs, np.zeros(16, np.int64), ids,
+                                           torch.ones((1, 32)))
 
 
 def test_plane_pack_bounds_its_margin():

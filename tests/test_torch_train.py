@@ -32,6 +32,7 @@ from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
 from tests.torch_port_utils import (
     SEQ_UNIFORMS,
+    in_child,
     jax_scene_leaves,
     jax_tracer_uniforms,
 )
@@ -58,8 +59,18 @@ def _render_uniforms():
         W * H, N_PARTICLES * DEPTH, len(SEQ_UNIFORMS)).contiguous()
 
 
-@pytest.fixture()
-def seq_uniform_kernels(monkeypatch):
+def _jax_scene():
+    """cornell_smoke W x H with σ_a at twice the preset's and HG g = 0.4."""
+    jscene = jpresets.cornell_smoke(width=W, height=H)
+    return jscene.replace(medium=jscene.medium.replace(
+        g=jnp.float32(0.4), sigma_a=jscene.medium.sigma_a * 2))
+
+
+def _jax_step():
+    """The JAX train_step on _jax_scene() in interpret mode, both kernel
+    modules' _u01 returning the next SEQ_UNIFORMS constant at each call
+    while traced (jit caches cleared around the patch): (loss, {param:
+    gradient}, _u01 calls). Run by in_child."""
     counter = {"i": 0}
 
     def mock(shape):
@@ -68,27 +79,29 @@ def seq_uniform_kernels(monkeypatch):
         return jnp.full(shape, v, jnp.float32)
 
     jax.clear_caches()
-    monkeypatch.setattr(vp, "_u01", mock)
-    monkeypatch.setattr(vpb, "_u01", mock)
-    yield counter
-    monkeypatch.undo()
-    jax.clear_caches()
-
-
-def test_train_step_matches_jax(seq_uniform_kernels):
-    """σ_a at twice the preset's, HG g = 0.4: loss to LOSS_RTOL and every
-    gradient entry to GRAD_RTOL."""
-    jscene = jpresets.cornell_smoke(width=W, height=H)
-    jscene = jscene.replace(medium=jscene.medium.replace(
-        g=jnp.float32(0.4), sigma_a=jscene.medium.sigma_a * 2))
-    key = jax.random.key(11)
-    with pltpu.force_tpu_interpret_mode():
-        ref_loss, ref_grads = jrender.train_step(
-            make_mesh(1), jscene, key, jnp.asarray(_target()), JVRLConfig(),
-            num_particles=N_PARTICLES,
+    with pytest.MonkeyPatch.context() as mp, \
+            pltpu.force_tpu_interpret_mode():
+        mp.setattr(vp, "_u01", mock)
+        mp.setattr(vpb, "_u01", mock)
+        loss, grads = jrender.train_step(
+            make_mesh(1), _jax_scene(), jax.random.key(11),
+            jnp.asarray(_target()), JVRLConfig(), num_particles=N_PARTICLES,
             tracer_cfg=jtracer.TracerConfig(max_depth=DEPTH),
             use_pallas=True)
-    assert seq_uniform_kernels["i"] == 2 * len(SEQ_UNIFORMS)
+        loss = np.asarray(loss)
+        grads = {k: np.asarray(v) for k, v in grads.items()}
+    jax.clear_caches()
+    return loss, grads, counter["i"]
+
+
+def test_train_step_matches_jax():
+    """σ_a at twice the preset's, HG g = 0.4: loss to LOSS_RTOL and every
+    gradient entry to GRAD_RTOL. The JAX step runs in a child process
+    (tests/torch_port_utils.py in_child)."""
+    jscene = _jax_scene()
+    key = jax.random.key(11)
+    ref_loss, ref_grads, n_draws = in_child(_jax_step)
+    assert n_draws == 2 * len(SEQ_UNIFORMS)
 
     k_trace, _ = jax.random.split(key)
     u_emit, u_walk = jax_tracer_uniforms(k_trace, N_PARTICLES, DEPTH)

@@ -46,6 +46,7 @@ from tests.torch_port_utils import (
     BENCH_VRLS,
     SEQ_UNIFORMS,
     hit_from_jax,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -118,11 +119,11 @@ def test_reference_matches_pair_contribution(medium):
     _assert_bar(out.T, ref)
 
 
-@pytest.fixture()
-def seq_uniform_kernel(monkeypatch):
-    """The Pallas kernel's _u01 returns the next SEQ_UNIFORMS constant
-    at each call while it is traced; jit caches are cleared around the
-    patch so that the render is traced afresh with it, and after it."""
+def _interpret_render():
+    """render_with_vrls_pallas in interpret mode on cornell_smoke 16x16
+    with all 508 bench VRLs, the Pallas kernel's _u01 returning the next
+    SEQ_UNIFORMS constant at each call while traced (jit caches cleared
+    around the patch): (image, _u01 calls). Run by in_child."""
     counter = {"i": 0}
 
     def mock(shape):
@@ -131,23 +132,30 @@ def seq_uniform_kernel(monkeypatch):
         return jnp.full(shape, v, jnp.float32)
 
     jax.clear_caches()
-    monkeypatch.setattr(vp, "_u01", mock)
-    yield counter
-    monkeypatch.undo()
+    with pytest.MonkeyPatch.context() as mp, \
+            pltpu.force_tpu_interpret_mode():
+        mp.setattr(vp, "_u01", mock)
+        img = np.asarray(jintegrator.render_with_vrls_pallas(
+            jpresets.cornell_smoke(width=16, height=16), _bench_jvrls(),
+            jax.random.key(1), JVRLConfig()))
     jax.clear_caches()
+    return img, counter["i"]
 
 
-def test_plain_slice_matches_pallas_interpret(seq_uniform_kernel):
+def _bench_jvrls():
+    return jvrl.compact(jvrl.load_ascii(BENCH_VRLS, particle_count=78.0),
+                        512)
+
+
+def test_plain_slice_matches_pallas_interpret():
     """The whole plain slice (cornell_smoke 16x16, all 508 bench VRLs)
-    vs render_with_vrls_pallas in interpret mode, both drawing the same
-    per-draw constants."""
+    vs render_with_vrls_pallas in interpret mode (run in a child process:
+    tests/torch_port_utils.py in_child), both drawing the same per-draw
+    constants."""
     jscene = jpresets.cornell_smoke(width=16, height=16)
-    jvrls = jvrl.compact(jvrl.load_ascii(BENCH_VRLS, particle_count=78.0),
-                         512)
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(jintegrator.render_with_vrls_pallas(
-            jscene, jvrls, jax.random.key(1), JVRLConfig()))
-    assert seq_uniform_kernel["i"] == len(SEQ_UNIFORMS)
+    jvrls = _bench_jvrls()
+    ref, n_draws = in_child(_interpret_render)
+    assert n_draws == len(SEQ_UNIFORMS)
 
     scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device="cpu")

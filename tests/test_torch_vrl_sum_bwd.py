@@ -46,6 +46,7 @@ from tests.torch_port_utils import (
     BENCH_VRLS,
     SEQ_UNIFORMS,
     hit_from_jax,
+    in_child,
     jax_scene_leaves,
     jax_vrls_leaves,
 )
@@ -59,26 +60,6 @@ FD_TOL = 5e-3      # same-seed central differences (tests/test_pallas_bwd.py)
 # (g, phase kind, short VRLs)
 CASES = {"hg_short": (0.4, 0, True), "hg_long": (0.4, 0, False),
          "rayleigh_short": (0.0, 1, True), "rayleigh_long": (0.0, 1, False)}
-
-
-@pytest.fixture()
-def seq_uniform_kernels(monkeypatch):
-    """Both Pallas kernel modules draw the next SEQ_UNIFORMS constant at
-    each _u01 call while traced (vrl_pallas_bwd imports _u01 by name);
-    jit caches are cleared around the patch."""
-    counter = {"i": 0}
-
-    def mock(shape):
-        v = SEQ_UNIFORMS[counter["i"] % len(SEQ_UNIFORMS)]
-        counter["i"] += 1
-        return jnp.full(shape, v, jnp.float32)
-
-    jax.clear_caches()
-    monkeypatch.setattr(vp, "_u01", mock)
-    monkeypatch.setattr(vpb, "_u01", mock)
-    yield counter
-    monkeypatch.undo()
-    jax.clear_caches()
 
 
 def _jax_setup(g, kind, sigma_s=(0.8, 0.8, 0.8), power_scale=(1, 1, 1)):
@@ -132,6 +113,29 @@ def _jax_vjp(jscene, ray_o, ray_d, jhit, jvrls, gbar, short, kind):
             t(d_vrl)[vp._VP:vp._VP + 3, :N_VRLS], t(d_med)[0, 0:7])
 
 
+def _interpret_vjp(setup_args, setup_kw, gbar, short, kind):
+    """_jax_vjp on _jax_setup(*setup_args, **setup_kw), both Pallas kernel
+    modules drawing the next SEQ_UNIFORMS constant at each _u01 call
+    while traced (vrl_pallas_bwd imports _u01 by name; jit caches
+    cleared around the patch), and the number of those calls. Run by
+    in_child."""
+    counter = {"i": 0}
+
+    def mock(shape):
+        v = SEQ_UNIFORMS[counter["i"] % len(SEQ_UNIFORMS)]
+        counter["i"] += 1
+        return jnp.full(shape, v, jnp.float32)
+
+    jax.clear_caches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vp, "_u01", mock)
+        mp.setattr(vpb, "_u01", mock)
+        out = _jax_vjp(*_jax_setup(*setup_args, **setup_kw), gbar, short,
+                       kind)
+    jax.clear_caches()
+    return out, counter["i"]
+
+
 def _port_vjp(packs, gbar, short, kind):
     rays, vrls, tris, med = (p.clone().requires_grad_() if i != 2 else p
                              for i, p in enumerate(packs))
@@ -150,16 +154,18 @@ def _assert_bar(out, ref):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_vjp_matches_jax(seq_uniform_kernels, case):
+def test_vjp_matches_jax(case):
     """d_tau, d_power per entry at the homogeneous bar; d sigma_t,
     d sigma_s and d g to PAR_RTOL; the other rows of the packs get no
-    gradient, and Rayleigh's d g is exactly 0."""
+    gradient, and Rayleigh's d g is exactly 0. The JAX VJP runs in a
+    child process (tests/torch_port_utils.py in_child)."""
     g, kind, short = CASES[case]
     setup = _jax_setup(g, kind)
     gbar = np.random.default_rng(1).uniform(
         -1.0, 1.0, (3, W * H)).astype(np.float32)
-    ref_out, ref_tau, ref_pw, ref_par = _jax_vjp(*setup, gbar, short, kind)
-    assert seq_uniform_kernels["i"] == 2 * len(SEQ_UNIFORMS)
+    (ref_out, ref_tau, ref_pw, ref_par), n_draws = in_child(
+        _interpret_vjp, (g, kind), {}, gbar, short, kind)
+    assert n_draws == 2 * len(SEQ_UNIFORMS)
 
     out, d_rays, d_vrls, d_med = _port_vjp(_port_packs(*setup), gbar, short,
                                            kind)
@@ -234,18 +240,19 @@ def test_port_vjp_matches_same_seed_fd(kind):
         assert abs(ad - fd) <= FD_TOL * abs(fd), (name, idx, ad, fd)
 
 
-def test_zero_channels_have_gradients(seq_uniform_kernels):
+def test_zero_channels_have_gradients():
     """ROADMAP C7: with VRL power channel 1 and sigma_s channel 2 at 0
     (as a light of intensity (8, 0, 8) in a medium that does not scatter
     blue gives), the reference's quotient cotangents return 0 for d
     power[1] and d sigma_s[2]. Both terms are linear in these values, so
     the derivative is not 0: the port's matches central differences of
     its plain forward."""
-    setup = _jax_setup(0.4, 0, sigma_s=(0.8, 0.8, 0.0),
-                       power_scale=(1.0, 0.0, 1.0))
+    setup_kw = dict(sigma_s=(0.8, 0.8, 0.0), power_scale=(1.0, 0.0, 1.0))
+    setup = _jax_setup(0.4, 0, **setup_kw)
     gbar = np.random.default_rng(3).uniform(
         0.5, 1.5, (3, W * H)).astype(np.float32)
-    _, _, ref_pw, ref_par = _jax_vjp(*setup, gbar, True, 0)
+    (_, _, ref_pw, ref_par), _ = in_child(_interpret_vjp, (0.4, 0), setup_kw,
+                                          gbar, True, 0)
     assert float(ref_pw[1].abs().max()) == 0.0
     assert float(ref_par[5]) == 0.0
 

@@ -1,8 +1,13 @@
 """Helpers shared by the tests that hold alvrl_tpu_torch against alvrl_tpu:
 leaves of the JAX package's objects as numpy arrays, for
-alvrl_tpu_torch.convert."""
+alvrl_tpu_torch.convert, and the JAX package's Pallas interpret-mode
+references computed in a child process of their own (in_child)."""
 
+import importlib
+import multiprocessing
 import os
+import pickle
+import traceback
 
 import numpy as np
 import torch
@@ -166,3 +171,70 @@ def chain_bvh_pack(tris, depth):
             nodes[i, 8 * c + 4:8 * c + 7] = box_hi
     return vb.BvhPack(torch.as_tensor(nodes, device=tris.device),
                       tris.contiguous(), depth)
+
+
+# JAX's TPU interpret mode can deadlock: a pallas_call's io_callback
+# (the interpreter's barrier, shared_memory.update_clocks_for_device_
+# barrier) dispatches JAX operations of its own, which with the CPU
+# client's asynchronous dispatch can queue behind an operation that the
+# main thread dispatched after the pallas_call and that waits for its
+# result. The children run computations inline instead
+# (jax_cpu_enable_async_dispatch off; the same results bit for bit), and
+# a child still running after INTERPRET_LIMIT_S seconds, over twice the
+# slowest reference's time in a whole tier-1 run, is stopped and the
+# reference computed once more.
+INTERPRET_LIMIT_S = 360.0
+
+
+def _child_main(conn, module, name, args):
+    """A child's body: JAX on the CPU as tests/conftest.py sets it, with
+    inline dispatch (see INTERPRET_LIMIT_S), before anything imports the
+    test module, then module.name(*args); sends ("ok", result) or
+    ("error", traceback) by plain pickle (torch's reducers would share
+    tensors through descriptors that end with the child)."""
+    try:
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_num_cpu_devices", 8)
+        jax.config.update("jax_enable_x64", False)
+        jax.config.update("jax_cpu_enable_async_dispatch", False)
+        assert jax.default_backend() == "cpu", jax.default_backend()
+        fn = getattr(importlib.import_module(module), name)
+        reply = ("ok", fn(*args))
+    except BaseException:  # noqa: BLE001 - the parent re-raises it
+        reply = ("error", traceback.format_exc())
+    conn.send_bytes(pickle.dumps(reply))
+    conn.close()
+
+
+def in_child(fn, *args):
+    """fn(*args) (a module-level function whose result pickles) computed
+    in a spawned child process with JAX on the CPU. A child still running
+    after INTERPRET_LIMIT_S seconds is killed and fn run once more in a
+    new child: the references are deterministic, so a second run gives
+    what the first would have. Raises what fn raised, or TimeoutError after two
+    children ran past the limit."""
+    ctx = multiprocessing.get_context("spawn")
+    for _ in range(2):
+        recv, send = ctx.Pipe(duplex=False)
+        child = ctx.Process(target=_child_main,
+                            args=(send, fn.__module__, fn.__name__, args),
+                            daemon=True)
+        child.start()
+        send.close()
+        if recv.poll(INTERPRET_LIMIT_S):
+            try:
+                status, value = pickle.loads(recv.recv_bytes())
+            except EOFError:  # it died before sending
+                child.join()
+                raise RuntimeError(f"{fn.__name__}'s child process exited "
+                                   f"with code {child.exitcode}") from None
+            child.join()
+            if status == "ok":
+                return value
+            raise RuntimeError(f"{fn.__name__} failed in its child "
+                               f"process:\n{value}")
+        child.kill()
+        child.join()
+    raise TimeoutError(f"{fn.__name__} ran past {INTERPRET_LIMIT_S} s in two "
+                       "child processes")
