@@ -23,29 +23,35 @@
 // 6 draws; config 4 adds its 3.4 MB density grid, which stays in L2).
 // The output, 2 P N floats (1.1 MB at config 2, 8.3 MB at config 4's
 // 2,032 rays), is small beside that work. Each block takes a tile of
-// rays x VRLs, triangles and its VRL chunk in shared memory, so
-// that a few hundred rays still fill the card: every pair is one
-// thread's loop step, and each pair's two outputs are written once, with
-// no reduction across threads, so a repeat is bit-identical.
-//   * The homogeneous R (kernel 5) keeps vrl_sum.cu's tile: RAY_BLOCK
-//     rays x VRL_CHUNK VRLs, a thread per ray looping over the chunk, the
-//     flat sweep (FlatTris); its threads write with a stride of N floats
-//     between neighbouring rays (1.1 MB at config 2).
+// rays x VRL_CHUNK VRLs, the triangles' plane pack and its VRL chunk in
+// shared memory, with the lanes of a warp over the VRLs (one ray a warp
+// at a time), so that a few hundred rays still fill the card, a warp's
+// stores of out[b, n0 ..] are contiguous and each lane reads its own
+// column of the staged VRL rows (no two lanes in a bank): every pair is
+// one thread's loop step, and each pair's two outputs are written once,
+// with no reduction across threads, so a repeat is bit-identical. Both
+// sweep the shadow segments with kernel 1's plane pre-reject (PlaneTris)
+// over the plane pack the C entry makes in front of the launch, and
+// have its checking instantiation (MODE_CHECK).
+//   * The homogeneous R (kernel 5): at config 2 (271 rays x 512 VRLs)
+//     the old tile of RAY_BLOCK rays x VRL_CHUNK VRLs with a thread per
+//     ray gave 3 x 16 = 48 blocks for 132 SMs, its neighbouring threads
+//     storing N floats apart. Its tile is H_RAYS = 4 rays, one a warp
+//     (68 x 16 = 1,088 blocks at config 2, 4 an SM); tiles of 8 and 16
+//     rays measured 20-30 % slower on an H100 (PERF.md). Each thread
+//     takes one pair, in a loop of its own, so that the grid R's code
+//     stays as it is (its loop, unrolled over 4 pairs a thread, spilled
+//     36 B in the homogeneous body).
 //   * The grid R (kernel 6) fills the card at config 4's 2,032 x 512:
 //     the old tile gave 16 x 16 = 256 blocks, at most 2 an SM. Its tile
 //     is R_RAYS = 16 rays x VRL_CHUNK VRLs (2,032 blocks at config 4, 4
-//     an SM), the lanes of a warp over the VRLs (one ray a warp at a
-//     time), so that a warp's stores of out[b, n0 ..] are contiguous,
-//     each lane reads its own column of the staged VRL-OD rows (no two
-//     lanes in a bank) and the ray's eye-OD table, staged for the
-//     tile's rays in shared memory (a row of NQ + 1 floats a ray), is
-//     read by the whole warp at once. Tiles of 8 x 32 and 32 x 32 with
-//     lanes over VRLs, and of 64 x 32 and 128 x 8 with lanes over rays,
-//     measured within 2-5 % of it on an H100 (PERF.md). It carries
-//     kernel 4's grid items: the U-V step count a template argument
-//     (UV_STEPS; UV = 0 the generic count) and kernel 1's plane
-//     pre-reject (PlaneTris) over the plane pack the C entry makes in
-//     front of the launch, with its checking instantiation (MODE_CHECK).
+//     an SM), and the ray's eye-OD table, staged for the tile's rays in
+//     shared memory (a row of NQ + 1 floats a ray), is read by the whole
+//     warp at once. Tiles of 8 x 32 and 32 x 32 with lanes over VRLs,
+//     and of 64 x 32 and 128 x 8 with lanes over rays, measured within
+//     2-5 % of it on an H100 (PERF.md). It carries kernel 4's grid
+//     items: the U-V step count a template argument (UV_STEPS; UV = 0
+//     the generic count).
 //
 // Random numbers: Philox4x32-10 with key (seed, 0) and counter (p, n,
 // call, 0), the draw order of vrl_sum.cu, so that sum_n mean[p, n] is the
@@ -60,15 +66,15 @@ namespace {
 
 constexpr float LUM_R = 0.212671f, LUM_G = 0.715160f, LUM_B = 0.072169f;  // Rec. 709
 
-// the grid R's tile: R_RAYS rays x VRL_CHUNK VRLs a block, the lanes of
-// a warp over the VRLs (module comment); the homogeneous R's: RAY_BLOCK
-// rays x VRL_CHUNK VRLs, a thread per ray
-constexpr int R_RAYS = 16;
+// the tiles, R_RAYS (grid) or H_RAYS (homogeneous) rays x VRL_CHUNK
+// VRLs a block, the lanes of a warp over the VRLs (module comment)
+constexpr int R_RAYS = 16, H_RAYS = 4;
 static_assert((R_RAYS * VRL_CHUNK) % RAY_BLOCK == 0, "a tile of whole rounds");
+static_assert(H_RAYS % N_WARPS == 0 && VRL_CHUNK == 32, "whole warps, a lane a VRL");
 
 template <bool GRID>
 __host__ __device__ constexpr int r_tile_rays() {
-  return GRID ? R_RAYS : RAY_BLOCK;
+  return GRID ? R_RAYS : H_RAYS;
 }
 
 // The pair (ray b, VRL n = column c of the staged chunk): R's two
@@ -105,8 +111,7 @@ __device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int 
   out[((size_t)B + b) * N + n] = var;
 }
 
-// tris: the triangles, TRI_COLS floats each (homogeneous), or their
-// plane pack (grid media), as sweep_floats<GRID>
+// tris: the triangles' plane pack, as sweep_floats<true>
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_r_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
@@ -115,13 +120,13 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                  int svs, float* __restrict__ out, unsigned long long* __restrict__ counts) {
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
-  float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<GRID>(T)
-  float* s_vrl = s_tri + sweep_floats<GRID>(T);       // (V_ROWS, VRL_CHUNK)
+  float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<true>(T)
+  float* s_vrl = s_tri + sweep_floats<true>(T);       // (V_ROWS, VRL_CHUNK)
   float* s_med = s_vrl + V_ROWS * VRL_CHUNK;          // grid: (GRID_MED_LEN,)
   float* s_etab = s_med + (GRID ? GRID_MED_LEN : 0);  // grid: (R_RAYS, NQ + 1)
   const int b0 = blockIdx.x * r_tile_rays<GRID>(), n0 = blockIdx.y * VRL_CHUNK;
   CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
-  const auto occl = stage_sweep<GRID, MODE>(tris, T, s_tri, &cnt);
+  const auto occl = stage_sweep<true, MODE>(tris, T, s_tri, &cnt);
   const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
   if constexpr (GRID)  // each ray's eye-OD table, a row of NQ + 1 floats
@@ -145,12 +150,14 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                                       seed, svv, svs, out);
     }
   } else {
-    const int b = b0 + threadIdx.x;
-    if (b < B) {
-      const Ray ray = load_ray(rays, B, b);
-      for (int c = 0; c < nc; ++c)
-        r_pair<PHASE, SHORT_VRLS, GRID>(ray, b, B, n0 + c, N, c, s_vrl, m, occl, uniforms, seed,
-                                        svv, svs, out);
+    // ray r of the tile to warp r % N_WARPS, column c to lane c: the
+    // grid loop's pairs, H_RAYS / N_WARPS a thread
+    const int c = threadIdx.x % 32;
+    for (int r = threadIdx.x / 32; r < H_RAYS; r += N_WARPS) {
+      const int b = b0 + r;
+      if (b >= B || c >= nc) break;
+      r_pair<PHASE, SHORT_VRLS, GRID>(load_ray(rays, B, b), b, B, n0 + c, N, c, s_vrl, m, occl,
+                                      uniforms, seed, svv, svs, out);
     }
   }
   if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
@@ -165,22 +172,20 @@ template <bool GRID, class Phase, class Short, class Uv>
 RKernel r_kernel(Phase, Short, Uv, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
-  if constexpr (GRID)
-    if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, true, Uv::value, MODE_CHECK>;
+  if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_CHECK>;
   return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM>;
 }
 
 // dynamic shared memory of the R kernel, in bytes, with T triangles
 template <bool GRID>
 size_t r_smem_bytes(int T) {
-  return (sweep_floats<GRID>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+  return (sweep_floats<true>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
           (GRID ? GRID_MED_LEN + (NQ + 1) * R_RAYS : 0)) *
          sizeof(float);
 }
 
-// Launches the R kernel on `stream`, in a grid medium after the plane
-// pack of the T triangles into `planes` ((T, 4 PLANE_F4) floats of
-// scratch) and in `mode` (MODE_CHECK adds its counts to
+// Launches the R kernel on `stream`, after the plane pack of the T
+// triangles into `planes` ((T, 4 PLANE_F4) floats of scratch), in `mode` (MODE_CHECK adds its counts to
 // counts[N_CHECK]); returns a cudaError_t (0 = launched).
 template <bool GRID>
 int launch_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
@@ -190,9 +195,9 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
   const int n_chunks = (N + VRL_CHUNK - 1) / VRL_CHUNK;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) ||
-      !mode_ok<GRID>(mode, counts))
+      !mode_ok<true>(mode, counts))
     return (int)cudaErrorInvalidValue;
-  const int pack = pack_planes<GRID>(tris, T, planes, stream);
+  const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   const dim3 blocks((B + r_tile_rays<GRID>() - 1) / r_tile_rays<GRID>(), n_chunks);
   const size_t smem = r_smem_bytes<GRID>(T);
@@ -213,19 +218,20 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
 extern "C" {
 
 // The homogeneous R. `out` is (2, B, N); `uniforms` may be null (Philox
-// stream from `seed`).
+// stream from `seed`); `planes` (T, 4 PLANE_F4) float scratch for the
+// triangles' plane pack (may be null for T = 0); mode 0 the R, 1 the
+// checking instantiation (counts: N_CHECK totals, zeroed by the caller,
+// as alvrl_vrl_sum's).
 int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
                 const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
-                int short_vrls, int phase_kind, float* out, void* stream) {
+                int short_vrls, int phase_kind, float* planes, int mode,
+                unsigned long long* counts, float* out, void* stream) {
   return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                         short_vrls, phase_kind, nullptr, MODE_SUM, nullptr, out, stream);
+                         short_vrls, phase_kind, planes, mode, counts, out, stream);
 }
 
 // The grid-medium R: the grid packs (ops/pack.py), the supersampled
-// density (nz, ny, nx) and the U-V quadrature's step count; `planes`
-// (T, 4 PLANE_F4) float scratch for the triangles' plane pack (may be
-// null for T = 0); mode 0 the R, 1 the checking instantiation (counts:
-// N_CHECK totals, zeroed by the caller, as alvrl_vrl_sum's); the rest as
+// density (nz, ny, nx) and the U-V quadrature's step count; the rest as
 // alvrl_vrl_r.
 int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
                        int T, const float* med, const float* density, int nz, int ny, int nx,
@@ -236,6 +242,9 @@ int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const
                         uniforms, seed, svv, svs, short_vrls, phase_kind, planes, mode, counts,
                         out, stream);
 }
+
+// The rays of a tile of the R kernel (grid 0: homogeneous, 1: grid).
+int alvrl_vrl_r_tile_rays(int grid) { return grid ? r_tile_rays<true>() : r_tile_rays<false>(); }
 
 // The R kernel's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
 int alvrl_vrl_r_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,

@@ -34,26 +34,44 @@
 //
 // What bounds it: as the clustered forward, fp32 ALU and SFU work per
 // pair-sample; the replay costs the forward's samples and the
-// cotangents add vrl_sum_bwd.cu's work per sample. The grid
-// instantiation (kernel 11) is built as the unclustered grid VJP's: the
-// U-V quadrature's step count a template argument (4, every caller's;
-// UV = 0 the generic run-time count), so that the steps' voxels and raw
-// densities are read once and consecutive reads of one voxel merged
-// into one reduction (vrl_common.cuh density_cots); the ray's eye-OD
-// table staged per thread in shared memory (stage_eod); at most 128
-// registers (BWD_MIN_BLOCKS, 4 blocks an SM). The design follows the
-// clustered forward's grid (one block per tile of RAY_BLOCK rays of one
-// table row, looping over the row's table in VRL_CHUNK pieces) and sums
-// everything but d_density in a fixed order, so a repeat is
+// cotangents add vrl_sum_bwd.cu's work per sample. Every instantiation
+// is held to 128 registers (BWD_MIN_BLOCKS, 4 blocks an SM). Each block
+// takes one tile of rays of one table row (group_by_slice's tiles,
+// contiguous per row) and loops over the row's table in VRL_CHUNK
+// pieces; the two media take two tilings:
+//   * homogeneous (kernel 10): at config 2 (16,384 rays, 100 x 19
+//     tables) the clustered forward's tiles of RAY_BLOCK rays were 164
+//     blocks, about 1.2 an SM, a fifth of their lanes padding. A tile
+//     here is CB_RAYS = 32 rays, a warp's lanes over them, and the
+//     block's N_WARPS warps over the row's columns (column c of a piece
+//     to warp c % N_WARPS): 542 tiles at config 2, 5.5 % padding.
+//     It sweeps kernel 1's plane pack with the plane pre-reject
+//     (PlaneTris<MODE_SUM>), made by the C entry in front of the launch;
+//     the same tiling with the pack's flat sweep (MODE_NO_REJECT) is its
+//     checking launch, whose outputs must be bit-identical. 128-ray
+//     tiles with each row's columns split over 4 blocks, whose per-ray
+//     partials a second pass adds in order, measured 9-10 % slower on
+//     an H100 (PERF.md).
+//   * grid (kernel 11): it fills the card with the forward's tiles of
+//     RAY_BLOCK rays (2,096 at config 4), each thread a ray walking the
+//     row's columns, and is built as the unclustered grid VJP: the U-V
+//     quadrature's step count a template argument (4, every caller's;
+//     UV = 0 the generic run-time count), so that the steps' voxels and
+//     raw densities are read once and consecutive reads of one voxel
+//     merged into one reduction (vrl_common.cuh density_cots); the ray's
+//     eye-OD table staged per thread in shared memory (stage_eod); the
+//     flat sweep (FlatTris).
+// Everything but d_density is summed in a fixed order, so a repeat is
 // bit-identical there:
-//   * per ray (d_tau, d_eod): each ray lies in exactly one tile, so its
-//     thread writes its sums over the row's columns straight to its
-//     column of the output (zeroed first for rays in no tile): no
-//     partials, no atomics;
-//   * per column (d_table): after each column, the block's rays are
-//     summed by warp shuffles and the warps in order into per-tile
-//     partials (n_tiles, ROWS, C); table_sums adds each row's tiles in
-//     tile order (group_by_slice makes them contiguous: row_tiles gives
+//   * per ray (d_tau, d_eod): each ray lies in exactly one tile. Grid:
+//     its thread writes its sums over the row's columns straight to its
+//     column of the output; homogeneous: each warp's sums over its
+//     columns, added in warp order through shared memory. The output is
+//     zeroed first for rays in no tile: no partials, no atomics;
+//   * per column (d_table): each column's sum over the tile's rays (grid:
+//     warp shuffles, then the warps in order; homogeneous: one warp's
+//     shuffles) goes once into per-tile partials (n_tiles, ROWS, C);
+//     table_sums adds each row's tiles in tile order (row_tiles gives
 //     each row's first tile, for any number of tiles per row) and forms
 //     d_weights;
 //   * per VRL (d_power, d_vod): vrl_sums adds the table slots that hold
@@ -69,6 +87,92 @@
 
 namespace {
 
+// rays of a homogeneous tile: one warp's lanes (module comment)
+constexpr int CB_RAYS = 32;
+static_assert(RAY_BLOCK == N_WARPS * CB_RAYS, "a warp a column");
+
+// The homogeneous backward (kernel 10): tile blockIdx.x, CB_RAYS rays of
+// one row (lane = ray), the warps over the row's columns; tris: the
+// triangles' plane pack, swept by PlaneTris<MODE> (MODE_SUM, or
+// MODE_NO_REJECT, the checking launch).
+template <int PHASE, bool SHORT_VRLS, int MODE>
+__global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
+    vrl_sum_clustered_bwd_warps_kernel(const float* __restrict__ rays, int B,
+                                       const float* __restrict__ vrls, int N,
+                                       const float* __restrict__ tris, int T,
+                                       const float* __restrict__ med,
+                                       const int* __restrict__ tile_rays,
+                                       const int* __restrict__ tile_row,
+                                       const int* __restrict__ table_ids,
+                                       const float* __restrict__ table_w, int C,
+                                       const float* __restrict__ uniforms, uint32_t seed,
+                                       int svv, int svs, const float* __restrict__ gbar,
+                                       float* __restrict__ d_ray, float* __restrict__ tile_part,
+                                       float* __restrict__ par_part) {
+  using L = Layout<false>;
+  extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
+  float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<true>(T)
+  float* s_vrl = s_tri + sweep_floats<true>(T);       // (VRL_ROWS, VRL_CHUNK)
+  float* s_tau = s_vrl + VRL_ROWS * VRL_CHUNK;        // (N_WARPS, 3, CB_RAYS)
+  float* s_par = s_tau + N_WARPS * L::ROWS * CB_RAYS;  // (N_WARPS, N_SUMS)
+  int* s_id = reinterpret_cast<int*>(s_par + N_WARPS * L::N_SUMS);  // (VRL_CHUNK,)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const auto occl = stage_sweep<true, MODE>(tris, T, s_tri);
+
+  const int tile = blockIdx.x;
+  const int b = tile_rays[(size_t)tile * CB_RAYS + lane];
+  const int* ids = table_ids + (size_t)tile_row[tile] * C;
+  const float* ws = table_w + (size_t)tile_row[tile] * C;
+  Ray ray{};  // padding slots keep ok = false, but join every shuffle
+  Cot c{};
+  if (b >= 0) {
+    ray = load_ray(rays, B, b);
+    for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
+  }
+  const Medium m(med);
+  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
+  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
+  const int n_draws = 2 * svv + svs;
+  float* part = tile_part + (size_t)tile * L::ROWS * C;  // this tile's (3, C)
+
+  for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
+    __syncthreads();  // the previous piece is consumed (and the block's set-up done)
+    const int nc = stage_table_piece(vrls, N, VRL_ROWS, ids, ws, C, c0, s_vrl, s_id);
+    __syncthreads();
+    for (int cc = warp; cc < nc; cc += N_WARPS) {
+      clear_pair_cots<false>(c);
+      // VVALID is the same for the whole warp; an invalid column sums 0
+      if (ray.ok && s_vrl[VVALID * VRL_CHUNK + cc] > 0.5f) {
+        const VrlPair p = pair_at<false>(ray, s_vrl, cc);
+        PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
+                          (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u),
+                          -1};
+        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs, c);
+      }
+#pragma unroll
+      for (int r = 0; r < L::ROWS; ++r) {
+        const float v = warp_sum(c.d_pw[r]);
+        if (lane == 0) part[(size_t)r * C + c0 + cc] = v;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < L::ROWS; ++r) s_tau[(warp * L::ROWS + r) * CB_RAYS + lane] = c.d_tau[r];
+  __syncthreads();
+  if (warp == 0 && b >= 0) {
+#pragma unroll
+    for (int r = 0; r < L::ROWS; ++r) {
+      float v = 0.0f;
+      for (int w = 0; w < N_WARPS; ++w) v += s_tau[(w * L::ROWS + r) * CB_RAYS + lane];
+      d_ray[(size_t)r * B + b] = v;
+    }
+  }
+  block_par_sums<false>(c, s_par, par_part, tile);
+}
+
+// The grid backward (kernel 11), instantiated for GRID = true: tile
+// blockIdx.x, RAY_BLOCK rays of one row, a thread a ray.
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
 __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_clustered_bwd_kernel(const float* __restrict__ rays, int B,
@@ -153,10 +257,33 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
 }
 
 // dynamic shared memory of the backward, in bytes, with T triangles:
-// Layout's and the staged table piece's VRL ids
+// Layout's with the triangles (grid) or their plane pack (homogeneous,
+// whose per-ray partials take the place of the per-warp column sums),
+// and the staged table piece's VRL ids
 template <bool GRID>
 size_t clustered_bwd_smem_bytes(int T) {
-  return Layout<GRID>::smem_floats((size_t)T * TRI_COLS) * sizeof(float) + VRL_CHUNK * sizeof(int);
+  return Layout<GRID>::smem_floats(sweep_floats<!GRID>(T)) * sizeof(float) +
+         VRL_CHUNK * sizeof(int);
+}
+
+// The rays of a tile: CB_RAYS (homogeneous) or RAY_BLOCK (grid).
+template <bool GRID>
+constexpr int clustered_bwd_tile() {
+  return GRID ? RAY_BLOCK : CB_RAYS;
+}
+
+// The instantiation that a launch of these arguments takes (the mode:
+// MODE_SUM, or homogeneous MODE_NO_REJECT).
+template <bool GRID, class Phase, class Short, class Uv>
+auto clustered_bwd_kernel(Phase, Short, Uv, int mode) {
+  constexpr int P = Phase::value;
+  constexpr bool S = Short::value;
+  if constexpr (GRID) {
+    return &vrl_sum_clustered_bwd_kernel<P, S, true, Uv::value>;
+  } else {
+    return mode == MODE_NO_REJECT ? &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_NO_REJECT>
+                                  : &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_SUM>;
+  }
 }
 
 // d_table[s, r, c] = the sum of row s's tiles' partials in tile order
@@ -209,8 +336,11 @@ __global__ void vrl_sums(const float* __restrict__ d_table, const int* __restric
 }
 
 // Launches the backward and its ordered reductions on `stream` (after
-// zeroing d_ray and, for grid media, d_density); returns a cudaError_t
-// (0 = launched). Host layout: tile_rays, tile_row (group_by_slice),
+// zeroing d_ray and, for grid media, d_density; homogeneous: after the
+// plane pack of the triangles into `planes`, (T, 4 PLANE_F4) floats of
+// scratch, in `mode`, MODE_SUM or MODE_NO_REJECT); returns a
+// cudaError_t (0 = launched). Host layout: tile_rays, tile_row
+// (group_by_slice, in tiles of clustered_bwd_tile<GRID>() rays),
 // row_tiles (S + 1,) each row's first tile, slots and slot_start (N + 1,)
 // the table slots by VRL id. Scratch: tile_part (n_tiles, ROWS, C),
 // par_part (n_tiles, n_par), d_table (S, ROWS, C). Out: d_ray (ROWS, B) =
@@ -223,14 +353,17 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
                          const int* table_ids, const float* table_w, int C, const int* slots,
                          const int* slot_start, const float* uniforms, unsigned int seed, int svv,
                          int svs, int short_vrls, int phase_kind, const float* gbar,
-                         float* tile_part, float* par_part, float* d_table, float* d_ray,
-                         float* d_vrl, float* d_weights, float* d_par, float* d_density,
-                         void* stream) {
+                         float* planes, int mode, float* tile_part, float* par_part,
+                         float* d_table, float* d_ray, float* d_vrl, float* d_weights,
+                         float* d_par, float* d_density, void* stream) {
   using L = Layout<GRID>;
   if (B <= 0 || N <= 0 || n_tiles <= 0 || S <= 0 || C <= 0 || T < 0 || T > MAX_TRIS ||
       svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
-      (GRID && d_density == nullptr))
+      (GRID && d_density == nullptr) ||
+      !(mode == MODE_SUM || (!GRID && mode == MODE_NO_REJECT)))
     return (int)cudaErrorInvalidValue;
+  const int pack = pack_planes<!GRID>(tris, T, planes, stream);
+  if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(d_ray, 0, (size_t)L::ROWS * B * sizeof(float), st);
   if (err == cudaSuccess && GRID)
@@ -239,14 +372,18 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
   const size_t smem = clustered_bwd_smem_bytes<GRID>(T);
   cudaError_t attr = cudaSuccess;
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    auto kernel = vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
-                                               GRID, decltype(uv)::value>;
+    const auto kernel = clustered_bwd_kernel<GRID>(phase, short_, uv, mode);
     attr = allow_smem(kernel, smem);
-    if (attr == cudaSuccess)
+    if (attr != cudaSuccess) return;
+    if constexpr (GRID)
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
                                                svv, svs, gbar, d_ray, tile_part, par_part,
                                                d_density);
+    else
+      kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays,
+                                               tile_row, table_ids, table_w, C, uniforms, seed,
+                                               svv, svs, gbar, d_ray, tile_part, par_part);
   });
   if (attr != cudaSuccess) return (int)attr;
   err = cudaGetLastError();
@@ -263,11 +400,20 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
 
 extern "C" {
 
+// The rays of a tile of the backward (grid 0: homogeneous, 1: grid
+// media), which host_layout groups the rays into.
+int alvrl_clustered_bwd_ray_block(int grid) {
+  return grid ? clustered_bwd_tile<true>() : clustered_bwd_tile<false>();
+}
+
 // The homogeneous clustered backward. The forward's inputs
 // (alvrl_vrl_sum_clustered) and gbar (3, B); the host layout and scratch
-// of launch_clustered_bwd (ROWS = 3, n_par = 8). Out: d_tau (3, B),
-// d_power (3, N), d_weights (S, C), d_par (8,). `uniforms` may be null
-// (the Philox stream of `seed`, as the forward's).
+// of launch_clustered_bwd (ROWS = 3, n_par = 8), with `planes` (T, 4
+// PLANE_F4) float scratch for the triangles' plane pack (may be null for
+// T = 0) and the mode (0 the backward; 2 the same tiling without the
+// plane pre-reject, whose outputs must be the same bit for bit). Out:
+// d_tau (3, B), d_power (3, N), d_weights (S, C), d_par (8,). `uniforms`
+// may be null (the Philox stream of `seed`, as the forward's).
 int alvrl_vrl_sum_clustered_bwd(const float* rays, int B, const float* vrls, int N,
                                 const float* tris, int T, const float* med,
                                 const int* tile_rays, const int* tile_row, int n_tiles,
@@ -275,14 +421,14 @@ int alvrl_vrl_sum_clustered_bwd(const float* rays, int B, const float* vrls, int
                                 const float* table_w, int C, const int* slots,
                                 const int* slot_start, const float* uniforms, unsigned int seed,
                                 int svv, int svs, int short_vrls, int phase_kind,
-                                const float* gbar, float* tile_part, float* par_part,
-                                float* d_table, float* d_tau, float* d_power, float* d_weights,
-                                float* d_par, void* stream) {
+                                const float* gbar, float* planes, int mode, float* tile_part,
+                                float* par_part, float* d_table, float* d_tau, float* d_power,
+                                float* d_weights, float* d_par, void* stream) {
   return launch_clustered_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays,
                                      tile_row, n_tiles, row_tiles, S, table_ids, table_w, C,
                                      slots, slot_start, uniforms, seed, svv, svs, short_vrls,
-                                     phase_kind, gbar, tile_part, par_part, d_table, d_tau,
-                                     d_power, d_weights, d_par, nullptr, stream);
+                                     phase_kind, gbar, planes, mode, tile_part, par_part, d_table,
+                                     d_tau, d_power, d_weights, d_par, nullptr, stream);
 }
 
 // The grid-medium clustered backward: the grid packs, the supersampled
@@ -303,8 +449,8 @@ int alvrl_vrl_sum_hetero_clustered_bwd(
                                     GridArgs{density, nz, ny, nx, uv_steps}, tile_rays, tile_row,
                                     n_tiles, row_tiles, S, table_ids, table_w, C, slots,
                                     slot_start, uniforms, seed, svv, svs, short_vrls, phase_kind,
-                                    gbar, tile_part, par_part, d_table, d_ray, d_vrl, d_weights,
-                                    d_par, d_density, stream);
+                                    gbar, nullptr, MODE_SUM, tile_part, par_part, d_table, d_ray,
+                                    d_vrl, d_weights, d_par, d_density, stream);
 }
 
 // The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
@@ -313,8 +459,7 @@ int alvrl_vrl_sum_clustered_bwd_occupancy(int grid, int T, int uv_steps, int pha
   return occupancy(
       grid, T, uv_steps, phase_kind, short_vrls, blocks,
       [](auto g, auto phase, auto short_, auto uv) {
-        return &vrl_sum_clustered_bwd_kernel<decltype(phase)::value, decltype(short_)::value,
-                                             decltype(g)::value, decltype(uv)::value>;
+        return clustered_bwd_kernel<decltype(g)::value>(phase, short_, uv, MODE_SUM);
       },
       [](auto g, int n_tris) { return clustered_bwd_smem_bytes<decltype(g)::value>(n_tris); });
 }

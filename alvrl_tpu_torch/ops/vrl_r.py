@@ -14,7 +14,8 @@ vrl_pallas.py:502-517, 697-715). A dropped sample counts as 0.
 What bounds it on the H100 is fp32 ALU and special-function throughput,
 as for ops.vrl_sum: the CUDA kernel (csrc/vrl_r.cu, whose header gives
 the design) runs the same estimator (csrc/vrl_common.cuh) in tiles of
-rays x VRLs and writes each pair's two numbers once.
+rays x VRLs, sweeps the shadow segments with kernel 1's plane
+pre-reject, and writes each pair's two numbers once.
 
 Beside the kernel:
   * `vrl_r_reference` and `vrl_r_hetero_reference`, the plain PyTorch
@@ -24,8 +25,8 @@ Beside the kernel:
     tensors (or an error; there is no fallback), the plain version for
     CPU tensors. Their Philox stream is vrl_sum's, with the
     representative row as the ray index;
-  * `vrl_r_hetero_check`, the grid kernel's checking launch (CUDA
-    only), as ops.vrl_sum.vrl_sum_check for kernel 1.
+  * `vrl_r_check` and `vrl_r_hetero_check`, the kernels' checking
+    launches (CUDA only), as ops.vrl_sum.vrl_sum_check for kernel 1.
 """
 
 from __future__ import annotations
@@ -104,18 +105,27 @@ def vrl_r_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    tail = [p, u, i, i, i, i, p, p]
+    tail = [p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, *tail]
     lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                       *tail[:-2], p, i, p, *tail[-2:]]
-    lib.alvrl_vrl_r.restype = lib.alvrl_vrl_r_hetero.restype = i
+                                       *tail]
+    lib.alvrl_vrl_r_tile_rays.argtypes = [i]
+    for fn in (lib.alvrl_vrl_r, lib.alvrl_vrl_r_hetero,
+               lib.alvrl_vrl_r_tile_rays):
+        fn.restype = i
     return lib
+
+
+def tile_rays(grid):
+    """The rays of a tile of the R kernel, homogeneous (grid False) or
+    grid medium; a tile's VRLs are the library's alvrl_vrl_chunk()."""
+    return _library().alvrl_vrl_r_tile_rays(int(grid))
 
 
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM, counts=None):
     """The kernel on checked inputs, on the current stream: (2, P, N).
-    grid = (density, uv_steps) for the grid kernel, which sweeps the
+    grid = (density, uv_steps) for the grid kernel. Both sweep the
     triangles' plane pack (made here into scratch) in `mode` (MODE_CHECK
     adds its counts to `counts`, (len(vs.CHECK_COUNTS),) int64)."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
@@ -123,19 +133,17 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
                       device=rays.device)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
             tris.shape[0], medium.data_ptr())
-    uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-           int(short_vrls), phase_kind)
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    if grid is None:
-        err = lib.alvrl_vrl_r(*head, *uni, out.data_ptr(), stream)
-    else:
-        planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
-                             dtype=torch.float32, device=rays.device)
-        err = lib.alvrl_vrl_r_hetero(
-            *head, *vs.grid_args(*grid), *uni,
+    planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
+                         dtype=torch.float32, device=rays.device)
+    tail = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
+            int(short_vrls), phase_kind,
             planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), out.data_ptr(),
-            stream)
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if grid is None:
+        err = lib.alvrl_vrl_r(*head, *tail)
+    else:
+        err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid), *tail)
     if err != 0:
         raise RuntimeError("vrl_r kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -145,8 +153,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
 def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
        phase_kind, grid, mode=vs.MODE_SUM):
     """The wrappers' body (see vrl_r), counting a launch on `fn`; mode
-    MODE_CHECK (CUDA tensors and grid packs only) returns (out, {name:
-    total} of vs.CHECK_COUNTS)."""
+    MODE_CHECK (CUDA tensors only) returns (out, {name: total} of
+    vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
               grid=grid)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
@@ -194,6 +202,22 @@ def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
 vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel
 
 
+def vrl_r_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
+                vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
+                phase_kind=ph.HG):
+    """vrl_r's (2, P, N) through kernel 5's checking instantiation (a
+    launch counted here, not on vrl_r), which decides every shadow
+    segment by the Wald test alone and runs the plane pre-reject beside
+    it, and {name: total} of vs.CHECK_COUNTS, as
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    return _r(vrl_r_check, rays, vrls, tris, medium, seed, uniforms,
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None,
+              mode=vs.MODE_CHECK)
+
+
+vrl_r_check.launches = 0  # checking launches
+
+
 def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
                  vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
                  phase_kind=ph.HG, uv_steps=4):
@@ -221,4 +245,4 @@ def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
               (density, uv_steps), mode=vs.MODE_CHECK)
 
 
-vrl_r_hetero_check.launches = 0  # checking launches
+vrl_r_hetero_check.launches = 0  # checking launches, as vrl_r_check's

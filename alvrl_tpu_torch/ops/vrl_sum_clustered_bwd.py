@@ -27,7 +27,9 @@ reference's, the grid VJP takes no CP factors and no density multiplier
 (ROADMAP C9, C10).
 
 Beside the kernel (csrc/vrl_sum_clustered_bwd.cu, whose header gives
-the design):
+the design: the homogeneous one in tiles of 32 rays, whose host layout
+`host_layout` builds at the library's `ray_block`, sweeping kernel 1's
+plane pack with its pre-reject):
   * `vrl_sum_clustered_bwd_reference` and
     `vrl_sum_hetero_clustered_bwd_reference`, the plain versions:
     torch.autograd.grad through the plain clustered forward (its gather
@@ -118,15 +120,25 @@ def vrl_sum_hetero_clustered_bwd_reference(
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    tables = [p, p, i, p, i, p, p, i, p, p, p, u, i, i, i, i, p, p, p, p]
-    lib.alvrl_vrl_sum_clustered_bwd.argtypes = [p, i, p, i, p, i, p, *tables,
-                                                p, p, p, p, p]
+    tables = [p, p, i, p, i, p, p, i, p, p, p, u, i, i, i, i, p]
+    scratch = [p, p, p]
+    lib.alvrl_vrl_sum_clustered_bwd.argtypes = [
+        p, i, p, i, p, i, p, *tables, p, i, *scratch, p, p, p, p, p]
     lib.alvrl_vrl_sum_hetero_clustered_bwd.argtypes = [
-        p, i, p, i, p, i, p, p, i, i, i, i, *tables, p, p, p, p, p, p]
+        p, i, p, i, p, i, p, p, i, i, i, i, *tables, *scratch, p, p, p, p, p,
+        p]
+    lib.alvrl_clustered_bwd_ray_block.argtypes = [i]
     for fn in (lib.alvrl_vrl_sum_clustered_bwd,
-               lib.alvrl_vrl_sum_hetero_clustered_bwd, lib.alvrl_ray_block):
+               lib.alvrl_vrl_sum_hetero_clustered_bwd,
+               lib.alvrl_clustered_bwd_ray_block):
         fn.restype = i
     return lib
+
+
+def ray_block(grid):
+    """The rays of a tile of the backward kernel, homogeneous (grid
+    False) or grid medium: host_layout's ray_block."""
+    return _library().alvrl_clustered_bwd_ray_block(int(grid))
 
 
 def host_layout(ray_slice, table_ids, n_vrls, ray_block, device):
@@ -149,13 +161,16 @@ def host_layout(ray_slice, table_ids, n_vrls, ray_block, device):
 
 def _launch(lib, rays, vrls, tris, medium, layout, table_ids, table_weights,
             uniforms, seed, svv, svs, short_vrls, phase_kind, gbar,
-            grid=None):
+            grid=None, mode=vs.MODE_SUM):
     """The kernel on inputs the wrapper has checked, with host_layout's
-    tensors; on the current stream; grid = (density, uv_steps) for the
-    grid kernel. Returns (d_power, d_par, d_tau, d_weights), or for grid
-    media (d_power, d_par, d_tau, d_eod, d_vod, d_density, d_weights).
-    The wrapper's own step, apart so that chip_smoke.py can time the
-    kernel without the wrapper's host work; it counts no launch."""
+    tensors (at ray_block(grid is not None)); on the current stream; grid
+    = (density, uv_steps) for the grid kernel; homogeneous, mode
+    vs.MODE_NO_REJECT sweeps without the plane pre-reject (the checking
+    launch: the same outputs bit for bit). Returns (d_power, d_par,
+    d_tau, d_weights), or for grid media (d_power, d_par, d_tau, d_eod,
+    d_vod, d_density, d_weights). The wrapper's own step, apart so that
+    chip_smoke.py can time the kernel without the wrapper's host work; it
+    counts no launch."""
     tile_rays, tile_row, row_tiles, slots, slot_start = layout
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_rows, n_cols = table_ids.shape
@@ -177,17 +192,20 @@ def _launch(lib, rays, vrls, tris, medium, layout, table_ids, table_weights,
               table_weights.data_ptr(), n_cols, slots.data_ptr(),
               slot_start.data_ptr(),
               None if uniforms is None else uniforms.data_ptr(), seed, svv,
-              svs, int(short_vrls), phase_kind, gbar.data_ptr(),
-              tile_part.data_ptr(), par_part.data_ptr(), d_table.data_ptr())
+              svs, int(short_vrls), phase_kind, gbar.data_ptr())
+    scratch = (tile_part.data_ptr(), par_part.data_ptr(), d_table.data_ptr())
     tail = (d_ray.data_ptr(), d_vrl.data_ptr(), d_weights.data_ptr(),
             d_par.data_ptr())
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     if grid is None:
-        err = lib.alvrl_vrl_sum_clustered_bwd(*head, *tables, *tail, stream)
+        planes = empty(tris.shape[0], 4 * lib.alvrl_plane_f4())
+        err = lib.alvrl_vrl_sum_clustered_bwd(
+            *head, *tables, planes.data_ptr() if tris.shape[0] else None,
+            mode, *scratch, *tail, stream)
     else:
         d_density = torch.empty_like(grid[0])
         err = lib.alvrl_vrl_sum_hetero_clustered_bwd(
-            *head, *vs.grid_args(*grid), *tables, *tail,
+            *head, *vs.grid_args(*grid), *tables, *scratch, *tail,
             d_density.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered_bwd kernel launch failed: CUDA "
@@ -240,7 +258,7 @@ def _clustered_bwd(fn, rays, vrls, tris, medium, ray_slice, table_ids,
     n_vrls = vrls.shape[1]
     if n_vrls == 0 or table_ids.numel() == 0 or not (sl >= 0).any():
         return _zeros(rays, vrls, table_ids, grid)
-    layout = host_layout(sl, table_ids, n_vrls, lib.alvrl_ray_block(),
+    layout = host_layout(sl, table_ids, n_vrls, ray_block(grid is not None),
                          rays.device)
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, layout, table_ids,

@@ -81,6 +81,21 @@ skips per shadow segment) on trees that have the grid pre-reject, and
 the blocks resident per SM of both grid instantiations where the
 tree's library answers. It takes about 25 s a tree.
 
+With --config2-split [--outputs PATH] it times kernels 5 (vrl_r on
+the representative rays), 10 (vrl_sum_clustered_bwd, a bare launch on
+its host layout) and, for reference, 2 (vrl_sum_clustered, a bare launch
+on pre-grouped tiles) on config 2's clustered inputs (chip_smoke.py
+phases 11-14 and 25-26), each whole, with no triangles, and in its
+checking launch (kernel 5) or its launch without the plane pre-reject
+(kernel 10) on trees that have them; with kernel 5's checking counts,
+each kernel's tile and block counts and the blocks resident per SM
+where the tree's library answers. With --outputs, kernel 5's output and
+kernel 10's outputs are saved to PATH if it does not exist, else
+compared with what it holds (the largest difference of each, and
+whether it is bit-identical), so that runs of two trees in turn check
+that the change computes what the parent does. It takes about 25 s a
+tree.
+
 With --trainer it runs the density-recovery trainer
 (scripts.recover_density at its defaults, as chip_smoke.py phase 21:
 64x64, a 16^3 grid, four views, 256 VRLs): after two warm-up steps, the
@@ -204,7 +219,10 @@ def cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
     ray_block = vsc._library().alvrl_ray_block()
     tiles = [torch.as_tensor(a, device=dev)
              for a in vsc.group_by_slice(sop, ray_block)]
-    layout = cb.host_layout(sop, tv, vrls.capacity, ray_block, dev)
+    # the backward's tile, where the tree's library has its own
+    bwd_block = (cb.ray_block(grid is not None) if hasattr(cb, "ray_block")
+                 else ray_block)
+    layout = cb.host_layout(sop, tv, vrls.capacity, bwd_block, dev)
     gbar = torch.as_tensor(np.random.default_rng(3).uniform(
         0.5, 1.5, (3, n_rays)).astype(np.float32), device=dev)
     return dict(scene=scene, vrls=vrls, info=info, sop=sop, tv=tv, tw=tw,
@@ -487,6 +505,101 @@ def grid_clustered_split(dev, cfg):
             "split": times, "check": check, "occupancy": occ}
 
 
+def config2_split(dev, cfg, outputs=None):
+    """{variant: timing} of kernels 5, 10 and 2 on config 2's clustered
+    inputs (the module docstring), kernel 5's checking counts, the tiles,
+    blocks and blocks per SM, and with `outputs` the comparison of
+    kernels 5's and 10's outputs with a saved run's."""
+    c = cluster_inputs(dev, *CONFIGS["config2"], cfg)
+    rays, vpack, tris, med = c["packs"]
+    packs_r = rep_packs(c)
+    tv, tw, tiles, layout, gbar, seed, kind = (
+        c[k] for k in ("tv", "tw", "tiles", "layout", "gbar", "seed", "kind"))
+    no_tris = tris[:0].contiguous()
+    lib, blib = vsc._library(), cb._library()
+    out = torch.zeros((3, rays.shape[1]), device=dev)
+    modes = hasattr(cb, "ray_block")  # trees from kernel 10's redesign on
+
+    def bwd_launch(t, **kw):
+        return lambda: cb._launch(blib, rays, vpack, t, med, layout, tv, tw,
+                                  None, seed, 2, 2, True, kind, gbar, **kw)
+    variants = {
+        "vrl_r/whole": lambda: vr.vrl_r(*packs_r, seed=seed),
+        "vrl_r/no_triangles": lambda: vr.vrl_r(
+            packs_r[0], packs_r[1], no_tris, packs_r[3], seed=seed),
+        "vrl_sum_clustered_bwd/whole": bwd_launch(tris),
+        "vrl_sum_clustered_bwd/no_triangles": bwd_launch(no_tris),
+        "vrl_sum_clustered/whole": lambda: vsc._launch(
+            lib, rays, vpack, tris, med, *tiles, tv, tw, None, seed, 2, 2,
+            True, kind, out),
+        "vrl_sum_clustered/no_triangles": lambda: vsc._launch(
+            lib, rays, vpack, no_tris, med, *tiles, tv, tw, None, seed, 2, 2,
+            True, kind, out)}
+    if hasattr(vr, "vrl_r_check"):
+        variants["vrl_r/check"] = lambda: vr.vrl_r_check(*packs_r, seed=seed)
+    if modes:
+        variants["vrl_sum_clustered_bwd/no_pre_reject"] = bwd_launch(
+            tris, mode=vs.MODE_NO_REJECT)
+    times = {k: windows(fn, 10, 10) for k, fn in variants.items()}
+    n_rep, n_vrls = packs_r[0].shape[1], vpack.shape[1]
+    r_rays = vr.tile_rays(False) if hasattr(vr, "tile_rays") else 128
+    chunk = vs._library().alvrl_vrl_chunk()
+    shape = {"rays": rays.shape[1], "representatives": n_rep,
+             "vrls": n_vrls, "table": list(tv.shape),
+             "triangles": tris.shape[0],
+             "vrl_r": {"tile": [r_rays, chunk], "blocks":
+                       -(-n_rep // r_rays) * -(-n_vrls // chunk)},
+             "vrl_sum_clustered_bwd": {
+                 "tile_rays": len(layout[0]) // len(layout[1]),
+                 "blocks": len(layout[1]),
+                 "padding": float((layout[0] < 0).double().mean())},
+             "vrl_sum_clustered": {"tile_rays": len(tiles[0]) // len(tiles[1]),
+                                   "blocks": len(tiles[1])}}
+    check = {}
+    if hasattr(vr, "vrl_r_check"):
+        counts = vr.vrl_r_check(*packs_r, seed=seed)[1]
+        seg = max(counts["segments"], 1)
+        check["vrl_r"] = {**counts, "considered_per_segment":
+                          counts["considered"] / seg, "skipped_share":
+                          counts["skipped"] / max(counts["considered"], 1)}
+    occ = {}
+    for entry in ("vrl_r", "vrl_sum_clustered", "vrl_sum_clustered_bwd"):
+        try:
+            blocks = vs.occupancy(entry, False, tris.shape[0], 4, kind,
+                                  cfg.short_vrls)
+        except AttributeError:  # a tree whose library has no such query
+            continue
+        occ[entry] = {"blocks": blocks, "warps": 4 * blocks}
+    result = {"shape": shape, "split": times, "check": check,
+              "occupancy": occ}
+    if modes:
+        same = [torch.equal(a, b) for a, b in zip(
+            bwd_launch(tris)(), bwd_launch(tris, mode=vs.MODE_NO_REJECT)())]
+        result["vrl_sum_clustered_bwd_no_reject_bit_identical"] = all(same)
+    if outputs is not None:
+        now = {"vrl_r": vr.vrl_r(*packs_r, seed=seed).cpu(),
+               "vrl_sum_clustered_bwd": [t.cpu() for t in bwd_launch(tris)()]}
+        if not os.path.exists(outputs):
+            torch.save(now, outputs)
+            result["outputs"] = f"saved to {outputs}"
+        else:
+            then = torch.load(outputs)
+            cmp = {}
+            for name, a, b in [("vrl_r", now["vrl_r"], then["vrl_r"])] + [
+                    (f"vrl_sum_clustered_bwd/{n}", x, y) for n, x, y in zip(
+                        ("d_power", "d_par", "d_tau", "d_weights"),
+                        now["vrl_sum_clustered_bwd"],
+                        then["vrl_sum_clustered_bwd"])]:
+                diff = (a - b).abs()
+                cmp[name] = {"bit_identical": torch.equal(a, b),
+                             "max_abs": float(diff.max()),
+                             "max_rel": float((diff / b.abs().clamp(
+                                 min=1e-30)).max()),
+                             "differ": int((a != b).sum())}
+            result["outputs"] = cmp
+    return result
+
+
 BVH_SCENES = (("cubes", 11), ("cubes", 16), ("cubes", 22), ("blob", 64),
               ("blob", 112), ("blob", 180))  # chip_smoke.py phase 30
 BVH_SEED = 20261019
@@ -621,6 +734,13 @@ def main():
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(),
                           **clustered_split(dev, cfg)}))
+        return
+    if sys.argv[1:2] == ["--config2-split"]:
+        rest = sys.argv[2:]
+        outputs = rest[1] if rest[:1] == ["--outputs"] else None
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(),
+                          **config2_split(dev, cfg, outputs)}))
         return
     if sys.argv[1:] == ["--grid-clustered-split"]:
         print(json.dumps({"card": card, "package": vs.__file__,

@@ -64,6 +64,10 @@ Phases, one line each; any failure exits non-zero:
      VRLs must lie in 0.85-1.15;
  14. timing of a warm clustered pass, per stage on the host clock, each
      new kernel alone and its plain version, and a profile as phase 6;
+     the R kernel's checking launch (vrl_r_check) on the timed
+     launches' samples: no skipped triangle blocks, no segment decided
+     otherwise, the share of Wald tests skipped, and the bound priced on
+     those skips beside the one with a Wald test per swept triangle;
  15. the three grid kernels (vrl_sum_hetero, vrl_r_hetero,
      vrl_sum_hetero_clustered) vs their plain versions at config-4
      shapes (BASELINE, scripts/bench_suite.py:111-149: cornell_grid_smoke
@@ -143,7 +147,10 @@ Phases, one line each; any failure exits non-zero:
  26. timing of both clustered gradient steps and the config-4 step's
      parts, each clustered backward kernel alone against its forward
      and its plain version on phases 14's and 17's inputs, their bounds,
-     and a profile of the config-4 step;
+     and a profile of the config-4 step; the homogeneous one's launch
+     without the plane pre-reject, bit-identical to it, its tiles,
+     blocks per SM and registers, and its bound priced on kernel 1's
+     counted skips of config 2's segments;
  27. the BVH-occlusion sum (vrl_sum_bvh) against vrl_sum on the same
      Morton-sorted packs, for phase 3's media and modes: config-1 inputs
      (24 triangles) and a field of 4^3 cubes (780 triangles, 64x64, the
@@ -211,9 +218,10 @@ from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
+from alvrl_tpu_torch.ops import vrl_r as vr
 from alvrl_tpu_torch.ops.vrl_r import (
-    vrl_r, vrl_r_hetero, vrl_r_hetero_check, vrl_r_hetero_reference,
-    vrl_r_reference)
+    vrl_r, vrl_r_check, vrl_r_hetero, vrl_r_hetero_check,
+    vrl_r_hetero_reference, vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_FLOOR, HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws,
     philox_uniforms, vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference,
@@ -256,10 +264,11 @@ C4_ROWS = (128, 160)     # image rows of the unclustered sum's subset
 C4_SUBSET_RAYS = 16384   # rays of the clustered sum's subset, at most
 C4_PLAIN_CHUNK = 2048    # rays per block of the plain versions on the card
 C4_TRIS = 12             # the box's wall triangles
-# the grid kernels' times on phase 17's inputs before their redesign
-# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# the kernels' times on phases 14, 17 and 26's inputs before their
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130,
-              "vrl_sum_hetero_clustered": 1.976, "vrl_r_hetero": 0.611}
+              "vrl_sum_hetero_clustered": 1.976, "vrl_r_hetero": 0.611,
+              "vrl_r": 0.4692, "vrl_sum_clustered_bwd": 0.3395}
 # ROADMAP C12's two repairs of the grid backward, measured on phase 17's
 # full-shape inputs against the float64 plain backward by instantiations
 # of the kernel that were removed after the measurement (NVIDIA H100
@@ -425,14 +434,17 @@ def ptxas_summary(log):
     instantiation in the compiler's report: the medium (grid, homog) of
     the sums, VJPs and R kernels and, for the grid sum and its VJP, the
     U-V quadrature's compile-time step count (uv* for their run-time
-    count); kernel 1's mode (sum, check, noreject); kernel 7's counting
+    count); the sweep's mode (sum, check, noreject) of kernel 1, the R
+    kernels and the homogeneous clustered VJP (its tiling,
+    vrl_sum_clustered_bwd_warps_kernel); kernel 7's counting
     instantiation."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
-                          r"sum_clustered_bwd|r|sum_bvh|sum_plane)"
-                          r"_kernel)I((?:L[ib]\d+E)+)E", line)
+                          r"sum_clustered_bwd|sum_clustered_bwd_warps|r|"
+                          r"sum_bvh|sum_plane)_kernel)I((?:L[ib]\d+E)+)E",
+                          line)
             name = None
             if m:
                 kernel = m[1]
@@ -441,12 +453,15 @@ def ptxas_summary(log):
                 rest = args[2:]
                 if kernel == "vrl_sum_bvh_kernel":
                     label += ["count"] if rest and rest[0] else []
-                elif kernel == "vrl_sum_plane_kernel":
+                elif kernel in ("vrl_sum_plane_kernel",
+                                "vrl_sum_clustered_bwd_warps_kernel"):
                     label.append(PLANE_MODE[rest[0]])
                 elif rest:
                     label.append("grid" if rest[0] else "homog")
                     if rest[0] and len(rest) > 1:  # the step count
                         label.append(f"uv{rest[1]}" if rest[1] else "uv*")
+                    if kernel == "vrl_r_kernel":
+                        label.append(PLANE_MODE[rest[-1]])
                 name = f"{kernel}<{','.join(label)}>"
             spill = "0"
         elif name and "spill stores" in line:
@@ -762,6 +777,15 @@ def grid_voxel(med, density, p):
     _, ny, nx = density.shape
     flat = (idx[..., 2] * ny + idx[..., 1]) * nx + idx[..., 0]
     return torch.where(inside, flat, -1)
+
+
+def skip_share_counts(counts, sweep):
+    """plane_ops' counts for the segments of `sweep` (a SweepCount) at
+    the share of Wald tests that a checking launch on other segments of
+    the same scene skipped (`counts`)."""
+    share = counts["skipped"] / max(counts["considered"], 1)
+    return {"segments": sum(sweep.tested), "considered": sweep.tri_tests,
+            "skipped": share * sweep.tri_tests}
 
 
 def check_line(counts):
@@ -1101,8 +1125,23 @@ def config2(dev, card, cfg):
                     pair_masks(*packs[:2])[1]) as c_sweep:
         vrl_sum_clustered_reference(*packs, sop, tv, tw, u_c)
     tile_rays, tile_row = group_by_slice(sop, lib_block)
-    r_bound = bound(kernel_ops("vrl_r", r_sweep, hg, True),
-                    nbytes(*packs_r) + 2 * n_rep * n_vrls * 4)
+    # kernel 5's checking launch on the timed launches' samples: its
+    # pre-reject decides as the Wald test, and its counted skips price
+    # the bound
+    r_chk, r_counts = vrl_r_check(*packs_r, seed=seed)
+    r_out = vrl_r(*packs_r, seed=seed)
+    check(r_counts["bad_tris"] == 0 and r_counts["bad_segments"] == 0,
+          f"R: the pre-reject disagrees with the Wald test: {r_counts}")
+    check(r_counts["segments"] > 0 and r_counts["skipped"] > 0,
+          f"R: checking counts {r_counts}")
+    r_chk_bar = homog_bar(r_chk[0], r_out[0], channels=1)
+    check(r_chk_bar[0] < HOMOG_MEDIAN and r_chk_bar[1] < HOMOG_SHARE,
+          f"R: the checking launch against the kernel: {r_chk_bar}")
+    r_ops = kernel_ops("vrl_r", r_sweep, hg, True)
+    r_bytes = nbytes(*packs_r) + 2 * n_rep * n_vrls * 4
+    r_bound = bound(plane_ops(r_ops, r_sweep, r_counts), r_bytes)
+    r_tile = vr.tile_rays(False)
+    r_blocks = -(-n_rep // r_tile) * -(-n_vrls // vs._library().alvrl_vrl_chunk())
     c_bound = bound(kernel_ops("vrl_sum_clustered", c_sweep, hg, True),
                     nbytes(*packs, tv, tw) + 4 * (len(tile_rays)
                                                   + len(tile_row))
@@ -1113,9 +1152,19 @@ def config2(dev, card, cfg):
               f"{k} {statistics.median(v):.3f} ms ({summary(v)[1]:.1%})"
               for k, v in stages.items())
           + f" | alone (CUDA events over 10 launches in a row): vrl_r "
-          f"{r_med:.4f} ms (spread "
-          f"{r_spread:.1%}, {r_sweep}, bound {r_bound[0]:.4f}"
-          f" ms by {r_bound[1]}), plain {rp_med:.3f} ms; vrl_sum_clustered "
+          f"{r_med:.4f} ms (before its redesign {EARLIER_MS['vrl_r']} ms; "
+          f"spread {r_spread:.1%}, tiles of {r_tile} rays x "
+          f"{vs._library().alvrl_vrl_chunk()} VRLs, {r_blocks} blocks, "
+          f"{vs.occupancy('vrl_r', False, packs_r[2].shape[0])} an SM; "
+          f"{r_sweep}; checking launch: {check_line(r_counts)}, "
+          f"{r_counts['skipped'] / max(r_counts['segments'], 1):.3f} of "
+          f"{r_counts['considered'] / max(r_counts['segments'], 1):.3f} Wald"
+          f" tests a segment skipped, its output "
+          f"{'bit-identical to' if torch.equal(r_chk, r_out) else 'within the bar of'}"
+          f" the kernel's; bound {r_bound[0]:.4f} ms by {r_bound[1]} on the "
+          f"counted skips, {bound(r_ops, r_bytes)[0]:.4f} ms with a Wald "
+          f"test per swept triangle), plain {rp_med:.3f} ms; "
+          f"vrl_sum_clustered "
           f"{c_med:.4f} ms (spread {c_spread:.1%}, {len(tile_row)} blocks, "
           f"{c_sweep}, bound {c_bound[0]:.4f} ms by "
           f"{c_bound[1]}; the wrapper with its host grouping "
@@ -2216,21 +2265,23 @@ def clustered_grad(dev, card, cfg, c2, c4):
     # (phases 14, 17, whose samples c2["sweep"], c4["c_sweep"] counted),
     # the bounds, a profile of the config-4 step
     lib = cb._library()
-    ray_block = lib.alvrl_ray_block()
+    fwd_block = vsc._library().alvrl_ray_block()  # the forward's tiles
     step2_ms = host_ms(lambda: grad_step(loss2, start2), 2, 5)
     step4_ms = host_ms(lambda: grad_step(loss4, start4), 2, 5)
     scene_s = replace(scene4, medium=replace(
         gmed.with_density(med4, start4["density"]), albedo=start4["albedo"]))
     packs_s = integrator.pack_frame(scene_s, vrls4)[3]
     pack_ms = host_ms(lambda: integrator.pack_frame(scene_s, vrls4), 2, 5)
-    layout_ms = host_ms(lambda: cb.host_layout(sop4, tv4, n_vrls4, ray_block,
-                                               dev), 2, 5)
+    layout_ms = host_ms(lambda: cb.host_layout(sop4, tv4, n_vrls4,
+                                               cb.ray_block(True), dev), 2, 5)
     grid_arg = (packs_s[4], cfg.uv_tau_steps)
-    layout4 = cb.host_layout(sop4, tv4, n_vrls4, ray_block, dev)
+    layout4 = cb.host_layout(sop4, tv4, n_vrls4, cb.ray_block(True), dev)
+    tiles4 = [torch.as_tensor(a, device=dev)
+              for a in group_by_slice(sop4, fwd_block)]
     c_out = torch.zeros((3, n_rays4), device=dev)
     kind4 = scene4.medium.phase_kind
     fwd_s_ms = cuda_ms_batched(lambda: vsc._launch(
-        vsc._library(), *packs_s[:4], *layout4[:2], tv4, tw4, None, seed4, 2,
+        vsc._library(), *packs_s[:4], *tiles4, tv4, tw4, None, seed4, 2,
         2, True, kind4, c_out, grid_arg), 2, 5, 5)
     bwd_s_ms = cuda_ms_batched(lambda: cb._launch(
         lib, *packs_s[:4], layout4, tv4, tw4, None, seed4, 2, 2, True, kind4,
@@ -2240,8 +2291,9 @@ def clustered_grad(dev, card, cfg, c2, c4):
     # there and the plain backward
     packs2 = c2["packs"]
     kind2 = scene2.medium.phase_kind
-    layout2 = cb.host_layout(sop2, tv2, n_vrls2, ray_block, dev)
-    tiles2 = layout2[:2]
+    layout2 = cb.host_layout(sop2, tv2, n_vrls2, cb.ray_block(False), dev)
+    tiles2 = [torch.as_tensor(a, device=dev)
+              for a in group_by_slice(sop2, fwd_block)]
     c2_out = torch.zeros((3, n_rays2), device=dev)
     f2_ms = cuda_ms_batched(lambda: vsc._launch(
         vsc._library(), *packs2, *tiles2, tv2, tw2, None, seed2, 2, 2, True,
@@ -2249,11 +2301,25 @@ def clustered_grad(dev, card, cfg, c2, c4):
     b2_ms = cuda_ms_batched(lambda: cb._launch(
         lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2, True, kind2,
         gbar2), 3, 10, 10)
+    b2_out = cb._launch(lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2,
+                        True, kind2, gbar2)
     check(all(torch.equal(a, b) for a, b in zip(
-        cb._launch(lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2, True,
-                   kind2, gbar2),
-        cb.vrl_sum_clustered_bwd(*packs2, sop2, tv2, tw2, gbar2, seed=seed2))),
+        b2_out, cb.vrl_sum_clustered_bwd(*packs2, sop2, tv2, tw2, gbar2,
+                                         seed=seed2))),
         "the bare clustered backward launch is the wrapper's")
+    # kernel 10's checking launch: the same tiling without the plane
+    # pre-reject, which decides as the Wald test, so bit for bit the same
+    def b2_no_reject():
+        return cb._launch(lib, *packs2, layout2, tv2, tw2, None, seed2, 2, 2,
+                          True, kind2, gbar2, mode=vs.MODE_NO_REJECT)
+    check(all(torch.equal(a, b) for a, b in zip(b2_out, b2_no_reject())),
+          "kernel 10 with and without the plane pre-reject: not bit-identical")
+    b2nr_ms = cuda_ms_batched(b2_no_reject, 3, 10, 10)
+    # the pre-reject's skips on config 2's segments: kernel 1's checking
+    # launch on its packs (all 512 VRLs, the clustered tables' scene)
+    k1_counts = vs.vrl_sum_check(*packs2, seed=seed2)[1]
+    check(k1_counts["bad_tris"] == 0 and k1_counts["bad_segments"] == 0,
+          f"config 2's segments: the pre-reject disagrees: {k1_counts}")
     grid4 = (packs4[4], cfg.uv_tau_steps)
     c4_out = torch.zeros((3, n_rays4), device=dev)
     f4_ms = cuda_ms_batched(lambda: vsc._launch(
@@ -2273,10 +2339,15 @@ def clustered_grad(dev, card, cfg, c2, c4):
     sweep2, sweep4, uv = c2["sweep"], c4["c_sweep"], cfg.uv_tau_steps
     n_scatter = sweep4.open[0] * (2 + uv) + sweep4.open[1] * (1 + uv)
     lay_bytes2 = nbytes(*layout2)
-    b2_bound = bound(
-        kernel_ops("vrl_sum_bwd", sweep2, kind2 == 0, True),
-        nbytes(*packs2, tv2, tw2, gbar2) + lay_bytes2
-        + 4 * (3 * n_rays2 + 3 * n_vrls2 + tv2.numel() + 8))
+    b2_ops = kernel_ops("vrl_sum_bwd", sweep2, kind2 == 0, True)
+    b2_bytes = (nbytes(*packs2, tv2, tw2, gbar2) + lay_bytes2
+                + 4 * (3 * n_rays2 + 3 * n_vrls2 + tv2.numel() + 8))
+    b2_bound = bound(plane_ops(b2_ops, sweep2, skip_share_counts(
+        k1_counts, sweep2)), b2_bytes)
+    b2_wald = bound(b2_ops, b2_bytes)[0]
+    n_tris2 = packs2[2].shape[0]
+    b2_regs = [r for r in ptxas_summary(_build.build_log())
+               if r.startswith("vrl_sum_clustered_bwd_warps_kernel")]
     rows4 = 3 + pk.NQ + 1
     b4_bound = bound(
         kernel_ops("vrl_sum_hetero_bwd", sweep4, kind4 == 0, True, uv),
@@ -2297,10 +2368,18 @@ def clustered_grad(dev, card, cfg, c2, c4):
           f"film, loss) {s4_med - pk_med - ly_med - fs_med - bs_med:.3f} ms; "
           f"config-2 step {s2_med:.3f} ms (spread {s2_spread:.1%}) | alone "
           f"(CUDA events over launches in a row) on phase 14's inputs: "
-          f"vrl_sum_clustered_bwd {b2_med:.4f} ms (spread {b2_spread:.1%}) "
-          f"against the forward {f2_med:.4f} ms ({b2_med / f2_med:.2f}x; "
-          f"phase 14 {c2['fwd_ms']:.4f}), bound {b2_bound[0]:.4f} ms by "
-          f"{b2_bound[1]} ({sweep2}), plain {p2_med:.1f} ms | on phase 17's "
+          f"vrl_sum_clustered_bwd {b2_med:.4f} ms (before its redesign "
+          f"{EARLIER_MS['vrl_sum_clustered_bwd']} ms; spread {b2_spread:.1%})"
+          f" against the forward {f2_med:.4f} ms ({b2_med / f2_med:.2f}x; "
+          f"phase 14 {c2['fwd_ms']:.4f}); {len(layout2[1])} tiles of "
+          f"{cb.ray_block(False)} rays ({float((layout2[0] < 0).double().mean()):.1%}"
+          f" padding), {vs.occupancy('vrl_sum_clustered_bwd', False, n_tris2)}"
+          f" blocks an SM; {' ; '.join(b2_regs)}; without the pre-reject "
+          f"{summary(b2nr_ms)[0]:.4f} ms, bit-identical; bound "
+          f"{b2_bound[0]:.4f} ms by {b2_bound[1]} on kernel 1's counted skips"
+          f" of config 2's segments ({check_line(k1_counts)}), "
+          f"{b2_wald:.4f} ms with a Wald test per swept triangle ({sweep2}),"
+          f" plain {p2_med:.1f} ms | on phase 17's "
           f"inputs: vrl_sum_hetero_clustered_bwd {b4_med:.4f} ms (spread "
           f"{b4_spread:.1%}) against the forward {f4_med:.4f} ms "
           f"({b4_med / f4_med:.2f}x; phase 17 {c4['c_fwd_ms']:.4f}), bound "
@@ -2760,9 +2839,10 @@ def main():
             occupancy.append(f"{entry}<0,1,grid,uv{uv if uv == 4 else '*'}> "
                              f"{blocks} blocks {blocks * warps} "
                              "warps")
-    blocks = vs.occupancy("vrl_sum_bwd", False, 24)
-    occupancy.append(f"vrl_sum_bwd<0,1,homog> at 24 triangles {blocks} "
-                     f"blocks {blocks * warps} warps")
+    for entry in ("vrl_sum_bwd", "vrl_r", "vrl_sum_clustered_bwd"):
+        blocks = vs.occupancy(entry, False, 24)
+        occupancy.append(f"{entry}<0,1,homog> at 24 triangles {blocks} "
+                         f"blocks {blocks * warps} warps")
     print(f"[2 build] {build_s:.1f} s | ptxas: "
           + " ; ".join(ptxas_summary(_build.build_log()))
           + f" | resident per SM at {C4_TRIS} triangles: "

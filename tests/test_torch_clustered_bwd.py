@@ -50,10 +50,12 @@ from alvrl_tpu_torch.ops.vrl_sum import (
 )
 from alvrl_tpu_torch.ops.vrl_sum_bwd import vrl_sum_bwd_reference
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
+    group_by_slice,
     philox_table_uniforms,
     vrl_sum_clustered_reference,
 )
 from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
+    host_layout,
     vrl_sum_clustered_bwd,
     vrl_sum_clustered_bwd_reference,
     vrl_sum_clustered_diff,
@@ -446,3 +448,42 @@ def test_wrapper_rejects_bad_input(bad):
         rows = rows[:-1]
     with pytest.raises((TypeError, ValueError)):
         vrl_sum_clustered_bwd(*packs, rows, ids, ws, gbar)
+
+
+@pytest.mark.parametrize("ray_block", [32, 128], ids=["homog", "grid"])
+def test_host_layout_at_the_tile_sizes(ray_block):
+    """host_layout (and group_by_slice, whose tiles it takes) at the
+    backward's two tiles, 32 rays (homogeneous) and 128 (grid), on a
+    seeded ray_slice with rows of 1, 31, 32, 33 and 200 rays and rays at
+    row -1: every kept ray in exactly one tile, each row's tiles
+    contiguous and row_tiles their first, padding only at a row's last
+    tile; the CSR of the table slots by VRL id does not depend on the
+    tile."""
+    rng = np.random.default_rng(12)
+    sizes = (1, 31, 32, 33, 200)
+    rows = np.repeat(np.arange(-1, len(sizes)), (40, *sizes))
+    rng.shuffle(rows)
+    n_vrls = 50
+    ids = torch.as_tensor(rng.integers(-2, n_vrls + 3, (len(sizes), 45)),
+                          dtype=torch.int32)
+    tile_rays, tile_row, row_tiles, slots, slot_start = (
+        t.numpy() for t in host_layout(rows, ids, n_vrls, ray_block, "cpu"))
+    ref_rays, ref_row = group_by_slice(rows, ray_block)
+    assert np.array_equal(tile_rays, ref_rays)
+    assert np.array_equal(tile_row, ref_row)
+    assert sorted(tile_rays[tile_rays >= 0]) == list(np.flatnonzero(rows >= 0))
+    tiles = tile_rays.reshape(-1, ray_block)
+    assert row_tiles[0] == 0 and row_tiles[-1] == len(tile_row)
+    for s, n in enumerate(sizes):
+        mine = np.flatnonzero(tile_row == s)
+        assert np.array_equal(mine, np.arange(row_tiles[s], row_tiles[s + 1]))
+        assert len(mine) == -(-n // ray_block)
+        got = tiles[mine].reshape(-1)
+        assert np.array_equal(got[got >= 0], np.flatnonzero(rows == s))
+        assert (got[:n] >= 0).all() and (got[n:] < 0).all()
+    flat = ids.numpy().reshape(-1)
+    held = (flat >= 0) & (flat < n_vrls)
+    assert slot_start[0] == 0 and slot_start[-1] == len(slots) == held.sum()
+    for n in range(n_vrls):
+        assert np.array_equal(slots[slot_start[n]:slot_start[n + 1]],
+                              np.flatnonzero(flat == n))

@@ -27,8 +27,10 @@ from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cbwd
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r,
+    vrl_r_check,
     vrl_r_hetero,
     vrl_r_hetero_check,
     vrl_r_hetero_reference,
@@ -413,6 +415,64 @@ def test_cuda_r_row_sums_are_vrl_sum_luminance(cuda):
     out = vrl_r(*packs, seed=9)
     lum = sum(w * c for w, c in zip(LUM_WEIGHTS, vrl_sum(*packs, seed=9)))
     median, share = homog_bar(out[0].sum(dim=1), lum, channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+# --- kernel 5's tiles and plane pre-reject ----------------------------------
+
+
+@pytest.mark.parametrize("n_vrls", [1, 33, 512])
+@pytest.mark.parametrize("n_rays", [1, 3, 17, 271])
+def test_cuda_r_kernel_on_ragged_shapes(cuda, n_rays, n_vrls):
+    """Kernel 5 with fewer rays than a tile, ray counts that are not a
+    multiple of it (271: config 2's representatives), fewer VRLs than a
+    chunk, one past a chunk and config 2's 512: R's mean at the
+    homogeneous bar, its variance at R_VAR_MEDIAN, the pairs of an
+    invalid ray or VRL written as 0, a repeat bit-identical; its checking
+    launch (counted on its own entry) finds no skipped blocker and no
+    segment decided otherwise, and its mean is the kernel's to 1e-4."""
+    packs = integrator.pack_frame(_scene(cuda, 32, 32), _bench_vrls(cuda))[3]
+    packs = (packs[0][:, 101:101 + n_rays].contiguous(),
+             packs[1][:, :n_vrls].contiguous(), *packs[2:])
+    out = vrl_r(*packs, seed=61)
+    ref = vrl_r_reference(*packs, philox_uniforms(61, n_rays, n_vrls, 6,
+                                                  device=cuda))
+    assert out.shape == (2, n_rays, n_vrls) and torch.isfinite(out).all()
+    median, share = homog_bar(out[0], ref[0], channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    nz = ref[1] > R_VAR_FLOOR
+    if int(nz.sum()) > 0:
+        assert float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median()) \
+            < R_VAR_MEDIAN
+    idle = ~((packs[0][pk.VALID] > 0.5)[:, None]
+             & (packs[1][pk.VVALID] > 0.5)[None])
+    assert not out[:, idle].any()
+    assert torch.equal(out, vrl_r(*packs, seed=61))
+    before = (vrl_r.launches, vrl_r_check.launches)
+    chk, counts = vrl_r_check(*packs, seed=61)
+    assert (vrl_r.launches, vrl_r_check.launches) == (before[0],
+                                                      before[1] + 1)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] >= counts["skipped"]
+    rel = (chk[0] - out[0]).abs() / torch.clamp(out[0].abs(), min=1e-3)
+    assert float(rel.max()) < 1e-4
+
+
+def test_cuda_r_pre_reject_with_780_triangles(cuda):
+    """Kernel 5's checking launch on the cube field (a plane pack above
+    the default cap of dynamic shared memory): no skipped blocker, no
+    segment decided otherwise, some tests skipped; the kernel meets its
+    plain version there."""
+    packs = _cube_packs(cuda)
+    packs = (packs[0][:, :90].contiguous(), *packs[1:])
+    out = vrl_r(*packs, seed=23)
+    _, counts = vrl_r_check(*packs, seed=23)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] >= counts["segments"] > 0
+    assert counts["considered"] > counts["skipped"] > 0
+    ref = vrl_r_reference(*packs, philox_uniforms(
+        23, packs[0].shape[1], packs[1].shape[1], 6, device=cuda))
+    median, share = homog_bar(out[0], ref[0], channels=1)
     assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
 
 
@@ -1013,9 +1073,10 @@ def test_cuda_grid_clustered_bwd_kernel_matches_plain(cuda, kind, injected,
 
 @pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])
 def test_cuda_clustered_bwd_rows_over_several_tiles(cuda, grid):
-    """Rows of 130-260 rays, so each spans two or three 128-ray tiles
-    whose column sums add in tile order: one row of every ray, and two
-    rows at random."""
+    """Rows of 130-260 rays, so each spans several tiles (two or three of
+    the grid's 128 rays, five to nine of the homogeneous 32) whose column
+    sums add in tile order: one row of every ray, and two rows at
+    random."""
     packs = _grid_packs(cuda) if grid else _ragged_packs(cuda, 0.6, 0)
     n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
     _, ids, ws = _tables(cuda, n_rays, n_vrls, n_rows=2)
@@ -1028,6 +1089,45 @@ def test_cuda_clustered_bwd_rows_over_several_tiles(cuda, grid):
         else:
             _assert_bwd_close(out[:3], ref[:3], 0)
         _assert_weights_close(out[-1], ref[-1])
+
+
+@pytest.mark.parametrize("n_tris", [24, 780])
+def test_cuda_clustered_bwd_kernel_over_row_sizes(cuda, n_tris):
+    """Kernel 10 on rows of 1, 31, 32, 33 and 200 rays (one ray short of,
+    at and one past its 32-ray tile, and a row over seven tiles) and rays
+    at row -1, with config 1's 24 triangles or the cube field's 780 (a
+    plane pack above the default cap of dynamic shared memory): against
+    the plain clustered backward at the homogeneous bars, bit-identical
+    to its launch without the plane pre-reject and to a repeat."""
+    packs = integrator.pack_frame(_scene(cuda, 20, 20, 0.6, 0),
+                                  _bench_vrls(cuda))[3]
+    if n_tris == 780:
+        packs = (*packs[:2], _cube_packs(cuda)[2], packs[3])
+    n_rays, n_vrls = packs[0].shape[1], 77
+    packs = (packs[0], packs[1][:, :n_vrls].contiguous(), *packs[2:])
+    rng = np.random.default_rng(9)
+    sizes = (1, 31, 32, 33, 200)
+    rows = np.repeat(np.arange(-1, len(sizes)),
+                     (n_rays - sum(sizes), *sizes))
+    rng.shuffle(rows)
+    _, ids, ws = _tables(cuda, n_rays, n_vrls, n_rows=len(sizes))
+    out, ref = _clustered_bwd_case(cuda, packs, rows, ids, ws, False, 29,
+                                   True, 0)
+    _assert_bwd_close(out[:3], ref[:3], 0)
+    _assert_weights_close(out[3], ref[3])
+    assert not out[2][:, torch.as_tensor(rows < 0, device=cuda)].any()
+    gbar = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.5, 1.5, (3, n_rays)).astype(np.float32), device=cuda)
+    layout = cbwd.host_layout(rows, ids, n_vrls, cbwd.ray_block(False), cuda)
+    assert len(layout[1]) == sum(-(-n // cbwd.ray_block(False))
+                                 for n in sizes)
+
+    def launch(mode):
+        return cbwd._launch(cbwd._library(), *packs, layout, ids, ws, None,
+                            29, 2, 2, True, 0, gbar, mode=mode)
+    again = vrl_sum_clustered_bwd(*packs, rows, ids, ws, gbar, seed=29)
+    for other in (launch(vs.MODE_NO_REJECT), launch(vs.MODE_SUM), again):
+        assert all(torch.equal(a, b) for a, b in zip(out, other))
 
 
 @pytest.mark.parametrize("grid", [False, True], ids=["homog", "grid"])

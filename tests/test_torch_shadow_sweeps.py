@@ -15,8 +15,11 @@ that the plain backward of a 16x16 train step tests, which kernel 8
 (csrc/vrl_sum_bwd.cu) sweeps with the same pre-reject, and on every one
 that the plain grid R and grid clustered sum test in a 16x16
 cornell_grid_smoke pass, which kernels 6 (csrc/vrl_r.cu) and 4
-(csrc/vrl_sum_clustered.cu) sweep with it. The kernels themselves run
-only on a CUDA card: see tests/test_torch_cuda.py.
+(csrc/vrl_sum_clustered.cu) sweep with it, and on every one that the
+plain homogeneous R and clustered backward test in a 16x16
+cornell_smoke clustered pass, which kernels 5 (csrc/vrl_r.cu) and 10
+(csrc/vrl_sum_clustered_bwd.cu) sweep with it. The kernels themselves
+run only on a CUDA card: see tests/test_torch_cuda.py.
 """
 
 import math
@@ -34,6 +37,7 @@ from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
 from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
+from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cbwd
 from alvrl_tpu_torch.parallel.render import train_step
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
@@ -391,14 +395,71 @@ def test_pre_reject_on_a_grid_clustered_pass_segments(monkeypatch):
             < c["skips"] / c["tests"], seen
 
 
+@pytest.mark.parametrize("stage", ["r", "clustered_bwd"])
+def test_pre_reject_on_a_clustered_pass_segments(monkeypatch, stage):
+    """Every shadow segment that the plain homogeneous R (kernel 5's) or
+    the plain homogeneous clustered backward (kernel 10's, autograd
+    through the plain clustered forward) tests in a 16x16 cornell_smoke
+    clustered pass (32 particles traced to depth 6 into 128 slots, 6
+    slices, the R's tables): no triangle that the pre-reject skips
+    blocks the segment, and it skips most tests."""
+    scene = presets.cornell_smoke(16, 16, device="cpu")
+    planes = vs.plane_pack(pk.pack_tris(scene))
+    seen = {"segments": 0, "tests": 0, "skips": 0, "bad": 0}
+    watching = [stage == "r"]
+    test = vs._occluded_packed
+
+    def spy(p, q, tris):
+        if watching[0]:
+            p, q = torch.broadcast_tensors(p, q)
+            skip = vs.plane_skip(p, q, planes)
+            hits = vs._wald_hits(p, q, tris)
+            seen["segments"] += skip.numel() // tris.shape[0]
+            seen["tests"] += skip.numel()
+            seen["skips"] += int(skip.sum())
+            seen["bad"] += int((skip & hits).sum())
+        return test(p, q, tris)
+
+    monkeypatch.setattr(vs, "_occluded_packed", spy)
+    params = alvrl.ALVRLParams(
+        vrl_target_num=128, num_particles=32, seed=0,
+        cluster=cl.ClusterParams(target_num_slices=6,
+                                 target_pixel_undersampling=8.0))
+    vrls = vrl.compact(tracer.trace(scene, torch.Generator().manual_seed(3),
+                                    32, tracer.TracerConfig(max_depth=6)),
+                       128, slots_per_particle=6)
+    r_launches = vr.vrl_r.launches
+    sop, tv, tw, _ = alvrl.prepare_clustering(scene, vrls, 5, params,
+                                              VRLConfig())
+    assert vr.vrl_r.launches == r_launches  # the plain version ran
+    if stage == "clustered_bwd":
+        watching[0] = True
+        packs = integrator.pack_frame(scene, vrls)[3]
+        gbar = torch.as_tensor(np.random.default_rng(2).uniform(
+            0.5, 1.5, (3, 256)).astype(np.float32))
+        before = cbwd.vrl_sum_clustered_bwd.launches
+        out = cbwd.vrl_sum_clustered_bwd(*packs, sop, tv, tw, gbar, seed=5)
+        assert cbwd.vrl_sum_clustered_bwd.launches == before
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+        assert float(out[2].abs().sum()) > 0.0
+    assert seen["bad"] == 0, seen
+    assert seen["segments"] > 1000, seen
+    assert seen["skips"] > 0.5 * seen["tests"], seen
+
+
 def test_grid_checking_launches_need_the_card():
-    """Kernels 4's and 6's checking launches take CUDA tensors only."""
+    """Kernels 4's, 5's and 6's checking launches take CUDA tensors
+    only."""
     scene = presets.cornell_grid_smoke(4, 4, grid_res=4, device="cpu")
     vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
                                       device="cpu"), 512)
     packs = integrator.pack_frame(scene, vrls)[3]
     with pytest.raises(ValueError):
         vr.vrl_r_hetero_check(*packs)
+    homog = integrator.pack_frame(presets.cornell_smoke(4, 4, device="cpu"),
+                                  vrls)[3]
+    with pytest.raises(ValueError):
+        vr.vrl_r_check(*homog)
     ids = torch.arange(32, dtype=torch.int32)[None]
     with pytest.raises(ValueError):
         vsc.vrl_sum_hetero_clustered_check(*packs, np.zeros(16, np.int64), ids,
