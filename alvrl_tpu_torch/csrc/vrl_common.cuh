@@ -1206,11 +1206,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Whether a launch takes `mode`: MODE_SUM, or MODE_CHECK with its
-// counts where the kernel has a checking instantiation (CHECK).
-template <bool CHECK>
+// Whether a launch takes `mode`: MODE_SUM, MODE_CHECK with its counts
+// where the kernel has a checking instantiation (CHECK), or
+// MODE_NO_REJECT where it has a sweep without the pre-reject (NO_REJECT).
+template <bool CHECK, bool NO_REJECT = false>
 bool mode_ok(int mode, const unsigned long long* counts) {
-  return mode == MODE_SUM || (CHECK && mode == MODE_CHECK && counts != nullptr);
+  return mode == MODE_SUM || (NO_REJECT && mode == MODE_NO_REJECT) ||
+         (CHECK && mode == MODE_CHECK && counts != nullptr);
 }
 
 // The front of a launch whose kernel sweeps a plane pack (PLANES): the

@@ -274,7 +274,7 @@ int launch_homog(const float* rays, int B, const float* vrls, int N, const float
                  void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || (mode != MODE_NO_REJECT && !mode_ok<true>(mode, counts)))
+      n_chunks > MAX_GRID_Y || !mode_ok<true, true>(mode, counts))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;

@@ -25,23 +25,40 @@
 // aside, which stays in L2).
 // A clustered pass has ~10 representatives per ray (config 2), about 50x
 // fewer pairs than the unclustered sum. The design:
-//   * the host groups the rays by table row into tiles of RAY_BLOCK
-//     (tile_rays: the ray index of each tile slot, -1 for padding;
-//     tile_row: each tile's row), so that a block shares one row;
-//   * the block stages the triangles, then its row's table in VRL_CHUNK
-//     pieces, each column gathered from the full VRL pack by id
-//     (vrl_common.cuh's stage_table_piece, which the VJP's replay stages
-//     through too), and loops over all pieces: there is no cap on the
-//     table width and one launch covers it (the TPU kernel took 128
-//     columns per launch);
-//   * each thread owns one ray and writes its (3,) sum to out[:, b]
-//     directly, in ray order: no cross-block reduction, no scatter pass,
-//     and a deterministic result. Rays in no tile are not written (the
-//     wrapper zeroes out);
-//   * at config 2 the grid is ~164 blocks of 128 threads on 132 SMs, so
-//     the card is under-filled; splitting a row's table across blocks
-//     would fill it;
-//   * the grid instantiations (kernel 4) carry kernel 3's and kernel 11's
+//   * the host groups the rays by table row into tiles (tile_rays: the
+//     ray index of each tile slot, -1 for padding; tile_row: each tile's
+//     row; group_by_slice at the tile's ray count,
+//     alvrl_clustered_ray_block), so that a block shares one row;
+//   * the block stages its row's table in VRL_CHUNK pieces, each column
+//     gathered from the full VRL pack by id (vrl_common.cuh's
+//     stage_table_piece, which the VJP's replay stages through too), and
+//     loops over all pieces: there is no cap on the table width and one
+//     launch covers it (the TPU kernel took 128 columns per launch);
+//   * each ray's (3,) sum is written once to out[:, b], in ray order: no
+//     cross-block reduction, no scatter pass, no atomics, and a
+//     deterministic result. Rays in no tile are not written (the wrapper
+//     zeroes out);
+//   * both media sweep a plane pack, which the C entry makes in front of
+//     the launch (vrl_sum.cu:alvrl_plane_pack) and the block stages in
+//     shared memory, with kernel 1's plane pre-reject (vrl_common.cuh
+//     PlaneTris): a triangle's Wald test is skipped where the segment's
+//     two tested ends lie on one side of its plane by a proven margin.
+//     The checking instantiation (MODE_CHECK) decides by the Wald test
+//     alone and counts, as kernel 1's does.
+// The two media take two tilings:
+//   * homogeneous (kernel 2, vrl_sum_clustered_warps_kernel): config 2's
+//     100 rows average about 164 rays, so tiles of RAY_BLOCK rays were
+//     164 blocks on 132 SMs, a fifth of their lanes padding. A tile is
+//     C_RAYS = 32 rays, a warp's lanes over them, and the block's N_WARPS
+//     warps split each staged piece's columns (column c to warp c %
+//     N_WARPS), as kernel 10 (vrl_sum_clustered_bwd.cu) does: 542 tiles
+//     at config 2, 5.5 % padding. Each lane sums its ray over its warp's
+//     columns; the block adds the warps' sums in warp order through
+//     shared memory. MODE_NO_REJECT is the same tiling with the plane
+//     pack's flat sweep, whose output must be the same bit for bit;
+//   * grid (kernel 4, vrl_sum_clustered_kernel, GRID = true): tiles of
+//     RAY_BLOCK rays, a thread a ray walking the row's columns (2,096
+//     blocks at config 4 fill the card), with kernel 3's and kernel 11's
 //     grid items: the U-V quadrature's step count a template argument
 //     (UV_STEPS, every caller's; UV = 0 the generic run-time count), so
 //     the 4-step instantiation has its steps' points as constants and
@@ -49,16 +66,9 @@
 //     per thread in shared memory (stage_eod; padding slots stage
 //     nothing, but join every barrier), since the rays of a tile come
 //     scattered through tile_rays and each sample's two table reads
-//     would otherwise gather at a stride of B floats; and kernel 1's
-//     plane pre-reject (vrl_common.cuh PlaneTris) over a plane pack
-//     that the C entry makes in front of the launch
-//     (vrl_sum.cu:alvrl_plane_pack) and the block stages in shared
-//     memory: config 4's 12 walls never block a segment inside the box,
-//     and the pre-reject skips their Wald tests where a segment's two
-//     tested ends lie on one side by its proven margin. Its checking
-//     instantiation (MODE_CHECK) decides by the Wald test alone and
-//     counts, as kernel 1's does. The homogeneous instantiations (kernel
-//     2) keep the flat sweep (FlatTris) and the run-time step count.
+//     would otherwise gather at a stride of B floats. Config 4's 12
+//     walls never block a segment inside the box, and the pre-reject
+//     skips most of their Wald tests.
 //
 // Random numbers: Philox4x32-10 with key (seed, 0) and counter (b, VRL
 // id, call, 0), b the ray's index in the ray pack (the pixel in frame
@@ -73,10 +83,82 @@
 
 namespace {
 
-// Kernel 2 (GRID = false) and kernel 4 (GRID = true; UV steps, or 0 for
-// the run-time count; MODE_SUM or MODE_CHECK): the sum of one tile.
-// tris: the triangles, TRI_COLS floats each (homogeneous), or their
-// plane pack (grid media), as sweep_floats<GRID>.
+// rays of a homogeneous tile: one warp's lanes (module comment)
+constexpr int C_RAYS = 32;
+static_assert(RAY_BLOCK == N_WARPS * C_RAYS, "a warp a column");
+
+// Kernel 2: tile blockIdx.x, C_RAYS rays of one row (lane = ray), the
+// warps over the row's columns; tris: the triangles' plane pack, swept
+// by PlaneTris<MODE> (MODE_SUM; MODE_CHECK, which counts; MODE_NO_REJECT).
+template <int PHASE, bool SHORT_VRLS, int MODE>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_clustered_warps_kernel(const float* __restrict__ rays, int B,
+                                   const float* __restrict__ vrls, int N,
+                                   const float* __restrict__ tris, int T,
+                                   const float* __restrict__ med,
+                                   const int* __restrict__ tile_rays,
+                                   const int* __restrict__ tile_row,
+                                   const int* __restrict__ table_ids,
+                                   const float* __restrict__ table_w, int C,
+                                   const float* __restrict__ uniforms, uint32_t seed, int svv,
+                                   int svs, float* __restrict__ out,
+                                   unsigned long long* __restrict__ counts) {
+  extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
+  float* s_tri = reinterpret_cast<float*>(smem4);  // sweep_floats<true>(T)
+  float* s_vrl = s_tri + sweep_floats<true>(T);    // (VRL_ROWS, VRL_CHUNK)
+  float* s_acc = s_vrl + VRL_ROWS * VRL_CHUNK;     // (N_WARPS, 3, C_RAYS)
+  int* s_id = reinterpret_cast<int*>(s_acc + N_WARPS * 3 * C_RAYS);  // (VRL_CHUNK,)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
+  const auto occl = stage_sweep<true, MODE>(tris, T, s_tri, &cnt);
+
+  const int tile = blockIdx.x;
+  const int b = tile_rays[(size_t)tile * C_RAYS + lane];
+  const int* ids = table_ids + (size_t)tile_row[tile] * C;
+  const float* ws = table_w + (size_t)tile_row[tile] * C;
+  Ray ray{};  // padding slots keep ok = false, but join every barrier
+  if (b >= 0) ray = load_ray(rays, B, b);
+  const Medium m(med);
+  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
+  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
+  const int n_draws = 2 * svv + svs;
+
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < C; c0 += VRL_CHUNK) {
+    __syncthreads();  // the previous piece is consumed (and the triangles staged)
+    const int nc = stage_table_piece(vrls, N, VRL_ROWS, ids, ws, C, c0, s_vrl, s_id);
+    __syncthreads();
+    for (int cc = warp; ray.ok && cc < nc; cc += N_WARPS) {
+      if (s_vrl[VVALID * VRL_CHUNK + cc] <= 0.5f) continue;
+      const VrlPair p = pair_at<false>(ray, s_vrl, cc);
+      PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
+                        (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u), -1};
+      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
+                                    [&](int family, const float* t) {
+                                      const float inv = family == 0 ? inv_vv : inv_vs;
+#pragma unroll
+                                      for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+                                    });
+    }
+  }
+
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) s_acc[(warp * 3 + ch) * C_RAYS + lane] = acc[ch];
+  __syncthreads();
+  if (warp == 0 && b >= 0) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float v = 0.0f;
+      for (int w = 0; w < N_WARPS; ++w) v += s_acc[(w * 3 + ch) * C_RAYS + lane];
+      out[(size_t)ch * B + b] = v;
+    }
+  }
+  if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
+}
+
+// Kernel 4, instantiated for GRID = true (UV steps, or 0 for the run-time
+// count; MODE_SUM or MODE_CHECK): tile blockIdx.x, RAY_BLOCK rays of one
+// row, a thread a ray; tris: the triangles' plane pack.
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_clustered_kernel(const float* __restrict__ rays, int B,
@@ -140,34 +222,45 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
 }
 
-using ClusteredKernel = void (*)(const float*, int, const float*, int, const float*, int,
-                                 const float*, GridArgs, const int*, const int*, const int*,
-                                 const float*, int, const float*, uint32_t, int, int, float*,
-                                 unsigned long long*);
-
-// The instantiation that a launch of these arguments takes.
+// The instantiation that a launch of these arguments takes (the mode:
+// MODE_SUM or MODE_CHECK, or homogeneous MODE_NO_REJECT).
 template <bool GRID, class Phase, class Short, class Uv>
-ClusteredKernel clustered_kernel(Phase, Short, Uv, int mode) {
+auto clustered_kernel(Phase, Short, Uv, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
-  if constexpr (GRID)
-    if (mode == MODE_CHECK) return &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK>;
-  return &vrl_sum_clustered_kernel<P, S, GRID, Uv::value, MODE_SUM>;
+  if constexpr (GRID) {
+    return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK>
+                              : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM>;
+  } else {
+    if (mode == MODE_CHECK) return &vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK>;
+    if (mode == MODE_NO_REJECT) return &vrl_sum_clustered_warps_kernel<P, S, MODE_NO_REJECT>;
+    return &vrl_sum_clustered_warps_kernel<P, S, MODE_SUM>;
+  }
 }
 
-// dynamic shared memory of the sum, in bytes, with T triangles
+// The rays of a tile: C_RAYS (homogeneous) or RAY_BLOCK (grid).
+template <bool GRID>
+constexpr int clustered_tile() {
+  return GRID ? RAY_BLOCK : C_RAYS;
+}
+
+// dynamic shared memory of the sum, in bytes, with T triangles: the
+// plane pack, the staged table piece and its VRL ids, and the grid's
+// medium and eye-OD tables or the homogeneous warps' per-ray sums
 template <bool GRID>
 size_t clustered_smem_bytes(int T) {
-  return (sweep_floats<GRID>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-          (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : 0)) *
+  return (sweep_floats<true>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
+          (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : N_WARPS * 3 * C_RAYS)) *
              sizeof(float) +
          VRL_CHUNK * sizeof(int);
 }
 
-// Launches the clustered sum on `stream`, in a grid medium after the
-// plane pack of the T triangles into `planes` ((T, 4 PLANE_F4) floats of
-// scratch) and in `mode` (MODE_CHECK adds its counts to
-// counts[N_CHECK]); returns a cudaError_t (0 = launched).
+// Launches the clustered sum on `stream` after the plane pack of the T
+// triangles into `planes` ((T, 4 PLANE_F4) floats of scratch), in `mode`
+// (MODE_CHECK adds its counts to counts[N_CHECK]; homogeneous
+// MODE_NO_REJECT sweeps without the pre-reject); tile_rays holds
+// clustered_tile<GRID>() slots a tile. Returns a cudaError_t (0 =
+// launched).
 template <bool GRID>
 int launch_clustered(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
                      const float* med, GridArgs grid, const int* tile_rays, const int* tile_row,
@@ -177,18 +270,23 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
                      float* out, void* stream) {
   if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
       svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
-      !mode_ok<GRID>(mode, counts))
+      !mode_ok<true, !GRID>(mode, counts))
     return (int)cudaErrorInvalidValue;
-  const int pack = pack_planes<GRID>(tris, T, planes, stream);
+  const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = clustered_smem_bytes<GRID>(T);
   cudaError_t err = cudaSuccess;
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    const ClusteredKernel kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
+    const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
     err = allow_smem(kernel, smem);
-    if (err == cudaSuccess)
+    if (err != cudaSuccess) return;
+    if constexpr (GRID)
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
+                                               tile_row, table_ids, table_w, C, uniforms, seed,
+                                               svv, svs, out, counts);
+    else
+      kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
                                                svv, svs, out, counts);
   });
@@ -200,27 +298,36 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
 
 extern "C" {
 
-// The homogeneous clustered sum. tile_rays (n_tiles * RAY_BLOCK,) int32
-// ray indices or -1, tile_row (n_tiles,) int32 table rows, table_ids /
-// table_w (S, C); `out` is (3, B), written only at the rays of the
-// tiles. `uniforms` may be null (Philox stream from `seed`).
+// The rays of a tile of the clustered sum (grid 0: homogeneous, 1: grid
+// media), which the wrapper groups the rays into (group_by_slice).
+int alvrl_clustered_ray_block(int grid) {
+  return grid ? clustered_tile<true>() : clustered_tile<false>();
+}
+
+// The homogeneous clustered sum. tile_rays (n_tiles *
+// alvrl_clustered_ray_block(0),) int32 ray indices or -1, tile_row
+// (n_tiles,) int32 table rows, table_ids / table_w (S, C); `planes` (T,
+// 4 PLANE_F4) float scratch for the triangles' plane pack (may be null
+// for T = 0); mode 0 the sum, 1 the checking instantiation (counts:
+// N_CHECK totals, zeroed by the caller, as alvrl_vrl_sum's), 2 the sum
+// without the plane pre-reject (its output must be the same bit for
+// bit); `out` is (3, B), written only at the rays of the tiles.
+// `uniforms` may be null (Philox stream from `seed`).
 int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
                             const float* tris, int T, const float* med, const int* tile_rays,
                             const int* tile_row, int n_tiles, const int* table_ids,
                             const float* table_w, int C, const float* uniforms, unsigned int seed,
-                            int svv, int svs, int short_vrls, int phase_kind, float* out,
-                            void* stream) {
+                            int svv, int svs, int short_vrls, int phase_kind, float* planes,
+                            int mode, unsigned long long* counts, float* out, void* stream) {
   return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays, tile_row,
                                  n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
-                                 short_vrls, phase_kind, nullptr, MODE_SUM, nullptr, out, stream);
+                                 short_vrls, phase_kind, planes, mode, counts, out, stream);
 }
 
 // The grid-medium clustered sum: the grid packs (ops/pack.py), the
 // supersampled density (nz, ny, nx) and the U-V quadrature's step count;
-// `planes` (T, 4 PLANE_F4) float scratch for the triangles' plane pack
-// (may be null for T = 0); mode 0 the sum, 1 the checking instantiation
-// (counts: N_CHECK totals, zeroed by the caller, as alvrl_vrl_sum's);
-// the rest as alvrl_vrl_sum_clustered.
+// tiles of alvrl_clustered_ray_block(1) slots; mode 0 or 1; the rest as
+// alvrl_vrl_sum_clustered.
 int alvrl_vrl_sum_hetero_clustered(const float* rays, int B, const float* vrls, int N,
                                    const float* tris, int T, const float* med,
                                    const float* density, int nz, int ny, int nx, int uv_steps,

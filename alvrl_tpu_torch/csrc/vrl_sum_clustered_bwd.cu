@@ -360,7 +360,7 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
   if (B <= 0 || N <= 0 || n_tiles <= 0 || S <= 0 || C <= 0 || T < 0 || T > MAX_TRIS ||
       svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
       (GRID && d_density == nullptr) ||
-      !(mode == MODE_SUM || (!GRID && mode == MODE_NO_REJECT)))
+      !mode_ok<false, !GRID>(mode, nullptr))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<!GRID>(tris, T, planes, stream);
   if (pack != 0) return pack;

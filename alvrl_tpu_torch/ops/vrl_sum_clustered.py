@@ -15,9 +15,13 @@ the particle count.
 
 What bounds it on the H100 is fp32 ALU and special-function throughput,
 as for ops.vrl_sum; the CUDA kernel (csrc/vrl_sum_clustered.cu, whose
-header gives the design) takes rays grouped by row into tiles of its
-block size (group_by_slice, on the host, as the JAX render groups
-pixels) and gathers each tile's table from the full VRL pack.
+header gives the design) takes rays grouped by row into tiles
+(group_by_slice, on the host, as the JAX render groups pixels) of
+ray_block(grid) rays: 32 in a homogeneous medium (a warp's lanes over
+the rays, the block's warps over the row's columns), 128 in a grid
+medium (a thread a ray). It gathers each tile's table from the full VRL
+pack and sweeps the triangles' plane pack with kernel 1's plane
+pre-reject.
 
 Beside the kernel:
   * `vrl_sum_clustered_reference` and
@@ -30,10 +34,13 @@ Beside the kernel:
     plain version for CPU tensors.
     Its Philox stream is vrl_sum's with counter (ray, VRL id, call, 0),
     independent of the grouping and the table layout;
-  * `vrl_sum_hetero_clustered_check`, the grid kernel's checking launch
-    (CUDA only): its shadow segments decided by the Wald test alone,
-    with the counts of the plane pre-reject that its sum instantiation
-    sweeps with (as ops.vrl_sum.vrl_sum_check for kernel 1).
+  * `vrl_sum_clustered_check` and `vrl_sum_hetero_clustered_check`, the
+    kernels' checking launches (CUDA only): their shadow segments
+    decided by the Wald test alone, with the counts of the plane
+    pre-reject that their sum instantiations sweep with (as
+    ops.vrl_sum.vrl_sum_check for kernel 1); `_launch(...,
+    mode=vs.MODE_NO_REJECT)` is the homogeneous kernel's sweep without
+    the pre-reject, whose output must be the kernel's bit for bit.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ def group_by_slice(ray_slice, ray_block):
     rows, first, counts = np.unique(sl[order], return_index=True,
                                     return_counts=True)
     tiles = -(-counts // ray_block)
-    tile_start = np.concatenate([[0], np.cumsum(tiles)[:-1]]) * ray_block
+    tile_start = (np.cumsum(tiles) - tiles) * ray_block
     rank = np.arange(len(order)) - np.repeat(first, counts)
     tile_rays = np.full(int(tiles.sum()) * ray_block, -1, np.int32)
     tile_rays[np.repeat(tile_start, counts) + rank] = order
@@ -151,14 +158,22 @@ def philox_table_uniforms(seed, ray_slice, table_ids, n_draws):
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, p]
+    tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, i, i, i, i, *tail[:-2], p, i, p, *tail[-2:]]
+        p, i, p, i, p, i, p, p, i, i, i, i, *tail]
+    lib.alvrl_clustered_ray_block.argtypes = [i]
     for fn in (lib.alvrl_vrl_sum_clustered,
-               lib.alvrl_vrl_sum_hetero_clustered, lib.alvrl_ray_block):
+               lib.alvrl_vrl_sum_hetero_clustered,
+               lib.alvrl_clustered_ray_block):
         fn.restype = i
     return lib
+
+
+def ray_block(grid):
+    """The rays of a tile of the kernel, homogeneous (grid False) or grid
+    medium: group_by_slice's ray_block for its launch."""
+    return _library().alvrl_clustered_ray_block(int(grid))
 
 
 def _check_tables(rays, ray_slice, table_ids, table_weights):
@@ -195,8 +210,8 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                table_weights, seed, uniforms, svv, svs, short_vrls, phase_kind,
                grid, mode=vs.MODE_SUM):
     """The wrappers' body (see vrl_sum_clustered), counting a launch on
-    `fn`; mode MODE_CHECK (CUDA tensors and grid packs only) returns
-    (out, {name: total} of vs.CHECK_COUNTS)."""
+    `fn`; mode MODE_CHECK (CUDA tensors only) returns (out, {name:
+    total} of vs.CHECK_COUNTS)."""
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
@@ -220,7 +235,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
     out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
     counts = (torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
                           device=rays.device) if checking else None)
-    tile_rays, tile_row = group_by_slice(sl, lib.alvrl_ray_block())
+    tile_rays, tile_row = group_by_slice(sl, ray_block(grid is not None))
     if len(tile_row) and n_vrls and n_cols:
         tile_rays = torch.as_tensor(tile_rays).to(rays.device)
         tile_row = torch.as_tensor(tile_row).to(rays.device)
@@ -256,6 +271,24 @@ def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
 
 vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
                                 # used the kernel
+
+
+def vrl_sum_clustered_check(rays, vrls, tris, medium, ray_slice, table_ids,
+                            table_weights, *, seed=0, uniforms=None,
+                            vol_vol_samples=2, vol_surf_samples=2,
+                            short_vrls=True, phase_kind=ph.HG):
+    """vrl_sum_clustered's sums through kernel 2's checking
+    instantiation (a launch counted here, not on the wrapper), which
+    decides every shadow segment by the Wald test alone and runs the
+    plane pre-reject beside it, and {name: total} of vs.CHECK_COUNTS, as
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    return _clustered(vrl_sum_clustered_check, rays, vrls, tris, medium,
+                      ray_slice, table_ids, table_weights, seed, uniforms,
+                      vol_vol_samples, vol_surf_samples, short_vrls,
+                      phase_kind, None, mode=vs.MODE_CHECK)
+
+
+vrl_sum_clustered_check.launches = 0  # checking launches
 
 
 def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
@@ -300,32 +333,36 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
             table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
             out, grid=None, mode=vs.MODE_SUM, counts=None):
     """The kernel on inputs the wrapper has checked and grouped
-    (tile_rays, tile_row: group_by_slice's arrays on the device), into
-    `out` (3, B), written at the rays of the tiles; on the current
-    stream; grid = (density, uv_steps) for the grid kernel, which sweeps
-    the triangles' plane pack (made here into scratch) in `mode`
-    (MODE_CHECK adds its counts to `counts`, (len(CHECK_COUNTS),)
-    int64). The wrapper's own step, apart so that chip_smoke.py can time
-    the kernel without the wrapper's host work; it counts no launch."""
+    (tile_rays, tile_row: group_by_slice's arrays on the device, at
+    ray_block(grid is not None)), into `out` (3, B), written at the rays
+    of the tiles; on the current stream; grid = (density, uv_steps) for
+    the grid kernel. It sweeps the triangles' plane pack (made here into
+    scratch) in `mode`: MODE_CHECK adds its counts to `counts`,
+    (len(CHECK_COUNTS),) int64; homogeneous MODE_NO_REJECT sweeps
+    without the pre-reject. The wrapper's own step, apart so that
+    chip_smoke.py can time the kernel without the wrapper's host work; it
+    counts no launch."""
+    block = lib.alvrl_clustered_ray_block(int(grid is not None))
+    if len(tile_rays) != block * len(tile_row):
+        raise ValueError(f"{len(tile_rays)} tile slots for {len(tile_row)} "
+                         f"tiles of {block} rays")
     head = (rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
             tris.data_ptr(), tris.shape[0], medium.data_ptr())
+    planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
+                         dtype=torch.float32, device=rays.device)
     tail = (tile_rays.data_ptr(), tile_row.data_ptr(), len(tile_row),
             table_ids.data_ptr(), table_weights.data_ptr(),
             table_ids.shape[1],
             None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
-            int(short_vrls), phase_kind)
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    if grid is None:
-        err = lib.alvrl_vrl_sum_clustered(*head, *tail, out.data_ptr(),
-                                          stream)
-    else:
-        planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
-                             dtype=torch.float32, device=rays.device)
-        err = lib.alvrl_vrl_sum_hetero_clustered(
-            *head, *vs.grid_args(*grid), *tail,
+            int(short_vrls), phase_kind,
             planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), out.data_ptr(),
-            stream)
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if grid is None:
+        err = lib.alvrl_vrl_sum_clustered(*head, *tail)
+    else:
+        err = lib.alvrl_vrl_sum_hetero_clustered(
+            *head, *vs.grid_args(*grid), *tail)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
                            f"error {err} "

@@ -71,30 +71,32 @@ Both splits use only functions that every tree of the port since kernel
 occupancy query prints no blocks for it), so they time a parent and a
 change in turn. Each takes about 25 s a tree.
 
-With --grid-clustered-split it times kernel 4 (vrl_sum_hetero_clustered,
-a bare launch on pre-grouped tiles) and kernel 6 (vrl_r_hetero on the
-representative rays) on config 4's clustered inputs, each whole, with
-no triangles, with a 1x1x1 density of the grid's mean and with a
-one-step U-V quadrature (--grid-split's ablations without the
-backward's); with both kernels' checking counts (triangle tests and
+With --grid-clustered-split [--outputs PATH] it times kernel 4
+(vrl_sum_hetero_clustered, a bare launch on pre-grouped tiles) and
+kernel 6 (vrl_r_hetero on the representative rays) on config 4's
+clustered inputs, each whole, with no triangles, with a 1x1x1 density
+of the grid's mean and with a one-step U-V quadrature (--grid-split's
+ablations without the backward's); with both kernels' checking counts
+(triangle tests and
 skips per shadow segment) on trees that have the grid pre-reject, and
 the blocks resident per SM of both grid instantiations where the
-tree's library answers. It takes about 25 s a tree.
+tree's library answers; --outputs saves or compares both kernels'
+outputs, as --config2-split's. It takes about 25 s a tree.
 
 With --config2-split [--outputs PATH] it times kernels 5 (vrl_r on
 the representative rays), 10 (vrl_sum_clustered_bwd, a bare launch on
-its host layout) and, for reference, 2 (vrl_sum_clustered, a bare launch
-on pre-grouped tiles) on config 2's clustered inputs (chip_smoke.py
-phases 11-14 and 25-26), each whole, with no triangles, and in its
-checking launch (kernel 5) or its launch without the plane pre-reject
-(kernel 10) on trees that have them; with kernel 5's checking counts,
-each kernel's tile and block counts and the blocks resident per SM
-where the tree's library answers. With --outputs, kernel 5's output and
-kernel 10's outputs are saved to PATH if it does not exist, else
-compared with what it holds (the largest difference of each, and
-whether it is bit-identical), so that runs of two trees in turn check
-that the change computes what the parent does. It takes about 25 s a
-tree.
+its host layout) and 2 (vrl_sum_clustered, a bare launch on tiles
+grouped at its own tile where the tree's library has one) on config 2's
+clustered inputs (chip_smoke.py phases 11-14 and 25-26), each whole,
+with no triangles, and in its checking launch (kernels 5 and 2) and its
+launch without the plane pre-reject (kernels 10 and 2) on trees that
+have them; with kernels 5's and 2's checking counts, each kernel's tile
+and block counts and the blocks resident per SM where the tree's
+library answers. With --outputs, the outputs of kernels 5, 10 and 2 are
+saved to PATH if it does not exist, else compared with what it holds
+(the largest difference of each, and whether it is bit-identical), so
+that runs of two trees in turn check that the change computes what the
+parent does. It takes about 25 s a tree.
 
 With --trainer it runs the density-recovery trainer
 (scripts.recover_density at its defaults, as chip_smoke.py phase 21:
@@ -217,8 +219,11 @@ def cluster_inputs(dev, make_scene, depth, tracer_seed, particles, slices,
     n_rays = packs[0].shape[1]
     grid = None if len(packs) == 4 else (packs[4], cfg.uv_tau_steps)
     ray_block = vsc._library().alvrl_ray_block()
+    # the forward's tile, where the tree's library has its own
+    fwd_block = (vsc.ray_block(grid is not None) if hasattr(vsc, "ray_block")
+                 else ray_block)
     tiles = [torch.as_tensor(a, device=dev)
-             for a in vsc.group_by_slice(sop, ray_block)]
+             for a in vsc.group_by_slice(sop, fwd_block)]
     # the backward's tile, where the tree's library has its own
     bwd_block = (cb.ray_block(grid is not None) if hasattr(cb, "ray_block")
                  else ray_block)
@@ -446,13 +451,14 @@ def clustered_split(dev, cfg):
             "occupancy": occ}
 
 
-def grid_clustered_split(dev, cfg):
+def grid_clustered_split(dev, cfg, outputs=None):
     """{variant: timing} of kernels 4 (vrl_sum_hetero_clustered, a bare
     launch on pre-grouped tiles) and 6 (vrl_r_hetero on the
     representative rays) on config 4's clustered inputs with parts of
     their work taken away (the module docstring); their checking
     launches' counts and {kernel: blocks per SM}, where the tree's
-    library has them."""
+    library has them; with `outputs` the comparison of both kernels'
+    outputs with a saved run's."""
     c = cluster_inputs(dev, *CONFIGS["config4"], cfg)
     rays, vpack, tris, med, dens = c["packs"]
     rays_r = rep_packs(c)[0]
@@ -498,18 +504,27 @@ def grid_clustered_split(dev, cfg):
                 continue
             occ[f"{entry}<grid,uv{steps}>"] = {"blocks": blocks,
                                                "warps": 4 * blocks}
-    return {"shape": {"rays": rays.shape[1], "tiles": len(tiles[1]),
-                      "table": list(tv.shape), "representatives":
-                      rays_r.shape[1], "vrls": vpack.shape[1],
-                      "triangles": tris.shape[0]},
-            "split": times, "check": check, "occupancy": occ}
+    result = {"shape": {"rays": rays.shape[1], "tiles": len(tiles[1]),
+                        "table": list(tv.shape), "representatives":
+                        rays_r.shape[1], "vrls": vpack.shape[1],
+                        "triangles": tris.shape[0]},
+              "split": times, "check": check, "occupancy": occ}
+    if outputs is not None:
+        out.zero_()
+        vsc._launch(lib, rays, vpack, tris, med, *tiles, tv, tw, None, seed,
+                    2, 2, True, kind, out, (dens, uv))
+        result["outputs"] = saved_or_compared(outputs, {
+            "vrl_sum_hetero_clustered": out,
+            "vrl_r_hetero": vr.vrl_r_hetero(rays_r, vpack, tris, med, dens,
+                                            seed=seed, uv_steps=uv)})
+    return result
 
 
 def config2_split(dev, cfg, outputs=None):
     """{variant: timing} of kernels 5, 10 and 2 on config 2's clustered
-    inputs (the module docstring), kernel 5's checking counts, the tiles,
-    blocks and blocks per SM, and with `outputs` the comparison of
-    kernels 5's and 10's outputs with a saved run's."""
+    inputs (the module docstring), kernels 5's and 2's checking counts,
+    the tiles, blocks and blocks per SM, and with `outputs` the
+    comparison of kernels 5's, 10's and 2's outputs with a saved run's."""
     c = cluster_inputs(dev, *CONFIGS["config2"], cfg)
     rays, vpack, tris, med = c["packs"]
     packs_r = rep_packs(c)
@@ -519,26 +534,37 @@ def config2_split(dev, cfg, outputs=None):
     lib, blib = vsc._library(), cb._library()
     out = torch.zeros((3, rays.shape[1]), device=dev)
     modes = hasattr(cb, "ray_block")  # trees from kernel 10's redesign on
+    k2_modes = hasattr(vsc, "vrl_sum_clustered_check")  # from kernel 2's
 
     def bwd_launch(t, **kw):
         return lambda: cb._launch(blib, rays, vpack, t, med, layout, tv, tw,
                                   None, seed, 2, 2, True, kind, gbar, **kw)
+
+    def fwd_launch(t, o=out, **kw):
+        def launch():
+            vsc._launch(lib, rays, vpack, t, med, *tiles, tv, tw, None, seed,
+                        2, 2, True, kind, o, **kw)
+            return o
+        return launch
     variants = {
         "vrl_r/whole": lambda: vr.vrl_r(*packs_r, seed=seed),
         "vrl_r/no_triangles": lambda: vr.vrl_r(
             packs_r[0], packs_r[1], no_tris, packs_r[3], seed=seed),
         "vrl_sum_clustered_bwd/whole": bwd_launch(tris),
         "vrl_sum_clustered_bwd/no_triangles": bwd_launch(no_tris),
-        "vrl_sum_clustered/whole": lambda: vsc._launch(
-            lib, rays, vpack, tris, med, *tiles, tv, tw, None, seed, 2, 2,
-            True, kind, out),
-        "vrl_sum_clustered/no_triangles": lambda: vsc._launch(
-            lib, rays, vpack, no_tris, med, *tiles, tv, tw, None, seed, 2, 2,
-            True, kind, out)}
+        "vrl_sum_clustered/whole": fwd_launch(tris),
+        "vrl_sum_clustered/no_triangles": fwd_launch(no_tris)}
     if hasattr(vr, "vrl_r_check"):
         variants["vrl_r/check"] = lambda: vr.vrl_r_check(*packs_r, seed=seed)
     if modes:
         variants["vrl_sum_clustered_bwd/no_pre_reject"] = bwd_launch(
+            tris, mode=vs.MODE_NO_REJECT)
+    counts2 = torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
+                          device=dev)
+    if k2_modes:
+        variants["vrl_sum_clustered/check"] = fwd_launch(
+            tris, mode=vs.MODE_CHECK, counts=counts2)
+        variants["vrl_sum_clustered/no_pre_reject"] = fwd_launch(
             tris, mode=vs.MODE_NO_REJECT)
     times = {k: windows(fn, 10, 10) for k, fn in variants.items()}
     n_rep, n_vrls = packs_r[0].shape[1], vpack.shape[1]
@@ -554,7 +580,9 @@ def config2_split(dev, cfg, outputs=None):
                  "blocks": len(layout[1]),
                  "padding": float((layout[0] < 0).double().mean())},
              "vrl_sum_clustered": {"tile_rays": len(tiles[0]) // len(tiles[1]),
-                                   "blocks": len(tiles[1])}}
+                                   "blocks": len(tiles[1]),
+                                   "padding": float((tiles[0] < 0)
+                                                    .double().mean())}}
     check = {}
     if hasattr(vr, "vrl_r_check"):
         counts = vr.vrl_r_check(*packs_r, seed=seed)[1]
@@ -562,6 +590,13 @@ def config2_split(dev, cfg, outputs=None):
         check["vrl_r"] = {**counts, "considered_per_segment":
                           counts["considered"] / seg, "skipped_share":
                           counts["skipped"] / max(counts["considered"], 1)}
+    if k2_modes:
+        counts = vsc.vrl_sum_clustered_check(rays, vpack, tris, med, c["sop"],
+                                             tv, tw, seed=seed)[1]
+        seg = max(counts["segments"], 1)
+        check["vrl_sum_clustered"] = {
+            **counts, "considered_per_segment": counts["considered"] / seg,
+            "skipped_share": counts["skipped"] / max(counts["considered"], 1)}
     occ = {}
     for entry in ("vrl_r", "vrl_sum_clustered", "vrl_sum_clustered_bwd"):
         try:
@@ -576,28 +611,42 @@ def config2_split(dev, cfg, outputs=None):
         same = [torch.equal(a, b) for a, b in zip(
             bwd_launch(tris)(), bwd_launch(tris, mode=vs.MODE_NO_REJECT)())]
         result["vrl_sum_clustered_bwd_no_reject_bit_identical"] = all(same)
+    fwd = fwd_launch(tris, torch.zeros_like(out))().clone()
+    if k2_modes:
+        result["vrl_sum_clustered_check_and_no_reject_bit_identical"] = all(
+            torch.equal(fwd, fwd_launch(tris, torch.zeros_like(out), **kw)())
+            for kw in (dict(mode=vs.MODE_CHECK, counts=torch.zeros_like(
+                counts2)), dict(mode=vs.MODE_NO_REJECT)))
     if outputs is not None:
-        now = {"vrl_r": vr.vrl_r(*packs_r, seed=seed).cpu(),
-               "vrl_sum_clustered_bwd": [t.cpu() for t in bwd_launch(tris)()]}
-        if not os.path.exists(outputs):
-            torch.save(now, outputs)
-            result["outputs"] = f"saved to {outputs}"
-        else:
-            then = torch.load(outputs)
-            cmp = {}
-            for name, a, b in [("vrl_r", now["vrl_r"], then["vrl_r"])] + [
-                    (f"vrl_sum_clustered_bwd/{n}", x, y) for n, x, y in zip(
-                        ("d_power", "d_par", "d_tau", "d_weights"),
-                        now["vrl_sum_clustered_bwd"],
-                        then["vrl_sum_clustered_bwd"])]:
-                diff = (a - b).abs()
-                cmp[name] = {"bit_identical": torch.equal(a, b),
-                             "max_abs": float(diff.max()),
-                             "max_rel": float((diff / b.abs().clamp(
-                                 min=1e-30)).max()),
-                             "differ": int((a != b).sum())}
-            result["outputs"] = cmp
+        d_names = ("d_power", "d_par", "d_tau", "d_weights")
+        result["outputs"] = saved_or_compared(outputs, {
+            "vrl_r": vr.vrl_r(*packs_r, seed=seed),
+            "vrl_sum_clustered": fwd,
+            **{f"vrl_sum_clustered_bwd/{n}": t
+               for n, t in zip(d_names, bwd_launch(tris)())}})
     return result
+
+
+def saved_or_compared(path, now):
+    """Saves {name: tensor} `now` to `path` if it does not exist (then
+    "saved to path"), else {name: the largest absolute and relative
+    difference from the saved tensor of that name, the count of entries
+    that differ, whether it is bit-identical}."""
+    now = {k: v.cpu() for k, v in now.items()}
+    if not os.path.exists(path):
+        torch.save(now, path)
+        return f"saved to {path}"
+    then = torch.load(path)
+    cmp = {}
+    for name in sorted(now.keys() & then.keys()):
+        a, b = now[name], then[name]
+        diff = (a - b).abs()
+        cmp[name] = {"bit_identical": torch.equal(a, b),
+                     "max_abs": float(diff.max()),
+                     "max_rel": float((diff / b.abs().clamp(
+                         min=1e-30)).max()),
+                     "differ": int((a != b).sum())}
+    return cmp
 
 
 BVH_SCENES = (("cubes", 11), ("cubes", 16), ("cubes", 22), ("blob", 64),
@@ -735,17 +784,16 @@ def main():
                           "registers": registers(),
                           **clustered_split(dev, cfg)}))
         return
+    outputs = sys.argv[3] if sys.argv[2:3] == ["--outputs"] else None
     if sys.argv[1:2] == ["--config2-split"]:
-        rest = sys.argv[2:]
-        outputs = rest[1] if rest[:1] == ["--outputs"] else None
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(),
                           **config2_split(dev, cfg, outputs)}))
         return
-    if sys.argv[1:] == ["--grid-clustered-split"]:
+    if sys.argv[1:2] == ["--grid-clustered-split"]:
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(),
-                          **grid_clustered_split(dev, cfg)}))
+                          **grid_clustered_split(dev, cfg, outputs)}))
         return
     if sys.argv[1:] == ["--grid-split"]:
         times, occ = grid_split(dev, cfg)

@@ -64,10 +64,14 @@ Phases, one line each; any failure exits non-zero:
      VRLs must lie in 0.85-1.15;
  14. timing of a warm clustered pass, per stage on the host clock, each
      new kernel alone and its plain version, and a profile as phase 6;
-     the R kernel's checking launch (vrl_r_check) on the timed
-     launches' samples: no skipped triangle blocks, no segment decided
-     otherwise, the share of Wald tests skipped, and the bound priced on
-     those skips beside the one with a Wald test per swept triangle;
+     the R kernel's and the clustered sum's checking launches
+     (vrl_r_check, vrl_sum_clustered_check) on the timed launches'
+     samples: no skipped triangle blocks, no segment decided otherwise,
+     the share of Wald tests skipped, the output bit-identical to the
+     kernel's, and the bound priced on those skips beside the one with a
+     Wald test per swept triangle; the clustered sum's tiles, padding,
+     blocks per SM and registers, and its launch without the plane
+     pre-reject, bit-identical to it;
  15. the three grid kernels (vrl_sum_hetero, vrl_r_hetero,
      vrl_sum_hetero_clustered) vs their plain versions at config-4
      shapes (BASELINE, scripts/bench_suite.py:111-149: cornell_grid_smoke
@@ -229,7 +233,8 @@ from alvrl_tpu_torch.ops.vrl_sum import (
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
-    vrl_sum_clustered_reference, vrl_sum_hetero_clustered,
+    vrl_sum_clustered_check, vrl_sum_clustered_reference,
+    vrl_sum_hetero_clustered,
     vrl_sum_hetero_clustered_check, vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import presets
@@ -268,7 +273,8 @@ C4_TRIS = 12             # the box's wall triangles
 # redesign (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 EARLIER_MS = {"vrl_sum_hetero": 42.781, "vrl_sum_hetero_bwd": 68.130,
               "vrl_sum_hetero_clustered": 1.976, "vrl_r_hetero": 0.611,
-              "vrl_r": 0.4692, "vrl_sum_clustered_bwd": 0.3395}
+              "vrl_r": 0.4692, "vrl_sum_clustered_bwd": 0.3395,
+              "vrl_sum_clustered": 0.2455}
 # ROADMAP C12's two repairs of the grid backward, measured on phase 17's
 # full-shape inputs against the float64 plain backward by instantiations
 # of the kernel that were removed after the measurement (NVIDIA H100
@@ -436,14 +442,16 @@ def ptxas_summary(log):
     U-V quadrature's compile-time step count (uv* for their run-time
     count); the sweep's mode (sum, check, noreject) of kernel 1, the R
     kernels and the homogeneous clustered VJP (its tiling,
-    vrl_sum_clustered_bwd_warps_kernel); kernel 7's counting
+    vrl_sum_clustered_bwd_warps_kernel) and sum
+    (vrl_sum_clustered_warps_kernel); kernel 7's counting
     instantiation."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
-                          r"sum_clustered_bwd|sum_clustered_bwd_warps|r|"
-                          r"sum_bvh|sum_plane)_kernel)I((?:L[ib]\d+E)+)E",
+                          r"sum_clustered_bwd|sum_clustered_bwd_warps|"
+                          r"sum_clustered_warps|r|sum_bvh|sum_plane)_kernel)"
+                          r"I((?:L[ib]\d+E)+)E",
                           line)
             name = None
             if m:
@@ -454,7 +462,8 @@ def ptxas_summary(log):
                 if kernel == "vrl_sum_bvh_kernel":
                     label += ["count"] if rest and rest[0] else []
                 elif kernel in ("vrl_sum_plane_kernel",
-                                "vrl_sum_clustered_bwd_warps_kernel"):
+                                "vrl_sum_clustered_bwd_warps_kernel",
+                                "vrl_sum_clustered_warps_kernel"):
                     label.append(PLANE_MODE[rest[0]])
                 elif rest:
                     label.append("grid" if rest[0] else "homog")
@@ -1055,7 +1064,7 @@ def config2(dev, card, cfg):
           flush=True)
 
     # 14. a warm pass: per stage, each kernel alone, a profile
-    lib_block = vsc._library().alvrl_ray_block()  # rays per block
+    c_block = vsc.ray_block(False)  # kernel 2's rays per tile
 
     def staged(gen):
         t, out = {}, {}
@@ -1077,7 +1086,7 @@ def config2(dev, card, cfg):
             *r_host, params, info))
         tables = stage("table packing", lambda: alvrl.pack_tables(
             info, *clusters, dev))
-        stage("grouping", lambda: group_by_slice(tables[0], lib_block))
+        stage("grouping", lambda: group_by_slice(tables[0], c_block))
         img = stage("clustered render", lambda: (
             integrator.render_clustered_kernel(
                 scene, v, *tables[:3], gen, cfg,
@@ -1102,11 +1111,21 @@ def config2(dev, card, cfg):
     # the kernel alone: the wrapper's host grouping (timed above) is
     # longer than the kernel, so the launches go on pre-grouped tiles
     tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
-        sop, lib_block)]
+        sop, c_block)]
+
+    def c_launch(out, **kw):
+        vsc._launch(vsc._library(), *packs, *tiles, tv, tw, None, seed, 2, 2,
+                    True, scene.medium.phase_kind, out, **kw)
+
     c_out = torch.zeros((3, n_rays), device=dev)
-    c_ms = cuda_ms_batched(lambda: vsc._launch(
-        vsc._library(), *packs, *tiles, tv, tw, None, seed, 2, 2, True,
-        scene.medium.phase_kind, c_out), 3, 10, 10)
+    c_ms = cuda_ms_batched(lambda: c_launch(c_out), 3, 10, 10)
+    # kernel 2 without the plane pre-reject: the same tiling, which must
+    # give the same bits
+    c_nr = torch.zeros_like(c_out)
+    c_nr_ms = cuda_ms_batched(lambda: c_launch(
+        c_nr, mode=vs.MODE_NO_REJECT), 3, 10, 10)
+    check(torch.equal(c_nr, c_out), "kernel 2 with and without the plane "
+          "pre-reject: not bit-identical")
     wrapper_ms = host_ms(lambda: vrl_sum_clustered(*packs, sop, tv, tw,
                                                    seed=seed), 3, 10)
     check(torch.equal(c_out, vrl_sum_clustered(*packs, sop, tv, tw,
@@ -1124,7 +1143,7 @@ def config2(dev, card, cfg):
     with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
                     pair_masks(*packs[:2])[1]) as c_sweep:
         vrl_sum_clustered_reference(*packs, sop, tv, tw, u_c)
-    tile_rays, tile_row = group_by_slice(sop, lib_block)
+    tile_rays, tile_row = group_by_slice(sop, c_block)
     # kernel 5's checking launch on the timed launches' samples: its
     # pre-reject decides as the Wald test, and its counted skips price
     # the bound
@@ -1142,10 +1161,22 @@ def config2(dev, card, cfg):
     r_bound = bound(plane_ops(r_ops, r_sweep, r_counts), r_bytes)
     r_tile = vr.tile_rays(False)
     r_blocks = -(-n_rep // r_tile) * -(-n_vrls // vs._library().alvrl_vrl_chunk())
-    c_bound = bound(kernel_ops("vrl_sum_clustered", c_sweep, hg, True),
-                    nbytes(*packs, tv, tw) + 4 * (len(tile_rays)
-                                                  + len(tile_row))
-                    + 3 * n_rays * 4)
+    # kernel 2's checking launch on the timed launches' samples, as kernel
+    # 5's
+    c_chk, c_counts = vrl_sum_clustered_check(*packs, sop, tv, tw, seed=seed)
+    check(c_counts["bad_tris"] == 0 and c_counts["bad_segments"] == 0,
+          f"clustered: the pre-reject disagrees with the Wald test: "
+          f"{c_counts}")
+    check(c_counts["segments"] > 0 and c_counts["skipped"] > 0,
+          f"clustered: checking counts {c_counts}")
+    check(torch.equal(c_chk, c_out), "clustered: the checking launch is not "
+          "bit-identical to the kernel")
+    c_ops = kernel_ops("vrl_sum_clustered", c_sweep, hg, True)
+    c_bytes = (nbytes(*packs, tv, tw) + 4 * (len(tile_rays) + len(tile_row))
+               + 3 * n_rays * 4)
+    c_bound = bound(plane_ops(c_ops, c_sweep, c_counts), c_bytes)
+    c_regs = [r for r in ptxas_summary(_build.build_log())
+              if r.startswith("vrl_sum_clustered_warps_kernel")]
     print(f"[14 timing on {card}] warm pass (render_alvrl, host clock) "
           f"{p_med:.3f} ms (spread {p_spread:.1%}); stages, median of 10 "
           "(spread): " + " | ".join(
@@ -1165,9 +1196,20 @@ def config2(dev, card, cfg):
           f"counted skips, {bound(r_ops, r_bytes)[0]:.4f} ms with a Wald "
           f"test per swept triangle), plain {rp_med:.3f} ms; "
           f"vrl_sum_clustered "
-          f"{c_med:.4f} ms (spread {c_spread:.1%}, {len(tile_row)} blocks, "
-          f"{c_sweep}, bound {c_bound[0]:.4f} ms by "
-          f"{c_bound[1]}; the wrapper with its host grouping "
+          f"{c_med:.4f} ms (before its redesign "
+          f"{EARLIER_MS['vrl_sum_clustered']} ms; spread {c_spread:.1%}, "
+          f"{len(tile_row)} tiles of {c_block} rays "
+          f"({float((tile_rays < 0).mean()):.1%} padding), "
+          f"{vs.occupancy('vrl_sum_clustered', False, packs[2].shape[0])} "
+          f"blocks an SM; {' ; '.join(c_regs)}; {c_sweep}; checking launch: "
+          f"{check_line(c_counts)}, "
+          f"{c_counts['skipped'] / max(c_counts['segments'], 1):.3f} of "
+          f"{c_counts['considered'] / max(c_counts['segments'], 1):.3f} Wald"
+          f" tests a segment skipped, its output bit-identical to the "
+          f"kernel's; without the pre-reject {summary(c_nr_ms)[0]:.4f} ms, "
+          f"bit-identical; bound {c_bound[0]:.4f} ms by {c_bound[1]} on the "
+          f"counted skips, {bound(c_ops, c_bytes)[0]:.4f} ms with a Wald "
+          f"test per swept triangle; the wrapper with its host grouping "
           f"{statistics.median(wrapper_ms):.3f} ms), plain {cp_med:.3f} ms",
           flush=True)
     prof = profile_device(lambda: alvrl.render_alvrl(
@@ -1178,7 +1220,7 @@ def config2(dev, card, cfg):
     else:
         span, busy, n_ops, by_name = prof
         mine = {k: sum(v for n, v in by_name.items() if k + "<" in n)
-                for k in ("vrl_r_kernel", "vrl_sum_clustered_kernel")}
+                for k in ("vrl_r_kernel", "vrl_sum_clustered_warps_kernel")}
         top = sorted(((v, k) for k, v in by_name.items()
                       if not any(m + "<" in k for m in mine)),
                      reverse=True)[:4]
@@ -1404,7 +1446,7 @@ def config4(dev, card, cfg):
           flush=True)
 
     # 17. a warm pass per stage, each kernel alone, the plain versions
-    lib_block = vsc._library().alvrl_ray_block()
+    lib_block = vsc.ray_block(True)  # kernel 4's rays per tile
 
     def staged(g):
         t = {}
@@ -2265,7 +2307,6 @@ def clustered_grad(dev, card, cfg, c2, c4):
     # (phases 14, 17, whose samples c2["sweep"], c4["c_sweep"] counted),
     # the bounds, a profile of the config-4 step
     lib = cb._library()
-    fwd_block = vsc._library().alvrl_ray_block()  # the forward's tiles
     step2_ms = host_ms(lambda: grad_step(loss2, start2), 2, 5)
     step4_ms = host_ms(lambda: grad_step(loss4, start4), 2, 5)
     scene_s = replace(scene4, medium=replace(
@@ -2277,7 +2318,7 @@ def clustered_grad(dev, card, cfg, c2, c4):
     grid_arg = (packs_s[4], cfg.uv_tau_steps)
     layout4 = cb.host_layout(sop4, tv4, n_vrls4, cb.ray_block(True), dev)
     tiles4 = [torch.as_tensor(a, device=dev)
-              for a in group_by_slice(sop4, fwd_block)]
+              for a in group_by_slice(sop4, vsc.ray_block(True))]
     c_out = torch.zeros((3, n_rays4), device=dev)
     kind4 = scene4.medium.phase_kind
     fwd_s_ms = cuda_ms_batched(lambda: vsc._launch(
@@ -2293,7 +2334,7 @@ def clustered_grad(dev, card, cfg, c2, c4):
     kind2 = scene2.medium.phase_kind
     layout2 = cb.host_layout(sop2, tv2, n_vrls2, cb.ray_block(False), dev)
     tiles2 = [torch.as_tensor(a, device=dev)
-              for a in group_by_slice(sop2, fwd_block)]
+              for a in group_by_slice(sop2, vsc.ray_block(False))]
     c2_out = torch.zeros((3, n_rays2), device=dev)
     f2_ms = cuda_ms_batched(lambda: vsc._launch(
         vsc._library(), *packs2, *tiles2, tv2, tw2, None, seed2, 2, 2, True,
@@ -2839,7 +2880,8 @@ def main():
             occupancy.append(f"{entry}<0,1,grid,uv{uv if uv == 4 else '*'}> "
                              f"{blocks} blocks {blocks * warps} "
                              "warps")
-    for entry in ("vrl_sum_bwd", "vrl_r", "vrl_sum_clustered_bwd"):
+    for entry in ("vrl_sum_bwd", "vrl_r", "vrl_sum_clustered",
+                  "vrl_sum_clustered_bwd"):
         blocks = vs.occupancy(entry, False, 24)
         occupancy.append(f"{entry}<0,1,homog> at 24 triangles {blocks} "
                          f"blocks {blocks * warps} warps")

@@ -351,6 +351,34 @@ def test_group_by_slice():
     assert sorted(tile_rays[tile_rays >= 0]) == list(np.flatnonzero(rows >= 0))
 
 
+@pytest.mark.parametrize("case", ["row_sizes", "one_row", "no_row"])
+def test_group_by_slice_in_warp_tiles(case):
+    """Grouping at kernel 2's tile of 32 rays (ops.vrl_sum_clustered's
+    ray_block(False)): each row's rays fill ceil(n / 32) tiles of that
+    row in ray order, the padding (-1) only in a row's last tile, rows
+    -1 in no tile; config 2's shape of rows: 1, 31, 32, 33 and 200
+    rays, one row of all rays, and every ray at row -1."""
+    rng = np.random.default_rng(5)
+    sizes = {"row_sizes": (1, 31, 32, 33, 200), "one_row": (300,),
+             "no_row": ()}[case]
+    rows = np.repeat(np.arange(-1, len(sizes)), (40, *sizes))
+    rng.shuffle(rows)
+    tile_rays, tile_row = group_by_slice(rows, 32)
+    assert len(tile_rays) == 32 * len(tile_row)
+    assert len(tile_row) == sum(-(-n // 32) for n in sizes)
+    tiles = tile_rays.reshape(-1, 32)
+    assert np.all(np.diff(tile_row) >= 0)
+    for r, n in enumerate(sizes):
+        mine = tiles[tile_row == r]
+        assert len(mine) == -(-n // 32)
+        got = mine.reshape(-1)
+        assert np.array_equal(got[:n], np.flatnonzero(rows == r))
+        assert np.all(got[n:] == -1)
+    assert int((tile_rays < 0).sum()) == sum(32 * -(-n // 32) - n
+                                             for n in sizes)
+    assert not np.isin(np.flatnonzero(rows < 0), tile_rays).any()
+
+
 def test_wrappers_cpu_take_the_plain_versions():
     """On CPU tensors the wrappers run the plain versions on the Philox
     stream of their seed, and count no kernel launch."""

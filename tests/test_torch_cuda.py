@@ -27,6 +27,7 @@ from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+from alvrl_tpu_torch.ops import vrl_sum_clustered as vsc
 from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cbwd
 from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r,
@@ -57,6 +58,7 @@ from alvrl_tpu_torch.ops.vrl_sum_bwd import (
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     philox_table_uniforms,
     vrl_sum_clustered,
+    vrl_sum_clustered_check,
     vrl_sum_clustered_reference,
     vrl_sum_hetero_clustered,
     vrl_sum_hetero_clustered_check,
@@ -555,6 +557,164 @@ def test_cuda_render_alvrl_launches_both_kernels(cuda):
     assert vrl_sum_clustered.launches == c + 1 + fallback
     assert img.is_cuda and img.shape == (16, 16, 3)
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+
+
+# --- kernel 2's tiles and plane pre-reject ----------------------------------
+
+
+def _clustered_launch(packs, rows, ids, ws, seed, grid=None, **kw):
+    """A bare launch of the clustered kernel on tiles grouped at its own
+    ray count (grid = (density, uv_steps) for kernel 4), Philox stream."""
+    dev = packs[0].device
+    tiles = [torch.as_tensor(a, device=dev) for a in
+             vsc.group_by_slice(rows, vsc.ray_block(grid is not None))]
+    out = torch.zeros((3, packs[0].shape[1]), device=dev)
+    vsc._launch(vsc._library(), *packs[:4], *tiles, ids, ws, None, seed, 2,
+                2, True, 0, out, grid, **kw)
+    return out
+
+
+@pytest.mark.parametrize("n_tris", [24, 780])
+def test_cuda_clustered_kernel_over_row_sizes(cuda, n_tris):
+    """Kernel 2 on rows of 1, 31, 32, 33 and 200 rays (one ray short of,
+    at and one past its 32-ray tile, and a row over seven tiles) and rays
+    at row -1, with config 1's 24 triangles or the cube field's 780 (a
+    plane pack above the default cap of dynamic shared memory): against
+    its plain version at the homogeneous bar, rays at row -1 zero; its
+    checking launch (counted on its own entry) finds no skipped blocker
+    and no segment decided otherwise, and it, the launch without the
+    plane pre-reject and a repeat are bit-identical to the kernel."""
+    packs = integrator.pack_frame(_scene(cuda, 20, 20, 0.6, 0),
+                                  _bench_vrls(cuda))[3]
+    if n_tris == 780:
+        packs = (*packs[:2], _cube_packs(cuda)[2], packs[3])
+    n_rays, n_vrls = packs[0].shape[1], 77
+    packs = (packs[0], packs[1][:, :n_vrls].contiguous(), *packs[2:])
+    rng = np.random.default_rng(9)
+    sizes = (1, 31, 32, 33, 200)
+    rows = np.repeat(np.arange(-1, len(sizes)),
+                     (n_rays - sum(sizes), *sizes))
+    rng.shuffle(rows)
+    _, ids, ws = _tables(cuda, n_rays, n_vrls, n_rows=len(sizes))
+    assert vsc.ray_block(False) == 32
+    assert len(vsc.group_by_slice(rows, 32)[1]) == sum(-(-n // 32)
+                                                       for n in sizes)
+    out = vrl_sum_clustered(*packs, rows, ids, ws, seed=29)
+    ref = vrl_sum_clustered_reference(
+        *packs, rows, ids, ws, philox_table_uniforms(29, rows, ids, 6))
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    before = (vrl_sum_clustered.launches, vrl_sum_clustered_check.launches)
+    chk, counts = vrl_sum_clustered_check(*packs, rows, ids, ws, seed=29)
+    assert (vrl_sum_clustered.launches, vrl_sum_clustered_check.launches) \
+        == (before[0], before[1] + 1)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] >= counts["segments"] > 0
+    assert counts["considered"] >= counts["skipped"] > 0
+    for other in (chk, _clustered_launch(packs, rows, ids, ws, 29,
+                                         mode=vs.MODE_NO_REJECT),
+                  vrl_sum_clustered(*packs, rows, ids, ws, seed=29)):
+        assert torch.equal(out, other)
+
+
+@pytest.mark.parametrize("n_cols", [1, 3, 33, 70])
+def test_cuda_clustered_kernel_table_widths(cuda, n_cols):
+    """Kernel 2 with tables of one column, fewer columns than the block's
+    warps, one more than a staged piece of VRL_CHUNK and over three
+    pieces, with injected uniforms indexed by ray and table column (a
+    column that a warp took from the wrong piece or slot would read
+    another column's) and with the Philox stream: its plain version's
+    homogeneous bar, rays at row -1 zero, a repeat bit-identical."""
+    packs = _ragged_packs(cuda, 0.6, 0)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    rows, ids, ws = _tables(cuda, n_rays, n_vrls, n_cols=n_cols)
+    for u in (_uniforms(cuda, True, 17, (n_rays, n_cols, 6)), None):
+        out = vrl_sum_clustered(*packs, rows, ids, ws, seed=43, uniforms=u)
+        ref = vrl_sum_clustered_reference(
+            *packs, rows, ids, ws,
+            philox_table_uniforms(43, rows, ids, 6) if u is None else u)
+        assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+        assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+        median, share = homog_bar(out.T, ref.T)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+        assert torch.equal(out, vrl_sum_clustered(*packs, rows, ids, ws,
+                                                  seed=43, uniforms=u))
+
+
+def test_cuda_clustered_kernel_fallback_and_identity_tables(cuda):
+    """Kernel 2 on the one-row tables of a clustered pass against vrl_sum
+    on the same samples: the identity table (the 512 bench VRLs at weight
+    1, sixteen staged pieces) on 32x32 rays with the Philox stream, and a
+    table of the fall-back set's shape (300 distinct VRL ids at weight 1,
+    ten pieces) on the 10 % of the rays that fall back, the others at row
+    -1 and zero, with injected uniforms taken by VRL id for vrl_sum on
+    those 300 VRLs."""
+    packs = integrator.pack_frame(_scene(cuda, 32, 32), _bench_vrls(cuda))[3]
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    ids = torch.arange(n_vrls, dtype=torch.int32, device=cuda)[None]
+    out = vrl_sum_clustered(*packs, np.zeros(n_rays, np.int64), ids,
+                            torch.ones((1, n_vrls), device=cuda), seed=13)
+    median, share = homog_bar(out.T, vrl_sum(*packs, seed=13).T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    rng = np.random.default_rng(21)
+    keep = torch.as_tensor(np.sort(rng.permutation(n_vrls)[:300]),
+                           device=cuda)
+    rows = np.where(rng.random(n_rays) < 0.1, 0, -1)
+    u = torch.as_tensor(rng.random((n_rays, 300, 6), dtype=np.float32),
+                        device=cuda)
+    fb = vrl_sum_clustered(*packs, rows, keep.to(torch.int32)[None],
+                           torch.ones((1, 300), device=cuda), uniforms=u)
+    ref = vrl_sum(packs[0], packs[1][:, keep].contiguous(), *packs[2:],
+                  uniforms=u)
+    fell = torch.as_tensor(rows >= 0, device=cuda)
+    assert int(fell.sum()) > 50 and not fb[:, ~fell].any()
+    assert float(fb.abs().sum()) > 0.0
+    median, share = homog_bar(fb[:, fell].T, ref[:, fell].T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_clustered_kernel_without_triangles(cuda):
+    """Kernel 2 with no triangles (no plane pack, no sweep): its plain
+    version's homogeneous bar; its checking launch counts segments but
+    no triangle test, and is bit-identical to it."""
+    packs = _ragged_packs(cuda, 0.0, 1)
+    packs = (packs[0], packs[1], packs[2][:0].contiguous(), packs[3])
+    rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+    out = vrl_sum_clustered(*packs, rows, ids, ws, seed=47, phase_kind=1)
+    ref = vrl_sum_clustered_reference(
+        *packs, rows, ids, ws, philox_table_uniforms(47, rows, ids, 6),
+        phase_kind=1)
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    chk, counts = vrl_sum_clustered_check(*packs, rows, ids, ws, seed=47,
+                                          phase_kind=1)
+    assert counts["segments"] > 0 and counts["considered"] == 0, counts
+    assert torch.equal(chk, out)
+
+
+def test_cuda_clustered_kernels_keep_their_tiles(cuda):
+    """Kernel 2 groups its rays in tiles of 32 and kernel 4 in tiles of
+    128 (RAY_BLOCK, as before kernel 2's redesign): each wrapper's output
+    is a bare launch's on its tiles, a launch on the other kernel's tiles
+    is refused, and the occupancy query answers for both."""
+    assert (vsc.ray_block(False), vsc.ray_block(True)) == (32, 128)
+    for grid in (False, True):
+        packs = _grid_packs(cuda) if grid else _ragged_packs(cuda, 0.6, 0)
+        rows, ids, ws = _tables(cuda, packs[0].shape[1], packs[1].shape[1])
+        arg = (packs[4], 4) if grid else None
+        fn = vrl_sum_hetero_clustered if grid else vrl_sum_clustered
+        assert torch.equal(fn(*packs, rows, ids, ws, seed=53),
+                           _clustered_launch(packs, rows, ids, ws, 53, arg))
+        other = [torch.as_tensor(a, device=cuda) for a in vsc.group_by_slice(
+            rows, vsc.ray_block(not grid))]
+        with pytest.raises(ValueError):
+            vsc._launch(vsc._library(), *packs[:4], *other, ids, ws, None, 53,
+                        2, 2, True, 0, torch.zeros((3, packs[0].shape[1]),
+                                                   device=cuda), arg)
+        assert occupancy("vrl_sum_clustered", grid, 24) >= 1
 
 
 # --- the grid-medium kernels -------------------------------------------------

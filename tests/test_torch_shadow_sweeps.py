@@ -16,10 +16,11 @@ that the plain backward of a 16x16 train step tests, which kernel 8
 that the plain grid R and grid clustered sum test in a 16x16
 cornell_grid_smoke pass, which kernels 6 (csrc/vrl_r.cu) and 4
 (csrc/vrl_sum_clustered.cu) sweep with it, and on every one that the
-plain homogeneous R and clustered backward test in a 16x16
-cornell_smoke clustered pass, which kernels 5 (csrc/vrl_r.cu) and 10
-(csrc/vrl_sum_clustered_bwd.cu) sweep with it. The kernels themselves
-run only on a CUDA card: see tests/test_torch_cuda.py.
+plain homogeneous R, clustered sum and clustered backward test in a
+16x16 cornell_smoke clustered pass, which kernels 5 (csrc/vrl_r.cu), 2
+(csrc/vrl_sum_clustered.cu) and 10 (csrc/vrl_sum_clustered_bwd.cu)
+sweep with it. The kernels themselves run only on a CUDA card: see
+tests/test_torch_cuda.py.
 """
 
 import math
@@ -395,14 +396,15 @@ def test_pre_reject_on_a_grid_clustered_pass_segments(monkeypatch):
             < c["skips"] / c["tests"], seen
 
 
-@pytest.mark.parametrize("stage", ["r", "clustered_bwd"])
+@pytest.mark.parametrize("stage", ["r", "clustered", "clustered_bwd"])
 def test_pre_reject_on_a_clustered_pass_segments(monkeypatch, stage):
-    """Every shadow segment that the plain homogeneous R (kernel 5's) or
-    the plain homogeneous clustered backward (kernel 10's, autograd
-    through the plain clustered forward) tests in a 16x16 cornell_smoke
-    clustered pass (32 particles traced to depth 6 into 128 slots, 6
-    slices, the R's tables): no triangle that the pre-reject skips
-    blocks the segment, and it skips most tests."""
+    """Every shadow segment that the plain homogeneous R (kernel 5's),
+    the plain homogeneous clustered forward (kernel 2's) or the plain
+    homogeneous clustered backward (kernel 10's, autograd through the
+    plain clustered forward) tests in a 16x16 cornell_smoke clustered
+    pass (32 particles traced to depth 6 into 128 slots, 6 slices, the
+    R's tables): no triangle that the pre-reject skips blocks the
+    segment, and it skips most tests."""
     scene = presets.cornell_smoke(16, 16, device="cpu")
     planes = vs.plane_pack(pk.pack_tris(scene))
     seen = {"segments": 0, "tests": 0, "skips": 0, "bad": 0}
@@ -432,6 +434,13 @@ def test_pre_reject_on_a_clustered_pass_segments(monkeypatch, stage):
     sop, tv, tw, _ = alvrl.prepare_clustering(scene, vrls, 5, params,
                                               VRLConfig())
     assert vr.vrl_r.launches == r_launches  # the plain version ran
+    if stage == "clustered":
+        watching[0] = True
+        packs = integrator.pack_frame(scene, vrls)[3]
+        before = vsc.vrl_sum_clustered.launches
+        out = vsc.vrl_sum_clustered(*packs, sop, tv, tw, seed=5)
+        assert vsc.vrl_sum_clustered.launches == before
+        assert bool(torch.isfinite(out).all()) and float(out.abs().sum()) > 0
     if stage == "clustered_bwd":
         watching[0] = True
         packs = integrator.pack_frame(scene, vrls)[3]
@@ -448,7 +457,7 @@ def test_pre_reject_on_a_clustered_pass_segments(monkeypatch, stage):
 
 
 def test_grid_checking_launches_need_the_card():
-    """Kernels 4's, 5's and 6's checking launches take CUDA tensors
+    """Kernels 2's, 4's, 5's and 6's checking launches take CUDA tensors
     only."""
     scene = presets.cornell_grid_smoke(4, 4, grid_res=4, device="cpu")
     vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
@@ -461,6 +470,9 @@ def test_grid_checking_launches_need_the_card():
     with pytest.raises(ValueError):
         vr.vrl_r_check(*homog)
     ids = torch.arange(32, dtype=torch.int32)[None]
+    with pytest.raises(ValueError):
+        vsc.vrl_sum_clustered_check(*homog, np.zeros(16, np.int64), ids,
+                                    torch.ones((1, 32)))
     with pytest.raises(ValueError):
         vsc.vrl_sum_hetero_clustered_check(*packs, np.zeros(16, np.int64), ids,
                                            torch.ones((1, 32)))
