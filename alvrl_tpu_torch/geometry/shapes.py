@@ -1,9 +1,10 @@
 """Procedural triangle-mesh shapes (host-side numpy).
 
 Counterpart of alvrl_tpu/geometry/shapes.py (rectangle, cube, sphere,
-merge), with the outward winding of every cube face and sphere
-triangle. Shapes are triangulated up front, so the intersector sees one
-triangle soup.
+disk, cylinder, apply_transform, merge), with the outward winding of
+every cube face and sphere triangle. Shapes are triangulated up front,
+so the intersector sees one triangle soup. Not ported: heightfield,
+hair, instance (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ _CUBE_FACES = [
 ]
 
 
-def cube():
-    """[-1,1]^3 cube with outward normals on all six faces."""
+def cube(flip_normals=False):
+    """[-1,1]^3 cube with outward normals on all six faces (inward with
+    flip_normals)."""
     verts, faces = [], []
     for rot, off in _CUBE_FACES:
         v, f = rectangle()
@@ -44,7 +46,10 @@ def cube():
             f = f[:, ::-1]
         faces.append(f + sum(len(x) for x in verts))
         verts.append(v)
-    return np.concatenate(verts, axis=0), np.concatenate(faces, axis=0).copy()
+    f = np.concatenate(faces, axis=0)
+    if flip_normals:
+        f = f[:, ::-1]
+    return np.concatenate(verts, axis=0), f.copy()
 
 
 def sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):
@@ -67,6 +72,59 @@ def sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):
     f = np.stack([np.stack([a, d, b], -1), np.stack([a, c, d], -1)],
                  axis=2).reshape(-1, 3).astype(np.int32)
     return v * np.float32(radius) + center, f
+
+
+def disk(center=(0, 0, 0), radius=1.0, n_phi=48, to_world=None):
+    """Unit disk at z=0, normal +z, as a fan of n_phi triangles."""
+    center = np.asarray(center, np.float32)
+    phis = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    rim = np.stack(
+        [np.cos(phis), np.sin(phis), np.zeros_like(phis)], axis=-1
+    ).astype(np.float32)
+    v = np.concatenate([np.zeros((1, 3), np.float32), rim], axis=0)
+    f = np.asarray(
+        [[0, 1 + j, 1 + (j + 1) % n_phi] for j in range(n_phi)], np.int32
+    )
+    v = v * np.float32(radius) + center
+    if to_world is not None:
+        v = apply_transform(to_world, v)
+    return v, f
+
+
+def cylinder(p0=(0, 0, 0), p1=(0, 0, 1), radius=1.0, n_phi=32):
+    """Open cylinder (no caps, as the reference's) from p0 to p1, n_phi
+    quads of two triangles."""
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    axis = p1 - p0
+    length = np.linalg.norm(axis)
+    w = axis / max(length, 1e-12)
+    # an orthonormal frame around w
+    a = np.array([1.0, 0, 0], np.float32)
+    if abs(w[0]) > 0.9:
+        a = np.array([0, 1.0, 0], np.float32)
+    u = np.cross(a, w)
+    u /= np.linalg.norm(u)
+    vv = np.cross(w, u)
+    phis = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    rim = (np.outer(np.cos(phis), u) + np.outer(np.sin(phis), vv)) * radius
+    bottom = (p0 + rim).astype(np.float32)
+    top = (p1 + rim).astype(np.float32)
+    v = np.concatenate([bottom, top], axis=0)
+    faces = []
+    for j in range(n_phi):
+        jn = (j + 1) % n_phi
+        faces.append([j, jn, n_phi + jn])
+        faces.append([j, n_phi + jn, n_phi + j])
+    return v.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def apply_transform(mat4, verts):
+    """Apply a 4x4 homogeneous transform to (N, 3) vertices."""
+    mat4 = np.asarray(mat4, dtype=np.float32)
+    vh = np.concatenate([verts, np.ones((len(verts), 1), np.float32)], axis=1)
+    out = vh @ mat4.T
+    return (out[:, :3] / out[:, 3:4]).astype(np.float32)
 
 
 def merge(parts):

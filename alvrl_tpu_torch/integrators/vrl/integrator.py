@@ -81,22 +81,22 @@ def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs):
                  density_ss.contiguous())
 
 
-def frame_rays(scene: Scene):
-    """Eye rays through every pixel centre (row-major): (px, py, ray_o,
-    ray_d)."""
+def frame_rays(scene: Scene, jitter=None):
+    """One eye ray per pixel (row-major), through the pixel centre or,
+    with jitter (W * H, 2) in [0, 1)^2, through that sub-pixel position:
+    (px, py, ray_o, ray_d)."""
     w, h = scene.camera.width, scene.camera.height
     px, py = torch.meshgrid(torch.arange(w, device=scene.device),
                             torch.arange(h, device=scene.device),
                             indexing="xy")
     px, py = px.reshape(-1), py.reshape(-1)
-    return (px, py, *perspective.sample_ray(scene.camera, px, py))
+    return (px, py, *perspective.sample_ray(scene.camera, px, py, jitter))
 
 
-def pack_frame(scene: Scene, vrls: VRLs):
-    """Eye rays through every pixel centre (row-major), their closest
-    hits, and the packs of the scene's kernels (pack_rays_vrls).
-    Returns (px, py, hit, packs)."""
-    px, py, ray_o, ray_d = frame_rays(scene)
+def pack_frame(scene: Scene, vrls: VRLs, jitter=None):
+    """The eye rays of frame_rays, their closest hits, and the packs of
+    the scene's kernels (pack_rays_vrls). Returns (px, py, hit, packs)."""
+    px, py, ray_o, ray_d = frame_rays(scene, jitter)
     hit, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
     return px, py, hit, packs
 
@@ -111,7 +111,7 @@ def trace_eye_rays_bvh(scene: Scene, ray_o, ray_d, tree=None):
         ray_o, ray_d, t, prim, valid, scene.vertices, scene.faces))
 
 
-def pack_frame_bvh(scene: Scene, vrls: VRLs):
+def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None):
     """pack_frame for the large-mesh render: hits through a BVH over all
     faces, the VRLs in Morton order (ops.vrl_sum_bvh.sort_vrls_morton)
     and, in place of the triangle pack, the BVH over the opaque faces
@@ -120,7 +120,7 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs):
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
-    px, py, ray_o, ray_d = frame_rays(scene)
+    px, py, ray_o, ray_d = frame_rays(scene, jitter)
     hit, mat = trace_eye_rays_bvh(scene, ray_o, ray_d)
     return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
                          pk.pack_vrls(sort_vrls_morton(vrls)),
@@ -130,7 +130,8 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs):
 
 
 def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
-                            cfg: VRLConfig = VRLConfig(), *, uniforms=None):
+                            cfg: VRLConfig = VRLConfig(), *, uniforms=None,
+                            jitter=None):
     """Full-frame unclustered render through ops.vrl_sum (vrl_sum_hetero
     in a grid medium); counterpart of
     alvrl_tpu.integrators.vrl.integrator.render_with_vrls_pallas and
@@ -138,15 +139,17 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
 
     The kernel's seed is drawn from `generator` (a torch.Generator on
     the CPU). `uniforms`, (W * H, N, 2 * vol_vol + vol_surf) float32 on
-    the scene's device, replaces the random stream (for exact checks).
-    Returns the (H, W, 3) image."""
+    the scene's device, replaces the random stream (for exact checks);
+    `jitter`, (W * H, 2) on the scene's device, moves each pixel's ray
+    off its centre (frame_rays; the JAX package's antialias). Returns
+    the (H, W, 3) image."""
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
-                   generator, cfg, uniforms)
+                   generator, cfg, uniforms, jitter)
 
 
 def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
                                 cfg: VRLConfig = VRLConfig(), *,
-                                uniforms=None):
+                                uniforms=None, jitter=None):
     """The large-mesh unclustered render, through ops.vrl_sum_bvh (no cap
     on the triangle count): primary hits through a BVH, the VRLs in
     Morton order, shadow tests through a BVH over the opaque faces
@@ -155,9 +158,9 @@ def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
 
     The kernel's seed is drawn from `generator`; `uniforms`, (W * H, N,
     2 * vol_vol + vol_surf) float32 on the scene's device, indexed by
-    the Morton-sorted VRLs, replaces the random stream. Returns the (H,
-    W, 3) image."""
-    px, py, hit, packs = pack_frame_bvh(scene, vrls)
+    the Morton-sorted VRLs, replaces the random stream; `jitter` is
+    render_with_vrls_kernel's. Returns the (H, W, 3) image."""
+    px, py, hit, packs = pack_frame_bvh(scene, vrls, jitter)
     sums = vrl_sum_bvh(*packs, seed=draw_seed(generator), uniforms=uniforms,
                        **_kernel_args(scene, cfg))
     return develop_sums(scene, vrls, px, py, hit, sums)
@@ -181,7 +184,7 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     density multiplier is the medium's `scale` or a product on its
     density, through which autograd chains."""
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
-                   vrls, generator, cfg, uniforms)
+                   vrls, generator, cfg, uniforms, None)
 
 
 def draw_seed(generator) -> int:
@@ -204,8 +207,8 @@ def _kernel_args(scene, cfg):
     return kw
 
 
-def _render(sum_fn, scene, vrls, generator, cfg, uniforms):
-    px, py, hit, packs = pack_frame(scene, vrls)
+def _render(sum_fn, scene, vrls, generator, cfg, uniforms, jitter):
+    px, py, hit, packs = pack_frame(scene, vrls, jitter)
     sums = sum_fn(*packs, seed=draw_seed(generator), uniforms=uniforms,
                   **_kernel_args(scene, cfg))
     return develop_sums(scene, vrls, px, py, hit, sums)

@@ -1,11 +1,11 @@
 """VRL generation by volumetric photon tracing, differentiable.
 
 Counterpart of alvrl_tpu/integrators/vrl/tracer.py (trace, _trace_one)
-for point emitters, diffuse surfaces and a homogeneous or grid medium
-with an HG or Rayleigh phase. All particles advance in lockstep, as tensors
-with a leading particle axis, through a Python loop over bounce depth;
-each (particle, depth) slot holds at most one VRL, so the buffer has
-num_particles * max_depth slots, particle-major.
+for point emitters, diffuse and null surfaces and a homogeneous or grid
+medium with an HG or Rayleigh phase. All particles advance in lockstep,
+as tensors with a leading particle axis, through a Python loop over
+bounce depth; each (particle, depth) slot holds at most one VRL, so the
+buffer has num_particles * max_depth slots, particle-major.
 
 Per step, as traceOneParticle (vrlTracer.h:91-230): a free-flight
 sample against the closest surface; a medium event multiplies the
@@ -13,7 +13,7 @@ throughput by tau sigma_s / pdfSuccess and a phase sample and starts a
 new VRL at the scatter point; a surface event multiplies it by
 tau / pdfFailure and a BSDF sample and starts one at the surface; past
 rr_depth, Russian roulette with q = min(max(throughput), 0.95) (the
-reference's eta^2 factor is 1 for diffuse surfaces). In a grid medium
+reference's eta^2 factor is 1 for these surfaces). In a grid medium
 the free flight is Woodcock tracking (media.heterogeneous.sample_distance)
 over the supersampled density computed once per call.
 
@@ -87,6 +87,7 @@ def trace_u(scene: Scene, u_emit, u_walk,
     if tuple(u_walk.shape) != (n_particles, cfg.max_depth, N_STEP_DIMS):
         raise ValueError(f"u_walk must be ({n_particles}, {cfg.max_depth}, "
                          f"{N_STEP_DIMS}), got {tuple(u_walk.shape)}")
+    bsdf_api.check_kinds(scene)  # once, not per bounce
     med = scene.medium
     density_ss = None
     if not mapi.is_homogeneous(med):
@@ -151,7 +152,8 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
 
     # surface scattering
     mat_id = scene.material[hit.prim.clamp(min=0)]
-    bs = bsdf_api.sample_from_uniforms(scene, u[:, U_BSDF], mat_id, hit.ng)
+    bs = bsdf_api.sample_from_uniforms(scene, u[:, U_BSDF], mat_id, hit.ng,
+                                       ray_d, kinds_checked=True)
     beta_surf = state["beta"] * ms.w_pass * bs.weight
     tp_surf = state["tp"] * ms.w_pass * bs.weight
     bsdf_dead = surface_event & (bs.weight == 0.0).all(dim=-1)

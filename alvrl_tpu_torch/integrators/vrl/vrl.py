@@ -1,8 +1,9 @@
 """VRL records as fixed-capacity struct-of-arrays buffers.
 
 Counterpart of alvrl_tpu/integrators/vrl/vrl.py (VRLs, compact,
-load_ascii, save_ascii). A buffer holds a fixed number of slots with a
-validity mask; the estimator normalises by the traced-particle count.
+compact_device, load_ascii, save_ascii). A buffer holds a fixed number
+of slots with a validity mask; the estimator normalises by the
+traced-particle count.
 """
 
 from __future__ import annotations
@@ -69,6 +70,51 @@ def compact(vrls: VRLs, capacity: int | None = None,
     return VRLs(start=take(vrls.start), end=take(vrls.end),
                 power=take(vrls.power), valid=new_valid,
                 particle_count=particle_count)
+
+
+def compact_device(vrls: VRLs, capacity: int, slots_per_particle: int):
+    """compact(vrls, capacity, slots_per_particle) without a sync of the
+    device: the same VRLs bit for bit, by prefix sums over the valid
+    mask (per slot, and per particle for the truncation), always padded
+    to `capacity` (ROADMAP C4: the JAX package's compact_device returns
+    unpadded arrays and keeps no particle below one particle's VRLs).
+
+    Returns (VRLs, too_small), too_small a () bool tensor on the
+    device, true where compact raises "capacity smaller than one
+    particle's VRLs" (the VRLs are then empty): the caller raises
+    (raise_if_too_small) at its next sync."""
+    valid = vrls.valid
+    n_slots = valid.shape[0]
+    if n_slots % slots_per_particle:
+        raise ValueError(f"{n_slots} slots are not whole particles of "
+                         f"{slots_per_particle}")
+    per_particle = valid.reshape(-1, slots_per_particle).sum(dim=1)
+    # whole particles whose VRLs fit: compact's searchsorted(right)
+    n_keep = (torch.cumsum(per_particle, 0) <= capacity).sum()
+    overfull = valid.sum() > capacity
+    slot = torch.arange(n_slots, device=valid.device)
+    kept = valid & (~overfull | (slot < n_keep * slots_per_particle))
+    # output j takes the (j + 1)-th kept slot
+    count = torch.cumsum(kept, 0)
+    j = torch.arange(capacity, device=valid.device)
+    src = torch.searchsorted(count, j + 1).clamp(max=n_slots - 1)
+    new_valid = j < count[-1]
+
+    def take(a):
+        return torch.where(new_valid[:, None], a[src], 0.0)
+
+    particle_count = torch.where(overfull, n_keep.to(torch.float32),
+                                 vrls.particle_count)
+    return (VRLs(start=take(vrls.start), end=take(vrls.end),
+                 power=take(vrls.power), valid=new_valid,
+                 particle_count=particle_count),
+            overfull & (n_keep == 0))
+
+
+def raise_if_too_small(too_small):
+    """Raise compact's error where compact_device's flag is set (a sync)."""
+    if bool(too_small):
+        raise ValueError("capacity smaller than one particle's VRLs")
 
 
 def save_ascii(vrls: VRLs, path: str):

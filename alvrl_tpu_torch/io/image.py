@@ -1,0 +1,230 @@
+"""Image I/O: a copy of alvrl_tpu/io/image.py without its EXR, HDR and
+JPEG branches (the readers and writers of io/exr.py, io/hdr.py and
+io/jpeg.py are not ported: ROADMAP A11; read_image raises on those
+extensions).
+
+Counterpart of the reference's Bitmap I/O + film plugins:
+  * write_npy / read_npy — the mfilm NumPy export used for numeric
+    validation (src/films/mfilm.cpp:123-128 via bundled cnpy);
+  * write_pfm / read_pfm — HDR float images (bitmap.cpp PFM support;
+    our EXR-equivalent interchange format, no OpenEXR dependency);
+  * write_png — 8-bit LDR preview with gamma (ldrfilm), pure
+    numpy+zlib;
+  * rms / relative_error — the src/utils/rms.cpp comparison utility;
+  * tonemap — the mtsutil tonemap utility.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+
+def write_npy(path, img):
+    np.save(path, np.asarray(img, np.float32))
+
+
+def read_npy(path):
+    return np.load(path)
+
+
+def write_pfm(path, img):
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    color = img.ndim == 3 and img.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{w} {h}\n".encode())
+        f.write(b"-1.0\n")  # little-endian
+        f.write(np.flipud(img).astype("<f4").tobytes())
+
+
+def read_pfm(path):
+    with open(path, "rb") as f:
+        header = f.readline().strip()
+        color = header == b"PF"
+        w, h = map(int, f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(
+            f.read(), "<f4" if scale < 0 else ">f4"
+        )
+    shape = (h, w, 3) if color else (h, w)
+    return np.flipud(data.reshape(shape)).copy()
+
+
+def _png_chunk(tag, data):
+    out = struct.pack(">I", len(data)) + tag + data
+    return out + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+
+def write_png(path, img, gamma=2.2):
+    """Tonemap (gamma) + 8-bit PNG, pure numpy/zlib (ldrfilm.cpp)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, axis=-1)
+    ldr = np.clip(img, 0.0, 1.0) ** (1.0 / gamma)
+    u8 = (ldr * 255.0 + 0.5).astype(np.uint8)
+    h, w = u8.shape[:2]
+    raw = b"".join(
+        b"\x00" + u8[y].tobytes() for y in range(h)
+    )
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(
+            b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+        ))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def read_image(path, gamma=2.2):
+    """Extension-dispatched image read -> float32 (H, W, C) linear —
+    the Bitmap::load counterpart (bitmap.cpp dispatches on file
+    signature): .npy/.pfm load as-is (already linear HDR), .png LDR
+    content is gamma-decoded to linear."""
+    p = str(path).lower()
+    if p.endswith(".npy"):
+        return read_npy(path)
+    if p.endswith(".pfm"):
+        return read_pfm(path)
+    if p.endswith((".exr", ".hdr", ".rgbe", ".jpg", ".jpeg")):
+        raise ValueError(f"{path}: EXR, HDR and JPEG images are not ported "
+                         "(ROADMAP A11)")
+    if p.endswith(".png"):
+        return read_png(path, gamma=gamma)
+    raise ValueError(f"unsupported image extension: {path}")
+
+
+def read_png(path, gamma=2.2):
+    """Decode an 8/16-bit PNG into linear float32 (H, W, 3) —
+    pure numpy + zlib (bitmap.cpp reads LDR textures through libpng;
+    this closes the write-only gap VERDICT r03 flagged). Supports
+    color types 0 (gray), 2 (RGB), 4 (gray+alpha), 6 (RGBA) at bit
+    depths 8/16, all five scanline filters, no interlacing; palette
+    (type 3) via PLTE. Alpha is dropped (the reference's texture path
+    uses RGB); gamma de-correction maps sRGB-ish content to linear."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
+        raise ValueError("not a PNG file")
+    pos = 8
+    w = h = None
+    depth = ctype = None
+    interlace = 0
+    idat = []
+    plte = None
+    while pos + 8 <= len(data):
+        ln, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        chunk = data[pos + 8:pos + 8 + ln]
+        pos += 12 + ln
+        if tag == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(
+                ">IIBBBBB", chunk)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(chunk, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(chunk)
+        elif tag == b"IEND":
+            break
+    if w is None:
+        raise ValueError("PNG missing IHDR")
+    if interlace:
+        raise ValueError("interlaced PNG unsupported")
+    if depth not in (8, 16) and not (ctype == 3 and depth == 8):
+        raise ValueError(f"unsupported PNG bit depth {depth}")
+    n_ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if n_ch is None:
+        raise ValueError(f"unsupported PNG color type {ctype}")
+    bpp = n_ch * (depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    stride = w * bpp
+    if len(raw) < h * (stride + 1):
+        raise ValueError("truncated PNG data")
+
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    pos = 0
+    for y in range(h):
+        flt = raw[pos]
+        row = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int32)
+        pos += stride + 1
+        if flt == 0:
+            cur = row
+        elif flt == 2:   # up
+            cur = (row + prev) & 0xFF
+        else:
+            # sub/average/paeth need the in-row left neighbour: scalar
+            # loop over bytes via accumulation per bpp lane
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                c = prev[x - bpp] if x >= bpp else 0
+                if flt == 1:
+                    pred = a
+                elif flt == 3:
+                    pred = (a + b) >> 1
+                elif flt == 4:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (
+                        b if pb <= pc else c)
+                else:
+                    raise ValueError(f"bad PNG filter {flt}")
+                cur[x] = (row[x] + pred) & 0xFF
+        out[y] = cur.astype(np.uint8)
+        prev = cur
+
+    if depth == 16:
+        px = out.reshape(h, w, n_ch, 2)
+        vals = (px[..., 0].astype(np.float32) * 256.0
+                + px[..., 1]) / 65535.0
+    else:
+        vals = out.reshape(h, w, n_ch).astype(np.float32) / 255.0
+    if ctype == 3:
+        if plte is None:
+            raise ValueError("paletted PNG missing PLTE")
+        idx = (vals[..., 0] * 255.0 + 0.5).astype(np.int32)
+        rgb = plte[np.clip(idx, 0, len(plte) - 1)].astype(
+            np.float32) / 255.0
+    elif ctype in (0, 4):
+        rgb = np.repeat(vals[..., :1], 3, axis=-1)
+    else:
+        rgb = vals[..., :3]
+    return rgb ** gamma
+
+
+def rms(a, b):
+    """Root-mean-square error between two images (rms.cpp)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+def relative_error(a, ref, eps=1e-2):
+    a = np.asarray(a, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.mean(np.abs(a - ref) / (np.abs(ref) + eps)))
+
+
+def tonemap(img, key: float = 0.18, gamma: float = 2.2,
+            burn: float = 0.0):
+    """Photographic (Reinhard) tonemapping + gamma — the mtsutil
+    `tonemap` utility (src/utils/tonemap.cpp). Returns [0, 1] floats;
+    feed to write_png for LDR output."""
+    img = np.asarray(img, np.float32)
+    lum = (0.212671 * img[..., 0] + 0.715160 * img[..., 1]
+           + 0.072169 * img[..., 2])
+    avg = np.exp(np.log(np.maximum(lum, 1e-6)).mean())
+    scaled = img * (key / max(avg, 1e-12))
+    l_s = lum * (key / max(avg, 1e-12))
+    if burn > 0.0:
+        white2 = (burn * l_s.max()) ** 2
+        mapped = l_s * (1.0 + l_s / max(white2, 1e-12)) / (1.0 + l_s)
+    else:
+        mapped = l_s / (1.0 + l_s)
+    ratio = np.where(l_s > 0, mapped / np.maximum(l_s, 1e-12), 0.0)
+    out = np.clip(scaled * ratio[..., None], 0.0, 1.0)
+    return out ** (1.0 / gamma)

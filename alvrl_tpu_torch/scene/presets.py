@@ -1,10 +1,11 @@
 """Benchmark scenes.
 
 Counterpart of alvrl_tpu/scene/presets.py: cornell_smoke (BASELINE
-configs 1-2), a closed Cornell box filled with a homogeneous medium, a
-box blocker, one point light, and the camera inside the medium; and
-cornell_grid_smoke (BASELINE config 4), the same box without the
-blocker, filled with a plume-like grid medium.
+configs 1-2 and 5), a closed Cornell box filled with a homogeneous
+medium, a box blocker, one point light, and the camera inside the
+medium; cornell_smoke_hg (BASELINE config 3), the same box with an
+anisotropic HG medium; and cornell_grid_smoke (BASELINE config 4), the
+same box without the blocker, filled with a plume-like grid medium.
 """
 
 from __future__ import annotations
@@ -97,6 +98,14 @@ def cornell_smoke(
         medium=make_medium(sigma_a, sigma_s, g=g, device=device),
         camera=camera,
     )
+
+
+def cornell_smoke_hg(width=256, height=256, g=0.8, device="cuda"):
+    """BASELINE config 3: anisotropic HG phase (g=0.8) exercising the
+    volSurfSamples surface-coupling path."""
+    return cornell_smoke(width=width, height=height, g=g,
+                         sigma_s=(0.6, 0.6, 0.6), sigma_a=(0.04, 0.04, 0.04),
+                         device=device)
 
 
 def cornell_grid_smoke(width=512, height=512, grid_res=48, device="cuda"):

@@ -14,15 +14,20 @@ from alvrl_tpu_torch.core import math as m
 from alvrl_tpu_torch.scene.scene import PERSPECTIVE, Camera
 
 
-def sample_ray(cam: Camera, px, py):
+def sample_ray(cam: Camera, px, py, jitter=None):
     """Pixel coords (N,) -> world rays (origin (N, 3), direction (N, 3))
-    through the pixel centres. Film y grows downward; camera space looks
-    down +z with y up."""
+    through the film positions (px, py) + jitter, jitter (N, 2) in
+    [0, 1)^2, or through the pixel centres without it. Film y grows
+    downward; camera space looks down +z with y up."""
     if cam.kind != PERSPECTIVE:
         raise ValueError(f"sensor kind {cam.kind} is not ported "
                          "(only PERSPECTIVE)")
-    ndc_x = (px + 0.5) / cam.width * 2.0 - 1.0
-    ndc_y = 1.0 - (py + 0.5) / cam.height * 2.0
+    if jitter is None:
+        jx = jy = 0.5
+    else:
+        jx, jy = jitter[..., 0], jitter[..., 1]
+    ndc_x = (px + jx) / cam.width * 2.0 - 1.0
+    ndc_y = 1.0 - (py + jy) / cam.height * 2.0
     aspect = cam.height / cam.width
     rot = cam.to_world[:3, :3]
     cam_o = cam.to_world[:3, 3]

@@ -3,8 +3,9 @@ VRL render, the config-1 train step, the config-2 clustered render
 (Adaptive LightSlice), the config-4 clustered render in a grid medium,
 the config-4 gradient path and density-recovery trainer, clustered
 gradient steps at configs 2 and 4, the large-mesh render of up to
-129,612 triangles, and the gather probes end to end through the
-hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
+129,612 triangles, the gather probes, and scene files of configs 1-5
+rendered through the CLI and the multi-pass drivers, end to end through
+the hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
 transfer matrix R, the clustered sum and its VJP, each also for the
 grid medium; the BVH-occlusion sum; three gathers).
 
@@ -185,7 +186,39 @@ Phases, one line each; any failure exits non-zero:
      entry point with its launch counts, each kernel against its plain
      version (equal), their device times (calls queued behind a spin
      kernel, so that their host cost is hidden), torch.gather's, and
-     gathers/s.
+     gathers/s;
+ 32. scene files: BASELINE configs 1-2 (cornell_smoke as trimesh shapes,
+     its size by -D), 3 (cornell_smoke_hg 256x256), 4 (cornell_grid_smoke
+     512x512, its 48^3 density as .npy) and 5 (config 1's file at
+     1024x1024), a Mitsuba XML of the config-1 box (OBJ parts) and the
+     15,984-triangle cube field (its cubes as a binary PLY) written to a
+     temporary directory; each loads through scene.loader as its preset,
+     bit for bit;
+ 33. the CLI on the card: scripts.render_cli.main on each file (config 1
+     -i vrl -p 4, config 2 -i alvrl -p 4, config 3 -i vrl -p 2, config 4
+     -i alvrl -p 2 at the CLI's clustering defaults, the XML box, config 5
+     -p 1, the cube field -p 1; the tracer at its default depth): exit
+     code 0, the PFM read back finite, non-zero and bit-identical to
+     integrators.progressive.render_progressive in process with the same
+     seed and options, the route's kernels launched (vrl_sum; vrl_r and
+     vrl_sum_clustered; vrl_sum; vrl_r_hetero and
+     vrl_sum_hetero_clustered; vrl_sum; vrl_sum; vrl_sum_bvh), no plain
+     version called, ms a pass; kernel 1's launches of configs 3 (HG
+     g=0.8, all 65,536 rays) and 5 (1,048,576 rays, a sample of 4,096)
+     held against its plain version on the same packs and Philox stream
+     at the homogeneous bar;
+ 34. the pipelined schedule of the clustered passes (alvrl.alvrl_passes,
+     through integrators.progressive.render_progressive and
+     alvrl.render_alvrl_progressive) against the serial one
+     (alvrl.render_alvrl pass after pass) at full configs 2 and 4, 4
+     passes: bit-identical images, ms a pass of each (median of 3 runs,
+     the two in turns), the pipelined stage sums, a profile of each
+     (device busy, idle share, the largest gaps between device
+     operations), and the synchronising calls of one pipelined
+     iteration by file and line (torch.cuda.set_sync_debug_mode);
+ 35. checkpoint and resume at config 2: 2 passes, then a resume to 4,
+     bit-identical to 4 in one run; the pass dumps named as the JAX
+     package names them.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -210,11 +243,15 @@ import numpy as np
 import torch
 
 from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
+from alvrl_tpu_torch.core.stats import STATS
 from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
+from alvrl_tpu_torch.integrators.progressive import (
+    ProgressiveConfig, render_progressive)
 from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
+from alvrl_tpu_torch.io import image
 from alvrl_tpu_torch.ops import _build
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
@@ -237,10 +274,11 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     vrl_sum_hetero_clustered,
     vrl_sum_hetero_clustered_check, vrl_sum_hetero_clustered_reference)
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
-from alvrl_tpu_torch.scene import presets
+from alvrl_tpu_torch.scene import loader, presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
 from alvrl_tpu_torch.scripts import probe_gather as probe
 from alvrl_tpu_torch.scripts import recover_density as rd
+from alvrl_tpu_torch.scripts import render_cli
 from alvrl_tpu_torch.sensors import perspective
 
 WIDTH = HEIGHT = 128
@@ -2854,6 +2892,553 @@ def gather_probes(dev, card):
     return entries
 
 
+# phases 32-35: scene files through the loader, the CLI, the pipelined
+# driver and resume. The preset camera (presets.cornell_smoke's)
+PRESET_CAMERA = dict(origin=[0.0, 0.0, -0.99], target=[0.0, 0.0, 1.0],
+                     up=[0.0, 1.0, 0.0], fov=90.0)
+CLI_SEED = 1
+C3_SIZE, C5_SIZE = 256, 1024
+# (label, scene file, integrator, passes, CLI options, the route's kernel
+# wrappers): BASELINE configs 1-5 (scripts/bench_suite.py; the tracer at
+# its default depth, 16, which both CLIs' VRL integrators take, and
+# config 4's clustering at the CLI's defaults, 100 slices and
+# undersampling 64, since neither CLI has options for them), the XML box
+# and the large-mesh cube field (scripts/bench_bvh_large.py)
+CLI_RUNS = [
+    ("config1", "c1.json", "vrl", 4, ["-D", f"w={WIDTH}", "-D",
+                                      f"h={HEIGHT}"], ("vrl_sum",)),
+    ("config2", "c1.json", "alvrl", 4, ["-D", f"w={WIDTH}", "-D",
+                                        f"h={HEIGHT}"],
+     ("vrl_r", "vrl_sum_clustered")),
+    ("config3", "c3.json", "vrl", 2, [], ("vrl_sum",)),
+    ("config4", "c4.json", "alvrl", 2, ["--particles", "192"],
+     ("vrl_r_hetero", "vrl_sum_hetero_clustered")),
+    ("xml box", "c1.xml", "vrl", 2, [], ("vrl_sum",)),
+    ("config5", "c1.json", "vrl", 1, ["-D", f"w={C5_SIZE}", "-D",
+                                      f"h={C5_SIZE}"], ("vrl_sum",)),
+    ("cube field", "field.json", "vrl", 1, ["--particles", "64", "--vrls",
+                                            "256"], ("vrl_sum_bvh",)),
+]
+# the runs whose kernel-1 launches are held against the plain version on
+# the same packs and Philox stream: label -> rays held per launch (all of
+# config 3's 65,536; a sample of config 5's 1,048,576, the last ray
+# included)
+CLI_HOLDS = {"config3": None, "config5": 4096}
+HOLD_CHUNK = 8192  # rays per block of the plain version in those holds
+# the kernels' wrappers, and the plain versions a wrapper runs on CPU
+# tensors (none may run on the card's main path)
+ROUTE_KERNELS = {"vrl_sum": vs.vrl_sum, "vrl_sum_hetero": vs.vrl_sum_hetero,
+                 "vrl_r": vr.vrl_r, "vrl_r_hetero": vr.vrl_r_hetero,
+                 "vrl_sum_clustered": vsc.vrl_sum_clustered,
+                 "vrl_sum_hetero_clustered": vsc.vrl_sum_hetero_clustered,
+                 "vrl_sum_bvh": vb.vrl_sum_bvh}
+PLAIN_VERSIONS = [(vs, "_reference"), (vr, "_reference"),
+                  (vsc, "_reference"), (vb, "vrl_sum_bvh_reference")]
+DRIVER_PASSES, DRIVER_REPEATS = 4, 3
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the kernels' plain versions: yields a list whose
+    one element is the count."""
+    count, saved = [0], []
+    for mod, name in PLAIN_VERSIONS:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def counted(*a, _fn=fn, **k):
+            count[0] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        yield count
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def kernel1_launches():
+    """Record kernel 1's launches on the Philox stream (vs._launch with
+    homogeneous packs, no uniforms, the summing mode): yields a list of
+    (rays, vrls, tris, medium, seed, svv, svs, short_vrls, phase_kind,
+    output)."""
+    launch, records = vs._launch, []
+
+    def recording(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
+                  short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM,
+                  counts=None):
+        out = launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
+                     svs, short_vrls, phase_kind, grid, mode, counts)
+        if grid is None and uniforms is None and mode == vs.MODE_SUM:
+            records.append((rays, vrls, tris, medium, seed, svv, svs,
+                            short_vrls, phase_kind, out))
+        return out
+    vs._launch = recording
+    try:
+        yield records
+    finally:
+        vs._launch = launch
+
+
+def hold_kernel1(label, records, n_sample):
+    """Each recorded kernel-1 launch against vrl_sum_reference on the same
+    packs and the kernel's Philox stream (philox_draws at the rays'
+    indices in the launch), on all its rays or on `n_sample` of them (a
+    seeded sample, the last ray included), at the homogeneous bar.
+    Returns a line of text."""
+    parts = []
+    for i, (rays, vrls, tris, medium, seed, svv, svs, short, kind,
+            out) in enumerate(records):
+        n_rays, n_vrls = rays.shape[1], vrls.shape[1]
+        if n_sample is None or n_sample >= n_rays:
+            idx = torch.arange(n_rays, device=rays.device)
+        else:
+            pick = np.random.default_rng(i).choice(n_rays - 1, n_sample - 1,
+                                                   replace=False)
+            idx = torch.as_tensor(np.append(np.sort(pick), n_rays - 1),
+                                  device=rays.device)
+        vrl_idx = torch.arange(n_vrls, device=rays.device)[None, :]
+        ref = torch.cat([vrl_sum_reference(
+            rays[:, b], vrls, tris, medium,
+            philox_draws(seed, b[:, None], vrl_idx, 2 * svv + svs),
+            vol_vol_samples=svv, vol_surf_samples=svs, short_vrls=short,
+            phase_kind=kind)
+            for b in idx.split(HOLD_CHUNK)], dim=1)
+        median, share = homog_bar(out[:, idx].T, ref.T)
+        err = float((out[:, idx] - ref).abs().max())
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"{label}: kernel 1's launch {i} ({n_rays} rays x {n_vrls} "
+              f"VRLs) against its plain version: median {median}, share "
+              f"{share}")
+        parts.append(f"launch {i}: {len(idx)} of {n_rays} rays x {n_vrls} "
+                     f"VRLs, median {median:.2e} share>1e-2 {share:.4f} "
+                     f"max_abs {err:.3e}")
+    check(bool(parts), f"{label}: no kernel-1 launch recorded")
+    return f"kernel 1 vs plain ({'; '.join(parts)})"
+
+
+def scene_json(scene, medium):
+    """A JSON scene dict of a preset: its triangles as one trimesh per
+    run of faces of one material, its materials, lights and camera, and
+    `medium`."""
+    v = scene.vertices.cpu().numpy()
+    f = scene.faces.cpu().numpy()
+    mat = scene.material.cpu().numpy()
+    cuts = np.flatnonzero(np.diff(mat)) + 1
+    shapes = [{"type": "trimesh", "material": f"m{int(mat[r[0]])}",
+               "vertices": v[f[r]].reshape(-1).tolist(),
+               "faces": list(range(3 * len(r)))}
+              for r in np.split(np.arange(len(f)), cuts)]
+    cam = scene.camera
+    return {
+        "camera": dict(PRESET_CAMERA, width=cam.width, height=cam.height),
+        "materials": [{"name": f"m{i}", "type": "diffuse", "albedo": a}
+                      for i, a in enumerate(
+                          scene.materials.albedo.cpu().tolist())],
+        "shapes": shapes,
+        "emitters": [{"type": "point", "position": p, "intensity": i}
+                     for p, i in zip(scene.emitters.position.cpu().tolist(),
+                                     scene.emitters.intensity.cpu().tolist())],
+        "medium": medium,
+    }
+
+
+def homog_medium(scene):
+    med = scene.medium
+    return {"type": "homogeneous", "sigma_s": med.sigma_s.cpu().tolist(),
+            "sigma_a": med.sigma_a.cpu().tolist(), "g": float(med.g),
+            "phase": "hg"}
+
+
+def write_ply(path, verts, faces):
+    """A binary little-endian PLY of float32 vertices and triangles."""
+    face = np.zeros(len(faces), [("n", "u1"), ("i", "<i4", 3)])
+    face["n"], face["i"] = 3, faces
+    with open(path, "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(verts)}\nproperty float x\n"
+                 "property float y\nproperty float z\n"
+                 f"element face {len(faces)}\n"
+                 "property list uchar int vertex_indices\nend_header\n"
+                 ).encode())
+        f.write(np.asarray(verts, "<f4").tobytes() + face.tobytes())
+
+
+def write_obj(path, verts, faces):
+    with open(path, "w") as f:
+        for p in verts:
+            f.write("v " + " ".join(repr(float(x)) for x in p) + "\n")
+        for t in faces:
+            f.write("f " + " ".join(str(int(i) + 1) for i in t) + "\n")
+
+
+def box_xml(scene, tmp):
+    """The config-1 box as a Mitsuba XML scene: one OBJ per run of faces
+    of one material, the preset's camera, light and medium."""
+    v = scene.vertices.cpu().numpy()
+    f = scene.faces.cpu().numpy()
+    mat = scene.material.cpu().numpy()
+    cuts = np.flatnonzero(np.diff(mat)) + 1
+    bsdfs, shapes = [], []
+    for i, a in enumerate(scene.materials.albedo.cpu().tolist()):
+        bsdfs.append(f'<bsdf type="diffuse" id="m{i}"><rgb name="reflectance"'
+                     f' value="{", ".join(map(repr, a))}"/></bsdf>')
+    for k, r in enumerate(np.split(np.arange(len(f)), cuts)):
+        write_obj(os.path.join(tmp, f"part{k}.obj"), v[f[r]].reshape(-1, 3),
+                  np.arange(3 * len(r)).reshape(-1, 3))
+        shapes.append(f'<shape type="obj"><string name="filename" '
+                      f'value="part{k}.obj"/><ref id="m{int(mat[r[0]])}"/>'
+                      "</shape>")
+    med, em, cam = scene.medium, scene.emitters, scene.camera
+    vec = lambda t: ", ".join(map(repr, t.cpu().tolist()))  # noqa: E731
+    return f"""<scene version="0.5.0">
+  <sensor type="perspective">
+    <float name="fov" value="{PRESET_CAMERA['fov']}"/>
+    <transform name="toWorld"><lookat origin="0, 0, -0.99" target="0, 0, 1"
+      up="0, 1, 0"/></transform>
+    <film type="hdrfilm"><integer name="width" value="{cam.width}"/>
+      <integer name="height" value="{cam.height}"/></film>
+  </sensor>
+  {"".join(bsdfs)}
+  {"".join(shapes)}
+  <emitter type="point"><point name="position" value="{vec(em.position[0])}"/>
+    <rgb name="intensity" value="{vec(em.intensity[0])}"/></emitter>
+  <medium type="homogeneous" id="smoke">
+    <rgb name="sigmaS" value="{vec(med.sigma_s)}"/>
+    <rgb name="sigmaA" value="{vec(med.sigma_a)}"/>
+    <phase type="hg"><float name="g" value="{float(med.g)!r}"/></phase>
+  </medium>
+</scene>"""
+
+
+def same_scene(ours, preset):
+    """The loaded scene holds the preset's triangles, materials, lights,
+    medium and camera, bit for bit."""
+    tri = lambda s: s.vertices[s.faces]  # noqa: E731
+    ok = (torch.equal(tri(ours), tri(preset))
+          and torch.equal(ours.material, preset.material))
+    for part in ("materials", "emitters", "medium", "camera"):
+        a, b = getattr(ours, part), getattr(preset, part)
+        for k in a.__dataclass_fields__:
+            x, y = getattr(a, k), getattr(b, k)
+            ok = ok and (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                         else x == y)
+    return ok
+
+
+def scene_files(dev, card, tmp):
+    """Phase 32: writes the scene files of phases 33-35 into `tmp` and
+    checks that the port's loader loads each as its preset."""
+    c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
+    c3 = presets.cornell_smoke_hg(C3_SIZE, C3_SIZE, device=dev)
+    c4 = presets.cornell_grid_smoke(C4_SIZE, C4_SIZE, grid_res=C4_GRID,
+                                    device=dev)
+    field = bbl.cube_field_scene(64, 64, bbl.CUBE_AXES[0], device=dev)
+    desc = scene_json(c1, homog_medium(c1))
+    desc["camera"].update(width="$w", height="$h")
+    with open(os.path.join(tmp, "c1.json"), "w") as f:
+        f.write(json.dumps(desc).replace('"$w"', "$w").replace('"$h"', "$h"))
+    with open(os.path.join(tmp, "c3.json"), "w") as f:
+        json.dump(scene_json(c3, homog_medium(c3)), f)
+    np.save(os.path.join(tmp, "density.npy"), c4.medium.density.cpu().numpy())
+    med = c4.medium
+    with open(os.path.join(tmp, "c4.json"), "w") as f:
+        json.dump(scene_json(c4, {
+            "type": "grid", "density_npy": os.path.join(tmp, "density.npy"),
+            "sigma_t": med.sigma_t_color.cpu().tolist(),
+            "albedo": med.albedo.cpu().tolist(), "g": float(med.g),
+            "box_min": med.box_min.cpu().tolist(),
+            "box_max": med.box_max.cpu().tolist(), "scale": float(med.scale),
+            "phase": "hg"}), f)
+    with open(os.path.join(tmp, "c1.xml"), "w") as f:
+        f.write(box_xml(c1, tmp))
+    n_walls = 12  # the box without its blocker; then the cubes
+    fv, ff = field.vertices.cpu().numpy(), field.faces.cpu().numpy()
+    walls_v = int(ff[:n_walls].max()) + 1
+    write_ply(os.path.join(tmp, "cubes.ply"), fv[walls_v:],
+              ff[n_walls:] - walls_v)
+    walls = scene_json(replace(field, faces=field.faces[:n_walls],
+                               material=field.material[:n_walls]),
+                       homog_medium(field))
+    walls["shapes"].append({"type": "ply", "material": "m0",
+                            "filename": os.path.join(tmp, "cubes.ply")})
+    with open(os.path.join(tmp, "field.json"), "w") as f:
+        json.dump(walls, f)
+
+    c5 = presets.cornell_smoke(C5_SIZE, C5_SIZE, device=dev)
+    loaded = {
+        "config 1/2": (loader.load_json(os.path.join(tmp, "c1.json"),
+                                        {"w": WIDTH, "h": HEIGHT},
+                                        device=dev), c1),
+        "config 3": (loader.load_json(os.path.join(tmp, "c3.json"),
+                                      device=dev), c3),
+        "config 4": (loader.load_json(os.path.join(tmp, "c4.json"),
+                                      device=dev), c4),
+        "config 5": (loader.load_json(os.path.join(tmp, "c1.json"),
+                                      {"w": C5_SIZE, "h": C5_SIZE},
+                                      device=dev), c5),
+        "xml box": (loader.build_scene(loader.convert_mitsuba_xml(
+            os.path.join(tmp, "c1.xml")), device=dev), c1),
+        "cube field (PLY)": (loader.load_json(os.path.join(tmp, "field.json"),
+                                              device=dev), field),
+    }
+    for name, (ours, preset) in loaded.items():
+        check(same_scene(ours, preset), f"{name}: the loaded scene is not "
+              "the preset's")
+    check(torch.equal(loaded["config 4"][0].medium.density, c4.medium.density),
+          "config 4: the grid is not the preset's")
+    print(f"[32 scene files on {card}] " + " | ".join(
+        f"{name}: {ours.faces.shape[0]} triangles, "
+        f"{ours.camera.width}x{ours.camera.height}, equal to the preset"
+        for name, (ours, _) in loaded.items())
+        + f" | config 4's {tuple(c4.medium.density.shape)} grid bit for bit",
+        flush=True)
+    return c1, c4
+
+
+def cli_runs(dev, card, tmp):
+    """Phase 33: render_cli.main on each scene file of phase 32; returns
+    {label: (median ms per pass, spread)}."""
+    out, lines = {}, []
+    for label, name, integ, passes, opts, route in CLI_RUNS:
+        path = os.path.join(tmp, name)
+        out_pfm = os.path.join(tmp, f"{label.replace(' ', '_')}.pfm")
+        args = [path, "-i", integ, "-p", str(passes), "--seed",
+                str(CLI_SEED), "-o", out_pfm, "-L", "WARNING", *opts]
+        for k in ROUTE_KERNELS.values():
+            k.launches = 0
+        n_before = len(STATS.timings.get("pass", []))
+        with plain_calls() as plain, kernel1_launches() as records:
+            t0 = time.perf_counter()
+            rc = render_cli.main(args)
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in ROUTE_KERNELS.items()}
+        pass_ms = [1e3 * s for s in STATS.timings["pass"][n_before:]]
+        img = image.read_pfm(out_pfm)
+        check(rc == 0, f"{label}: exit code {rc}")
+        check(all(launches[k] >= 1 for k in route),
+              f"{label}: the route's kernels {route} did not launch: "
+              f"{launches}")
+        check(plain[0] == 0, f"{label}: {plain[0]} plain-version calls")
+        check(np.isfinite(img).all() and float(np.abs(img).max()) > 0,
+              f"{label}: the image is not finite and non-zero")
+        # the same render in process: the CLI's scene, seed and options
+        cli = render_cli.parse_args(args)
+        defines = dict(kv.split("=", 1) for kv in cli.define)
+        scene = (loader.build_scene(loader.convert_mitsuba_xml(path, defines),
+                                    device=dev) if path.endswith(".xml")
+                 else loader.load_json(path, defines, device=dev))
+        ref = render_progressive(
+            scene, CLI_SEED, ProgressiveConfig(
+                max_passes=passes, clustered=integ == "alvrl"),
+            alvrl.ALVRLParams(vrl_target_num=cli.vrls,
+                              num_particles=cli.particles))
+        check(np.array_equal(img, ref), f"{label}: the CLI's image is not "
+              "render_progressive's")
+        hold = (", " + hold_kernel1(label, records, CLI_HOLDS[label])
+                if label in CLI_HOLDS else "")
+        del records[:]
+        med, spread = summary(pass_ms)
+        out[label] = (med, spread)
+        lines.append(
+            f"{label} ({' '.join([integ, '-p', str(passes), *opts])}, "
+            f"{scene.camera.width}x{scene.camera.height}, "
+            f"{scene.faces.shape[0]} triangles): rc 0, mean "
+            f"{float(img.mean()):.6g}, equal to render_progressive, "
+            "launches " + ", ".join(f"{k} {launches[k]}" for k in route)
+            + f", plain calls {plain[0]}, {med:.1f} ms a pass (median of "
+            f"{passes}, spread {spread:.1%}; each pass "
+            + " ".join(f"{t:.1f}" for t in pass_ms)
+            + f"; the first is the scene's first), CLI wall {wall:.2f} s"
+            + hold)
+    print(f"[33 the CLI on {card}] " + " | ".join(lines), flush=True)
+    return out
+
+
+def driver_profile(fn):
+    """One traced call of fn (then a synchronize) under torch.profiler:
+    (span ms, busy ms, the three largest gaps between device operations,
+    as (ms, the operation before, the one after)), or None."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ops = sorted((e for e in events if e.get("cat") in DEVICE_CATS),
+                 key=lambda e: e["ts"])
+    if not ops:
+        return None
+    busy, end, gaps, prev = 0.0, ops[0]["ts"], [], ops[0]["name"]
+    for e in ops:
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        if t0 > end:
+            gaps.append(((t0 - end) / 1e3, prev[:40], e["name"][:40]))
+        busy += max(0.0, t1 - max(t0, end))
+        if t1 >= end:
+            end, prev = t1, e["name"]
+    return (end - ops[0]["ts"]) / 1e3, busy / 1e3, sorted(gaps)[-3:][::-1]
+
+
+def sync_sites(fn):
+    """The synchronising calls of fn, as torch.cuda's sync debug mode
+    reports them: {file:line: count}."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def drivers(dev, card):
+    """Phase 34: the pipelined schedule (render_progressive, clustered,
+    and render_alvrl_progressive) against the serial one (render_alvrl
+    pass after pass) at full configs 2 and 4; returns {config:
+    numbers}, config 2's image (for phase 35) and config 2's case."""
+    c2_params = alvrl.ALVRLParams(**C2_PARAMS,
+                                  cluster=cl.ClusterParams(**C2_CLUSTER))
+    c4_params = alvrl.ALVRLParams(**C4_PARAMS,
+                                  cluster=cl.ClusterParams(**C4_CLUSTER))
+    configs = [
+        ("config2", presets.cornell_smoke(WIDTH, HEIGHT, device=dev),
+         c2_params,
+         tracer.TracerConfig()),
+        ("config4", presets.cornell_grid_smoke(C4_SIZE, C4_SIZE,
+                                               grid_res=C4_GRID, device=dev),
+         c4_params, tracer.TracerConfig(max_depth=C4_DEPTH))]
+    results, lines, c2_image = {}, [], None
+    for name, scene, params, tcfg in configs:
+        prog = ProgressiveConfig(max_passes=DRIVER_PASSES, clustered=True)
+
+        def serial():
+            # render_alvrl pass after pass, summed on the host in pass
+            # order as render_progressive sums
+            slice_info = alvrl.build_slice_info(scene, params)
+            acc = None
+            for k in range(DRIVER_PASSES):
+                img = alvrl.render_alvrl(
+                    scene, alvrl.pass_generator(CLI_SEED, k), params,
+                    tracer_cfg=tcfg, slice_info=slice_info)[0].cpu().numpy()
+                acc = img if acc is None else acc + img
+            return acc / DRIVER_PASSES
+
+        def driver():
+            return render_progressive(scene, CLI_SEED, prog, params,
+                                      tracer_cfg=tcfg)
+
+        def piped(n=DRIVER_PASSES, timings=None):
+            img = alvrl.render_alvrl_progressive(
+                scene, n, CLI_SEED, params, tracer_cfg=tcfg,
+                timings=timings)[0]
+            torch.cuda.synchronize()
+            return img
+
+        s_img, d_img = serial(), driver()
+        timings = {}
+        p_img = piped(timings=timings).cpu().numpy()
+        check(np.array_equal(s_img, d_img) and np.array_equal(s_img, p_img),
+              f"{name}: the pipelined images are not the serial one")
+        check(np.isfinite(p_img).all() and float(p_img.max()) > 0,
+              f"{name}: image")
+        if name == "config2":
+            c2_image = d_img
+        # runs in turns (serial, pipelined, pipelined, serial, ...), so
+        # that a drift of the host's speed falls on both schedules alike
+        s_ms, p_ms = [], []
+        for i in range(DRIVER_REPEATS):
+            turn = [(serial, s_ms), (driver, p_ms)]
+            for fn, out in turn if i % 2 == 0 else turn[::-1]:
+                out.append(host_ms(fn, 0, 1)[0] / DRIVER_PASSES)
+        profiles = {"serial": driver_profile(serial),
+                    "pipelined": driver_profile(driver)}
+        # syncs of one steady iteration: 3 passes less 2
+        three, two = sync_sites(lambda: piped(3)), sync_sites(lambda: piped(2))
+        extra = {k: v - two.get(k, 0) for k, v in three.items()
+                 if v != two.get(k, 0)}
+        (s_med, s_spread), (p_med, p_spread) = summary(s_ms), summary(p_ms)
+        results[name] = dict(serial=(s_med, s_spread),
+                             pipelined=(p_med, p_spread), timings=timings,
+                             profiles=profiles, syncs=extra)
+        prof_txt = []
+        for k, prof in profiles.items():
+            if prof is None:
+                prof_txt.append(f"{k}: the profiler saw no device operation")
+                continue
+            span, busy, gaps = prof
+            prof_txt.append(
+                f"{k} profile ({DRIVER_PASSES} passes): span {span:.1f} ms, "
+                f"busy {busy:.1f} ms, idle {1 - busy / span:.1%}, largest "
+                "gaps " + "; ".join(f"{g:.1f} ms {a} -> {b}"
+                                     for g, a, b in gaps))
+        lines.append(
+            f"{name}: render_progressive and render_alvrl_progressive "
+            f"bit-identical to render_alvrl pass after pass, serial "
+            f"{s_med:.1f} ms a pass (spread "
+            f"{s_spread:.1%}), pipelined {p_med:.1f} ms a pass (spread "
+            f"{p_spread:.1%}; median of {DRIVER_REPEATS} runs of "
+            f"{DRIVER_PASSES} passes each, in turns; serial "
+            + " ".join(f"{t:.1f}" for t in s_ms) + ", pipelined "
+            + " ".join(f"{t:.1f}" for t in p_ms)
+            + "), pipelined stage sums (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+            + " | " + " | ".join(prof_txt)
+            + f" | syncs in one pipelined iteration: {sum(extra.values())} ("
+            + ", ".join(f"{k} x{v}" for k, v in sorted(extra.items()))
+            + "; the wait for R's copy is an event, not counted)")
+    print(f"[34 pipelined vs serial schedule on {card}] " + " | ".join(lines),
+          flush=True)
+    return results, c2_image, configs[0]
+
+
+def resume(dev, card, tmp, c2_image, c2):
+    """Phase 35: 2 passes, then resume to 4, against 4 in one run
+    (phase 34's config-2 image of render_progressive), and the pass
+    dumps' names."""
+    _, scene, params, tcfg = c2
+    ck, dumps = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "passes")
+    for n in (2, DRIVER_PASSES):
+        img = render_progressive(scene, CLI_SEED, ProgressiveConfig(
+            max_passes=n, clustered=True, checkpoint_path=ck,
+            dump_passes=True, dump_dir=dumps), params, tracer_cfg=tcfg)
+    check(np.array_equal(img, c2_image), "config 2: 2 passes and a resume "
+          "to 4 are not 4 passes in one run")
+    names = sorted(os.listdir(dumps))
+    pattern = re.compile(r"^pass_p(\d{3})_wall\d\.\d{3}e[+-]\d{2}"
+                         r"_renvrl\d\.\d{4}e[+-]\d{2}\.npy$")
+    check(len(names) == DRIVER_PASSES and all(map(pattern.match, names))
+          and [int(pattern.match(n).group(1)) for n in names]
+          == list(range(DRIVER_PASSES)), f"pass dumps {names}")
+    check(np.array_equal(np.load(os.path.join(dumps, names[-1])), c2_image),
+          "the last dump is not the image")
+    print(f"[35 checkpoint and resume on {card}] config 2: 2 passes + resume "
+          f"to {DRIVER_PASSES} bit-identical to {DRIVER_PASSES} in one run; "
+          f"dumps {names[0]} ... {names[-1]}", flush=True)
+
+
+def scene_path(dev, card):
+    """Phases 32-35."""
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_files(dev, card, tmp)
+        cli_runs(dev, card, tmp)
+        _, c2_image, c2 = drivers(dev, card)
+        resume(dev, card, tmp, c2_image, c2)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -3261,6 +3846,7 @@ def main():
     clustered_grad_kernels = clustered_grad(dev, card, cfg, c2, c4)
     bvh_kernel = large_mesh(dev, card, cfg, vrls)
     probe_kernels = gather_probes(dev, card)
+    scene_path(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",

@@ -1,0 +1,355 @@
+"""alvrl_tpu_torch.scene.loader against alvrl_tpu.scene.loader: the same
+scene files through both loaders, the JAX scene carried across by
+convert.scene_from_numpy and compared leaf by leaf; the XML converter's
+dict; and the kinds the port refuses."""
+
+import json
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from alvrl_tpu.io import mesh as jmesh
+from alvrl_tpu.io import vol as jvol
+from alvrl_tpu.scene import loader as jloader
+from alvrl_tpu.scene import presets as jpresets
+from alvrl_tpu_torch import convert
+from alvrl_tpu_torch.scene import loader
+from tests.torch_port_utils import CPU, jax_scene_leaves
+
+torch.set_num_threads(1)
+
+# tests/test_loader.py's dict scene, its dielectric sphere a null one
+SCENE = {
+    "camera": {"type": "perspective", "origin": [0, 0, -0.99],
+               "target": [0, 0, 1], "fov": 90, "width": 8, "height": 8},
+    "medium": {"type": "homogeneous", "sigma_s": [0.6] * 3,
+               "sigma_a": [0.05] * 3, "g": 0.3},
+    "materials": [
+        {"name": "white", "type": "diffuse", "albedo": [0.7, 0.7, 0.7]},
+        {"name": "glass", "type": "null"},
+    ],
+    "shapes": [
+        {"type": "cube", "material": "white", "flip_normals": True},
+        {"type": "sphere", "material": "glass", "center": [0, 0, 0.3],
+         "radius": 0.2, "n_theta": 4, "n_phi": 8},
+    ],
+    "emitters": [
+        {"type": "point", "position": [0, 0.8, 0], "intensity": [5, 5, 5]},
+    ],
+}
+
+TW = [[0.5, 0.1, 0.0, 0.2], [0.0, 0.4, 0.1, -0.3], [0.2, 0.0, 0.6, 0.1],
+      [0.0, 0.0, 0.0, 1.0]]
+
+# tests/test_loader.py::test_mitsuba_xml_convert's scene
+XML = """<scene version="0.5.0">
+    <sensor type="perspective">
+        <float name="fov" value="60"/>
+        <transform name="toWorld">
+            <lookat origin="0, 0, -1" target="0, 0, 1" up="0, 1, 0"/>
+        </transform>
+        <film type="hdrfilm">
+            <integer name="width" value="16"/>
+            <integer name="height" value="16"/>
+        </film>
+    </sensor>
+    <bsdf type="diffuse" id="walls">
+        <rgb name="reflectance" value="0.7, 0.6, 0.5"/>
+    </bsdf>
+    <shape type="cube">
+        <ref id="walls"/>
+    </shape>
+    <emitter type="point">
+        <point name="position" x="0" y="0.5" z="0"/>
+        <rgb name="intensity" value="4, 4, 4"/>
+    </emitter>
+    <medium type="homogeneous" id="med">
+        <rgb name="sigmaS" value="0.5, 0.5, 0.5"/>
+        <rgb name="sigmaA" value="0.02, 0.02, 0.02"/>
+        <phase type="hg"><float name="g" value="0.4"/></phase>
+    </medium>
+    </scene>"""
+
+
+def _fields(obj):
+    return {k: getattr(obj, k) for k in obj.__dataclass_fields__}
+
+
+def assert_same_scene(ours, jax_scene):
+    """Integer leaves and copies exactly; vertices and the camera matrix
+    (products of transforms) within 1e-6."""
+    ref = convert.scene_from_numpy(jax_scene_leaves(jax_scene), device=CPU)
+    for name in ("faces", "material"):
+        assert torch.equal(getattr(ours, name), getattr(ref, name)), name
+    torch.testing.assert_close(ours.vertices, ref.vertices, atol=1e-6,
+                               rtol=0)
+    for part in ("materials", "emitters", "medium", "camera"):
+        a, b = _fields(getattr(ours, part)), _fields(getattr(ref, part))
+        for k in a:
+            if part == "camera" and k == "to_world":
+                torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=0)
+            elif isinstance(a[k], torch.Tensor):
+                assert a[k].dtype == b[k].dtype, f"{part}.{k}"
+                assert torch.equal(a[k], b[k]), f"{part}.{k}"
+            else:
+                assert a[k] == b[k], f"{part}.{k}"
+    assert torch.equal(ours.opaque_faces(), ref.opaque_faces())
+
+
+def test_dict_scene_matches():
+    ours = loader.load_json(SCENE, device=CPU)
+    assert_same_scene(ours, jloader.load_json(SCENE))
+    assert int((~ours.opaque_faces()).sum()) == 4 * 8 * 2  # the null sphere
+
+
+def test_defines_substitution(tmp_path):
+    p = tmp_path / "s.json"
+    p.write_text(json.dumps(SCENE).replace('"fov": 90', '"fov": $fov'))
+    ours = loader.load_json(str(p), defines={"fov": 45}, device=CPU)
+    assert float(ours.camera.fov_x_deg) == 45.0
+    assert_same_scene(ours, jloader.load_json(str(p), defines={"fov": 45}))
+
+
+def _mesh_scene(shape):
+    return dict(SCENE, shapes=[SCENE["shapes"][0], dict(
+        shape, material="white", to_world=TW)])
+
+
+def test_obj_matches(tmp_path):
+    p = tmp_path / "m.obj"
+    p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 1 1 0\nv 0.5 1.5 0.2\n"
+                 "vt 0 0\nvt 1 0\nvt 0 1\n"
+                 "f 1 2 3\nf 2/1 4/2 5/3 3/1\n")
+    desc = _mesh_scene({"type": "obj", "filename": str(p)})
+    ours = loader.build_scene(desc, device=CPU)
+    assert ours.faces.shape[0] == 12 + 3
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def _ply_body_binary():
+    header = (
+        b"ply\nformat binary_little_endian 1.0\n"
+        b"element vertex 4\n"
+        b"property float x\nproperty float y\nproperty float z\n"
+        b"property float u\nproperty float v\n"
+        b"element face 1\nproperty list uchar int vertex_indices\n"
+        b"end_header\n")
+    body = b"".join(struct.pack("<fffff", *v, 0.1, 0.2) for v in
+                    [(0, 0, 0), (1, 0, 0), (1, 1, 0.3), (0, 1, 0)])
+    return header + body + struct.pack("<Biiii", 4, 0, 1, 2, 3)
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary"])
+def test_ply_matches(tmp_path, fmt):
+    p = tmp_path / "m.ply"
+    if fmt == "ascii":
+        p.write_text(
+            "ply\nformat ascii 1.0\ncomment a quad\nelement vertex 4\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            "element face 1\nproperty list uchar int vertex_indices\n"
+            "end_header\n0 0 0\n1 0 0\n1 1 0.3\n0 1 0\n4 0 1 2 3\n")
+    else:
+        p.write_bytes(_ply_body_binary())
+    desc = _mesh_scene({"type": "ply", "filename": str(p)})
+    ours = loader.build_scene(desc, device=CPU)
+    assert ours.faces.shape[0] == 12 + 2
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_serialized_matches(tmp_path):
+    rng = np.random.default_rng(3)
+    p = tmp_path / "m.serialized"
+    meshes = [(rng.normal(size=(5, 3)).astype(np.float32),
+               np.array([[0, 1, 2], [2, 3, 4]], np.int32)),
+              (rng.normal(size=(4, 3)).astype(np.float32),
+               np.array([[0, 1, 2], [0, 2, 3], [1, 2, 3]], np.int32))]
+    jmesh.save_serialized(p, meshes)
+    desc = _mesh_scene({"type": "serialized", "filename": str(p),
+                        "shape_index": 1})
+    ours = loader.build_scene(desc, device=CPU)
+    assert ours.faces.shape[0] == 12 + 3
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_shapes_and_null_boundary_match():
+    """Every shape kind the port builds, a null boundary around them."""
+    desc = dict(SCENE, shapes=[
+        {"type": "cube", "material": "glass"},
+        {"type": "rectangle", "material": "white", "to_world": TW},
+        {"type": "cube", "material": "white", "to_world": TW},
+        {"type": "sphere", "center": [0.1, 0, 0], "radius": 0.3,
+         "n_theta": 3, "n_phi": 5, "to_world": TW},
+        {"type": "disk", "material": "white", "n_phi": 7, "to_world": TW},
+        {"type": "cylinder", "material": "white", "p0": [0, -0.5, 0],
+         "p1": [0.2, 0.5, 0.1], "radius": 0.2, "n_phi": 6},
+        {"type": "trimesh", "material": "white",
+         "vertices": [0, 0, 0, 1, 0, 0, 0, 1, 0], "faces": [0, 1, 2],
+         "to_world": TW},
+    ])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    # the sphere takes the "default" material, appended after the named
+    assert ours.materials.kind.tolist() == [0, 1, 0]
+    assert not bool(ours.opaque_faces()[:12].any())
+
+
+@pytest.mark.parametrize("phase", ["hg", "isotropic", "rayleigh"])
+def test_grid_medium_from_npy_matches(tmp_path, phase):
+    rng = np.random.default_rng(4)
+    dens = rng.random((5, 6, 7)).astype(np.float32)
+    np.save(tmp_path / "d.npy", dens)
+    desc = dict(SCENE, medium={
+        "type": "grid", "density_npy": str(tmp_path / "d.npy"),
+        "sigma_t": [1.0, 1.05, 1.1], "albedo": [0.9, 0.8, 0.7], "g": 0.3,
+        "box_min": [-1, -0.9, -0.8], "box_max": [1, 0.9, 1.1], "scale": 2.0,
+        "phase": phase})
+    ours = loader.build_scene(desc, device=CPU)
+    assert torch.equal(ours.medium.density, torch.as_tensor(dens))
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_config4_preset_as_grid_scene(tmp_path):
+    """cornell_grid_smoke written out as a trimesh + .npy scene loads
+    as the JAX preset, its grid bit for bit."""
+    ref = jpresets.cornell_grid_smoke(width=16, height=12, grid_res=6)
+    leaves = jax_scene_leaves(ref)
+    np.save(tmp_path / "d.npy", leaves["medium.density"])
+    desc = {
+        "camera": {"origin": [0, 0, -0.99], "target": [0, 0, 1], "fov": 90,
+                   "width": 16, "height": 12},
+        "materials": [{"name": f"m{i}", "type": "diffuse",
+                       "albedo": a.tolist()}
+                      for i, a in enumerate(leaves["materials.albedo"])],
+        "shapes": [{"type": "trimesh", "material": f"m{m}",
+                    "vertices": leaves["vertices"][f].ravel().tolist(),
+                    "faces": [0, 1, 2]}
+                   for f, m in zip(leaves["faces"], leaves["material"])],
+        "emitters": [{"type": "point", "position": p.tolist(),
+                      "intensity": i.tolist()}
+                     for p, i in zip(leaves["emitters.position"],
+                                     leaves["emitters.intensity"])],
+        "medium": {"type": "grid", "density_npy": str(tmp_path / "d.npy"),
+                   "sigma_t": leaves["medium.sigma_t_color"].tolist(),
+                   "albedo": leaves["medium.albedo"].tolist(),
+                   "g": float(leaves["medium.g"])},
+    }
+    ours = loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
+    want = convert.scene_from_numpy(leaves, device=CPU)
+    assert torch.equal(ours.medium.density, want.medium.density)
+    for k in ("sigma_t_color", "albedo", "g", "box_min", "box_max", "scale",
+              "max_density"):
+        assert torch.equal(getattr(ours.medium, k), getattr(want.medium, k))
+    # the faces come apart into one trimesh each: the same triangles
+    assert torch.equal(ours.vertices[ours.faces], want.vertices[want.faces])
+    assert torch.equal(ours.material, want.material)
+    torch.testing.assert_close(ours.camera.to_world, want.camera.to_world,
+                               atol=1e-6, rtol=0)
+
+
+def test_xml_matches(tmp_path):
+    p = tmp_path / "scene.xml"
+    p.write_text(XML)
+    desc = loader.convert_mitsuba_xml(str(p))
+    assert desc == jloader.convert_mitsuba_xml(str(p))
+    ours = loader.build_scene(desc, device=CPU)
+    assert ours.camera.width == 16 and ours.faces.shape[0] == 12
+    assert float(ours.medium.g) == np.float32(0.4)
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_xml_transform_order(tmp_path):
+    """tests/test_loader_extended.py's scale-then-translate rectangle."""
+    xml = """<scene version="0.5.0">
+      <shape type="rectangle">
+        <transform name="toWorld">
+          <scale value="2"/><translate x="5"/>
+        </transform>
+      </shape>
+      <sensor type="perspective">
+        <lookat origin="0,0,-3" target="0,0,0" up="0,1,0"/>
+      </sensor>
+      <emitter type="point">
+        <point name="position" x="0" y="1" z="0"/>
+        <rgb name="intensity" value="1, 2, 3"/>
+      </emitter>
+    </scene>"""
+    p = tmp_path / "t.xml"
+    p.write_text(xml)
+    desc = loader.convert_mitsuba_xml(p)
+    assert desc == jloader.convert_mitsuba_xml(p)
+    ours = loader.build_scene(desc, device=CPU)
+    v = ours.vertices.numpy()
+    assert abs(v[:, 0].min() - 3.0) < 1e-5 and abs(v[:, 0].max() - 7.0) < 1e-5
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_xml_gridvolume_matches(tmp_path):
+    """A .vol grid (Z, Y, X) through the converter: the density keeps its
+    axis order and its box."""
+    dens = np.arange(3 * 4 * 5, dtype=np.float32).reshape(3, 4, 5) / 60.0
+    jvol.write_vol(tmp_path / "d.vol", dens, box_min=(-1, -1, -2),
+                   box_max=(1, 2, 1))
+    xml = XML.replace('<medium type="homogeneous" id="med">', """
+    <medium type="heterogeneous" id="med">
+        <volume name="density" type="gridvolume">
+            <string name="filename" value="d.vol"/>
+        </volume>
+        <rgb name="sigmaT" value="0.4, 0.5, 0.6"/>
+        <rgb name="albedo" value="0.9, 0.9, 0.8"/>""").replace(
+        """        <rgb name="sigmaS" value="0.5, 0.5, 0.5"/>
+        <rgb name="sigmaA" value="0.02, 0.02, 0.02"/>
+""", "")
+    p = tmp_path / "g.xml"
+    p.write_text(xml)
+    desc = loader.convert_mitsuba_xml(p)
+    assert desc == jloader.convert_mitsuba_xml(p)
+    ours = loader.build_scene(desc, device=CPU)
+    assert torch.equal(ours.medium.density, torch.as_tensor(dens))
+    assert ours.medium.box_max.tolist() == [1.0, 2.0, 1.0]
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
+    """tests/test_loader_extended.py's XML (coating, area light, .vol):
+    the same dict, which build_scene then refuses by its coating."""
+    from tests.test_loader_extended import XML as XML_EXT
+
+    jvol.write_vol(tmp_path / "dens.vol", np.ones((8, 8, 8), np.float32))
+    p = tmp_path / "s.xml"
+    p.write_text(XML_EXT)
+    desc = loader.convert_mitsuba_xml(p)
+    assert desc == jloader.convert_mitsuba_xml(p)
+    with pytest.raises(ValueError, match="'coating' is not ported"):
+        loader.build_scene(desc, device=CPU)
+
+
+@pytest.mark.parametrize("change, name", [
+    ({"materials": [{"name": "white", "type": "dielectric", "eta": 1.5},
+                    {"name": "glass", "type": "null"}]}, "dielectric"),
+    ({"materials": [{"name": "white", "type": "diffuse",
+                     "texture": {"type": "checker"}},
+                    {"name": "glass", "type": "null"}]}, "checker"),
+    ({"materials": [{"name": "white", "type": "velvet"},
+                    {"name": "glass", "type": "null"}]}, "velvet"),
+    ({"emitters": [{"type": "spot", "position": [0, 0.8, 0]}]}, "spot"),
+    ({"emitters": [{"type": "area", "p0": [0, 0.9, 0], "e1": [0.1, 0, 0],
+                    "e2": [0, 0, 0.1]}]}, "area"),
+    ({"emitters": [{"type": "envmap", "filename": "x.pfm"}]}, "envmap"),
+    ({"camera": dict(SCENE["camera"], type="thinlens")}, "thinlens"),
+    ({"shapes": [{"type": "heightfield", "heights": [[0, 1], [1, 0]]}]},
+     "heightfield"),
+    ({"shapes": [{"type": "cube", "interior_medium": 1}]},
+     "interior_medium"),
+    ({"shapes": [{"type": "cube", "to_world_t1": np.eye(4).tolist()}]},
+     "to_world_t1"),
+    ({"media": [{"sigma_a": [0, 0, 0], "sigma_s": [0, 0, 0]}]}, "media"),
+    ({"medium": {"type": "homogeneous", "phase": {
+        "type": "mixture", "components": [{"type": "hg", "g": 0.5}]}}},
+     "mixture"),
+    ({"medium": {"type": "homogeneous", "strategy": "single"}}, "single"),
+])
+def test_unsupported_kinds_raise(change, name):
+    with pytest.raises(ValueError, match=name):
+        loader.build_scene(dict(SCENE, **change), device=CPU)

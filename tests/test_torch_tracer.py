@@ -188,19 +188,48 @@ def test_bsdf_sample_matches():
         jscene, jnp.asarray(u), jnp.asarray(mat), jnp.asarray(ng),
         jnp.asarray(ng), jnp.asarray(d_in), jnp.zeros((n, 3)),
         mode="importance")
-    out = bsdf.sample_from_uniforms(scene, _t(u), _t(mat), _t(ng))
+    out = bsdf.sample_from_uniforms(scene, _t(u), _t(mat), _t(ng),
+                                    _t(d_in))
     torch.testing.assert_close(out.wo, _t(ref.wo), atol=1e-6, rtol=1e-6)
     assert torch.equal(out.weight, _t(ref.weight))
     assert bool(np.all(ref.valid)) and bool(np.all(ref.eta_ratio == 1.0))
 
 
 def test_bsdf_sample_rejects_other_kinds():
+    """A kind neither DIFFUSE nor NULL (here MIRROR, 2) raises."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 1])))
+        scene.materials, kind=torch.tensor([0, 0, 0, 2])))
     with pytest.raises(ValueError):
         bsdf.sample_from_uniforms(scene, torch.zeros(1, 5), torch.zeros(
-            1, dtype=torch.int64), torch.tensor([[0.0, 1.0, 0.0]]))
+            1, dtype=torch.int64), torch.tensor([[0.0, 1.0, 0.0]]),
+            torch.tensor([[0.0, -1.0, 0.0]]))
+
+
+def test_trace_rejects_other_kinds_once():
+    """The tracer checks the material table once, before its first
+    bounce (bsdf.check_kinds), and then samples without the check."""
+    scene = presets.cornell_smoke(width=4, height=4, device="cpu")
+    scene = replace(scene, materials=replace(
+        scene.materials, kind=torch.tensor([0, 0, 0, 2])))
+    calls = []
+    check = bsdf.check_kinds
+
+    def counted(s):
+        calls.append(1)
+        return check(s)
+
+    with pytest.raises(ValueError, match="ROADMAP A3"):
+        tracer.trace(scene, torch.Generator().manual_seed(0), 4,
+                     tracer.TracerConfig(max_depth=3))
+    ok = presets.cornell_smoke(width=4, height=4, device="cpu")
+    bsdf.check_kinds = counted
+    try:
+        tracer.trace(ok, torch.Generator().manual_seed(0), 4,
+                     tracer.TracerConfig(max_depth=3))
+    finally:
+        bsdf.check_kinds = check
+    assert len(calls) == 1
 
 
 def test_scene_aabb_matches():
