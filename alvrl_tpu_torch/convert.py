@@ -24,11 +24,13 @@ from alvrl_tpu_torch.scene.scene import (
     Scene,
 )
 
+EMITTER_KEYS = ("kind", "position", "direction", "intensity", "cos_cutoff",
+                "cos_beam", "tri_e1", "tri_e2", "pmf")
 SCENE_KEYS = (
     "vertices", "faces", "material", "materials.kind", "materials.albedo",
-    "emitters.kind", "emitters.position", "emitters.intensity",
-    "emitters.pmf", "camera.to_world", "camera.fov_x_deg",
-    "camera.width", "camera.height", "camera.kind",
+    "materials.eta", *(f"emitters.{k}" for k in EMITTER_KEYS),
+    "camera.to_world", "camera.fov_x_deg", "camera.width", "camera.height",
+    "camera.kind",
 )
 HOMOG_MEDIUM_KEYS = ("medium.sigma_a", "medium.sigma_s", "medium.g",
                      "medium.sampling_weight", "medium.phase_kind")
@@ -71,11 +73,12 @@ def scene_from_numpy(d, device="cuda") -> Scene:
         faces=i64("faces"),
         material=i64("material"),
         materials=Materials(kind=i64("materials.kind"),
-                            albedo=f32("materials.albedo")),
-        emitters=Emitters(kind=i64("emitters.kind"),
-                          position=f32("emitters.position"),
-                          intensity=f32("emitters.intensity"),
-                          pmf=f32("emitters.pmf")),
+                            albedo=f32("materials.albedo"),
+                            eta=f32("materials.eta")),
+        emitters=Emitters(
+            kind=i64("emitters.kind"),
+            **{k: f32(f"emitters.{k}") for k in EMITTER_KEYS[1:]},
+            host_kinds=tuple(int(k) for k in d["emitters.kind"])),
         medium=medium,
         camera=Camera(to_world=f32("camera.to_world"),
                       fov_x_deg=f32("camera.fov_x_deg"),

@@ -26,6 +26,7 @@ class Hit(NamedTuple):
     valid: torch.Tensor  # bool
     p: torch.Tensor      # hit position (..., 3)
     ng: torch.Tensor     # geometric normal, oriented toward the ray origin
+    ng_raw: torch.Tensor  # geometric normal as the winding defines it
 
 
 def ray_triangle(o, d, p0, p1, p2):
@@ -69,13 +70,15 @@ def intersect_all(o, d, verts, faces):
 
 def hit_record(o, d, t, prim, valid, verts, faces):
     """The Hit of rays (o, d) at distance t on triangle prim (-1, and t
-    inf, for a miss): the point, and the face's normal oriented toward
-    the incoming ray (two-sided shading)."""
+    inf, for a miss): the point, the face's winding normal, and that
+    normal oriented toward the incoming ray (two-sided shading). A miss
+    carries face 0's normals, as the reference's."""
     f = faces[prim.clamp(min=0)]
     a, b, c = verts[f[..., 0]], verts[f[..., 1]], verts[f[..., 2]]
     ng_raw = m.normalize(m.cross(b - a, c - a))
     ng = torch.where(m.dot(ng_raw, d, keepdim=True) > 0, -ng_raw, ng_raw)
-    return Hit(t=t, prim=prim, valid=valid, p=o + t[..., None] * d, ng=ng)
+    return Hit(t=t, prim=prim, valid=valid, p=o + t[..., None] * d, ng=ng,
+               ng_raw=ng_raw)
 
 
 def occluded(p_from, p_to, verts, faces):

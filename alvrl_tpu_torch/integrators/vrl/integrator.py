@@ -3,7 +3,9 @@
 Counterpart of alvrl_tpu/integrators/vrl/integrator.py: the unclustered
 render (every eye ray against every VRL; plain, or differentiable
 through the seed-replay VJP; or, for large meshes, with BVH hits and
-BVH shadow tests), and the two device
+BVH shadow tests; or with specular chains through mirrors, dielectrics
+and null boundaries, one launch of the sum per chain depth), and the
+two device
 stages of the clustered render (integrators.vrl.alvrl): the transfer
 matrix R over representative rays, and the render of each pixel against
 its slice's representatives (plain, or differentiable through the
@@ -22,13 +24,20 @@ import torch
 from alvrl_tpu_torch.film import film as film_mod
 from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
+from alvrl_tpu_torch.integrators.vrl import specular
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
-from alvrl_tpu_torch.ops.vrl_sum import vrl_sum, vrl_sum_hetero
+from alvrl_tpu_torch.ops.vrl_sum import (
+    philox_draws,
+    vrl_sum,
+    vrl_sum_hetero,
+    vrl_sum_hetero_reference,
+    vrl_sum_reference,
+)
 from alvrl_tpu_torch.ops.vrl_sum_bvh import (
     pack_bvh_tris,
     sort_vrls_morton,
@@ -49,8 +58,9 @@ from alvrl_tpu_torch.sensors import perspective
 
 def trace_eye_rays(scene: Scene, ray_o, ray_d):
     """Closest hits with misses' points moved to the ray origin (so that
-    masked arithmetic stays finite), and the hit material ids.
-    Returns (hit, mat)."""
+    masked arithmetic stays finite; the hit also carries the winding
+    normal ng_raw, which a dielectric's entering test reads), and the hit
+    material ids. Returns (hit, mat)."""
     return _eye_hits(scene, ray_o, intersect.intersect_all(
         ray_o, ray_d, scene.vertices, scene.faces))
 
@@ -185,6 +195,129 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     density, through which autograd chains."""
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
                    vrls, generator, cfg, uniforms, None)
+
+
+def li_unclustered_spec(scene: Scene, ray_o, ray_d, vrls: VRLs, generator,
+                        cfg: VRLConfig = VRLConfig(),
+                        spec_cfg: specular.SpecularConfig =
+                        specular.SpecularConfig()):
+    """Unclustered Li (B, 3) of the eye rays (ray_o, ray_d) with specular
+    chains, through the plain sums (vrl_sum_reference, or
+    vrl_sum_hetero_reference in a grid medium), normalised by the
+    particle count; counterpart of alvrl_tpu's li_unclustered_spec. The
+    chain's uniforms (B rays, then one seed a depth) are drawn from
+    `generator`; a depth's sums take the Philox stream of its seed at the
+    rays' indices among the B. See li_unclustered_spec_u."""
+    u_chain, seeds = _chain_draws(generator, spec_cfg, ray_o.shape[0],
+                                  scene.device)
+    n_vrls = vrls.capacity
+    draws = 2 * cfg.vol_vol_samples + cfg.vol_surf_samples
+    vrl_idx = torch.arange(n_vrls, device=scene.device)[None, :]
+    return _li_spec_plain(
+        scene, ray_o, ray_d, vrls, u_chain,
+        lambda depth, idx: philox_draws(seeds[depth], idx[:, None], vrl_idx,
+                                        draws),
+        cfg, spec_cfg)
+
+
+def li_unclustered_spec_u(scene: Scene, ray_o, ray_d, vrls: VRLs, u_chain,
+                          u_sums, cfg: VRLConfig = VRLConfig(),
+                          spec_cfg: specular.SpecularConfig =
+                          specular.SpecularConfig()):
+    """li_unclustered_spec on explicit uniforms: u_chain (max_depth, B,
+    specular.N_CHAIN_DIMS), each step's lobe and roulette uniforms, and
+    u_sums (max_depth + 1, B, N, 2 * vol_vol + vol_surf), the sums'
+    uniforms at each depth."""
+    return _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain,
+                          lambda depth, idx: u_sums[depth, idx], cfg, spec_cfg)
+
+
+def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
+                   spec_cfg):
+    med = scene.medium
+    density_ss = None if mapi.is_homogeneous(med) else gmed.upsample2(
+        med.density)
+    if density_ss is None:
+        side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
+    else:
+        side = (pk.pack_vrls_hetero(vrls, med, density_ss),
+                pk.pack_tris(scene), pk.pack_medium_hetero(med), density_ss)
+
+    def li_at_hit(o, d, hit, mat, idx, depth, weight):
+        kw = dict(vol_vol_samples=cfg.vol_vol_samples,
+                  vol_surf_samples=cfg.vol_surf_samples,
+                  short_vrls=cfg.short_vrls, phase_kind=med.phase_kind,
+                  weight=weight)
+        u = sum_uniforms(depth, idx)
+        if density_ss is None:
+            out = vrl_sum_reference(pk.pack_rays(scene, o, d, hit, mat),
+                                    *side, u, **kw)
+        else:
+            out = vrl_sum_hetero_reference(
+                pk.pack_rays_hetero(scene, o, d, hit, mat, density_ss),
+                *side, u, uv_steps=cfg.uv_tau_steps, **kw)
+        return out.T
+
+    li = specular.li_specular_chain(scene, ray_o, ray_d, li_at_hit,
+                                    trace_eye_rays, u_chain, spec_cfg,
+                                    density_ss=density_ss)
+    return li / torch.clamp(vrls.particle_count, min=1.0)
+
+
+def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
+                                 cfg: VRLConfig = VRLConfig(),
+                                 spec_cfg: specular.SpecularConfig =
+                                 specular.SpecularConfig(), *,
+                                 uniforms=None, compact=True):
+    """Full-frame unclustered render with specular chains through
+    mirrors, dielectrics and null boundaries (specular.li_specular_chain):
+    each chain depth packs its rays (a delta surface packs albedo 0) and
+    launches ops.vrl_sum (kernel 1) once, and the chain weight multiplies
+    its per-ray output. Counterpart of alvrl_tpu's
+    render_with_vrls_pallas_spec; homogeneous media only, as there.
+
+    The chain's uniforms (max_depth, W * H, specular.N_CHAIN_DIMS), then
+    one kernel seed a depth, are drawn from `generator` (a CPU
+    torch.Generator). `uniforms`, (max_depth + 1, W * H, N, 2 * vol_vol +
+    vol_surf) on the scene's device, replaces the kernel's random stream
+    (depth k's launch reads uniforms[k] at its rays). `compact` (the
+    default) launches each depth on the rays still on a chain, gathered
+    (a host sync a depth), and stops at the first depth without one;
+    compact=False launches every depth on every ray, as the reference.
+    Returns the (H, W, 3) image."""
+    if not mapi.is_homogeneous(scene.medium):
+        raise ValueError("the specular-chain render takes a homogeneous "
+                         "medium only, as the JAX package's "
+                         "render_with_vrls_pallas_spec (ROADMAP A7)")
+    px, py, ray_o, ray_d = frame_rays(scene)
+    u_chain, seeds = _chain_draws(generator, spec_cfg, ray_o.shape[0],
+                                  scene.device)
+    side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
+    kw = _kernel_args(scene, cfg)
+
+    def li_at_hit(o, d, hit, mat, idx, depth, weight):
+        out = vrl_sum(pk.pack_rays(scene, o, d, hit, mat), *side,
+                      seed=seeds[depth],
+                      uniforms=None if uniforms is None else uniforms[depth,
+                                                                      idx],
+                      **kw)
+        return out.T * weight
+
+    li = specular.li_specular_chain(scene, ray_o, ray_d, li_at_hit,
+                                    trace_eye_rays, u_chain, spec_cfg,
+                                    compact=compact)
+    li = li / torch.clamp(vrls.particle_count, min=1.0)
+    img, wgt = film_mod.splat_box(scene.camera.width, scene.camera.height,
+                                  px, py, li)
+    return film_mod.develop(img, wgt)
+
+
+def _chain_draws(generator, spec_cfg, n_rays, device):
+    """The chain's uniforms (max_depth, n_rays, N_CHAIN_DIMS) on `device`,
+    then max_depth + 1 kernel seeds, drawn from `generator`."""
+    u = torch.rand((spec_cfg.max_depth, n_rays, specular.N_CHAIN_DIMS),
+                   generator=generator, device=generator.device).to(device)
+    return u, [draw_seed(generator) for _ in range(spec_cfg.max_depth + 1)]
 
 
 def draw_seed(generator) -> int:

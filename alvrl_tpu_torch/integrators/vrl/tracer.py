@@ -1,21 +1,25 @@
 """VRL generation by volumetric photon tracing, differentiable.
 
 Counterpart of alvrl_tpu/integrators/vrl/tracer.py (trace, _trace_one)
-for point emitters, diffuse and null surfaces and a homogeneous or grid
-medium with an HG or Rayleigh phase. All particles advance in lockstep,
-as tensors with a leading particle axis, through a Python loop over
-bounce depth; each (particle, depth) slot holds at most one VRL, so the
-buffer has num_particles * max_depth slots, particle-major.
+for the point, spot, directional, area, constant and collimated
+emitters, diffuse, null, mirror and dielectric surfaces and a
+homogeneous or grid medium with an HG or Rayleigh phase. All particles
+advance in lockstep, as tensors with a leading particle axis, through a
+Python loop over bounce depth; each (particle, depth) slot holds at most
+one VRL, so the buffer has num_particles * max_depth slots,
+particle-major.
 
 Per step, as traceOneParticle (vrlTracer.h:91-230): a free-flight
 sample against the closest surface; a medium event multiplies the
 throughput by tau sigma_s / pdfSuccess and a phase sample and starts a
 new VRL at the scatter point; a surface event multiplies it by
-tau / pdfFailure and a BSDF sample and starts one at the surface; past
-rr_depth, Russian roulette with q = min(max(throughput), 0.95) (the
-reference's eta^2 factor is 1 for these surfaces). In a grid medium
-the free flight is Woodcock tracking (media.heterogeneous.sample_distance)
-over the supersampled density computed once per call.
+tau / pdfFailure and a BSDF sample in importance mode (a dielectric's
+refraction without the 1/eta^2 of radiance transport) and starts one at
+the surface, and multiplies the particle's relative IOR eta by the
+sampled lobe's ratio; past rr_depth, Russian roulette with
+q = min(max(throughput) * eta^2, 0.95). In a grid medium the free
+flight is Woodcock tracking (media.heterogeneous.sample_distance) over
+the supersampled density computed once per call.
 
 Gradients follow the reference's detached-sampling contract: sampled
 positions and directions are detached, the free-flight pdf denominators
@@ -41,7 +45,11 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.scene.scene import Scene
 
-N_EMIT_DIMS = 3   # emitter choice, then the 2 direction uniforms
+N_EMIT_DIMS = em_mod.N_EMIT_DIMS  # one emission's uniforms (emitters)
+# the emission columns drawn first, before the walk's uniforms; the
+# others (the position and the area light's second barycentric) are
+# drawn after them, so that a point-light scene keeps its stream
+N_EMIT_FIRST = 3
 # uniforms of one step, in the reference's key order: distance (2),
 # phase (2), BSDF (N_SAMPLE_DIMS), roulette (1)
 U_DIST, U_PHASE, U_BSDF = slice(0, 2), slice(2, 4), slice(4, 9)
@@ -62,18 +70,22 @@ class TracerConfig:
 def trace(scene: Scene, generator, num_particles: int,
           cfg: TracerConfig = TracerConfig()) -> VRLs:
     """Trace num_particles light paths with uniforms drawn from
-    `generator` (a torch.Generator), in this order: u_emit, u_walk and,
-    in a grid medium, u_track; see trace_u."""
+    `generator` (a torch.Generator), in this order: u_emit's first
+    N_EMIT_FIRST columns (the emitter choice and the direction), u_walk,
+    in a grid medium u_track, then u_emit's other columns; see trace_u."""
     def rand(*shape):
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(scene.device)
+        return torch.rand(shape, generator=generator, device=generator.device)
 
-    u_emit = rand(num_particles, N_EMIT_DIMS)
+    u_emit = rand(num_particles, N_EMIT_FIRST)
     u_walk = rand(num_particles, cfg.max_depth, N_STEP_DIMS)
     u_track = None
     if not mapi.is_homogeneous(scene.medium):
-        u_track = rand(num_particles, cfg.max_depth, gmed.TRACKING_DRAWS, 2)
-    return trace_u(scene, u_emit, u_walk, cfg, u_track)
+        u_track = rand(num_particles, cfg.max_depth, gmed.TRACKING_DRAWS,
+                       2).to(scene.device)
+    u_emit = torch.cat(
+        [u_emit, rand(num_particles, N_EMIT_DIMS - N_EMIT_FIRST)], dim=1)
+    return trace_u(scene, u_emit.to(scene.device), u_walk.to(scene.device),
+                   cfg, u_track)
 
 
 def trace_u(scene: Scene, u_emit, u_walk,
@@ -82,12 +94,24 @@ def trace_u(scene: Scene, u_emit, u_walk,
     (P, N_EMIT_DIMS), u_walk (P, max_depth, N_STEP_DIMS) and, in a grid
     medium, the Woodcock tracking uniforms u_track (P, max_depth,
     TRACKING_DRAWS, 2), which replace u_walk's distance uniforms.
-    Returns a VRL buffer of P * max_depth slots, particle-major."""
+    Returns a VRL buffer of P * max_depth slots, particle-major.
+
+    u_emit's columns (emitters.N_EMIT_DIMS, as emitters.sample_emission_u
+    reads them): 0 the emitter choice, 1-2 the direction (uniform
+    sphere, spot cone, cosine lobe of an area or constant light), 3-4
+    the position (a directional light's disk, a point on an area light's
+    triangle, a constant light's sphere), 5 the area light's second
+    barycentric. u_walk's, per step: 0-1 the free-flight distance, 2-3
+    the phase sample, 4-8 the BSDF sample (bsdf.api.N_SAMPLE_DIMS), 9
+    the roulette."""
     n_particles = u_emit.shape[0]
+    if tuple(u_emit.shape) != (n_particles, N_EMIT_DIMS):
+        raise ValueError(f"u_emit must be ({n_particles}, {N_EMIT_DIMS}), "
+                         f"got {tuple(u_emit.shape)}")
     if tuple(u_walk.shape) != (n_particles, cfg.max_depth, N_STEP_DIMS):
         raise ValueError(f"u_walk must be ({n_particles}, {cfg.max_depth}, "
                          f"{N_STEP_DIMS}), got {tuple(u_walk.shape)}")
-    bsdf_api.check_kinds(scene)  # once, not per bounce
+    kinds = bsdf_api.check_kinds(scene)  # once, not per bounce
     med = scene.medium
     density_ss = None
     if not mapi.is_homogeneous(med):
@@ -96,19 +120,22 @@ def trace_u(scene: Scene, u_emit, u_walk,
             got = None if u_track is None else tuple(u_track.shape)
             raise ValueError(f"a grid medium needs u_track {shape}, got {got}")
         density_ss = gmed.upsample2(med.density)
-    pos, d, weight = em_mod.sample_emission(scene.emitters, u_emit)
+    lo, hi = scene.aabb()
+    pos, d, weight = em_mod.sample_emission_u(
+        scene.emitters, u_emit, 0.5 * (lo + hi), 0.5 * m.length(hi - lo))
     state = dict(
         ray_o=pos, ray_d=d, cur_start=pos,
         cur_power=weight,             # beta of the VRL being built
         beta=weight,                  # throughput times emitted power
         tp=torch.ones_like(weight),   # unitless throughput, for roulette
+        eta=torch.ones_like(weight[:, 0]),  # relative IOR, for roulette
         active=~(weight == 0.0).all(dim=-1),
     )
     slots = []
     for depth in range(1, cfg.max_depth + 1):
         track = None if u_track is None else u_track[:, depth - 1]
         state, out = _step(scene, med, state, u_walk[:, depth - 1], depth,
-                           cfg, track, density_ss)
+                           cfg, track, density_ss, kinds)
         slots.append(out)
 
     def flat(k):
@@ -121,7 +148,7 @@ def trace_u(scene: Scene, u_emit, u_walk,
                                             device=scene.device))
 
 
-def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
+def _step(scene, med, state, u, depth, cfg, u_track, density_ss, kinds):
     """One bounce of every particle; returns (next state, this slot)."""
     ray_o, ray_d, active = state["ray_o"], state["ray_d"], state["active"]
     hit = intersect.intersect_all(ray_o, ray_d, scene.vertices, scene.faces)
@@ -153,10 +180,11 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
     # surface scattering
     mat_id = scene.material[hit.prim.clamp(min=0)]
     bs = bsdf_api.sample_from_uniforms(scene, u[:, U_BSDF], mat_id, hit.ng,
-                                       ray_d, kinds_checked=True)
+                                       hit.ng_raw, ray_d, mode="importance",
+                                       kinds=kinds)
     beta_surf = state["beta"] * ms.w_pass * bs.weight
     tp_surf = state["tp"] * ms.w_pass * bs.weight
-    bsdf_dead = surface_event & (bs.weight == 0.0).all(dim=-1)
+    bsdf_dead = surface_event & (~bs.valid | (bs.weight == 0.0).all(dim=-1))
 
     # the VRL that ends at this event
     store_end = torch.where(medium_event[..., None], endpoint, hit_p)
@@ -172,8 +200,10 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
     new_tp = torch.where(medium_event[..., None], tp_med, tp_surf)
     survive = (medium_event & med_store_ok) | (surface_event & ~bsdf_dead)
 
+    new_eta = torch.where(surface_event, state["eta"] * bs.eta_ratio,
+                          state["eta"])
     # Russian roulette (vrlTracer.h:218-228)
-    q = torch.clamp(new_tp.amax(dim=-1), max=0.95).detach()
+    q = torch.clamp(new_tp.amax(dim=-1) * new_eta ** 2, max=0.95).detach()
     if depth >= cfg.rr_depth:
         rr_kill = u[:, U_RR] >= q
         rr_scale = torch.where(rr_kill, 1.0, 1.0 / torch.clamp(q, min=1e-30))
@@ -184,7 +214,7 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss):
     new_state = dict(ray_o=new_o, ray_d=new_d, cur_start=new_o,
                      cur_power=new_beta * rr_scale,
                      beta=new_beta * rr_scale, tp=new_tp * rr_scale,
-                     active=survive)
+                     eta=new_eta, active=survive)
     # lanes that were inactive keep their state
     new_state = {k: torch.where(active if v.dim() == 1 else active[..., None],
                                 v, state[k])

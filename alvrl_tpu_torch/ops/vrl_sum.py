@@ -398,22 +398,28 @@ def _reference(rays, vrls, tris, medium, uniforms, svv, svs, short_vrls,
 
 def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
                       vol_vol_samples=2, vol_surf_samples=2,
-                      short_vrls=True, phase_kind=ph.HG):
+                      short_vrls=True, phase_kind=ph.HG, weight=None):
     """Plain PyTorch version of the kernel on the same packs, with
     explicit (B, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
-    Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size."""
-    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
-                      vol_surf_samples, short_vrls, phase_kind, None)
+    Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size.
+    `weight`, (B, 3), multiplies each ray's sums: a specular chain's path
+    weight, which the reference's vrl_sum folds into every VRL power
+    (the sum is linear in it)."""
+    out = _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                     vol_surf_samples, short_vrls, phase_kind, None)
+    return out if weight is None else out * weight.T
 
 
 def vrl_sum_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
                              vol_vol_samples=2, vol_surf_samples=2,
-                             short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                             short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                             weight=None):
     """vrl_sum_reference on grid packs (ops.pack's GRID_* layouts) and the
     supersampled density (2Z - 1, 2Y - 1, 2X - 1)."""
-    return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
-                      vol_surf_samples, short_vrls, phase_kind,
-                      (density, uv_steps))
+    out = _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
+                     vol_surf_samples, short_vrls, phase_kind,
+                     (density, uv_steps))
+    return out if weight is None else out * weight.T
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,16 @@ build_scene builds the subset the port renders, with the JAX package's
 column order (materials in declaration order, then "default" if a
 shape needs it; faces in shape order), so that the two scenes compare
 leaf by leaf:
-  * materials "diffuse", "twosided" (diffuse) and "null";
+  * materials "diffuse", "twosided" (diffuse), "null", "mirror" and
+    "conductor" (MIRROR), "dielectric" and "thindielectric" (DIELECTRIC,
+    with the "eta" column);
   * shapes "rectangle", "cube", "sphere", "disk", "cylinder", "obj",
     "ply", "serialized" and "trimesh", each with an optional to_world;
-  * "point" emitters;
+  * "point", "spot", "directional", "collimated" and "constant"
+    emitters, and "area" emitters as real geometry: two triangles of the
+    black "_emitter_black" material (or the emitter's "material") per
+    quad after the shapes, and two AREA entries per quad after the
+    other emitters;
   * a "homogeneous" medium (phase "hg", "isotropic" or "rayleigh",
     strategy "balance") or a "grid" medium (a scalar density from
     "density_npy" or an inline "density", as the converter writes a
@@ -34,7 +40,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from alvrl_tpu_torch.emitters.emitters import make_point_emitters
+from alvrl_tpu_torch.emitters import emitters as em_mod
 from alvrl_tpu_torch.geometry import shapes as shp
 from alvrl_tpu_torch.io import mesh as mesh_io
 from alvrl_tpu_torch.io.vol import read_vol
@@ -42,7 +48,9 @@ from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.media.phase import HG, RAYLEIGH
 from alvrl_tpu_torch.scene.scene import (
+    DIELECTRIC,
     DIFFUSE,
+    MIRROR,
     NULL,
     PERSPECTIVE,
     Camera,
@@ -51,23 +59,27 @@ from alvrl_tpu_torch.scene.scene import (
     look_at,
 )
 
-_MAT_KINDS = {"diffuse": DIFFUSE, "twosided": DIFFUSE, "null": NULL}
+_MAT_KINDS = {"diffuse": DIFFUSE, "twosided": DIFFUSE, "null": NULL,
+              "mirror": MIRROR, "conductor": MIRROR,
+              "dielectric": DIELECTRIC, "thindielectric": DIELECTRIC}
 # the JAX package's other material kinds: the converter carries them,
 # build_scene refuses them
 _UNPORTED_MATERIALS = (
-    "mirror", "conductor", "dielectric", "thindielectric", "roughconductor",
-    "roughplastic", "plastic", "phong", "ward", "difftrans", "mask",
+    "roughconductor", "roughplastic", "plastic", "phong", "ward",
+    "difftrans", "mask",
     "mixturebsdf", "blendbsdf", "mixture", "coating", "roughdielectric",
     "roughcoating", "normalmap", "bumpmap", "hk", "irawan")
 _CAM_KINDS = {"perspective": PERSPECTIVE, "radiancemeter": PERSPECTIVE}
 _PHASE_KINDS = {"hg": HG, "isotropic": HG, "rayleigh": RAYLEIGH}
+_EM_KINDS = {"point": em_mod.POINT, "spot": em_mod.SPOT,
+             "directional": em_mod.DIRECTIONAL, "constant": em_mod.CONSTANT,
+             "collimated": em_mod.COLLIMATED}
 # kinds the JAX package builds and the port does not, with the ROADMAP
 # item that ports them
 _LATER = {
     "shape": {"heightfield": "A11", "hair": "A11"},
-    "emitter": {"area": "A3", "spot": "A3", "directional": "A3",
-                "collimated": "A3", "constant": "A3", "envmap": "A10",
-                "sky": "A10", "sun": "A10", "sunsky": "A10"},
+    "emitter": {"envmap": "A10", "sky": "A10", "sun": "A10",
+                "sunsky": "A10"},
     "sensor": {"thinlens": "A11", "orthographic": "A11", "spherical": "A11",
                "telecentric": "A11", "perspective_rdist": "A11"},
 }
@@ -107,6 +119,12 @@ def _materials(desc, device):
     mats = list(desc.get("materials", [{"name": "default",
                                         "type": "diffuse",
                                         "albedo": [0.5, 0.5, 0.5]}]))
+    # area emitters are real geometry (area.cpp): their faces take a
+    # black diffuse material unless one is named
+    if any(e["type"] == "area" for e in desc.get("emitters", [])) and not any(
+            mdesc.get("name") == "_emitter_black" for mdesc in mats):
+        mats.append({"name": "_emitter_black", "type": "diffuse",
+                     "albedo": [0.0, 0.0, 0.0]})
     # shapes without an explicit material fall back to "default"
     names = {mdesc.get("name", f"mat{i}") for i, mdesc in enumerate(mats)}
     if "default" not in names and any(
@@ -114,7 +132,7 @@ def _materials(desc, device):
             for s in desc.get("shapes", [])):
         mats.append({"name": "default", "type": "diffuse",
                      "albedo": [0.5, 0.5, 0.5]})
-    kinds, albedos, name_to_id = [], [], {}
+    kinds, albedos, etas, name_to_id = [], [], [], {}
     for i, mdesc in enumerate(mats):
         mt = mdesc["type"]
         if mt in _UNPORTED_MATERIALS:
@@ -124,11 +142,13 @@ def _materials(desc, device):
             _refuse("texture", mdesc["texture"].get("type"), "A11")
         albedos.append(mdesc.get("albedo",
                                  mdesc.get("sigma_s", [1.0, 1.0, 1.0])))
+        etas.append(mdesc.get("eta", 1.0))
         name_to_id[mdesc.get("name", f"mat{i}")] = i
     materials = Materials(
         kind=torch.tensor(kinds, dtype=torch.int64, device=device),
         albedo=torch.tensor(np.asarray(albedos, np.float32).reshape(-1, 3),
-                            device=device))
+                            device=device),
+        eta=torch.tensor(np.asarray(etas, np.float32), device=device))
     return materials, name_to_id
 
 
@@ -207,6 +227,58 @@ def _medium(desc, device):
     raise ValueError(f"unknown medium type {mdesc['type']!r}")
 
 
+def _area_quads(desc, name_to_id, verts, faces, mat_ids):
+    """The area emitters' quads appended to the geometry (two triangles
+    each) and their emitter entries (two each, the second triangle's from
+    its far corner with the edges negated)."""
+    entries = []
+    for e in desc.get("emitters", []):
+        if e["type"] != "area":
+            continue
+        p0, e1, e2 = (np.asarray(e[k], np.float32) for k in ("p0", "e1", "e2"))
+        quad_f = np.asarray([[0, 1, 2], [3, 2, 1]], np.int32) + len(verts)
+        verts = np.concatenate([verts, np.stack([p0, p0 + e1, p0 + e2,
+                                                 p0 + e1 + e2])])
+        faces = np.concatenate([faces, quad_f])
+        m_id = name_to_id.get(e.get("material", "_emitter_black"),
+                              name_to_id.get("_emitter_black", 0))
+        mat_ids = np.concatenate([mat_ids, np.full((2,), m_id, np.int32)])
+        rad = e.get("radiance", [1.0, 1.0, 1.0])
+        entries.append({"type": "_area", "position": list(p0),
+                        "intensity": rad, "e1": list(e1), "e2": list(e2)})
+        entries.append({"type": "_area", "position": list(p0 + e1 + e2),
+                        "intensity": rad, "e1": list(-e1), "e2": list(-e2)})
+    return verts, faces, mat_ids, entries
+
+
+def _emitters(desc, area_entries, device):
+    """The emitter table: the scene's emitters in order, the area entries
+    last, as the JAX package orders them."""
+    edescs = []
+    for e in desc.get("emitters", []):
+        if e["type"] != "area":
+            _kind("emitter", e["type"], _EM_KINDS)
+            edescs.append(e)
+    edescs += area_entries
+    kinds = dict(_EM_KINDS, _area=em_mod.AREA)
+    return em_mod.make_emitters(
+        [kinds[e["type"]] for e in edescs],
+        np.asarray([e.get("position", [0, 0, 0]) for e in edescs],
+                   np.float32).reshape(-1, 3),
+        np.asarray([e.get("intensity", e.get("irradiance", e.get(
+            "power", [1, 1, 1]))) for e in edescs],
+            np.float32).reshape(-1, 3),
+        np.asarray([e.get("direction", [0, 0, 1]) for e in edescs],
+                   np.float32).reshape(-1, 3),
+        [e.get("cutoff", 20.0) for e in edescs],
+        [e.get("beam", 15.0) for e in edescs],
+        np.asarray([e.get("e1", [0, 0, 0]) for e in edescs],
+                   np.float32).reshape(-1, 3),
+        np.asarray([e.get("e2", [0, 0, 0]) for e in edescs],
+                   np.float32).reshape(-1, 3),
+        device=device)
+
+
 def build_scene(desc: dict, device="cuda") -> Scene:
     """The scene of a JSON scene dict (see the module), on `device`."""
     if "media" in desc:
@@ -217,16 +289,9 @@ def build_scene(desc: dict, device="cuda") -> Scene:
         v, f = _shape(sdesc)
         parts.append((v, f, name_to_id[sdesc.get("material", "default")]))
     verts, faces, mat_ids = shp.merge(parts)
-
-    positions, intensities = [], []
-    for e in desc.get("emitters", []):
-        _kind("emitter", e["type"], {"point": None})
-        positions.append(e.get("position", [0, 0, 0]))
-        intensities.append(e.get("intensity", e.get(
-            "irradiance", e.get("power", [1, 1, 1]))))
-    emitters = make_point_emitters(
-        np.asarray(positions, np.float32).reshape(-1, 3),
-        np.asarray(intensities, np.float32).reshape(-1, 3), device=device)
+    verts, faces, mat_ids, area_entries = _area_quads(desc, name_to_id, verts,
+                                                      faces, mat_ids)
+    emitters = _emitters(desc, area_entries, device)
 
     cdesc = desc["camera"]
     f32 = dict(dtype=torch.float32, device=device)

@@ -4,8 +4,9 @@ Counterpart of alvrl_tpu/scene/presets.py: cornell_smoke (BASELINE
 configs 1-2 and 5), a closed Cornell box filled with a homogeneous
 medium, a box blocker, one point light, and the camera inside the
 medium; cornell_smoke_hg (BASELINE config 3), the same box with an
-anisotropic HG medium; and cornell_grid_smoke (BASELINE config 4), the
-same box without the blocker, filled with a plume-like grid medium.
+anisotropic HG medium; cornell_grid_smoke (BASELINE config 4), the
+same box without the blocker, filled with a plume-like grid medium; and
+cornell_area_light, the box lit by a quad area light in its ceiling.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from alvrl_tpu_torch.emitters.emitters import make_point_emitters
+from alvrl_tpu_torch.emitters.emitters import (
+    AREA,
+    make_emitters,
+    make_point_emitters,
+)
 from alvrl_tpu_torch.geometry import shapes
 from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import make_medium
@@ -79,6 +84,7 @@ def cornell_smoke(
             [0.14, 0.45, 0.091],   # green
             [0.725, 0.71, 0.68],   # blocker
         ], **f32),
+        eta=torch.ones(4, **f32),
     )
     emitters = make_point_emitters([[0.0, 0.75, 0.2]], [list(intensity)],
                                    device=device)
@@ -127,3 +133,38 @@ def cornell_grid_smoke(width=512, height=512, grid_res=48, device="cuda"):
     base = cornell_smoke(width=width, height=height, with_blocker=False,
                          device=device)
     return replace(base, medium=medium)
+
+
+def cornell_area_light(width=64, height=64, radiance=(6.0, 6.0, 6.0),
+                       half=0.25, device="cuda", **kwargs):
+    """cornell_smoke (its other arguments in kwargs) lit by a quad area
+    light of side 2 half just under the ceiling in place of the point
+    light (area.cpp): the quad is real geometry, two triangles of a
+    black diffuse material appended last, and two AREA entries, each
+    wound so that its face normal cross(e1, e2) points down into the
+    box."""
+    base = cornell_smoke(width=width, height=height, device=device, **kwargs)
+    y = 0.999
+    p0 = np.array([-half, y, -half], np.float32)
+    e1 = np.array([2 * half, 0, 0], np.float32)
+    e2 = np.array([0, 0, 2 * half], np.float32)
+    quad_v = np.stack([p0, p0 + e1, p0 + e2, p0 + e1 + e2])
+    quad_f = np.array([[0, 1, 2], [3, 2, 1]]) + base.vertices.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    mats = base.materials
+    black = mats.kind.shape[0]
+    materials = Materials(
+        kind=torch.cat([mats.kind, torch.tensor([DIFFUSE], **i64)]),
+        albedo=torch.cat([mats.albedo, torch.zeros((1, 3), **f32)]),
+        eta=torch.cat([mats.eta, torch.ones(1, **f32)]))
+    emitters = make_emitters([AREA, AREA], [p0, p0 + e1 + e2],
+                             [list(radiance)] * 2, tri_e1=[e1, -e1],
+                             tri_e2=[e2, -e2], device=device)
+    return replace(
+        base,
+        vertices=torch.cat([base.vertices, torch.as_tensor(quad_v, **f32)]),
+        faces=torch.cat([base.faces, torch.as_tensor(quad_f, **i64)]),
+        material=torch.cat([base.material,
+                            torch.full((2,), black, **i64)]),
+        materials=materials, emitters=emitters)

@@ -1,7 +1,7 @@
 """Scene, camera and material table as dataclasses of tensors.
 
 Counterpart of alvrl_tpu/scene/scene.py, reduced to the columns the VRL
-render and tracer read. Materials are a struct-of-arrays table indexed by the
+render, the tracer and the specular chains read. Materials are a struct-of-arrays table indexed by the
 per-face material id; the BSDF kind selects the arithmetic.
 """
 
@@ -17,8 +17,10 @@ from alvrl_tpu_torch.media.heterogeneous import GridMedium
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
 
 # material kinds, numbered as in alvrl_tpu.scene.scene
-DIFFUSE = 0   # smooth Lambertian
-NULL = 1      # transparent boundary: does not block shadow rays
+DIFFUSE = 0     # smooth Lambertian
+NULL = 1        # transparent boundary: does not block shadow rays
+MIRROR = 2      # ideal specular conductor (delta), tinted by the albedo
+DIELECTRIC = 3  # smooth dielectric (delta), relative IOR in Materials.eta
 
 # sensor kinds, numbered as in alvrl_tpu.scene.scene
 PERSPECTIVE = 0
@@ -27,7 +29,9 @@ PERSPECTIVE = 0
 @dataclass(frozen=True)
 class Materials:
     kind: torch.Tensor    # (M,) int64
-    albedo: torch.Tensor  # (M, 3) f32 diffuse reflectance
+    albedo: torch.Tensor  # (M, 3) f32 diffuse reflectance / specular tint
+    eta: torch.Tensor     # (M,) f32 relative IOR int/ext (1 but for
+                          # dielectrics)
 
 
 @dataclass(frozen=True)
@@ -57,7 +61,8 @@ class Scene:
         return self.vertices.device
 
     def opaque_faces(self):
-        """(T,) bool: triangles that block shadow rays (non-null BSDF)."""
+        """(T,) bool: triangles that block shadow rays (non-null BSDF;
+        mirrors and dielectrics block them too)."""
         return self.materials.kind[self.material] != NULL
 
     def aabb(self):

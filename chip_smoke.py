@@ -3,9 +3,10 @@ VRL render, the config-1 train step, the config-2 clustered render
 (Adaptive LightSlice), the config-4 clustered render in a grid medium,
 the config-4 gradient path and density-recovery trainer, clustered
 gradient steps at configs 2 and 4, the large-mesh render of up to
-129,612 triangles, the gather probes, and scene files of configs 1-5
-rendered through the CLI and the multi-pass drivers, end to end through
-the hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
+129,612 triangles, the gather probes, scene files of configs 1-5
+rendered through the CLI and the multi-pass drivers, and glass, a
+mirror and an area light through the specular-chain render and the
+CLI, end to end through the hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
 transfer matrix R, the clustered sum and its VJP, each also for the
 grid medium; the BVH-occlusion sum; three gathers).
 
@@ -218,7 +219,33 @@ Phases, one line each; any failure exits non-zero:
      iteration by file and line (torch.cuda.set_sync_debug_mode);
  35. checkpoint and resume at config 2: 2 passes, then a resume to 4,
      bit-identical to 4 in one run; the pass dumps named as the JAX
-     package names them.
+     package names them;
+ 36. glass and an area light as scene files: cornell_glass (config 1's
+     box, its blocker a dielectric of eta 1.5, its back wall a conductor,
+     the point light and cornell_area_light's ceiling quad as an area
+     emitter; JSON, its size by -D) and cornell_area_light (JSON and a
+     Mitsuba XML with a rectangle and a nested area emitter), 128x128
+     (cornell_glass also 512x512); each loads on the card as on the CPU,
+     bit for bit, and cornell_area_light as the ported preset;
+ 37. the main path of the specular chains: render_with_vrls_kernel_spec
+     on cornell_glass at 128x128 and 512x512 against VRLs traced on the
+     card at the CLI's defaults (128 particles x depth 16 into 512
+     slots): kernel 1's launch count must move by the depths launched;
+     each depth's launch held against its plain version on the same
+     packs and Philox stream (all rays at 128x128, 4,096 at 512x512) at
+     the homogeneous bar; every depth's segments through the checking
+     instantiation (0 disagreements); the image finite and non-zero; at
+     128x128 the render on injected uniforms against the plain chain
+     (li_unclustered_spec_u) on 4,096 of its pixels at the homogeneous
+     bar; the active rays per depth, ms per render of the compacted and
+     the every-ray forms (in turns, no plain version), ms per depth's
+     launch and the idle share of a profile;
+ 38. the CLI on cornell_glass and cornell_area_light (-i vrl -p 2 and
+     -i alvrl -p 2) as phase 33: exit code 0, the PFM bit-identical to
+     render_progressive, the route's kernels launched, no plain version
+     called, ms a pass; and the tracer on cornell_glass on the card
+     against the tracer on the CPU on the same uniforms (slots,
+     validity, positions and powers).
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -248,7 +275,8 @@ from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.progressive import (
     ProgressiveConfig, render_progressive)
-from alvrl_tpu_torch.integrators.vrl import alvrl, integrator, tracer, vrl
+from alvrl_tpu_torch.integrators.vrl import (
+    alvrl, integrator, specular, tracer, vrl)
 from alvrl_tpu_torch.integrators.vrl import cluster as cl
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.io import image
@@ -3073,9 +3101,10 @@ def write_obj(path, verts, faces):
             f.write("f " + " ".join(str(int(i) + 1) for i in t) + "\n")
 
 
-def box_xml(scene, tmp):
+def box_xml(scene, tmp, lights=None):
     """The config-1 box as a Mitsuba XML scene: one OBJ per run of faces
-    of one material, the preset's camera, light and medium."""
+    of one material, the preset's camera, light (or the XML `lights`)
+    and medium."""
     v = scene.vertices.cpu().numpy()
     f = scene.faces.cpu().numpy()
     mat = scene.material.cpu().numpy()
@@ -3092,6 +3121,10 @@ def box_xml(scene, tmp):
                       "</shape>")
     med, em, cam = scene.medium, scene.emitters, scene.camera
     vec = lambda t: ", ".join(map(repr, t.cpu().tolist()))  # noqa: E731
+    if lights is None:
+        lights = (f'<emitter type="point"><point name="position" '
+                  f'value="{vec(em.position[0])}"/>\n    <rgb name='
+                  f'"intensity" value="{vec(em.intensity[0])}"/></emitter>')
     return f"""<scene version="0.5.0">
   <sensor type="perspective">
     <float name="fov" value="{PRESET_CAMERA['fov']}"/>
@@ -3102,8 +3135,7 @@ def box_xml(scene, tmp):
   </sensor>
   {"".join(bsdfs)}
   {"".join(shapes)}
-  <emitter type="point"><point name="position" value="{vec(em.position[0])}"/>
-    <rgb name="intensity" value="{vec(em.intensity[0])}"/></emitter>
+  {lights}
   <medium type="homogeneous" id="smoke">
     <rgb name="sigmaS" value="{vec(med.sigma_s)}"/>
     <rgb name="sigmaA" value="{vec(med.sigma_a)}"/>
@@ -3197,11 +3229,11 @@ def scene_files(dev, card, tmp):
     return c1, c4
 
 
-def cli_runs(dev, card, tmp):
-    """Phase 33: render_cli.main on each scene file of phase 32; returns
-    {label: (median ms per pass, spread)}."""
+def cli_runs(dev, card, tmp, runs=CLI_RUNS, phase="33 the CLI"):
+    """Phase 33 (and 38's runs): render_cli.main on each scene file of
+    `runs`; returns {label: (median ms per pass, spread)}."""
     out, lines = {}, []
-    for label, name, integ, passes, opts, route in CLI_RUNS:
+    for label, name, integ, passes, opts, route in runs:
         path = os.path.join(tmp, name)
         out_pfm = os.path.join(tmp, f"{label.replace(' ', '_')}.pfm")
         args = [path, "-i", integ, "-p", str(passes), "--seed",
@@ -3252,7 +3284,7 @@ def cli_runs(dev, card, tmp):
             + " ".join(f"{t:.1f}" for t in pass_ms)
             + f"; the first is the scene's first), CLI wall {wall:.2f} s"
             + hold)
-    print(f"[33 the CLI on {card}] " + " | ".join(lines), flush=True)
+    print(f"[{phase} on {card}] " + " | ".join(lines), flush=True)
     return out
 
 
@@ -3430,13 +3462,302 @@ def resume(dev, card, tmp, c2_image, c2):
           f"dumps {names[0]} ... {names[-1]}", flush=True)
 
 
+# phases 36-38: glass, a mirror and an area light. cornell_glass is
+# config 1's box with its blocker a dielectric, its back wall a
+# conductor, the point light, and cornell_area_light's ceiling quad as an
+# area emitter
+GLASS_ETA, BACK_ALBEDO = 1.5, [0.9, 0.9, 0.9]
+BACK_FACES = (4, 6)      # the back wall's two triangles in cornell_smoke
+AREA_HALF, AREA_RADIANCE, AREA_Y = 0.25, 6.0, 0.999
+SPEC_SIZES = (WIDTH, 512)
+SPEC_SEED = 3
+# rays of each depth's kernel-1 launch held against the plain version:
+# all of them at 128x128, a sample at 512x512
+SPEC_HOLD = {WIDTH: None, 512: 4096}
+SPEC_SAMPLE = 4096       # pixels of the plain chain's check
+SPEC_REPEATS = 6         # timed renders a form, in turns
+CLI_PARTICLES, CLI_VRLS = 128, 512  # render_cli's defaults, depth 16
+GLASS_RUNS = [
+    ("glass vrl", "cornell_glass.json", "vrl", 2,
+     ["-D", f"w={WIDTH}", "-D", f"h={HEIGHT}"], ("vrl_sum",)),
+    ("glass alvrl", "cornell_glass.json", "alvrl", 2,
+     ["-D", f"w={WIDTH}", "-D", f"h={HEIGHT}"],
+     ("vrl_r", "vrl_sum_clustered")),
+    ("area light vrl", "cornell_area_light.xml", "vrl", 2, [],
+     ("vrl_sum",)),
+    ("area light alvrl", "cornell_area_light.xml", "alvrl", 2, [],
+     ("vrl_r", "vrl_sum_clustered")),
+]
+
+
+def area_quad():
+    """cornell_area_light's ceiling quad: (p0, e1, e2)."""
+    p0 = [-AREA_HALF, AREA_Y, -AREA_HALF]
+    return p0, [2 * AREA_HALF, 0.0, 0.0], [0.0, 0.0, 2 * AREA_HALF]
+
+
+def glass_json(c1):
+    """cornell_glass as a JSON scene dict, its size by -D w=... h=...:
+    config 1's triangles as trimeshes by material, the blocker's of a
+    dielectric, the back wall's of a conductor; the point light and the
+    area quad."""
+    desc = scene_json(c1, homog_medium(c1))
+    v = c1.vertices.cpu().numpy()
+    f = c1.faces.cpu().numpy()
+    names = [f"m{int(m)}" for m in c1.material.cpu()]
+    names[BACK_FACES[0]:BACK_FACES[1]] = ["back"] * 2
+    names = ["glass" if n == f"m{presets.M_BOX}" else n for n in names]
+    runs = np.split(np.arange(len(f)),
+                    [i for i in range(1, len(f)) if names[i] != names[i - 1]])
+    desc["shapes"] = [{"type": "trimesh", "material": names[r[0]],
+                       "vertices": v[f[r]].reshape(-1).tolist(),
+                       "faces": list(range(3 * len(r)))} for r in runs]
+    desc["materials"] += [
+        {"name": "back", "type": "conductor", "albedo": BACK_ALBEDO},
+        {"name": "glass", "type": "dielectric", "eta": GLASS_ETA}]
+    p0, e1, e2 = area_quad()
+    desc["emitters"].append({"type": "area", "p0": p0, "e1": e1, "e2": e2,
+                             "radiance": [AREA_RADIANCE] * 3})
+    desc["camera"].update(width="$w", height="$h")
+    return desc
+
+
+def area_light_xml(c1, tmp):
+    """cornell_area_light as a Mitsuba XML: config 1's box without its
+    point light, and a rectangle with a nested area emitter whose toWorld
+    maps the unit square onto the ceiling quad."""
+    p0, e1, e2 = area_quad()
+    h, y = AREA_HALF, AREA_Y
+    quad = (f'<shape type="rectangle"><transform name="toWorld"><matrix '
+            f'value="{h!r} 0 0 0  0 0 0 {y!r}  0 {h!r} 0 0  0 0 0 1"/>'
+            f'</transform><emitter type="area"><rgb name="radiance" '
+            f'value="{AREA_RADIANCE!r}"/></emitter></shape>')
+    return box_xml(c1, tmp, lights=quad)
+
+
+def scene_tensors(scene):
+    """Every tensor of a scene, by name, on the CPU."""
+    out = {k: getattr(scene, k).cpu() for k in ("vertices", "faces",
+                                                 "material")}
+    for part in ("materials", "emitters", "medium", "camera"):
+        obj = getattr(scene, part)
+        for k in obj.__dataclass_fields__:
+            x = getattr(obj, k)
+            out[f"{part}.{k}"] = x.cpu() if isinstance(x, torch.Tensor) else x
+    return out
+
+
+def glass_files(dev, card, tmp, c1):
+    """Phase 36: writes cornell_glass (JSON) and cornell_area_light (JSON
+    and XML) into `tmp`; each loads on the card as on the CPU, bit for
+    bit, and cornell_area_light as the ported preset."""
+    with open(os.path.join(tmp, "cornell_glass.json"), "w") as f:
+        f.write(json.dumps(glass_json(c1)).replace('"$w"', "$w")
+                .replace('"$h"', "$h"))
+    area = scene_json(c1, homog_medium(c1))
+    p0, e1, e2 = area_quad()
+    area["emitters"] = [{"type": "area", "p0": p0, "e1": e1, "e2": e2,
+                         "radiance": [AREA_RADIANCE] * 3}]
+    with open(os.path.join(tmp, "cornell_area_light.json"), "w") as f:
+        json.dump(area, f)
+    with open(os.path.join(tmp, "cornell_area_light.xml"), "w") as f:
+        f.write(area_light_xml(c1, tmp))
+
+    def load(name, device, **defines):
+        path = os.path.join(tmp, name)
+        if name.endswith(".xml"):
+            return loader.build_scene(loader.convert_mitsuba_xml(path),
+                                      device=device)
+        return loader.load_json(path, defines, device=device)
+
+    preset = presets.cornell_area_light(WIDTH, HEIGHT, device=dev)
+    lines = []
+    for name, defines in (("cornell_glass.json", dict(w=WIDTH, h=HEIGHT)),
+                          ("cornell_glass.json", dict(w=512, h=512)),
+                          ("cornell_area_light.json", {}),
+                          ("cornell_area_light.xml", {})):
+        ours, cpu = load(name, dev, **defines), load(name, "cpu", **defines)
+        a, b = scene_tensors(ours), scene_tensors(cpu)
+        for k in a:
+            check((torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                   else a[k] == b[k]), f"{name}: {k} on the card is not the "
+                  "CPU build's")
+        if name.startswith("cornell_area_light"):
+            check(same_scene(ours, preset), f"{name} is not the preset "
+                  "cornell_area_light")
+        kinds = sorted(set(ours.materials.kind.tolist()))
+        lines.append(f"{name} {ours.camera.width}x{ours.camera.height}: "
+                     f"{ours.faces.shape[0]} triangles, material kinds "
+                     f"{kinds}, emitter kinds {ours.emitters.host_kinds}, "
+                     "the card's tensors the CPU build's bit for bit"
+                     + (", equal to the preset" if name.startswith(
+                         "cornell_area_light") else ""))
+    print(f"[36 glass and area-light scene files on {card}] "
+          + " | ".join(lines), flush=True)
+
+
+def spec_render(dev, card, tmp):
+    """Phase 37: render_with_vrls_kernel_spec on cornell_glass at 128x128
+    and 512x512 against VRLs traced on the card at the CLI's defaults;
+    returns {size: numbers}."""
+    cfg, spec_cfg = VRLConfig(), specular.SpecularConfig()
+    tcfg = tracer.TracerConfig()
+    results, lines = {}, []
+    for size in SPEC_SIZES:
+        scene = loader.load_json(os.path.join(tmp, "cornell_glass.json"),
+                                 {"w": size, "h": size}, device=dev)
+        vrls = vrl.compact(tracer.trace(
+            scene, torch.Generator().manual_seed(SPEC_SEED), CLI_PARTICLES,
+            tcfg), CLI_VRLS, slots_per_particle=tcfg.max_depth)
+        n_rays = size * size
+
+        def render(compact=True, **kw):
+            return integrator.render_with_vrls_kernel_spec(
+                scene, vrls, torch.Generator().manual_seed(SPEC_SEED), cfg,
+                spec_cfg, compact=compact, **kw)
+
+        # the main path: one render, kernel 1's launches counted
+        vrl_sum.launches = 0
+        with plain_calls() as plain, kernel1_launches() as records:
+            img = render()
+            torch.cuda.synchronize()
+        launches = vrl_sum.launches
+        check(launches == len(records) and launches >= 2,
+              f"{size}: kernel 1 launched {launches} times for "
+              f"{len(records)} depths")
+        check(plain[0] == 0, f"{size}: {plain[0]} plain-version calls")
+        check(tuple(img.shape) == (size, size, 3)
+              and bool(torch.isfinite(img).all())
+              and float(img.abs().max()) > 0.0,
+              f"{size}: the image is not finite and non-zero")
+        active = [r[0].shape[1] for r in records]
+        check(active[0] == n_rays and all(
+            a > b for a, b in zip(active, active[1:])),
+            f"{size}: active rays per depth {active}")
+        hold = hold_kernel1(f"spec {size}", records, SPEC_HOLD[size])
+        totals = dict.fromkeys(vs.CHECK_COUNTS, 0)
+        for rays, vpk, tris, med, seed, svv, svs, short, kind, _ in records:
+            _, counts = vs.vrl_sum_check(
+                rays, vpk, tris, med, seed=seed, vol_vol_samples=svv,
+                vol_surf_samples=svs, short_vrls=short, phase_kind=kind)
+            check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
+                  f"{size}: the pre-reject disagrees at a depth: {counts}")
+            for k, v in counts.items():
+                totals[k] += v
+        depth_ms = [summary(cuda_ms(
+            lambda r=r: vrl_sum(*r[:4], seed=r[4]), 2, 10))[0]
+            for r in records]
+        del records[:]
+        chain_line = ""
+        if size == WIDTH:
+            # the plain chain on a sample of pixels, the same uniforms
+            u_sums = torch.rand(
+                (spec_cfg.max_depth + 1, n_rays, CLI_VRLS,
+                 2 * cfg.vol_vol_samples + cfg.vol_surf_samples),
+                generator=torch.Generator(dev).manual_seed(SPEC_SEED),
+                device=dev)
+            injected = render(uniforms=u_sums).reshape(-1, 3)
+            u_chain = integrator._chain_draws(
+                torch.Generator().manual_seed(SPEC_SEED), spec_cfg, n_rays,
+                dev)[0]
+            pick = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
+                n_rays, SPEC_SAMPLE, replace=False)), device=dev)
+            _, _, ray_o, ray_d = integrator.frame_rays(scene)
+            plain_li = integrator.li_unclustered_spec_u(
+                scene, ray_o[pick], ray_d[pick], vrls, u_chain[:, pick],
+                u_sums[:, pick], cfg, spec_cfg)
+            median, share = homog_bar(injected[pick], plain_li)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"the plain chain on {SPEC_SAMPLE} pixels: median "
+                  f"{median}, share {share}")
+            del u_sums
+            chain_line = (f", plain chain (li_unclustered_spec_u) on "
+                          f"{SPEC_SAMPLE} pixels with the render's injected "
+                          f"uniforms: median {median:.2e} share>1e-2 "
+                          f"{share:.4f}")
+        # the two forms in turns; no plain version on the timed path
+        c_ms, f_ms = [], []
+        with plain_calls() as plain:
+            render(False)
+            for i in range(SPEC_REPEATS):
+                turn = [(True, c_ms), (False, f_ms)]
+                for compact, acc in turn if i % 2 == 0 else turn[::-1]:
+                    acc.append(host_ms(lambda c=compact: render(c), 0, 1)[0])
+        check(plain[0] == 0, f"{size}: plain-version calls while timed")
+        prof = profile_device(render, 1, 4)
+        (c_med, c_spread), (f_med, f_spread) = summary(c_ms), summary(f_ms)
+        results[size] = dict(compact=(c_med, c_spread),
+                             every_ray=(f_med, f_spread), depth_ms=depth_ms,
+                             active=active, profile=prof)
+        prof_line = ("the profiler saw no device operation: idle not "
+                     "measured") if prof is None else (
+            f"profile: device span {prof[0]:.2f} ms, busy {prof[1]:.2f} ms, "
+            f"idle share {1 - prof[1] / prof[0]:.1%}, {prof[2]:g} device ops "
+            "a render")
+        lines.append(
+            f"{size}x{size} ({n_rays} rays x {int(vrls.valid.sum())} of "
+            f"{vrls.capacity} VRLs, {scene.faces.shape[0]} triangles): "
+            f"vrl_sum launches {launches}, active rays per depth "
+            + " ".join(map(str, active))
+            + f", image mean {float(img.mean()):.6g}; {hold}; checking "
+            f"launches on every depth: {check_line(totals)}{chain_line} | "
+            f"ms per render, compacted {c_med:.2f} (spread {c_spread:.1%}; "
+            + " ".join(f"{t:.2f}" for t in c_ms) + f"), every ray at every "
+            f"depth {f_med:.2f} (spread {f_spread:.1%}; "
+            + " ".join(f"{t:.2f}" for t in f_ms) + ") | kernel 1 ms per "
+            "depth's launch (CUDA events) "
+            + " ".join(f"{t:.3f}" for t in depth_ms) + f" | {prof_line}")
+    print(f"[37 specular-chain render on {card}] " + " | ".join(lines),
+          flush=True)
+    return results
+
+
+def glass_cli(dev, card, tmp):
+    """Phase 38: the CLI on cornell_glass and cornell_area_light with both
+    integrators, and the tracer on cornell_glass on the card against the
+    tracer on the CPU, on the same uniforms."""
+    out = cli_runs(dev, card, tmp, GLASS_RUNS, "38 the CLI on glass and an "
+                   "area light")
+    path = os.path.join(tmp, "cornell_glass.json")
+    tcfg = tracer.TracerConfig()
+    rng = np.random.default_rng(38)
+    u_emit = torch.as_tensor(rng.random((CLI_PARTICLES, tracer.N_EMIT_DIMS),
+                                        dtype=np.float32))
+    u_walk = torch.as_tensor(rng.random(
+        (CLI_PARTICLES, tcfg.max_depth, tracer.N_STEP_DIMS), dtype=np.float32))
+    traced = [tracer.trace_u(
+        loader.load_json(path, {"w": WIDTH, "h": HEIGHT}, device=d),
+        u_emit.to(d), u_walk.to(d), tcfg) for d in (dev, "cpu")]
+    ours, ref = traced[0], traced[1]
+    ok = ref.valid
+    check(torch.equal(ours.valid.cpu(), ok), "the card's tracer stores other "
+          "slots than the CPU's")
+    err = max(float((getattr(ours, k).cpu()[ok] - getattr(ref, k)[ok])
+                    .abs().max()) for k in ("start", "end"))
+    median, share = homog_bar(ours.power.cpu()[ok], ref.power[ok])
+    check(err < 1e-4 and median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"tracer on the card vs the CPU: positions {err}, powers median "
+          f"{median} share {share}")
+    print(f"[38 the tracer on cornell_glass on {card}] {CLI_PARTICLES} "
+          f"particles x depth {tcfg.max_depth}: {int(ok.sum())} valid slots, "
+          f"the same as the CPU tracer's on the same uniforms; positions "
+          f"within {err:.2e}, powers median {median:.2e} share>1e-2 "
+          f"{share:.4f}", flush=True)
+    return out
+
+
 def scene_path(dev, card):
-    """Phases 32-35."""
+    """Phases 32-38."""
     with tempfile.TemporaryDirectory() as tmp:
-        scene_files(dev, card, tmp)
+        c1, _ = scene_files(dev, card, tmp)
         cli_runs(dev, card, tmp)
         _, c2_image, c2 = drivers(dev, card)
         resume(dev, card, tmp, c2_image, c2)
+        t0 = time.perf_counter()
+        glass_files(dev, card, tmp, c1)
+        spec_render(dev, card, tmp)
+        glass_cli(dev, card, tmp)
+        print(f"[36-38 wall] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():

@@ -3,7 +3,8 @@ versions: the VRL sum (csrc/vrl_sum.cu), its VJP (csrc/vrl_sum_bwd.cu),
 the transfer matrix R (csrc/vrl_r.cu), the clustered sum
 (csrc/vrl_sum_clustered.cu) and its VJP (csrc/vrl_sum_clustered_bwd.cu),
 in a homogeneous and in a grid medium; the BVH-occlusion sum
-(csrc/vrl_sum_bvh.cu) and the gather probes (csrc/probe_gather.cu).
+(csrc/vrl_sum_bvh.cu) and the gather probes (csrc/probe_gather.cu); the
+VRL sum on the specular chains' rays, which start on surfaces.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -1533,3 +1534,88 @@ def test_cuda_probe_kernels(cuda, name):
     out = fn(*args)
     assert fn.launches == before + 1
     assert torch.equal(out, getattr(probe, f"{name}_reference")(*args))
+
+
+# --- kernel 1 on the specular chains' rays ---------------------------------
+
+
+def _glass_scene(device, size):
+    """cornell_smoke with its green wall a mirror (tinted by its albedo)
+    and its blocker a dielectric of eta 1.5."""
+    scene = presets.cornell_smoke(size, size, device=device)
+    return replace(scene, materials=replace(
+        scene.materials, kind=torch.tensor([0, 0, 2, 3], device=device),
+        eta=torch.tensor([1.0, 1.0, 1.0, 1.5], device=device)))
+
+
+def _chain_sums(device, size, monkeypatch, uniforms=None, compact=True):
+    """render_with_vrls_kernel_spec on _glass_scene with the bench VRLs,
+    each depth's vrl_sum call recorded: (image, [(packs, kwargs)])."""
+    calls, real = [], integrator.vrl_sum
+
+    def recording(*packs, **kw):
+        calls.append((packs, kw))
+        return real(*packs, **kw)
+
+    monkeypatch.setattr(integrator, "vrl_sum", recording)
+    img = integrator.render_with_vrls_kernel_spec(
+        _glass_scene(device, size), _bench_vrls(device),
+        torch.Generator().manual_seed(1), uniforms=uniforms, compact=compact)
+    monkeypatch.setattr(integrator, "vrl_sum", real)
+    return img, calls
+
+
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_kernel_on_surface_origin_rays(cuda, injected, monkeypatch):
+    """Each chain depth past the first launches kernel 1 on rays whose
+    origins lie on the mirror or the glass: against the plain version on
+    the same packs and uniforms, and the checking launch with 0
+    disagreements of the plane pre-reject."""
+    u = None
+    if injected:
+        u = torch.rand((7, 32 * 32, 512, 6), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(2))
+    _, calls = _chain_sums(cuda, 32, monkeypatch, uniforms=u)
+    assert len(calls) >= 3
+    for packs, kw in calls[1:]:
+        out = vrl_sum(*packs, **kw)
+        n_rays = packs[0].shape[1]
+        uu = kw["uniforms"] if injected else philox_uniforms(
+            kw["seed"], n_rays, 512, 6, device=cuda)
+        plain_kw = {k: v for k, v in kw.items() if k not in ("seed",
+                                                             "uniforms")}
+        ref = vrl_sum_reference(*packs, uu, **plain_kw)
+        assert torch.isfinite(out).all()
+        median, share = homog_bar(out.T, ref.T)
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+        _, counts = vs.vrl_sum_check(*packs, **kw)
+        assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+        assert counts["segments"] > 0
+
+
+def test_cuda_spec_render_matches_plain_chain(cuda, monkeypatch):
+    """render_with_vrls_kernel_spec at 32x32 against the plain chain
+    (li_unclustered_spec_u) on the same uniforms, at the homogeneous bar;
+    kernel 1 launched once a depth reached, and the every-ray form (7
+    launches) equal to the compacted one to float32 rounding."""
+    from alvrl_tpu_torch.integrators.vrl import specular
+
+    spec_cfg = specular.SpecularConfig()
+    u = torch.rand((7, 32 * 32, 512, 6), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(3))
+    before = vrl_sum.launches
+    img, calls = _chain_sums(cuda, 32, monkeypatch, uniforms=u)
+    assert vrl_sum.launches == before + len(calls) and len(calls) >= 3
+    full, full_calls = _chain_sums(cuda, 32, monkeypatch, uniforms=u,
+                                   compact=False)
+    assert len(full_calls) == spec_cfg.max_depth + 1
+    torch.testing.assert_close(img, full, atol=1e-6, rtol=1e-5)
+    scene = _glass_scene(cuda, 32)
+    _, _, ray_o, ray_d = integrator.frame_rays(scene)
+    u_chain = integrator._chain_draws(torch.Generator().manual_seed(1),
+                                      spec_cfg, 32 * 32, cuda)[0]
+    li = integrator.li_unclustered_spec_u(scene, ray_o, ray_d,
+                                          _bench_vrls(cuda), u_chain, u)
+    assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+    median, share = homog_bar(img.reshape(-1, 3), li)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)

@@ -326,16 +326,16 @@ def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
 
 
 @pytest.mark.parametrize("change, name", [
-    ({"materials": [{"name": "white", "type": "dielectric", "eta": 1.5},
-                    {"name": "glass", "type": "null"}]}, "dielectric"),
+    ({"materials": [{"name": "white", "type": "roughdielectric",
+                     "eta": 1.5},
+                    {"name": "glass", "type": "null"}]}, "roughdielectric"),
     ({"materials": [{"name": "white", "type": "diffuse",
                      "texture": {"type": "checker"}},
                     {"name": "glass", "type": "null"}]}, "checker"),
     ({"materials": [{"name": "white", "type": "velvet"},
                     {"name": "glass", "type": "null"}]}, "velvet"),
-    ({"emitters": [{"type": "spot", "position": [0, 0.8, 0]}]}, "spot"),
-    ({"emitters": [{"type": "area", "p0": [0, 0.9, 0], "e1": [0.1, 0, 0],
-                    "e2": [0, 0, 0.1]}]}, "area"),
+    ({"emitters": [{"type": "sky", "turbidity": 3.0}]}, "sky"),
+    ({"emitters": [{"type": "sunsky", "turbidity": 3.0}]}, "sunsky"),
     ({"emitters": [{"type": "envmap", "filename": "x.pfm"}]}, "envmap"),
     ({"camera": dict(SCENE["camera"], type="thinlens")}, "thinlens"),
     ({"shapes": [{"type": "heightfield", "heights": [[0, 1], [1, 0]]}]},
@@ -353,3 +353,128 @@ def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
 def test_unsupported_kinds_raise(change, name):
     with pytest.raises(ValueError, match=name):
         loader.build_scene(dict(SCENE, **change), device=CPU)
+
+
+# the kinds ported with the specular chains (ROADMAP A3, A7): delta
+# materials, and every emitter kind but the environment's
+NEW_MATERIALS = {
+    "mirror": {"type": "mirror", "albedo": [0.9, 0.8, 0.7]},
+    "conductor": {"type": "conductor"},
+    "dielectric": {"type": "dielectric", "eta": 1.33},
+    "thindielectric": {"type": "thindielectric", "eta": 1.5},
+}
+NEW_EMITTERS = {
+    "spot": {"type": "spot", "position": [0.1, 0.8, 0], "intensity": [4, 3,
+                                                                     2],
+             "direction": [0.1, -1, 0.2], "cutoff": 30.0, "beam": 10.0},
+    "directional": {"type": "directional", "direction": [0.2, -1, 0.1],
+                    "irradiance": [1, 2, 3]},
+    "collimated": {"type": "collimated", "position": [0, 0.5, 0],
+                   "direction": [0, -1, 0], "power": [2, 2, 2]},
+    "constant": {"type": "constant", "intensity": [0.2, 0.3, 0.4]},
+    "area": {"type": "area", "p0": [-0.25, 0.999, -0.25],
+             "e1": [0.5, 0, 0], "e2": [0, 0, 0.5], "radiance": [6, 5, 4]},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_MATERIALS))
+def test_delta_material_matches(kind):
+    """Each delta material kind on the sphere, with its eta column."""
+    desc = dict(SCENE, materials=[SCENE["materials"][0],
+                                  dict(NEW_MATERIALS[kind], name="glass")])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert bool(ours.opaque_faces().all())  # delta surfaces block shadows
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_EMITTERS))
+def test_emitter_kind_matches(kind):
+    """Each emitter kind beside the point light: the table's columns
+    (directions, cone cosines, triangle edges, the power-weighted pmf)
+    bit for bit; an area light also adds its quad and black material."""
+    desc = dict(SCENE, emitters=SCENE["emitters"] + [NEW_EMITTERS[kind]])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    n_area = 2 if kind == "area" else 0
+    assert ours.emitters.kind.shape[0] == 2 + n_area - (kind == "area")
+    assert ours.faces.shape[0] == 12 + 64 + n_area
+
+
+def test_several_area_lights_and_kinds_match():
+    """Two area lights (one of a named material) among the other kinds:
+    the area entries go last, in quad order."""
+    second = dict(NEW_EMITTERS["area"], p0=[0.3, -0.2, 0.999],
+                  e1=[0, 0.3, 0], e2=[0.2, 0, 0], material="white")
+    desc = dict(SCENE, emitters=[NEW_EMITTERS["area"], *SCENE["emitters"],
+                                 NEW_EMITTERS["spot"], second])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert ours.emitters.host_kinds == (0, 1, 3, 3, 3, 3)
+    assert ours.material[-4:].tolist() == [2, 2, 0, 0]
+
+
+XML_NEW_KINDS = """<scene version="0.5.0">
+    <sensor type="perspective">
+        <float name="fov" value="70"/>
+        <transform name="toWorld">
+            <lookat origin="0, 0, -0.99" target="0, 0, 1" up="0, 1, 0"/>
+        </transform>
+        <film type="hdrfilm">
+            <integer name="width" value="8"/>
+            <integer name="height" value="8"/>
+        </film>
+    </sensor>
+    <bsdf type="twosided" id="walls"><bsdf type="diffuse">
+        <rgb name="reflectance" value="0.7, 0.6, 0.5"/></bsdf></bsdf>
+    <bsdf type="dielectric" id="glass">
+        <float name="intIOR" value="1.5"/></bsdf>
+    <bsdf type="conductor" id="metal">
+        <rgb name="specularReflectance" value="0.9, 0.9, 0.9"/></bsdf>
+    <shape type="cube"><boolean name="flipNormals" value="true"/>
+        <ref id="walls"/></shape>
+    <shape type="sphere"><point name="center" x="0" y="0" z="0.3"/>
+        <float name="radius" value="0.2"/><ref id="glass"/></shape>
+    <shape type="rectangle">
+        <transform name="toWorld"><scale value="0.3"/>
+            <translate x="0.4" z="0.9"/></transform>
+        <ref id="metal"/></shape>
+    <shape type="rectangle">
+        <transform name="toWorld">
+            <matrix value="0.25 0 0 0  0 0 0 0.999  0 0.25 0 0  0 0 0 1"/>
+        </transform>
+        <emitter type="area"><rgb name="radiance" value="6, 6, 6"/></emitter>
+    </shape>
+    <emitter type="spot">
+        <point name="position" x="0" y="0.8" z="0"/>
+        <rgb name="intensity" value="3, 3, 3"/>
+        <vector name="direction" x="0" y="-1" z="0.1"/>
+    </emitter>
+    <emitter type="directional">
+        <rgb name="irradiance" value="1, 1, 1"/>
+        <vector name="direction" x="0.1" y="-1" z="0"/>
+    </emitter>
+    <emitter type="collimated">
+        <point name="position" x="0" y="0" z="0"/>
+        <rgb name="power" value="2, 2, 2"/>
+    </emitter>
+    <emitter type="constant"><rgb name="radiance" value="0.1, 0.1, 0.1"/>
+    </emitter>
+    <medium type="homogeneous" id="med">
+        <rgb name="sigmaS" value="0.5, 0.5, 0.5"/>
+        <rgb name="sigmaA" value="0.02, 0.02, 0.02"/>
+    </medium>
+    </scene>"""
+
+
+def test_xml_new_kinds_match(tmp_path):
+    """A Mitsuba XML of a dielectric, a conductor, a rectangle area light
+    and the spot, directional, collimated and constant emitters: the
+    converter's dict is the JAX package's and builds as its scene."""
+    p = tmp_path / "n.xml"
+    p.write_text(XML_NEW_KINDS)
+    desc = loader.convert_mitsuba_xml(p)
+    assert desc == jloader.convert_mitsuba_xml(p)
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert ours.emitters.host_kinds == (1, 2, 6, 4, 3, 3)
+    assert sorted(set(ours.materials.kind.tolist())) == [0, 2, 3]

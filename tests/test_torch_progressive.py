@@ -243,7 +243,7 @@ def test_null_sample_matches_jax():
     out = bsdf.sample_from_uniforms(
         loader.build_scene(desc, device=CPU), torch.as_tensor(u),
         torch.as_tensor(mat).long(), torch.as_tensor(ng),
-        torch.as_tensor(d_in))
+        torch.as_tensor(ng), torch.as_tensor(d_in), mode="importance")
     null = mat == 1
     assert np.asarray(ref.valid).all()
     assert np.array_equal(out.wo.numpy()[null], np.asarray(ref.wo)[null])

@@ -157,3 +157,28 @@ def test_runs_as_a_module(tmp_path, scene_json):
     assert run.returncode == 0, run.stderr
     assert "VRL evaluations (render)" in run.stderr
     assert np.isfinite(image.read_pfm(out)).all()
+
+
+@pytest.mark.parametrize("integrator", ["vrl", "alvrl"])
+def test_glass_mirror_and_area_light_scene_renders(tmp_path, integrator):
+    """A scene of a dielectric sphere, a conductor wall and an area light
+    beside the point light renders through both integrators as
+    render_progressive does."""
+    desc = json.loads(json.dumps(SCENE).replace('"$fov"', "70"))
+    desc["materials"] = [desc["materials"][0],
+                         {"name": "glass", "type": "dielectric", "eta": 1.5},
+                         {"name": "metal", "type": "conductor"}]
+    desc["shapes"].append({"type": "rectangle", "material": "metal",
+                           "to_world": [[0.3, 0, 0, 0.5], [0, 0.3, 0, 0],
+                                        [0, 0, 0.3, 0.95], [0, 0, 0, 1]]})
+    desc["emitters"].append({"type": "area", "p0": [-0.25, 0.999, -0.25],
+                             "e1": [0.5, 0, 0], "e2": [0, 0, 0.5],
+                             "radiance": [6, 6, 6]})
+    p, out = tmp_path / "g.json", tmp_path / "g.pfm"
+    p.write_text(json.dumps(desc))
+    assert render_cli.main([str(p), "--cpu", "-i", integrator, "-o",
+                            str(out), *OPTS]) == 0
+    got = image.read_pfm(out)
+    assert np.isfinite(got).all() and got.mean() > 0
+    ref = _reference(loader.load_json(desc, device=CPU), integrator)
+    assert np.array_equal(got, ref)

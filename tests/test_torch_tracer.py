@@ -33,7 +33,11 @@ from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import homogeneous as hmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.scene import presets
-from tests.torch_port_utils import jax_scene_leaves, jax_tracer_uniforms
+from tests.torch_port_utils import (
+    jax_emission_uniforms,
+    jax_scene_leaves,
+    jax_tracer_uniforms,
+)
 
 torch.set_num_threads(1)
 
@@ -137,17 +141,17 @@ def test_sample_distance_matches(sigma_a, sigma_s):
 
 def test_sample_emission_matches():
     """Point lights: the port's position, direction and weight against
-    the JAX sampler, whose direction uniforms come from its key."""
+    the JAX sampler, on the uniforms rebuilt from its key
+    (jax_emission_uniforms)."""
     jscene = jpresets.cornell_smoke(width=4, height=4,
                                     intensity=(8.0, 0.0, 2.5))
     scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
     keys = jax.random.split(jax.random.key(7), 64)
     ref = jax.vmap(lambda k: jem.sample_emission(
         jscene.emitters, k, jnp.zeros(3), 1.0))(keys)
-    u = np.stack([np.concatenate([jax.random.uniform(ks, (1,)),
-                                  jax.random.uniform(kd, (2,))])
-                  for ks, kd, _ in (jax.random.split(k, 3) for k in keys)])
-    out = em.sample_emission(scene.emitters, _t(u))
+    u = np.stack([np.asarray(jax_emission_uniforms(k)) for k in keys])
+    out = em.sample_emission_u(scene.emitters, _t(u), torch.zeros(3),
+                               torch.tensor(1.0))
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, _t(r), atol=1e-6, rtol=1e-6)
 
@@ -159,18 +163,21 @@ def test_sample_emission_picks_by_pmf():
                                  [[1.0, 1.0, 1.0], [3.0, 3.0, 3.0]],
                                  device="cpu")
     torch.testing.assert_close(ems.pmf, torch.tensor([0.25, 0.75]))
-    u = torch.tensor([[0.1, 0.5, 0.5], [0.3, 0.5, 0.5], [0.999, 0.5, 0.5]])
-    pos, _, w = em.sample_emission(ems, u)
+    u = torch.full((3, em.N_EMIT_DIMS), 0.5)
+    u[:, 0] = torch.tensor([0.1, 0.3, 0.999])
+    pos, _, w = em.sample_emission_u(ems, u, torch.zeros(3),
+                                     torch.tensor(1.0))
     assert pos.tolist() == [[0, 0, 0], [1, 1, 1], [1, 1, 1]]
     torch.testing.assert_close(w[:, 0], torch.tensor([4.0, 4.0, 4.0])
                                * 4.0 * np.pi)
 
 
 def test_sample_emission_rejects_other_kinds():
-    ems = em.make_point_emitters([[0, 0, 0]], [[1.0, 1.0, 1.0]], device="cpu")
-    ems = replace(ems, kind=torch.tensor([jem.SPOT]))
-    with pytest.raises(ValueError):
-        em.sample_emission(ems, torch.zeros(1, 3))
+    """A table holding a kind that is not ported (the environment map,
+    ENVMAP) is refused when it is built."""
+    with pytest.raises(ValueError, match="ROADMAP A10"):
+        em.make_emitters([em.POINT, jem.ENVMAP], [[0, 0, 0]] * 2,
+                         [[1.0, 1.0, 1.0]] * 2, device="cpu")
 
 
 def test_bsdf_sample_matches():
@@ -188,22 +195,24 @@ def test_bsdf_sample_matches():
         jscene, jnp.asarray(u), jnp.asarray(mat), jnp.asarray(ng),
         jnp.asarray(ng), jnp.asarray(d_in), jnp.zeros((n, 3)),
         mode="importance")
-    out = bsdf.sample_from_uniforms(scene, _t(u), _t(mat), _t(ng),
-                                    _t(d_in))
+    out = bsdf.sample_from_uniforms(scene, _t(u), _t(mat), _t(ng), _t(ng),
+                                    _t(d_in), mode="importance")
     torch.testing.assert_close(out.wo, _t(ref.wo), atol=1e-6, rtol=1e-6)
     assert torch.equal(out.weight, _t(ref.weight))
     assert bool(np.all(ref.valid)) and bool(np.all(ref.eta_ratio == 1.0))
+    assert bool(out.valid.all()) and bool((out.eta_ratio == 1.0).all())
+    assert not bool(out.is_delta.any())
 
 
 def test_bsdf_sample_rejects_other_kinds():
-    """A kind neither DIFFUSE nor NULL (here MIRROR, 2) raises."""
+    """A kind not ported (here ROUGH_CONDUCTOR, 4) raises."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 2])))
-    with pytest.raises(ValueError):
+        scene.materials, kind=torch.tensor([0, 0, 0, 4])))
+    with pytest.raises(ValueError, match="ROADMAP A3"):
         bsdf.sample_from_uniforms(scene, torch.zeros(1, 5), torch.zeros(
             1, dtype=torch.int64), torch.tensor([[0.0, 1.0, 0.0]]),
-            torch.tensor([[0.0, -1.0, 0.0]]))
+            torch.tensor([[0.0, 1.0, 0.0]]), torch.tensor([[0.0, -1.0, 0.0]]))
 
 
 def test_trace_rejects_other_kinds_once():
@@ -211,7 +220,7 @@ def test_trace_rejects_other_kinds_once():
     bounce (bsdf.check_kinds), and then samples without the check."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 2])))
+        scene.materials, kind=torch.tensor([0, 0, 0, 4])))
     calls = []
     check = bsdf.check_kinds
 

@@ -47,10 +47,10 @@ def jax_scene_leaves(scene):
         "material": np.asarray(scene.material),
         "materials.kind": np.asarray(scene.materials.kind),
         "materials.albedo": np.asarray(scene.materials.albedo),
-        "emitters.kind": np.asarray(scene.emitters.kind),
-        "emitters.position": np.asarray(scene.emitters.position),
-        "emitters.intensity": np.asarray(scene.emitters.intensity),
-        "emitters.pmf": np.asarray(scene.emitters.pmf),
+        "materials.eta": np.asarray(scene.materials.eta),
+        **{f"emitters.{k}": np.asarray(getattr(scene.emitters, k))
+           for k in ("kind", "position", "direction", "intensity",
+                     "cos_cutoff", "cos_beam", "tri_e1", "tri_e2", "pmf")},
         **jax_medium_leaves(scene.medium),
         "camera.to_world": np.asarray(cam.to_world),
         "camera.fov_x_deg": np.asarray(cam.fov_x_deg),
@@ -81,24 +81,53 @@ def jax_tracking_uniforms(k_dist, n_steps):
     return jax.lax.scan(body, k_dist, None, length=n_steps)[1]
 
 
-def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0):
+def jax_emission_uniforms(k_emit, pmf=None):
+    """The (N_EMIT_DIMS,) uniforms, in the port's column order
+    (emitters.py: select, direction (2), position (2), the area light's
+    second barycentric), that alvrl_tpu's sample_emission draws from the
+    key k_emit: it splits it into (select, direction, position)
+    (emitters.py:116), draws the direction from uniform2 and the position
+    from uniform2 of their keys, and the area light's b1 uniform from the
+    direction's key, the same number as the direction's first uniform
+    (emitters.py:154, ROADMAP C14). The emitter choice is
+    jax.random.choice, which no uniform reproduces: without `pmf` the
+    select column is the select key's uniform (the choice agrees when
+    the scene has one emitter); with the table's pmf it is the midpoint
+    of the chosen emitter's CDF interval, so the port picks the same
+    emitter."""
+    import jax
+    import jax.numpy as jnp
+
+    k_sel, k_dir, k_pos = jax.random.split(k_emit, 3)
+    u_dir = jax.random.uniform(k_dir, (2,))
+    if pmf is None:
+        u_sel = jax.random.uniform(k_sel, (1,))
+    else:
+        pmf = jnp.asarray(pmf, jnp.float32)
+        cdf = jnp.cumsum(pmf)
+        idx = jax.random.choice(k_sel, pmf.shape[0], p=pmf)
+        lo = jnp.where(idx > 0, cdf[jnp.maximum(idx - 1, 0)], 0.0)
+        u_sel = ((lo + cdf[idx]) / (2.0 * cdf[-1]))[None]
+    return jnp.concatenate([u_sel, u_dir, jax.random.uniform(k_pos, (2,)),
+                            u_dir[:1]])
+
+
+def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
+                        pmf=None):
     """The uniforms alvrl_tpu's tracer.trace(scene, key, num_particles,
     TracerConfig(max_depth=...)) draws, rebuilt from its key tree, in
-    the layout of the port's trace_u: u_emit (P, 3) and u_walk (P, D,
-    10), as numpy arrays; with tracking_steps > 0 also the grid medium's
-    Woodcock uniforms u_track (P, D, tracking_steps, 2), rebuilt from
-    each step's distance key (jax_tracking_uniforms), which a grid
+    the layout of the port's trace_u: u_emit (P, N_EMIT_DIMS) and u_walk
+    (P, D, 10), as numpy arrays; with tracking_steps > 0 also the grid
+    medium's Woodcock uniforms u_track (P, D, tracking_steps, 2), rebuilt
+    from each step's distance key (jax_tracking_uniforms), which a grid
     medium reads instead of u_walk's two distance uniforms.
 
     The key tree: key -> one key per particle (tracer.py:91) -> (emit,
-    walk) (:109); emit -> (select, direction, position)
-    (emitters.py:116), the direction from uniform2 (:122); walk -> one
-    key per depth (:240) -> (distance, phase, bsdf, roulette) (:127);
-    distance -> two scalar uniforms (homogeneous.py:144-146), phase ->
-    uniform2, bsdf -> N_SAMPLE_DIMS uniforms (bsdf/api.py:337),
-    roulette -> one. The emitter choice is jax.random.choice, which no
-    uniform reproduces: u_emit[:, 0] is the select key's uniform, and
-    the choice agrees when the scene has one emitter."""
+    walk) (:109); emit -> jax_emission_uniforms (with `pmf`, the scene's
+    emitter pmf, for a scene of several emitters); walk -> one key per
+    depth (:240) -> (distance, phase, bsdf, roulette) (:127); distance ->
+    two scalar uniforms (homogeneous.py:144-146), phase -> uniform2,
+    bsdf -> N_SAMPLE_DIMS uniforms (bsdf/api.py:337), roulette -> one."""
     import jax
     import jax.numpy as jnp
 
@@ -115,10 +144,8 @@ def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0):
 
     def particle(k):
         k_emit, k_walk = jax.random.split(k)
-        k_sel, k_dir, _ = jax.random.split(k_emit, 3)
-        u_emit = jnp.concatenate([jax.random.uniform(k_sel, (1,)),
-                                  jax.random.uniform(k_dir, (2,))])
-        return u_emit, jax.vmap(step)(jax.random.split(k_walk, max_depth))
+        return (jax_emission_uniforms(k_emit, pmf),
+                jax.vmap(step)(jax.random.split(k_walk, max_depth)))
 
     u_emit, (u_walk, u_track) = jax.vmap(particle)(
         jax.random.split(key, num_particles))
@@ -133,7 +160,8 @@ def hit_from_jax(hit):
                prim=torch.as_tensor(np.asarray(hit.prim), dtype=torch.int64),
                valid=torch.as_tensor(np.asarray(hit.valid)),
                p=torch.as_tensor(np.asarray(hit.p)),
-               ng=torch.as_tensor(np.asarray(hit.ng)))
+               ng=torch.as_tensor(np.asarray(hit.ng)),
+               ng_raw=torch.as_tensor(np.asarray(hit.ng_raw)))
 
 
 def chain_bvh_pack(tris, depth):
