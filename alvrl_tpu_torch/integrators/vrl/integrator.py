@@ -268,7 +268,7 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
                                  cfg: VRLConfig = VRLConfig(),
                                  spec_cfg: specular.SpecularConfig =
                                  specular.SpecularConfig(), *,
-                                 uniforms=None, compact=True):
+                                 uniforms=None):
     """Full-frame unclustered render with specular chains through
     mirrors, dielectrics and null boundaries (specular.li_specular_chain):
     each chain depth packs its rays (a delta surface packs albedo 0) and
@@ -280,11 +280,13 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
     one kernel seed a depth, are drawn from `generator` (a CPU
     torch.Generator). `uniforms`, (max_depth + 1, W * H, N, 2 * vol_vol +
     vol_surf) on the scene's device, replaces the kernel's random stream
-    (depth k's launch reads uniforms[k] at its rays). `compact` (the
-    default) launches each depth on the rays still on a chain, gathered
-    (a host sync a depth), and stops at the first depth without one;
-    compact=False launches every depth on every ray, as the reference.
-    Returns the (H, W, 3) image."""
+    (depth k's launch reads uniforms[k] at its rays). Each depth launches
+    on the rays still on a chain, gathered (a host sync a depth), and the
+    chain stops at the first depth without one. On the Philox stream the
+    kernel numbers a ray by its place in the launch, so the image equals
+    the reference's (which launches every depth on every ray) and
+    li_unclustered_spec's in expectation, and to rounding only on
+    injected uniforms. Returns the (H, W, 3) image."""
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the specular-chain render takes a homogeneous "
                          "medium only, as the JAX package's "
@@ -304,8 +306,7 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
         return out.T * weight
 
     li = specular.li_specular_chain(scene, ray_o, ray_d, li_at_hit,
-                                    trace_eye_rays, u_chain, spec_cfg,
-                                    compact=compact)
+                                    trace_eye_rays, u_chain, spec_cfg)
     li = li / torch.clamp(vrls.particle_count, min=1.0)
     img, wgt = film_mod.splat_box(scene.camera.width, scene.camera.height,
                                   px, py, li)

@@ -11,11 +11,13 @@ MIRROR and NULL have one delta lobe, followed deterministically, and
 DIELECTRIC samples one of its two lobes by the Fresnel probability
 (weight 1 by cancellation), which keeps the loop linear.
 
-The loop runs over the rays still on a chain. With `compact` (the
-default) it gathers those rays after each bounce (one host sync a
-depth), so each depth's gather and hits run on the live rays only; the
-sum is linear, so the result is the masked loop's, which `compact=False`
-runs on every ray at every depth, as the reference does.
+The loop runs over the rays still on a chain: it gathers those rays
+after each bounce (one host sync a depth), so each depth's gather and
+hits run on the live rays only, where the reference masks every ray at
+every depth. On the same uniforms, indexed by the original ray, the two
+agree to rounding, since the sum is linear. A kernel that numbers its
+random stream by a ray's place in the launch draws other numbers for
+the gathered rays, so there the two agree in expectation only.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def specular_bounce(scene: Scene, u, mat_id, d_in, ng_raw):
 
 def li_specular_chain(scene: Scene, ray_o, ray_d, li_at_hit, trace_eye_rays,
                       u, spec_cfg: SpecularConfig = SpecularConfig(), *,
-                      density_ss=None, compact=True):
+                      density_ss=None):
     """The VRL gather summed along each ray's specular chain: (B, 3).
 
     u (max_depth, B, N_CHAIN_DIMS) holds each step's lobe-choice and
@@ -106,9 +108,9 @@ def li_specular_chain(scene: Scene, ray_o, ray_d, li_at_hit, trace_eye_rays,
     origin) and li_at_hit(o, d, hit, mat, idx, depth, weight) -> (n, 3)
     the gather of the n rays idx (their indices among the B rays) at
     that depth, times the chain weight (n, 3). density_ss is a grid
-    medium's supersampled density, for the transmittance. With compact,
-    only the rays still on a chain are carried to the next depth, and the
-    loop ends at the first depth without one."""
+    medium's supersampled density, for the transmittance. Only the rays
+    still on a chain are carried to the next depth, and the loop ends at
+    the first depth without one."""
     max_depth = spec_cfg.max_depth
     if tuple(u.shape) != (max_depth, ray_o.shape[0], N_CHAIN_DIMS):
         raise ValueError(f"u must be ({max_depth}, {ray_o.shape[0]}, "
@@ -119,13 +121,12 @@ def li_specular_chain(scene: Scene, ray_o, ray_d, li_at_hit, trace_eye_rays,
     weight = torch.ones((b, 3), dtype=torch.float32, device=ray_o.device)
     twes = torch.full((b, 3), spec_cfg.initial_throughput,
                       dtype=torch.float32, device=ray_o.device)
-    active = torch.ones((b,), dtype=torch.bool, device=ray_o.device)
     o, d = ray_o, ray_d
     for depth in range(max_depth + 1):
         hit, mat = trace_eye_rays(scene, o, d)
-        live = active & hit.valid
         contrib = li_at_hit(o, d, hit, mat, idx, depth, weight)
-        li = li.index_add(0, idx, torch.where(live[..., None], contrib, 0.0))
+        li = li.index_add(0, idx, torch.where(hit.valid[..., None], contrib,
+                                              0.0))
         if depth == max_depth:
             break
         u_step = u[depth, idx]
@@ -135,16 +136,13 @@ def li_specular_chain(scene: Scene, ray_o, ray_d, li_at_hit, trace_eye_rays,
         twes2 = twes * tau * w_bsdf * (eta_ratio * eta_ratio)[..., None]
         max_rr = 0.98 if depth + 1 >= spec_cfg.forced_rr_depth else 1.0
         rr_prob = torch.clamp(twes2.amax(dim=-1), max=max_rr)
-        go = live & is_delta & (rr_prob > 0) & (
+        go = hit.valid & is_delta & (rr_prob > 0) & (
             (rr_prob >= 1.0) | (u_step[:, U_RR] < rr_prob))
         scale = (1.0 / torch.clamp(rr_prob, min=1e-30))[..., None]
-        weight = weight * tau * w_bsdf * scale
-        twes = twes2 * scale
-        active, o, d = go, hit.p, wo
-        if compact:
-            keep = go.nonzero()[:, 0]
-            if keep.numel() == 0:
-                break
-            idx, weight, twes, active, o, d = (
-                x[keep] for x in (idx, weight, twes, active, o, d))
+        keep = go.nonzero()[:, 0]
+        if keep.numel() == 0:
+            break
+        idx, o, d = idx[keep], hit.p[keep], wo[keep]
+        weight = (weight * tau * w_bsdf * scale)[keep]
+        twes = (twes2 * scale)[keep]
     return li

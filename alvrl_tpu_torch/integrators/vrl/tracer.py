@@ -48,7 +48,8 @@ from alvrl_tpu_torch.scene.scene import Scene
 N_EMIT_DIMS = em_mod.N_EMIT_DIMS  # one emission's uniforms (emitters)
 # the emission columns drawn first, before the walk's uniforms; the
 # others (the position and the area light's second barycentric) are
-# drawn after them, so that a point-light scene keeps its stream
+# drawn after them, and only where a kind of the table reads them, so
+# that a scene of point, spot and collimated lights keeps its stream
 N_EMIT_FIRST = 3
 # uniforms of one step, in the reference's key order: distance (2),
 # phase (2), BSDF (N_SAMPLE_DIMS), roulette (1)
@@ -72,7 +73,9 @@ def trace(scene: Scene, generator, num_particles: int,
     """Trace num_particles light paths with uniforms drawn from
     `generator` (a torch.Generator), in this order: u_emit's first
     N_EMIT_FIRST columns (the emitter choice and the direction), u_walk,
-    in a grid medium u_track, then u_emit's other columns; see trace_u."""
+    in a grid medium u_track, then u_emit's other columns where a kind
+    of the emitter table reads them (emitters.POSITION_KINDS; zeros
+    otherwise, and nothing more is drawn); see trace_u."""
     def rand(*shape):
         return torch.rand(shape, generator=generator, device=generator.device)
 
@@ -82,8 +85,10 @@ def trace(scene: Scene, generator, num_particles: int,
     if not mapi.is_homogeneous(scene.medium):
         u_track = rand(num_particles, cfg.max_depth, gmed.TRACKING_DRAWS,
                        2).to(scene.device)
-    u_emit = torch.cat(
-        [u_emit, rand(num_particles, N_EMIT_DIMS - N_EMIT_FIRST)], dim=1)
+    rest = (num_particles, N_EMIT_DIMS - N_EMIT_FIRST)
+    u_emit = torch.cat([u_emit, rand(*rest) if em_mod.POSITION_KINDS
+                        & set(scene.emitters.host_kinds)
+                        else torch.zeros(rest, device=u_emit.device)], dim=1)
     return trace_u(scene, u_emit.to(scene.device), u_walk.to(scene.device),
                    cfg, u_track)
 

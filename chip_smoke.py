@@ -237,9 +237,8 @@ Phases, one line each; any failure exits non-zero:
      instantiation (0 disagreements); the image finite and non-zero; at
      128x128 the render on injected uniforms against the plain chain
      (li_unclustered_spec_u) on 4,096 of its pixels at the homogeneous
-     bar; the active rays per depth, ms per render of the compacted and
-     the every-ray forms (in turns, no plain version), ms per depth's
-     launch and the idle share of a profile;
+     bar; the active rays per depth, ms per render (no plain version),
+     ms per depth's launch and the idle share of a profile;
  38. the CLI on cornell_glass and cornell_area_light (-i vrl -p 2 and
      -i alvrl -p 2) as phase 33: exit code 0, the PFM bit-identical to
      render_progressive, the route's kernels launched, no plain version
@@ -3475,7 +3474,7 @@ SPEC_SEED = 3
 # all of them at 128x128, a sample at 512x512
 SPEC_HOLD = {WIDTH: None, 512: 4096}
 SPEC_SAMPLE = 4096       # pixels of the plain chain's check
-SPEC_REPEATS = 6         # timed renders a form, in turns
+SPEC_REPEATS = 6         # timed renders
 CLI_PARTICLES, CLI_VRLS = 128, 512  # render_cli's defaults, depth 16
 GLASS_RUNS = [
     ("glass vrl", "cornell_glass.json", "vrl", 2,
@@ -3598,11 +3597,10 @@ def glass_files(dev, card, tmp, c1):
 
 def spec_render(dev, card, tmp):
     """Phase 37: render_with_vrls_kernel_spec on cornell_glass at 128x128
-    and 512x512 against VRLs traced on the card at the CLI's defaults;
-    returns {size: numbers}."""
+    and 512x512 against VRLs traced on the card at the CLI's defaults."""
     cfg, spec_cfg = VRLConfig(), specular.SpecularConfig()
     tcfg = tracer.TracerConfig()
-    results, lines = {}, []
+    lines = []
     for size in SPEC_SIZES:
         scene = loader.load_json(os.path.join(tmp, "cornell_glass.json"),
                                  {"w": size, "h": size}, device=dev)
@@ -3611,10 +3609,10 @@ def spec_render(dev, card, tmp):
             tcfg), CLI_VRLS, slots_per_particle=tcfg.max_depth)
         n_rays = size * size
 
-        def render(compact=True, **kw):
+        def render(**kw):
             return integrator.render_with_vrls_kernel_spec(
                 scene, vrls, torch.Generator().manual_seed(SPEC_SEED), cfg,
-                spec_cfg, compact=compact, **kw)
+                spec_cfg, **kw)
 
         # the main path: one render, kernel 1's launches counted
         vrl_sum.launches = 0
@@ -3675,20 +3673,12 @@ def spec_render(dev, card, tmp):
                           f"{SPEC_SAMPLE} pixels with the render's injected "
                           f"uniforms: median {median:.2e} share>1e-2 "
                           f"{share:.4f}")
-        # the two forms in turns; no plain version on the timed path
-        c_ms, f_ms = [], []
+        # no plain version on the timed path
         with plain_calls() as plain:
-            render(False)
-            for i in range(SPEC_REPEATS):
-                turn = [(True, c_ms), (False, f_ms)]
-                for compact, acc in turn if i % 2 == 0 else turn[::-1]:
-                    acc.append(host_ms(lambda c=compact: render(c), 0, 1)[0])
+            c_ms = host_ms(render, 1, SPEC_REPEATS)
         check(plain[0] == 0, f"{size}: plain-version calls while timed")
         prof = profile_device(render, 1, 4)
-        (c_med, c_spread), (f_med, f_spread) = summary(c_ms), summary(f_ms)
-        results[size] = dict(compact=(c_med, c_spread),
-                             every_ray=(f_med, f_spread), depth_ms=depth_ms,
-                             active=active, profile=prof)
+        c_med, c_spread = summary(c_ms)
         prof_line = ("the profiler saw no device operation: idle not "
                      "measured") if prof is None else (
             f"profile: device span {prof[0]:.2f} ms, busy {prof[1]:.2f} ms, "
@@ -3701,15 +3691,12 @@ def spec_render(dev, card, tmp):
             + " ".join(map(str, active))
             + f", image mean {float(img.mean()):.6g}; {hold}; checking "
             f"launches on every depth: {check_line(totals)}{chain_line} | "
-            f"ms per render, compacted {c_med:.2f} (spread {c_spread:.1%}; "
-            + " ".join(f"{t:.2f}" for t in c_ms) + f"), every ray at every "
-            f"depth {f_med:.2f} (spread {f_spread:.1%}; "
-            + " ".join(f"{t:.2f}" for t in f_ms) + ") | kernel 1 ms per "
+            f"ms per render {c_med:.2f} (spread {c_spread:.1%}; "
+            + " ".join(f"{t:.2f}" for t in c_ms) + ") | kernel 1 ms per "
             "depth's launch (CUDA events) "
             + " ".join(f"{t:.3f}" for t in depth_ms) + f" | {prof_line}")
     print(f"[37 specular-chain render on {card}] " + " | ".join(lines),
           flush=True)
-    return results
 
 
 def glass_cli(dev, card, tmp):

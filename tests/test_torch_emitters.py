@@ -244,6 +244,29 @@ def test_point_light_trace_keeps_its_stream():
     assert int(vrls.valid.sum()) > 0
 
 
+@pytest.mark.parametrize("preset,extra", [("cornell_smoke", False),
+                                          ("cornell_area_light", True)])
+def test_trace_leaves_the_generator_where_its_draws_end(preset, extra):
+    """trace draws u_emit's first 3 columns, u_walk and, only where a kind
+    of the table reads them (an area light here, not cornell_smoke's
+    point light), the other emission columns: the generator's next draw
+    after trace is the next draw after that order, so a point-light
+    pass's later draws (the antialias jitter, the kernel and R seeds)
+    stay as they were."""
+    scene = getattr(presets, preset)(8, 8, device=CPU)
+    cfg = tracer.TracerConfig(max_depth=6)
+    after = torch.Generator().manual_seed(5)
+    tracer.trace(scene, after, 32, cfg)
+    gen = torch.Generator().manual_seed(5)
+    torch.rand((32, tracer.N_EMIT_FIRST), generator=gen)
+    torch.rand((32, 6, tracer.N_STEP_DIMS), generator=gen)
+    if extra:
+        torch.rand((32, tracer.N_EMIT_DIMS - tracer.N_EMIT_FIRST),
+                   generator=gen)
+    assert torch.equal(torch.rand(8, generator=after),
+                       torch.rand(8, generator=gen))
+
+
 def test_point_emitters_keep_their_table():
     """make_point_emitters gives JAX's point table (the preset's light)."""
     ref = convert.scene_from_numpy(jax_scene_leaves(

@@ -61,8 +61,9 @@ def test_trace_u_matches_jax_trace_in_a_grid(case):
 
 def test_trace_draws_tracking_uniforms_in_a_grid():
     """trace draws u_track after u_emit's first columns and u_walk in a
-    grid medium, then u_emit's other columns, and trace_u refuses a grid
-    medium without u_track."""
+    grid medium, and no more for this point light, which reads none of
+    u_emit's other columns; trace_u refuses a grid medium without
+    u_track."""
     scene = presets.cornell_grid_smoke(6, 6, grid_res=6, device="cpu")
     cfg = tracer.TracerConfig(max_depth=3)
     gen = torch.Generator().manual_seed(9)
@@ -71,8 +72,10 @@ def test_trace_draws_tracking_uniforms_in_a_grid():
     u_emit, u_walk = torch.rand((4, 3), generator=g2), torch.rand(
         (4, 3, tracer.N_STEP_DIMS), generator=g2)
     u_track = torch.rand((4, 3, gmed.TRACKING_DRAWS, 2), generator=g2)
-    u_emit = torch.cat([u_emit, torch.rand(
-        (4, tracer.N_EMIT_DIMS - tracer.N_EMIT_FIRST), generator=g2)], dim=1)
+    assert torch.equal(torch.rand(4, generator=gen),
+                       torch.rand(4, generator=g2))
+    u_emit = torch.cat([u_emit, torch.zeros(
+        (4, tracer.N_EMIT_DIMS - tracer.N_EMIT_FIRST))], dim=1)
     again = tracer.trace_u(scene, u_emit, u_walk, cfg, u_track)
     assert torch.equal(vrls.end, again.end) and int(vrls.valid.sum()) > 0
     with pytest.raises(ValueError):

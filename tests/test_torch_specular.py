@@ -360,10 +360,10 @@ def _interpret_spec_render():
 
 def test_kernel_spec_render_matches_pallas_interpret():
     """render_with_vrls_kernel_spec on the CPU (the plain sum at each
-    depth, in its compacted and its every-ray form) against
-    render_with_vrls_pallas_spec in interpret mode, both on the kernel's
-    per-draw constants and the chain's uniforms of JAX's key: the
-    homogeneous bar, and the two forms equal to float32 rounding."""
+    depth, on the rays still on a chain) against
+    render_with_vrls_pallas_spec in interpret mode (every ray at every
+    depth), both on the kernel's per-draw constants and the chain's
+    uniforms of JAX's key: the homogeneous bar."""
     ref, n_draws, u_chain = in_child(_interpret_spec_render)
     assert n_draws == len(SEQ_UNIFORMS)
     _, scene = _scenes()
@@ -380,17 +380,14 @@ def test_kernel_spec_render_matches_pallas_interpret():
 
     integrator._chain_draws = pinned
     try:
-        imgs = [integrator.render_with_vrls_kernel_spec(
+        img = integrator.render_with_vrls_kernel_spec(
             scene, vrls, torch.Generator().manual_seed(0), VRLConfig(),
-            specular.SpecularConfig(**SPEC), uniforms=u, compact=compact)
-            for compact in (True, False)]
+            specular.SpecularConfig(**SPEC), uniforms=u)
     finally:
         integrator._chain_draws = saved
-    assert imgs[0].shape == (8, 8, 3) and float(imgs[0].mean()) > 0.0
-    for img in imgs:
-        median, share = homog_bar(img, torch.as_tensor(ref))
-        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
-    torch.testing.assert_close(imgs[0], imgs[1], atol=1e-6, rtol=1e-5)
+    assert img.shape == (8, 8, 3) and float(img.mean()) > 0.0
+    median, share = homog_bar(img, torch.as_tensor(ref))
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
 
 
 def test_kernel_spec_render_draws_from_the_generator():
