@@ -18,17 +18,19 @@ from alvrl_tpu_torch.emitters.emitters import Emitters
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
-from alvrl_tpu_torch.scene.scene import (
-    Camera,
-    Materials,
-    Scene,
-)
+from alvrl_tpu_torch.scene.scene import Camera, Materials, Scene
 
 EMITTER_KEYS = ("kind", "position", "direction", "intensity", "cos_cutoff",
                 "cos_beam", "tri_e1", "tri_e2", "pmf")
+# the material columns, and which of them hold integers
+MATERIAL_KEYS = ("kind", "albedo", "eta", "alpha", "alpha_v", "dist",
+                 "specular", "exponent", "opacity", "nested", "nested2",
+                 "albedo2", "rt_table", "rt_alpha_max")
+MATERIAL_INT_KEYS = ("kind", "dist", "nested", "nested2")
 SCENE_KEYS = (
-    "vertices", "faces", "material", "materials.kind", "materials.albedo",
-    "materials.eta", *(f"emitters.{k}" for k in EMITTER_KEYS),
+    "vertices", "faces", "material",
+    *(f"materials.{k}" for k in MATERIAL_KEYS),
+    *(f"emitters.{k}" for k in EMITTER_KEYS),
     "camera.to_world", "camera.fov_x_deg", "camera.width", "camera.height",
     "camera.kind",
 )
@@ -72,9 +74,9 @@ def scene_from_numpy(d, device="cuda") -> Scene:
         vertices=f32("vertices"),
         faces=i64("faces"),
         material=i64("material"),
-        materials=Materials(kind=i64("materials.kind"),
-                            albedo=f32("materials.albedo"),
-                            eta=f32("materials.eta")),
+        materials=Materials(**{
+            k: (i64 if k in MATERIAL_INT_KEYS else f32)(f"materials.{k}")
+            for k in MATERIAL_KEYS}),
         emitters=Emitters(
             kind=i64("emitters.kind"),
             **{k: f32(f"emitters.{k}") for k in EMITTER_KEYS[1:]},

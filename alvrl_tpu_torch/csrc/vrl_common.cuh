@@ -6,7 +6,9 @@
 // triangle, and the flat sweep as one occlusion policy), the
 // clustered tables' staging (stage_table_piece), the two samplers of the
 // estimator, the two media (homogeneous, Medium; grid, GridMedium), the
-// estimator itself (pair_terms, templated on the medium), its cotangents
+// estimator itself (pair_terms, templated on the medium and, for the
+// material instantiations of kernels 1, 2 and 5, on MAT: the eye hit's
+// smooth BSDF, eval_smooth over the material table), its cotangents
 // (vol_vol_cot / vol_surf_cot, one overload per medium) and the
 // backwards' fixed-order reductions. The backward replays the forward's
 // samples, so all kernels take them from the same loop here
@@ -135,12 +137,15 @@ struct Medium {
 // One eye ray of the ray pack (RAY_ROWS, B); `ok` only for a valid hit.
 // Grid packs: eod is this ray's eye cumulative-OD table, NQ + 1 entries
 // eod_stride apart (set by the grid kernels).
+// alb_any is the vol-surf gate: a non-zero diffuse albedo, or, in the
+// material kernels (attach_mat), the hit's smooth flag; mat is the hit's
+// material id there.
 struct Ray {
   f3 o, d, hp, ng, ee;  // ee: the eye segment hp - o
   float alb[3], tau[3], elen;
   bool ok, alb_any;
   const float* eod;
-  int eod_stride;
+  int eod_stride, mat;
 };
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, int b) {
@@ -160,6 +165,331 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, i
   ray.elen = sqrtf(fmaxf(dot3(ray.ee, ray.ee), 1e-30f));
   ray.alb_any = (ray.alb[0] + ray.alb[1] + ray.alb[2]) > 0.0f;
   return ray;
+}
+
+// --- the eye hit's smooth BSDF (the material instantiations, MAT = true,
+// of kernels 1, 2 and 5): alvrl_tpu's bsdf/api.py eval_smooth for the
+// ported smooth kinds, op for op with the port's plain version
+// (bsdf/api.py, bsdf/microfacet.py, bsdf/lobes.py, bsdf/layered.py)
+
+// material pack columns (ops/pack.py pack_materials): kind, albedo (3),
+// eta, alpha, alpha_v, distribution, specular (3), exponent, opacity,
+// nested, nested2, albedo2 (3), the rough-transmittance table's alpha
+// span, the smooth flag (0/1); the ray pack's material-id row (MATID,
+// after the RAY_ROWS rows) and the rough-transmittance tables' shape
+constexpr int MT_KIND = 0, MT_ALB = 1, MT_ETA = 4, MT_ALPHA = 5, MT_ALPHA_V = 6, MT_DIST = 7,
+              MT_SPEC = 8, MT_EXP = 11, MT_OPAC = 12, MT_NESTED = 13, MT_NESTED2 = 14,
+              MT_ALB2 = 15, MT_RT_AMAX = 18, MT_SMOOTH = 19, MAT_COLS = 20;
+constexpr int MATID = 19;
+constexpr int MAX_MATS = 256;  // shared memory: 20 KB of material rows
+constexpr int RT_COS = 16, RT_ALPHA = 8;
+// material kinds (scene/scene.py) and microfacet distributions
+constexpr int K_DIFFUSE = 0, K_ROUGH_CONDUCTOR = 4, K_ROUGH_PLASTIC = 5, K_PHONG = 6,
+              K_WARD = 7, K_DIFFTRANS = 8, K_PLASTIC = 9, K_MASK = 10, K_MIXTURE = 11,
+              K_COATING = 12, K_ROUGH_DIELECTRIC = 16, K_ROUGH_COATING = 17;
+constexpr int MF_BECKMANN = 0, MF_GGX = 1, MF_PHONG = 2;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
+
+// The material table of a MAT launch: its M rows staged in shared memory
+// and the (M, RT_COS, RT_ALPHA) rough-transmittance tables in device
+// memory, read through the read-only path. Ids are clamped into [0, M),
+// as the plain version clamps them.
+struct Mats {
+  const float* table;
+  const float* rt;
+  int M;
+
+  __device__ __forceinline__ int clamp_id(float x) const { return min(max((int)x, 0), M - 1); }
+  __device__ __forceinline__ const float* row(int id) const { return table + id * MAT_COLS; }
+};
+
+// Host check of a launch's material table: both pointers and 1 <= M <=
+// MAX_MATS, or no table (both null, M = 0: a diffuse instantiation).
+inline bool mats_ok(const float* mat_table, int M, const float* rt) {
+  if (mat_table == nullptr && rt == nullptr && M == 0) return true;
+  return mat_table != nullptr && rt != nullptr && M >= 1 && M <= MAX_MATS;
+}
+
+// Stage the M material rows at s_mat; returns the table.
+__device__ __forceinline__ Mats stage_mats(const float* __restrict__ mat_table, int M,
+                                           const float* __restrict__ rt, float* s_mat) {
+  for (int i = threadIdx.x; i < M * MAT_COLS; i += blockDim.x) s_mat[i] = mat_table[i];
+  return Mats{s_mat, rt, M};
+}
+
+// The eye ray of a MAT kernel: its hit's material id, and the vol-surf
+// gate set to the material's smooth flag (in place of a non-zero diffuse
+// albedo).
+__device__ __forceinline__ void attach_mat(Ray& ray, const float* __restrict__ rays, int B, int b,
+                                           const Mats& mats) {
+  ray.mat = mats.clamp_id(rays[(size_t)MATID * B + b]);
+  ray.alb_any = mats.row(ray.mat)[MT_SMOOTH] > 0.5f;
+}
+
+__device__ __forceinline__ float sgn(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
+
+__device__ __forceinline__ f3 normalize3(f3 v) {
+  return v * (1.0f / fmaxf(sqrtf(fmaxf(dot3(v, v), 0.0f)), 1e-20f));
+}
+
+// Unpolarized Fresnel reflectance, cos_i clamped to [0, 1], eta int/ext.
+__device__ __forceinline__ float fresnel_diel(float cos_i, float eta) {
+  cos_i = fminf(fmaxf(cos_i, 0.0f), 1.0f);
+  const float sin_t2 = (1.0f / (eta * eta)) * fmaxf(1.0f - cos_i * cos_i, 0.0f);
+  const float cos_t = sqrtf(fmaxf(1.0f - sin_t2, 0.0f));
+  const float rs = (cos_i - eta * cos_t) / fmaxf(cos_i + eta * cos_t, 1e-12f);
+  const float rp = (eta * cos_i - cos_t) / fmaxf(eta * cos_i + cos_t, 1e-12f);
+  return sin_t2 >= 1.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
+}
+
+__device__ __forceinline__ float phong_exponent(float a) {
+  return fmaxf(2.0f / fmaxf(a * a, 1e-8f) - 2.0f, 0.0f);
+}
+
+// microfacet.py mf_d: the NDF of distribution `dist`
+__device__ float mf_d(int dist, f3 h, float au, float av) {
+  const float ct = h.z;
+  const float ct2 = fmaxf(ct * ct, 1e-12f);
+  const float x2 = h.x * h.x, y2 = h.y * h.y;
+  const float au2 = fmaxf(au * au, 1e-8f), av2 = fmaxf(av * av, 1e-8f);
+  const float bexp = (x2 / au2 + y2 / av2) / ct2;
+  float d;
+  if (dist == MF_BECKMANN) {
+    d = expf(-bexp) / (PI_F * au * av * ct2 * ct2);
+  } else if (dist == MF_PHONG) {
+    const float e_u = phong_exponent(au), e_v = phong_exponent(av);
+    const float st2 = fmaxf(x2 + y2, 1e-12f);
+    const float e = x2 + y2 > 1e-12f ? (x2 * e_u + y2 * e_v) / st2 : e_u;
+    d = sqrtf((e_u + 2.0f) * (e_v + 2.0f)) / TWO_PI_F * powf(fmaxf(ct, 1e-9f), e);
+  } else {
+    const float root = (1.0f + bexp) * ct2;
+    d = 1.0f / fmaxf(PI_F * au * av * root * root, 1e-20f);
+  }
+  return (ct > 0.0f && d * ct >= 1e-20f) ? d : 0.0f;
+}
+
+// microfacet.py mf_g1: Smith masking of one direction
+__device__ float mf_g1(int dist, f3 v, f3 h, float au, float av) {
+  const float ct = v.z;
+  if (!(dot3(v, h) * ct > 0.0f)) return 0.0f;
+  const float tan_t = sqrtf(fmaxf(1.0f - ct * ct, 0.0f)) / fmaxf(fabsf(ct), 1e-9f);
+  if (tan_t < 1e-9f) return 1.0f;
+  float alpha = au;
+  if (1.0f - ct * ct > 1e-12f) {
+    const float st2 = fmaxf(1.0f - ct * ct, 1e-12f);
+    alpha = sqrtf(v.x * v.x / st2 * au * au + v.y * v.y / st2 * av * av);
+  }
+  if (dist == MF_GGX) {
+    const float root = alpha * tan_t;
+    return 2.0f / (1.0f + sqrtf(1.0f + root * root));
+  }
+  const float a = 1.0f / fmaxf(alpha * tan_t, 1e-9f), a2 = a * a;
+  return a >= 1.6f ? 1.0f : (3.535f * a + 2.181f * a2) / (1.0f + 2.276f * a + 2.577f * a2);
+}
+
+// microfacet.py eval_rough_conductor_d (f0 the tint) and
+// eval_rough_plastic_d (f0 0.04 over a Lambertian albedo)
+__device__ void eval_rough_conductor(f3 wi, f3 wo, int dist, float au, float av,
+                                     const float f0[3], float f[3]) {
+  const float ci = wi.z;
+  const f3 h = normalize3(wi + wo);
+  const float dg = mf_d(dist, h, au, av) * (mf_g1(dist, wi, h, au, av) * mf_g1(dist, wo, h, au, av)) /
+                   fmaxf(4.0f * ci, 1e-9f);
+  const float c = fminf(fmaxf(1.0f - dot3(wi, h), 0.0f), 1.0f);
+  const float c5 = c * c * c * c * c;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) f[ch] = (f0[ch] + (1.0f - f0[ch]) * c5) * dg;
+}
+
+// microfacet.py eval_rough_dielectric, radiance mode
+__device__ float eval_rough_dielectric(f3 wi, f3 wo, float eta, int dist, float au, float av) {
+  const float ci = wi.z, co = wo.z;
+  const bool reflect = ci * co > 0.0f;
+  const float eta_i = ci > 0.0f ? 1.0f : eta, eta_o = ci > 0.0f ? eta : 1.0f;
+  f3 h = reflect ? normalize3(wi + wo) : normalize3(wi * eta_i + wo * eta_o);
+  h = h * sgn(h.z);
+  const float d = mf_d(dist, h, au, av);
+  const float g = mf_g1(dist, wi, h, au, av) * mf_g1(dist, wo, h, au, av);
+  const float wih = dot3(wi, h), woh = dot3(wo, h);
+  const float cim = ci > 0.0f ? wih : -wih;
+  const float f = fresnel_diel(fabsf(cim), cim >= 0.0f ? eta : 1.0f / eta);
+  if (reflect) return f * d * g / fmaxf(4.0f * fabsf(ci), 1e-9f);
+  const float denom = eta_i * wih + eta_o * woh;
+  if (!(fabsf(denom) > 1e-9f)) return 0.0f;
+  const float val = fabsf(wih * woh) / fmaxf(fabsf(ci * co), 1e-9f) * eta_o * eta_o *
+                    (1.0f - f) * d * g / fmaxf(denom * denom, 1e-12f) * fabsf(co);
+  const float r = eta_i / eta_o;
+  return val * (r * r);
+}
+
+// f cos_o of a leaf kind's smooth component (bsdf/api.py
+// _leaf_eval_local) in the local frame; 0 for the other kinds
+__device__ void leaf_eval(const float* r, f3 wi, f3 wo, float f[3]) {
+  const int kind = (int)r[MT_KIND];
+  const float ci = wi.z, co = wo.z;
+  const float* alb = r + MT_ALB;
+  const int dist = (int)r[MT_DIST];
+  const float au = r[MT_ALPHA], av = r[MT_ALPHA_V];
+  f[0] = f[1] = f[2] = 0.0f;
+  switch (kind) {
+    case K_DIFFUSE: {
+      const float c = fmaxf(co, 0.0f) / PI_F;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = alb[ch] * c;
+      break;
+    }
+    case K_ROUGH_CONDUCTOR:
+      if (ci > 0.0f && co > 0.0f) eval_rough_conductor(wi, wo, dist, au, av, alb, f);
+      break;
+    case K_ROUGH_PLASTIC:
+      if (ci > 0.0f && co > 0.0f) {
+        const float f0[3] = {0.04f, 0.04f, 0.04f};
+        eval_rough_conductor(wi, wo, dist, au, av, f0, f);
+        const float c = fminf(fmaxf(co, 0.0f), 1.0f) / PI_F;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[ch] = f[ch] + alb[ch] * c;
+      }
+      break;
+    case K_PHONG:
+      if (ci > 0.0f && co > 0.0f) {
+        const float ex = r[MT_EXP];
+        const float cos_a = fminf(fmaxf(-wi.x * wo.x - wi.y * wo.y + wi.z * wo.z, 0.0f), 1.0f);
+        const float s = (ex + 2.0f) / TWO_PI_F * powf(cos_a, ex);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[ch] = (alb[ch] * INV_PI + r[MT_SPEC + ch] * s) * co;
+      }
+      break;
+    case K_WARD:
+      if (ci > 1e-4f && co > 1e-4f) {
+        const f3 h = wi + wo;
+        const float hz2 = fmaxf(h.z * h.z, 1e-12f);
+        const float hu = h.x / au, hv = h.y / av;
+        const float expo = expf(-(hu * hu + hv * hv) / hz2);
+        const float s = expo / (4.0f * PI_F * au * av * sqrtf(fmaxf(ci * co, 1e-12f)));
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[ch] = (alb[ch] * INV_PI + r[MT_SPEC + ch] * s) * co;
+      }
+      break;
+    case K_DIFFTRANS:
+      if (ci * co < 0.0f) {
+        const float c = fabsf(co) * INV_PI;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[ch] = alb[ch] * c;
+      }
+      break;
+    case K_PLASTIC:
+      if (ci > 0.0f && co > 0.0f) {
+        const float eta = r[MT_ETA];
+        const float c = (1.0f - fresnel_diel(ci, eta)) * (1.0f - fresnel_diel(co, eta)) * INV_PI * co;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[ch] = alb[ch] * c;
+      }
+      break;
+    case K_ROUGH_DIELECTRIC: {
+      const float v = eval_rough_dielectric(wi, wo, r[MT_ETA], dist, au, av);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = alb[ch] * v;
+      break;
+    }
+    default:
+      break;
+  }
+}
+
+// layered.py refract_z: the tangential part scaled by inv_eta; false if
+// it does not refract
+__device__ __forceinline__ bool refract_z(f3 w, float inv_eta, f3& out) {
+  const float x = w.x * inv_eta, y = w.y * inv_eta;
+  const float z2 = 1.0f - x * x - y * y;
+  out = {x, y, sgn(w.z) * sqrtf(fmaxf(z2, 0.0f))};
+  return z2 > 0.0f;
+}
+
+// microfacet.py rough_transmittance_b: material id's table, bilinear at
+// (|cos_i|, alpha / alpha_max)
+__device__ float rough_t(const Mats& mats, int id, float cos_i, float alpha, float amax) {
+  const float gx = fminf(fmaxf(fabsf(cos_i), 0.0f), 1.0f) * RT_COS - 1.0f;
+  const float gy = fminf(fmaxf(alpha / amax, 0.0f), 1.0f) * RT_ALPHA - 1.0f;
+  const int x0 = min(max((int)floorf(gx), 0), RT_COS - 2);
+  const int y0 = min(max((int)floorf(gy), 0), RT_ALPHA - 2);
+  const float fx = fminf(fmaxf(gx - (float)x0, 0.0f), 1.0f);
+  const float fy = fminf(fmaxf(gy - (float)y0, 0.0f), 1.0f);
+  const float* t = mats.rt + (size_t)id * (RT_COS * RT_ALPHA) + x0 * RT_ALPHA + y0;
+  const float t00 = __ldg(t), t01 = __ldg(t + 1), t10 = __ldg(t + RT_ALPHA),
+              t11 = __ldg(t + RT_ALPHA + 1);
+  return (t00 * (1.0f - fx) + t10 * fx) * (1.0f - fy) + (t01 * (1.0f - fx) + t11 * fx) * fy;
+}
+
+// The BSDF eval times cos(theta_o) of the smooth components of material
+// `mat` at the shading normal ng (bsdf/api.py eval_smooth): wi_w points
+// from the surface to the eye, wo_w to the light. The local frame is
+// core/math.py build_frame's (Duff et al.), which the anisotropic Ward
+// and microfacet lobes depend on. The wrappers resolve one level: MASK
+// (opacity times the nested eval), MIXTURE (the convex mix of nested and
+// nested2), COATING (the nested eval at the refracted directions,
+// Fresnel-attenuated both ways, with the slab's absorption and the
+// measure factor) and ROUGH_COATING (its glossy coat reflection plus
+// the nested eval attenuated by the rough transmittance both ways).
+// Not inlined: one copy serves a kernel's samples; its arguments and
+// result travel in registers.
+__device__ __noinline__ f3 eval_smooth(Mats mats, int mat, f3 ng, f3 wi_w, f3 wo_w) {
+  float f[3];
+  const float sign = ng.z >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + ng.z);
+  const float b = ng.x * ng.y * a;
+  const f3 s = {1.0f + sign * ng.x * ng.x * a, sign * b, -sign * ng.x};
+  const f3 t = {b, sign + ng.y * ng.y * a, -ng.y};
+  const f3 wi = {dot3(wi_w, s), dot3(wi_w, t), dot3(wi_w, ng)};
+  const f3 wo = {dot3(wo_w, s), dot3(wo_w, t), dot3(wo_w, ng)};
+  const float* r = mats.row(mat);
+  const int kind = (int)r[MT_KIND];
+  const float* r1 = mats.row(mats.clamp_id(r[MT_NESTED]));
+  if (kind == K_MASK || kind == K_MIXTURE) {
+    const float w = r[MT_OPAC];
+    leaf_eval(r1, wi, wo, f);
+    if (kind == K_MASK) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = w * f[ch];
+    } else {
+      float f2[3];
+      leaf_eval(mats.row(mats.clamp_id(r[MT_NESTED2])), wi, wo, f2);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = w * f[ch] + (1.0f - w) * f2[ch];
+    }
+    return {f[0], f[1], f[2]};
+  }
+  if (kind != K_COATING && kind != K_ROUGH_COATING) {
+    leaf_eval(r, wi, wo, f);
+    return {f[0], f[1], f[2]};
+  }
+  const float eta = r[MT_ETA];
+  f3 wi_p, wo_p;
+  const bool ok_i = refract_z(wi, 1.0f / eta, wi_p);
+  const bool ok_o = refract_z(wo, 1.0f / eta, wo_p);
+  const float jac = fabsf(wo.z) / fmaxf(fabsf(wo_p.z), 1e-6f) / (eta * eta);
+  const float inv = 1.0f / fmaxf(fabsf(wi_p.z), 1e-6f) + 1.0f / fmaxf(fabsf(wo_p.z), 1e-6f);
+  const float th_inv = r[MT_EXP] * inv;
+  float spec = 0.0f, att;
+  if (kind == K_COATING) {
+    att = (1.0f - fresnel_diel(fabsf(wi.z), eta)) * (1.0f - fresnel_diel(fabsf(wo.z), eta)) * jac;
+  } else {
+    const float au = r[MT_ALPHA], amax = r[MT_RT_AMAX];
+    const int dist = (int)r[MT_DIST];
+    if (wi.z * wo.z > 0.0f) {
+      f3 h = normalize3(wi + wo);
+      h = h * sgn(h.z + 1e-20f);
+      const float d = mf_d(dist, h, au, au);
+      const float g = mf_g1(dist, wi, h, au, au) * mf_g1(dist, wo, h, au, au);
+      spec = fresnel_diel(fabsf(dot3(wi, h)), eta) * d * g / fmaxf(4.0f * fabsf(wi.z), 1e-9f);
+    }
+    att = rough_t(mats, mat, wi.z, au, amax) * rough_t(mats, mat, wo.z, au, amax) * jac;
+  }
+  if (!(ok_i && ok_o)) return {spec, spec, spec};
+  leaf_eval(r1, wi_p, wo_p, f);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) f[ch] = f[ch] * att * expf(-r[MT_ALB2 + ch] * th_inv) + spec;
+  return {f[0], f[1], f[2]};
 }
 
 // Stage all T triangles and the block's chunk of VRLs (n_rows rows of
@@ -542,7 +872,7 @@ __device__ __forceinline__ VrlPair pair_at(const Ray& ray, const float* s_vrl, i
 // length |E - U| (vol-vol).
 struct Sample {
   float c_u, c_v, cos_o, den, d_sv, path, d_uv, d_eu;
-  f3 up, vp;
+  f3 up, vp, vu;  // vu: the unit direction V -> hit (vol-surf)
 };
 
 // Vol-vol: V on the VRL ~ inverse distance to the eye ray, U on the eye
@@ -599,6 +929,7 @@ __device__ __forceinline__ bool vol_surf_sample(const Ray& ray, const VrlPair& p
   const float d_uv = sqrtf(fmaxf(d_uv2, 1e-30f));
   const f3 vu = duv * (1.0f / d_uv);
   sm.cos_o = fmaxf(-dot3(ray.ng, vu), 0.0f);
+  sm.vu = vu;
   sm.c_v = -dot3(p.uv, vu);
   sm.den = fmaxf(pdf_v * d_uv2, 1e-30f);
   sm.d_sv = fabsf(arc_v);
@@ -631,6 +962,23 @@ __device__ __forceinline__ void vol_surf_term(const Medium& m, const Ray& ray, c
   for (int ch = 0; ch < 3; ++ch)
     t[ch] = p.pw[ch] * m.sig_s[ch] * ray.alb[ch] * ray.tau[ch] * expf(-m.sig_t[ch] * sm.path) *
             geo;
+}
+
+// The vol-surf term of the material kernels: vol_surf_term with the hit's
+// eval_smooth(-ray_d, -vu) (f cos_o, per channel) in place of the
+// diffuse albedo times cos_o / pi.
+template <int PHASE, bool SHORT_VRLS>
+__device__ __forceinline__ void vol_surf_term_mat(const Medium& m, const Ray& ray,
+                                                  const VrlPair& p, const Sample& sm,
+                                                  const Mats& mats, float t[3]) {
+  float e[3];
+  const f3 fv = eval_smooth(mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f);
+  const float f[3] = {fv.x, fv.y, fv.z};
+  float geo = phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
+  if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * m.sig_s[ch] * f[ch] * ray.tau[ch] * expf(-m.sig_t[ch] * sm.path) * geo;
 }
 
 // The grid medium's extra kernel arguments: the supersampled density
@@ -954,15 +1302,20 @@ __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, P
 // in how they reduce its terms, and by both media (Med: Medium or
 // GridMedium), which differ only in the terms of a sample: for each
 // sample of pair_samples, emit(family, t) with t[3] the raw per-sample
-// contribution (not divided by the family's sample count).
-template <int PHASE, bool SHORT_VRLS, class Med, class Occl, class Emit>
+// contribution (not divided by the family's sample count). MAT (the
+// homogeneous material kernels, with their table `mats`): the vol-surf
+// term evaluates the hit's smooth BSDF (vol_surf_term_mat); MAT = false
+// is the diffuse term, unchanged.
+template <int PHASE, bool SHORT_VRLS, bool MAT = false, class Med, class Occl, class Emit>
 __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
                                            PairUniforms& draw, int svv, int svs, const Occl& occl,
-                                           Emit&& emit) {
+                                           Emit&& emit, const Mats* mats = nullptr) {
   pair_samples(ray, p, draw, svv, svs, occl, [&](int family, const Sample& sm) {
     float t[3];
     if (family == 0)
       vol_vol_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
+    else if constexpr (MAT)
+      vol_surf_term_mat<PHASE, SHORT_VRLS>(m, ray, p, sm, *mats, t);
     else
       vol_surf_term<PHASE, SHORT_VRLS>(m, ray, p, sm, t);
     emit(family, t);

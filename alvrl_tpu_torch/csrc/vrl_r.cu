@@ -58,6 +58,10 @@
 // luminance of vrl_sum's out[:, p] on the same rays and seed (up to f32
 // summation order). `uniforms`, when given, is read instead, as (P, N,
 // 2 * svv + svs) float32.
+// The homogeneous R also has a material instantiation (MAT) for glossy and
+// layered surfaces at the eye hit, as vrl_sum.cu's kernel 1
+// (vrl_common.cuh eval_smooth); its lanes are VRLs against one ray, so a
+// warp evaluates one material and does not diverge in the eval.
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -79,24 +83,26 @@ __host__ __device__ constexpr int r_tile_rays() {
 
 // The pair (ray b, VRL n = column c of the staged chunk): R's two
 // numbers, written to out[:, b, n].
-template <int PHASE, bool SHORT_VRLS, bool GRID, class Med, class Occl>
+template <int PHASE, bool SHORT_VRLS, bool GRID, bool MAT, class Med, class Occl>
 __device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int N, int c,
                                        const float* s_vrl, const Med& m, const Occl& occl,
                                        const float* __restrict__ uniforms, uint32_t seed,
-                                       int svv, int svs, float* __restrict__ out) {
+                                       int svv, int svs, float* __restrict__ out,
+                                       const Mats* mats) {
   const int n_samples[2] = {svv, svs};
   float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
   if (ray.ok && s_vrl[VVALID * VRL_CHUNK + c] > 0.5f) {
     const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * (2 * svv + svs) : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
-                                  [&](int family, const float* t) {
-                                    const float lum = LUM_R * t[0] + LUM_G * t[1] +
-                                                      LUM_B * t[2];
-                                    sum[family] += lum;
-                                    sq[family] += lum * lum;
-                                  });
+    pair_terms<PHASE, SHORT_VRLS, MAT>(
+        ray, p, m, draw, svv, svs, occl,
+        [&](int family, const float* t) {
+          const float lum = LUM_R * t[0] + LUM_G * t[1] + LUM_B * t[2];
+          sum[family] += lum;
+          sq[family] += lum * lum;
+        },
+        mats);
   }
   float mean = 0.0f, var = 0.0f;
 #pragma unroll
@@ -111,24 +117,32 @@ __device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int 
   out[((size_t)B + b) * N + n] = var;
 }
 
-// tris: the triangles' plane pack, as sweep_floats<true>
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE>
+// tris: the triangles' plane pack, as sweep_floats<true>. MAT (homogeneous
+// only): the material instantiation (vrl_sum.cu's vrl_sum_plane_kernel),
+// its M material rows staged after the VRL chunk.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool MAT>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_r_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
                  const float* __restrict__ tris, int T, const float* __restrict__ med,
-                 GridArgs grid, const float* __restrict__ uniforms, uint32_t seed, int svv,
-                 int svs, float* __restrict__ out, unsigned long long* __restrict__ counts) {
+                 GridArgs grid, const float* __restrict__ mat_table, int M,
+                 const float* __restrict__ rt, const float* __restrict__ uniforms, uint32_t seed,
+                 int svv, int svs, float* __restrict__ out,
+                 unsigned long long* __restrict__ counts) {
+  static_assert(!(GRID && MAT), "the material instantiation is homogeneous");
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
   float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<true>(T)
   float* s_vrl = s_tri + sweep_floats<true>(T);       // (V_ROWS, VRL_CHUNK)
   float* s_med = s_vrl + V_ROWS * VRL_CHUNK;          // grid: (GRID_MED_LEN,)
   float* s_etab = s_med + (GRID ? GRID_MED_LEN : 0);  // grid: (R_RAYS, NQ + 1)
+  float* s_mat = s_etab + (GRID ? (NQ + 1) * R_RAYS : 0);  // MAT: (M, MAT_COLS)
   const int b0 = blockIdx.x * r_tile_rays<GRID>(), n0 = blockIdx.y * VRL_CHUNK;
   CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
   const auto occl = stage_sweep<true, MODE>(tris, T, s_tri, &cnt);
   const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, s_mat);
   if constexpr (GRID)  // each ray's eye-OD table, a row of NQ + 1 floats
     for (int i = threadIdx.x; i < R_RAYS * (NQ + 1); i += blockDim.x) {
       const int r = i % R_RAYS, k = i / R_RAYS;
@@ -146,8 +160,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       Ray ray = load_ray(rays, B, b0 + r);
       ray.eod = s_etab + r * (NQ + 1);
       ray.eod_stride = 1;
-      r_pair<PHASE, SHORT_VRLS, GRID>(ray, b0 + r, B, n0 + c, N, c, s_vrl, m, occl, uniforms,
-                                      seed, svv, svs, out);
+      r_pair<PHASE, SHORT_VRLS, GRID, false>(ray, b0 + r, B, n0 + c, N, c, s_vrl, m, occl,
+                                             uniforms, seed, svv, svs, out, nullptr);
     }
   } else {
     // ray r of the tile to warp r % N_WARPS, column c to lane c: the
@@ -156,31 +170,34 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     for (int r = threadIdx.x / 32; r < H_RAYS; r += N_WARPS) {
       const int b = b0 + r;
       if (b >= B || c >= nc) break;
-      r_pair<PHASE, SHORT_VRLS, GRID>(load_ray(rays, B, b), b, B, n0 + c, N, c, s_vrl, m, occl,
-                                      uniforms, seed, svv, svs, out);
+      Ray ray = load_ray(rays, B, b);
+      if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
+      r_pair<PHASE, SHORT_VRLS, GRID, MAT>(ray, b, B, n0 + c, N, c, s_vrl, m, occl, uniforms,
+                                           seed, svv, svs, out, &mats);
     }
   }
   if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
 }
 
 using RKernel = void (*)(const float*, int, const float*, int, const float*, int, const float*,
-                         GridArgs, const float*, uint32_t, int, int, float*,
-                         unsigned long long*);
+                         GridArgs, const float*, int, const float*, const float*, uint32_t, int,
+                         int, float*, unsigned long long*);
 
 // The instantiation that a launch of these arguments takes.
-template <bool GRID, class Phase, class Short, class Uv>
+template <bool GRID, bool MAT = false, class Phase, class Short, class Uv>
 RKernel r_kernel(Phase, Short, Uv, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
-  if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_CHECK>;
-  return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM>;
+  if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_CHECK, MAT>;
+  return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM, MAT>;
 }
 
-// dynamic shared memory of the R kernel, in bytes, with T triangles
+// dynamic shared memory of the R kernel, in bytes, with T triangles and M
+// material rows
 template <bool GRID>
-size_t r_smem_bytes(int T) {
+size_t r_smem_bytes(int T, int M = 0) {
   return (sweep_floats<true>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-          (GRID ? GRID_MED_LEN + (NQ + 1) * R_RAYS : 0)) *
+          (GRID ? GRID_MED_LEN + (NQ + 1) * R_RAYS : 0) + (size_t)M * MAT_COLS) *
          sizeof(float);
 }
 
@@ -189,25 +206,29 @@ size_t r_smem_bytes(int T) {
 // counts[N_CHECK]); returns a cudaError_t (0 = launched).
 template <bool GRID>
 int launch_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-             const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
-             int svs, int short_vrls, int phase_kind, float* planes, int mode,
-             unsigned long long* counts, float* out, void* stream) {
+             const float* med, GridArgs grid, const float* mat_table, int M, const float* rt,
+             const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
+             int phase_kind, float* planes, int mode, unsigned long long* counts, float* out,
+             void* stream) {
   const int n_chunks = (N + VRL_CHUNK - 1) / VRL_CHUNK;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) ||
-      !mode_ok<true>(mode, counts))
+      !mode_ok<true>(mode, counts) || !mats_ok(mat_table, M, rt) || (GRID && M > 0))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   const dim3 blocks((B + r_tile_rays<GRID>() - 1) / r_tile_rays<GRID>(), n_chunks);
-  const size_t smem = r_smem_bytes<GRID>(T);
+  const size_t smem = r_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    const RKernel kernel = r_kernel<GRID>(phase, short_, uv, mode);
+    RKernel kernel = r_kernel<GRID, false>(phase, short_, uv, mode);
+    if constexpr (!GRID)
+      if (M > 0) kernel = r_kernel<GRID, true>(phase, short_, uv, mode);
     err = allow_smem(kernel, smem);
     if (err == cudaSuccess)
       kernel<<<blocks, RAY_BLOCK, smem, (cudaStream_t)stream>>>(
-          rays, B, vrls, N, tris, T, med, grid, uniforms, seed, svv, svs, out, counts);
+          rays, B, vrls, N, tris, T, med, grid, mat_table, M, rt, uniforms, seed, svv, svs, out,
+          counts);
   });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -222,12 +243,16 @@ extern "C" {
 // triangles' plane pack (may be null for T = 0); mode 0 the R, 1 the
 // checking instantiation (counts: N_CHECK totals, zeroed by the caller,
 // as alvrl_vrl_sum's).
+// mat_table, M and rt: the material table of the material instantiation,
+// as alvrl_vrl_sum's (null, 0, null: the diffuse R).
 int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
-                int short_vrls, int phase_kind, float* planes, int mode,
-                unsigned long long* counts, float* out, void* stream) {
-  return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                         short_vrls, phase_kind, planes, mode, counts, out, stream);
+                const float* med, const float* mat_table, int M, const float* rt,
+                const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
+                int phase_kind, float* planes, int mode, unsigned long long* counts, float* out,
+                void* stream) {
+  return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, mat_table, M, rt, uniforms,
+                         seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
+                         stream);
 }
 
 // The grid-medium R: the grid packs (ops/pack.py), the supersampled
@@ -239,8 +264,8 @@ int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const
                        int short_vrls, int phase_kind, float* planes, int mode,
                        unsigned long long* counts, float* out, void* stream) {
   return launch_r<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                        uniforms, seed, svv, svs, short_vrls, phase_kind, planes, mode, counts,
-                        out, stream);
+                        nullptr, 0, nullptr, uniforms, seed, svv, svs, short_vrls, phase_kind,
+                        planes, mode, counts, out, stream);
 }
 
 // The rays of a tile of the R kernel (grid 0: homogeneous, 1: grid).

@@ -75,6 +75,15 @@
 //     u = (bits >> 8) * 2^-24. Draw order per pair: the vol-vol samples'
 //     (V, U) draws, then the vol-surf samples' draws. `uniforms`, when
 //     given, is read instead, as (B, N, 2 * svv + svs) float32.
+//   * glossy and layered surfaces: kernel 1's material instantiation
+//     (MAT, launched with a material table) evaluates the eye hit's
+//     smooth BSDF at each vol-surf sample (vrl_common.cuh eval_smooth:
+//     the eleven smooth kinds, one nesting level, the rough coats'
+//     transmittance tables read through the read-only path) in place of
+//     the diffuse albedo cos / pi, its M table rows staged in shared
+//     memory after the VRL chunk; the diffuse instantiation is the
+//     unchanged code. Lanes are rays, so a warp's rays may hit different
+//     kinds and diverge in the eval.
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -199,25 +208,34 @@ __global__ void plane_pack_kernel(const float* __restrict__ tris, int T,
   o[3] = make_float4(tr[6], tr[7], tr[8], 0.0f);
 }
 
-template <int PHASE, bool SHORT_VRLS, int MODE>
+// MAT: the material instantiation, which evaluates the eye hit's smooth
+// BSDF from the material table (M rows staged in shared memory after the
+// VRL chunk; vrl_common.cuh eval_smooth) and reads the ray pack's MATID
+// row; MAT = false, the diffuse sum, ignores mat_table, M and rt.
+template <int PHASE, bool SHORT_VRLS, int MODE, bool MAT>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_plane_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                          int N, const float4* __restrict__ planes, int T,
-                         const float* __restrict__ med, const float* __restrict__ uniforms,
+                         const float* __restrict__ med, const float* __restrict__ mat_table,
+                         int M, const float* __restrict__ rt, const float* __restrict__ uniforms,
                          uint32_t seed, int svv, int svs, float* __restrict__ partial,
                          unsigned long long* __restrict__ counts) {
   extern __shared__ float4 smem4[];
   float4* s_planes = smem4;  // (T * PLANE_F4)
   float* s_vrl = reinterpret_cast<float*>(smem4 + T * PLANE_F4);
+  float* s_mat = s_vrl + VRL_ROWS * VRL_CHUNK;  // MAT: (M, MAT_COLS)
   const int chunk = blockIdx.y;
   const int n0 = chunk * VRL_CHUNK;
   for (int i = threadIdx.x; i < T * PLANE_F4; i += blockDim.x) s_planes[i] = planes[i];
   const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl);
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, s_mat);
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Ray ray = load_ray(rays, B, b);
+  Ray ray = load_ray(rays, B, b);
+  if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
   const Medium m(med);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
@@ -232,62 +250,70 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     const VrlPair p = pair_at<false>(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
-                                  [&](int family, const float* t) {
-                                    const float inv = family == 0 ? inv_vv : inv_vs;
+    pair_terms<PHASE, SHORT_VRLS, MAT>(
+        ray, p, m, draw, svv, svs, occl,
+        [&](int family, const float* t) {
+          const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-                                    for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-                                  });
+          for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+        },
+        &mats);
   }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
   if (MODE == MODE_CHECK) add_check_counts(cnt, counts);
 }
 
-// dynamic shared memory of the homogeneous sum, in bytes
-size_t plane_smem_bytes(int T) {
-  return (size_t)T * PLANE_F4 * sizeof(float4) + (size_t)VRL_ROWS * VRL_CHUNK * sizeof(float);
+// dynamic shared memory of the homogeneous sum, in bytes, with T
+// triangles and M material rows (0 for the diffuse sum)
+size_t plane_smem_bytes(int T, int M = 0) {
+  return (size_t)T * PLANE_F4 * sizeof(float4) +
+         ((size_t)VRL_ROWS * VRL_CHUNK + (size_t)M * MAT_COLS) * sizeof(float);
 }
 
-// The instantiation of kernel 1 for (phase, short VRLs, mode).
+// The instantiation of kernel 1 for (phase, short VRLs, mode, material).
 using PlaneKernel = void (*)(const float*, int, const float*, int, const float4*, int,
-                             const float*, const float*, uint32_t, int, int, float*,
-                             unsigned long long*);
+                             const float*, const float*, int, const float*, const float*,
+                             uint32_t, int, int, float*, unsigned long long*);
 
-template <class Phase, class Short>
+template <bool MAT, class Phase, class Short>
 PlaneKernel plane_kernel(Phase, Short, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
-  if (mode == MODE_CHECK) return &vrl_sum_plane_kernel<P, S, MODE_CHECK>;
-  if (mode == MODE_NO_REJECT) return &vrl_sum_plane_kernel<P, S, MODE_NO_REJECT>;
-  return &vrl_sum_plane_kernel<P, S, MODE_SUM>;
+  if (mode == MODE_CHECK) return &vrl_sum_plane_kernel<P, S, MODE_CHECK, MAT>;
+  if (mode == MODE_NO_REJECT) return &vrl_sum_plane_kernel<P, S, MODE_NO_REJECT, MAT>;
+  return &vrl_sum_plane_kernel<P, S, MODE_SUM, MAT>;
 }
+
 
 // Launches kernel 1 and the chunk reduction on `stream`: the plane pack
 // of the T triangles into `planes` (T * PLANE_F4 float4s of scratch),
 // then the sum, in `mode` (MODE_CHECK adds its counts to
 // counts[N_CHECK]). Returns a cudaError_t (0 = launched).
 int launch_homog(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                 const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
-                 int short_vrls, int phase_kind, float* planes, int mode,
-                 unsigned long long* counts, float* partial, int n_chunks, float* out,
-                 void* stream) {
+                 const float* med, const float* mat_table, int M, const float* rt,
+                 const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
+                 int phase_kind, float* planes, int mode, unsigned long long* counts,
+                 float* partial, int n_chunks, float* out, void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || !mode_ok<true, true>(mode, counts))
+      n_chunks > MAX_GRID_Y || !mode_ok<true, true>(mode, counts) || !mats_ok(mat_table, M, rt))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   PlaneKernel kernel = nullptr;
-  dispatch(phase_kind, short_vrls,
-           [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, mode); });
+  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+    kernel = M > 0 ? plane_kernel<true>(phase, short_, mode)
+                   : plane_kernel<false>(phase, short_, mode);
+  });
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  const size_t smem = plane_smem_bytes(T);
+  const size_t smem = plane_smem_bytes(T, M);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, reinterpret_cast<const float4*>(tris),
-                                          T, med, uniforms, seed, svv, svs, partial, counts);
+                                          T, med, mat_table, M, rt, uniforms, seed, svv, svs,
+                                          partial, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * B;
@@ -354,14 +380,22 @@ int alvrl_plane_f4() { return PLANE_F4; }
 // the Wald-only sweep, those skipped by the pre-reject, skipped
 // triangles that block, segments decided differently), 2 the sweep
 // without the pre-reject (timing only).
+//
+// mat_table (M, MAT_COLS), M and rt (M, RT_COS, RT_ALPHA): the material
+// table (ops/pack.py pack_materials) for the material instantiation, whose
+// rays carry the hit's material id in row MATID; null, 0 and null for the
+// diffuse sum.
 int alvrl_vrl_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                  const float* med, const float* uniforms, unsigned int seed, int svv, int svs,
-                  int short_vrls, int phase_kind, float* planes, int mode,
-                  unsigned long long* counts, float* partial, int n_chunks, float* out,
-                  void* stream) {
-  return launch_homog(rays, B, vrls, N, tris, T, med, uniforms, seed, svv, svs, short_vrls,
-                      phase_kind, planes, mode, counts, partial, n_chunks, out, stream);
+                  const float* med, const float* mat_table, int M, const float* rt,
+                  const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
+                  int phase_kind, float* planes, int mode, unsigned long long* counts,
+                  float* partial, int n_chunks, float* out, void* stream) {
+  return launch_homog(rays, B, vrls, N, tris, T, med, mat_table, M, rt, uniforms, seed, svv, svs,
+                      short_vrls, phase_kind, planes, mode, counts, partial, n_chunks, out,
+                      stream);
 }
+
+int alvrl_max_mats() { return MAX_MATS; }
 
 // The plane pack of T triangles into `out` (T, 4 PLANE_F4), as kernel 1
 // makes it; returns a cudaError_t.
@@ -393,8 +427,9 @@ int alvrl_vrl_sum_occupancy(int grid, int T, int uv_steps, int phase_kind, int s
     if (T < 0 || T > MAX_TRIS || (phase_kind != 0 && phase_kind != 1))
       return (int)cudaErrorInvalidValue;
     PlaneKernel kernel = nullptr;
-    dispatch(phase_kind, short_vrls,
-             [&](auto phase, auto short_) { kernel = plane_kernel(phase, short_, MODE_SUM); });
+    dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+      kernel = plane_kernel<false>(phase, short_, MODE_SUM);
+    });
     const size_t smem = plane_smem_bytes(T);
     cudaError_t err = allow_smem(kernel, smem);
     if (err == cudaSuccess)

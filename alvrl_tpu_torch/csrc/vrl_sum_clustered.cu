@@ -77,6 +77,9 @@
 // at weight 1 the result is vrl_sum's (up to f32 summation order).
 // `uniforms`, when given, is read instead, as (B, C, 2 * svv + svs)
 // float32 indexed by ray and table column.
+// Kernel 2 also has a material instantiation (MAT) for glossy and layered
+// surfaces at the eye hit, as vrl_sum.cu's kernel 1 (vrl_common.cuh
+// eval_smooth); its lanes are rays, which may diverge in the eval.
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -90,12 +93,16 @@ static_assert(RAY_BLOCK == N_WARPS * C_RAYS, "a warp a column");
 // Kernel 2: tile blockIdx.x, C_RAYS rays of one row (lane = ray), the
 // warps over the row's columns; tris: the triangles' plane pack, swept
 // by PlaneTris<MODE> (MODE_SUM; MODE_CHECK, which counts; MODE_NO_REJECT).
-template <int PHASE, bool SHORT_VRLS, int MODE>
+// MAT: the material instantiation (vrl_sum.cu's vrl_sum_plane_kernel),
+// its M material rows staged after the warps' sums and the ids.
+template <int PHASE, bool SHORT_VRLS, int MODE, bool MAT>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_clustered_warps_kernel(const float* __restrict__ rays, int B,
                                    const float* __restrict__ vrls, int N,
                                    const float* __restrict__ tris, int T,
                                    const float* __restrict__ med,
+                                   const float* __restrict__ mat_table, int M,
+                                   const float* __restrict__ rt,
                                    const int* __restrict__ tile_rays,
                                    const int* __restrict__ tile_row,
                                    const int* __restrict__ table_ids,
@@ -108,16 +115,25 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   float* s_vrl = s_tri + sweep_floats<true>(T);    // (VRL_ROWS, VRL_CHUNK)
   float* s_acc = s_vrl + VRL_ROWS * VRL_CHUNK;     // (N_WARPS, 3, C_RAYS)
   int* s_id = reinterpret_cast<int*>(s_acc + N_WARPS * 3 * C_RAYS);  // (VRL_CHUNK,)
+  float* s_mat = reinterpret_cast<float*>(s_id + VRL_CHUNK);  // MAT: (M, MAT_COLS)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
   const auto occl = stage_sweep<true, MODE>(tris, T, s_tri, &cnt);
+  Mats mats{};
+  if constexpr (MAT) {
+    mats = stage_mats(mat_table, M, rt, s_mat);
+    __syncthreads();  // attach_mat reads the rows
+  }
 
   const int tile = blockIdx.x;
   const int b = tile_rays[(size_t)tile * C_RAYS + lane];
   const int* ids = table_ids + (size_t)tile_row[tile] * C;
   const float* ws = table_w + (size_t)tile_row[tile] * C;
   Ray ray{};  // padding slots keep ok = false, but join every barrier
-  if (b >= 0) ray = load_ray(rays, B, b);
+  if (b >= 0) {
+    ray = load_ray(rays, B, b);
+    if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
+  }
   const Medium m(med);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
@@ -133,12 +149,14 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       const VrlPair p = pair_at<false>(ray, s_vrl, cc);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
-                                    [&](int family, const float* t) {
-                                      const float inv = family == 0 ? inv_vv : inv_vs;
+      pair_terms<PHASE, SHORT_VRLS, MAT>(
+          ray, p, m, draw, svv, svs, occl,
+          [&](int family, const float* t) {
+            const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-                                      for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-                                    });
+            for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+          },
+          &mats);
     }
   }
 
@@ -224,7 +242,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 
 // The instantiation that a launch of these arguments takes (the mode:
 // MODE_SUM or MODE_CHECK, or homogeneous MODE_NO_REJECT).
-template <bool GRID, class Phase, class Short, class Uv>
+template <bool GRID, bool MAT = false, class Phase, class Short, class Uv>
 auto clustered_kernel(Phase, Short, Uv, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
@@ -232,9 +250,9 @@ auto clustered_kernel(Phase, Short, Uv, int mode) {
     return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK>
                               : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM>;
   } else {
-    if (mode == MODE_CHECK) return &vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK>;
-    if (mode == MODE_NO_REJECT) return &vrl_sum_clustered_warps_kernel<P, S, MODE_NO_REJECT>;
-    return &vrl_sum_clustered_warps_kernel<P, S, MODE_SUM>;
+    if (mode == MODE_CHECK) return &vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK, MAT>;
+    if (mode == MODE_NO_REJECT) return &vrl_sum_clustered_warps_kernel<P, S, MODE_NO_REJECT, MAT>;
+    return &vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>;
   }
 }
 
@@ -248,9 +266,10 @@ constexpr int clustered_tile() {
 // plane pack, the staged table piece and its VRL ids, and the grid's
 // medium and eye-OD tables or the homogeneous warps' per-ray sums
 template <bool GRID>
-size_t clustered_smem_bytes(int T) {
+size_t clustered_smem_bytes(int T, int M = 0) {
   return (sweep_floats<true>(T) + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-          (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : N_WARPS * 3 * C_RAYS)) *
+          (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : N_WARPS * 3 * C_RAYS) +
+          (size_t)M * MAT_COLS) *
              sizeof(float) +
          VRL_CHUNK * sizeof(int);
 }
@@ -263,32 +282,38 @@ size_t clustered_smem_bytes(int T) {
 // launched).
 template <bool GRID>
 int launch_clustered(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                     const float* med, GridArgs grid, const int* tile_rays, const int* tile_row,
-                     int n_tiles, const int* table_ids, const float* table_w, int C,
-                     const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
-                     int phase_kind, float* planes, int mode, unsigned long long* counts,
-                     float* out, void* stream) {
+                     const float* med, GridArgs grid, const float* mat_table, int M,
+                     const float* rt, const int* tile_rays, const int* tile_row, int n_tiles,
+                     const int* table_ids, const float* table_w, int C, const float* uniforms,
+                     unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
+                     float* planes, int mode, unsigned long long* counts, float* out,
+                     void* stream) {
   if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
       svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
-      !mode_ok<true, !GRID>(mode, counts))
+      !mode_ok<true, !GRID>(mode, counts) || !mats_ok(mat_table, M, rt) || (GRID && M > 0))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = clustered_smem_bytes<GRID>(T);
+  const size_t smem = clustered_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
   dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return;
-    if constexpr (GRID)
+    if constexpr (GRID) {
+      const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
+      err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return;
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
                                                svv, svs, out, counts);
-    else
-      kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays,
-                                               tile_row, table_ids, table_w, C, uniforms, seed,
-                                               svv, svs, out, counts);
+    } else {
+      const auto kernel = M > 0 ? clustered_kernel<GRID, true>(phase, short_, uv, mode)
+                                : clustered_kernel<GRID, false>(phase, short_, uv, mode);
+      err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return;
+      kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, mat_table, M, rt,
+                                               tile_rays, tile_row, table_ids, table_w, C,
+                                               uniforms, seed, svv, svs, out, counts);
+    }
   });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -313,15 +338,19 @@ int alvrl_clustered_ray_block(int grid) {
 // without the plane pre-reject (its output must be the same bit for
 // bit); `out` is (3, B), written only at the rays of the tiles.
 // `uniforms` may be null (Philox stream from `seed`).
+// mat_table, M and rt: the material table of the material instantiation,
+// as alvrl_vrl_sum's (null, 0, null: the diffuse sum).
 int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
-                            const float* tris, int T, const float* med, const int* tile_rays,
-                            const int* tile_row, int n_tiles, const int* table_ids,
-                            const float* table_w, int C, const float* uniforms, unsigned int seed,
-                            int svv, int svs, int short_vrls, int phase_kind, float* planes,
-                            int mode, unsigned long long* counts, float* out, void* stream) {
-  return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays, tile_row,
-                                 n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
-                                 short_vrls, phase_kind, planes, mode, counts, out, stream);
+                            const float* tris, int T, const float* med, const float* mat_table,
+                            int M, const float* rt, const int* tile_rays, const int* tile_row,
+                            int n_tiles, const int* table_ids, const float* table_w, int C,
+                            const float* uniforms, unsigned int seed, int svv, int svs,
+                            int short_vrls, int phase_kind, float* planes, int mode,
+                            unsigned long long* counts, float* out, void* stream) {
+  return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, mat_table, M, rt,
+                                 tile_rays, tile_row, n_tiles, table_ids, table_w, C, uniforms,
+                                 seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
+                                 stream);
 }
 
 // The grid-medium clustered sum: the grid packs (ops/pack.py), the
@@ -337,7 +366,8 @@ int alvrl_vrl_sum_hetero_clustered(const float* rays, int B, const float* vrls, 
                                    int short_vrls, int phase_kind, float* planes, int mode,
                                    unsigned long long* counts, float* out, void* stream) {
   return launch_clustered<true>(rays, B, vrls, N, tris, T, med,
-                                GridArgs{density, nz, ny, nx, uv_steps}, tile_rays, tile_row,
+                                GridArgs{density, nz, ny, nx, uv_steps}, nullptr, 0, nullptr,
+                                tile_rays, tile_row,
                                 n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
                                 short_vrls, phase_kind, planes, mode, counts, out, stream);
 }

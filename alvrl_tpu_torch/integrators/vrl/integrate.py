@@ -3,7 +3,8 @@
 Counterpart of alvrl_tpu/integrators/vrl/integrate.py: the render
 configuration, the two samplers of the estimator (Kulla-Fajardo
 equi-angular sampling, and inverse-distance sampling of a point on the
-VRL by the sinh/asinh warp), and the grid-medium reads of
+VRL by the sinh/asinh warp), the eye hit's smooth BSDF factor
+(bsdf_eval_smooth), and the grid-medium reads of
 pair_contribution's table branch (integrate.py:248-335): the density at
 a point and the optical depth of a U-V segment, from the kernels' grid
 medium pack, and the eye and VRL cumulative-OD tables interpolated by
@@ -129,6 +130,20 @@ def sample_v_to_distance(eye_o, eye_d, eye_hit, vrl_s, vrl_e, u):
     v = torch.where(near_parallel[..., None], v_uni, v_kulla)
     pdf = torch.where(near_parallel, pdf_uni, pdf_kulla)
     return v, pdf
+
+
+def bsdf_eval_smooth(materials, mat_id, ng, wi_world, wo_world, kinds=None):
+    """BSDF eval times cos(theta_o) of the smooth (ESmooth) components of
+    the material table `materials`: the vol-surf factor at the eye hit
+    (bsdf->eval(bRec), vrlIntegrator.cpp:758-761), wi_world pointing from
+    the surface to the eye, wo_world toward V; the delta kinds evaluate
+    to 0. Delegates to bsdf.api.eval_smooth, as the reference's
+    integrate.py does; the material kernels' plain version
+    (ops.vrl_sum._pair_terms) reads it."""
+    from alvrl_tpu_torch.bsdf import api as bsdf_api
+
+    return bsdf_api.eval_smooth(materials, mat_id, ng, wi_world, wo_world,
+                                kinds)
 
 
 # grid medium pack rows (ops.pack.GRID_MED_LEN)

@@ -14,6 +14,15 @@ medium: a grid medium goes through the grid packs and the grid kernels
 (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered), with the
 supersampled density computed once per call. Sums are normalised by
 the traced-particle count.
+
+And on the scene's material kinds (bsdf.api.check_kinds, the table's
+host copy of them, so no sync): a table that holds a smooth kind other than DIFFUSE (a
+glossy or layered surface, whose eye-side term the diffuse kernels do
+not evaluate) takes the material instantiations of kernels 1, 2 and 5
+(material_pack; the homogeneous unclustered, specular-chain and
+clustered renders and R); the routes that have none yet (the grid
+kernels 3, 4 and 6, the BVH kernel 7, the backward kernels 8-11) refuse
+such a table by name (ROADMAP A12) rather than drop its term.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.bsdf import api as bsdf_api
 from alvrl_tpu_torch.film import film as film_mod
 from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
@@ -71,16 +81,52 @@ def _eye_hits(scene: Scene, ray_o, hit):
     return hit, scene.material[hit.prim.clamp(min=0)]
 
 
-def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs):
+def material_pack(scene: Scene):
+    """The material pack (ops.pack.pack_materials) that the material
+    instantiations of kernels 1, 2 and 5 take, when the scene's table
+    holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy); None
+    otherwise, for the diffuse instantiations."""
+    return pk.pack_materials(scene.materials) if bsdf_api.has_glossy(
+        bsdf_api.check_kinds(scene)) else None
+
+
+def refuse_glossy(scene: Scene, route: str):
+    """Raise, naming `route` and its ROADMAP item, if the scene's table
+    holds a smooth kind other than DIFFUSE, whose eye-side term the
+    route's kernels do not evaluate."""
+    kinds = bsdf_api.check_kinds(scene)
+    if bsdf_api.has_glossy(kinds):
+        raise ValueError(f"{route} evaluates the diffuse eye-side term only: "
+                         f"material kinds {sorted(kinds)} need its material "
+                         "instantiation (ROADMAP A12)")
+
+
+def _homogeneous_materials(scene: Scene, route: str):
+    """material_pack in a homogeneous medium; in a grid medium, None after
+    refuse_glossy (the grid kernels have no material instantiation)."""
+    if mapi.is_homogeneous(scene.medium):
+        return material_pack(scene)
+    refuse_glossy(scene, route)
+    return None
+
+
+def _mat_kw(materials):
+    return {} if materials is None else {"materials": materials}
+
+
+def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs, materials=None):
     """The eye rays' closest hits and the packs of the scene's kernels:
     (hit, packs), packs = (rays, vrls, tris, medium) for a homogeneous
-    medium (ops.vrl_sum.vrl_sum's), and (rays, vrls, tris, medium,
-    density_ss) for a grid medium (vrl_sum_hetero's: the grid packs and
-    the supersampled density, computed here from the current density)."""
+    medium (ops.vrl_sum.vrl_sum's; with a material pack, `materials`, the
+    rays' pack holds the hits' material ids, as the material
+    instantiations read them), and (rays, vrls, tris, medium, density_ss)
+    for a grid medium (vrl_sum_hetero's: the grid packs and the
+    supersampled density, computed here from the current density)."""
     hit, mat = trace_eye_rays(scene, ray_o, ray_d)
     med = scene.medium
     if mapi.is_homogeneous(med):
-        return hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
+        return hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat,
+                                  with_mat=materials is not None),
                      pk.pack_vrls(vrls), pk.pack_tris(scene),
                      pk.pack_medium(scene))
     density_ss = gmed.upsample2(med.density)
@@ -103,11 +149,11 @@ def frame_rays(scene: Scene, jitter=None):
     return (px, py, *perspective.sample_ray(scene.camera, px, py, jitter))
 
 
-def pack_frame(scene: Scene, vrls: VRLs, jitter=None):
+def pack_frame(scene: Scene, vrls: VRLs, jitter=None, materials=None):
     """The eye rays of frame_rays, their closest hits, and the packs of
     the scene's kernels (pack_rays_vrls). Returns (px, py, hit, packs)."""
     px, py, ray_o, ray_d = frame_rays(scene, jitter)
-    hit, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
+    hit, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls, materials)
     return px, py, hit, packs
 
 
@@ -130,6 +176,7 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None):
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
+    refuse_glossy(scene, "the large-mesh render (kernel 7)")
     px, py, ray_o, ray_d = frame_rays(scene, jitter)
     hit, mat = trace_eye_rays_bvh(scene, ray_o, ray_d)
     return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
@@ -151,10 +198,13 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     the CPU). `uniforms`, (W * H, N, 2 * vol_vol + vol_surf) float32 on
     the scene's device, replaces the random stream (for exact checks);
     `jitter`, (W * H, 2) on the scene's device, moves each pixel's ray
-    off its centre (frame_rays; the JAX package's antialias). Returns
-    the (H, W, 3) image."""
+    off its centre (frame_rays; the JAX package's antialias). A glossy
+    or layered table takes kernel 1's material instantiation (module
+    docstring); in a grid medium it is refused. Returns the (H, W, 3)
+    image."""
+    materials = _homogeneous_materials(scene, "the grid render (kernel 3)")
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
-                   generator, cfg, uniforms, jitter)
+                   generator, cfg, uniforms, jitter, materials)
 
 
 def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
@@ -192,7 +242,9 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     powers and the eye transmittance. The grid signature has neither
     the CP factors nor their `dens_scale` multiplier (ROADMAP C9, C10): a
     density multiplier is the medium's `scale` or a product on its
-    density, through which autograd chains."""
+    density, through which autograd chains. A glossy or layered table is
+    refused (no material instantiation of kernels 8 and 9 yet)."""
+    refuse_glossy(scene, "the differentiable render (kernels 8 and 9)")
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
                    vrls, generator, cfg, uniforms, None)
 
@@ -235,6 +287,8 @@ def li_unclustered_spec_u(scene: Scene, ray_o, ray_d, vrls: VRLs, u_chain,
 def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
                    spec_cfg):
     med = scene.medium
+    materials = _homogeneous_materials(
+        scene, "the grid medium's plain chain (kernel 3's plain version)")
     density_ss = None if mapi.is_homogeneous(med) else gmed.upsample2(
         med.density)
     if density_ss is None:
@@ -250,8 +304,10 @@ def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
                   weight=weight)
         u = sum_uniforms(depth, idx)
         if density_ss is None:
-            out = vrl_sum_reference(pk.pack_rays(scene, o, d, hit, mat),
-                                    *side, u, **kw)
+            out = vrl_sum_reference(
+                pk.pack_rays(scene, o, d, hit, mat,
+                             with_mat=materials is not None),
+                *side, u, materials=materials, **kw)
         else:
             out = vrl_sum_hetero_reference(
                 pk.pack_rays_hetero(scene, o, d, hit, mat, density_ss),
@@ -273,7 +329,8 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
     mirrors, dielectrics and null boundaries (specular.li_specular_chain):
     each chain depth packs its rays (a delta surface packs albedo 0) and
     launches ops.vrl_sum (kernel 1) once, and the chain weight multiplies
-    its per-ray output. Counterpart of alvrl_tpu's
+    its per-ray output; a glossy or layered table takes kernel 1's
+    material instantiation at every depth. Counterpart of alvrl_tpu's
     render_with_vrls_pallas_spec; homogeneous media only, as there.
 
     The chain's uniforms (max_depth, W * H, specular.N_CHAIN_DIMS), then
@@ -291,14 +348,16 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
         raise ValueError("the specular-chain render takes a homogeneous "
                          "medium only, as the JAX package's "
                          "render_with_vrls_pallas_spec (ROADMAP A7)")
+    materials = material_pack(scene)
     px, py, ray_o, ray_d = frame_rays(scene)
     u_chain, seeds = _chain_draws(generator, spec_cfg, ray_o.shape[0],
                                   scene.device)
     side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
-    kw = _kernel_args(scene, cfg)
+    kw = dict(_kernel_args(scene, cfg), **_mat_kw(materials))
 
     def li_at_hit(o, d, hit, mat, idx, depth, weight):
-        out = vrl_sum(pk.pack_rays(scene, o, d, hit, mat), *side,
+        out = vrl_sum(pk.pack_rays(scene, o, d, hit, mat,
+                                   with_mat=materials is not None), *side,
                       seed=seeds[depth],
                       uniforms=None if uniforms is None else uniforms[depth,
                                                                       idx],
@@ -341,10 +400,11 @@ def _kernel_args(scene, cfg):
     return kw
 
 
-def _render(sum_fn, scene, vrls, generator, cfg, uniforms, jitter):
-    px, py, hit, packs = pack_frame(scene, vrls, jitter)
+def _render(sum_fn, scene, vrls, generator, cfg, uniforms, jitter,
+            materials=None):
+    px, py, hit, packs = pack_frame(scene, vrls, jitter, materials)
     sums = sum_fn(*packs, seed=draw_seed(generator), uniforms=uniforms,
-                  **_kernel_args(scene, cfg))
+                  **_kernel_args(scene, cfg), **_mat_kw(materials))
     return develop_sums(scene, vrls, px, py, hit, sums)
 
 
@@ -356,10 +416,13 @@ def build_R_kernel(scene: Scene, ray_o, ray_d, vrls: VRLs, seed: int,
     each, normalised by the particle count and its square
     (getVRLContributions). Counterpart of alvrl_tpu's build_R_pallas;
     `uniforms` (P, N, 2 * vol_vol + vol_surf) replaces the Philox stream
-    of `seed`."""
-    _, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls)
+    of `seed`. A glossy or layered table takes kernel 5's material
+    instantiation; in a grid medium it is refused."""
+    materials = _homogeneous_materials(scene, "the grid R (kernel 6)")
+    _, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls, materials)
     out = _kernel(scene, vrl_r, vrl_r_hetero)(
-        *packs, seed=seed, uniforms=uniforms, **_kernel_args(scene, cfg))
+        *packs, seed=seed, uniforms=uniforms, **_kernel_args(scene, cfg),
+        **_mat_kw(materials))
     norm = 1.0 / torch.clamp(vrls.particle_count, min=1.0)
     return out[0] * norm, out[1] * (norm * norm)
 
@@ -381,11 +444,15 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
     against that one-row table, with the same seed: each pixel's pairs
     are drawn in one launch only. The seed is drawn from `generator`;
     `uniforms` (W * H, C, 2 * vol_vol + vol_surf) replaces the main
-    launch's random stream. Returns the (H, W, 3) image."""
+    launch's random stream. A glossy or layered table takes kernel 2's
+    material instantiation; in a grid medium it is refused. Returns the
+    (H, W, 3) image."""
+    materials = _homogeneous_materials(scene,
+                                       "the grid clustered render (kernel 4)")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered), scene,
         vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
-        fallback, uniforms)
+        fallback, uniforms, materials)
 
 
 def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
@@ -401,7 +468,10 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     geometry is detached. The composition of the reference's
     vrl_sum_clustered_diff with render_clustered_pallas's table build
     (tests/test_pallas_bwd.py:220-235, 277-293); as there, no CP factors
-    and no density multiplier (ROADMAP C9, C10)."""
+    and no density multiplier (ROADMAP C9, C10). A glossy or layered table
+    is refused (no material instantiation of kernels 10 and 11 yet)."""
+    refuse_glossy(scene, "the differentiable clustered render (kernels 10 "
+                  "and 11)")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered_diff, vrl_sum_hetero_clustered_diff),
         scene, vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
@@ -409,9 +479,11 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
 
 
 def _render_clustered(clustered, scene, vrls, slice_of_pixel, table_ids,
-                      table_weights, generator, cfg, fallback, uniforms):
-    px, py, hit, packs = pack_frame(scene, vrls)
-    kw = dict(seed=draw_seed(generator), **_kernel_args(scene, cfg))
+                      table_weights, generator, cfg, fallback, uniforms,
+                      materials=None):
+    px, py, hit, packs = pack_frame(scene, vrls, materials=materials)
+    kw = dict(seed=draw_seed(generator), **_kernel_args(scene, cfg),
+              **_mat_kw(materials))
     sums = clustered(*packs, slice_of_pixel, table_ids, table_weights,
                      uniforms=uniforms, **kw)
     fb_pixels = np.asarray(torch.as_tensor(slice_of_pixel).cpu()) < 0

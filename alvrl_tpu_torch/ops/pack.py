@@ -20,13 +20,32 @@ import torch
 from alvrl_tpu_torch.core import math as m
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import homogeneous as hmed
-from alvrl_tpu_torch.scene.scene import DIFFUSE, Scene
+from alvrl_tpu_torch.scene.scene import DIFFUSE, Materials, Scene
 
 # ray pack rows, (RAY_ROWS, B): origin, direction, hit point, normal at
 # the hit (facing the ray), diffuse albedo at the hit, transmittance eye
-# -> hit, hit valid (0/1)
+# -> hit, hit valid (0/1); the material kernels' pack (MAT_RAY_ROWS, B)
+# adds the hit's material id (MATID)
 RO, RD, HP, NG, ALB, TAU, VALID = 0, 3, 6, 9, 12, 15, 18
 RAY_ROWS = 19
+MATID = RAY_ROWS
+MAT_RAY_ROWS = MATID + 1
+# material pack, (M, MAT_COLS): kind, albedo (3), eta, alpha, alpha_v, the
+# microfacet distribution, specular (3), exponent, opacity, nested,
+# nested2, albedo2 (3), the rough-transmittance table's alpha span, the
+# smooth flag (bsdf.api.smooth_flags, 0/1); ids and kinds as floats. The
+# rough-transmittance tables go beside it as their own contiguous
+# (M, RT_COS, RT_ALPHA) tensor.
+(MT_KIND, MT_ALB, MT_ETA, MT_ALPHA, MT_ALPHA_V, MT_DIST, MT_SPEC, MT_EXP,
+ MT_OPAC, MT_NESTED, MT_NESTED2, MT_ALB2, MT_RT_AMAX, MT_SMOOTH) = (
+    0, 1, 4, 5, 6, 7, 8, 11, 12, 13, 14, 15, 18, 19)
+MAT_COLS = 20
+_MAT_COLUMNS = (("kind", MT_KIND), ("albedo", MT_ALB), ("eta", MT_ETA),
+                ("alpha", MT_ALPHA), ("alpha_v", MT_ALPHA_V),
+                ("dist", MT_DIST), ("specular", MT_SPEC),
+                ("exponent", MT_EXP), ("opacity", MT_OPAC),
+                ("nested", MT_NESTED), ("nested2", MT_NESTED2),
+                ("albedo2", MT_ALB2), ("rt_alpha_max", MT_RT_AMAX))
 # vrl pack rows, (VRL_ROWS, N): start, end, power, valid (0/1)
 VS, VE, VP, VVALID = 0, 3, 6, 9
 VRL_ROWS = 10
@@ -56,12 +75,45 @@ def _ray_cols(scene: Scene, ray_o, ray_d, hit, mat, tau_eu):
             hit.valid.to(torch.float32)[..., None]]
 
 
-def pack_rays(scene: Scene, ray_o, ray_d, hit, mat):
+def pack_rays(scene: Scene, ray_o, ray_d, hit, mat, with_mat=False):
     """(RAY_ROWS, B) rows of the eye rays and their closest hits, as
-    integrators.vrl.integrator.trace_eye_rays gives them (hit, mat)."""
+    integrators.vrl.integrator.trace_eye_rays gives them (hit, mat); with
+    with_mat, (MAT_RAY_ROWS, B), the material kernels' pack, which adds
+    the hit material's id."""
     tau_eu = hmed.eval_transmittance(scene.medium, m.length(hit.p - ray_o))
-    return torch.cat(_ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu),
-                     dim=-1).T.contiguous()
+    cols = _ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu)
+    if with_mat:
+        cols.append(mat.to(torch.float32)[..., None])
+    return torch.cat(cols, dim=-1).T.contiguous()
+
+
+def pack_materials(mats: Materials):
+    """The material kernels' table: ((M, MAT_COLS) float32 rows, the
+    (M, RT_COS, RT_ALPHA) rough-transmittance tables), both contiguous."""
+    from alvrl_tpu_torch.bsdf.api import smooth_flags
+
+    cols = [getattr(mats, k).to(torch.float32).reshape(mats.kind.shape[0],
+                                                       -1)
+            for k, _ in _MAT_COLUMNS]
+    cols.append(smooth_flags(mats).to(torch.float32)[:, None])
+    return (torch.cat(cols, dim=1).contiguous(),
+            mats.rt_table.to(torch.float32).contiguous())
+
+
+def materials_from_pack(table, rt_tables):
+    """The Materials that a material pack holds (pack_materials), its ids
+    clamped into [0, M) as the kernels clamp them."""
+    n = table.shape[0]
+    out = {}
+    for (k, c), (_, c1) in zip(_MAT_COLUMNS, _MAT_COLUMNS[1:] + (
+            ("smooth", MT_SMOOTH),)):
+        col = table[:, c:c1]
+        out[k] = col if c1 - c == 3 else col[:, 0]
+    for k in ("kind", "dist", "nested", "nested2"):
+        out[k] = out[k].to(torch.int64)
+    for k in ("nested", "nested2"):
+        out[k] = out[k].clamp(0, n - 1)
+    return Materials(**out, rt_table=rt_tables)
 
 
 def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss):

@@ -42,7 +42,7 @@ from alvrl_tpu_torch.ops import vrl_sum as vs
 
 
 def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind,
-            grid):
+            grid, mats=None):
     """(mean, var), each (R, N), for a block of R rays (see module)."""
     shape = (rays.shape[1], vrls.shape[1])
     sums = {f: torch.zeros(shape, dtype=rays.dtype, device=rays.device)
@@ -50,7 +50,7 @@ def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind,
     squares = {f: torch.zeros_like(sums[f]) for f in sums}
     w0, w1, w2 = LUM_WEIGHTS
     for family, term in vs._pair_terms(rays, vrls, tris, medium, u, svv, svs,
-                                       short_vrls, phase_kind, grid):
+                                       short_vrls, phase_kind, grid, mats):
         lum = w0 * term[..., 0] + w1 * term[..., 1] + w2 * term[..., 2]
         sums[family] += lum
         squares[family] += lum * lum
@@ -68,27 +68,29 @@ def _pair_r(rays, vrls, tris, medium, u, svv, svs, short_vrls, phase_kind,
 
 
 def _reference(rays, vrls, tris, medium, uniforms, svv, svs, short_vrls,
-               phase_kind, grid):
+               phase_kind, grid, materials=None):
     n_rays = rays.shape[1]
     out = torch.zeros((2, n_rays, vrls.shape[1]), dtype=rays.dtype,
                       device=rays.device)
+    mats = vs._plain_materials(materials)
     for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
         b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
         mean, var = _pair_r(rays[:, b0:b1], vrls, tris, medium,
                             uniforms[b0:b1], svv, svs, short_vrls,
-                            phase_kind, grid)
+                            phase_kind, grid, mats)
         out[0, b0:b1], out[1, b0:b1] = mean, var
     return out
 
 
 def vrl_r_reference(rays, vrls, tris, medium, uniforms, *,
                     vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                    phase_kind=ph.HG):
+                    phase_kind=ph.HG, materials=None):
     """Plain PyTorch version of the kernel on the same packs, with
     explicit (P, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
-    Returns (2, P, N)."""
+    Returns (2, P, N). `materials` as ops.vrl_sum.vrl_sum_reference's."""
     return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
-                      vol_surf_samples, short_vrls, phase_kind, None)
+                      vol_surf_samples, short_vrls, phase_kind, None,
+                      materials)
 
 
 def vrl_r_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
@@ -106,7 +108,7 @@ def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, u, i, i, i, i, p, i, p, p, p]
-    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, *tail]
+    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, *tail]
     lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
                                        *tail]
     lib.alvrl_vrl_r_tile_rays.argtypes = [i]
@@ -123,11 +125,13 @@ def tile_rays(grid):
 
 
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
-            short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM, counts=None):
+            short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM, counts=None,
+            materials=None):
     """The kernel on checked inputs, on the current stream: (2, P, N).
-    grid = (density, uv_steps) for the grid kernel. Both sweep the
-    triangles' plane pack (made here into scratch) in `mode` (MODE_CHECK
-    adds its counts to `counts`, (len(vs.CHECK_COUNTS),) int64)."""
+    grid = (density, uv_steps) for the grid kernel; `materials` for the
+    homogeneous material instantiation. Both sweep the triangles' plane
+    pack (made here into scratch) in `mode` (MODE_CHECK adds its counts
+    to `counts`, (len(vs.CHECK_COUNTS),) int64)."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
                       device=rays.device)
@@ -141,7 +145,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             None if counts is None else counts.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(rays.device).cuda_stream)
     if grid is None:
-        err = lib.alvrl_vrl_r(*head, *tail)
+        err = lib.alvrl_vrl_r(*head, *vs.mat_args(materials), *tail)
     else:
         err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid), *tail)
     if err != 0:
@@ -151,12 +155,12 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
 
 
 def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
-       phase_kind, grid, mode=vs.MODE_SUM):
+       phase_kind, grid, mode=vs.MODE_SUM, materials=None):
     """The wrappers' body (see vrl_r), counting a launch on `fn`; mode
     MODE_CHECK (CUDA tensors only) returns (out, {name: total} of
     vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              grid=grid)
+              grid=grid, materials=materials)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     checking = mode == vs.MODE_CHECK
     if checking and rays.device.type != "cuda":
@@ -165,11 +169,12 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
         if uniforms is None:
             uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
         return _reference(rays, vrls, tris, medium, uniforms, svv, svs,
-                          short_vrls, phase_kind, grid)
+                          short_vrls, phase_kind, grid, materials)
     lib = _library()
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
+    vs.check_mats_cap(lib, materials)
     counts = (torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
                           device=rays.device) if checking else None)
     if n_rays == 0 or n_vrls == 0:
@@ -178,7 +183,8 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     else:
         with torch.cuda.device(rays.device):
             out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
-                          svs, short_vrls, phase_kind, grid, mode, counts)
+                          svs, short_vrls, phase_kind, grid, mode, counts,
+                          materials)
         fn.launches += 1
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
@@ -187,16 +193,18 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
 
 def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
           vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-          phase_kind=ph.HG):
+          phase_kind=ph.HG, materials=None):
     """(2, P, N) per-pair luminance [mean, variance of the mean] (not
     normalised by the particle count) of the P eye rays of `rays`
     (RAY_ROWS, P) against the VRLs of `vrls` (VRL_ROWS, N); packs as
     ops.vrl_sum.vrl_sum takes them. Random numbers come from the Philox
     stream of `seed`, counter (p, n, call, 0), or from `uniforms` (P, N,
-    2 * vol_vol_samples + vol_surf_samples) when given. CUDA tensors go
-    through the CUDA kernel, CPU tensors through vrl_r_reference."""
+    2 * vol_vol_samples + vol_surf_samples) when given. `materials`, as
+    ops.vrl_sum.vrl_sum's, takes the material instantiation. CUDA tensors
+    go through the CUDA kernel, CPU tensors through vrl_r_reference."""
     return _r(vrl_r, rays, vrls, tris, medium, seed, uniforms,
-              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None)
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None,
+              materials=materials)
 
 
 vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel
@@ -204,7 +212,7 @@ vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel
 
 def vrl_r_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
                 vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                phase_kind=ph.HG):
+                phase_kind=ph.HG, materials=None):
     """vrl_r's (2, P, N) through kernel 5's checking instantiation (a
     launch counted here, not on vrl_r), which decides every shadow
     segment by the Wald test alone and runs the plane pre-reject beside
@@ -212,7 +220,7 @@ def vrl_r_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
     return _r(vrl_r_check, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None,
-              mode=vs.MODE_CHECK)
+              mode=vs.MODE_CHECK, materials=materials)
 
 
 vrl_r_check.launches = 0  # checking launches

@@ -19,6 +19,15 @@ sample adds its density reads and OD interpolations); the CUDA kernel
 chip and splits both the ray and the VRL axes over the grid so that the
 card is full.
 
+Glossy and layered surfaces at the eye hit take kernel 1's material
+instantiation: the wrappers and plain versions take `materials`, the
+material pack of ops.pack.pack_materials, with the ray pack that holds
+the hit's material id (ops.pack.MAT_RAY_ROWS rows), and the vol-surf
+term evaluates the hit's smooth BSDF (integrate.bsdf_eval_smooth in
+the plain version, vrl_common.cuh eval_smooth in the kernel) in place of
+albedo cos_o / pi. Homogeneous media only; the clustered sum and R take
+it the same way.
+
 Beside the kernel:
   * `vrl_sum_reference` and `vrl_sum_hetero_reference`, the plain
     PyTorch versions on the same packs, built from
@@ -46,6 +55,7 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import _build
 from alvrl_tpu_torch.ops import pack as pk
+from alvrl_tpu_torch.scene.scene import RT_ALPHA, RT_COS
 
 # ---------------------------------------------------------------------------
 # Philox4x32-10 (Salmon et al., Random123) on int64 tensors holding uint32
@@ -236,8 +246,20 @@ def _vrl_side(vrls):
             vrls[pk.VOD:].movedim(0, -1))
 
 
+def _plain_materials(materials):
+    """The plain version's view of a material pack (ops.pack.
+    pack_materials' (table, rt_tables)): (Materials, the set of kinds, the
+    (M,) smooth flags), or None for the diffuse sum."""
+    if materials is None:
+        return None
+    table, rt_tables = materials
+    return (pk.materials_from_pack(table, rt_tables),
+            frozenset(table[:, pk.MT_KIND].long().tolist()),
+            table[:, pk.MT_SMOOTH] > 0.5)
+
+
 def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
-                phase_kind, grid=None):
+                phase_kind, grid=None, mats=None):
     """The estimator, once: yields (family, term) for each sample of the
     pairs of a block of R rays, in draw order, where term (R, N, 3) is
     the raw per-sample contribution (not divided by the family's sample
@@ -260,7 +282,13 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     grid branch also the points U and V, moved to the segments' starts,
     and |E - U|, |U - V|, set to 0, so that their voxel indices are
     finite and in range), since torch.where passes NaN or inf of the
-    unselected branch into the gradient."""
+    unselected branch into the gradient.
+
+    mats (_plain_materials; homogeneous packs only, with the MATID row):
+    the vol-surf term evaluates the eye hit's smooth BSDF,
+    integrate.bsdf_eval_smooth(-d, -vu), in place of albedo cos_o / pi, and is
+    gated by the hit material's smooth flag; the material kernels' plain
+    version (not differentiable: no VJP takes it)."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -346,7 +374,12 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             * geo[..., None]
         yield VV, torch.where(ok[..., None], term, 0.0)
 
-    alb_any = alb.sum(dim=-1) > 0.0
+    if mats is None:
+        alb_any = alb.sum(dim=-1) > 0.0
+    else:
+        materials, kinds, smooth = mats
+        mat_id = rays[pk.MATID].long().clamp(0, smooth.shape[0] - 1)[:, None]
+        alb_any = smooth[mat_id]
     for k in range(svs):
         v, pdf_v = integrate.kulla_sampling(s, e, hp, u[..., 2 * svv + k])
         d_uv2, d_uv, vu = segment(hp, v)
@@ -354,6 +387,16 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         ok = ok & ~_occluded_packed(hp, v, tris)
         vu, d_uv, d_sv, pdf_d2 = masked(ok, vu, d_uv, m.distance(s, v),
                                         pdf_v * d_uv2)
+        if mats is not None:
+            geo = phase(-uv, vu) / torch.clamp(pdf_d2, min=1e-30)
+            if short_vrls:
+                geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
+            f = integrate.bsdf_eval_smooth(materials, mat_id, ng, -d, -vu,
+                                           kinds)
+            term = pw * sig_s * f * tau \
+                * torch.exp(-sig_t * (d_uv + d_sv)[..., None]) * geo[..., None]
+            yield VS, torch.where(ok[..., None], term, 0.0)
+            continue
         cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
         geo = phase(-uv, vu) * cos_o * (1.0 / math.pi) / torch.clamp(
             pdf_d2, min=1e-30)
@@ -373,40 +416,44 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
 
 
 def _pair_sums(rays, vrls, tris, medium, u, svv, svs, short_vrls,
-               phase_kind, grid=None):
+               phase_kind, grid=None, mats=None):
     """(R, 3) sums over the VRLs for a block of R rays: each family's
     samples averaged, the families added (see _pair_terms)."""
     total = torch.zeros((rays.shape[1], 1, 3), dtype=rays.dtype,
                         device=rays.device)
     for family, term in _pair_terms(rays, vrls, tris, medium, u, svv, svs,
-                                    short_vrls, phase_kind, grid):
+                                    short_vrls, phase_kind, grid, mats):
         total = total + term * (1.0 / (svv if family == VV else svs))
     return total.sum(dim=1)
 
 
 def _reference(rays, vrls, tris, medium, uniforms, svv, svs, short_vrls,
-               phase_kind, grid):
+               phase_kind, grid, materials=None):
     n_rays = rays.shape[1]
     out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
+    mats = _plain_materials(materials)
     for b0 in range(0, n_rays, _PLAIN_RAY_CHUNK):
         b1 = min(n_rays, b0 + _PLAIN_RAY_CHUNK)
         out[:, b0:b1] = _pair_sums(
             rays[:, b0:b1], vrls, tris, medium, uniforms[b0:b1], svv, svs,
-            short_vrls, phase_kind, grid).T
+            short_vrls, phase_kind, grid, mats).T
     return out
 
 
 def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
                       vol_vol_samples=2, vol_surf_samples=2,
-                      short_vrls=True, phase_kind=ph.HG, weight=None):
+                      short_vrls=True, phase_kind=ph.HG, weight=None,
+                      materials=None):
     """Plain PyTorch version of the kernel on the same packs, with
     explicit (B, N, 2 * vol_vol_samples + vol_surf_samples) uniforms.
     Rays go in blocks of _PLAIN_RAY_CHUNK, so it fits at full size.
     `weight`, (B, 3), multiplies each ray's sums: a specular chain's path
     weight, which the reference's vrl_sum folds into every VRL power
-    (the sum is linear in it)."""
+    (the sum is linear in it). `materials`, the material pack (vrl_sum's),
+    takes the material instantiation's sum on rays (MAT_RAY_ROWS, B)."""
     out = _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
-                     vol_surf_samples, short_vrls, phase_kind, None)
+                     vol_surf_samples, short_vrls, phase_kind, None,
+                     materials)
     return out if weight is None else out * weight.T
 
 
@@ -440,11 +487,22 @@ CHECK_COUNTS = ("segments", "considered", "skipped", "bad_tris",
                 "bad_segments")
 
 
+def mat_args(materials):
+    """The C entries' material arguments (table, M, rt_tables): the
+    material pack's pointers and row count, or none (the diffuse
+    instantiation)."""
+    if materials is None:
+        return (None, 0, None)
+    table, rt_tables = materials
+    return (table.data_ptr(), table.shape[0], rt_tables.data_ptr())
+
+
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
-            short_vrls, phase_kind, grid=None, mode=MODE_SUM, counts=None):
+            short_vrls, phase_kind, grid=None, mode=MODE_SUM, counts=None,
+            materials=None):
     """The kernel on checked inputs. Homogeneous packs: kernel 1 in
     `mode` (MODE_CHECK adds its counts to `counts`, (len(CHECK_COUNTS),)
-    int64)."""
+    int64), its material instantiation with `materials`."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
@@ -460,7 +518,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
         planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
                              dtype=torch.float32, device=rays.device)
         err = lib.alvrl_vrl_sum(
-            *head, *uni, planes.data_ptr() if tris.shape[0] else None, mode,
+            *head, *mat_args(materials), *uni,
+            planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid), *uni, *tail)
@@ -475,13 +534,14 @@ def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     uni, tail = [p, u, i, i, i, i], [p, i, p, p]
-    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, *uni, p, i, p, *tail]
+    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, *uni, p, i,
+                                  p, *tail]
     lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
                                          *uni, *tail]
     lib.alvrl_plane_pack.argtypes = [p, i, p, p]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
                lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps,
-               lib.alvrl_plane_f4, lib.alvrl_plane_pack):
+               lib.alvrl_plane_f4, lib.alvrl_plane_pack, lib.alvrl_max_mats):
         fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
@@ -519,17 +579,24 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None, grid=None):
+           n_cols=None, grid=None, materials=None):
     """Raise on what the kernels do not take. The uniforms must be
     (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
     (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
     constants give, with the supersampled density (2Z - 1, 2Y - 1,
-    2X - 1)."""
+    2X - 1). materials = (table, rt_tables), ops.pack.pack_materials', for
+    the material instantiations: homogeneous packs, rays (MAT_RAY_ROWS,
+    B)."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
     if grid is not None:
         named["density"] = grid[0]
+    if materials is not None:
+        if grid is not None:
+            raise ValueError("the material instantiations take homogeneous "
+                             "packs only (ROADMAP A12)")
+        named["mat_table"], named["rt_tables"] = materials
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
@@ -544,6 +611,16 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     ray_rows, vrl_rows, med_len = (
         (pk.RAY_ROWS, pk.VRL_ROWS, pk.MED_LEN) if grid is None
         else (pk.GRID_RAY_ROWS, pk.GRID_VRL_ROWS, pk.GRID_MED_LEN))
+    if materials is not None:
+        ray_rows = pk.MAT_RAY_ROWS
+        table, rt_tables = materials
+        n_mats = table.shape[0]
+        if table.dim() != 2 or table.shape[1] != pk.MAT_COLS or n_mats < 1:
+            raise ValueError(f"mat_table must be (M >= 1, {pk.MAT_COLS}), "
+                             f"got {tuple(table.shape)}")
+        if tuple(rt_tables.shape) != (n_mats, RT_COS, RT_ALPHA):
+            raise ValueError(f"rt_tables must be ({n_mats}, {RT_COS}, "
+                             f"{RT_ALPHA}), got {tuple(rt_tables.shape)}")
     if rays.dim() != 2 or rays.shape[0] != ray_rows:
         raise ValueError(f"rays must be ({ray_rows}, B), got "
                          f"{tuple(rays.shape)}")
@@ -576,46 +653,58 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         raise ValueError(f"seed {seed} is not a uint32")
 
 
+def check_mats_cap(lib, materials):
+    """Raise if a material table exceeds the kernels' shared-memory cap."""
+    if materials is not None and materials[0].shape[0] > lib.alvrl_max_mats():
+        raise ValueError(f"{materials[0].shape[0]} materials exceed the "
+                         f"kernels' shared-memory cap of "
+                         f"{lib.alvrl_max_mats()}")
+
+
 def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
-         phase_kind, grid):
+         phase_kind, grid, materials=None):
     """The wrappers' body: checks, then the plain version on the CPU or
     the kernel on the card, counting its launch on `fn`."""
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           grid=grid)
+           grid=grid, materials=materials)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
             uniforms = philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
         return _reference(rays, vrls, tris, medium, uniforms, svv, svs,
-                          short_vrls, phase_kind, grid)
+                          short_vrls, phase_kind, grid, materials)
     lib = _library()
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
+    check_mats_cap(lib, materials)
     if n_rays == 0 or n_vrls == 0:
         return torch.zeros((3, n_rays), dtype=torch.float32,
                            device=rays.device)
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
-                      svs, short_vrls, phase_kind, grid)
+                      svs, short_vrls, phase_kind, grid, materials=materials)
     fn.launches += 1
     return out
 
 
 def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
             vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-            phase_kind=ph.HG):
+            phase_kind=ph.HG, materials=None):
     """(3, B) per-ray VRL sums (not normalised by the particle count).
 
     rays (RAY_ROWS, B), vrls (VRL_ROWS, N), tris (T, TRI_COLS) and
     medium (MED_LEN,) are the packs of ops.pack, float32 and contiguous,
     on one device. Random numbers come from the Philox stream of `seed`,
     or from `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples)
-    when given. CUDA tensors go through the CUDA kernel, CPU tensors
-    through vrl_sum_reference."""
+    when given. `materials`, the material pack (ops.pack.pack_materials'
+    (table, rt_tables)) with rays (MAT_RAY_ROWS, B), takes the material
+    instantiation, which evaluates each eye hit's smooth BSDF; without
+    it the diffuse one, which reads the ALB rows. CUDA tensors go through
+    the CUDA kernel, CPU tensors through vrl_sum_reference."""
     return _sum(vrl_sum, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
-                None)
+                None, materials)
 
 
 vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
@@ -623,16 +712,18 @@ vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
 
 def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
                   vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                  phase_kind=ph.HG):
+                  phase_kind=ph.HG, materials=None):
     """vrl_sum's sums through kernel 1's checking instantiation (a launch
     counted here, not on vrl_sum), which decides every shadow segment by
     the Wald test alone and also runs the plane pre-reject beside it,
     and {name: total} of CHECK_COUNTS: shadow segments, triangles the
     sweep tests (up to its first blocker), those the pre-reject skips,
     skipped triangles that block (must be 0) and segments the two
-    decide differently (must be 0). CUDA tensors only."""
+    decide differently (must be 0). CUDA tensors only; `materials` as
+    vrl_sum's."""
     svv, svs = vol_vol_samples, vol_surf_samples
-    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind)
+    _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
+           materials=materials)
     if rays.device.type != "cuda":
         raise ValueError("the checking launch needs CUDA tensors")
     counts = torch.zeros(len(CHECK_COUNTS), dtype=torch.int64,
@@ -640,7 +731,7 @@ def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     with torch.cuda.device(rays.device):
         out = _launch(_library(), rays, vrls, tris, medium, uniforms, seed,
                       svv, svs, short_vrls, phase_kind, mode=MODE_CHECK,
-                      counts=counts)
+                      counts=counts, materials=materials)
     vrl_sum_check.launches += 1
     return out, dict(zip(CHECK_COUNTS, counts.tolist()))
 
@@ -699,6 +790,24 @@ def homog_bar(out, ref, channels=3):
     matrix). The bar is median < HOMOG_MEDIAN and share < HOMOG_SHARE:
     the sums agree to f32 rounding, except for the few items where the
     two pipelines round one occlusion-edge test differently."""
+    return _median_share(_homog_rel(out, ref, channels))
+
+
+def homog_bar_by_kind(out, ref, kind, channels=3):
+    """homog_bar of each group of items that share a value of `kind`, an
+    integer per item (a ray's eye-hit material kind, say): {kind: (items,
+    median, share)}. Each group is held to the bar alone, so that a group
+    of a few hundred rays cannot hide among the frame's."""
+    rel = _homog_rel(out, ref, channels)
+    kind = kind.reshape(-1).to(rel.device)
+    return {k: (int((kind == k).sum()), *_median_share(rel[kind == k]))
+            for k in sorted(set(kind.tolist()))}
+
+
+def _homog_rel(out, ref, channels):
     rel = (out - ref).abs() / torch.clamp(ref.abs(), min=HOMOG_FLOOR)
-    rel = rel.reshape(-1, channels).amax(dim=-1).double()
+    return rel.reshape(-1, channels).amax(dim=-1).double()
+
+
+def _median_share(rel):
     return float(rel.median()), float((rel > 1e-2).double().mean())

@@ -93,31 +93,35 @@ def _gather_tables(vrls, rows, table_ids, table_weights):
 
 def _reference(rays, vrls, tris, medium, ray_slice, table_ids,
                table_weights, uniforms, svv, svs, short_vrls, phase_kind,
-               grid):
+               grid, materials=None):
     n_rays = rays.shape[1]
     out = torch.zeros((3, n_rays), dtype=rays.dtype, device=rays.device)
     if table_ids.shape[0] == 0 or vrls.shape[1] == 0:
         return out
     rows = torch.as_tensor(ray_slice, device=rays.device).long()
+    mats = vs._plain_materials(materials)
     for b0 in range(0, n_rays, vs._PLAIN_RAY_CHUNK):
         b1 = min(n_rays, b0 + vs._PLAIN_RAY_CHUNK)
         tables = _gather_tables(vrls, rows[b0:b1], table_ids, table_weights)
         out[:, b0:b1] = vs._pair_sums(
             rays[:, b0:b1], tables, tris, medium, uniforms[b0:b1], svv, svs,
-            short_vrls, phase_kind, grid).T
+            short_vrls, phase_kind, grid, mats).T
     return out
 
 
 def vrl_sum_clustered_reference(rays, vrls, tris, medium, ray_slice,
                                 table_ids, table_weights, uniforms, *,
                                 vol_vol_samples=2, vol_surf_samples=2,
-                                short_vrls=True, phase_kind=ph.HG):
+                                short_vrls=True, phase_kind=ph.HG,
+                                materials=None):
     """Plain PyTorch version of the kernel on the same inputs, with
     explicit (B, C, 2 * vol_vol_samples + vol_surf_samples) uniforms
-    indexed by ray and table column. Returns (3, B)."""
+    indexed by ray and table column. Returns (3, B). `materials` as
+    ops.vrl_sum.vrl_sum_reference's."""
     return _reference(rays, vrls, tris, medium, ray_slice, table_ids,
                       table_weights, uniforms, vol_vol_samples,
-                      vol_surf_samples, short_vrls, phase_kind, None)
+                      vol_surf_samples, short_vrls, phase_kind, None,
+                      materials)
 
 
 def vrl_sum_hetero_clustered_reference(rays, vrls, tris, medium, density,
@@ -159,7 +163,8 @@ def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, i, p, p, p]
-    lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, *tail]
+    lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, p, i, p,
+                                            *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
         p, i, p, i, p, i, p, p, i, i, i, i, *tail]
     lib.alvrl_clustered_ray_block.argtypes = [i]
@@ -208,14 +213,14 @@ def _check_tables(rays, ray_slice, table_ids, table_weights):
 
 def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                table_weights, seed, uniforms, svv, svs, short_vrls, phase_kind,
-               grid, mode=vs.MODE_SUM):
+               grid, mode=vs.MODE_SUM, materials=None):
     """The wrappers' body (see vrl_sum_clustered), counting a launch on
     `fn`; mode MODE_CHECK (CUDA tensors only) returns (out, {name:
     total} of vs.CHECK_COUNTS)."""
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              n_cols=table_ids.shape[1], grid=grid)
+              n_cols=table_ids.shape[1], grid=grid, materials=materials)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     checking = mode == vs.MODE_CHECK
@@ -227,11 +232,12 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                                              2 * svv + svs)
         return _reference(rays, vrls, tris, medium, sl, table_ids,
                           table_weights, uniforms, svv, svs, short_vrls,
-                          phase_kind, grid)
+                          phase_kind, grid, materials)
     lib = _library()
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
+    vs.check_mats_cap(lib, materials)
     out = torch.zeros((3, n_rays), dtype=torch.float32, device=rays.device)
     counts = (torch.zeros(len(vs.CHECK_COUNTS), dtype=torch.int64,
                           device=rays.device) if checking else None)
@@ -243,7 +249,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
             _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row,
                     table_ids, table_weights, uniforms, seed, svv, svs,
                     short_vrls, phase_kind, out, grid, mode=mode,
-                    counts=counts)
+                    counts=counts, materials=materials)
         fn.launches += 1
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
@@ -253,7 +259,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
 def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
                       table_weights, *, seed=0, uniforms=None,
                       vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                      phase_kind=ph.HG):
+                      phase_kind=ph.HG, materials=None):
     """(3, B) per-ray sums over each ray's table row (not normalised by
     the particle count; see module). rays (RAY_ROWS, B), vrls (VRL_ROWS,
     N), tris and medium are ops.vrl_sum's packs; ray_slice (B,) integer
@@ -261,12 +267,13 @@ def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
     (S, C) int32 and table_weights (S, C) float32 on the rays' device.
     Random numbers come from the Philox stream of `seed`, counter (b,
     VRL id, call, 0), or from `uniforms` (B, C, 2 * vol_vol_samples +
-    vol_surf_samples) when given. CUDA tensors go through the CUDA
+    vol_surf_samples) when given. `materials`, as ops.vrl_sum.vrl_sum's,
+    takes the material instantiation. CUDA tensors go through the CUDA
     kernel, CPU tensors through vrl_sum_clustered_reference."""
     return _clustered(vrl_sum_clustered, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
                       vol_vol_samples, vol_surf_samples, short_vrls,
-                      phase_kind, None)
+                      phase_kind, None, materials=materials)
 
 
 vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
@@ -276,7 +283,8 @@ vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
 def vrl_sum_clustered_check(rays, vrls, tris, medium, ray_slice, table_ids,
                             table_weights, *, seed=0, uniforms=None,
                             vol_vol_samples=2, vol_surf_samples=2,
-                            short_vrls=True, phase_kind=ph.HG):
+                            short_vrls=True, phase_kind=ph.HG,
+                            materials=None):
     """vrl_sum_clustered's sums through kernel 2's checking
     instantiation (a launch counted here, not on the wrapper), which
     decides every shadow segment by the Wald test alone and runs the
@@ -285,7 +293,8 @@ def vrl_sum_clustered_check(rays, vrls, tris, medium, ray_slice, table_ids,
     return _clustered(vrl_sum_clustered_check, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
                       vol_vol_samples, vol_surf_samples, short_vrls,
-                      phase_kind, None, mode=vs.MODE_CHECK)
+                      phase_kind, None, mode=vs.MODE_CHECK,
+                      materials=materials)
 
 
 vrl_sum_clustered_check.launches = 0  # checking launches
@@ -331,7 +340,7 @@ vrl_sum_hetero_clustered_check.launches = 0  # checking launches
 
 def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
             table_weights, uniforms, seed, svv, svs, short_vrls, phase_kind,
-            out, grid=None, mode=vs.MODE_SUM, counts=None):
+            out, grid=None, mode=vs.MODE_SUM, counts=None, materials=None):
     """The kernel on inputs the wrapper has checked and grouped
     (tile_rays, tile_row: group_by_slice's arrays on the device, at
     ray_block(grid is not None)), into `out` (3, B), written at the rays
@@ -339,9 +348,10 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
     the grid kernel. It sweeps the triangles' plane pack (made here into
     scratch) in `mode`: MODE_CHECK adds its counts to `counts`,
     (len(CHECK_COUNTS),) int64; homogeneous MODE_NO_REJECT sweeps
-    without the pre-reject. The wrapper's own step, apart so that
-    chip_smoke.py can time the kernel without the wrapper's host work; it
-    counts no launch."""
+    without the pre-reject; `materials` takes the homogeneous material
+    instantiation. The wrapper's own step, apart so that chip_smoke.py can
+    time the kernel without the wrapper's host work; it counts no
+    launch."""
     block = lib.alvrl_clustered_ray_block(int(grid is not None))
     if len(tile_rays) != block * len(tile_row):
         raise ValueError(f"{len(tile_rays)} tile slots for {len(tile_row)} "
@@ -359,7 +369,8 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
             None if counts is None else counts.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(rays.device).cuda_stream)
     if grid is None:
-        err = lib.alvrl_vrl_sum_clustered(*head, *tail)
+        err = lib.alvrl_vrl_sum_clustered(*head, *vs.mat_args(materials),
+                                          *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero_clustered(
             *head, *vs.grid_args(*grid), *tail)

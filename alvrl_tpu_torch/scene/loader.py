@@ -12,8 +12,15 @@ column order (materials in declaration order, then "default" if a
 shape needs it; faces in shape order), so that the two scenes compare
 leaf by leaf:
   * materials "diffuse", "twosided" (diffuse), "null", "mirror" and
-    "conductor" (MIRROR), "dielectric" and "thindielectric" (DIELECTRIC,
-    with the "eta" column);
+    "conductor" (MIRROR), "dielectric" and "thindielectric" (DIELECTRIC),
+    "roughconductor", "roughplastic", "plastic", "phong", "ward",
+    "difftrans", "roughdielectric", the wrappers "mask" and "mixture"
+    (also "mixturebsdf", "blendbsdf") and the layers "coating" and
+    "roughcoating", with the JAX loader's fields and defaults (alpha or
+    g, alpha_v, specular, exponent or thickness, opacity or weight,
+    distribution (GGX by default; the XML converter writes Beckmann
+    where the reference's XML leaves it out), sigma_a or albedo2, and
+    nested and nested2 by name);
   * shapes "rectangle", "cube", "sphere", "disk", "cylinder", "obj",
     "ply", "serialized" and "trimesh", each with an optional to_world;
   * "point", "spot", "directional", "collimated" and "constant"
@@ -40,6 +47,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.bsdf.microfacet import MF_BECKMANN, MF_GGX, MF_PHONG
 from alvrl_tpu_torch.emitters import emitters as em_mod
 from alvrl_tpu_torch.geometry import shapes as shp
 from alvrl_tpu_torch.io import mesh as mesh_io
@@ -48,27 +56,43 @@ from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.media.phase import HG, RAYLEIGH
 from alvrl_tpu_torch.scene.scene import (
+    COATING,
     DIELECTRIC,
+    DIFFTRANS,
     DIFFUSE,
+    MASK,
     MIRROR,
+    MIXTURE,
     NULL,
     PERSPECTIVE,
+    PHONG,
+    PLASTIC,
+    ROUGH_COATING,
+    ROUGH_CONDUCTOR,
+    ROUGH_DIELECTRIC,
+    ROUGH_PLASTIC,
+    WARD,
     Camera,
-    Materials,
     Scene,
     look_at,
+    make_materials,
 )
 
-_MAT_KINDS = {"diffuse": DIFFUSE, "twosided": DIFFUSE, "null": NULL,
-              "mirror": MIRROR, "conductor": MIRROR,
-              "dielectric": DIELECTRIC, "thindielectric": DIELECTRIC}
+_MAT_KINDS = {
+    "diffuse": DIFFUSE, "twosided": DIFFUSE, "null": NULL, "mirror": MIRROR,
+    "conductor": MIRROR, "dielectric": DIELECTRIC,
+    "thindielectric": DIELECTRIC, "roughconductor": ROUGH_CONDUCTOR,
+    "roughplastic": ROUGH_PLASTIC, "plastic": PLASTIC, "phong": PHONG,
+    "ward": WARD, "difftrans": DIFFTRANS, "mask": MASK,
+    "mixturebsdf": MIXTURE, "blendbsdf": MIXTURE, "mixture": MIXTURE,
+    "coating": COATING, "roughdielectric": ROUGH_DIELECTRIC,
+    "roughcoating": ROUGH_COATING,
+}
 # the JAX package's other material kinds: the converter carries them,
 # build_scene refuses them
-_UNPORTED_MATERIALS = (
-    "roughconductor", "roughplastic", "plastic", "phong", "ward",
-    "difftrans", "mask",
-    "mixturebsdf", "blendbsdf", "mixture", "coating", "roughdielectric",
-    "roughcoating", "normalmap", "bumpmap", "hk", "irawan")
+_UNPORTED_MATERIALS = ("normalmap", "bumpmap", "hk", "irawan")
+_DIST_KINDS = {"beckmann": MF_BECKMANN, "ggx": MF_GGX, "as": MF_PHONG,
+               "phong": MF_PHONG}
 _CAM_KINDS = {"perspective": PERSPECTIVE, "radiancemeter": PERSPECTIVE}
 _PHASE_KINDS = {"hg": HG, "isotropic": HG, "rayleigh": RAYLEIGH}
 _EM_KINDS = {"point": em_mod.POINT, "spot": em_mod.SPOT,
@@ -132,23 +156,36 @@ def _materials(desc, device):
             for s in desc.get("shapes", [])):
         mats.append({"name": "default", "type": "diffuse",
                      "albedo": [0.5, 0.5, 0.5]})
-    kinds, albedos, etas, name_to_id = [], [], [], {}
-    for i, mdesc in enumerate(mats):
+    name_to_id = {mdesc.get("name", f"mat{i}"): i
+                  for i, mdesc in enumerate(mats)}
+    cols = {k: [] for k in ("kinds", "albedos", "etas", "alphas", "specular",
+                            "exponent", "alpha_v", "opacity", "dist",
+                            "nested", "nested2", "albedo2")}
+    for mdesc in mats:
         mt = mdesc["type"]
         if mt in _UNPORTED_MATERIALS:
-            _refuse("material", mt, "A3")
-        kinds.append(_kind("material", mt, _MAT_KINDS))
+            _refuse("material", mt, "A11")
+        cols["kinds"].append(_kind("material", mt, _MAT_KINDS))
         if "texture" in mdesc:
             _refuse("texture", mdesc["texture"].get("type"), "A11")
-        albedos.append(mdesc.get("albedo",
-                                 mdesc.get("sigma_s", [1.0, 1.0, 1.0])))
-        etas.append(mdesc.get("eta", 1.0))
-        name_to_id[mdesc.get("name", f"mat{i}")] = i
-    materials = Materials(
-        kind=torch.tensor(kinds, dtype=torch.int64, device=device),
-        albedo=torch.tensor(np.asarray(albedos, np.float32).reshape(-1, 3),
-                            device=device),
-        eta=torch.tensor(np.asarray(etas, np.float32), device=device))
+        cols["albedos"].append(mdesc.get("albedo",
+                                         mdesc.get("sigma_s", [1.0] * 3)))
+        cols["etas"].append(mdesc.get("eta", 1.0))
+        cols["alphas"].append(mdesc.get("alpha", mdesc.get("g", 0.1)))
+        cols["specular"].append(mdesc.get("specular", [0.2] * 3))
+        # a coat's thickness rides the exponent column
+        cols["exponent"].append(mdesc.get("exponent",
+                                          mdesc.get("thickness", 30.0)))
+        cols["alpha_v"].append(mdesc.get("alpha_v", mdesc.get("alpha", 0.1)))
+        # the mask's opacity, the mixture's first weight
+        cols["opacity"].append(mdesc.get("opacity", mdesc.get("weight", 1.0)))
+        cols["dist"].append(_DIST_KINDS[mdesc.get("distribution", "ggx")])
+        for k in ("nested", "nested2"):
+            cols[k].append(name_to_id[mdesc[k]] if k in mdesc else 0)
+        # a coat's absorption sigma_a rides the albedo2 column
+        cols["albedo2"].append(mdesc.get("sigma_a",
+                                         mdesc.get("albedo2", [0.0] * 3)))
+    materials = make_materials(device=device, **cols)
     return materials, name_to_id
 
 

@@ -27,9 +27,9 @@ from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.scene.scene import (
     DIFFUSE,
     Camera,
-    Materials,
     Scene,
     look_at,
+    make_materials,
 )
 
 # material ids used by the cornell scene
@@ -76,16 +76,12 @@ def cornell_smoke(
     verts, faces, mat = shapes.merge(parts)
 
     f32 = dict(dtype=torch.float32, device=device)
-    materials = Materials(
-        kind=torch.full((4,), DIFFUSE, dtype=torch.int64, device=device),
-        albedo=torch.tensor([
-            [0.725, 0.71, 0.68],   # white
-            [0.63, 0.065, 0.05],   # red
-            [0.14, 0.45, 0.091],   # green
-            [0.725, 0.71, 0.68],   # blocker
-        ], **f32),
-        eta=torch.ones(4, **f32),
-    )
+    materials = make_materials([DIFFUSE] * 4, [
+        [0.725, 0.71, 0.68],   # white
+        [0.63, 0.065, 0.05],   # red
+        [0.14, 0.45, 0.091],   # green
+        [0.725, 0.71, 0.68],   # blocker
+    ], device=device)
     emitters = make_point_emitters([[0.0, 0.75, 0.2]], [list(intensity)],
                                    device=device)
     camera = Camera(
@@ -154,10 +150,14 @@ def cornell_area_light(width=64, height=64, radiance=(6.0, 6.0, 6.0),
     i64 = dict(dtype=torch.int64, device=device)
     mats = base.materials
     black = mats.kind.shape[0]
-    materials = Materials(
-        kind=torch.cat([mats.kind, torch.tensor([DIFFUSE], **i64)]),
+    # the columns the JAX preset extends; the others read their last row
+    # for the new id (Materials)
+    materials = replace(
+        mats, kind=torch.cat([mats.kind, torch.tensor([DIFFUSE], **i64)]),
         albedo=torch.cat([mats.albedo, torch.zeros((1, 3), **f32)]),
-        eta=torch.cat([mats.eta, torch.ones(1, **f32)]))
+        eta=torch.cat([mats.eta, torch.ones(1, **f32)]),
+        alpha=torch.cat([mats.alpha, torch.tensor([0.1], **f32)]),
+        albedo2=torch.cat([mats.albedo2, torch.zeros((1, 3), **f32)]))
     emitters = make_emitters([AREA, AREA], [p0, p0 + e1 + e2],
                              [list(radiance)] * 2, tri_e1=[e1, -e1],
                              tri_e2=[e2, -e2], device=device)

@@ -1,13 +1,14 @@
 """Scene, camera and material table as dataclasses of tensors.
 
 Counterpart of alvrl_tpu/scene/scene.py, reduced to the columns the VRL
-render, the tracer and the specular chains read. Materials are a struct-of-arrays table indexed by the
-per-face material id; the BSDF kind selects the arithmetic.
+render, the tracer and the specular chains read: no texture columns.
+Materials are a struct-of-arrays table indexed by the per-face material
+id; the BSDF kind selects the arithmetic.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -21,6 +22,25 @@ DIFFUSE = 0     # smooth Lambertian
 NULL = 1        # transparent boundary: does not block shadow rays
 MIRROR = 2      # ideal specular conductor (delta), tinted by the albedo
 DIELECTRIC = 3  # smooth dielectric (delta), relative IOR in Materials.eta
+ROUGH_CONDUCTOR = 4   # microfacet conductor, Schlick F0 = albedo
+ROUGH_PLASTIC = 5     # GGX coat over Lambertian
+PHONG = 6             # modified Phong: diffuse + cos^n lobe
+WARD = 7              # anisotropic Ward gaussian ('balanced')
+DIFFTRANS = 8         # diffuse transmission
+PLASTIC = 9           # smooth dielectric coat over Lambert
+MASK = 10             # opacity mask over the `nested` material
+MIXTURE = 11          # convex mixture of `nested` and `nested2`
+COATING = 12          # smooth dielectric layer over `nested`: eta = coat
+                      # IOR, albedo2 = coat sigma_a, exponent = thickness
+NORMALMAP = 13        # not ported (ROADMAP A11)
+HK = 14               # not ported (ROADMAP A11)
+IRAWAN = 15           # not ported (ROADMAP A11)
+ROUGH_DIELECTRIC = 16  # microfacet reflection and refraction
+ROUGH_COATING = 17     # rough dielectric layer over `nested`
+
+# rough-transmittance tables (bsdf.microfacet.rough_transmittance_table):
+# RT_COS cosines x RT_ALPHA roughnesses
+RT_COS, RT_ALPHA = 16, 8
 
 # sensor kinds, numbered as in alvrl_tpu.scene.scene
 PERSPECTIVE = 0
@@ -28,10 +48,102 @@ PERSPECTIVE = 0
 
 @dataclass(frozen=True)
 class Materials:
-    kind: torch.Tensor    # (M,) int64
-    albedo: torch.Tensor  # (M, 3) f32 diffuse reflectance / specular tint
-    eta: torch.Tensor     # (M,) f32 relative IOR int/ext (1 but for
-                          # dielectrics)
+    kind: torch.Tensor      # (M,) int64
+    albedo: torch.Tensor    # (M, 3) f32 diffuse reflectance / specular
+                            # tint / F0
+    eta: torch.Tensor       # (M,) f32 relative IOR int/ext (1 but for
+                            # dielectrics and coats)
+    alpha: torch.Tensor     # (M,) f32 microfacet / Ward-u roughness
+    alpha_v: torch.Tensor   # (M,) f32 second-axis roughness
+    dist: torch.Tensor      # (M,) int64 microfacet distribution
+                            # (bsdf.microfacet.MF_*)
+    specular: torch.Tensor  # (M, 3) f32 Phong / Ward specular reflectance
+    exponent: torch.Tensor  # (M,) f32 Phong exponent / coat thickness
+    opacity: torch.Tensor   # (M,) f32 mask opacity / mixture first weight
+    nested: torch.Tensor    # (M,) int64 nested material id (one level of
+                            # nesting, leaf kinds only)
+    nested2: torch.Tensor   # (M,) int64 the mixture's second nested id
+    albedo2: torch.Tensor   # (M, 3) f32 coat sigma_a
+    rt_table: torch.Tensor  # (M, RT_COS, RT_ALPHA) f32 rough-transmittance
+                            # tables (ROUGH_COATING; zeros otherwise)
+    rt_alpha_max: torch.Tensor  # (M,) f32 the alpha span of each table:
+                                # max(0.5, alpha) for ROUGH_COATING
+    # the set of kinds in the table, read from `kind` when the table is
+    # built (one read, a sync if it lies on the card), so that the
+    # renders and the tracer choose their route without one
+    host_kinds: frozenset = field(init=False)
+
+    def __post_init__(self):
+        # a column shorter than the table reads its last row for the
+        # missing ids, as the JAX package's gathers clamp an index out of
+        # range (its cornell_area_light extends only some columns)
+        n = self.kind.shape[0]
+        for f in fields(self):
+            if not f.init:
+                continue
+            x = getattr(self, f.name)
+            if 0 < x.shape[0] < n:
+                object.__setattr__(self, f.name, torch.cat(
+                    [x, x[-1:].expand((n - x.shape[0],) + x.shape[1:])]))
+        object.__setattr__(self, "host_kinds",
+                           frozenset(self.kind.tolist()))
+
+
+def make_materials(kinds, albedos, etas=None, alphas=None, albedo2=None,
+                   specular=None, exponent=None, alpha_v=None, opacity=None,
+                   nested=None, nested2=None, dist=None,
+                   device="cuda") -> Materials:
+    """A material table with alvrl_tpu's make_materials' defaults: eta 1,
+    alpha 0.1 (alpha_v = alpha), albedo2 0, specular 0.2, exponent 30,
+    opacity 1, nested ids 0, the GGX distribution, and the
+    rough-transmittance tables of the ROUGH_COATING entries."""
+    kinds = np.asarray(kinds, np.int64).reshape(-1)
+    n = kinds.shape[0]
+
+    def col(v, default, dtype=np.float32, shape=()):
+        a = np.asarray(v if v is not None else [default] * n, dtype)
+        return a.reshape((n,) + shape)
+
+    alphas_a = col(alphas, 0.1)
+    etas_a = col(etas, 1.0)
+    dist_a = col(dist, 1, np.int64)  # MF_GGX
+    rt_table, rt_alpha_max = _rt_tables(kinds, etas_a, alphas_a, dist_a)
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    return Materials(
+        kind=torch.as_tensor(kinds, **i64),
+        albedo=torch.as_tensor(np.asarray(albedos, np.float32).reshape(n, 3),
+                               **f32),
+        eta=torch.as_tensor(etas_a, **f32),
+        alpha=torch.as_tensor(alphas_a, **f32),
+        alpha_v=torch.as_tensor(col(alpha_v, None) if alpha_v is not None
+                                else alphas_a, **f32),
+        dist=torch.as_tensor(dist_a, **i64),
+        specular=torch.as_tensor(col(specular, [0.2] * 3, shape=(3,)),
+                                 **f32),
+        exponent=torch.as_tensor(col(exponent, 30.0), **f32),
+        opacity=torch.as_tensor(col(opacity, 1.0), **f32),
+        nested=torch.as_tensor(col(nested, 0, np.int64), **i64),
+        nested2=torch.as_tensor(col(nested2, 0, np.int64), **i64),
+        albedo2=torch.as_tensor(col(albedo2, [0.0] * 3, shape=(3,)), **f32),
+        rt_table=torch.as_tensor(rt_table, **f32),
+        rt_alpha_max=torch.as_tensor(rt_alpha_max, **f32))
+
+
+def _rt_tables(kinds, etas, alphas, dist):
+    """The rough-transmittance tables of the ROUGH_COATING entries (zeros
+    elsewhere), each over alpha in (0, max(0.5, alpha)], and those spans
+    (0.5 elsewhere), as alvrl_tpu's _rt_tables builds them."""
+    n = kinds.shape[0]
+    out = np.zeros((n, RT_COS, RT_ALPHA), np.float32)
+    amax = np.full((n,), 0.5, np.float32)
+    for i in np.flatnonzero(kinds == ROUGH_COATING):
+        from alvrl_tpu_torch.bsdf import microfacet as mf
+
+        amax[i] = max(0.5, float(alphas[i]))
+        out[i] = mf.rough_transmittance_table(float(etas[i]), int(dist[i]),
+                                              alpha_max=float(amax[i]))
+    return out, amax
 
 
 @dataclass(frozen=True)

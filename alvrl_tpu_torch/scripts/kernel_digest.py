@@ -1,0 +1,105 @@
+"""SHA-256 digests of the diffuse instantiations' outputs of kernels 1, 2
+and 5 (vrl_sum, vrl_sum_clustered, vrl_r) on config 1: cornell_smoke at
+128x128 against the 512 bench VRLs, on injected uniforms and on the
+Philox stream; kernel 2 on a seeded table of 100 rows x 64 columns (each
+pixel's row its index // 164), kernel 5 on 271 seeded rays (config 2's
+representative count). The same outputs bit for bit give the same
+digests, so that two trees of the package are compared on one card:
+
+    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR]
+
+imports alvrl_tpu_torch from DIR (another tree's root; this tree's by
+default) and prints one JSON object of the digests, the card's name and
+its power limit. Needs a CUDA card; uses only entry points that the
+diffuse kernels have had since the clustered render was ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+SEED = 20261016
+N_SLICES, N_COLS, SLICE_PIXELS = 100, 64, 164
+N_REPS = 271
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def kernel_digests(device="cuda"):
+    """{output: sha256} of the diffuse kernels on config 1's packs."""
+    import numpy as np
+    import torch
+
+    from alvrl_tpu_torch.integrators.vrl import integrator, vrl
+    from alvrl_tpu_torch.ops.vrl_r import vrl_r
+    from alvrl_tpu_torch.ops.vrl_sum import vrl_sum
+    from alvrl_tpu_torch.ops.vrl_sum_clustered import vrl_sum_clustered
+    from alvrl_tpu_torch.scene import presets
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["alvrl_tpu_torch"].__file__)))
+    scene = presets.cornell_smoke(128, 128, device=device)
+    vrls = vrl.compact(vrl.load_ascii(
+        os.path.join(root, "data", "bench_vrls.txt"), particle_count=78.0,
+        device=device), 512)
+    packs = integrator.pack_frame(scene, vrls)[3]
+    n_rays = packs[0].shape[1]
+    rng = np.random.default_rng(16)
+    u = torch.as_tensor(rng.random((n_rays, 512, 6), dtype=np.float32),
+                        device=device)
+    ids = torch.as_tensor(rng.integers(0, 512, (N_SLICES, N_COLS)),
+                          dtype=torch.int32, device=device)
+    w = torch.as_tensor(rng.uniform(0.0, 2.0, (N_SLICES, N_COLS)),
+                        dtype=torch.float32, device=device)
+    ray_slice = np.arange(n_rays, dtype=np.int32) // SLICE_PIXELS
+    reps = torch.as_tensor(rng.choice(n_rays, N_REPS, replace=False),
+                           device=device)
+    rep_rays = packs[0][:, reps].contiguous()
+    out = {
+        "vrl_sum injected": vrl_sum(*packs, uniforms=u),
+        "vrl_sum philox": vrl_sum(*packs, seed=SEED),
+        "vrl_sum_clustered injected": vrl_sum_clustered(
+            *packs, ray_slice, ids, w, uniforms=u[:, :N_COLS].contiguous()),
+        "vrl_sum_clustered philox": vrl_sum_clustered(
+            *packs, ray_slice, ids, w, seed=SEED),
+        "vrl_r injected": vrl_r(rep_rays, *packs[1:],
+                                uniforms=u[reps].contiguous()),
+        "vrl_r philox": vrl_r(rep_rays, *packs[1:], seed=SEED),
+    }
+    torch.cuda.synchronize()
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()) or float(v.abs().max()) == 0.0:
+            raise RuntimeError(f"{k}: not finite and non-zero")
+    return {k: digest(v) for k, v in out.items()}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="the tree whose alvrl_tpu_torch is imported")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root) if args.root else os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_digest: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"root": root, "card": card,
+                      "digests": kernel_digests()}))
+
+
+if __name__ == "__main__":
+    main()

@@ -244,7 +244,45 @@ Phases, one line each; any failure exits non-zero:
      render_progressive, the route's kernels launched, no plain version
      called, ms a pass; and the tracer on cornell_glass on the card
      against the tracer on the CPU on the same uniforms (slots,
-     validity, positions and powers).
+     validity, positions and powers);
+ 39. glossy and layered surfaces as scene files: cornell_glossy (config
+     1's box, its walls, its blocker and a second block carrying the
+     eleven smooth kinds: rough conductor, plastic, Phong, diffuse
+     transmission, Ward, a mixture, rough plastic, a mask, a coating, a
+     rough dielectric and a rough coating, each seen over 794 pixels or
+     more; JSON and Mitsuba XML, 128x128); each loads on the card as on
+     the CPU, bit for bit, the XML as the JSON;
+ 40. the material instantiations of kernels 1, 2 and 5 (vrl_sum,
+     vrl_sum_clustered, vrl_r with a material pack: the eye hit's smooth
+     BSDF in the vol-surf term) on cornell_glossy at config-1 shapes
+     (16,384 rays x the 512 bench VRLs; the scene's own clustering; R on
+     256 eye rays of each kind and on its representative rays) against
+     their plain versions on injected uniforms and the Philox stream at
+     the homogeneous bar, held over each eye-hit kind's rays alone (512
+     rays a kind at least; R's representative rays as a whole), each
+     checking launch with 0 disagreements; the diffuse instantiations'
+     outputs on config 1 bit for bit the parent's (kernel_digest.py);
+     the main path: render_with_vrls_kernel and render_alvrl on
+     cornell_glossy, the three kernels' launch counts moving, no plain
+     version called, the unclustered image against the plain render
+     (kernel 1's Philox hold on the render's seed);
+     ms of each material launch beside the diffuse one in turns, on
+     cornell_glossy and on config 1's table packed for the material
+     instantiation (the same samples), the plain versions' ms (one call
+     of each, in its hold), the bounds (OPS's counts with a lower bound
+     of each eval, the samples counted in the Philox holds), the new
+     instantiations' registers and spill, and the idle share of a
+     profiled render;
+ 41. the CLI on cornell_glossy.xml (-i vrl -p 2 and -i alvrl -p 2) as
+     phase 33, and the tracer on cornell_glossy on the card against the
+     tracer on the CPU on the same uniforms;
+ 42. specular chains onto glossy faces: render_with_vrls_kernel_spec on
+     cornell_glossy with its second block glass, 128x128, VRLs traced
+     on the card: every depth through kernel 1's material instantiation,
+     each depth's launch against its plain version (2,048 of its rays),
+     and the render on injected uniforms against the plain chain
+     (li_unclustered_spec_u) on every pixel that sees the glass and
+     1,024 others, at the homogeneous bar.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -268,6 +306,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.bsdf import api as bsdf_api
 from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
 from alvrl_tpu_torch.core.stats import STATS
 from alvrl_tpu_torch.geometry import bvh as bvh_mod
@@ -291,9 +330,9 @@ from alvrl_tpu_torch.ops.vrl_r import (
     vrl_r, vrl_r_check, vrl_r_hetero, vrl_r_hetero_check,
     vrl_r_hetero_reference, vrl_r_reference)
 from alvrl_tpu_torch.ops.vrl_sum import (
-    HOMOG_FLOOR, HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, philox_draws,
-    philox_uniforms, vrl_sum, vrl_sum_hetero, vrl_sum_hetero_reference,
-    vrl_sum_reference)
+    HOMOG_FLOOR, HOMOG_MEDIAN, HOMOG_SHARE, homog_bar, homog_bar_by_kind,
+    philox_draws, philox_uniforms, vrl_sum, vrl_sum_hetero,
+    vrl_sum_hetero_reference, vrl_sum_reference)
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
@@ -303,6 +342,7 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered import (
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step, with_params
 from alvrl_tpu_torch.scene import loader, presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+from alvrl_tpu_torch.scripts import kernel_digest
 from alvrl_tpu_torch.scripts import probe_gather as probe
 from alvrl_tpu_torch.scripts import recover_density as rd
 from alvrl_tpu_torch.scripts import render_cli
@@ -452,6 +492,16 @@ def cuda_ms(fn, n_warm, n_timed):
     return times
 
 
+def timed_call(fn):
+    """(fn(), its device time in ms by CUDA events): one call, timed."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def summary(times):
     med = statistics.median(times)
     return med, (max(times) - min(times)) / med
@@ -508,7 +558,8 @@ def ptxas_summary(log):
     count); the sweep's mode (sum, check, noreject) of kernel 1, the R
     kernels and the homogeneous clustered VJP (its tiling,
     vrl_sum_clustered_bwd_warps_kernel) and sum
-    (vrl_sum_clustered_warps_kernel); kernel 7's counting
+    (vrl_sum_clustered_warps_kernel), and "mat" for the material
+    instantiations of kernels 1, 2 and 5; kernel 7's counting
     instantiation."""
     out, name = [], None
     for line in log.splitlines():
@@ -530,12 +581,16 @@ def ptxas_summary(log):
                                 "vrl_sum_clustered_bwd_warps_kernel",
                                 "vrl_sum_clustered_warps_kernel"):
                     label.append(PLANE_MODE[rest[0]])
+                    if len(rest) > 1 and rest[1]:  # the material one
+                        label.append("mat")
                 elif rest:
                     label.append("grid" if rest[0] else "homog")
                     if rest[0] and len(rest) > 1:  # the step count
                         label.append(f"uv{rest[1]}" if rest[1] else "uv*")
-                    if kernel == "vrl_r_kernel":
-                        label.append(PLANE_MODE[rest[-1]])
+                    if kernel == "vrl_r_kernel":  # <.., mode, material>
+                        label.append(PLANE_MODE[rest[2]])
+                        if rest[3]:
+                            label.append("mat")
                 name = f"{kernel}<{','.join(label)}>"
             spill = "0"
         elif name and "spill stores" in line:
@@ -2989,17 +3044,18 @@ def kernel1_launches():
     """Record kernel 1's launches on the Philox stream (vs._launch with
     homogeneous packs, no uniforms, the summing mode): yields a list of
     (rays, vrls, tris, medium, seed, svv, svs, short_vrls, phase_kind,
-    output)."""
+    output, materials), materials the launch's material pack or None."""
     launch, records = vs._launch, []
 
     def recording(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
                   short_vrls, phase_kind, grid=None, mode=vs.MODE_SUM,
-                  counts=None):
+                  counts=None, materials=None):
         out = launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
-                     svs, short_vrls, phase_kind, grid, mode, counts)
+                     svs, short_vrls, phase_kind, grid, mode, counts,
+                     materials=materials)
         if grid is None and uniforms is None and mode == vs.MODE_SUM:
             records.append((rays, vrls, tris, medium, seed, svv, svs,
-                            short_vrls, phase_kind, out))
+                            short_vrls, phase_kind, out, materials))
         return out
     vs._launch = recording
     try:
@@ -3015,8 +3071,8 @@ def hold_kernel1(label, records, n_sample):
     seeded sample, the last ray included), at the homogeneous bar.
     Returns a line of text."""
     parts = []
-    for i, (rays, vrls, tris, medium, seed, svv, svs, short, kind,
-            out) in enumerate(records):
+    for i, (rays, vrls, tris, medium, seed, svv, svs, short, kind, out,
+            mats) in enumerate(records):
         n_rays, n_vrls = rays.shape[1], vrls.shape[1]
         if n_sample is None or n_sample >= n_rays:
             idx = torch.arange(n_rays, device=rays.device)
@@ -3030,7 +3086,7 @@ def hold_kernel1(label, records, n_sample):
             rays[:, b], vrls, tris, medium,
             philox_draws(seed, b[:, None], vrl_idx, 2 * svv + svs),
             vol_vol_samples=svv, vol_surf_samples=svs, short_vrls=short,
-            phase_kind=kind)
+            phase_kind=kind, materials=mats)
             for b in idx.split(HOLD_CHUNK)], dim=1)
         median, share = homog_bar(out[:, idx].T, ref.T)
         err = float((out[:, idx] - ref).abs().max())
@@ -3634,16 +3690,19 @@ def spec_render(dev, card, tmp):
             f"{size}: active rays per depth {active}")
         hold = hold_kernel1(f"spec {size}", records, SPEC_HOLD[size])
         totals = dict.fromkeys(vs.CHECK_COUNTS, 0)
-        for rays, vpk, tris, med, seed, svv, svs, short, kind, _ in records:
+        for (rays, vpk, tris, med, seed, svv, svs, short, kind, _,
+             mats) in records:
             _, counts = vs.vrl_sum_check(
                 rays, vpk, tris, med, seed=seed, vol_vol_samples=svv,
-                vol_surf_samples=svs, short_vrls=short, phase_kind=kind)
+                vol_surf_samples=svs, short_vrls=short, phase_kind=kind,
+                materials=mats)
             check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
                   f"{size}: the pre-reject disagrees at a depth: {counts}")
             for k, v in counts.items():
                 totals[k] += v
         depth_ms = [summary(cuda_ms(
-            lambda r=r: vrl_sum(*r[:4], seed=r[4]), 2, 10))[0]
+            lambda r=r: vrl_sum(*r[:4], seed=r[4], **(
+                {} if r[10] is None else {"materials": r[10]})), 2, 10))[0]
             for r in records]
         del records[:]
         chain_line = ""
@@ -3733,8 +3792,676 @@ def glass_cli(dev, card, tmp):
     return out
 
 
-def scene_path(dev, card):
-    """Phases 32-38."""
+# phases 39-42: glossy and layered surfaces. cornell_glossy is config 1's
+# box, its walls, its blocker and a second block carrying the eleven
+# smooth kinds, each kind on a face that the camera sees over at least
+# 794 of the 16,384 pixels (4.8 %), so that phase 40 holds each kind
+# alone: the walls' triangles one kind each (floor rough conductor and
+# plastic, ceiling Phong and diffuse transmission, back wall Ward and the
+# mixture, left wall rough plastic and the mask over it, right wall the
+# coat over white diffuse and the rough dielectric; the unseen front wall
+# Phong), the blocker a rough coat over diffuse transmission, the second
+# block rough dielectric; the point light, 128x128, as a JSON (its size
+# by -D) and a Mitsuba XML (OBJ parts)
+GLOSSY_MATERIALS = [
+    {"name": "white", "type": "diffuse", "albedo": [0.725, 0.71, 0.68]},
+    {"name": "rc", "type": "roughconductor", "albedo": [0.9, 0.6, 0.3],
+     "alpha": 0.3, "alpha_v": 0.15, "distribution": "beckmann"},
+    {"name": "pl", "type": "plastic", "albedo": [0.5, 0.2, 0.2],
+     "eta": 1.5},
+    {"name": "ph", "type": "phong", "albedo": [0.4, 0.3, 0.2],
+     "specular": [0.3, 0.3, 0.3], "exponent": 20.0},
+    {"name": "dt", "type": "difftrans", "albedo": [0.6, 0.6, 0.5]},
+    {"name": "wd", "type": "ward", "albedo": [0.2, 0.4, 0.3],
+     "specular": [0.2, 0.2, 0.25], "alpha": 0.2, "alpha_v": 0.35},
+    {"name": "mx", "type": "mixture", "weight": 0.3, "nested": "ph",
+     "nested2": "wd"},
+    {"name": "rp", "type": "roughplastic", "albedo": [0.3, 0.5, 0.6],
+     "alpha": 0.2, "distribution": "ggx"},
+    {"name": "mk", "type": "mask", "opacity": 0.6, "nested": "rp"},
+    {"name": "co", "type": "coating", "eta": 1.4, "thickness": 0.5,
+     "sigma_a": [0.1, 0.2, 0.3], "nested": "white"},
+    {"name": "rd", "type": "roughdielectric", "eta": 1.5, "alpha": 0.25,
+     "distribution": "phong"},
+    {"name": "rco", "type": "roughcoating", "eta": 1.5, "alpha": 0.6,
+     "thickness": 0.3, "sigma_a": [0.05, 0.1, 0.0], "nested": "dt",
+     "distribution": "beckmann"},
+]
+# the material of each triangle: config 1's 12 wall triangles (floor,
+# ceiling, back, front, left, right; two a wall), its blocker's 12, the
+# second block's 12
+GLOSSY_FACES = (["rc", "pl", "ph", "dt", "wd", "mx", "ph", "ph", "rp", "mk",
+                 "co", "rd"] + ["rco"] * 12 + ["rd"] * 12)
+GLOSSY_KINDS = bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS - {
+    bsdf_api.DIFFUSE}
+GLOSSY_KIND_RAYS = 512  # fewest eye rays of a kind that phase 40 holds
+R_KIND_RAYS = 256       # rays of each kind in kernel 5's injected hold
+# phase 42: the second block glass; each depth's launch held on this many
+# of its rays, the plain chain on the glass pixels and this many others
+GLASS_BLOCK = {"name": "glass", "type": "dielectric", "eta": 1.5}
+SPEC_GLOSSY_HOLD, SPEC_GLOSSY_OTHERS = 2048, 1024
+BLOCK2_SCALE, BLOCK2_AT = (0.2, 0.3, 0.2), (0.45, -0.7, 0.45)
+GLOSSY_SEED = 20261018
+GLOSSY_PARAMS = dict(vrl_target_num=512, num_particles=128, seed=0)
+GLOSSY_RUNS = [
+    ("glossy vrl", "cornell_glossy.xml", "vrl", 2, [], ("vrl_sum",)),
+    ("glossy alvrl", "cornell_glossy.xml", "alvrl", 2, [],
+     ("vrl_r", "vrl_sum_clustered")),
+]
+# a lower bound, by OPS's rules, of one eval_smooth (vrl_common.cuh) at
+# an open vol-surf sample of the material kernels, whatever the kind:
+# the frame (12, 1), the two local directions (30) and the cheapest
+# leaf, the diffuse one (5, 1)
+OPS["eval_smooth"] = (47, 2)
+# the diffuse instantiations' outputs of kernels 1, 2 and 5 on config 1
+# before the material instantiations were added: kernel_digest.py on the
+# parent tree (alvrl_tpu_torch/scripts/kernel_digest.py --root), NVIDIA
+# H100 80GB HBM3, 700.00 W; this run's must be equal
+PARENT_DIGESTS = {
+    "vrl_sum injected":
+        "a28bb9c116fe6eac14d9563b8ed0e1e861444d4548d82320e80cc3471af65229",
+    "vrl_sum philox":
+        "93fdbe4c1cc6631d4c43c10d700ec93599e3554bfbc9924f101c5a45217920ea",
+    "vrl_sum_clustered injected":
+        "b449e5a6ca071e1a37424b09198a9acc7ebb4ec15a91e13f7bdb60382ebd31ba",
+    "vrl_sum_clustered philox":
+        "3bd6f33cecb59227577e45331793792fc7f03268b5ca44b8fca4ad783323b987",
+    "vrl_r injected":
+        "841dd3f144df585b85081195c95dbf3c8a9b76497221187e1a865ab2834c9257",
+    "vrl_r philox":
+        "8f2b73b5f3403d7de1b2850fed23bc4a90fd5ce3aa1e43ff5ac18bb3258556cc",
+}
+
+
+def glossy_json(c1):
+    """cornell_glossy as a JSON scene dict (module comment), its size by
+    -D w=... h=...: the triangles as trimeshes by runs of one material."""
+    from alvrl_tpu_torch.geometry import shapes as shp
+
+    bv, bf = shp.cube()
+    bv = bv * np.asarray(BLOCK2_SCALE, np.float32) + np.asarray(
+        BLOCK2_AT, np.float32)
+    v = np.concatenate([c1.vertices.cpu().numpy()[c1.faces.cpu().numpy()]
+                        .reshape(-1, 3), bv[bf].reshape(-1, 3)])
+    tris = v.reshape(-1, 3, 3)
+    check(len(tris) == len(GLOSSY_FACES), f"{len(tris)} triangles")
+    runs = np.split(np.arange(len(tris)), [
+        i for i in range(1, len(tris))
+        if GLOSSY_FACES[i] != GLOSSY_FACES[i - 1]])
+    desc = scene_json(c1, homog_medium(c1))
+    desc["materials"] = GLOSSY_MATERIALS
+    desc["shapes"] = [{"type": "trimesh", "material": GLOSSY_FACES[r[0]],
+                       "vertices": tris[r].reshape(-1).tolist(),
+                       "faces": list(range(3 * len(r)))} for r in runs]
+    desc["camera"].update(width="$w", height="$h")
+    return desc
+
+
+def bsdf_xml(m):
+    """One material of GLOSSY_MATERIALS as a Mitsuba <bsdf>, in the
+    property names the XML converter reads."""
+    rgb = lambda n, v: (f'<rgb name="{n}" value="'  # noqa: E731
+                        + ", ".join(map(repr, v)) + '"/>')
+    flt = lambda n, v: f'<float name="{n}" value="{v!r}"/>'  # noqa: E731
+    parts = []
+    for key, name, fmt in (
+            ("albedo", "reflectance", rgb), ("eta", "intIOR", flt),
+            ("alpha", "alphaU" if "alpha_v" in m else "alpha", flt),
+            ("alpha_v", "alphaV", flt), ("exponent", "exponent", flt),
+            ("specular", "specularReflectance", rgb),
+            ("opacity", "opacity", flt), ("weight", "weight", flt),
+            ("sigma_a", "sigmaA", rgb), ("thickness", "thickness", flt)):
+        if key in m:
+            parts.append(fmt(name, m[key]))
+    if "distribution" in m:
+        parts.append(f'<string name="distribution" '
+                     f'value="{m["distribution"]}"/>')
+    parts += [f'<ref id="{m[k]}"/>' for k in ("nested", "nested2") if k in m]
+    return (f'<bsdf type="{m["type"]}" id="{m["name"]}">' + "".join(parts)
+            + "</bsdf>")
+
+
+def glossy_xml(desc, c1, tmp):
+    """cornell_glossy as a Mitsuba XML at 128x128: an OBJ a trimesh of
+    `desc`, its materials as <bsdf>s, config 1's camera, light and
+    medium (box_xml's)."""
+    shapes = []
+    for k, sh in enumerate(desc["shapes"]):
+        tri = np.asarray(sh["vertices"], np.float32).reshape(-1, 3)
+        write_obj(os.path.join(tmp, f"glossy{k}.obj"), tri,
+                  np.arange(len(tri)).reshape(-1, 3))
+        shapes.append(f'<shape type="obj"><string name="filename" '
+                      f'value="glossy{k}.obj"/><ref id="{sh["material"]}"/>'
+                      "</shape>")
+    med, em = c1.medium, c1.emitters
+    vec = lambda t: ", ".join(map(repr, t.cpu().tolist()))  # noqa: E731
+    return f"""<scene version="0.5.0">
+  <sensor type="perspective">
+    <float name="fov" value="{PRESET_CAMERA['fov']}"/>
+    <transform name="toWorld"><lookat origin="0, 0, -0.99" target="0, 0, 1"
+      up="0, 1, 0"/></transform>
+    <film type="hdrfilm"><integer name="width" value="{WIDTH}"/>
+      <integer name="height" value="{HEIGHT}"/></film>
+  </sensor>
+  {"".join(bsdf_xml(m) for m in GLOSSY_MATERIALS)}
+  {"".join(shapes)}
+  <emitter type="point"><point name="position" value="{vec(em.position[0])}"/>
+    <rgb name="intensity" value="{vec(em.intensity[0])}"/></emitter>
+  <medium type="homogeneous" id="smoke">
+    <rgb name="sigmaS" value="{vec(med.sigma_s)}"/>
+    <rgb name="sigmaA" value="{vec(med.sigma_a)}"/>
+    <phase type="hg"><float name="g" value="{float(med.g)!r}"/></phase>
+  </medium>
+</scene>"""
+
+
+def glossy_files(dev, card, tmp, c1):
+    """Phase 39: writes cornell_glossy as JSON and Mitsuba XML into `tmp`;
+    each loads on the card as on the CPU, bit for bit, and the XML as the
+    JSON. Returns the JSON's scene on the card at 128x128."""
+    desc = glossy_json(c1)
+    with open(os.path.join(tmp, "cornell_glossy.json"), "w") as f:
+        f.write(json.dumps(desc).replace('"$w"', "$w").replace('"$h"', "$h"))
+    with open(os.path.join(tmp, "cornell_glossy.xml"), "w") as f:
+        f.write(glossy_xml(desc, c1, tmp))
+
+    def load(name, device):
+        path = os.path.join(tmp, name)
+        if name.endswith(".xml"):
+            return loader.build_scene(loader.convert_mitsuba_xml(path),
+                                      device=device)
+        return loader.load_json(path, {"w": WIDTH, "h": HEIGHT},
+                                device=device)
+
+    scenes = {}
+    for name in ("cornell_glossy.json", "cornell_glossy.xml"):
+        ours, cpu = load(name, dev), load(name, "cpu")
+        a, b = scene_tensors(ours), scene_tensors(cpu)
+        for k in a:
+            check((torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                   else a[k] == b[k]), f"{name}: {k} on the card is not the "
+                  "CPU build's")
+        scenes[name] = ours
+    a, b = (scene_tensors(s) for s in scenes.values())
+    check(all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+              else a[k] == b[k] for k in a), "the XML's scene is not the "
+          "JSON's")
+    scene = scenes["cornell_glossy.json"]
+    kinds = bsdf_api.check_kinds(scene)
+    check(kinds == bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS,
+          f"cornell_glossy's kinds {sorted(kinds)}")
+    print(f"[39 glossy scene files on {card}] cornell_glossy "
+          f"{WIDTH}x{HEIGHT}: {scene.faces.shape[0]} triangles, material "
+          f"kinds {sorted(kinds)}, the card's tensors the CPU build's bit "
+          "for bit (rough-transmittance tables included), the XML's scene "
+          "the JSON's", flush=True)
+    return scene
+
+
+def glossy_kernels(dev, card, scene, vrls):
+    """Phase 40: the material instantiations of kernels 1, 2 and 5 on
+    cornell_glossy against their plain versions, the diffuse ones
+    against the parent's, the main path's launches, times, registers,
+    bounds and a profile. Returns the kernels line's three entries."""
+    cfg = VRLConfig()
+    n_rays, n_vrls = WIDTH * HEIGHT, vrls.capacity
+    mats = integrator.material_pack(scene)
+    check(mats is not None, "cornell_glossy takes no material pack")
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    dpacks = integrator.pack_frame(scene, vrls)[3]
+    check(packs[0].shape == (pk.MAT_RAY_ROWS, n_rays)
+          and torch.equal(packs[0][:pk.RAY_ROWS], dpacks[0]),
+          "the material ray pack")
+    # kernel 1's Philox hold on the seed of the main path's render below,
+    # so that its plain sums give the plain render; kernels 2 and 5 on
+    # their own
+    r_seed = integrator.draw_seed(torch.Generator().manual_seed(1))
+    seed = GLOSSY_SEED
+    mkw = dict(materials=mats)
+    rng = np.random.default_rng(40)
+    u_inj = torch.as_tensor(rng.random((n_rays, n_vrls, 6),
+                                       dtype=np.float32), device=dev)
+    ray_kind = mats[0][packs[0][pk.MATID].long(), pk.MT_KIND].long()
+    smooth = mats[0][:, pk.MT_SMOOTH] > 0.5
+    surf = smooth[packs[0][pk.MATID].long()]
+    errs, lines, plain_ms = {}, [], {}
+
+    def hold(label, out, ref, kind, channels=3, min_items=GLOSSY_KIND_RAYS):
+        """out against ref at the homogeneous bar over each eye-hit kind
+        alone (every kind of GLOSSY_KINDS, min_items items at least);
+        returns a line of text."""
+        groups = homog_bar_by_kind(out, ref, kind, channels)
+        check(set(groups) == GLOSSY_KINDS, f"{label}: the kinds held "
+              f"{sorted(groups)}")
+        for k, (n, median, share) in groups.items():
+            check(n >= min_items and median < HOMOG_MEDIAN
+                  and share < HOMOG_SHARE, f"{label}: kind {k} ({n} items)"
+                  f" median {median}, share {share}")
+        n, med, sh = (max(g[i] if i else -g[0] for g in groups.values())
+                      for i in range(3))
+        return (f"{label}: {len(groups)} kinds held alone, each of "
+                f"{-n} items or more, worst median {med:.2e}, worst "
+                f"share>1e-2 {sh:.4f}")
+
+    # kernel 1: injected (its plain version timed) and Philox (its samples
+    # counted), and its checking launch
+    u_philox = philox_uniforms(r_seed, n_rays, n_vrls, 6, device=dev)
+    for mode, u in (("injected", u_inj), ("philox", u_philox)):
+        out = vrl_sum(*packs, seed=r_seed,
+                      uniforms=None if mode == "philox" else u, **mkw)
+        if mode == "injected":
+            ref, plain_ms["vrl_sum"] = timed_call(
+                lambda: vrl_sum_reference(*packs, u, **mkw))
+        else:
+            with SweepCount((packs[0][pk.VALID] > 0.5)[:, None]
+                            & (packs[1][pk.VVALID] > 0.5)[None], surf) as s1:
+                ref = vrl_sum_reference(*packs, u, **mkw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()) and float(out.sum()) > 0.0,
+              f"kernel 1 (material) {mode}: not finite and positive")
+        lines.append(hold(f"kernel 1 {mode}", out.T, ref.T, ray_kind))
+        errs["vrl_sum"] = max(errs.get("vrl_sum", 0.0),
+                              float((out - ref).abs().max()))
+    k1_ref = ref
+    out_c, k1_counts = vs.vrl_sum_check(*packs, seed=r_seed, **mkw)
+    check(k1_counts["bad_tris"] == 0 and k1_counts["bad_segments"] == 0,
+          f"kernel 1 (material): the pre-reject disagrees: {k1_counts}")
+    check(torch.equal(out_c, out), "kernel 1 (material): the checking "
+          "launch is not the sum's")
+    lines.append(f"kernel 1's checking launch: {check_line(k1_counts)}")
+    del u_philox
+
+    # kernel 2 on the scene's own clustering (R through kernel 5's
+    # material instantiation), and its checking launch
+    params = alvrl.ALVRLParams(**GLOSSY_PARAMS,
+                               cluster=cl.ClusterParams(**C2_CLUSTER))
+    info = alvrl.build_slice_info(scene, params)
+    sop, tv, tw, _ = alvrl.prepare_clustering(scene, vrls, seed, params, cfg,
+                                              info)
+    n_cols = tv.shape[1]
+    u_cinj = torch.as_tensor(rng.random((n_rays, n_cols, 6),
+                                        dtype=np.float32), device=dev)
+    u_c = philox_table_uniforms(seed, sop, tv, 6)
+    for mode, u in (("injected", u_cinj), ("philox", u_c)):
+        kw = dict(seed=seed, uniforms=None if mode == "philox" else u, **mkw)
+        out = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
+        again = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
+        if mode == "injected":
+            ref, plain_ms["vrl_sum_clustered"] = timed_call(
+                lambda: vrl_sum_clustered_reference(*packs, sop, tv, tw, u,
+                                                    **mkw))
+        else:
+            with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
+                            surf) as s2:
+                ref = vrl_sum_clustered_reference(*packs, sop, tv, tw, u,
+                                                  **mkw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"kernel 2 (material) {mode}: a "
+              "repeat is not bit-identical")
+        lines.append(hold(f"kernel 2 {mode} ({n_cols} columns)", out.T,
+                          ref.T, ray_kind))
+        errs["vrl_sum_clustered"] = max(errs.get("vrl_sum_clustered", 0.0),
+                                        float((out - ref).abs().max()))
+    c_chk, c_counts = vrl_sum_clustered_check(*packs, sop, tv, tw, seed=seed,
+                                              **mkw)
+    check(c_counts["bad_tris"] == 0 and c_counts["bad_segments"] == 0
+          and torch.equal(c_chk, out), f"kernel 2 (material): the checking "
+          f"launch: {c_counts}")
+    del u_cinj, u_c
+
+    # kernel 5: injected on R_KIND_RAYS eye rays of each kind, each kind
+    # held alone; Philox on the clustering's representative rays (the
+    # main path's shape: its plain version timed and its samples counted)
+    pick = np.concatenate([rng.choice(
+        np.flatnonzero(ray_kind.cpu().numpy() == k), R_KIND_RAYS,
+        replace=False) for k in sorted(GLOSSY_KINDS)])
+    pick = torch.as_tensor(pick, device=dev)
+    kpacks = (packs[0][:, pick].contiguous(), *packs[1:])
+    u_k = u_inj[pick].contiguous()
+    rows = torch.as_tensor(np.concatenate(info.repr_rows), device=dev)
+    ray_o, ray_d = perspective.sample_ray(scene.camera, rows % WIDTH,
+                                          rows // WIDTH)
+    rpacks = integrator.pack_rays_vrls(scene, ray_o, ray_d, vrls, mats)[1]
+    n_rep = rpacks[0].shape[1]
+    u_r = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    for mode, p, u in (("injected", kpacks, u_k), ("philox", rpacks, u_r)):
+        out = vrl_r(*p, seed=seed,
+                    uniforms=None if mode == "philox" else u, **mkw)
+        if mode == "injected":
+            ref = vrl_r_reference(*p, u, **mkw)
+        else:
+            rsurf = smooth[p[0][pk.MATID].long()]
+            with SweepCount((p[0][pk.VALID] > 0.5)[:, None]
+                            & (p[1][pk.VVALID] > 0.5)[None], rsurf) as s5:
+                ref = vrl_r_reference(*p, u, **mkw)
+            _, plain_ms["vrl_r"] = timed_call(
+                lambda: vrl_r_reference(*p, u, **mkw))
+        torch.cuda.synchronize()
+        if mode == "injected":
+            kind = ray_kind[pick][:, None].expand(-1, n_vrls)
+            text = hold(f"kernel 5 injected ({len(pick)} rays, "
+                        f"{R_KIND_RAYS} of each kind) mean", out[0], ref[0],
+                        kind, 1, R_KIND_RAYS * n_vrls)
+        else:
+            median, share = homog_bar(out[0], ref[0], channels=1)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"kernel 5 (material) {mode}: median {median}, share "
+                  f"{share}")
+            text = (f"kernel 5 philox ({n_rep} representative rays) mean "
+                    f"median {median:.2e} share>1e-2 {share:.4f}")
+        nz = ref[1] > R_VAR_FLOOR
+        v_med = float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median())
+        check(v_med < R_VAR_MEDIAN, f"kernel 5 (material) {mode} var "
+              f"{v_med}")
+        errs["vrl_r"] = max(errs.get("vrl_r", 0.0),
+                            float((out - ref).abs().max()))
+        lines.append(f"{text}, var median {v_med:.2e}")
+    r_chk, r_counts = vrl_r_check(*rpacks, seed=seed, **mkw)
+    check(r_counts["bad_tris"] == 0 and r_counts["bad_segments"] == 0,
+          f"kernel 5 (material): the checking launch: {r_counts}")
+
+    # the diffuse instantiations, bit for bit the parent's on config 1
+    digests = kernel_digest.kernel_digests(dev)
+    check(digests == PARENT_DIGESTS, "the diffuse instantiations' outputs "
+          f"are not the parent's: {digests}")
+    lines.append("the diffuse instantiations of kernels 1, 2 and 5 on "
+                 "config 1 (kernel_digest.py: injected and Philox) bit for "
+                 "bit the parent's")
+    print(f"[40a material kernels vs plain on {card}, B={n_rays} "
+          f"N={n_vrls} T={scene.faces.shape[0]} M={mats[0].shape[0]}] "
+          + " | ".join(lines), flush=True)
+    del u_inj, u_k
+
+    # the main path: the unclustered and the clustered render
+    for fn in (vrl_sum, vrl_r, vrl_sum_clustered):
+        fn.launches = 0
+    with plain_calls() as plain:
+        img = integrator.render_with_vrls_kernel(
+            scene, vrls, torch.Generator().manual_seed(1), cfg)
+        img_c, _, _ = alvrl.render_alvrl(
+            scene, torch.Generator().manual_seed(2), params, cfg,
+            slice_info=info)
+        torch.cuda.synchronize()
+    launches = {"vrl_sum": vrl_sum.launches, "vrl_r": vrl_r.launches,
+                "vrl_sum_clustered": vrl_sum_clustered.launches}
+    check(min(launches.values()) >= 1 and plain[0] == 0,
+          f"the main path's launches {launches}, plain calls {plain[0]}")
+    for name, im in (("unclustered", img), ("clustered", img_c)):
+        check(tuple(im.shape) == (HEIGHT, WIDTH, 3)
+              and bool(torch.isfinite(im).all())
+              and float(im.abs().max()) > 0.0, f"the {name} image")
+    # the plain render: kernel 1's Philox hold's plain sums (the render's
+    # seed and packs)
+    px, py, hit, _ = integrator.pack_frame(scene, vrls, materials=mats)
+    plain_img = integrator.develop_sums(scene, vrls, px, py, hit, k1_ref)
+    median, share = homog_bar(img, plain_img)
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"render vs plain render: median {median}, share {share}")
+    diffuse_img = integrator.develop_sums(scene, vrls, px, py, hit,
+                                          vrl_sum(*dpacks, seed=r_seed))
+    ratio = float(img.mean()) / float(diffuse_img.mean())
+    print(f"[40b the main path on {card}] cornell_glossy {WIDTH}x{HEIGHT}: "
+          "render_with_vrls_kernel (the bench VRLs) and render_alvrl ("
+          f"{params.num_particles} particles, {params.vrl_target_num} VRLs)"
+          f": launches {launches}, no plain version; image means "
+          f"{float(img.mean()):.6g} and {float(img_c.mean()):.6g}; the "
+          f"unclustered against the plain render median {median:.2e} "
+          f"share>1e-2 {share:.4f}; against the diffuse instantiation on "
+          f"the same packs (no eye-side term at the glossy hits) x"
+          f"{ratio:.4f}", flush=True)
+
+    # times: each material launch beside the diffuse one, in turns
+    # (diffuse, material, material, diffuse), on cornell_glossy (the
+    # diffuse packs there hold albedo 0 at every hit: no vol-surf sample)
+    # and on config 1 (its diffuse table packed for the material
+    # instantiation: the same samples, the eval in place of albedo
+    # cos / pi), the plain versions, registers and bounds
+    c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
+    c1_mats = pk.pack_materials(c1.materials)
+    c1_mpacks = integrator.pack_frame(c1, vrls, materials=c1_mats)[3]
+    c1_packs = integrator.pack_frame(c1, vrls)[3]
+    c1_sop = np.arange(n_rays, dtype=np.int32) // kernel_digest.SLICE_PIXELS
+    c1_tv = torch.as_tensor(rng.integers(0, n_vrls, (
+        kernel_digest.N_SLICES, kernel_digest.N_COLS)), dtype=torch.int32,
+        device=dev)
+    c1_tw = torch.ones(c1_tv.shape, device=dev)
+    c1_reps = torch.as_tensor(rng.choice(n_rays, n_rep, replace=False),
+                              device=dev)
+    c1_rays = (c1_packs[0][:, c1_reps].contiguous(),
+               c1_mpacks[0][:, c1_reps].contiguous())
+    r_diff = rpacks[0][:pk.RAY_ROWS].contiguous()
+    c_block = vsc.ray_block(False)
+    c_out = torch.zeros((3, n_rays), device=dev)
+
+    def c_launch(p, sl, ids, w, **kw):
+        tiles = [torch.as_tensor(a, device=dev)
+                 for a in group_by_slice(sl, c_block)]
+        return lambda: vsc._launch(
+            vsc._library(), *p, *tiles, ids, w, None, seed, 2, 2, True,
+            scene.medium.phase_kind, c_out, **kw)
+
+    c1_same = vrl_sum(*c1_mpacks, seed=seed, materials=c1_mats)
+    median, share = homog_bar(c1_same.T, vrl_sum(*c1_packs, seed=seed).T)
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE, "config 1: the "
+          f"material instantiation against the diffuse one: {median}, "
+          f"{share}")
+    timed = {
+        "vrl_sum": (lambda: vrl_sum(*packs, seed=seed, **mkw),
+                    lambda: vrl_sum(*dpacks, seed=seed), cuda_ms),
+        "vrl_sum_clustered": (c_launch(packs, sop, tv, tw, **mkw),
+                              c_launch(dpacks, sop, tv, tw),
+                              cuda_ms_batched),
+        "vrl_r": (lambda: vrl_r(*rpacks, seed=seed, **mkw),
+                  lambda: vrl_r(r_diff, *rpacks[1:], seed=seed),
+                  cuda_ms_batched),
+        "vrl_sum config 1": (
+            lambda: vrl_sum(*c1_mpacks, seed=seed, materials=c1_mats),
+            lambda: vrl_sum(*c1_packs, seed=seed), cuda_ms),
+        "vrl_sum_clustered config 1": (
+            c_launch(c1_mpacks, c1_sop, c1_tv, c1_tw, materials=c1_mats),
+            c_launch(c1_packs, c1_sop, c1_tv, c1_tw), cuda_ms_batched),
+        "vrl_r config 1": (
+            lambda: vrl_r(c1_rays[1], *c1_packs[1:], seed=seed,
+                          materials=c1_mats),
+            lambda: vrl_r(c1_rays[0], *c1_packs[1:], seed=seed),
+            cuda_ms_batched),
+    }
+    ms = {}
+    for k, (mat_fn, diff_fn, timer) in timed.items():
+        args = (3, 10) if timer is cuda_ms else (3, 10, 10)
+        d0 = timer(diff_fn, *args)
+        m0 = timer(mat_fn, *args)
+        m1 = timer(mat_fn, *args)
+        d1 = timer(diff_fn, *args)
+        ms[k] = (summary(m0 + m1), summary(d0 + d1))
+    hg = scene.medium.phase_kind == 0
+
+    def mat_ops(kernel, sweep, counts):
+        f, s = plane_ops(kernel_ops(kernel, sweep, hg, True), sweep, counts)
+        return (f + sweep.open[1] * OPS["eval_smooth"][0],
+                s + sweep.open[1] * OPS["eval_smooth"][1])
+
+    mat_bytes = nbytes(*mats)
+    bounds = {
+        "vrl_sum": bound(mat_ops("vrl_sum", s1, k1_counts),
+                         nbytes(*packs) + mat_bytes + 3 * n_rays * 4),
+        "vrl_sum_clustered": bound(
+            mat_ops("vrl_sum_clustered", s2, c_counts),
+            nbytes(*packs, tv, tw) + mat_bytes + 4 * sum(
+                len(a) for a in group_by_slice(sop, c_block))
+            + 3 * n_rays * 4),
+        "vrl_r": bound(mat_ops("vrl_r", s5, r_counts),
+                       nbytes(*rpacks) + mat_bytes + 2 * n_rep * n_vrls * 4),
+    }
+    plain_ms.update({f"{k} config 1": None for k in plain_ms})
+    regs = [r for r in ptxas_summary(_build.build_log()) if ",mat>" in r]
+    prof = profile_device(lambda: integrator.render_with_vrls_kernel(
+        scene, vrls, torch.Generator().manual_seed(3), cfg), 2, 5)
+    prof_line = ("the profiler saw no device operation: idle not measured"
+                 if prof is None else
+                 f"profile of render_with_vrls_kernel: device span "
+                 f"{prof[0]:.3f} ms, busy {prof[1]:.3f} ms, idle share "
+                 f"{1 - prof[1] / prof[0]:.1%}, {prof[2]:g} device ops")
+    print(f"[40c material kernels' timing on {card}] " + " | ".join(
+        f"{k}: material {m[0]:.4f} ms (spread {m[1]:.1%}), diffuse "
+        f"{d[0]:.4f} ms (spread {d[1]:.1%}), in turns"
+        + ("" if plain_ms[k] is None else
+           f"; plain {plain_ms[k]:.2f} ms; bound {bounds[k][0]:.4f} ms by "
+           f"{bounds[k][1]}")
+        for k, (m, d) in ms.items())
+        + f" | config 1, material against diffuse instantiation on the "
+        f"same samples: median {median:.2e} share>1e-2 {share:.4f}"
+        + f" | samples: kernel 1 {s1}; kernel 2 {s2}; kernel 5 {s5}"
+        + " | ptxas (material instantiations): " + " ; ".join(regs)
+        + f" | {prof_line}", flush=True)
+    sources = {"vrl_sum": ("vrl_sum.cu", "alvrl_tpu/ops/vrl_pallas.py:726"),
+               "vrl_sum_clustered": ("vrl_sum_clustered.cu",
+                                     "alvrl_tpu/ops/vrl_pallas.py:785"),
+               "vrl_r": ("vrl_r.cu", "alvrl_tpu/ops/vrl_pallas.py:1019")}
+    return [{
+        "name": f"{k} (material)", "route": "cuda",
+        "source": f"alvrl_tpu_torch/csrc/{sources[k][0]}",
+        "replaces": sources[k][1], "launches": launches[k],
+        "max_abs_err": errs[k], "ms": ms[k][0][0], "plain_ms": plain_ms[k],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": None} for k in ("vrl_sum", "vrl_sum_clustered",
+                                      "vrl_r")]
+
+
+def glossy_cli(dev, card, tmp):
+    """Phase 41: the CLI on cornell_glossy.xml with both integrators, as
+    phase 33, and the tracer on cornell_glossy on the card against the
+    tracer on the CPU on the same uniforms."""
+    out = cli_runs(dev, card, tmp, GLOSSY_RUNS, "41a the CLI on "
+                   "cornell_glossy")
+    path = os.path.join(tmp, "cornell_glossy.json")
+    tcfg = tracer.TracerConfig()
+    rng = np.random.default_rng(41)
+    u_emit = torch.as_tensor(rng.random((CLI_PARTICLES, tracer.N_EMIT_DIMS),
+                                        dtype=np.float32))
+    u_walk = torch.as_tensor(rng.random(
+        (CLI_PARTICLES, tcfg.max_depth, tracer.N_STEP_DIMS), dtype=np.float32))
+    ours, ref = (tracer.trace_u(
+        loader.load_json(path, {"w": WIDTH, "h": HEIGHT}, device=d),
+        u_emit.to(d), u_walk.to(d), tcfg) for d in (dev, "cpu"))
+    ok = ref.valid
+    check(torch.equal(ours.valid.cpu(), ok), "the card's tracer stores other "
+          "slots than the CPU's")
+    err = max(float((getattr(ours, k).cpu()[ok] - getattr(ref, k)[ok])
+                    .abs().max()) for k in ("start", "end"))
+    median, share = homog_bar(ours.power.cpu()[ok], ref.power[ok])
+    check(err < 1e-4 and median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"tracer on the card vs the CPU: positions {err}, powers median "
+          f"{median} share {share}")
+    # the tracer's host time a pass: every kind of the table sampled on
+    # every lane, in turns with config 1's diffuse box
+    scenes = {"cornell_glossy": loader.load_json(
+        path, {"w": WIDTH, "h": HEIGHT}, device=dev),
+        "config 1": presets.cornell_smoke(WIDTH, HEIGHT, device=dev)}
+    gen = torch.Generator().manual_seed(41)
+    trace_ms = {k: [] for k in scenes}
+    for _ in range(2):
+        for k, sc in scenes.items():
+            trace_ms[k] += host_ms(lambda sc=sc: tracer.trace(
+                sc, gen, CLI_PARTICLES, tcfg), 1, 3)
+    print(f"[41b the tracer on cornell_glossy on {card}] {CLI_PARTICLES} "
+          f"particles x depth {tcfg.max_depth}: {int(ok.sum())} valid slots, "
+          f"the same as the CPU tracer's on the same uniforms; positions "
+          f"within {err:.2e}, powers median {median:.2e} share>1e-2 "
+          f"{share:.4f} | ms a trace (host clock, 6 in turns): "
+          + ", ".join(f"{k} {summary(v)[0]:.1f} (spread {summary(v)[1]:.1%})"
+                      for k, v in trace_ms.items()), flush=True)
+    return out
+
+
+def glossy_spec(dev, card, c1):
+    """Phase 42: render_with_vrls_kernel_spec on cornell_glossy with its
+    second block glass (GLASS_BLOCK), 128x128, against VRLs traced on the
+    card at the CLI's defaults: the chains through the glass onto the
+    glossy faces take kernel 1's material instantiation at every depth,
+    each depth's launch is held against its plain version, and the render
+    on injected uniforms against the plain chain (li_unclustered_spec_u)
+    on every pixel that sees the glass and SPEC_GLOSSY_OTHERS others."""
+    desc = glossy_json(c1)
+    desc["materials"] = GLOSSY_MATERIALS + [GLASS_BLOCK]
+    desc["shapes"][-1]["material"] = GLASS_BLOCK["name"]
+    desc["camera"].update(width=WIDTH, height=HEIGHT)
+    scene = loader.build_scene(desc, device=dev)
+    kinds = bsdf_api.check_kinds(scene)
+    check(bsdf_api.DIELECTRIC in kinds and bsdf_api.has_glossy(kinds),
+          f"the glass variant's kinds {sorted(kinds)}")
+    cfg, spec_cfg = VRLConfig(), specular.SpecularConfig()
+    tcfg = tracer.TracerConfig()
+    vrls = vrl.compact(tracer.trace(
+        scene, torch.Generator().manual_seed(SPEC_SEED), CLI_PARTICLES,
+        tcfg), CLI_VRLS, slots_per_particle=tcfg.max_depth)
+    n_rays = WIDTH * HEIGHT
+
+    def render(**kw):
+        return integrator.render_with_vrls_kernel_spec(
+            scene, vrls, torch.Generator().manual_seed(SPEC_SEED), cfg,
+            spec_cfg, **kw)
+
+    # the main path: one render, kernel 1's launches counted
+    vrl_sum.launches = 0
+    with plain_calls() as plain, kernel1_launches() as records:
+        img = render()
+        torch.cuda.synchronize()
+    launches = vrl_sum.launches
+    check(launches == len(records) and launches >= 2 and plain[0] == 0,
+          f"kernel 1 launched {launches} times for {len(records)} depths, "
+          f"{plain[0]} plain-version calls")
+    check(all(r[10] is not None and r[0].shape[0] == pk.MAT_RAY_ROWS
+              for r in records), "a depth took the diffuse instantiation")
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3)
+          and bool(torch.isfinite(img).all())
+          and float(img.abs().max()) > 0.0, "the image")
+    active = [r[0].shape[1] for r in records]
+    hold = hold_kernel1("glossy spec", records, SPEC_GLOSSY_HOLD)
+    del records[:]
+
+    # the plain chain on the same injected uniforms
+    u_sums = torch.rand(
+        (spec_cfg.max_depth + 1, n_rays, CLI_VRLS,
+         2 * cfg.vol_vol_samples + cfg.vol_surf_samples),
+        generator=torch.Generator(dev).manual_seed(SPEC_SEED), device=dev)
+    injected = render(uniforms=u_sums).reshape(-1, 3)
+    u_chain = integrator._chain_draws(
+        torch.Generator().manual_seed(SPEC_SEED), spec_cfg, n_rays, dev)[0]
+    _, _, ray_o, ray_d = integrator.frame_rays(scene)
+    _, mat = integrator.trace_eye_rays(scene, ray_o, ray_d)
+    glass = (scene.materials.kind[mat] == bsdf_api.DIELECTRIC).cpu().numpy()
+    pick = np.sort(np.concatenate([np.flatnonzero(glass), np.random.
+                                   default_rng(42).choice(np.flatnonzero(
+                                       ~glass), SPEC_GLOSSY_OTHERS,
+                                       replace=False)]))
+    pick_t = torch.as_tensor(pick, device=dev)
+    plain_li = integrator.li_unclustered_spec_u(
+        scene, ray_o[pick_t], ray_d[pick_t], vrls, u_chain[:, pick_t],
+        u_sums[:, pick_t], cfg, spec_cfg)
+    del u_sums
+    seen = torch.as_tensor(glass[pick], device=dev)
+    bars = [homog_bar(injected[pick_t], plain_li),
+            homog_bar(injected[pick_t][seen], plain_li[seen])]
+    for (median, share), what in zip(bars, ("the picked", "the glass")):
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE, f"{what} "
+              f"pixels against the plain chain: median {median}, share "
+              f"{share}")
+    print(f"[42 specular chains onto glossy faces on {card}] cornell_glossy "
+          f"with a glass block, {WIDTH}x{HEIGHT} ({n_rays} rays x "
+          f"{int(vrls.valid.sum())} of {vrls.capacity} VRLs, "
+          f"{scene.faces.shape[0]} triangles, {int(glass.sum())} pixels see "
+          f"the glass): vrl_sum launches {launches}, each with the material "
+          "pack; active rays per depth " + " ".join(map(str, active))
+          + f", image mean {float(img.mean()):.6g}; {hold}; plain chain "
+          f"(li_unclustered_spec_u) with the render's injected uniforms on "
+          f"{len(pick)} pixels: median {bars[0][0]:.2e} share>1e-2 "
+          f"{bars[0][1]:.4f}, on the glass pixels alone median "
+          f"{bars[1][0]:.2e} share>1e-2 {bars[1][1]:.4f}", flush=True)
+
+
+def scene_path(dev, card, vrls):
+    """Phases 32-42; returns phase 40's entries of the kernels line."""
     with tempfile.TemporaryDirectory() as tmp:
         c1, _ = scene_files(dev, card, tmp)
         cli_runs(dev, card, tmp)
@@ -3745,6 +4472,13 @@ def scene_path(dev, card):
         spec_render(dev, card, tmp)
         glass_cli(dev, card, tmp)
         print(f"[36-38 wall] {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        glossy = glossy_files(dev, card, tmp, c1)
+        entries = glossy_kernels(dev, card, glossy, vrls)
+        glossy_cli(dev, card, tmp)
+        glossy_spec(dev, card, c1)
+        print(f"[39-42 wall] {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
 
 
 def main():
@@ -4154,7 +4888,7 @@ def main():
     clustered_grad_kernels = clustered_grad(dev, card, cfg, c2, c4)
     bvh_kernel = large_mesh(dev, card, cfg, vrls)
     probe_kernels = gather_probes(dev, card)
-    scene_path(dev, card)
+    glossy_kernels_line = scene_path(dev, card, vrls)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -4171,7 +4905,7 @@ def main():
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
-        bvh_kernel, *probe_kernels]}))
+        bvh_kernel, *probe_kernels, *glossy_kernels_line]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ the transfer matrix R (csrc/vrl_r.cu), the clustered sum
 (csrc/vrl_sum_clustered.cu) and its VJP (csrc/vrl_sum_clustered_bwd.cu),
 in a homogeneous and in a grid medium; the BVH-occlusion sum
 (csrc/vrl_sum_bvh.cu) and the gather probes (csrc/probe_gather.cu); the
-VRL sum on the specular chains' rays, which start on surfaces.
+VRL sum on the specular chains' rays, which start on surfaces; the
+material instantiations of kernels 1, 2 and 5 on glossy and layered
+surfaces.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -43,6 +45,7 @@ from alvrl_tpu_torch.ops.vrl_sum import (
     HOMOG_SHARE,
     compiled_uv_steps,
     homog_bar,
+    homog_bar_by_kind,
     occupancy,
     philox_uniforms,
     vrl_sum,
@@ -1619,3 +1622,170 @@ def test_cuda_spec_render_matches_plain_chain(cuda, monkeypatch):
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
     median, share = homog_bar(img.reshape(-1, 3), li)
     assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+# --- the material instantiations of kernels 1, 2 and 5 (glossy and
+# layered surfaces at the eye hit)
+
+def _glossy(device, size=32):
+    """torch_port_utils.glossy_scene_desc's box of the eleven smooth
+    kinds, its material pack, the bench VRLs and the material packs of
+    its frame."""
+    from alvrl_tpu_torch.scene import loader
+    from torch_port_utils import glossy_scene_desc
+
+    scene = loader.build_scene(glossy_scene_desc(size, size), device=device)
+    vrls = _bench_vrls(device)
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    return scene, vrls, mats, packs
+
+
+def _glossy_table(packs, device, n_slices=8, n_cols=48):
+    rng = np.random.default_rng(5)
+    n_rays = packs[0].shape[1]
+    sop = rng.integers(-1, n_slices, n_rays).astype(np.int32)
+    ids = torch.as_tensor(rng.integers(-1, 512, (n_slices, n_cols)),
+                          dtype=torch.int32, device=device)
+    w = torch.as_tensor(rng.uniform(0.0, 2.0, (n_slices, n_cols)),
+                        dtype=torch.float32, device=device)
+    return sop, ids, w
+
+
+KIND_RAYS = 256  # eye rays of each kind in the material kernels' holds
+
+
+def _glossy_by_kind(device):
+    """_glossy at 128x128, its ray pack cut to KIND_RAYS eye rays of each
+    of the eleven smooth kinds (a seeded pick): (material pack, packs,
+    the rays' kinds, the kinds)."""
+    from alvrl_tpu_torch.bsdf import api as bsdf_api
+
+    _, _, mats, packs = _glossy(device, 128)
+    kinds = bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS - {bsdf_api.DIFFUSE}
+    kind = mats[0][packs[0][pk.MATID].long(), pk.MT_KIND].long()
+    rng = np.random.default_rng(16)
+    pick = torch.as_tensor(np.concatenate([rng.choice(
+        np.flatnonzero(kind.cpu().numpy() == k), KIND_RAYS, replace=False)
+        for k in sorted(kinds)]), device=device)
+    return (mats, (packs[0][:, pick].contiguous(), *packs[1:]), kind[pick],
+            kinds)
+
+
+@pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_material_kernels_match_plain(cuda, kernel, injected):
+    """Each material instantiation on the glossy box (KIND_RAYS eye rays
+    of each of the eleven kinds x 512 VRLs; kernel 2 on a seeded table
+    with rows -1, ids -1 and weights 0) against its plain version on the
+    same uniforms, at the homogeneous bar over all rays and over each
+    kind's rays alone (a wrong branch of one kind fails its group); its
+    launch counted."""
+    mats, packs, ray_kind, kinds = _glossy_by_kind(cuda)
+    n_rays, seed = packs[0].shape[1], 97
+    kw = dict(seed=seed, materials=mats)
+    if kernel == "vrl_sum_clustered":
+        sop, ids, w = _glossy_table(packs, cuda)
+        u = (torch.rand((n_rays, ids.shape[1], 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_table_uniforms(seed, sop, ids, 6))
+        before = vrl_sum_clustered.launches
+        out = vrl_sum_clustered(*packs, sop, ids, w,
+                                uniforms=u if injected else None, **kw)
+        ref = vrl_sum_clustered_reference(*packs, sop, ids, w, u,
+                                          materials=mats)
+        launches = vrl_sum_clustered.launches - before
+    else:
+        fn, plain = ((vrl_sum, vrl_sum_reference) if kernel == "vrl_sum"
+                     else (vrl_r, vrl_r_reference))
+        u = (torch.rand((n_rays, 512, 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_uniforms(seed, n_rays, 512, 6,
+                                              device=cuda))
+        before = fn.launches
+        out = fn(*packs, uniforms=u if injected else None, **kw)
+        ref = plain(*packs, u, materials=mats)
+        launches = fn.launches - before
+        if kernel == "vrl_r":
+            out, ref = out[0], ref[0]
+    torch.cuda.synchronize()
+    assert launches == 1
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    if kernel == "vrl_r":
+        out_i, ref_i, channels = out, ref, 1
+        item_kind = ray_kind[:, None].expand(-1, 512)
+    else:
+        out_i, ref_i, channels, item_kind = out.T, ref.T, 3, ray_kind
+    median, share = homog_bar(out_i, ref_i, channels)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    groups = homog_bar_by_kind(out_i, ref_i, item_kind, channels)
+    assert set(groups) == kinds
+    for k, (n, median, share) in groups.items():
+        assert (n == KIND_RAYS * out_i.numel() // channels // n_rays
+                and median < HOMOG_MEDIAN and share < HOMOG_SHARE), (
+            k, n, median, share)
+
+
+def test_cuda_material_checking_launches(cuda):
+    """The checking instantiations of kernels 1, 2 and 5 with a material
+    pack: 0 disagreements of the plane pre-reject, and their outputs
+    the sums' (kernel 2's bit for bit)."""
+    _, _, mats, packs = _glossy(cuda)
+    out, counts = vs.vrl_sum_check(*packs, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert counts["segments"] > 0
+    median, share = homog_bar(out.T, vrl_sum(*packs, seed=3,
+                                             materials=mats).T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE
+    sop, ids, w = _glossy_table(packs, cuda)
+    out, counts = vrl_sum_clustered_check(*packs, sop, ids, w, seed=3,
+                                          materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert torch.equal(out, vrl_sum_clustered(*packs, sop, ids, w, seed=3,
+                                              materials=mats))
+    _, counts = vrl_r_check(*packs, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+
+
+def test_cuda_material_kernel_on_a_diffuse_table(cuda):
+    """Config 1's diffuse table packed for the material instantiation of
+    kernel 1: the same samples as the diffuse one, the eval's albedo
+    cos_o / pi in place of the ALB rows, at the homogeneous bar."""
+    scene = _scene(cuda, 32, 32)
+    vrls = _bench_vrls(cuda)
+    mats = pk.pack_materials(scene.materials)
+    mpacks = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    packs = integrator.pack_frame(scene, vrls)[3]
+    out = vrl_sum(*mpacks, seed=8, materials=mats)
+    ref = vrl_sum(*packs, seed=8)
+    median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_glossy_renders_take_the_material_kernels(cuda):
+    """render_with_vrls_kernel and render_alvrl on the glossy box launch
+    kernels 1, 5 and 2 with its material pack; the images are finite
+    and non-zero."""
+    scene, vrls, _, _ = _glossy(cuda, 16)
+    calls = []
+    saved = vs._launch
+
+    def recording(*a, materials=None, **k):
+        calls.append(materials is not None)
+        return saved(*a, materials=materials, **k)
+
+    vs._launch = recording
+    try:
+        img = integrator.render_with_vrls_kernel(
+            scene, vrls, torch.Generator().manual_seed(0))
+    finally:
+        vs._launch = saved
+    assert calls == [True]
+    before = (vrl_r.launches, vrl_sum_clustered.launches)
+    img_c, _, _ = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(1), alvrl.ALVRLParams(
+            vrl_target_num=128, num_particles=32))
+    assert vrl_r.launches > before[0] and vrl_sum_clustered.launches > \
+        before[1]
+    for im in (img, img_c):
+        assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0

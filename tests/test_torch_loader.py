@@ -16,7 +16,12 @@ from alvrl_tpu.scene import loader as jloader
 from alvrl_tpu.scene import presets as jpresets
 from alvrl_tpu_torch import convert
 from alvrl_tpu_torch.scene import loader
-from tests.torch_port_utils import CPU, jax_scene_leaves
+from tests.torch_port_utils import (
+    CPU,
+    SMOOTH_KINDS,
+    SMOOTH_MATERIALS,
+    jax_scene_leaves,
+)
 
 torch.set_num_threads(1)
 
@@ -79,7 +84,9 @@ def _fields(obj):
 
 def assert_same_scene(ours, jax_scene):
     """Integer leaves and copies exactly; vertices and the camera matrix
-    (products of transforms) within 1e-6."""
+    (products of transforms) within 1e-6; the rough-transmittance tables
+    (means of 2,048 sampled weights, summed in another order by each
+    package) within 1e-6."""
     ref = convert.scene_from_numpy(jax_scene_leaves(jax_scene), device=CPU)
     for name in ("faces", "material"):
         assert torch.equal(getattr(ours, name), getattr(ref, name)), name
@@ -88,7 +95,8 @@ def assert_same_scene(ours, jax_scene):
     for part in ("materials", "emitters", "medium", "camera"):
         a, b = _fields(getattr(ours, part)), _fields(getattr(ref, part))
         for k in a:
-            if part == "camera" and k == "to_world":
+            if (part, k) in (("camera", "to_world"),
+                             ("materials", "rt_table")):
                 torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=0)
             elif isinstance(a[k], torch.Tensor):
                 assert a[k].dtype == b[k].dtype, f"{part}.{k}"
@@ -313,7 +321,7 @@ def test_xml_gridvolume_matches(tmp_path):
 
 def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
     """tests/test_loader_extended.py's XML (coating, area light, .vol):
-    the same dict, which build_scene then refuses by its coating."""
+    the same dict, which build_scene builds as the JAX loader does."""
     from tests.test_loader_extended import XML as XML_EXT
 
     jvol.write_vol(tmp_path / "dens.vol", np.ones((8, 8, 8), np.float32))
@@ -321,14 +329,14 @@ def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
     p.write_text(XML_EXT)
     desc = loader.convert_mitsuba_xml(p)
     assert desc == jloader.convert_mitsuba_xml(p)
-    with pytest.raises(ValueError, match="'coating' is not ported"):
-        loader.build_scene(desc, device=CPU)
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert 12 in ours.materials.kind.tolist()  # COATING
 
 
 @pytest.mark.parametrize("change, name", [
-    ({"materials": [{"name": "white", "type": "roughdielectric",
-                     "eta": 1.5},
-                    {"name": "glass", "type": "null"}]}, "roughdielectric"),
+    ({"materials": [{"name": "white", "type": "hk"},
+                    {"name": "glass", "type": "null"}]}, "hk"),
     ({"materials": [{"name": "white", "type": "diffuse",
                      "texture": {"type": "checker"}},
                     {"name": "glass", "type": "null"}]}, "checker"),
@@ -478,3 +486,127 @@ def test_xml_new_kinds_match(tmp_path):
     assert_same_scene(ours, jloader.build_scene(desc))
     assert ours.emitters.host_kinds == (1, 2, 6, 4, 3, 3)
     assert sorted(set(ours.materials.kind.tolist())) == [0, 2, 3]
+
+
+
+
+@pytest.mark.parametrize("kind", sorted(SMOOTH_KINDS))
+def test_smooth_material_matches(kind):
+    """Each smooth kind through both JSON loaders, with its fields and
+    the defaults of the fields it leaves out: every material column, the
+    rough coat's transmittance table included."""
+    name = SMOOTH_KINDS[kind]
+    desc = dict(SCENE, materials=SMOOTH_MATERIALS, shapes=[
+        dict(SCENE["shapes"][0], material=name), SCENE["shapes"][1]])
+    ours = loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
+    assert_same_scene(ours, jloader.build_scene(json.loads(json.dumps(
+        desc))))
+    assert ours.materials.kind[ours.material[0]].item() == {
+        "roughconductor": 4, "roughplastic": 5, "phong": 6, "ward": 7,
+        "difftrans": 8, "plastic": 9, "mask": 10, "mixture": 11,
+        "coating": 12, "roughdielectric": 16, "roughcoating": 17}[kind]
+    if kind == "roughcoating":
+        i = [m["name"] for m in SMOOTH_MATERIALS].index(name)
+        assert float(ours.materials.rt_alpha_max[i]) == np.float32(0.6)
+        assert float(ours.materials.rt_table[i].max()) > 0.5
+
+
+def test_smooth_material_defaults_match():
+    """The eleven kinds with no field but their nested names (and the
+    coats' eta: at the default eta 1 the JAX package's rough-coat table is
+    noise and the port's 1, ROADMAP C15): the JAX loader's defaults
+    (alpha 0.1, specular 0.2, exponent 30, opacity 1, GGX)."""
+    mats = [{"name": "white", "type": "diffuse"}] + [
+        {"name": f"k{i}", "type": t, "nested": "white", "nested2": "white",
+         **({"eta": 1.5} if "coating" in t else {})}
+        for i, t in enumerate(sorted(SMOOTH_KINDS))]
+    desc = dict(SCENE, materials=mats + [{"name": "glass", "type": "null"}])
+    ours = loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
+    assert_same_scene(ours, jloader.build_scene(json.loads(json.dumps(
+        desc))))
+
+
+XML_SMOOTH = """<scene version="0.5.0">
+    <sensor type="perspective">
+        <float name="fov" value="70"/>
+        <transform name="toWorld">
+            <lookat origin="0, 0, -0.99" target="0, 0, 1" up="0, 1, 0"/>
+        </transform>
+        <film type="hdrfilm">
+            <integer name="width" value="8"/>
+            <integer name="height" value="8"/>
+        </film>
+    </sensor>
+    <bsdf type="twosided" id="walls"><bsdf type="roughconductor">
+        <string name="distribution" value="ggx"/>
+        <float name="alphaU" value="0.2"/><float name="alphaV" value="0.4"/>
+        <rgb name="specularReflectance" value="0.9, 0.8, 0.7"/></bsdf></bsdf>
+    <bsdf type="roughplastic" id="rp"><float name="alpha" value="0.3"/>
+        <rgb name="diffuseReflectance" value="0.5, 0.4, 0.3"/></bsdf>
+    <bsdf type="phong" id="ph"><float name="exponent" value="40"/>
+        <rgb name="specularReflectance" value="0.3, 0.3, 0.3"/></bsdf>
+    <bsdf type="ward" id="wd"><float name="alphaU" value="0.1"/>
+        <float name="alphaV" value="0.3"/></bsdf>
+    <bsdf type="difftrans" id="dt">
+        <rgb name="reflectance" value="0.6, 0.6, 0.6"/></bsdf>
+    <bsdf type="plastic" id="pl"><float name="intIOR" value="1.5"/></bsdf>
+    <bsdf type="mask" id="mk"><float name="opacity" value="0.4"/>
+        <ref id="rp"/></bsdf>
+    <bsdf type="blendbsdf" id="mx"><float name="weight" value="0.7"/>
+        <ref id="ph"/><ref id="wd"/></bsdf>
+    <bsdf type="coating" id="co"><float name="intIOR" value="1.4"/>
+        <float name="thickness" value="2"/>
+        <rgb name="sigmaA" value="0.1, 0.1, 0.2"/>
+        <bsdf type="diffuse"><rgb name="reflectance" value="0.7, 0.2, 0.2"/>
+        </bsdf></bsdf>
+    <bsdf type="roughdielectric" id="rd"><float name="intIOR" value="1.33"/>
+        <float name="alpha" value="0.15"/></bsdf>
+    <bsdf type="roughcoating" id="rco"><float name="intIOR" value="1.5"/>
+        <float name="alpha" value="0.3"/><ref id="dt"/></bsdf>
+    <shape type="cube"><boolean name="flipNormals" value="true"/>
+        <ref id="walls"/></shape>
+    <shape type="sphere"><point name="center" x="0" y="0" z="0.3"/>
+        <float name="radius" value="0.2"/><ref id="rco"/></shape>
+    <emitter type="point">
+        <point name="position" x="0" y="0.8" z="0"/>
+        <rgb name="intensity" value="3, 3, 3"/>
+    </emitter>
+    <medium type="homogeneous" id="med">
+        <rgb name="sigmaS" value="0.5, 0.5, 0.5"/>
+        <rgb name="sigmaA" value="0.02, 0.02, 0.02"/>
+    </medium>
+    </scene>"""
+
+
+def test_xml_smooth_kinds_match(tmp_path):
+    """A Mitsuba XML of the eleven kinds (Beckmann where it names no
+    distribution, nested BSDFs inline and by reference): the converter's
+    dict is the JAX package's and builds as its scene."""
+    p = tmp_path / "s.xml"
+    p.write_text(XML_SMOOTH)
+    desc = loader.convert_mitsuba_xml(p)
+    assert desc == jloader.convert_mitsuba_xml(p)
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert sorted(set(ours.materials.kind.tolist())) == [
+        0, 4, 5, 6, 7, 8, 9, 10, 11, 12, 16, 17]
+
+
+@pytest.mark.parametrize("kind", ["hk", "normalmap", "bumpmap", "irawan"])
+def test_unported_materials_are_refused_by_name(kind):
+    desc = dict(SCENE, materials=[
+        {"name": "white", "type": kind, "nested": "glass"},
+        {"name": "glass", "type": "diffuse"}])
+    with pytest.raises(ValueError, match=f"{kind}.*ROADMAP A11"):
+        loader.build_scene(desc, device=CPU)
+
+
+def test_rough_coat_at_eta_one_transmits_everything():
+    """C15: with no interface (eta 1) the rough coat's table is 1, where
+    the JAX package's sampler divides by a vanishing half-vector."""
+    desc = dict(SCENE, materials=[
+        {"name": "white", "type": "diffuse"},
+        {"name": "glass", "type": "roughcoating", "nested": "white"}])
+    ours = loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
+    assert bool((ours.materials.rt_table[1] == 1.0).all())
+    assert float(ours.materials.eta[1]) == 1.0

@@ -205,11 +205,11 @@ def test_bsdf_sample_matches():
 
 
 def test_bsdf_sample_rejects_other_kinds():
-    """A kind not ported (here ROUGH_CONDUCTOR, 4) raises."""
+    """A kind not ported (here HK, 14) raises."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 4])))
-    with pytest.raises(ValueError, match="ROADMAP A3"):
+        scene.materials, kind=torch.tensor([0, 0, 0, 14])))
+    with pytest.raises(ValueError, match="HK.*ROADMAP A11"):
         bsdf.sample_from_uniforms(scene, torch.zeros(1, 5), torch.zeros(
             1, dtype=torch.int64), torch.tensor([[0.0, 1.0, 0.0]]),
             torch.tensor([[0.0, 1.0, 0.0]]), torch.tensor([[0.0, -1.0, 0.0]]))
@@ -220,7 +220,7 @@ def test_trace_rejects_other_kinds_once():
     bounce (bsdf.check_kinds), and then samples without the check."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 4])))
+        scene.materials, kind=torch.tensor([0, 0, 0, 14])))
     calls = []
     check = bsdf.check_kinds
 
@@ -228,7 +228,7 @@ def test_trace_rejects_other_kinds_once():
         calls.append(1)
         return check(s)
 
-    with pytest.raises(ValueError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="ROADMAP A11"):
         tracer.trace(scene, torch.Generator().manual_seed(0), 4,
                      tracer.TracerConfig(max_depth=3))
     ok = presets.cornell_smoke(width=4, height=4, device="cpu")

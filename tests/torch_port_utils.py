@@ -12,12 +12,103 @@ import traceback
 import numpy as np
 import torch
 
+from alvrl_tpu_torch import convert
 from alvrl_tpu_torch.geometry.intersect import Hit
 
 CPU = "cpu"  # the device the CPU tests ask the port's entry points for
 
 BENCH_VRLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "bench_vrls.txt")
+
+# the eleven smooth kinds, each with the name of its material in
+# SMOOTH_MATERIALS (tests/test_torch_bsdf.py, test_torch_glossy.py,
+# test_torch_loader.py, test_torch_cuda.py)
+SMOOTH_KINDS = {
+    "roughconductor": "rc", "roughplastic": "rp", "phong": "ph",
+    "ward": "wd", "difftrans": "dt", "plastic": "pl", "mask": "mk",
+    "mixture": "mx", "coating": "co", "roughdielectric": "rd",
+    "roughcoating": "rco",
+}
+# every kind with the parameters that reach its branches: anisotropic
+# roughness, each microfacet distribution, a mask over a rough plastic, a
+# mixture of Phong and Ward, an absorbing coat over diffuse and a rough
+# coat (alpha above 0.5, so its table spans (0, alpha]) over difftrans
+SMOOTH_MATERIALS = [
+    {"name": "white", "type": "diffuse", "albedo": [0.7, 0.7, 0.7]},
+    {"name": "rc", "type": "roughconductor", "albedo": [0.9, 0.6, 0.3],
+     "alpha": 0.3, "alpha_v": 0.15, "distribution": "beckmann"},
+    {"name": "rp", "type": "roughplastic", "albedo": [0.3, 0.5, 0.6],
+     "alpha": 0.2},
+    {"name": "ph", "type": "phong", "albedo": [0.4, 0.3, 0.2],
+     "specular": [0.3, 0.3, 0.3], "exponent": 20},
+    {"name": "wd", "type": "ward", "albedo": [0.2, 0.4, 0.3],
+     "specular": [0.2, 0.2, 0.25], "alpha": 0.2, "alpha_v": 0.35},
+    {"name": "dt", "type": "difftrans", "albedo": [0.6, 0.6, 0.5]},
+    {"name": "pl", "type": "plastic", "albedo": [0.5, 0.2, 0.2],
+     "eta": 1.5},
+    {"name": "mk", "type": "mask", "opacity": 0.6, "nested": "rp"},
+    {"name": "mx", "type": "mixture", "weight": 0.3, "nested": "ph",
+     "nested2": "wd"},
+    {"name": "co", "type": "coating", "eta": 1.4, "thickness": 0.5,
+     "sigma_a": [0.1, 0.2, 0.3], "nested": "white"},
+    {"name": "rd", "type": "roughdielectric", "eta": 1.5, "alpha": 0.25,
+     "distribution": "phong"},
+    {"name": "rco", "type": "roughcoating", "eta": 1.5, "alpha": 0.6,
+     "thickness": 0.3, "sigma_a": [0.05, 0.1, 0.0], "nested": "dt",
+     "distribution": "beckmann"},
+    {"name": "glass", "type": "dielectric", "eta": 1.5},
+]
+
+
+def _quad(material, *corners):
+    """A trimesh of the quad p0 p1 p2 p3 (two triangles)."""
+    return {"type": "trimesh", "material": material,
+            "vertices": [c for p in corners for c in p],
+            "faces": [0, 1, 2, 0, 2, 3]}
+
+
+def _box(x, y, z, sx, sy, sz):
+    return [[sx, 0, 0, x], [0, sy, 0, y], [0, 0, sz, z], [0, 0, 0, 1]]
+
+
+def glossy_scene_desc(width=8, height=8):
+    """The Cornell box [-1, 1]^3 in a homogeneous medium, the camera
+    inside its front wall, whose walls, two blocks, two spheres and a
+    mask quad carry the eleven smooth kinds of SMOOTH_MATERIALS, as a
+    JSON scene dict; every kind is seen from the camera (the back wall
+    Phong and diffuse transmission, the unseen front wall diffuse
+    transmission too)."""
+    return {
+        "camera": {"type": "perspective", "origin": [0, 0, -0.99],
+                   "target": [0, 0, 1], "fov": 90, "width": width,
+                   "height": height},
+        "medium": {"type": "homogeneous", "sigma_s": [0.6] * 3,
+                   "sigma_a": [0.05] * 3, "g": 0.3},
+        "materials": SMOOTH_MATERIALS,
+        "shapes": [
+            _quad("rc", [-1, -1, -1], [1, -1, -1], [1, -1, 1], [-1, -1, 1]),
+            _quad("pl", [-1, 1, -1], [-1, 1, 1], [1, 1, 1], [1, 1, -1]),
+            _quad("ph", [-1, -1, 1], [0.13, -1, 1], [0.13, 1, 1],
+                  [-1, 1, 1]),
+            _quad("dt", [0.13, -1, 1], [1, -1, 1], [1, 1, 1], [0.13, 1, 1]),
+            _quad("dt", [-1, -1, -1], [-1, 1, -1], [1, 1, -1], [1, -1, -1]),
+            _quad("wd", [-1, -1, -1], [-1, -1, 1], [-1, 1, 1], [-1, 1, -1]),
+            _quad("mx", [1, -1, -1], [1, 1, -1], [1, 1, 1], [1, -1, 1]),
+            {"type": "cube", "material": "rp",
+             "to_world": _box(-0.45, -0.6, 0.35, 0.25, 0.4, 0.25)},
+            {"type": "cube", "material": "rco",
+             "to_world": _box(0.45, -0.75, 0.5, 0.2, 0.25, 0.2)},
+            {"type": "sphere", "material": "co", "center": [0.1, 0.35, 0.55],
+             "radius": 0.3, "n_theta": 6, "n_phi": 10},
+            {"type": "sphere", "material": "rd", "center": [-0.3, 0.2, 0.0],
+             "radius": 0.2, "n_theta": 6, "n_phi": 10},
+            _quad("mk", [0.3, -0.2, 0.0], [0.7, -0.2, 0.0], [0.7, 0.3, 0.1],
+                  [0.3, 0.3, 0.1]),
+        ],
+        "emitters": [{"type": "point", "position": [0, 0.8, 0.2],
+                      "intensity": [8, 8, 8]}],
+    }
+
 
 # per-draw constants of a vol_vol=2 / vol_surf=2 pair, in the kernel's
 # draw order (vv0.V, vv0.U, vv1.V, vv1.U, vs0, vs1); the same 6-cycle as
@@ -45,9 +136,8 @@ def jax_scene_leaves(scene):
         "vertices": np.asarray(scene.vertices),
         "faces": np.asarray(scene.faces),
         "material": np.asarray(scene.material),
-        "materials.kind": np.asarray(scene.materials.kind),
-        "materials.albedo": np.asarray(scene.materials.albedo),
-        "materials.eta": np.asarray(scene.materials.eta),
+        **{f"materials.{k}": np.asarray(getattr(scene.materials, k))
+           for k in convert.MATERIAL_KEYS},
         **{f"emitters.{k}": np.asarray(getattr(scene.emitters, k))
            for k in ("kind", "position", "direction", "intensity",
                      "cos_cutoff", "cos_beam", "tri_e1", "tri_e2", "pmf")},
