@@ -5,8 +5,14 @@ alvrl_tpu scene or VRL buffer, converted to numpy by the caller (this
 package does not import jax), and build the port's objects on a device.
 Keys are the leaves' attribute paths, e.g. "materials.albedo"; a scene
 holds the leaves of a homogeneous medium (HOMOG_MEDIUM_KEYS) or of a
-grid medium (GRID_MEDIUM_KEYS, recognised by "medium.density").
-`cluster_tables_from_numpy` takes the clustered render's tables.
+grid medium (GRID_MEDIUM_KEYS, recognised by "medium.sigma_t_color"). The
+optional leaves: a homogeneous medium's strategy, channel and manual
+rate (MEDIUM_STRATEGY_KEYS) and a mixture's components
+(MIXTURE_KEYS); the environment map (ENV_KEYS); the faces' emitter
+ids ("face_emitter"); per-shape media (MEDIA_KEYS). Absent, they take
+the defaults: balance, no mixture, the zero map, no emitting face, the
+one global medium. `cluster_tables_from_numpy` takes the clustered
+render's tables.
 """
 
 from __future__ import annotations
@@ -15,9 +21,12 @@ import numpy as np
 import torch
 
 from alvrl_tpu_torch.emitters.emitters import Emitters
+from alvrl_tpu_torch.emitters.envmap import EnvMap
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium
+from alvrl_tpu_torch.media.phase import PhaseParams
+from alvrl_tpu_torch.media.table import MediaTable
 from alvrl_tpu_torch.scene.scene import Camera, Materials, Scene
 
 EMITTER_KEYS = ("kind", "position", "direction", "intensity", "cos_cutoff",
@@ -39,6 +48,14 @@ HOMOG_MEDIUM_KEYS = ("medium.sigma_a", "medium.sigma_s", "medium.g",
 GRID_MEDIUM_KEYS = ("medium.density", "medium.sigma_t_color",
                     "medium.albedo", "medium.g", "medium.box_min",
                     "medium.box_max", "medium.scale", "medium.phase_kind")
+MEDIUM_STRATEGY_KEYS = ("medium.strategy", "medium.channel",
+                        "medium.density")
+MIXTURE_KEYS = ("medium.phase_params.mix_w", "medium.phase_params.mix_kind",
+                "medium.phase_params.mix_g")
+ENV_KEYS = tuple(f"emitters.env.{k}" for k in (
+    "image", "row_cdf", "cond_cdf", "pdf_map", "mean", "azimuth"))
+MEDIA_KEYS = ("media.sigma_a", "media.sigma_s", "media.g",
+              "media.sampling_weight", "face_med_int", "face_med_ext")
 VRL_KEYS = ("start", "end", "power", "valid", "particle_count")
 
 
@@ -49,7 +66,7 @@ def _missing(d, keys):
 
 
 def scene_from_numpy(d, device="cuda") -> Scene:
-    grid = "medium.density" in d
+    grid = "medium.sigma_t_color" in d
     _missing(d, SCENE_KEYS + (GRID_MEDIUM_KEYS if grid
                               else HOMOG_MEDIUM_KEYS))
 
@@ -66,10 +83,39 @@ def scene_from_numpy(d, device="cuda") -> Scene:
                                          "box_max", "scale")),
             phase_kind=int(d["medium.phase_kind"]), device=device)
     else:
+        strategy = {}
+        if MEDIUM_STRATEGY_KEYS[0] in d:
+            _missing(d, MEDIUM_STRATEGY_KEYS)
+            strategy = dict(strategy=int(d["medium.strategy"]),
+                            channel=int(d["medium.channel"]),
+                            density=float(d["medium.density"]))
+        if MIXTURE_KEYS[0] in d:
+            _missing(d, MIXTURE_KEYS)
+            w, k, g = (np.asarray(d[key]) for key in MIXTURE_KEYS)
+            strategy["phase_params"] = PhaseParams(
+                mix_w=f32(MIXTURE_KEYS[0]), mix_kind=i64(MIXTURE_KEYS[1]),
+                mix_g=f32(MIXTURE_KEYS[2]),
+                host=(tuple(float(x) for x in np.float32(w)),
+                      tuple(int(x) for x in k),
+                      tuple(float(x) for x in np.float32(g))))
         medium = HomogeneousMedium(
             sigma_a=f32("medium.sigma_a"), sigma_s=f32("medium.sigma_s"),
             g=f32("medium.g"), sampling_weight=f32("medium.sampling_weight"),
-            phase_kind=int(d["medium.phase_kind"]))
+            phase_kind=int(d["medium.phase_kind"]), **strategy)
+    env = None
+    if ENV_KEYS[0] in d:
+        _missing(d, ENV_KEYS)
+        env = EnvMap(*(f32(k) for k in ENV_KEYS),
+                     host_mean=tuple(float(x) for x in
+                                     d["emitters.env.mean"]))
+    extra = {}
+    if "face_emitter" in d:
+        extra["face_emitter"] = i64("face_emitter")
+    if MEDIA_KEYS[0] in d:
+        _missing(d, MEDIA_KEYS)
+        extra["media"] = MediaTable(*(f32(k) for k in MEDIA_KEYS[:4]))
+        extra["face_med_int"] = i64("face_med_int")
+        extra["face_med_ext"] = i64("face_med_ext")
     return Scene(
         vertices=f32("vertices"),
         faces=i64("faces"),
@@ -80,13 +126,14 @@ def scene_from_numpy(d, device="cuda") -> Scene:
         emitters=Emitters(
             kind=i64("emitters.kind"),
             **{k: f32(f"emitters.{k}") for k in EMITTER_KEYS[1:]},
-            host_kinds=tuple(int(k) for k in d["emitters.kind"])),
+            host_kinds=tuple(int(k) for k in d["emitters.kind"]), env=env),
         medium=medium,
         camera=Camera(to_world=f32("camera.to_world"),
                       fov_x_deg=f32("camera.fov_x_deg"),
                       width=int(d["camera.width"]),
                       height=int(d["camera.height"]),
                       kind=int(d["camera.kind"])),
+        **extra,
     )
 
 

@@ -116,16 +116,55 @@ __device__ __forceinline__ float phase_dg(float g, float c) {
   return INV_FOURPI * (-2.0f * g - 1.5f * (1.0f - g * g) * dtemp / temp) / (temp * sqrtf(temp));
 }
 
-// The homogeneous medium: sigma_t, sigma_s, g, sampling weight (ops/pack.py).
+// The medium pack's extension (ops/pack.py pack_medium), which kernels
+// 1, 2 and 5 read in their homogeneous forms: the one sampling rate of
+// the single, manual and maximum strategies (0: balance), the mixture's
+// component count K, then K (weight, kind, g) triples.
+constexpr int MED_LEN = 8, MED_RHO = 8, MED_K = 9, MED_MIX = 10;
+constexpr int PHASE_MIXTURE = 4;  // media/phase.py MIXTURE, the PHASE = 2 forms
+
+// The homogeneous medium: sigma_t, sigma_s, g, sampling weight (ops/pack.py);
+// built with std::true_type, also the pack's extension (MED_RHO on).
 struct Medium {
   float sig_t[3], sig_s[3], g, msw;
+  float rho = 0.0f;             // the strategy's one rate; 0: balance
+  int k_mix = 0;                // PHASE 2: the mixture's components, at mix
+  const float* mix = nullptr;
 
   __device__ explicit Medium(const float* __restrict__ med)
       : sig_t{med[0], med[1], med[2]}, sig_s{med[3], med[4], med[5]}, g(med[6]), msw(med[7]) {}
 
+  __device__ Medium(const float* __restrict__ med, std::true_type) : Medium(med) {
+    rho = med[MED_RHO];
+    k_mix = (int)med[MED_K];
+    mix = med + MED_MIX;
+  }
+
+  // The phase function at c = dot(wi, wo): HG (0) or Rayleigh (1) of g;
+  // PHASE 2, the mixture, sum_k w_k phase_k(c) over its components.
+  template <int PHASE>
+  __device__ __forceinline__ float phase(float c) const {
+    if constexpr (PHASE == 2) {
+      float s = 0.0f;
+      for (int k = 0; k < k_mix; ++k) {
+        const float w = __ldg(mix + 3 * k), kind = __ldg(mix + 3 * k + 1);
+        s += w * (kind == 1.0f ? phase_eval<1>(0.0f, c) : phase_eval<0>(__ldg(mix + 3 * k + 2), c));
+      }
+      return s;
+    } else {
+      return phase_eval<PHASE>(g, c);
+    }
+  }
+
   // short-VRL pdfFailure of the VRL segment up to arc length x; e[c] =
-  // exp(-sig_t[c] x), which its derivative reads
+  // exp(-sig_t[c] x), which its derivative reads (balance only: the
+  // backward kernels take no other strategy)
   __device__ float pdf_failure(float x, float e[3]) const {
+    if (rho > 0.0f) {
+      const float er = expf(-rho * x);
+      e[0] = e[1] = e[2] = er;
+      return msw * er + (1.0f - msw);
+    }
     e[0] = expf(-sig_t[0] * x);
     e[1] = expf(-sig_t[1] * x);
     e[2] = expf(-sig_t[2] * x);
@@ -945,7 +984,7 @@ template <int PHASE, bool SHORT_VRLS>
 __device__ __forceinline__ void vol_vol_term(const Medium& m, const Ray& ray, const VrlPair& p,
                                              const Sample& sm, float t[3]) {
   float e[3];
-  float geo = phase_eval<PHASE>(m.g, sm.c_u) * phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
+  float geo = m.phase<PHASE>(sm.c_u) * m.phase<PHASE>(sm.c_v) / sm.den;
   if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
@@ -956,7 +995,7 @@ template <int PHASE, bool SHORT_VRLS>
 __device__ __forceinline__ void vol_surf_term(const Medium& m, const Ray& ray, const VrlPair& p,
                                               const Sample& sm, float t[3]) {
   float e[3];
-  float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float geo = m.phase<PHASE>(sm.c_v) * sm.cos_o * INV_PI / sm.den;
   if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
@@ -974,7 +1013,7 @@ __device__ __forceinline__ void vol_surf_term_mat(const Medium& m, const Ray& ra
   float e[3];
   const f3 fv = eval_smooth(mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f);
   const float f[3] = {fv.x, fv.y, fv.z};
-  float geo = phase_eval<PHASE>(m.g, sm.c_v) / sm.den;
+  float geo = m.phase<PHASE>(sm.c_v) / sm.den;
   if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
@@ -1234,12 +1273,15 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium<UV>& gm, const Ra
 }
 
 // The medium of a kernel instantiation: Medium read from the pack `med`
-// (homogeneous), or GridMedium<UV> on the pack staged at s_med.
-template <bool GRID, int UV = 0>
+// (homogeneous; EXT: with the pack's extension, as kernels 1, 2 and 5
+// read it), or GridMedium<UV> on the pack staged at s_med.
+template <bool GRID, int UV = 0, bool EXT = false>
 __device__ __forceinline__ std::conditional_t<GRID, GridMedium<UV>, Medium> make_medium(
     const float* __restrict__ med, const float* s_med, const GridArgs& grid) {
   if constexpr (GRID)
     return GridMedium<UV>(s_med, grid);
+  else if constexpr (EXT)
+    return Medium(med, std::true_type{});
   else
     return Medium(med);
 }
@@ -1512,35 +1554,40 @@ __device__ __forceinline__ void vol_surf_cot(const GridMedium<UV>& gm, const Ray
                c.d_scale);
 }
 
-// Picks one of a kernel's four instantiations {HG, Rayleigh} x {short,
-// long VRLs}: calls launch(phase, short_vrls) with two
-// std::integral_constant values, whose ::value the launching lambda
-// passes as the kernel's template arguments.
-template <class Launch>
-void dispatch(int phase_kind, int short_vrls, Launch&& launch) {
-  using Hg = std::integral_constant<int, 0>;
-  using Rayleigh = std::integral_constant<int, 1>;
-  if (phase_kind == 0) {
+// Picks one of a kernel's instantiations {HG, Rayleigh} x {short, long
+// VRLs}, and with MIX (kernels 1, 2 and 5 in their homogeneous forms)
+// also the mixture, PHASE 2, for phase kind PHASE_MIXTURE: calls
+// launch(phase, short_vrls) with two std::integral_constant values, whose
+// ::value the launching lambda passes as the kernel's template
+// arguments. Returns cudaErrorInvalidValue, launching nothing, for a
+// phase kind that has no instantiation; else cudaSuccess.
+template <bool MIX = false, class Launch>
+int dispatch(int phase_kind, int short_vrls, Launch&& launch) {
+  auto go = [&](auto phase) {
     if (short_vrls)
-      launch(Hg{}, std::true_type{});
+      launch(phase, std::true_type{});
     else
-      launch(Hg{}, std::false_type{});
-  } else {
-    if (short_vrls)
-      launch(Rayleigh{}, std::true_type{});
-    else
-      launch(Rayleigh{}, std::false_type{});
-  }
+      launch(phase, std::false_type{});
+  };
+  if (phase_kind == 0)
+    go(std::integral_constant<int, 0>{});
+  else if (phase_kind == 1)
+    go(std::integral_constant<int, 1>{});
+  else if (MIX && phase_kind == PHASE_MIXTURE) {
+    if constexpr (MIX) go(std::integral_constant<int, 2>{});
+  } else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
 }
 
 // dispatch for the grid sum and its VJP, whose grid instantiations also
 // take the U-V quadrature's step count as a template argument: launch(phase,
 // short_vrls, uv) with uv an std::integral_constant of UV_STEPS where a
 // grid launch has that many steps, else of 0 (the run-time count; every
-// homogeneous launch).
-template <bool GRID, class Launch>
-void dispatch(int phase_kind, int short_vrls, int uv_steps, Launch&& launch) {
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+// homogeneous launch). MIX as dispatch's, for the homogeneous forms only.
+template <bool GRID, bool MIX = false, class Launch>
+int dispatch(int phase_kind, int short_vrls, int uv_steps, Launch&& launch) {
+  return dispatch<MIX && !GRID>(phase_kind, short_vrls, [&](auto phase, auto short_) {
     if constexpr (GRID) {
       if (uv_steps == UV_STEPS) {
         launch(phase, short_, std::integral_constant<int, UV_STEPS>{});
@@ -1595,13 +1642,14 @@ int occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls, int
   cudaError_t err = cudaSuccess;
   auto query = [&](auto grid_) {
     const size_t smem = smem_of(grid_, T);
-    dispatch<decltype(grid_)::value>(
+    const int d = dispatch<decltype(grid_)::value>(
         phase_kind, short_vrls, uv_steps, [&](auto phase, auto short_, auto uv) {
           auto kernel = kernel_of(grid_, phase, short_, uv);
           err = allow_smem(kernel, smem);
           if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, RAY_BLOCK, smem);
         });
+    if (d != 0) err = (cudaError_t)d;
   };
   if (grid)
     query(std::true_type{});

@@ -1,5 +1,8 @@
 // Transfer matrix R, hand-written for Hopper (sm_90a).
 //
+// Its homogeneous form reads the medium pack with its extension and has
+// a PHASE = 2 form for the mixture phase, as vrl_sum.cu's kernel 1.
+//
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_r_pallas (its body `_kernel`
 // with r_mode=True, hetero=False; entry point alvrl_vrl_r) and, for grid
 // media, vrl_r_pallas_hetero (hetero=True; alvrl_vrl_r_hetero, the grid
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     }
   __syncthreads();
 
-  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV, !GRID>(med, s_med, grid);  // homogeneous: extended
   if constexpr (GRID) {
     // pair i of the tile: ray i / VRL_CHUNK, column i % VRL_CHUNK; a
     // thread takes every RAY_BLOCK-th
@@ -212,15 +215,17 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
              void* stream) {
   const int n_chunks = (N + VRL_CHUNK - 1) / VRL_CHUNK;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) ||
-      !mode_ok<true>(mode, counts) || !mats_ok(mat_table, M, rt) || (GRID && M > 0))
+      n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) || !mode_ok<true>(mode, counts) ||
+      !mats_ok(mat_table, M, rt) || (GRID && M > 0))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   const dim3 blocks((B + r_tile_rays<GRID>() - 1) / r_tile_rays<GRID>(), n_chunks);
   const size_t smem = r_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
-  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+  const int d = dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase,
+                                                                               auto short_,
+                                                                               auto uv) {
     RKernel kernel = r_kernel<GRID, false>(phase, short_, uv, mode);
     if constexpr (!GRID)
       if (M > 0) kernel = r_kernel<GRID, true>(phase, short_, uv, mode);
@@ -230,6 +235,7 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
           rays, B, vrls, N, tris, T, med, grid, mat_table, M, rt, uniforms, seed, svv, svs, out,
           counts);
   });
+  if (d != 0) return d;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

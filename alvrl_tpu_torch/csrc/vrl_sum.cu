@@ -9,7 +9,12 @@
 // particle count. Plain PyTorch twins: ops/vrl_sum.py:vrl_sum_reference
 // and vrl_sum_hetero_reference. The samplers, shared with the VJP
 // (vrl_sum_bwd.cu), and both media are in vrl_common.cuh; the medium is
-// the kernel's third template parameter.
+// the kernel's third template parameter. Kernel 1 reads the medium pack
+// with its extension (the strategy's rate, a mixture's components: the
+// wrapper pads a plain pack with rate 0 and no components), and has a
+// PHASE = 2 form for the mixture phase (phase kind 4; every mode but
+// the timing one, diffuse and material), which the XLA route of the
+// JAX package evaluates and its Pallas kernel does not (ROADMAP C16).
 //
 // What bounds it on the H100: fp32 ALU and SFU instruction throughput. One
 // pair-sample costs about 150 float32 operations and 20 special-function
@@ -236,7 +241,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   if (b >= B) return;
   Ray ray = load_ray(rays, B, b);
   if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
-  const Medium m(med);
+  const Medium m(med, std::true_type{});  // with the pack's extension
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -281,7 +286,12 @@ PlaneKernel plane_kernel(Phase, Short, int mode) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
   if (mode == MODE_CHECK) return &vrl_sum_plane_kernel<P, S, MODE_CHECK, MAT>;
-  if (mode == MODE_NO_REJECT) return &vrl_sum_plane_kernel<P, S, MODE_NO_REJECT, MAT>;
+  if (mode == MODE_NO_REJECT) {
+    if constexpr (P == 2)
+      return nullptr;  // the mixture has no timing form
+    else
+      return &vrl_sum_plane_kernel<P, S, MODE_NO_REJECT, MAT>;
+  }
   return &vrl_sum_plane_kernel<P, S, MODE_SUM, MAT>;
 }
 
@@ -296,16 +306,18 @@ int launch_homog(const float* rays, int B, const float* vrls, int N, const float
                  int phase_kind, float* planes, int mode, unsigned long long* counts,
                  float* partial, int n_chunks, float* out, void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || !mode_ok<true, true>(mode, counts) || !mats_ok(mat_table, M, rt))
+      n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK || n_chunks > MAX_GRID_Y ||
+      !mode_ok<true, true>(mode, counts) || !mats_ok(mat_table, M, rt))
     return (int)cudaErrorInvalidValue;
-  const int pack = pack_planes<true>(tris, T, planes, stream);
-  if (pack != 0) return pack;
   PlaneKernel kernel = nullptr;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+  const int d = dispatch<true>(phase_kind, short_vrls, [&](auto phase, auto short_) {
     kernel = M > 0 ? plane_kernel<true>(phase, short_, mode)
                    : plane_kernel<false>(phase, short_, mode);
   });
+  if (d != 0) return d;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int pack = pack_planes<true>(tris, T, planes, stream);
+  if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
   const size_t smem = plane_smem_bytes(T, M);
@@ -372,7 +384,11 @@ const char* alvrl_error_string(int err) { return cudaGetErrorString((cudaError_t
 
 int alvrl_plane_f4() { return PLANE_F4; }
 
-// The homogeneous sum (kernel 1). `planes` is (T, 4 PLANE_F4) float
+// The homogeneous sum (kernel 1). `med` is the medium pack with its
+// extension (ops/pack.py pack_medium: MED_LEN + 2 + 3 K floats);
+// phase_kind 0 (HG), 1 (Rayleigh) or 4 (the mixture of the extension's K
+// components, which has no mode 2); any other kind launches nothing and
+// returns cudaErrorInvalidValue. `planes` is (T, 4 PLANE_F4) float
 // scratch for the triangles' plane pack, `partial` (n_chunks, 3, B)
 // scratch, `out` (3, B); `uniforms` may be null (Philox stream from
 // `seed`). mode: 0 the sum, 1 the checking instantiation (counts:

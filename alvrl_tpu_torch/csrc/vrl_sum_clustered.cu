@@ -1,5 +1,8 @@
 // Clustered VRL sum, hand-written for Hopper (sm_90a).
 //
+// Its homogeneous form reads the medium pack with its extension and has
+// a PHASE = 2 form for the mixture phase, as vrl_sum.cu's kernel 1.
+//
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered (its body
 // `_kernel` with clustered=True, hetero=False; entry point
 // alvrl_vrl_sum_clustered) and, for grid media,
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     ray = load_ray(rays, B, b);
     if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
   }
-  const Medium m(med);
+  const Medium m(med, std::true_type{});  // with the pack's extension
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -250,9 +253,15 @@ auto clustered_kernel(Phase, Short, Uv, int mode) {
     return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK>
                               : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM>;
   } else {
-    if (mode == MODE_CHECK) return &vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK, MAT>;
-    if (mode == MODE_NO_REJECT) return &vrl_sum_clustered_warps_kernel<P, S, MODE_NO_REJECT, MAT>;
-    return &vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>;
+    using K = decltype(&vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>);
+    if (mode == MODE_CHECK) return K(&vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK, MAT>);
+    if (mode == MODE_NO_REJECT) {
+      if constexpr (P == 2)
+        return K(nullptr);  // the mixture has no timing form
+      else
+        return K(&vrl_sum_clustered_warps_kernel<P, S, MODE_NO_REJECT, MAT>);
+    }
+    return K(&vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>);
   }
 }
 
@@ -289,15 +298,18 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
                      float* planes, int mode, unsigned long long* counts, float* out,
                      void* stream) {
   if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
-      svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
-      !mode_ok<true, !GRID>(mode, counts) || !mats_ok(mat_table, M, rt) || (GRID && M > 0))
+      svs < 0 || !grid_ok<GRID>(grid) || !mode_ok<true, !GRID>(mode, counts) ||
+      !mats_ok(mat_table, M, rt) || (GRID && M > 0) ||
+      (phase_kind == PHASE_MIXTURE && mode == MODE_NO_REJECT))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = clustered_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
-  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
+  const int d = dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase,
+                                                                               auto short_,
+                                                                               auto uv) {
     if constexpr (GRID) {
       const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
       err = allow_smem(kernel, smem);
@@ -315,6 +327,7 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
                                                uniforms, seed, svv, svs, out, counts);
     }
   });
+  if (d != 0) return d;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

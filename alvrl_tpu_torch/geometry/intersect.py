@@ -55,12 +55,20 @@ def _triangles(verts, faces):
     return verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
 
 
-def intersect_all(o, d, verts, faces):
-    """Closest hit of rays (..., 3) against all triangles."""
+def intersect_all(o, d, verts, faces, tmin=RAY_EPS, tmax=None):
+    """Closest hit of rays (..., 3) against all triangles, at a distance
+    in (tmin, tmax) (floats, or tensors (...) of one bound a ray)."""
     p0, p1, p2 = _triangles(verts, faces)
     t, _, _, hit = ray_triangle(o[..., None, :], d[..., None, :], p0, p1, p2)
     inf = torch.full_like(t, float("inf"))
-    t = torch.where(hit & (t > RAY_EPS), t, inf)
+
+    def col(x):
+        return x[..., None] if isinstance(x, torch.Tensor) else x
+
+    ok = hit & (t > col(tmin))
+    if tmax is not None:
+        ok = ok & (t < col(tmax))
+    t = torch.where(ok, t, inf)
     prim = t.argmin(dim=-1)  # first of equal minima, as jnp.argmin
     t_best = t.gather(-1, prim[..., None])[..., 0]
     valid = torch.isfinite(t_best)

@@ -4,7 +4,9 @@ Counterpart of alvrl_tpu/integrators/vrl/integrate.py: the render
 configuration, the two samplers of the estimator (Kulla-Fajardo
 equi-angular sampling, and inverse-distance sampling of a point on the
 VRL by the sinh/asinh warp), the eye hit's smooth BSDF factor
-(bsdf_eval_smooth), and the grid-medium reads of
+(bsdf_eval_smooth), the transmittance between two points
+(eval_transmittance_between, which the volumetric path tracer's direct
+sampling reads), and the grid-medium reads of
 pair_contribution's table branch (integrate.py:248-335): the density at
 a point and the optical depth of a U-V segment, from the kernels' grid
 medium pack, and the eye and VRL cumulative-OD tables interpolated by
@@ -144,6 +146,24 @@ def bsdf_eval_smooth(materials, mat_id, ng, wi_world, wo_world, kinds=None):
 
     return bsdf_api.eval_smooth(materials, mat_id, ng, wi_world, wo_world,
                                 kinds)
+
+
+def eval_transmittance_between(scene, p0, p1, density_ss=None,
+                               blockers=None):
+    """(..., 3) transmittance of the scene's global medium between p0 and
+    p1, 0 where an opaque face blocks the open segment (null faces do
+    not): Scene::evalTransmittance with one medium. A grid medium reads
+    the supersampled density_ss; `blockers`, the opaque faces
+    (scene.faces[scene.opaque_faces()]), may be passed in once per call
+    to save the masking."""
+    from alvrl_tpu_torch.geometry import intersect
+    from alvrl_tpu_torch.media import api as mapi
+
+    if blockers is None:
+        blockers = scene.faces[scene.opaque_faces()]
+    blocked = intersect.occluded(p0, p1, scene.vertices, blockers)
+    tau = mapi.transmittance(scene.medium, p0, p1, density_ss)
+    return torch.where(blocked[..., None], 0.0, tau)
 
 
 # grid medium pack rows (ops.pack.GRID_MED_LEN)

@@ -22,7 +22,10 @@ not evaluate) takes the material instantiations of kernels 1, 2 and 5
 (material_pack; the homogeneous unclustered, specular-chain and
 clustered renders and R); the routes that have none yet (the grid
 kernels 3, 4 and 6, the BVH kernel 7, the backward kernels 8-11) refuse
-such a table by name (ROADMAP A12) rather than drop its term.
+such a table by name (ROADMAP A12) rather than drop its term. Likewise
+a homogeneous medium with a mixture phase or a sampling strategy other
+than balance (ops.pack.pack_medium's extended pack) takes kernels 1, 2
+and 5, and the other routes refuse it (refuse_mixture, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import heterogeneous as gmed
+from alvrl_tpu_torch.media import homogeneous as hmed
+from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
 from alvrl_tpu_torch.ops.vrl_sum import (
@@ -99,6 +104,17 @@ def refuse_glossy(scene: Scene, route: str):
         raise ValueError(f"{route} evaluates the diffuse eye-side term only: "
                          f"material kinds {sorted(kinds)} need its material "
                          "instantiation (ROADMAP A12)")
+
+
+def refuse_mixture(scene: Scene, route: str):
+    """Raise, naming `route` and its ROADMAP item, if the scene's medium
+    has a mixture phase or a sampling strategy other than balance, which
+    only the homogeneous kernels 1, 2 and 5 evaluate."""
+    med = scene.medium
+    if med.phase_kind == ph.MIXTURE or getattr(med, "strategy",
+                                               hmed.BALANCE) != hmed.BALANCE:
+        raise ValueError(f"{route} takes neither the mixture phase nor a "
+                         "sampling strategy other than balance (ROADMAP A13)")
 
 
 def _homogeneous_materials(scene: Scene, route: str):
@@ -177,6 +193,7 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
     refuse_glossy(scene, "the large-mesh render (kernel 7)")
+    refuse_mixture(scene, "the large-mesh render (kernel 7)")
     px, py, ray_o, ray_d = frame_rays(scene, jitter)
     hit, mat = trace_eye_rays_bvh(scene, ray_o, ray_d)
     return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
@@ -245,6 +262,7 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     density, through which autograd chains. A glossy or layered table is
     refused (no material instantiation of kernels 8 and 9 yet)."""
     refuse_glossy(scene, "the differentiable render (kernels 8 and 9)")
+    refuse_mixture(scene, "the differentiable render (kernels 8 and 9)")
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
                    vrls, generator, cfg, uniforms, None)
 
@@ -472,6 +490,8 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     is refused (no material instantiation of kernels 10 and 11 yet)."""
     refuse_glossy(scene, "the differentiable clustered render (kernels 10 "
                   "and 11)")
+    refuse_mixture(scene, "the differentiable clustered render (kernels 10 "
+                   "and 11)")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered_diff, vrl_sum_hetero_clustered_diff),
         scene, vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,

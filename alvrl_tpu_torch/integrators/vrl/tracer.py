@@ -1,9 +1,10 @@
 """VRL generation by volumetric photon tracing, differentiable.
 
 Counterpart of alvrl_tpu/integrators/vrl/tracer.py (trace, _trace_one)
-for the point, spot, directional, area, constant and collimated
-emitters, diffuse, null, mirror and dielectric surfaces and a
-homogeneous or grid medium with an HG or Rayleigh phase. All particles
+for the point, spot, directional, area, constant, environment-map and
+collimated emitters, diffuse, null, mirror and dielectric surfaces and a
+homogeneous or grid medium with an HG or Rayleigh phase (a homogeneous
+medium also with a mixture of them and any sampling strategy). All particles
 advance in lockstep, as tensors with a leading particle axis, through a
 Python loop over bounce depth; each (particle, depth) slot holds at most
 one VRL, so the buffer has num_particles * max_depth slots,
@@ -169,8 +170,9 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss, kinds):
     # medium scattering; the no-interaction sentinel point is replaced
     # by the origin (0 * inf poisons reverse mode through masked math)
     p_scatter = torch.where(medium_event[..., None], ms.p, ray_o)
+    pp = getattr(med, "phase_params", None)
     wo_phase, w_phase, _ = ph.sample_phase(med.phase_kind, med.g, -ray_d,
-                                           u[:, U_PHASE])
+                                           u[:, U_PHASE], pp=pp)
     wo_phase = wo_phase.detach()
     if cfg.score_phase and med.phase_kind == ph.HG:
         ph_val = ph.eval_phase(med.phase_kind, med.g, -ray_d, wo_phase)

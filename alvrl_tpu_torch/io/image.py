@@ -1,7 +1,7 @@
-"""Image I/O: a copy of alvrl_tpu/io/image.py without its EXR, HDR and
-JPEG branches (the readers and writers of io/exr.py, io/hdr.py and
-io/jpeg.py are not ported: ROADMAP A11; read_image raises on those
-extensions).
+"""Image I/O: a copy of alvrl_tpu/io/image.py without its EXR and JPEG
+branches (io/exr.py and io/jpeg.py are not ported: ROADMAP A11;
+read_image raises on those extensions). Radiance .hdr / .rgbe files
+read through io/hdr.py.
 
 Counterpart of the reference's Bitmap I/O + film plugins:
   * write_npy / read_npy — the mfilm NumPy export used for numeric
@@ -82,15 +82,19 @@ def write_png(path, img, gamma=2.2):
 def read_image(path, gamma=2.2):
     """Extension-dispatched image read -> float32 (H, W, C) linear —
     the Bitmap::load counterpart (bitmap.cpp dispatches on file
-    signature): .npy/.pfm load as-is (already linear HDR), .png LDR
+    signature): .npy/.pfm/.hdr load as-is (already linear HDR), .png LDR
     content is gamma-decoded to linear."""
     p = str(path).lower()
     if p.endswith(".npy"):
         return read_npy(path)
     if p.endswith(".pfm"):
         return read_pfm(path)
-    if p.endswith((".exr", ".hdr", ".rgbe", ".jpg", ".jpeg")):
-        raise ValueError(f"{path}: EXR, HDR and JPEG images are not ported "
+    if p.endswith((".hdr", ".rgbe")):
+        from alvrl_tpu_torch.io import hdr
+
+        return hdr.read_hdr(path)
+    if p.endswith((".exr", ".jpg", ".jpeg")):
+        raise ValueError(f"{path}: EXR and JPEG images are not ported "
                          "(ROADMAP A11)")
     if p.endswith(".png"):
         return read_png(path, gamma=gamma)

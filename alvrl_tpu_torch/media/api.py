@@ -2,7 +2,8 @@
 and the render consume it.
 
 Counterpart of alvrl_tpu/media/api.py (is_homogeneous, transmittance,
-sigma_s_at, sample_distance_seg[_u], _homog_to_distance_sample). Grid
+eval_ray_seg, sigma_s_at, sample_distance_seg[_u],
+_homog_to_distance_sample). Grid
 media read the supersampled density that the caller computed once per
 entry-point call (media.heterogeneous.upsample2), and their free-flight
 sampler (Woodcock tracking) reads explicit tracking uniforms.
@@ -40,6 +41,15 @@ def transmittance(med, p0, p1, density_ss=None):
     if is_homogeneous(med):
         return hmed.eval_transmittance(med, m.distance(p0, p1))
     return gmed.eval_transmittance(med, density_ss, p0, p1)
+
+
+def eval_ray_seg(med, p0, p1):
+    """(tau, pdf_success, pdf_failure) over the segment p0 -> p1 of a
+    homogeneous medium (Medium::eval); the grid medium's is not ported,
+    since no port route reads it."""
+    if not is_homogeneous(med):
+        raise ValueError("eval_ray_seg takes a homogeneous medium")
+    return hmed.eval_ray(med, m.distance(p0, p1))
 
 
 def sigma_s_at(med, p, density_ss=None):

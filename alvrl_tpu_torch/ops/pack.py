@@ -20,6 +20,7 @@ import torch
 from alvrl_tpu_torch.core import math as m
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import homogeneous as hmed
+from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.scene.scene import DIFFUSE, Materials, Scene
 
 # ray pack rows, (RAY_ROWS, B): origin, direction, hit point, normal at
@@ -51,8 +52,13 @@ VS, VE, VP, VVALID = 0, 3, 6, 9
 VRL_ROWS = 10
 # triangle pack, (T, TRI_COLS): p0, e1 = p1 - p0, e2 = p2 - p0
 TRI_COLS = 9
-# medium pack, (MED_LEN,): sigma_t (3), sigma_s (3), g, sampling weight
+# medium pack, (MED_LEN,): sigma_t (3), sigma_s (3), g, sampling weight;
+# for a mixture phase or a strategy other than balance, extended by the
+# strategy's one sampling rate (MED_RHO; 0 for balance), the mixture's
+# component count K (MED_K) and its K (weight, kind, g) triples
+# (MED_MIX on): MED_LEN + 2 + 3 K floats, which kernels 1, 2 and 5 take
 MED_LEN = 8
+MED_RHO, MED_K, MED_MIX = 8, 9, 10
 # grid packs: the ray pack's rows, then the eye segment's cumulative
 # optical depth (NQ + 1 rows), its TAU rows exp(-sigma_t_color * eye
 # OD); the VRL pack's rows, then the VRL's cumulative optical depth
@@ -156,10 +162,41 @@ def pack_tris(scene: Scene):
 
 
 def pack_medium(scene: Scene):
-    """(MED_LEN,) homogeneous medium parameters."""
+    """The homogeneous medium's parameters: (MED_LEN,) for an HG or
+    Rayleigh medium of the balance strategy, else the extended pack
+    (MED_LEN + 2 + 3 K,) of the rate and the mixture (see MED_LEN)."""
     med = scene.medium
-    return torch.cat([med.sigma_t, med.sigma_s, med.g.reshape(1),
+    base = torch.cat([med.sigma_t, med.sigma_s, med.g.reshape(1),
                       med.sampling_weight.reshape(1)]).to(torch.float32)
+    mixture = med.phase_kind == ph.MIXTURE
+    if med.strategy == hmed.BALANCE and not mixture:
+        return base
+    rho = (torch.zeros_like(base[:1]) if med.strategy == hmed.BALANCE
+           else med.sampling_density.reshape(1).to(torch.float32))
+    comps = torch.zeros((0,), dtype=torch.float32, device=base.device)
+    if mixture:
+        w, kinds, g = med.phase_params.host
+        comps = torch.tensor([x for c in zip(w, kinds, g) for x in c],
+                             dtype=torch.float32, device=base.device)
+    k = torch.full((1,), float(comps.shape[0] // 3), dtype=torch.float32,
+                   device=base.device)
+    return torch.cat([base, rho, k, comps])
+
+
+def extended_medium(medium):
+    """The medium pack with its extension, as kernels 1, 2 and 5 read it:
+    a (MED_LEN,) pack gets rate 0 (balance) and no mixture."""
+    if medium.shape[0] > MED_LEN:
+        return medium
+    return torch.cat([medium, medium.new_zeros(2)])
+
+
+def medium_extension(medium):
+    """(rho, mixture (K, 3) of weight, kind, g) of a medium pack; rho 0
+    and K 0 for a (MED_LEN,) pack. Reads no value, so no sync."""
+    if medium.shape[0] <= MED_LEN:
+        return medium.new_zeros(()), medium.new_zeros((0, 3))
+    return medium[MED_RHO], medium[MED_MIX:].reshape(-1, 3)
 
 
 def pack_medium_hetero(med):

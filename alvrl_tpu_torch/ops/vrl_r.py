@@ -38,6 +38,7 @@ import torch
 
 from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
 from alvrl_tpu_torch.media import phase as ph
+from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
 
 
@@ -135,6 +136,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     out = torch.empty((2, n_rays, n_vrls), dtype=torch.float32,
                       device=rays.device)
+    if grid is None:
+        medium = pk.extended_medium(medium)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
             tris.shape[0], medium.data_ptr())
     planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
@@ -160,7 +163,8 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     MODE_CHECK (CUDA tensors only) returns (out, {name: total} of
     vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              grid=grid, materials=materials)
+              grid=grid, materials=materials,
+              extended_ok=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     checking = mode == vs.MODE_CHECK
     if checking and rays.device.type != "cuda":

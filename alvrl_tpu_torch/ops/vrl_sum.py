@@ -19,6 +19,14 @@ sample adds its density reads and OD interpolations); the CUDA kernel
 chip and splits both the ray and the VRL axes over the grid so that the
 card is full.
 
+A homogeneous medium with a mixture phase (ph.MIXTURE) or a sampling
+strategy other than balance comes in ops.pack.pack_medium's extended
+pack: the plain versions and kernels 1, 2 and 5 (their PHASE = 2 forms
+for the mixture) evaluate the mixture's components and divide by the
+strategy's pdfFailure, msw exp(-rho x) + 1 - msw, as the JAX package's
+XLA route does (ROADMAP C16); the other kernels' wrappers refuse it
+(MIX_REFUSAL, ROADMAP A13).
+
 Glossy and layered surfaces at the eye hit take kernel 1's material
 instantiation: the wrappers and plain versions take `materials`, the
 material pack of ops.pack.pack_materials, with the ray pack that holds
@@ -300,8 +308,13 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     pair_ok = (rays[pk.VALID][:, None] > 0.5) & v_ok
     sig_t, sig_s, g = medium[0:3], medium[3:6], medium[6]
     uv = m.normalize(e - s)
+    rho, mix = (pk.medium_extension(medium) if grid is None
+                else (None, None))
 
     def phase(wi, wo):
+        if phase_kind == ph.MIXTURE:  # the pack's components
+            return ph.eval_mixture(ph.PhaseParams(mix[:, 0], mix[:, 1],
+                                                  mix[:, 2]), wi, wo)
         return ph.eval_phase(phase_kind, g, wi, wo)
 
     if grid is None:
@@ -309,6 +322,9 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
 
         def pdf_failure(x):
             pf = torch.exp(-sig_t * x[..., None]).sum(dim=-1) * (1.0 / 3.0)
+            if mix is not None and medium.shape[0] > pk.MED_LEN:
+                # single, manual, maximum: their one rate (0: balance)
+                pf = torch.where(rho > 0, torch.exp(-rho * x), pf)
             return msw * pf + (1.0 - msw)
     else:
         density_ss, uv_steps = grid
@@ -508,6 +524,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
                           device=rays.device)
     out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
+    if grid is None:
+        medium = pk.extended_medium(medium)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
             tris.data_ptr(), tris.shape[0], medium.data_ptr())
     uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv,
@@ -578,15 +596,23 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
     return blocks.value
 
 
+MIX_REFUSAL = ("the mixture phase and the sampling strategies other than "
+               "balance take the homogeneous kernels 1, 2 and 5 only; the "
+               "grid, BVH and backward kernels do not (ROADMAP A13)")
+
+
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None, grid=None, materials=None):
+           n_cols=None, grid=None, materials=None, extended_ok=False):
     """Raise on what the kernels do not take. The uniforms must be
     (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
     (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
     constants give, with the supersampled density (2Z - 1, 2Y - 1,
     2X - 1). materials = (table, rt_tables), ops.pack.pack_materials', for
     the material instantiations: homogeneous packs, rays (MAT_RAY_ROWS,
-    B)."""
+    B). extended_ok: the kernel takes the extended medium pack (the
+    mixture phase, another strategy than balance: kernels 1, 2 and 5 in
+    a homogeneous medium); other kernels raise a ValueError on it, naming
+    ROADMAP A13."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
@@ -630,7 +656,19 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     if tris.dim() != 2 or tris.shape[1] != pk.TRI_COLS:
         raise ValueError(f"tris must be (T, {pk.TRI_COLS}), got "
                          f"{tuple(tris.shape)}")
-    if tuple(medium.shape) != (med_len,):
+    extended = grid is None and medium.dim() == 1 \
+        and medium.shape[0] > pk.MED_LEN
+    if extended or phase_kind == ph.MIXTURE:
+        if not (extended_ok and grid is None):
+            raise ValueError(MIX_REFUSAL)
+        if not extended or medium.shape[0] < pk.MED_MIX \
+                or (medium.shape[0] - pk.MED_MIX) % 3:
+            raise ValueError(f"an extended medium pack is ({pk.MED_MIX} + "
+                             f"3 K,), got {tuple(medium.shape)}")
+        if phase_kind == ph.MIXTURE and medium.shape[0] == pk.MED_MIX:
+            raise ValueError("a mixture phase needs its components in the "
+                             "medium pack")
+    elif tuple(medium.shape) != (med_len,):
         raise ValueError(f"medium must be ({med_len},), got "
                          f"{tuple(medium.shape)}")
     if grid is not None:
@@ -647,7 +685,7 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     if uniforms is not None and tuple(uniforms.shape) != shape:
         raise ValueError(f"uniforms must be {shape}, got "
                          f"{tuple(uniforms.shape)}")
-    if phase_kind not in (ph.HG, ph.RAYLEIGH):
+    if phase_kind not in (ph.HG, ph.RAYLEIGH, ph.MIXTURE):
         raise ValueError(f"phase kind {phase_kind} is not ported")
     if not 0 <= seed <= _MASK32:
         raise ValueError(f"seed {seed} is not a uint32")
@@ -666,7 +704,7 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     """The wrappers' body: checks, then the plain version on the CPU or
     the kernel on the card, counting its launch on `fn`."""
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           grid=grid, materials=materials)
+           grid=grid, materials=materials, extended_ok=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
@@ -723,7 +761,7 @@ def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     vrl_sum's."""
     svv, svs = vol_vol_samples, vol_surf_samples
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           materials=materials)
+           materials=materials, extended_ok=True)
     if rays.device.type != "cuda":
         raise ValueError("the checking launch needs CUDA tensors")
     counts = torch.zeros(len(CHECK_COUNTS), dtype=torch.int64,

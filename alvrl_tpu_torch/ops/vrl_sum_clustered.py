@@ -220,7 +220,8 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              n_cols=table_ids.shape[1], grid=grid, materials=materials)
+              n_cols=table_ids.shape[1], grid=grid, materials=materials,
+              extended_ok=True)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     checking = mode == vs.MODE_CHECK
@@ -356,6 +357,8 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
     if len(tile_rays) != block * len(tile_row):
         raise ValueError(f"{len(tile_rays)} tile slots for {len(tile_row)} "
                          f"tiles of {block} rays")
+    if grid is None:
+        medium = pk.extended_medium(medium)
     head = (rays.data_ptr(), rays.shape[1], vrls.data_ptr(), vrls.shape[1],
             tris.data_ptr(), tris.shape[0], medium.data_ptr())
     planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),

@@ -24,14 +24,22 @@ leaf by leaf:
   * shapes "rectangle", "cube", "sphere", "disk", "cylinder", "obj",
     "ply", "serialized" and "trimesh", each with an optional to_world;
   * "point", "spot", "directional", "collimated" and "constant"
-    emitters, and "area" emitters as real geometry: two triangles of the
-    black "_emitter_black" material (or the emitter's "material") per
-    quad after the shapes, and two AREA entries per quad after the
-    other emitters;
-  * a "homogeneous" medium (phase "hg", "isotropic" or "rayleigh",
-    strategy "balance") or a "grid" medium (a scalar density from
-    "density_npy" or an inline "density", as the converter writes a
-    .vol grid; box_min / box_max);
+    emitters; one environment emitter, "envmap" (an image file: .pfm,
+    .npy, .hdr), "sky" or "sunsky" (the Preetham sky baked into the map,
+    sunsky's sun disk too), and "sun" (a directional entry of the sun's
+    attenuated irradiance); and "area" emitters as real geometry: two
+    triangles of the black "_emitter_black" material (or the emitter's
+    "material") per quad after the shapes, and two AREA entries per quad
+    after the other emitters, which those faces emit as;
+  * a "homogeneous" medium (phase "hg", "isotropic", "rayleigh" or a
+    {"type": "mixture", "components": [...]} dict; strategy "balance",
+    "single" (with "channel"), "manual" (with "density") or "maximum")
+    or a "grid" medium (a scalar density from "density_npy" or an
+    inline "density", as the converter writes a .vol grid; box_min /
+    box_max);
+  * per-shape nested media: a "media" list of homogeneous media (id 0
+    the exterior), which shapes name by "interior_medium" and
+    "exterior_medium";
   * the "perspective" camera (and "radiancemeter", a perspective camera
     in the JAX package too).
 Anything else raises ValueError with the kind and the ROADMAP item that
@@ -42,19 +50,24 @@ from __future__ import annotations
 
 import json
 import re
-from dataclasses import replace
 
 import numpy as np
 import torch
 
 from alvrl_tpu_torch.bsdf.microfacet import MF_BECKMANN, MF_GGX, MF_PHONG
 from alvrl_tpu_torch.emitters import emitters as em_mod
+from alvrl_tpu_torch.emitters import sunsky
+from alvrl_tpu_torch.emitters.envmap import make_envmap
 from alvrl_tpu_torch.geometry import shapes as shp
+from alvrl_tpu_torch.io import image as img_io
 from alvrl_tpu_torch.io import mesh as mesh_io
 from alvrl_tpu_torch.io.vol import read_vol
+from alvrl_tpu_torch.media import homogeneous as hmed
+from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
 from alvrl_tpu_torch.media.homogeneous import make_medium
 from alvrl_tpu_torch.media.phase import HG, RAYLEIGH
+from alvrl_tpu_torch.media.table import make_media_table
 from alvrl_tpu_torch.scene.scene import (
     COATING,
     DIELECTRIC,
@@ -95,6 +108,8 @@ _DIST_KINDS = {"beckmann": MF_BECKMANN, "ggx": MF_GGX, "as": MF_PHONG,
                "phong": MF_PHONG}
 _CAM_KINDS = {"perspective": PERSPECTIVE, "radiancemeter": PERSPECTIVE}
 _PHASE_KINDS = {"hg": HG, "isotropic": HG, "rayleigh": RAYLEIGH}
+_STRATEGIES = {"balance": hmed.BALANCE, "single": hmed.SINGLE,
+               "manual": hmed.MANUAL, "maximum": hmed.MAXIMUM}
 _EM_KINDS = {"point": em_mod.POINT, "spot": em_mod.SPOT,
              "directional": em_mod.DIRECTIONAL, "constant": em_mod.CONSTANT,
              "collimated": em_mod.COLLIMATED}
@@ -102,8 +117,7 @@ _EM_KINDS = {"point": em_mod.POINT, "spot": em_mod.SPOT,
 # item that ports them
 _LATER = {
     "shape": {"heightfield": "A11", "hair": "A11"},
-    "emitter": {"envmap": "A10", "sky": "A10", "sun": "A10",
-                "sunsky": "A10"},
+    "phase": {"kkay": "A10", "microflake": "A10"},
     "sensor": {"thinlens": "A11", "orthographic": "A11", "spherical": "A11",
                "telecentric": "A11", "perspective_rdist": "A11"},
 }
@@ -192,10 +206,8 @@ def _materials(desc, device):
 def _shape(sdesc):
     """One shape description -> (vertices (V, 3) float32, faces (F, 3))."""
     st = sdesc["type"]
-    for key, item in (("to_world_t1", "A11"), ("interior_medium", "A10"),
-                      ("exterior_medium", "A10")):
-        if key in sdesc:
-            _refuse("shape option", key, item)
+    if "to_world_t1" in sdesc:
+        _refuse("shape option", "to_world_t1", "A11")
     tw = sdesc.get("to_world")
     tw = np.asarray(tw, np.float32) if tw is not None else None
     if st == "rectangle":
@@ -236,17 +248,36 @@ def _medium(desc, device):
     mdesc = desc.get("medium", {"type": "homogeneous",
                                 "sigma_s": [0.5] * 3, "sigma_a": [0.05] * 3})
     phase_desc = mdesc.get("phase", "hg")
+    phase_params = None
     if isinstance(phase_desc, dict):
-        _refuse("phase", phase_desc.get("type"), "A3")
-    phase_kind = _kind("phase", phase_desc, _PHASE_KINDS)
+        # {"type": "mixture", "components": [{"type": "hg" | "rayleigh",
+        # "g": .., "weight": ..}, ...]} (mixturephase.cpp)
+        if phase_desc.get("type") != "mixture":
+            raise ValueError(f"unsupported phase dict {phase_desc}")
+        comps = phase_desc["components"]
+        phase_kind = ph.MIXTURE
+        phase_params = ph.mixture_params(
+            [c.get("weight", 1.0 / len(comps)) for c in comps],
+            [_kind("phase", c.get("type", "hg"), _PHASE_KINDS)
+             for c in comps],
+            [c.get("g", 0.0) for c in comps], device=device)
+    else:
+        phase_kind = _kind("phase", phase_desc, _PHASE_KINDS)
     if mdesc["type"] == "homogeneous":
-        strategy = mdesc.get("strategy", "balance")
-        if strategy != "balance":
-            _refuse("sampling strategy", strategy, "A3")
-        medium = make_medium(mdesc.get("sigma_a", [0.0] * 3),
-                             mdesc.get("sigma_s", [0.5] * 3),
-                             g=mdesc.get("g", 0.0), device=device)
-        return replace(medium, phase_kind=phase_kind)
+        strategy = _kind("sampling strategy",
+                         mdesc.get("strategy", "balance"), _STRATEGIES)
+        if mdesc.get("channel", 0) not in (0, 1, 2):
+            raise ValueError(f"sampling strategy {mdesc['strategy']!r}: "
+                             f"channel {mdesc['channel']} is not 0, 1 or 2")
+        return make_medium(mdesc.get("sigma_a", [0.0] * 3),
+                           mdesc.get("sigma_s", [0.5] * 3),
+                           g=mdesc.get("g", 0.0), phase_kind=phase_kind,
+                           strategy=strategy,
+                           channel=mdesc.get("channel", 0),
+                           density=mdesc.get("density", 1.0),
+                           phase_params=phase_params, device=device)
+    if phase_params is not None:
+        raise ValueError("a mixture phase takes a homogeneous medium")
     if mdesc["type"] == "grid":
         if "density_npy" in mdesc:
             density = np.load(mdesc["density_npy"])
@@ -266,9 +297,11 @@ def _medium(desc, device):
 
 def _area_quads(desc, name_to_id, verts, faces, mat_ids):
     """The area emitters' quads appended to the geometry (two triangles
-    each) and their emitter entries (two each, the second triangle's from
-    its far corner with the edges negated)."""
+    each), their emitter entries (two each, the second triangle's from
+    its far corner with the edges negated) and each face's entry among
+    them (-1 for the other faces)."""
     entries = []
+    face_emitter = np.full((len(faces),), -1, np.int64)
     for e in desc.get("emitters", []):
         if e["type"] != "area":
             continue
@@ -280,24 +313,61 @@ def _area_quads(desc, name_to_id, verts, faces, mat_ids):
         m_id = name_to_id.get(e.get("material", "_emitter_black"),
                               name_to_id.get("_emitter_black", 0))
         mat_ids = np.concatenate([mat_ids, np.full((2,), m_id, np.int32)])
+        face_emitter = np.concatenate([face_emitter, [len(entries),
+                                                      len(entries) + 1]])
         rad = e.get("radiance", [1.0, 1.0, 1.0])
         entries.append({"type": "_area", "position": list(p0),
                         "intensity": rad, "e1": list(e1), "e2": list(e2)})
         entries.append({"type": "_area", "position": list(p0 + e1 + e2),
                         "intensity": rad, "e1": list(-e1), "e2": list(-e2)})
-    return verts, faces, mat_ids, entries
+    return verts, faces, mat_ids, entries, face_emitter
+
+
+def _environment(e, device):
+    """The EnvMap of an "envmap", "sky" or "sunsky" emitter."""
+    if e["type"] == "envmap":
+        return make_envmap(img_io.read_image(e["filename"]),
+                           scale=e.get("scale", 1.0),
+                           azimuth_deg=e.get("azimuth", 0.0), device=device)
+    res = e.get("resolution", 256)
+    return sunsky.sky_envmap(
+        e.get("sun_direction", [0.3, 0.8, 0.2]),
+        turbidity=e.get("turbidity", 3.0), width=res, height=res // 2,
+        scale=e.get("scale", 1.0), with_sun=e["type"] == "sunsky",
+        sun_scale=e.get("sun_scale", 1.0), device=device)
 
 
 def _emitters(desc, area_entries, device):
-    """The emitter table: the scene's emitters in order, the area entries
-    last, as the JAX package orders them."""
+    """The emitter table: the scene's emitters in order (an environment
+    emitter as an ENVMAP entry, a "sun" as a directional one), the area
+    entries last, as the JAX package orders them; and the number of
+    entries before the area ones."""
+    envs = [e["type"] for e in desc.get("emitters", [])
+            if e["type"] in ("envmap", "sky", "sunsky")]
+    if len(envs) > 1:
+        raise ValueError("only one environment emitter supported, got "
+                         + " and ".join(envs))
     edescs = []
+    env = None
     for e in desc.get("emitters", []):
-        if e["type"] != "area":
-            _kind("emitter", e["type"], _EM_KINDS)
+        et = e["type"]
+        if et in ("envmap", "sky", "sunsky"):
+            env = _environment(e, device)
+            edescs.append({"type": "_envmap"})
+        elif et == "sun":  # sunsky's disk is baked into its map
+            sd = e.get("sun_direction", [0.3, 0.8, 0.2])
+            rad = sunsky.sun_rgb_radiance(sd, e.get("turbidity", 3.0),
+                                          e.get("sun_scale", 1.0))
+            sd = np.asarray(sd, np.float64)
+            edescs.append({"type": "directional",
+                           "direction": list(-sd / np.linalg.norm(sd)),
+                           "intensity": list(rad * sunsky.SUN_SOLID_ANGLE)})
+        elif et != "area":
+            _kind("emitter", et, _EM_KINDS)
             edescs.append(e)
+    n_base = len(edescs)
     edescs += area_entries
-    kinds = dict(_EM_KINDS, _area=em_mod.AREA)
+    kinds = dict(_EM_KINDS, _area=em_mod.AREA, _envmap=em_mod.ENVMAP)
     return em_mod.make_emitters(
         [kinds[e["type"]] for e in edescs],
         np.asarray([e.get("position", [0, 0, 0]) for e in edescs],
@@ -313,22 +383,22 @@ def _emitters(desc, area_entries, device):
                    np.float32).reshape(-1, 3),
         np.asarray([e.get("e2", [0, 0, 0]) for e in edescs],
                    np.float32).reshape(-1, 3),
-        device=device)
+        env=env, device=device), n_base
 
 
 def build_scene(desc: dict, device="cuda") -> Scene:
     """The scene of a JSON scene dict (see the module), on `device`."""
-    if "media" in desc:
-        _refuse("scene key", "media", "A10")
     materials, name_to_id = _materials(desc, device)
     parts = []
     for sdesc in desc.get("shapes", []):
         v, f = _shape(sdesc)
         parts.append((v, f, name_to_id[sdesc.get("material", "default")]))
     verts, faces, mat_ids = shp.merge(parts)
-    verts, faces, mat_ids, area_entries = _area_quads(desc, name_to_id, verts,
-                                                      faces, mat_ids)
-    emitters = _emitters(desc, area_entries, device)
+    n_shape_faces = len(faces)
+    verts, faces, mat_ids, area_entries, face_emitter = _area_quads(
+        desc, name_to_id, verts, faces, mat_ids)
+    emitters, n_base = _emitters(desc, area_entries, device)
+    face_emitter[face_emitter >= 0] += n_base
 
     cdesc = desc["camera"]
     f32 = dict(dtype=torch.float32, device=device)
@@ -341,14 +411,40 @@ def build_scene(desc: dict, device="cuda") -> Scene:
         height=int(cdesc.get("height", 128)),
         kind=_kind("sensor", cdesc.get("type", "perspective"), _CAM_KINDS),
     )
+    i64 = dict(dtype=torch.int64, device=device)
+    nested = {}
+    n_media = len(desc.get("media", []))
+    for sd in desc.get("shapes", []):
+        for side in ("interior_medium", "exterior_medium"):
+            if not 0 <= sd.get(side, 0) < max(n_media, 1):
+                raise ValueError(f"{side} {sd[side]} names no medium of the "
+                                 f"scene's {n_media} per-shape media")
+    if "media" in desc:
+        mlist = desc["media"]
+        for mm in mlist:
+            if mm.get("type", "homogeneous") != "homogeneous":
+                raise ValueError("media: per-shape media are homogeneous, "
+                                 f"got {mm['type']!r}")
+        nested["media"] = make_media_table(
+            [mm.get("sigma_a", [0.0] * 3) for mm in mlist],
+            [mm.get("sigma_s", [0.0] * 3) for mm in mlist],
+            g=[mm.get("g", 0.0) for mm in mlist], device=device)
+        n_extra = len(faces) - n_shape_faces  # the area quads': id 0
+        for key, side in (("face_med_int", "interior_medium"),
+                          ("face_med_ext", "exterior_medium")):
+            ids = [sd.get(side, 0) for sd, (_, f, _) in
+                   zip(desc.get("shapes", []), parts) for _ in range(len(f))]
+            nested[key] = torch.as_tensor(ids + [0] * n_extra, **i64)
     return Scene(
         vertices=torch.as_tensor(verts, **f32),
-        faces=torch.as_tensor(faces, dtype=torch.int64, device=device),
-        material=torch.as_tensor(mat_ids, dtype=torch.int64, device=device),
+        faces=torch.as_tensor(faces, **i64),
+        material=torch.as_tensor(mat_ids, **i64),
         materials=materials,
         emitters=emitters,
         medium=_medium(desc, device),
         camera=camera,
+        face_emitter=torch.as_tensor(face_emitter, **i64),
+        **nested,
     )
 
 

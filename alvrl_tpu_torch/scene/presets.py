@@ -5,13 +5,15 @@ configs 1-2 and 5), a closed Cornell box filled with a homogeneous
 medium, a box blocker, one point light, and the camera inside the
 medium; cornell_smoke_hg (BASELINE config 3), the same box with an
 anisotropic HG medium; cornell_grid_smoke (BASELINE config 4), the
-same box without the blocker, filled with a plume-like grid medium; and
-cornell_area_light, the box lit by a quad area light in its ceiling.
+same box without the blocker, filled with a plume-like grid medium;
+cornell_area_light, the box lit by a quad area light in its ceiling; and
+cornell_nested_smoke, the box in vacuum around a smoke-filled cube of
+null faces (per-shape media).
 """
 
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import numpy as np
 import torch
@@ -23,10 +25,11 @@ from alvrl_tpu_torch.emitters.emitters import (
 )
 from alvrl_tpu_torch.geometry import shapes
 from alvrl_tpu_torch.media.heterogeneous import make_grid_medium
-from alvrl_tpu_torch.media.homogeneous import make_medium
+from alvrl_tpu_torch.media.homogeneous import HomogeneousMedium, make_medium
 from alvrl_tpu_torch.scene.scene import (
     DIFFUSE,
     Camera,
+    Materials,
     Scene,
     look_at,
     make_materials,
@@ -167,4 +170,58 @@ def cornell_area_light(width=64, height=64, radiance=(6.0, 6.0, 6.0),
         faces=torch.cat([base.faces, torch.as_tensor(quad_f, **i64)]),
         material=torch.cat([base.material,
                             torch.full((2,), black, **i64)]),
-        materials=materials, emitters=emitters)
+        materials=materials, emitters=emitters,
+        face_emitter=torch.cat([torch.full((base.faces.shape[0],), -1, **i64),
+                                torch.tensor([0, 1], **i64)]))
+
+
+def cornell_nested_smoke(width=64, height=64, cube_half=0.5,
+                         sigma_s=(0.8, 0.8, 0.8), sigma_a=(0.05, 0.05, 0.05),
+                         g=0.0, exterior=None, device="cuda", **kwargs):
+    """cornell_smoke without the blocker, in vacuum (or the medium
+    `exterior`, (sigma_a, sigma_s, g)), with a smoke-filled cube of
+    null faces at the centre: the per-shape nested-media scene (media
+    table ids 0 outside, 1 inside)."""
+    from alvrl_tpu_torch.media.table import make_media_table
+    from alvrl_tpu_torch.scene.scene import NULL
+
+    base = cornell_smoke(width=width, height=height, with_blocker=False,
+                         device=device, **kwargs)
+    cv, cf = shapes.cube()
+    cv = cv * np.float32(cube_half)
+    n_v, n_f = base.vertices.shape[0], base.faces.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    faces = torch.cat([base.faces, torch.as_tensor(cf, **i64) + n_v])
+    mats = base.materials
+    null_id = mats.kind.shape[0]
+    # every column extended by its last row, the kind by NULL
+    cols = {f.name: getattr(mats, f.name) for f in fields(mats) if f.init}
+    cols = {k: torch.cat([v, v[-1:]]) for k, v in cols.items()}
+    cols["kind"][-1] = NULL
+    ext_a, ext_s, ext_g = ((0.0,) * 3, (0.0,) * 3, 0.0) if exterior is None \
+        else exterior
+    media = make_media_table([list(ext_a), list(sigma_a)],
+                             [list(ext_s), list(sigma_s)], g=[ext_g, g],
+                             device=device)
+    return replace(
+        vacuumize(base),
+        vertices=torch.cat([base.vertices, torch.as_tensor(cv, **f32)]),
+        faces=faces,
+        material=torch.cat([base.material,
+                            torch.full((cf.shape[0],), null_id, **i64)]),
+        materials=Materials(**cols), media=media,
+        face_med_int=torch.cat([torch.zeros((n_f,), **i64),
+                                torch.ones((cf.shape[0],), **i64)]),
+        face_med_ext=torch.zeros((faces.shape[0],), **i64),
+        face_emitter=torch.full((faces.shape[0],), -1, **i64))
+
+
+def vacuumize(scene: Scene) -> Scene:
+    """The scene with vacuum for its medium (no absorption, no
+    scattering, sampling weight 0)."""
+    f32 = dict(dtype=torch.float32, device=scene.device)
+    return replace(scene, medium=HomogeneousMedium(
+        sigma_a=torch.zeros(3, **f32), sigma_s=torch.zeros(3, **f32),
+        g=torch.tensor(0.0, **f32),
+        sampling_weight=torch.tensor(0.0, **f32)))

@@ -1,7 +1,8 @@
 """Scene, camera and material table as dataclasses of tensors.
 
 Counterpart of alvrl_tpu/scene/scene.py, reduced to the columns the VRL
-render, the tracer and the specular chains read: no texture columns.
+render, the tracer, the specular chains and the volumetric path tracer
+read: no texture columns.
 Materials are a struct-of-arrays table indexed by the per-face material
 id; the BSDF kind selects the arithmetic.
 """
@@ -167,10 +168,26 @@ class Scene:
     emitters: Emitters
     medium: HomogeneousMedium | GridMedium  # global medium filling the scene
     camera: Camera
+    # (T,) int64 the AREA entry each face emits as, -1 for none; None:
+    # no face emits (face_emitters)
+    face_emitter: torch.Tensor = None
+    # per-shape nested media (media.table.MediaTable), with each face's
+    # interior and exterior medium ids (T,) int64; None: the one global
+    # `medium` everywhere
+    media: object = None
+    face_med_int: torch.Tensor = None
+    face_med_ext: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
         return self.vertices.device
+
+    def face_emitters(self):
+        """(T,) the AREA entry of each face, -1 where none."""
+        if self.face_emitter is not None:
+            return self.face_emitter
+        return torch.full((self.faces.shape[0],), -1, dtype=torch.int64,
+                          device=self.device)
 
     def opaque_faces(self):
         """(T,) bool: triangles that block shadow rays (non-null BSDF;

@@ -1,17 +1,21 @@
-"""SHA-256 digests of the diffuse instantiations' outputs of kernels 1, 2
-and 5 (vrl_sum, vrl_sum_clustered, vrl_r) on config 1: cornell_smoke at
-128x128 against the 512 bench VRLs, on injected uniforms and on the
-Philox stream; kernel 2 on a seeded table of 100 rows x 64 columns (each
-pixel's row its index // 164), kernel 5 on 271 seeded rays (config 2's
-representative count). The same outputs bit for bit give the same
-digests, so that two trees of the package are compared on one card:
+"""SHA-256 digests of the outputs of kernels 1, 2 and 5 (vrl_sum,
+vrl_sum_clustered, vrl_r) on config 1: cornell_smoke at 128x128 against
+the 512 bench VRLs, on injected uniforms and on the Philox stream;
+kernel 2 on a seeded table of 100 rows x 64 columns (each pixel's row its
+index // 164), kernel 5 on 271 seeded rays (config 2's representative
+count). The diffuse HG short-VRL instantiations (the keys without a
+suffix), and with --all also the Rayleigh, the long-VRL and the material
+ones (config 1's table packed for them; " rayleigh", " long",
+" material"), on injected uniforms. The same outputs bit for bit give
+the same digests, so that two trees of the package are compared on one
+card:
 
-    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR]
+    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all]
 
 imports alvrl_tpu_torch from DIR (another tree's root; this tree's by
 default) and prints one JSON object of the digests, the card's name and
 its power limit. Needs a CUDA card; uses only entry points that the
-diffuse kernels have had since the clustered render was ported.
+kernels have had since their material instantiations were ported.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()
 
 
-def kernel_digests(device="cuda"):
-    """{output: sha256} of the diffuse kernels on config 1's packs."""
+def kernel_digests(device="cuda", every_form=False):
+    """{output: sha256} of the kernels on config 1's packs (every_form:
+    also the Rayleigh, long-VRL and material instantiations)."""
     import numpy as np
     import torch
 
@@ -74,6 +79,22 @@ def kernel_digests(device="cuda"):
                                 uniforms=u[reps].contiguous()),
         "vrl_r philox": vrl_r(rep_rays, *packs[1:], seed=SEED),
     }
+    if every_form:
+        from alvrl_tpu_torch.ops import pack as pk
+
+        mats = pk.pack_materials(scene.materials)
+        mat_packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+        forms = {" rayleigh": (packs, dict(phase_kind=1)),
+                 " long": (packs, dict(short_vrls=False)),
+                 " material": (mat_packs, dict(materials=mats))}
+        for suffix, (p, kw) in forms.items():
+            reps_p = p[0][:, reps].contiguous()
+            out["vrl_sum" + suffix] = vrl_sum(*p, uniforms=u, **kw)
+            out["vrl_sum_clustered" + suffix] = vrl_sum_clustered(
+                *p, ray_slice, ids, w, uniforms=u[:, :N_COLS].contiguous(),
+                **kw)
+            out["vrl_r" + suffix] = vrl_r(reps_p, *p[1:],
+                                          uniforms=u[reps].contiguous(), **kw)
     torch.cuda.synchronize()
     for k, v in out.items():
         if not bool(torch.isfinite(v).all()) or float(v.abs().max()) == 0.0:
@@ -85,6 +106,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
                     help="the tree whose alvrl_tpu_torch is imported")
+    ap.add_argument("--all", action="store_true",
+                    help="also the Rayleigh, long-VRL and material forms")
     args = ap.parse_args()
     root = os.path.abspath(args.root) if args.root else os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -98,7 +121,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"root": root, "card": card,
-                      "digests": kernel_digests()}))
+                      "digests": kernel_digests(every_form=args.all)}))
 
 
 if __name__ == "__main__":

@@ -282,7 +282,22 @@ Phases, one line each; any failure exits non-zero:
      each depth's launch against its plain version (2,048 of its rays),
      and the render on injected uniforms against the plain chain
      (li_unclustered_spec_u) on every pixel that sees the glass and
-     1,024 others, at the homogeneous bar.
+     1,024 others, at the homogeneous bar;
+ 43. the sky scene (config 1's box without its front wall, the Preetham
+     sky, a coloured medium with an absorbing HG + Rayleigh mixture and
+     the single strategy): the PHASE = 2 forms of kernels 1, 2 and 5
+     against their plain versions and their checking launches, every
+     earlier form's digest the parent's, the main path's launches and
+     its clustered / unclustered band over three seeds, times against
+     the HG form; and (43c) their material forms on cornell_glossy in
+     the same medium, held over each eye-hit kind's rays alone;
+ 44. the equal-transport A/B (the VRL render through kernel 1 against
+     the volpath oracle, z < 4) on cornell_smoke and the sky scene, the
+     nested no-op crossing, the MIS path tracer's time, tile, peak
+     memory and idle share;
+ 45. the CLI's -i volpath|path|direct and -i vrl|alvrl on a sky JSON, a
+     nested JSON and two XMLs (sunsky, an .hdr map), each image the
+     in-process render's.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -311,6 +326,7 @@ from alvrl_tpu_torch.core.spectrum import LUM_WEIGHTS
 from alvrl_tpu_torch.core.stats import STATS
 from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
+from alvrl_tpu_torch.integrators import volpath
 from alvrl_tpu_torch.integrators.progressive import (
     ProgressiveConfig, render_progressive)
 from alvrl_tpu_torch.integrators.vrl import (
@@ -355,6 +371,10 @@ MEDIA = {"hg_g0": (0.0, 0), "hg_g06": (0.6, 0), "rayleigh": (0.0, 1)}
 N_PARTICLES, MAX_DEPTH = 128, 12  # config 1's tracer (bench.py)
 TRAIN_SEED = 7
 PAR_RTOL = 1e-3  # d_par, and the step's gradients: the BASELINE bar
+BWD_HOLD_STRIDE = 8  # phase 7 holds every 8th ray of the frame
+C4_STAGED = 6        # phase 17's staged config-4 passes (the first 2 warm)
+K1_HOLD_STRIDE = 4   # phase 3 holds every 4th
+K2_HOLD_STRIDE = 4   # phase 12 too
 FD_TOL = 5e-3    # same-seed central differences (tests/test_pallas_bwd.py)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_VRLS = os.path.join(ROOT, "data", "bench_vrls.txt")
@@ -824,8 +844,10 @@ class SweepCount:
     valid VRL or table column); alb_ok (B,): the rays whose vol-surf
     samples it draws. ops.vrl_sum._occluded_packed is wrapped so that
     each shadow segment's sweep length is the kernel's (occluded() stops
-    at the first blocking triangle): the plain test itself, applied one
-    triangle at a time. The plain versions call the test per block of
+    at the first blocking triangle): the plain test's Wald test of each
+    triangle (vs._wald_hits, in the plain test's blocks of
+    _OCCLUSION_TESTS), which decides each segment as the plain test
+    does. The plain versions call the test per block of
     rays, in ray order, svv vol-vol then svs vol-surf times a block.
     Counts per family [vol-vol, vol-surf]: drawn samples, tested
     segments (the kernel skips the test where d_uv^2 = 0, seen here, or
@@ -856,8 +878,10 @@ class SweepCount:
 
     def _count(self, p, q, tris):
         n_tris = tris.shape[0]
-        hits = torch.stack([self._test(p, q, tris[t:t + 1])
-                            for t in range(n_tris)], dim=-1)
+        shape = torch.broadcast_shapes(p.shape, q.shape)[:-1]
+        step = max(1, vs._OCCLUSION_TESTS // max(math.prod(shape), 1))
+        hits = torch.cat([vs._wald_hits(p, q, tris[t:t + step])
+                          for t in range(0, n_tris, step)], dim=-1)
         blocked = hits.any(dim=-1)
         sweep = torch.where(blocked, hits.int().argmax(dim=-1) + 1, n_tris)
         k = self._calls % (self.svv + self.svs)
@@ -1092,6 +1116,8 @@ def config2(dev, card, cfg):
     u_inj = torch.as_tensor(rng.random((n_rays, n_cols, 6),
                                        dtype=np.float32), device=dev)
     u_philox = philox_table_uniforms(seed, sop, tv, 6)
+    hold_np = np.arange(0, n_rays, K2_HOLD_STRIDE)
+    hold_rays = torch.as_tensor(hold_np, device=dev)
     c_err, results = 0.0, []
     for name, sc in scenes.items():
         kind = MEDIA[name][1]
@@ -1103,12 +1129,15 @@ def config2(dev, card, cfg):
                       short_vrls=short, phase_kind=kind)
             out = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
             again = vrl_sum_clustered(*packs, sop, tv, tw, **kw)
-            ref = vrl_sum_clustered_reference(*packs, sop, tv, tw, u,
-                                              short_vrls=short,
-                                              phase_kind=kind)
+            # the plain version on every K2_HOLD_STRIDE-th ray
+            ref = vrl_sum_clustered_reference(
+                packs[0][:, hold_rays].contiguous(), *packs[1:],
+                sop[hold_np], tv, tw, u[hold_rays].contiguous(),
+                short_vrls=short, phase_kind=kind)
             torch.cuda.synchronize()
             check(torch.equal(out, again), f"clustered {name}/{mode}: a "
                   "repeat launch is not bit-identical")
+            out = out[:, hold_rays]
             check(bool(torch.isfinite(out).all())
                   and float(out.abs().sum()) > 0.0,
                   f"clustered {name}/{mode} finite, non-zero")
@@ -1142,8 +1171,9 @@ def config2(dev, card, cfg):
     results.append(f"fall-back launch ({len(fb_ids)} columns, "
                    f"{int((fb_rows >= 0).sum())} rays) median {median:.2e}")
     print(f"[12 clustered kernel vs plain on {card}, B={n_rays} S={tv.shape[0]}"
-          f" C={n_cols}, repeats bit-identical] " + " | ".join(results),
-          flush=True)
+          f" C={n_cols}, the media held on {len(hold_np)} rays (every "
+          f"{K2_HOLD_STRIDE}th), repeats bit-identical] "
+          + " | ".join(results), flush=True)
     del u_inj, u_philox
 
     # 13. the main path, through the entry point a user calls
@@ -1596,13 +1626,13 @@ def config4(dev, card, cfg):
 
     gen_t = torch.Generator().manual_seed(7)
     stages = {}
-    for i in range(8):
+    for i in range(C4_STAGED):
         t_i = staged(gen_t)
         if i >= 2:
             for k, v in t_i.items():
                 stages.setdefault(k, []).append(v)
     pass_ms = host_ms(lambda: alvrl.render_alvrl(
-        scene, gen_t, params, cfg, tcfg, slice_info=info), 2, 6)
+        scene, gen_t, params, cfg, tcfg, slice_info=info), 1, 4)
     grid_arg = (density, cfg.uv_tau_steps)
     tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
         sop, lib_block)]
@@ -1629,7 +1659,7 @@ def config4(dev, card, cfg):
             vrl_r_hetero_reference(*packs_r, u_r_philox, **kw)
         u = philox_table_uniforms(seed, sop, tv, 6)
         c_plain_ms = cuda_ms(lambda: vrl_sum_hetero_clustered_reference(
-            *packs, sop, tv, tw, u, **kw), 0, 2)
+            *packs, sop, tv, tw, u, **kw), 0, 1)
         with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
                         pair_masks(*packs[:2])[1],
                         reads=(packs[3], packs[4], cfg.uv_tau_steps)) as c_sweep:
@@ -3002,10 +3032,10 @@ CLI_RUNS = [
                                             "256"], ("vrl_sum_bvh",)),
 ]
 # the runs whose kernel-1 launches are held against the plain version on
-# the same packs and Philox stream: label -> rays held per launch (all of
-# config 3's 65,536; a sample of config 5's 1,048,576, the last ray
+# the same packs and Philox stream: label -> rays held per launch (a
+# sample of config 3's 65,536 and of config 5's 1,048,576, the last ray
 # included)
-CLI_HOLDS = {"config3": None, "config5": 4096}
+CLI_HOLDS = {"config3": 8192, "config5": 4096}
 HOLD_CHUNK = 8192  # rays per block of the plain version in those holds
 # the kernels' wrappers, and the plain versions a wrapper runs on CPU
 # tensors (none may run on the card's main path)
@@ -3016,7 +3046,7 @@ ROUTE_KERNELS = {"vrl_sum": vs.vrl_sum, "vrl_sum_hetero": vs.vrl_sum_hetero,
                  "vrl_sum_bvh": vb.vrl_sum_bvh}
 PLAIN_VERSIONS = [(vs, "_reference"), (vr, "_reference"),
                   (vsc, "_reference"), (vb, "vrl_sum_bvh_reference")]
-DRIVER_PASSES, DRIVER_REPEATS = 4, 3
+DRIVER_PASSES, DRIVER_REPEATS = 4, 2
 
 
 @contextlib.contextmanager
@@ -3493,9 +3523,9 @@ def drivers(dev, card):
 
 
 def resume(dev, card, tmp, c2_image, c2):
-    """Phase 35: 2 passes, then resume to 4, against 4 in one run
-    (phase 34's config-2 image of render_progressive), and the pass
-    dumps' names."""
+    """Phase 35: 2 passes, then resume to DRIVER_PASSES, against
+    DRIVER_PASSES in one run (phase 34's config-2 image of
+    render_progressive), and the pass dumps' names."""
     _, scene, params, tcfg = c2
     ck, dumps = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "passes")
     for n in (2, DRIVER_PASSES):
@@ -3503,7 +3533,7 @@ def resume(dev, card, tmp, c2_image, c2):
             max_passes=n, clustered=True, checkpoint_path=ck,
             dump_passes=True, dump_dir=dumps), params, tracer_cfg=tcfg)
     check(np.array_equal(img, c2_image), "config 2: 2 passes and a resume "
-          "to 4 are not 4 passes in one run")
+          "are not the passes in one run")
     names = sorted(os.listdir(dumps))
     pattern = re.compile(r"^pass_p(\d{3})_wall\d\.\d{3}e[+-]\d{2}"
                          r"_renvrl\d\.\d{4}e[+-]\d{2}\.npy$")
@@ -3857,6 +3887,29 @@ OPS["eval_smooth"] = (47, 2)
 # before the material instantiations were added: kernel_digest.py on the
 # parent tree (alvrl_tpu_torch/scripts/kernel_digest.py --root), NVIDIA
 # H100 80GB HBM3, 700.00 W; this run's must be equal
+# the outputs of every earlier form of kernels 1, 2 and 5 (kernel_digest.py
+# --all, on the parent tree): the diffuse HG short-VRL ones, the Rayleigh,
+# long-VRL and material ones
+PARENT_DIGESTS_ALL = {
+    "vrl_sum rayleigh":
+        "f94c6ffaa700e7a6762341d3e6921d6c67cb5a8f6f8b74cd6381511f2f2dc823",
+    "vrl_sum_clustered rayleigh":
+        "08eeb3fc3cf2bca331b6d775e69ec13696ccd913d80e4e26b4119250cbe432b2",
+    "vrl_r rayleigh":
+        "b1fe8b243cf6e2f3f0101afc3fa798c2b773a0f5a09744eed6739d85c650604e",
+    "vrl_sum long":
+        "ce3d5f70c54ce08d5b2411a8afd1dd278927adb9311bb84af3d9d6a473509b26",
+    "vrl_sum_clustered long":
+        "46ad7500dbdea00f5100d09a6ebccdf3f0fe309df1fc061e37ea020fe1499378",
+    "vrl_r long":
+        "59f849ae377ef896ea1189acddfa4e3018eb76f700423906a5d045acdbc9065b",
+    "vrl_sum material":
+        "c8aeb437f1fca85872cea659d8bbe3c3690e35e1a7a3b11ef93264131bbeda48",
+    "vrl_sum_clustered material":
+        "d413da2c3164993d58570da47aa155948b3424b0c9f4e92882f0f5c91ae4b098",
+    "vrl_r material":
+        "3080319c232198fe49781dbbd5845e6af5a7eeed74187d81885e40f9f1e7aec1",
+}
 PARENT_DIGESTS = {
     "vrl_sum injected":
         "a28bb9c116fe6eac14d9563b8ed0e1e861444d4548d82320e80cc3471af65229",
@@ -3871,6 +3924,7 @@ PARENT_DIGESTS = {
     "vrl_r philox":
         "8f2b73b5f3403d7de1b2850fed23bc4a90fd5ce3aa1e43ff5ac18bb3258556cc",
 }
+PARENT_DIGESTS_ALL.update(PARENT_DIGESTS)
 
 
 def glossy_json(c1):
@@ -4481,6 +4535,594 @@ def scene_path(dev, card, vrls):
     return entries
 
 
+# phases 43-45: the environment lights, the mixture phase, the sampling
+# strategies and the volumetric path tracer. The sky scene is config 1's
+# box with its front wall taken away (so that the sky lights it; the wall
+# is behind the camera, so that every eye ray still ends on a surface, as
+# the VRL render's eye segments need: an eye ray that leaves the scene
+# has no segment, while the oracle scatters along it in the medium that
+# fills the scene), the point light off, lit by the Preetham sky
+# (resolution 256), in a coloured scattering coefficient with an
+# absorbing two-lobe mixture phase (HG 0.8 at weight 0.6, Rayleigh at
+# 0.3: the medium's absorption, its sigma_a 0) and the single strategy
+# on channel 0, whose rate (0.8) is not the other channels' sigma_t, so
+# that a kernel that took the balance pdfFailure in its place would fail
+# its hold. With sigma_a 0 the sampling weight is 1, so every free
+# flight in the medium ends in it and no photon leaves the scene, whose
+# last segment the tracer would not store (ROADMAP C19)
+SKY_SIGMA_S = [0.8, 0.5, 0.3]
+SKY_SUN = [0.3, 0.8, 0.2]
+SKY_RES = 256
+MIX_PHASE = {"type": "mixture", "components": [
+    {"type": "hg", "g": 0.8, "weight": 0.6},
+    {"type": "rayleigh", "weight": 0.3}]}
+SKY_SEED = 20261017
+SKY_PARAMS = dict(vrl_target_num=512, num_particles=128, seed=0)
+SKY_REPS = 271  # kernel 5's rays, config 2's representative count
+SKY_BAND_SEEDS = 3  # clustered / unclustered passes held to C2_BAND
+FRONT_WALL = (6, 7)  # cornell_smoke's front wall's triangles (z = -1)
+# the equal-transport A/B (tests/test_ab_oracle.py's statistics): the VRL
+# render through kernel 1 averaged over AB_PASSES passes of AB_PARTICLES
+# particles x depth 16, against three oracle runs of AB_SPP samples. The
+# sky's photons mostly miss the box, so its VRL render takes
+# AB_SKY_PARTICLES a pass: 262,144 in all, which puts the VRL mean's
+# spread (about 1 % on an H100) near the oracle's, against which z is
+# taken
+AB_SIZE, AB_PASSES, AB_PARTICLES, AB_SPP = 32, 16, 256, 1024
+AB_SKY_PARTICLES = 16384
+AB_Z = 4.0
+NESTED_SPP = 64
+MIS_SPP = 16
+PATH_CLI_SPP, PATH_CLI_DEPTH = 2, 8
+
+
+def sky_medium(c1):
+    """The sky scene's medium: SKY_SIGMA_S, sigma_a 0, the mixture and
+    the single strategy on channel 0."""
+    return dict(homog_medium(c1), sigma_s=SKY_SIGMA_S, sigma_a=[0.0] * 3,
+                phase=MIX_PHASE, strategy="single", channel=0)
+
+
+def sky_desc(c1, width=None, height=None):
+    """Phase 43's scene file: config 1's box without its front wall, lit
+    by the sky, in the mixture medium of the single strategy (WIDTH x
+    HEIGHT by default)."""
+    keep = torch.ones(c1.faces.shape[0], dtype=torch.bool,
+                      device=c1.device)
+    keep[list(FRONT_WALL)] = False
+    box = replace(c1, faces=c1.faces[keep], material=c1.material[keep])
+    desc = scene_json(box, sky_medium(c1))
+    desc["camera"].update(width=width or WIDTH, height=height or HEIGHT)
+    desc["emitters"] = [{"type": "sky", "sun_direction": SKY_SUN,
+                         "resolution": SKY_RES}]
+    return desc
+
+
+def mixture_ops(kernel, sweep, counts, comps):
+    """plane_ops of the kernel's HG form, with each open sample's phase
+    evaluations of the mixture's components (a component's HG (4, 2) or
+    Rayleigh (3, 0) and its weighted sum (2)) in place of HG's, and the
+    single strategy's pdfFailure (one exp: (2, 1) in place of (8, 3))."""
+    f, s = plane_ops(kernel_ops(kernel, sweep, True, True), sweep, counts)
+    mf = sum((4 if k == 0 else 3) + 2 for k in comps)
+    ms = sum(2 if k == 0 else 0 for k in comps)
+    n_phase = 2 * sweep.open[0] + sweep.open[1]
+    n_open = sweep.open[0] + sweep.open[1]
+    return (f + n_phase * (mf - 4) - 6 * n_open,
+            s + n_phase * (ms - 2) - 2 * n_open)
+
+
+def sky_kernels(dev, card, c1):
+    """Phase 43: kernels 1, 2 and 5 in their PHASE = 2 forms on the sky
+    scene against their plain versions (injected and Philox) and their
+    checking launches, every earlier form's outputs bit for bit the
+    parent's, the main path's launches, times against the HG form on the
+    same samples, bounds. Returns the kernels line's three entries."""
+    t_phase = time.perf_counter()
+    cfg = VRLConfig()
+    scene = loader.build_scene(sky_desc(c1), device=dev)
+    med = scene.medium
+    check(med.phase_kind == 4 and med.strategy == 1
+          and scene.emitters.host_kinds == (5,),
+          "the sky scene's medium and emitter")
+    comps = med.phase_params.host[1]
+    tcfg = tracer.TracerConfig()
+    vrls = vrl.compact(tracer.trace(scene, torch.Generator().manual_seed(
+        SKY_SEED), SKY_PARAMS["num_particles"], tcfg),
+        SKY_PARAMS["vrl_target_num"], slots_per_particle=tcfg.max_depth)
+    n_rays, n_vrls = WIDTH * HEIGHT, vrls.capacity
+    packs = integrator.pack_frame(scene, vrls)[3]
+    check(packs[3].shape == (pk.MED_MIX + 3 * len(comps),),
+          f"the extended medium pack {tuple(packs[3].shape)}")
+    hg_scene = replace(scene, medium=replace(med, phase_kind=0, strategy=0,
+                                             phase_params=None))
+    hpacks = (*packs[:3], pk.pack_medium(hg_scene))
+    kind = med.phase_kind
+    kw = dict(phase_kind=kind)
+    rng = np.random.default_rng(43)
+    u_inj = torch.as_tensor(rng.random((n_rays, n_vrls, 6),
+                                       dtype=np.float32), device=dev)
+    seed = SKY_SEED
+    u_philox = philox_uniforms(seed, n_rays, n_vrls, 6, device=dev)
+    sop = np.arange(n_rays, dtype=np.int32) // kernel_digest.SLICE_PIXELS
+    tv = torch.as_tensor(rng.integers(0, n_vrls, (
+        kernel_digest.N_SLICES, kernel_digest.N_COLS)), dtype=torch.int32,
+        device=dev)
+    tw = torch.as_tensor(rng.uniform(0.0, 2.0, tv.shape), dtype=torch.float32,
+                         device=dev)
+    reps = torch.as_tensor(rng.choice(n_rays, min(SKY_REPS, n_rays),
+                                      replace=False), device=dev)
+    rpacks = (packs[0][:, reps].contiguous(), *packs[1:])
+    errs, lines, plain_ms, sweeps, counts = {}, [], {}, {}, {}
+    pair_ok = ((packs[0][pk.VALID] > 0.5)[:, None]
+               & (packs[1][pk.VVALID] > 0.5)[None])
+    alb_ok = packs[0][pk.ALB:pk.ALB + 3].sum(dim=0) > 0.0
+
+    def hold(name, label, out, ref, channels=3):
+        median, share = homog_bar(out, ref, channels=channels)
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"{name} (mixture) {label}: median {median}, share {share}")
+        errs[name] = max(errs.get(name, 0.0), float((out - ref).abs().max()))
+        return f"{name} {label} median {median:.2e} share>1e-2 {share:.4f}"
+
+    for mode, u in (("injected", u_inj), ("philox", u_philox)):
+        ukw = dict(uniforms=None if mode == "philox" else u, seed=seed, **kw)
+        out = vrl_sum(*packs, **ukw)
+        if mode == "injected":
+            ref, plain_ms["vrl_sum"] = timed_call(
+                lambda: vrl_sum_reference(*packs, u, **kw))
+        else:
+            with SweepCount(pair_ok, alb_ok) as sweeps["vrl_sum"]:
+                ref = vrl_sum_reference(*packs, u, **kw)
+        lines.append(hold("vrl_sum", mode, out.T, ref.T))
+        out_c, cnt = vs.vrl_sum_check(*packs, **ukw)
+        check(cnt["bad_tris"] == 0 and cnt["bad_segments"] == 0
+              and torch.equal(out_c, out), f"kernel 1 (mixture) {mode}: "
+              f"the checking launch {cnt}")
+        counts["vrl_sum"] = cnt
+        uc = u[:, :kernel_digest.N_COLS].contiguous()
+        out = vrl_sum_clustered(*packs, sop, tv, tw, **dict(
+            ukw, uniforms=None if mode == "philox" else uc))
+        uc = (philox_table_uniforms(seed, sop, tv, 6) if mode == "philox"
+              else uc)
+        if mode == "injected":
+            ref, plain_ms["vrl_sum_clustered"] = timed_call(
+                lambda: vrl_sum_clustered_reference(*packs, sop, tv, tw, uc,
+                                                    **kw))
+        else:
+            ok_c = table_pair_ok(packs[0], packs[1], sop, tv, tw)
+            with SweepCount(ok_c, alb_ok) as sweeps["vrl_sum_clustered"]:
+                ref = vrl_sum_clustered_reference(*packs, sop, tv, tw, uc,
+                                                  **kw)
+        lines.append(hold("vrl_sum_clustered", mode, out.T, ref.T))
+        out_c, cnt = vrl_sum_clustered_check(*packs, sop, tv, tw, **dict(
+            ukw, uniforms=None if mode == "philox" else uc))
+        check(cnt["bad_tris"] == 0 and cnt["bad_segments"] == 0,
+              f"kernel 2 (mixture) {mode}: the checking launch {cnt}")
+        counts["vrl_sum_clustered"] = cnt
+        # kernel 5's stream counts its own rays (0 .. len(reps) - 1)
+        ur = (philox_uniforms(seed, len(reps), n_vrls, 6, device=dev)
+              if mode == "philox" else u[reps].contiguous())
+        out = vrl_r(*rpacks, **dict(ukw, uniforms=None if mode == "philox"
+                                    else ur))
+        if mode == "injected":
+            ref, plain_ms["vrl_r"] = timed_call(
+                lambda: vrl_r_reference(*rpacks, ur, **kw))
+        else:
+            with SweepCount(*pair_masks(*rpacks[:2])) as sweeps["vrl_r"]:
+                ref = vrl_r_reference(*rpacks, ur, **kw)
+        lines.append(hold("vrl_r", mode, out[0], ref[0], channels=1))
+        out_c, cnt = vrl_r_check(*rpacks, **dict(
+            ukw, uniforms=None if mode == "philox" else ur))
+        check(cnt["bad_tris"] == 0 and cnt["bad_segments"] == 0,
+              f"kernel 5 (mixture) {mode}: the checking launch {cnt}")
+        counts["vrl_r"] = cnt
+    del u_inj, u_philox
+    digests = kernel_digest.kernel_digests(dev, every_form=True)
+    check(digests == PARENT_DIGESTS_ALL, "the earlier forms' outputs are "
+          f"not the parent's: {digests}")
+    lines.append(f"the {len(digests)} earlier forms of kernels 1, 2 and 5 "
+                 "(kernel_digest.py --all) bit for bit the parent's")
+
+    # the main path: SKY_BAND_SEEDS clustered passes, each beside the
+    # unclustered render of its own VRLs (so that the band sees the
+    # clustering, not two traces' photon noise), their ratio of means
+    # held to C2_BAND as config 2's
+    for fn in (vrl_sum, vrl_r, vrl_sum_clustered):
+        fn.launches = 0
+    means = []
+    with plain_calls() as plain:
+        for k in range(SKY_BAND_SEEDS):
+            img_c, vrls_k, _ = alvrl.render_alvrl(
+                scene, torch.Generator().manual_seed(2 + k),
+                alvrl.ALVRLParams(**SKY_PARAMS), cfg)
+            img = integrator.render_with_vrls_kernel(
+                scene, vrls_k, torch.Generator().manual_seed(1000 + k), cfg)
+            for im in (img, img_c):
+                check(tuple(im.shape) == (HEIGHT, WIDTH, 3)
+                      and bool(torch.isfinite(im).all())
+                      and float(im.abs().max()) > 0.0,
+                      "the sky scene's image")
+            means.append((float(img_c.mean()), float(img.mean())))
+        torch.cuda.synchronize()
+    launches = {"vrl_sum": vrl_sum.launches, "vrl_r": vrl_r.launches,
+                "vrl_sum_clustered": vrl_sum_clustered.launches}
+    check(min(launches.values()) >= 1 and plain[0] == 0,
+          f"the main path's launches {launches}, plain calls {plain[0]}")
+    ratio = np.mean([a for a, _ in means]) / np.mean([b for _, b in means])
+    check(C2_BAND[0] < ratio < C2_BAND[1], "the sky scene's clustered / "
+          f"unclustered image mean {ratio} ({means})")
+    print(f"[43a mixture kernels vs plain on {card}, B={n_rays} N={n_vrls} "
+          f"T={scene.faces.shape[0]} K={len(comps)}] " + " | ".join(lines)
+          + f" | main path: render_alvrl and render_with_vrls_kernel on its "
+          f"VRLs, {SKY_BAND_SEEDS} seeds, launches {launches}, no plain "
+          f"version; clustered / unclustered mean {ratio:.4f} (in "
+          f"{C2_BAND}; " + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in means)
+          + ")", flush=True)
+
+    # times against the HG form on the same samples, in turns (HG,
+    # mixture, mixture, HG); bounds; registers
+    c_block = vsc.ray_block(False)
+    tiles = [torch.as_tensor(a, device=dev)
+             for a in group_by_slice(sop, c_block)]
+    c_out = torch.zeros((3, n_rays), device=dev)
+
+    def c_launch(p, k):
+        return lambda: vsc._launch(vsc._library(), *p, *tiles, tv, tw, None,
+                                   seed, 2, 2, True, k, c_out)
+
+    timed = {"vrl_sum": (lambda: vrl_sum(*packs, seed=seed, **kw),
+                         lambda: vrl_sum(*hpacks, seed=seed), cuda_ms),
+             "vrl_sum_clustered": (c_launch(packs, kind), c_launch(hpacks, 0),
+                                   cuda_ms_batched),
+             "vrl_r": (lambda: vrl_r(*rpacks, seed=seed, **kw),
+                       lambda: vrl_r(rpacks[0], *hpacks[1:3], hpacks[3],
+                                     seed=seed), cuda_ms_batched)}
+    ms = {}
+    for k, (mix_fn, hg_fn, timer) in timed.items():
+        args = (3, 10) if timer is cuda_ms else (3, 10, 10)
+        h0, m0, m1, h1 = (timer(f, *args) for f in (hg_fn, mix_fn, mix_fn,
+                                                     hg_fn))
+        ms[k] = (summary(m0 + m1), summary(h0 + h1))
+    bounds = {
+        "vrl_sum": bound(mixture_ops("vrl_sum", sweeps["vrl_sum"],
+                                     counts["vrl_sum"], comps),
+                         nbytes(*packs) + 3 * n_rays * 4),
+        "vrl_sum_clustered": bound(
+            mixture_ops("vrl_sum_clustered", sweeps["vrl_sum_clustered"],
+                        counts["vrl_sum_clustered"], comps),
+            nbytes(*packs, tv, tw, *tiles) + 3 * n_rays * 4),
+        "vrl_r": bound(mixture_ops("vrl_r", sweeps["vrl_r"],
+                                   counts["vrl_r"], comps),
+                       nbytes(*rpacks) + 2 * len(reps) * n_vrls * 4)}
+    regs = [r for r in ptxas_summary(_build.build_log()) if "<2," in r]
+    print(f"[43b mixture kernels' timing on {card}] " + " | ".join(
+        f"{k}: mixture {m[0]:.4f} ms (spread {m[1]:.1%}), HG form "
+        f"{h[0]:.4f} ms (spread {h[1]:.1%}), in turns; plain "
+        f"{plain_ms[k]:.2f} ms; bound {bounds[k][0]:.4f} ms by {bounds[k][1]}"
+        for k, (m, h) in ms.items()) + " | ptxas (PHASE = 2 forms): "
+        + " ; ".join(regs) + f" | phase 43 wall "
+        f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    sources = {"vrl_sum": ("vrl_sum.cu", "alvrl_tpu/ops/vrl_pallas.py:726"),
+               "vrl_sum_clustered": ("vrl_sum_clustered.cu",
+                                     "alvrl_tpu/ops/vrl_pallas.py:785"),
+               "vrl_r": ("vrl_r.cu", "alvrl_tpu/ops/vrl_pallas.py:1019")}
+    return [{
+        "name": f"{k} (mixture)", "route": "cuda",
+        "source": f"alvrl_tpu_torch/csrc/{sources[k][0]}",
+        "replaces": sources[k][1], "launches": launches[k],
+        "max_abs_err": errs[k], "ms": ms[k][0][0], "plain_ms": plain_ms[k],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": None} for k in ("vrl_sum", "vrl_sum_clustered",
+                                      "vrl_r")]
+
+
+def sky_material_kernels(dev, card, c1):
+    """Phase 43c: the PHASE = 2 material forms of kernels 1, 2 and 5 on
+    cornell_glossy in the sky scene's medium (the mixture, the single
+    strategy), each against its plain version over each eye-hit kind's
+    rays alone (R_KIND_RAYS of every kind of the frame; kernel 2 on a
+    seeded table with rows -1, ids -1 and weights 0), with injected and
+    Philox uniforms, and their checking launches (0 disagreements)."""
+    t_phase = time.perf_counter()
+    desc = glossy_json(c1)
+    desc["camera"].update(width=WIDTH, height=HEIGHT)
+    desc["medium"] = sky_medium(c1)
+    scene = loader.build_scene(desc, device=dev)
+    kind = scene.medium.phase_kind
+    check(kind == 4 and scene.medium.strategy == 1, "the glossy box's "
+          "mixture medium")
+    tcfg = tracer.TracerConfig()
+    vrls = vrl.compact(tracer.trace(scene, torch.Generator().manual_seed(
+        SKY_SEED), SKY_PARAMS["num_particles"], tcfg),
+        SKY_PARAMS["vrl_target_num"], slots_per_particle=tcfg.max_depth)
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    ray_kind = mats[0][packs[0][pk.MATID].long(), pk.MT_KIND].long()
+    rng = np.random.default_rng(431)
+    kinds, n_kind = np.unique(ray_kind.cpu().numpy(), return_counts=True)
+    kinds = kinds[n_kind >= R_KIND_RAYS]
+    check(GLOSSY_KINDS <= set(kinds.tolist()), f"the kinds seen {kinds}")
+    pick = torch.as_tensor(np.concatenate([rng.choice(
+        np.flatnonzero(ray_kind.cpu().numpy() == k), R_KIND_RAYS,
+        replace=False) for k in kinds]), device=dev)
+    packs = (packs[0][:, pick].contiguous(), *packs[1:])
+    ray_kind = ray_kind[pick]
+    n_rays, n_vrls, seed = len(pick), vrls.capacity, SKY_SEED
+    sop = rng.integers(-1, kernel_digest.N_SLICES, n_rays).astype(np.int32)
+    tv = torch.as_tensor(rng.integers(-1, n_vrls, (
+        kernel_digest.N_SLICES, kernel_digest.N_COLS)), dtype=torch.int32,
+        device=dev)
+    tw = torch.as_tensor(rng.uniform(0.0, 2.0, tv.shape), dtype=torch.float32,
+                         device=dev)
+    kw = dict(phase_kind=kind, materials=mats)
+    lines, errs = [], {}
+    for mode in ("injected", "philox"):
+        inj = mode == "injected"
+        u = (torch.as_tensor(rng.random((n_rays, n_vrls, 6), dtype=np.float32),
+                             device=dev) if inj else
+             philox_uniforms(seed, n_rays, n_vrls, 6, device=dev))
+        uc = (u[:, :tv.shape[1]].contiguous() if inj else
+              philox_table_uniforms(seed, sop, tv, 6))
+        runs = {
+            "vrl_sum": (vrl_sum(*packs, seed=seed, uniforms=u if inj else
+                                None, **kw).T,
+                        vrl_sum_reference(*packs, u, **kw).T, 3),
+            "vrl_sum_clustered": (
+                vrl_sum_clustered(*packs, sop, tv, tw, seed=seed,
+                                  uniforms=uc if inj else None, **kw).T,
+                vrl_sum_clustered_reference(*packs, sop, tv, tw, uc,
+                                            **kw).T, 3),
+            "vrl_r": (vrl_r(*packs, seed=seed, uniforms=u if inj else None,
+                            **kw)[0],
+                      vrl_r_reference(*packs, u, **kw)[0], 1)}
+        for name, (out, ref, channels) in runs.items():
+            check(bool(torch.isfinite(out).all())
+                  and float(out.abs().sum()) > 0.0,
+                  f"{name} (mixture, material) {mode}: not finite and "
+                  "non-zero")
+            item_kind = (ray_kind if channels == 3
+                         else ray_kind[:, None].expand(-1, n_vrls))
+            groups = homog_bar_by_kind(out, ref, item_kind, channels)
+            for k, (n, median, share) in groups.items():
+                check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                      f"{name} (mixture, material) {mode}: kind {k} ({n} "
+                      f"items) median {median}, share {share}")
+            worst = max(g[1] for g in groups.values())
+            lines.append(f"{name} {mode}: {len(groups)} kinds held alone, "
+                         f"worst median {worst:.2e}, worst share>1e-2 "
+                         f"{max(g[2] for g in groups.values()):.4f}")
+            errs[name] = max(errs.get(name, 0.0),
+                             float((out - ref).abs().max()))
+        del u, uc
+    counts = {"vrl_sum": vs.vrl_sum_check(*packs, seed=seed, **kw)[1],
+              "vrl_sum_clustered": vrl_sum_clustered_check(
+                  *packs, sop, tv, tw, seed=seed, **kw)[1],
+              "vrl_r": vrl_r_check(*packs, seed=seed, **kw)[1]}
+    for name, cnt in counts.items():
+        check(cnt["bad_tris"] == 0 and cnt["bad_segments"] == 0
+              and cnt["segments"] > 0, f"{name} (mixture, material): the "
+              f"checking launch {cnt}")
+    print(f"[43c mixture material kernels vs plain on {card}, cornell_glossy"
+          f" in the sky scene's medium, B={n_rays} ({R_KIND_RAYS} eye rays "
+          f"of each of {len(kinds)} kinds) N={n_vrls} "
+          f"T={scene.faces.shape[0]}] " + " | ".join(lines)
+          + " | checking launches: " + "; ".join(
+              f"{k} {c['segments']} segments, {c['bad_tris']} + "
+              f"{c['bad_segments']} disagreements" for k, c in counts.items())
+          + f" | largest |kernel - plain| " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + f" | phase 43c wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def ab_oracle(dev, card, scene, label, particles=AB_PARTICLES,
+              env_center=None):
+    """The equal-transport A/B of tests/test_ab_oracle.py on the card: the
+    VRL render through kernel 1 (AB_PASSES passes of `particles`
+    particles x depth 16, every slot) against three runs of the volpath
+    oracle (only_vrl_paths, AB_SPP samples a pixel; env_center as
+    volpath.render_volpath's); z of the image means against the oracle's
+    self-noise (the VRL passes' own spread printed beside it). Returns a
+    line of text."""
+    cfg = VRLConfig()
+    gen = torch.Generator().manual_seed(44)
+    vrl_sum.launches = 0
+    imgs = []
+    t0 = time.perf_counter()
+    for _ in range(AB_PASSES):
+        vrls = tracer.trace(scene, gen, particles,
+                            tracer.TracerConfig(max_depth=16))
+        imgs.append(integrator.render_with_vrls_kernel(scene, vrls, gen, cfg))
+    vrl_img = torch.stack(imgs).mean(dim=0)
+    torch.cuda.synchronize()
+    t_vrl = time.perf_counter() - t0
+    check(vrl_sum.launches == AB_PASSES, f"{label}: kernel 1 launches "
+          f"{vrl_sum.launches}")
+    t0 = time.perf_counter()
+    runs = [volpath.render_volpath(
+        scene, torch.Generator(device=dev).manual_seed(100 + i), spp=AB_SPP,
+        cfg=volpath.VolpathConfig(max_depth=16), env_center=env_center)
+        for i in range(3)]
+    torch.cuda.synchronize()
+    t_oracle = time.perf_counter() - t0
+    o_img = torch.stack(runs).mean(dim=0)
+    check(bool(torch.isfinite(vrl_img).all() and torch.isfinite(o_img).all())
+          and float(o_img.mean()) > 0.0, f"{label}: the images")
+    means = [float(r.mean()) for r in runs]
+    sigma = max(statistics.stdev(means), 0.01 * float(o_img.mean()))
+    z = abs(float(vrl_img.mean()) - float(o_img.mean())) / sigma
+    vrl_sd = statistics.stdev(float(i.mean()) for i in imgs) / len(imgs) ** 0.5
+    check(z < AB_Z, f"{label}: the VRL render's mean {float(vrl_img.mean())} "
+          f"against the oracle's {float(o_img.mean())}: z {z}")
+    return (f"{label} {scene.camera.width}x{scene.camera.height}: VRL mean "
+            f"{float(vrl_img.mean()):.6g} (+- {vrl_sd:.3g}, {AB_PASSES} "
+            f"passes of {particles} particles, {t_vrl:.1f} s), oracle "
+            f"{float(o_img.mean()):.6g} (runs "
+            + " ".join(f"{x:.6g}" for x in means) + f", {AB_SPP} spp, "
+            f"{t_oracle:.1f} s), ratio {float(vrl_img.mean()) / float(o_img.mean()):.4f}, "
+            f"z {z:.2f} (< {AB_Z})")
+
+
+def oracle_phase(dev, card, c1):
+    """Phase 44: the A/B on cornell_smoke and on the sky scene, the nested
+    no-op crossing, and the MIS path tracer's time and idle share."""
+    t_phase = time.perf_counter()
+    sky = loader.build_scene(sky_desc(c1, AB_SIZE, AB_SIZE), device=dev)
+    lo, hi = sky.aabb()
+    # the sky's oracle ends the map's direct segments on the tracer's
+    # emission disk (ROADMAP C17)
+    lines = [ab_oracle(dev, card, presets.cornell_smoke(
+        AB_SIZE, AB_SIZE, device=dev), "cornell_smoke"),
+        ab_oracle(dev, card, sky, "the sky scene", AB_SKY_PARTICLES,
+                  0.5 * (lo + hi))]
+    sig_s, sig_a = (0.8, 0.8, 0.8), (0.05, 0.05, 0.05)
+    nested = presets.cornell_nested_smoke(
+        AB_SIZE, AB_SIZE, sigma_s=sig_s, sigma_a=sig_a,
+        exterior=(sig_a, sig_s, 0.0), device=dev)
+    glob = presets.cornell_smoke(AB_SIZE, AB_SIZE, with_blocker=False,
+                                 sigma_s=sig_s, sigma_a=sig_a, device=dev)
+    vcfg = volpath.VolpathConfig(max_depth=8, only_vrl_paths=False)
+
+    def mean(sc, s0):
+        return float(np.mean([float(volpath.render_volpath(
+            sc, torch.Generator(device=dev).manual_seed(s0 + i),
+            spp=NESTED_SPP, cfg=vcfg).mean())
+            for i in range(3)]))
+
+    ratio = mean(nested, 0) / mean(glob, 10)
+    check(0.9 < ratio < 1.1, f"nested no-op crossing: ratio {ratio}")
+    lines.append(f"nested no-op crossing (cornell_nested_smoke, the cube's "
+                 f"medium the exterior's) against the global medium: ratio "
+                 f"{ratio:.4f} (3 seeds x {NESTED_SPP} spp)")
+    area = presets.cornell_area_light(WIDTH, HEIGHT, device=dev)
+    pcfg = volpath.VolpathConfig(max_depth=16, only_vrl_paths=False)
+    gen = torch.Generator(device=dev).manual_seed(45)
+
+    def render():
+        return volpath.render_volpath(area, gen, spp=MIS_SPP, cfg=pcfg)
+
+    # the tile that the free memory allows, against the render's peak
+    tile = volpath.tile_rays(area, pcfg)
+    free = torch.cuda.mem_get_info(dev)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    img = render()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+          "the MIS render")
+    check(peak < free, f"the MIS render's peak {peak} B over the free "
+          f"{free} B")
+    r_ms = host_ms(render, 1, 3)
+    prof = profile_device(render, 1, 2)
+    prof_line = ("the profiler saw no device operation: idle not measured"
+                 if prof is None else
+                 f"device span {prof[0]:.1f} ms, busy {prof[1]:.1f} ms, idle "
+                 f"share {1 - prof[1] / prof[0]:.1%}")
+    med, spread = summary(r_ms)
+    lines.append(f"MIS path tracer (volpath, max_depth 16) on "
+                 f"cornell_area_light {WIDTH}x{HEIGHT}, {MIS_SPP} spp: "
+                 f"{med:.1f} ms a render (spread {spread:.1%}), mean "
+                 f"{float(img.mean()):.6g}; tile {tile} rays of "
+                 f"{MIS_SPP * WIDTH * HEIGHT} (a quarter of {free / 2**30:.1f}"
+                 f" GiB free), peak {peak / 2**30:.2f} GiB; {prof_line}")
+    print(f"[44 the volpath oracle on {card}] " + " | ".join(lines)
+          + f" | phase 44 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def sky_files(c1, tmp):
+    """Phase 45's scene files in tmp: the sky scene (JSON, 64x64), the
+    nested scene (JSON: the media table and the cube's interior id), and
+    two Mitsuba XMLs of config 1's box at 64x64, one lit by sunsky and one
+    by an .hdr map written here."""
+    desc = sky_desc(c1, 64, 64)
+    with open(os.path.join(tmp, "sky.json"), "w") as f:
+        json.dump(desc, f)
+    nested = scene_json(presets.cornell_smoke(64, 64, with_blocker=False,
+                                              device=c1.device),
+                        {"type": "homogeneous", "sigma_s": [0.0] * 3,
+                         "sigma_a": [0.0] * 3})
+    nested["materials"].append({"name": "null", "type": "null"})
+    nested["shapes"].append({"type": "cube", "material": "null",
+                             "to_world": [[0.5, 0, 0, 0], [0, 0.5, 0, 0],
+                                          [0, 0, 0.5, 0], [0, 0, 0, 1]],
+                             "interior_medium": 1})
+    nested["media"] = [{"sigma_a": [0.0] * 3, "sigma_s": [0.0] * 3},
+                       {"sigma_a": [0.05] * 3, "sigma_s": [0.8] * 3}]
+    with open(os.path.join(tmp, "nested.json"), "w") as f:
+        json.dump(nested, f)
+    from alvrl_tpu_torch.emitters import sunsky
+    from alvrl_tpu_torch.io import hdr
+    hdr.write_hdr(os.path.join(tmp, "sky.hdr"),
+                  sunsky.preetham_sky_image(SKY_SUN, 3.0, 128, 64) * 0.05)
+    box = presets.cornell_smoke(64, 64, device=c1.device)
+    keep = torch.ones(box.faces.shape[0], dtype=torch.bool, device=c1.device)
+    keep[list(FRONT_WALL)] = False
+    box = replace(box, faces=box.faces[keep], material=box.material[keep])
+    for name, light in (
+            ("sunsky.xml", '<emitter type="sunsky"><vector name='
+             '"sunDirection" x="0.3" y="0.8" z="0.2"/><float name="scale" '
+             'value="0.05"/></emitter>'),
+            ("envmap.xml", '<emitter type="envmap"><string name="filename" '
+             f'value="{os.path.join(tmp, "sky.hdr")}"/></emitter>')):
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write(box_xml(box, tmp, lights=light))
+
+
+def path_cli(dev, card, tmp):
+    """Phase 45: the CLI's -i volpath|path|direct on the scene files, each
+    image bit for bit render_cli.render_path_tracer's in process, and -i
+    vrl|alvrl on them through cli_runs."""
+    lines = []
+    for name in ("sky.json", "nested.json", "sunsky.xml", "envmap.xml"):
+        path = os.path.join(tmp, name)
+        for integ in render_cli.PATH_TRACERS:
+            out_npy = os.path.join(tmp, f"{name}.{integ}.npy")
+            args = [path, "-i", integ, "--spp", str(PATH_CLI_SPP), "--seed",
+                    str(CLI_SEED), "-o", out_npy, "-L", "WARNING"]
+            if integ == "path":
+                args += ["--depth", str(PATH_CLI_DEPTH)]
+            t0 = time.perf_counter()
+            rc = render_cli.main(args)
+            wall = time.perf_counter() - t0
+            img = np.load(out_npy)
+            check(rc == 0 and np.isfinite(img).all(), f"{name} -i {integ}")
+            scene = (loader.build_scene(loader.convert_mitsuba_xml(path),
+                                        device=dev) if name.endswith(".xml")
+                     else loader.load_json(path, device=dev))
+            ref = render_cli.render_path_tracer(
+                scene, integ, CLI_SEED, PATH_CLI_SPP, PATH_CLI_DEPTH)
+            check(np.array_equal(img, ref), f"{name} -i {integ}: the CLI's "
+                  "image is not the in-process render's")
+            lines.append(f"{name} -i {integ}: mean {float(img.mean()):.6g}, "
+                         f"equal to the in-process render, {1e3 * wall:.0f}"
+                         " ms a run")
+    print(f"[45a the CLI's path tracers on {card}] " + " | ".join(lines),
+          flush=True)
+    runs = [(f"{n} {i}", n, i, 2, [], route) for n in (
+        "sky.json", "sunsky.xml", "envmap.xml") for i, route in (
+        ("vrl", ("vrl_sum",)), ("alvrl", ("vrl_r", "vrl_sum_clustered")))]
+    cli_runs(dev, card, tmp, runs, "45b the CLI's VRL integrators")
+
+
+def sky_path(dev, card):
+    """Phases 43-45; returns phase 43's entries of the kernels line."""
+    t0 = time.perf_counter()
+    c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
+    entries = sky_kernels(dev, card, c1)
+    sky_material_kernels(dev, card, c1)
+    oracle_phase(dev, card, c1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        sky_files(c1, tmp)
+        path_cli(dev, card, tmp)
+        print(f"[45 wall] {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"[43-45 wall] {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -4529,6 +5171,7 @@ def main():
     seed3 = 20261016
     u_philox = philox_uniforms(seed3, n_rays, N_VRLS, n_draws, device=dev)
     max_abs_err = 0.0
+    hold_rays = torch.arange(0, n_rays, K1_HOLD_STRIDE, device=dev)
     results, check_totals = [], dict.fromkeys(vs.CHECK_COUNTS, 0)
     media_packs = {}
     for name, (g, kind) in MEDIA.items():
@@ -4543,12 +5186,16 @@ def main():
             out = vrl_sum(*packs, seed=seed3,
                           uniforms=None if mode == "philox" else u,
                           short_vrls=short, phase_kind=kind)
-            ref = vrl_sum_reference(*packs, u, short_vrls=short,
-                                    phase_kind=kind)
+            # the plain version on every K1_HOLD_STRIDE-th ray
+            ref = vrl_sum_reference(
+                packs[0][:, hold_rays].contiguous(), *packs[1:],
+                u[hold_rays].contiguous(), short_vrls=short, phase_kind=kind)
+            out = out[:, hold_rays]
             # kernel 1's checking instantiation on the same inputs
             kw = dict(uniforms=None if mode == "philox" else u,
                       short_vrls=short, phase_kind=kind)
             out_c, counts = vs.vrl_sum_check(*packs, seed=seed3, **kw)
+            out_c = out_c[:, hold_rays]
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), f"{name}/{mode} finite")
             median, share = homog_bar(out.T, ref.T)
@@ -4565,7 +5212,8 @@ def main():
             check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
                   f"{name}/{mode}: median {median}, share {share}")
     print(f"[3 kernel vs plain on {card}, B={n_rays} N={N_VRLS} T=24 from "
-          f"shared memory] " + " | ".join(results)
+          f"shared memory, held on {len(hold_rays)} rays (every "
+          f"{K1_HOLD_STRIDE}th)] " + " | ".join(results)
           + f" | pre-reject against the Wald test, all cases: "
           f"{check_totals['segments']} segments, "
           f"{check_totals['skipped']} of {check_totals['considered']} "
@@ -4677,20 +5325,35 @@ def main():
     cases = [(name, mode, media_packs[name], MEDIA[name][1])
              for name in MEDIA for mode in ("injected", "philox", "long")]
     cases.append(("zero_channels", "philox", zero, 0))
+    # the holds on a sample of the rays: the output cotangent gbar is 0
+    # off it, so that the kernel's sums over rays (d_power, d_par) are the
+    # sample's, which the plain backward computes on the sample's rays
+    # alone; the kernel runs on the whole frame (its Philox counters are
+    # the rays' frame indices)
+    idx = torch.arange(0, n_rays, BWD_HOLD_STRIDE, device=dev)
+    gbar_s = torch.zeros_like(gbar)
+    gbar_s[:, idx] = gbar[:, idx]
     bwd_err, results = 0.0, []
     for name, mode, packs, kind in cases:
         kw = dict(seed=seed3, uniforms=None if mode == "philox" else u_inj,
                   short_vrls=mode != "long", phase_kind=kind)
-        out = bwd.vrl_sum_bwd(*packs, gbar, **kw)
-        again = bwd.vrl_sum_bwd(*packs, gbar, **kw)
+        out = bwd.vrl_sum_bwd(*packs, gbar_s, **kw)
+        again = bwd.vrl_sum_bwd(*packs, gbar_s, **kw)
         u = u_philox if mode == "philox" else u_inj
+        sample = (packs[0][:, idx].contiguous(), *packs[1:],
+                  gbar[:, idx].contiguous(), u[idx].contiguous())
         ref, ref64 = (bwd.vrl_sum_bwd_reference(
-            *(x.to(dt) for x in (*packs, gbar, u)),
+            *(x.to(dt) for x in sample),
             short_vrls=mode != "long", phase_kind=kind)
             for dt in (torch.float32, torch.float64))
         torch.cuda.synchronize()
+        off = torch.ones(n_rays, dtype=torch.bool, device=dev)
+        off[idx] = False
+        check(not bool(out[2][:, off].any()),
+              f"{name}/{mode}: d_tau off the sample")
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"{name}/{mode}: a repeat launch is not bit-identical")
+        out = (out[0], out[1], out[2][:, idx])
         check(all(bool(torch.isfinite(o).all()) for o in out),
               f"{name}/{mode} finite")
         (pw_bar, tau_bar), (par_rel, plain_rel), err = bwd_check(
@@ -4706,8 +5369,9 @@ def main():
                        f"f32 vs f64 {plain_rel:.2e}), d_g "
                        f"{float(out[1][6]):.4g}")
     print(f"[7 backward kernel vs plain on {card}, B={n_rays} N={N_VRLS} "
-          "T=24, "
-          "repeats bit-identical] " + " | ".join(results), flush=True)
+          f"T=24, held on {len(idx)} rays (every {BWD_HOLD_STRIDE}th; gbar 0 "
+          "on the others), repeats bit-identical] " + " | ".join(results),
+          flush=True)
     del u_inj, u_philox, media_packs, zero
 
     # 8. the train step at full width, through the entry point
@@ -4810,7 +5474,7 @@ def main():
                      20)
     u_step = philox_uniforms(seed, n_rays, n_slots, n_draws, device=dev)
     plain_bwd_ms = cuda_ms(
-        lambda: bwd.vrl_sum_bwd_reference(*packs, gbar, u_step), 1, 3)
+        lambda: bwd.vrl_sum_bwd_reference(*packs, gbar, u_step), 0, 1)
     with SweepCount(*pair_masks(packs[0], packs[1])) as bwd_sweep:
         vrl_sum_reference(*packs, u_step)  # the samples the backward replays
     del u_step
@@ -4889,6 +5553,7 @@ def main():
     bvh_kernel = large_mesh(dev, card, cfg, vrls)
     probe_kernels = gather_probes(dev, card)
     glossy_kernels_line = scene_path(dev, card, vrls)
+    sky_kernels_line = sky_path(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -4905,7 +5570,8 @@ def main():
         "ms": b_med, "plain_ms": pb_med, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": None,
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
-        bvh_kernel, *probe_kernels, *glossy_kernels_line]}))
+        bvh_kernel, *probe_kernels, *glossy_kernels_line,
+        *sky_kernels_line]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ in a homogeneous and in a grid medium; the BVH-occlusion sum
 (csrc/vrl_sum_bvh.cu) and the gather probes (csrc/probe_gather.cu); the
 VRL sum on the specular chains' rays, which start on surfaces; the
 material instantiations of kernels 1, 2 and 5 on glossy and layered
-surfaces.
+surfaces; their mixture-phase (PHASE = 2) and sampling-strategy forms,
+and the dispatch's refusal of a phase kind it has no form for.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -1789,3 +1790,182 @@ def test_cuda_glossy_renders_take_the_material_kernels(cuda):
         before[1]
     for im in (img, img_c):
         assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0
+
+
+# the mixture phase (PHASE = 2) and the sampling strategies in kernels 1,
+# 2 and 5: an absorbing two-lobe mixture (HG 0.8 at 0.6, Rayleigh at 0.3),
+# in a coloured medium (MIX_SIGMA_S), so that no strategy's one rate is
+# every channel's sigma_t and a kernel that took the balance pdfFailure
+# in its place fails its hold
+MIX_SIGMA_S = (0.8, 0.5, 0.3)
+MIX_MEDIA = {
+    "mixture_single": dict(phase_kind=4, strategy=1, channel=1),
+    "mixture_balance": dict(phase_kind=4),
+    "hg_single": dict(strategy=1, channel=0),
+    "hg_maximum": dict(strategy=3),
+    "rayleigh_manual": dict(phase_kind=1, strategy=2, density=0.7),
+}
+
+
+def _mixture(device, name, size=64):
+    """Config 1's box in the coloured medium of MIX_MEDIA[name], the
+    bench VRLs: (scene, packs)."""
+    from alvrl_tpu_torch.media import phase as ph
+
+    scene = _scene(device, size, size)
+    kw = dict(MIX_MEDIA[name], sigma_s=torch.tensor(MIX_SIGMA_S,
+                                                    device=device))
+    if kw.get("phase_kind") == 4:
+        kw["phase_params"] = ph.mixture_params(
+            [0.6, 0.3], [ph.HG, ph.RAYLEIGH], [0.8, 0.0], device=device)
+    scene = replace(scene, medium=replace(scene.medium, **kw))
+    return scene, integrator.pack_frame(scene, _bench_vrls(device))[3]
+
+
+@pytest.mark.parametrize("name", sorted(MIX_MEDIA))
+@pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_mixture_and_strategy_kernels_match_plain(cuda, name, kernel,
+                                                       injected):
+    """Kernels 1, 2 and 5 on the extended medium pack (the mixture's
+    PHASE = 2 form, or a strategy's rate) against their plain versions on
+    the same uniforms, at the homogeneous bar; the checking launches'
+    pre-reject at 0 disagreements."""
+    scene, packs = _mixture(cuda, name)
+    kind = scene.medium.phase_kind
+    assert packs[3].shape[0] > pk.MED_LEN
+    n_rays, seed = packs[0].shape[1], 43
+    kw = dict(seed=seed, phase_kind=kind)
+    if kernel == "vrl_sum_clustered":
+        sop, ids, w = _glossy_table(packs, cuda)
+        u = (torch.rand((n_rays, ids.shape[1], 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_table_uniforms(seed, sop, ids, 6))
+        out = vrl_sum_clustered(*packs, sop, ids, w,
+                                uniforms=u if injected else None, **kw)
+        ref = vrl_sum_clustered_reference(*packs, sop, ids, w, u,
+                                          phase_kind=kind)
+        _, counts = vrl_sum_clustered_check(*packs, sop, ids, w, **kw)
+        out, ref, channels = out.T, ref.T, 3
+    else:
+        fn, plain, chk = ((vrl_sum, vrl_sum_reference, vs.vrl_sum_check)
+                          if kernel == "vrl_sum"
+                          else (vrl_r, vrl_r_reference, vrl_r_check))
+        if kernel == "vrl_r":
+            packs = (packs[0][:, ::16].contiguous(), *packs[1:])
+            n_rays = packs[0].shape[1]
+        u = (torch.rand((n_rays, 512, 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_uniforms(seed, n_rays, 512, 6,
+                                              device=cuda))
+        out = fn(*packs, uniforms=u if injected else None, **kw)
+        ref = plain(*packs, u, phase_kind=kind)
+        _, counts = chk(*packs, **kw)
+        out, ref, channels = ((out[0], ref[0], 1) if kernel == "vrl_r"
+                              else (out.T, ref.T, 3))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out, ref, channels)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+
+
+def test_cuda_mixture_differs_from_its_hg_form(cuda):
+    """The mixture's sums (balance strategy) are not the HG form's on the
+    same samples and the same medium: the pack's components are read."""
+    scene, packs = _mixture(cuda, "mixture_balance")
+    hg = (*packs[:3], pk.pack_medium(replace(scene, medium=replace(
+        scene.medium, phase_kind=0, phase_params=None))))
+    a = vrl_sum(*packs, seed=5, phase_kind=4)
+    b = vrl_sum(*hg, seed=5)
+    assert float((a - b).abs().max()) > 1e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
+def test_cuda_strategy_differs_from_balance(cuda, kernel):
+    """HG with the single strategy (channel 0's rate, 0.8 + sigma_a,
+    against the other channels' sigma_t) is not HG with the balance
+    strategy on the same samples: each kernel reads the pack's rate."""
+    scene, packs = _mixture(cuda, "hg_single")
+    bal = (*packs[:3], pk.pack_medium(replace(scene, medium=replace(
+        scene.medium, strategy=0))))
+    if kernel == "vrl_sum_clustered":
+        sop, ids, w = _glossy_table(packs, cuda)
+        a, b = (vrl_sum_clustered(*p, sop, ids, w, seed=5)
+                for p in (packs, bal))
+    else:
+        fn = vrl_sum if kernel == "vrl_sum" else vrl_r
+        a, b = (fn(*p, seed=5) for p in (packs, bal))
+    assert float((a - b).abs().max()) > 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_mixture_material_kernels_match_plain(cuda, kernel, injected):
+    """The PHASE = 2 material forms: the glossy box's material packs
+    (KIND_RAYS eye rays of each of the eleven kinds) in the coloured
+    mixture + single medium, against the plain versions at the
+    homogeneous bar over each kind's rays alone, and their checking
+    launches at 0 disagreements."""
+    mats, packs, ray_kind, kinds = _glossy_by_kind(cuda)
+    packs = (*packs[:3], _mixture(cuda, "mixture_single", 16)[1][3])
+    n_rays, seed = packs[0].shape[1], 41
+    kw = dict(seed=seed, phase_kind=4, materials=mats)
+    pkw = dict(phase_kind=4, materials=mats)
+    if kernel == "vrl_sum_clustered":
+        sop, ids, w = _glossy_table(packs, cuda)
+        u = (torch.rand((n_rays, ids.shape[1], 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_table_uniforms(seed, sop, ids, 6))
+        out = vrl_sum_clustered(*packs, sop, ids, w,
+                                uniforms=u if injected else None, **kw)
+        ref = vrl_sum_clustered_reference(*packs, sop, ids, w, u, **pkw)
+        _, counts = vrl_sum_clustered_check(*packs, sop, ids, w, **kw)
+    else:
+        fn, plain, chk = ((vrl_sum, vrl_sum_reference, vs.vrl_sum_check)
+                          if kernel == "vrl_sum"
+                          else (vrl_r, vrl_r_reference, vrl_r_check))
+        u = (torch.rand((n_rays, 512, 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+             if injected else philox_uniforms(seed, n_rays, 512, 6,
+                                              device=cuda))
+        out = fn(*packs, uniforms=u if injected else None, **kw)
+        ref = plain(*packs, u, **pkw)
+        _, counts = chk(*packs, **kw)
+    torch.cuda.synchronize()
+    if kernel == "vrl_r":
+        out, ref, channels = out[0], ref[0], 1
+        item_kind = ray_kind[:, None].expand(-1, 512)
+    else:
+        out, ref, channels, item_kind = out.T, ref.T, 3, ray_kind
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    groups = homog_bar_by_kind(out, ref, item_kind, channels)
+    assert set(groups) == kinds
+    for k, (n, median, share) in groups.items():
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (k, n, median,
+                                                               share)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+
+
+@pytest.mark.parametrize("kind", [2, 3, 5])
+def test_cuda_dispatch_refuses_an_unknown_phase_kind(cuda, kind):
+    """A phase kind without an instantiation (the oriented kinds 2 and 3,
+    and 5) launches nothing: the C entry returns an error, which the
+    launch raises; the wrappers refuse it first by name."""
+    scene, packs = _mixture(cuda, "mixture_single", 16)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        vs._launch(vs._library(), *packs, None, 0, 2, 2, True, kind)
+    with pytest.raises(ValueError, match="not ported"):
+        vrl_sum(*packs, phase_kind=kind)
+
+
+def test_cuda_other_kernels_refuse_the_extended_pack(cuda):
+    """The BVH and backward kernels and the grid wrappers raise, naming
+    ROADMAP A13, on a mixture or strategy pack."""
+    scene, packs = _mixture(cuda, "mixture_single", 16)
+    gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
+    with pytest.raises(ValueError, match="A13"):
+        vrl_sum_bwd(*packs, gbar, phase_kind=4)
+    with pytest.raises(ValueError, match="A13"):
+        integrator.render_with_vrls_kernel_diff(
+            scene, _bench_vrls(cuda), torch.Generator().manual_seed(0))

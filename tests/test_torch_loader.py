@@ -98,12 +98,33 @@ def assert_same_scene(ours, jax_scene):
             if (part, k) in (("camera", "to_world"),
                              ("materials", "rt_table")):
                 torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=0)
+            elif (part, k) == ("emitters", "env"):
+                # the map's tables (sums of float32 luminances, in another
+                # order by each package) within 1e-6, its image exactly
+                assert torch.equal(a[k].image, b[k].image)
+                for t in ("row_cdf", "cond_cdf", "pdf_map", "mean"):
+                    torch.testing.assert_close(getattr(a[k], t),
+                                               getattr(b[k], t), rtol=1e-6,
+                                               atol=1e-7, msg=t)
+            elif (part, k) == ("medium", "phase_params"):
+                assert (a[k] is None) == (b[k] is None)
+                for x, y in zip(a[k] or (), b[k] or ()):
+                    assert (x == y if not isinstance(x, torch.Tensor)
+                            else torch.equal(x, y.to(x.dtype))), k
             elif isinstance(a[k], torch.Tensor):
                 assert a[k].dtype == b[k].dtype, f"{part}.{k}"
                 assert torch.equal(a[k], b[k]), f"{part}.{k}"
             else:
                 assert a[k] == b[k], f"{part}.{k}"
     assert torch.equal(ours.opaque_faces(), ref.opaque_faces())
+    assert torch.equal(ours.face_emitters(), ref.face_emitters())
+    assert (ours.media is None) == (ref.media is None)
+    if ours.media is not None:
+        for k in ("sigma_a", "sigma_s", "g", "sampling_weight"):
+            assert torch.equal(getattr(ours.media, k),
+                               getattr(ref.media, k)), k
+        assert torch.equal(ours.face_med_int, ref.face_med_int)
+        assert torch.equal(ours.face_med_ext, ref.face_med_ext)
 
 
 def test_dict_scene_matches():
@@ -342,21 +363,30 @@ def test_xml_converter_dict_matches_on_the_extended_scene(tmp_path):
                     {"name": "glass", "type": "null"}]}, "checker"),
     ({"materials": [{"name": "white", "type": "velvet"},
                     {"name": "glass", "type": "null"}]}, "velvet"),
-    ({"emitters": [{"type": "sky", "turbidity": 3.0}]}, "sky"),
-    ({"emitters": [{"type": "sunsky", "turbidity": 3.0}]}, "sunsky"),
-    ({"emitters": [{"type": "envmap", "filename": "x.pfm"}]}, "envmap"),
+    # the environment emitters are ported: two of them are refused
+    ({"emitters": [{"type": "sky", "turbidity": 3.0},
+                   {"type": "sunsky"}]}, "sky"),
+    ({"emitters": [{"type": "sunsky", "turbidity": 3.0},
+                   {"type": "sky"}]}, "sunsky"),
+    ({"emitters": [{"type": "envmap", "filename": "x.pfm"},
+                   {"type": "sky"}]}, "envmap"),
     ({"camera": dict(SCENE["camera"], type="thinlens")}, "thinlens"),
     ({"shapes": [{"type": "heightfield", "heights": [[0, 1], [1, 0]]}]},
      "heightfield"),
+    # per-shape media are ported: a medium id outside the table is refused
     ({"shapes": [{"type": "cube", "interior_medium": 1}]},
      "interior_medium"),
     ({"shapes": [{"type": "cube", "to_world_t1": np.eye(4).tolist()}]},
      "to_world_t1"),
-    ({"media": [{"sigma_a": [0, 0, 0], "sigma_s": [0, 0, 0]}]}, "media"),
-    ({"medium": {"type": "homogeneous", "phase": {
+    ({"media": [{"type": "grid", "sigma_a": [0, 0, 0],
+                 "sigma_s": [0, 0, 0]}]}, "media"),
+    # the mixture phase and the strategies are ported: a mixture in a grid
+    # medium and a channel out of range are refused
+    ({"medium": {"type": "grid", "density": [[[1.0]]], "phase": {
         "type": "mixture", "components": [{"type": "hg", "g": 0.5}]}}},
      "mixture"),
-    ({"medium": {"type": "homogeneous", "strategy": "single"}}, "single"),
+    ({"medium": {"type": "homogeneous", "strategy": "single",
+                 "channel": 3}}, "single"),
 ])
 def test_unsupported_kinds_raise(change, name):
     with pytest.raises(ValueError, match=name):
@@ -610,3 +640,108 @@ def test_rough_coat_at_eta_one_transmits_everything():
     ours = loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
     assert bool((ours.materials.rt_table[1] == 1.0).all())
     assert float(ours.materials.eta[1]) == 1.0
+
+
+# the environment lights, per-shape media, the mixture phase and the
+# strategies (ROADMAP A3, A10)
+SKY_EMITTERS = {
+    "sky": [{"type": "sky", "sun_direction": [0.3, 0.8, 0.2],
+             "turbidity": 4.0, "resolution": 32}],
+    "sun": [{"type": "sun", "sun_direction": [0.3, 0.8, 0.2],
+             "sun_scale": 0.5}, SCENE["emitters"][0]],
+    "sunsky": [{"type": "sunsky", "sun_direction": [-0.2, 0.7, 0.4],
+                "resolution": 32, "scale": 0.5}],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SKY_EMITTERS))
+def test_sky_emitters_match(name):
+    """sky and sunsky bake the Preetham map (sunsky's sun disk in it),
+    sun becomes a directional entry: the same table and map as JAX's."""
+    desc = dict(SCENE, emitters=SKY_EMITTERS[name])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    kinds = set(ours.emitters.host_kinds)
+    assert kinds == ({2, 0} if name == "sun" else {5})
+
+
+@pytest.mark.parametrize("ext", ["pfm", "hdr"])
+def test_envmap_file_matches(tmp_path, ext):
+    """An envmap from a .pfm and from an .hdr (scale and azimuth), in
+    JSON and through the XML converter."""
+    from alvrl_tpu.io import hdr as jhdr
+    from alvrl_tpu.io import image as jimage
+
+    img = np.random.default_rng(0).gamma(0.5, 1.0, (8, 16, 3)).astype(
+        np.float32)
+    path = tmp_path / f"sky.{ext}"
+    (jimage.write_pfm if ext == "pfm" else jhdr.write_hdr)(str(path), img)
+    desc = dict(SCENE, emitters=[{"type": "envmap", "filename": str(path),
+                                  "scale": 2.0, "azimuth": 30.0}])
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    xml = XML.replace('<emitter type="point">', (
+        f'<emitter type="envmap"><string name="filename" value="{path}"/>'
+        '<float name="scale" value="2"/></emitter>\n    <emitter '
+        'type="point">'))
+    xp = tmp_path / "s.xml"
+    xp.write_text(xml)
+    d = loader.convert_mitsuba_xml(xp)
+    assert d == jloader.convert_mitsuba_xml(xp)
+    assert_same_scene(loader.build_scene(d, device=CPU),
+                      jloader.build_scene(d))
+
+
+def test_sunsky_xml_matches(tmp_path):
+    xml = XML.replace('<emitter type="point">', (
+        '<emitter type="sunsky"><vector name="sunDirection" x="0.2" y="0.9"'
+        ' z="0.1"/><float name="turbidity" value="5"/></emitter>\n    '
+        '<emitter type="sun"><vector name="sunDirection" x="0.2" y="0.9"'
+        ' z="0.1"/></emitter>\n    <emitter type="point">'))
+    xp = tmp_path / "s.xml"
+    xp.write_text(xml)
+    d = loader.convert_mitsuba_xml(xp)
+    assert d == jloader.convert_mitsuba_xml(xp)
+    ours = loader.build_scene(d, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(d))
+    assert set(ours.emitters.host_kinds) == {0, 2, 5}
+
+
+@pytest.mark.parametrize("medium", [
+    {"type": "homogeneous", "sigma_s": [0.6, 0.5, 0.4],
+     "sigma_a": [0.05, 0.1, 0.02], "phase": {
+         "type": "mixture", "components": [
+             {"type": "hg", "g": 0.8, "weight": 0.6},
+             {"type": "rayleigh", "weight": 0.3}]}},
+    {"type": "homogeneous", "sigma_s": [0.6] * 3, "sigma_a": [0.05] * 3,
+     "phase": {"type": "mixture", "components": [
+         {"type": "isotropic", "weight": 2.0}, {"type": "hg", "g": -0.3}]},
+     "strategy": "maximum"},
+    {"type": "homogeneous", "sigma_s": [0.6, 0.2, 0.4],
+     "sigma_a": [0.05] * 3, "strategy": "single", "channel": 2},
+    {"type": "homogeneous", "sigma_s": [0.6] * 3, "sigma_a": [0.05] * 3,
+     "phase": "rayleigh", "strategy": "manual", "density": 0.3},
+], ids=["mixture", "mixture_maximum", "single", "manual"])
+def test_mixture_and_strategies_match(medium):
+    desc = dict(SCENE, medium=medium)
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+
+
+def test_nested_media_match():
+    """The media table, each shape's interior and exterior ids (the area
+    quads' 0), and the area light's faces' emitter ids."""
+    desc = dict(SCENE, medium={"type": "homogeneous", "sigma_s": [0.0] * 3,
+                               "sigma_a": [0.0] * 3},
+                media=[{"sigma_a": [0.0] * 3, "sigma_s": [0.0] * 3},
+                       {"sigma_a": [0.1] * 3, "sigma_s": [0.7] * 3,
+                        "g": 0.4}])
+    desc["shapes"] = [SCENE["shapes"][0], dict(SCENE["shapes"][1],
+                                               interior_medium=1)]
+    desc["emitters"] = SCENE["emitters"] + [
+        {"type": "area", "p0": [-0.2, 0.99, -0.2], "e1": [0.4, 0, 0],
+         "e2": [0, 0, 0.4], "radiance": [3, 3, 3]}]
+    ours = loader.build_scene(desc, device=CPU)
+    assert_same_scene(ours, jloader.build_scene(desc))
+    assert int((ours.face_med_int == 1).sum()) == 4 * 8 * 2
+    assert ours.face_emitters().tolist()[-2:] == [1, 2]

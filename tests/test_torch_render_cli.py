@@ -119,20 +119,34 @@ def test_xml_scene_writes_render_progressive(tmp_path):
     assert np.array_equal(image.read_pfm(out), ref)
 
 
+# a scene file of an oriented phase function, which the loader refuses
+ORIENTED = "oriented.json"
+
+
 @pytest.mark.parametrize("args, item", [
-    (["-i", "bdpt"], "A11"), (["-i", "volpath"], "A10"),
+    (["-i", "bdpt"], "A11"), (["-i", "volpath", ORIENTED], "A10"),
     (["-o", "x.exr"], "A11"), (["-o", "x.jpg"], "A11")])
 def test_refusals_name_the_roadmap_item(scene_json, args, item):
+    """An integrator, an output format or (ORIENTED: -i volpath on a
+    Kajiya-Kay medium, since the volumetric path tracer is ported) a
+    scene that the port does not take exits naming its ROADMAP item."""
+    scene = scene_json
+    if ORIENTED in args:
+        scene = scene_json.parent / ORIENTED
+        desc = dict(SCENE, medium=dict(SCENE["medium"], phase="kkay"))
+        scene.write_text(json.dumps(desc))
+        args = [a for a in args if a != ORIENTED]
     with pytest.raises(SystemExit) as e:
-        render_cli.main([str(scene_json), "--cpu", *args])
+        render_cli.main([str(scene), "--cpu", "-D", "fov=70", *args])
     assert f"ROADMAP {item}" in str(e.value.code)
 
 
 @pytest.mark.parametrize("option", ["--depth", "--spp", "--field"])
 def test_no_option_of_the_other_integrators(scene_json, option):
     """The JAX CLI's --depth, --spp and --field set its path tracers and
-    its field integrator, never -i vrl|alvrl; the port has none of those
-    integrators and takes none of the three."""
+    its field integrator, never -i vrl|alvrl: the port's -i vrl (the
+    default) refuses --depth and --spp, which set -i volpath|path|direct
+    only, and it has no --field (no field integrator)."""
     with pytest.raises(SystemExit) as e:
         render_cli.main([str(scene_json), "--cpu", option, "5"])
     assert e.value.code == 2  # argparse's usage error
@@ -182,3 +196,21 @@ def test_glass_mirror_and_area_light_scene_renders(tmp_path, integrator):
     assert np.isfinite(got).all() and got.mean() > 0
     ref = _reference(loader.load_json(desc, device=CPU), integrator)
     assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("integ", ["volpath", "path", "direct"])
+def test_path_tracers_write_the_in_process_render(scene_json, tmp_path,
+                                                  integ):
+    """-i volpath|path|direct with --spp (and --depth for path): the image
+    bit for bit render_path_tracer's on the same scene and seed."""
+    out = tmp_path / "o.npy"
+    args = [str(scene_json), "--cpu", "-D", "fov=70", "-i", integ, "--spp",
+            "2", "--seed", "3", "-o", str(out)]
+    if integ == "path":
+        args += ["--depth", "4"]
+    assert render_cli.main(args) == 0
+    scene = loader.load_json(str(scene_json), {"fov": "70"}, device=CPU)
+    ref = render_cli.render_path_tracer(scene, integ, 3, 2, 4)
+    img = np.load(out)
+    assert np.array_equal(img, ref)
+    assert np.isfinite(img).all() and float(np.abs(img).max()) > 0.0

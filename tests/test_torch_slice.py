@@ -325,4 +325,35 @@ def test_package_imports_no_jax():
             "scripts/bench_bvh_large.py", "scripts/probe_gather.py",
             "core/logging.py", "core/stats.py", "io/image.py", "io/mesh.py",
             "io/vol.py", "scene/loader.py", "integrators/progressive.py",
-            "scripts/render_cli.py", "../chip_smoke.py"} <= walked
+            "scripts/render_cli.py", "../chip_smoke.py",
+            "integrators/volpath.py", "integrators/surface.py",
+            "media/table.py", "emitters/envmap.py", "emitters/sunsky.py",
+            "io/hdr.py"} <= walked
+
+
+@pytest.mark.parametrize("name", ["emitters/sunsky.py", "io/hdr.py"])
+def test_numpy_modules_are_copies(name):
+    """sunsky.py and hdr.py are copies of the JAX package's numpy
+    modules, not imports of them: every function of the original is
+    defined in the port's file with the same body (sky_envmap also takes
+    the map's device), and the port's imports stay within numpy and
+    alvrl_tpu_torch."""
+    ref_path = os.path.join(os.path.dirname(PKG_DIR), "alvrl_tpu", name)
+    with open(os.path.join(PKG_DIR, name)) as f:
+        ours = ast.parse(f.read())
+    with open(ref_path) as f:
+        ref = ast.parse(f.read())
+
+    def functions(tree):
+        return {n.name: ast.dump(n) for n in tree.body
+                if isinstance(n, ast.FunctionDef)}
+
+    a, b = functions(ours), functions(ref)
+    assert set(a) == set(b)
+    assert [k for k in a if a[k] != b[k]] == (
+        ["sky_envmap"] if name.endswith("sunsky.py") else [])
+    imports = {alias.name.split(".")[0] for n in ast.walk(ours)
+               if isinstance(n, ast.Import) for alias in n.names}
+    imports |= {n.module.split(".")[0] for n in ast.walk(ours)
+                if isinstance(n, ast.ImportFrom) and n.module}
+    assert imports <= {"numpy", "alvrl_tpu_torch", "__future__"}, imports

@@ -7,12 +7,13 @@ decisions and must give the same VRL buffer; the gradients of a
 power-weighted sum through both tracers must agree as well.
 """
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from dataclasses import replace
 
 from alvrl_tpu.bsdf import api as jbsdf
 from alvrl_tpu.core import math as jm
@@ -173,11 +174,16 @@ def test_sample_emission_picks_by_pmf():
 
 
 def test_sample_emission_rejects_other_kinds():
-    """A table holding a kind that is not ported (the environment map,
-    ENVMAP) is refused when it is built."""
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        em.make_emitters([em.POINT, jem.ENVMAP], [[0, 0, 0]] * 2,
+    """A table holding a kind that is not one of the reference's is
+    refused when it is built, and so is an ENVMAP entry without its map
+    (every kind of the reference is ported since the environment map)."""
+    with pytest.raises(ValueError, match="not ported"):
+        em.make_emitters([em.POINT, 7], [[0, 0, 0]] * 2,
                          [[1.0, 1.0, 1.0]] * 2, device="cpu")
+    table = em.make_emitters([em.POINT, jem.ENVMAP], [[0, 0, 0]] * 2,
+                             [[1.0, 1.0, 1.0]] * 2, device="cpu")
+    with pytest.raises(ValueError, match="env map"):
+        replace(table, env=None)
 
 
 def test_bsdf_sample_matches():

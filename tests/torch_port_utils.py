@@ -126,6 +126,14 @@ def jax_medium_leaves(med):
         keys = ("sigma_a", "sigma_s", "g", "sampling_weight")
     out = {f"medium.{k}": np.asarray(getattr(med, k)) for k in keys}
     out["medium.phase_kind"] = med.phase_kind
+    if not hasattr(med, "sigma_t_color"):
+        out["medium.strategy"] = med.strategy
+        out["medium.channel"] = med.channel
+        out["medium.density"] = np.asarray(med.density)
+        pp = med.phase_params
+        if pp is not None and pp.mix_w is not None:
+            for k in ("mix_w", "mix_kind", "mix_g"):
+                out[f"medium.phase_params.{k}"] = np.asarray(getattr(pp, k))
     return out
 
 
@@ -147,6 +155,15 @@ def jax_scene_leaves(scene):
         "camera.width": cam.width,
         "camera.height": cam.height,
         "camera.kind": cam.kind,
+        "face_emitter": np.asarray(scene.face_emitter),
+        **{f"emitters.env.{k}": np.asarray(getattr(scene.emitters.env, k))
+           for k in ("image", "row_cdf", "cond_cdf", "pdf_map", "mean",
+                     "azimuth")},
+        **({} if scene.media is None else {
+            **{f"media.{k}": np.asarray(getattr(scene.media, k))
+               for k in ("sigma_a", "sigma_s", "g", "sampling_weight")},
+            "face_med_int": np.asarray(scene.face_med_int),
+            "face_med_ext": np.asarray(scene.face_med_ext)}),
     }
 
 
@@ -242,6 +259,59 @@ def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
     if tracking_steps:
         return np.asarray(u_emit), np.asarray(u_walk), np.asarray(u_track)
     return np.asarray(u_emit), np.asarray(u_walk)
+
+
+def jax_volpath_step_uniforms(k, tracking_steps=0):
+    """One step's uniforms of alvrl_tpu's li_volpath from its key k, in
+    the port's volpath layout: k splits into (distance, direct, phase,
+    bsdf, roulette, unused) (volpath.py:129); distance -> two scalar
+    uniforms (homogeneous.py:144-146), direct -> uniform (3,), phase ->
+    uniform2, bsdf -> N_SAMPLE_DIMS, roulette -> one; with
+    tracking_steps, also the Woodcock rows of the distance key."""
+    import jax
+    import jax.numpy as jnp
+
+    k_dist, k_nee, k_phase, k_bsdf, k_rr, _ = jax.random.split(k, 6)
+    k1, k2 = jax.random.split(k_dist)
+    u = jnp.concatenate([
+        jax.random.uniform(k1, (1,)), jax.random.uniform(k2, (1,)),
+        jax.random.uniform(k_nee, (3,)), jax.random.uniform(k_phase, (2,)),
+        jax.random.uniform(k_bsdf, (5,)), jax.random.uniform(k_rr, (1,))])
+    if not tracking_steps:
+        return u, jnp.zeros((0, 2))
+    return u, jax_tracking_uniforms(k_dist, tracking_steps)
+
+
+def jax_volpath_uniforms(keys, n_steps, tracking_steps=0):
+    """The uniforms alvrl_tpu's li_volpath draws from each ray's key
+    (keys: (B,) keys), rebuilt in the layout of the port's li_volpath_u:
+    u (B, n_steps, N_STEP_DIMS) and, with tracking_steps, u_track (B,
+    n_steps, tracking_steps, 2), as numpy arrays. A ray's key splits
+    into one key a step (volpath.py:449), each step's as
+    jax_volpath_step_uniforms."""
+    import jax
+
+    def ray(k):
+        return jax.vmap(lambda kk: jax_volpath_step_uniforms(
+            kk, tracking_steps))(jax.random.split(k, n_steps))
+
+    u, u_track = jax.vmap(ray)(keys)
+    if tracking_steps:
+        return np.asarray(u), np.asarray(u_track)
+    return np.asarray(u)
+
+
+def jax_render_keys(key, spp, n_rays, ray_tile=4096):
+    """(spp, n_rays) keys: alvrl_tpu's render_volpath folds sample i,
+    tile t and ray j of the tile into the key (volpath.py:483)."""
+    import jax
+    import jax.numpy as jnp
+
+    from alvrl_tpu.core import rng
+
+    idx = jnp.arange(n_rays)
+    return jax.vmap(lambda i: jax.vmap(lambda r: rng.fold(
+        key, i, r // ray_tile, r % ray_tile))(idx))(jnp.arange(spp))
 
 
 def hit_from_jax(hit):
