@@ -11,11 +11,17 @@ rate (MEDIUM_STRATEGY_KEYS) and a mixture's components
 (MIXTURE_KEYS); the environment map (ENV_KEYS); the faces' emitter
 ids ("face_emitter"); per-shape media (MEDIA_KEYS). Absent, they take
 the defaults: balance, no mixture, the zero map, no emitting face, the
-one global medium. `cluster_tables_from_numpy` takes the clustered
-render's tables.
+one global medium. A grid medium's optional leaves (GRID_OPTION_KEYS:
+fast_tau, sampling, sigma_dir_max, the orientation volume, and an
+oriented kind's phase parameters, ORIENTED_PP_KEYS) default to the
+JAX package's defaults: fast_tau True, Woodcock sampling, factor 1,
+unoriented. `cluster_tables_from_numpy` takes the clustered render's
+tables.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -50,6 +56,10 @@ GRID_MEDIUM_KEYS = ("medium.density", "medium.sigma_t_color",
                     "medium.box_max", "medium.scale", "medium.phase_kind")
 MEDIUM_STRATEGY_KEYS = ("medium.strategy", "medium.channel",
                         "medium.density")
+GRID_OPTION_KEYS = ("medium.fast_tau", "medium.sampling",
+                    "medium.sigma_dir_max", "medium.orientation")
+ORIENTED_PP_KEYS = tuple(f"medium.phase_params.{k}" for k in (
+    "ks", "kd", "exponent", "norm", "stddev", "sigma_t_lut"))
 MIXTURE_KEYS = ("medium.phase_params.mix_w", "medium.phase_params.mix_kind",
                 "medium.phase_params.mix_g")
 ENV_KEYS = tuple(f"emitters.env.{k}" for k in (
@@ -77,11 +87,20 @@ def scene_from_numpy(d, device="cuda") -> Scene:
         return torch.tensor(d[k], dtype=torch.int64, device=device)
 
     if grid:
+        pp = None
+        if any(k in d for k in ORIENTED_PP_KEYS):
+            pp = PhaseParams(**{k.rsplit(".", 1)[1]: f32(k)
+                                for k in ORIENTED_PP_KEYS if k in d})
         medium = make_grid_medium(
             *(d[f"medium.{k}"] for k in ("density", "sigma_t_color",
                                          "albedo", "g", "box_min",
                                          "box_max", "scale")),
-            phase_kind=int(d["medium.phase_kind"]), device=device)
+            phase_kind=int(d["medium.phase_kind"]),
+            orientation=d.get("medium.orientation"), phase_params=pp,
+            fast_tau=bool(d.get("medium.fast_tau", True)),
+            sampling=int(d.get("medium.sampling", 0)), device=device)
+        if "medium.sigma_dir_max" in d:
+            medium = replace(medium, sigma_dir_max=f32("medium.sigma_dir_max"))
     else:
         strategy = {}
         if MEDIUM_STRATEGY_KEYS[0] in d:

@@ -1074,9 +1074,22 @@ __device__ __forceinline__ void interp_od_cot(float* d_cum, int stride, float fr
 // every caller passes, UV_STEPS), or 0 for the run-time count
 // grid.uv_steps (their generic instantiation, and the clustered and R
 // kernels).
+//
+// TRI: the trilinear form (a medium of fast_tau False, whose quadratures
+// the JAX package's XLA route reads trilinearly, _lookup_quad and
+// sigma_s_at; ROADMAP C20): grid.density is then the density itself
+// (nz, ny, nx), each lookup (density) reads its cell's 8 corners through
+// the read-only path and lerps them in x, then y, then z
+// (lookup_density), and the pack's index scales are n - 1. The forward
+// kernels 3, 4 and 6 have it, at the run-time step count (UV = 0); the
+// backward's voxel and scatter are the nearest form's only. It stays
+// bound by operations, as the nearest form: the density (442 KB at
+// config 4) stays in L2, a lookup's 8 loads are four pairs of
+// neighbouring floats, and its lerps add about 36 operations to the
+// nearest read's (chip_smoke.py GRID_OPS "trilinear").
 constexpr int UV_STEPS = 4;  // VRLConfig.uv_tau_steps
 
-template <int UV = 0>
+template <int UV = 0, bool TRI = false>
 struct GridMedium {
   const float* m;  // the pack, GRID_MED_LEN floats in shared memory
   GridArgs grid;
@@ -1084,6 +1097,37 @@ struct GridMedium {
   __device__ GridMedium(const float* s_med, const GridArgs& args) : m(s_med), grid(args) {}
 
   __device__ __forceinline__ int steps() const { return UV > 0 ? UV : grid.uv_steps; }
+
+  // TRI: the trilinear density at p times the scale (0 outside the box;
+  // media/heterogeneous.py lookup_density on the pack's box and scales)
+  __device__ __forceinline__ float trilinear(f3 p) const {
+    const float qx = (p.x - m[G_BOX0]) * m[G_INV_E];
+    const float qy = (p.y - m[G_BOX0 + 1]) * m[G_INV_E + 1];
+    const float qz = (p.z - m[G_BOX0 + 2]) * m[G_INV_E + 2];
+    if (!(qx >= 0.0f && qx <= 1.0f && qy >= 0.0f && qy <= 1.0f && qz >= 0.0f && qz <= 1.0f))
+      return 0.0f;
+    const float gx = qx * m[G_INDEX_SCALE], gy = qy * m[G_INDEX_SCALE + 1],
+                gz = qz * m[G_INDEX_SCALE + 2];
+    const float x0 = fminf(fmaxf(floorf(gx), 0.0f), m[G_INDEX_SCALE] - 1.0f);
+    const float y0 = fminf(fmaxf(floorf(gy), 0.0f), m[G_INDEX_SCALE + 1] - 1.0f);
+    const float z0 = fminf(fmaxf(floorf(gz), 0.0f), m[G_INDEX_SCALE + 2] - 1.0f);
+    const float fx = fminf(fmaxf(gx - x0, 0.0f), 1.0f);
+    const float fy = fminf(fmaxf(gy - y0, 0.0f), 1.0f);
+    const float fz = fminf(fmaxf(gz - z0, 0.0f), 1.0f);
+    const size_t sy = (size_t)grid.nx, sz = (size_t)grid.ny * grid.nx;
+    const float* d = grid.density + (size_t)z0 * sz + (size_t)y0 * sy + (size_t)x0;
+    const float d000 = __ldg(d), d001 = __ldg(d + 1);
+    const float d010 = __ldg(d + sy), d011 = __ldg(d + sy + 1);
+    const float d100 = __ldg(d + sz), d101 = __ldg(d + sz + 1);
+    const float d110 = __ldg(d + sz + sy), d111 = __ldg(d + sz + sy + 1);
+    const float c00 = d000 * (1.0f - fx) + d001 * fx;
+    const float c01 = d010 * (1.0f - fx) + d011 * fx;
+    const float c10 = d100 * (1.0f - fx) + d101 * fx;
+    const float c11 = d110 * (1.0f - fx) + d111 * fx;
+    const float c0 = c00 * (1.0f - fy) + c01 * fy;
+    const float c1 = c10 * (1.0f - fy) + c11 * fy;
+    return (c0 * (1.0f - fz) + c1 * fz) * m[G_SCALE];
+  }
 
   // the supersampled entry that the density at p reads, as a flat index
   // into (nz, ny, nx): the nearest one (indices rounded half to even,
@@ -1112,7 +1156,12 @@ struct GridMedium {
   }
 
   // the density at p
-  __device__ __forceinline__ float density(f3 p) const { return value(voxel(p)); }
+  __device__ __forceinline__ float density(f3 p) const {
+    if constexpr (TRI)
+      return trilinear(p);
+    else
+      return value(voxel(p));
+  }
 
   // the voxel of step i of the midpoint quadrature of a -> a + delta
   __device__ __forceinline__ int step_voxel(f3 a, f3 delta, int i) const {
@@ -1193,6 +1242,23 @@ struct UvReads<0> {
   }
 };
 
+// The U-V quadrature's optical depth of a -> b, of length dist: the
+// nearest form's reads (UvReads), or the trilinear form's densities at
+// the midpoints of the run-time step count, summed in step order
+// (integrate.py grid_segment_od).
+template <int UV, bool TRI>
+__device__ __forceinline__ float uv_od(const GridMedium<UV, TRI>& gm, f3 a, f3 b, float dist) {
+  if constexpr (TRI) {
+    const f3 delta = b - a;
+    const int n = gm.steps();
+    float total = 0.0f;
+    for (int i = 0; i < n; ++i) total += gm.density(a + delta * (((float)i + 0.5f) / (float)n));
+    return total * dist / (float)n;
+  } else {
+    return UvReads<UV>(gm, a, b).od(gm, dist);
+  }
+}
+
 // The density cotangents of one grid sample: c_a at the read of voxel
 // va (U; -1 for a vol-surf sample, which has none), c_q spread over the
 // quadrature's steps q of a segment of length dist, and c_b at voxel vb
@@ -1241,13 +1307,13 @@ __device__ __forceinline__ void density_cots(const GridMedium<UV>& gm, float* d_
 
 // The raw terms t[3] of one unoccluded sample in the grid medium
 // (pair_terms): vol-vol, then vol-surf.
-template <int PHASE, bool SHORT_VRLS, int UV>
-__device__ __forceinline__ void vol_vol_term(const GridMedium<UV>& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV, bool TRI>
+__device__ __forceinline__ void vol_vol_term(const GridMedium<UV, TRI>& gm, const Ray& ray,
                                              const VrlPair& p, const Sample& sm, float t[3]) {
   const float* m = gm.m;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
   const float od = interp_od(ray.eod, ray.eod_stride, sm.d_eu / ray.elen) +
-                   UvReads<UV>(gm, sm.up, sm.vp).od(gm, sm.d_uv) + od_sv;
+                   uv_od(gm, sm.up, sm.vp, sm.d_uv) + od_sv;
   const float dens_u = gm.density(sm.up), dens_v = gm.density(sm.vp);
   float geo = phase_eval<PHASE>(m[G_G], sm.c_u) * phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den;
   if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
@@ -1257,12 +1323,12 @@ __device__ __forceinline__ void vol_vol_term(const GridMedium<UV>& gm, const Ray
             expf(-m[G_SIG_T + ch] * od) * geo;
 }
 
-template <int PHASE, bool SHORT_VRLS, int UV>
-__device__ __forceinline__ void vol_surf_term(const GridMedium<UV>& gm, const Ray& ray,
+template <int PHASE, bool SHORT_VRLS, int UV, bool TRI>
+__device__ __forceinline__ void vol_surf_term(const GridMedium<UV, TRI>& gm, const Ray& ray,
                                               const VrlPair& p, const Sample& sm, float t[3]) {
   const float* m = gm.m;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
-  const float od = UvReads<UV>(gm, ray.hp, sm.vp).od(gm, sm.d_uv) + od_sv;
+  const float od = uv_od(gm, ray.hp, sm.vp, sm.d_uv) + od_sv;
   const float dens_v = gm.density(sm.vp);
   float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
   if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
@@ -1274,12 +1340,12 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium<UV>& gm, const Ra
 
 // The medium of a kernel instantiation: Medium read from the pack `med`
 // (homogeneous; EXT: with the pack's extension, as kernels 1, 2 and 5
-// read it), or GridMedium<UV> on the pack staged at s_med.
-template <bool GRID, int UV = 0, bool EXT = false>
-__device__ __forceinline__ std::conditional_t<GRID, GridMedium<UV>, Medium> make_medium(
+// read it), or GridMedium<UV, TRI> on the pack staged at s_med.
+template <bool GRID, int UV = 0, bool EXT = false, bool TRI = false>
+__device__ __forceinline__ std::conditional_t<GRID, GridMedium<UV, TRI>, Medium> make_medium(
     const float* __restrict__ med, const float* s_med, const GridArgs& grid) {
   if constexpr (GRID)
-    return GridMedium<UV>(s_med, grid);
+    return GridMedium<UV, TRI>(s_med, grid);
   else if constexpr (EXT)
     return Medium(med, std::true_type{});
   else
@@ -1596,6 +1662,25 @@ int dispatch(int phase_kind, int short_vrls, int uv_steps, Launch&& launch) {
     }
     launch(phase, short_, std::integral_constant<int, 0>{});
   });
+}
+
+// dispatch for the forward grid kernels 3, 4 and 6, which also have the
+// trilinear form: launch(phase, short_vrls, uv, tri) with tri an
+// std::integral_constant<bool>. trilinear (grid launches only): the
+// trilinear form at the run-time step count (uv 0); else tri false and
+// uv as dispatch<GRID, MIX>'s.
+template <bool GRID, bool MIX = false, class Launch>
+int dispatch_read(int phase_kind, int short_vrls, int uv_steps, int trilinear, Launch&& launch) {
+  if constexpr (GRID) {
+    if (trilinear)
+      return dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+        launch(phase, short_, std::integral_constant<int, 0>{}, std::true_type{});
+      });
+  }
+  return dispatch<GRID, MIX>(phase_kind, short_vrls, uv_steps,
+                             [&](auto phase, auto short_, auto uv) {
+                               launch(phase, short_, uv, std::false_type{});
+                             });
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory (a launch

@@ -3,6 +3,13 @@
 // Its homogeneous form reads the medium pack with its extension and has
 // a PHASE = 2 form for the mixture phase, as vrl_sum.cu's kernel 1.
 //
+// Its grid form also has a trilinear form (TRI, a medium of fast_tau
+// False: the trilinear medium pack and the density itself, 8 corner
+// reads and 7 lerps a lookup, vrl_common.cuh GridMedium<0, true>), which
+// the JAX package's XLA route computes and its Pallas kernel does not
+// (ROADMAP C20); its plain version is the same plain grid route with the
+// trilinear read (integrate.py grid_density).
+//
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_r_pallas (its body `_kernel`
 // with r_mode=True, hetero=False; entry point alvrl_vrl_r) and, for grid
 // media, vrl_r_pallas_hetero (hetero=True; alvrl_vrl_r_hetero, the grid
@@ -123,7 +130,7 @@ __device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int 
 // tris: the triangles' plane pack, as sweep_floats<true>. MAT (homogeneous
 // only): the material instantiation (vrl_sum.cu's vrl_sum_plane_kernel),
 // its M material rows staged after the VRL chunk.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool MAT>
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool MAT, bool TRI = false>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_r_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
                  const float* __restrict__ tris, int T, const float* __restrict__ med,
@@ -153,7 +160,9 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     }
   __syncthreads();
 
-  const auto m = make_medium<GRID, UV, !GRID>(med, s_med, grid);  // homogeneous: extended
+  // homogeneous: extended; TRI, the trilinear form of a grid medium of
+  // fast_tau False (at UV 0)
+  const auto m = make_medium<GRID, UV, !GRID, TRI>(med, s_med, grid);
   if constexpr (GRID) {
     // pair i of the tile: ray i / VRL_CHUNK, column i % VRL_CHUNK; a
     // thread takes every RAY_BLOCK-th
@@ -186,13 +195,16 @@ using RKernel = void (*)(const float*, int, const float*, int, const float*, int
                          GridArgs, const float*, int, const float*, const float*, uint32_t, int,
                          int, float*, unsigned long long*);
 
-// The instantiation that a launch of these arguments takes.
-template <bool GRID, bool MAT = false, class Phase, class Short, class Uv>
-RKernel r_kernel(Phase, Short, Uv, int mode) {
+// The instantiation that a launch of these arguments takes (Tri: the
+// grid kernel's trilinear form).
+template <bool GRID, bool MAT = false, class Phase, class Short, class Uv,
+          class Tri = std::false_type>
+RKernel r_kernel(Phase, Short, Uv, int mode, Tri = {}) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
-  if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_CHECK, MAT>;
-  return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM, MAT>;
+  constexpr bool T = GRID && Tri::value;
+  if (mode == MODE_CHECK) return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_CHECK, MAT, T>;
+  return &vrl_r_kernel<P, S, GRID, Uv::value, MODE_SUM, MAT, T>;
 }
 
 // dynamic shared memory of the R kernel, in bytes, with T triangles and M
@@ -209,7 +221,8 @@ size_t r_smem_bytes(int T, int M = 0) {
 // counts[N_CHECK]); returns a cudaError_t (0 = launched).
 template <bool GRID>
 int launch_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-             const float* med, GridArgs grid, const float* mat_table, int M, const float* rt,
+             const float* med, GridArgs grid, int trilinear, const float* mat_table, int M,
+             const float* rt,
              const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
              int phase_kind, float* planes, int mode, unsigned long long* counts, float* out,
              void* stream) {
@@ -223,10 +236,9 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
   const dim3 blocks((B + r_tile_rays<GRID>() - 1) / r_tile_rays<GRID>(), n_chunks);
   const size_t smem = r_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
-  const int d = dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase,
-                                                                               auto short_,
-                                                                               auto uv) {
-    RKernel kernel = r_kernel<GRID, false>(phase, short_, uv, mode);
+  const int d = dispatch_read<GRID, true>(phase_kind, short_vrls, grid.uv_steps, trilinear,
+                                          [&](auto phase, auto short_, auto uv, auto tri) {
+    RKernel kernel = r_kernel<GRID, false>(phase, short_, uv, mode, tri);
     if constexpr (!GRID)
       if (M > 0) kernel = r_kernel<GRID, true>(phase, short_, uv, mode);
     err = allow_smem(kernel, smem);
@@ -256,22 +268,24 @@ int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float*
                 const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
                 int phase_kind, float* planes, int mode, unsigned long long* counts, float* out,
                 void* stream) {
-  return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, mat_table, M, rt, uniforms,
+  return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M, rt, uniforms,
                          seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
                          stream);
 }
 
 // The grid-medium R: the grid packs (ops/pack.py), the supersampled
-// density (nz, ny, nx) and the U-V quadrature's step count; the rest as
-// alvrl_vrl_r.
+// density (nz, ny, nx) and the U-V quadrature's step count (trilinear 1:
+// the trilinear form, on the trilinear medium pack and the density
+// itself, each extent at least 2); the rest as alvrl_vrl_r.
 int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
                        int T, const float* med, const float* density, int nz, int ny, int nx,
-                       int uv_steps, const float* uniforms, unsigned int seed, int svv, int svs,
-                       int short_vrls, int phase_kind, float* planes, int mode,
+                       int uv_steps, int trilinear, const float* uniforms, unsigned int seed,
+                       int svv, int svs, int short_vrls, int phase_kind, float* planes, int mode,
                        unsigned long long* counts, float* out, void* stream) {
+  if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_r<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                        nullptr, 0, nullptr, uniforms, seed, svv, svs, short_vrls, phase_kind,
-                        planes, mode, counts, out, stream);
+                        trilinear, nullptr, 0, nullptr, uniforms, seed, svv, svs, short_vrls,
+                        phase_kind, planes, mode, counts, out, stream);
 }
 
 // The rays of a tile of the R kernel (grid 0: homogeneous, 1: grid).

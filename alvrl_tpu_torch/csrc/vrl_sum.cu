@@ -15,6 +15,12 @@
 // PHASE = 2 form for the mixture phase (phase kind 4; every mode but
 // the timing one, diffuse and material), which the XLA route of the
 // JAX package evaluates and its Pallas kernel does not (ROADMAP C16).
+// The grid sum has a trilinear form (vrl_sum_tri_kernel, a medium of
+// fast_tau False: the trilinear medium pack and the density itself, 8
+// corner reads and 7 lerps a lookup, vrl_common.cuh GridMedium<0,
+// true>, at the run-time step count), which the XLA route computes and
+// the Pallas kernel does not (ROADMAP C20); its plain version is
+// vrl_sum_hetero_reference with the trilinear read.
 //
 // What bounds it on the H100: fp32 ALU and SFU instruction throughput. One
 // pair-sample costs about 150 float32 operations and 20 special-function
@@ -97,7 +103,7 @@ namespace {
 
 // The sum of a block (RAY_BLOCK rays x the chunk of VRLs blockIdx.y),
 // the body of both kernel templates below.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false>
 __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
                                           const float* __restrict__ vrls, int N,
                                           const float* __restrict__ tris, int T,
@@ -120,7 +126,7 @@ __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
   if (b >= B) return;
   Ray ray = load_ray(rays, B, b);
   stage_eod<GRID>(ray, rays, B, b, s_etab);
-  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -155,6 +161,20 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                                          svs, partial);
 }
 
+// ...the trilinear form (a medium of fast_tau False: vrl_common.cuh
+// GridMedium<0, true>), at the run-time step count and the same launch
+// bound...
+template <int PHASE, bool SHORT_VRLS>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_tri_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
+                       int N, const float* __restrict__ tris, int T,
+                       const float* __restrict__ med, GridArgs grid,
+                       const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
+                       float* __restrict__ partial) {
+  sum_block<PHASE, SHORT_VRLS, true, 0, true>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
+                                              svv, svs, partial);
+}
+
 // ...and the grid instantiation compiled for UV steps, also bounded to
 // MIN_BLOCKS resident blocks an SM (GRID_MIN_BLOCKS: 96 registers, 20
 // warps), which measured faster than its natural 110-115 registers at 4
@@ -172,10 +192,13 @@ __global__ void __launch_bounds__(RAY_BLOCK, MIN_BLOCKS)
                                          svs, partial);
 }
 
-// The kernel that a launch of these template arguments takes.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+// The kernel that a launch of these template arguments takes (TRI: the
+// trilinear form, grid only).
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false>
 constexpr auto sum_kernel() {
-  if constexpr (UV > 0)
+  if constexpr (TRI)
+    return &vrl_sum_tri_kernel<PHASE, SHORT_VRLS>;
+  else if constexpr (UV > 0)
     return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV, GRID_MIN_BLOCKS>;
   else
     return &vrl_sum_kernel<PHASE, SHORT_VRLS, GRID, UV>;
@@ -345,9 +368,9 @@ size_t sum_smem_bytes(int T) {
 // cudaError_t (0 = launched).
 template <bool GRID>
 int launch_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-               const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
-               int svs, int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
-               void* stream) {
+               const float* med, GridArgs grid, int trilinear, const float* uniforms,
+               unsigned int seed, int svv, int svs, int short_vrls, int phase_kind, float* partial,
+               int n_chunks, float* out, void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
       n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid))
@@ -356,9 +379,11 @@ int launch_sum(const float* rays, int B, const float* vrls, int N, const float* 
   const size_t smem = sum_smem_bytes<GRID>(T);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t attr = cudaSuccess;
-  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    auto kernel =
-        sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID, decltype(uv)::value>();
+  dispatch_read<GRID>(phase_kind, short_vrls, grid.uv_steps, trilinear, [&](auto phase,
+                                                                            auto short_, auto uv,
+                                                                            auto tri) {
+    auto kernel = sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
+                             decltype(uv)::value, decltype(tri)::value>();
     attr = allow_smem(kernel, smem);
     if (attr == cudaSuccess)
       kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
@@ -423,16 +448,18 @@ int alvrl_plane_pack(const float* tris, int T, float* out, void* stream) {
 }
 
 // The grid-medium sum: the grid packs (ops/pack.py), the supersampled
-// density (nz, ny, nx) and the U-V quadrature's step count; the rest as
-// alvrl_vrl_sum.
+// density (nz, ny, nx) and the U-V quadrature's step count; trilinear 1:
+// the trilinear form, on the trilinear medium pack and the density
+// itself (nz, ny, nx), each at least 2; the rest as alvrl_vrl_sum.
 int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
                          int T, const float* med, const float* density, int nz, int ny, int nx,
-                         int uv_steps, const float* uniforms, unsigned int seed, int svv, int svs,
-                         int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
-                         void* stream) {
+                         int uv_steps, int trilinear, const float* uniforms, unsigned int seed,
+                         int svv, int svs, int short_vrls, int phase_kind, float* partial,
+                         int n_chunks, float* out, void* stream) {
+  if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_sum<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                          uniforms, seed, svv, svs, short_vrls, phase_kind, partial, n_chunks, out,
-                          stream);
+                          trilinear, uniforms, seed, svv, svs, short_vrls, phase_kind, partial,
+                          n_chunks, out, stream);
 }
 
 // The sum's blocks resident on one SM for the instantiation a launch

@@ -3,6 +3,13 @@
 // Its homogeneous form reads the medium pack with its extension and has
 // a PHASE = 2 form for the mixture phase, as vrl_sum.cu's kernel 1.
 //
+// Its grid form also has a trilinear form (TRI, a medium of fast_tau
+// False: the trilinear medium pack and the density itself, 8 corner
+// reads and 7 lerps a lookup, vrl_common.cuh GridMedium<0, true>), which
+// the JAX package's XLA route computes and its Pallas kernel does not
+// (ROADMAP C20); its plain version is the same plain grid route with the
+// trilinear read (integrate.py grid_density).
+//
 // Replaces alvrl_tpu/ops/vrl_pallas.py:vrl_sum_pallas_clustered (its body
 // `_kernel` with clustered=True, hetero=False; entry point
 // alvrl_vrl_sum_clustered) and, for grid media,
@@ -178,9 +185,10 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 }
 
 // Kernel 4, instantiated for GRID = true (UV steps, or 0 for the run-time
-// count; MODE_SUM or MODE_CHECK): tile blockIdx.x, RAY_BLOCK rays of one
-// row, a thread a ray; tris: the triangles' plane pack.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE>
+// count; MODE_SUM or MODE_CHECK; TRI, the trilinear form of a medium of
+// fast_tau False, at UV 0): tile blockIdx.x, RAY_BLOCK rays of one row, a
+// thread a ray; tris: the triangles' plane pack.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool TRI = false>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_clustered_kernel(const float* __restrict__ rays, int B,
                              const float* __restrict__ vrls, int N,
@@ -213,7 +221,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
     ray = load_ray(rays, B, b);
     stage_eod<GRID>(ray, rays, B, b, s_etab);  // this thread's column only
   }
-  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -244,14 +252,17 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 }
 
 // The instantiation that a launch of these arguments takes (the mode:
-// MODE_SUM or MODE_CHECK, or homogeneous MODE_NO_REJECT).
-template <bool GRID, bool MAT = false, class Phase, class Short, class Uv>
-auto clustered_kernel(Phase, Short, Uv, int mode) {
+// MODE_SUM or MODE_CHECK, or homogeneous MODE_NO_REJECT; Tri: the grid
+// kernel's trilinear form).
+template <bool GRID, bool MAT = false, class Phase, class Short, class Uv,
+          class Tri = std::false_type>
+auto clustered_kernel(Phase, Short, Uv, int mode, Tri = {}) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
   if constexpr (GRID) {
-    return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK>
-                              : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM>;
+    constexpr bool T = Tri::value;
+    return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK, T>
+                              : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM, T>;
   } else {
     using K = decltype(&vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>);
     if (mode == MODE_CHECK) return K(&vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK, MAT>);
@@ -291,7 +302,7 @@ size_t clustered_smem_bytes(int T, int M = 0) {
 // launched).
 template <bool GRID>
 int launch_clustered(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                     const float* med, GridArgs grid, const float* mat_table, int M,
+                     const float* med, GridArgs grid, int trilinear, const float* mat_table, int M,
                      const float* rt, const int* tile_rays, const int* tile_row, int n_tiles,
                      const int* table_ids, const float* table_w, int C, const float* uniforms,
                      unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
@@ -307,11 +318,10 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = clustered_smem_bytes<GRID>(T, M);
   cudaError_t err = cudaSuccess;
-  const int d = dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase,
-                                                                               auto short_,
-                                                                               auto uv) {
+  const int d = dispatch_read<GRID, true>(phase_kind, short_vrls, grid.uv_steps, trilinear,
+                                          [&](auto phase, auto short_, auto uv, auto tri) {
     if constexpr (GRID) {
-      const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode);
+      const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode, tri);
       err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return;
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
@@ -360,26 +370,30 @@ int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
                             const float* uniforms, unsigned int seed, int svv, int svs,
                             int short_vrls, int phase_kind, float* planes, int mode,
                             unsigned long long* counts, float* out, void* stream) {
-  return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, mat_table, M, rt,
+  return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M, rt,
                                  tile_rays, tile_row, n_tiles, table_ids, table_w, C, uniforms,
                                  seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
                                  stream);
 }
 
 // The grid-medium clustered sum: the grid packs (ops/pack.py), the
-// supersampled density (nz, ny, nx) and the U-V quadrature's step count;
-// tiles of alvrl_clustered_ray_block(1) slots; mode 0 or 1; the rest as
+// supersampled density (nz, ny, nx) and the U-V quadrature's step count
+// (trilinear 1: the trilinear form, on the trilinear medium pack and the
+// density itself, each extent at least 2); tiles of
+// alvrl_clustered_ray_block(1) slots; mode 0 or 1; the rest as
 // alvrl_vrl_sum_clustered.
 int alvrl_vrl_sum_hetero_clustered(const float* rays, int B, const float* vrls, int N,
                                    const float* tris, int T, const float* med,
                                    const float* density, int nz, int ny, int nx, int uv_steps,
-                                   const int* tile_rays, const int* tile_row, int n_tiles,
+                                   int trilinear, const int* tile_rays, const int* tile_row, int n_tiles,
                                    const int* table_ids, const float* table_w, int C,
                                    const float* uniforms, unsigned int seed, int svv, int svs,
                                    int short_vrls, int phase_kind, float* planes, int mode,
                                    unsigned long long* counts, float* out, void* stream) {
+  if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_clustered<true>(rays, B, vrls, N, tris, T, med,
-                                GridArgs{density, nz, ny, nx, uv_steps}, nullptr, 0, nullptr,
+                                GridArgs{density, nz, ny, nx, uv_steps}, trilinear, nullptr, 0,
+                                nullptr,
                                 tile_rays, tile_row,
                                 n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
                                 short_vrls, phase_kind, planes, mode, counts, out, stream);

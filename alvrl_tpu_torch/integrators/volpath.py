@@ -20,7 +20,11 @@ stops keeps its state. Each step reads N_STEP_DIMS uniforms a lane, in
 the reference's key order: the free-flight distance (2), the direct
 sample (3: the emitter, then 2D), the phase sample (2), the BSDF sample
 (bsdf.api.N_SAMPLE_DIMS) and the roulette (1); a grid medium reads its
-Woodcock tracking uniforms from u_track instead of the distance's two.
+Woodcock tracking uniforms from u_track instead of the distance's two (of
+sampling 1, the first distance uniform, and no u_track). An oriented
+grid medium (Kajiya-Kay, micro-flake) looks up the fiber orientation at
+each medium vertex for its phase function, and a micro-flake medium's
+phase sample reads its (16, 3) candidates' uniforms from u_sir.
 """
 
 from __future__ import annotations
@@ -95,14 +99,23 @@ def _nee(scene, u3, p, radius, env_center, blockers, density_ss, med_id):
     return dirn, val * tau, pdf, misable
 
 
+def needs_sir(scene: Scene) -> bool:
+    """Whether the walk reads micro-flake SIR uniforms: an oriented
+    micro-flake grid medium."""
+    return gmed.oriented(scene.medium) \
+        and scene.medium.phase_kind == ph.MICROFLAKE
+
+
 def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
                  VolpathConfig(), u_track=None, density_ss=None,
-                 env_center=None):
+                 env_center=None, u_sir=None):
     """(B, 3) radiance of the rays (ray_o, ray_d) (B, 3) from the
-    uniforms u (B, n_steps, N_STEP_DIMS) (the module's layout), and in a
-    grid medium the Woodcock uniforms u_track (B, n_steps,
-    TRACKING_DRAWS, 2) over the supersampled density density_ss (made
-    here when not given). Scenes with per-shape media track each lane's
+    uniforms u (B, n_steps, N_STEP_DIMS) (the module's layout), in a
+    grid medium of Woodcock tracking the uniforms u_track (B, n_steps,
+    TRACKING_DRAWS, 2), and in an oriented micro-flake medium the SIR
+    uniforms u_sir (B, n_steps, ph.SIR_CANDIDATES, 3); a grid medium's
+    quadratures read density_ss (media.heterogeneous.quad_grid, made here
+    when not given). Scenes with per-shape media track each lane's
     medium id; each surface event switches it to the side its new
     direction enters.
 
@@ -124,15 +137,18 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
         if nested:
             raise ValueError("per-shape media take a homogeneous global "
                              "medium")
-        shape = (n, steps, gmed.TRACKING_DRAWS, 2)
-        if u_track is None or tuple(u_track.shape) != shape:
-            got = None if u_track is None else tuple(u_track.shape)
-            raise ValueError(f"a grid medium needs u_track {shape}, got {got}")
+        if mapi.tracks(scene.medium):
+            _need(u_track, "u_track", (n, steps, gmed.TRACKING_DRAWS, 2),
+                  "a grid medium of Woodcock tracking")
         if density_ss is None:
-            density_ss = gmed.upsample2(scene.medium.density)
-    if scene.medium.phase_kind in (ph.KKAY, ph.MICROFLAKE):
-        raise ValueError("oriented media (Kajiya-Kay, microflake) are not "
-                         "ported (ROADMAP A10)")
+            density_ss = gmed.quad_grid(scene.medium)
+    oriented = gmed.oriented(scene.medium)
+    if scene.medium.phase_kind in (ph.KKAY, ph.MICROFLAKE) and not oriented:
+        raise ValueError("an oriented phase kind (Kajiya-Kay, micro-flake) "
+                         "needs a grid medium with an orientation volume")
+    if needs_sir(scene):
+        _need(u_sir, "u_sir", (n, steps, ph.SIR_CANDIDATES, 3),
+              "an oriented micro-flake medium")
     use_mis = cfg.mis and not cfg.only_vrl_paths
     kinds = bsdf_api.check_kinds(scene)
     mats, em = scene.materials, scene.emitters
@@ -170,7 +186,7 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
         dist_surf = torch.where(hit.valid, hit.t, SURFACE_MISS)
         ms = mapi.sample_distance_seg_u(
             med, uk[:, U_DIST], st["ray_o"], rd, dist_surf,
-            u_track=None if homog else u_track[:, k],
+            u_track=None if u_track is None else u_track[:, k],
             density_ss=density_ss, active=active)
         medium_event = ms.success & active
         surface_event = ~ms.success & hit.valid & active
@@ -203,9 +219,13 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
             scene, u_nee, p_med, radius, env_center, blockers, density_ss,
             st["med_id"])
         pp = getattr(med, "phase_params", None)
-        phase_val = ph.eval_phase(med.phase_kind, med.g, -rd, nee_dir, pp=pp)
+        orient = (gmed.lookup_orientation(med, p_med) if oriented
+                  else None)
+        phase_val = ph.eval_phase(med.phase_kind, med.g, -rd, nee_dir,
+                                  orientation=orient, pp=pp)
         if use_mis:
-            p_dir_m = ph.pdf_phase(med.phase_kind, med.g, -rd, nee_dir, pp=pp)
+            p_dir_m = ph.pdf_phase(med.phase_kind, med.g, -rd, nee_dir,
+                                   orientation=orient, pp=pp)
             w_nee_m = torch.where(misable_m, p_nee_m / torch.clamp(
                 p_nee_m + p_dir_m, min=1e-30), 1.0)
         else:
@@ -223,7 +243,8 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
         li_med = torch.where((medium_event & nee_ok_med)[..., None],
                              nee_contrib, 0.0)
         wo_phase, w_phase, pdf_phase_s = ph.sample_phase(
-            med.phase_kind, med.g, -rd, uk[:, U_PHASE], pp=pp)
+            med.phase_kind, med.g, -rd, uk[:, U_PHASE], orientation=orient,
+            pp=pp, u_sir=None if u_sir is None else u_sir[:, k])
         tp_med_cont = tp_med * w_phase[..., None]
         med_continue = medium_event & (not cfg.single_scatter)
 
@@ -337,6 +358,12 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
     return li
 
 
+def _need(x, name, shape, what):
+    if x is None or tuple(x.shape) != shape:
+        got = None if x is None else tuple(x.shape)
+        raise ValueError(f"{what} needs {name} {shape}, got {got}")
+
+
 def tile_rays(scene: Scene, cfg: VolpathConfig) -> int:
     """The rays of one render_volpath tile: CUDA_MEMORY_SHARE of the
     device's free memory (CPU_TILE_BYTES on the CPU) over a ray's bytes,
@@ -345,8 +372,10 @@ def tile_rays(scene: Scene, cfg: VolpathConfig) -> int:
     face) and some 2,048 floats of per-ray state and temporaries."""
     steps = n_steps(scene, cfg)
     floats = (steps * N_STEP_DIMS + 32 * scene.faces.shape[0] + 2048)
-    if not mapi.is_homogeneous(scene.medium):
+    if mapi.tracks(scene.medium):
         floats += steps * gmed.TRACKING_DRAWS * 2
+    if needs_sir(scene):
+        floats += steps * ph.SIR_CANDIDATES * 3
     if scene.device.type == "cuda":
         budget = CUDA_MEMORY_SHARE * torch.cuda.mem_get_info(scene.device)[0]
     else:
@@ -361,9 +390,12 @@ def render_volpath(scene: Scene, generator, spp: int = 16,
     images compare pixel by pixel with the VRL render). Each sample's
     uniforms for all W * H rays are drawn from `generator` (a
     torch.Generator on the scene's device) in turn: u (W * H, n_steps,
-    N_STEP_DIMS), then in a grid medium u_track; or taken from
-    `uniforms`, (u (spp, W * H, n_steps, N_STEP_DIMS), u_track (spp, W *
-    H, n_steps, TRACKING_DRAWS, 2) or None). The spp * W * H rays,
+    N_STEP_DIMS), then in a grid medium of Woodcock tracking u_track,
+    then in an oriented micro-flake medium u_sir (so that every other
+    scene draws what it did before); or taken from `uniforms`, (u (spp,
+    W * H, n_steps, N_STEP_DIMS), u_track (spp, W * H, n_steps,
+    TRACKING_DRAWS, 2) or None[, u_sir (spp, W * H, n_steps,
+    SIR_CANDIDATES, 3)]). The spp * W * H rays,
     sample-major, go through li_volpath_u (env_center as there) in tiles
     of tile_rays; a ray's radiance does not depend on its tile, so the
     image is the same bit for bit whatever the free memory."""
@@ -371,19 +403,27 @@ def render_volpath(scene: Scene, generator, spp: int = 16,
     n = ray_o.shape[0]
     steps = n_steps(scene, cfg)
     grid = not mapi.is_homogeneous(scene.medium)
-    density_ss = gmed.upsample2(scene.medium.density) if grid else None
+    track, sir = mapi.tracks(scene.medium), needs_sir(scene)
+    density_ss = gmed.quad_grid(scene.medium) if grid else None
     tile = tile_rays(scene, cfg)
 
     def draws(s):
-        """Sample s's uniforms (u, u_track) for all n rays."""
+        """Sample s's uniforms (u, u_track, u_sir) for all n rays; None
+        for those the scene does not read."""
         if uniforms is not None:
-            return uniforms[0][s], uniforms[1][s] if grid else None
+            return (uniforms[0][s], uniforms[1][s] if track else None,
+                    uniforms[2][s] if sir else None)
 
         def rand(*shape):
             return torch.rand(shape, generator=generator,
                               device=generator.device).to(scene.device)
         u = rand(n, steps, N_STEP_DIMS)
-        return u, rand(n, steps, gmed.TRACKING_DRAWS, 2) if grid else None
+        u_track = rand(n, steps, gmed.TRACKING_DRAWS, 2) if track else None
+        return u, u_track, (rand(n, steps, ph.SIR_CANDIDATES, 3) if sir
+                            else None)
+
+    def cat(parts):
+        return None if parts[0] is None else torch.cat(parts)
 
     # each ray's radiance, then the mean over the samples (a fixed-order
     # reduction: the same image bit for bit from the same uniforms)
@@ -392,9 +432,8 @@ def render_volpath(scene: Scene, generator, spp: int = 16,
     per = max(1, tile // n)
     for s0 in range(0, spp, per):
         s1 = min(spp, s0 + per)
-        u_s = [draws(s) for s in range(s0, s1)]
-        u_all = torch.cat([a for a, _ in u_s])
-        t_all = torch.cat([b for _, b in u_s]) if grid else None
+        u_all, t_all, sir_all = (cat(list(parts)) for parts in zip(
+            *[draws(s) for s in range(s0, s1)]))
         rays = (s1 - s0) * n
         for r0 in range(0, rays, tile):
             r1 = min(rays, r0 + tile)
@@ -402,7 +441,7 @@ def render_volpath(scene: Scene, generator, spp: int = 16,
             li[s0 * n + r0:s0 * n + r1] = li_volpath_u(
                 scene, ray_o[pix], ray_d[pix], u_all[r0:r1], cfg,
                 None if t_all is None else t_all[r0:r1], density_ss,
-                env_center)
+                env_center, None if sir_all is None else sir_all[r0:r1])
     img, wgt = film_mod.splat_box(scene.camera.width, scene.camera.height,
                                   px, py, li.reshape(spp, n, 3).mean(dim=0))
     return film_mod.develop(img, wgt)

@@ -173,19 +173,46 @@ _BOX0, _INV_EXTENT, _INDEX_SCALE, _SCALE = slice(8, 11), slice(11, 14), \
 
 def grid_density(medium, density_ss, p):
     """Density at the points p (..., 3) of the grid medium packed in
-    `medium` (ops.pack.pack_medium_hetero): the nearest entry of the
-    supersampled grid density_ss (2Z - 1, 2Y - 1, 2X - 1), indices
-    rounded half to even (as jnp.round in lookup_density_nn), times the
-    density scale; 0 outside the box. p must be finite."""
+    `medium` (ops.pack.pack_medium_hetero), times the density scale; 0
+    outside the box; p must be finite. A (GRID_MED_LEN,) pack reads the
+    nearest entry of the supersampled grid density_ss (2Z - 1, 2Y - 1,
+    2X - 1), indices rounded half to even (as jnp.round in
+    lookup_density_nn); the trilinear pack (ops.pack.is_trilinear,
+    fast_tau False) reads density_ss = the density (Z, Y, X)
+    trilinearly, as media.heterogeneous.lookup_density."""
+    from alvrl_tpu_torch.ops import pack as pk
+
     q = (p - medium[_BOX0]) * medium[_INV_EXTENT]
     inside = ((q >= 0.0) & (q <= 1.0)).all(dim=-1)
     scales = medium[_INDEX_SCALE]
+    if pk.is_trilinear(medium):
+        return torch.where(inside, _trilinear(density_ss, q * scales, scales)
+                           * medium[_SCALE], 0.0)
     idx = torch.minimum(torch.clamp(torch.round(q * scales), min=0.0),
                         scales).to(torch.int64)
     _, ny, nx = density_ss.shape
     flat = (idx[..., 2] * ny + idx[..., 1]) * nx + idx[..., 0]
     d = density_ss.reshape(-1)[flat]
     return torch.where(inside, d * medium[_SCALE], 0.0)
+
+
+def _trilinear(density, g, scales):
+    """density (Z, Y, X) at the grid coordinates g (..., 3) (x, y, z; each
+    in [0, n - 1] inside the box), the lerps in x, then y, then z."""
+    c0 = torch.minimum(torch.clamp(torch.floor(g), min=0.0), scales - 1.0)
+    f = torch.clamp(g - c0, 0.0, 1.0)
+    x0, y0, z0 = c0.to(torch.int64).unbind(-1)
+    fx, fy, fz = f.unbind(-1)
+    _, ny, nx = density.shape
+    flat = density.reshape(-1)
+
+    def lerp_x(z, y):
+        row = (z * ny + y) * nx + x0
+        return flat[row] * (1 - fx) + flat[row + 1] * fx
+
+    c0 = lerp_x(z0, y0) * (1 - fy) + lerp_x(z0, y0 + 1) * fy
+    c1 = lerp_x(z0 + 1, y0) * (1 - fy) + lerp_x(z0 + 1, y0 + 1) * fy
+    return c0 * (1 - fz) + c1 * fz
 
 
 def grid_segment_od(medium, density_ss, p0, p1, dist, n_steps):

@@ -12,8 +12,13 @@ its slice's representatives (plain, or differentiable through the
 clustered VJP). Each entry dispatches on the scene's
 medium: a grid medium goes through the grid packs and the grid kernels
 (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered), with the
-supersampled density computed once per call. Sums are normalised by
-the traced-particle count.
+grid of its quadratures computed once per call (media.heterogeneous.
+quad_grid: the supersample, or with fast_tau False the density itself,
+whose trilinear medium pack takes the kernels' trilinear forms; the
+differentiable routes, kernels 9 and 11, refuse it: ROADMAP A14). Sums
+are normalised by the traced-particle count. Every route refuses an
+oriented medium (Kajiya-Kay, micro-flake), which only volpath renders,
+as in the JAX package (tracer.refuse_oriented).
 
 And on the scene's material kinds (bsdf.api.check_kinds, the table's
 host copy of them, so no sync): a table that holds a smooth kind other than DIFFUSE (a
@@ -39,6 +44,7 @@ from alvrl_tpu_torch.geometry import bvh as bvh_mod
 from alvrl_tpu_torch.geometry import intersect
 from alvrl_tpu_torch.integrators.vrl import specular
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
+from alvrl_tpu_torch.integrators.vrl.tracer import refuse_oriented
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import heterogeneous as gmed
@@ -47,6 +53,7 @@ from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
 from alvrl_tpu_torch.ops.vrl_sum import (
+    TRI_REFUSAL,
     philox_draws,
     vrl_sum,
     vrl_sum_hetero,
@@ -117,9 +124,19 @@ def refuse_mixture(scene: Scene, route: str):
                          "sampling strategy other than balance (ROADMAP A13)")
 
 
+def refuse_trilinear(scene: Scene, route: str):
+    """Raise, naming `route` and ROADMAP A14, on a grid medium of
+    fast_tau False, whose trilinear read the backward grid kernels 9 and
+    11 do not take."""
+    if not mapi.is_homogeneous(scene.medium) and not scene.medium.fast_tau:
+        raise ValueError(f"{route}: {TRI_REFUSAL}")
+
+
 def _homogeneous_materials(scene: Scene, route: str):
     """material_pack in a homogeneous medium; in a grid medium, None after
-    refuse_glossy (the grid kernels have no material instantiation)."""
+    refuse_glossy (the grid kernels have no material instantiation).
+    Refuses an oriented medium first (refuse_oriented)."""
+    refuse_oriented(scene.medium, route)
     if mapi.is_homogeneous(scene.medium):
         return material_pack(scene)
     refuse_glossy(scene, route)
@@ -145,7 +162,7 @@ def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs, materials=None):
                                   with_mat=materials is not None),
                      pk.pack_vrls(vrls), pk.pack_tris(scene),
                      pk.pack_medium(scene))
-    density_ss = gmed.upsample2(med.density)
+    density_ss = gmed.quad_grid(med)
     return hit, (pk.pack_rays_hetero(scene, ray_o, ray_d, hit, mat,
                                      density_ss),
                  pk.pack_vrls_hetero(vrls, med, density_ss),
@@ -189,6 +206,7 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None):
     and, in place of the triangle pack, the BVH over the opaque faces
     (pack_bvh_tris). Homogeneous media only. Returns (px, py, hit,
     (rays, vrls, bvh, medium))."""
+    refuse_oriented(scene.medium, "the large-mesh render (kernel 7)")
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
@@ -260,7 +278,12 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     the CP factors nor their `dens_scale` multiplier (ROADMAP C9, C10): a
     density multiplier is the medium's `scale` or a product on its
     density, through which autograd chains. A glossy or layered table is
-    refused (no material instantiation of kernels 8 and 9 yet)."""
+    refused (no material instantiation of kernels 8 and 9 yet), and so
+    are an oriented medium and a grid medium of fast_tau False (ROADMAP
+    A14)."""
+    refuse_oriented(scene.medium, "the differentiable render (kernels 8 "
+                    "and 9)")
+    refuse_trilinear(scene, "the differentiable render (kernel 9)")
     refuse_glossy(scene, "the differentiable render (kernels 8 and 9)")
     refuse_mixture(scene, "the differentiable render (kernels 8 and 9)")
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
@@ -307,8 +330,7 @@ def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
     med = scene.medium
     materials = _homogeneous_materials(
         scene, "the grid medium's plain chain (kernel 3's plain version)")
-    density_ss = None if mapi.is_homogeneous(med) else gmed.upsample2(
-        med.density)
+    density_ss = None if mapi.is_homogeneous(med) else gmed.quad_grid(med)
     if density_ss is None:
         side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
     else:
@@ -362,6 +384,7 @@ def render_with_vrls_kernel_spec(scene: Scene, vrls: VRLs, generator,
     the reference's (which launches every depth on every ray) and
     li_unclustered_spec's in expectation, and to rounding only on
     injected uniforms. Returns the (H, W, 3) image."""
+    refuse_oriented(scene.medium, "the specular-chain render")
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the specular-chain render takes a homogeneous "
                          "medium only, as the JAX package's "
@@ -487,7 +510,13 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     vrl_sum_clustered_diff with render_clustered_pallas's table build
     (tests/test_pallas_bwd.py:220-235, 277-293); as there, no CP factors
     and no density multiplier (ROADMAP C9, C10). A glossy or layered table
-    is refused (no material instantiation of kernels 10 and 11 yet)."""
+    is refused (no material instantiation of kernels 10 and 11 yet), and
+    so are an oriented medium and a grid medium of fast_tau False
+    (ROADMAP A14)."""
+    refuse_oriented(scene.medium, "the differentiable clustered render "
+                    "(kernels 10 and 11)")
+    refuse_trilinear(scene, "the differentiable clustered render (kernel "
+                     "11)")
     refuse_glossy(scene, "the differentiable clustered render (kernels 10 "
                   "and 11)")
     refuse_mixture(scene, "the differentiable clustered render (kernels 10 "

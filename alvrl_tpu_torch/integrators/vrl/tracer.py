@@ -19,8 +19,14 @@ refraction without the 1/eta^2 of radiance transport) and starts one at
 the surface, and multiplies the particle's relative IOR eta by the
 sampled lobe's ratio; past rr_depth, Russian roulette with
 q = min(max(throughput) * eta^2, 0.95). In a grid medium the free
-flight is Woodcock tracking (media.heterogeneous.sample_distance) over
-the supersampled density computed once per call.
+flight is Woodcock tracking (media.heterogeneous.sample_distance) or,
+with sampling = 1, the inversion of the cumulative-OD table
+(sample_distance_quadrature) from the first distance uniform, which in a
+grid medium only such a medium reads; both over the grid of the
+quadratures computed once per call (media.heterogeneous.quad_grid). An
+oriented medium (Kajiya-Kay, micro-flake) is refused: as in the JAX
+package, whose tracer samples the phase without an orientation, only
+volpath renders it.
 
 Gradients follow the reference's detached-sampling contract: sampled
 positions and directions are detached, the free-flight pdf denominators
@@ -83,7 +89,7 @@ def trace(scene: Scene, generator, num_particles: int,
     u_emit = rand(num_particles, N_EMIT_FIRST)
     u_walk = rand(num_particles, cfg.max_depth, N_STEP_DIMS)
     u_track = None
-    if not mapi.is_homogeneous(scene.medium):
+    if mapi.tracks(scene.medium):
         u_track = rand(num_particles, cfg.max_depth, gmed.TRACKING_DRAWS,
                        2).to(scene.device)
     rest = (num_particles, N_EMIT_DIMS - N_EMIT_FIRST)
@@ -98,8 +104,9 @@ def trace_u(scene: Scene, u_emit, u_walk,
             cfg: TracerConfig = TracerConfig(), u_track=None) -> VRLs:
     """The walk of trace as a function of its uniforms: u_emit
     (P, N_EMIT_DIMS), u_walk (P, max_depth, N_STEP_DIMS) and, in a grid
-    medium, the Woodcock tracking uniforms u_track (P, max_depth,
-    TRACKING_DRAWS, 2), which replace u_walk's distance uniforms.
+    medium of Woodcock tracking, the tracking uniforms u_track (P,
+    max_depth, TRACKING_DRAWS, 2), which replace u_walk's distance
+    uniforms (a grid medium of sampling 1 reads u_walk's first).
     Returns a VRL buffer of P * max_depth slots, particle-major.
 
     u_emit's columns (emitters.N_EMIT_DIMS, as emitters.sample_emission_u
@@ -119,13 +126,16 @@ def trace_u(scene: Scene, u_emit, u_walk,
                          f"{N_STEP_DIMS}), got {tuple(u_walk.shape)}")
     kinds = bsdf_api.check_kinds(scene)  # once, not per bounce
     med = scene.medium
+    refuse_oriented(med, "the VRL tracer")
     density_ss = None
     if not mapi.is_homogeneous(med):
         shape = (n_particles, cfg.max_depth, gmed.TRACKING_DRAWS, 2)
-        if u_track is None or tuple(u_track.shape) != shape:
+        if mapi.tracks(med) and (u_track is None
+                               or tuple(u_track.shape) != shape):
             got = None if u_track is None else tuple(u_track.shape)
-            raise ValueError(f"a grid medium needs u_track {shape}, got {got}")
-        density_ss = gmed.upsample2(med.density)
+            raise ValueError(f"a grid medium of Woodcock tracking needs "
+                             f"u_track {shape}, got {got}")
+        density_ss = gmed.quad_grid(med)
     lo, hi = scene.aabb()
     pos, d, weight = em_mod.sample_emission_u(
         scene.emitters, u_emit, 0.5 * (lo + hi), 0.5 * m.length(hi - lo))
@@ -152,6 +162,17 @@ def trace_u(scene: Scene, u_emit, u_walk,
                 valid=flat("valid"),
                 particle_count=torch.tensor(float(n_particles),
                                             device=scene.device))
+
+
+def refuse_oriented(med, route: str):
+    """Raise, naming `route`, on an oriented phase kind (Kajiya-Kay,
+    micro-flake): the JAX package's VRL tracer and pair contribution
+    evaluate the phase without an orientation and cannot render such a
+    medium; only volpath does."""
+    if med.phase_kind in (ph.KKAY, ph.MICROFLAKE):
+        raise ValueError(f"{route} cannot render an oriented medium "
+                         "(Kajiya-Kay, micro-flake): only volpath renders it, "
+                         "as in the JAX package")
 
 
 def _step(scene, med, state, u, depth, cfg, u_track, density_ss, kinds):

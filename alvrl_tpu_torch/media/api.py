@@ -4,9 +4,11 @@ and the render consume it.
 Counterpart of alvrl_tpu/media/api.py (is_homogeneous, transmittance,
 eval_ray_seg, sigma_s_at, sample_distance_seg[_u],
 _homog_to_distance_sample). Grid
-media read the supersampled density that the caller computed once per
-entry-point call (media.heterogeneous.upsample2), and their free-flight
-sampler (Woodcock tracking) reads explicit tracking uniforms.
+media read the grid of their quadratures that the caller computed once
+per entry-point call (media.heterogeneous.quad_grid: the supersample, or
+with fast_tau False the density), and their free-flight sampler reads
+explicit uniforms: Woodcock tracking its tracking uniforms, the
+quadrature inversion (sampling = 1) the first distance uniform.
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ def is_homogeneous(med) -> bool:
     return isinstance(med, hmed.HomogeneousMedium)
 
 
+def tracks(med) -> bool:
+    """Whether med's free flights read Woodcock tracking uniforms: a grid
+    medium of sampling 0 (sampling 1 reads one distance uniform)."""
+    return not is_homogeneous(med) and med.sampling == 0
+
+
 def transmittance(med, p0, p1, density_ss=None):
     """Spectral tau along the open segment p0 -> p1 (no occlusion test)."""
     if is_homogeneous(med):
@@ -43,22 +51,25 @@ def transmittance(med, p0, p1, density_ss=None):
     return gmed.eval_transmittance(med, density_ss, p0, p1)
 
 
-def eval_ray_seg(med, p0, p1):
-    """(tau, pdf_success, pdf_failure) over the segment p0 -> p1 of a
-    homogeneous medium (Medium::eval); the grid medium's is not ported,
-    since no port route reads it."""
-    if not is_homogeneous(med):
-        raise ValueError("eval_ray_seg takes a homogeneous medium")
-    return hmed.eval_ray(med, m.distance(p0, p1))
+def eval_ray_seg(med, p0, p1, density_ss=None):
+    """(tau, pdf_success, pdf_failure) over the segment p0 -> p1
+    (Medium::eval)."""
+    if is_homogeneous(med):
+        return hmed.eval_ray(med, m.distance(p0, p1))
+    return gmed.eval_ray(med, density_ss, p0, p1)
 
 
 def sigma_s_at(med, p, density_ss=None):
-    """(..., 3) scattering coefficient at p (grid media: the nearest
-    supersampled density, as the quadratures read it)."""
+    """(..., 3) scattering coefficient at p (grid media: the density as
+    the quadratures read it, nearest in the supersample density_ss, or
+    trilinear with fast_tau False)."""
     if is_homogeneous(med):
         return med.sigma_s.expand(p.shape)
-    return gmed.lookup_density_nn(med, density_ss, p)[..., None] \
-        * med.sigma_s_color
+    if med.fast_tau:
+        d = gmed.lookup_density_nn(med, density_ss, p)
+    else:
+        d = gmed.lookup_density(med, p)
+    return d[..., None] * med.sigma_s_color
 
 
 def sample_distance_seg_u(med, u2, ray_o, ray_d, dist_surf, *, u_track=None,
@@ -66,12 +77,18 @@ def sample_distance_seg_u(med, u2, ray_o, ray_d, dist_surf, *, u_track=None,
     """Free-flight sample along ray_o + t ray_d, t in [0, dist_surf]:
     homogeneous media from the uniforms u2 (..., 2); grid media by
     Woodcock tracking from u_track (..., TRACKING_DRAWS, 2), with lanes
-    where `active` is False frozen (media.heterogeneous.sample_distance)."""
+    where `active` is False frozen (media.heterogeneous.sample_distance),
+    or with sampling = 1 by the quadrature inversion from u2[..., 0]
+    (sample_distance_quadrature; u_track unused)."""
     if is_homogeneous(med):
         ms = hmed.sample_distance_u(med, u2, dist_surf)
         return _homog_to_distance_sample(ms, ray_o, ray_d)
-    gs = gmed.sample_distance(med, density_ss, u_track, ray_o, ray_d,
-                              dist_surf, active)
+    if med.sampling == 1:
+        gs = gmed.sample_distance_quadrature(med, density_ss, u2[..., 0],
+                                             ray_o, ray_d, dist_surf)
+    else:
+        gs = gmed.sample_distance(med, density_ss, u_track, ray_o, ray_d,
+                                  dist_surf, active)
     ok = gs.success[..., None]
     return DistanceSample(success=gs.success, t=gs.t, p=gs.p,
                           w_scatter=torch.where(ok, gs.weight, 0.0),

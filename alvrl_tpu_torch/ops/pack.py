@@ -69,8 +69,20 @@ VOD = VRL_ROWS
 GRID_VRL_ROWS = VOD + NQ + 1
 # grid medium pack, (GRID_MED_LEN,): sigma_t_color (3), sigma_s_color (3),
 # g, chan = mean(sigma_t_color), box_min (3), 1 / extent (3), the
-# half-cell index scales 2 (d - 1) of x, y, z (3), the density scale
+# half-cell index scales 2 (d - 1) of x, y, z (3), the density scale; a
+# medium of fast_tau False gets the trilinear pack, (GRID_TRI_MED_LEN,):
+# the index scales are d - 1, and a last float (1) makes the pack one
+# longer, the tag is_trilinear reads; its readers (the kernels'
+# trilinear forms, integrate.grid_density) read the density itself
+# trilinearly
 GRID_MED_LEN = 18
+GRID_TRI_MED_LEN = GRID_MED_LEN + 1
+
+
+def is_trilinear(medium):
+    """Whether a grid medium pack is the trilinear one (GRID_TRI_MED_LEN,
+    fast_tau False). Reads its length, no value, so no sync."""
+    return medium.shape[0] == GRID_TRI_MED_LEN
 
 
 def _ray_cols(scene: Scene, ray_o, ray_d, hit, mat, tau_eu):
@@ -124,8 +136,9 @@ def materials_from_pack(table, rt_tables):
 
 def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss):
     """(GRID_RAY_ROWS, B): pack_rays' rows for a grid medium, then the
-    eye segment's cumulative optical depth; TAU is exp(-sigma_t_color
-    times the table's total)."""
+    eye segment's cumulative optical depth (the medium's own lookup:
+    density_ss is media.heterogeneous.quad_grid's); TAU is
+    exp(-sigma_t_color times the table's total)."""
     med = scene.medium
     eye_od = gmed.cumulative_od(med, density_ss, ray_o, hit.p)
     tau_eu = torch.exp(-med.sigma_t_color * eye_od[..., -1:])
@@ -142,7 +155,8 @@ def pack_vrls(vrls):
 
 def pack_vrls_hetero(vrls, med, density_ss):
     """(GRID_VRL_ROWS, N): pack_vrls' rows, then each VRL's cumulative
-    optical depth in the grid medium `med`."""
+    optical depth in the grid medium `med` (density_ss as
+    pack_rays_hetero's)."""
     vrl_od = gmed.cumulative_od(med, density_ss, vrls.start, vrls.end)
     cols = [vrls.start, vrls.end, vrls.power,
             vrls.valid.to(torch.float32)[..., None], vrl_od]
@@ -200,12 +214,19 @@ def medium_extension(medium):
 
 
 def pack_medium_hetero(med):
-    """(GRID_MED_LEN,) grid medium parameters (see GRID_MED_LEN)."""
+    """The grid medium's parameters: (GRID_MED_LEN,), or with fast_tau
+    False the trilinear pack (GRID_TRI_MED_LEN,) (see GRID_MED_LEN),
+    whose grid must be at least 2 voxels along each axis."""
     dz, dy, dx = med.density.shape
-    scales = torch.tensor([2.0 * (dx - 1), 2.0 * (dy - 1), 2.0 * (dz - 1)],
+    per = 2.0 if med.fast_tau else 1.0
+    if not med.fast_tau and min(dz, dy, dx) < 2:
+        raise ValueError("the trilinear read needs a grid of at least 2 "
+                         f"voxels a side, got {tuple(med.density.shape)}")
+    scales = torch.tensor([per * (dx - 1), per * (dy - 1), per * (dz - 1)],
                           dtype=torch.float32, device=med.density.device)
+    mark = med.density.new_ones(0 if med.fast_tau else 1)
     return torch.cat([
         med.sigma_t_color, med.sigma_s_color, med.g.reshape(1),
         med.sigma_t_color.mean().reshape(1), med.box_min,
         1.0 / (med.box_max - med.box_min), scales,
-        med.scale.reshape(1)]).to(torch.float32)
+        med.scale.reshape(1), mark]).to(torch.float32)

@@ -111,7 +111,7 @@ def _library():
     tail = [p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, *tail]
     lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                       *tail]
+                                       i, *tail]
     lib.alvrl_vrl_r_tile_rays.argtypes = [i]
     for fn in (lib.alvrl_vrl_r, lib.alvrl_vrl_r_hetero,
                lib.alvrl_vrl_r_tile_rays):
@@ -150,7 +150,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
     if grid is None:
         err = lib.alvrl_vrl_r(*head, *vs.mat_args(materials), *tail)
     else:
-        err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid), *tail)
+        err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid),
+                                     int(pk.is_trilinear(medium)), *tail)
     if err != 0:
         raise RuntimeError("vrl_r kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -164,7 +165,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
               grid=grid, materials=materials,
-              extended_ok=True)
+              extended_ok=True, trilinear_ok=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     checking = mode == vs.MODE_CHECK
     if checking and rays.device.type != "cuda":
@@ -189,7 +190,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
             out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                           svs, short_vrls, phase_kind, grid, mode, counts,
                           materials)
-        fn.launches += 1
+        vs.count_launch(fn, grid, medium)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -234,14 +235,17 @@ def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
                  vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
                  phase_kind=ph.HG, uv_steps=4):
     """vrl_r in a grid medium, on the packs and density that
-    ops.vrl_sum.vrl_sum_hetero takes; the CUDA kernel's launches are
-    counted here, the CPU goes through vrl_r_hetero_reference."""
+    ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
+    kernel's trilinear form); the CUDA kernel's launches are counted
+    here (the trilinear form's on tri_launches too), the CPU goes
+    through vrl_r_hetero_reference."""
     return _r(vrl_r_hetero, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
               (density, uv_steps))
 
 
 vrl_r_hetero.launches = 0  # kernel launches, as vrl_r.launches
+vrl_r_hetero.tri_launches = 0  # of them, the trilinear form's
 
 
 def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
@@ -258,3 +262,4 @@ def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
 
 
 vrl_r_hetero_check.launches = 0  # checking launches, as vrl_r_check's
+vrl_r_hetero_check.tri_launches = 0  # of them, the trilinear form's

@@ -27,6 +27,14 @@ strategy's pdfFailure, msw exp(-rho x) + 1 - msw, as the JAX package's
 XLA route does (ROADMAP C16); the other kernels' wrappers refuse it
 (MIX_REFUSAL, ROADMAP A13).
 
+A grid medium of fast_tau False comes in the trilinear medium pack
+(ops.pack.GRID_TRI_MED_LEN) with the density itself in place of the
+supersample: the grid wrappers launch the kernels' trilinear forms
+(counted on their `tri_launches` too), whose plain versions are the same
+grid routes with integrate.grid_density's trilinear read, as the JAX
+package's XLA route reads a fast_tau=False medium (ROADMAP C20); the
+backward grid wrappers refuse it (TRI_REFUSAL, ROADMAP A14).
+
 Glossy and layered surfaces at the eye hit take kernel 1's material
 instantiation: the wrappers and plain versions take `materials`, the
 material pack of ops.pack.pack_materials, with the ray pack that holds
@@ -478,7 +486,9 @@ def vrl_sum_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
                              short_vrls=True, phase_kind=ph.HG, uv_steps=4,
                              weight=None):
     """vrl_sum_reference on grid packs (ops.pack's GRID_* layouts) and the
-    supersampled density (2Z - 1, 2Y - 1, 2X - 1)."""
+    supersampled density (2Z - 1, 2Y - 1, 2X - 1), or with the trilinear
+    medium pack the density (Z, Y, X): the plain version of either form
+    of kernel 3."""
     out = _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
                      vol_surf_samples, short_vrls, phase_kind,
                      (density, uv_steps))
@@ -493,6 +503,12 @@ def grid_args(density, uv_steps):
     """The grid kernels' extra C arguments: the density pointer, its
     (Z, Y, X) extents and the U-V quadrature's step count."""
     return (density.data_ptr(), *density.shape, uv_steps)
+
+
+# the backward grid kernels' refusal of the trilinear pack
+TRI_REFUSAL = ("the trilinear read (fast_tau=False) takes the forward grid "
+               "kernels 3, 4 and 6 only; the backward kernels 9 and 11 read "
+               "the supersample by nearest lookup (ROADMAP A14)")
 
 
 # kernel 1's modes (alvrl_vrl_sum's `mode`): the sum, the checking
@@ -540,7 +556,9 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), *tail)
     else:
-        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid), *uni, *tail)
+        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid),
+                                       int(pk.is_trilinear(medium)), *uni,
+                                       *tail)
     if err != 0:
         raise RuntimeError("vrl_sum kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -555,7 +573,7 @@ def _library():
     lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, *uni, p, i,
                                   p, *tail]
     lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                         *uni, *tail]
+                                         i, *uni, *tail]
     lib.alvrl_plane_pack.argtypes = [p, i, p, p]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
                lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps,
@@ -602,13 +620,17 @@ MIX_REFUSAL = ("the mixture phase and the sampling strategies other than "
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None, grid=None, materials=None, extended_ok=False):
+           n_cols=None, grid=None, materials=None, extended_ok=False,
+           trilinear_ok=False):
     """Raise on what the kernels do not take. The uniforms must be
     (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
     (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
     constants give, with the supersampled density (2Z - 1, 2Y - 1,
-    2X - 1). materials = (table, rt_tables), ops.pack.pack_materials', for
-    the material instantiations: homogeneous packs, rays (MAT_RAY_ROWS,
+    2X - 1), or with the trilinear medium pack (trilinear_ok: the
+    forward grid kernels; others raise a ValueError naming ROADMAP A14)
+    the density (Z, Y, X), at least 2 a side. materials = (table,
+    rt_tables), ops.pack.pack_materials', for the material
+    instantiations: homogeneous packs, rays (MAT_RAY_ROWS,
     B). extended_ok: the kernel takes the extended medium pack (the
     mixture phase, another strategy than balance: kernels 1, 2 and 5 in
     a homogeneous medium); other kernels raise a ValueError on it, naming
@@ -668,14 +690,18 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         if phase_kind == ph.MIXTURE and medium.shape[0] == pk.MED_MIX:
             raise ValueError("a mixture phase needs its components in the "
                              "medium pack")
+    elif grid is not None and medium.dim() == 1 and pk.is_trilinear(medium):
+        if not trilinear_ok:
+            raise ValueError(TRI_REFUSAL)
     elif tuple(medium.shape) != (med_len,):
         raise ValueError(f"medium must be ({med_len},), got "
                          f"{tuple(medium.shape)}")
     if grid is not None:
         density, uv_steps = grid
-        if density.dim() != 3 or min(density.shape) < 1:
-            raise ValueError("density must be a non-empty (Z, Y, X) grid, "
-                             f"got {tuple(density.shape)}")
+        least = 2 if pk.is_trilinear(medium) else 1
+        if density.dim() != 3 or min(density.shape) < least:
+            raise ValueError(f"density must be a (Z, Y, X) grid of at least "
+                             f"{least} a side, got {tuple(density.shape)}")
         if uv_steps < 1:
             raise ValueError(f"uv_steps must be >= 1, got {uv_steps}")
     if svv < 0 or svs < 0:
@@ -686,7 +712,8 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         raise ValueError(f"uniforms must be {shape}, got "
                          f"{tuple(uniforms.shape)}")
     if phase_kind not in (ph.HG, ph.RAYLEIGH, ph.MIXTURE):
-        raise ValueError(f"phase kind {phase_kind} is not ported")
+        raise ValueError(f"phase kind {phase_kind} is not ported to the "
+                         "kernels (the oriented kinds: volpath only)")
     if not 0 <= seed <= _MASK32:
         raise ValueError(f"seed {seed} is not a uint32")
 
@@ -704,7 +731,8 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     """The wrappers' body: checks, then the plain version on the CPU or
     the kernel on the card, counting its launch on `fn`."""
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           grid=grid, materials=materials, extended_ok=True)
+           grid=grid, materials=materials, extended_ok=True,
+           trilinear_ok=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
@@ -722,8 +750,16 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                       svs, short_vrls, phase_kind, grid, materials=materials)
-    fn.launches += 1
+    count_launch(fn, grid, medium)
     return out
+
+
+def count_launch(fn, grid, medium):
+    """One launch on the wrapper fn: fn.launches, and for a grid
+    wrapper's trilinear form fn.tri_launches as well."""
+    fn.launches += 1
+    if grid is not None and pk.is_trilinear(medium):
+        fn.tri_launches += 1
 
 
 def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
@@ -801,14 +837,20 @@ def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
     (media.heterogeneous.upsample2), uv_steps the U-V quadrature's steps
     (4, every caller's, runs the kernel's instantiation compiled for 4
     steps; any other count its generic one); the random stream is
-    vrl_sum's. CUDA tensors go through the CUDA kernel (a launch of its
-    own, counted here), CPU tensors through vrl_sum_hetero_reference."""
+    vrl_sum's. With the trilinear medium pack (GRID_TRI_MED_LEN,) of a
+    medium of fast_tau False, density is the grid itself (Z, Y, X)
+    (media.heterogeneous.quad_grid), and the kernel's trilinear form
+    (the run-time step count) reads it. CUDA tensors go through the CUDA
+    kernel (a launch of its own, counted here, and on
+    vrl_sum_hetero.tri_launches for the trilinear form), CPU tensors
+    through vrl_sum_hetero_reference."""
     return _sum(vrl_sum_hetero, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
                 (density, uv_steps))
 
 
 vrl_sum_hetero.launches = 0  # kernel launches, as vrl_sum.launches
+vrl_sum_hetero.tri_launches = 0  # of them, the trilinear form's
 
 
 # ---------------------------------------------------------------------------

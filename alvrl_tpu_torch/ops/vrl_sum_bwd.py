@@ -393,7 +393,10 @@ def vrl_sum_hetero_diff(rays, vrls, tris, medium, density, *, seed=0,
     rows of `rays`, the medium pack's GRID_PAR entries and the
     supersampled density; the geometry rows, the box and index entries
     and the triangles get no gradient (the reference's detached-
-    geometry contract)."""
+    geometry contract). The trilinear medium pack (fast_tau False) is
+    refused (vs.TRI_REFUSAL, ROADMAP A14)."""
+    if pk.is_trilinear(medium):
+        raise ValueError(vs.TRI_REFUSAL)
     kw = dict(seed=seed, vol_vol_samples=vol_vol_samples,
               vol_surf_samples=vol_surf_samples, short_vrls=short_vrls,
               phase_kind=phase_kind, uv_steps=uv_steps)

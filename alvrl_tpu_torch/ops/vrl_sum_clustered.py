@@ -166,7 +166,7 @@ def _library():
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, p, i, p,
                                             *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, i, i, i, i, *tail]
+        p, i, p, i, p, i, p, p, i, i, i, i, i, *tail]
     lib.alvrl_clustered_ray_block.argtypes = [i]
     for fn in (lib.alvrl_vrl_sum_clustered,
                lib.alvrl_vrl_sum_hetero_clustered,
@@ -221,7 +221,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
               n_cols=table_ids.shape[1], grid=grid, materials=materials,
-              extended_ok=True)
+              extended_ok=True, trilinear_ok=True)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     checking = mode == vs.MODE_CHECK
@@ -251,7 +251,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                     table_ids, table_weights, uniforms, seed, svv, svs,
                     short_vrls, phase_kind, out, grid, mode=mode,
                     counts=counts, materials=materials)
-        fn.launches += 1
+        vs.count_launch(fn, grid, medium)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -307,9 +307,10 @@ def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
                              vol_surf_samples=2, short_vrls=True,
                              phase_kind=ph.HG, uv_steps=4):
     """vrl_sum_clustered in a grid medium, on the packs and density that
-    ops.vrl_sum.vrl_sum_hetero takes; the CUDA kernel's launches are
-    counted here, the CPU goes through
-    vrl_sum_hetero_clustered_reference."""
+    ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
+    kernel's trilinear form); the CUDA kernel's launches are counted
+    here (the trilinear form's on tri_launches too), the CPU goes
+    through vrl_sum_hetero_clustered_reference."""
     return _clustered(vrl_sum_hetero_clustered, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
                       vol_vol_samples, vol_surf_samples, short_vrls,
@@ -318,6 +319,7 @@ def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
 
 vrl_sum_hetero_clustered.launches = 0  # kernel launches, as
                                        # vrl_sum_clustered.launches
+vrl_sum_hetero_clustered.tri_launches = 0  # of them, the trilinear form's
 
 
 def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
@@ -337,6 +339,7 @@ def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
 
 
 vrl_sum_hetero_clustered_check.launches = 0  # checking launches
+vrl_sum_hetero_clustered_check.tri_launches = 0  # of them, the trilinear
 
 
 def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
@@ -376,7 +379,7 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
                                           *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero_clustered(
-            *head, *vs.grid_args(*grid), *tail)
+            *head, *vs.grid_args(*grid), int(pk.is_trilinear(medium)), *tail)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
                            f"error {err} "

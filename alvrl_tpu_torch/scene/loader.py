@@ -117,7 +117,6 @@ _EM_KINDS = {"point": em_mod.POINT, "spot": em_mod.SPOT,
 # item that ports them
 _LATER = {
     "shape": {"heightfield": "A11", "hair": "A11"},
-    "phase": {"kkay": "A10", "microflake": "A10"},
     "sensor": {"thinlens": "A11", "orthographic": "A11", "spherical": "A11",
                "telecentric": "A11", "perspective_rdist": "A11"},
 }

@@ -6,11 +6,16 @@ index // 164), kernel 5 on 271 seeded rays (config 2's representative
 count). The diffuse HG short-VRL instantiations (the keys without a
 suffix), and with --all also the Rayleigh, the long-VRL and the material
 ones (config 1's table packed for them; " rayleigh", " long",
-" material"), on injected uniforms. The same outputs bit for bit give
-the same digests, so that two trees of the package are compared on one
-card:
+" material"), on injected uniforms. With --grid instead, the grid
+kernels 3, 4 and 6 (vrl_sum_hetero, vrl_sum_hetero_clustered,
+vrl_r_hetero; their nearest forms, HG short VRLs, 4 U-V steps) on config
+4's packs: cornell_grid_smoke at 512x512 with its 48^3 grid against the
+512 bench VRLs, kernel 4 on the same seeded table with each pixel's row
+its index * 100 // (512 * 512), kernel 6 on 271 seeded rays. The same
+outputs bit for bit give the same digests, so that two trees of the
+package are compared on one card:
 
-    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all]
+    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all | --grid]
 
 imports alvrl_tpu_torch from DIR (another tree's root; this tree's by
 default) and prints one JSON object of the digests, the card's name and
@@ -95,6 +100,67 @@ def kernel_digests(device="cuda", every_form=False):
                 **kw)
             out["vrl_r" + suffix] = vrl_r(reps_p, *p[1:],
                                           uniforms=u[reps].contiguous(), **kw)
+    return _digests(out)
+
+
+GRID_SIZE, GRID_RES = 512, 48  # config 4's frame and grid
+
+
+def grid_digests(device="cuda"):
+    """{output: sha256} of the grid kernels' nearest forms on config 4's
+    packs (module docstring), on injected uniforms and on the Philox
+    stream."""
+    import numpy as np
+    import torch
+
+    from alvrl_tpu_torch.integrators.vrl import integrator, vrl
+    from alvrl_tpu_torch.ops.vrl_r import vrl_r_hetero
+    from alvrl_tpu_torch.ops.vrl_sum import vrl_sum_hetero
+    from alvrl_tpu_torch.ops.vrl_sum_clustered import vrl_sum_hetero_clustered
+    from alvrl_tpu_torch.scene import presets
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["alvrl_tpu_torch"].__file__)))
+    scene = presets.cornell_grid_smoke(GRID_SIZE, GRID_SIZE,
+                                       grid_res=GRID_RES, device=device)
+    vrls = vrl.compact(vrl.load_ascii(
+        os.path.join(root, "data", "bench_vrls.txt"), particle_count=78.0,
+        device=device), 512)
+    packs = integrator.pack_frame(scene, vrls)[3]
+    n_rays = packs[0].shape[1]
+    rng = np.random.default_rng(18)
+    u = torch.as_tensor(rng.random((n_rays, 512, 6), dtype=np.float32),
+                        device=device)
+    ids = torch.as_tensor(rng.integers(0, 512, (N_SLICES, N_COLS)),
+                          dtype=torch.int32, device=device)
+    w = torch.as_tensor(rng.uniform(0.0, 2.0, (N_SLICES, N_COLS)),
+                        dtype=torch.float32, device=device)
+    ray_slice = (np.arange(n_rays, dtype=np.int64) * N_SLICES
+                 // n_rays).astype(np.int32)
+    reps = torch.as_tensor(rng.choice(n_rays, N_REPS, replace=False),
+                           device=device)
+    rep_rays = packs[0][:, reps].contiguous()
+    kw = dict(uv_steps=4)
+    out = {
+        "vrl_sum_hetero injected": vrl_sum_hetero(*packs, uniforms=u, **kw),
+        "vrl_sum_hetero philox": vrl_sum_hetero(*packs, seed=SEED, **kw),
+        "vrl_sum_hetero_clustered injected": vrl_sum_hetero_clustered(
+            *packs, ray_slice, ids, w, uniforms=u[:, :N_COLS].contiguous(),
+            **kw),
+        "vrl_sum_hetero_clustered philox": vrl_sum_hetero_clustered(
+            *packs, ray_slice, ids, w, seed=SEED, **kw),
+        "vrl_r_hetero injected": vrl_r_hetero(
+            rep_rays, *packs[1:], uniforms=u[reps].contiguous(), **kw),
+        "vrl_r_hetero philox": vrl_r_hetero(rep_rays, *packs[1:], seed=SEED,
+                                            **kw),
+    }
+    del u
+    return _digests(out)
+
+
+def _digests(out):
+    import torch
+
     torch.cuda.synchronize()
     for k, v in out.items():
         if not bool(torch.isfinite(v).all()) or float(v.abs().max()) == 0.0:
@@ -106,8 +172,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
                     help="the tree whose alvrl_tpu_torch is imported")
-    ap.add_argument("--all", action="store_true",
-                    help="also the Rayleigh, long-VRL and material forms")
+    forms = ap.add_mutually_exclusive_group()
+    forms.add_argument("--all", action="store_true",
+                       help="also the Rayleigh, long-VRL and material forms")
+    forms.add_argument("--grid", action="store_true",
+                       help="the grid kernels 3, 4 and 6 on config 4")
     args = ap.parse_args()
     root = os.path.abspath(args.root) if args.root else os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -120,8 +189,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": root, "card": card,
-                      "digests": kernel_digests(every_form=args.all)}))
+    digests = (grid_digests() if args.grid
+               else kernel_digests(every_form=args.all))
+    print(json.dumps({"root": root, "card": card, "digests": digests}))
 
 
 if __name__ == "__main__":

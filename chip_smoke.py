@@ -6,9 +6,12 @@ gradient steps at configs 2 and 4, the large-mesh render of up to
 129,612 triangles, the gather probes, scene files of configs 1-5
 rendered through the CLI and the multi-pass drivers, and glass, a
 mirror and an area light through the specular-chain render and the
-CLI, end to end through the hand-written CUDA kernels (the VRL sum, its seed-replay VJP, the
-transfer matrix R, the clustered sum and its VJP, each also for the
-grid medium; the BVH-occlusion sum; three gathers).
+CLI, the grid medium's trilinear quadrature (fast_tau=False) through
+the trilinear forms of the grid kernels, oriented media and the
+quadrature sampler, end to end through the hand-written CUDA kernels
+(the VRL sum, its seed-replay VJP, the transfer matrix R, the clustered
+sum and its VJP, each also for the grid medium; the BVH-occlusion sum;
+three gathers).
 
     python3 chip_smoke.py
 
@@ -298,6 +301,29 @@ Phases, one line each; any failure exits non-zero:
  45. the CLI's -i volpath|path|direct and -i vrl|alvrl on a sky JSON, a
      nested JSON and two XMLs (sunsky, an .hdr map), each image the
      in-process render's.
+ 46. the trilinear forms of kernels 3, 4 and 6 (vrl_sum_hetero,
+     vrl_r_hetero, vrl_sum_hetero_clustered on the trilinear packs of a
+     fast_tau=False medium: the 48^3 density itself, 8 corner reads and 7
+     lerps a lookup) at config 4's shape against their plain versions on
+     samples (kernel 3 on every 64th ray, kernel 4 on its first whole
+     slices, kernel 6 on all representatives; injected and Philox, HG and
+     Rayleigh with long VRLs) at the homogeneous bar; the checking
+     launches of kernels 4 and 6 (0 disagreements of the pre-reject); the
+     main path (render_alvrl and the unclustered render of the
+     fast_tau=False medium) with the three forms' launch counts, its
+     image mean within TRI_MEAN_BAND of the nearest forms' on the same
+     VRLs and its sums against the plain; each form's time against the
+     nearest form's on the same inputs, in turns, its plain version's
+     and its bound; the nearest forms' outputs on config 4's packs bit
+     for bit the parent's (kernel_digest.py --grid, PARENT_DIGESTS_GRID);
+ 47. volpath on config 4's plume at 16^3 with a swirl of fibers, a
+     micro-flake medium (Woodcock with its directional majorant) and a
+     Kajiya-Kay one (the quadrature sampler), finite and non-zero; the
+     VRL render of config 4's plume from VRLs traced with sampling=1
+     against those of Woodcock tracking, image means over QUAD_SEEDS
+     seeds within z < 4; the refusals of an oriented medium by
+     render_with_vrls_kernel and of fast_tau=False by
+     render_with_vrls_kernel_diff (ROADMAP A14).
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -350,6 +376,7 @@ from alvrl_tpu_torch.ops.vrl_sum import (
     philox_draws, philox_uniforms, vrl_sum, vrl_sum_hetero,
     vrl_sum_hetero_reference, vrl_sum_reference)
 from alvrl_tpu_torch.media import heterogeneous as gmed
+from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     group_by_slice, philox_table_uniforms, vrl_sum_clustered,
     vrl_sum_clustered_check, vrl_sum_clustered_reference,
@@ -482,6 +509,12 @@ GRID_OPS = {
     "segment": (4, 1),
     # each of its steps: t's add and division, the point (3 FMA), the sum
     "segment_step": (8, 1),
+    # GridMedium::trilinear (the trilinear forms' lookup, 8 corner reads
+    # and 7 lerps): the box coordinates (6), the inside test (6), the
+    # grid coordinates (3), their floors' clamps (6), the fractions and
+    # their clamps (9), 1 - f (3), the lerps (a product and an FMA each:
+    # 21), the scale (1)
+    "trilinear": (55, 0),
 }
 
 
@@ -586,7 +619,8 @@ def ptxas_summary(log):
         if "Compiling entry function" in line:
             m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
                           r"sum_clustered_bwd|sum_clustered_bwd_warps|"
-                          r"sum_clustered_warps|r|sum_bvh|sum_plane)_kernel)"
+                          r"sum_clustered_warps|r|sum_bvh|sum_plane|"
+                          r"sum_tri)_kernel)"
                           r"I((?:L[ib]\d+E)+)E",
                           line)
             name = None
@@ -595,7 +629,9 @@ def ptxas_summary(log):
                 args = [int(v) for _, v in re.findall(r"L([ib])(\d+)E", m[2])]
                 label = [str(args[0]), str(args[1])]
                 rest = args[2:]
-                if kernel == "vrl_sum_bvh_kernel":
+                if kernel == "vrl_sum_tri_kernel":
+                    label += ["grid", "uv*", "tri"]
+                elif kernel == "vrl_sum_bvh_kernel":
                     label += ["count"] if rest and rest[0] else []
                 elif kernel in ("vrl_sum_plane_kernel",
                                 "vrl_sum_clustered_bwd_warps_kernel",
@@ -607,10 +643,17 @@ def ptxas_summary(log):
                     label.append("grid" if rest[0] else "homog")
                     if rest[0] and len(rest) > 1:  # the step count
                         label.append(f"uv{rest[1]}" if rest[1] else "uv*")
-                    if kernel == "vrl_r_kernel":  # <.., mode, material>
+                    if kernel == "vrl_r_kernel":  # <.., mode, material, tri>
                         label.append(PLANE_MODE[rest[2]])
                         if rest[3]:
                             label.append("mat")
+                    if kernel == "vrl_sum_clustered_kernel":  # <.., mode, tri>
+                        label.append(PLANE_MODE[rest[2]])
+                    if rest[-1] and kernel in ("vrl_r_kernel",
+                                               "vrl_sum_clustered_kernel") \
+                            and len(rest) > (4 if kernel == "vrl_r_kernel"
+                                             else 3):
+                        label.append("tri")
                 name = f"{kernel}<{','.join(label)}>"
             spill = "0"
         elif name and "spill stores" in line:
@@ -719,17 +762,23 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def grid_estimator_ops(kernel, vol_vol, hg, short_vrls, uv_steps):
+def grid_estimator_ops(kernel, vol_vol, hg, short_vrls, uv_steps,
+                       tri=False):
     """(float32, special-function) operations, by OPS's rules, of one
     open sample's grid terms (vol_vol_term / vol_surf_term of
-    GridMedium) and the forward kernel's emit."""
+    GridMedium) and the forward kernel's emit; tri: the trilinear form,
+    each lookup (at V, U and every U-V step) priced as
+    GRID_OPS["trilinear"]."""
     n_phase = 2 if vol_vol else 1
     f, s = n_phase * (4 if hg else 3), n_phase * (2 if hg else 0)  # phase
     f, s = f + (1 if vol_vol else 2), s + 1                          # geo
     f += 1 + GRID_OPS["interp"][0]          # the VRL table's fraction, entry
     f += GRID_OPS["segment"][0] + uv_steps * GRID_OPS["segment_step"][0]
     s += GRID_OPS["segment"][1] + uv_steps * GRID_OPS["segment_step"][1]
-    f += n_phase * GRID_OPS["density"][0]   # the density at V (and U)
+    if tri:  # the density at V (and U) and at each step, trilinear
+        f += (n_phase + uv_steps) * GRID_OPS["trilinear"][0]
+    else:
+        f += n_phase * GRID_OPS["density"][0]   # the density at V (and U)
     if vol_vol:  # the eye table's fraction (a division) and entry; od's sum
         f, s = f + GRID_OPS["interp"][0] + 2, s + 1
     else:
@@ -804,11 +853,11 @@ def grid_cot_ops(vol_vol, hg, short_vrls, uv_steps):
     return f + 5 * n_phase + 1, s                 # the U, V scatters
 
 
-def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
+def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None, tri=False):
     """(float32, special-function) operations of `kernel` on this run's
     samples (a SweepCount), by OPS's rules; uv_steps for the grid
     kernels (whose open samples skip the homogeneous path length: 2 and
-    1 adds)."""
+    1 adds), tri for their trilinear forms."""
     # per pair beyond pair_setup: R's mean and variance of the mean (two
     # families: the division, the sum, k mu^2, the clamp, two divisions,
     # the sum), the backward's warp sums of d_power (3 x 5 adds), and in a
@@ -828,7 +877,7 @@ def kernel_ops(kernel, sweep, hg, short_vrls, uv_steps=None):
             est = (est[0] - (2 if fam == 0 else 1), est[1])
         else:
             est = grid_estimator_ops(kernel, fam == 0, hg, short_vrls,
-                                     uv_steps)
+                                     uv_steps, tri)
             est = (est[0] - (2 if fam == 0 else 1), est[1])
         rows.append((sweep.open[fam], (OPS[name][0] + est[0],
                                        OPS[name][1] + est[1])))
@@ -1748,7 +1797,7 @@ def config4(dev, card, cfg):
                   bounds["clustered"])], dict(
         scene=scene, vrls=vrls, packs=packs, seed=seed, sweep=s_sweep,
         sop=sop, tv=tv, tw=tw, cinfo=cinfo, idx=idx, c_sweep=c_sweep,
-        c_fwd_ms=c_med)
+        c_fwd_ms=c_med, info=info, params=params, tcfg=tcfg)
 
 
 # phase 19's cases: phase 15's, and a zero VRL power channel with a zero
@@ -5123,6 +5172,400 @@ def sky_path(dev, card):
     return entries
 
 
+# phases 46-47: the rest of the grid medium
+TRI_HOLD_RAYS = 4096  # rays of kernel 3's and 4's trilinear holds, at most
+# (name, uniforms, short VRLs, phase kind) of phase 46's holds
+TRI_CASES = [("hg_g03", "injected", True, 0), ("hg_g03", "philox", True, 0),
+             ("rayleigh", "injected", False, 1)]
+TRI_MEAN_BAND = 0.05   # |trilinear / nearest image mean - 1|, same VRLs
+ORIENT_RES = 16        # the swirl's orientation volume, voxels a side
+ORIENT_SIZE = 64       # volpath's frame on the oriented scenes
+ORIENT_SPP, ORIENT_DEPTH = 4, 6
+QUAD_SIZE = 256        # phase 47's VRL renders of config 4's plume
+QUAD_SEEDS = 4         # traces of each sampler
+QUAD_Z = 4.0
+# the nearest forms of kernels 3, 4 and 6 on config 4's packs before
+# their trilinear forms were added (kernel_digest.py --grid --root on the
+# parent tree, NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_DIGESTS_GRID = {
+    "vrl_sum_hetero injected":
+        "d151ad152bd927bba2cce2308767fe190f6812a479fbbf7ccbe377a5677c4df9",
+    "vrl_sum_hetero philox":
+        "f5dfae78afbfea1b1b2f141ad9afede972dd22a49d5a90ddeecba71da8d59df4",
+    "vrl_sum_hetero_clustered injected":
+        "60850c53b079aa7fb1404da10cf5e27a8e003f24b0090f19f9644fcaf4472842",
+    "vrl_sum_hetero_clustered philox":
+        "2cd5aae31543c6c66fd1d9a182398de5b26504293db4ec6b5a484f27a34c459b",
+    "vrl_r_hetero injected":
+        "3e340e49d97103bead649c0987ba41fa93bc8383effc57563b6dda020d353620",
+    "vrl_r_hetero philox":
+        "8b94510c90a5d6baa2370c55bfb89c9ccdb195f3e9775487a8b53149ee78645e",
+}
+
+
+def swirl(n, dev):
+    """(n, n, n, 3) fiber directions over the box [-1, 1]^3 of config 4:
+    a swirl about the y axis (the tangent of the circle about it,
+    tilted by y), zero on the axis, where the orientation is undefined."""
+    c = torch.linspace(-1.0, 1.0, n, device=dev)
+    z, y, x = torch.meshgrid(c, c, c, indexing="ij")
+    tangent = torch.stack([-z, 0.5 * y, x], dim=-1)
+    length = tangent.norm(dim=-1, keepdim=True)
+    return torch.where(length > 1e-6, tangent / length.clamp(min=1e-6), 0.0)
+
+
+def oriented_scene(c4_scene, kind, sampling, dev):
+    """Config 4's box and plume (the density resampled to ORIENT_RES) with
+    an oriented phase (ph.KKAY or ph.MICROFLAKE) over the swirl, at
+    ORIENT_SIZE^2, and the given free-flight sampling."""
+    med = c4_scene.medium
+    dens = torch.nn.functional.interpolate(
+        med.density[None, None], size=(ORIENT_RES,) * 3, mode="trilinear",
+        align_corners=True)[0, 0]
+    omed = gmed.make_grid_medium(
+        dens, med.sigma_t_color, med.albedo, g=med.g, box_min=med.box_min,
+        box_max=med.box_max, scale=med.scale, phase_kind=kind,
+        orientation=swirl(ORIENT_RES, dev), sampling=sampling, device=dev)
+    scene = presets.cornell_grid_smoke(ORIENT_SIZE, ORIENT_SIZE,
+                                       grid_res=ORIENT_RES, device=dev)
+    check(omed.phase_params is not None
+          and (kind != ph.MICROFLAKE or float(omed.sigma_dir_max) > 1.0),
+          f"oriented medium {kind}: its phase parameters and majorant")
+    return replace(scene, medium=omed)
+
+
+def grid_options(dev, card, cfg, c4):
+    """Phases 46-47, the rest of the grid medium: the trilinear forms of
+    kernels 3, 4 and 6 (fast_tau=False) and the nearest forms' digests;
+    volpath on oriented media, the quadrature sampler against Woodcock,
+    the refusals. Returns the kernels line's entries of the three
+    trilinear forms."""
+    t_phase = time.perf_counter()
+    scene, vrls, seed = c4["scene"], c4["vrls"], c4["seed"]
+    sop, tv, tw, info = c4["sop"], c4["tv"], c4["tw"], c4["info"]
+    tri_scene = replace(scene, medium=replace(scene.medium, fast_tau=False))
+    packs_n, packs_t = c4["packs"], integrator.pack_frame(tri_scene, vrls)[3]
+    packs_rn, packs_rt = (rep_packs(s, vrls, info) for s in (scene, tri_scene))
+    n_rays, n_vrls, n_cols = packs_t[0].shape[1], vrls.capacity, tv.shape[1]
+    n_rep = packs_rt[0].shape[1]
+    check(pk.is_trilinear(packs_t[3]) and not pk.is_trilinear(packs_n[3])
+          and tuple(packs_t[4].shape) == (C4_GRID,) * 3
+          and pk.is_trilinear(packs_rt[3]),
+          f"trilinear packs: medium {tuple(packs_t[3].shape)}, density "
+          f"{tuple(packs_t[4].shape)}")
+    kw = dict(uv_steps=cfg.uv_tau_steps)
+    gen = torch.Generator(device=dev).manual_seed(46)
+    # the holds' samples: every stride-th ray for kernel 3, the rays of
+    # the first whole slices for kernel 4, every representative for 6
+    stride = max(1, n_rays // TRI_HOLD_RAYS)
+    hold = torch.arange(0, n_rays, stride, device=dev)
+    rows, counts = np.unique(sop[sop >= 0], return_counts=True)
+    n_sl = max(1, int(np.searchsorted(np.cumsum(counts), TRI_HOLD_RAYS,
+                                      side="right")))
+    idx = np.flatnonzero(np.isin(sop, rows[:n_sl]))
+    idx_t = torch.as_tensor(idx, device=dev)
+    sub_t = (packs_t[0][:, hold].contiguous(), *packs_t[1:])
+    sub_ct = (packs_t[0][:, idx_t].contiguous(), *packs_t[1:])
+    u_full = torch.rand((n_rays, n_vrls, 6), generator=gen, device=dev)
+    u_c = torch.rand((n_rays, n_cols, 6), generator=gen, device=dev)
+    u_r = torch.rand((n_rep, n_vrls, 6), generator=gen, device=dev)
+    u_sub = philox_draws(seed, hold[:, None],
+                         torch.arange(n_vrls, device=dev)[None], 6)
+    u_c_sub = philox_draws(seed, idx_t[:, None], tv[torch.as_tensor(
+        sop[idx], device=dev).long()].long(), 6)
+    u_r_philox = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    errs, results = {"sum": 0.0, "r": 0.0, "clustered": 0.0}, []
+    plain_ms, sweeps = {}, {}
+    with plain_chunk(C4_PLAIN_CHUNK):
+        for name, mode, short, kind in TRI_CASES:
+            inj = mode != "philox"
+            case = dict(short_vrls=short, phase_kind=kind, **kw)
+            out = vrl_sum_hetero(*packs_t, seed=seed,
+                                 uniforms=u_full if inj else None, **case)
+            r = vrl_r_hetero(*packs_rt, seed=seed,
+                             uniforms=u_r if inj else None, **case)
+            c = vrl_sum_hetero_clustered(*packs_t, sop, tv, tw, seed=seed,
+                                         uniforms=u_c if inj else None, **case)
+            timed = mode == "philox"  # the plain versions timed, counted
+            ctx = [SweepCount(*pair_masks(*sub_t[:2])),
+                   SweepCount(*pair_masks(*packs_rt[:2])),
+                   SweepCount(table_pair_ok(sub_ct[0], sub_ct[1], sop[idx], tv,
+                                            tw), pair_masks(*sub_ct[:2])[1])]
+            refs = []
+            for what, fn, sweep in (
+                    ("sum", lambda: vrl_sum_hetero_reference(
+                        *sub_t, u_full[hold] if inj else u_sub, **case),
+                     ctx[0]),
+                    ("r", lambda: vrl_r_hetero_reference(
+                        *packs_rt, u_r if inj else u_r_philox, **case), ctx[1]),
+                    ("clustered", lambda: vrl_sum_hetero_clustered_reference(
+                        *sub_ct, sop[idx], tv, tw,
+                        u_c[idx_t] if inj else u_c_sub, **case), ctx[2])):
+                if timed:
+                    with sweep:
+                        ref, ms = timed_call(fn)
+                    plain_ms[what], sweeps[what] = ms, sweep
+                else:
+                    ref = fn()
+                refs.append(ref)
+            ref, r_ref, c_ref = refs
+            torch.cuda.synchronize()
+            tag = f"{name}/{mode}"
+            for t in (out, r, c):
+                check(bool(torch.isfinite(t).all())
+                      and float(t.abs().sum()) > 0.0,
+                      f"trilinear kernels {tag}: finite, non-zero")
+            s_bar = homog_bar(out[:, hold].T, ref.T)
+            r_bar = homog_bar(r[0], r_ref[0], channels=1)
+            c_bar = homog_bar(c[:, idx_t].T, c_ref.T)
+            nz = r_ref[1] > R_VAR_FLOOR
+            v_med = float(((r[1] - r_ref[1]).abs()[nz] / r_ref[1][nz])
+                          .median())
+            for what, (median, share) in (("sum", s_bar), ("R mean", r_bar),
+                                          ("clustered", c_bar)):
+                check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                      f"trilinear {what} {tag}: median {median}, share "
+                      f"{share}")
+            check(v_med < R_VAR_MEDIAN, f"trilinear R var {tag}: {v_med}")
+            errs["sum"] = max(errs["sum"], float((out[:, hold] - ref).abs()
+                                                 .max()))
+            errs["r"] = max(errs["r"], float((r - r_ref).abs().max()))
+            errs["clustered"] = max(errs["clustered"], float(
+                (c[:, idx_t] - c_ref).abs().max()))
+            results.append(
+                f"{tag}: sum median {s_bar[0]:.2e} share {s_bar[1]:.4f}, R "
+                f"mean {r_bar[0]:.2e} share {r_bar[1]:.4f} var {v_med:.2e}, "
+                f"clustered {c_bar[0]:.2e} share {c_bar[1]:.4f}")
+    del u_full, u_c, u_r
+    # the checking launches of the trilinear clustered sum and R
+    c_chk, c_counts = vrl_sum_hetero_clustered_check(*packs_t, sop, tv, tw,
+                                                     seed=seed, **kw)
+    r_chk, r_counts = vrl_r_hetero_check(*packs_rt, seed=seed, **kw)
+    sub_c_counts = vrl_sum_hetero_clustered_check(*sub_ct, sop[idx], tv, tw,
+                                                  seed=seed, **kw)[1]
+    for what, counts, (median, share) in (
+            ("clustered", c_counts, homog_bar(c_chk.T, vrl_sum_hetero_clustered(
+                *packs_t, sop, tv, tw, seed=seed, **kw).T)),
+            ("R", r_counts, homog_bar(r_chk[0], vrl_r_hetero(
+                *packs_rt, seed=seed, **kw)[0], channels=1)),
+            ("clustered sample", sub_c_counts, (0.0, 0.0))):
+        check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
+              f"trilinear {what}: the pre-reject disagrees with the Wald "
+              f"test: {counts}")
+        check(counts["segments"] > 0 and counts["skipped"] > 0,
+              f"trilinear {what}: checking counts {counts}")
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"trilinear {what}: the checking launch against the kernel: "
+              f"median {median}, share {share}")
+
+    # the main path: render_alvrl (kernels 6 and 4) and the unclustered
+    # render (kernel 3) of the fast_tau=False medium, their trilinear
+    # launches; the image means against the nearest forms' on the same
+    # VRLs and seeds
+    for fn in (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered):
+        fn.tri_launches = 0
+    img, vrls_m, _ = alvrl.render_alvrl(
+        tri_scene, torch.Generator().manual_seed(146), c4["params"], cfg,
+        c4["tcfg"], slice_info=info)
+    img_u = integrator.render_with_vrls_kernel(
+        tri_scene, vrls_m, torch.Generator().manual_seed(1146), cfg)
+    torch.cuda.synchronize()
+    tri_launches = (vrl_sum_hetero.tri_launches, vrl_r_hetero.tri_launches,
+                    vrl_sum_hetero_clustered.tri_launches)
+    check(min(tri_launches) >= 1, f"the trilinear launches {tri_launches}")
+    img_n = integrator.render_with_vrls_kernel(
+        scene, vrls_m, torch.Generator().manual_seed(1146), cfg)
+    for t in (img, img_u):
+        check(tuple(t.shape) == (C4_SIZE, C4_SIZE, 3)
+              and bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0,
+              "trilinear images: shape, finite, non-zero")
+    mean_ratio = float(img_u.mean()) / float(img_n.mean())
+    check(abs(mean_ratio - 1.0) < TRI_MEAN_BAND,
+          f"trilinear / nearest image mean {mean_ratio}")
+    # the plain render of the trilinear medium: kernel 3's Philox hold
+    seed_u = int(torch.randint(0, 2**31 - 1, (1,), generator=torch.Generator(
+    ).manual_seed(1146)))
+    hp = integrator.pack_frame(tri_scene, vrls_m)[3]
+    with plain_chunk(C4_PLAIN_CHUNK):
+        ref_u = vrl_sum_hetero_reference(
+            hp[0][:, hold].contiguous(), *hp[1:], philox_draws(
+                seed_u, hold[:, None],
+                torch.arange(vrls_m.capacity, device=dev)[None], 6), **kw)
+    main_bar = homog_bar(vrl_sum_hetero(*hp, seed=seed_u, **kw)[:, hold].T,
+                         ref_u.T)
+    check(main_bar[0] < HOMOG_MEDIAN and main_bar[1] < HOMOG_SHARE,
+          f"the trilinear render's sums against the plain: {main_bar}")
+
+    # times: each form alone at the main path's shape, the nearest form on
+    # the same inputs in turns (nearest, trilinear, trilinear, nearest),
+    # and each trilinear form on its hold's inputs beside its plain version
+    lib_block = vsc.ray_block(True)
+    tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
+        sop, lib_block)]
+    sub_tiles = [torch.as_tensor(a, device=dev) for a in group_by_slice(
+        sop[idx], lib_block)]
+    c_out = torch.zeros((3, n_rays), device=dev)
+    c_sub_out = torch.zeros((3, len(idx)), device=dev)
+
+    def launches(p, p_r, p_sub, p_csub):
+        grid_arg = (p[4], cfg.uv_tau_steps)
+        return {
+            "sum": lambda: vrl_sum_hetero(*p, seed=seed, **kw),
+            "r": lambda: vrl_r_hetero(*p_r, seed=seed, **kw),
+            "clustered": lambda: vsc._launch(
+                vsc._library(), *p[:4], *tiles, tv, tw, None, seed, 2, 2,
+                True, 0, c_out, grid_arg),
+            "sum sample": lambda: vrl_sum_hetero(*p_sub, seed=seed, **kw),
+            "clustered sample": lambda: vsc._launch(
+                vsc._library(), *p_csub[:4], *sub_tiles, tv, tw, None, seed,
+                2, 2, True, 0, c_sub_out, grid_arg)}
+
+    near = launches(packs_n, packs_rn, (packs_n[0][:, hold].contiguous(),
+                                        *packs_n[1:]),
+                    (packs_n[0][:, idx_t].contiguous(), *packs_n[1:]))
+    tri = launches(packs_t, packs_rt, sub_t, sub_ct)
+    times = {k: {"nearest": [], "trilinear": []} for k in near}
+    for form in ("nearest", "trilinear", "trilinear", "nearest"):
+        fns = near if form == "nearest" else tri
+        for k, fn in fns.items():
+            if k == "sum":
+                times[k][form] += cuda_ms(fn, 1, 2)
+            else:
+                times[k][form] += cuda_ms_batched(fn, 2, 3, 5)
+    med = {k: {f: summary(v)[0] for f, v in t.items()}
+           for k, t in times.items()}
+    # the trilinear forms' bounds on the holds' inputs, the plain
+    # versions' Philox samples counted (SweepCount), the clustered sum's
+    # and R's sweeps priced on their checking launches' skips
+    uv = cfg.uv_tau_steps
+    r_ops = kernel_ops("vrl_r", sweeps["r"], True, True, uv, tri=True)
+    c_ops = kernel_ops("vrl_sum_clustered", sweeps["clustered"], True, True,
+                       uv, tri=True)
+    bounds = {
+        "sum": bound(kernel_ops("vrl_sum", sweeps["sum"], True, True, uv,
+                                tri=True), nbytes(*sub_t) + 3 * len(hold) * 4),
+        "r": bound(plane_ops(r_ops, sweeps["r"], r_counts),
+                   nbytes(*packs_rt) + 2 * n_rep * n_vrls * 4),
+        "clustered": bound(plane_ops(c_ops, sweeps["clustered"],
+                                     sub_c_counts),
+                           nbytes(*sub_ct, tv, tw, *sub_tiles)
+                           + 3 * len(idx) * 4)}
+    ms_of = {"sum": med["sum sample"]["trilinear"], "r": med["r"]["trilinear"],
+             "clustered": med["clustered sample"]["trilinear"]}
+
+    # the nearest forms' outputs against the parent's (kernel_digest.py
+    # --grid)
+    digests = kernel_digest.grid_digests(dev)
+    check(digests == PARENT_DIGESTS_GRID, "the nearest grid forms' outputs "
+          f"differ from the parent's: {digests}")
+    print(f"[46 trilinear grid kernels on {card}, config 4 with "
+          f"fast_tau=False: B={n_rays} N={n_vrls} P={n_rep} S={tv.shape[0]} "
+          f"C={n_cols}, density {tuple(packs_t[4].shape)} read trilinearly; "
+          f"kernel 3 held on every {stride}th ray ({len(hold)}), kernel 4 on "
+          f"slices {int(rows[0])}-{int(rows[n_sl - 1])} ({len(idx)} rays), "
+          f"kernel 6 on all {n_rep} representatives] " + " | ".join(results)
+          + f" | checking launches: clustered {check_line(c_counts)}; R "
+          f"{check_line(r_counts)}; the clustered hold's "
+          f"{check_line(sub_c_counts)} | main path: render_alvrl and the "
+          f"unclustered render of the fast_tau=False medium, trilinear "
+          f"launches vrl_sum_hetero {tri_launches[0]} vrl_r_hetero "
+          f"{tri_launches[1]} vrl_sum_hetero_clustered {tri_launches[2]}, "
+          f"unclustered image mean {float(img_u.mean()):.6f} vs the nearest "
+          f"form's {float(img_n.mean()):.6f} on the same VRLs (ratio "
+          f"{mean_ratio:.5f}), its sums vs plain on the hold median "
+          f"{main_bar[0]:.2e} share {main_bar[1]:.4f} | ms (CUDA events, "
+          "nearest / trilinear, in turns): " + "; ".join(
+              f"{k} {m['nearest']:.4f} / {m['trilinear']:.4f} "
+              f"(x{m['trilinear'] / m['nearest']:.2f})" for k, m in med.items())
+          + " | on the holds' inputs: plain " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in plain_ms.items()) + "; bounds "
+          + ", ".join(f"{k} {b[0]:.4f} ms by {b[1]}" for k, b in bounds.items())
+          + f" | nearest forms' digests (kernel_digest.py --grid) the "
+          f"parent's: {len(digests)} equal | "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 47. oriented media through volpath; the quadrature sampler against
+    # Woodcock in the VRL render; the refusals
+    t47 = time.perf_counter()
+    vcfg = volpath.VolpathConfig(max_depth=ORIENT_DEPTH, only_vrl_paths=False)
+    orient = []
+    for label, kind, sampling in (("microflake/Woodcock", ph.MICROFLAKE, 0),
+                                  ("Kajiya-Kay/quadrature", ph.KKAY, 1)):
+        o_scene = oriented_scene(scene, kind, sampling, dev)
+        t0 = time.perf_counter()
+        o_img = volpath.render_volpath(
+            o_scene, torch.Generator(device=dev).manual_seed(47),
+            spp=ORIENT_SPP, cfg=vcfg)
+        torch.cuda.synchronize()
+        o_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(o_img.shape) == (ORIENT_SIZE, ORIENT_SIZE, 3)
+              and bool(torch.isfinite(o_img).all())
+              and float(o_img.mean()) > 0.0,
+              f"volpath on the {label} medium: finite, non-zero")
+        orient.append(f"{label} mean {float(o_img.mean()):.6f} "
+                      f"{o_ms:.0f} ms")
+    q_scene = presets.cornell_grid_smoke(QUAD_SIZE, QUAD_SIZE,
+                                         grid_res=C4_GRID, device=dev)
+    means = {}
+    for sampling in (0, 1):
+        sc = replace(q_scene, medium=replace(q_scene.medium,
+                                             sampling=sampling))
+        for k in range(QUAD_SEEDS):
+            g = torch.Generator().manual_seed(470 + k)
+            v = vrl.compact(tracer.trace(sc, g, C4_PARAMS["num_particles"],
+                                         c4["tcfg"]),
+                            C4_PARAMS["vrl_target_num"],
+                            slots_per_particle=C4_DEPTH)
+            means.setdefault(sampling, []).append(float(
+                integrator.render_with_vrls_kernel(sc, v, g, cfg).mean()))
+    mw, mq = (np.array(means[s]) for s in (0, 1))
+    se = math.sqrt(mw.var(ddof=1) / len(mw) + mq.var(ddof=1) / len(mq))
+    z = abs(mq.mean() - mw.mean()) / max(se, 1e-30)
+    check(z < QUAD_Z, f"sampling=1 vs Woodcock image means: z {z} "
+          f"({means})")
+    refusals = []
+    for what, fn, item in (
+            ("an oriented medium in render_with_vrls_kernel", lambda: (
+                integrator.render_with_vrls_kernel(
+                    oriented_scene(scene, ph.MICROFLAKE, 0, dev), vrls,
+                    torch.Generator(), cfg)), "only volpath"),
+            ("fast_tau=False in render_with_vrls_kernel_diff", lambda: (
+                integrator.render_with_vrls_kernel_diff(
+                    tri_scene, vrls, torch.Generator(), cfg)),
+             "ROADMAP A14")):
+        try:
+            fn()
+        except ValueError as e:
+            check(item in str(e), f"{what}: {e}")
+            refusals.append(f"{what}: ValueError ({item})")
+        else:
+            check(False, f"{what} was not refused")
+    print(f"[47 oriented media and the quadrature sampler on {card}] volpath "
+          f"on config 4's plume at {ORIENT_RES}^3 with a swirl of fibers, "
+          f"{ORIENT_SIZE}x{ORIENT_SIZE}, {ORIENT_SPP} spp, depth "
+          f"{ORIENT_DEPTH}: " + "; ".join(orient) + f" | the VRL render of "
+          f"config 4's plume at {QUAD_SIZE}x{QUAD_SIZE} from VRLs of each "
+          f"sampler, {QUAD_SEEDS} seeds: Woodcock mean {mw.mean():.6f}, "
+          f"sampling=1 {mq.mean():.6f}, z {z:.2f} | refusals: "
+          + "; ".join(refusals) + f" | {time.perf_counter() - t47:.1f} s",
+          flush=True)
+
+    def entry(name, src, line, n, key):
+        return {"name": name, "route": "cuda",
+                "source": f"alvrl_tpu_torch/csrc/{src}",
+                "replaces": f"alvrl_tpu/ops/vrl_pallas.py:{line}",
+                "launches": n, "max_abs_err": errs[key], "ms": ms_of[key],
+                "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None}
+
+    return [entry("vrl_sum_hetero trilinear", "vrl_sum.cu", 863,
+                  tri_launches[0], "sum"),
+            entry("vrl_r_hetero trilinear", "vrl_r.cu", 1082,
+                  tri_launches[1], "r"),
+            entry("vrl_sum_hetero_clustered trilinear",
+                  "vrl_sum_clustered.cu", 937, tri_launches[2], "clustered")]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -5554,6 +5997,7 @@ def main():
     probe_kernels = gather_probes(dev, card)
     glossy_kernels_line = scene_path(dev, card, vrls)
     sky_kernels_line = sky_path(dev, card)
+    tri_kernels = grid_options(dev, card, cfg, c4)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -5571,7 +6015,7 @@ def main():
         "bound_by": bwd_bound[1], "library_ms": None,
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
         bvh_kernel, *probe_kernels, *glossy_kernels_line,
-        *sky_kernels_line]}))
+        *sky_kernels_line, *tri_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -59,6 +59,7 @@ from alvrl_tpu_torch.ops.vrl_sum_bwd import (
     vrl_sum_bwd_reference,
     vrl_sum_hetero_bwd,
     vrl_sum_hetero_bwd_reference,
+    vrl_sum_hetero_diff,
 )
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     philox_table_uniforms,
@@ -78,6 +79,7 @@ from alvrl_tpu_torch.ops.vrl_sum_clustered_bwd import (
 from alvrl_tpu_torch.parallel.render import PARAMS, train_step
 from alvrl_tpu_torch.scene import presets
 from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+from alvrl_tpu_torch.sensors import perspective
 from alvrl_tpu_torch.scripts import probe_gather as probe
 from torch_port_utils import chain_bvh_pack  # tests/ is on the path
 
@@ -725,10 +727,11 @@ def test_cuda_clustered_kernels_keep_their_tiles(cuda):
 # --- the grid-medium kernels -------------------------------------------------
 
 
-def _grid_packs(device, phase_kind=0, grid_res=8):
+def _grid_packs(device, phase_kind=0, grid_res=8, fast_tau=True):
     """The ragged 20x13 eye rays x 77 VRLs (7 invalid) of _ragged_packs
     in cornell_grid_smoke (grid_res^3 grid): the grid packs and the
-    supersampled density."""
+    supersampled density (with fast_tau False, the trilinear packs and
+    the density itself)."""
     vrls = _bench_vrls(device)
     valid = vrls.valid[:77].clone()
     valid[3::11] = False
@@ -737,7 +740,8 @@ def _grid_packs(device, phase_kind=0, grid_res=8):
     scene = presets.cornell_grid_smoke(20, 13, grid_res=grid_res,
                                        device=device)
     scene = replace(scene, medium=replace(scene.medium,
-                                          phase_kind=phase_kind))
+                                          phase_kind=phase_kind,
+                                          fast_tau=fast_tau))
     return integrator.pack_frame(scene, vrls)[3]
 
 
@@ -843,6 +847,147 @@ def test_cuda_render_alvrl_in_a_grid_launches_the_grid_kernels(cuda):
     assert vrl_sum_hetero_clustered.launches == c + 1 + fallback
     assert img.is_cuda and img.shape == (16, 16, 3)
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+
+
+# --- the trilinear forms of kernels 3, 4 and 6 (fast_tau=False) -----------
+
+
+@pytest.mark.parametrize("kernel", sorted(GRID_LAUNCHES))
+@pytest.mark.parametrize("kind", [0, 1], ids=["hg", "rayleigh"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+@pytest.mark.parametrize("short_vrls", [True, False], ids=["short", "long"])
+def test_cuda_trilinear_grid_kernels_match_plain(cuda, kernel, kind,
+                                                 injected, short_vrls):
+    """Each grid kernel's trilinear form (the trilinear medium pack and the
+    8^3 density itself) vs its plain version on the ragged shapes, every
+    template, at the homogeneous bar; its launch counted on the wrapper
+    and on its tri_launches."""
+    packs = _grid_packs(cuda, kind, fast_tau=False)
+    assert pk.is_trilinear(packs[3]) and tuple(packs[4].shape) == (8, 8, 8)
+    fn = GRID_LAUNCHES[kernel]
+    before = (fn.launches, fn.tri_launches)
+    out, ref, rows = _grid_case(cuda, kernel, packs, injected, 78,
+                                short_vrls, kind)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tri_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    if kernel == "r":
+        median, share = homog_bar(out[0], ref[0], channels=1)
+        nz = ref[1] > R_VAR_FLOOR
+        assert float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median()) \
+            < R_VAR_MEDIAN
+    else:
+        median, share = homog_bar(out.T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    if rows is not None:
+        assert not out[:, torch.as_tensor(rows < 0, device=cuda)].any()
+
+
+@pytest.mark.parametrize("kernel", sorted(GRID_LAUNCHES))
+def test_cuda_trilinear_form_is_not_the_nearest(cuda, kernel):
+    """The same rays, VRLs and seed through the nearest and the trilinear
+    form give different sums (each form reads its own grid), and the
+    trilinear form repeats bit for bit."""
+    near = _grid_case(cuda, kernel, _grid_packs(cuda), False, 5, True, 0)[0]
+    packs = _grid_packs(cuda, fast_tau=False)
+    a = _grid_case(cuda, kernel, packs, False, 5, True, 0)[0]
+    b = _grid_case(cuda, kernel, packs, False, 5, True, 0)[0]
+    assert torch.equal(a, b) and not torch.equal(a, near)
+
+
+TRI_CHECKS = {"clustered": (vrl_sum_hetero_clustered,
+                             vrl_sum_hetero_clustered_check),
+              "r": (vrl_r_hetero, vrl_r_hetero_check)}
+
+
+@pytest.mark.parametrize("kernel", sorted(TRI_CHECKS))
+def test_cuda_trilinear_pre_reject_agrees_with_the_wald_test(cuda, kernel):
+    """The trilinear forms' checking instantiations (kernels 4 and 6): no
+    skipped triangle blocks, no segment is decided differently (the
+    pre-reject does not read the density), and the output is the
+    trilinear kernel's."""
+    packs = _grid_packs(cuda, fast_tau=False)
+    fn, check_fn = TRI_CHECKS[kernel]
+    args = packs
+    if kernel == "clustered":
+        args = (*packs, *_tables(cuda, packs[0].shape[1], packs[1].shape[1]))
+    out, counts = check_fn(*args, seed=21)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0, counts
+    assert counts["considered"] > counts["skipped"] > 0
+    ref = fn(*args, seed=21)
+    if kernel == "r":
+        out, ref = out[0], ref[0]
+    median, share = (homog_bar(out, ref, channels=1) if kernel == "r"
+                     else homog_bar(out.T, ref.T))
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_backward_grid_kernels_refuse_the_trilinear_pack(cuda):
+    """Kernels 9 and 11 read the supersample by nearest lookup: their
+    wrappers, the differentiable entries and the routes refuse a
+    fast_tau=False medium, naming ROADMAP A14."""
+    packs = _grid_packs(cuda, fast_tau=False)
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.ones((3, n_rays), device=cuda)
+    tables = _tables(cuda, n_rays, n_vrls)
+    for call in (lambda: vrl_sum_hetero_bwd(*packs, gbar),
+                 lambda: vrl_sum_hetero_diff(*packs),
+                 lambda: cbwd.vrl_sum_hetero_clustered_diff(*packs, *tables)):
+        with pytest.raises(ValueError, match="ROADMAP A14"):
+            call()
+    scene = presets.cornell_grid_smoke(8, 8, grid_res=8, device=cuda)
+    scene = replace(scene, medium=replace(scene.medium, fast_tau=False))
+    with pytest.raises(ValueError, match="ROADMAP A14"):
+        integrator.render_with_vrls_kernel_diff(
+            scene, _bench_vrls(cuda), torch.Generator())
+
+
+def _oriented_scene(device, kind, sampling=0):
+    """cornell_grid_smoke 8x8 with an oriented medium over a uniform fiber
+    field along y."""
+    from alvrl_tpu_torch.media import heterogeneous as gmed
+
+    scene = presets.cornell_grid_smoke(8, 8, grid_res=6, device=device)
+    med = scene.medium
+    orient = torch.zeros((6, 6, 6, 3), device=device)
+    orient[..., 1] = 1.0
+    return replace(scene, medium=gmed.make_grid_medium(
+        med.density, med.sigma_t_color, med.albedo, box_min=med.box_min,
+        box_max=med.box_max, phase_kind=kind, orientation=orient,
+        sampling=sampling, device=device))
+
+
+@pytest.mark.parametrize("kind", [2, 3], ids=["kkay", "microflake"])
+def test_cuda_volpath_renders_oriented_media(cuda, kind):
+    """volpath on the card in a Kajiya-Kay or micro-flake medium (the
+    micro-flake one with Woodcock tracking of its directional
+    extinction, the Kajiya-Kay one with the quadrature sampler): a
+    finite, non-zero image."""
+    from alvrl_tpu_torch.integrators import volpath
+
+    img = volpath.render_volpath(
+        _oriented_scene(cuda, kind, sampling=int(kind == 2)),
+        torch.Generator(device=cuda).manual_seed(0), spp=2,
+        cfg=volpath.VolpathConfig(max_depth=4, only_vrl_paths=False))
+    assert img.is_cuda and torch.isfinite(img).all()
+    assert float(img.mean()) > 0.0
+
+
+def test_cuda_vrl_routes_refuse_oriented_media(cuda):
+    """Only volpath renders an oriented medium, as in the JAX package: the
+    VRL tracer and the kernel routes raise."""
+    scene = _oriented_scene(cuda, 3)
+    vrls = _bench_vrls(cuda)
+    for call in (lambda: tracer.trace(scene, torch.Generator(), 4),
+                 lambda: integrator.render_with_vrls_kernel(
+                     scene, vrls, torch.Generator()),
+                 lambda: integrator.build_R_kernel(
+                     scene, *perspective.sample_ray(
+                         scene.camera, torch.arange(4, device=cuda),
+                         torch.zeros(4, dtype=torch.int64, device=cuda)),
+                     vrls, 0)):
+        with pytest.raises(ValueError, match="only volpath"):
+            call()
 
 
 # --- kernels 4 and 6: the plane pre-reject in a grid medium, R's tiles -------

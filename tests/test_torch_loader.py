@@ -631,6 +631,18 @@ def test_unported_materials_are_refused_by_name(kind):
         loader.build_scene(desc, device=CPU)
 
 
+@pytest.mark.parametrize("phase", ["kkay", "microflake"])
+def test_oriented_phase_types_are_unknown_to_both_loaders(phase):
+    """Neither loader builds an oriented phase function (the JAX package's
+    maps hg, isotropic and rayleigh only): both refuse kkay and
+    microflake as an unknown type, the port naming it."""
+    desc = dict(SCENE, medium=dict(SCENE["medium"], phase=phase))
+    with pytest.raises(KeyError):
+        jloader.build_scene(json.loads(json.dumps(desc)))
+    with pytest.raises(ValueError, match=f"unknown phase type '{phase}'"):
+        loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
+
+
 def test_rough_coat_at_eta_one_transmits_everything():
     """C15: with no interface (eta 1) the rough coat's table is 1, where
     the JAX package's sampler divides by a vanishing half-vector."""

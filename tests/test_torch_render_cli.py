@@ -119,25 +119,14 @@ def test_xml_scene_writes_render_progressive(tmp_path):
     assert np.array_equal(image.read_pfm(out), ref)
 
 
-# a scene file of an oriented phase function, which the loader refuses
-ORIENTED = "oriented.json"
-
-
 @pytest.mark.parametrize("args, item", [
-    (["-i", "bdpt"], "A11"), (["-i", "volpath", ORIENTED], "A10"),
+    (["-i", "bdpt"], "A11"), (["-i", "pssmlt"], "A11"),
     (["-o", "x.exr"], "A11"), (["-o", "x.jpg"], "A11")])
 def test_refusals_name_the_roadmap_item(scene_json, args, item):
-    """An integrator, an output format or (ORIENTED: -i volpath on a
-    Kajiya-Kay medium, since the volumetric path tracer is ported) a
-    scene that the port does not take exits naming its ROADMAP item."""
-    scene = scene_json
-    if ORIENTED in args:
-        scene = scene_json.parent / ORIENTED
-        desc = dict(SCENE, medium=dict(SCENE["medium"], phase="kkay"))
-        scene.write_text(json.dumps(desc))
-        args = [a for a in args if a != ORIENTED]
+    """An integrator or an output format that the port does not take
+    exits naming its ROADMAP item."""
     with pytest.raises(SystemExit) as e:
-        render_cli.main([str(scene), "--cpu", "-D", "fov=70", *args])
+        render_cli.main([str(scene_json), "--cpu", "-D", "fov=70", *args])
     assert f"ROADMAP {item}" in str(e.value.code)
 
 

@@ -118,7 +118,9 @@ SEQ_UNIFORMS = (0.3, 0.7, 0.62, 0.41, 0.23, 0.77)
 
 def jax_medium_leaves(med):
     """The leaves of an alvrl_tpu medium that convert.scene_from_numpy
-    reads: a homogeneous medium's, or an unoriented grid medium's."""
+    reads: a homogeneous medium's, or a grid medium's with its options
+    (fast_tau, sampling, sigma_dir_max) and, where it has them, its
+    orientation volume and oriented phase parameters."""
     if hasattr(med, "sigma_t_color"):
         keys = ("density", "sigma_t_color", "albedo", "g", "box_min",
                 "box_max", "scale")
@@ -126,6 +128,17 @@ def jax_medium_leaves(med):
         keys = ("sigma_a", "sigma_s", "g", "sampling_weight")
     out = {f"medium.{k}": np.asarray(getattr(med, k)) for k in keys}
     out["medium.phase_kind"] = med.phase_kind
+    if hasattr(med, "sigma_t_color"):
+        out["medium.fast_tau"] = bool(med.fast_tau)
+        out["medium.sampling"] = int(med.sampling)
+        if med.sigma_dir_max is not None:
+            out["medium.sigma_dir_max"] = np.asarray(med.sigma_dir_max)
+        if med.orientation is not None:
+            out["medium.orientation"] = np.asarray(med.orientation)
+        pp = med.phase_params
+        for k in ("ks", "kd", "exponent", "norm", "stddev", "sigma_t_lut"):
+            if pp is not None and getattr(pp, k) is not None:
+                out[f"medium.phase_params.{k}"] = np.asarray(getattr(pp, k))
     if not hasattr(med, "sigma_t_color"):
         out["medium.strategy"] = med.strategy
         out["medium.channel"] = med.channel
@@ -220,7 +233,7 @@ def jax_emission_uniforms(k_emit, pmf=None):
 
 
 def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
-                        pmf=None):
+                        pmf=None, quadrature=False):
     """The uniforms alvrl_tpu's tracer.trace(scene, key, num_particles,
     TracerConfig(max_depth=...)) draws, rebuilt from its key tree, in
     the layout of the port's trace_u: u_emit (P, N_EMIT_DIMS) and u_walk
@@ -234,7 +247,10 @@ def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
     emitter pmf, for a scene of several emitters); walk -> one key per
     depth (:240) -> (distance, phase, bsdf, roulette) (:127); distance ->
     two scalar uniforms (homogeneous.py:144-146), phase -> uniform2,
-    bsdf -> N_SAMPLE_DIMS uniforms (bsdf/api.py:337), roulette -> one."""
+    bsdf -> N_SAMPLE_DIMS uniforms (bsdf/api.py:337), roulette -> one.
+    With quadrature (a grid medium of sampling 1), the first distance
+    column is the distance key's own uniform, which
+    sample_distance_quadrature draws (heterogeneous.py:515)."""
     import jax
     import jax.numpy as jnp
 
@@ -242,7 +258,8 @@ def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
         k_dist, k_phase, k_bsdf, k_rr = jax.random.split(k, 4)
         k1, k2 = jax.random.split(k_dist)
         u = jnp.concatenate([
-            jax.random.uniform(k1, (1,)), jax.random.uniform(k2, (1,)),
+            jax.random.uniform(k_dist if quadrature else k1, (1,)),
+            jax.random.uniform(k2, (1,)),
             jax.random.uniform(k_phase, (2,)),
             jax.random.uniform(k_bsdf, (5,)), jax.random.uniform(k_rr, (1,))])
         if not tracking_steps:
@@ -261,44 +278,54 @@ def jax_tracer_uniforms(key, num_particles, max_depth, tracking_steps=0,
     return np.asarray(u_emit), np.asarray(u_walk)
 
 
-def jax_volpath_step_uniforms(k, tracking_steps=0):
+def jax_volpath_step_uniforms(k, tracking_steps=0, quadrature=False,
+                              sir=False):
     """One step's uniforms of alvrl_tpu's li_volpath from its key k, in
     the port's volpath layout: k splits into (distance, direct, phase,
     bsdf, roulette, unused) (volpath.py:129); distance -> two scalar
     uniforms (homogeneous.py:144-146), direct -> uniform (3,), phase ->
     uniform2, bsdf -> N_SAMPLE_DIMS, roulette -> one; with
-    tracking_steps, also the Woodcock rows of the distance key."""
+    tracking_steps, also the Woodcock rows of the distance key; with
+    quadrature (sampling 1), the distance key's own uniform in the first
+    column (heterogeneous.py:515); with sir, also the micro-flake
+    sample's (16, 3) uniforms of the phase key (volpath.py:206). Returns
+    (u, u_track, u_sir), the last two empty where not asked for."""
     import jax
     import jax.numpy as jnp
 
     k_dist, k_nee, k_phase, k_bsdf, k_rr, _ = jax.random.split(k, 6)
     k1, k2 = jax.random.split(k_dist)
     u = jnp.concatenate([
-        jax.random.uniform(k1, (1,)), jax.random.uniform(k2, (1,)),
+        jax.random.uniform(k_dist if quadrature else k1, (1,)),
+        jax.random.uniform(k2, (1,)),
         jax.random.uniform(k_nee, (3,)), jax.random.uniform(k_phase, (2,)),
         jax.random.uniform(k_bsdf, (5,)), jax.random.uniform(k_rr, (1,))])
-    if not tracking_steps:
-        return u, jnp.zeros((0, 2))
-    return u, jax_tracking_uniforms(k_dist, tracking_steps)
+    u_track = (jax_tracking_uniforms(k_dist, tracking_steps)
+               if tracking_steps else jnp.zeros((0, 2)))
+    u_sir = (jax.random.uniform(k_phase, (16, 3)) if sir
+             else jnp.zeros((0, 3)))
+    return u, u_track, u_sir
 
 
-def jax_volpath_uniforms(keys, n_steps, tracking_steps=0):
+def jax_volpath_uniforms(keys, n_steps, tracking_steps=0, quadrature=False,
+                         sir=False):
     """The uniforms alvrl_tpu's li_volpath draws from each ray's key
     (keys: (B,) keys), rebuilt in the layout of the port's li_volpath_u:
     u (B, n_steps, N_STEP_DIMS) and, with tracking_steps, u_track (B,
-    n_steps, tracking_steps, 2), as numpy arrays. A ray's key splits
-    into one key a step (volpath.py:449), each step's as
-    jax_volpath_step_uniforms."""
+    n_steps, tracking_steps, 2), and with sir, u_sir (B, n_steps, 16,
+    3), as numpy arrays: u alone, or a tuple of u and those asked for.
+    A ray's key splits into one key a step (volpath.py:449), each
+    step's as jax_volpath_step_uniforms."""
     import jax
 
     def ray(k):
         return jax.vmap(lambda kk: jax_volpath_step_uniforms(
-            kk, tracking_steps))(jax.random.split(k, n_steps))
+            kk, tracking_steps, quadrature, sir))(
+                jax.random.split(k, n_steps))
 
-    u, u_track = jax.vmap(ray)(keys)
-    if tracking_steps:
-        return np.asarray(u), np.asarray(u_track)
-    return np.asarray(u)
+    u, u_track, u_sir = (np.asarray(a) for a in jax.vmap(ray)(keys))
+    extra = (u_track,) * bool(tracking_steps) + (u_sir,) * sir
+    return (u, *extra) if extra else u
 
 
 def jax_render_keys(key, spp, n_rays, ray_tile=4096):
