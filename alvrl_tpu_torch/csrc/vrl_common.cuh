@@ -7,8 +7,8 @@
 // clustered tables' staging (stage_table_piece), the two samplers of the
 // estimator, the two media (homogeneous, Medium; grid, GridMedium), the
 // estimator itself (pair_terms, templated on the medium and, for the
-// material instantiations of kernels 1, 2 and 5, on MAT: the eye hit's
-// smooth BSDF, eval_smooth over the material table), its cotangents
+// material instantiations of kernels 1-7, on MAT: the eye hit's smooth
+// BSDF, eval_smooth over the material table), its cotangents
 // (vol_vol_cot / vol_surf_cot, one overload per medium) and the
 // backwards' fixed-order reductions. The backward replays the forward's
 // samples, so all kernels take them from the same loop here
@@ -215,11 +215,12 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, i
 // eta, alpha, alpha_v, distribution, specular (3), exponent, opacity,
 // nested, nested2, albedo2 (3), the rough-transmittance table's alpha
 // span, the smooth flag (0/1); the ray pack's material-id row (MATID,
-// after the RAY_ROWS rows) and the rough-transmittance tables' shape
+// after the RAY_ROWS rows; GRID_MATID in the grid ray pack, after its
+// eye-OD rows) and the rough-transmittance tables' shape
 constexpr int MT_KIND = 0, MT_ALB = 1, MT_ETA = 4, MT_ALPHA = 5, MT_ALPHA_V = 6, MT_DIST = 7,
               MT_SPEC = 8, MT_EXP = 11, MT_OPAC = 12, MT_NESTED = 13, MT_NESTED2 = 14,
               MT_ALB2 = 15, MT_RT_AMAX = 18, MT_SMOOTH = 19, MAT_COLS = 20;
-constexpr int MATID = 19;
+constexpr int MATID = 19, GRID_MATID = EOD + NQ + 1;
 constexpr int MAX_MATS = 256;  // shared memory: 20 KB of material rows
 constexpr int RT_COS = 16, RT_ALPHA = 8;
 // material kinds (scene/scene.py) and microfacet distributions
@@ -257,12 +258,14 @@ __device__ __forceinline__ Mats stage_mats(const float* __restrict__ mat_table, 
   return Mats{s_mat, rt, M};
 }
 
-// The eye ray of a MAT kernel: its hit's material id, and the vol-surf
+// The eye ray of a MAT kernel: its hit's material id (row MATID of the
+// homogeneous ray pack, GRID_MATID of the grid one), and the vol-surf
 // gate set to the material's smooth flag (in place of a non-zero diffuse
 // albedo).
+template <bool GRID = false>
 __device__ __forceinline__ void attach_mat(Ray& ray, const float* __restrict__ rays, int B, int b,
                                            const Mats& mats) {
-  ray.mat = mats.clamp_id(rays[(size_t)MATID * B + b]);
+  ray.mat = mats.clamp_id(rays[(size_t)(GRID ? GRID_MATID : MATID) * B + b]);
   ray.alb_any = mats.row(ray.mat)[MT_SMOOTH] > 0.5f;
 }
 
@@ -1338,6 +1341,27 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium<UV, TRI>& gm, con
             expf(-m[G_SIG_T + ch] * od) * geo;
 }
 
+// The vol-surf term of the material kernels in the grid medium: the grid
+// vol_surf_term with the hit's eval_smooth(-ray_d, -vu) (f cos_o, per
+// channel) in place of the diffuse albedo times cos_o / pi.
+template <int PHASE, bool SHORT_VRLS, int UV, bool TRI>
+__device__ __forceinline__ void vol_surf_term_mat(const GridMedium<UV, TRI>& gm, const Ray& ray,
+                                                  const VrlPair& p, const Sample& sm,
+                                                  const Mats& mats, float t[3]) {
+  const float* m = gm.m;
+  const f3 fv = eval_smooth(mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f);
+  const float f[3] = {fv.x, fv.y, fv.z};
+  const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
+  const float od = uv_od(gm, ray.hp, sm.vp, sm.d_uv) + od_sv;
+  const float dens_v = gm.density(sm.vp);
+  float geo = phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den;
+  if (SHORT_VRLS) geo = geo / gm.pdf_failure(od_sv);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    t[ch] = p.pw[ch] * (m[G_SIG_S + ch] * dens_v) * f[ch] * ray.tau[ch] *
+            expf(-m[G_SIG_T + ch] * od) * geo;
+}
+
 // The medium of a kernel instantiation: Medium read from the pack `med`
 // (homogeneous; EXT: with the pack's extension, as kernels 1, 2 and 5
 // read it), or GridMedium<UV, TRI> on the pack staged at s_med.
@@ -1411,9 +1435,9 @@ __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, P
 // GridMedium), which differ only in the terms of a sample: for each
 // sample of pair_samples, emit(family, t) with t[3] the raw per-sample
 // contribution (not divided by the family's sample count). MAT (the
-// homogeneous material kernels, with their table `mats`): the vol-surf
-// term evaluates the hit's smooth BSDF (vol_surf_term_mat); MAT = false
-// is the diffuse term, unchanged.
+// material kernels, with their table `mats`, in either medium): the
+// vol-surf term evaluates the hit's smooth BSDF (vol_surf_term_mat);
+// MAT = false is the diffuse term, unchanged.
 template <int PHASE, bool SHORT_VRLS, bool MAT = false, class Med, class Occl, class Emit>
 __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
                                            PairUniforms& draw, int svv, int svs, const Occl& occl,

@@ -68,10 +68,12 @@
 // luminance of vrl_sum's out[:, p] on the same rays and seed (up to f32
 // summation order). `uniforms`, when given, is read instead, as (P, N,
 // 2 * svv + svs) float32.
-// The homogeneous R also has a material instantiation (MAT) for glossy and
+// Both R kernels also have a material instantiation (MAT) for glossy and
 // layered surfaces at the eye hit, as vrl_sum.cu's kernel 1
-// (vrl_common.cuh eval_smooth); its lanes are VRLs against one ray, so a
-// warp evaluates one material and does not diverge in the eval.
+// (vrl_common.cuh eval_smooth; the grid one nearest or TRI at the
+// run-time step count, ROADMAP C21); their lanes are VRLs against one
+// ray, so a warp evaluates one material and does not diverge in the
+// eval.
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -127,9 +129,11 @@ __device__ __forceinline__ void r_pair(const Ray& ray, int b, int B, int n, int 
   out[((size_t)B + b) * N + n] = var;
 }
 
-// tris: the triangles' plane pack, as sweep_floats<true>. MAT (homogeneous
-// only): the material instantiation (vrl_sum.cu's vrl_sum_plane_kernel),
-// its M material rows staged after the VRL chunk.
+// tris: the triangles' plane pack, as sweep_floats<true>. MAT: the
+// material instantiation (vrl_sum.cu's vrl_sum_plane_kernel), its M
+// material rows staged after the VRL chunk (grid: after the eye-OD
+// tables), each ray's material id read from its pack's MATID (grid:
+// GRID_MATID) row.
 template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool MAT, bool TRI = false>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_r_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls, int N,
@@ -138,7 +142,6 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                  const float* __restrict__ rt, const float* __restrict__ uniforms, uint32_t seed,
                  int svv, int svs, float* __restrict__ out,
                  unsigned long long* __restrict__ counts) {
-  static_assert(!(GRID && MAT), "the material instantiation is homogeneous");
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
   float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<true>(T)
@@ -170,10 +173,12 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       const int r = i / VRL_CHUNK, c = i % VRL_CHUNK;
       if (b0 + r >= B || c >= nc) continue;
       Ray ray = load_ray(rays, B, b0 + r);
+      if constexpr (MAT) attach_mat<true>(ray, rays, B, b0 + r, mats);
       ray.eod = s_etab + r * (NQ + 1);
       ray.eod_stride = 1;
-      r_pair<PHASE, SHORT_VRLS, GRID, false>(ray, b0 + r, B, n0 + c, N, c, s_vrl, m, occl,
-                                             uniforms, seed, svv, svs, out, nullptr);
+      r_pair<PHASE, SHORT_VRLS, GRID, MAT>(ray, b0 + r, B, n0 + c, N, c, s_vrl, m, occl,
+                                           uniforms, seed, svv, svs, out,
+                                           MAT ? &mats : nullptr);
     }
   } else {
     // ray r of the tile to warp r % N_WARPS, column c to lane c: the
@@ -229,7 +234,7 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
   const int n_chunks = (N + VRL_CHUNK - 1) / VRL_CHUNK;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) || !mode_ok<true>(mode, counts) ||
-      !mats_ok(mat_table, M, rt) || (GRID && M > 0))
+      !mats_ok(mat_table, M, rt))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
   if (pack != 0) return pack;
@@ -239,8 +244,12 @@ int launch_r(const float* rays, int B, const float* vrls, int N, const float* tr
   const int d = dispatch_read<GRID, true>(phase_kind, short_vrls, grid.uv_steps, trilinear,
                                           [&](auto phase, auto short_, auto uv, auto tri) {
     RKernel kernel = r_kernel<GRID, false>(phase, short_, uv, mode, tri);
-    if constexpr (!GRID)
-      if (M > 0) kernel = r_kernel<GRID, true>(phase, short_, uv, mode);
+    if (M > 0) {
+      if constexpr (GRID)  // the grid material forms: the run-time step count
+        kernel = r_kernel<GRID, true>(phase, short_, std::integral_constant<int, 0>{}, mode, tri);
+      else
+        kernel = r_kernel<GRID, true>(phase, short_, uv, mode);
+    }
     err = allow_smem(kernel, smem);
     if (err == cudaSuccess)
       kernel<<<blocks, RAY_BLOCK, smem, (cudaStream_t)stream>>>(
@@ -276,15 +285,19 @@ int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float*
 // The grid-medium R: the grid packs (ops/pack.py), the supersampled
 // density (nz, ny, nx) and the U-V quadrature's step count (trilinear 1:
 // the trilinear form, on the trilinear medium pack and the density
-// itself, each extent at least 2); the rest as alvrl_vrl_r.
+// itself, each extent at least 2); mat_table, M and rt: the material
+// table of the material form (either read, the run-time step count;
+// rays with the GRID_MATID row), or null, 0, null; the rest as
+// alvrl_vrl_r.
 int alvrl_vrl_r_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
-                       int T, const float* med, const float* density, int nz, int ny, int nx,
-                       int uv_steps, int trilinear, const float* uniforms, unsigned int seed,
-                       int svv, int svs, int short_vrls, int phase_kind, float* planes, int mode,
+                       int T, const float* med, const float* mat_table, int M, const float* rt,
+                       const float* density, int nz, int ny, int nx, int uv_steps,
+                       int trilinear, const float* uniforms, unsigned int seed, int svv, int svs,
+                       int short_vrls, int phase_kind, float* planes, int mode,
                        unsigned long long* counts, float* out, void* stream) {
   if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_r<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                        trilinear, nullptr, 0, nullptr, uniforms, seed, svv, svs, short_vrls,
+                        trilinear, mat_table, M, rt, uniforms, seed, svv, svs, short_vrls,
                         phase_kind, planes, mode, counts, out, stream);
 }
 

@@ -94,7 +94,13 @@
 //     the diffuse albedo cos / pi, its M table rows staged in shared
 //     memory after the VRL chunk; the diffuse instantiation is the
 //     unchanged code. Lanes are rays, so a warp's rays may hit different
-//     kinds and diverge in the eval.
+//     kinds and diverge in the eval. The grid sum has material forms too
+//     (vrl_sum_mat_kernel, nearest and trilinear, at the run-time step
+//     count and the plain launch bound: the grid vol_surf_term with
+//     eval_smooth, the table after the eye-OD tables, the id from the
+//     grid ray pack's GRID_MATID row), which the JAX package's XLA route
+//     computes and its Pallas kernel does not (ROADMAP C21); their plain
+//     version is vrl_sum_hetero_reference with `materials`.
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -102,14 +108,19 @@
 namespace {
 
 // The sum of a block (RAY_BLOCK rays x the chunk of VRLs blockIdx.y),
-// the body of both kernel templates below.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false>
+// the body of the kernel templates below. MAT: the material form, its M
+// table rows staged after the eye-OD tables (grid) and attached to the
+// ray (the grid ray pack's GRID_MATID row); MAT = false ignores
+// mat_table, M and rt.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false, bool MAT = false>
 __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
                                           const float* __restrict__ vrls, int N,
                                           const float* __restrict__ tris, int T,
                                           const float* __restrict__ med, GridArgs grid,
                                           const float* __restrict__ uniforms, uint32_t seed,
-                                          int svv, int svs, float* __restrict__ partial) {
+                                          int svv, int svs, float* __restrict__ partial,
+                                          const float* __restrict__ mat_table = nullptr,
+                                          int M = 0, const float* __restrict__ rt = nullptr) {
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
   float* s_tri = smem;                    // (T, TRI_COLS)
@@ -120,11 +131,15 @@ __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
   const int n0 = chunk * VRL_CHUNK;
   const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
+  Mats mats{};
+  if constexpr (MAT)  // (M, MAT_COLS)
+    mats = stage_mats(mat_table, M, rt, s_etab + (GRID ? (NQ + 1) * RAY_BLOCK : 0));
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   Ray ray = load_ray(rays, B, b);
+  if constexpr (MAT) attach_mat<GRID>(ray, rays, B, b, mats);
   stage_eod<GRID>(ray, rays, B, b, s_etab);
   const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
@@ -138,12 +153,14 @@ __device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
     const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
-                                  [&](int family, const float* t) {
-                                    const float inv = family == 0 ? inv_vv : inv_vs;
+    pair_terms<PHASE, SHORT_VRLS, MAT>(
+        ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
+        [&](int family, const float* t) {
+          const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-                                    for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-                                  });
+          for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+        },
+        &mats);
   }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
@@ -173,6 +190,21 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                        float* __restrict__ partial) {
   sum_block<PHASE, SHORT_VRLS, true, 0, true>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
                                               svv, svs, partial);
+}
+
+// ...the material forms (glossy and layered surfaces in a grid medium:
+// the eye hit's smooth BSDF, vrl_common.cuh eval_smooth), nearest or TRI,
+// at the run-time step count and the same launch bound...
+template <int PHASE, bool SHORT_VRLS, bool TRI>
+__global__ void __launch_bounds__(RAY_BLOCK)
+    vrl_sum_mat_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
+                       int N, const float* __restrict__ tris, int T,
+                       const float* __restrict__ med, GridArgs grid,
+                       const float* __restrict__ mat_table, int M, const float* __restrict__ rt,
+                       const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
+                       float* __restrict__ partial) {
+  sum_block<PHASE, SHORT_VRLS, true, 0, TRI, true>(rays, B, vrls, N, tris, T, med, grid, uniforms,
+                                                   seed, svv, svs, partial, mat_table, M, rt);
 }
 
 // ...and the grid instantiation compiled for UV steps, also bounded to
@@ -356,39 +388,55 @@ int launch_homog(const float* rays, int B, const float* vrls, int N, const float
   return (int)cudaGetLastError();
 }
 
-// dynamic shared memory of the sum, in bytes, with T triangles
+// dynamic shared memory of the sum, in bytes, with T triangles and M
+// material rows (0 but for the material forms)
 template <bool GRID>
-size_t sum_smem_bytes(int T) {
+size_t sum_smem_bytes(int T, int M = 0) {
   return (size_t)(T * TRI_COLS + (GRID ? GRID_VRL_ROWS : VRL_ROWS) * VRL_CHUNK +
-                  (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : 0)) *
+                  (GRID ? GRID_MED_LEN + (NQ + 1) * RAY_BLOCK : 0) + M * MAT_COLS) *
          sizeof(float);
 }
 
-// Launches the sum and the chunk reduction on `stream`; returns a
-// cudaError_t (0 = launched).
+// Launches the sum and the chunk reduction on `stream` (M > 0: the
+// grid material form, on the material table mat_table, M and rt);
+// returns a cudaError_t (0 = launched).
 template <bool GRID>
 int launch_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-               const float* med, GridArgs grid, int trilinear, const float* uniforms,
-               unsigned int seed, int svv, int svs, int short_vrls, int phase_kind, float* partial,
-               int n_chunks, float* out, void* stream) {
+               const float* med, GridArgs grid, int trilinear, const float* mat_table, int M,
+               const float* rt, const float* uniforms, unsigned int seed, int svv, int svs,
+               int short_vrls, int phase_kind, float* partial, int n_chunks, float* out,
+               void* stream) {
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
       (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
-      n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid))
+      n_chunks > MAX_GRID_Y || !grid_ok<GRID>(grid) || !mats_ok(mat_table, M, rt))
     return (int)cudaErrorInvalidValue;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  const size_t smem = sum_smem_bytes<GRID>(T);
+  const size_t smem = sum_smem_bytes<GRID>(T, M);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t attr = cudaSuccess;
-  dispatch_read<GRID>(phase_kind, short_vrls, grid.uv_steps, trilinear, [&](auto phase,
-                                                                            auto short_, auto uv,
-                                                                            auto tri) {
-    auto kernel = sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
-                             decltype(uv)::value, decltype(tri)::value>();
-    attr = allow_smem(kernel, smem);
-    if (attr == cudaSuccess)
-      kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms, seed,
-                                              svv, svs, partial);
-  });
+  if (M > 0) {
+    dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+      constexpr int P = decltype(phase)::value;
+      constexpr bool S = decltype(short_)::value;
+      auto kernel = trilinear ? &vrl_sum_mat_kernel<P, S, true> : &vrl_sum_mat_kernel<P, S, false>;
+      attr = allow_smem(kernel, smem);
+      if (attr == cudaSuccess)
+        kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, mat_table,
+                                                M, rt, uniforms, seed, svv, svs, partial);
+    });
+  } else {
+    dispatch_read<GRID>(phase_kind, short_vrls, grid.uv_steps, trilinear,
+                        [&](auto phase, auto short_, auto uv, auto tri) {
+                          auto kernel =
+                              sum_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
+                                         decltype(uv)::value, decltype(tri)::value>();
+                          attr = allow_smem(kernel, smem);
+                          if (attr == cudaSuccess)
+                            kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T,
+                                                                    med, grid, uniforms, seed,
+                                                                    svv, svs, partial);
+                        });
+  }
   if (attr != cudaSuccess) return (int)attr;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -450,16 +498,20 @@ int alvrl_plane_pack(const float* tris, int T, float* out, void* stream) {
 // The grid-medium sum: the grid packs (ops/pack.py), the supersampled
 // density (nz, ny, nx) and the U-V quadrature's step count; trilinear 1:
 // the trilinear form, on the trilinear medium pack and the density
-// itself (nz, ny, nx), each at least 2; the rest as alvrl_vrl_sum.
+// itself (nz, ny, nx), each at least 2; mat_table, M and rt: the
+// material table of the material form (either read, the run-time step
+// count), whose rays carry the hit's material id in row GRID_MATID (null,
+// 0, null: the diffuse sum); the rest as alvrl_vrl_sum.
 int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
-                         int T, const float* med, const float* density, int nz, int ny, int nx,
-                         int uv_steps, int trilinear, const float* uniforms, unsigned int seed,
-                         int svv, int svs, int short_vrls, int phase_kind, float* partial,
-                         int n_chunks, float* out, void* stream) {
+                         int T, const float* med, const float* mat_table, int M, const float* rt,
+                         const float* density, int nz, int ny, int nx, int uv_steps,
+                         int trilinear, const float* uniforms, unsigned int seed, int svv,
+                         int svs, int short_vrls, int phase_kind, float* partial, int n_chunks,
+                         float* out, void* stream) {
   if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_sum<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                          trilinear, uniforms, seed, svv, svs, short_vrls, phase_kind, partial,
-                          n_chunks, out, stream);
+                          trilinear, mat_table, M, rt, uniforms, seed, svv, svs, short_vrls,
+                          phase_kind, partial, n_chunks, out, stream);
 }
 
 // The sum's blocks resident on one SM for the instantiation a launch

@@ -6,7 +6,13 @@
 // estimators, (3, B) float32, not normalised by the particle count) with
 // no cap on the triangle count. Entry point alvrl_vrl_sum_bvh; plain
 // PyTorch twin ops/vrl_sum_bvh.py:vrl_sum_bvh_reference. Homogeneous
-// media only, as the TPU kernel.
+// media only, as the TPU kernel. Its extended forms
+// (vrl_sum_bvh_ext_kernel, the entry's ext 1) read the medium
+// pack with its extension (a strategy other than balance; PHASE 2, the
+// mixture) and, MAT, a material table (the eye hit's smooth BSDF), as
+// kernel 1 does, which the JAX package's XLA route computes and its
+// Pallas kernel does not (ROADMAP C16, C21); the forms on the plain pack
+// are unchanged.
 //
 // What bounds it on the H100: by its operations, fp32 ALU throughput
 // (per pair-sample the estimator's, about 150 float32 and 20
@@ -250,24 +256,38 @@ constexpr int N_COUNTS = 9;
 // measured 7-13 % faster on every bench scene on an H100 (PERF.md).
 constexpr int BVH_MIN_BLOCKS = 5;
 
-template <int PHASE, bool SHORT_VRLS, bool COUNT>
-__global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
-    vrl_sum_bvh_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
-                       int N, const float4* __restrict__ nodes, int n_nodes,
-                       const float* __restrict__ tris, const float* __restrict__ med,
-                       const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
-                       float* __restrict__ partial, unsigned long long* __restrict__ counts) {
+// The block's sum, the body of both kernels below. EXT: the medium pack
+// with its extension (the strategy's rate, a mixture's components; PHASE
+// 2 the mixture), as kernel 1 reads it; MAT: the material form, its M
+// table rows staged in dynamic shared memory in front of the stack and
+// attached to the ray (the MATID row), as kernel 1's; MAT = false
+// ignores mat_table, M and rt.
+template <int PHASE, bool SHORT_VRLS, bool COUNT, bool EXT, bool MAT>
+__device__ __forceinline__ void bvh_block(const float* __restrict__ rays, int B,
+                                          const float* __restrict__ vrls, int N,
+                                          const float4* __restrict__ nodes, int n_nodes,
+                                          const float* __restrict__ tris,
+                                          const float* __restrict__ med,
+                                          const float* __restrict__ uniforms, uint32_t seed,
+                                          int svv, int svs, float* __restrict__ partial,
+                                          unsigned long long* __restrict__ counts,
+                                          const float* __restrict__ mat_table = nullptr,
+                                          int M = 0, const float* __restrict__ rt = nullptr) {
   __shared__ float s_vrl[VRL_ROWS * VRL_CHUNK];  // the chunk's columns, VRL_CHUNK apart
-  extern __shared__ int s_stack[];               // (depth, RAY_BLOCK)
+  extern __shared__ int s_dyn[];  // MAT: (M, MAT_COLS) floats; then (depth, RAY_BLOCK)
+  int* s_stack = MAT ? s_dyn + M * MAT_COLS : s_dyn;
   const int chunk = blockIdx.y;
   const int n0 = chunk * BVH_VRL_CHUNK;
   const int nc = stage_block(tris, 0, vrls, N, n0, nullptr, s_vrl, VRL_ROWS, BVH_VRL_CHUNK);
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, reinterpret_cast<float*>(s_dyn));
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Ray ray = load_ray(rays, B, b);
-  const Medium m(med);
+  Ray ray = load_ray(rays, B, b);
+  if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
+  const Medium m = make_medium<false, 0, EXT>(med, nullptr, GridArgs{});
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -282,13 +302,15 @@ __global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
     const VrlPair p = pair_at<false>(ray, s_vrl, c);
     PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                       (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
-                                  [&](int family, const float* t) {
-                                    if (COUNT) ++n_open[family];
-                                    const float inv = family == 0 ? inv_vv : inv_vs;
+    pair_terms<PHASE, SHORT_VRLS, MAT>(
+        ray, p, m, draw, svv, svs, occl,
+        [&](int family, const float* t) {
+          if (COUNT) ++n_open[family];
+          const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-                                    for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-                                  });
+          for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+        },
+        &mats);
   }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
@@ -301,6 +323,58 @@ __global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
   }
 }
 
+// Kernel 7 on the medium pack (MED_LEN,): HG or Rayleigh, balance,
+// diffuse surfaces...
+template <int PHASE, bool SHORT_VRLS, bool COUNT>
+__global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
+    vrl_sum_bvh_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
+                       int N, const float4* __restrict__ nodes, int n_nodes,
+                       const float* __restrict__ tris, const float* __restrict__ med,
+                       const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
+                       float* __restrict__ partial, unsigned long long* __restrict__ counts) {
+  bvh_block<PHASE, SHORT_VRLS, COUNT, false, false>(rays, B, vrls, N, nodes, n_nodes, tris, med,
+                                                    uniforms, seed, svv, svs, partial, counts);
+}
+
+// ...and its forms on the extended medium pack (a strategy other than
+// balance; PHASE 2, the mixture) and, MAT, on a material table (glossy
+// and layered surfaces: the eye hit's smooth BSDF, vrl_common.cuh
+// eval_smooth), under the same launch bound.
+template <int PHASE, bool SHORT_VRLS, bool COUNT, bool MAT>
+__global__ void __launch_bounds__(RAY_BLOCK, BVH_MIN_BLOCKS)
+    vrl_sum_bvh_ext_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
+                           int N, const float4* __restrict__ nodes, int n_nodes,
+                           const float* __restrict__ tris, const float* __restrict__ med,
+                           const float* __restrict__ mat_table, int M,
+                           const float* __restrict__ rt, const float* __restrict__ uniforms,
+                           uint32_t seed, int svv, int svs, float* __restrict__ partial,
+                           unsigned long long* __restrict__ counts) {
+  bvh_block<PHASE, SHORT_VRLS, COUNT, true, MAT>(rays, B, vrls, N, nodes, n_nodes, tris, med,
+                                                 uniforms, seed, svv, svs, partial, counts,
+                                                 mat_table, M, rt);
+}
+
+// the host checks of a launch: its shapes, and its tree's
+// depth within the stack
+bool bvh_args_ok(int B, int N, int n_nodes, int T, int depth, int svv, int svs, int n_chunks) {
+  return B > 0 && N > 0 && n_nodes >= 0 && T >= 0 && (n_nodes == 0) == (T == 0) && depth >= 0 &&
+         depth <= BVH_STACK && svv >= 0 && svs >= 0 &&
+         n_chunks == (N + BVH_VRL_CHUNK - 1) / BVH_VRL_CHUNK && n_chunks <= MAX_GRID_Y;
+}
+
+// the stack: depth entries a thread (one for a tree that is one leaf,
+// which pushes none), in bytes; 32 KB a block at the deepest tree served
+size_t bvh_stack_bytes(int depth) { return (size_t)max(depth, 1) * RAY_BLOCK * sizeof(int); }
+
+// adds the block sums in chunk order into out (3, B)
+int bvh_reduce(const float* partial, int n_chunks, int B, float* out, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = 3 * B;
+  reduce_parts<float><<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,41 +384,61 @@ int alvrl_bvh_stack() { return BVH_STACK; }
 // The BVH-occlusion sum. nodes (n_nodes, 16) and tris (T, TRI_COLS) are
 // ops/vrl_sum_bvh.py:pack_bvh_tris' pack, depth its tree's depth (edges
 // from the root to the deepest leaf), partial (n_chunks, 3, B) with
-// n_chunks = ceil(N / BVH_VRL_CHUNK); the rest as alvrl_vrl_sum.
-// `counts`, when not null, selects the counting instantiation and
-// receives N_COUNTS totals (zeroed by the caller). Returns a cudaError_t
-// (0 = launched).
+// n_chunks = ceil(N / BVH_VRL_CHUNK); ext 1: the extended forms, on the
+// extended medium pack (ops/pack.py pack_medium: MED_LEN + 2 + 3 K
+// floats; phase_kind 0, 1 or 4, the mixture of the extension's K
+// components), and with mat_table (M, MAT_COLS), M and rt (M, RT_COS,
+// RT_ALPHA) their material form, whose rays carry the hit's material id
+// in row MATID; ext 0: the forms on the (MED_LEN,) pack, phase_kind 0 or
+// 1 and no table (null, 0, null); the rest as alvrl_vrl_sum. `counts`,
+// when not null, selects the counting instantiation and receives
+// N_COUNTS totals (zeroed by the caller). Returns a cudaError_t (0 =
+// launched).
 int alvrl_vrl_sum_bvh(const float* rays, int B, const float* vrls, int N, const float* nodes,
-                      int n_nodes, const float* tris, int T, int depth, const float* med,
-                      const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
-                      int phase_kind, float* partial, int n_chunks, float* out,
-                      unsigned long long* counts, void* stream) {
-  if (B <= 0 || N <= 0 || n_nodes < 0 || T < 0 || (n_nodes == 0) != (T == 0) || depth < 0 ||
-      depth > BVH_STACK || svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) ||
-      n_chunks != (N + BVH_VRL_CHUNK - 1) / BVH_VRL_CHUNK || n_chunks > MAX_GRID_Y)
+                      int n_nodes, const float* tris, int T, int depth, const float* med, int ext,
+                      const float* mat_table, int M, const float* rt, const float* uniforms,
+                      unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
+                      float* partial, int n_chunks, float* out, unsigned long long* counts,
+                      void* stream) {
+  if (!bvh_args_ok(B, N, n_nodes, T, depth, svv, svs, n_chunks) || !mats_ok(mat_table, M, rt) ||
+      (!ext && M > 0))
     return (int)cudaErrorInvalidValue;
   const dim3 blocks((B + RAY_BLOCK - 1) / RAY_BLOCK, n_chunks);
-  // the stack: depth entries a thread (one for a tree that is one leaf,
-  // which pushes none); 32 KB a block at the deepest tree served
-  const size_t smem = (size_t)max(depth, 1) * RAY_BLOCK * sizeof(int);
+  const size_t smem = bvh_stack_bytes(depth) + (size_t)M * MAT_COLS * sizeof(float);
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
   cudaStream_t st = (cudaStream_t)stream;
-  dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
-    constexpr int P = decltype(phase)::value;
-    constexpr bool S = decltype(short_)::value;
-    if (counts)
-      vrl_sum_bvh_kernel<P, S, true><<<blocks, RAY_BLOCK, smem, st>>>(
-          rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs, partial, counts);
-    else
-      vrl_sum_bvh_kernel<P, S, false><<<blocks, RAY_BLOCK, smem, st>>>(
-          rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs, partial,
-          nullptr);
-  });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int len = 3 * B;
-  reduce_parts<float><<<(len + 255) / 256, 256, 0, st>>>(partial, n_chunks, len, out);
-  return (int)cudaGetLastError();
+  cudaError_t attr = cudaSuccess;
+  const int d =
+      ext ? dispatch<true>(phase_kind, short_vrls,
+                           [&](auto phase, auto short_) {
+                             constexpr int P = decltype(phase)::value;
+                             constexpr bool S = decltype(short_)::value;
+                             auto kernel =
+                                 counts ? (M > 0 ? &vrl_sum_bvh_ext_kernel<P, S, true, true>
+                                                 : &vrl_sum_bvh_ext_kernel<P, S, true, false>)
+                                        : (M > 0 ? &vrl_sum_bvh_ext_kernel<P, S, false, true>
+                                                 : &vrl_sum_bvh_ext_kernel<P, S, false, false>);
+                             attr = allow_smem(kernel, smem);
+                             if (attr == cudaSuccess)
+                               kernel<<<blocks, RAY_BLOCK, smem, st>>>(
+                                   rays, B, vrls, N, nodes4, n_nodes, tris, med, mat_table, M,
+                                   rt, uniforms, seed, svv, svs, partial, counts);
+                           })
+          : dispatch(phase_kind, short_vrls, [&](auto phase, auto short_) {
+              constexpr int P = decltype(phase)::value;
+              constexpr bool S = decltype(short_)::value;
+              if (counts)
+                vrl_sum_bvh_kernel<P, S, true><<<blocks, RAY_BLOCK, smem, st>>>(
+                    rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs,
+                    partial, counts);
+              else
+                vrl_sum_bvh_kernel<P, S, false><<<blocks, RAY_BLOCK, smem, st>>>(
+                    rays, B, vrls, N, nodes4, n_nodes, tris, med, uniforms, seed, svv, svs,
+                    partial, nullptr);
+            });
+  if (d != 0) return d;
+  if (attr != cudaSuccess) return (int)attr;
+  return bvh_reduce(partial, n_chunks, B, out, st);
 }
 
 }  // extern "C"

@@ -89,7 +89,9 @@
 // float32 indexed by ray and table column.
 // Kernel 2 also has a material instantiation (MAT) for glossy and layered
 // surfaces at the eye hit, as vrl_sum.cu's kernel 1 (vrl_common.cuh
-// eval_smooth); its lanes are rays, which may diverge in the eval.
+// eval_smooth); its lanes are rays, which may diverge in the eval. So has
+// kernel 4 (MAT, nearest or TRI, at the run-time step count; ROADMAP C21:
+// the JAX package's Pallas kernel evaluates no BSDF).
 // Precise math functions throughout (no --use_fast_math).
 
 #include "vrl_common.cuh"
@@ -187,8 +189,14 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 // Kernel 4, instantiated for GRID = true (UV steps, or 0 for the run-time
 // count; MODE_SUM or MODE_CHECK; TRI, the trilinear form of a medium of
 // fast_tau False, at UV 0): tile blockIdx.x, RAY_BLOCK rays of one row, a
-// thread a ray; tris: the triangles' plane pack.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool TRI = false>
+// thread a ray; tris: the triangles' plane pack. MAT: the material form
+// (glossy and layered surfaces in a grid medium: the eye hit's smooth
+// BSDF, vrl_common.cuh eval_smooth; UV 0), its M table rows (the last
+// three arguments) staged after the piece's ids and attached to each ray
+// (the grid ray pack's GRID_MATID row); MAT = false ignores mat_table, M
+// and rt.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, int MODE, bool TRI = false,
+          bool MAT = false>
 __global__ void __launch_bounds__(RAY_BLOCK)
     vrl_sum_clustered_kernel(const float* __restrict__ rays, int B,
                              const float* __restrict__ vrls, int N,
@@ -200,7 +208,9 @@ __global__ void __launch_bounds__(RAY_BLOCK)
                              const float* __restrict__ table_w, int C,
                              const float* __restrict__ uniforms, uint32_t seed, int svv,
                              int svs, float* __restrict__ out,
-                             unsigned long long* __restrict__ counts) {
+                             unsigned long long* __restrict__ counts,
+                             const float* __restrict__ mat_table, int M,
+                             const float* __restrict__ rt) {
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
   float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<GRID>(T)
@@ -212,6 +222,11 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   CheckCounts cnt = {0u, 0u, 0u, 0u, 0u};
   const auto occl = stage_sweep<GRID, MODE>(tris, T, s_tri, &cnt);
   stage_medium<GRID>(med, s_med);
+  Mats mats{};
+  if constexpr (MAT) {
+    mats = stage_mats(mat_table, M, rt, reinterpret_cast<float*>(s_id + VRL_CHUNK));
+    __syncthreads();  // attach_mat reads the rows
+  }
 
   const int b = tile_rays[(size_t)blockIdx.x * RAY_BLOCK + threadIdx.x];
   const int* ids = table_ids + (size_t)tile_row[blockIdx.x] * C;
@@ -219,6 +234,7 @@ __global__ void __launch_bounds__(RAY_BLOCK)
   Ray ray{};  // padding slots keep ok = false, but join every barrier
   if (b >= 0) {
     ray = load_ray(rays, B, b);
+    if constexpr (MAT) attach_mat<GRID>(ray, rays, B, b, mats);
     stage_eod<GRID>(ray, rays, B, b, s_etab);  // this thread's column only
   }
   const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
@@ -236,12 +252,14 @@ __global__ void __launch_bounds__(RAY_BLOCK)
       const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + c) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)s_id[c], seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_terms<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl,
-                                    [&](int family, const float* t) {
-                                      const float inv = family == 0 ? inv_vv : inv_vs;
+      pair_terms<PHASE, SHORT_VRLS, MAT>(
+          ray, p, m, draw, svv, svs, occl,
+          [&](int family, const float* t) {
+            const float inv = family == 0 ? inv_vv : inv_vs;
 #pragma unroll
-                                      for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-                                    });
+            for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
+          },
+          &mats);
     }
   }
   if (b >= 0) {
@@ -253,7 +271,8 @@ __global__ void __launch_bounds__(RAY_BLOCK)
 
 // The instantiation that a launch of these arguments takes (the mode:
 // MODE_SUM or MODE_CHECK, or homogeneous MODE_NO_REJECT; Tri: the grid
-// kernel's trilinear form).
+// kernel's trilinear form; MAT: the material form, the grid one at the
+// run-time step count whatever Uv).
 template <bool GRID, bool MAT = false, class Phase, class Short, class Uv,
           class Tri = std::false_type>
 auto clustered_kernel(Phase, Short, Uv, int mode, Tri = {}) {
@@ -261,8 +280,9 @@ auto clustered_kernel(Phase, Short, Uv, int mode, Tri = {}) {
   constexpr bool S = Short::value;
   if constexpr (GRID) {
     constexpr bool T = Tri::value;
-    return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_CHECK, T>
-                              : &vrl_sum_clustered_kernel<P, S, true, Uv::value, MODE_SUM, T>;
+    constexpr int UV = MAT ? 0 : Uv::value;
+    return mode == MODE_CHECK ? &vrl_sum_clustered_kernel<P, S, true, UV, MODE_CHECK, T, MAT>
+                              : &vrl_sum_clustered_kernel<P, S, true, UV, MODE_SUM, T, MAT>;
   } else {
     using K = decltype(&vrl_sum_clustered_warps_kernel<P, S, MODE_SUM, MAT>);
     if (mode == MODE_CHECK) return K(&vrl_sum_clustered_warps_kernel<P, S, MODE_CHECK, MAT>);
@@ -310,7 +330,7 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
                      void* stream) {
   if (B <= 0 || N <= 0 || n_tiles <= 0 || C <= 0 || T < 0 || T > MAX_TRIS || svv < 0 ||
       svs < 0 || !grid_ok<GRID>(grid) || !mode_ok<true, !GRID>(mode, counts) ||
-      !mats_ok(mat_table, M, rt) || (GRID && M > 0) ||
+      !mats_ok(mat_table, M, rt) ||
       (phase_kind == PHASE_MIXTURE && mode == MODE_NO_REJECT))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<true>(tris, T, planes, stream);
@@ -320,22 +340,18 @@ int launch_clustered(const float* rays, int B, const float* vrls, int N, const f
   cudaError_t err = cudaSuccess;
   const int d = dispatch_read<GRID, true>(phase_kind, short_vrls, grid.uv_steps, trilinear,
                                           [&](auto phase, auto short_, auto uv, auto tri) {
-    if constexpr (GRID) {
-      const auto kernel = clustered_kernel<GRID>(phase, short_, uv, mode, tri);
-      err = allow_smem(kernel, smem);
-      if (err != cudaSuccess) return;
+    const auto kernel = M > 0 ? clustered_kernel<GRID, true>(phase, short_, uv, mode, tri)
+                              : clustered_kernel<GRID, false>(phase, short_, uv, mode, tri);
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return;
+    if constexpr (GRID)
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
-                                               svv, svs, out, counts);
-    } else {
-      const auto kernel = M > 0 ? clustered_kernel<GRID, true>(phase, short_, uv, mode)
-                                : clustered_kernel<GRID, false>(phase, short_, uv, mode);
-      err = allow_smem(kernel, smem);
-      if (err != cudaSuccess) return;
+                                               svv, svs, out, counts, mat_table, M, rt);
+    else
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, mat_table, M, rt,
                                                tile_rays, tile_row, table_ids, table_w, C,
                                                uniforms, seed, svv, svs, out, counts);
-    }
   });
   if (d != 0) return d;
   if (err != cudaSuccess) return (int)err;
@@ -380,23 +396,25 @@ int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
 // supersampled density (nz, ny, nx) and the U-V quadrature's step count
 // (trilinear 1: the trilinear form, on the trilinear medium pack and the
 // density itself, each extent at least 2); tiles of
-// alvrl_clustered_ray_block(1) slots; mode 0 or 1; the rest as
-// alvrl_vrl_sum_clustered.
+// alvrl_clustered_ray_block(1) slots; mode 0 or 1; mat_table, M and rt:
+// the material table of the material form (either read, the run-time
+// step count; rays with the GRID_MATID row), or null, 0, null; the rest
+// as alvrl_vrl_sum_clustered.
 int alvrl_vrl_sum_hetero_clustered(const float* rays, int B, const float* vrls, int N,
                                    const float* tris, int T, const float* med,
+                                   const float* mat_table, int M, const float* rt,
                                    const float* density, int nz, int ny, int nx, int uv_steps,
-                                   int trilinear, const int* tile_rays, const int* tile_row, int n_tiles,
-                                   const int* table_ids, const float* table_w, int C,
+                                   int trilinear, const int* tile_rays, const int* tile_row,
+                                   int n_tiles, const int* table_ids, const float* table_w, int C,
                                    const float* uniforms, unsigned int seed, int svv, int svs,
                                    int short_vrls, int phase_kind, float* planes, int mode,
                                    unsigned long long* counts, float* out, void* stream) {
   if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_clustered<true>(rays, B, vrls, N, tris, T, med,
-                                GridArgs{density, nz, ny, nx, uv_steps}, trilinear, nullptr, 0,
-                                nullptr,
-                                tile_rays, tile_row,
-                                n_tiles, table_ids, table_w, C, uniforms, seed, svv, svs,
-                                short_vrls, phase_kind, planes, mode, counts, out, stream);
+                                GridArgs{density, nz, ny, nx, uv_steps}, trilinear, mat_table, M,
+                                rt, tile_rays, tile_row, n_tiles, table_ids, table_w, C, uniforms,
+                                seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
+                                stream);
 }
 
 // The clustered sum's blocks resident on one SM, as alvrl_vrl_sum_occupancy.

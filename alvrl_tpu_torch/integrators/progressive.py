@@ -21,7 +21,9 @@ its generator. The JAX package's
 `use_pallas` has no counterpart: the port always takes its kernels
 (kernel 1, or kernel 3 in a grid medium, for an unclustered pass; on
 the card, kernel 7 for an unclustered pass in a homogeneous medium
-above the kernels' shared-memory cap of triangles).
+above the kernels' shared-memory cap of triangles), and their material
+and extended forms where the scene's table or medium asks for them, as
+the JAX package's XLA route (its default) evaluates them.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ device stages are the tracer (Woodcock tracking in a grid medium), the
 R kernel (ops.vrl_r or vrl_r_hetero, through integrator.build_R_kernel)
 and the clustered kernel (ops.vrl_sum_clustered or
 vrl_sum_hetero_clustered, through integrator.render_clustered_kernel),
-chosen by the scene's medium; slicing and clustering run
+chosen by the scene's medium, both taking the scene's material pack
+where its table holds a glossy or layered kind (their material forms,
+in either medium); slicing and clustering run
 on the host in numpy (integrators.vrl.cluster) and the native refiner
 (integrators.vrl.cluster_native).
 

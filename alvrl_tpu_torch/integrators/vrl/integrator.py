@@ -23,14 +23,17 @@ as in the JAX package (tracer.refuse_oriented).
 And on the scene's material kinds (bsdf.api.check_kinds, the table's
 host copy of them, so no sync): a table that holds a smooth kind other than DIFFUSE (a
 glossy or layered surface, whose eye-side term the diffuse kernels do
-not evaluate) takes the material instantiations of kernels 1, 2 and 5
-(material_pack; the homogeneous unclustered, specular-chain and
-clustered renders and R); the routes that have none yet (the grid
-kernels 3, 4 and 6, the BVH kernel 7, the backward kernels 8-11) refuse
-such a table by name (ROADMAP A12) rather than drop its term. Likewise
-a homogeneous medium with a mixture phase or a sampling strategy other
-than balance (ops.pack.pack_medium's extended pack) takes kernels 1, 2
-and 5, and the other routes refuse it (refuse_mixture, ROADMAP A13).
+not evaluate) takes the material instantiations of the forward kernels
+(material_pack: kernels 1, 2 and 5 in a homogeneous medium, the grid
+kernels 3, 4 and 6 in a grid one, either density read, and the BVH
+kernel 7; the unclustered, specular-chain, large-mesh and clustered
+renders and R), as the JAX package's XLA route evaluates every smooth
+kind at the eye hit; only the backward kernels 8-11 have none yet, and
+their routes refuse such a table by name (ROADMAP A12) rather than drop
+its term. Likewise a homogeneous medium with a mixture phase or a
+sampling strategy other than balance (ops.pack.pack_medium's extended
+pack) takes kernels 1, 2, 5 and 7, and the backward routes refuse it
+(refuse_mixture, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def _eye_hits(scene: Scene, ray_o, hit):
 
 def material_pack(scene: Scene):
     """The material pack (ops.pack.pack_materials) that the material
-    instantiations of kernels 1, 2 and 5 take, when the scene's table
+    instantiations of the forward kernels 1-7 take, when the scene's table
     holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy); None
     otherwise, for the diffuse instantiations."""
     return pk.pack_materials(scene.materials) if bsdf_api.has_glossy(
@@ -103,20 +106,20 @@ def material_pack(scene: Scene):
 
 
 def refuse_glossy(scene: Scene, route: str):
-    """Raise, naming `route` and its ROADMAP item, if the scene's table
-    holds a smooth kind other than DIFFUSE, whose eye-side term the
-    route's kernels do not evaluate."""
+    """Raise, naming `route` (a backward one) and its ROADMAP item, if the
+    scene's table holds a smooth kind other than DIFFUSE, whose eye-side
+    term the backward kernels 8-11 do not evaluate."""
     kinds = bsdf_api.check_kinds(scene)
     if bsdf_api.has_glossy(kinds):
         raise ValueError(f"{route} evaluates the diffuse eye-side term only: "
-                         f"material kinds {sorted(kinds)} need its material "
-                         "instantiation (ROADMAP A12)")
+                         f"material kinds {sorted(kinds)} need the backward "
+                         "kernels' material instantiation (ROADMAP A12)")
 
 
 def refuse_mixture(scene: Scene, route: str):
-    """Raise, naming `route` and its ROADMAP item, if the scene's medium
-    has a mixture phase or a sampling strategy other than balance, which
-    only the homogeneous kernels 1, 2 and 5 evaluate."""
+    """Raise, naming `route` (a backward one) and its ROADMAP item, if the
+    scene's medium has a mixture phase or a sampling strategy other than
+    balance, which the backward kernels 8-11 do not evaluate."""
     med = scene.medium
     if med.phase_kind == ph.MIXTURE or getattr(med, "strategy",
                                                hmed.BALANCE) != hmed.BALANCE:
@@ -132,15 +135,11 @@ def refuse_trilinear(scene: Scene, route: str):
         raise ValueError(f"{route}: {TRI_REFUSAL}")
 
 
-def _homogeneous_materials(scene: Scene, route: str):
-    """material_pack in a homogeneous medium; in a grid medium, None after
-    refuse_glossy (the grid kernels have no material instantiation).
-    Refuses an oriented medium first (refuse_oriented)."""
+def _forward_materials(scene: Scene, route: str):
+    """material_pack, in either medium (the forward kernels' material
+    forms), after refuse_oriented."""
     refuse_oriented(scene.medium, route)
-    if mapi.is_homogeneous(scene.medium):
-        return material_pack(scene)
-    refuse_glossy(scene, route)
-    return None
+    return material_pack(scene)
 
 
 def _mat_kw(materials):
@@ -153,8 +152,9 @@ def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs, materials=None):
     medium (ops.vrl_sum.vrl_sum's; with a material pack, `materials`, the
     rays' pack holds the hits' material ids, as the material
     instantiations read them), and (rays, vrls, tris, medium, density_ss)
-    for a grid medium (vrl_sum_hetero's: the grid packs and the
-    supersampled density, computed here from the current density)."""
+    for a grid medium (vrl_sum_hetero's: the grid packs, the grid ray
+    pack with the ids likewise, and the supersampled density, computed
+    here from the current density)."""
     hit, mat = trace_eye_rays(scene, ray_o, ray_d)
     med = scene.medium
     if mapi.is_homogeneous(med):
@@ -164,7 +164,8 @@ def pack_rays_vrls(scene: Scene, ray_o, ray_d, vrls: VRLs, materials=None):
                      pk.pack_medium(scene))
     density_ss = gmed.quad_grid(med)
     return hit, (pk.pack_rays_hetero(scene, ray_o, ray_d, hit, mat,
-                                     density_ss),
+                                     density_ss,
+                                     with_mat=materials is not None),
                  pk.pack_vrls_hetero(vrls, med, density_ss),
                  pk.pack_tris(scene), pk.pack_medium_hetero(med),
                  density_ss.contiguous())
@@ -200,21 +201,23 @@ def trace_eye_rays_bvh(scene: Scene, ray_o, ray_d, tree=None):
         ray_o, ray_d, t, prim, valid, scene.vertices, scene.faces))
 
 
-def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None):
+def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None, materials=None):
     """pack_frame for the large-mesh render: hits through a BVH over all
     faces, the VRLs in Morton order (ops.vrl_sum_bvh.sort_vrls_morton)
     and, in place of the triangle pack, the BVH over the opaque faces
-    (pack_bvh_tris). Homogeneous media only. Returns (px, py, hit,
-    (rays, vrls, bvh, medium))."""
+    (pack_bvh_tris); with a material pack, `materials`, the rays' pack
+    holds the hits' material ids. Homogeneous media only (the medium
+    pack of a mixture phase or a strategy other than balance extended,
+    as ops.pack.pack_medium makes it). Returns (px, py, hit, (rays,
+    vrls, bvh, medium))."""
     refuse_oriented(scene.medium, "the large-mesh render (kernel 7)")
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
-    refuse_glossy(scene, "the large-mesh render (kernel 7)")
-    refuse_mixture(scene, "the large-mesh render (kernel 7)")
     px, py, ray_o, ray_d = frame_rays(scene, jitter)
     hit, mat = trace_eye_rays_bvh(scene, ray_o, ray_d)
-    return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat),
+    return px, py, hit, (pk.pack_rays(scene, ray_o, ray_d, hit, mat,
+                                      with_mat=materials is not None),
                          pk.pack_vrls(sort_vrls_morton(vrls)),
                          pack_bvh_tris(scene.vertices, scene.faces,
                                        scene.opaque_faces()),
@@ -235,9 +238,9 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     `jitter`, (W * H, 2) on the scene's device, moves each pixel's ray
     off its centre (frame_rays; the JAX package's antialias). A glossy
     or layered table takes kernel 1's material instantiation (module
-    docstring); in a grid medium it is refused. Returns the (H, W, 3)
-    image."""
-    materials = _homogeneous_materials(scene, "the grid render (kernel 3)")
+    docstring), in a grid medium kernel 3's material form. Returns the
+    (H, W, 3) image."""
+    materials = _forward_materials(scene, "the unclustered render")
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
                    generator, cfg, uniforms, jitter, materials)
 
@@ -249,15 +252,18 @@ def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
     on the triangle count): primary hits through a BVH, the VRLs in
     Morton order, shadow tests through a BVH over the opaque faces
     (pack_frame_bvh). Counterpart of alvrl_tpu's
-    render_with_vrls_pallas_bvh; homogeneous media only.
+    render_with_vrls_pallas_bvh; homogeneous media only. A glossy or
+    layered table takes kernel 7's material forms, a mixture phase or a
+    strategy other than balance its extended forms (module docstring).
 
     The kernel's seed is drawn from `generator`; `uniforms`, (W * H, N,
     2 * vol_vol + vol_surf) float32 on the scene's device, indexed by
     the Morton-sorted VRLs, replaces the random stream; `jitter` is
     render_with_vrls_kernel's. Returns the (H, W, 3) image."""
-    px, py, hit, packs = pack_frame_bvh(scene, vrls, jitter)
+    materials = material_pack(scene)
+    px, py, hit, packs = pack_frame_bvh(scene, vrls, jitter, materials)
     sums = vrl_sum_bvh(*packs, seed=draw_seed(generator), uniforms=uniforms,
-                       **_kernel_args(scene, cfg))
+                       **_kernel_args(scene, cfg), **_mat_kw(materials))
     return develop_sums(scene, vrls, px, py, hit, sums)
 
 
@@ -278,9 +284,9 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     the CP factors nor their `dens_scale` multiplier (ROADMAP C9, C10): a
     density multiplier is the medium's `scale` or a product on its
     density, through which autograd chains. A glossy or layered table is
-    refused (no material instantiation of kernels 8 and 9 yet), and so
-    are an oriented medium and a grid medium of fast_tau False (ROADMAP
-    A14)."""
+    refused (no material instantiation of kernels 8 and 9 yet, ROADMAP
+    A12), and so are a mixture phase or a strategy other than balance
+    (A13), an oriented medium and a grid medium of fast_tau False (A14)."""
     refuse_oriented(scene.medium, "the differentiable render (kernels 8 "
                     "and 9)")
     refuse_trilinear(scene, "the differentiable render (kernel 9)")
@@ -328,8 +334,7 @@ def li_unclustered_spec_u(scene: Scene, ray_o, ray_d, vrls: VRLs, u_chain,
 def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
                    spec_cfg):
     med = scene.medium
-    materials = _homogeneous_materials(
-        scene, "the grid medium's plain chain (kernel 3's plain version)")
+    materials = _forward_materials(scene, "the plain chain")
     density_ss = None if mapi.is_homogeneous(med) else gmed.quad_grid(med)
     if density_ss is None:
         side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
@@ -350,8 +355,10 @@ def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
                 *side, u, materials=materials, **kw)
         else:
             out = vrl_sum_hetero_reference(
-                pk.pack_rays_hetero(scene, o, d, hit, mat, density_ss),
-                *side, u, uv_steps=cfg.uv_tau_steps, **kw)
+                pk.pack_rays_hetero(scene, o, d, hit, mat, density_ss,
+                                    with_mat=materials is not None),
+                *side, u, uv_steps=cfg.uv_tau_steps, materials=materials,
+                **kw)
         return out.T
 
     li = specular.li_specular_chain(scene, ray_o, ray_d, li_at_hit,
@@ -458,8 +465,8 @@ def build_R_kernel(scene: Scene, ray_o, ray_d, vrls: VRLs, seed: int,
     (getVRLContributions). Counterpart of alvrl_tpu's build_R_pallas;
     `uniforms` (P, N, 2 * vol_vol + vol_surf) replaces the Philox stream
     of `seed`. A glossy or layered table takes kernel 5's material
-    instantiation; in a grid medium it is refused."""
-    materials = _homogeneous_materials(scene, "the grid R (kernel 6)")
+    instantiation, in a grid medium kernel 6's material form."""
+    materials = _forward_materials(scene, "the transfer matrix R")
     _, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls, materials)
     out = _kernel(scene, vrl_r, vrl_r_hetero)(
         *packs, seed=seed, uniforms=uniforms, **_kernel_args(scene, cfg),
@@ -486,10 +493,9 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
     are drawn in one launch only. The seed is drawn from `generator`;
     `uniforms` (W * H, C, 2 * vol_vol + vol_surf) replaces the main
     launch's random stream. A glossy or layered table takes kernel 2's
-    material instantiation; in a grid medium it is refused. Returns the
-    (H, W, 3) image."""
-    materials = _homogeneous_materials(scene,
-                                       "the grid clustered render (kernel 4)")
+    material instantiation, in a grid medium kernel 4's material form.
+    Returns the (H, W, 3) image."""
+    materials = _forward_materials(scene, "the clustered render")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered), scene,
         vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
@@ -510,9 +516,10 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     vrl_sum_clustered_diff with render_clustered_pallas's table build
     (tests/test_pallas_bwd.py:220-235, 277-293); as there, no CP factors
     and no density multiplier (ROADMAP C9, C10). A glossy or layered table
-    is refused (no material instantiation of kernels 10 and 11 yet), and
-    so are an oriented medium and a grid medium of fast_tau False
-    (ROADMAP A14)."""
+    is refused (no material instantiation of kernels 10 and 11 yet,
+    ROADMAP A12), and so are a mixture phase or a strategy other than
+    balance (A13), an oriented medium and a grid medium of fast_tau False
+    (A14)."""
     refuse_oriented(scene.medium, "the differentiable clustered render "
                     "(kernels 10 and 11)")
     refuse_trilinear(scene, "the differentiable clustered render (kernel "

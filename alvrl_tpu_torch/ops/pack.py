@@ -65,6 +65,10 @@ MED_RHO, MED_K, MED_MIX = 8, 9, 10
 NQ = gmed.N_TAU_STEPS
 EOD = RAY_ROWS
 GRID_RAY_ROWS = EOD + NQ + 1
+# the grid material kernels' ray pack (GRID_MAT_RAY_ROWS, B) adds the hit's
+# material id after the eye-OD rows (GRID_MATID)
+GRID_MATID = GRID_RAY_ROWS
+GRID_MAT_RAY_ROWS = GRID_MATID + 1
 VOD = VRL_ROWS
 GRID_VRL_ROWS = VOD + NQ + 1
 # grid medium pack, (GRID_MED_LEN,): sigma_t_color (3), sigma_s_color (3),
@@ -134,15 +138,20 @@ def materials_from_pack(table, rt_tables):
     return Materials(**out, rt_table=rt_tables)
 
 
-def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss):
+def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss,
+                     with_mat=False):
     """(GRID_RAY_ROWS, B): pack_rays' rows for a grid medium, then the
     eye segment's cumulative optical depth (the medium's own lookup:
     density_ss is media.heterogeneous.quad_grid's); TAU is
-    exp(-sigma_t_color times the table's total)."""
+    exp(-sigma_t_color times the table's total). With with_mat,
+    (GRID_MAT_RAY_ROWS, B), the grid material kernels' pack, which adds
+    the hit material's id (GRID_MATID)."""
     med = scene.medium
     eye_od = gmed.cumulative_od(med, density_ss, ray_o, hit.p)
     tau_eu = torch.exp(-med.sigma_t_color * eye_od[..., -1:])
     cols = _ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu) + [eye_od]
+    if with_mat:
+        cols.append(mat.to(torch.float32)[..., None])
     return torch.cat(cols, dim=-1).T.contiguous()
 
 

@@ -96,12 +96,14 @@ def vrl_r_reference(rays, vrls, tris, medium, uniforms, *,
 
 def vrl_r_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
                            vol_vol_samples=2, vol_surf_samples=2,
-                           short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                           short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                           materials=None):
     """vrl_r_reference on ops.pack's grid packs and the supersampled
-    density (as ops.vrl_sum.vrl_sum_hetero takes them)."""
+    density (as ops.vrl_sum.vrl_sum_hetero takes them, with its
+    `materials`)."""
     return _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
                       vol_surf_samples, short_vrls, phase_kind,
-                      (density, uv_steps))
+                      (density, uv_steps), materials)
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,8 +112,8 @@ def _library():
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, *tail]
-    lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                       i, *tail]
+    lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
+                                       i, i, i, i, *tail]
     lib.alvrl_vrl_r_tile_rays.argtypes = [i]
     for fn in (lib.alvrl_vrl_r, lib.alvrl_vrl_r_hetero,
                lib.alvrl_vrl_r_tile_rays):
@@ -130,7 +132,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             materials=None):
     """The kernel on checked inputs, on the current stream: (2, P, N).
     grid = (density, uv_steps) for the grid kernel; `materials` for the
-    homogeneous material instantiation. Both sweep the triangles' plane
+    material instantiation (either medium). Both sweep the triangles' plane
     pack (made here into scratch) in `mode` (MODE_CHECK adds its counts
     to `counts`, (len(vs.CHECK_COUNTS),) int64)."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
@@ -150,7 +152,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
     if grid is None:
         err = lib.alvrl_vrl_r(*head, *vs.mat_args(materials), *tail)
     else:
-        err = lib.alvrl_vrl_r_hetero(*head, *vs.grid_args(*grid),
+        err = lib.alvrl_vrl_r_hetero(*head, *vs.mat_args(materials),
+                                     *vs.grid_args(*grid),
                                      int(pk.is_trilinear(medium)), *tail)
     if err != 0:
         raise RuntimeError("vrl_r kernel launch failed: CUDA error "
@@ -190,7 +193,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
             out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                           svs, short_vrls, phase_kind, grid, mode, counts,
                           materials)
-        vs.count_launch(fn, grid, medium)
+        vs.count_launch(fn, grid, medium, materials)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -233,33 +236,39 @@ vrl_r_check.launches = 0  # checking launches
 
 def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
                  vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                 phase_kind=ph.HG, uv_steps=4):
+                 phase_kind=ph.HG, uv_steps=4, materials=None):
     """vrl_r in a grid medium, on the packs and density that
     ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
-    kernel's trilinear form); the CUDA kernel's launches are counted
-    here (the trilinear form's on tri_launches too), the CPU goes
-    through vrl_r_hetero_reference."""
+    kernel's trilinear form; `materials`, with the grid ray pack of
+    GRID_MAT_RAY_ROWS rows, its material forms); the CUDA kernel's
+    launches are counted here (the trilinear form's on tri_launches too,
+    the material forms' on mat_launches), the CPU goes through
+    vrl_r_hetero_reference."""
     return _r(vrl_r_hetero, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
-              (density, uv_steps))
+              (density, uv_steps), materials=materials)
 
 
 vrl_r_hetero.launches = 0  # kernel launches, as vrl_r.launches
 vrl_r_hetero.tri_launches = 0  # of them, the trilinear form's
+vrl_r_hetero.mat_launches = 0  # of them, the material forms'
 
 
 def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
                        uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
-                       short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                       short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                       materials=None):
     """vrl_r_hetero's (2, P, N) through kernel 6's checking instantiation
     (a launch counted here, not on vrl_r_hetero), which decides every
     shadow segment by the Wald test alone and runs the plane pre-reject
     beside it, and {name: total} of vs.CHECK_COUNTS, as
-    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only;
+    `materials` as vrl_r_hetero's."""
     return _r(vrl_r_hetero_check, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
-              (density, uv_steps), mode=vs.MODE_CHECK)
+              (density, uv_steps), mode=vs.MODE_CHECK, materials=materials)
 
 
 vrl_r_hetero_check.launches = 0  # checking launches, as vrl_r_check's
 vrl_r_hetero_check.tri_launches = 0  # of them, the trilinear form's
+vrl_r_hetero_check.mat_launches = 0  # of them, the material forms'

@@ -24,8 +24,8 @@ strategy other than balance comes in ops.pack.pack_medium's extended
 pack: the plain versions and kernels 1, 2 and 5 (their PHASE = 2 forms
 for the mixture) evaluate the mixture's components and divide by the
 strategy's pdfFailure, msw exp(-rho x) + 1 - msw, as the JAX package's
-XLA route does (ROADMAP C16); the other kernels' wrappers refuse it
-(MIX_REFUSAL, ROADMAP A13).
+XLA route does (ROADMAP C16), and so does kernel 7 (ops.vrl_sum_bvh);
+the backward kernels' wrappers refuse it (MIX_REFUSAL, ROADMAP A13).
 
 A grid medium of fast_tau False comes in the trilinear medium pack
 (ops.pack.GRID_TRI_MED_LEN) with the density itself in place of the
@@ -41,8 +41,13 @@ material pack of ops.pack.pack_materials, with the ray pack that holds
 the hit's material id (ops.pack.MAT_RAY_ROWS rows), and the vol-surf
 term evaluates the hit's smooth BSDF (integrate.bsdf_eval_smooth in
 the plain version, vrl_common.cuh eval_smooth in the kernel) in place of
-albedo cos_o / pi. Homogeneous media only; the clustered sum and R take
-it the same way.
+albedo cos_o / pi. In a grid medium the same: the grid kernels' material
+forms (kernels 3, 4 and 6, either density read, counted on their
+`mat_launches` too) take the material pack with the grid ray pack that
+holds the hit's material id (ops.pack.GRID_MAT_RAY_ROWS rows); the
+clustered sum and R take it the same way. The JAX package's Pallas
+kernels evaluate no BSDF (their packs zero the albedo of a non-diffuse
+hit, ROADMAP C21); the port follows its XLA route, pair_contribution.
 
 Beside the kernel:
   * `vrl_sum_reference` and `vrl_sum_hetero_reference`, the plain
@@ -300,8 +305,8 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     finite and in range), since torch.where passes NaN or inf of the
     unselected branch into the gradient.
 
-    mats (_plain_materials; homogeneous packs only, with the MATID row):
-    the vol-surf term evaluates the eye hit's smooth BSDF,
+    mats (_plain_materials; with the MATID row, GRID_MATID in the grid
+    packs): the vol-surf term evaluates the eye hit's smooth BSDF,
     integrate.bsdf_eval_smooth(-d, -vu), in place of albedo cos_o / pi, and is
     gated by the hit material's smooth flag; the material kernels' plain
     version (not differentiable: no VJP takes it)."""
@@ -402,7 +407,8 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         alb_any = alb.sum(dim=-1) > 0.0
     else:
         materials, kinds, smooth = mats
-        mat_id = rays[pk.MATID].long().clamp(0, smooth.shape[0] - 1)[:, None]
+        row = pk.MATID if grid is None else pk.GRID_MATID
+        mat_id = rays[row].long().clamp(0, smooth.shape[0] - 1)[:, None]
         alb_any = smooth[mat_id]
     for k in range(svs):
         v, pdf_v = integrate.kulla_sampling(s, e, hp, u[..., 2 * svv + k])
@@ -411,30 +417,25 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         ok = ok & ~_occluded_packed(hp, v, tris)
         vu, d_uv, d_sv, pdf_d2 = masked(ok, vu, d_uv, m.distance(s, v),
                                         pdf_v * d_uv2)
-        if mats is not None:
-            geo = phase(-uv, vu) / torch.clamp(pdf_d2, min=1e-30)
-            if short_vrls:
-                geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
+        if mats is None:  # albedo cos_o / pi
+            cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
+            f, geo = alb, phase(-uv, vu) * cos_o * (1.0 / math.pi)
+        else:  # the hit's smooth BSDF
             f = integrate.bsdf_eval_smooth(materials, mat_id, ng, -d, -vu,
                                            kinds)
-            term = pw * sig_s * f * tau \
-                * torch.exp(-sig_t * (d_uv + d_sv)[..., None]) * geo[..., None]
-            yield VS, torch.where(ok[..., None], term, 0.0)
-            continue
-        cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
-        geo = phase(-uv, vu) * cos_o * (1.0 / math.pi) / torch.clamp(
-            pdf_d2, min=1e-30)
+            geo = phase(-uv, vu)
+        geo = geo / torch.clamp(pdf_d2, min=1e-30)
         if grid is not None:
             v = torch.where(ok[..., None], v, s)
             od_sv = gmed.interp_od(vrl_od, d_sv / vlen)
             od = od_uv(hp, v, d_uv) + od_sv
-            term = pw * (sig_s * density(v)[..., None]) * alb * tau \
+            term = pw * (sig_s * density(v)[..., None]) * f * tau \
                 * torch.exp(-sig_t * od[..., None]) * grid_geo(geo, od_sv)
             yield VS, torch.where(ok[..., None], term, 0.0)
             continue
         if short_vrls:
             geo = geo / torch.clamp(pdf_failure(d_sv), min=1e-30)
-        term = pw * sig_s * alb * tau \
+        term = pw * sig_s * f * tau \
             * torch.exp(-sig_t * (d_uv + d_sv)[..., None]) * geo[..., None]
         yield VS, torch.where(ok[..., None], term, 0.0)
 
@@ -484,14 +485,15 @@ def vrl_sum_reference(rays, vrls, tris, medium, uniforms, *,
 def vrl_sum_hetero_reference(rays, vrls, tris, medium, density, uniforms, *,
                              vol_vol_samples=2, vol_surf_samples=2,
                              short_vrls=True, phase_kind=ph.HG, uv_steps=4,
-                             weight=None):
+                             weight=None, materials=None):
     """vrl_sum_reference on grid packs (ops.pack's GRID_* layouts) and the
     supersampled density (2Z - 1, 2Y - 1, 2X - 1), or with the trilinear
     medium pack the density (Z, Y, X): the plain version of either form
-    of kernel 3."""
+    of kernel 3; with `materials` (rays (GRID_MAT_RAY_ROWS, B)), of its
+    material forms."""
     out = _reference(rays, vrls, tris, medium, uniforms, vol_vol_samples,
                      vol_surf_samples, short_vrls, phase_kind,
-                     (density, uv_steps))
+                     (density, uv_steps), materials)
     return out if weight is None else out * weight.T
 
 
@@ -534,7 +536,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             materials=None):
     """The kernel on checked inputs. Homogeneous packs: kernel 1 in
     `mode` (MODE_CHECK adds its counts to `counts`, (len(CHECK_COUNTS),)
-    int64), its material instantiation with `materials`."""
+    int64); either medium's material instantiation with `materials`."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
@@ -556,7 +558,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), *tail)
     else:
-        err = lib.alvrl_vrl_sum_hetero(*head, *grid_args(*grid),
+        err = lib.alvrl_vrl_sum_hetero(*head, *mat_args(materials),
+                                       *grid_args(*grid),
                                        int(pk.is_trilinear(medium)), *uni,
                                        *tail)
     if err != 0:
@@ -572,8 +575,8 @@ def _library():
     uni, tail = [p, u, i, i, i, i], [p, i, p, p]
     lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, *uni, p, i,
                                   p, *tail]
-    lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i,
-                                         i, *uni, *tail]
+    lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
+                                         i, i, i, i, *uni, *tail]
     lib.alvrl_plane_pack.argtypes = [p, i, p, p]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
                lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps,
@@ -615,8 +618,8 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
 
 
 MIX_REFUSAL = ("the mixture phase and the sampling strategies other than "
-               "balance take the homogeneous kernels 1, 2 and 5 only; the "
-               "grid, BVH and backward kernels do not (ROADMAP A13)")
+               "balance take the homogeneous forward kernels 1, 2, 5 and 7 "
+               "only; the backward kernels 8-11 do not (ROADMAP A13)")
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
@@ -630,20 +633,17 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     forward grid kernels; others raise a ValueError naming ROADMAP A14)
     the density (Z, Y, X), at least 2 a side. materials = (table,
     rt_tables), ops.pack.pack_materials', for the material
-    instantiations: homogeneous packs, rays (MAT_RAY_ROWS,
-    B). extended_ok: the kernel takes the extended medium pack (the
-    mixture phase, another strategy than balance: kernels 1, 2 and 5 in
-    a homogeneous medium); other kernels raise a ValueError on it, naming
-    ROADMAP A13."""
+    instantiations: rays (MAT_RAY_ROWS, B), or in a grid medium
+    (GRID_MAT_RAY_ROWS, B). extended_ok: the kernel takes the extended
+    medium pack (the mixture phase, another strategy than balance: the
+    forward kernels in a homogeneous medium); other kernels raise a
+    ValueError on it, naming ROADMAP A13."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
     if grid is not None:
         named["density"] = grid[0]
     if materials is not None:
-        if grid is not None:
-            raise ValueError("the material instantiations take homogeneous "
-                             "packs only (ROADMAP A12)")
         named["mat_table"], named["rt_tables"] = materials
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
@@ -660,7 +660,7 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         (pk.RAY_ROWS, pk.VRL_ROWS, pk.MED_LEN) if grid is None
         else (pk.GRID_RAY_ROWS, pk.GRID_VRL_ROWS, pk.GRID_MED_LEN))
     if materials is not None:
-        ray_rows = pk.MAT_RAY_ROWS
+        ray_rows = pk.MAT_RAY_ROWS if grid is None else pk.GRID_MAT_RAY_ROWS
         table, rt_tables = materials
         n_mats = table.shape[0]
         if table.dim() != 2 or table.shape[1] != pk.MAT_COLS or n_mats < 1:
@@ -750,16 +750,19 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                       svs, short_vrls, phase_kind, grid, materials=materials)
-    count_launch(fn, grid, medium)
+    count_launch(fn, grid, medium, materials)
     return out
 
 
-def count_launch(fn, grid, medium):
+def count_launch(fn, grid, medium, materials=None):
     """One launch on the wrapper fn: fn.launches, and for a grid
-    wrapper's trilinear form fn.tri_launches as well."""
+    wrapper's trilinear form fn.tri_launches as well, for its material
+    forms fn.mat_launches."""
     fn.launches += 1
     if grid is not None and pk.is_trilinear(medium):
         fn.tri_launches += 1
+    if grid is not None and materials is not None:
+        fn.mat_launches += 1
 
 
 def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
@@ -830,7 +833,8 @@ def plane_pack_kernel(tris):
 
 def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
                    uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
-                   short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                   short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                   materials=None):
     """vrl_sum in a grid medium: rays (GRID_RAY_ROWS, B), vrls
     (GRID_VRL_ROWS, N) and medium (GRID_MED_LEN,) are ops.pack's grid
     packs, density the supersampled grid (2Z - 1, 2Y - 1, 2X - 1)
@@ -840,17 +844,21 @@ def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
     vrl_sum's. With the trilinear medium pack (GRID_TRI_MED_LEN,) of a
     medium of fast_tau False, density is the grid itself (Z, Y, X)
     (media.heterogeneous.quad_grid), and the kernel's trilinear form
-    (the run-time step count) reads it. CUDA tensors go through the CUDA
-    kernel (a launch of its own, counted here, and on
-    vrl_sum_hetero.tri_launches for the trilinear form), CPU tensors
-    through vrl_sum_hetero_reference."""
+    (the run-time step count) reads it. `materials`, the material pack
+    (vrl_sum's) with rays (GRID_MAT_RAY_ROWS, B), takes the material
+    form of either read (at the run-time step count), which evaluates
+    each eye hit's smooth BSDF. CUDA tensors go through the CUDA kernel (a
+    launch of its own, counted here, on vrl_sum_hetero.tri_launches for
+    the trilinear form and on vrl_sum_hetero.mat_launches for the
+    material forms), CPU tensors through vrl_sum_hetero_reference."""
     return _sum(vrl_sum_hetero, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
-                (density, uv_steps))
+                (density, uv_steps), materials)
 
 
 vrl_sum_hetero.launches = 0  # kernel launches, as vrl_sum.launches
 vrl_sum_hetero.tri_launches = 0  # of them, the trilinear form's
+vrl_sum_hetero.mat_launches = 0  # of them, the material forms'
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,13 @@ sort_vrls_morton, pack_tri_clusters and vrl_sum_pallas_bvh with its
 occlusion _occl_bvh. The function is ops.vrl_sum.vrl_sum's (the same
 estimator, samples and random stream) with no cap on the triangle
 count: the shadow test walks a BVH over the opaque triangles instead of
-sweeping all of them. Homogeneous media only, as the JAX kernel.
+sweeping all of them. Homogeneous media only, as the JAX kernel. Like
+kernel 1 it takes the extended medium pack (a mixture phase, a sampling
+strategy other than balance: its PHASE = 2 and extended forms, counted
+on vrl_sum_bvh.mix_launches too) and a material pack (glossy and layered
+surfaces: its material forms, on vrl_sum_bvh.mat_launches), which the
+JAX package's XLA route evaluates and its Pallas kernel does not
+(ROADMAP C16, C21).
 
 The CUDA kernel (csrc/vrl_sum_bvh.cu, whose header gives the design) is
 bound on the H100 by fp32 ALU throughput in its operations, and held
@@ -153,37 +159,42 @@ def pack_bvh_tris(verts, faces, opaque_mask, device=None) -> BvhPack:
 
 def vrl_sum_bvh_reference(rays, vrls, bvh: BvhPack, medium, uniforms, *,
                           vol_vol_samples=2, vol_surf_samples=2,
-                          short_vrls=True, phase_kind=ph.HG):
+                          short_vrls=True, phase_kind=ph.HG, materials=None):
     """Plain PyTorch version of the kernel: ops.vrl_sum.vrl_sum_reference
     on the pack's triangles (every segment against every triangle, in
     blocks), with explicit (B, N, 2 * vol_vol_samples +
-    vol_surf_samples) uniforms."""
+    vol_surf_samples) uniforms; the extended medium pack and `materials`
+    as vrl_sum_bvh takes them."""
     return vs.vrl_sum_reference(rays, vrls, bvh.tris, medium, uniforms,
                                 vol_vol_samples=vol_vol_samples,
                                 vol_surf_samples=vol_surf_samples,
-                                short_vrls=short_vrls, phase_kind=phase_kind)
+                                short_vrls=short_vrls, phase_kind=phase_kind,
+                                materials=materials)
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.alvrl_vrl_sum_bvh.argtypes = [p, i, p, i, p, i, p, i, i, p, p, u, i,
-                                      i, i, i, p, i, p, p, p]
-    for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack):
+    lib.alvrl_vrl_sum_bvh.argtypes = [p, i, p, i, p, i, p, i, i, p, i, p,
+                                      i, p, p, u, i, i, i, i, p, i, p, p, p]
+    for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack,
+               lib.alvrl_max_mats):
         fn.restype = i
     lib.alvrl_error_string.argtypes = [i]
     lib.alvrl_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind):
+def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
+           materials=None):
     """Raise on what the kernel does not take: vrl_sum's checks (so grid
-    packs, whose rows differ, raise), and a well-formed BvhPack."""
+    packs, whose rows differ, raise; the extended medium pack and a
+    material pack pass), and a well-formed BvhPack."""
     if not isinstance(bvh, BvhPack):
         raise TypeError(f"bvh must be a BvhPack, got {type(bvh)}")
     vs._check(rays, vrls, bvh.tris, medium, uniforms, seed, svv, svs,
-              phase_kind)
+              phase_kind, materials=materials, extended_ok=True)
     nodes = bvh.nodes
     if not isinstance(nodes, torch.Tensor) or nodes.dtype != torch.float32 \
             or not nodes.is_contiguous() or nodes.device != rays.device:
@@ -199,21 +210,34 @@ def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind):
                          f"of {BVH_STACK}")
 
 
+def is_extended(medium, phase_kind, materials):
+    """Whether a launch takes the kernel's extended forms (the extended
+    medium pack, the mixture phase or a material pack) rather than its
+    forms on the (MED_LEN,) pack."""
+    return (materials is not None or medium.shape[0] > pk.MED_LEN
+            or phase_kind == ph.MIXTURE)
+
+
 def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
-            short_vrls, phase_kind, counts=None):
+            short_vrls, phase_kind, counts=None, materials=None):
     """The kernel on checked inputs, on the current stream of the rays'
     card; the counting instantiation when `counts` (len(COUNTS),) int64
-    is given."""
+    is given; the extended forms (is_extended) on the medium pack with
+    its extension, their material forms with `materials`."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = n_vrls  # one VRL a block
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
                           device=rays.device)
     out = torch.empty((3, n_rays), dtype=torch.float32, device=rays.device)
+    ext = is_extended(medium, phase_kind, materials)
+    if ext:
+        medium = pk.extended_medium(medium)
     with torch.cuda.device(rays.device):
         err = lib.alvrl_vrl_sum_bvh(
             rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
             bvh.nodes.data_ptr(), bvh.nodes.shape[0], bvh.tris.data_ptr(),
-            bvh.tris.shape[0], bvh.depth, medium.data_ptr(),
+            bvh.tris.shape[0], bvh.depth, medium.data_ptr(), int(ext),
+            *vs.mat_args(materials),
             None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
             int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
             out.data_ptr(), None if counts is None else counts.data_ptr(),
@@ -226,19 +250,25 @@ def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
 
 def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
                 vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                phase_kind=ph.HG):
+                phase_kind=ph.HG, materials=None):
     """(3, B) per-ray VRL sums (not normalised by the particle count),
     as ops.vrl_sum.vrl_sum computes them, with the shadow tests against
     the BvhPack's triangles (pack_bvh_tris; any count).
 
-    rays (RAY_ROWS, B), vrls (VRL_ROWS, N) and medium (MED_LEN,) are
-    ops.pack's homogeneous packs (a grid medium's packs raise); random
-    numbers come from vrl_sum's Philox stream of `seed`, or from
-    `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples). CUDA
-    tensors go through the CUDA kernel, CPU tensors through
-    vrl_sum_bvh_reference."""
+    rays (RAY_ROWS, B), vrls (VRL_ROWS, N) and medium (MED_LEN,), or its
+    extended pack for a mixture phase or a strategy other than balance,
+    are ops.pack's homogeneous packs (a grid medium's packs raise);
+    `materials`, the material pack (ops.vrl_sum.vrl_sum's) with rays
+    (MAT_RAY_ROWS, B), takes the material forms, which evaluate each eye
+    hit's smooth BSDF. Random numbers come from vrl_sum's Philox stream
+    of `seed`, or from `uniforms` (B, N, 2 * vol_vol_samples +
+    vol_surf_samples). CUDA tensors go through the CUDA kernel (a launch
+    counted here; the material forms' on vrl_sum_bvh.mat_launches too,
+    the other extended forms' on vrl_sum_bvh.mix_launches), CPU tensors
+    through vrl_sum_bvh_reference."""
     svv, svs = vol_vol_samples, vol_surf_samples
-    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind)
+    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
+           materials)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
@@ -246,22 +276,30 @@ def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
         return vrl_sum_bvh_reference(
             rays, vrls, bvh, medium, uniforms, vol_vol_samples=svv,
             vol_surf_samples=svs, short_vrls=short_vrls,
-            phase_kind=phase_kind)
+            phase_kind=phase_kind, materials=materials)
+    lib = _library()
+    vs.check_mats_cap(lib, materials)
     if n_rays == 0 or n_vrls == 0:
         return torch.zeros((3, n_rays), dtype=torch.float32,
                            device=rays.device)
-    out = _launch(_library(), rays, vrls, bvh, medium, uniforms, seed, svv,
-                  svs, short_vrls, phase_kind)
+    out = _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
+                  short_vrls, phase_kind, materials=materials)
     vrl_sum_bvh.launches += 1
+    if materials is not None:
+        vrl_sum_bvh.mat_launches += 1
+    elif is_extended(medium, phase_kind, materials):
+        vrl_sum_bvh.mix_launches += 1
     return out
 
 
 vrl_sum_bvh.launches = 0  # kernel launches, for showing that a run used the kernel
+vrl_sum_bvh.mat_launches = 0  # of them, the material forms'
+vrl_sum_bvh.mix_launches = 0  # of them, the other extended forms'
 
 
 def vrl_sum_bvh_counts(rays, vrls, bvh: BvhPack, medium, *, seed=0,
                        uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
-                       short_vrls=True, phase_kind=ph.HG):
+                       short_vrls=True, phase_kind=ph.HG, materials=None):
     """vrl_sum_bvh's sums through the kernel's counting instantiation (a
     launch counted here, not on vrl_sum_bvh), and {name: total} of what
     it met (COUNTS): nodes fetched, boxes and triangles tested by the
@@ -270,14 +308,18 @@ def vrl_sum_bvh_counts(rays, vrls, bvh: BvhPack, medium, *, seed=0,
     function needs (a one-box-per-node traversal in child order to the
     first blocker, csrc/vrl_sum_bvh.cu needed_work), and the segments
     that traversal decides otherwise (0 unless the kernel is at
-    fault). CUDA tensors only."""
+    fault). CUDA tensors only; the extended pack and `materials` as
+    vrl_sum_bvh's."""
     svv, svs = vol_vol_samples, vol_surf_samples
-    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind)
+    _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
+           materials)
     if rays.device.type != "cuda":
         raise ValueError("the counting launch needs CUDA tensors")
+    lib = _library()
+    vs.check_mats_cap(lib, materials)
     counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=rays.device)
-    out = _launch(_library(), rays, vrls, bvh, medium, uniforms, seed, svv,
-                  svs, short_vrls, phase_kind, counts)
+    out = _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
+                  short_vrls, phase_kind, counts, materials)
     vrl_sum_bvh_counts.launches += 1
     return out, dict(zip(COUNTS, counts.tolist()))
 

@@ -128,13 +128,15 @@ def vrl_sum_hetero_clustered_reference(rays, vrls, tris, medium, density,
                                        ray_slice, table_ids, table_weights,
                                        uniforms, *, vol_vol_samples=2,
                                        vol_surf_samples=2, short_vrls=True,
-                                       phase_kind=ph.HG, uv_steps=4):
+                                       phase_kind=ph.HG, uv_steps=4,
+                                       materials=None):
     """vrl_sum_clustered_reference on ops.pack's grid packs and the
-    supersampled density (as ops.vrl_sum.vrl_sum_hetero takes them)."""
+    supersampled density (as ops.vrl_sum.vrl_sum_hetero takes them, with
+    its `materials`)."""
     return _reference(rays, vrls, tris, medium, ray_slice, table_ids,
                       table_weights, uniforms, vol_vol_samples,
                       vol_surf_samples, short_vrls, phase_kind,
-                      (density, uv_steps))
+                      (density, uv_steps), materials)
 
 
 def philox_table_uniforms(seed, ray_slice, table_ids, n_draws):
@@ -166,7 +168,7 @@ def _library():
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, p, i, p,
                                             *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, i, i, i, i, i, *tail]
+        p, i, p, i, p, i, p, p, i, p, p, i, i, i, i, i, *tail]
     lib.alvrl_clustered_ray_block.argtypes = [i]
     for fn in (lib.alvrl_vrl_sum_clustered,
                lib.alvrl_vrl_sum_hetero_clustered,
@@ -251,7 +253,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                     table_ids, table_weights, uniforms, seed, svv, svs,
                     short_vrls, phase_kind, out, grid, mode=mode,
                     counts=counts, materials=materials)
-        vs.count_launch(fn, grid, medium)
+        vs.count_launch(fn, grid, medium, materials)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -305,41 +307,48 @@ def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
                              table_ids, table_weights, *, seed=0,
                              uniforms=None, vol_vol_samples=2,
                              vol_surf_samples=2, short_vrls=True,
-                             phase_kind=ph.HG, uv_steps=4):
+                             phase_kind=ph.HG, uv_steps=4, materials=None):
     """vrl_sum_clustered in a grid medium, on the packs and density that
     ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
-    kernel's trilinear form); the CUDA kernel's launches are counted
-    here (the trilinear form's on tri_launches too), the CPU goes
-    through vrl_sum_hetero_clustered_reference."""
+    kernel's trilinear form; `materials`, with the grid ray pack of
+    GRID_MAT_RAY_ROWS rows, its material forms); the CUDA kernel's
+    launches are counted here (the trilinear form's on tri_launches too,
+    the material forms' on mat_launches), the CPU goes through
+    vrl_sum_hetero_clustered_reference."""
     return _clustered(vrl_sum_hetero_clustered, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
                       vol_vol_samples, vol_surf_samples, short_vrls,
-                      phase_kind, (density, uv_steps))
+                      phase_kind, (density, uv_steps), materials=materials)
 
 
 vrl_sum_hetero_clustered.launches = 0  # kernel launches, as
                                        # vrl_sum_clustered.launches
 vrl_sum_hetero_clustered.tri_launches = 0  # of them, the trilinear form's
+vrl_sum_hetero_clustered.mat_launches = 0  # of them, the material forms'
 
 
 def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
                                    ray_slice, table_ids, table_weights, *,
                                    seed=0, uniforms=None, vol_vol_samples=2,
                                    vol_surf_samples=2, short_vrls=True,
-                                   phase_kind=ph.HG, uv_steps=4):
+                                   phase_kind=ph.HG, uv_steps=4,
+                                   materials=None):
     """vrl_sum_hetero_clustered's sums through kernel 4's checking
     instantiation (a launch counted here, not on the wrapper), which
     decides every shadow segment by the Wald test alone and runs the
     plane pre-reject beside it, and {name: total} of vs.CHECK_COUNTS, as
-    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only."""
+    ops.vrl_sum.vrl_sum_check returns them. CUDA tensors only;
+    `materials` as vrl_sum_hetero_clustered's."""
     return _clustered(vrl_sum_hetero_clustered_check, rays, vrls, tris,
                       medium, ray_slice, table_ids, table_weights, seed,
                       uniforms, vol_vol_samples, vol_surf_samples, short_vrls,
-                      phase_kind, (density, uv_steps), mode=vs.MODE_CHECK)
+                      phase_kind, (density, uv_steps), mode=vs.MODE_CHECK,
+                      materials=materials)
 
 
 vrl_sum_hetero_clustered_check.launches = 0  # checking launches
 vrl_sum_hetero_clustered_check.tri_launches = 0  # of them, the trilinear
+vrl_sum_hetero_clustered_check.mat_launches = 0  # of them, the material
 
 
 def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
@@ -352,8 +361,8 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
     the grid kernel. It sweeps the triangles' plane pack (made here into
     scratch) in `mode`: MODE_CHECK adds its counts to `counts`,
     (len(CHECK_COUNTS),) int64; homogeneous MODE_NO_REJECT sweeps
-    without the pre-reject; `materials` takes the homogeneous material
-    instantiation. The wrapper's own step, apart so that chip_smoke.py can
+    without the pre-reject; `materials` takes the material instantiation
+    (either medium). The wrapper's own step, apart so that chip_smoke.py can
     time the kernel without the wrapper's host work; it counts no
     launch."""
     block = lib.alvrl_clustered_ray_block(int(grid is not None))
@@ -379,7 +388,8 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
                                           *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero_clustered(
-            *head, *vs.grid_args(*grid), int(pk.is_trilinear(medium)), *tail)
+            *head, *vs.mat_args(materials), *vs.grid_args(*grid),
+            int(pk.is_trilinear(medium)), *tail)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "
                            f"error {err} "

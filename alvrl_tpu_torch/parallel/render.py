@@ -19,6 +19,7 @@ import torch
 from alvrl_tpu_torch.integrators.vrl import tracer as tracer_mod
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.integrator import (
+    refuse_glossy,
     render_with_vrls_kernel_diff,
 )
 from alvrl_tpu_torch.scene.scene import Scene
@@ -45,7 +46,10 @@ def train_step(scene: Scene, generator, target, cfg: VRLConfig,
     The tracer's uniforms, then the render's seed, are drawn from
     `generator`. tracer_uniforms, a (u_emit, u_walk) pair for
     tracer.trace_u, and render_uniforms, as render_with_vrls_kernel's
-    `uniforms`, replace them (for exact checks)."""
+    `uniforms`, replace them (for exact checks). A glossy or layered
+    table is refused before the trace, in either medium (the backward
+    kernels' material forms: ROADMAP A12)."""
+    refuse_glossy(scene, "the train step's render (kernels 8 and 9)")
     if tracer_cfg is None:
         tracer_cfg = tracer_mod.TracerConfig(max_depth=4)
     params = {

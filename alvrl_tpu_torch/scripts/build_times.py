@@ -3,7 +3,7 @@ ops._build.load_library starts them, with the library's flags and then
 with nvcc's --split-compile (and ptxas's), and whether each object's
 SASS (cuobjdump -sass) is the same as with the library's flags:
 
-    python alvrl_tpu_torch/scripts/build_times.py
+    python -m alvrl_tpu_torch.scripts.build_times
 
 Needs nvcc (CUDA_HOME or PATH) and cuobjdump beside it; builds into a
 temporary directory, not into the library's.

@@ -11,11 +11,13 @@ kernels 3, 4 and 6 (vrl_sum_hetero, vrl_sum_hetero_clustered,
 vrl_r_hetero; their nearest forms, HG short VRLs, 4 U-V steps) on config
 4's packs: cornell_grid_smoke at 512x512 with its 48^3 grid against the
 512 bench VRLs, kernel 4 on the same seeded table with each pixel's row
-its index * 100 // (512 * 512), kernel 6 on 271 seeded rays. The same
-outputs bit for bit give the same digests, so that two trees of the
-package are compared on one card:
+its index * 100 // (512 * 512), kernel 6 on 271 seeded rays. With --bvh,
+kernel 7 (vrl_sum_bvh; HG and Rayleigh, short and long VRLs) on the
+15,984-triangle cube field of scripts/bench_bvh_large.py (64x64 eye rays
+x its 256 traced VRL slots). The same outputs bit for bit give the same
+digests, so that two trees of the package are compared on one card:
 
-    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all | --grid]
+    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all | --grid | --bvh]
 
 imports alvrl_tpu_torch from DIR (another tree's root; this tree's by
 default) and prints one JSON object of the digests, the card's name and
@@ -158,6 +160,30 @@ def grid_digests(device="cuda"):
     return _digests(out)
 
 
+def bvh_digests(device="cuda"):
+    """{output: sha256} of kernel 7's forms on the cube field (module
+    docstring), on injected uniforms and on the Philox stream."""
+    import numpy as np
+    import torch
+
+    from alvrl_tpu_torch.integrators.vrl import integrator
+    from alvrl_tpu_torch.ops.vrl_sum_bvh import vrl_sum_bvh
+    from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+
+    scene = bbl.scene_of("cubes", 11, device=device)
+    packs = integrator.pack_frame_bvh(scene, bbl.bench_vrls(scene))[3]
+    u = torch.as_tensor(np.random.default_rng(19).random(
+        (packs[0].shape[1], packs[1].shape[1], 6), dtype=np.float32),
+        device=device)
+    return _digests({
+        "vrl_sum_bvh injected": vrl_sum_bvh(*packs, uniforms=u),
+        "vrl_sum_bvh philox": vrl_sum_bvh(*packs, seed=SEED),
+        "vrl_sum_bvh rayleigh": vrl_sum_bvh(*packs, uniforms=u,
+                                            phase_kind=1),
+        "vrl_sum_bvh long": vrl_sum_bvh(*packs, uniforms=u,
+                                        short_vrls=False)})
+
+
 def _digests(out):
     import torch
 
@@ -177,6 +203,8 @@ def main():
                        help="also the Rayleigh, long-VRL and material forms")
     forms.add_argument("--grid", action="store_true",
                        help="the grid kernels 3, 4 and 6 on config 4")
+    forms.add_argument("--bvh", action="store_true",
+                       help="kernel 7 on the cube field")
     args = ap.parse_args()
     root = os.path.abspath(args.root) if args.root else os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -189,8 +217,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    digests = (grid_digests() if args.grid
-               else kernel_digests(every_form=args.all))
+    if args.grid:
+        digests = grid_digests()
+    elif args.bvh:
+        digests = bvh_digests()
+    else:
+        digests = kernel_digests(every_form=args.all)
     print(json.dumps({"root": root, "card": card, "digests": digests}))
 
 

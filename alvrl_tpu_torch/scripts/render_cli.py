@@ -16,8 +16,11 @@ through integrators.progressive, the VRL tracer at its default depth
 config), -i path the surface path tracer at --depth, -i direct the
 direct illumination, each at --spp samples a pixel from the generator of
 --seed: as the JAX CLI, --depth sets -i path only, and --spp the three
-(-i vrl|alvrl refuse both, which the JAX CLI ignores there). A scene the
-loader refuses exits with its message.
+(-i vrl|alvrl refuse both, which the JAX CLI ignores there). -i vrl|alvrl
+render every surface kind and medium that the loader builds (glossy and
+layered surfaces in a grid medium and on a mesh above the kernels' cap
+of triangles included). A scene the loader refuses exits with its
+message.
 The JAX CLI's other integrators exit here with the ROADMAP item that
 ports them, and so do .exr and .jpg outputs (the writers of ROADMAP
 A11); any other extension than .npy writes a PFM, as there.

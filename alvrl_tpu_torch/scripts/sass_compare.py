@@ -9,7 +9,8 @@ and symbol names, looked for among this library's function bodies.
 builds both trees' libraries (each tree's ops._build, in a process of
 its own) and prints one JSON object: the number of the other tree's
 functions, how many of them have a body equal to one of this tree's,
-and the names of those that have none.
+and the names of those that have none; and this tree's functions whose
+body is none of the other's (its new forms), their count and names.
 A change that keeps a kernel's code and only adds template parameters
 (so its mangled name changes) counts as the same SASS. Needs nvcc and
 cuobjdump beside it.
@@ -69,12 +70,15 @@ def main():
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     other = functions(library(os.path.abspath(args.root)), cuobjdump)
-    bodies = set(functions(library(here), cuobjdump).values())
+    mine = functions(library(here), cuobjdump)
+    bodies, other_bodies = set(mine.values()), set(other.values())
     differ = [n for n in other if other[n] not in bodies]
+    new = sorted(n for n in mine if mine[n] not in other_bodies)
     print(json.dumps({"root": os.path.abspath(args.root),
                       "functions": len(other),
                       "same_sass": len(other) - len(differ),
-                      "differ": differ}))
+                      "differ": differ, "new": len(new),
+                      "new_names": new}))
 
 
 if __name__ == "__main__":

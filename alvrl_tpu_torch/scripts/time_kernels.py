@@ -47,6 +47,15 @@ counting launch's counts per shadow segment (node fetches, box and
 triangle tests, and on trees that count it the work the shadow function
 needs), and kernel 1 against kernel 7 at config-1 inputs.
 
+With --glossy it times the forms that take a material pack or the
+extended medium pack beside the forms they extend, on the same inputs
+(trees from those forms on): the material forms of kernels 3, 4 and 6
+(nearest and trilinear) on config 4's packs with its table packed for
+them, against the diffuse forms; kernel 7's material form on the
+15,984-triangle cube field with its table packed for it, and its
+extended form there in a medium of the maximum strategy, against its
+form on the plain pack.
+
 With --bwd-split it times kernel 8 (vrl_sum_bwd) on chip_smoke.py phase
 9's inputs (config 1's train step at sigma_a x 2: 16,384 rays x 1,536
 traced VRL slots, the timed seed and output cotangent) whole and with
@@ -686,6 +695,57 @@ def bvh(dev):
     return rows
 
 
+def glossy(dev):
+    """--glossy: {form: {"ms": the form's windows, "extends": those of the
+    form it extends on the same inputs}}."""
+    from alvrl_tpu_torch.media import homogeneous as hmed
+    from alvrl_tpu_torch.ops import pack as pk
+    from alvrl_tpu_torch.ops import vrl_sum_bvh as vb
+    from alvrl_tpu_torch.scripts import bench_bvh_large as bbl
+
+    out = {}
+    vrls = vrl.compact(vrl.load_ascii(BENCH_VRLS, particle_count=78.0,
+                                      device=dev), 512)
+    for fast_tau in (True, False):
+        scene = presets.cornell_grid_smoke(512, 512, grid_res=48, device=dev)
+        scene = replace(scene, medium=replace(scene.medium,
+                                              fast_tau=fast_tau))
+        mats = pk.pack_materials(scene.materials)
+        mpacks = integrator.pack_frame(scene, vrls, materials=mats)[3]
+        packs = integrator.pack_frame(scene, vrls)[3]
+        n_rays = packs[0].shape[1]
+        sl = (np.arange(n_rays) * 100 // n_rays).astype(np.int32)
+        ids = torch.as_tensor(np.random.default_rng(3).integers(
+            0, 512, (100, 64)), dtype=torch.int32, device=dev)
+        w = torch.ones((100, 64), device=dev)
+        reps = torch.arange(0, n_rays, n_rays // 2032, device=dev)[:2032]
+        read = "nearest" if fast_tau else "trilinear"
+        for name, fn, batch in (
+                ("vrl_sum_hetero", lambda p, **k: vs.vrl_sum_hetero(
+                    *p, seed=21, **k), 1),
+                ("vrl_sum_hetero_clustered",
+                 lambda p, **k: vsc.vrl_sum_hetero_clustered(
+                     *p, sl, ids, w, seed=21, **k), 5),
+                ("vrl_r_hetero", lambda p, **k: vr.vrl_r_hetero(
+                    p[0][:, reps].contiguous(), *p[1:], seed=21, **k), 5)):
+            out[f"{name} material {read}"] = {
+                "ms": windows(lambda: fn(mpacks, materials=mats), 3, batch),
+                "extends": windows(lambda: fn(packs), 3, batch)}
+    scene = bbl.scene_of("cubes", 11, device=dev)
+    vrls = bbl.bench_vrls(scene)
+    mats = pk.pack_materials(scene.materials)
+    packs = integrator.pack_frame_bvh(scene, vrls)[3]
+    mpacks = integrator.pack_frame_bvh(scene, vrls, materials=mats)[3]
+    xpacks = integrator.pack_frame_bvh(replace(scene, medium=replace(
+        scene.medium, strategy=hmed.MAXIMUM)), vrls)[3]
+    plain = windows(lambda: vb.vrl_sum_bvh(*packs, seed=BVH_SEED), 5, 3)
+    out["vrl_sum_bvh material"] = {"ms": windows(lambda: vb.vrl_sum_bvh(
+        *mpacks, seed=BVH_SEED, materials=mats), 5, 3), "extends": plain}
+    out["vrl_sum_bvh maximum"] = {"ms": windows(lambda: vb.vrl_sum_bvh(
+        *xpacks, seed=BVH_SEED), 5, 3), "extends": plain}
+    return out
+
+
 def device_ops(prof):
     """The device operations (kernels, copies, sets) of a torch.profiler
     run, in start order, as chrome-trace events."""
@@ -774,6 +834,10 @@ def main():
     if sys.argv[1:] == ["--bvh"]:
         print(json.dumps({"card": card, "package": vs.__file__,
                           "registers": registers(), "bvh": bvh(dev)}))
+        return
+    if sys.argv[1:] == ["--glossy"]:
+        print(json.dumps({"card": card, "package": vs.__file__,
+                          "registers": registers(), "glossy": glossy(dev)}))
         return
     if sys.argv[1:] == ["--bwd-split"]:
         print(json.dumps({"card": card, "package": vs.__file__,

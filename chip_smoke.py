@@ -612,15 +612,17 @@ def ptxas_summary(log):
     kernels and the homogeneous clustered VJP (its tiling,
     vrl_sum_clustered_bwd_warps_kernel) and sum
     (vrl_sum_clustered_warps_kernel), and "mat" for the material
-    instantiations of kernels 1, 2 and 5; kernel 7's counting
-    instantiation."""
+    instantiations of kernels 1-7 (the grid ones, kernel 3's
+    vrl_sum_mat_kernel among them, at the run-time step count, "tri" for
+    the trilinear read); kernel 7's counting instantiation, "ext" for its
+    forms on the extended medium pack (vrl_sum_bvh_ext_kernel)."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
                           r"sum_clustered_bwd|sum_clustered_bwd_warps|"
                           r"sum_clustered_warps|r|sum_bvh|sum_plane|"
-                          r"sum_tri)_kernel)"
+                          r"sum_tri|sum_mat|sum_bvh_ext)_kernel)"
                           r"I((?:L[ib]\d+E)+)E",
                           line)
             name = None
@@ -631,6 +633,12 @@ def ptxas_summary(log):
                 rest = args[2:]
                 if kernel == "vrl_sum_tri_kernel":
                     label += ["grid", "uv*", "tri"]
+                elif kernel == "vrl_sum_mat_kernel":  # <.., tri>
+                    label += ["grid", "uv*", "mat"] + (["tri"] if rest[0]
+                                                       else [])
+                elif kernel == "vrl_sum_bvh_ext_kernel":  # <.., count, mat>
+                    label += (["ext"] + (["count"] if rest[0] else [])
+                              + (["mat"] if rest[1] else []))
                 elif kernel == "vrl_sum_bvh_kernel":
                     label += ["count"] if rest and rest[0] else []
                 elif kernel in ("vrl_sum_plane_kernel",
@@ -647,12 +655,14 @@ def ptxas_summary(log):
                         label.append(PLANE_MODE[rest[2]])
                         if rest[3]:
                             label.append("mat")
-                    if kernel == "vrl_sum_clustered_kernel":  # <.., mode, tri>
+                    if kernel == "vrl_sum_clustered_kernel":
+                        # <.., mode, tri, material>
                         label.append(PLANE_MODE[rest[2]])
-                    if rest[-1] and kernel in ("vrl_r_kernel",
-                                               "vrl_sum_clustered_kernel") \
-                            and len(rest) > (4 if kernel == "vrl_r_kernel"
-                                             else 3):
+                        if len(rest) > 4 and rest[4]:
+                            label.append("mat")
+                    tri_at = 4 if kernel == "vrl_r_kernel" else 3
+                    if kernel in ("vrl_r_kernel", "vrl_sum_clustered_kernel") \
+                            and len(rest) > tri_at and rest[tri_at]:
                         label.append("tri")
                 name = f"{kernel}<{','.join(label)}>"
             spill = "0"
@@ -3363,9 +3373,12 @@ def scene_files(dev, card, tmp):
     return c1, c4
 
 
-def cli_runs(dev, card, tmp, runs=CLI_RUNS, phase="33 the CLI"):
+def cli_runs(dev, card, tmp, runs=CLI_RUNS, phase="33 the CLI",
+             profile=None):
     """Phase 33 (and 38's runs): render_cli.main on each scene file of
-    `runs`; returns {label: (median ms per pass, spread)}."""
+    `runs`; returns {label: (median ms per pass, spread)}, and with
+    `profile` a run's label also {"profile": profile_device's trace of
+    that run's in-process render}."""
     out, lines = {}, []
     for label, name, integ, passes, opts, route in runs:
         path = os.path.join(tmp, name)
@@ -3395,11 +3408,20 @@ def cli_runs(dev, card, tmp, runs=CLI_RUNS, phase="33 the CLI"):
         scene = (loader.build_scene(loader.convert_mitsuba_xml(path, defines),
                                     device=dev) if path.endswith(".xml")
                  else loader.load_json(path, defines, device=dev))
-        ref = render_progressive(
-            scene, CLI_SEED, ProgressiveConfig(
-                max_passes=passes, clustered=integ == "alvrl"),
-            alvrl.ALVRLParams(vrl_target_num=cli.vrls,
-                              num_particles=cli.particles))
+        refs = []
+
+        def render():
+            refs.append(render_progressive(
+                scene, CLI_SEED, ProgressiveConfig(
+                    max_passes=passes, clustered=integ == "alvrl"),
+                alvrl.ALVRLParams(vrl_target_num=cli.vrls,
+                                  num_particles=cli.particles)))
+
+        if label == profile:
+            out["profile"] = profile_device(render, 0, 1)
+        else:
+            render()
+        ref = refs[0]
         check(np.array_equal(img, ref), f"{label}: the CLI's image is not "
               "render_progressive's")
         hold = (", " + hold_kernel1(label, records, CLI_HOLDS[label])
@@ -4101,6 +4123,25 @@ def glossy_files(dev, card, tmp, c1):
     return scene
 
 
+def hold_by_kind(label, out, ref, kind, channels=3,
+                 min_items=GLOSSY_KIND_RAYS):
+    """out against ref at the homogeneous bar over each eye-hit kind alone
+    (every kind of GLOSSY_KINDS, min_items items at least); returns a
+    line of text."""
+    groups = homog_bar_by_kind(out, ref, kind, channels)
+    check(set(groups) == GLOSSY_KINDS, f"{label}: the kinds held "
+          f"{sorted(groups)}")
+    for k, (n, median, share) in groups.items():
+        check(n >= min_items and median < HOMOG_MEDIAN
+              and share < HOMOG_SHARE, f"{label}: kind {k} ({n} items)"
+              f" median {median}, share {share}")
+    n, med, sh = (max(g[i] if i else -g[0] for g in groups.values())
+                  for i in range(3))
+    return (f"{label}: {len(groups)} kinds held alone, each of "
+            f"{-n} items or more, worst median {med:.2e}, worst "
+            f"share>1e-2 {sh:.4f}")
+
+
 def glossy_kernels(dev, card, scene, vrls):
     """Phase 40: the material instantiations of kernels 1, 2 and 5 on
     cornell_glossy against their plain versions, the diffuse ones
@@ -4129,23 +4170,6 @@ def glossy_kernels(dev, card, scene, vrls):
     surf = smooth[packs[0][pk.MATID].long()]
     errs, lines, plain_ms = {}, [], {}
 
-    def hold(label, out, ref, kind, channels=3, min_items=GLOSSY_KIND_RAYS):
-        """out against ref at the homogeneous bar over each eye-hit kind
-        alone (every kind of GLOSSY_KINDS, min_items items at least);
-        returns a line of text."""
-        groups = homog_bar_by_kind(out, ref, kind, channels)
-        check(set(groups) == GLOSSY_KINDS, f"{label}: the kinds held "
-              f"{sorted(groups)}")
-        for k, (n, median, share) in groups.items():
-            check(n >= min_items and median < HOMOG_MEDIAN
-                  and share < HOMOG_SHARE, f"{label}: kind {k} ({n} items)"
-                  f" median {median}, share {share}")
-        n, med, sh = (max(g[i] if i else -g[0] for g in groups.values())
-                      for i in range(3))
-        return (f"{label}: {len(groups)} kinds held alone, each of "
-                f"{-n} items or more, worst median {med:.2e}, worst "
-                f"share>1e-2 {sh:.4f}")
-
     # kernel 1: injected (its plain version timed) and Philox (its samples
     # counted), and its checking launch
     u_philox = philox_uniforms(r_seed, n_rays, n_vrls, 6, device=dev)
@@ -4162,7 +4186,8 @@ def glossy_kernels(dev, card, scene, vrls):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()) and float(out.sum()) > 0.0,
               f"kernel 1 (material) {mode}: not finite and positive")
-        lines.append(hold(f"kernel 1 {mode}", out.T, ref.T, ray_kind))
+        lines.append(hold_by_kind(f"kernel 1 {mode}", out.T, ref.T,
+                                  ray_kind))
         errs["vrl_sum"] = max(errs.get("vrl_sum", 0.0),
                               float((out - ref).abs().max()))
     k1_ref = ref
@@ -4201,7 +4226,7 @@ def glossy_kernels(dev, card, scene, vrls):
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"kernel 2 (material) {mode}: a "
               "repeat is not bit-identical")
-        lines.append(hold(f"kernel 2 {mode} ({n_cols} columns)", out.T,
+        lines.append(hold_by_kind(f"kernel 2 {mode} ({n_cols} columns)", out.T,
                           ref.T, ray_kind))
         errs["vrl_sum_clustered"] = max(errs.get("vrl_sum_clustered", 0.0),
                                         float((out - ref).abs().max()))
@@ -4242,7 +4267,7 @@ def glossy_kernels(dev, card, scene, vrls):
         torch.cuda.synchronize()
         if mode == "injected":
             kind = ray_kind[pick][:, None].expand(-1, n_vrls)
-            text = hold(f"kernel 5 injected ({len(pick)} rays, "
+            text = hold_by_kind(f"kernel 5 injected ({len(pick)} rays, "
                         f"{R_KIND_RAYS} of each kind) mean", out[0], ref[0],
                         kind, 1, R_KIND_RAYS * n_vrls)
         else:
@@ -5566,6 +5591,476 @@ def grid_options(dev, card, cfg, c4):
                   "vrl_sum_clustered.cu", 937, tri_launches[2], "clustered")]
 
 
+# phase 48: glossy surfaces in a grid medium and on large meshes. The
+# glossy grid scene: cornell_glossy's box and table (GLOSSY_MATERIALS,
+# GLOSSY_FACES) in config 4's medium (its 48^3 density) at 512x512; the
+# glossy cube field: phase 29/30's 15,984-triangle field with the table's
+# eleven smooth kinds on its cubes in turn and cornell_glossy's on its
+# walls, and that field (diffuse) in phase 43's mixture + single medium
+# and in an HG medium of the single strategy
+GG_SEED = 20261019
+GG_R_RAYS = 256        # rays of each kind in kernel 6's hold
+GG_SLICES, GG_COLS = 16, 64  # kernel 4's hold: a seeded table
+FIELD_AXES, SMALL_AXES = bbl.CUBE_AXES[0], 4  # 15,984 and 780 triangles
+# the forms of phase 48 in the kernels line: (name, source, the TPU
+# kernel it replaces)
+GG_FORMS = {
+    "3m": ("vrl_sum_hetero material", "vrl_sum.cu", 863),
+    "3tm": ("vrl_sum_hetero material trilinear", "vrl_sum.cu", 863),
+    "4m": ("vrl_sum_hetero_clustered material", "vrl_sum_clustered.cu",
+           937),
+    "4tm": ("vrl_sum_hetero_clustered material trilinear",
+            "vrl_sum_clustered.cu", 937),
+    "6m": ("vrl_r_hetero material", "vrl_r.cu", 1082),
+    "6tm": ("vrl_r_hetero material trilinear", "vrl_r.cu", 1082),
+    "7m": ("vrl_sum_bvh material", "vrl_sum_bvh.cu", 1415),
+    "7x": ("vrl_sum_bvh extended (mixture, strategy)", "vrl_sum_bvh.cu",
+           1415),
+}
+GG_RUNS = [
+    ("glossy grid vrl", "glossy_grid.json", "vrl", 2, [],
+     ("vrl_sum_hetero",)),
+    ("glossy grid alvrl", "glossy_grid.json", "alvrl", 2,
+     ["--particles", "192"], ("vrl_r_hetero", "vrl_sum_hetero_clustered")),
+    ("glossy field vrl", "glossy_field.json", "vrl", 1,
+     ["--particles", "64", "--vrls", "256"], ("vrl_sum_bvh",)),
+]
+# the run whose in-process render phase 48 traces for the idle share: the
+# cheapest to trace (tracing the grid scene's render took 35-40 s of the
+# phase on an H100 machine)
+GG_PROFILED = "glossy field vrl"
+
+
+def glossy_grid_desc(c1, c4_scene, tmp):
+    """The glossy grid scene as a JSON dict ($w x $h): cornell_glossy's
+    (glossy_json) in config 4's grid medium, its density in tmp."""
+    med = c4_scene.medium
+    path = os.path.join(tmp, "glossy_density.npy")
+    np.save(path, med.density.cpu().numpy())
+    desc = glossy_json(c1)
+    desc["medium"] = {
+        "type": "grid", "density_npy": path,
+        "sigma_t": med.sigma_t_color.cpu().tolist(),
+        "albedo": med.albedo.cpu().tolist(), "g": float(med.g),
+        "box_min": med.box_min.cpu().tolist(),
+        "box_max": med.box_max.cpu().tolist(), "scale": float(med.scale),
+        "phase": "hg"}
+    return desc
+
+
+def glossy_field(dev, table, n_axis=FIELD_AXES):
+    """The cube field with the glossy table `table` (a scene's Materials,
+    GLOSSY_MATERIALS in order): cornell_glossy's wall materials, the
+    eleven smooth materials on the cubes in turn."""
+    field = bbl.scene_of("cubes", n_axis, device=dev)
+    names = [m["name"] for m in GLOSSY_MATERIALS]
+    walls = [names.index(n) for n in GLOSSY_FACES[:12]]
+    n_cubes = (field.faces.shape[0] - 12) // 12
+    cubes = 1 + np.repeat(np.arange(n_cubes) % (len(names) - 1), 12)
+    ids = torch.as_tensor(np.concatenate([walls, cubes]), device=dev)
+    return replace(field, materials=table, material=ids)
+
+
+def field_media(field):
+    """The cube field's extended media: (name, scene): phase 43's
+    mixture + single medium, an HG medium of the single strategy."""
+    med = field.medium
+    sig_s = torch.tensor(SKY_SIGMA_S, device=field.device)
+    mix = ph.mixture_params([0.6, 0.3], [ph.HG, ph.RAYLEIGH], [0.8, 0.0],
+                            device=field.device)
+    return [("mixture", replace(field, medium=replace(
+                med, sigma_s=sig_s, sigma_a=torch.zeros_like(sig_s),
+                phase_kind=ph.MIXTURE, phase_params=mix, strategy=1,
+                channel=0))),
+            ("strategy", replace(field, medium=replace(
+                med, sigma_s=sig_s, strategy=1, channel=1)))]
+
+
+def glossy_grid(dev, card, cfg, c1, c4):
+    """Phase 48: the material forms of kernels 3, 4 and 6 (nearest and
+    trilinear) on the glossy grid scene and kernel 7's material and
+    extended forms on the cube field, against their plain versions kind
+    by kind, their checking and counting launches, the main path's
+    launches, times against the forms they extend, bounds; the CLI on
+    both scene files. Returns the kernels line's eight entries."""
+    t48 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        desc = glossy_grid_desc(c1, c4["scene"], tmp)
+        path = os.path.join(tmp, "glossy_grid.json")
+        with open(path, "w") as f:
+            f.write(json.dumps(desc).replace('"$w"', "$w").replace(
+                '"$h"', "$h"))
+        scene = loader.load_json(path, {"w": C4_SIZE, "h": C4_SIZE},
+                                 device=dev)
+        check(bsdf_api.check_kinds(scene) == bsdf_api.PORTED_KINDS
+              - bsdf_api.DELTA_KINDS and hasattr(scene.medium, "density")
+              and torch.equal(scene.medium.density,
+                              c4["scene"].medium.density),
+              "the glossy grid scene's kinds and medium")
+        print(f"[48 setup] the glossy grid scene loaded in "
+              f"{time.perf_counter() - t48:.1f} s", flush=True)
+        grid_out = glossy_grid_forms(dev, card, cfg, scene, c4)
+        field_out = glossy_field_forms(dev, card, scene.materials)
+        fdesc = scene_json(field_out["field"], homog_medium(
+            field_out["field"]))
+        fdesc["materials"] = GLOSSY_MATERIALS
+        names = [m["name"] for m in GLOSSY_MATERIALS]
+        for sh in fdesc["shapes"]:
+            sh["material"] = names[int(sh["material"][1:])]
+        with open(os.path.join(tmp, "glossy_field.json"), "w") as f:
+            json.dump(fdesc, f)
+        runs = [(label, name, integ, passes,
+                 ["-D", f"w={C4_SIZE}", "-D", f"h={C4_SIZE}", *opts]
+                 if name == "glossy_grid.json" else opts, route)
+                for label, name, integ, passes, opts, route in GG_RUNS]
+        t48c = time.perf_counter()
+        cli = cli_runs(dev, card, tmp, runs, "48c the CLI on the glossy "
+                       "scene files", profile=GG_PROFILED)
+        t_cli = time.perf_counter() - t48c
+    prof = cli.pop("profile")
+    idle = ("not measured" if prof is None
+            else f"{1 - prof[1] / prof[0]:.1%} (span {prof[0]:.1f} ms)")
+    print(f"[48 on {card}] {GG_PROFILED}'s in-process render: idle share "
+          f"{idle}; ms a pass: " + ", ".join(
+              f"{k} {v[0]:.1f} (spread {v[1]:.1%})" for k, v in cli.items())
+          + f" | 48c {t_cli:.1f} s, phase 48 {time.perf_counter() - t48:.1f}"
+          " s", flush=True)
+    out = {**grid_out["entries"], **field_out["entries"]}
+    return [out[k] for k in GG_FORMS]
+
+
+def gg_entry(key, launches, err, ms, plain_ms, bnd):
+    name, src, line = GG_FORMS[key]
+    return {"name": name, "route": "cuda",
+            "source": f"alvrl_tpu_torch/csrc/{src}",
+            "replaces": f"alvrl_tpu/ops/vrl_pallas.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None}
+
+
+def glossy_grid_forms(dev, card, cfg, scene, c4):
+    """48a: kernels 3, 4 and 6's material forms, nearest and trilinear."""
+    t0 = time.perf_counter()
+    params, tcfg = c4["params"], c4["tcfg"]
+    gen = torch.Generator().manual_seed(GG_SEED)
+    vrls = vrl.compact(tracer.trace(scene, gen, params.num_particles, tcfg),
+                       params.vrl_target_num, slots_per_particle=C4_DEPTH)
+    n_vrls, seed = vrls.capacity, GG_SEED
+    info = alvrl.build_slice_info(scene, params)
+    rng = np.random.default_rng(48)
+    lines, entries = [], {}
+    for fast_tau, tag in ((True, ""), (False, "t")):
+        sc = replace(scene, medium=replace(scene.medium, fast_tau=fast_tau))
+        read = "nearest" if fast_tau else "trilinear"
+        mats = integrator.material_pack(sc)
+        packs = integrator.pack_frame(sc, vrls, materials=mats)[3]
+        dpacks = integrator.pack_frame(sc, vrls)[3]
+        check(packs[0].shape[0] == pk.GRID_MAT_RAY_ROWS
+              and torch.equal(packs[0][:pk.GRID_RAY_ROWS], dpacks[0])
+              and pk.is_trilinear(packs[3]) != fast_tau,
+              f"the glossy grid packs ({read})")
+        kind = mats[0][packs[0][pk.GRID_MATID].long(), pk.MT_KIND].long()
+        surf = mats[0][packs[0][pk.GRID_MATID].long(), pk.MT_SMOOTH] > 0.5
+        kind_np = kind.cpu().numpy()
+        pick = torch.as_tensor(np.concatenate([rng.choice(
+            np.flatnonzero(kind_np == k), GLOSSY_KIND_RAYS, replace=False)
+            for k in sorted(GLOSSY_KINDS)]), device=dev)
+        r_pick = pick.reshape(len(GLOSSY_KINDS), -1)[:, :GG_R_RAYS].reshape(-1)
+        sub, dsub = ((p[0][:, pick].contiguous(), *p[1:])
+                     for p in (packs, dpacks))
+        rsub, drsub = ((p[0][:, r_pick].contiguous(), *p[1:])
+                       for p in (packs, dpacks))
+        n_sub, n_r = len(pick), len(r_pick)
+        sop = np.arange(n_sub, dtype=np.int32) % GG_SLICES
+        tv = torch.as_tensor(rng.integers(0, n_vrls, (GG_SLICES, GG_COLS)),
+                             dtype=torch.int32, device=dev)
+        tw = torch.as_tensor(rng.uniform(0.0, 2.0, (GG_SLICES, GG_COLS)),
+                             dtype=torch.float32, device=dev)
+        mkw = dict(materials=mats, uv_steps=cfg.uv_tau_steps)
+        u3 = philox_uniforms(seed, n_sub, n_vrls, 6, device=dev)
+        u4 = philox_table_uniforms(seed, sop, tv, 6)
+        u6 = philox_uniforms(seed, n_r, n_vrls, 6, device=dev)
+        outs = {"3": vrl_sum_hetero(*sub, seed=seed, **mkw),
+                "4": vrl_sum_hetero_clustered(*sub, sop, tv, tw, seed=seed,
+                                              **mkw),
+                "6": vrl_r_hetero(*rsub, seed=seed, **mkw)}
+        alb = surf[pick]
+        with plain_chunk(C4_PLAIN_CHUNK):
+            with SweepCount(*pair_masks(*sub[:2])[:1], alb) as s3:
+                ref3, p3 = timed_call(lambda: vrl_sum_hetero_reference(
+                    *sub, u3, **mkw))
+            with SweepCount(table_pair_ok(sub[0], sub[1], sop, tv, tw),
+                            alb) as s4:
+                ref4, p4 = timed_call(
+                    lambda: vrl_sum_hetero_clustered_reference(
+                        *sub, sop, tv, tw, u4, **mkw))
+            with SweepCount(*pair_masks(*rsub[:2])[:1], surf[r_pick]) as s6:
+                ref6, p6 = timed_call(lambda: vrl_r_hetero_reference(
+                    *rsub, u6, **mkw))
+        torch.cuda.synchronize()
+        for k, o in outs.items():
+            check(bool(torch.isfinite(o).all()) and float(o.abs().sum()) > 0,
+                  f"kernel {k} ({read}, material): finite and non-zero")
+        ksub, kr = kind[pick], kind[r_pick]
+        held = [hold_by_kind(f"kernel 3 {read}", outs["3"].T, ref3.T, ksub),
+                hold_by_kind(f"kernel 4 {read} ({GG_COLS} columns)",
+                             outs["4"].T, ref4.T, ksub),
+                hold_by_kind(f"kernel 6 {read} mean", outs["6"][0], ref6[0],
+                             kr[:, None].expand(-1, n_vrls), 1,
+                             GG_R_RAYS * n_vrls)]
+        nz = ref6[1] > R_VAR_FLOOR
+        v_med = float(((outs["6"][1] - ref6[1]).abs()[nz] / ref6[1][nz])
+                      .median())
+        check(v_med < R_VAR_MEDIAN, f"kernel 6 {read} var {v_med}")
+        errs = {"3": float((outs["3"] - ref3).abs().max()),
+                "4": float((outs["4"] - ref4).abs().max()),
+                "6": float((outs["6"] - ref6).abs().max())}
+        # the checking launches of kernels 4 and 6
+        c_chk, c_counts = vrl_sum_hetero_clustered_check(
+            *sub, sop, tv, tw, seed=seed, **mkw)
+        r_chk, r_counts = vrl_r_hetero_check(*rsub, seed=seed, **mkw)
+        for what, counts in (("kernel 4", c_counts), ("kernel 6", r_counts)):
+            check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+                  and counts["segments"] > 0, f"{what} {read} (material): "
+                  f"the checking launch: {counts}")
+        check(torch.equal(c_chk, outs["4"]), f"kernel 4 {read}: the checking "
+              "launch is not the sum's")
+        # the main path: the unclustered render and render_alvrl
+        fns = (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered)
+        for fn in fns:
+            fn.launches = fn.mat_launches = fn.tri_launches = 0
+        with plain_calls() as plain:
+            img = integrator.render_with_vrls_kernel(
+                sc, vrls, torch.Generator().manual_seed(148), cfg)
+            img_c, _, _ = alvrl.render_alvrl(
+                sc, torch.Generator().manual_seed(248), params, cfg, tcfg,
+                slice_info=info)
+            torch.cuda.synchronize()
+        launches = {fn.__name__: (fn.launches, fn.mat_launches,
+                                  fn.tri_launches) for fn in fns}
+        check(plain[0] == 0 and all(
+            n >= 1 and m == n and t == (0 if fast_tau else n)
+            for n, m, t in launches.values()),
+            f"the main path's launches ({read}): {launches}, plain calls "
+            f"{plain[0]}")
+        for name, im in (("unclustered", img), ("clustered", img_c)):
+            check(tuple(im.shape) == (C4_SIZE, C4_SIZE, 3)
+                  and bool(torch.isfinite(im).all())
+                  and float(im.abs().max()) > 0, f"the {name} image")
+        # its sums on a Philox hold against the plain version
+        seed_u = integrator.draw_seed(torch.Generator().manual_seed(148))
+        hold = torch.arange(0, packs[0].shape[1], 64, device=dev)
+        with plain_chunk(C4_PLAIN_CHUNK):
+            ref_u = vrl_sum_hetero_reference(
+                packs[0][:, hold].contiguous(), *packs[1:], philox_draws(
+                    seed_u, hold[:, None],
+                    torch.arange(n_vrls, device=dev)[None], 6), **mkw)
+        main_bar = homog_bar(vrl_sum_hetero(*packs, seed=seed_u, **mkw)[
+            :, hold].T, ref_u.T)
+        check(main_bar[0] < HOMOG_MEDIAN and main_bar[1] < HOMOG_SHARE,
+              f"the glossy grid render's sums against the plain: {main_bar}")
+        diffuse = integrator.develop_sums(
+            sc, vrls, *integrator.pack_frame(sc, vrls)[:3],
+            vrl_sum_hetero(*dpacks, seed=seed_u, uv_steps=cfg.uv_tau_steps))
+        ratio = float(img.mean()) / float(diffuse.mean())
+        check(ratio > 1.0, f"the material render against the diffuse form's "
+              f"on the same seed: x{ratio}")
+        # times: each material form beside its diffuse form on the same
+        # inputs, in turns (diffuse, material, material, diffuse)
+        block = vsc.ray_block(True)
+        tiles = [torch.as_tensor(a, device=dev)
+                 for a in group_by_slice(sop, block)]
+        c_out = torch.zeros((3, n_sub), device=dev)
+        grid_arg = (sub[4], cfg.uv_tau_steps)
+
+        def c_launch(p, **kw):
+            return lambda: vsc._launch(vsc._library(), *p[:4], *tiles, tv,
+                                       tw, None, seed, 2, 2, True, 0, c_out,
+                                       grid_arg, **kw)
+
+        timed = {"3": (lambda: vrl_sum_hetero(*sub, seed=seed, **mkw),
+                       lambda: vrl_sum_hetero(*dsub, seed=seed,
+                                              uv_steps=cfg.uv_tau_steps)),
+                 "4": (c_launch(sub, materials=mats), c_launch(dsub)),
+                 "6": (lambda: vrl_r_hetero(*rsub, seed=seed, **mkw),
+                       lambda: vrl_r_hetero(*drsub, seed=seed,
+                                            uv_steps=cfg.uv_tau_steps))}
+        ms = {}
+        for k, (mat_fn, diff_fn) in timed.items():
+            runs = [cuda_ms_batched(f, 2, 3, 5) for f in (diff_fn, mat_fn,
+                                                          mat_fn, diff_fn)]
+            ms[k] = (summary(runs[1] + runs[2]), summary(runs[0] + runs[3]))
+        uv = cfg.uv_tau_steps
+
+        def mat_ops(kernel, sweep, counts=None):
+            f, s = kernel_ops(kernel, sweep, True, True, uv, tri=not fast_tau)
+            if counts is not None:
+                f, s = plane_ops((f, s), sweep, counts)
+            return (f + sweep.open[1] * OPS["eval_smooth"][0],
+                    s + sweep.open[1] * OPS["eval_smooth"][1])
+
+        mat_bytes = nbytes(*mats)
+        bounds = {
+            "3": bound(mat_ops("vrl_sum", s3), nbytes(*sub) + mat_bytes
+                       + 3 * n_sub * 4),
+            "4": bound(mat_ops("vrl_sum_clustered", s4, c_counts),
+                       nbytes(*sub, tv, tw, *tiles) + mat_bytes
+                       + 3 * n_sub * 4),
+            "6": bound(mat_ops("vrl_r", s6, r_counts), nbytes(*rsub)
+                       + mat_bytes + 2 * n_r * n_vrls * 4)}
+        plain_ms = {"3": p3, "4": p4, "6": p6}
+        counts = {"3": launches["vrl_sum_hetero"][1],
+                  "4": launches["vrl_sum_hetero_clustered"][1],
+                  "6": launches["vrl_r_hetero"][1]}
+        for k in ("3", "4", "6"):
+            entries[f"{k}{tag}m"] = gg_entry(
+                f"{k}{tag}m", counts[k], errs[k], ms[k][0][0], plain_ms[k],
+                bounds[k])
+        lines.append(
+            f"{read}: " + "; ".join(held) + f"; kernel 6 var median "
+            f"{v_med:.2e} | checking launches: kernel 4 "
+            f"{check_line(c_counts)}; kernel 6 {check_line(r_counts)} | "
+            f"main path launches (all, material, trilinear) {launches}, "
+            f"no plain call; images' means {float(img.mean()):.6g} and "
+            f"{float(img_c.mean()):.6g}, x{ratio:.4f} the diffuse form's on "
+            f"the same seed; its sums vs plain on every 64th ray median "
+            f"{main_bar[0]:.2e} share {main_bar[1]:.4f} | ms (CUDA events, "
+            "material / diffuse, in turns): " + "; ".join(
+                f"kernel {k} {m[0]:.4f} / {d[0]:.4f} (x{m[0] / d[0]:.2f})"
+                for k, (m, d) in ms.items()) + " | plain " + ", ".join(
+                f"kernel {k} {v:.1f} ms" for k, v in plain_ms.items())
+            + "; bounds " + ", ".join(f"kernel {k} {b[0]:.4f} ms by {b[1]}"
+                                      for k, b in bounds.items())
+            + f"; samples: kernel 3 {s3}; kernel 4 {s4}; kernel 6 {s6}")
+    regs = [r for r in ptxas_summary(_build.build_log())
+            if ",grid," in r and ",mat" in r]
+    print(f"[48a grid material forms on {card}, the glossy grid scene "
+          f"{C4_SIZE}x{C4_SIZE} in config 4's {C4_GRID}^3 medium, {n_vrls} "
+          f"traced VRLs; kernels 3 and 4 on {GLOSSY_KIND_RAYS} rays of each "
+          f"kind, kernel 6 on {GG_R_RAYS}] " + " || ".join(lines)
+          + " | ptxas: " + " ; ".join(regs)
+          + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"entries": entries}
+
+
+def glossy_field_forms(dev, card, table):
+    """48b: kernel 7's material and extended forms on the cube field."""
+    t0 = time.perf_counter()
+    field = glossy_field(dev, table)
+    vrls = bbl.bench_vrls(field)
+    seed = GG_SEED
+    cases = [("glossy", field)] + field_media(bbl.scene_of(
+        "cubes", FIELD_AXES, device=dev))
+    small = {"glossy": glossy_field(dev, table, SMALL_AXES)}
+    small.update(field_media(bbl.scene_of("cubes", SMALL_AXES, device=dev)))
+    lines, errs, ms, plain_ms, bounds, launches = [], {}, {}, {}, {}, {}
+    for name, sc in cases:
+        key = "7m" if name == "glossy" else "7x"
+        mats = integrator.material_pack(sc)
+        kw = dict(phase_kind=sc.medium.phase_kind, materials=mats)
+        for f in ("launches", "mat_launches", "mix_launches"):
+            setattr(vb.vrl_sum_bvh, f, 0)
+        with plain_calls() as plain:
+            img = integrator.render_with_vrls_kernel_bvh(
+                sc, vrls, torch.Generator().manual_seed(348))
+            torch.cuda.synchronize()
+        moved = (vb.vrl_sum_bvh.launches, vb.vrl_sum_bvh.mat_launches,
+                 vb.vrl_sum_bvh.mix_launches)
+        check(plain[0] == 0 and moved == ((1, 1, 0) if key == "7m"
+                                          else (1, 0, 1))
+              and bool(torch.isfinite(img).all())
+              and float(img.abs().max()) > 0,
+              f"kernel 7 {name}: the render's launches {moved}")
+        launches[key] = launches.get(key, 0) + moved[1 if key == "7m" else 2]
+        packs = integrator.pack_frame_bvh(sc, vrls, materials=mats)[3]
+        dpacks = (integrator.pack_frame_bvh(sc, vrls)[3] if mats is not None
+                  else (*packs[:3], pk.pack_medium(replace(sc, medium=replace(
+                      sc.medium, phase_kind=ph.HG, phase_params=None,
+                      strategy=0)))))
+        out = vb.vrl_sum_bvh(*packs, seed=seed, **kw)
+        rows = bbl.subset_rays(packs[0].shape[1]).to(dev)
+        u = philox_uniforms(seed, packs[0].shape[1], packs[1].shape[1], 6,
+                            device=dev)[rows].contiguous()
+        ref, p_ms = timed_call(lambda: vb.vrl_sum_bvh_reference(
+            packs[0][:, rows].contiguous(), *packs[1:], u, **kw))
+        torch.cuda.synchronize()
+        median, share = homog_bar(out[:, rows].T, ref.T)
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"kernel 7 {name} against its plain version: {median}, "
+              f"{share}")
+        errs[key] = max(errs.get(key, 0.0), float((out[:, rows] - ref)
+                                                  .abs().max()))
+        _, counts = vb.vrl_sum_bvh_counts(*packs, seed=seed, **kw)
+        check(counts["differ"] == 0 and counts["segments"] > 0,
+              f"kernel 7 {name}: the counting launch {counts}")
+        # kernel 1's matching form on the 780-triangle field, the same
+        # rays, VRLs and uniforms
+        ss = small[name]
+        spk = integrator.pack_frame_bvh(ss, vrls, materials=mats)[3]
+        us = torch.rand((spk[0].shape[1], spk[1].shape[1], 6), device=dev,
+                        generator=torch.Generator(dev).manual_seed(48))
+        a = vb.vrl_sum_bvh(*spk, uniforms=us, **kw)
+        b = vrl_sum(spk[0], spk[1], spk[2].tris, spk[3], uniforms=us, **kw)
+        k1_bar = homog_bar(a.T, b.T)
+        check(k1_bar[0] < HOMOG_MEDIAN and k1_bar[1] < HOMOG_SHARE,
+              f"kernel 7 {name} against kernel 1 at 780 triangles: {k1_bar}")
+        # times against kernel 7's present form on the same field
+        new_fn = lambda: vb.vrl_sum_bvh(*packs, seed=seed, **kw)  # noqa: E731
+        old_fn = lambda: vb.vrl_sum_bvh(*dpacks, seed=seed)  # noqa: E731
+        runs = [cuda_ms_batched(f, 1, 3, 3) for f in (old_fn, new_fn,
+                                                      new_fn, old_fn)]
+        m, o = summary(runs[1] + runs[2]), summary(runs[0] + runs[3])
+        # the bound: bvh_bound's count on this run's samples, the vol-surf
+        # samples drawn at the smooth hits (material form), each open
+        # vol-surf sample's eval_smooth, and the single strategy's
+        # pdfFailure, one exp ((2, 1) in place of balance's (8, 3)); a
+        # mixture's phase is counted as HG's (a lower bound)
+        sweep = BvhSweep(packs[0], packs[1], counts)
+        if mats is not None:
+            smooth = mats[0][packs[0][pk.MATID].long(), pk.MT_SMOOTH] > 0.5
+            pair_ok = pair_masks(packs[0], packs[1])[0]
+            sweep.drawn[1] = 2 * int((pair_ok & smooth[:, None]).sum())
+        f, s = kernel_ops("vrl_sum", replace_counts(
+            sweep, tri_tests=sweep.needed_tris), sc.medium.phase_kind != 1,
+            True)
+        f += sweep.needed_boxes * OPS["node"][0]
+        s += sweep.tested[0] * OPS["bvh_segment"][1]
+        if mats is not None:
+            f += sweep.open[1] * OPS["eval_smooth"][0]
+            s += sweep.open[1] * OPS["eval_smooth"][1]
+        if sc.medium.strategy != 0:
+            f -= 6 * sum(sweep.open)
+            s -= 2 * sum(sweep.open)
+        b_ops = (f, s)
+        bnd = bound(b_ops, nbytes(packs[0], packs[1], packs[2].nodes,
+                                  packs[2].tris, packs[3])
+                    + (nbytes(*mats) if mats is not None else 0)
+                    + 3 * packs[0].shape[1] * 4)
+        if key not in ms or name == "mixture":
+            ms[key], plain_ms[key], bounds[key] = m[0], p_ms, bnd
+        lines.append(
+            f"{name} ({'material' if mats is not None else 'extended'} "
+            f"form, {sc.faces.shape[0]} triangles): vs plain on "
+            f"{len(rows)} rays median {median:.2e} share {share:.4f}; vs "
+            f"kernel 1 at {ss.faces.shape[0]} triangles median "
+            f"{k1_bar[0]:.2e} share {k1_bar[1]:.4f}; counting launch "
+            f"differ 0, {sweep}; render launches {moved}, mean "
+            f"{float(img.mean()):.6g}; ms {m[0]:.4f} (spread {m[1]:.1%}) "
+            f"against the present form's {o[0]:.4f} (x{m[0] / o[0]:.2f}), "
+            f"plain {p_ms:.1f} ms on its {len(rows)} rays; bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}")
+    regs = [r for r in ptxas_summary(_build.build_log())
+            if "bvh_ext" in r]
+    print(f"[48b kernel 7's new forms on {card}, the cube field "
+          f"{bbl.WIDTH}x{bbl.WIDTH}, {vrls.capacity} traced VRL slots] "
+          + " | ".join(lines) + " | ptxas: " + " ; ".join(regs)
+          + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    entries = {k: gg_entry(k, launches[k], errs[k], ms[k], plain_ms[k],
+                           bounds[k]) for k in ("7m", "7x")}
+    return {"entries": entries, "field": field}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -5998,6 +6493,8 @@ def main():
     glossy_kernels_line = scene_path(dev, card, vrls)
     sky_kernels_line = sky_path(dev, card)
     tri_kernels = grid_options(dev, card, cfg, c4)
+    glossy_grid_kernels = glossy_grid(dev, card, cfg, presets.cornell_smoke(
+        WIDTH, HEIGHT, device=dev), c4)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -6015,7 +6512,7 @@ def main():
         "bound_by": bwd_bound[1], "library_ms": None,
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
         bvh_kernel, *probe_kernels, *glossy_kernels_line,
-        *sky_kernels_line, *tri_kernels]}))
+        *sky_kernels_line, *tri_kernels, *glossy_grid_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ in a homogeneous and in a grid medium; the BVH-occlusion sum
 VRL sum on the specular chains' rays, which start on surfaces; the
 material instantiations of kernels 1, 2 and 5 on glossy and layered
 surfaces; their mixture-phase (PHASE = 2) and sampling-strategy forms,
-and the dispatch's refusal of a phase kind it has no form for.
+and the dispatch's refusal of a phase kind it has no form for; the
+material forms of the grid kernels 3, 4 and 6 (nearest and trilinear)
+and of kernel 7, and kernel 7's mixture and strategy forms.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -1805,17 +1807,24 @@ def _glossy_by_kind(device):
     """_glossy at 128x128, its ray pack cut to KIND_RAYS eye rays of each
     of the eleven smooth kinds (a seeded pick): (material pack, packs,
     the rays' kinds, the kinds)."""
+    _, _, mats, packs = _glossy(device, 128)
+    return (mats, *_by_kind(mats, packs, pk.MATID, device, 16))
+
+
+def _by_kind(mats, packs, row, device, seed):
+    """KIND_RAYS eye rays of each smooth kind that the packs' rays hit (a
+    pick of `seed`), the packs' material-id row being `row`: (their
+    packs, their kinds, the kinds)."""
     from alvrl_tpu_torch.bsdf import api as bsdf_api
 
-    _, _, mats, packs = _glossy(device, 128)
-    kinds = bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS - {bsdf_api.DIFFUSE}
-    kind = mats[0][packs[0][pk.MATID].long(), pk.MT_KIND].long()
-    rng = np.random.default_rng(16)
+    kind = mats[0][packs[0][row].long(), pk.MT_KIND].long()
+    kinds = (bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS
+             - {bsdf_api.DIFFUSE}) & set(kind.tolist())
+    rng = np.random.default_rng(seed)
     pick = torch.as_tensor(np.concatenate([rng.choice(
         np.flatnonzero(kind.cpu().numpy() == k), KIND_RAYS, replace=False)
         for k in sorted(kinds)]), device=device)
-    return (mats, (packs[0][:, pick].contiguous(), *packs[1:]), kind[pick],
-            kinds)
+    return (packs[0][:, pick].contiguous(), *packs[1:]), kind[pick], kinds
 
 
 @pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
@@ -2105,8 +2114,9 @@ def test_cuda_dispatch_refuses_an_unknown_phase_kind(cuda, kind):
 
 
 def test_cuda_other_kernels_refuse_the_extended_pack(cuda):
-    """The BVH and backward kernels and the grid wrappers raise, naming
-    ROADMAP A13, on a mixture or strategy pack."""
+    """The backward kernels and the differentiable render raise, naming
+    ROADMAP A13, on a mixture or strategy pack (the forward kernels 1, 2,
+    5 and 7 take it)."""
     scene, packs = _mixture(cuda, "mixture_single", 16)
     gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
     with pytest.raises(ValueError, match="A13"):
@@ -2114,3 +2124,250 @@ def test_cuda_other_kernels_refuse_the_extended_pack(cuda):
     with pytest.raises(ValueError, match="A13"):
         integrator.render_with_vrls_kernel_diff(
             scene, _bench_vrls(cuda), torch.Generator().manual_seed(0))
+
+
+# glossy and layered surfaces in a grid medium (the material forms of
+# kernels 3, 4 and 6) and on the large-mesh route (kernel 7's material
+# and extended forms)
+
+GLOSSY_GRID_SIZE = 128
+
+
+def _glossy_grid(device, fast_tau):
+    """torch_port_utils.glossy_scene_desc's box at GLOSSY_GRID_SIZE^2 in a
+    seeded grid medium (8 x 9 x 10 voxels) read nearest or trilinearly,
+    the bench VRLs: (scene, vrls, material pack, material packs, the
+    diffuse packs)."""
+    from alvrl_tpu_torch.scene import loader
+    from torch_port_utils import glossy_scene_desc
+
+    desc = glossy_scene_desc(GLOSSY_GRID_SIZE, GLOSSY_GRID_SIZE)
+    desc["medium"] = {
+        "type": "grid", "sigma_t": [0.8, 0.85, 0.9],
+        "albedo": [0.9, 0.85, 0.8], "g": 0.3,
+        "density": np.random.default_rng(19).uniform(
+            0.2, 1.5, (8, 9, 10)).astype(np.float32).tolist()}
+    scene = loader.build_scene(desc, device=device)
+    scene = replace(scene, medium=replace(scene.medium, fast_tau=fast_tau))
+    vrls = _bench_vrls(device)
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    return scene, vrls, mats, packs, integrator.pack_frame(scene, vrls)[3]
+
+
+@pytest.mark.parametrize("fast_tau", [True, False],
+                         ids=["nearest", "trilinear"])
+@pytest.mark.parametrize("kernel", ["vrl_sum_hetero",
+                                    "vrl_sum_hetero_clustered",
+                                    "vrl_r_hetero"])
+def test_cuda_grid_material_forms_match_plain(cuda, kernel, fast_tau):
+    """The material forms of kernels 3, 4 and 6 on the glossy box in a
+    grid medium (KIND_RAYS eye rays of each kind x 512 VRLs; kernel 4 on
+    a seeded table) against their plain versions on the same uniforms,
+    at the homogeneous bar over all rays and over each kind's rays alone;
+    each launch counted on the wrapper's mat_launches (and tri_launches
+    for the trilinear read)."""
+    _, _, mats, packs, _ = _glossy_grid(cuda, fast_tau)
+    packs, ray_kind, kinds = _by_kind(mats, packs, pk.GRID_MATID, cuda, 19)
+    assert len(kinds) >= 9 and pk.is_trilinear(packs[3]) != fast_tau
+    n_rays, seed = packs[0].shape[1], 53
+    kw = dict(materials=mats)
+    fn = {"vrl_sum_hetero": vrl_sum_hetero,
+          "vrl_sum_hetero_clustered": vrl_sum_hetero_clustered,
+          "vrl_r_hetero": vrl_r_hetero}[kernel]
+    before = (fn.mat_launches, fn.tri_launches)
+    if kernel == "vrl_sum_hetero_clustered":
+        sop, ids, w = _glossy_table(packs, cuda)
+        u = torch.rand((n_rays, ids.shape[1], 6), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1))
+        out = fn(*packs, sop, ids, w, seed=seed, uniforms=u, **kw)
+        ref = vrl_sum_hetero_clustered_reference(*packs, sop, ids, w, u, **kw)
+    else:
+        u = torch.rand((n_rays, 512, 6), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1))
+        out = fn(*packs, seed=seed, uniforms=u, **kw)
+        plain = (vrl_sum_hetero_reference if kernel == "vrl_sum_hetero"
+                 else vrl_r_hetero_reference)
+        ref = plain(*packs, u, **kw)
+    torch.cuda.synchronize()
+    assert (fn.mat_launches - before[0], fn.tri_launches - before[1]) == (
+        1, int(not fast_tau))
+    if kernel == "vrl_r_hetero":
+        out, ref, channels = out[0], ref[0], 1
+        item_kind = ray_kind[:, None].expand(-1, 512)
+    else:
+        out, ref, channels, item_kind = out.T, ref.T, 3, ray_kind
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out, ref, channels)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    for k, (n, median, share) in homog_bar_by_kind(out, ref, item_kind,
+                                                   channels).items():
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (k, n, median,
+                                                               share)
+
+
+@pytest.mark.parametrize("fast_tau", [True, False],
+                         ids=["nearest", "trilinear"])
+def test_cuda_grid_material_checking_launches(cuda, fast_tau):
+    """The checking forms of kernels 4 and 6's material forms on the
+    glossy grid box: 0 disagreements of the plane pre-reject; their
+    outputs the sums' (kernel 4's bit for bit)."""
+    _, _, mats, packs, _ = _glossy_grid(cuda, fast_tau)
+    sop, ids, w = _glossy_table(packs, cuda)
+    out, counts = vrl_sum_hetero_clustered_check(*packs, sop, ids, w, seed=3,
+                                                 materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert counts["segments"] > 0 and counts["skipped"] > 0
+    assert torch.equal(out, vrl_sum_hetero_clustered(
+        *packs, sop, ids, w, seed=3, materials=mats))
+    reps = (packs[0][:, ::64].contiguous(), *packs[1:])
+    out, counts = vrl_r_hetero_check(*reps, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    median, share = homog_bar(out[0], vrl_r_hetero(
+        *reps, seed=3, materials=mats)[0], channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_glossy_grid_table_never_takes_a_diffuse_form(cuda):
+    """render_with_vrls_kernel and render_alvrl on the glossy grid box
+    launch only the material forms of kernels 3, 6 and 4 (mat_launches
+    as many as launches), with images brighter than the diffuse form's on
+    the same packs (albedo 0 at every glossy hit); a material pack with
+    the diffuse grid ray pack (no GRID_MATID row) raises."""
+    scene, vrls, mats, packs, dpacks = _glossy_grid(cuda, True)
+    fns = (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered)
+    before = [(f.launches, f.mat_launches) for f in fns]
+    img = integrator.render_with_vrls_kernel(
+        scene, vrls, torch.Generator().manual_seed(0))
+    img_c, _, _ = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(1), alvrl.ALVRLParams(
+            vrl_target_num=128, num_particles=32))
+    torch.cuda.synchronize()
+    for f, (n, m) in zip(fns, before):
+        assert f.launches - n >= 1 and f.launches - n == f.mat_launches - m
+    for im in (img, img_c):
+        assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0
+    seed = integrator.draw_seed(torch.Generator().manual_seed(0))
+    ours = vrl_sum_hetero(*packs, seed=seed, materials=mats)
+    diffuse = vrl_sum_hetero(*dpacks, seed=seed)
+    assert float(ours.sum()) > 1.05 * float(diffuse.sum())
+    with pytest.raises(ValueError, match="rays must be"):
+        vrl_sum_hetero(*dpacks, materials=mats)
+
+
+@pytest.mark.parametrize("name", ["glossy", "mixture", "strategy"])
+def test_cuda_bvh_material_and_extended_forms_match_plain(cuda, name):
+    """Kernel 7 on the cube field (15,984 triangles) with the glossy
+    box's table on its faces (the material form), or in the coloured
+    mixture + single or HG + maximum medium (the extended forms), against
+    its plain version on 256 rays and against kernel 1's matching form
+    on a 24-triangle box through the same Wald test; the counting form's
+    decisions equal to the needed traversal's."""
+    from alvrl_tpu_torch.media import phase as ph
+
+    scene = bbl.scene_of("cubes", 11, device=cuda)
+    vrls = bbl.bench_vrls(scene)
+    mats, kind = None, 0
+    if name == "glossy":
+        gscene = _glossy(cuda, 16)[0]
+        n_mats = gscene.materials.kind.shape[0]
+        ids = torch.arange(scene.faces.shape[0], device=cuda) % n_mats
+        scene = replace(scene, materials=gscene.materials, material=ids)
+        mats = integrator.material_pack(scene)
+    else:
+        kw = (dict(phase_kind=ph.MIXTURE, strategy=1, channel=1,
+                   phase_params=ph.mixture_params(
+                       [0.6, 0.3], [ph.HG, ph.RAYLEIGH], [0.8, 0.0],
+                       device=cuda)) if name == "mixture"
+              else dict(strategy=3))
+        scene = replace(scene, medium=replace(
+            scene.medium, sigma_s=torch.tensor(MIX_SIGMA_S, device=cuda),
+            **kw))
+        kind = scene.medium.phase_kind
+    packs = integrator.pack_frame_bvh(scene, vrls, materials=mats)[3]
+    assert packs[3].shape[0] > pk.MED_LEN or mats is not None
+    mkw = dict(phase_kind=kind, materials=mats)
+    counter = "mat_launches" if mats is not None else "mix_launches"
+    before = getattr(vb.vrl_sum_bvh, counter)
+    out = vb.vrl_sum_bvh(*packs, seed=61, **mkw)
+    assert getattr(vb.vrl_sum_bvh, counter) - before == 1
+    rows = bbl.subset_rays(packs[0].shape[1]).to(cuda)
+    u = philox_uniforms(61, packs[0].shape[1], packs[1].shape[1], 6,
+                        device=cuda)[rows].contiguous()
+    ref = vb.vrl_sum_bvh_reference(packs[0][:, rows].contiguous(),
+                                   *packs[1:], u, **mkw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out[:, rows].T, ref.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    _, counts = vb.vrl_sum_bvh_counts(*packs, seed=61, **mkw)
+    assert counts["differ"] == 0 and counts["segments"] > 0
+    # kernel 1's form on the box alone (24 triangles, the same Wald test)
+    box = replace(scene, vertices=scene.vertices, faces=scene.faces[:24],
+                  material=scene.material[:24])
+    bpacks = integrator.pack_frame_bvh(box, vrls, materials=mats)[3]
+    fpacks = (bpacks[0], bpacks[1], bpacks[2].tris, bpacks[3])
+    a = vb.vrl_sum_bvh(*bpacks, seed=62, **mkw)
+    b = vrl_sum(*fpacks, seed=62, **mkw)
+    median, share = homog_bar(a.T, b.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_bvh_render_takes_the_material_and_extended_forms(cuda):
+    """render_with_vrls_kernel_bvh on the cube field with a glossy table
+    launches kernel 7's material form, in a strategy medium its extended
+    form; the images are finite and non-zero; the diffuse balance field
+    still launches the plain-pack form (neither counter moves)."""
+    scene = bbl.scene_of("cubes", 11, device=cuda)
+    vrls = bbl.bench_vrls(scene)
+    gscene = _glossy(cuda, 16)[0]
+    ids = torch.arange(scene.faces.shape[0], device=cuda) % \
+        gscene.materials.kind.shape[0]
+    glossy = replace(scene, materials=gscene.materials, material=ids)
+    strat = replace(scene, medium=replace(scene.medium, strategy=3))
+    f = vb.vrl_sum_bvh
+    for sc, moved in ((glossy, (1, 0)), (strat, (0, 1)), (scene, (0, 0))):
+        before = (f.launches, f.mat_launches, f.mix_launches)
+        img = integrator.render_with_vrls_kernel_bvh(
+            sc, vrls, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        assert (f.launches - before[0], f.mat_launches - before[1],
+                f.mix_launches - before[2]) == (1, *moved)
+        assert torch.isfinite(img).all() and float(img.abs().max()) > 0.0
+
+
+
+# kernel 7's earlier forms on the cube field (scripts/kernel_digest.py
+# --bvh on the tree before its material and extended forms, NVIDIA H100
+# 80GB HBM3, 700.00 W)
+PARENT_DIGESTS_BVH = {
+    "vrl_sum_bvh injected":
+        "6b6123ccb0b7320c301ea719616a409750fab615cae144d2aeba0410d5efa568",
+    "vrl_sum_bvh philox":
+        "6a4f5bbfd1bd875e3d6152edc901fa5433d54d297b837b3e95254fc581b6a50a",
+    "vrl_sum_bvh rayleigh":
+        "7f8f68d90e2fc7d9c5d26367f5fd4aacb89e153381cbce39d54e27d39f9ede3e",
+    "vrl_sum_bvh long":
+        "38583b4b462f264ad5535e857405ea001260a5cb650ecd8714327528f40212a2",
+}
+
+
+def test_cuda_earlier_forms_keep_their_outputs(cuda):
+    """Every earlier form of the kernels that gained material or extended
+    forms gives its recorded outputs bit for bit: kernels 1, 2 and 5
+    (kernel_digest.py --all, chip_smoke.py's PARENT_DIGESTS_ALL), the
+    nearest forms of kernels 3, 4 and 6 (--grid, PARENT_DIGESTS_GRID) and
+    kernel 7 (--bvh, PARENT_DIGESTS_BVH)."""
+    import importlib.util
+
+    from alvrl_tpu_torch.scripts import kernel_digest
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert kernel_digest.kernel_digests(cuda, every_form=True) == \
+        smoke.PARENT_DIGESTS_ALL
+    assert kernel_digest.grid_digests(cuda) == smoke.PARENT_DIGESTS_GRID
+    assert kernel_digest.bvh_digests(cuda) == PARENT_DIGESTS_BVH

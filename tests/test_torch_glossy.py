@@ -8,7 +8,8 @@ route (its jitted vrl_sum on its own key for kernel 1,
 integrate.pair_contribution summed over the VRLs or a table for R and
 the clustered render), at the homogeneous bar over the frame and over
 each eye-hit kind's pixels alone, 8x8 rays, the 508 bench VRLs; each
-route without a material instantiation refusing such a table by name;
+backward route (no material instantiation yet) refusing such a table by
+name;
 and a diffuse or glass scene taking the diffuse instantiation, traced
 and rendered as before bit for bit. About 150 s alone, most of it the
 JAX tracer's and vrl_sum's compiles and runs.
@@ -330,30 +331,14 @@ def test_kernel_spec_render_on_glass_and_glossy_matches_jax():
     _bar(img, _t(ref))
 
 
-def _grid(scene):
-    desc = dict(GLOSSY_SCENE, medium={
-        "type": "grid", "sigma_t": [1.0, 1.05, 1.1], "albedo": [0.9] * 3,
-        "density": np.ones((3, 3, 3), np.float32).tolist()})
-    return loader.build_scene(json.loads(json.dumps(desc)), device=CPU)
-
-
 REFUSALS = {
-    "kernel 3": lambda sc, gv, v, g: integrator.render_with_vrls_kernel(
-        gv, v, g),
-    "kernel 4": lambda sc, gv, v, g: integrator.render_clustered_kernel(
-        gv, v, np.zeros(64, np.int32), torch.zeros((1, 2), dtype=torch.int32),
-        torch.ones((1, 2)), g),
-    "kernel 6": lambda sc, gv, v, g: integrator.build_R_kernel(
-        gv, *integrator.frame_rays(gv)[2:], v, 0),
-    "kernel 7": lambda sc, gv, v, g: integrator.render_with_vrls_kernel_bvh(
-        sc, v, g),
-    "kernels 8 and 9": lambda sc, gv, v, g:
+    "kernels 8 and 9": lambda sc, v, g:
         integrator.render_with_vrls_kernel_diff(sc, v, g),
-    "kernels 10 and 11": lambda sc, gv, v, g:
+    "kernels 10 and 11": lambda sc, v, g:
         integrator.render_clustered_kernel_diff(
             sc, v, np.zeros(64, np.int32),
             torch.zeros((1, 2), dtype=torch.int32), torch.ones((1, 2)), g),
-    "train_step": lambda sc, gv, v, g: train_step(
+    "train_step": lambda sc, v, g: train_step(
         sc, g, torch.zeros((8, 8, 3)), VRLConfig(), 4,
         tracer.TracerConfig(max_depth=2)),
 }
@@ -361,14 +346,15 @@ REFUSALS = {
 
 @pytest.mark.parametrize("route", sorted(REFUSALS))
 def test_routes_without_a_material_instantiation_refuse(route):
-    """The grid kernels 3, 4 and 6, the BVH kernel 7 and the backward
-    kernels 8-11 (the train step's) raise on a glossy table, naming the
-    route's kernels and the ROADMAP item, rather than drop the term."""
+    """The backward kernels 8-11 (the train step's) raise on a glossy
+    table, naming the route's kernels, the backward kernels and the
+    ROADMAP item, rather than drop the term. (The forward kernels take it:
+    tests/test_torch_grid_glossy.py, tests/test_torch_bvh_glossy.py.)"""
     _, scene = _scenes()
     _, vrls = _vrls()
     name = "kernels 8 and 9" if route == "train_step" else route
-    with pytest.raises(ValueError, match=f"{name}.*ROADMAP A12"):
-        REFUSALS[route](scene, _grid(scene), vrls,
+    with pytest.raises(ValueError, match=f"{name}.*backward.*ROADMAP A12"):
+        REFUSALS[route](scene, vrls,
                         torch.Generator().manual_seed(0))
 
 
