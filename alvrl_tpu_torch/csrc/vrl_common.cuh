@@ -9,7 +9,8 @@
 // estimator itself (pair_terms, templated on the medium and, for the
 // material instantiations of kernels 1-7, on MAT: the eye hit's smooth
 // BSDF, eval_smooth over the material table), its cotangents
-// (vol_vol_cot / vol_surf_cot, one overload per medium) and the
+// (vol_vol_cot / vol_surf_cot, one overload per medium, with the
+// material, extended-pack and trilinear forms of kernels 8-11) and the
 // backwards' fixed-order reductions. The backward replays the forward's
 // samples, so all kernels take them from the same loop here
 // (pair_samples), in the same draw order.
@@ -106,10 +107,11 @@ __device__ __forceinline__ float phase_eval(float g, float c) {
   return INV_FOURPI * (1.0f - g * g) / (temp * sqrtf(temp));
 }
 
-// d phase / d g; c = dot(wi, wo). Rayleigh has no g.
+// d phase / d g; c = dot(wi, wo). Rayleigh has no g, nor has the
+// mixture (PHASE 2), whose components are constants of the pack.
 template <int PHASE>
 __device__ __forceinline__ float phase_dg(float g, float c) {
-  if (PHASE == 1) return 0.0f;
+  if (PHASE == 1 || PHASE == 2) return 0.0f;
   const float raw = 1.0f + g * g + 2.0f * g * c;
   const float temp = fmaxf(raw, 1e-12f);
   const float dtemp = raw >= 1e-12f ? 2.0f * (g + c) : 0.0f;  // 0 where clamped
@@ -157,8 +159,8 @@ struct Medium {
   }
 
   // short-VRL pdfFailure of the VRL segment up to arc length x; e[c] =
-  // exp(-sig_t[c] x), which its derivative reads (balance only: the
-  // backward kernels take no other strategy)
+  // exp(-sig_t[c] x) under balance, or every e[c] = exp(-rho x) under the
+  // strategy's one rate, which the cotangents read (vol_vol_cot)
   __device__ float pdf_failure(float x, float e[3]) const {
     if (rho > 0.0f) {
       const float er = expf(-rho * x);
@@ -1084,8 +1086,8 @@ __device__ __forceinline__ void interp_od_cot(float* d_cum, int stride, float fr
 // (nz, ny, nx), each lookup (density) reads its cell's 8 corners through
 // the read-only path and lerps them in x, then y, then z
 // (lookup_density), and the pack's index scales are n - 1. The forward
-// kernels 3, 4 and 6 have it, at the run-time step count (UV = 0); the
-// backward's voxel and scatter are the nearest form's only. It stays
+// kernels 3, 4 and 6 and the backward kernels 9 and 11 (trilinear_cot,
+// TriQuad) have it, at the run-time step count (UV = 0). It stays
 // bound by operations, as the nearest form: the density (442 KB at
 // config 4) stays in L2, a lookup's 8 loads are four pairs of
 // neighbouring floats, and its lerps add about 36 operations to the
@@ -1183,6 +1185,41 @@ struct GridMedium {
     return c * __ldg(grid.density + v);
   }
 
+  // TRI: the cotangent c of the trilinear read at p (trilinear's cell
+  // and weights): c * scale * each corner's lerp weight onto its entry of
+  // d_density (reductions), and c times the lerped raw density returned,
+  // the read's share of d scale. Nothing outside the box or for c = 0.
+  __device__ __forceinline__ float trilinear_cot(float* d_density, f3 p, float c) const {
+    const float qx = (p.x - m[G_BOX0]) * m[G_INV_E];
+    const float qy = (p.y - m[G_BOX0 + 1]) * m[G_INV_E + 1];
+    const float qz = (p.z - m[G_BOX0 + 2]) * m[G_INV_E + 2];
+    if (c == 0.0f ||
+        !(qx >= 0.0f && qx <= 1.0f && qy >= 0.0f && qy <= 1.0f && qz >= 0.0f && qz <= 1.0f))
+      return 0.0f;
+    const float gx = qx * m[G_INDEX_SCALE], gy = qy * m[G_INDEX_SCALE + 1],
+                gz = qz * m[G_INDEX_SCALE + 2];
+    const float x0 = fminf(fmaxf(floorf(gx), 0.0f), m[G_INDEX_SCALE] - 1.0f);
+    const float y0 = fminf(fmaxf(floorf(gy), 0.0f), m[G_INDEX_SCALE + 1] - 1.0f);
+    const float z0 = fminf(fmaxf(floorf(gz), 0.0f), m[G_INDEX_SCALE + 2] - 1.0f);
+    const float fx = fminf(fmaxf(gx - x0, 0.0f), 1.0f);
+    const float fy = fminf(fmaxf(gy - y0, 0.0f), 1.0f);
+    const float fz = fminf(fmaxf(gz - z0, 0.0f), 1.0f);
+    const size_t sy = (size_t)grid.nx, sz = (size_t)grid.ny * grid.nx;
+    const size_t i0 = (size_t)z0 * sz + (size_t)y0 * sy + (size_t)x0;
+    const size_t at[8] = {i0, i0 + 1, i0 + sy, i0 + sy + 1,
+                          i0 + sz, i0 + sz + 1, i0 + sz + sy, i0 + sz + sy + 1};
+    const float wx[2] = {1.0f - fx, fx}, wy[2] = {1.0f - fy, fy}, wz[2] = {1.0f - fz, fz};
+    const float cs = c * m[G_SCALE];
+    float raw = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float w = wz[k >> 2] * wy[(k >> 1) & 1] * wx[k & 1];
+      atomicAdd(d_density + at[k], cs * w);
+      raw += w * __ldg(grid.density + at[k]);
+    }
+    return c * raw;
+  }
+
   // the short-VRL pdfFailure exp(-chan od_sv), clamped at 1e-30; *open
   // (if given) where it is not clamped, and there the term, which it
   // divides, goes as exp(chan od_sv)
@@ -1244,6 +1281,56 @@ struct UvReads<0> {
     return d_scale;
   }
 };
+
+// The trilinear form's U-V quadrature of a -> b at the run-time step
+// count: its optical depth (uv_od's, in step order) and the cotangent of
+// that, onto each step's trilinear read (GridMedium::trilinear_cot).
+struct TriQuad {
+  f3 a, delta;
+
+  __device__ __forceinline__ TriQuad(const GridMedium<0, true>&, f3 a_, f3 b)
+      : a(a_), delta(b - a_) {}
+
+  __device__ __forceinline__ f3 step(int i, int n) const {
+    return a + delta * (((float)i + 0.5f) / (float)n);
+  }
+
+  __device__ __forceinline__ float od(const GridMedium<0, true>& gm, float dist) const {
+    const int n = gm.steps();
+    float total = 0.0f;
+    for (int i = 0; i < n; ++i) total += gm.density(step(i, n));
+    return total * dist / (float)n;
+  }
+
+  // returns the steps' share of d scale
+  __device__ __forceinline__ float cot(const GridMedium<0, true>& gm, float* d_density,
+                                       float dist, float c) const {
+    const int n = gm.steps();
+    const float c_step = c * dist / (float)n;
+    float d_scale = 0.0f;
+    for (int i = 0; i < n; ++i) d_scale += gm.trilinear_cot(d_density, step(i, n), c_step);
+    return d_scale;
+  }
+};
+
+// The reads of a grid sample's U-V quadrature in the backward: UvReads
+// (nearest) or TriQuad (trilinear, UV = 0).
+template <int UV, bool TRI>
+using QuadReads = std::conditional_t<TRI, TriQuad, UvReads<UV>>;
+
+// The density cotangents of one trilinear sample (density_cots' for the
+// trilinear form): c_a at the read at pa (U; none for a vol-surf
+// sample, has_a false), c_q over the quadrature q of a segment of length
+// dist, and c_b at the read at pb (V); one reduction per corner of each
+// read.
+__device__ __forceinline__ void density_cots_tri(const GridMedium<0, true>& gm, float* d_density,
+                                                 bool has_a, f3 pa, float c_a, const TriQuad& q,
+                                                 float dist, float c_q, f3 pb, float c_b,
+                                                 float& d_scale) {
+  d_scale += q.cot(gm, d_density, dist, c_q);
+  if (has_a) d_scale += gm.trilinear_cot(d_density, pa, c_a);
+  d_scale += gm.trilinear_cot(d_density, pb, c_b);
+}
 
 // The U-V quadrature's optical depth of a -> b, of length dist: the
 // nearest form's reads (UvReads), or the trilinear form's densities at
@@ -1456,7 +1543,9 @@ __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, con
 
 // The backward's accumulators of one thread (one eye ray), for the
 // output cotangent gb of its ray: the medium's sums over its pairs
-// (sigma_t, sigma_s, g; grid: chan and the density scale), its ray's
+// (sigma_t, sigma_s, g; d_chan, the short-VRL pdfFailure's rate: grid
+// chan, or with the homogeneous pack's extension the strategy's rate
+// rho; grid: the density scale), its ray's
 // d_tau, and the current pair's d_power; for the grid medium also the
 // cotangent columns of its eye-OD table (summed over the block's VRLs)
 // and of the current VRL's OD table (entries RAY_BLOCK apart, in shared
@@ -1474,13 +1563,19 @@ struct Cot {
 // the weight inv (1 / the family's sample count), one overload per
 // medium. Each is a product of the term's other factors, never the term
 // divided by the value it differentiates, so a zero channel of power,
-// sigma_s, tau or density still gets its derivative (ROADMAP C7).
-template <int PHASE, bool SHORT_VRLS>
+// sigma_s, tau or density still gets its derivative (ROADMAP C7). All
+// take <PHASE, SHORT_VRLS, EXT, MAT>: EXT, the homogeneous pack's
+// extension (kernels 8 and 10: the mixture, PHASE 2, whose g gets no
+// cotangent, and the strategy's rate, which takes the pdfFailure's
+// derivative in place of sigma_t); MAT, the vol-surf term's eval_smooth
+// f (per channel, f cos_o) in place of albedo cos_o / pi, as
+// vol_surf_term_mat, with the material table `mats`.
+template <int PHASE, bool SHORT_VRLS, bool EXT = false, bool MAT = false>
 __device__ __forceinline__ void vol_vol_cot(const Medium& m, const Ray& ray, const VrlPair& p,
                                             const Sample& sm, float inv, Cot& c) {
   float e[3];
-  const float ph_u = phase_eval<PHASE>(m.g, sm.c_u);
-  const float ph_v = phase_eval<PHASE>(m.g, sm.c_v);
+  const float ph_u = m.phase<PHASE>(sm.c_u);
+  const float ph_v = m.phase<PHASE>(sm.c_v);
   float geo = ph_u * ph_v / sm.den;  // the term per unit power and sigma_s^2 tau
   float geo_g = (phase_dg<PHASE>(m.g, sm.c_u) * ph_v + ph_u * phase_dg<PHASE>(m.g, sm.c_v)) / sm.den;
   float pf = 1.0f;
@@ -1502,17 +1597,33 @@ __device__ __forceinline__ void vol_vol_cot(const Medium& m, const Ray& ray, con
     gt_all += gt;
   }
   if (SHORT_VRLS && pf >= 1e-30f) {  // the term goes as 1 / pf
+    if constexpr (EXT) {
+      if (m.rho > 0.0f) {  // pf = msw exp(-rho x) + 1 - msw: d rho
+        c.d_chan += gt_all * m.msw * sm.d_sv * e[0] / pf;
+        return;
+      }
+    }
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) c.d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
   }
 }
 
-template <int PHASE, bool SHORT_VRLS>
+// channel ch of a material form's f cos_o (eval_smooth's f3)
+__device__ __forceinline__ float surface(f3 fv, int ch) {
+  return ch == 0 ? fv.x : (ch == 1 ? fv.y : fv.z);
+}
+
+template <int PHASE, bool SHORT_VRLS, bool EXT = false, bool MAT = false>
 __device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, const VrlPair& p,
-                                             const Sample& sm, float inv, Cot& c) {
+                                             const Sample& sm, float inv, Cot& c,
+                                             const Mats* mats = nullptr) {
   float e[3];
-  float geo = phase_eval<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
-  float geo_g = phase_dg<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  // MAT: the hit's f cos_o in place of alb (surface), and no cos_o / pi
+  const f3 fv = MAT ? eval_smooth(*mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f) : f3{};
+  float geo = MAT ? m.phase<PHASE>(sm.c_v) / sm.den
+                  : m.phase<PHASE>(sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float geo_g = MAT ? phase_dg<PHASE>(m.g, sm.c_v) / sm.den
+                    : phase_dg<PHASE>(m.g, sm.c_v) * sm.cos_o * INV_PI / sm.den;
   float pf = 1.0f;
   if (SHORT_VRLS) {
     pf = m.pdf_failure(sm.d_sv, e);
@@ -1522,7 +1633,8 @@ __device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, co
   float gt_all = 0.0f;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    const float ss = m.sig_s[ch], pw = p.pw[ch], alb = ray.alb[ch], tau = ray.tau[ch];
+    const float ss = m.sig_s[ch], pw = p.pw[ch], tau = ray.tau[ch];
+    const float alb = MAT ? surface(fv, ch) : ray.alb[ch];
     const float w = c.gb[ch] * expf(-m.sig_t[ch] * sm.path) * inv;
     const float gt = w * pw * ss * alb * tau * geo;  // gbar * term
     c.d_pw[ch] += w * ss * alb * tau * geo;
@@ -1533,6 +1645,12 @@ __device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, co
     gt_all += gt;
   }
   if (SHORT_VRLS && pf >= 1e-30f) {
+    if constexpr (EXT) {
+      if (m.rho > 0.0f) {
+        c.d_chan += gt_all * m.msw * sm.d_sv * e[0] / pf;
+        return;
+      }
+    }
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) c.d_st[ch] += gt_all * m.msw * sm.d_sv * e[ch] / (3.0f * pf);
   }
@@ -1543,19 +1661,32 @@ __device__ __forceinline__ void vol_surf_cot(const Medium& m, const Ray& ray, co
 // quadrature and the VRL table at d_sv / |VRL|. The od cotangent goes
 // onto the two table entries each read touches and onto every
 // quadrature step's voxel; the density cotangents onto the voxels of U
-// and V; each voxel read also adds its share of d scale.
-template <int PHASE, bool SHORT_VRLS, int UV>
-__device__ __forceinline__ void vol_vol_cot(const GridMedium<UV>& gm, const Ray& ray,
+// and V; each voxel read also adds its share of d scale. TRI: the reads
+// and their cotangents are the trilinear ones (TriQuad,
+// density_cots_tri), each onto its 8 corners.
+template <int PHASE, bool SHORT_VRLS, bool EXT = false, bool MAT = false, int UV, bool TRI>
+__device__ __forceinline__ void vol_vol_cot(const GridMedium<UV, TRI>& gm, const Ray& ray,
                                             const VrlPair& p, const Sample& sm, float inv,
                                             Cot& c) {
+  static_assert(!EXT, "the grid medium has no pack extension");
   const float* m = gm.m;
   const float f_sv = sm.d_sv * p.ivl, f_eu = sm.d_eu / ray.elen;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
-  const UvReads<UV> q(gm, sm.up, sm.vp);
+  const QuadReads<UV, TRI> q(gm, sm.up, sm.vp);
   const float od = interp_od(ray.eod, ray.eod_stride, f_eu) + q.od(gm, sm.d_uv) + od_sv;
-  const int vox_u = gm.voxel(sm.up), vox_v = gm.voxel(sm.vp);
-  const float raw_u = gm.raw(vox_u), raw_v = gm.raw(vox_v);
-  const float dens_u = raw_u * m[G_SCALE], dens_v = raw_v * m[G_SCALE];
+  int vox_u = -1, vox_v = -1;
+  float raw_u = 0.0f, raw_v = 0.0f, dens_u, dens_v;
+  if constexpr (TRI) {
+    dens_u = gm.density(sm.up);
+    dens_v = gm.density(sm.vp);
+  } else {
+    vox_u = gm.voxel(sm.up);
+    vox_v = gm.voxel(sm.vp);
+    raw_u = gm.raw(vox_u);
+    raw_v = gm.raw(vox_v);
+    dens_u = raw_u * m[G_SCALE];
+    dens_v = raw_v * m[G_SCALE];
+  }
   const float ph_u = phase_eval<PHASE>(m[G_G], sm.c_u);
   const float ph_v = phase_eval<PHASE>(m[G_G], sm.c_v);
   float geo = ph_u * ph_v / sm.den;
@@ -1591,26 +1722,41 @@ __device__ __forceinline__ void vol_vol_cot(const GridMedium<UV>& gm, const Ray&
   }
   interp_od_cot(c.d_eod, RAY_BLOCK, f_eu, c_od);
   interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
-  density_cots(gm, c.d_density, vox_u, raw_u, c_du, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
-               c.d_scale);
+  if constexpr (TRI)
+    density_cots_tri(gm, c.d_density, true, sm.up, c_du, q, sm.d_uv, c_od, sm.vp, c_dv,
+                     c.d_scale);
+  else
+    density_cots(gm, c.d_density, vox_u, raw_u, c_du, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
+                 c.d_scale);
 }
 
 // Grid vol-surf: pw (sigma_s dens_v) alb tau exp(-sigma_t od) geo, od =
-// the quadrature from the hit point to V and the VRL table at d_sv.
-template <int PHASE, bool SHORT_VRLS, int UV>
-__device__ __forceinline__ void vol_surf_cot(const GridMedium<UV>& gm, const Ray& ray,
+// the quadrature from the hit point to V and the VRL table at d_sv
+// (MAT: f cos_o, per channel, in place of alb cos_o / pi).
+template <int PHASE, bool SHORT_VRLS, bool EXT = false, bool MAT = false, int UV, bool TRI>
+__device__ __forceinline__ void vol_surf_cot(const GridMedium<UV, TRI>& gm, const Ray& ray,
                                              const VrlPair& p, const Sample& sm, float inv,
-                                             Cot& c) {
+                                             Cot& c, const Mats* mats = nullptr) {
+  static_assert(!EXT, "the grid medium has no pack extension");
   const float* m = gm.m;
   const float f_sv = sm.d_sv * p.ivl;
   const float od_sv = interp_od(p.vod, VRL_CHUNK, f_sv);
-  const UvReads<UV> q(gm, ray.hp, sm.vp);
+  const QuadReads<UV, TRI> q(gm, ray.hp, sm.vp);
   const float od = q.od(gm, sm.d_uv) + od_sv;
-  const int vox_v = gm.voxel(sm.vp);
-  const float raw_v = gm.raw(vox_v);
-  const float dens_v = raw_v * m[G_SCALE];
-  float geo = phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
-  float geo_g = phase_dg<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  int vox_v = -1;
+  float raw_v = 0.0f, dens_v;
+  if constexpr (TRI) {
+    dens_v = gm.density(sm.vp);
+  } else {
+    vox_v = gm.voxel(sm.vp);
+    raw_v = gm.raw(vox_v);
+    dens_v = raw_v * m[G_SCALE];
+  }
+  const f3 fv = MAT ? eval_smooth(*mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f) : f3{};
+  float geo = MAT ? phase_eval<PHASE>(m[G_G], sm.c_v) / sm.den
+                  : phase_eval<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
+  float geo_g = MAT ? phase_dg<PHASE>(m[G_G], sm.c_v) / sm.den
+                    : phase_dg<PHASE>(m[G_G], sm.c_v) * sm.cos_o * INV_PI / sm.den;
   bool open = false;
   if (SHORT_VRLS) {
     const float pf = gm.pdf_failure(od_sv, &open);
@@ -1620,7 +1766,8 @@ __device__ __forceinline__ void vol_surf_cot(const GridMedium<UV>& gm, const Ray
   float gt_all = 0.0f, c_od = 0.0f, c_dv = 0.0f;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    const float ss = m[G_SIG_S + ch], pw = p.pw[ch], alb = ray.alb[ch], tau = ray.tau[ch];
+    const float ss = m[G_SIG_S + ch], pw = p.pw[ch], tau = ray.tau[ch];
+    const float alb = MAT ? surface(fv, ch) : ray.alb[ch];
     const float w = c.gb[ch] * expf(-m[G_SIG_T + ch] * od) * inv;
     const float a = w * geo;
     const float sv = ss * dens_v;
@@ -1640,8 +1787,12 @@ __device__ __forceinline__ void vol_surf_cot(const GridMedium<UV>& gm, const Ray
     c_sv += gt_all * m[G_CHAN];
   }
   interp_od_cot(c.d_vod, RAY_BLOCK, f_sv, c_sv);
-  density_cots(gm, c.d_density, -1, 0.0f, 0.0f, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
-               c.d_scale);
+  if constexpr (TRI)
+    density_cots_tri(gm, c.d_density, false, sm.vp, 0.0f, q, sm.d_uv, c_od, sm.vp, c_dv,
+                     c.d_scale);
+  else
+    density_cots(gm, c.d_density, -1, 0.0f, 0.0f, q, sm.d_uv, c_od, vox_v, raw_v, c_dv,
+                 c.d_scale);
 }
 
 // Picks one of a kernel's instantiations {HG, Rayleigh} x {short, long
@@ -1800,18 +1951,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // The layout of one backward instantiation: the rows of its per-ray and
 // per-VRL (or per-column) outputs (3, and NQ + 1 OD-table rows in a grid
-// medium), its sums (sigma_t (3), sigma_s (3), g; grid: chan, scale) and
-// d_par's length.
-template <bool GRID>
+// medium), its sums (sigma_t (3), sigma_s (3), g; grid: chan, scale;
+// EXT, the homogeneous pack's extension: rho, in d_chan) and d_par's
+// length (EXT: up to and with the pack's rate entry, MED_RHO).
+template <bool GRID, bool EXT = false>
 struct Layout {
   static constexpr int N_OD = GRID ? NQ + 1 : 0;
   static constexpr int ROWS = 3 + N_OD;
-  static constexpr int N_SUMS = GRID ? 9 : 7;
-  static constexpr int N_PAR_OUT = GRID ? GRID_MED_LEN : N_PAR;
+  static constexpr int N_SUMS = GRID ? 9 : (EXT ? 8 : 7);
+  static constexpr int N_PAR_OUT = GRID ? GRID_MED_LEN : (EXT ? MED_RHO + 1 : N_PAR);
 
   // d_par's entry t: the index of its sum, or -1 for a constant 0
   __host__ __device__ static constexpr int sum_of(int t) {
-    return t < 8 ? (t < N_SUMS ? t : -1) : (GRID && t == G_SCALE ? 8 : -1);
+    return (EXT && t == MED_RHO) ? 7
+           : t < 8 ? (t < N_SUMS && !(EXT && t == 7) ? t : -1)
+                   : (GRID && t == G_SCALE ? 8 : -1);
   }
 
   // dynamic shared memory, in floats, with tri_floats floats of
@@ -1827,16 +1981,18 @@ struct Layout {
 
 // The cotangents of one (ray, VRL) pair's samples, added into c: the
 // forward's samples (pair_samples, the same draws), each through its
-// family's cotangent (weights inv_vv, inv_vs).
-template <int PHASE, bool SHORT_VRLS, class Med, class Occl>
+// family's cotangent (weights inv_vv, inv_vs); EXT and MAT (with the
+// material table `mats`) as the cotangents take them.
+template <int PHASE, bool SHORT_VRLS, bool EXT = false, bool MAT = false, class Med, class Occl>
 __device__ __forceinline__ void pair_cots(const Ray& ray, const VrlPair& p, const Med& m,
                                           PairUniforms& draw, int svv, int svs, const Occl& occl,
-                                          float inv_vv, float inv_vs, Cot& c) {
+                                          float inv_vv, float inv_vs, Cot& c,
+                                          const Mats* mats = nullptr) {
   pair_samples(ray, p, draw, svv, svs, occl, [&](int family, const Sample& sm) {
     if (family == 0)
-      vol_vol_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vv, c);
+      vol_vol_cot<PHASE, SHORT_VRLS, EXT>(m, ray, p, sm, inv_vv, c);
     else
-      vol_surf_cot<PHASE, SHORT_VRLS>(m, ray, p, sm, inv_vs, c);
+      vol_surf_cot<PHASE, SHORT_VRLS, EXT, MAT>(m, ray, p, sm, inv_vs, c, mats);
   });
 }
 
@@ -1878,10 +2034,10 @@ __device__ __forceinline__ float block_column_sum(const float* s_out, int r, int
 // row of par_part (n_blocks, N_PAR_OUT): each warp by shuffles, then the
 // warps in order (s_par: (N_WARPS, N_SUMS) of shared memory). Every
 // thread of the block calls it; it ends on a barrier's far side.
-template <bool GRID>
+template <bool GRID, bool EXT = false>
 __device__ __forceinline__ void block_par_sums(const Cot& c, float* s_par, float* par_part,
                                                size_t block) {
-  using L = Layout<GRID>;
+  using L = Layout<GRID, EXT>;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const float sums[9] = {c.d_st[0], c.d_st[1], c.d_st[2], c.d_ss[0], c.d_ss[1],
                          c.d_ss[2], c.d_g,     c.d_chan,  c.d_scale};

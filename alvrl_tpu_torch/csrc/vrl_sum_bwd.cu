@@ -26,6 +26,10 @@
 // derivative of its forward. Plain PyTorch twins:
 // ops/vrl_sum_bwd.py:vrl_sum_bwd_reference and
 // vrl_sum_hetero_bwd_reference.
+// Its material forms (a glossy or layered table), extended forms (the
+// mixture phase, a strategy's rate) and trilinear forms (fast_tau False)
+// differentiate what the forward's forms render, as the JAX package's
+// XLA route does; its Pallas backward takes none of them (ROADMAP C22).
 //
 // Every cotangent is a product of the other factors of the term, never
 // the term divided by the value it differentiates (vol_vol_cot,
@@ -88,8 +92,18 @@
 namespace {
 
 // tris: the triangles, TRI_COLS floats each (grid media) or their plane
-// pack (homogeneous), as sweep_floats<!GRID>
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+// pack (homogeneous), as sweep_floats<!GRID>. The forms beside the
+// diffuse ones (each a template argument, the body here for all, so that
+// the diffuse forms keep their code): EXT, the homogeneous medium pack
+// with its extension (the mixture, PHASE 2, and the strategy's rate;
+// kernel 8's extended forms, whose d_par ends at the rate's entry);
+// TRI, the grid medium's trilinear read (kernel 9's trilinear forms, at
+// the run-time step count, UV = 0); MAT, the material forms, which stage
+// the M rows of mat_table after the eye-OD tables and evaluate the eye
+// hit's smooth BSDF in the vol-surf cotangents (rt: the rough-
+// transmittance tables). MAT = false ignores mat_table, M and rt.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool EXT = false, bool TRI = false,
+          bool MAT = false>
 __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_bwd_kernel(const float* __restrict__ rays, int B, const float* __restrict__ vrls,
                        int N, const float* __restrict__ tris, int T,
@@ -97,8 +111,9 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
                        const float* __restrict__ uniforms, uint32_t seed, int svv, int svs,
                        const float* __restrict__ gbar, float* __restrict__ ray_part,
                        float* __restrict__ vrl_part, float* __restrict__ par_part,
-                       float* __restrict__ d_density) {
-  using L = Layout<GRID>;
+                       float* __restrict__ d_density, const float* __restrict__ mat_table,
+                       int M, const float* __restrict__ rt) {
+  using L = Layout<GRID, EXT>;
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
   float* s_tri = reinterpret_cast<float*>(smem4);        // sweep_floats<!GRID>(T)
@@ -115,6 +130,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   const auto occl = stage_sweep<!GRID>(tris, T, s_tri);
   const int nc = stage_block(nullptr, 0, vrls, N, n0, nullptr, s_vrl, V_ROWS);
   stage_medium<GRID>(med, s_med);
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, s_etab + L::N_OD * RAY_BLOCK);
   for (int i = t; i < N_WARPS * L::ROWS * VRL_CHUNK; i += blockDim.x) s_out[i] = 0.0f;
   for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
   __syncthreads();
@@ -125,13 +142,14 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   Cot c{};
   if (in_range) {
     ray = load_ray(rays, B, b);
+    if constexpr (MAT) attach_mat<GRID>(ray, rays, B, b, mats);
     stage_eod<GRID>(ray, rays, B, b, s_etab);
     for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
   c.d_eod = s_eod + t;
   c.d_vod = s_vod + t;
   c.d_density = d_density;
-  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV, EXT, TRI>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -144,7 +162,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
       const VrlPair p = pair_at<GRID>(ray, s_vrl, cc);
       PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
                         (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-      pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs, c);
+      pair_cots<PHASE, SHORT_VRLS, EXT, MAT>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs, c,
+                                             &mats);
     }
     warp_column_sums<GRID>(c, s_out, cc);
   }
@@ -155,7 +174,7 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
       ray_part[((size_t)chunk * L::ROWS + r) * B + b] =
           r < 3 ? c.d_tau[r] : c.d_eod[(r - 3) * RAY_BLOCK];
   }
-  block_par_sums<GRID>(c, s_par, par_part, (size_t)blockIdx.y * gridDim.x + blockIdx.x);
+  block_par_sums<GRID, EXT>(c, s_par, par_part, (size_t)blockIdx.y * gridDim.x + blockIdx.x);
 
   for (int i = t; i < L::ROWS * VRL_CHUNK; i += blockDim.x) {
     const int r = i / VRL_CHUNK, cc = i % VRL_CHUNK;
@@ -165,31 +184,73 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   }
 }
 
-// dynamic shared memory of the backward, in bytes, with T triangles
+// dynamic shared memory of the backward, in bytes, with T triangles, M
+// material rows (0 but for the material forms) and the pack's extension
+// (ext, homogeneous)
 template <bool GRID>
-size_t bwd_smem_bytes(int T) {
-  return Layout<GRID>::smem_floats(sweep_floats<!GRID>(T)) * sizeof(float);
+size_t bwd_smem_bytes(int T, int M = 0, bool ext = false) {
+  const size_t floats = ext ? Layout<GRID, true>::smem_floats(sweep_floats<!GRID>(T))
+                            : Layout<GRID>::smem_floats(sweep_floats<!GRID>(T));
+  return (floats + (size_t)M * MAT_COLS) * sizeof(float);
+}
+
+// The instantiation of the backward for one launch.
+using BwdKernel = void (*)(const float*, int, const float*, int, const float*, int, const float*,
+                           GridArgs, const float*, uint32_t, int, int, const float*, float*,
+                           float*, float*, float*, const float*, int, const float*);
+
+// The backward's instantiation for (phase, short VRLs, uv) as dispatch
+// gives them and the form: ext (homogeneous: the pack's extension; the
+// mixture, PHASE 2, has no other), tri (grid: the trilinear read), mat
+// (the material form). The trilinear and material grid forms take the
+// run-time step count (UV 0), as the forward's.
+template <bool GRID, class Phase, class Short, class Uv>
+BwdKernel bwd_kernel(Phase, Short, Uv, bool ext, bool tri, bool mat) {
+  constexpr int P = Phase::value;
+  constexpr bool S = Short::value;
+  if constexpr (GRID) {
+    if (tri)
+      return mat ? &vrl_sum_bwd_kernel<P, S, true, 0, false, true, true>
+                 : &vrl_sum_bwd_kernel<P, S, true, 0, false, true, false>;
+    if (mat) return &vrl_sum_bwd_kernel<P, S, true, 0, false, false, true>;
+    return &vrl_sum_bwd_kernel<P, S, true, Uv::value>;
+  } else if constexpr (P == 2) {
+    return mat ? &vrl_sum_bwd_kernel<2, S, false, 0, true, false, true>
+               : &vrl_sum_bwd_kernel<2, S, false, 0, true, false, false>;
+  } else {
+    if (ext)
+      return mat ? &vrl_sum_bwd_kernel<P, S, false, 0, true, false, true>
+                 : &vrl_sum_bwd_kernel<P, S, false, 0, true, false, false>;
+    return mat ? &vrl_sum_bwd_kernel<P, S, false, 0, false, false, true>
+               : &vrl_sum_bwd_kernel<P, S, false, 0>;
+  }
 }
 
 // Launches the backward and its three ordered reductions on `stream`
 // (homogeneous: after the plane pack of the triangles into `planes`,
 // (T, 4 PLANE_F4) floats of scratch; grid media: after zeroing
-// d_density); returns a cudaError_t (0 = launched). Scratch: ray_part
-// (n_chunks, ROWS, B), vrl_part (n_ray_blocks, ROWS, N), par_part
-// (n_ray_blocks * n_chunks, n_par). Out: d_ray (ROWS, B) = d_tau [,
-// d_eod], d_vrl (ROWS, N) = d_power [, d_vod], d_par (n_par,) and, for
-// grid media, d_density (nz, ny, nx).
+// d_density); returns a cudaError_t (0 = launched). The form: ext
+// (homogeneous: the medium pack with its extension, the mixture phase
+// kind PHASE_MIXTURE allowed), trilinear (grid), and M > 0 the material
+// table mat_table, M, rt. Scratch: ray_part (n_chunks, ROWS, B),
+// vrl_part (n_ray_blocks, ROWS, N), par_part (n_ray_blocks * n_chunks,
+// n_par). Out: d_ray (ROWS, B) = d_tau [, d_eod], d_vrl (ROWS, N) =
+// d_power [, d_vod], d_par (n_par,: 8, MED_RHO + 1 with ext, or
+// GRID_MED_LEN) and, for grid media, d_density (nz, ny, nx).
 template <bool GRID>
 int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-               const float* med, GridArgs grid, const float* uniforms, unsigned int seed, int svv,
+               const float* med, GridArgs grid, int trilinear, const float* mat_table, int M,
+               const float* rt, int ext, const float* uniforms, unsigned int seed, int svv,
                int svs, int short_vrls, int phase_kind, const float* gbar, float* planes,
                float* ray_part, int n_chunks, float* vrl_part, int n_ray_blocks, float* par_part,
                float* d_vrl, float* d_par, float* d_ray, float* d_density, void* stream) {
-  using L = Layout<GRID>;
+  const int rows = GRID ? Layout<true>::ROWS : Layout<false>::ROWS;
+  const int n_par = ext ? Layout<false, true>::N_PAR_OUT : Layout<GRID>::N_PAR_OUT;
   if (B <= 0 || N <= 0 || T < 0 || T > MAX_TRIS || svv < 0 || svs < 0 ||
-      (phase_kind != 0 && phase_kind != 1) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
+      (phase_kind != 0 && phase_kind != 1 && !(ext && phase_kind == PHASE_MIXTURE)) ||
+      (GRID && ext) || (!GRID && trilinear) || n_chunks != (N + VRL_CHUNK - 1) / VRL_CHUNK ||
       n_chunks > MAX_GRID_Y || n_ray_blocks != (B + RAY_BLOCK - 1) / RAY_BLOCK ||
-      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr))
+      !grid_ok<GRID>(grid) || (GRID && d_density == nullptr) || !mats_ok(mat_table, M, rt))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<!GRID>(tris, T, planes, stream);
   if (pack != 0) return pack;
@@ -200,28 +261,28 @@ int launch_bwd(const float* rays, int B, const float* vrls, int N, const float* 
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 blocks(n_ray_blocks, n_chunks);
-  const size_t smem = bwd_smem_bytes<GRID>(T);
+  const size_t smem = bwd_smem_bytes<GRID>(T, M, ext);
   cudaError_t attr = cudaSuccess;
-  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    auto kernel = vrl_sum_bwd_kernel<decltype(phase)::value, decltype(short_)::value, GRID,
-                                     decltype(uv)::value>;
-    attr = allow_smem(kernel, smem);
-    if (attr == cudaSuccess)
-      kernel<<<blocks, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, uniforms,
-                                              seed, svv, svs, gbar, ray_part, vrl_part, par_part,
-                                              d_density);
-  });
+  dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps,
+                       [&](auto phase, auto short_, auto uv) {
+                         const BwdKernel kernel =
+                             bwd_kernel<GRID>(phase, short_, uv, ext, trilinear, M > 0);
+                         attr = allow_smem(kernel, smem);
+                         if (attr == cudaSuccess)
+                           kernel<<<blocks, RAY_BLOCK, smem, st>>>(
+                               rays, B, vrls, N, tris, T, med, grid, uniforms, seed, svv, svs,
+                               gbar, ray_part, vrl_part, par_part, d_density, mat_table, M, rt);
+                       });
   if (attr != cudaSuccess) return (int)attr;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_parts<float>
-      <<<(L::ROWS * B + 255) / 256, 256, 0, st>>>(ray_part, n_chunks, L::ROWS * B, d_ray);
+      <<<(rows * B + 255) / 256, 256, 0, st>>>(ray_part, n_chunks, rows * B, d_ray);
   // the grid's per-VRL sums (d_power, d_vod) over its ray blocks in
   // float64: long sums of both signs (ROADMAP C12)
   reduce_parts<std::conditional_t<GRID, double, float>>
-      <<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(vrl_part, n_ray_blocks, L::ROWS * N, d_vrl);
-  reduce_parts_tree<<<L::N_PAR_OUT, TREE, 0, st>>>(par_part, n_ray_blocks * n_chunks,
-                                                   L::N_PAR_OUT, d_par);
+      <<<(rows * N + 255) / 256, 256, 0, st>>>(vrl_part, n_ray_blocks, rows * N, d_vrl);
+  reduce_parts_tree<<<n_par, TREE, 0, st>>>(par_part, n_ray_blocks * n_chunks, n_par, d_par);
   return (int)cudaGetLastError();
 }
 
@@ -231,42 +292,54 @@ extern "C" {
 
 int alvrl_ray_block() { return RAY_BLOCK; }
 
-// The homogeneous backward. Scratch: planes (T, 4 PLANE_F4) for the
-// triangles' plane pack (may be null for T = 0), tau_part (n_chunks, 3,
-// B), pw_part (n_ray_blocks, 3, N), par_part (n_ray_blocks * n_chunks,
-// 8). Out: d_power (3, N), d_par (8,), d_tau (3, B). `uniforms` may be
-// null (the Philox stream of `seed`, as the forward's).
+// The homogeneous backward. mat_table (M, MAT_COLS), M and rt (M,
+// RT_COS, RT_ALPHA): the material form (null, 0, null: the diffuse one),
+// on rays carrying the hit's material id in row MATID; ext: the medium
+// pack with its extension (ops/pack.py pack_medium; the mixture phase,
+// a strategy's rate), d_par then MED_RHO + 1 long. Scratch: planes (T, 4
+// PLANE_F4) for the triangles' plane pack (may be null for T = 0),
+// tau_part (n_chunks, 3, B), pw_part (n_ray_blocks, 3, N), par_part
+// (n_ray_blocks * n_chunks, n_par). Out: d_power (3, N), d_par (8, or
+// MED_RHO + 1), d_tau (3, B). `uniforms` may be null (the Philox stream
+// of `seed`, as the forward's).
 int alvrl_vrl_sum_bwd(const float* rays, int B, const float* vrls, int N, const float* tris,
-                      int T, const float* med, const float* uniforms, unsigned int seed, int svv,
-                      int svs, int short_vrls, int phase_kind, const float* gbar, float* planes,
+                      int T, const float* med, const float* mat_table, int M, const float* rt,
+                      int ext, const float* uniforms, unsigned int seed, int svv, int svs,
+                      int short_vrls, int phase_kind, const float* gbar, float* planes,
                       float* tau_part, int n_chunks, float* pw_part, int n_ray_blocks,
                       float* par_part, float* d_power, float* d_par, float* d_tau, void* stream) {
-  return launch_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, uniforms, seed, svv, svs,
-                           short_vrls, phase_kind, gbar, planes, tau_part, n_chunks, pw_part,
-                           n_ray_blocks, par_part, d_power, d_par, d_tau, nullptr, stream);
+  return launch_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M, rt, ext,
+                           uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, planes,
+                           tau_part, n_chunks, pw_part, n_ray_blocks, par_part, d_power, d_par,
+                           d_tau, nullptr, stream);
 }
 
 // The grid-medium backward: the grid packs (ops/pack.py), the
 // supersampled density (nz, ny, nx) and the U-V quadrature's step count,
-// as alvrl_vrl_sum_hetero takes them. Scratch: ray_part (n_chunks,
-// 3 + NQ + 1, B), vrl_part (n_ray_blocks, 3 + NQ + 1, N), par_part
-// (n_ray_blocks * n_chunks, GRID_MED_LEN). Out: d_vrl (3 + NQ + 1, N) =
-// d_power, d_vod; d_par (GRID_MED_LEN,); d_ray (3 + NQ + 1, B) = d_tau,
-// d_eod; d_density (nz, ny, nx), zeroed here first.
+// as alvrl_vrl_sum_hetero takes them, with `trilinear` the trilinear
+// form (the trilinear medium pack, the density itself) and the material
+// table as alvrl_vrl_sum_bwd's (rays carrying the id in row GRID_MATID).
+// Scratch: ray_part (n_chunks, 3 + NQ + 1, B), vrl_part (n_ray_blocks,
+// 3 + NQ + 1, N), par_part (n_ray_blocks * n_chunks, GRID_MED_LEN). Out:
+// d_vrl (3 + NQ + 1, N) = d_power, d_vod; d_par (GRID_MED_LEN,); d_ray
+// (3 + NQ + 1, B) = d_tau, d_eod; d_density (nz, ny, nx), zeroed here
+// first.
 int alvrl_vrl_sum_hetero_bwd(const float* rays, int B, const float* vrls, int N,
-                             const float* tris, int T, const float* med, const float* density,
-                             int nz, int ny, int nx, int uv_steps, const float* uniforms,
+                             const float* tris, int T, const float* med, const float* mat_table,
+                             int M, const float* rt, const float* density, int nz, int ny, int nx,
+                             int uv_steps, int trilinear, const float* uniforms,
                              unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
                              const float* gbar, float* ray_part, int n_chunks, float* vrl_part,
                              int n_ray_blocks, float* par_part, float* d_vrl, float* d_par,
                              float* d_ray, float* d_density, void* stream) {
   return launch_bwd<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
-                          uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, nullptr,
-                          ray_part, n_chunks, vrl_part, n_ray_blocks, par_part, d_vrl, d_par,
-                          d_ray, d_density, stream);
+                          trilinear, mat_table, M, rt, 0, uniforms, seed, svv, svs, short_vrls,
+                          phase_kind, gbar, nullptr, ray_part, n_chunks, vrl_part, n_ray_blocks,
+                          par_part, d_vrl, d_par, d_ray, d_density, stream);
 }
 
-// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
+// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy
+// (the diffuse forms).
 int alvrl_vrl_sum_bwd_occupancy(int grid, int T, int uv_steps, int phase_kind, int short_vrls,
                                 int* blocks) {
   return occupancy(

@@ -31,6 +31,10 @@
 // vrls.valid[idx] & (tw > 0) (integrator.py:412). Plain PyTorch twins:
 // ops/vrl_sum_clustered_bwd.py:vrl_sum_clustered_bwd_reference and
 // vrl_sum_hetero_clustered_bwd_reference.
+// Its material forms (a glossy or layered table), extended forms (the
+// mixture phase, a strategy's rate) and trilinear forms (fast_tau False)
+// differentiate what the forward's forms render, as the JAX package's
+// XLA route does; its Pallas backward takes none of them (ROADMAP C22).
 //
 // What bounds it: as the clustered forward, fp32 ALU and SFU work per
 // pair-sample; the replay costs the forward's samples and the
@@ -94,8 +98,11 @@ static_assert(RAY_BLOCK == N_WARPS * CB_RAYS, "a warp a column");
 // The homogeneous backward (kernel 10): tile blockIdx.x, CB_RAYS rays of
 // one row (lane = ray), the warps over the row's columns; tris: the
 // triangles' plane pack, swept by PlaneTris<MODE> (MODE_SUM, or
-// MODE_NO_REJECT, the checking launch).
-template <int PHASE, bool SHORT_VRLS, int MODE>
+// MODE_NO_REJECT, the checking launch). EXT: the medium pack with its
+// extension (the mixture, PHASE 2, and the strategy's rate; d_par then
+// ends at the rate's entry); MAT: the material form, its M table rows
+// staged after the piece's ids (MAT = false ignores mat_table, M, rt).
+template <int PHASE, bool SHORT_VRLS, int MODE, bool EXT = false, bool MAT = false>
 __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_clustered_bwd_warps_kernel(const float* __restrict__ rays, int B,
                                        const float* __restrict__ vrls, int N,
@@ -108,8 +115,10 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
                                        const float* __restrict__ uniforms, uint32_t seed,
                                        int svv, int svs, const float* __restrict__ gbar,
                                        float* __restrict__ d_ray, float* __restrict__ tile_part,
-                                       float* __restrict__ par_part) {
-  using L = Layout<false>;
+                                       float* __restrict__ par_part,
+                                       const float* __restrict__ mat_table, int M,
+                                       const float* __restrict__ rt) {
+  using L = Layout<false, EXT>;
   extern __shared__ float4 smem4[];  // float4: the plane pack's alignment
   float* s_tri = reinterpret_cast<float*>(smem4);     // sweep_floats<true>(T)
   float* s_vrl = s_tri + sweep_floats<true>(T);       // (VRL_ROWS, VRL_CHUNK)
@@ -118,6 +127,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   int* s_id = reinterpret_cast<int*>(s_par + N_WARPS * L::N_SUMS);  // (VRL_CHUNK,)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const auto occl = stage_sweep<true, MODE>(tris, T, s_tri);
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, reinterpret_cast<float*>(s_id + VRL_CHUNK));
 
   const int tile = blockIdx.x;
   const int b = tile_rays[(size_t)tile * CB_RAYS + lane];
@@ -127,9 +138,10 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   Cot c{};
   if (b >= 0) {
     ray = load_ray(rays, B, b);
+    if constexpr (MAT) attach_mat(ray, rays, B, b, mats);
     for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
-  const Medium m(med);
+  const auto m = make_medium<false, 0, EXT>(med, nullptr, GridArgs{});
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -147,7 +159,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
         PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
                           (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u),
                           -1};
-        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs, c);
+        pair_cots<PHASE, SHORT_VRLS, EXT, MAT>(ray, p, m, draw, svv, svs, occl, inv_vv, inv_vs,
+                                               c, &mats);
       }
 #pragma unroll
       for (int r = 0; r < L::ROWS; ++r) {
@@ -168,12 +181,13 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
       d_ray[(size_t)r * B + b] = v;
     }
   }
-  block_par_sums<false>(c, s_par, par_part, tile);
+  block_par_sums<false, EXT>(c, s_par, par_part, tile);
 }
 
 // The grid backward (kernel 11), instantiated for GRID = true: tile
-// blockIdx.x, RAY_BLOCK rays of one row, a thread a ray.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV>
+// blockIdx.x, RAY_BLOCK rays of one row, a thread a ray. TRI: the
+// trilinear read (UV = 0); MAT: the material form, as kernel 10's.
+template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false, bool MAT = false>
 __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
     vrl_sum_clustered_bwd_kernel(const float* __restrict__ rays, int B,
                                  const float* __restrict__ vrls, int N,
@@ -186,7 +200,9 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
                                  const float* __restrict__ uniforms, uint32_t seed, int svv,
                                  int svs, const float* __restrict__ gbar,
                                  float* __restrict__ d_ray, float* __restrict__ tile_part,
-                                 float* __restrict__ par_part, float* __restrict__ d_density) {
+                                 float* __restrict__ par_part, float* __restrict__ d_density,
+                                 const float* __restrict__ mat_table, int M,
+                                 const float* __restrict__ rt) {
   using L = Layout<GRID>;
   constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
   extern __shared__ float smem[];
@@ -203,6 +219,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   for (int i = t; i < T * TRI_COLS; i += blockDim.x) s_tri[i] = tris[i];
   stage_medium<GRID>(med, s_med);
   for (int k = 0; k < L::N_OD; ++k) s_eod[k * RAY_BLOCK + t] = 0.0f;  // this thread's column
+  Mats mats{};
+  if constexpr (MAT) mats = stage_mats(mat_table, M, rt, reinterpret_cast<float*>(s_id + VRL_CHUNK));
 
   const int tile = blockIdx.x;
   const int b = tile_rays[(size_t)tile * RAY_BLOCK + t];
@@ -212,13 +230,14 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
   Cot c{};
   if (b >= 0) {
     ray = load_ray(rays, B, b);
+    if constexpr (MAT) attach_mat<GRID>(ray, rays, B, b, mats);
     stage_eod<GRID>(ray, rays, B, b, s_etab);
     for (int ch = 0; ch < 3; ++ch) c.gb[ch] = gbar[(size_t)ch * B + b];
   }
   c.d_eod = s_eod + t;
   c.d_vod = s_vod + t;
   c.d_density = d_density;
-  const auto m = make_medium<GRID, UV>(med, s_med, grid);
+  const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
   const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
   const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
   const int n_draws = 2 * svv + svs;
@@ -236,8 +255,8 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
         PairUniforms draw{uniforms ? uniforms + ((size_t)b * C + c0 + cc) * n_draws : nullptr,
                           (uint32_t)b, (uint32_t)s_id[cc], seed, make_uint4(0u, 0u, 0u, 0u),
                           -1};
-        pair_cots<PHASE, SHORT_VRLS>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T}, inv_vv,
-                                     inv_vs, c);
+        pair_cots<PHASE, SHORT_VRLS, false, MAT>(ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
+                                                 inv_vv, inv_vs, c, &mats);
       }
       warp_column_sums<GRID>(c, s_out, cc);
     }
@@ -259,11 +278,13 @@ __global__ void __launch_bounds__(RAY_BLOCK, BWD_MIN_BLOCKS)
 // dynamic shared memory of the backward, in bytes, with T triangles:
 // Layout's with the triangles (grid) or their plane pack (homogeneous,
 // whose per-ray partials take the place of the per-warp column sums),
-// and the staged table piece's VRL ids
+// the staged table piece's VRL ids, and M material rows (0 but for the
+// material forms); ext: the homogeneous pack's extension
 template <bool GRID>
-size_t clustered_bwd_smem_bytes(int T) {
-  return Layout<GRID>::smem_floats(sweep_floats<!GRID>(T)) * sizeof(float) +
-         VRL_CHUNK * sizeof(int);
+size_t clustered_bwd_smem_bytes(int T, int M = 0, bool ext = false) {
+  const size_t floats = ext ? Layout<GRID, true>::smem_floats(sweep_floats<!GRID>(T))
+                            : Layout<GRID>::smem_floats(sweep_floats<!GRID>(T));
+  return floats * sizeof(float) + VRL_CHUNK * sizeof(int) + (size_t)M * MAT_COLS * sizeof(float);
 }
 
 // The rays of a tile: CB_RAYS (homogeneous) or RAY_BLOCK (grid).
@@ -273,14 +294,29 @@ constexpr int clustered_bwd_tile() {
 }
 
 // The instantiation that a launch of these arguments takes (the mode:
-// MODE_SUM, or homogeneous MODE_NO_REJECT).
+// MODE_SUM, or homogeneous MODE_NO_REJECT, which the diffuse balance
+// forms alone have; ext, tri and mat the forms, as vrl_sum_bwd.cu's
+// bwd_kernel picks them; the trilinear and material grid forms at the
+// run-time step count).
 template <bool GRID, class Phase, class Short, class Uv>
-auto clustered_bwd_kernel(Phase, Short, Uv, int mode) {
+auto clustered_bwd_kernel(Phase, Short, Uv, int mode, bool ext = false, bool tri = false,
+                          bool mat = false) {
   constexpr int P = Phase::value;
   constexpr bool S = Short::value;
   if constexpr (GRID) {
+    if (tri)
+      return mat ? &vrl_sum_clustered_bwd_kernel<P, S, true, 0, true, true>
+                 : &vrl_sum_clustered_bwd_kernel<P, S, true, 0, true, false>;
+    if (mat) return &vrl_sum_clustered_bwd_kernel<P, S, true, 0, false, true>;
     return &vrl_sum_clustered_bwd_kernel<P, S, true, Uv::value>;
+  } else if constexpr (P == 2) {
+    return mat ? &vrl_sum_clustered_bwd_warps_kernel<2, S, MODE_SUM, true, true>
+               : &vrl_sum_clustered_bwd_warps_kernel<2, S, MODE_SUM, true, false>;
   } else {
+    if (ext)
+      return mat ? &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_SUM, true, true>
+                 : &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_SUM, true, false>;
+    if (mat) return &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_SUM, false, true>;
     return mode == MODE_NO_REJECT ? &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_NO_REJECT>
                                   : &vrl_sum_clustered_bwd_warps_kernel<P, S, MODE_SUM>;
   }
@@ -338,17 +374,22 @@ __global__ void vrl_sums(const float* __restrict__ d_table, const int* __restric
 // Launches the backward and its ordered reductions on `stream` (after
 // zeroing d_ray and, for grid media, d_density; homogeneous: after the
 // plane pack of the triangles into `planes`, (T, 4 PLANE_F4) floats of
-// scratch, in `mode`, MODE_SUM or MODE_NO_REJECT); returns a
-// cudaError_t (0 = launched). Host layout: tile_rays, tile_row
+// scratch, in `mode`, MODE_SUM or MODE_NO_REJECT, the latter for the
+// diffuse balance forms only); returns a cudaError_t (0 = launched). The
+// form: ext (homogeneous: the pack's extension, the mixture allowed),
+// trilinear (grid), M > 0 the material table mat_table, M, rt. Host layout: tile_rays, tile_row
 // (group_by_slice, in tiles of clustered_bwd_tile<GRID>() rays),
 // row_tiles (S + 1,) each row's first tile, slots and slot_start (N + 1,)
 // the table slots by VRL id. Scratch: tile_part (n_tiles, ROWS, C),
 // par_part (n_tiles, n_par), d_table (S, ROWS, C). Out: d_ray (ROWS, B) =
 // d_tau [, d_eod], d_vrl (ROWS, N) = d_power [, d_vod], d_weights (S, C),
-// d_par (n_par,) and, for grid media, d_density (nz, ny, nx).
+// d_par (n_par,: 8, MED_RHO + 1 with ext, or GRID_MED_LEN) and, for
+// grid media, d_density (nz, ny, nx).
 template <bool GRID>
 int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, const float* tris,
-                         int T, const float* med, GridArgs grid, const int* tile_rays,
+                         int T, const float* med, GridArgs grid, int trilinear,
+                         const float* mat_table, int M, const float* rt, int ext,
+                         const int* tile_rays,
                          const int* tile_row, int n_tiles, const int* row_tiles, int S,
                          const int* table_ids, const float* table_w, int C, const int* slots,
                          const int* slot_start, const float* uniforms, unsigned int seed, int svv,
@@ -357,10 +398,14 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
                          float* d_table, float* d_ray, float* d_vrl, float* d_weights,
                          float* d_par, float* d_density, void* stream) {
   using L = Layout<GRID>;
+  const int n_par = ext ? Layout<false, true>::N_PAR_OUT : L::N_PAR_OUT;
+  const bool diffuse = !ext && !trilinear && M == 0;
   if (B <= 0 || N <= 0 || n_tiles <= 0 || S <= 0 || C <= 0 || T < 0 || T > MAX_TRIS ||
-      svv < 0 || svs < 0 || (phase_kind != 0 && phase_kind != 1) || !grid_ok<GRID>(grid) ||
-      (GRID && d_density == nullptr) ||
-      !mode_ok<false, !GRID>(mode, nullptr))
+      svv < 0 || svs < 0 ||
+      (phase_kind != 0 && phase_kind != 1 && !(ext && phase_kind == PHASE_MIXTURE)) ||
+      (GRID && ext) || (!GRID && trilinear) || !grid_ok<GRID>(grid) ||
+      (GRID && d_density == nullptr) || !mats_ok(mat_table, M, rt) ||
+      !mode_ok<false, !GRID>(mode, nullptr) || (mode != MODE_SUM && !diffuse))
     return (int)cudaErrorInvalidValue;
   const int pack = pack_planes<!GRID>(tris, T, planes, stream);
   if (pack != 0) return pack;
@@ -369,21 +414,24 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
   if (err == cudaSuccess && GRID)
     err = cudaMemsetAsync(d_density, 0, (size_t)grid.nz * grid.ny * grid.nx * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = clustered_bwd_smem_bytes<GRID>(T);
+  const size_t smem = clustered_bwd_smem_bytes<GRID>(T, M, ext);
   cudaError_t attr = cudaSuccess;
-  dispatch<GRID>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_, auto uv) {
-    const auto kernel = clustered_bwd_kernel<GRID>(phase, short_, uv, mode);
+  dispatch<GRID, true>(phase_kind, short_vrls, grid.uv_steps, [&](auto phase, auto short_,
+                                                                  auto uv) {
+    const auto kernel =
+        clustered_bwd_kernel<GRID>(phase, short_, uv, mode, ext, trilinear, M > 0);
     attr = allow_smem(kernel, smem);
     if (attr != cudaSuccess) return;
     if constexpr (GRID)
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, grid, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
                                                svv, svs, gbar, d_ray, tile_part, par_part,
-                                               d_density);
+                                               d_density, mat_table, M, rt);
     else
       kernel<<<n_tiles, RAY_BLOCK, smem, st>>>(rays, B, vrls, N, tris, T, med, tile_rays,
                                                tile_row, table_ids, table_w, C, uniforms, seed,
-                                               svv, svs, gbar, d_ray, tile_part, par_part);
+                                               svv, svs, gbar, d_ray, tile_part, par_part,
+                                               mat_table, M, rt);
   });
   if (attr != cudaSuccess) return (int)attr;
   err = cudaGetLastError();
@@ -392,7 +440,7 @@ int launch_clustered_bwd(const float* rays, int B, const float* vrls, int N, con
                                                         table_ids, table_w, d_table, d_weights);
   vrl_sums<GRID><<<(L::ROWS * N + 255) / 256, 256, 0, st>>>(d_table, slots, slot_start, N, C,
                                                             table_w, d_vrl);
-  reduce_parts_tree<<<L::N_PAR_OUT, TREE, 0, st>>>(par_part, n_tiles, L::N_PAR_OUT, d_par);
+  reduce_parts_tree<<<n_par, TREE, 0, st>>>(par_part, n_tiles, n_par, d_par);
   return (int)cudaGetLastError();
 }
 
@@ -407,15 +455,19 @@ int alvrl_clustered_bwd_ray_block(int grid) {
 }
 
 // The homogeneous clustered backward. The forward's inputs
-// (alvrl_vrl_sum_clustered) and gbar (3, B); the host layout and scratch
-// of launch_clustered_bwd (ROWS = 3, n_par = 8), with `planes` (T, 4
-// PLANE_F4) float scratch for the triangles' plane pack (may be null for
-// T = 0) and the mode (0 the backward; 2 the same tiling without the
-// plane pre-reject, whose outputs must be the same bit for bit). Out:
-// d_tau (3, B), d_power (3, N), d_weights (S, C), d_par (8,). `uniforms`
+// (alvrl_vrl_sum_clustered) and gbar (3, B); the material table
+// (mat_table, M, rt: null, 0, null for the diffuse form) and ext (the
+// medium pack with its extension) as alvrl_vrl_sum_bwd's; the host
+// layout and scratch of launch_clustered_bwd (ROWS = 3, n_par = 8 or
+// MED_RHO + 1), with `planes` (T, 4 PLANE_F4) float scratch for the
+// triangles' plane pack (may be null for T = 0) and the mode (0 the
+// backward; 2 the same tiling without the plane pre-reject, whose outputs
+// must be the same bit for bit: the diffuse balance forms). Out: d_tau
+// (3, B), d_power (3, N), d_weights (S, C), d_par (n_par,). `uniforms`
 // may be null (the Philox stream of `seed`, as the forward's).
 int alvrl_vrl_sum_clustered_bwd(const float* rays, int B, const float* vrls, int N,
                                 const float* tris, int T, const float* med,
+                                const float* mat_table, int M, const float* rt, int ext,
                                 const int* tile_rays, const int* tile_row, int n_tiles,
                                 const int* row_tiles, int S, const int* table_ids,
                                 const float* table_w, int C, const int* slots,
@@ -424,36 +476,40 @@ int alvrl_vrl_sum_clustered_bwd(const float* rays, int B, const float* vrls, int
                                 const float* gbar, float* planes, int mode, float* tile_part,
                                 float* par_part, float* d_table, float* d_tau, float* d_power,
                                 float* d_weights, float* d_par, void* stream) {
-  return launch_clustered_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, tile_rays,
-                                     tile_row, n_tiles, row_tiles, S, table_ids, table_w, C,
-                                     slots, slot_start, uniforms, seed, svv, svs, short_vrls,
-                                     phase_kind, gbar, planes, mode, tile_part, par_part, d_table,
-                                     d_tau, d_power, d_weights, d_par, nullptr, stream);
+  return launch_clustered_bwd<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M,
+                                     rt, ext, tile_rays, tile_row, n_tiles, row_tiles, S,
+                                     table_ids, table_w, C, slots, slot_start, uniforms, seed,
+                                     svv, svs, short_vrls, phase_kind, gbar, planes, mode,
+                                     tile_part, par_part, d_table, d_tau, d_power, d_weights,
+                                     d_par, nullptr, stream);
 }
 
 // The grid-medium clustered backward: the grid packs, the supersampled
 // density (nz, ny, nx) and the U-V quadrature's step count, as
-// alvrl_vrl_sum_hetero_clustered takes them; ROWS = 3 + NQ + 1, n_par =
+// alvrl_vrl_sum_hetero_clustered takes them (`trilinear`: the trilinear
+// form, on the density itself), the material table as
+// alvrl_vrl_sum_clustered_bwd's; ROWS = 3 + NQ + 1, n_par =
 // GRID_MED_LEN. Out: d_ray (ROWS, B) = d_tau, d_eod; d_vrl (ROWS, N) =
 // d_power, d_vod; d_weights (S, C); d_par (GRID_MED_LEN,); d_density
 // (nz, ny, nx), zeroed here first.
 int alvrl_vrl_sum_hetero_clustered_bwd(
     const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-    const float* med, const float* density, int nz, int ny, int nx, int uv_steps,
-    const int* tile_rays, const int* tile_row, int n_tiles, const int* row_tiles, int S,
-    const int* table_ids, const float* table_w, int C, const int* slots, const int* slot_start,
+    const float* med, const float* mat_table, int M, const float* rt, const float* density,
+    int nz, int ny, int nx, int uv_steps, int trilinear, const int* tile_rays,
+    const int* tile_row, int n_tiles, const int* row_tiles, int S, const int* table_ids,
+    const float* table_w, int C, const int* slots, const int* slot_start,
     const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls, int phase_kind,
     const float* gbar, float* tile_part, float* par_part, float* d_table, float* d_ray,
     float* d_vrl, float* d_weights, float* d_par, float* d_density, void* stream) {
-  return launch_clustered_bwd<true>(rays, B, vrls, N, tris, T, med,
-                                    GridArgs{density, nz, ny, nx, uv_steps}, tile_rays, tile_row,
-                                    n_tiles, row_tiles, S, table_ids, table_w, C, slots,
-                                    slot_start, uniforms, seed, svv, svs, short_vrls, phase_kind,
-                                    gbar, nullptr, MODE_SUM, tile_part, par_part, d_table, d_ray,
-                                    d_vrl, d_weights, d_par, d_density, stream);
+  return launch_clustered_bwd<true>(
+      rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps}, trilinear,
+      mat_table, M, rt, 0, tile_rays, tile_row, n_tiles, row_tiles, S, table_ids, table_w, C,
+      slots, slot_start, uniforms, seed, svv, svs, short_vrls, phase_kind, gbar, nullptr,
+      MODE_SUM, tile_part, par_part, d_table, d_ray, d_vrl, d_weights, d_par, d_density, stream);
 }
 
-// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy.
+// The backward's blocks resident on one SM, as alvrl_vrl_sum_occupancy
+// (the diffuse forms).
 int alvrl_vrl_sum_clustered_bwd_occupancy(int grid, int T, int uv_steps, int phase_kind,
                                           int short_vrls, int* blocks) {
   return occupancy(

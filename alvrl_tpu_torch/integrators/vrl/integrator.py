@@ -14,9 +14,8 @@ medium: a grid medium goes through the grid packs and the grid kernels
 (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered), with the
 grid of its quadratures computed once per call (media.heterogeneous.
 quad_grid: the supersample, or with fast_tau False the density itself,
-whose trilinear medium pack takes the kernels' trilinear forms; the
-differentiable routes, kernels 9 and 11, refuse it: ROADMAP A14). Sums
-are normalised by the traced-particle count. Every route refuses an
+whose trilinear medium pack takes the kernels' trilinear forms, the
+backward kernels 9 and 11 too). Sums are normalised by the traced-particle count. Every route refuses an
 oriented medium (Kajiya-Kay, micro-flake), which only volpath renders,
 as in the JAX package (tracer.refuse_oriented).
 
@@ -27,13 +26,12 @@ not evaluate) takes the material instantiations of the forward kernels
 (material_pack: kernels 1, 2 and 5 in a homogeneous medium, the grid
 kernels 3, 4 and 6 in a grid one, either density read, and the BVH
 kernel 7; the unclustered, specular-chain, large-mesh and clustered
-renders and R), as the JAX package's XLA route evaluates every smooth
-kind at the eye hit; only the backward kernels 8-11 have none yet, and
-their routes refuse such a table by name (ROADMAP A12) rather than drop
-its term. Likewise a homogeneous medium with a mixture phase or a
-sampling strategy other than balance (ops.pack.pack_medium's extended
-pack) takes kernels 1, 2, 5 and 7, and the backward routes refuse it
-(refuse_mixture, ROADMAP A13).
+renders and R), and so do the backward kernels 8-11 behind the
+differentiable routes, as the JAX package's XLA route evaluates every
+smooth kind at the eye hit and its train step differentiates it.
+Likewise a homogeneous medium with a mixture phase or a sampling
+strategy other than balance (ops.pack.pack_medium's extended pack)
+takes the extended forms of kernels 1, 2, 5, 7, 8 and 10.
 """
 
 from __future__ import annotations
@@ -51,12 +49,9 @@ from alvrl_tpu_torch.integrators.vrl.tracer import refuse_oriented
 from alvrl_tpu_torch.integrators.vrl.vrl import VRLs
 from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import heterogeneous as gmed
-from alvrl_tpu_torch.media import homogeneous as hmed
-from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops.vrl_r import vrl_r, vrl_r_hetero
 from alvrl_tpu_torch.ops.vrl_sum import (
-    TRI_REFUSAL,
     philox_draws,
     vrl_sum,
     vrl_sum_hetero,
@@ -98,46 +93,16 @@ def _eye_hits(scene: Scene, ray_o, hit):
 
 def material_pack(scene: Scene):
     """The material pack (ops.pack.pack_materials) that the material
-    instantiations of the forward kernels 1-7 take, when the scene's table
+    instantiations of the kernels 1-11 take, when the scene's table
     holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy); None
     otherwise, for the diffuse instantiations."""
     return pk.pack_materials(scene.materials) if bsdf_api.has_glossy(
         bsdf_api.check_kinds(scene)) else None
 
 
-def refuse_glossy(scene: Scene, route: str):
-    """Raise, naming `route` (a backward one) and its ROADMAP item, if the
-    scene's table holds a smooth kind other than DIFFUSE, whose eye-side
-    term the backward kernels 8-11 do not evaluate."""
-    kinds = bsdf_api.check_kinds(scene)
-    if bsdf_api.has_glossy(kinds):
-        raise ValueError(f"{route} evaluates the diffuse eye-side term only: "
-                         f"material kinds {sorted(kinds)} need the backward "
-                         "kernels' material instantiation (ROADMAP A12)")
-
-
-def refuse_mixture(scene: Scene, route: str):
-    """Raise, naming `route` (a backward one) and its ROADMAP item, if the
-    scene's medium has a mixture phase or a sampling strategy other than
-    balance, which the backward kernels 8-11 do not evaluate."""
-    med = scene.medium
-    if med.phase_kind == ph.MIXTURE or getattr(med, "strategy",
-                                               hmed.BALANCE) != hmed.BALANCE:
-        raise ValueError(f"{route} takes neither the mixture phase nor a "
-                         "sampling strategy other than balance (ROADMAP A13)")
-
-
-def refuse_trilinear(scene: Scene, route: str):
-    """Raise, naming `route` and ROADMAP A14, on a grid medium of
-    fast_tau False, whose trilinear read the backward grid kernels 9 and
-    11 do not take."""
-    if not mapi.is_homogeneous(scene.medium) and not scene.medium.fast_tau:
-        raise ValueError(f"{route}: {TRI_REFUSAL}")
-
-
-def _forward_materials(scene: Scene, route: str):
-    """material_pack, in either medium (the forward kernels' material
-    forms), after refuse_oriented."""
+def _route_materials(scene: Scene, route: str):
+    """material_pack, in either medium (the kernels' material forms),
+    after refuse_oriented."""
     refuse_oriented(scene.medium, route)
     return material_pack(scene)
 
@@ -240,7 +205,7 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     or layered table takes kernel 1's material instantiation (module
     docstring), in a grid medium kernel 3's material form. Returns the
     (H, W, 3) image."""
-    materials = _forward_materials(scene, "the unclustered render")
+    materials = _route_materials(scene, "the unclustered render")
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
                    generator, cfg, uniforms, jitter, materials)
 
@@ -276,24 +241,23 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
 
     In a homogeneous medium (ops.vrl_sum_bwd.vrl_sum_diff): in the
     medium's sigma_a, sigma_s and g, the VRL powers and the
-    eye-to-surface transmittance. In a grid medium (vrl_sum_hetero_diff):
-    in sigma_t_color, albedo, g, scale and the density voxels (through
-    upsample2, the eye and VRL cumulative-OD tables of the grid packs
-    and the kernel's density scatter, all chained by autograd), the VRL
-    powers and the eye transmittance. The grid signature has neither
-    the CP factors nor their `dens_scale` multiplier (ROADMAP C9, C10): a
-    density multiplier is the medium's `scale` or a product on its
-    density, through which autograd chains. A glossy or layered table is
-    refused (no material instantiation of kernels 8 and 9 yet, ROADMAP
-    A12), and so are a mixture phase or a strategy other than balance
-    (A13), an oriented medium and a grid medium of fast_tau False (A14)."""
-    refuse_oriented(scene.medium, "the differentiable render (kernels 8 "
-                    "and 9)")
-    refuse_trilinear(scene, "the differentiable render (kernel 9)")
-    refuse_glossy(scene, "the differentiable render (kernels 8 and 9)")
-    refuse_mixture(scene, "the differentiable render (kernels 8 and 9)")
+    eye-to-surface transmittance (a strategy's rate chaining to sigma_t
+    through the medium's sampling_density, kernel 8's extended forms). In
+    a grid medium (vrl_sum_hetero_diff): in sigma_t_color, albedo, g,
+    scale and the density voxels (through upsample2, or with fast_tau
+    False the trilinear read itself, the eye and VRL cumulative-OD tables
+    of the grid packs and the kernel's density scatter, all chained by
+    autograd), the VRL powers and the eye transmittance. The grid
+    signature has neither the CP factors nor their `dens_scale`
+    multiplier (ROADMAP C9, C10): a density multiplier is the medium's
+    `scale` or a product on its density, through which autograd chains.
+    A glossy or layered table takes the backward kernels' material forms
+    (the material's own parameters get no gradient, as in the JAX
+    package's train step); an oriented medium is refused."""
+    materials = _route_materials(scene, "the differentiable render "
+                                 "(kernels 8 and 9)")
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
-                   vrls, generator, cfg, uniforms, None)
+                   vrls, generator, cfg, uniforms, None, materials)
 
 
 def li_unclustered_spec(scene: Scene, ray_o, ray_d, vrls: VRLs, generator,
@@ -334,7 +298,7 @@ def li_unclustered_spec_u(scene: Scene, ray_o, ray_d, vrls: VRLs, u_chain,
 def _li_spec_plain(scene, ray_o, ray_d, vrls, u_chain, sum_uniforms, cfg,
                    spec_cfg):
     med = scene.medium
-    materials = _forward_materials(scene, "the plain chain")
+    materials = _route_materials(scene, "the plain chain")
     density_ss = None if mapi.is_homogeneous(med) else gmed.quad_grid(med)
     if density_ss is None:
         side = (pk.pack_vrls(vrls), pk.pack_tris(scene), pk.pack_medium(scene))
@@ -466,7 +430,7 @@ def build_R_kernel(scene: Scene, ray_o, ray_d, vrls: VRLs, seed: int,
     `uniforms` (P, N, 2 * vol_vol + vol_surf) replaces the Philox stream
     of `seed`. A glossy or layered table takes kernel 5's material
     instantiation, in a grid medium kernel 6's material form."""
-    materials = _forward_materials(scene, "the transfer matrix R")
+    materials = _route_materials(scene, "the transfer matrix R")
     _, packs = pack_rays_vrls(scene, ray_o, ray_d, vrls, materials)
     out = _kernel(scene, vrl_r, vrl_r_hetero)(
         *packs, seed=seed, uniforms=uniforms, **_kernel_args(scene, cfg),
@@ -495,7 +459,7 @@ def render_clustered_kernel(scene: Scene, vrls: VRLs, slice_of_pixel,
     launch's random stream. A glossy or layered table takes kernel 2's
     material instantiation, in a grid medium kernel 4's material form.
     Returns the (H, W, 3) image."""
-    materials = _forward_materials(scene, "the clustered render")
+    materials = _route_materials(scene, "the clustered render")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered, vrl_sum_hetero_clustered), scene,
         vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
@@ -515,23 +479,16 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     geometry is detached. The composition of the reference's
     vrl_sum_clustered_diff with render_clustered_pallas's table build
     (tests/test_pallas_bwd.py:220-235, 277-293); as there, no CP factors
-    and no density multiplier (ROADMAP C9, C10). A glossy or layered table
-    is refused (no material instantiation of kernels 10 and 11 yet,
-    ROADMAP A12), and so are a mixture phase or a strategy other than
-    balance (A13), an oriented medium and a grid medium of fast_tau False
-    (A14)."""
-    refuse_oriented(scene.medium, "the differentiable clustered render "
-                    "(kernels 10 and 11)")
-    refuse_trilinear(scene, "the differentiable clustered render (kernel "
-                     "11)")
-    refuse_glossy(scene, "the differentiable clustered render (kernels 10 "
-                  "and 11)")
-    refuse_mixture(scene, "the differentiable clustered render (kernels 10 "
-                   "and 11)")
+    and no density multiplier (ROADMAP C9, C10). Every scene of
+    render_clustered_kernel but an oriented medium: a glossy or layered
+    table, a mixture phase or another strategy than balance, a grid
+    medium of fast_tau False (the forms of kernels 10 and 11)."""
+    materials = _route_materials(scene, "the differentiable clustered "
+                                 "render (kernels 10 and 11)")
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered_diff, vrl_sum_hetero_clustered_diff),
         scene, vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,
-        fallback, uniforms)
+        fallback, uniforms, materials)
 
 
 def _render_clustered(clustered, scene, vrls, slice_of_pixel, table_ids,

@@ -167,8 +167,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     MODE_CHECK (CUDA tensors only) returns (out, {name: total} of
     vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              grid=grid, materials=materials,
-              extended_ok=True, trilinear_ok=True)
+              grid=grid, materials=materials)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     checking = mode == vs.MODE_CHECK
     if checking and rays.device.type != "cuda":

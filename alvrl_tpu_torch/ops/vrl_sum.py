@@ -24,16 +24,17 @@ strategy other than balance comes in ops.pack.pack_medium's extended
 pack: the plain versions and kernels 1, 2 and 5 (their PHASE = 2 forms
 for the mixture) evaluate the mixture's components and divide by the
 strategy's pdfFailure, msw exp(-rho x) + 1 - msw, as the JAX package's
-XLA route does (ROADMAP C16), and so does kernel 7 (ops.vrl_sum_bvh);
-the backward kernels' wrappers refuse it (MIX_REFUSAL, ROADMAP A13).
+XLA route does (ROADMAP C16), and so do kernel 7 (ops.vrl_sum_bvh) and
+the backward kernels 8 and 10 in their extended forms, which also return
+the cotangent of the strategy's rate (ops.vrl_sum_bwd).
 
 A grid medium of fast_tau False comes in the trilinear medium pack
 (ops.pack.GRID_TRI_MED_LEN) with the density itself in place of the
 supersample: the grid wrappers launch the kernels' trilinear forms
 (counted on their `tri_launches` too), whose plain versions are the same
 grid routes with integrate.grid_density's trilinear read, as the JAX
-package's XLA route reads a fast_tau=False medium (ROADMAP C20); the
-backward grid wrappers refuse it (TRI_REFUSAL, ROADMAP A14).
+package's XLA route reads a fast_tau=False medium (ROADMAP C20), and so
+do the backward grid kernels 9 and 11 in their trilinear forms.
 
 Glossy and layered surfaces at the eye hit take kernel 1's material
 instantiation: the wrappers and plain versions take `materials`, the
@@ -45,7 +46,8 @@ albedo cos_o / pi. In a grid medium the same: the grid kernels' material
 forms (kernels 3, 4 and 6, either density read, counted on their
 `mat_launches` too) take the material pack with the grid ray pack that
 holds the hit's material id (ops.pack.GRID_MAT_RAY_ROWS rows); the
-clustered sum and R take it the same way. The JAX package's Pallas
+clustered sum, R and the backward kernels 8-11 take it the same way.
+The JAX package's Pallas
 kernels evaluate no BSDF (their packs zero the albedo of a non-diffuse
 hit, ROADMAP C21); the port follows its XLA route, pair_contribution.
 
@@ -297,8 +299,9 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
 
     Differentiable by autograd (ops.vrl_sum_bwd's plain versions) in
     the VP rows of `vrls`, the TAU rows of `rays` and medium[0:7] for
-    homogeneous packs; for grid packs also in the VOD and EOD rows, the
-    density scale and density_ss. The geometry of each sample is
+    homogeneous packs (and the rate, medium[MED_RHO], of the extended
+    one); for grid packs also in the VOD and EOD rows, the density scale
+    and density_ss (either read). The geometry of each sample is
     replaced by harmless values where the sample is masked out (on the
     grid branch also the points U and V, moved to the segments' starts,
     and |E - U|, |U - V|, set to 0, so that their voxel indices are
@@ -309,7 +312,8 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     packs): the vol-surf term evaluates the eye hit's smooth BSDF,
     integrate.bsdf_eval_smooth(-d, -vu), in place of albedo cos_o / pi, and is
     gated by the hit material's smooth flag; the material kernels' plain
-    version (not differentiable: no VJP takes it)."""
+    version, differentiable as above (the material's own parameters are
+    constants, as in the JAX package's train step)."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -421,8 +425,10 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             cos_o = torch.clamp(m.dot(ng, -vu), min=0.0)
             f, geo = alb, phase(-uv, vu) * cos_o * (1.0 / math.pi)
         else:  # the hit's smooth BSDF
-            f = integrate.bsdf_eval_smooth(materials, mat_id, ng, -d, -vu,
-                                           kinds)
+            # 0 where masked, so that a non-finite eval there cannot reach
+            # the gradient
+            f = torch.where(ok[..., None], integrate.bsdf_eval_smooth(
+                materials, mat_id, ng, -d, -vu, kinds), 0.0)
             geo = phase(-uv, vu)
         geo = geo / torch.clamp(pdf_d2, min=1e-30)
         if grid is not None:
@@ -505,12 +511,6 @@ def grid_args(density, uv_steps):
     """The grid kernels' extra C arguments: the density pointer, its
     (Z, Y, X) extents and the U-V quadrature's step count."""
     return (density.data_ptr(), *density.shape, uv_steps)
-
-
-# the backward grid kernels' refusal of the trilinear pack
-TRI_REFUSAL = ("the trilinear read (fast_tau=False) takes the forward grid "
-               "kernels 3, 4 and 6 only; the backward kernels 9 and 11 read "
-               "the supersample by nearest lookup (ROADMAP A14)")
 
 
 # kernel 1's modes (alvrl_vrl_sum's `mode`): the sum, the checking
@@ -617,27 +617,18 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
     return blocks.value
 
 
-MIX_REFUSAL = ("the mixture phase and the sampling strategies other than "
-               "balance take the homogeneous forward kernels 1, 2, 5 and 7 "
-               "only; the backward kernels 8-11 do not (ROADMAP A13)")
-
-
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None, grid=None, materials=None, extended_ok=False,
-           trilinear_ok=False):
+           n_cols=None, grid=None, materials=None):
     """Raise on what the kernels do not take. The uniforms must be
     (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
     (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
     constants give, with the supersampled density (2Z - 1, 2Y - 1,
-    2X - 1), or with the trilinear medium pack (trilinear_ok: the
-    forward grid kernels; others raise a ValueError naming ROADMAP A14)
-    the density (Z, Y, X), at least 2 a side. materials = (table,
-    rt_tables), ops.pack.pack_materials', for the material
-    instantiations: rays (MAT_RAY_ROWS, B), or in a grid medium
-    (GRID_MAT_RAY_ROWS, B). extended_ok: the kernel takes the extended
-    medium pack (the mixture phase, another strategy than balance: the
-    forward kernels in a homogeneous medium); other kernels raise a
-    ValueError on it, naming ROADMAP A13."""
+    2X - 1), or with the trilinear medium pack the density (Z, Y, X), at
+    least 2 a side. materials = (table, rt_tables), ops.pack.
+    pack_materials', for the material instantiations: rays (MAT_RAY_ROWS,
+    B), or in a grid medium (GRID_MAT_RAY_ROWS, B). A homogeneous medium
+    may come in the extended pack (the mixture phase, another strategy
+    than balance); a grid medium has neither."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
@@ -681,8 +672,8 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     extended = grid is None and medium.dim() == 1 \
         and medium.shape[0] > pk.MED_LEN
     if extended or phase_kind == ph.MIXTURE:
-        if not (extended_ok and grid is None):
-            raise ValueError(MIX_REFUSAL)
+        if grid is not None:
+            raise ValueError("a grid medium has no mixture phase")
         if not extended or medium.shape[0] < pk.MED_MIX \
                 or (medium.shape[0] - pk.MED_MIX) % 3:
             raise ValueError(f"an extended medium pack is ({pk.MED_MIX} + "
@@ -690,10 +681,9 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         if phase_kind == ph.MIXTURE and medium.shape[0] == pk.MED_MIX:
             raise ValueError("a mixture phase needs its components in the "
                              "medium pack")
-    elif grid is not None and medium.dim() == 1 and pk.is_trilinear(medium):
-        if not trilinear_ok:
-            raise ValueError(TRI_REFUSAL)
-    elif tuple(medium.shape) != (med_len,):
+    elif tuple(medium.shape) != (med_len,) and not (
+            grid is not None and medium.dim() == 1
+            and pk.is_trilinear(medium)):
         raise ValueError(f"medium must be ({med_len},), got "
                          f"{tuple(medium.shape)}")
     if grid is not None:
@@ -731,8 +721,7 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     """The wrappers' body: checks, then the plain version on the CPU or
     the kernel on the card, counting its launch on `fn`."""
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           grid=grid, materials=materials, extended_ok=True,
-           trilinear_ok=True)
+           grid=grid, materials=materials)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
@@ -755,14 +744,18 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
 
 
 def count_launch(fn, grid, medium, materials=None):
-    """One launch on the wrapper fn: fn.launches, and for a grid
-    wrapper's trilinear form fn.tri_launches as well, for its material
-    forms fn.mat_launches."""
+    """One launch on the wrapper fn: fn.launches, and each form counter
+    that fn has and the launch's form takes: tri_launches (a grid
+    medium's trilinear pack), mat_launches (a material pack) and
+    mix_launches (the homogeneous pack's extension: the mixture, a
+    strategy's rate)."""
     fn.launches += 1
-    if grid is not None and pk.is_trilinear(medium):
-        fn.tri_launches += 1
-    if grid is not None and materials is not None:
-        fn.mat_launches += 1
+    forms = {"tri_launches": grid is not None and pk.is_trilinear(medium),
+             "mat_launches": materials is not None,
+             "mix_launches": grid is None and medium.shape[0] > pk.MED_LEN}
+    for name, taken in forms.items():
+        if taken and hasattr(fn, name):
+            setattr(fn, name, getattr(fn, name) + 1)
 
 
 def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
@@ -800,7 +793,7 @@ def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     vrl_sum's."""
     svv, svs = vol_vol_samples, vol_surf_samples
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           materials=materials, extended_ok=True)
+           materials=materials)
     if rays.device.type != "cuda":
         raise ValueError("the checking launch needs CUDA tensors")
     counts = torch.zeros(len(CHECK_COUNTS), dtype=torch.int64,

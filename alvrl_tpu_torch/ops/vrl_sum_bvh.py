@@ -194,7 +194,7 @@ def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
     if not isinstance(bvh, BvhPack):
         raise TypeError(f"bvh must be a BvhPack, got {type(bvh)}")
     vs._check(rays, vrls, bvh.tris, medium, uniforms, seed, svv, svs,
-              phase_kind, materials=materials, extended_ok=True)
+              phase_kind, materials=materials)
     nodes = bvh.nodes
     if not isinstance(nodes, torch.Tensor) or nodes.dtype != torch.float32 \
             or not nodes.is_contiguous() or nodes.device != rays.device:

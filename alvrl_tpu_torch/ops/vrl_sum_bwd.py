@@ -11,7 +11,13 @@ in:
     d_power (3, N)  the VP rows of the VRL pack;
     d_par           the medium pack's entries: homogeneous (8,), sigma_t
                     0:3, sigma_s 3:6 and g 6 (7 is 0: the sampling
-                    weight is a stored constant); grid (GRID_MED_LEN,),
+                    weight is a stored constant), and with the pack's
+                    extension (a mixture phase, a strategy's rate;
+                    ops.pack.pack_medium) (MED_RHO + 1,), the rate's
+                    cotangent at MED_RHO, through which sigma_t chains
+                    on the autograd side (media.homogeneous
+                    sampling_density), g's 0 for the mixture, whose
+                    components are constants; grid (GRID_MED_LEN,),
                     sigma_t_color 0:3, sigma_s_color 3:6, g 6, chan 7
                     and the density scale at GRID_MED_LEN - 1 (box and
                     index entries are 0);
@@ -33,6 +39,16 @@ as a product, never as a quotient by the value it differentiates: the
 reference's divisions (gt / max(pw, 1e-30) * (pw != 0) and the like)
 give 0 wherever a power, sigma_s or tau channel is 0, which is wrong for
 a term linear in it (ROADMAP C7).
+
+Every scene the forward kernels take has its backward form, as the
+forward's (ops.vrl_sum): `materials` (a glossy or layered table, the
+material forms, counted on the wrappers' `mat_launches`), the extended
+medium pack (kernel 8's extended forms, on `mix_launches`) and the
+trilinear grid medium pack of fast_tau False (kernel 9's trilinear
+forms, on `tri_launches`; d_density is then the density's own). The
+JAX package's Pallas backward evaluates none of them (HG(g) under
+balance, no glossy term, CP reads: ROADMAP C22); the port follows its
+XLA route, which its train step differentiates.
 
 Beside the kernel (csrc/vrl_sum_bwd.cu):
   * `vrl_sum_bwd_reference` and `vrl_sum_hetero_bwd_reference`, the
@@ -73,9 +89,30 @@ def _leaf_rows(pack, rows):
     return out, leaf
 
 
+def _med_rows(medium, grid):
+    """The medium pack's differentiable entries (slices): homogeneous
+    sigma_t, sigma_s, g, and the rate of the extended pack; grid
+    GRID_PAR."""
+    if grid is not None:
+        return list(GRID_PAR)
+    if medium.shape[0] > pk.MED_LEN:
+        return [slice(0, 7), slice(pk.MED_RHO, pk.MED_RHO + 1)]
+    return [slice(0, 7)]
+
+
+def _d_par(medium, grid, med_rows, d_med):
+    """d_par from the medium entries' cotangents: (8,), (MED_RHO + 1,)
+    for the extended pack, or (GRID_MED_LEN,)."""
+    d_par = torch.zeros((_n_par(medium, grid),), dtype=medium.dtype,
+                        device=medium.device)
+    for r, d in zip(med_rows, d_med):
+        d_par[r] = d
+    return d_par
+
+
 def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
                med_rows, svv, svs, short_vrls, phase_kind, grid=None,
-               tables=None):
+               tables=None, materials=None):
     """torch.autograd.grad of sum(gbar * the plain sums) in blocks of
     ops.vrl_sum's _PLAIN_RAY_CHUNK rays, with leaves at the rows
     `ray_rows` of each block of the ray pack, `vrl_rows` of the VRL
@@ -83,12 +120,13 @@ def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
     grid = (density, uv_steps), the density. With tables = (ray rows
     (B,) int64, table ids (S, C), table weights (S, C)), the sums are
     the clustered ones (ops.vrl_sum_clustered's gather of each ray's
-    table row), with a leaf at the table weights too. Returns the ray
-    rows' cotangents (B columns each), the VRL rows', the medium
-    entries', the density's and the table weights' (None without a grid
-    or tables)."""
+    table row), with a leaf at the table weights too; with `materials`,
+    the material forms' sums. Returns the ray rows' cotangents (B
+    columns each), the VRL rows', the medium entries', the density's
+    and the table weights' (None without a grid or tables)."""
     rays, vrls, tris, medium, gbar = (
         t.detach() for t in (rays, vrls, tris, medium, gbar))
+    mats = vs._plain_materials(materials)
     n_rays = rays.shape[1]
     d_ray = [torch.zeros_like(rays[r]) for r in ray_rows]
     d_vrl = [torch.zeros_like(vrls[r]) for r in vrl_rows]
@@ -123,7 +161,7 @@ def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
             out = vs._pair_sums(
                 ray_b, vrl_b, tris, med_b, uniforms[b0:b1], svv, svs,
                 short_vrls, phase_kind,
-                None if grid is None else (density, grid[1]))
+                None if grid is None else (density, grid[1]), mats)
             grads = list(torch.autograd.grad(
                 (out * gbar[:, b0:b1].T).sum(), leaves, allow_unused=True,
                 materialize_grads=True))
@@ -140,44 +178,45 @@ def _plain_vjp(rays, vrls, tris, medium, gbar, uniforms, ray_rows, vrl_rows,
 
 def vrl_sum_bwd_reference(rays, vrls, tris, medium, gbar, uniforms, *,
                           vol_vol_samples=2, vol_surf_samples=2,
-                          short_vrls=True, phase_kind=ph.HG):
+                          short_vrls=True, phase_kind=ph.HG, materials=None):
     """Plain version of the backward: the cotangents (d_power, d_par,
     d_tau) of vrl_sum_reference for the output cotangent gbar (3, B),
     with explicit uniforms (B, N, 2 * vol_vol_samples +
     vol_surf_samples). Rays go in blocks of ops.vrl_sum's
-    _PLAIN_RAY_CHUNK; the leaves are the VP rows, medium[0:7] and the
-    TAU rows of each block."""
-    (d_tau,), (d_power,), (d_par7,), _, _ = _plain_vjp(
+    _PLAIN_RAY_CHUNK; the leaves are the VP rows, medium[0:7] (and the
+    extended pack's rate) and the TAU rows of each block. `materials` as
+    vrl_sum_reference's (rays (MAT_RAY_ROWS, B))."""
+    med_rows = _med_rows(medium, None)
+    (d_tau,), (d_power,), d_med, _, _ = _plain_vjp(
         rays, vrls, tris, medium, gbar, uniforms,
-        [slice(pk.TAU, pk.TAU + 3)], [slice(pk.VP, pk.VP + 3)],
-        [slice(0, 7)], vol_vol_samples, vol_surf_samples, short_vrls,
-        phase_kind)
-    d_par = torch.zeros((N_PAR,), dtype=rays.dtype, device=rays.device)
-    d_par[0:7] = d_par7
-    return d_power, d_par, d_tau
+        [slice(pk.TAU, pk.TAU + 3)], [slice(pk.VP, pk.VP + 3)], med_rows,
+        vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+        materials=materials)
+    return d_power, _d_par(medium, None, med_rows, d_med), d_tau
 
 
 def vrl_sum_hetero_bwd_reference(rays, vrls, tris, medium, density, gbar,
                                  uniforms, *, vol_vol_samples=2,
                                  vol_surf_samples=2, short_vrls=True,
-                                 phase_kind=ph.HG, uv_steps=4):
+                                 phase_kind=ph.HG, uv_steps=4,
+                                 materials=None):
     """Plain version of the grid backward: the cotangents (d_power, d_par
     (GRID_MED_LEN,), d_tau, d_eod, d_vod, d_density) of
     vrl_sum_hetero_reference for the output cotangent gbar (3, B), with
-    explicit uniforms. The leaves are the VP and VOD rows, the medium's
-    GRID_PAR entries, the TAU and EOD rows of each block of rays, and
-    the supersampled density."""
+    explicit uniforms, in either read (the trilinear medium pack with
+    the density itself). The leaves are the VP and VOD rows, the
+    medium's GRID_PAR entries, the TAU and EOD rows of each block of
+    rays, and the density. `materials` as vrl_sum_hetero_reference's."""
+    grid = (density, uv_steps)
+    med_rows = _med_rows(medium, grid)
     (d_tau, d_eod), (d_power, d_vod), d_med, d_density, _ = _plain_vjp(
         rays, vrls, tris, medium, gbar, uniforms,
         [slice(pk.TAU, pk.TAU + 3), slice(pk.EOD, pk.EOD + N_OD)],
-        [slice(pk.VP, pk.VP + 3), slice(pk.VOD, pk.VOD + N_OD)],
-        list(GRID_PAR), vol_vol_samples, vol_surf_samples, short_vrls,
-        phase_kind, (density, uv_steps))
-    d_par = torch.zeros((pk.GRID_MED_LEN,), dtype=rays.dtype,
-                        device=rays.device)
-    for r, d in zip(GRID_PAR, d_med):
-        d_par[r] = d
-    return d_power, d_par, d_tau, d_eod, d_vod, d_density
+        [slice(pk.VP, pk.VP + 3), slice(pk.VOD, pk.VOD + N_OD)], med_rows,
+        vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, grid,
+        materials=materials)
+    return (d_power, _d_par(medium, grid, med_rows, d_med), d_tau, d_eod,
+            d_vod, d_density)
 
 
 # ---------------------------------------------------------------------------
@@ -188,26 +227,36 @@ def vrl_sum_hetero_bwd_reference(rays, vrls, tris, medium, density, gbar,
 def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    head, uni = [p, i, p, i, p, i, p], [p, u, i, i, i, i, p]
+    head, mat, uni = [p, i, p, i, p, i, p], [p, i, p], [p, u, i, i, i, i, p]
     tail = [p, i, p, i, p, p, p, p]
-    lib.alvrl_vrl_sum_bwd.argtypes = [*head, *uni, p, *tail, p]
-    lib.alvrl_vrl_sum_hetero_bwd.argtypes = [*head, p, i, i, i, i, *uni,
-                                             *tail, p, p]
+    lib.alvrl_vrl_sum_bwd.argtypes = [*head, *mat, i, *uni, p, *tail, p]
+    lib.alvrl_vrl_sum_hetero_bwd.argtypes = [*head, *mat, p, i, i, i, i, i,
+                                             *uni, *tail, p, p]
     for fn in (lib.alvrl_vrl_sum_bwd, lib.alvrl_vrl_sum_hetero_bwd,
                lib.alvrl_ray_block):
         fn.restype = i
     return lib
 
 
+def _n_par(medium, grid):
+    """d_par's length: 8, MED_RHO + 1 for the extended pack, or
+    GRID_MED_LEN."""
+    if grid is not None:
+        return pk.GRID_MED_LEN
+    return pk.MED_RHO + 1 if medium.shape[0] > pk.MED_LEN else N_PAR
+
+
 def _launch(lib, rays, vrls, tris, medium, gbar, uniforms, seed, svv, svs,
-            short_vrls, phase_kind, grid=None):
+            short_vrls, phase_kind, grid=None, materials=None):
     """The backward kernel: (d_power, d_par, d_tau), and with grid =
-    (density, uv_steps) also (d_eod, d_vod, d_density)."""
+    (density, uv_steps) also (d_eod, d_vod, d_density); the form the
+    packs ask for (the extended pack, the trilinear grid pack) and, with
+    `materials`, its material form."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = -(-n_vrls // lib.alvrl_vrl_chunk())
     n_ray_blocks = -(-n_rays // lib.alvrl_ray_block())
     rows = 3 if grid is None else 3 + N_OD
-    n_par = N_PAR if grid is None else pk.GRID_MED_LEN
+    n_par = _n_par(medium, grid)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=rays.device)
@@ -219,7 +268,7 @@ def _launch(lib, rays, vrls, tris, medium, gbar, uniforms, seed, svv, svs,
     par_part = empty(n_ray_blocks * n_chunks, n_par)
     d_vrl, d_par, d_ray = empty(rows, n_vrls), empty(n_par), empty(rows, n_rays)
     head = (rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls, tris.data_ptr(),
-            tris.shape[0], medium.data_ptr())
+            tris.shape[0], medium.data_ptr(), *vs.mat_args(materials))
     uni = (None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
            int(short_vrls), phase_kind, gbar.data_ptr())
     tail = (ray_part.data_ptr(), n_chunks, vrl_part.data_ptr(), n_ray_blocks,
@@ -230,12 +279,13 @@ def _launch(lib, rays, vrls, tris, medium, gbar, uniforms, seed, svv, svs,
         # the triangles' plane pack, which the kernel sweeps (kernel 1's)
         planes = empty(tris.shape[0], 4 * lib.alvrl_plane_f4())
         err = lib.alvrl_vrl_sum_bwd(
-            *head, *uni, planes.data_ptr() if tris.shape[0] else None, *tail,
-            stream)
+            *head, int(medium.shape[0] > pk.MED_LEN), *uni,
+            planes.data_ptr() if tris.shape[0] else None, *tail, stream)
     else:
         d_density = torch.empty_like(grid[0])
-        err = lib.alvrl_vrl_sum_hetero_bwd(*head, *vs.grid_args(*grid), *uni,
-                                           *tail, d_density.data_ptr(), stream)
+        err = lib.alvrl_vrl_sum_hetero_bwd(
+            *head, *vs.grid_args(*grid), int(pk.is_trilinear(medium)), *uni,
+            *tail, d_density.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("vrl_sum_bwd kernel launch failed: CUDA error "
                            f"{err} ({lib.alvrl_error_string(err).decode()})")
@@ -255,15 +305,16 @@ def _check_gbar(rays, gbar):
 
 
 def _bwd(fn, rays, vrls, tris, medium, gbar, seed, uniforms, svv, svs,
-         short_vrls, phase_kind, grid):
+         short_vrls, phase_kind, grid, materials=None):
     """The wrappers' body: checks, then the plain version on the CPU or
-    the kernel on the card, counting its launch on `fn`."""
+    the kernel on the card, counting its launch (and form) on `fn`."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              grid=grid)
+              grid=grid, materials=materials)
     _check_gbar(rays, gbar)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     kw = dict(vol_vol_samples=svv, vol_surf_samples=svs,
-              short_vrls=short_vrls, phase_kind=phase_kind)
+              short_vrls=short_vrls, phase_kind=phase_kind,
+              materials=materials)
     if rays.device.type == "cpu":
         if uniforms is None:
             uniforms = vs.philox_uniforms(seed, n_rays, n_vrls, 2 * svv + svs)
@@ -277,11 +328,11 @@ def _bwd(fn, rays, vrls, tris, medium, gbar, seed, uniforms, svv, svs,
     if tris.shape[0] > lib.alvrl_max_tris():
         raise ValueError(f"{tris.shape[0]} triangles exceed the kernel's "
                          f"shared-memory cap of {lib.alvrl_max_tris()}")
+    vs.check_mats_cap(lib, materials)
     if n_rays == 0 or n_vrls == 0:
         f32 = dict(dtype=torch.float32, device=rays.device)
         out = (torch.zeros((3, n_vrls), **f32),
-               torch.zeros((N_PAR if grid is None else pk.GRID_MED_LEN,),
-                           **f32),
+               torch.zeros((_n_par(medium, grid),), **f32),
                torch.zeros((3, n_rays), **f32))
         if grid is None:
             return out
@@ -289,54 +340,76 @@ def _bwd(fn, rays, vrls, tris, medium, gbar, seed, uniforms, svv, svs,
                 torch.zeros((N_OD, n_vrls), **f32), torch.zeros_like(grid[0]))
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, gbar, uniforms, seed,
-                      svv, svs, short_vrls, phase_kind, grid)
-    fn.launches += 1
+                      svv, svs, short_vrls, phase_kind, grid, materials)
+    vs.count_launch(fn, grid, medium, materials)
     return out
 
 
 def vrl_sum_bwd(rays, vrls, tris, medium, gbar, *, seed=0, uniforms=None,
                 vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                phase_kind=ph.HG):
-    """(d_power (3, N), d_par (8,), d_tau (3, B)): the VJP of
-    ops.vrl_sum.vrl_sum at the output cotangent gbar (3, B), float32 and
-    contiguous like the packs, on the same samples as the forward of the
-    same seed (or uniforms). CUDA tensors go through the CUDA kernel,
-    CPU tensors through vrl_sum_bwd_reference."""
+                phase_kind=ph.HG, materials=None):
+    """(d_power (3, N), d_par (8,, or MED_RHO + 1 for the extended
+    pack), d_tau (3, B)): the VJP of ops.vrl_sum.vrl_sum at the output
+    cotangent gbar (3, B), float32 and contiguous like the packs, on the
+    same samples as the forward of the same seed (or uniforms), with
+    vrl_sum's `materials`. CUDA tensors go through the CUDA kernel (its
+    material forms counted on vrl_sum_bwd.mat_launches, its extended
+    ones on vrl_sum_bwd.mix_launches), CPU tensors through
+    vrl_sum_bwd_reference."""
     return _bwd(vrl_sum_bwd, rays, vrls, tris, medium, gbar, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
-                None)
+                None, materials)
 
 
 vrl_sum_bwd.launches = 0  # kernel launches, for showing that a run used it
+vrl_sum_bwd.mat_launches = 0  # of them, the material forms'
+vrl_sum_bwd.mix_launches = 0  # of them, the extended forms'
 
 
 def vrl_sum_hetero_bwd(rays, vrls, tris, medium, density, gbar, *, seed=0,
                        uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
-                       short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                       short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                       materials=None):
     """(d_power (3, N), d_par (GRID_MED_LEN,), d_tau (3, B), d_eod
     (NQ + 1, B), d_vod (NQ + 1, N), d_density (the density's shape)):
     the VJP of ops.vrl_sum.vrl_sum_hetero at the output cotangent gbar
     (3, B), on the same samples as the forward of the same seed (or
-    uniforms). CUDA tensors go through the grid instantiation of the
-    CUDA kernel (a launch of its own, counted here; 4 steps, every
-    caller's, the one compiled for 4, any other count the generic one),
-    CPU tensors through vrl_sum_hetero_bwd_reference. d_power and d_vod
-    are summed over the ray blocks in float64 (ROADMAP C12)."""
+    uniforms), in either read and with vrl_sum_hetero's `materials`.
+    CUDA tensors go through the grid instantiation of the CUDA kernel (a
+    launch of its own, counted here; the nearest diffuse form at 4
+    steps, every caller's, is the one compiled for 4, any other count
+    and the trilinear and material forms the generic one; counted on
+    vrl_sum_hetero_bwd.tri_launches and .mat_launches too), CPU tensors
+    through vrl_sum_hetero_bwd_reference. d_power and d_vod are summed
+    over the ray blocks in float64 (ROADMAP C12)."""
     return _bwd(vrl_sum_hetero_bwd, rays, vrls, tris, medium, gbar, seed,
                 uniforms, vol_vol_samples, vol_surf_samples, short_vrls,
-                phase_kind, (density, uv_steps))
+                phase_kind, (density, uv_steps), materials)
 
 
 vrl_sum_hetero_bwd.launches = 0  # kernel launches, as vrl_sum_bwd.launches
+vrl_sum_hetero_bwd.tri_launches = 0  # of them, the trilinear forms'
+vrl_sum_hetero_bwd.mat_launches = 0  # of them, the material forms'
 
 
 # ---------------------------------------------------------------------------
 # Differentiable sums
 # ---------------------------------------------------------------------------
 
+def medium_cot(medium, d_par):
+    """The medium pack's cotangent from d_par (the pack's leading
+    entries; 0 beyond: the mixture's components, the trilinear tag)."""
+    if d_par.shape[0] == medium.shape[0]:
+        return d_par
+    d_med = torch.zeros_like(medium)
+    d_med[:d_par.shape[0]] = d_par
+    return d_med
+
+
 class _VRLSumDiff(torch.autograd.Function):
     """vrl_sum (density None) or vrl_sum_hetero (density the supersampled
-    grid), with their backward wrappers as the VJP."""
+    grid, or the density of the trilinear pack), with their backward
+    wrappers as the VJP."""
 
     @staticmethod
     def forward(ctx, rays, vrls, tris, medium, density, uniforms, kw):
@@ -367,37 +440,38 @@ class _VRLSumDiff(torch.autograd.Function):
         d_rays[pk.TAU:pk.TAU + 3] = d_tau
         d_vrls[pk.VP:pk.VP + 3] = d_power
         # d_par is 0 at the entries the sums are not differentiated in
-        # (the sampling weight; the box and index entries): it is the
-        # medium pack's cotangent as it stands
-        return d_rays, d_vrls, None, d_par, d_density, None, None
+        # (the sampling weight; the box and index entries)
+        return (d_rays, d_vrls, None, medium_cot(medium, d_par), d_density,
+                None, None)
 
 
 def vrl_sum_diff(rays, vrls, tris, medium, *, seed=0, uniforms=None,
                  vol_vol_samples=2, vol_surf_samples=2, short_vrls=True,
-                 phase_kind=ph.HG):
+                 phase_kind=ph.HG, materials=None):
     """ops.vrl_sum.vrl_sum, differentiable in the VP rows of `vrls`, the
-    TAU rows of `rays` and medium[0:7] through vrl_sum_bwd (the seed-
-    replay VJP); the other rows and the triangles get no gradient (the
-    detached-geometry contract of the reference's vrl_sum_diff)."""
+    TAU rows of `rays`, medium[0:7] and, in the extended pack, the rate
+    medium[MED_RHO], through vrl_sum_bwd (the seed-replay VJP); the
+    other rows and the triangles get no gradient (the detached-geometry
+    contract of the reference's vrl_sum_diff), nor does the material
+    pack, `materials` (vrl_sum's)."""
     kw = dict(seed=seed, vol_vol_samples=vol_vol_samples,
               vol_surf_samples=vol_surf_samples, short_vrls=short_vrls,
-              phase_kind=phase_kind)
+              phase_kind=phase_kind, materials=materials)
     return _VRLSumDiff.apply(rays, vrls, tris, medium, None, uniforms, kw)
 
 
 def vrl_sum_hetero_diff(rays, vrls, tris, medium, density, *, seed=0,
                         uniforms=None, vol_vol_samples=2, vol_surf_samples=2,
-                        short_vrls=True, phase_kind=ph.HG, uv_steps=4):
+                        short_vrls=True, phase_kind=ph.HG, uv_steps=4,
+                        materials=None):
     """ops.vrl_sum.vrl_sum_hetero, differentiable through
     vrl_sum_hetero_bwd in the VP and VOD rows of `vrls`, the TAU and EOD
-    rows of `rays`, the medium pack's GRID_PAR entries and the
-    supersampled density; the geometry rows, the box and index entries
-    and the triangles get no gradient (the reference's detached-
-    geometry contract). The trilinear medium pack (fast_tau False) is
-    refused (vs.TRI_REFUSAL, ROADMAP A14)."""
-    if pk.is_trilinear(medium):
-        raise ValueError(vs.TRI_REFUSAL)
+    rows of `rays`, the medium pack's GRID_PAR entries and the density
+    (the supersample, or the trilinear pack's density itself); the
+    geometry rows, the box and index entries, the triangles and the
+    material pack, `materials`, get no gradient (the reference's
+    detached-geometry contract)."""
     kw = dict(seed=seed, vol_vol_samples=vol_vol_samples,
               vol_surf_samples=vol_surf_samples, short_vrls=short_vrls,
-              phase_kind=phase_kind, uv_steps=uv_steps)
+              phase_kind=phase_kind, uv_steps=uv_steps, materials=materials)
     return _VRLSumDiff.apply(rays, vrls, tris, medium, density, uniforms, kw)

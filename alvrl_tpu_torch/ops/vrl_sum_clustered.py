@@ -222,8 +222,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              n_cols=table_ids.shape[1], grid=grid, materials=materials,
-              extended_ok=True, trilinear_ok=True)
+              n_cols=table_ids.shape[1], grid=grid, materials=materials)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     checking = mode == vs.MODE_CHECK

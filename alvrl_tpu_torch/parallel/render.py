@@ -7,7 +7,13 @@ pair (ops.vrl_sum forward, ops.vrl_sum_bwd seed-replay backward), take
 an L2 image loss, and return its gradients in the medium coefficients
 and the emitter intensities, the parameters BASELINE asks gradients
 for. Differentiation goes through the tracer's throughput factors;
-sampled positions are detached (the detached-sampling estimator).
+sampled positions are detached (the detached-sampling estimator). Every
+homogeneous scene the forward renders is differentiated: a glossy or
+layered table (the backward kernels' material forms; the material's own
+parameters are constants, as in the JAX package's XLA route,
+alvrl_tpu/parallel/render.py:217-222), a mixture phase (whose components
+are constants, so g's gradient is 0) and a strategy other than balance
+(its rate chaining to sigma_t).
 """
 
 from __future__ import annotations
@@ -19,7 +25,6 @@ import torch
 from alvrl_tpu_torch.integrators.vrl import tracer as tracer_mod
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.integrator import (
-    refuse_glossy,
     render_with_vrls_kernel_diff,
 )
 from alvrl_tpu_torch.scene.scene import Scene
@@ -46,10 +51,7 @@ def train_step(scene: Scene, generator, target, cfg: VRLConfig,
     The tracer's uniforms, then the render's seed, are drawn from
     `generator`. tracer_uniforms, a (u_emit, u_walk) pair for
     tracer.trace_u, and render_uniforms, as render_with_vrls_kernel's
-    `uniforms`, replace them (for exact checks). A glossy or layered
-    table is refused before the trace, in either medium (the backward
-    kernels' material forms: ROADMAP A12)."""
-    refuse_glossy(scene, "the train step's render (kernels 8 and 9)")
+    `uniforms`, replace them (for exact checks)."""
     if tracer_cfg is None:
         tracer_cfg = tracer_mod.TracerConfig(max_depth=4)
     params = {

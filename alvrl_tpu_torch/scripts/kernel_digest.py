@@ -14,10 +14,19 @@ vrl_r_hetero; their nearest forms, HG short VRLs, 4 U-V steps) on config
 its index * 100 // (512 * 512), kernel 6 on 271 seeded rays. With --bvh,
 kernel 7 (vrl_sum_bvh; HG and Rayleigh, short and long VRLs) on the
 15,984-triangle cube field of scripts/bench_bvh_large.py (64x64 eye rays
-x its 256 traced VRL slots). The same outputs bit for bit give the same
-digests, so that two trees of the package are compared on one card:
+x its 256 traced VRL slots). With --bwd, the backward kernels 8-11
+(vrl_sum_bwd, vrl_sum_hetero_bwd, vrl_sum_clustered_bwd,
+vrl_sum_hetero_clustered_bwd; their diffuse forms) at a seeded output
+cotangent: kernels 8 and 10 on config 1's packs (HG short VRLs on
+injected uniforms and on the Philox stream, Rayleigh and long VRLs on
+injected uniforms; kernel 10 on the seeded table), kernels 9 and 11 on
+config 4's (the nearest read at 4 steps and at 3, the generic
+instantiation, on the Philox stream); every output but d_density, whose
+atomic adds vary in order between runs. The same outputs bit for bit
+give the same digests, so that two trees of the package are compared on
+one card:
 
-    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all | --grid | --bvh]
+    python alvrl_tpu_torch/scripts/kernel_digest.py [--root DIR] [--all | --grid | --bvh | --bwd]
 
 imports alvrl_tpu_torch from DIR (another tree's root; this tree's by
 default) and prints one JSON object of the digests, the card's name and
@@ -184,6 +193,74 @@ def bvh_digests(device="cuda"):
                                         short_vrls=False)})
 
 
+def bwd_digests(device="cuda"):
+    """{output: sha256} of the backward kernels' diffuse forms (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from alvrl_tpu_torch.integrators.vrl import integrator, vrl
+    from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
+    from alvrl_tpu_torch.ops import vrl_sum_clustered_bwd as cb
+    from alvrl_tpu_torch.scene import presets
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["alvrl_tpu_torch"].__file__)))
+    vrls = vrl.compact(vrl.load_ascii(
+        os.path.join(root, "data", "bench_vrls.txt"), particle_count=78.0,
+        device=device), 512)
+    rng = np.random.default_rng(20)
+    out = {}
+
+    def gbar(n):
+        return torch.as_tensor(rng.uniform(0.5, 1.5, (3, n)).astype(
+            np.float32), device=device)
+
+    def table(n_rays):
+        ids = torch.as_tensor(rng.integers(0, 512, (N_SLICES, N_COLS)),
+                              dtype=torch.int32, device=device)
+        w = torch.as_tensor(rng.uniform(0.0, 2.0, (N_SLICES, N_COLS)),
+                            dtype=torch.float32, device=device)
+        return (np.arange(n_rays, dtype=np.int64) * N_SLICES
+                // n_rays).astype(np.int32), ids, w
+
+    def put(name, outs, skip=()):
+        for i, o in enumerate(outs):
+            if i not in skip:
+                out[f"{name} {i}"] = o
+
+    packs = integrator.pack_frame(presets.cornell_smoke(
+        128, 128, device=device), vrls)[3]
+    n_rays = packs[0].shape[1]
+    u = torch.as_tensor(rng.random((n_rays, 512, 6), dtype=np.float32),
+                        device=device)
+    g1 = gbar(n_rays)
+    sl, ids, w = table(n_rays)
+    forms = {"injected": dict(uniforms=u), "philox": dict(seed=SEED),
+             "rayleigh": dict(uniforms=u, phase_kind=1),
+             "long": dict(uniforms=u, short_vrls=False)}
+    for name, kw in forms.items():
+        put(f"vrl_sum_bwd {name}", bwd.vrl_sum_bwd(*packs, g1, **kw))
+        if "uniforms" in kw:
+            kw = dict(kw, uniforms=u[:, :N_COLS].contiguous())
+        put(f"vrl_sum_clustered_bwd {name}",
+            cb.vrl_sum_clustered_bwd(*packs, sl, ids, w, g1, **kw))
+    del u
+    packs = integrator.pack_frame(presets.cornell_grid_smoke(
+        GRID_SIZE, GRID_SIZE, grid_res=GRID_RES, device=device), vrls)[3]
+    n_rays = packs[0].shape[1]
+    g4 = gbar(n_rays)
+    sl, ids, w = table(n_rays)
+    for steps in (4, 3):
+        kw = dict(seed=SEED, uv_steps=steps)
+        put(f"vrl_sum_hetero_bwd uv{steps}",
+            bwd.vrl_sum_hetero_bwd(*packs, g4, **kw), skip=(5,))
+        put(f"vrl_sum_hetero_clustered_bwd uv{steps}",
+            cb.vrl_sum_hetero_clustered_bwd(*packs, sl, ids, w, g4, **kw),
+            skip=(5,))
+    return _digests(out)
+
+
 def _digests(out):
     import torch
 
@@ -205,6 +282,8 @@ def main():
                        help="the grid kernels 3, 4 and 6 on config 4")
     forms.add_argument("--bvh", action="store_true",
                        help="kernel 7 on the cube field")
+    forms.add_argument("--bwd", action="store_true",
+                       help="the backward kernels 8-11")
     args = ap.parse_args()
     root = os.path.abspath(args.root) if args.root else os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -221,6 +300,8 @@ def main():
         digests = grid_digests()
     elif args.bvh:
         digests = bvh_digests()
+    elif args.bwd:
+        digests = bwd_digests()
     else:
         digests = kernel_digests(every_form=args.all)
     print(json.dumps({"root": root, "card": card, "digests": digests}))

@@ -17,10 +17,14 @@ detached-sampling contract). The retrace swaps the density through
 media.heterogeneous.with_density, which recomputes the Woodcock
 majorant; the reference keeps the true density's (ROADMAP C11). Every
 random stream comes from an explicit torch.Generator seeded as the
-reference seeds its keys.
+reference seeds its keys. With --trilinear the medium is fast_tau
+False: its quadratures read the density itself trilinearly (the grid
+kernels' trilinear forms, kernel 9's in the backward), with no
+upsample2 in the chain.
 
     python -m alvrl_tpu_torch.scripts.recover_density [--steps N]
-        [--res R] [--size S] [--out result.json] [--device cuda|cpu]
+        [--res R] [--size S] [--trilinear] [--out result.json]
+        [--device cuda|cpu]
 
 prints per-step progress on stderr and one JSON line of results.
 """
@@ -114,15 +118,18 @@ class Recovery:
         return torch.exp(self.theta)
 
 
-def setup(res=16, size=64, steps=200, lr=0.1, smooth=2e-3, device="cuda"):
+def setup(res=16, size=64, steps=200, lr=0.1, smooth=2e-3, device="cuda",
+          fast_tau=True):
     """The true scene (presets.cornell_grid_smoke at size x size with a
-    res^3 grid), the four views and their targets (each the mean of
+    res^3 grid; fast_tau False: its trilinear read), the four views and
+    their targets (each the mean of
     N_TARGET_PASSES renders, pass p of view vi with VRLs traced from
     seed 1000 + p and the render seed drawn from seed 2000 + 10 vi + p),
     and theta at the log of the true density's mean everywhere."""
     cfg = VRLConfig(vol_vol_samples=2, vol_surf_samples=2)
     base = presets.cornell_grid_smoke(width=size, height=size, grid_res=res,
                                       device=device)
+    base = replace(base, medium=replace(base.medium, fast_tau=fast_tau))
     scenes = [replace(base, camera=c) for c in make_views(size, size, device)]
     targets = []
     with torch.no_grad():
@@ -211,6 +218,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--smooth", type=float, default=2e-3,
                     help="Dirichlet (squared-difference) smoothness weight")
+    ap.add_argument("--trilinear", action="store_true",
+                    help="a medium of fast_tau False (the trilinear read)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -218,7 +227,7 @@ def main(argv=None):
     print("rendering targets...", file=sys.stderr)
     t0 = time.perf_counter()
     state = setup(args.res, args.size, args.steps, args.lr, args.smooth,
-                  args.device)
+                  args.device, fast_tau=not args.trilinear)
     _sync(args.device)
     print(f"targets in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     truth = state.medium.density
@@ -239,6 +248,7 @@ def main(argv=None):
     wall = time.perf_counter() - t_start
     result = dict(
         steps=args.steps, res=args.res, size=args.size, views=4,
+        trilinear=args.trilinear,
         n_vrls=N_VRLS, device=str(args.device), init_rel_err=init_rel,
         final_rel_err=rel_err(state.density, truth),
         final_corr=corr(state.density, truth),

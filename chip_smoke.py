@@ -321,9 +321,23 @@ Phases, one line each; any failure exits non-zero:
      Kajiya-Kay one (the quadrature sampler), finite and non-zero; the
      VRL render of config 4's plume from VRLs traced with sampling=1
      against those of Woodcock tracking, image means over QUAD_SEEDS
-     seeds within z < 4; the refusals of an oriented medium by
-     render_with_vrls_kernel and of fast_tau=False by
-     render_with_vrls_kernel_diff (ROADMAP A14).
+     seeds within z < 4; the refusal of an oriented medium by
+     render_with_vrls_kernel, and render_with_vrls_kernel_diff on the
+     fast_tau=False medium (kernel 9's trilinear form, counted).
+ 48. the material forms of kernels 3, 4 and 6 on the glossy grid scene
+     and kernel 7's material and extended forms on the cube field, kind
+     by kind, their launches, times, bounds and the CLI.
+ 49. the new forms of the backward kernels 8-11 (material, extended:
+     the mixture and the strategies' rate, trilinear, and their pairs)
+     against their plain versions in float32 and float64 on samples of
+     their main paths' rays, every eye-hit kind alone for the material
+     forms, repeats bit-identical but d_density; the main paths (the
+     train step on cornell_glossy and in the mixture + single medium at
+     phase 8's shape, render_with_vrls_kernel_diff at full config 4 with
+     fast_tau=False and on the glossy grid scene, render_clustered_
+     kernel_diff on config-2 and config-4 tables) with each form's launch
+     count, no plain call, against same-seed central differences; each
+     form's time beside the form it extends, registers and bounds.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -343,6 +357,7 @@ import sys
 import tempfile
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -615,7 +630,9 @@ def ptxas_summary(log):
     instantiations of kernels 1-7 (the grid ones, kernel 3's
     vrl_sum_mat_kernel among them, at the run-time step count, "tri" for
     the trilinear read); kernel 7's counting instantiation, "ext" for its
-    forms on the extended medium pack (vrl_sum_bvh_ext_kernel)."""
+    forms on the extended medium pack (vrl_sum_bvh_ext_kernel); and the
+    VJPs' forms: "ext" (the extended medium pack), "tri" and "mat" of
+    kernels 8-11."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -641,8 +658,12 @@ def ptxas_summary(log):
                               + (["mat"] if rest[1] else []))
                 elif kernel == "vrl_sum_bvh_kernel":
                     label += ["count"] if rest and rest[0] else []
+                elif kernel == "vrl_sum_clustered_bwd_warps_kernel":
+                    # <.., mode, ext, material>
+                    label.append(PLANE_MODE[rest[0]])
+                    label += [t for t, on in zip(("ext", "mat"), rest[1:])
+                              if on]
                 elif kernel in ("vrl_sum_plane_kernel",
-                                "vrl_sum_clustered_bwd_warps_kernel",
                                 "vrl_sum_clustered_warps_kernel"):
                     label.append(PLANE_MODE[rest[0]])
                     if len(rest) > 1 and rest[1]:  # the material one
@@ -664,6 +685,12 @@ def ptxas_summary(log):
                     if kernel in ("vrl_r_kernel", "vrl_sum_clustered_kernel") \
                             and len(rest) > tri_at and rest[tri_at]:
                         label.append("tri")
+                    # the VJPs' forms: <.., ext, tri, material> and
+                    # <.., tri, material>
+                    forms = {"vrl_sum_bwd_kernel": ("ext", "tri", "mat"),
+                             "vrl_sum_clustered_bwd_kernel": ("tri", "mat")}
+                    label += [t for t, on in zip(forms.get(kernel, ()),
+                                                 rest[2:]) if on]
                 name = f"{kernel}<{','.join(label)}>"
             spill = "0"
         elif name and "spill stores" in line:
@@ -717,7 +744,8 @@ def plain_backward():
     kernel = bwd.vrl_sum_bwd
 
     def plain(rays, vrls, tris, medium, gbar, *, seed, uniforms,
-              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind):
+              vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
+              materials=None):
         if uniforms is None:
             uniforms = philox_uniforms(
                 seed, rays.shape[1], vrls.shape[1],
@@ -726,7 +754,7 @@ def plain_backward():
             rays, vrls, tris, medium, gbar, uniforms,
             vol_vol_samples=vol_vol_samples,
             vol_surf_samples=vol_surf_samples, short_vrls=short_vrls,
-            phase_kind=phase_kind)
+            phase_kind=phase_kind, materials=materials)
 
     bwd.vrl_sum_bwd = plain
     try:
@@ -3109,11 +3137,12 @@ DRIVER_PASSES, DRIVER_REPEATS = 4, 2
 
 
 @contextlib.contextmanager
-def plain_calls():
-    """Count the calls of the kernels' plain versions: yields a list whose
-    one element is the count."""
+def plain_calls(extra=()):
+    """Count the calls of the kernels' plain versions (and of the `extra`
+    (module, name) functions): yields a list whose one element is the
+    count."""
     count, saved = [0], []
-    for mod, name in PLAIN_VERSIONS:
+    for mod, name in [*PLAIN_VERSIONS, *extra]:
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -5553,11 +5582,7 @@ def grid_options(dev, card, cfg, c4):
             ("an oriented medium in render_with_vrls_kernel", lambda: (
                 integrator.render_with_vrls_kernel(
                     oriented_scene(scene, ph.MICROFLAKE, 0, dev), vrls,
-                    torch.Generator(), cfg)), "only volpath"),
-            ("fast_tau=False in render_with_vrls_kernel_diff", lambda: (
-                integrator.render_with_vrls_kernel_diff(
-                    tri_scene, vrls, torch.Generator(), cfg)),
-             "ROADMAP A14")):
+                    torch.Generator(), cfg)), "only volpath"),):
         try:
             fn()
         except ValueError as e:
@@ -5565,13 +5590,28 @@ def grid_options(dev, card, cfg, c4):
             refusals.append(f"{what}: ValueError ({item})")
         else:
             check(False, f"{what} was not refused")
+    # the trilinear medium's differentiable render: kernel 9's trilinear
+    # form (phase 49 holds it)
+    bwd.vrl_sum_hetero_bwd.launches = bwd.vrl_sum_hetero_bwd.tri_launches = 0
+    dens = tri_scene.medium.density.clone().requires_grad_()
+    img = integrator.render_with_vrls_kernel_diff(
+        replace(tri_scene, medium=gmed.with_density(tri_scene.medium, dens)),
+        vrls, torch.Generator(), cfg)
+    (g_dens,) = torch.autograd.grad(img.sum(), dens)
+    check(bwd.vrl_sum_hetero_bwd.tri_launches == 1
+          and bool(torch.isfinite(g_dens).all())
+          and float(g_dens.abs().max()) > 0.0,
+          "fast_tau=False in render_with_vrls_kernel_diff: kernel 9's "
+          "trilinear form")
+    refusals.append("fast_tau=False in render_with_vrls_kernel_diff: "
+                    "kernel 9's trilinear form, 1 launch, d density finite")
     print(f"[47 oriented media and the quadrature sampler on {card}] volpath "
           f"on config 4's plume at {ORIENT_RES}^3 with a swirl of fibers, "
           f"{ORIENT_SIZE}x{ORIENT_SIZE}, {ORIENT_SPP} spp, depth "
           f"{ORIENT_DEPTH}: " + "; ".join(orient) + f" | the VRL render of "
           f"config 4's plume at {QUAD_SIZE}x{QUAD_SIZE} from VRLs of each "
           f"sampler, {QUAD_SEEDS} seeds: Woodcock mean {mw.mean():.6f}, "
-          f"sampling=1 {mq.mean():.6f}, z {z:.2f} | refusals: "
+          f"sampling=1 {mq.mean():.6f}, z {z:.2f} | refusals and routes: "
           + "; ".join(refusals) + f" | {time.perf_counter() - t47:.1f} s",
           flush=True)
 
@@ -6061,6 +6101,761 @@ def glossy_field_forms(dev, card, table):
     return {"entries": entries, "field": field}
 
 
+# phase 49: the gradient of every scene the forward renders: the new
+# forms of the backward kernels 8-11. 8m and 10m are the material forms
+# (cornell_glossy's table), 8x and 10x the extended ones (config 1's box in
+# phase 43's mixture + single medium, MIX_PHASE and SKY_SIGMA_S), 8mx and
+# 10mx both; 9m and 11m the grid material forms (phase 48's glossy grid
+# scene), 9t and 11t the trilinear ones (config 4's medium of fast_tau
+# False), 9tm and 11tm both. Each form is launched on its main path's
+# inputs (the whole frame, the VRLs, the main path's tables) and held
+# against its plain version on a seeded sample of the frame's rays, as
+# phase 7 holds kernel 8 (every kind's rays alone for the material
+# forms); the main paths (the train step at phase 8's shape, the
+# differentiable unclustered render at full config 4, the differentiable
+# clustered render on config 2's and config 4's tables) are held against
+# same-seed central differences
+GF_SEED = 20261020
+GF_HOLD_RAYS = 2048  # the rays of each hold: a seeded sample of the frame
+GF_KIND_MIN = 48     # of them, at least this many at each glossy kind
+# a grid form's per-VRL sums (d_power, d_vod) over the held rays are held
+# against the float64 plain version at the homogeneous bar, or, where
+# the float32 plain version misses it too (ROADMAP C12: float32 sums of
+# terms of both signs), no further from float64 than that version, at
+# the homogeneous bar's share and under this multiple of HOMOG_MEDIAN
+C12_CEILING = 10
+GF_START = 1.25      # the steps' sigma_s (homogeneous) or density, x preset
+# the new forms: (name, source, the TPU kernel it replaces, the form whose
+# time it is held beside)
+GF_FORMS = {
+    "8m": ("vrl_sum_bwd material", "vrl_sum_bwd.cu", 845, "8"),
+    "8x": ("vrl_sum_bwd extended (mixture, strategy)", "vrl_sum_bwd.cu",
+           845, "8"),
+    "8mx": ("vrl_sum_bwd material extended", "vrl_sum_bwd.cu", 845, "8m"),
+    "9m": ("vrl_sum_hetero_bwd material", "vrl_sum_bwd.cu", 924, "9"),
+    "9t": ("vrl_sum_hetero_bwd trilinear", "vrl_sum_bwd.cu", 924, "9"),
+    "9tm": ("vrl_sum_hetero_bwd material trilinear", "vrl_sum_bwd.cu", 924,
+            "9t"),
+    "10m": ("vrl_sum_clustered_bwd material", "vrl_sum_clustered_bwd.cu",
+            1046, "10"),
+    "10x": ("vrl_sum_clustered_bwd extended (mixture, strategy)",
+            "vrl_sum_clustered_bwd.cu", 1046, "10"),
+    "10mx": ("vrl_sum_clustered_bwd material extended",
+             "vrl_sum_clustered_bwd.cu", 1046, "10m"),
+    "11m": ("vrl_sum_hetero_clustered_bwd material",
+            "vrl_sum_clustered_bwd.cu", 1130, "11"),
+    "11t": ("vrl_sum_hetero_clustered_bwd trilinear",
+            "vrl_sum_clustered_bwd.cu", 1130, "11"),
+    "11tm": ("vrl_sum_hetero_clustered_bwd material trilinear",
+             "vrl_sum_clustered_bwd.cu", 1130, "11t"),
+}
+
+# the outputs of the backward kernels' diffuse forms (kernel_digest.py
+# --bwd, on the parent tree; NVIDIA H100 80GB HBM3, 700.00 W): d_density
+# aside, this run's must be equal
+PARENT_DIGESTS_BWD = {
+    "vrl_sum_bwd injected 0":
+        "1ff3a375a8a09e9a6b9178a9f7463c11576ac6887aca6d0bcd0cbc430c3c2fcf",
+    "vrl_sum_bwd injected 1":
+        "36e97d55e33dc597e35c2398699dde3e71d8b64fe49b95e0be4b42133fd5279f",
+    "vrl_sum_bwd injected 2":
+        "52fcc8cacea532b83b8c28107f33b024aa75d8f6e1751685eeca76469c6f7d58",
+    "vrl_sum_clustered_bwd injected 0":
+        "b9ffd55095cc3f873517c7ca329b592823deae630a7428b678ec54b599cdd3b2",
+    "vrl_sum_clustered_bwd injected 1":
+        "0128b3ed22c4d7a943666575490d609f642a8a076ba608457a8669be21f7eb03",
+    "vrl_sum_clustered_bwd injected 2":
+        "81167d01390ec1d600792766d46a31bc137f81385cecc773c632165c0dbe846f",
+    "vrl_sum_clustered_bwd injected 3":
+        "c7ea02727886f019049f40bdc50d6a69e77161279c4e60f653ff41ea0b278f59",
+    "vrl_sum_bwd philox 0":
+        "5939c44b95d4cde53f27a85d5590e35458b51ad997709014ca82633f215ac168",
+    "vrl_sum_bwd philox 1":
+        "1c10e16e7be4713e5ba9dec2d14c57a92ba0011ea611f01881b08d561984ff64",
+    "vrl_sum_bwd philox 2":
+        "03eacc4aba60f3c7159335ba3ddbaefbbc893a6dccd601853630f37527870c6f",
+    "vrl_sum_clustered_bwd philox 0":
+        "70ddc5ecd5ba9fdb3c212fc2fd355213192e0e020c231f9948f8a57ee228f083",
+    "vrl_sum_clustered_bwd philox 1":
+        "d2b161e296cc0b42de23ef69baedf8a5d986d82452bfbc41dd82ea4f2a1c4596",
+    "vrl_sum_clustered_bwd philox 2":
+        "eecc46aa041a5f435bacdcad135a968ad2df7d6c37ae522a9ee9fbe6a6f5e782",
+    "vrl_sum_clustered_bwd philox 3":
+        "32269c37e21efc247649a66bd08e97ba9d8b6a4876b40aad812552cf8d5cee29",
+    "vrl_sum_bwd rayleigh 0":
+        "e5090674ddc77c590af9ca820221acc8aafadd6aa0a1af7c6fe7dba2dd987fec",
+    "vrl_sum_bwd rayleigh 1":
+        "8c9a987df0da174312bbcb7a52cb58e42f3b345669ee5d53b67f7e6e8fab36e7",
+    "vrl_sum_bwd rayleigh 2":
+        "1bd3dd56f8a4f8805e2898158772398fe88fcbf2a3af610b16042519c84c7fa0",
+    "vrl_sum_clustered_bwd rayleigh 0":
+        "a61589a2ef4119eca2c937bcdd8fcb037346505d1bdccc40ad1476c7a0bc1fb8",
+    "vrl_sum_clustered_bwd rayleigh 1":
+        "8da9f06d3288fd28d34451c40e3179d0c9313d9cc02592e6f391b7a25c6000e6",
+    "vrl_sum_clustered_bwd rayleigh 2":
+        "fbb9f61620c09b25df03744691ddc940645a62b7fc6eb8a9de7ab3cfd66cf937",
+    "vrl_sum_clustered_bwd rayleigh 3":
+        "7a425feca8c4fed071b1ee7c08b5e94f1c93abda59cd339664dcc0d45c010e90",
+    "vrl_sum_bwd long 0":
+        "4efe4ef5f75a216f652305e47ffe6e8c263538528054216739b4c05f177025c0",
+    "vrl_sum_bwd long 1":
+        "371cecf2d6ff44da4be9e899460d5fa76b44fd64129d3e08889156a8aa8e9e63",
+    "vrl_sum_bwd long 2":
+        "15c2b5a229d742a57eb5605ea747c298252b85ff3b654e5a1ab06be451bcc09e",
+    "vrl_sum_clustered_bwd long 0":
+        "b57d2fb134952e82a453bc9d23d4095a4fe2c88312d788a4bac72f4eaee96e54",
+    "vrl_sum_clustered_bwd long 1":
+        "8a77a9b1ad0009ef02428efc191c8d2a2b9ab62330ceb214d8aa9ca0bfba9961",
+    "vrl_sum_clustered_bwd long 2":
+        "d1e72847e1c104ab4506a0ec8e1fc15d3dfe69c1cafee20244d964221b42d790",
+    "vrl_sum_clustered_bwd long 3":
+        "5f9a0612c74c4c53de7521f6f1571620017e3a3d4453afd00f7884997bfb9b05",
+    "vrl_sum_hetero_bwd uv4 0":
+        "336d7dac6aba714418cfb8fedf27920b78905d8740eed4034a5f540dbf1fd654",
+    "vrl_sum_hetero_bwd uv4 1":
+        "b73ff5fa1eb668024814c5d89bbf3df8bb89e064233be65669f5d1e65ecc44cf",
+    "vrl_sum_hetero_bwd uv4 2":
+        "5917ec1f2d17cef4ad22b9c8b77653f0ce18258d74e6b3f4490e7ab94bb4dcb4",
+    "vrl_sum_hetero_bwd uv4 3":
+        "a6279591bcbf12cc568c7a6d5488aefb26f4b1d4eb48dd1a9e5836e75b1ace74",
+    "vrl_sum_hetero_bwd uv4 4":
+        "cc727aa93f28d6f46cc04a29ccd0635ad6d296a7d6e0c0dbaacda74b5fd6a791",
+    "vrl_sum_hetero_clustered_bwd uv4 0":
+        "658ec1e475d171cb7d9c1aea4e745848487def3f436439a1bd4ad678ab989359",
+    "vrl_sum_hetero_clustered_bwd uv4 1":
+        "98212bb04d57488390815cb68cd382718a4b21a766131189d765e45d97b20bce",
+    "vrl_sum_hetero_clustered_bwd uv4 2":
+        "126af2a9962b67ed9166756845f311ce6f752e06b9246554e52f19c9fe36fa52",
+    "vrl_sum_hetero_clustered_bwd uv4 3":
+        "94a64a8a760fd39f884d3b2b5cb80fb9c57a4202eb8b5e5741a4b98c93c1b193",
+    "vrl_sum_hetero_clustered_bwd uv4 4":
+        "2a63c68f11bdea8f35b7de85508b302cbd7e748586db408baca4902346c8ccab",
+    "vrl_sum_hetero_clustered_bwd uv4 6":
+        "1423be0bbe06aff117912062b2eae52fcc1445de1f71d36e01b20a4a1bc3f8f0",
+    "vrl_sum_hetero_bwd uv3 0":
+        "f25d7940aab46f429a055c8ac6a027380653ecee91b4a74a8bbe53aa0924bb30",
+    "vrl_sum_hetero_bwd uv3 1":
+        "4af5613673b6dac736e393bb67b975b734a7ba90376b01df7f745b5d95a7b9d7",
+    "vrl_sum_hetero_bwd uv3 2":
+        "2acc5459e8412f1b71370e19edbd8feb54ded27a47538f72cafd790610ca0d91",
+    "vrl_sum_hetero_bwd uv3 3":
+        "8fe435ee473285c347c28fd8b9f51d864f8fee19931afb80562e2ba60e28fcf7",
+    "vrl_sum_hetero_bwd uv3 4":
+        "6e9f4b7c71318c35f4ec6d4b48a64b0f43f49eaed1912dec468e18bcb584c4bc",
+    "vrl_sum_hetero_clustered_bwd uv3 0":
+        "8a4f0cfbde85457dacd2eebade504af93521a88f8f00f992b644497e597120fa",
+    "vrl_sum_hetero_clustered_bwd uv3 1":
+        "6538baca50f905cf7896cf7783194406362df5f5b5de51a65508f67617dcd326",
+    "vrl_sum_hetero_clustered_bwd uv3 2":
+        "37c5360aed41a24da2fd8b82de62e6ca2b6d807e4e32fb8dca5ae0322b5c2795",
+    "vrl_sum_hetero_clustered_bwd uv3 3":
+        "d7851199094b2e6f06ca48649513fb6d1a7596cd485fcbdc83788ad4f652411f",
+    "vrl_sum_hetero_clustered_bwd uv3 4":
+        "280330acf7adf8a5f6366e423c0c3f753271ec3083d03450fae71d650955d661",
+    "vrl_sum_hetero_clustered_bwd uv3 6":
+        "55bc6b26d1b58cf52abee2ef3ccae34f3edf257cb6b7c6f20d321a98547fc276",
+}
+
+
+def mix_scene(scene):
+    """`scene` in phase 43's mixture + single medium (channel 0)."""
+    med = scene.medium
+    sig_s = torch.tensor(SKY_SIGMA_S, device=scene.device)
+    comps = MIX_PHASE["components"]
+    mix = ph.mixture_params(
+        [c["weight"] for c in comps],
+        [ph.HG if c["type"] == "hg" else ph.RAYLEIGH for c in comps],
+        [c.get("g", 0.0) for c in comps], device=scene.device)
+    return replace(scene, medium=replace(
+        med, sigma_s=sig_s, sigma_a=torch.zeros_like(sig_s),
+        phase_kind=ph.MIXTURE, phase_params=mix, strategy=1, channel=0))
+
+
+def base_pack(packs):
+    """The packs with the medium pack cut to its base (MED_LEN,): the HG
+    balance form that an extended form extends."""
+    return (*packs[:3], packs[3][:pk.MED_LEN].contiguous(), *packs[4:])
+
+
+def gf_par_rows(medium, grid):
+    """d_par's live entries: sigma_t, sigma_s, g (and the rate of an
+    extended pack), or the grid's GRID_LIVE."""
+    if grid:
+        return GRID_LIVE
+    return list(range(7)) + ([pk.MED_RHO] if medium.shape[0] > pk.MED_LEN
+                             else [])
+
+
+def gf_check(label, out, ref, ref64, rows, grid, kind=None,
+             clustered=False):
+    """Hold one form's outputs on the held rays (out: the per-ray ones cut
+    to them) against the plain version's in float32 (ref) and float64
+    (ref64): d_par's live entries to PAR_RTOL or the plain version's own
+    float32 error; every per-ray and per-VRL output at the homogeneous
+    bar over its live items (in a grid medium the per-VRL sums d_power
+    and d_vod against ref64, C12_CEILING's rule), d_tau over each
+    eye-hit kind's rays alone with `kind`; the density's large voxels
+    likewise. Returns (a line, the largest absolute error)."""
+    names = (["d_power", "d_par", "d_tau"] + (["d_eod", "d_vod", "d_density"]
+                                              if grid else [])
+             + (["d_weights"] if clustered else []))
+    bars = []
+    for i, name in enumerate(names):
+        o, r = out[i], ref[i]
+        if name == "d_par":
+            for t in rows:
+                d, rf, r64 = float(o[t]), float(r[t]), float(ref64[i][t])
+                if rf == 0.0:
+                    check(d == 0.0, f"{label}: d_par[{t}] {d}, plain 0")
+                    continue
+                check(abs(d - rf) <= max(PAR_RTOL * abs(rf), abs(rf - r64)),
+                      f"{label}: d_par[{t}] {d}, plain {rf} (float64 {r64})")
+            check(all(float(o[t]) == 0.0 for t in range(o.shape[0])
+                      if t not in rows), f"{label}: d_par's dead entries")
+            continue
+        if name == "d_density":
+            d, rf = o.reshape(-1), r.reshape(-1)
+            nz = rf.abs() > VOXEL_FLOOR * float(rf.abs().max())
+            check(int(nz.sum()) > 100, f"{label}: {int(nz.sum())} voxels")
+            bar = homog_bar(d[nz][:, None], rf[nz][:, None], channels=1)
+        elif name == "d_weights":
+            bar = weights_bar(o, r)
+        elif grid and name in ("d_power", "d_vod"):
+            r64 = ref64[i].to(o.dtype)
+            oo, rr, pp = live(o, r64, r)
+            bar = homog_bar(oo.T, rr.T, channels=oo.shape[0])
+            if not (bar[0] < HOMOG_MEDIAN and bar[1] < HOMOG_SHARE):
+                own = homog_bar(pp.T, rr.T, channels=oo.shape[0])
+                check(bar[0] <= own[0] and bar[0] < C12_CEILING * HOMOG_MEDIAN
+                      and bar[1] < HOMOG_SHARE,
+                      f"{label}: {name} median {bar[0]}, share {bar[1]}; "
+                      f"the float32 plain version's {own}")
+                bars.append((f"{name} (float32 plain {own[0]:.2e}/"
+                             f"{own[1]:.4f})", bar))
+                continue
+        else:
+            oo, rr = live(o, r) if name == "d_power" else (o, r)
+            bar = homog_bar(oo.T, rr.T, channels=oo.shape[0])
+        check(bar[0] < HOMOG_MEDIAN and bar[1] < HOMOG_SHARE,
+              f"{label}: {name} median {bar[0]}, share {bar[1]}")
+        bars.append((name, bar))
+    line = ", ".join(f"{n} {m:.2e}/{s:.4f}" for n, (m, s) in bars)
+    if kind is not None:
+        groups = {k: v for k, v in homog_bar_by_kind(
+            out[2].T, ref[2].T, kind).items() if k in GLOSSY_KINDS}
+        check(set(groups) == GLOSSY_KINDS, f"{label}: kinds {sorted(groups)}")
+        for k, (n, median, share) in groups.items():
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"{label}: d_tau of kind {k} ({n} rays) median {median}, "
+                  f"share {share}")
+        line += "; d_tau by kind " + " ".join(
+            f"{k}:{n}:{m:.1e}/{s:.3f}" for k, (n, m, s) in groups.items())
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    return line, err
+
+
+def gf_hold(key, packs, mats, dev, rng, grid=False, tables=None, uv=4):
+    """Hold form `key` as its main path launches it: on the whole frame
+    (`packs`, the main path's `tables`), with the output cotangent gbar 0
+    off a seeded sample of GF_HOLD_RAYS rays, so that the sums over rays
+    (d_power, d_par, d_vod, d_density, d_weights) are the sample's,
+    which the plain versions (in float32, sweeps counted, and in float64)
+    compute on the sample's rays alone with their frame indices'
+    uniforms; the per-ray outputs are 0 off the sample, and a repeat is
+    bit-identical but d_density (DENSITY_REPEAT). Returns a dict of its
+    line, error, plain ms, the sample's sweep and its share of the frame,
+    the checking launch's counts on the frame, and what the timing
+    needs (a gbar of the whole frame)."""
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    pick = torch.as_tensor(np.sort(rng.choice(n_rays, GF_HOLD_RAYS,
+                                              replace=False)), device=dev)
+    gbar = torch.as_tensor(rng.uniform(0.5, 1.5, (3, n_rays)).astype(
+        np.float32), device=dev)
+    gbar_s = torch.zeros_like(gbar)
+    gbar_s[:, pick] = gbar[:, pick]
+    sub = (packs[0][:, pick].contiguous(), *packs[1:])
+    phase = ph.MIXTURE if (not grid and packs[3].shape[0] > pk.MED_LEN
+                           and int(packs[3][pk.MED_K]) > 0) else 0
+    kw = dict(phase_kind=phase, **({} if mats is None else
+                                   {"materials": mats}))
+    if grid:
+        kw["uv_steps"] = uv
+    kind = None
+    if mats is not None:
+        mat = sub[0][pk.GRID_MATID if grid else pk.MATID].long()
+        kind = mats[0][mat, pk.MT_KIND].long()
+        smooth = mats[0][mat, pk.MT_SMOOTH] > 0.5
+        per_kind = {k: int((kind == k).sum()) for k in GLOSSY_KINDS}
+        check(min(per_kind.values()) >= GF_KIND_MIN,
+              f"{key}: held rays by kind {per_kind}")
+    else:
+        smooth = sub[0][pk.ALB:pk.ALB + 3].sum(0) > 0
+    if tables is not None:
+        rows = torch.as_tensor(tables[0], device=dev).long()[pick]
+        ids = tables[1][rows.clamp(min=0)].long()
+        u = torch.where((rows >= 0)[:, None, None],
+                        vs.philox_draws(GF_SEED, pick[:, None], ids, 6), 0.0)
+        pair_ok = table_pair_ok(sub[0], sub[1], rows, *tables[1:])
+        ref_tables = (rows, *tables[1:])
+    else:
+        u = vs.philox_draws(GF_SEED, pick[:, None], torch.arange(
+            n_vrls, dtype=torch.int64, device=dev)[None], 6)
+        pair_ok = pair_masks(*sub[:2])[0]
+        tables = ref_tables = ()
+    clustered = bool(tables)
+    fn = {(False, False): bwd.vrl_sum_bwd,
+          (True, False): bwd.vrl_sum_hetero_bwd,
+          (False, True): cb.vrl_sum_clustered_bwd,
+          (True, True): cb.vrl_sum_hetero_clustered_bwd}[(grid, clustered)]
+    ref_fn = {(False, False): bwd.vrl_sum_bwd_reference,
+              (True, False): bwd.vrl_sum_hetero_bwd_reference,
+              (False, True): cb.vrl_sum_clustered_bwd_reference,
+              (True, True): cb.vrl_sum_hetero_clustered_bwd_reference}[
+                  (grid, clustered)]
+    out = fn(*packs, *tables, gbar_s, seed=GF_SEED, **kw)
+    again = fn(*packs, *tables, gbar_s, seed=GF_SEED, **kw)
+    per_ray = (2, 3) if grid else (2,)
+    off = torch.ones(n_rays, dtype=torch.bool, device=dev)
+    off[pick] = False
+    for i, (a, b) in enumerate(zip(out, again)):
+        if grid and i == 5:
+            rep = float((a - b).abs().max())
+            check(rep <= DENSITY_REPEAT * float(a.abs().max()),
+                  f"{key}: d_density repeat {rep}")
+        else:
+            check(torch.equal(a, b), f"{key}: output {i}'s repeat")
+        check(bool(torch.isfinite(a).all()), f"{key}: output {i} finite")
+        if i in per_ray:
+            check(not bool(a[:, off].any()), f"{key}: output {i} off the "
+                  "held rays")
+    held = tuple(o[:, pick] if i in per_ray else o for i, o in enumerate(out))
+
+    def plain(dt):
+        def cast(t):
+            return t.to(dt) if t.is_floating_point() else t
+        m = {} if mats is None else {"materials": tuple(map(cast, mats))}
+        return ref_fn(*map(cast, sub), *map(cast, ref_tables),
+                      cast(gbar[:, pick].contiguous()), cast(u),
+                      **dict(kw, **m))
+    with plain_chunk(C4_PLAIN_CHUNK):
+        with SweepCount(pair_ok, smooth) as sweep:
+            ref, p_ms = timed_call(lambda: plain(torch.float32))
+        ref64 = plain(torch.float64)
+    torch.cuda.synchronize()
+    line, err = gf_check(key, held, ref, ref64, gf_par_rows(packs[3], grid),
+                         grid, kind, clustered)
+    counts = None
+    if not grid:  # the frame's checking counts (kernel 1's or 2's)
+        chk = vrl_sum_clustered_check if clustered else vs.vrl_sum_check
+        counts = chk(*packs, *tables, seed=GF_SEED, **kw)[1]
+        check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0,
+              f"{key}: the checking launch {counts}")
+    return dict(line=line, err=err, plain_ms=p_ms, sweep=sweep,
+                scale=n_rays / GF_HOLD_RAYS, counts=counts, packs=packs,
+                gbar=gbar, kw=kw, fn=fn, phase=phase, tables=tables)
+
+
+def gf_ops(key, h, hg, uv):
+    """A lower bound of form key's operations on the whole frame, by
+    OPS's rules: the diffuse form's (kernel_ops) on the held rays'
+    counted sweep, plus eval_smooth at each open vol-surf sample
+    (material forms), the trilinear lookups' extra lerps beside the
+    nearest ones (trilinear forms), the strategy's one-exp pdfFailure in
+    place of balance's (extended forms), a mixture priced as Rayleigh;
+    scaled by the frame's rays over the held ones (a uniform sample);
+    kernels 8 and 10's sweep as PlaneTris makes it on the frame, from
+    the checking launch's counts (plane_ops)."""
+    grid = key.startswith(("9", "11"))
+    sweep = h["sweep"]
+    if grid:
+        f, s = kernel_ops("vrl_sum_hetero_bwd", sweep, hg, True, uv)
+    else:
+        f, s = kernel_ops("vrl_sum_bwd", sweep, hg, True)
+    if "m" in key:
+        f += sweep.open[1] * OPS["eval_smooth"][0]
+        s += sweep.open[1] * OPS["eval_smooth"][1]
+    if "t" in key:
+        lerp = GRID_OPS["trilinear"][0] - GRID_OPS["density"][0]
+        f += lerp * ((2 + uv) * sweep.open[0] + (1 + uv) * sweep.open[1])
+    if "x" in key:
+        f -= 6 * sum(sweep.open)
+        s -= 2 * sum(sweep.open)
+    k = h["scale"]
+    if grid:
+        return k * f, k * s
+    return plane_ops((k * f, k * s),
+                     SimpleNamespace(tri_tests=k * sweep.tri_tests),
+                     h["counts"])
+
+
+def gf_launcher(h):
+    """A call of form h's kernel alone on its inputs: the wrappers'
+    launch step (`_launch`) without their checks, and for kernels 10 and
+    11 with the host layout built once (the wrapper's host work, tens of
+    ms at config 4, would hide the kernel)."""
+    packs, kw, gbar = h["packs"], h["kw"], h["gbar"]
+    grid = (packs[4], kw["uv_steps"]) if len(packs) > 4 else None
+    args = (GF_SEED, 2, 2, True, kw["phase_kind"])
+    mats = kw.get("materials")
+    if not h["tables"]:
+        lib = bwd._library()
+        return lambda: bwd._launch(lib, *packs[:4], gbar, None, *args, grid,
+                                   mats)
+    sop, tv, tw = h["tables"]
+    lib = cb._library()
+    layout = cb.host_layout(sop, tv, packs[1].shape[1],
+                            cb.ray_block(grid is not None), packs[0].device)
+    return lambda: cb._launch(lib, *packs[:4], layout, tv, tw, None, *args,
+                              gbar, grid, materials=mats)
+
+
+def gf_time(h, old_h, key):
+    """ms of form key's kernel on its main path's inputs and of the form
+    it extends on the same frame, in turns (old, new, new, old), CUDA
+    events around batches of calls (one call a batch for kernel 9, tens
+    to hundreds of ms at config 4)."""
+    new, old = gf_launcher(h), gf_launcher(old_h)
+    batch = 1 if key.startswith("9") else 3
+    runs = [cuda_ms_batched(f, 1, 3, batch) for f in (old, new, new, old)]
+    return summary(runs[1] + runs[2]), summary(runs[0] + runs[3])
+
+
+def gf_fd(label, loss, start, params, rel=FD_TOL):
+    """Same-seed central differences of loss(p, forward route) against
+    the autograd gradient of loss(p, differentiable route) at `start`:
+    params (name, flat index or None, step); raises; returns a line."""
+    p = {k: v.clone().requires_grad_() for k, v in start.items()}
+    value = loss(p, "diff")
+    grads = dict(zip(p, torch.autograd.grad(value, list(p.values()))))
+    out = []
+    for name, idx, eps in params:
+        def shifted(s):
+            q = {k: v.clone() for k, v in start.items()}
+            if idx is None:
+                q[name] = q[name] + s
+            else:
+                q[name].view(-1)[idx] += s
+            with torch.no_grad():
+                return float(loss(q, "forward"))
+        fd = (shifted(eps) - shifted(-eps)) / (2 * eps)
+        a = float(grads[name] if idx is None else grads[name].reshape(-1)[idx])
+        check(fd != 0.0 and abs(a - fd) <= rel * abs(fd),
+              f"{label}: FD {name}[{idx}] ad {a} fd {fd}")
+        out.append(f"{name}{'' if idx is None else f'[{idx}]'} ad {a:.6g} "
+                   f"fd {fd:.6g}")
+    return "; ".join(out)
+
+
+def gf_counters():
+    return (bwd.vrl_sum_bwd, bwd.vrl_sum_hetero_bwd, cb.vrl_sum_clustered_bwd,
+            cb.vrl_sum_hetero_clustered_bwd)
+
+
+def gf_reset():
+    for fn in gf_counters():
+        for f in ("launches", "mat_launches", "mix_launches", "tri_launches"):
+            if hasattr(fn, f):
+                setattr(fn, f, 0)
+
+
+def gf_launched(fn, key):
+    """The launches of form key (and of no other form) counted on the
+    backward wrapper fn."""
+    n = fn.launches
+    for attr, tag in (("mat_launches", "m"), ("mix_launches", "x"),
+                      ("tri_launches", "t")):
+        if hasattr(fn, attr):
+            c = getattr(fn, attr)
+            n = min(n, c if tag in key else fn.launches - c)
+    return n
+
+
+def gradient_forms(dev, card, cfg, c1, c2, c4):
+    """Phase 49: the twelve new forms of the backward kernels 8-11 against
+    their plain versions, the main paths that launch them against same-
+    seed central differences, their times beside the forms they extend,
+    registers, bounds. Returns the kernels line's twelve entries."""
+    t49 = time.perf_counter()
+    rng = np.random.default_rng(49)
+    tcfg = tracer.TracerConfig(max_depth=MAX_DEPTH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "glossy.json")
+        with open(path, "w") as f:
+            f.write(json.dumps(glossy_json(c1)).replace('"$w"', "$w")
+                    .replace('"$h"', "$h"))
+        glossy = loader.load_json(path, {"w": WIDTH, "h": HEIGHT},
+                                  device=dev)
+        gdesc = glossy_grid_desc(c1, c4["scene"], tmp)
+        path = os.path.join(tmp, "glossy_grid.json")
+        with open(path, "w") as f:
+            f.write(json.dumps(gdesc).replace('"$w"', "$w")
+                    .replace('"$h"', "$h"))
+        gg = loader.load_json(path, {"w": C4_SIZE, "h": C4_SIZE}, device=dev)
+    scenes = {"glossy": glossy, "mix": mix_scene(presets.cornell_smoke(
+        WIDTH, HEIGHT, device=dev)), "glossy_mix": mix_scene(glossy)}
+    c4t = replace(c4["scene"], medium=replace(c4["scene"].medium,
+                                              fast_tau=False))
+    grid_scenes = {"gg": gg, "gg_t": replace(gg, medium=replace(
+        gg.medium, fast_tau=False)), "c4t": c4t}
+    mats = integrator.material_pack(glossy)
+    check(mats is not None and integrator.material_pack(gg) is not None,
+          "the glossy scenes' material packs")
+
+    def gen():
+        return torch.Generator().manual_seed(TRAIN_SEED)
+
+    # the homogeneous scenes' VRLs, as the train step traces them
+    hvrls = {k: tracer.trace(sc, gen(), N_PARTICLES, tcfg)
+             for k, sc in scenes.items()}
+    params2 = alvrl.ALVRLParams(**C2_PARAMS,
+                                cluster=cl.ClusterParams(**C2_CLUSTER))
+    ginfo = alvrl.build_slice_info(glossy, params2)
+    gv = vrl.compact(tracer.trace(glossy, torch.Generator().manual_seed(11),
+                                  params2.num_particles, tracer.TracerConfig()),
+                     params2.vrl_target_num,
+                     slots_per_particle=tracer.TracerConfig().max_depth)
+    gtab = alvrl.prepare_clustering(glossy, gv, GF_SEED, params2, cfg,
+                                    ginfo)[:3]
+    c2tab = (c2["sop"], c2["tv"], c2["tw"])
+    c4tab = (c4["sop"], c4["tv"], c4["tw"])
+    # each form's main path: the scene, its VRLs, its material pack and
+    # its tables (the train step's for kernel 8, phase 49b's clustered
+    # renders' for kernels 10 and 11, full config 4 for kernel 9)
+    paths = {
+        "8m": (glossy, hvrls["glossy"], mats, None),
+        "8x": (scenes["mix"], hvrls["mix"], None, None),
+        "8mx": (scenes["glossy_mix"], hvrls["glossy_mix"], mats, None),
+        "10m": (glossy, gv, mats, gtab),
+        "10x": (scenes["mix"], c2["vrls"], None, c2tab),
+        "10mx": (scenes["glossy_mix"], gv, mats, gtab),
+        "9m": (grid_scenes["gg"], c4["vrls"], mats, None),
+        "9t": (c4t, c4["vrls"], None, None),
+        "9tm": (grid_scenes["gg_t"], c4["vrls"], mats, None),
+        "11m": (grid_scenes["gg"], c4["vrls"], mats, c4tab),
+        "11t": (c4t, c4["vrls"], None, c4tab),
+        "11tm": (grid_scenes["gg_t"], c4["vrls"], mats, c4tab)}
+    lines, holds, entries = [], {}, {}
+    uv = cfg.uv_tau_steps
+    t0 = time.perf_counter()
+
+    # 49a. each form on its main path's inputs against its plain version
+    for key, (sc, vr, m, tab) in paths.items():
+        grid = key.startswith(("9", "11"))
+        packs = integrator.pack_frame(sc, vr, materials=m)[3]
+        h = gf_hold(key, packs, m, dev, rng, grid=grid, tables=tab, uv=uv)
+        # the form it extends, on the same frame (and tables)
+        base = GF_FORMS[key][3]
+        if base in ("8", "10"):  # the diffuse HG balance form
+            bp = (integrator.pack_frame(sc, vr)[3] if m is not None
+                  else base_pack(packs))
+            old = dict(h, packs=bp, kw=dict(phase_kind=0))
+        elif base in ("8m", "10m"):  # the material form, base medium
+            old = dict(h, packs=base_pack(packs), kw=dict(h["kw"],
+                                                          phase_kind=0))
+        elif base in ("9", "11"):  # the nearest diffuse form
+            bsc = replace(sc, medium=replace(sc.medium, fast_tau=True))
+            old = dict(h, packs=integrator.pack_frame(bsc, vr)[3],
+                       kw=dict(phase_kind=0, uv_steps=uv))
+        else:  # 9t / 11t: the trilinear diffuse form
+            old = dict(h, packs=integrator.pack_frame(sc, vr)[3],
+                       kw=dict(phase_kind=0, uv_steps=uv))
+        holds[key] = (h, old)
+        lines.append(f"{key} ({packs[0].shape[1]} x {packs[1].shape[1]}, "
+                     f"{GF_HOLD_RAYS} held): {h['line']}")
+    t_hold = time.perf_counter() - t0
+    print(f"[49a the backward kernels' new forms vs plain on {card}: each "
+          f"launched on its main path's frame, VRLs and tables, gbar 0 off "
+          f"a seeded sample of {GF_HOLD_RAYS} rays, held there against the "
+          f"plain versions in float32 and float64 on the sample's rays (the "
+          f"Philox stream of their frame indices), each glossy kind's rays "
+          f"alone (kind:rays:median/share); repeats bit-identical but "
+          f"d_density; {t_hold:.1f} s] " + " | ".join(lines), flush=True)
+
+    # 49b. the main paths, counted, against same-seed central differences
+    t0 = time.perf_counter()
+    fd_lines, launched = [], {}
+    for key, name in (("8m", "glossy"), ("8x", "mix"), ("8mx", "glossy_mix")):
+        sc0 = scenes[name]
+        target = integrator.render_with_vrls_kernel(
+            sc0, hvrls[name], gen(), cfg)
+        med0 = sc0.medium
+        sc = replace(sc0, medium=replace(med0, sigma_s=med0.sigma_s
+                                         * GF_START))
+        gf_reset()
+        vrl_sum.launches = 0
+        with plain_calls(extra=[(bwd, "_plain_vjp")]) as plain:
+            loss, grads = train_step(sc, gen(), target, cfg, N_PARTICLES,
+                                     tcfg)
+            torch.cuda.synchronize()
+        launched[key] = gf_launched(bwd.vrl_sum_bwd, key)
+        check(plain[0] == 0 and vrl_sum.launches >= 1
+              and launched[key] >= 1 and launched[key]
+              == bwd.vrl_sum_bwd.launches and math.isfinite(float(loss)),
+              f"{key}: the train step's launches {vrl_sum.launches}, "
+              f"{launched[key]} of {bwd.vrl_sum_bwd.launches}, plain "
+              f"{plain[0]}")
+        for k in PARAMS:
+            check(bool(torch.isfinite(grads[k]).all()), f"{key}: d{k}")
+        vrls_step = tracer.trace(sc, gen(), N_PARTICLES, tcfg)
+        i0 = sc.emitters.intensity
+
+        def loss_fn(p, route, sc=sc, vrls_step=vrls_step, i0=i0,
+                    target=target):
+            s = with_params(sc, p)
+            vr = replace(vrls_step, power=vrls_step.power * (
+                p["intensity"] / i0))
+            fn = (integrator.render_with_vrls_kernel_diff if route == "diff"
+                  else integrator.render_with_vrls_kernel)
+            img = fn(s, vr, torch.Generator().manual_seed(3), cfg)
+            return ((img.double() - target.double()) ** 2).mean()
+
+        start = {"sigma_a": sc.medium.sigma_a, "sigma_s": sc.medium.sigma_s,
+                 "g": sc.medium.g, "intensity": i0}
+        params = [("sigma_s", 0, 2e-3), ("sigma_s", 1, 2e-3),
+                  ("intensity", 0, 0.4)]
+        if "x" not in key:
+            params.append(("g", None, 2e-3))
+        fd_lines.append(f"{key} train step (loss {float(loss):.6g}, "
+                        f"launches {launched[key]}): "
+                        + gf_fd(key, loss_fn, start, params))
+        if key == "8m":  # the glossy step's device time and idle share
+            step_ms = summary(host_ms(lambda: train_step(
+                sc, gen(), target, cfg, N_PARTICLES, tcfg), 1, 5))
+            prof = profile_device(lambda: train_step(
+                sc, gen(), target, cfg, N_PARTICLES, tcfg), 1, 3)
+            idle = ("not measured" if prof is None else
+                    f"idle share {1 - prof[1] / prof[0]:.1%} (span "
+                    f"{prof[0]:.3f} ms, busy {prof[1]:.3f} ms)")
+            fd_lines.append(f"8m step {step_ms[0]:.3f} ms (spread "
+                            f"{step_ms[1]:.1%}), {idle}")
+    g_med0 = c4["scene"].medium
+    for key in ("9m", "9t", "9tm"):
+        sc, vr, _, _ = paths[key]
+        target = integrator.render_with_vrls_kernel(
+            sc, vr, torch.Generator().manual_seed(2000), cfg)
+        start = {"density": sc.medium.density * GF_START,
+                 "scale": sc.medium.scale}
+
+        def gloss(p, route, sc=sc, vr=vr, target=target):
+            med = replace(gmed.with_density(sc.medium, p["density"]),
+                          scale=p["scale"])
+            fn = (integrator.render_with_vrls_kernel_diff if route == "diff"
+                  else integrator.render_with_vrls_kernel)
+            img = fn(replace(sc, medium=med), vr,
+                     torch.Generator().manual_seed(3), cfg)
+            return ((img.double() - target.double()) ** 2).mean()
+
+        gf_reset()
+        vrl_sum_hetero.launches = 0
+        with plain_calls(extra=[(bwd, "_plain_vjp")]) as plain:
+            p = {k: v.clone().requires_grad_() for k, v in start.items()}
+            g_d = torch.autograd.grad(gloss(p, "diff"), p["density"])[0]
+            torch.cuda.synchronize()
+        launched[key] = gf_launched(bwd.vrl_sum_hetero_bwd, key)
+        check(plain[0] == 0 and launched[key] == 1
+              and vrl_sum_hetero.launches == 1,
+              f"{key}: the grid step's launches {launched[key]}")
+        top = int(g_d.reshape(-1).abs().argmax())
+        eps_v = 2e-2 * float(start["density"].reshape(-1)[top])
+        fd_lines.append(f"{key} unclustered grid step: " + gf_fd(
+            key, gloss, start, [("scale", None, 2e-3 * float(g_med0.scale)),
+                                ("density", top, eps_v)]))
+    for key in ("10m", "10x", "10mx", "11m", "11t", "11tm"):
+        sc, vr, _, tab = paths[key]
+        grid = key.startswith("11")
+        target = integrator.render_clustered_kernel(
+            sc, vr, *tab, torch.Generator().manual_seed(2500), cfg)
+        if grid:
+            start = {"scale": sc.medium.scale,
+                     "density": sc.medium.density * GF_START}
+        else:
+            start = {"sigma_s": sc.medium.sigma_s * GF_START,
+                     "wscale": torch.tensor(1.0, device=dev)}
+
+        def closs(p, route, sc=sc, vr=vr, tab=tab, target=target,
+                  grid=grid):
+            med = (replace(gmed.with_density(sc.medium, p["density"]),
+                           scale=p["scale"]) if grid
+                   else replace(sc.medium, sigma_s=p["sigma_s"]))
+            w = tab[2] if grid else tab[2] * p["wscale"]
+            fn = (integrator.render_clustered_kernel_diff if route == "diff"
+                  else integrator.render_clustered_kernel)
+            img = fn(replace(sc, medium=med), vr, tab[0], tab[1], w,
+                     torch.Generator().manual_seed(3), cfg)
+            return ((img.double() - target.double()) ** 2).mean()
+
+        gf_reset()
+        fn = cb.vrl_sum_hetero_clustered_bwd if grid \
+            else cb.vrl_sum_clustered_bwd
+        with plain_calls(extra=[(bwd, "_plain_vjp")]) as plain:
+            p = {k: v.clone().requires_grad_() for k, v in start.items()}
+            torch.autograd.grad(closs(p, "diff"), list(p.values()))
+            torch.cuda.synchronize()
+        launched[key] = gf_launched(fn, key)
+        check(plain[0] == 0 and launched[key] == 1,
+              f"{key}: the clustered step's launches {launched[key]}")
+        params = ([("scale", None, 2e-3 * float(g_med0.scale))] if grid else
+                  [("sigma_s", 1, 2e-3), ("wscale", None, 2e-3)])
+        fd_lines.append(f"{key} clustered step: " + gf_fd(key, closs, start,
+                                                          params))
+    t_main = time.perf_counter() - t0
+    print(f"[49b the main paths on {card}: the train step on cornell_glossy "
+          f"{WIDTH}x{HEIGHT}, {N_PARTICLES} particles x depth {MAX_DEPTH}, "
+          f"sigma_s x{GF_START} (and in the mixture + single medium); "
+          f"render_with_vrls_kernel_diff at {C4_SIZE}x{C4_SIZE} x "
+          f"{c4['vrls'].capacity} VRLs, density x{GF_START}; "
+          f"render_clustered_kernel_diff on cornell_glossy's config-2 "
+          f"tables, config 2's and config 4's; the new forms' launches "
+          f"{launched}, no plain call; same-seed central differences to "
+          f"{FD_TOL}; {t_main:.1f} s] " + " | ".join(fd_lines), flush=True)
+
+    # 49c. times beside the forms they extend, registers, bounds
+    t0 = time.perf_counter()
+    tlines = []
+    for key, (h, old) in holds.items():
+        (m_ms, m_sp), (o_ms, _) = gf_time(h, old, key)
+        hg = h["phase"] == 0
+        packs = h["packs"]
+        n_bytes = nbytes(*packs, h["gbar"], *(t for t in h["tables"]
+                                              if torch.is_tensor(t)))
+        n_bytes += 4 * 3 * (packs[0].shape[1] + packs[1].shape[1])
+        if "m" in key:
+            n_bytes += nbytes(*mats)
+        bnd = bound(gf_ops(key, h, hg, uv), n_bytes)
+        name, src, line, base = GF_FORMS[key]
+        entries[key] = {
+            "name": name, "route": "cuda",
+            "source": f"alvrl_tpu_torch/csrc/{src}",
+            "replaces": f"alvrl_tpu/ops/vrl_pallas_bwd.py:{line}",
+            "launches": launched[key], "max_abs_err": h["err"], "ms": m_ms,
+            "plain_ms": h["plain_ms"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+        tlines.append(f"{key} {m_ms:.4f} ms (spread {m_sp:.1%}) vs {base} "
+                      f"{o_ms:.4f} (x{m_ms / o_ms:.2f}); plain "
+                      f"{h['plain_ms']:.1f} ms on the {GF_HOLD_RAYS} held "
+                      f"rays; bound {bnd[0]:.4f} ms by {bnd[1]} (the held "
+                      f"rays' sweep x{h['scale']:g}: {h['sweep']})")
+    regs = [r for r in ptxas_summary(_build.build_log())
+            if "bwd" in r and any(t in r for t in (",ext", ",tri", ",mat"))]
+    # 49d. the earlier forms' outputs, bit for bit the parent's
+    digests = kernel_digest.bwd_digests(dev)
+    same = [k for k in PARENT_DIGESTS_BWD if digests.get(k)
+            == PARENT_DIGESTS_BWD[k]]
+    check(len(same) == len(PARENT_DIGESTS_BWD) == len(digests),
+          f"the backward digests: {len(same)} of {len(PARENT_DIGESTS_BWD)} "
+          f"the parent's, differing "
+          f"{sorted(set(PARENT_DIGESTS_BWD) - set(same))}")
+    print(f"[49c the new forms' times on {card} (CUDA events, on their "
+          f"main paths' inputs, each beside the form it extends on the same "
+          f"frame, in turns), registers and "
+          f"bounds; {time.perf_counter() - t0:.1f} s] " + " | ".join(tlines)
+          + " | ptxas: " + " ; ".join(regs)
+          + f" | the diffuse forms' outputs (kernel_digest.py --bwd): "
+          f"{len(same)} of {len(PARENT_DIGESTS_BWD)} digests the parent's"
+          + f" | phase 49 {time.perf_counter() - t49:.1f} s", flush=True)
+    return [entries[k] for k in GF_FORMS]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -6493,8 +7288,9 @@ def main():
     glossy_kernels_line = scene_path(dev, card, vrls)
     sky_kernels_line = sky_path(dev, card)
     tri_kernels = grid_options(dev, card, cfg, c4)
-    glossy_grid_kernels = glossy_grid(dev, card, cfg, presets.cornell_smoke(
-        WIDTH, HEIGHT, device=dev), c4)
+    c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
+    glossy_grid_kernels = glossy_grid(dev, card, cfg, c1, c4)
+    gradient_kernels = gradient_forms(dev, card, cfg, c1, c2, c4)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -6512,7 +7308,8 @@ def main():
         "bound_by": bwd_bound[1], "library_ms": None,
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
         bvh_kernel, *probe_kernels, *glossy_kernels_line,
-        *sky_kernels_line, *tri_kernels, *glossy_grid_kernels]}))
+        *sky_kernels_line, *tri_kernels, *glossy_grid_kernels,
+        *gradient_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

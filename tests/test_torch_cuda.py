@@ -61,7 +61,6 @@ from alvrl_tpu_torch.ops.vrl_sum_bwd import (
     vrl_sum_bwd_reference,
     vrl_sum_hetero_bwd,
     vrl_sum_hetero_bwd_reference,
-    vrl_sum_hetero_diff,
 )
 from alvrl_tpu_torch.ops.vrl_sum_clustered import (
     philox_table_uniforms,
@@ -924,24 +923,52 @@ def test_cuda_trilinear_pre_reject_agrees_with_the_wald_test(cuda, kernel):
     assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
 
 
+def _rel_close(out, ref, tol):
+    """Every output within tol of its plain twin, relative to the largest
+    |plain| entry of that output."""
+    for i, (o, r) in enumerate(zip(out, ref)):
+        assert torch.isfinite(o).all(), i
+        scale = float(r.abs().max())
+        assert float((o - r).abs().max()) <= tol * max(scale, 1e-30), (
+            i, float((o - r).abs().max()), scale)
+
+
 def test_cuda_backward_grid_kernels_refuse_the_trilinear_pack(cuda):
-    """Kernels 9 and 11 read the supersample by nearest lookup: their
-    wrappers, the differentiable entries and the routes refuse a
-    fast_tau=False medium, naming ROADMAP A14."""
+    """Kernels 9 and 11 take a fast_tau=False medium in their trilinear
+    forms: on the trilinear packs each matches its plain version (every
+    output within 1e-3 of the largest entry of its plain twin), counts
+    its launch on tri_launches, and the differentiable route takes it."""
     packs = _grid_packs(cuda, fast_tau=False)
     n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
     gbar = torch.ones((3, n_rays), device=cuda)
     tables = _tables(cuda, n_rays, n_vrls)
-    for call in (lambda: vrl_sum_hetero_bwd(*packs, gbar),
-                 lambda: vrl_sum_hetero_diff(*packs),
-                 lambda: cbwd.vrl_sum_hetero_clustered_diff(*packs, *tables)):
-        with pytest.raises(ValueError, match="ROADMAP A14"):
-            call()
+    u = torch.rand((n_rays, n_vrls, 6), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(9))
+    uc = u[:, :tables[1].shape[1]].contiguous()
+    before = (vrl_sum_hetero_bwd.tri_launches,
+              cbwd.vrl_sum_hetero_clustered_bwd.tri_launches)
+    out = vrl_sum_hetero_bwd(*packs, gbar, uniforms=u)
+    ref = vrl_sum_hetero_bwd_reference(*packs, gbar, u)
+    assert out[5].shape == packs[4].shape
+    _rel_close(out, ref, 1e-3)
+    out = cbwd.vrl_sum_hetero_clustered_bwd(*packs, *tables, gbar,
+                                            uniforms=uc)
+    ref = cbwd.vrl_sum_hetero_clustered_bwd_reference(*packs, *tables, gbar,
+                                                      uc)
+    _rel_close(out, ref, 1e-3)
+    assert (vrl_sum_hetero_bwd.tri_launches,
+            cbwd.vrl_sum_hetero_clustered_bwd.tri_launches) == (
+                before[0] + 1, before[1] + 1)
     scene = presets.cornell_grid_smoke(8, 8, grid_res=8, device=cuda)
     scene = replace(scene, medium=replace(scene.medium, fast_tau=False))
-    with pytest.raises(ValueError, match="ROADMAP A14"):
-        integrator.render_with_vrls_kernel_diff(
-            scene, _bench_vrls(cuda), torch.Generator())
+    dens = scene.medium.density.clone().requires_grad_()
+    from alvrl_tpu_torch.media import heterogeneous as gmed
+    img = integrator.render_with_vrls_kernel_diff(
+        replace(scene, medium=gmed.with_density(scene.medium, dens)),
+        _bench_vrls(cuda), torch.Generator())
+    (g,) = torch.autograd.grad(img.sum(), dens)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0.0
+    assert vrl_sum_hetero_bwd.tri_launches == before[0] + 2
 
 
 def _oriented_scene(device, kind, sampling=0):
@@ -2114,16 +2141,38 @@ def test_cuda_dispatch_refuses_an_unknown_phase_kind(cuda, kind):
 
 
 def test_cuda_other_kernels_refuse_the_extended_pack(cuda):
-    """The backward kernels and the differentiable render raise, naming
-    ROADMAP A13, on a mixture or strategy pack (the forward kernels 1, 2,
-    5 and 7 take it)."""
+    """The backward kernels 8 and 10 take the mixture or strategy pack in
+    their extended forms: each matches its plain version (every output
+    within 1e-3 of the largest entry of its plain twin; d_par's rate
+    entry among them), counts its launch on mix_launches, and the
+    differentiable render takes it."""
     scene, packs = _mixture(cuda, "mixture_single", 16)
-    gbar = torch.ones((3, packs[0].shape[1]), device=cuda)
-    with pytest.raises(ValueError, match="A13"):
-        vrl_sum_bwd(*packs, gbar, phase_kind=4)
-    with pytest.raises(ValueError, match="A13"):
-        integrator.render_with_vrls_kernel_diff(
-            scene, _bench_vrls(cuda), torch.Generator().manual_seed(0))
+    n_rays, n_vrls = packs[0].shape[1], packs[1].shape[1]
+    gbar = torch.ones((3, n_rays), device=cuda)
+    u = torch.rand((n_rays, n_vrls, 6), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(9))
+    before = (vrl_sum_bwd.mix_launches, cbwd.vrl_sum_clustered_bwd.mix_launches)
+    out = vrl_sum_bwd(*packs, gbar, uniforms=u, phase_kind=4)
+    ref = vrl_sum_bwd_reference(*packs, gbar, u, phase_kind=4)
+    assert out[1].shape == (pk.MED_RHO + 1,) and float(ref[1][pk.MED_RHO]) != 0
+    _rel_close(out, ref, 1e-3)
+    tables = _tables(cuda, n_rays, n_vrls)
+    uc = u[:, :tables[1].shape[1]].contiguous()
+    out = cbwd.vrl_sum_clustered_bwd(*packs, *tables, gbar, uniforms=uc,
+                                     phase_kind=4)
+    ref = cbwd.vrl_sum_clustered_bwd_reference(*packs, *tables, gbar, uc,
+                                               phase_kind=4)
+    _rel_close(out, ref, 1e-3)
+    assert (vrl_sum_bwd.mix_launches,
+            cbwd.vrl_sum_clustered_bwd.mix_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    sigma_s = scene.medium.sigma_s.clone().requires_grad_()
+    img = integrator.render_with_vrls_kernel_diff(
+        replace(scene, medium=replace(scene.medium, sigma_s=sigma_s)),
+        _bench_vrls(cuda), torch.Generator().manual_seed(0))
+    (g,) = torch.autograd.grad(img.sum(), sigma_s)
+    assert torch.isfinite(g).all() and bool((g != 0).all())
+    assert vrl_sum_bwd.mix_launches == before[0] + 2
 
 
 # glossy and layered surfaces in a grid medium (the material forms of

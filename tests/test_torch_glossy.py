@@ -8,8 +8,8 @@ route (its jitted vrl_sum on its own key for kernel 1,
 integrate.pair_contribution summed over the VRLs or a table for R and
 the clustered render), at the homogeneous bar over the frame and over
 each eye-hit kind's pixels alone, 8x8 rays, the 508 bench VRLs; each
-backward route (no material instantiation yet) refusing such a table by
-name;
+backward route taking such a table (against same-seed central
+differences);
 and a diffuse or glass scene taking the diffuse instantiation, traced
 and rendered as before bit for bit. About 150 s alone, most of it the
 JAX tracer's and vrl_sum's compiles and runs.
@@ -17,6 +17,7 @@ JAX tracer's and vrl_sum's compiles and runs.
 
 import functools
 import json
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -331,31 +332,78 @@ def test_kernel_spec_render_on_glass_and_glossy_matches_jax():
     _bar(img, _t(ref))
 
 
-REFUSALS = {
-    "kernels 8 and 9": lambda sc, v, g:
-        integrator.render_with_vrls_kernel_diff(sc, v, g),
-    "kernels 10 and 11": lambda sc, v, g:
-        integrator.render_clustered_kernel_diff(
-            sc, v, np.zeros(64, np.int32),
-            torch.zeros((1, 2), dtype=torch.int32), torch.ones((1, 2)), g),
-    "train_step": lambda sc, v, g: train_step(
-        sc, g, torch.zeros((8, 8, 3)), VRLConfig(), 4,
-        tracer.TracerConfig(max_depth=2)),
+# the backward routes on the glossy table, each with what its same-seed
+# central differences vary: (the route's image on the scene and a table of
+# the first N_ROUTE_VRLS VRLs, at the parameter `sigma_s`; the forward
+# route's, for the differences)
+N_ROUTE_VRLS = 64
+
+
+def _route_table(n_rays):
+    return (np.zeros(n_rays, np.int32),
+            torch.arange(N_ROUTE_VRLS, dtype=torch.int32)[None],
+            torch.ones((1, N_ROUTE_VRLS)))
+
+
+ROUTES = {
+    "kernels 8 and 9": (
+        lambda sc, v, g: integrator.render_with_vrls_kernel_diff(sc, v, g),
+        lambda sc, v, g: integrator.render_with_vrls_kernel(sc, v, g)),
+    "kernels 10 and 11": (
+        lambda sc, v, g: integrator.render_clustered_kernel_diff(
+            sc, v, *_route_table(64), g),
+        lambda sc, v, g: integrator.render_clustered_kernel(
+            sc, v, *_route_table(64), g)),
 }
 
 
-@pytest.mark.parametrize("route", sorted(REFUSALS))
+@pytest.mark.parametrize("route", sorted(ROUTES) + ["train_step"])
 def test_routes_without_a_material_instantiation_refuse(route):
-    """The backward kernels 8-11 (the train step's) raise on a glossy
-    table, naming the route's kernels, the backward kernels and the
-    ROADMAP item, rather than drop the term. (The forward kernels take it:
-    tests/test_torch_grid_glossy.py, tests/test_torch_bvh_glossy.py.)"""
+    """The backward routes take a glossy table through the backward
+    kernels' material forms (their plain versions on the CPU; the JAX
+    holds: tests/test_torch_glossy_bwd.py): the differentiable renders'
+    images are the forward routes' on the same seed, and the gradient of
+    a weighted image sum in sigma_s[1] matches same-seed central
+    differences of the forward route to 5e-3; the train step's
+    intensity gradient matches central differences of its loss (the
+    walk does not read the intensity)."""
     _, scene = _scenes()
     _, vrls = _vrls()
-    name = "kernels 8 and 9" if route == "train_step" else route
-    with pytest.raises(ValueError, match=f"{name}.*backward.*ROADMAP A12"):
-        REFUSALS[route](scene, vrls,
-                        torch.Generator().manual_seed(0))
+    vrls = replace(vrls, start=vrls.start[:N_ROUTE_VRLS],
+                   end=vrls.end[:N_ROUTE_VRLS],
+                   power=vrls.power[:N_ROUTE_VRLS],
+                   valid=vrls.valid[:N_ROUTE_VRLS])
+    weight = torch.rand((8, 8, 3), generator=torch.Generator().manual_seed(5))
+    if route == "train_step":
+        def step(shift):
+            sc = replace(scene, emitters=replace(
+                scene.emitters, intensity=scene.emitters.intensity + shift))
+            return train_step(sc, torch.Generator().manual_seed(3), weight,
+                              VRLConfig(), 4, tracer.TracerConfig(max_depth=2))
+        loss, grads = step(0.0)
+        assert float(loss) > 0.0
+        eps, d = 0.1, torch.tensor([[0.0, 0.1, 0.0]])
+        fd = (float(step(d)[0]) - float(step(-d)[0])) / (2 * eps)
+        ad = float(grads["intensity"][0, 1])
+        assert fd != 0.0 and abs(ad - fd) <= 5e-3 * abs(fd), (ad, fd)
+        return
+    diff, forward = ROUTES[route]
+    sigma_s = scene.medium.sigma_s.clone().requires_grad_()
+
+    def at(s, fn):
+        sc = replace(scene, medium=replace(scene.medium, sigma_s=s))
+        return fn(sc, vrls, torch.Generator().manual_seed(0))
+
+    img = at(sigma_s, diff)
+    assert torch.equal(img.detach(), at(sigma_s.detach(), forward))
+    (g,) = torch.autograd.grad((img * weight).sum(), sigma_s)
+    eps = 2e-3
+    d = torch.tensor([0.0, eps, 0.0])
+    with torch.no_grad():
+        fd = (float((at(sigma_s + d, forward) * weight).double().sum())
+              - float((at(sigma_s - d, forward) * weight).double().sum())) \
+            / (2 * eps)
+    assert abs(float(g[1]) - fd) <= 5e-3 * abs(fd), (float(g[1]), fd)
 
 
 def _parent_sample_from_uniforms(scene, u, mat_id, ng, ng_raw, d_in, mode,

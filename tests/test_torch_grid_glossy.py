@@ -10,8 +10,8 @@ the port's routes (the unclustered render, the clustered render over an
 identity table, R's means), nearest and trilinear, against JAX's XLA
 route (pair_contribution with the eye and VRL optical-depth tables) on
 injected uniforms, at the homogeneous bar over the frame and over each
-eye-hit kind alone; every kind's vol-surf term; the backward routes'
-refusals. Its helpers serve tests/test_torch_grid_glossy_routes.py and
+eye-hit kind alone; every kind's vol-surf term; the backward routes
+against same-seed central differences. Its helpers serve tests/test_torch_grid_glossy_routes.py and
 tests/test_torch_bvh_glossy.py. About 100 s alone, most of it JAX's
 scene build (the rough coat's transmittance table) and its two compiles
 of pair_contribution.
@@ -39,11 +39,10 @@ from alvrl_tpu.scene import loader as jloader
 from alvrl_tpu.sensors import perspective as jperspective
 from alvrl_tpu_torch import convert
 from alvrl_tpu_torch.bsdf import api as bsdf
-from alvrl_tpu_torch.integrators.vrl import integrator, tracer
-from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
+from alvrl_tpu_torch.integrators.vrl import integrator
+from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.ops import pack as pk
 from alvrl_tpu_torch.ops import vrl_sum as vs
-from alvrl_tpu_torch.parallel.render import train_step
 from alvrl_tpu_torch.scene import loader
 from tests.torch_port_utils import (
     BENCH_VRLS,
@@ -259,29 +258,75 @@ def test_grid_material_forms_give_every_kind_its_vol_surf_term(fast_tau):
 
 
 
+def _table(n_rays, n_vrls):
+    return (np.zeros(n_rays, np.int32),
+            torch.arange(n_vrls, dtype=torch.int32)[None],
+            torch.ones((1, n_vrls)))
+
+
+# the backward routes on the glossy grid table: (the differentiable
+# render, the forward route)
 BACKWARD = {
-    "kernels 8 and 9": lambda sc, v, g: integrator.render_with_vrls_kernel_diff(
-        sc, v, g),
-    "kernels 10 and 11": lambda sc, v, g:
-        integrator.render_clustered_kernel_diff(
-            sc, v, np.zeros(64, np.int32),
-            torch.zeros((1, 2), dtype=torch.int32), torch.ones((1, 2)), g),
-    "train_step": lambda sc, v, g: train_step(
-        sc, g, torch.zeros((8, 8, 3)), VRLConfig(), 4,
-        tracer.TracerConfig(max_depth=2)),
+    "kernels 8 and 9": (
+        lambda sc, v, g: integrator.render_with_vrls_kernel_diff(sc, v, g),
+        lambda sc, v, g: integrator.render_with_vrls_kernel(sc, v, g)),
+    "kernels 10 and 11": (
+        lambda sc, v, g: integrator.render_clustered_kernel_diff(
+            sc, v, *_table(64, N_VRLS), g),
+        lambda sc, v, g: integrator.render_clustered_kernel(
+            sc, v, *_table(64, N_VRLS), g)),
 }
 
 
-@pytest.mark.parametrize("route", sorted(BACKWARD))
+@pytest.mark.parametrize("route", sorted(BACKWARD) + ["train_step"])
 def test_backward_routes_refuse_a_glossy_grid_table(route):
-    """The backward kernels 8-11 (the train step's too) have no material
-    form: their routes raise on the glossy grid table, naming their
-    kernels and ROADMAP A12, rather than drop its term."""
+    """The backward routes take the glossy grid table through kernels 9
+    and 11's material forms (their plain versions on the CPU): the images
+    are the forward routes' on the same seed, and the gradient of a
+    weighted image sum in the medium's scale matches same-seed central
+    differences of the forward route to 5e-3. A grid medium's train step
+    is scripts/recover_density's (train_step's parameters are the
+    homogeneous medium's, as the JAX package's): its loss's gradient in
+    one voxel of the density, through the unclustered route, against
+    central differences."""
     _, _, scene = _grid_scenes(True)
     _, vrls = _vrls()
-    name = "kernels 8 and 9" if route == "train_step" else route
-    with pytest.raises(ValueError, match=f"{name}.*backward.*ROADMAP A12"):
-        BACKWARD[route](scene, vrls, torch.Generator().manual_seed(0))
+    weight = torch.rand((8, 8, 3), generator=torch.Generator().manual_seed(5))
+    med = scene.medium
+    diff, forward = BACKWARD.get(route, BACKWARD["kernels 8 and 9"])
+
+    def at(m, fn):
+        return fn(replace(scene, medium=m), vrls,
+                  torch.Generator().manual_seed(0))
+
+    if route == "train_step":
+        dens = med.density.clone().requires_grad_()
+        img = at(gmed.with_density(med, dens), diff)
+        (g,) = torch.autograd.grad(((img - weight) ** 2).mean(), dens)
+        v = tuple(int(i) for i in np.unravel_index(int(g.abs().argmax()),
+                                                   g.shape))
+        eps = 1e-2 * float(med.density[v])
+
+        def loss(shift):
+            d = med.density.clone()
+            d[v] += shift
+            with torch.no_grad():
+                img = at(gmed.with_density(med, d), forward).double()
+            return float(((img - weight.double()) ** 2).mean())
+        a, fd = float(g[v]), (loss(eps) - loss(-eps)) / (2 * eps)
+        assert abs(a - fd) <= 5e-3 * abs(fd), (a, fd)
+        return
+    scale = med.scale.clone().requires_grad_()
+    img = at(replace(med, scale=scale), diff)
+    assert torch.equal(img.detach(), at(med, forward))
+    (g,) = torch.autograd.grad((img * weight).sum(), scale)
+    eps = 1e-3 * float(med.scale)
+    with torch.no_grad():
+        fd = (float((at(replace(med, scale=med.scale + eps), forward)
+                     * weight).double().sum())
+              - float((at(replace(med, scale=med.scale - eps), forward)
+                       * weight).double().sum())) / (2 * eps)
+    assert abs(float(g) - fd) <= 5e-3 * abs(fd), (float(g), fd)
 
 
 def test_c21_jax_grid_pack_zeroes_the_glossy_albedo():

@@ -10,7 +10,8 @@ the homogeneous bar on injected uniforms; sample_distance_quadrature
 with JAX's uniform passed in; the VRL tracer with sampling=1 on JAX's
 key tree (torch_port_utils.jax_tracer_uniforms with the distance key's
 own uniform); the random streams of the other scenes, which stay the
-parent's; the backward kernels' refusal (ROADMAP A14). About 30 s alone.
+parent's; the backward wrappers and routes on the trilinear pack. About
+30 s alone.
 """
 
 from dataclasses import replace
@@ -231,9 +232,11 @@ def test_plain_trilinear_render_matches_the_xla_route():
 def test_trilinear_pack_and_its_refusals():
     """The trilinear medium pack: one float longer, marked 1, the index
     scales n - 1; the forward wrappers take it on the CPU through the
-    plain versions (the clustered one too); the backward wrappers, the
-    differentiable entries and routes refuse it naming ROADMAP A14; a
-    grid of one voxel along an axis has no trilinear form."""
+    plain versions (the clustered one too), and so do the backward
+    wrappers (d_density of the density's own shape), the differentiable
+    entries and routes (their images the forward routes', the gradient
+    in the scale against same-seed central differences); a grid of one
+    voxel along an axis has no trilinear form."""
     jscene, ray_o, ray_d, jvrls = _render_case(False)
     scene = convert.scene_from_numpy(jax_scene_leaves(jscene), device=CPU)
     vrls = convert.vrls_from_numpy(jax_vrls_leaves(jvrls), device=CPU)
@@ -252,17 +255,34 @@ def test_trilinear_pack_and_its_refusals():
         *packs, rows, ids, ws, philox_table_uniforms(3, rows, ids, 6))
     assert torch.equal(out, ref)
     gbar = torch.ones((3, 64))
-    for call in (lambda: vrl_sum_hetero_bwd(*packs, gbar),
-                 lambda: vrl_sum_hetero_clustered_diff(*packs, rows, ids,
-                                                       ws)):
-        with pytest.raises(ValueError, match="ROADMAP A14"):
-            call()
-    for call in (lambda: integrator.render_with_vrls_kernel_diff(
-            scene, vrls, torch.Generator()),
-            lambda: integrator.render_clustered_kernel_diff(
-                scene, vrls, rows, ids, ws, torch.Generator())):
-        with pytest.raises(ValueError, match="ROADMAP A14"):
-            call()
+    d = vrl_sum_hetero_bwd(*packs, gbar)
+    assert d[5].shape == packs[4].shape and float(d[5].abs().max()) > 0.0
+    assert d[1].shape == (pk.GRID_MED_LEN,)
+    dc = vrl_sum_hetero_clustered_diff(*packs[:4], packs[4].clone()
+                                       .requires_grad_(), rows, ids, ws,
+                                       seed=3)
+    assert torch.equal(dc.detach(), out)
+    g = torch.rand((8, 8, 3), generator=torch.Generator().manual_seed(2))
+    m0 = scene.medium
+    for diff, fwd, args in (
+            (integrator.render_with_vrls_kernel_diff,
+             integrator.render_with_vrls_kernel, ()),
+            (integrator.render_clustered_kernel_diff,
+             integrator.render_clustered_kernel, (rows, ids, ws))):
+        scale = m0.scale.clone().requires_grad_()
+
+        def at(s, fn):
+            return fn(replace(scene, medium=replace(m0, scale=s)), vrls,
+                      *args, torch.Generator().manual_seed(4))
+        img = at(scale, diff)
+        assert torch.equal(img.detach(), at(m0.scale, fwd))
+        (ad,) = torch.autograd.grad((img * g).sum(), scale)
+        eps = 1e-3 * float(m0.scale)
+        with torch.no_grad():
+            fd = (float((at(m0.scale + eps, fwd) * g).double().sum())
+                  - float((at(m0.scale - eps, fwd) * g).double().sum())) \
+                / (2 * eps)
+        assert abs(float(ad) - fd) <= 5e-3 * abs(fd), (float(ad), fd)
     flat = replace(scene.medium, density=scene.medium.density[:1])
     with pytest.raises(ValueError, match="2 voxels"):
         pk.pack_medium_hetero(flat)
