@@ -5,11 +5,21 @@ pdf_smooth) for the smooth diffuse kind, the three delta kinds (the null
 boundary, the mirror and the smooth dielectric,
 integrators/vrl/specular.py::specular_bounce), the smooth leaf kinds
 ROUGH_CONDUCTOR, ROUGH_PLASTIC, PHONG, WARD, DIFFTRANS, PLASTIC and
-ROUGH_DIELECTRIC (bsdf.microfacet, bsdf.lobes), the wrappers MASK and
-MIXTURE (one nesting level onto a leaf kind), and the layers COATING and
-ROUGH_COATING over a nested leaf (bsdf.layered). NORMALMAP, HK and
-IRAWAN, and textures, are not ported (ROADMAP A11): check_kinds refuses
-them by name.
+ROUGH_DIELECTRIC (bsdf.microfacet, bsdf.lobes), the wrappers MASK,
+MIXTURE and NORMALMAP (one nesting level onto a leaf kind), the layers
+COATING and ROUGH_COATING over a nested leaf and the Hanrahan-Krueger
+slab HK (bsdf.layered). IRAWAN is not ported (ROADMAP A11a): check_kinds
+refuses it by name.
+
+Textures (textures.procedural) enter through a Shading, the textured
+surface at a hit (shading(scene, mat_id, ng, p, uv)): the shading normal
+(a NORMALMAP's perturbed one, else ng) and the albedos at the hit of the
+material's leaf and of its nested and nested2 leaves, which every leaf
+reads in place of its table albedo, as the reference's leaves read
+albedo_at(p, uv). Without one the table albedos and ng are used, which
+is the same for an untextured table. The HK slab reads its table columns
+(albedo = sigma_s, albedo2 = sigma_a, exponent = thickness, alpha = g)
+untextured, as in the reference.
 
 The sampler consumes the reference's N_SAMPLE_DIMS uniforms per hit: 0
 the wrapper's or coat's lobe choice, 1-2 the 2D lobe sample, 3 a leaf's
@@ -51,10 +61,12 @@ from alvrl_tpu_torch.scene.scene import (
     ROUGH_CONDUCTOR,
     ROUGH_DIELECTRIC,
     ROUGH_PLASTIC,
+    TEXTURED_KINDS,
     WARD,
     Materials,
     Scene,
 )
+from alvrl_tpu_torch.textures.procedural import PROCEDURAL, albedo_at
 
 N_SAMPLE_DIMS = 5  # uniforms consumed per sample, as in the reference
 DELTA_KINDS = frozenset((NULL, MIRROR, DIELECTRIC))
@@ -64,9 +76,40 @@ SMOOTH_LEAF_KINDS = frozenset((DIFFUSE, ROUGH_CONDUCTOR, ROUGH_PLASTIC,
                                ROUGH_DIELECTRIC))
 WRAPPER_KINDS = frozenset((MASK, MIXTURE))
 COAT_KINDS = frozenset((COATING, ROUGH_COATING))
-PORTED_KINDS = DELTA_KINDS | SMOOTH_LEAF_KINDS | WRAPPER_KINDS | COAT_KINDS
-UNPORTED_KINDS = {NORMALMAP: "NORMALMAP", HK: "HK", IRAWAN: "IRAWAN"}
+# the kinds the kernels' material forms evaluate at the eye hit (the
+# textured forms also TEXTURED_KINDS)
+MATERIAL_FORM_KINDS = (DELTA_KINDS | SMOOTH_LEAF_KINDS | WRAPPER_KINDS
+                       | COAT_KINDS)
+PORTED_KINDS = MATERIAL_FORM_KINDS | TEXTURED_KINDS
+UNPORTED_KINDS = {IRAWAN: "IRAWAN"}
 MODES = ("radiance", "importance")
+
+
+class Shading(NamedTuple):
+    """The textured surface at a hit (shading): the shading normal and
+    the albedos (..., 3) of the hit material's leaf, its nested and its
+    nested2 material at the hit point."""
+
+    ns: torch.Tensor
+    albedo: torch.Tensor
+    albedo_n1: torch.Tensor
+    albedo_n2: torch.Tensor
+
+
+def shading(scene: Scene, mat_id, ng, p, uv) -> Shading:
+    """The Shading of material mat_id at hit points p with the oriented
+    normal ng and the texture coordinates uv (textures.procedural.
+    interp_uv): a NORMALMAP's normal perturbed by its normal texture at
+    uv (layered.perturbed_normal), ng elsewhere; each leaf's
+    albedo_at(p, uv)."""
+    mats = scene.materials
+    ns = ng
+    if NORMALMAP in mats.host_kinds:
+        ns = torch.where((mats.kind[mat_id] == NORMALMAP)[..., None],
+                         layered.perturbed_normal(
+                             scene.textures, mats.tex_id[mat_id], ng, uv), ng)
+    return Shading(ns, *(albedo_at(scene, mid, p, uv) for mid in (
+        mat_id, mats.nested[mat_id], mats.nested2[mat_id])))
 
 
 class BSDFSample(NamedTuple):
@@ -88,7 +131,7 @@ def check_kinds(scene_or_materials) -> frozenset:
     if other:
         names = [UNPORTED_KINDS.get(k, str(k)) for k in other]
         raise ValueError(f"material kinds {names} are not ported (ROADMAP "
-                         f"A11; kinds {sorted(kinds)})")
+                         f"A11a; kinds {sorted(kinds)})")
     return kinds
 
 
@@ -101,16 +144,22 @@ def has_glossy(kinds) -> bool:
 def smooth_flags(mats: Materials):
     """(M,) bool: has material i a smooth component, so that its eval
     can be non-zero? A smooth leaf kind (DIFFUSE only with a non-zero
-    albedo, the diffuse kernels' gate), ROUGH_COATING (its glossy coat),
-    and MASK, COATING or MIXTURE over such a leaf."""
+    albedo, the diffuse kernels' gate, or a procedural texture's non-zero
+    albedo2), ROUGH_COATING (its glossy coat), HK, and MASK, COATING,
+    NORMALMAP or MIXTURE over such a leaf."""
     kind = mats.kind
     leaf = torch.zeros_like(kind, dtype=torch.bool)
     for k in SMOOTH_LEAF_KINDS:
         leaf |= kind == k
-    leaf &= (kind != DIFFUSE) | (mats.albedo.sum(dim=-1) > 0.0)
+    procedural = torch.zeros_like(leaf)
+    for k in PROCEDURAL:
+        procedural |= mats.tex_kind == k
+    leaf &= ((kind != DIFFUSE) | (mats.albedo.sum(dim=-1) > 0.0)
+             | (procedural & (mats.albedo2.sum(dim=-1) > 0.0)))
     n1, n2 = leaf[mats.nested], leaf[mats.nested2]
-    return (leaf | (kind == ROUGH_COATING)
-            | (((kind == MASK) | (kind == COATING)) & n1)
+    return (leaf | (kind == ROUGH_COATING) | (kind == HK)
+            | (((kind == MASK) | (kind == COATING) | (kind == NORMALMAP))
+               & n1)
             | ((kind == MIXTURE) & (n1 | n2)))
 
 
@@ -125,14 +174,16 @@ def _select(out, kind, cases):
     return out
 
 
-def _leaf_eval_local(mats: Materials, mid, wi_l, wo_l, kinds):
+def _leaf_eval_local(mats: Materials, mid, wi_l, wo_l, kinds, albedo=None):
     """f cos_o of the smooth component of a leaf kind in the local frame
-    (z = shading normal); 0 for the delta and wrapper kinds."""
+    (z = shading normal), with the table's albedo or `albedo`; 0 for the
+    delta and wrapper kinds."""
     kind = mats.kind[mid]
     alpha = mats.alpha[mid]
     alpha_v = mats.alpha_v[mid]
     dist = mats.dist[mid]
-    albedo = mats.albedo[mid]
+    if albedo is None:
+        albedo = mats.albedo[mid]
     cos_o = torch.clamp(wo_l[..., 2], min=0.0)
     shape = torch.broadcast_shapes(albedo.shape, wo_l.shape)
     cases = {
@@ -188,33 +239,42 @@ def _rough_t(mats, mat_id, cos_i):
 
 
 def eval_smooth(mats: Materials, mat_id, ng, wi_world, wo_world,
-                kinds=None):
+                kinds=None, shade: Shading = None):
     """BSDF eval times cos(theta_o) of the smooth (ESmooth) components at
     the shading normal ng: the reference's bsdf->eval(bRec) with the
     ESmooth measure (vrlIntegrator.cpp:758-761), the vol-surf factor of
     the VRL estimator. wi_world points away from the surface toward the
-    eye, wo_world toward the light. Resolves MASK, MIXTURE, COATING and
-    ROUGH_COATING; the delta kinds give 0. mat_id, ng and the directions
-    broadcast together. `kinds`: check_kinds' set (checked here if
-    None)."""
+    eye, wo_world toward the light. Resolves MASK, MIXTURE, NORMALMAP,
+    COATING and ROUGH_COATING, and evaluates the HK slab; the delta kinds
+    give 0. mat_id, ng and the directions broadcast together. `kinds`:
+    check_kinds' set (checked here if None). `shade`, the hit's Shading,
+    replaces ng by its shading normal and the leaves' albedos by its
+    own."""
     if kinds is None:
         kinds = check_kinds(mats)
     kind = mats.kind[mat_id]
-    _, _, wi_l, wo_l = _local(ng, wi_world, wo_world)
+    _, _, wi_l, wo_l = _local(ng if shade is None else shade.ns, wi_world,
+                              wo_world)
 
-    def leaf(mid, wi=wi_l, wo=wo_l):
-        return _leaf_eval_local(mats, mid, wi, wo, kinds)
+    def leaf(mid, slot, wi=wi_l, wo=wo_l):
+        return _leaf_eval_local(mats, mid, wi, wo, kinds,
+                                None if shade is None else shade[1 + slot])
 
-    out = leaf(mat_id)
-    if kinds & WRAPPER_KINDS:
-        f_n1 = leaf(mats.nested[mat_id])
+    out = leaf(mat_id, 0)
+    if kinds & (WRAPPER_KINDS | {NORMALMAP}):
+        f_n1 = leaf(mats.nested[mat_id], 1)
         w = mats.opacity[mat_id][..., None]
         out = _select(out, kind, [
             (k, fn) for k, fn in (
                 (MASK, lambda: w * f_n1),
                 (MIXTURE, lambda: w * f_n1 + (1.0 - w) * leaf(
-                    mats.nested2[mat_id])))
+                    mats.nested2[mat_id], 2)),
+                (NORMALMAP, lambda: f_n1))
             if k in kinds])
+    if HK in kinds:
+        out = _select(out, kind, [(HK, lambda: layered.hk_eval(
+            wi_l, wo_l, mats.albedo[mat_id], mats.albedo2[mat_id],
+            mats.exponent[mat_id], mats.alpha[mat_id]))])
     if kinds & COAT_KINDS:
         # coating.cpp: the nested eval at the refracted directions,
         # Fresnel-attenuated (smooth coat) or attenuated by the rough
@@ -225,7 +285,7 @@ def eval_smooth(mats: Materials, mat_id, ng, wi_world, wo_world,
         absorb = layered.coating_absorption(
             mats.albedo2[mat_id], mats.exponent[mat_id], wi_p[..., 2],
             wo_p[..., 2])
-        f_nest = leaf(mats.nested[mat_id], wi_p, wo_p)
+        f_nest = leaf(mats.nested[mat_id], 1, wi_p, wo_p)
 
         def coat():
             f = f_nest * ((1.0 - fi) * (1.0 - fo) * jac)[..., None] * absorb
@@ -281,29 +341,36 @@ def _leaf_pdf_local(mats: Materials, mid, wi_l, wo_l, kinds):
                                if k in kinds])
 
 
-def pdf_smooth(mats: Materials, mat_id, ng, wi_world, wo_world, kinds=None):
+def pdf_smooth(mats: Materials, mat_id, ng, wi_world, wo_world, kinds=None,
+               shade: Shading = None):
     """The solid-angle pdf with which sample_from_uniforms draws wo_world
     given wi_world over the smooth lobes (BSDF::pdf with the ESmooth
     measure), what bidirectional MIS weights need; the wrappers and
-    layers mix their nested pdfs by their selection probabilities."""
+    layers mix their nested pdfs by their selection probabilities, HK
+    takes its two-sided cosine pdf. `shade` as eval_smooth's (its
+    shading normal)."""
     if kinds is None:
         kinds = check_kinds(mats)
     kind = mats.kind[mat_id]
-    _, _, wi_l, wo_l = _local(ng, wi_world, wo_world)
+    _, _, wi_l, wo_l = _local(ng if shade is None else shade.ns, wi_world,
+                              wo_world)
 
     def leaf(mid, wi=wi_l, wo=wo_l):
         return _leaf_pdf_local(mats, mid, wi, wo, kinds)
 
     out = leaf(mat_id)
-    if kinds & WRAPPER_KINDS:
+    if kinds & (WRAPPER_KINDS | {NORMALMAP}):
         p_n1 = leaf(mats.nested[mat_id])
         w = mats.opacity[mat_id]
         out = _select(out, kind, [
             (k, fn) for k, fn in (
                 (MASK, lambda: w * p_n1),
                 (MIXTURE, lambda: w * p_n1 + (1.0 - w) * leaf(
-                    mats.nested2[mat_id])))
+                    mats.nested2[mat_id])),
+                (NORMALMAP, lambda: p_n1))
             if k in kinds])
+    if HK in kinds:
+        out = _select(out, kind, [(HK, lambda: layered.hk_pdf(wi_l, wo_l))])
     if kinds & COAT_KINDS:
         fi, _, wi_p, wo_p, ok_c, jac = layered.coating_factors(
             wi_l, wo_l, mats.eta[mat_id])
@@ -334,13 +401,16 @@ def pdf_smooth(mats: Materials, mat_id, ng, wi_world, wo_world, kinds=None):
 
 
 def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
-                         mode: str = "radiance", kinds=None) -> BSDFSample:
+                         mode: str = "radiance", kinds=None,
+                         shade: Shading = None) -> BSDFSample:
     """Sample the BSDF of material mat_id at a hit with the oriented
     normal ng and the winding normal ng_raw, reached along the direction
     d_in (pointing at the surface), from u (..., N_SAMPLE_DIMS), in the
     transport `mode` ("radiance" or "importance"). `kinds`, the set of
     kinds in the table as check_kinds returns it, saves the check;
-    without it the table is checked here."""
+    without it the table is checked here. `shade`, the hit's Shading:
+    its shading normal replaces ng (the delta kinds keep ng_raw), the
+    sampled leaf takes its albedo."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if kinds is None:
@@ -351,18 +421,23 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
     false = torch.zeros_like(kind0, dtype=torch.bool)
 
     # wrapper resolution (one nesting level): the mask passes the ray on
-    # with probability 1 - opacity, the mixture picks a component
+    # with probability 1 - opacity, the mixture picks a component, the
+    # normal map shades its nested leaf; slot: which of the Shading's
+    # albedos the leaf eff reads
     eff = mat_id
+    slot = torch.zeros_like(mat_id)
     mask_pass = is_coat = is_rcoat = false
-    if kinds & WRAPPER_KINDS:
+    if kinds & (WRAPPER_KINDS | {NORMALMAP}):
         opac = mats.opacity[mat_id]
         is_mask = kind0 == MASK
         is_mix = kind0 == MIXTURE
         mask_pass = is_mask & (u_sel >= opac)
-        eff = torch.where(
-            is_mask, mats.nested[mat_id],
-            torch.where(is_mix & (u_sel < opac), mats.nested[mat_id],
-                        torch.where(is_mix, mats.nested2[mat_id], mat_id)))
+        first = is_mask | (kind0 == NORMALMAP) | (is_mix & (u_sel < opac))
+        eff = torch.where(first, mats.nested[mat_id],
+                          torch.where(is_mix, mats.nested2[mat_id], mat_id))
+        slot = torch.where(first, 1, torch.where(is_mix, 2, 0))
+    if shade is not None:
+        ng = shade.ns
 
     s_f, t_f = m.build_frame(ng)
     glossy = has_glossy(kinds)
@@ -390,9 +465,15 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
         into = coat_trans | rcoat_trans
         wi_l = torch.where(into[..., None], wi_refr, wi_l)
         eff = torch.where(into, mats.nested[mat_id], eff)
+        slot = torch.where(into, 1, slot)
 
     kind = mats.kind[eff]
-    albedo = mats.albedo[eff]
+    if shade is None:
+        albedo = mats.albedo[eff]
+    else:
+        albedo = torch.where((slot == 0)[..., None], shade.albedo,
+                             torch.where((slot == 1)[..., None],
+                                         shade.albedo_n1, shade.albedo_n2))
     alpha = mats.alpha[eff]
     u2 = u[..., 1:3]
     u3 = torch.cat([u[..., 3:4], u2], dim=-1)
@@ -494,6 +575,30 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
             weight = torch.where(rcoat_trans[..., None], w_rcoat_t, weight)
             weight = torch.where(rcoat_refl[..., None], w_rcoat_r, weight)
 
+    # hk.cpp: the unscattered delta transmission with probability
+    # clamp(mean T_delta, 1e-3, 0.9), else the two-sided cosine lobe
+    hk_delta = is_hk = false
+    if HK in kinds:
+        is_hk = kind0 == HK
+        sig_s_hk, sig_a_hk = mats.albedo[mat_id], mats.albedo2[mat_id]
+        th_hk = mats.exponent[mat_id]
+        t_delta = layered.hk_delta_transmittance(wi_l, sig_s_hk, sig_a_hk,
+                                                 th_hk)
+        p_delta = torch.clamp(t_delta.mean(dim=-1), 1e-3, 0.9)
+        hk_delta = is_hk & (u_sel < p_delta)
+        hk_scat = is_hk & ~hk_delta
+        flip = torch.tensor([1.0, 1.0, -1.0], device=u.device)
+        wo_hk_l = torch.where((u[..., 3] < 0.5)[..., None],
+                              wo_diffuse_l * flip, wo_diffuse_l)
+        f_hk = layered.hk_eval(wi_l, wo_hk_l, sig_s_hk, sig_a_hk, th_hk,
+                               mats.alpha[mat_id])
+        pdf_hk = layered.hk_pdf(wi_l, wo_hk_l)
+        w_hk = f_hk / torch.clamp(pdf_hk * (1.0 - p_delta),
+                                  min=1e-12)[..., None]
+        w_hk_delta = t_delta / p_delta[..., None]
+        wo_l = torch.where(hk_scat[..., None], wo_hk_l, wo_l)
+        weight = torch.where(hk_scat[..., None], w_hk, weight)
+
     wo = m.frame_to_world(s_f, t_f, ng, wo_l)
     eta_ratio = torch.ones_like(weight[..., 0])
     is_delta_kind = false
@@ -520,6 +625,10 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
         wo = torch.where(((kind == PLASTIC) & pl_delta)[..., None],
                          m.frame_to_world(s_f, t_f, ng, wo_pl_l), wo)
         pl_delta = (kind == PLASTIC) & pl_delta
+    if HK in kinds:
+        # the delta transmission continues straight through (hk.cpp:206)
+        wo = torch.where(hk_delta[..., None], d_in, wo)
+        weight = torch.where(hk_delta[..., None], w_hk_delta, weight)
     if MASK in kinds:
         # the mask's pass-through (its null component)
         wo = torch.where(mask_pass[..., None], d_in, wo)
@@ -537,7 +646,7 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
     # when its delta coat was sampled
     return BSDFSample(
         wo=wo, weight=weight, eta_ratio=eta_ratio,
-        is_delta=is_delta_kind | pl_delta | coat_refl | mask_pass,
-        is_smooth=(smooth | is_coat | is_rcoat) & ~mask_pass,
-        valid=(smooth | is_delta_kind | mask_pass | is_coat | is_rcoat)
-        & ~dead)
+        is_delta=is_delta_kind | pl_delta | coat_refl | hk_delta | mask_pass,
+        is_smooth=(smooth | is_coat | is_rcoat | is_hk) & ~mask_pass,
+        valid=(smooth | is_delta_kind | mask_pass | is_coat | is_rcoat
+               | is_hk) & ~dead)

@@ -9,9 +9,11 @@ grid medium (GRID_MEDIUM_KEYS, recognised by "medium.sigma_t_color"). The
 optional leaves: a homogeneous medium's strategy, channel and manual
 rate (MEDIUM_STRATEGY_KEYS) and a mixture's components
 (MIXTURE_KEYS); the environment map (ENV_KEYS); the faces' emitter
-ids ("face_emitter"); per-shape media (MEDIA_KEYS). Absent, they take
-the defaults: balance, no mixture, the zero map, no emitting face, the
-one global medium. A grid medium's optional leaves (GRID_OPTION_KEYS:
+ids ("face_emitter"); per-shape media (MEDIA_KEYS); the textures
+(TEXTURE_KEYS: the materials' texture kind, scale and bitmap id, the
+faces' corner UVs and the bitmap stack). Absent, they take the
+defaults: balance, no mixture, the zero map, no emitting face, the one
+global medium, no texture. A grid medium's optional leaves (GRID_OPTION_KEYS:
 fast_tau, sampling, sigma_dir_max, the orientation volume, and an
 oriented kind's phase parameters, ORIENTED_PP_KEYS) default to the
 JAX package's defaults: fast_tau True, Woodcock sampling, factor 1,
@@ -66,6 +68,8 @@ ENV_KEYS = tuple(f"emitters.env.{k}" for k in (
     "image", "row_cdf", "cond_cdf", "pdf_map", "mean", "azimuth"))
 MEDIA_KEYS = ("media.sigma_a", "media.sigma_s", "media.g",
               "media.sampling_weight", "face_med_int", "face_med_ext")
+TEXTURE_KEYS = ("materials.tex_kind", "materials.tex_scale",
+                "materials.tex_id", "face_uv", "textures")
 VRL_KEYS = ("start", "end", "power", "valid", "particle_count")
 
 
@@ -135,13 +139,21 @@ def scene_from_numpy(d, device="cuda") -> Scene:
         extra["media"] = MediaTable(*(f32(k) for k in MEDIA_KEYS[:4]))
         extra["face_med_int"] = i64("face_med_int")
         extra["face_med_ext"] = i64("face_med_ext")
+    textures = {}
+    if TEXTURE_KEYS[0] in d:
+        _missing(d, TEXTURE_KEYS)
+        textures = dict(tex_kind=i64("materials.tex_kind"),
+                        tex_scale=f32("materials.tex_scale"),
+                        tex_id=i64("materials.tex_id"))
+        extra["face_uv"] = f32("face_uv")
+        extra["textures"] = f32("textures")
     return Scene(
         vertices=f32("vertices"),
         faces=i64("faces"),
         material=i64("material"),
         materials=Materials(**{
             k: (i64 if k in MATERIAL_INT_KEYS else f32)(f"materials.{k}")
-            for k in MATERIAL_KEYS}),
+            for k in MATERIAL_KEYS}, **textures),
         emitters=Emitters(
             kind=i64("emitters.kind"),
             **{k: f32(f"emitters.{k}") for k in EMITTER_KEYS[1:]},

@@ -28,6 +28,34 @@
 // that sweep a plane pack make it through here in front of their launch.
 extern "C" int alvrl_plane_pack(const float* tris, int T, float* out, void* stream);
 
+// vrl_sum_tex.cu, vrl_sum_clustered_tex.cu, vrl_r_tex.cu: the textured
+// forms of kernels 1, 2 and 5 (vrl_tex.cuh), which
+// alvrl_vrl_sum, alvrl_vrl_sum_clustered and alvrl_vrl_r launch when their
+// `tex` is set, with their other arguments.
+extern "C" int alvrl_vrl_sum_tex(const float* rays, int B, const float* vrls, int N,
+                                 const float* tris, int T, const float* med,
+                                 const float* mat_table, int M, const float* rt,
+                                 const float* uniforms, unsigned int seed, int svv, int svs,
+                                 int short_vrls, int phase_kind, float* planes, int mode,
+                                 unsigned long long* counts, float* partial, int n_chunks,
+                                 float* out, void* stream);
+extern "C" int alvrl_vrl_sum_clustered_tex(const float* rays, int B, const float* vrls, int N,
+                                           const float* tris, int T, const float* med,
+                                           const float* mat_table, int M, const float* rt,
+                                           const int* tile_rays, const int* tile_row,
+                                           int n_tiles, const int* table_ids,
+                                           const float* table_w, int C, const float* uniforms,
+                                           unsigned int seed, int svv, int svs, int short_vrls,
+                                           int phase_kind, float* planes, int mode,
+                                           unsigned long long* counts, float* out,
+                                           void* stream);
+extern "C" int alvrl_vrl_r_tex(const float* rays, int B, const float* vrls, int N,
+                               const float* tris, int T, const float* med,
+                               const float* mat_table, int M, const float* rt,
+                               const float* uniforms, unsigned int seed, int svv, int svs,
+                               int short_vrls, int phase_kind, float* planes, int mode,
+                               unsigned long long* counts, float* out, void* stream);
+
 namespace {
 
 // pack layouts: ops/pack.py
@@ -1524,11 +1552,14 @@ __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, P
 // contribution (not divided by the family's sample count). MAT (the
 // material kernels, with their table `mats`, in either medium): the
 // vol-surf term evaluates the hit's smooth BSDF (vol_surf_term_mat);
-// MAT = false is the diffuse term, unchanged.
-template <int PHASE, bool SHORT_VRLS, bool MAT = false, class Med, class Occl, class Emit>
+// MAT = false is the diffuse term, unchanged. MatT: Mats, or the
+// textured forms' own view of the eye hit (vrl_tex.cuh TexMats, with its
+// vol_surf_term_mat).
+template <int PHASE, bool SHORT_VRLS, bool MAT = false, class Med, class Occl, class Emit,
+          class MatT = Mats>
 __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,
                                            PairUniforms& draw, int svv, int svs, const Occl& occl,
-                                           Emit&& emit, const Mats* mats = nullptr) {
+                                           Emit&& emit, const MatT* mats = nullptr) {
   pair_samples(ray, p, draw, svv, svs, occl, [&](int family, const Sample& sm) {
     float t[3];
     if (family == 0)

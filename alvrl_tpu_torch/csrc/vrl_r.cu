@@ -271,12 +271,16 @@ extern "C" {
 // checking instantiation (counts: N_CHECK totals, zeroed by the caller,
 // as alvrl_vrl_sum's).
 // mat_table, M and rt: the material table of the material instantiation,
-// as alvrl_vrl_sum's (null, 0, null: the diffuse R).
+// as alvrl_vrl_sum's (null, 0, null: the diffuse R); tex 1: its textured
+// form (vrl_tex.cuh), as alvrl_vrl_sum's.
 int alvrl_vrl_r(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                const float* med, const float* mat_table, int M, const float* rt,
+                const float* med, const float* mat_table, int M, const float* rt, int tex,
                 const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
                 int phase_kind, float* planes, int mode, unsigned long long* counts, float* out,
                 void* stream) {
+  if (tex)
+    return alvrl_vrl_r_tex(rays, B, vrls, N, tris, T, med, mat_table, M, rt, uniforms, seed, svv,
+                           svs, short_vrls, phase_kind, planes, mode, counts, out, stream);
   return launch_r<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M, rt, uniforms,
                          seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,
                          stream);

@@ -473,12 +473,17 @@ int alvrl_plane_f4() { return PLANE_F4; }
 // mat_table (M, MAT_COLS), M and rt (M, RT_COS, RT_ALPHA): the material
 // table (ops/pack.py pack_materials) for the material instantiation, whose
 // rays carry the hit's material id in row MATID; null, 0 and null for the
-// diffuse sum.
+// diffuse sum. tex 1 (with a table): the textured form (vrl_tex.cuh), whose
+// rays are the textured pack, in mode 0 or 1.
 int alvrl_vrl_sum(const float* rays, int B, const float* vrls, int N, const float* tris, int T,
-                  const float* med, const float* mat_table, int M, const float* rt,
+                  const float* med, const float* mat_table, int M, const float* rt, int tex,
                   const float* uniforms, unsigned int seed, int svv, int svs, int short_vrls,
                   int phase_kind, float* planes, int mode, unsigned long long* counts,
                   float* partial, int n_chunks, float* out, void* stream) {
+  if (tex)
+    return alvrl_vrl_sum_tex(rays, B, vrls, N, tris, T, med, mat_table, M, rt, uniforms, seed,
+                             svv, svs, short_vrls, phase_kind, planes, mode, counts, partial,
+                             n_chunks, out, stream);
   return launch_homog(rays, B, vrls, N, tris, T, med, mat_table, M, rt, uniforms, seed, svv, svs,
                       short_vrls, phase_kind, planes, mode, counts, partial, n_chunks, out,
                       stream);

@@ -378,14 +378,20 @@ int alvrl_clustered_ray_block(int grid) {
 // bit); `out` is (3, B), written only at the rays of the tiles.
 // `uniforms` may be null (Philox stream from `seed`).
 // mat_table, M and rt: the material table of the material instantiation,
-// as alvrl_vrl_sum's (null, 0, null: the diffuse sum).
+// as alvrl_vrl_sum's (null, 0, null: the diffuse sum); tex 1: its textured
+// form (vrl_tex.cuh), as alvrl_vrl_sum's.
 int alvrl_vrl_sum_clustered(const float* rays, int B, const float* vrls, int N,
                             const float* tris, int T, const float* med, const float* mat_table,
-                            int M, const float* rt, const int* tile_rays, const int* tile_row,
-                            int n_tiles, const int* table_ids, const float* table_w, int C,
-                            const float* uniforms, unsigned int seed, int svv, int svs,
-                            int short_vrls, int phase_kind, float* planes, int mode,
-                            unsigned long long* counts, float* out, void* stream) {
+                            int M, const float* rt, int tex, const int* tile_rays,
+                            const int* tile_row, int n_tiles, const int* table_ids,
+                            const float* table_w, int C, const float* uniforms, unsigned int seed,
+                            int svv, int svs, int short_vrls, int phase_kind, float* planes,
+                            int mode, unsigned long long* counts, float* out, void* stream) {
+  if (tex)
+    return alvrl_vrl_sum_clustered_tex(rays, B, vrls, N, tris, T, med, mat_table, M, rt,
+                                       tile_rays, tile_row, n_tiles, table_ids, table_w, C,
+                                       uniforms, seed, svv, svs, short_vrls, phase_kind, planes,
+                                       mode, counts, out, stream);
   return launch_clustered<false>(rays, B, vrls, N, tris, T, med, GridArgs{}, 0, mat_table, M, rt,
                                  tile_rays, tile_row, n_tiles, table_ids, table_w, C, uniforms,
                                  seed, svv, svs, short_vrls, phase_kind, planes, mode, counts, out,

@@ -27,6 +27,7 @@ class Hit(NamedTuple):
     p: torch.Tensor      # hit position (..., 3)
     ng: torch.Tensor     # geometric normal, oriented toward the ray origin
     ng_raw: torch.Tensor  # geometric normal as the winding defines it
+    uv: torch.Tensor = None  # barycentric (u, v) (..., 2) on the triangle
 
 
 def ray_triangle(o, d, p0, p1, p2):
@@ -59,7 +60,7 @@ def intersect_all(o, d, verts, faces, tmin=RAY_EPS, tmax=None):
     """Closest hit of rays (..., 3) against all triangles, at a distance
     in (tmin, tmax) (floats, or tensors (...) of one bound a ray)."""
     p0, p1, p2 = _triangles(verts, faces)
-    t, _, _, hit = ray_triangle(o[..., None, :], d[..., None, :], p0, p1, p2)
+    t, u, v, hit = ray_triangle(o[..., None, :], d[..., None, :], p0, p1, p2)
     inf = torch.full_like(t, float("inf"))
 
     def col(x):
@@ -72,21 +73,27 @@ def intersect_all(o, d, verts, faces, tmin=RAY_EPS, tmax=None):
     prim = t.argmin(dim=-1)  # first of equal minima, as jnp.argmin
     t_best = t.gather(-1, prim[..., None])[..., 0]
     valid = torch.isfinite(t_best)
+    uv = torch.stack([u.gather(-1, prim[..., None])[..., 0],
+                      v.gather(-1, prim[..., None])[..., 0]], dim=-1)
     prim = torch.where(valid, prim, torch.full_like(prim, -1))
-    return hit_record(o, d, t_best, prim, valid, verts, faces)
+    return hit_record(o, d, t_best, prim, valid, verts, faces, uv)
 
 
-def hit_record(o, d, t, prim, valid, verts, faces):
+def hit_record(o, d, t, prim, valid, verts, faces, uv=None):
     """The Hit of rays (o, d) at distance t on triangle prim (-1, and t
-    inf, for a miss): the point, the face's winding normal, and that
-    normal oriented toward the incoming ray (two-sided shading). A miss
-    carries face 0's normals, as the reference's."""
+    inf, for a miss): the point, the face's winding normal, that normal
+    oriented toward the incoming ray (two-sided shading), and the
+    barycentric uv (the Moller-Trumbore u, v of the ray against face prim
+    unless given). A miss carries face 0's normals, as the reference's."""
     f = faces[prim.clamp(min=0)]
     a, b, c = verts[f[..., 0]], verts[f[..., 1]], verts[f[..., 2]]
     ng_raw = m.normalize(m.cross(b - a, c - a))
     ng = torch.where(m.dot(ng_raw, d, keepdim=True) > 0, -ng_raw, ng_raw)
+    if uv is None:
+        _, u, v, _ = ray_triangle(o, d, a, b, c)
+        uv = torch.stack([u, v], dim=-1)
     return Hit(t=t, prim=prim, valid=valid, p=o + t[..., None] * d, ng=ng,
-               ng_raw=ng_raw)
+               ng_raw=ng_raw, uv=uv)
 
 
 def occluded(p_from, p_to, verts, faces):

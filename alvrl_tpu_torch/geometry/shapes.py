@@ -1,8 +1,8 @@
 """Procedural triangle-mesh shapes (host-side numpy).
 
 Counterpart of alvrl_tpu/geometry/shapes.py (rectangle, cube, sphere,
-disk, cylinder, apply_transform, merge), with the outward winding of
-every cube face and sphere triangle. Shapes are triangulated up front,
+disk, cylinder, apply_transform, auto_uvs, merge), with the outward
+winding of every cube face and sphere triangle. Shapes are triangulated up front,
 so the intersector sees one triangle soup. Not ported: heightfield,
 hair, instance (ROADMAP A11).
 """
@@ -127,20 +127,61 @@ def apply_transform(mat4, verts):
     return (out[:, :3] / out[:, 3:4]).astype(np.float32)
 
 
-def merge(parts):
-    """Merge [(verts, faces, material_id), ...] into one soup.
+def auto_uvs(kind: str, v, f, center=None):
+    """Each face corner's texture coordinates (F, 3, 2) for an analytic
+    shape, from its canonical (before to_world) vertices, as
+    src/shapes/{rectangle,cube,sphere}.cpp parameterise them: the
+    rectangle's (x, y) in [-1, 1]^2 onto [0, 1]^2, the cube's projection
+    along each face's dominant axis, the sphere's (phi / 2 pi, theta / pi)
+    about `center` (each triangle's u rebased to its corner 0's, so that
+    none spans the seam). Other kinds get zeros."""
+    v = np.asarray(v, np.float32)
+    f = np.asarray(f, np.int32)
+    corners = v[f]  # (F, 3, 3)
+    if kind == "rectangle":
+        return ((corners[..., :2] + 1.0) * 0.5).astype(np.float32)
+    if kind == "cube":
+        n = np.cross(corners[:, 1] - corners[:, 0],
+                     corners[:, 2] - corners[:, 0])
+        axis = np.argmax(np.abs(n), axis=-1)
+        uv = np.zeros((len(f), 3, 2), np.float32)
+        for a, (i0, i1) in enumerate([(1, 2), (0, 2), (0, 1)]):
+            sel = axis == a
+            uv[sel] = (corners[sel][..., [i0, i1]] + 1.0) * 0.5
+        return uv
+    if kind == "sphere":
+        c = np.zeros(3, np.float32) if center is None else np.asarray(
+            center, np.float32)
+        d = corners - c
+        d = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+        theta = np.arccos(np.clip(d[..., 2], -1, 1))
+        phi = np.arctan2(d[..., 1], d[..., 0])
+        u = phi / (2 * np.pi) + 0.5
+        u = u - np.round(u - u[:, :1])
+        return np.stack([u, theta / np.pi], axis=-1).astype(np.float32)
+    return np.zeros((len(f), 3, 2), np.float32)
 
-    Returns (verts (V, 3) f32, faces (T, 3) i32, material ids (T,) i32).
+
+def merge(parts):
+    """Merge [(verts, faces, material_id[, face_uv]), ...] into one soup.
+
+    Returns (verts (V, 3) f32, faces (T, 3) i32, material ids (T,) i32,
+    face_uvs (T, 3, 2) f32: each part's, zeros where a part has none).
     """
-    all_v, all_f, all_m = [], [], []
+    all_v, all_f, all_m, all_uv = [], [], [], []
     off = 0
-    for v, f, mat in parts:
+    for part in parts:
+        v, f, mat = part[:3]
+        uv = part[3] if len(part) > 3 and part[3] is not None else \
+            np.zeros((len(f), 3, 2), np.float32)
         all_v.append(v)
         all_f.append(f + off)
         all_m.append(np.full((len(f),), mat, dtype=np.int32))
+        all_uv.append(np.asarray(uv, np.float32))
         off += len(v)
     return (
         np.concatenate(all_v, axis=0),
         np.concatenate(all_f, axis=0),
         np.concatenate(all_m, axis=0),
+        np.concatenate(all_uv, axis=0),
     )

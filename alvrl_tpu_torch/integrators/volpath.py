@@ -47,6 +47,7 @@ from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.media import table as mtbl
 from alvrl_tpu_torch.scene.scene import NULL, Scene
+from alvrl_tpu_torch.textures.procedural import interp_uv
 
 U_DIST, U_NEE, U_PHASE = slice(0, 2), slice(2, 5), slice(5, 7)
 U_BSDF = slice(7, 7 + bsdf_api.N_SAMPLE_DIMS)
@@ -151,6 +152,7 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
               "an oriented micro-flake medium")
     use_mis = cfg.mis and not cfg.only_vrl_paths
     kinds = bsdf_api.check_kinds(scene)
+    textured = scene.textured()
     mats, em = scene.materials, scene.emitters
     lo, hi = scene.aabb()
     radius = 0.5 * m.length(hi - lo)
@@ -278,17 +280,21 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
         nee_dir_s, nee_val_s, p_nee_s, misable_s = _nee(
             scene, u_nee, hit_p, radius, env_center, blockers, density_ss,
             med_surf)
+        # a textured table's surface at the hit's point and UV
+        shade = bsdf_api.shading(scene, mat_id, hit.ng, hit_p, interp_uv(
+            scene.face_uv, hit.prim, hit.uv)) if textured else None
         bsdf_val = bsdf_api.eval_smooth(mats, mat_id, hit.ng, -rd, nee_dir_s,
-                                        kinds)
+                                        kinds, shade)
         if use_mis:
             p_dir_s = bsdf_api.pdf_smooth(mats, mat_id, hit.ng, -rd,
-                                          nee_dir_s, kinds)
+                                          nee_dir_s, kinds, shade)
             w_nee_s = torch.where(misable_s, p_nee_s / torch.clamp(
                 p_nee_s + p_dir_s, min=1e-30), 1.0)
             bsdf_val = bsdf_val * w_nee_s[..., None]
         smp = bsdf_api.sample_from_uniforms(scene, uk[:, U_BSDF], mat_id,
                                             hit.ng, hit.ng_raw, rd,
-                                            mode="radiance", kinds=kinds)
+                                            mode="radiance", kinds=kinds,
+                                            shade=shade)
         nee_ok_surf = smp.is_smooth
         if cfg.only_vrl_paths:
             nee_ok_surf = nee_ok_surf & first_ok & second_ok
@@ -338,7 +344,7 @@ def li_volpath_u(scene: Scene, ray_o, ray_d, u, cfg: VolpathConfig =
         new_pdf, new_delta = st["prev_pdf"], st["prev_delta"]
         if use_mis:
             p_fwd_s = bsdf_api.pdf_smooth(mats, mat_id, hit.ng, -rd, smp.wo,
-                                          kinds)
+                                          kinds, shade)
             new_pdf = torch.where(medium_event, pdf_phase_s, torch.where(
                 surface_event, p_fwd_s, st["prev_pdf"]))
             new_delta = torch.where(medium_event, False, torch.where(

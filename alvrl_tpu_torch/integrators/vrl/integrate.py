@@ -134,18 +134,23 @@ def sample_v_to_distance(eye_o, eye_d, eye_hit, vrl_s, vrl_e, u):
     return v, pdf
 
 
-def bsdf_eval_smooth(materials, mat_id, ng, wi_world, wo_world, kinds=None):
+def bsdf_eval_smooth(materials, mat_id, ng, wi_world, wo_world, kinds=None,
+                     shade=None):
     """BSDF eval times cos(theta_o) of the smooth (ESmooth) components of
     the material table `materials`: the vol-surf factor at the eye hit
     (bsdf->eval(bRec), vrlIntegrator.cpp:758-761), wi_world pointing from
     the surface to the eye, wo_world toward V; the delta kinds evaluate
     to 0. Delegates to bsdf.api.eval_smooth, as the reference's
     integrate.py does; the material kernels' plain version
-    (ops.vrl_sum._pair_terms) reads it."""
+    (ops.vrl_sum._pair_terms) reads it. `shade`, the eye hit's
+    bsdf.api.Shading at its point and UV (the textured forms' rows): the
+    JAX package's pair_contribution evaluates at the point without the
+    UV (ROADMAP C23), the port at both, as the reference's
+    BSDFSamplingRecord(its, ...) does."""
     from alvrl_tpu_torch.bsdf import api as bsdf_api
 
     return bsdf_api.eval_smooth(materials, mat_id, ng, wi_world, wo_world,
-                                kinds)
+                                kinds, shade)
 
 
 def eval_transmittance_between(scene, p0, p1, density_ss=None,

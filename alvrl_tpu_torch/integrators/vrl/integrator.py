@@ -32,6 +32,18 @@ smooth kind at the eye hit and its train step differentiates it.
 Likewise a homogeneous medium with a mixture phase or a sampling
 strategy other than balance (ops.pack.pack_medium's extended pack)
 takes the extended forms of kernels 1, 2, 5, 7, 8 and 10.
+
+A textured table (Scene.textured: a procedural or bitmap texture, a
+NORMALMAP or an HK slab) takes the textured forms of kernels 1, 2 and 5
+in a homogeneous medium: the material pack with the textured ray pack
+(ops.pack.TEX_RAY_ROWS), whose rows carry each eye hit's shading normal
+and textured albedos, resolved once a ray at its hit point and UV (the
+JAX package's XLA route drops the UV there, ROADMAP C23; the port's
+term follows its tracer and volpath). The unclustered, specular-chain
+and clustered renders and R take it; the grid kernels 3, 4 and 6, the
+BVH kernel 7 and the differentiable routes (kernels 8-11, train_step)
+have no textured form yet and refuse such a table by name
+(refuse_textured, ROADMAP A11a), as does ops.pack.pack_rays_hetero.
 """
 
 from __future__ import annotations
@@ -94,16 +106,32 @@ def _eye_hits(scene: Scene, ray_o, hit):
 def material_pack(scene: Scene):
     """The material pack (ops.pack.pack_materials) that the material
     instantiations of the kernels 1-11 take, when the scene's table
-    holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy); None
-    otherwise, for the diffuse instantiations."""
-    return pk.pack_materials(scene.materials) if bsdf_api.has_glossy(
-        bsdf_api.check_kinds(scene)) else None
+    holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy) or is
+    textured (Scene.textured: with the textured ray pack, the textured
+    forms of kernels 1, 2 and 5); None otherwise, for the diffuse
+    instantiations."""
+    kinds = bsdf_api.check_kinds(scene)
+    return pk.pack_materials(scene.materials) if (
+        bsdf_api.has_glossy(kinds) or scene.textured()) else None
 
 
-def _route_materials(scene: Scene, route: str):
+def refuse_textured(scene: Scene, route: str):
+    """Raise, naming `route`, on a textured table (Scene.textured), which
+    only the homogeneous forward routes of kernels 1, 2 and 5 render."""
+    if scene.textured():
+        raise ValueError(f"{route} has no textured form: a texture, a "
+                         "NORMALMAP or an HK slab is rendered by the "
+                         "homogeneous forward routes of kernels 1, 2 and 5 "
+                         "only (ROADMAP A11a)")
+
+
+def _route_materials(scene: Scene, route: str, textured=True):
     """material_pack, in either medium (the kernels' material forms),
-    after refuse_oriented."""
+    after refuse_oriented, and refuse_textured unless the route takes a
+    textured table (`textured`) in a homogeneous medium."""
     refuse_oriented(scene.medium, route)
+    if not (textured and mapi.is_homogeneous(scene.medium)):
+        refuse_textured(scene, route)
     return material_pack(scene)
 
 
@@ -176,6 +204,7 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None, materials=None):
     as ops.pack.pack_medium makes it). Returns (px, py, hit, (rays,
     vrls, bvh, medium))."""
     refuse_oriented(scene.medium, "the large-mesh render (kernel 7)")
+    refuse_textured(scene, "the large-mesh render (kernel 7)")
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
@@ -255,7 +284,7 @@ def render_with_vrls_kernel_diff(scene: Scene, vrls: VRLs, generator,
     (the material's own parameters get no gradient, as in the JAX
     package's train step); an oriented medium is refused."""
     materials = _route_materials(scene, "the differentiable render "
-                                 "(kernels 8 and 9)")
+                                 "(kernels 8 and 9)", textured=False)
     return _render(_kernel(scene, vrl_sum_diff, vrl_sum_hetero_diff), scene,
                    vrls, generator, cfg, uniforms, None, materials)
 
@@ -484,7 +513,8 @@ def render_clustered_kernel_diff(scene: Scene, vrls: VRLs, slice_of_pixel,
     table, a mixture phase or another strategy than balance, a grid
     medium of fast_tau False (the forms of kernels 10 and 11)."""
     materials = _route_materials(scene, "the differentiable clustered "
-                                 "render (kernels 10 and 11)")
+                                 "render (kernels 10 and 11)",
+                                 textured=False)
     return _render_clustered(
         _kernel(scene, vrl_sum_clustered_diff, vrl_sum_hetero_clustered_diff),
         scene, vrls, slice_of_pixel, table_ids, table_weights, generator, cfg,

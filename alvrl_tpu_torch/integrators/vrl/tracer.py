@@ -51,6 +51,7 @@ from alvrl_tpu_torch.media import api as mapi
 from alvrl_tpu_torch.media import heterogeneous as gmed
 from alvrl_tpu_torch.media import phase as ph
 from alvrl_tpu_torch.scene.scene import Scene
+from alvrl_tpu_torch.textures.procedural import interp_uv
 
 N_EMIT_DIMS = em_mod.N_EMIT_DIMS  # one emission's uniforms (emitters)
 # the emission columns drawn first, before the walk's uniforms; the
@@ -205,11 +206,17 @@ def _step(scene, med, state, u, depth, cfg, u_track, density_ss, kinds):
     else:  # long VRLs run on to the next surface; none on a miss
         endpoint, med_store_ok = hit_p, hit.valid
 
-    # surface scattering
+    # surface scattering; a textured table's sample takes the hit's
+    # Shading at its point and UV
     mat_id = scene.material[hit.prim.clamp(min=0)]
+    tex = {}
+    if scene.textured():
+        tex["shade"] = bsdf_api.shading(scene, mat_id, hit.ng, hit_p,
+                                        interp_uv(scene.face_uv, hit.prim,
+                                                  hit.uv))
     bs = bsdf_api.sample_from_uniforms(scene, u[:, U_BSDF], mat_id, hit.ng,
-                                       hit.ng_raw, ray_d, mode="importance",
-                                       kinds=kinds)
+                                       hit.ng_raw, ray_d, "importance", kinds,
+                                       **tex)
     beta_surf = state["beta"] * ms.w_pass * bs.weight
     tp_surf = state["tp"] * ms.w_pass * bs.weight
     bsdf_dead = surface_event & (~bs.valid | (bs.weight == 0.0).all(dim=-1))

@@ -26,11 +26,18 @@ from alvrl_tpu_torch.scene.scene import DIFFUSE, Materials, Scene
 # ray pack rows, (RAY_ROWS, B): origin, direction, hit point, normal at
 # the hit (facing the ray), diffuse albedo at the hit, transmittance eye
 # -> hit, hit valid (0/1); the material kernels' pack (MAT_RAY_ROWS, B)
-# adds the hit's material id (MATID)
+# adds the hit's material id (MATID); the textured kernels' pack
+# (TEX_RAY_ROWS, B), a textured table's, adds the hit's Shading
+# (bsdf.api.shading, resolved once a ray: the eye hit is every VRL's):
+# the shading normal (TEX_NS) and the albedos of the hit material's leaf
+# and of its nested and nested2 leaves (TEX_ALB, 3 rows each)
 RO, RD, HP, NG, ALB, TAU, VALID = 0, 3, 6, 9, 12, 15, 18
 RAY_ROWS = 19
 MATID = RAY_ROWS
 MAT_RAY_ROWS = MATID + 1
+TEX_NS = MAT_RAY_ROWS
+TEX_ALB = TEX_NS + 3
+TEX_RAY_ROWS = TEX_ALB + 9
 # material pack, (M, MAT_COLS): kind, albedo (3), eta, alpha, alpha_v, the
 # microfacet distribution, specular (3), exponent, opacity, nested,
 # nested2, albedo2 (3), the rough-transmittance table's alpha span, the
@@ -101,12 +108,33 @@ def pack_rays(scene: Scene, ray_o, ray_d, hit, mat, with_mat=False):
     """(RAY_ROWS, B) rows of the eye rays and their closest hits, as
     integrators.vrl.integrator.trace_eye_rays gives them (hit, mat); with
     with_mat, (MAT_RAY_ROWS, B), the material kernels' pack, which adds
-    the hit material's id."""
+    the hit material's id, or on a textured table (Scene.textured)
+    (TEX_RAY_ROWS, B), the textured kernels' pack, which also adds the
+    hit's Shading at its point and UV."""
     tau_eu = hmed.eval_transmittance(scene.medium, m.length(hit.p - ray_o))
     cols = _ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu)
     if with_mat:
         cols.append(mat.to(torch.float32)[..., None])
+        if scene.textured():
+            cols += tex_cols(scene, hit, mat)
     return torch.cat(cols, dim=-1).T.contiguous()
+
+
+def tex_cols(scene: Scene, hit, mat):
+    """The textured pack's columns of the hits (hit, mat): the shading
+    normal and the three albedos (bsdf.api.shading at hit.p and the
+    hit's interpolated UV), (..., 3) each."""
+    from alvrl_tpu_torch.bsdf.api import shading
+    from alvrl_tpu_torch.textures.procedural import interp_uv
+
+    return list(shading(scene, mat, hit.ng, hit.p,
+                        interp_uv(scene.face_uv, hit.prim, hit.uv)))
+
+
+def is_textured(rays):
+    """Whether a homogeneous ray pack is the textured one (TEX_RAY_ROWS
+    rows). Reads its shape, so no sync."""
+    return rays.shape[0] == TEX_RAY_ROWS
 
 
 def pack_materials(mats: Materials):
@@ -145,7 +173,13 @@ def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss,
     density_ss is media.heterogeneous.quad_grid's); TAU is
     exp(-sigma_t_color times the table's total). With with_mat,
     (GRID_MAT_RAY_ROWS, B), the grid material kernels' pack, which adds
-    the hit material's id (GRID_MATID)."""
+    the hit material's id (GRID_MATID). The grid kernels have no textured
+    form: a textured table raises (ROADMAP A11a)."""
+    if scene.textured():
+        raise ValueError("the grid kernels 3, 4, 6, 9 and 11 have no "
+                         "textured form: a texture, a NORMALMAP or an HK "
+                         "slab in a grid medium is not ported (ROADMAP "
+                         "A11a)")
     med = scene.medium
     eye_od = gmed.cumulative_od(med, density_ss, ray_o, hit.p)
     tau_eu = torch.exp(-med.sigma_t_color * eye_od[..., -1:])

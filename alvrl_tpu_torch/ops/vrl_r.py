@@ -111,7 +111,7 @@ def _library():
     lib = vs._library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, u, i, i, i, i, p, i, p, p, p]
-    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, *tail]
+    lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, i, *tail]
     lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
                                        i, i, i, i, *tail]
     lib.alvrl_vrl_r_tile_rays.argtypes = [i]
@@ -150,7 +150,8 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             None if counts is None else counts.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(rays.device).cuda_stream)
     if grid is None:
-        err = lib.alvrl_vrl_r(*head, *vs.mat_args(materials), *tail)
+        err = lib.alvrl_vrl_r(*head, *vs.mat_args(materials),
+                              vs.tex_arg(rays, materials), *tail)
     else:
         err = lib.alvrl_vrl_r_hetero(*head, *vs.mat_args(materials),
                                      *vs.grid_args(*grid),
@@ -167,7 +168,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     MODE_CHECK (CUDA tensors only) returns (out, {name: total} of
     vs.CHECK_COUNTS)."""
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              grid=grid, materials=materials)
+              grid=grid, materials=materials, textured=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     checking = mode == vs.MODE_CHECK
     if checking and rays.device.type != "cuda":
@@ -192,7 +193,7 @@ def _r(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
             out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                           svs, short_vrls, phase_kind, grid, mode, counts,
                           materials)
-        vs.count_launch(fn, grid, medium, materials)
+        vs.count_launch(fn, grid, medium, materials, rays)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -207,14 +208,17 @@ def vrl_r(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     ops.vrl_sum.vrl_sum takes them. Random numbers come from the Philox
     stream of `seed`, counter (p, n, call, 0), or from `uniforms` (P, N,
     2 * vol_vol_samples + vol_surf_samples) when given. `materials`, as
-    ops.vrl_sum.vrl_sum's, takes the material instantiation. CUDA tensors
-    go through the CUDA kernel, CPU tensors through vrl_r_reference."""
+    ops.vrl_sum.vrl_sum's, takes the material instantiation, with the
+    textured ray pack the textured form (counted on vrl_r.tex_launches
+    too). CUDA tensors go through the CUDA kernel, CPU tensors through
+    vrl_r_reference."""
     return _r(vrl_r, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind, None,
               materials=materials)
 
 
 vrl_r.launches = 0  # kernel launches, for showing that a run used the kernel
+vrl_r.tex_launches = 0  # of them, the textured form's
 
 
 def vrl_r_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,

@@ -51,6 +51,17 @@ The JAX package's Pallas
 kernels evaluate no BSDF (their packs zero the albedo of a non-diffuse
 hit, ROADMAP C21); the port follows its XLA route, pair_contribution.
 
+A textured table (procedural or bitmap textures, normal and bump maps,
+the HK slab) takes the textured forms of kernels 1, 2 and 5 (TEX): the
+material pack with the textured ray pack (ops.pack.TEX_RAY_ROWS), whose
+rows hold each eye hit's shading normal and the textured albedos of its
+material's leaf and nested leaves; the vol-surf term evaluates
+eval_smooth at that normal with those albedos, and the HK slab from its
+table columns (csrc/vrl_tex.cuh and its three sources; the plain version,
+bsdf_eval_smooth with the rows' bsdf.api.Shading). The wrappers count
+those launches on their `tex_launches` too. The other kernels refuse the
+textured pack (ROADMAP A11a).
+
 Beside the kernel:
   * `vrl_sum_reference` and `vrl_sum_hetero_reference`, the plain
     PyTorch versions on the same packs, built from
@@ -313,7 +324,9 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     integrate.bsdf_eval_smooth(-d, -vu), in place of albedo cos_o / pi, and is
     gated by the hit material's smooth flag; the material kernels' plain
     version, differentiable as above (the material's own parameters are
-    constants, as in the JAX package's train step)."""
+    constants, as in the JAX package's train step). On the textured ray
+    pack (homogeneous, TEX_RAY_ROWS) it evaluates at the rows' shading
+    normal and albedos: the textured forms' plain version."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -407,6 +420,7 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             * geo[..., None]
         yield VV, torch.where(ok[..., None], term, 0.0)
 
+    shade = None
     if mats is None:
         alb_any = alb.sum(dim=-1) > 0.0
     else:
@@ -414,6 +428,11 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         row = pk.MATID if grid is None else pk.GRID_MATID
         mat_id = rays[row].long().clamp(0, smooth.shape[0] - 1)[:, None]
         alb_any = smooth[mat_id]
+        if grid is None and pk.is_textured(rays):  # the hit's Shading
+            from alvrl_tpu_torch.bsdf.api import Shading
+
+            shade = Shading(*(rows(rays, r)[:, None] for r in (
+                pk.TEX_NS, pk.TEX_ALB, pk.TEX_ALB + 3, pk.TEX_ALB + 6)))
     for k in range(svs):
         v, pdf_v = integrate.kulla_sampling(s, e, hp, u[..., 2 * svv + k])
         d_uv2, d_uv, vu = segment(hp, v)
@@ -428,7 +447,7 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
             # 0 where masked, so that a non-finite eval there cannot reach
             # the gradient
             f = torch.where(ok[..., None], integrate.bsdf_eval_smooth(
-                materials, mat_id, ng, -d, -vu, kinds), 0.0)
+                materials, mat_id, ng, -d, -vu, kinds, shade), 0.0)
             geo = phase(-uv, vu)
         geo = geo / torch.clamp(pdf_d2, min=1e-30)
         if grid is not None:
@@ -531,6 +550,13 @@ def mat_args(materials):
     return (table.data_ptr(), table.shape[0], rt_tables.data_ptr())
 
 
+def tex_arg(rays, materials):
+    """The C entries' `tex` argument of kernels 1, 2 and 5: 1 for the
+    textured form (a material pack with the textured ray pack), else
+    0."""
+    return int(materials is not None and pk.is_textured(rays))
+
+
 def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             short_vrls, phase_kind, grid=None, mode=MODE_SUM, counts=None,
             materials=None):
@@ -554,7 +580,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
         planes = torch.empty((tris.shape[0], 4 * lib.alvrl_plane_f4()),
                              dtype=torch.float32, device=rays.device)
         err = lib.alvrl_vrl_sum(
-            *head, *mat_args(materials), *uni,
+            *head, *mat_args(materials), tex_arg(rays, materials), *uni,
             planes.data_ptr() if tris.shape[0] else None, mode,
             None if counts is None else counts.data_ptr(), *tail)
     else:
@@ -573,8 +599,8 @@ def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     uni, tail = [p, u, i, i, i, i], [p, i, p, p]
-    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, *uni, p, i,
-                                  p, *tail]
+    lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, i, *uni, p,
+                                  i, p, *tail]
     lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
                                          i, i, i, i, *uni, *tail]
     lib.alvrl_plane_pack.argtypes = [p, i, p, p]
@@ -618,7 +644,7 @@ def occupancy(entry, grid, n_tris, uv_steps=4, phase_kind=ph.HG,
 
 
 def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           n_cols=None, grid=None, materials=None):
+           n_cols=None, grid=None, materials=None, textured=False):
     """Raise on what the kernels do not take. The uniforms must be
     (B, n_cols, 2 * svv + svs), n_cols the VRL count by default. grid =
     (density, uv_steps) for the grid packs, whose rows ops.pack's GRID_*
@@ -628,7 +654,10 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     pack_materials', for the material instantiations: rays (MAT_RAY_ROWS,
     B), or in a grid medium (GRID_MAT_RAY_ROWS, B). A homogeneous medium
     may come in the extended pack (the mixture phase, another strategy
-    than balance); a grid medium has neither."""
+    than balance); a grid medium has neither. textured: the kernel has a
+    textured form (kernels 1, 2 and 5), which takes a material pack with
+    the textured ray pack (TEX_RAY_ROWS, B) in a homogeneous medium; the
+    other kernels refuse that pack by name (ROADMAP A11a)."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
@@ -652,6 +681,12 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         else (pk.GRID_RAY_ROWS, pk.GRID_VRL_ROWS, pk.GRID_MED_LEN))
     if materials is not None:
         ray_rows = pk.MAT_RAY_ROWS if grid is None else pk.GRID_MAT_RAY_ROWS
+        if grid is None and pk.is_textured(rays):
+            if not textured:
+                raise ValueError("this kernel has no textured form: the "
+                                 "textured ray pack goes to kernels 1, 2 "
+                                 "and 5 only (ROADMAP A11a)")
+            ray_rows = pk.TEX_RAY_ROWS
         table, rt_tables = materials
         n_mats = table.shape[0]
         if table.dim() != 2 or table.shape[1] != pk.MAT_COLS or n_mats < 1:
@@ -721,7 +756,7 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     """The wrappers' body: checks, then the plain version on the CPU or
     the kernel on the card, counting its launch on `fn`."""
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           grid=grid, materials=materials)
+           grid=grid, materials=materials, textured=True)
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     if rays.device.type == "cpu":
         if uniforms is None:
@@ -739,20 +774,22 @@ def _sum(fn, rays, vrls, tris, medium, seed, uniforms, svv, svs, short_vrls,
     with torch.cuda.device(rays.device):
         out = _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv,
                       svs, short_vrls, phase_kind, grid, materials=materials)
-    count_launch(fn, grid, medium, materials)
+    count_launch(fn, grid, medium, materials, rays)
     return out
 
 
-def count_launch(fn, grid, medium, materials=None):
+def count_launch(fn, grid, medium, materials=None, rays=None):
     """One launch on the wrapper fn: fn.launches, and each form counter
     that fn has and the launch's form takes: tri_launches (a grid
-    medium's trilinear pack), mat_launches (a material pack) and
+    medium's trilinear pack), mat_launches (a material pack),
     mix_launches (the homogeneous pack's extension: the mixture, a
-    strategy's rate)."""
+    strategy's rate) and tex_launches (the textured ray pack `rays`)."""
     fn.launches += 1
     forms = {"tri_launches": grid is not None and pk.is_trilinear(medium),
              "mat_launches": materials is not None,
-             "mix_launches": grid is None and medium.shape[0] > pk.MED_LEN}
+             "mix_launches": grid is None and medium.shape[0] > pk.MED_LEN,
+             "tex_launches": (materials is not None and rays is not None
+                              and grid is None and pk.is_textured(rays))}
     for name, taken in forms.items():
         if taken and hasattr(fn, name):
             setattr(fn, name, getattr(fn, name) + 1)
@@ -769,15 +806,18 @@ def vrl_sum(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     or from `uniforms` (B, N, 2 * vol_vol_samples + vol_surf_samples)
     when given. `materials`, the material pack (ops.pack.pack_materials'
     (table, rt_tables)) with rays (MAT_RAY_ROWS, B), takes the material
-    instantiation, which evaluates each eye hit's smooth BSDF; without
-    it the diffuse one, which reads the ALB rows. CUDA tensors go through
-    the CUDA kernel, CPU tensors through vrl_sum_reference."""
+    instantiation, which evaluates each eye hit's smooth BSDF, with the
+    textured ray pack (TEX_RAY_ROWS, B) the textured form (counted on
+    vrl_sum.tex_launches too); without it the diffuse one, which reads
+    the ALB rows. CUDA tensors go through the CUDA kernel, CPU tensors
+    through vrl_sum_reference."""
     return _sum(vrl_sum, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
                 None, materials)
 
 
 vrl_sum.launches = 0  # kernel launches, for showing that a run used the kernel
+vrl_sum.tex_launches = 0  # of them, the textured form's
 
 
 def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
@@ -793,7 +833,7 @@ def vrl_sum_check(rays, vrls, tris, medium, *, seed=0, uniforms=None,
     vrl_sum's."""
     svv, svs = vol_vol_samples, vol_surf_samples
     _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-           materials=materials)
+           materials=materials, textured=True)
     if rays.device.type != "cuda":
         raise ValueError("the checking launch needs CUDA tensors")
     counts = torch.zeros(len(CHECK_COUNTS), dtype=torch.int64,

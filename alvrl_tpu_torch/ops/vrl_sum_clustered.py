@@ -166,7 +166,7 @@ def _library():
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, p, i, p, p, i, p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, p, i, p,
-                                            *tail]
+                                            i, *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
         p, i, p, i, p, i, p, p, i, p, p, i, i, i, i, i, *tail]
     lib.alvrl_clustered_ray_block.argtypes = [i]
@@ -222,7 +222,8 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
     if not isinstance(table_ids, torch.Tensor) or table_ids.dim() != 2:
         raise TypeError("table_ids must be a 2-D int32 tensor")
     vs._check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
-              n_cols=table_ids.shape[1], grid=grid, materials=materials)
+              n_cols=table_ids.shape[1], grid=grid, materials=materials,
+              textured=True)
     sl = _check_tables(rays, ray_slice, table_ids, table_weights)
     n_rays, n_vrls, n_cols = rays.shape[1], vrls.shape[1], table_ids.shape[1]
     checking = mode == vs.MODE_CHECK
@@ -252,7 +253,7 @@ def _clustered(fn, rays, vrls, tris, medium, ray_slice, table_ids,
                     table_ids, table_weights, uniforms, seed, svv, svs,
                     short_vrls, phase_kind, out, grid, mode=mode,
                     counts=counts, materials=materials)
-        vs.count_launch(fn, grid, medium, materials)
+        vs.count_launch(fn, grid, medium, materials, rays)
     if checking:
         return out, dict(zip(vs.CHECK_COUNTS, counts.tolist()))
     return out
@@ -270,8 +271,10 @@ def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
     Random numbers come from the Philox stream of `seed`, counter (b,
     VRL id, call, 0), or from `uniforms` (B, C, 2 * vol_vol_samples +
     vol_surf_samples) when given. `materials`, as ops.vrl_sum.vrl_sum's,
-    takes the material instantiation. CUDA tensors go through the CUDA
-    kernel, CPU tensors through vrl_sum_clustered_reference."""
+    takes the material instantiation, with the textured ray pack the
+    textured form (counted on vrl_sum_clustered.tex_launches too). CUDA
+    tensors go through the CUDA kernel, CPU tensors through
+    vrl_sum_clustered_reference."""
     return _clustered(vrl_sum_clustered, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
                       vol_vol_samples, vol_surf_samples, short_vrls,
@@ -280,6 +283,7 @@ def vrl_sum_clustered(rays, vrls, tris, medium, ray_slice, table_ids,
 
 vrl_sum_clustered.launches = 0  # kernel launches, for showing that a run
                                 # used the kernel
+vrl_sum_clustered.tex_launches = 0  # of them, the textured form's
 
 
 def vrl_sum_clustered_check(rays, vrls, tris, medium, ray_slice, table_ids,
@@ -384,6 +388,7 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
             torch.cuda.current_stream(rays.device).cuda_stream)
     if grid is None:
         err = lib.alvrl_vrl_sum_clustered(*head, *vs.mat_args(materials),
+                                          vs.tex_arg(rays, materials),
                                           *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero_clustered(

@@ -25,6 +25,7 @@ import torch
 from alvrl_tpu_torch.integrators.vrl import tracer as tracer_mod
 from alvrl_tpu_torch.integrators.vrl.integrate import VRLConfig
 from alvrl_tpu_torch.integrators.vrl.integrator import (
+    refuse_textured,
     render_with_vrls_kernel_diff,
 )
 from alvrl_tpu_torch.scene.scene import Scene
@@ -52,6 +53,7 @@ def train_step(scene: Scene, generator, target, cfg: VRLConfig,
     `generator`. tracer_uniforms, a (u_emit, u_walk) pair for
     tracer.trace_u, and render_uniforms, as render_with_vrls_kernel's
     `uniforms`, replace them (for exact checks)."""
+    refuse_textured(scene, "the train step (kernel 8)")
     if tracer_cfg is None:
         tracer_cfg = tracer_mod.TracerConfig(max_depth=4)
     params = {

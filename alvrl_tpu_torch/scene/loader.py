@@ -15,14 +15,25 @@ leaf by leaf:
     "conductor" (MIRROR), "dielectric" and "thindielectric" (DIELECTRIC),
     "roughconductor", "roughplastic", "plastic", "phong", "ward",
     "difftrans", "roughdielectric", the wrappers "mask" and "mixture"
-    (also "mixturebsdf", "blendbsdf") and the layers "coating" and
-    "roughcoating", with the JAX loader's fields and defaults (alpha or
-    g, alpha_v, specular, exponent or thickness, opacity or weight,
-    distribution (GGX by default; the XML converter writes Beckmann
-    where the reference's XML leaves it out), sigma_a or albedo2, and
-    nested and nested2 by name);
+    (also "mixturebsdf", "blendbsdf"), the layers "coating" and
+    "roughcoating", "normalmap" and "bumpmap" (NORMALMAP over `nested`,
+    the normal texture its bitmap; a bumpmap's bitmap is a height field,
+    baked into a normal map with layered.bump_to_normal_map, its
+    channels' mean the height, "strength" its scale) and the "hk" slab
+    (sigma_s, sigma_a, thickness, g), with the JAX loader's fields and
+    defaults (alpha or g, alpha_v, specular, exponent or thickness,
+    opacity or weight, distribution (GGX by default; the XML converter
+    writes Beckmann where the reference's XML leaves it out), sigma_a or
+    albedo2, and nested and nested2 by name);
+  * a material's "texture": "checker", "grid" or "noise" (albedo2 and
+    scale) or "bitmap" (an image file: .pfm, .npy, .hdr, .png; scale),
+    the bitmaps stacked into one (K, H, W, 3) array, so that all of a
+    scene's must share a resolution, as in the JAX loader;
   * shapes "rectangle", "cube", "sphere", "disk", "cylinder", "obj",
-    "ply", "serialized" and "trimesh", each with an optional to_world;
+    "ply", "serialized" and "trimesh", each with an optional to_world,
+    with the JAX loader's UVs: the analytic ones of the rectangle, cube
+    and sphere (shapes.auto_uvs), an OBJ's `vt` records, a PLY's or a
+    serialized mesh's per-vertex UVs, zeros elsewhere;
   * "point", "spot", "directional", "collimated" and "constant"
     emitters; one environment emitter, "envmap" (an image file: .pfm,
     .npy, .hdr), "sky" or "sunsky" (the Preetham sky baked into the map,
@@ -54,6 +65,7 @@ import re
 import numpy as np
 import torch
 
+from alvrl_tpu_torch.bsdf.layered import bump_to_normal_map
 from alvrl_tpu_torch.bsdf.microfacet import MF_BECKMANN, MF_GGX, MF_PHONG
 from alvrl_tpu_torch.emitters import emitters as em_mod
 from alvrl_tpu_torch.emitters import sunsky
@@ -73,9 +85,11 @@ from alvrl_tpu_torch.scene.scene import (
     DIELECTRIC,
     DIFFTRANS,
     DIFFUSE,
+    HK,
     MASK,
     MIRROR,
     MIXTURE,
+    NORMALMAP,
     NULL,
     PERSPECTIVE,
     PHONG,
@@ -99,11 +113,13 @@ _MAT_KINDS = {
     "ward": WARD, "difftrans": DIFFTRANS, "mask": MASK,
     "mixturebsdf": MIXTURE, "blendbsdf": MIXTURE, "mixture": MIXTURE,
     "coating": COATING, "roughdielectric": ROUGH_DIELECTRIC,
-    "roughcoating": ROUGH_COATING,
+    "roughcoating": ROUGH_COATING, "normalmap": NORMALMAP,
+    "bumpmap": NORMALMAP, "hk": HK,
 }
-# the JAX package's other material kinds: the converter carries them,
-# build_scene refuses them
-_UNPORTED_MATERIALS = ("normalmap", "bumpmap", "hk", "irawan")
+# the JAX package's other material kind: the converter carries it,
+# build_scene refuses it
+_UNPORTED_MATERIALS = ("irawan",)
+_TEX_KINDS = {"none": 0, "checker": 1, "grid": 2, "noise": 3, "bitmap": 4}
 _DIST_KINDS = {"beckmann": MF_BECKMANN, "ggx": MF_GGX, "as": MF_PHONG,
                "phong": MF_PHONG}
 _CAM_KINDS = {"perspective": PERSPECTIVE, "radiancemeter": PERSPECTIVE}
@@ -173,14 +189,15 @@ def _materials(desc, device):
                   for i, mdesc in enumerate(mats)}
     cols = {k: [] for k in ("kinds", "albedos", "etas", "alphas", "specular",
                             "exponent", "alpha_v", "opacity", "dist",
-                            "nested", "nested2", "albedo2")}
+                            "nested", "nested2", "albedo2", "tex_kinds",
+                            "tex_scales", "tex_id")}
+    bitmaps = []
     for mdesc in mats:
         mt = mdesc["type"]
         if mt in _UNPORTED_MATERIALS:
-            _refuse("material", mt, "A11")
+            _refuse("material", mt, "A11a")
         cols["kinds"].append(_kind("material", mt, _MAT_KINDS))
-        if "texture" in mdesc:
-            _refuse("texture", mdesc["texture"].get("type"), "A11")
+        _texture(mdesc, cols, bitmaps)
         cols["albedos"].append(mdesc.get("albedo",
                                          mdesc.get("sigma_s", [1.0] * 3)))
         cols["etas"].append(mdesc.get("eta", 1.0))
@@ -195,42 +212,91 @@ def _materials(desc, device):
         cols["dist"].append(_DIST_KINDS[mdesc.get("distribution", "ggx")])
         for k in ("nested", "nested2"):
             cols[k].append(name_to_id[mdesc[k]] if k in mdesc else 0)
-        # a coat's absorption sigma_a rides the albedo2 column
+    materials = make_materials(device=device, **cols)
+    return materials, name_to_id, _texture_stack(bitmaps, device)
+
+
+def _texture(mdesc, cols, bitmaps):
+    """A material's texture columns (kind, scale, albedo2, bitmap id), as
+    the JAX loader reads them; a bitmap's image goes onto `bitmaps`, a
+    bumpmap's height field baked into a normal map first."""
+    tdesc = mdesc.get("texture")
+    if tdesc is None:
+        cols["tex_kinds"].append(0)
+        cols["tex_scales"].append(1.0)
+        # a coat's or slab's absorption sigma_a rides the albedo2 column
         cols["albedo2"].append(mdesc.get("sigma_a",
                                          mdesc.get("albedo2", [0.0] * 3)))
-    materials = make_materials(device=device, **cols)
-    return materials, name_to_id
+        cols["tex_id"].append(0)
+        return
+    cols["tex_kinds"].append(_kind("texture", tdesc["type"], _TEX_KINDS))
+    cols["tex_scales"].append(tdesc.get("scale", 1.0))
+    cols["albedo2"].append(tdesc.get("albedo2", [0.0] * 3))
+    if tdesc["type"] != "bitmap":
+        cols["tex_id"].append(0)
+        return
+    img = np.asarray(img_io.read_image(tdesc["filename"]), np.float32)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, axis=-1)
+    if mdesc["type"] == "bumpmap":
+        # the height field as a normal map (the JAX loader reads it as
+        # one: ROADMAP C24)
+        img = bump_to_normal_map(img[..., :3].mean(axis=-1),
+                                 mdesc.get("strength", 1.0))
+    cols["tex_id"].append(len(bitmaps))
+    bitmaps.append(img)
+
+
+def _texture_stack(bitmaps, device):
+    """The (K, H, W, 3) stack of a scene's bitmaps (one resolution), or
+    None (the zero stack) without one."""
+    if not bitmaps:
+        return None
+    shapes = {im.shape[:2] for im in bitmaps}
+    if len(shapes) > 1:
+        raise ValueError("all bitmap textures in one scene must share a "
+                         f"resolution (got {sorted(shapes)}): the texture "
+                         "stack is a single (K, H, W, 3) array")
+    return torch.as_tensor(np.stack([im[..., :3] for im in bitmaps]),
+                           dtype=torch.float32, device=device)
 
 
 def _shape(sdesc):
-    """One shape description -> (vertices (V, 3) float32, faces (F, 3))."""
+    """One shape description -> (vertices (V, 3) float32, faces (F, 3),
+    face_uv (F, 3, 2) or None)."""
     st = sdesc["type"]
     if "to_world_t1" in sdesc:
         _refuse("shape option", "to_world_t1", "A11")
     tw = sdesc.get("to_world")
     tw = np.asarray(tw, np.float32) if tw is not None else None
+    face_uv = None
     if st == "rectangle":
         v, f = shp.rectangle()
+        face_uv = shp.auto_uvs("rectangle", v, f)
     elif st == "cube":
         v, f = shp.cube(flip_normals=sdesc.get("flip_normals", False))
+        face_uv = shp.auto_uvs("cube", v, f)
     elif st == "sphere":
-        v, f = shp.sphere(sdesc.get("center", (0, 0, 0)),
-                          sdesc.get("radius", 1.0),
+        center = sdesc.get("center", (0, 0, 0))
+        v, f = shp.sphere(center, sdesc.get("radius", 1.0),
                           n_theta=sdesc.get("n_theta", 16),
                           n_phi=sdesc.get("n_phi", 32))
+        face_uv = shp.auto_uvs("sphere", v, f, center=center)
     elif st == "obj":
-        v, f = mesh_io.load_obj(sdesc["filename"])
+        v, f, face_uv = mesh_io.load_obj_uv(sdesc["filename"])
     elif st == "ply":
-        v, f = mesh_io.load_ply(sdesc["filename"])
+        v, f, face_uv = mesh_io.load_ply_uv(sdesc["filename"])
     elif st == "serialized":
-        v, f, _, _ = mesh_io.load_serialized(sdesc["filename"],
-                                             sdesc.get("shape_index", 0))
+        v, f, _, vuv = mesh_io.load_serialized(sdesc["filename"],
+                                               sdesc.get("shape_index", 0))
+        if vuv is not None:
+            face_uv = vuv[np.asarray(f)]
     elif st == "trimesh":
         # an inline triangle mesh (vertex and face lists in the dict)
         v = np.asarray(sdesc["vertices"], np.float32).reshape(-1, 3)
         f = np.asarray(sdesc["faces"], np.int32).reshape(-1, 3)
     elif st == "disk":
-        return shp.disk(n_phi=sdesc.get("n_phi", 48), to_world=tw)
+        return (*shp.disk(n_phi=sdesc.get("n_phi", 48), to_world=tw), None)
     elif st == "cylinder":
         v, f = shp.cylinder(sdesc.get("p0", (0, 0, 0)),
                             sdesc.get("p1", (0, 0, 1)),
@@ -240,7 +306,7 @@ def _shape(sdesc):
         _kind("shape", st, {})
     if tw is not None:
         v = shp.apply_transform(tw, v)
-    return v, f
+    return v, f, face_uv
 
 
 def _medium(desc, device):
@@ -387,12 +453,13 @@ def _emitters(desc, area_entries, device):
 
 def build_scene(desc: dict, device="cuda") -> Scene:
     """The scene of a JSON scene dict (see the module), on `device`."""
-    materials, name_to_id = _materials(desc, device)
+    materials, name_to_id, textures = _materials(desc, device)
     parts = []
     for sdesc in desc.get("shapes", []):
-        v, f = _shape(sdesc)
-        parts.append((v, f, name_to_id[sdesc.get("material", "default")]))
-    verts, faces, mat_ids = shp.merge(parts)
+        v, f, face_uv = _shape(sdesc)
+        parts.append((v, f, name_to_id[sdesc.get("material", "default")],
+                      face_uv))
+    verts, faces, mat_ids, face_uvs = shp.merge(parts)
     n_shape_faces = len(faces)
     verts, faces, mat_ids, area_entries, face_emitter = _area_quads(
         desc, name_to_id, verts, faces, mat_ids)
@@ -431,7 +498,7 @@ def build_scene(desc: dict, device="cuda") -> Scene:
         n_extra = len(faces) - n_shape_faces  # the area quads': id 0
         for key, side in (("face_med_int", "interior_medium"),
                           ("face_med_ext", "exterior_medium")):
-            ids = [sd.get(side, 0) for sd, (_, f, _) in
+            ids = [sd.get(side, 0) for sd, (_, f, _, _) in
                    zip(desc.get("shapes", []), parts) for _ in range(len(f))]
             nested[key] = torch.as_tensor(ids + [0] * n_extra, **i64)
     return Scene(
@@ -443,6 +510,10 @@ def build_scene(desc: dict, device="cuda") -> Scene:
         medium=_medium(desc, device),
         camera=camera,
         face_emitter=torch.as_tensor(face_emitter, **i64),
+        # the area quads' faces take zero UVs
+        face_uv=torch.as_tensor(np.concatenate([face_uvs, np.zeros(
+            (len(faces) - n_shape_faces, 3, 2), np.float32)]), **f32),
+        textures=textures,
         **nested,
     )
 

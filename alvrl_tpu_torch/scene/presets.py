@@ -6,9 +6,11 @@ medium, a box blocker, one point light, and the camera inside the
 medium; cornell_smoke_hg (BASELINE config 3), the same box with an
 anisotropic HG medium; cornell_grid_smoke (BASELINE config 4), the
 same box without the blocker, filled with a plume-like grid medium;
-cornell_area_light, the box lit by a quad area light in its ceiling; and
+cornell_area_light, the box lit by a quad area light in its ceiling;
 cornell_nested_smoke, the box in vacuum around a smoke-filled cube of
-null faces (per-shape media).
+null faces (per-shape media); and cornell_textured_desc, config 1's box
+with textured, normal-mapped, bump-mapped and HK surfaces, as a scene
+file (the port's own, with its bitmaps made from a seed).
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ def cornell_smoke(
         bv = bv * np.array([0.25, 0.5, 0.25], np.float32) + np.array(
             [-0.35, -0.5, 0.3], np.float32)
         parts.append((bv, bf, M_BOX))
-    verts, faces, mat = shapes.merge(parts)
+    verts, faces, mat, _ = shapes.merge(parts)
 
     f32 = dict(dtype=torch.float32, device=device)
     materials = make_materials([DIFFUSE] * 4, [
@@ -225,3 +227,111 @@ def vacuumize(scene: Scene) -> Scene:
         sigma_a=torch.zeros(3, **f32), sigma_s=torch.zeros(3, **f32),
         g=torch.tensor(0.0, **f32),
         sampling_weight=torch.tensor(0.0, **f32)))
+
+
+TEXTURE_RES = 64  # the bitmaps' side, cornell_textured_desc
+
+
+def _rect_at(material, rows):
+    """A rectangle shape ([-1, 1]^2 at z = 0, shapes.auto_uvs' UVs) under
+    the 3x4 to_world `rows`."""
+    return {"type": "rectangle", "material": material,
+            "to_world": [list(r) for r in rows] + [[0, 0, 0, 1]]}
+
+
+def _block(material, at, half):
+    return {"type": "cube", "material": material, "to_world": [
+        [half[0], 0, 0, at[0]], [0, half[1], 0, at[1]],
+        [0, 0, half[2], at[2]], [0, 0, 0, 1]]}
+
+
+def texture_bitmaps(seed=0, res=TEXTURE_RES):
+    """The three (res, res, 3) float32 bitmaps of cornell_textured_desc,
+    made from `seed`: a colour pattern (the back wall's texture), a
+    tangent-space normal map and a height field (three equal channels)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.meshgrid(np.linspace(0, 1, res, endpoint=False),
+                       np.linspace(0, 1, res, endpoint=False), indexing="ij")
+    phase = rng.uniform(0, 2 * np.pi, size=(3, 2))
+    colour = np.stack([0.5 + 0.45 * np.sin(2 * np.pi * (k + 2) * x + ph[0])
+                       * np.cos(2 * np.pi * (k + 1) * y + ph[1])
+                       for k, ph in enumerate(phase)], -1)
+    colour = colour * rng.uniform(0.7, 1.0, size=(res, res, 1))
+    n = np.stack([0.6 * np.sin(8 * np.pi * x + phase[0, 0]),
+                  0.6 * np.cos(6 * np.pi * y + phase[1, 1]),
+                  np.ones_like(x)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    height = (np.sin(10 * np.pi * x) * np.sin(8 * np.pi * y)
+              + 0.3 * rng.standard_normal((res, res)))
+    return [a.astype(np.float32) for a in (
+        np.clip(colour, 0.0, 1.0), n * 0.5 + 0.5,
+        np.repeat(height[..., None], 3, axis=-1))]
+
+
+def cornell_textured_desc(dirname, width=128, height=128, seed=0):
+    """cornell_textured: config 1's box (the camera, the homogeneous
+    medium and the point light of cornell_smoke) whose surfaces carry
+    the texture stack, as a JSON scene dict; its three bitmaps
+    (texture_bitmaps(seed)) are written into `dirname` as .pfm files,
+    which the dict names. The back wall takes a bitmap texture, the floor
+    a checker, the ceiling grid lines, the left wall value noise over a
+    rough plastic, the right wall an HK slab, one block a normal map over
+    a rough plastic, the other a bump map over a checkered diffuse; the
+    front wall, behind the camera, is white."""
+    import os
+
+    from alvrl_tpu_torch.io.image import write_pfm
+
+    names = [os.path.join(dirname, f"{n}.pfm")
+             for n in ("wall", "normal", "height")]
+    for name, img in zip(names, texture_bitmaps(seed)):
+        write_pfm(name, img)
+    white = [0.725, 0.71, 0.68]
+    materials = [
+        {"name": "white", "type": "diffuse", "albedo": white},
+        {"name": "bitmap", "type": "diffuse", "albedo": [0.9, 0.85, 0.8],
+         "texture": {"type": "bitmap", "filename": names[0], "scale": 1.0}},
+        {"name": "checker", "type": "diffuse", "albedo": white,
+         "texture": {"type": "checker", "scale": 4.0,
+                     "albedo2": [0.15, 0.15, 0.2]}},
+        {"name": "grid", "type": "diffuse", "albedo": white,
+         "texture": {"type": "grid", "scale": 3.0,
+                     "albedo2": [0.1, 0.3, 0.6]}},
+        {"name": "noise", "type": "roughplastic", "alpha": 0.3,
+         "albedo": [0.63, 0.065, 0.05],
+         "texture": {"type": "noise", "scale": 6.0,
+                     "albedo2": [0.9, 0.6, 0.2]}},
+        {"name": "hk", "type": "hk", "sigma_s": [0.8, 0.6, 0.4],
+         "sigma_a": [0.05, 0.05, 0.1], "thickness": 0.5, "g": 0.3},
+        {"name": "plastic", "type": "roughplastic", "alpha": 0.2,
+         "albedo": [0.3, 0.5, 0.6]},
+        {"name": "normalmap", "type": "normalmap", "nested": "plastic",
+         "texture": {"type": "bitmap", "filename": names[1]}},
+        {"name": "bump_base", "type": "diffuse", "albedo": [0.6, 0.6, 0.3],
+         "texture": {"type": "checker", "scale": 8.0,
+                     "albedo2": [0.2, 0.3, 0.6]}},
+        {"name": "bumpmap", "type": "bumpmap", "nested": "bump_base",
+         "strength": 4.0,
+         "texture": {"type": "bitmap", "filename": names[2]}},
+    ]
+    shapes_ = [
+        _rect_at("bitmap", [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 1]]),
+        _rect_at("white", [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -1]]),
+        _rect_at("checker", [[1, 0, 0, 0], [0, 0, 0, -1], [0, 1, 0, 0]]),
+        _rect_at("grid", [[1, 0, 0, 0], [0, 0, 0, 1], [0, 1, 0, 0]]),
+        _rect_at("noise", [[0, 0, 0, -1], [0, 1, 0, 0], [1, 0, 0, 0]]),
+        _rect_at("hk", [[0, 0, 0, 1], [0, 1, 0, 0], [1, 0, 0, 0]]),
+        _block("normalmap", (-0.45, -0.55, 0.35), (0.3, 0.45, 0.25)),
+        _block("bumpmap", (0.45, -0.65, 0.4), (0.3, 0.35, 0.25)),
+    ]
+    return {
+        "camera": {"type": "perspective", "origin": [0, 0, -0.99],
+                   "target": [0, 0, 1], "fov": 90, "width": width,
+                   "height": height},
+        "medium": {"type": "homogeneous", "sigma_s": [0.8] * 3,
+                   "sigma_a": [0.05] * 3, "g": 0.0},
+        "materials": materials,
+        "shapes": shapes_,
+        "emitters": [{"type": "point", "position": [0.0, 0.75, 0.2],
+                      "intensity": [8.0, 8.0, 8.0]}],
+    }

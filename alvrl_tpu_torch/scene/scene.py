@@ -2,7 +2,8 @@
 
 Counterpart of alvrl_tpu/scene/scene.py, reduced to the columns the VRL
 render, the tracer, the specular chains and the volumetric path tracer
-read: no texture columns.
+read, the texture columns (tex_kind, tex_scale, tex_id; the scene's
+face_uv and bitmap stack `textures`) among them.
 Materials are a struct-of-arrays table indexed by the per-face material
 id; the BSDF kind selects the arithmetic.
 """
@@ -33,11 +34,16 @@ MASK = 10             # opacity mask over the `nested` material
 MIXTURE = 11          # convex mixture of `nested` and `nested2`
 COATING = 12          # smooth dielectric layer over `nested`: eta = coat
                       # IOR, albedo2 = coat sigma_a, exponent = thickness
-NORMALMAP = 13        # not ported (ROADMAP A11)
-HK = 14               # not ported (ROADMAP A11)
-IRAWAN = 15           # not ported (ROADMAP A11)
+NORMALMAP = 13        # tangent-space normal texture (tex_id) shading the
+                      # `nested` material; the loader bakes a bumpmap's
+                      # height field into one (bsdf.layered)
+HK = 14               # Hanrahan-Krueger slab: albedo = sigma_s, albedo2 =
+                      # sigma_a, exponent = thickness, alpha = HG g
+IRAWAN = 15           # not ported (ROADMAP A11a)
 ROUGH_DIELECTRIC = 16  # microfacet reflection and refraction
 ROUGH_COATING = 17     # rough dielectric layer over `nested`
+# the kinds that only the textured forms of kernels 1, 2 and 5 evaluate
+TEXTURED_KINDS = frozenset((NORMALMAP, HK))
 
 # rough-transmittance tables (bsdf.microfacet.rough_transmittance_table):
 # RT_COS cosines x RT_ALPHA roughnesses
@@ -69,16 +75,30 @@ class Materials:
                             # tables (ROUGH_COATING; zeros otherwise)
     rt_alpha_max: torch.Tensor  # (M,) f32 the alpha span of each table:
                                 # max(0.5, alpha) for ROUGH_COATING
+    # the textures (textures.procedural): kind (TEX_*), frequency in world
+    # units, the bitmap's index in Scene.textures (TEX_BITMAP, and a
+    # NORMALMAP's normal texture); None: untextured (0, 1, 0)
+    tex_kind: torch.Tensor = None   # (M,) int64
+    tex_scale: torch.Tensor = None  # (M,) f32
+    tex_id: torch.Tensor = None     # (M,) int64
     # the set of kinds in the table, read from `kind` when the table is
     # built (one read, a sync if it lies on the card), so that the
     # renders and the tracer choose their route without one
     host_kinds: frozenset = field(init=False)
+    # does a material carry a texture (tex_kind != 0)? Read likewise
+    host_textured: bool = field(init=False)
 
     def __post_init__(self):
         # a column shorter than the table reads its last row for the
         # missing ids, as the JAX package's gathers clamp an index out of
         # range (its cornell_area_light extends only some columns)
         n = self.kind.shape[0]
+        for name, value, dtype in (("tex_kind", 0, torch.int64),
+                                   ("tex_scale", 1.0, torch.float32),
+                                   ("tex_id", 0, torch.int64)):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, torch.full(
+                    (n,), value, dtype=dtype, device=self.kind.device))
         for f in fields(self):
             if not f.init:
                 continue
@@ -88,16 +108,20 @@ class Materials:
                     [x, x[-1:].expand((n - x.shape[0],) + x.shape[1:])]))
         object.__setattr__(self, "host_kinds",
                            frozenset(self.kind.tolist()))
+        object.__setattr__(self, "host_textured",
+                           bool((self.tex_kind != 0).any()))
 
 
 def make_materials(kinds, albedos, etas=None, alphas=None, albedo2=None,
                    specular=None, exponent=None, alpha_v=None, opacity=None,
-                   nested=None, nested2=None, dist=None,
+                   nested=None, nested2=None, dist=None, tex_kinds=None,
+                   tex_scales=None, tex_id=None,
                    device="cuda") -> Materials:
     """A material table with alvrl_tpu's make_materials' defaults: eta 1,
     alpha 0.1 (alpha_v = alpha), albedo2 0, specular 0.2, exponent 30,
-    opacity 1, nested ids 0, the GGX distribution, and the
-    rough-transmittance tables of the ROUGH_COATING entries."""
+    opacity 1, nested ids 0, the GGX distribution, no texture (kind 0,
+    scale 1, bitmap 0), and the rough-transmittance tables of the
+    ROUGH_COATING entries."""
     kinds = np.asarray(kinds, np.int64).reshape(-1)
     n = kinds.shape[0]
 
@@ -128,7 +152,10 @@ def make_materials(kinds, albedos, etas=None, alphas=None, albedo2=None,
         nested2=torch.as_tensor(col(nested2, 0, np.int64), **i64),
         albedo2=torch.as_tensor(col(albedo2, [0.0] * 3, shape=(3,)), **f32),
         rt_table=torch.as_tensor(rt_table, **f32),
-        rt_alpha_max=torch.as_tensor(rt_alpha_max, **f32))
+        rt_alpha_max=torch.as_tensor(rt_alpha_max, **f32),
+        tex_kind=torch.as_tensor(col(tex_kinds, 0, np.int64), **i64),
+        tex_scale=torch.as_tensor(col(tex_scales, 1.0), **f32),
+        tex_id=torch.as_tensor(col(tex_id, 0, np.int64), **i64))
 
 
 def _rt_tables(kinds, etas, alphas, dist):
@@ -177,10 +204,37 @@ class Scene:
     media: object = None
     face_med_int: torch.Tensor = None
     face_med_ext: torch.Tensor = None
+    # (T, 3, 2) f32 each face corner's texture coordinates, and the (K, H,
+    # W, 3) f32 bitmap stack that TEX_BITMAP and NORMALMAP read; None:
+    # zeros, and the (1, 1, 1, 3) zero stack, as in the JAX package
+    face_uv: torch.Tensor = None
+    textures: torch.Tensor = None
+
+    def __post_init__(self):
+        f32 = dict(dtype=torch.float32, device=self.vertices.device)
+        n = self.faces.shape[0]
+        if self.face_uv is None:
+            object.__setattr__(self, "face_uv", torch.zeros((n, 3, 2), **f32))
+        elif 0 < self.face_uv.shape[0] < n:
+            # faces appended without UVs read the last face's, as the JAX
+            # package's gather clamps (its cornell_area_light)
+            uv = self.face_uv
+            object.__setattr__(self, "face_uv", torch.cat(
+                [uv, uv[-1:].expand((n - uv.shape[0], 3, 2))]))
+        if self.textures is None:
+            object.__setattr__(self, "textures",
+                               torch.zeros((1, 1, 1, 3), **f32))
 
     @property
     def device(self) -> torch.device:
         return self.vertices.device
+
+    def textured(self) -> bool:
+        """Does the table hold a texture, a NORMALMAP or an HK slab, whose
+        eye-side term only the textured forms of kernels 1, 2 and 5
+        evaluate? (The table's host copies, so no sync.)"""
+        mats = self.materials
+        return mats.host_textured or bool(mats.host_kinds & TEXTURED_KINDS)
 
     def face_emitters(self):
         """(T,) the AREA entry of each face, -1 where none."""

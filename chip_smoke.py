@@ -338,6 +338,16 @@ Phases, one line each; any failure exits non-zero:
      kernel_diff on config-2 and config-4 tables) with each form's launch
      count, no plain call, against same-seed central differences; each
      form's time beside the form it extends, registers and bounds.
+ 50. cornell_textured (presets.cornell_textured_desc: bitmap, checker,
+     grid and noise walls, an HK slab, a normal- and a bump-mapped block)
+     at 128x128, its VRLs traced as the CLI traces them: the textured
+     forms of kernels 1, 2 and 5 (csrc/vrl_tex.cuh) against their plain
+     versions material by material (kernel 2 on the scene's own 100-slice
+     clustering), their checking launches; every function of the parent's
+     library found in this one's SASS (PARENT_SASS); the main path's
+     textured launches, no plain call; times beside the material forms
+     on the same packs, registers, bounds; the CLI with -i vrl and -i
+     alvrl; the VRL render against the volpath oracle at 32x32 (z < 4).
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -346,6 +356,7 @@ device the script fails.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -629,7 +640,8 @@ def ptxas_summary(log):
     (vrl_sum_clustered_warps_kernel), and "mat" for the material
     instantiations of kernels 1-7 (the grid ones, kernel 3's
     vrl_sum_mat_kernel among them, at the run-time step count, "tri" for
-    the trilinear read); kernel 7's counting instantiation, "ext" for its
+    the trilinear read), "tex" for the textured forms of kernels 1, 2 and
+    5 (vrl_tex.cuh); kernel 7's counting instantiation, "ext" for its
     forms on the extended medium pack (vrl_sum_bvh_ext_kernel); and the
     VJPs' forms: "ext" (the extended medium pack), "tri" and "mat" of
     kernels 8-11."""
@@ -639,7 +651,8 @@ def ptxas_summary(log):
             m = re.search(r"'.*?(vrl_(?:sum|sum_bwd|sum_clustered|"
                           r"sum_clustered_bwd|sum_clustered_bwd_warps|"
                           r"sum_clustered_warps|r|sum_bvh|sum_plane|"
-                          r"sum_tri|sum_mat|sum_bvh_ext)_kernel)"
+                          r"sum_tri|sum_mat|sum_bvh_ext|sum_tex|"
+                          r"sum_clustered_tex|r_tex)_kernel)"
                           r"I((?:L[ib]\d+E)+)E",
                           line)
             name = None
@@ -668,6 +681,8 @@ def ptxas_summary(log):
                     label.append(PLANE_MODE[rest[0]])
                     if len(rest) > 1 and rest[1]:  # the material one
                         label.append("mat")
+                elif kernel.endswith("_tex_kernel"):  # <phase, short, mode>
+                    label += [PLANE_MODE[rest[0]], "tex"]
                 elif rest:
                     label.append("grid" if rest[0] else "homog")
                     if rest[0] and len(rest) > 1:  # the step count
@@ -3962,7 +3977,7 @@ GLOSSY_MATERIALS = [
 # second block's 12
 GLOSSY_FACES = (["rc", "pl", "ph", "dt", "wd", "mx", "ph", "ph", "rp", "mk",
                  "co", "rd"] + ["rco"] * 12 + ["rd"] * 12)
-GLOSSY_KINDS = bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS - {
+GLOSSY_KINDS = bsdf_api.MATERIAL_FORM_KINDS - bsdf_api.DELTA_KINDS - {
     bsdf_api.DIFFUSE}
 GLOSSY_KIND_RAYS = 512  # fewest eye rays of a kind that phase 40 holds
 R_KIND_RAYS = 256       # rays of each kind in kernel 5's injected hold
@@ -4142,7 +4157,7 @@ def glossy_files(dev, card, tmp, c1):
           "JSON's")
     scene = scenes["cornell_glossy.json"]
     kinds = bsdf_api.check_kinds(scene)
-    check(kinds == bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS,
+    check(kinds == bsdf_api.MATERIAL_FORM_KINDS - bsdf_api.DELTA_KINDS,
           f"cornell_glossy's kinds {sorted(kinds)}")
     print(f"[39 glossy scene files on {card}] cornell_glossy "
           f"{WIDTH}x{HEIGHT}: {scene.faces.shape[0]} triangles, material "
@@ -4153,12 +4168,12 @@ def glossy_files(dev, card, tmp, c1):
 
 
 def hold_by_kind(label, out, ref, kind, channels=3,
-                 min_items=GLOSSY_KIND_RAYS):
+                 min_items=GLOSSY_KIND_RAYS, kinds=GLOSSY_KINDS):
     """out against ref at the homogeneous bar over each eye-hit kind alone
-    (every kind of GLOSSY_KINDS, min_items items at least); returns a
-    line of text."""
+    (every kind of `kinds`, min_items items at least); returns a line of
+    text."""
     groups = homog_bar_by_kind(out, ref, kind, channels)
-    check(set(groups) == GLOSSY_KINDS, f"{label}: the kinds held "
+    check(set(groups) == set(kinds), f"{label}: the kinds held "
           f"{sorted(groups)}")
     for k, (n, median, share) in groups.items():
         check(n >= min_items and median < HOMOG_MEDIAN
@@ -5732,7 +5747,7 @@ def glossy_grid(dev, card, cfg, c1, c4):
                 '"$h"', "$h"))
         scene = loader.load_json(path, {"w": C4_SIZE, "h": C4_SIZE},
                                  device=dev)
-        check(bsdf_api.check_kinds(scene) == bsdf_api.PORTED_KINDS
+        check(bsdf_api.check_kinds(scene) == bsdf_api.MATERIAL_FORM_KINDS
               - bsdf_api.DELTA_KINDS and hasattr(scene.medium, "density")
               and torch.equal(scene.medium.density,
                               c4["scene"].medium.density),
@@ -6856,6 +6871,321 @@ def gradient_forms(dev, card, cfg, c1, c2, c4):
     return [entries[k] for k in GF_FORMS]
 
 
+# phase 50: cornell_textured (presets.cornell_textured_desc) at config 1's
+# size, its VRLs traced as the CLI traces them (128 particles x depth 16,
+# 512 slots), each textured form held on the whole frame by material
+# (every material the camera sees, TEX_MIN_RAYS rays or more each), its
+# injected holds on TEX_KIND_RAYS rays of each material; config 2's
+# clustering (C2_CLUSTER, 100 slices) of the scene itself
+TEX_SEED = 20261021
+TEX_MIN_RAYS = 500
+TEX_KIND_RAYS = 256
+# the materials the camera sees: the bitmap, checker, grid and noise walls,
+# the HK slab and the normal- and bump-mapped blocks
+TEX_SEEN = ("bitmap", "checker", "grid", "noise", "hk", "normalmap",
+            "bumpmap")
+TEX_CLI_RUNS = [
+    ("textured vrl", "cornell_textured.json", "vrl", 2, [], ("vrl_sum",)),
+    ("textured alvrl", "cornell_textured.json", "alvrl", 2, [],
+     ("vrl_r", "vrl_sum_clustered")),
+]
+# the parent's kernel library, each function's SASS body digest
+# (scripts/sass_compare.py --root <parent> --record), NVIDIA H100 80GB
+# HBM3's toolkit
+PARENT_SASS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "alvrl_tpu_torch", "scripts", "parent_sass.json")
+
+
+def start_sass_check():
+    """scripts/sass_compare.py --against PARENT_SASS in a process of its
+    own (its disassembly takes minutes of host time), which phase 50
+    reads; killed at exit if it still runs."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(os.path.dirname(PARENT_SASS),
+                                      "sass_compare.py"),
+         "--against", PARENT_SASS], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def textured_path(dev, card, cfg, sass_check):
+    """Phase 50: the textured forms of kernels 1, 2 and 5 on
+    cornell_textured against their plain versions, material by material;
+    the earlier forms' SASS the parent's (the result of `sass_check`,
+    start_sass_check's process); the main path's textured launches; times
+    beside the material forms on the same packs (the textures dropped),
+    registers, bounds; the CLI; the VRL render against the volpath oracle
+    on the textured box. Returns the kernels line's three entries."""
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    desc = presets.cornell_textured_desc(tmp, WIDTH, HEIGHT, seed=TEX_SEED)
+    path = os.path.join(tmp, "cornell_textured.json")
+    with open(path, "w") as f:
+        json.dump(desc, f)
+    scene = loader.load_json(path, device=dev)
+    names = [m["name"] for m in desc["materials"]]
+    gen = torch.Generator().manual_seed(TEX_SEED)
+    vrls = vrl.compact(tracer.trace(scene, gen, 128, tracer.TracerConfig(
+        max_depth=16)), 512, slots_per_particle=16)
+    n_rays, n_vrls = WIDTH * HEIGHT, vrls.capacity
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    check(scene.textured() and packs[0].shape == (pk.TEX_RAY_ROWS, n_rays),
+          "the textured ray pack")
+    mpacks = (packs[0][:pk.MAT_RAY_ROWS].contiguous(), *packs[1:])
+    valid = packs[0][pk.VALID] > 0.5
+    ray_mat = torch.where(valid, packs[0][pk.MATID].long(), -1)
+    seen = {k: int((ray_mat == k).sum()) for k in set(ray_mat.tolist())
+            if k >= 0}
+    check(min(seen.values()) >= TEX_MIN_RAYS and set(seen) == {
+        names.index(n) for n in TEX_SEEN}, f"the materials seen: {seen}")
+    mkw = dict(materials=mats)
+    smooth = mats[0][:, pk.MT_SMOOTH] > 0.5
+    surf = smooth[packs[0][pk.MATID].long()]
+    rng = np.random.default_rng(50)
+    pick = torch.as_tensor(np.concatenate([rng.choice(
+        np.flatnonzero(ray_mat.cpu().numpy() == k), TEX_KIND_RAYS,
+        replace=False) for k in sorted(seen)]), device=dev)
+    kpacks = (packs[0][:, pick].contiguous(), *packs[1:])
+    u_k = torch.as_tensor(rng.random((len(pick), n_vrls, 6),
+                                     dtype=np.float32), device=dev)
+    seed = TEX_SEED
+    errs, lines, plain_ms = {}, [], {}
+
+    def hold(label, out, ref, kind, channels=3, min_items=TEX_KIND_RAYS):
+        return hold_by_kind(label, out, ref, kind, channels, min_items,
+                            kinds=set(seen))
+
+    # kernel 1: the frame on the Philox stream (its plain version timed,
+    # its samples counted), injected on the picked rays; its checking
+    # launch
+    out = vrl_sum(*packs, seed=seed, **mkw)
+    with SweepCount(valid[:, None] & (packs[1][pk.VVALID] > 0.5)[None],
+                    surf) as s1:
+        ref, plain_ms["vrl_sum"] = timed_call(lambda: vrl_sum_reference(
+            *packs, philox_uniforms(seed, n_rays, n_vrls, 6, device=dev),
+            **mkw))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()) and float(out.sum()) > 0.0,
+          "kernel 1 (textured): not finite and positive")
+    lines.append(hold("kernel 1 philox", out.T[valid], ref.T[valid],
+                      ray_mat[valid], min_items=TEX_MIN_RAYS))
+    median, share = homog_bar(out.T[valid], ref.T[valid])
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"kernel 1 (textured) frame: {median}, {share}")
+    lines.append(f"kernel 1 frame median {median:.2e} share>1e-2 "
+                 f"{share:.4f}")
+    errs["vrl_sum"] = float((out - ref).abs().max())
+    out_c, k1_counts = vs.vrl_sum_check(*packs, seed=seed, **mkw)
+    check(k1_counts["bad_tris"] == 0 and k1_counts["bad_segments"] == 0
+          and torch.equal(out_c, out), f"kernel 1 (textured): the checking "
+          f"launch: {k1_counts}")
+    out = vrl_sum(*kpacks, uniforms=u_k, **mkw)
+    ref = vrl_sum_reference(*kpacks, u_k, **mkw)
+    lines.append(hold(f"kernel 1 injected ({len(pick)} rays)", out.T, ref.T,
+                      ray_mat[pick]))
+    errs["vrl_sum"] = max(errs["vrl_sum"], float((out - ref).abs().max()))
+
+    # kernel 2 on the scene's own clustering at config 2's slices (R
+    # through kernel 5's textured form), Philox on the frame, and its
+    # checking launch
+    params = alvrl.ALVRLParams(**GLOSSY_PARAMS,
+                               cluster=cl.ClusterParams(**C2_CLUSTER))
+    info = alvrl.build_slice_info(scene, params)
+    sop, tv, tw, _ = alvrl.prepare_clustering(scene, vrls, seed, params, cfg,
+                                              info)
+    n_cols = tv.shape[1]
+    out = vrl_sum_clustered(*packs, sop, tv, tw, seed=seed, **mkw)
+    again = vrl_sum_clustered(*packs, sop, tv, tw, seed=seed, **mkw)
+    with SweepCount(table_pair_ok(packs[0], packs[1], sop, tv, tw),
+                    surf) as s2:
+        ref, plain_ms["vrl_sum_clustered"] = timed_call(
+            lambda: vrl_sum_clustered_reference(
+                *packs, sop, tv, tw, philox_table_uniforms(seed, sop, tv, 6),
+                **mkw))
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), "kernel 2 (textured): a repeat is not "
+          "bit-identical")
+    lines.append(hold(f"kernel 2 philox ({int(tv.shape[0])} slices, "
+                      f"{n_cols} columns)", out.T[valid], ref.T[valid],
+                      ray_mat[valid], min_items=TEX_MIN_RAYS))
+    median, share = homog_bar(out.T[valid], ref.T[valid])
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"kernel 2 (textured) frame: {median}, {share}")
+    errs["vrl_sum_clustered"] = float((out - ref).abs().max())
+    c_chk, c_counts = vrl_sum_clustered_check(*packs, sop, tv, tw, seed=seed,
+                                              **mkw)
+    check(c_counts["bad_tris"] == 0 and c_counts["bad_segments"] == 0
+          and torch.equal(c_chk, out), f"kernel 2 (textured): the checking "
+          f"launch: {c_counts}")
+
+    # kernel 5: injected on the picked rays, each material alone; Philox on
+    # the clustering's representative rays (the main path's shape)
+    rows = torch.as_tensor(np.concatenate(info.repr_rows), device=dev)
+    ray_o, ray_d = perspective.sample_ray(scene.camera, rows % WIDTH,
+                                          rows // WIDTH)
+    rpacks = integrator.pack_rays_vrls(scene, ray_o, ray_d, vrls, mats)[1]
+    n_rep = rpacks[0].shape[1]
+    out = vrl_r(*kpacks, uniforms=u_k, **mkw)
+    ref = vrl_r_reference(*kpacks, u_k, **mkw)
+    lines.append(hold(f"kernel 5 injected mean", out[0], ref[0], ray_mat[
+        pick][:, None].expand(-1, n_vrls), 1, TEX_KIND_RAYS * n_vrls))
+    errs["vrl_r"] = float((out - ref).abs().max())
+    out = vrl_r(*rpacks, seed=seed, **mkw)
+    rsurf = smooth[rpacks[0][pk.MATID].long()]
+    u_r = philox_uniforms(seed, n_rep, n_vrls, 6, device=dev)
+    with SweepCount((rpacks[0][pk.VALID] > 0.5)[:, None]
+                    & (rpacks[1][pk.VVALID] > 0.5)[None], rsurf) as s5:
+        ref, plain_ms["vrl_r"] = timed_call(
+            lambda: vrl_r_reference(*rpacks, u_r, **mkw))
+    median, share = homog_bar(out[0], ref[0], channels=1)
+    check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+          f"kernel 5 (textured) philox: {median}, {share}")
+    nz = ref[1] > R_VAR_FLOOR
+    v_med = float(((out[1] - ref[1]).abs()[nz] / ref[1][nz]).median())
+    check(v_med < R_VAR_MEDIAN, f"kernel 5 (textured) var {v_med}")
+    lines.append(f"kernel 5 philox ({n_rep} representative rays) mean median "
+                 f"{median:.2e} share>1e-2 {share:.4f}, var median "
+                 f"{v_med:.2e}")
+    errs["vrl_r"] = max(errs["vrl_r"], float((out - ref).abs().max()))
+    _, r_counts = vrl_r_check(*rpacks, seed=seed, **mkw)
+    check(r_counts["bad_tris"] == 0 and r_counts["bad_segments"] == 0,
+          f"kernel 5 (textured): the checking launch: {r_counts}")
+    del u_k, u_r
+
+    # every earlier form's SASS is the parent's (the digests of their
+    # outputs: phases 40, 43, 47 and 49)
+    t_sass = time.perf_counter()
+    out_s, err_s = sass_check.communicate(timeout=900)
+    check(sass_check.returncode == 0, f"sass_compare.py: {err_s[-2000:]}")
+    sass = json.loads(out_s.strip().splitlines()[-1])
+    check(not sass["missing"], f"{len(sass['missing'])} of the parent's "
+          f"{sass['functions']} kernel functions have another SASS: "
+          f"{sass['missing'][:8]}")
+    lines.append(f"SASS: each of the parent's {sass['functions']} functions "
+                 "found in this library (sass_compare.py --against, waited "
+                 f"{time.perf_counter() - t_sass:.1f} s)")
+    print(f"[50a textured kernels vs plain on {card}, cornell_textured "
+          f"B={n_rays} N={n_vrls} T={scene.faces.shape[0]} "
+          f"M={mats[0].shape[0]}, materials seen {seen}] "
+          + " | ".join(lines), flush=True)
+
+    # the main path: the unclustered and the clustered render
+    counters = (vrl_sum, vrl_r, vrl_sum_clustered)
+    for fn in counters:
+        fn.launches = fn.tex_launches = 0
+    with plain_calls() as plain:
+        img = integrator.render_with_vrls_kernel(
+            scene, vrls, torch.Generator().manual_seed(1), cfg)
+        img_c, _, _ = alvrl.render_alvrl(
+            scene, torch.Generator().manual_seed(2), params, cfg,
+            slice_info=info)
+        torch.cuda.synchronize()
+    launches = {fn.__name__: (fn.launches, fn.tex_launches)
+                for fn in counters}
+    check(all(t >= 1 and t == n for n, t in launches.values())
+          and plain[0] == 0, f"the main path's (launches, textured "
+          f"launches) {launches}, plain calls {plain[0]}")
+    for name, im in (("unclustered", img), ("clustered", img_c)):
+        check(tuple(im.shape) == (HEIGHT, WIDTH, 3)
+              and bool(torch.isfinite(im).all())
+              and float(im.abs().max()) > 0.0, f"the {name} image")
+    ratio = float(img_c.mean()) / float(img.mean())
+    check(0.85 < ratio < 1.15, f"clustered against unclustered: {ratio}")
+
+    # times: each textured launch beside the material form on the same
+    # packs (the textures dropped: its rows' MATID prefix), in turns
+    c_block = vsc.ray_block(False)
+    c_out = torch.zeros((3, n_rays), device=dev)
+    tiles = [torch.as_tensor(a, device=dev)
+             for a in group_by_slice(sop, c_block)]
+
+    def c_launch(p):
+        return lambda: vsc._launch(
+            vsc._library(), *p, *tiles, tv, tw, None, seed, 2, 2, True,
+            scene.medium.phase_kind, c_out, materials=mats)
+
+    rm = (rpacks[0][:pk.MAT_RAY_ROWS].contiguous(), *rpacks[1:])
+    timed = {"vrl_sum": (lambda: vrl_sum(*packs, seed=seed, **mkw),
+                         lambda: vrl_sum(*mpacks, seed=seed, **mkw), cuda_ms),
+             "vrl_sum_clustered": (c_launch(packs), c_launch(mpacks),
+                                   cuda_ms_batched),
+             "vrl_r": (lambda: vrl_r(*rpacks, seed=seed, **mkw),
+                       lambda: vrl_r(*rm, seed=seed, **mkw),
+                       cuda_ms_batched)}
+    ms = {}
+    for k, (tex_fn, mat_fn, timer) in timed.items():
+        args = (3, 10) if timer is cuda_ms else (3, 10, 10)
+        m0 = timer(mat_fn, *args)
+        t0 = timer(tex_fn, *args)
+        t1 = timer(tex_fn, *args)
+        m1 = timer(mat_fn, *args)
+        ms[k] = (summary(t0 + t1), summary(m0 + m1))
+    hg = scene.medium.phase_kind == 0
+
+    def tex_ops(kernel, sweep, counts):
+        # the textured eval priced as the material one (its leaves read
+        # the ray's albedos in place of the row's)
+        f, s = plane_ops(kernel_ops(kernel, sweep, hg, True), sweep, counts)
+        return (f + sweep.open[1] * OPS["eval_smooth"][0],
+                s + sweep.open[1] * OPS["eval_smooth"][1])
+
+    mat_bytes = nbytes(*mats)
+    bounds = {
+        "vrl_sum": bound(tex_ops("vrl_sum", s1, k1_counts),
+                         nbytes(*packs) + mat_bytes + 3 * n_rays * 4),
+        "vrl_sum_clustered": bound(
+            tex_ops("vrl_sum_clustered", s2, c_counts),
+            nbytes(*packs, tv, tw) + mat_bytes + 4 * sum(
+                len(a) for a in group_by_slice(sop, c_block))
+            + 3 * n_rays * 4),
+        "vrl_r": bound(tex_ops("vrl_r", s5, r_counts),
+                       nbytes(*rpacks) + mat_bytes + 2 * n_rep * n_vrls * 4),
+    }
+    regs = [r for r in ptxas_summary(_build.build_log()) if ",tex>" in r]
+    print(f"[50b textured kernels' timing on {card}] " + " | ".join(
+        f"{k}: textured {t[0]:.4f} ms (spread {t[1]:.1%}), material form on "
+        f"the same packs {m[0]:.4f} ms (spread {m[1]:.1%}), in turns; plain "
+        f"{plain_ms[k]:.2f} ms; bound {bounds[k][0]:.4f} ms by {bounds[k][1]}"
+        for k, (t, m) in ms.items())
+        + f" | samples: kernel 1 {s1}; kernel 2 {s2}; kernel 5 {s5}"
+        + " | ptxas (textured forms): " + " ; ".join(regs)
+        + f" | the main path: render_with_vrls_kernel and render_alvrl "
+        f"(launches, textured launches) {launches}, no plain version, image "
+        f"means {float(img.mean()):.6g} and {float(img_c.mean()):.6g} "
+        f"(clustered x{ratio:.4f})", flush=True)
+
+    # the CLI on the scene file, and the equal-transport A/B of the VRL
+    # render against the volpath oracle on the closed textured box
+    for fn in counters:
+        fn.tex_launches = 0
+    cli_runs(dev, card, tmp, TEX_CLI_RUNS, phase="50c the CLI")
+    check(all(fn.tex_launches >= 1 for fn in counters),
+          "the CLI runs took no textured launch of kernels 1, 5 and 2")
+    small = loader.build_scene(presets.cornell_textured_desc(
+        tmp, AB_SIZE, AB_SIZE, seed=TEX_SEED), device=dev)
+    print(f"[50d the volpath oracle on {card}] "
+          + ab_oracle(dev, card, small, "cornell_textured")
+          + f" | phase 50 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    tmp_dir.cleanup()
+    sources = {"vrl_sum": ("vrl_sum_tex.cu",
+                           "alvrl_tpu/ops/vrl_pallas.py:726"),
+               "vrl_sum_clustered": ("vrl_sum_clustered_tex.cu",
+                                     "alvrl_tpu/ops/vrl_pallas.py:785"),
+               "vrl_r": ("vrl_r_tex.cu", "alvrl_tpu/ops/vrl_pallas.py:1019")}
+    return [{
+        "name": f"{k} (textured)", "route": "cuda",
+        "source": f"alvrl_tpu_torch/csrc/{sources[k][0]}",
+        "replaces": sources[k][1], "launches": launches[k][1],
+        "max_abs_err": errs[k], "ms": ms[k][0][0], "plain_ms": plain_ms[k],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": None} for k in ("vrl_sum", "vrl_sum_clustered",
+                                      "vrl_r")]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -6871,6 +7201,7 @@ def main():
     t0 = time.time()
     _build.load_library()
     build_s = time.time() - t0
+    sass_check = start_sass_check()
     check(vs.compiled_uv_steps() == VRLConfig().uv_tau_steps,
           f"the grid kernels are compiled for {vs.compiled_uv_steps()} U-V "
           f"steps, the callers pass {VRLConfig().uv_tau_steps}")
@@ -7291,6 +7622,7 @@ def main():
     c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
     glossy_grid_kernels = glossy_grid(dev, card, cfg, c1, c4)
     gradient_kernels = gradient_forms(dev, card, cfg, c1, c2, c4)
+    textured_kernels = textured_path(dev, card, cfg, sass_check)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -7309,7 +7641,7 @@ def main():
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
         bvh_kernel, *probe_kernels, *glossy_kernels_line,
         *sky_kernels_line, *tri_kernels, *glossy_grid_kernels,
-        *gradient_kernels]}))
+        *gradient_kernels, *textured_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

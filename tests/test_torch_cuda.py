@@ -9,7 +9,9 @@ material instantiations of kernels 1, 2 and 5 on glossy and layered
 surfaces; their mixture-phase (PHASE = 2) and sampling-strategy forms,
 and the dispatch's refusal of a phase kind it has no form for; the
 material forms of the grid kernels 3, 4 and 6 (nearest and trilinear)
-and of kernel 7, and kernel 7's mixture and strategy forms.
+and of kernel 7, and kernel 7's mixture and strategy forms; the textured
+forms of kernels 1, 2 and 5 on cornell_textured's textured, normal-
+mapped, bump-mapped and HK surfaces.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -1845,7 +1847,7 @@ def _by_kind(mats, packs, row, device, seed):
     from alvrl_tpu_torch.bsdf import api as bsdf_api
 
     kind = mats[0][packs[0][row].long(), pk.MT_KIND].long()
-    kinds = (bsdf_api.PORTED_KINDS - bsdf_api.DELTA_KINDS
+    kinds = (bsdf_api.MATERIAL_FORM_KINDS - bsdf_api.DELTA_KINDS
              - {bsdf_api.DIFFUSE}) & set(kind.tolist())
     rng = np.random.default_rng(seed)
     pick = torch.as_tensor(np.concatenate([rng.choice(
@@ -2420,3 +2422,138 @@ def test_cuda_earlier_forms_keep_their_outputs(cuda):
         smoke.PARENT_DIGESTS_ALL
     assert kernel_digest.grid_digests(cuda) == smoke.PARENT_DIGESTS_GRID
     assert kernel_digest.bvh_digests(cuda) == PARENT_DIGESTS_BVH
+
+
+# --- the textured forms of kernels 1, 2 and 5 (procedural and bitmap
+# textures, normal and bump maps, the HK slab at the eye hit)
+
+TEX_RAYS = 256  # eye rays of each material in the textured forms' holds
+
+
+def _textured(device, size, tmp):
+    """presets.cornell_textured_desc's box at size^2 (its bitmaps written
+    into tmp), its material pack, the bench VRLs and its frame's textured
+    packs."""
+    from alvrl_tpu_torch.scene import loader
+
+    scene = loader.build_scene(presets.cornell_textured_desc(
+        str(tmp), size, size), device=device)
+    vrls = _bench_vrls(device)
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    return scene, vrls, mats, packs
+
+
+def _textured_by_material(device, tmp):
+    """_textured at 128x128, its ray pack cut to TEX_RAYS eye rays of each
+    material the frame's rays hit (a seeded pick): (material pack, packs,
+    the rays' material ids, the ids)."""
+    _, _, mats, packs = _textured(device, 128, tmp)
+    valid = packs[0][pk.VALID] > 0.5
+    mid = packs[0][pk.MATID].long()
+    ids = sorted(set(mid[valid].tolist()))
+    rng = np.random.default_rng(21)
+    pick = torch.as_tensor(np.concatenate([rng.choice(np.flatnonzero(
+        ((mid == i) & valid).cpu().numpy()), TEX_RAYS, replace=False)
+        for i in ids]), device=device)
+    return (mats, (packs[0][:, pick].contiguous(), *packs[1:]), mid[pick],
+            set(ids))
+
+
+@pytest.mark.parametrize("kernel", ["vrl_sum", "vrl_sum_clustered", "vrl_r"])
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "philox"])
+def test_cuda_textured_kernels_match_plain(cuda, tmp_path, kernel, injected):
+    """Each textured form on cornell_textured (TEX_RAYS eye rays of each
+    material x 512 VRLs; kernel 2 on a seeded table) against its plain
+    version on the same uniforms, at the homogeneous bar over all rays and
+    over each material's rays alone (a bitmap, a procedural texture, the
+    normal and bump maps and the HK slab each held by itself); its launch
+    counted as a textured one."""
+    mats, packs, ray_mat, ids = _textured_by_material(cuda, tmp_path)
+    assert pk.is_textured(packs[0])
+    n_rays, seed = packs[0].shape[1], 41
+    kw = dict(seed=seed, materials=mats)
+    fn = {"vrl_sum": vrl_sum, "vrl_sum_clustered": vrl_sum_clustered,
+          "vrl_r": vrl_r}[kernel]
+    before = (fn.launches, fn.tex_launches)
+    if kernel == "vrl_sum_clustered":
+        sop, t_ids, w = _glossy_table(packs, cuda)
+        u = (torch.rand((n_rays, t_ids.shape[1], 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2))
+             if injected else philox_table_uniforms(seed, sop, t_ids, 6))
+        out = vrl_sum_clustered(*packs, sop, t_ids, w,
+                                uniforms=u if injected else None, **kw)
+        ref = vrl_sum_clustered_reference(*packs, sop, t_ids, w, u,
+                                          materials=mats)
+    else:
+        plain = vrl_sum_reference if kernel == "vrl_sum" else vrl_r_reference
+        u = (torch.rand((n_rays, 512, 6), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2))
+             if injected else philox_uniforms(seed, n_rays, 512, 6,
+                                              device=cuda))
+        out = fn(*packs, uniforms=u if injected else None, **kw)
+        ref = plain(*packs, u, materials=mats)
+        if kernel == "vrl_r":
+            out, ref = out[0], ref[0]
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.tex_launches - before[1]) == (1, 1)
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    if kernel == "vrl_r":
+        out_i, ref_i, channels = out, ref, 1
+        item_mat = ray_mat[:, None].expand(-1, 512)
+    else:
+        out_i, ref_i, channels, item_mat = out.T, ref.T, 3, ray_mat
+    median, share = homog_bar(out_i, ref_i, channels)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    groups = homog_bar_by_kind(out_i, ref_i, item_mat, channels)
+    assert set(groups) == ids
+    for k, (n, median, share) in groups.items():
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (
+            k, n, median, share)
+
+
+def test_cuda_textured_checking_launches(cuda, tmp_path):
+    """The checking instantiations of the textured forms: 0 disagreements
+    of the plane pre-reject, and their outputs the sums' (kernel 2's bit
+    for bit)."""
+    _, _, mats, packs = _textured(cuda, 32, tmp_path)
+    out, counts = vs.vrl_sum_check(*packs, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert counts["segments"] > 0
+    assert torch.equal(out, vrl_sum(*packs, seed=3, materials=mats))
+    sop, ids, w = _glossy_table(packs, cuda)
+    out, counts = vrl_sum_clustered_check(*packs, sop, ids, w, seed=3,
+                                          materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert torch.equal(out, vrl_sum_clustered(*packs, sop, ids, w, seed=3,
+                                              materials=mats))
+    out, counts = vrl_r_check(*packs, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert torch.equal(out, vrl_r(*packs, seed=3, materials=mats))
+
+
+def test_cuda_textured_renders_take_the_textured_kernels(cuda, tmp_path):
+    """render_with_vrls_kernel, the specular-chain render and render_alvrl
+    on cornell_textured launch the textured forms of kernels 1, 5 and 2
+    only; the images are finite and non-zero; the routes without a
+    textured form refuse the scene."""
+    scene, vrls, _, _ = _textured(cuda, 16, tmp_path)
+    fns = (vrl_sum, vrl_r, vrl_sum_clustered)
+    before = [(f.launches, f.tex_launches) for f in fns]
+    img = integrator.render_with_vrls_kernel(
+        scene, vrls, torch.Generator().manual_seed(0))
+    img_s = integrator.render_with_vrls_kernel_spec(
+        scene, vrls, torch.Generator().manual_seed(0))
+    img_c, _, _ = alvrl.render_alvrl(
+        scene, torch.Generator().manual_seed(1), alvrl.ALVRLParams(
+            vrl_target_num=128, num_particles=32))
+    for f, (n, t) in zip(fns, before):
+        assert f.launches > n and f.launches - n == f.tex_launches - t
+    for im in (img, img_s, img_c):
+        assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0
+    with pytest.raises(ValueError, match="A11a"):
+        integrator.render_with_vrls_kernel_bvh(
+            scene, vrls, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="A11a"):
+        integrator.render_with_vrls_kernel_diff(
+            scene, vrls, torch.Generator().manual_seed(0))

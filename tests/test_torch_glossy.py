@@ -98,7 +98,7 @@ def _bar(out, ref, kind=None, channels=3):
                                                                  share)
     if kind is not None:
         groups = vs.homog_bar_by_kind(out, ref, kind, channels)
-        assert set(groups) >= bsdf.PORTED_KINDS - bsdf.DELTA_KINDS - {
+        assert set(groups) >= bsdf.MATERIAL_FORM_KINDS - bsdf.DELTA_KINDS - {
             bsdf.DIFFUSE}, sorted(groups)
         for k, (n, median, share) in groups.items():
             assert (median < HOMOG["median"] and share < HOMOG["share"]), (
@@ -114,7 +114,7 @@ def _eye_kinds(scene, ray_o, ray_d):
 def test_glossy_scene_holds_every_kind():
     jscene, scene = _scenes()
     kinds = bsdf.check_kinds(scene)
-    assert kinds == bsdf.PORTED_KINDS - bsdf.DELTA_KINDS | {3}
+    assert kinds == bsdf.MATERIAL_FORM_KINDS - bsdf.DELTA_KINDS | {3}
     assert bsdf.has_glossy(kinds)
     # every surface kind is seen from the camera or the light
     seen = set(scene.materials.kind[scene.material].tolist())

@@ -48,7 +48,7 @@ GRAD_RTOL = 1e-3  # the train step's gradients (the BASELINE bar)
 FD_TOL = 5e-3     # same-seed central differences
 N_COLS = 128      # bench VRLs against the 64 eye rays
 SVV = SVS = 1  # one sample of each family: half the JAX graph to compile
-GLOSSY_KINDS = bsdf.PORTED_KINDS - bsdf.DELTA_KINDS - {bsdf.DIFFUSE}
+GLOSSY_KINDS = bsdf.MATERIAL_FORM_KINDS - bsdf.DELTA_KINDS - {bsdf.DIFFUSE}
 
 
 def _t(a):

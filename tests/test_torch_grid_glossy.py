@@ -53,7 +53,7 @@ from tests.torch_port_utils import (
 
 torch.set_num_threads(1)
 
-GLOSSY_KINDS = bsdf.PORTED_KINDS - bsdf.DELTA_KINDS - {bsdf.DIFFUSE}
+GLOSSY_KINDS = bsdf.MATERIAL_FORM_KINDS - bsdf.DELTA_KINDS - {bsdf.DIFFUSE}
 # a seeded plume over the box [-1, 1]^3, at least 2 voxels a side (the
 # trilinear read)
 GRID_MEDIUM = {"type": "grid", "sigma_t": [0.8, 0.85, 0.9],

@@ -211,11 +211,11 @@ def test_bsdf_sample_matches():
 
 
 def test_bsdf_sample_rejects_other_kinds():
-    """A kind not ported (here HK, 14) raises."""
+    """A kind not ported (here IRAWAN, 15) raises."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 14])))
-    with pytest.raises(ValueError, match="HK.*ROADMAP A11"):
+        scene.materials, kind=torch.tensor([0, 0, 0, 15])))
+    with pytest.raises(ValueError, match="IRAWAN.*ROADMAP A11a"):
         bsdf.sample_from_uniforms(scene, torch.zeros(1, 5), torch.zeros(
             1, dtype=torch.int64), torch.tensor([[0.0, 1.0, 0.0]]),
             torch.tensor([[0.0, 1.0, 0.0]]), torch.tensor([[0.0, -1.0, 0.0]]))
@@ -226,7 +226,7 @@ def test_trace_rejects_other_kinds_once():
     bounce (bsdf.check_kinds), and then samples without the check."""
     scene = presets.cornell_smoke(width=4, height=4, device="cpu")
     scene = replace(scene, materials=replace(
-        scene.materials, kind=torch.tensor([0, 0, 0, 14])))
+        scene.materials, kind=torch.tensor([0, 0, 0, 15])))
     calls = []
     check = bsdf.check_kinds
 

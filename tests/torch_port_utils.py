@@ -177,6 +177,11 @@ def jax_scene_leaves(scene):
                for k in ("sigma_a", "sigma_s", "g", "sampling_weight")},
             "face_med_int": np.asarray(scene.face_med_int),
             "face_med_ext": np.asarray(scene.face_med_ext)}),
+        **({} if scene.materials.tex_id is None else {
+            **{f"materials.{k}": np.asarray(getattr(scene.materials, k))
+               for k in ("tex_kind", "tex_scale", "tex_id")},
+            "face_uv": np.asarray(scene.face_uv),
+            "textures": np.asarray(scene.textures)}),
     }
 
 
