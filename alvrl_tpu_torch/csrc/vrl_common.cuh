@@ -56,6 +56,43 @@ extern "C" int alvrl_vrl_r_tex(const float* rays, int B, const float* vrls, int 
                                int short_vrls, int phase_kind, float* planes, int mode,
                                unsigned long long* counts, float* out, void* stream);
 
+// vrl_sum_grid_tex.cu, vrl_sum_clustered_grid_tex.cu, vrl_r_grid_tex.cu,
+// vrl_sum_bvh_tex.cu: the textured forms of kernels 3, 4, 6 and 7 (the
+// material forms' bodies with TEX set; vrl_tex.cuh), which
+// alvrl_vrl_sum_hetero, alvrl_vrl_sum_hetero_clustered, alvrl_vrl_r_hetero
+// and alvrl_vrl_sum_bvh launch when their `tex` is set, with their other
+// arguments.
+extern "C" int alvrl_vrl_sum_hetero_tex(const float* rays, int B, const float* vrls, int N,
+                                        const float* tris, int T, const float* med,
+                                        const float* mat_table, int M, const float* rt,
+                                        const float* density, int nz, int ny, int nx,
+                                        int uv_steps, int trilinear, const float* uniforms,
+                                        unsigned int seed, int svv, int svs, int short_vrls,
+                                        int phase_kind, float* partial, int n_chunks, float* out,
+                                        void* stream);
+extern "C" int alvrl_vrl_sum_hetero_clustered_tex(
+    const float* rays, int B, const float* vrls, int N, const float* tris, int T, const float* med,
+    const float* mat_table, int M, const float* rt, const float* density, int nz, int ny, int nx,
+    int uv_steps, int trilinear, const int* tile_rays, const int* tile_row, int n_tiles,
+    const int* table_ids, const float* table_w, int C, const float* uniforms, unsigned int seed,
+    int svv, int svs, int short_vrls, int phase_kind, float* planes, int mode,
+    unsigned long long* counts, float* out, void* stream);
+extern "C" int alvrl_vrl_r_hetero_tex(const float* rays, int B, const float* vrls, int N,
+                                      const float* tris, int T, const float* med,
+                                      const float* mat_table, int M, const float* rt,
+                                      const float* density, int nz, int ny, int nx, int uv_steps,
+                                      int trilinear, const float* uniforms, unsigned int seed,
+                                      int svv, int svs, int short_vrls, int phase_kind,
+                                      float* planes, int mode, unsigned long long* counts,
+                                      float* out, void* stream);
+extern "C" int alvrl_vrl_sum_bvh_tex(const float* rays, int B, const float* vrls, int N,
+                                     const float* nodes, int n_nodes, const float* tris, int T,
+                                     int depth, const float* med, const float* mat_table, int M,
+                                     const float* rt, const float* uniforms, unsigned int seed,
+                                     int svv, int svs, int short_vrls, int phase_kind,
+                                     float* partial, int n_chunks, float* out,
+                                     unsigned long long* counts, void* stream);
+
 namespace {
 
 // pack layouts: ops/pack.py
@@ -1036,15 +1073,22 @@ __device__ __forceinline__ void vol_surf_term(const Medium& m, const Ray& ray, c
             geo;
 }
 
+// f cos_o of the eye hit of a material kernel: eval_smooth of its row in
+// the launch's table at the hit's normal. vrl_tex.cuh overloads it for a
+// textured ray's own rows (TexMats).
+__device__ __forceinline__ f3 eye_eval(const Mats& mats, const Ray& ray, f3 wi_w, f3 wo_w) {
+  return eval_smooth(mats, ray.mat, ray.ng, wi_w, wo_w);
+}
+
 // The vol-surf term of the material kernels: vol_surf_term with the hit's
-// eval_smooth(-ray_d, -vu) (f cos_o, per channel) in place of the
-// diffuse albedo times cos_o / pi.
-template <int PHASE, bool SHORT_VRLS>
+// eye_eval(-ray_d, -vu) (f cos_o, per channel) in place of the diffuse
+// albedo times cos_o / pi. MatT: Mats, or a textured ray's TexMats.
+template <int PHASE, bool SHORT_VRLS, class MatT>
 __device__ __forceinline__ void vol_surf_term_mat(const Medium& m, const Ray& ray,
                                                   const VrlPair& p, const Sample& sm,
-                                                  const Mats& mats, float t[3]) {
+                                                  const MatT& mats, float t[3]) {
   float e[3];
-  const f3 fv = eval_smooth(mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f);
+  const f3 fv = eye_eval(mats, ray, ray.d * -1.0f, sm.vu * -1.0f);
   const float f[3] = {fv.x, fv.y, fv.z};
   float geo = m.phase<PHASE>(sm.c_v) / sm.den;
   if (SHORT_VRLS) geo = geo / fmaxf(m.pdf_failure(sm.d_sv, e), 1e-30f);
@@ -1457,14 +1501,14 @@ __device__ __forceinline__ void vol_surf_term(const GridMedium<UV, TRI>& gm, con
 }
 
 // The vol-surf term of the material kernels in the grid medium: the grid
-// vol_surf_term with the hit's eval_smooth(-ray_d, -vu) (f cos_o, per
+// vol_surf_term with the hit's eye_eval(-ray_d, -vu) (f cos_o, per
 // channel) in place of the diffuse albedo times cos_o / pi.
-template <int PHASE, bool SHORT_VRLS, int UV, bool TRI>
+template <int PHASE, bool SHORT_VRLS, int UV, bool TRI, class MatT>
 __device__ __forceinline__ void vol_surf_term_mat(const GridMedium<UV, TRI>& gm, const Ray& ray,
                                                   const VrlPair& p, const Sample& sm,
-                                                  const Mats& mats, float t[3]) {
+                                                  const MatT& mats, float t[3]) {
   const float* m = gm.m;
-  const f3 fv = eval_smooth(mats, ray.mat, ray.ng, ray.d * -1.0f, sm.vu * -1.0f);
+  const f3 fv = eye_eval(mats, ray, ray.d * -1.0f, sm.vu * -1.0f);
   const float f[3] = {fv.x, fv.y, fv.z};
   const float od_sv = interp_od(p.vod, VRL_CHUNK, sm.d_sv * p.ivl);
   const float od = uv_od(gm, ray.hp, sm.vp, sm.d_uv) + od_sv;
@@ -1554,7 +1598,7 @@ __device__ __forceinline__ void pair_samples(const Ray& ray, const VrlPair& p, P
 // vol-surf term evaluates the hit's smooth BSDF (vol_surf_term_mat);
 // MAT = false is the diffuse term, unchanged. MatT: Mats, or the
 // textured forms' own view of the eye hit (vrl_tex.cuh TexMats, with its
-// vol_surf_term_mat).
+// eye_eval).
 template <int PHASE, bool SHORT_VRLS, bool MAT = false, class Med, class Occl, class Emit,
           class MatT = Mats>
 __device__ __forceinline__ void pair_terms(const Ray& ray, const VrlPair& p, const Med& m,

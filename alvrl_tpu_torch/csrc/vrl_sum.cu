@@ -103,68 +103,9 @@
 //     version is vrl_sum_hetero_reference with `materials`.
 // Precise math functions throughout (no --use_fast_math).
 
-#include "vrl_common.cuh"
+#include "vrl_sum.cuh"
 
 namespace {
-
-// The sum of a block (RAY_BLOCK rays x the chunk of VRLs blockIdx.y),
-// the body of the kernel templates below. MAT: the material form, its M
-// table rows staged after the eye-OD tables (grid) and attached to the
-// ray (the grid ray pack's GRID_MATID row); MAT = false ignores
-// mat_table, M and rt.
-template <int PHASE, bool SHORT_VRLS, bool GRID, int UV, bool TRI = false, bool MAT = false>
-__device__ __forceinline__ void sum_block(const float* __restrict__ rays, int B,
-                                          const float* __restrict__ vrls, int N,
-                                          const float* __restrict__ tris, int T,
-                                          const float* __restrict__ med, GridArgs grid,
-                                          const float* __restrict__ uniforms, uint32_t seed,
-                                          int svv, int svs, float* __restrict__ partial,
-                                          const float* __restrict__ mat_table = nullptr,
-                                          int M = 0, const float* __restrict__ rt = nullptr) {
-  constexpr int V_ROWS = GRID ? GRID_VRL_ROWS : VRL_ROWS;
-  extern __shared__ float smem[];
-  float* s_tri = smem;                    // (T, TRI_COLS)
-  float* s_vrl = smem + T * TRI_COLS;     // (V_ROWS, VRL_CHUNK)
-  float* s_med = s_vrl + V_ROWS * VRL_CHUNK;  // grid: (GRID_MED_LEN,)
-  float* s_etab = s_med + (GRID ? GRID_MED_LEN : 0);  // grid: (NQ + 1, RAY_BLOCK)
-  const int chunk = blockIdx.y;
-  const int n0 = chunk * VRL_CHUNK;
-  const int nc = stage_block(tris, T, vrls, N, n0, s_tri, s_vrl, V_ROWS);
-  stage_medium<GRID>(med, s_med);
-  Mats mats{};
-  if constexpr (MAT)  // (M, MAT_COLS)
-    mats = stage_mats(mat_table, M, rt, s_etab + (GRID ? (NQ + 1) * RAY_BLOCK : 0));
-  __syncthreads();
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  Ray ray = load_ray(rays, B, b);
-  if constexpr (MAT) attach_mat<GRID>(ray, rays, B, b, mats);
-  stage_eod<GRID>(ray, rays, B, b, s_etab);
-  const auto m = make_medium<GRID, UV, false, TRI>(med, s_med, grid);
-  const float inv_vv = svv > 0 ? 1.0f / (float)svv : 0.0f;
-  const float inv_vs = svs > 0 ? 1.0f / (float)svs : 0.0f;
-  const int n_draws = 2 * svv + svs;
-
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int c = 0; ray.ok && c < nc; ++c) {
-    if (s_vrl[VVALID * VRL_CHUNK + c] <= 0.5f) continue;
-    const int n = n0 + c;
-    const VrlPair p = pair_at<GRID>(ray, s_vrl, c);
-    PairUniforms draw{uniforms ? uniforms + ((size_t)b * N + n) * n_draws : nullptr,
-                      (uint32_t)b, (uint32_t)n, seed, make_uint4(0u, 0u, 0u, 0u), -1};
-    pair_terms<PHASE, SHORT_VRLS, MAT>(
-        ray, p, m, draw, svv, svs, FlatTris{s_tri, T},
-        [&](int family, const float* t) {
-          const float inv = family == 0 ? inv_vv : inv_vs;
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) acc[ch] += t[ch] * inv;
-        },
-        &mats);
-  }
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) partial[((size_t)chunk * 3 + ch) * B + b] = acc[ch];
-}
 
 // The grid kernel: the run-time-step (UV = 0) instantiations, under the
 // launch bound every kernel of the port has...
@@ -506,13 +447,19 @@ int alvrl_plane_pack(const float* tris, int T, float* out, void* stream) {
 // itself (nz, ny, nx), each at least 2; mat_table, M and rt: the
 // material table of the material form (either read, the run-time step
 // count), whose rays carry the hit's material id in row GRID_MATID (null,
-// 0, null: the diffuse sum); the rest as alvrl_vrl_sum.
+// 0, null: the diffuse sum); tex 1 (with a table): the textured forms
+// (vrl_sum_grid_tex.cu), whose rays are the grid textured pack; the rest
+// as alvrl_vrl_sum.
 int alvrl_vrl_sum_hetero(const float* rays, int B, const float* vrls, int N, const float* tris,
                          int T, const float* med, const float* mat_table, int M, const float* rt,
-                         const float* density, int nz, int ny, int nx, int uv_steps,
+                         int tex, const float* density, int nz, int ny, int nx, int uv_steps,
                          int trilinear, const float* uniforms, unsigned int seed, int svv,
                          int svs, int short_vrls, int phase_kind, float* partial, int n_chunks,
                          float* out, void* stream) {
+  if (tex)
+    return alvrl_vrl_sum_hetero_tex(rays, B, vrls, N, tris, T, med, mat_table, M, rt, density, nz,
+                                    ny, nx, uv_steps, trilinear, uniforms, seed, svv, svs,
+                                    short_vrls, phase_kind, partial, n_chunks, out, stream);
   if (trilinear && (nz < 2 || ny < 2 || nx < 2)) return (int)cudaErrorInvalidValue;
   return launch_sum<true>(rays, B, vrls, N, tris, T, med, GridArgs{density, nz, ny, nx, uv_steps},
                           trilinear, mat_table, M, rt, uniforms, seed, svv, svs, short_vrls,

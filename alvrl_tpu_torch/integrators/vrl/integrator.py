@@ -34,16 +34,18 @@ strategy other than balance (ops.pack.pack_medium's extended pack)
 takes the extended forms of kernels 1, 2, 5, 7, 8 and 10.
 
 A textured table (Scene.textured: a procedural or bitmap texture, a
-NORMALMAP or an HK slab) takes the textured forms of kernels 1, 2 and 5
-in a homogeneous medium: the material pack with the textured ray pack
-(ops.pack.TEX_RAY_ROWS), whose rows carry each eye hit's shading normal
-and textured albedos, resolved once a ray at its hit point and UV (the
-JAX package's XLA route drops the UV there, ROADMAP C23; the port's
-term follows its tracer and volpath). The unclustered, specular-chain
-and clustered renders and R take it; the grid kernels 3, 4 and 6, the
-BVH kernel 7 and the differentiable routes (kernels 8-11, train_step)
-have no textured form yet and refuse such a table by name
-(refuse_textured, ROADMAP A11a), as does ops.pack.pack_rays_hetero.
+NORMALMAP or an HK slab) takes the textured forms of the forward
+kernels: 1, 2 and 5 in a homogeneous medium, 3, 4 and 6 in a grid one
+(either density read), 7 on a large mesh. They take the material pack
+with the textured ray pack (ops.pack.TEX_RAY_ROWS, or in a grid medium
+GRID_TEX_RAY_ROWS), whose rows carry each eye hit's shading normal and
+textured albedos, resolved once a ray at its hit point and UV (the JAX
+package's XLA route drops the UV there, ROADMAP C23, and its Pallas
+packs the texture, C25; the port's term follows its tracer and
+volpath). The unclustered, specular-chain, large-mesh and clustered
+renders and R take it; the differentiable routes (kernels 8-11,
+train_step) have no textured form yet and refuse such a table by name
+(refuse_textured, ROADMAP A11a).
 """
 
 from __future__ import annotations
@@ -107,8 +109,8 @@ def material_pack(scene: Scene):
     """The material pack (ops.pack.pack_materials) that the material
     instantiations of the kernels 1-11 take, when the scene's table
     holds a smooth kind other than DIFFUSE (bsdf.api.has_glossy) or is
-    textured (Scene.textured: with the textured ray pack, the textured
-    forms of kernels 1, 2 and 5); None otherwise, for the diffuse
+    textured (Scene.textured: with a textured ray pack, the textured
+    forms of kernels 1-7); None otherwise, for the diffuse
     instantiations."""
     kinds = bsdf_api.check_kinds(scene)
     return pk.pack_materials(scene.materials) if (
@@ -117,20 +119,20 @@ def material_pack(scene: Scene):
 
 def refuse_textured(scene: Scene, route: str):
     """Raise, naming `route`, on a textured table (Scene.textured), which
-    only the homogeneous forward routes of kernels 1, 2 and 5 render."""
+    only the forward routes (kernels 1-7) render."""
     if scene.textured():
         raise ValueError(f"{route} has no textured form: a texture, a "
                          "NORMALMAP or an HK slab is rendered by the "
-                         "homogeneous forward routes of kernels 1, 2 and 5 "
-                         "only (ROADMAP A11a)")
+                         "forward routes of kernels 1-7 only (ROADMAP A11a: "
+                         "the textured forms of kernels 8-11)")
 
 
 def _route_materials(scene: Scene, route: str, textured=True):
-    """material_pack, in either medium (the kernels' material forms),
-    after refuse_oriented, and refuse_textured unless the route takes a
-    textured table (`textured`) in a homogeneous medium."""
+    """material_pack, in either medium (the kernels' material and
+    textured forms), after refuse_oriented, and refuse_textured unless
+    the route takes a textured table (`textured`)."""
     refuse_oriented(scene.medium, route)
-    if not (textured and mapi.is_homogeneous(scene.medium)):
+    if not textured:
         refuse_textured(scene, route)
     return material_pack(scene)
 
@@ -199,12 +201,12 @@ def pack_frame_bvh(scene: Scene, vrls: VRLs, jitter=None, materials=None):
     faces, the VRLs in Morton order (ops.vrl_sum_bvh.sort_vrls_morton)
     and, in place of the triangle pack, the BVH over the opaque faces
     (pack_bvh_tris); with a material pack, `materials`, the rays' pack
-    holds the hits' material ids. Homogeneous media only (the medium
+    holds the hits' material ids (on a textured table the textured ray
+    pack, with each hit's Shading). Homogeneous media only (the medium
     pack of a mixture phase or a strategy other than balance extended,
     as ops.pack.pack_medium makes it). Returns (px, py, hit, (rays,
     vrls, bvh, medium))."""
     refuse_oriented(scene.medium, "the large-mesh render (kernel 7)")
-    refuse_textured(scene, "the large-mesh render (kernel 7)")
     if not mapi.is_homogeneous(scene.medium):
         raise ValueError("the large-mesh render takes a homogeneous medium "
                          "only, as the JAX package's vrl_sum_pallas_bvh")
@@ -232,8 +234,8 @@ def render_with_vrls_kernel(scene: Scene, vrls: VRLs, generator,
     `jitter`, (W * H, 2) on the scene's device, moves each pixel's ray
     off its centre (frame_rays; the JAX package's antialias). A glossy
     or layered table takes kernel 1's material instantiation (module
-    docstring), in a grid medium kernel 3's material form. Returns the
-    (H, W, 3) image."""
+    docstring), in a grid medium kernel 3's material form; a textured
+    table their textured forms. Returns the (H, W, 3) image."""
     materials = _route_materials(scene, "the unclustered render")
     return _render(_kernel(scene, vrl_sum, vrl_sum_hetero), scene, vrls,
                    generator, cfg, uniforms, jitter, materials)
@@ -247,8 +249,9 @@ def render_with_vrls_kernel_bvh(scene: Scene, vrls: VRLs, generator,
     Morton order, shadow tests through a BVH over the opaque faces
     (pack_frame_bvh). Counterpart of alvrl_tpu's
     render_with_vrls_pallas_bvh; homogeneous media only. A glossy or
-    layered table takes kernel 7's material forms, a mixture phase or a
-    strategy other than balance its extended forms (module docstring).
+    layered table takes kernel 7's material forms, a textured one its
+    textured form, a mixture phase or a strategy other than balance its
+    extended forms (module docstring).
 
     The kernel's seed is drawn from `generator`; `uniforms`, (W * H, N,
     2 * vol_vol + vol_surf) float32 on the scene's device, indexed by

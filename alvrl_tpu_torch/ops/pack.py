@@ -73,9 +73,14 @@ NQ = gmed.N_TAU_STEPS
 EOD = RAY_ROWS
 GRID_RAY_ROWS = EOD + NQ + 1
 # the grid material kernels' ray pack (GRID_MAT_RAY_ROWS, B) adds the hit's
-# material id after the eye-OD rows (GRID_MATID)
+# material id after the eye-OD rows (GRID_MATID); the grid textured
+# kernels' pack (GRID_TEX_RAY_ROWS, B), a textured table's, then adds the
+# textured pack's 12 rows of the hit's Shading (GRID_TEX_NS, GRID_TEX_ALB)
 GRID_MATID = GRID_RAY_ROWS
 GRID_MAT_RAY_ROWS = GRID_MATID + 1
+GRID_TEX_NS = GRID_MAT_RAY_ROWS
+GRID_TEX_ALB = GRID_TEX_NS + 3
+GRID_TEX_RAY_ROWS = GRID_TEX_ALB + 9
 VOD = VRL_ROWS
 GRID_VRL_ROWS = VOD + NQ + 1
 # grid medium pack, (GRID_MED_LEN,): sigma_t_color (3), sigma_s_color (3),
@@ -132,9 +137,17 @@ def tex_cols(scene: Scene, hit, mat):
 
 
 def is_textured(rays):
-    """Whether a homogeneous ray pack is the textured one (TEX_RAY_ROWS
-    rows). Reads its shape, so no sync."""
-    return rays.shape[0] == TEX_RAY_ROWS
+    """Whether a ray pack is a textured one: the homogeneous
+    (TEX_RAY_ROWS rows) or the grid one (GRID_TEX_RAY_ROWS), whose row
+    counts no other pack has. Reads its shape, so no sync."""
+    return rays.shape[0] in (TEX_RAY_ROWS, GRID_TEX_RAY_ROWS)
+
+
+def tex_rows(rays):
+    """The (shading normal, first albedo) rows of a textured ray pack:
+    (TEX_NS, TEX_ALB), or in the grid one (GRID_TEX_NS, GRID_TEX_ALB)."""
+    return ((TEX_NS, TEX_ALB) if rays.shape[0] == TEX_RAY_ROWS
+            else (GRID_TEX_NS, GRID_TEX_ALB))
 
 
 def pack_materials(mats: Materials):
@@ -173,19 +186,18 @@ def pack_rays_hetero(scene: Scene, ray_o, ray_d, hit, mat, density_ss,
     density_ss is media.heterogeneous.quad_grid's); TAU is
     exp(-sigma_t_color times the table's total). With with_mat,
     (GRID_MAT_RAY_ROWS, B), the grid material kernels' pack, which adds
-    the hit material's id (GRID_MATID). The grid kernels have no textured
-    form: a textured table raises (ROADMAP A11a)."""
-    if scene.textured():
-        raise ValueError("the grid kernels 3, 4, 6, 9 and 11 have no "
-                         "textured form: a texture, a NORMALMAP or an HK "
-                         "slab in a grid medium is not ported (ROADMAP "
-                         "A11a)")
+    the hit material's id (GRID_MATID), or on a textured table
+    (Scene.textured) (GRID_TEX_RAY_ROWS, B), the grid textured kernels'
+    pack, which also adds the hit's Shading at its point and UV (the
+    homogeneous textured pack's rows, tex_cols)."""
     med = scene.medium
     eye_od = gmed.cumulative_od(med, density_ss, ray_o, hit.p)
     tau_eu = torch.exp(-med.sigma_t_color * eye_od[..., -1:])
     cols = _ray_cols(scene, ray_o, ray_d, hit, mat, tau_eu) + [eye_od]
     if with_mat:
         cols.append(mat.to(torch.float32)[..., None])
+        if scene.textured():
+            cols += tex_cols(scene, hit, mat)
     return torch.cat(cols, dim=-1).T.contiguous()
 
 

@@ -112,8 +112,8 @@ def _library():
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     tail = [p, u, i, i, i, i, p, i, p, p, p]
     lib.alvrl_vrl_r.argtypes = [p, i, p, i, p, i, p, p, i, p, i, *tail]
-    lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
-                                       i, i, i, i, *tail]
+    lib.alvrl_vrl_r_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, i, p,
+                                       i, i, i, i, i, *tail]
     lib.alvrl_vrl_r_tile_rays.argtypes = [i]
     for fn in (lib.alvrl_vrl_r, lib.alvrl_vrl_r_hetero,
                lib.alvrl_vrl_r_tile_rays):
@@ -154,6 +154,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
                               vs.tex_arg(rays, materials), *tail)
     else:
         err = lib.alvrl_vrl_r_hetero(*head, *vs.mat_args(materials),
+                                     vs.tex_arg(rays, materials),
                                      *vs.grid_args(*grid),
                                      int(pk.is_trilinear(medium)), *tail)
     if err != 0:
@@ -243,9 +244,11 @@ def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
     """vrl_r in a grid medium, on the packs and density that
     ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
     kernel's trilinear form; `materials`, with the grid ray pack of
-    GRID_MAT_RAY_ROWS rows, its material forms); the CUDA kernel's
-    launches are counted here (the trilinear form's on tri_launches too,
-    the material forms' on mat_launches), the CPU goes through
+    GRID_MAT_RAY_ROWS rows, its material forms, with the grid textured
+    ray pack of GRID_TEX_RAY_ROWS rows, its textured forms); the CUDA
+    kernel's launches are counted here (the trilinear forms' on
+    tri_launches too, the material and textured forms' on mat_launches,
+    the textured forms' on tex_launches), the CPU goes through
     vrl_r_hetero_reference."""
     return _r(vrl_r_hetero, rays, vrls, tris, medium, seed, uniforms,
               vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
@@ -255,6 +258,7 @@ def vrl_r_hetero(rays, vrls, tris, medium, density, *, seed=0, uniforms=None,
 vrl_r_hetero.launches = 0  # kernel launches, as vrl_r.launches
 vrl_r_hetero.tri_launches = 0  # of them, the trilinear form's
 vrl_r_hetero.mat_launches = 0  # of them, the material forms'
+vrl_r_hetero.tex_launches = 0  # of them, the textured forms'
 
 
 def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
@@ -275,3 +279,4 @@ def vrl_r_hetero_check(rays, vrls, tris, medium, density, *, seed=0,
 vrl_r_hetero_check.launches = 0  # checking launches, as vrl_r_check's
 vrl_r_hetero_check.tri_launches = 0  # of them, the trilinear form's
 vrl_r_hetero_check.mat_launches = 0  # of them, the material forms'
+vrl_r_hetero_check.tex_launches = 0  # of them, the textured forms'

@@ -57,10 +57,13 @@ material pack with the textured ray pack (ops.pack.TEX_RAY_ROWS), whose
 rows hold each eye hit's shading normal and the textured albedos of its
 material's leaf and nested leaves; the vol-surf term evaluates
 eval_smooth at that normal with those albedos, and the HK slab from its
-table columns (csrc/vrl_tex.cuh and its three sources; the plain version,
-bsdf_eval_smooth with the rows' bsdf.api.Shading). The wrappers count
-those launches on their `tex_launches` too. The other kernels refuse the
-textured pack (ROADMAP A11a).
+table columns (csrc/vrl_tex.cuh and its sources; the plain version,
+bsdf_eval_smooth with the rows' bsdf.api.Shading). In a grid medium the
+grid kernels 3, 4 and 6 take it the same way, nearest or trilinear, with
+the grid textured ray pack (ops.pack.GRID_TEX_RAY_ROWS: the same 12 rows
+after GRID_MATID), and kernel 7 (ops.vrl_sum_bvh) with the homogeneous
+one. The wrappers count those launches on their `tex_launches` too. The
+backward kernels 8-11 refuse a textured pack (ROADMAP A11a).
 
 Beside the kernel:
   * `vrl_sum_reference` and `vrl_sum_hetero_reference`, the plain
@@ -324,9 +327,10 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
     integrate.bsdf_eval_smooth(-d, -vu), in place of albedo cos_o / pi, and is
     gated by the hit material's smooth flag; the material kernels' plain
     version, differentiable as above (the material's own parameters are
-    constants, as in the JAX package's train step). On the textured ray
-    pack (homogeneous, TEX_RAY_ROWS) it evaluates at the rows' shading
-    normal and albedos: the textured forms' plain version."""
+    constants, as in the JAX package's train step). On a textured ray
+    pack (TEX_RAY_ROWS, or the grid one, GRID_TEX_RAY_ROWS) it evaluates
+    at the rows' shading normal and albedos: the textured forms' plain
+    version."""
     def rows(pack, r):
         return pack[r:r + 3].T
 
@@ -428,11 +432,12 @@ def _pair_terms(rays, vrls, tris, medium, u, svv, svs, short_vrls,
         row = pk.MATID if grid is None else pk.GRID_MATID
         mat_id = rays[row].long().clamp(0, smooth.shape[0] - 1)[:, None]
         alb_any = smooth[mat_id]
-        if grid is None and pk.is_textured(rays):  # the hit's Shading
+        if pk.is_textured(rays):  # the hit's Shading
             from alvrl_tpu_torch.bsdf.api import Shading
 
+            ns, alb0 = pk.tex_rows(rays)
             shade = Shading(*(rows(rays, r)[:, None] for r in (
-                pk.TEX_NS, pk.TEX_ALB, pk.TEX_ALB + 3, pk.TEX_ALB + 6)))
+                ns, alb0, alb0 + 3, alb0 + 6)))
     for k in range(svs):
         v, pdf_v = integrate.kulla_sampling(s, e, hp, u[..., 2 * svv + k])
         d_uv2, d_uv, vu = segment(hp, v)
@@ -551,9 +556,8 @@ def mat_args(materials):
 
 
 def tex_arg(rays, materials):
-    """The C entries' `tex` argument of kernels 1, 2 and 5: 1 for the
-    textured form (a material pack with the textured ray pack), else
-    0."""
+    """The C entries' `tex` argument of kernels 1-7: 1 for the textured
+    form (a material pack with a textured ray pack), else 0."""
     return int(materials is not None and pk.is_textured(rays))
 
 
@@ -585,6 +589,7 @@ def _launch(lib, rays, vrls, tris, medium, uniforms, seed, svv, svs,
             None if counts is None else counts.data_ptr(), *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero(*head, *mat_args(materials),
+                                       tex_arg(rays, materials),
                                        *grid_args(*grid),
                                        int(pk.is_trilinear(medium)), *uni,
                                        *tail)
@@ -601,8 +606,8 @@ def _library():
     uni, tail = [p, u, i, i, i, i], [p, i, p, p]
     lib.alvrl_vrl_sum.argtypes = [p, i, p, i, p, i, p, p, i, p, i, *uni, p,
                                   i, p, *tail]
-    lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i,
-                                         i, i, i, i, *uni, *tail]
+    lib.alvrl_vrl_sum_hetero.argtypes = [p, i, p, i, p, i, p, p, i, p, i, p,
+                                         i, i, i, i, i, *uni, *tail]
     lib.alvrl_plane_pack.argtypes = [p, i, p, p]
     for fn in (lib.alvrl_vrl_sum, lib.alvrl_vrl_sum_hetero,
                lib.alvrl_vrl_chunk, lib.alvrl_max_tris, lib.alvrl_uv_steps,
@@ -655,9 +660,10 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
     B), or in a grid medium (GRID_MAT_RAY_ROWS, B). A homogeneous medium
     may come in the extended pack (the mixture phase, another strategy
     than balance); a grid medium has neither. textured: the kernel has a
-    textured form (kernels 1, 2 and 5), which takes a material pack with
-    the textured ray pack (TEX_RAY_ROWS, B) in a homogeneous medium; the
-    other kernels refuse that pack by name (ROADMAP A11a)."""
+    textured form (the forward kernels 1-7), which takes a material pack
+    with the textured ray pack (TEX_RAY_ROWS, B), or in a grid medium
+    the grid one (GRID_TEX_RAY_ROWS, B); the backward kernels refuse a
+    textured pack by name (ROADMAP A11a)."""
     named = dict(rays=rays, vrls=vrls, tris=tris, medium=medium)
     if uniforms is not None:
         named["uniforms"] = uniforms
@@ -681,12 +687,14 @@ def _check(rays, vrls, tris, medium, uniforms, seed, svv, svs, phase_kind,
         else (pk.GRID_RAY_ROWS, pk.GRID_VRL_ROWS, pk.GRID_MED_LEN))
     if materials is not None:
         ray_rows = pk.MAT_RAY_ROWS if grid is None else pk.GRID_MAT_RAY_ROWS
-        if grid is None and pk.is_textured(rays):
+        if pk.is_textured(rays):
             if not textured:
                 raise ValueError("this kernel has no textured form: the "
-                                 "textured ray pack goes to kernels 1, 2 "
-                                 "and 5 only (ROADMAP A11a)")
-            ray_rows = pk.TEX_RAY_ROWS
+                                 "textured ray packs go to the forward "
+                                 "kernels 1-7 only (ROADMAP A11a, the "
+                                 "textured forms of kernels 8-11)")
+            ray_rows = (pk.TEX_RAY_ROWS if grid is None
+                        else pk.GRID_TEX_RAY_ROWS)
         table, rt_tables = materials
         n_mats = table.shape[0]
         if table.dim() != 2 or table.shape[1] != pk.MAT_COLS or n_mats < 1:
@@ -789,7 +797,7 @@ def count_launch(fn, grid, medium, materials=None, rays=None):
              "mat_launches": materials is not None,
              "mix_launches": grid is None and medium.shape[0] > pk.MED_LEN,
              "tex_launches": (materials is not None and rays is not None
-                              and grid is None and pk.is_textured(rays))}
+                              and pk.is_textured(rays))}
     for name, taken in forms.items():
         if taken and hasattr(fn, name):
             setattr(fn, name, getattr(fn, name) + 1)
@@ -880,10 +888,13 @@ def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
     (the run-time step count) reads it. `materials`, the material pack
     (vrl_sum's) with rays (GRID_MAT_RAY_ROWS, B), takes the material
     form of either read (at the run-time step count), which evaluates
-    each eye hit's smooth BSDF. CUDA tensors go through the CUDA kernel (a
-    launch of its own, counted here, on vrl_sum_hetero.tri_launches for
-    the trilinear form and on vrl_sum_hetero.mat_launches for the
-    material forms), CPU tensors through vrl_sum_hetero_reference."""
+    each eye hit's smooth BSDF, with the grid textured ray pack
+    (GRID_TEX_RAY_ROWS, B) the textured form of either read. CUDA tensors
+    go through the CUDA kernel (a launch of its own, counted here, on
+    vrl_sum_hetero.tri_launches for the trilinear forms, on
+    vrl_sum_hetero.mat_launches for the material and textured forms and
+    on vrl_sum_hetero.tex_launches for the textured ones), CPU tensors
+    through vrl_sum_hetero_reference."""
     return _sum(vrl_sum_hetero, rays, vrls, tris, medium, seed, uniforms,
                 vol_vol_samples, vol_surf_samples, short_vrls, phase_kind,
                 (density, uv_steps), materials)
@@ -892,6 +903,7 @@ def vrl_sum_hetero(rays, vrls, tris, medium, density, *, seed=0,
 vrl_sum_hetero.launches = 0  # kernel launches, as vrl_sum.launches
 vrl_sum_hetero.tri_launches = 0  # of them, the trilinear form's
 vrl_sum_hetero.mat_launches = 0  # of them, the material forms'
+vrl_sum_hetero.tex_launches = 0  # of them, the textured forms'
 
 
 # ---------------------------------------------------------------------------

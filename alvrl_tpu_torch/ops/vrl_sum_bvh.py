@@ -12,7 +12,10 @@ strategy other than balance: its PHASE = 2 and extended forms, counted
 on vrl_sum_bvh.mix_launches too) and a material pack (glossy and layered
 surfaces: its material forms, on vrl_sum_bvh.mat_launches), which the
 JAX package's XLA route evaluates and its Pallas kernel does not
-(ROADMAP C16, C21).
+(ROADMAP C16, C21), and with the textured ray pack (ops.pack.TEX_RAY_ROWS)
+its textured form (csrc/vrl_sum_bvh_tex.cu: textures, normal and bump
+maps, the HK slab at the eye hit; on vrl_sum_bvh.tex_launches too; the
+JAX package's Pallas packs drop the texture, ROADMAP C25).
 
 The CUDA kernel (csrc/vrl_sum_bvh.cu, whose header gives the design) is
 bound on the H100 by fp32 ALU throughput in its operations, and held
@@ -177,7 +180,8 @@ def _library():
     lib = _build.load_library()
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.alvrl_vrl_sum_bvh.argtypes = [p, i, p, i, p, i, p, i, i, p, i, p,
-                                      i, p, p, u, i, i, i, i, p, i, p, p, p]
+                                      i, p, i, p, u, i, i, i, i, p, i, p, p,
+                                      p]
     for fn in (lib.alvrl_vrl_sum_bvh, lib.alvrl_bvh_stack,
                lib.alvrl_max_mats):
         fn.restype = i
@@ -194,7 +198,7 @@ def _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
     if not isinstance(bvh, BvhPack):
         raise TypeError(f"bvh must be a BvhPack, got {type(bvh)}")
     vs._check(rays, vrls, bvh.tris, medium, uniforms, seed, svv, svs,
-              phase_kind, materials=materials)
+              phase_kind, materials=materials, textured=True)
     nodes = bvh.nodes
     if not isinstance(nodes, torch.Tensor) or nodes.dtype != torch.float32 \
             or not nodes.is_contiguous() or nodes.device != rays.device:
@@ -223,7 +227,8 @@ def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
     """The kernel on checked inputs, on the current stream of the rays'
     card; the counting instantiation when `counts` (len(COUNTS),) int64
     is given; the extended forms (is_extended) on the medium pack with
-    its extension, their material forms with `materials`."""
+    its extension, their material forms with `materials`, with the
+    textured ray pack their textured form."""
     n_rays, n_vrls = rays.shape[1], vrls.shape[1]
     n_chunks = n_vrls  # one VRL a block
     partial = torch.empty((n_chunks, 3, n_rays), dtype=torch.float32,
@@ -237,7 +242,7 @@ def _launch(lib, rays, vrls, bvh, medium, uniforms, seed, svv, svs,
             rays.data_ptr(), n_rays, vrls.data_ptr(), n_vrls,
             bvh.nodes.data_ptr(), bvh.nodes.shape[0], bvh.tris.data_ptr(),
             bvh.tris.shape[0], bvh.depth, medium.data_ptr(), int(ext),
-            *vs.mat_args(materials),
+            *vs.mat_args(materials), vs.tex_arg(rays, materials),
             None if uniforms is None else uniforms.data_ptr(), seed, svv, svs,
             int(short_vrls), phase_kind, partial.data_ptr(), n_chunks,
             out.data_ptr(), None if counts is None else counts.data_ptr(),
@@ -260,12 +265,15 @@ def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
     are ops.pack's homogeneous packs (a grid medium's packs raise);
     `materials`, the material pack (ops.vrl_sum.vrl_sum's) with rays
     (MAT_RAY_ROWS, B), takes the material forms, which evaluate each eye
-    hit's smooth BSDF. Random numbers come from vrl_sum's Philox stream
-    of `seed`, or from `uniforms` (B, N, 2 * vol_vol_samples +
-    vol_surf_samples). CUDA tensors go through the CUDA kernel (a launch
-    counted here; the material forms' on vrl_sum_bvh.mat_launches too,
-    the other extended forms' on vrl_sum_bvh.mix_launches), CPU tensors
-    through vrl_sum_bvh_reference."""
+    hit's smooth BSDF, with the textured ray pack (TEX_RAY_ROWS, B) the
+    textured form (csrc/vrl_sum_bvh_tex.cu). Random numbers come from
+    vrl_sum's Philox stream of `seed`, or from `uniforms` (B, N, 2 *
+    vol_vol_samples + vol_surf_samples). CUDA tensors go through the CUDA
+    kernel (a launch counted here; the material and textured forms' on
+    vrl_sum_bvh.mat_launches too, the textured form's on
+    vrl_sum_bvh.tex_launches, the other extended forms' on
+    vrl_sum_bvh.mix_launches), CPU tensors through
+    vrl_sum_bvh_reference."""
     svv, svs = vol_vol_samples, vol_surf_samples
     _check(rays, vrls, bvh, medium, uniforms, seed, svv, svs, phase_kind,
            materials)
@@ -287,6 +295,7 @@ def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
     vrl_sum_bvh.launches += 1
     if materials is not None:
         vrl_sum_bvh.mat_launches += 1
+        vrl_sum_bvh.tex_launches += vs.tex_arg(rays, materials)
     elif is_extended(medium, phase_kind, materials):
         vrl_sum_bvh.mix_launches += 1
     return out
@@ -294,6 +303,7 @@ def vrl_sum_bvh(rays, vrls, bvh: BvhPack, medium, *, seed=0, uniforms=None,
 
 vrl_sum_bvh.launches = 0  # kernel launches, for showing that a run used the kernel
 vrl_sum_bvh.mat_launches = 0  # of them, the material forms'
+vrl_sum_bvh.tex_launches = 0  # of them, the textured form's
 vrl_sum_bvh.mix_launches = 0  # of them, the other extended forms'
 
 

@@ -168,7 +168,7 @@ def _library():
     lib.alvrl_vrl_sum_clustered.argtypes = [p, i, p, i, p, i, p, p, i, p,
                                             i, *tail]
     lib.alvrl_vrl_sum_hetero_clustered.argtypes = [
-        p, i, p, i, p, i, p, p, i, p, p, i, i, i, i, i, *tail]
+        p, i, p, i, p, i, p, p, i, p, i, p, i, i, i, i, i, *tail]
     lib.alvrl_clustered_ray_block.argtypes = [i]
     for fn in (lib.alvrl_vrl_sum_clustered,
                lib.alvrl_vrl_sum_hetero_clustered,
@@ -314,9 +314,11 @@ def vrl_sum_hetero_clustered(rays, vrls, tris, medium, density, ray_slice,
     """vrl_sum_clustered in a grid medium, on the packs and density that
     ops.vrl_sum.vrl_sum_hetero takes (the trilinear medium pack takes the
     kernel's trilinear form; `materials`, with the grid ray pack of
-    GRID_MAT_RAY_ROWS rows, its material forms); the CUDA kernel's
-    launches are counted here (the trilinear form's on tri_launches too,
-    the material forms' on mat_launches), the CPU goes through
+    GRID_MAT_RAY_ROWS rows, its material forms, with the grid textured
+    ray pack of GRID_TEX_RAY_ROWS rows, its textured forms); the CUDA
+    kernel's launches are counted here (the trilinear forms' on
+    tri_launches too, the material and textured forms' on mat_launches,
+    the textured forms' on tex_launches), the CPU goes through
     vrl_sum_hetero_clustered_reference."""
     return _clustered(vrl_sum_hetero_clustered, rays, vrls, tris, medium,
                       ray_slice, table_ids, table_weights, seed, uniforms,
@@ -328,6 +330,7 @@ vrl_sum_hetero_clustered.launches = 0  # kernel launches, as
                                        # vrl_sum_clustered.launches
 vrl_sum_hetero_clustered.tri_launches = 0  # of them, the trilinear form's
 vrl_sum_hetero_clustered.mat_launches = 0  # of them, the material forms'
+vrl_sum_hetero_clustered.tex_launches = 0  # of them, the textured forms'
 
 
 def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
@@ -352,6 +355,7 @@ def vrl_sum_hetero_clustered_check(rays, vrls, tris, medium, density,
 vrl_sum_hetero_clustered_check.launches = 0  # checking launches
 vrl_sum_hetero_clustered_check.tri_launches = 0  # of them, the trilinear
 vrl_sum_hetero_clustered_check.mat_launches = 0  # of them, the material
+vrl_sum_hetero_clustered_check.tex_launches = 0  # of them, the textured
 
 
 def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
@@ -392,7 +396,8 @@ def _launch(lib, rays, vrls, tris, medium, tile_rays, tile_row, table_ids,
                                           *tail)
     else:
         err = lib.alvrl_vrl_sum_hetero_clustered(
-            *head, *vs.mat_args(materials), *vs.grid_args(*grid),
+            *head, *vs.mat_args(materials), vs.tex_arg(rays, materials),
+            *vs.grid_args(*grid),
             int(pk.is_trilinear(medium)), *tail)
     if err != 0:
         raise RuntimeError("vrl_sum_clustered kernel launch failed: CUDA "

@@ -268,6 +268,37 @@ def texture_bitmaps(seed=0, res=TEXTURE_RES):
         np.repeat(height[..., None], 3, axis=-1))]
 
 
+def textured_cube_field(field, textured, cube_materials, n_walls=12):
+    """The cube field `field` (scripts/bench_bvh_large.cube_field_scene:
+    its box's n_walls wall triangles, then 12 a cube) with the surfaces of
+    cornell_textured (`textured`, its loaded Scene, whose first n_walls
+    triangles are the box's walls): those wall triangles with their
+    materials and UVs in place of the field's, and the materials
+    `cube_materials` (ids into its table) on the cubes in turn, each
+    cube's faces with shapes.auto_uvs("cube") of the canonical cube. The
+    table and the bitmap stack are textured's; the camera, medium and
+    light the field's."""
+    dev = field.device
+    n_cubes = (field.faces.shape[0] - n_walls) // 12
+    cube_v, cube_f = shapes.cube()
+    cube_uv = torch.as_tensor(shapes.auto_uvs("cube", cube_v, cube_f),
+                              device=dev)
+    ids = torch.as_tensor(np.asarray(cube_materials), device=dev)
+    nv = textured.vertices.shape[0]
+    return replace(
+        field,
+        vertices=torch.cat([textured.vertices.to(dev), field.vertices]),
+        faces=torch.cat([textured.faces[:n_walls].to(dev),
+                         field.faces[n_walls:] + nv]),
+        material=torch.cat([textured.material[:n_walls].to(dev),
+                            ids[torch.arange(n_cubes, device=dev)
+                                % len(ids)].repeat_interleave(12)]),
+        materials=textured.materials, textures=textured.textures,
+        face_uv=torch.cat([textured.face_uv[:n_walls].to(dev),
+                           cube_uv.repeat(n_cubes, 1, 1)]),
+        face_emitter=None)
+
+
 def cornell_textured_desc(dirname, width=128, height=128, seed=0):
     """cornell_textured: config 1's box (the camera, the homogeneous
     medium and the point light of cornell_smoke) whose surfaces carry

@@ -42,7 +42,8 @@ HK = 14               # Hanrahan-Krueger slab: albedo = sigma_s, albedo2 =
 IRAWAN = 15           # not ported (ROADMAP A11a)
 ROUGH_DIELECTRIC = 16  # microfacet reflection and refraction
 ROUGH_COATING = 17     # rough dielectric layer over `nested`
-# the kinds that only the textured forms of kernels 1, 2 and 5 evaluate
+# the kinds that only the textured forms of the forward kernels 1-7
+# evaluate
 TEXTURED_KINDS = frozenset((NORMALMAP, HK))
 
 # rough-transmittance tables (bsdf.microfacet.rough_transmittance_table):
@@ -231,8 +232,9 @@ class Scene:
 
     def textured(self) -> bool:
         """Does the table hold a texture, a NORMALMAP or an HK slab, whose
-        eye-side term only the textured forms of kernels 1, 2 and 5
-        evaluate? (The table's host copies, so no sync.)"""
+        eye-side term only the textured forms of the forward kernels 1-7
+        evaluate (the backward kernels 8-11 have none)? (The table's host
+        copies, so no sync.)"""
         mats = self.materials
         return mats.host_textured or bool(mats.host_kinds & TEXTURED_KINDS)
 

@@ -348,6 +348,16 @@ Phases, one line each; any failure exits non-zero:
      textured launches, no plain call; times beside the material forms
      on the same packs, registers, bounds; the CLI with -i vrl and -i
      alvrl; the VRL render against the volpath oracle at 32x32 (z < 4).
+ 51. cornell_textured's surfaces in config 4's grid medium at 512x512
+     and on the 15,984-triangle cube field (presets.textured_cube_field):
+     the textured forms of kernels 3, 4 and 6, nearest and trilinear, and
+     of kernel 7 (in an HG and a mixture + single medium) against their
+     plain versions material by material (512 held rays of each in the
+     grid scene, 500 on the HG field, 72 in the mixture), their checking
+     and counting launches; the main paths'
+     textured launches, no plain call; times beside the material forms
+     on the same packs, registers, bounds; the CLI with -i vrl and -i
+     alvrl on the grid scene file.
 Then one JSON line of per-kernel results (with each kernel's bound,
 as the comment above HBM_BYTES_PER_S defines it) and, last, the device line
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -640,8 +650,10 @@ def ptxas_summary(log):
     (vrl_sum_clustered_warps_kernel), and "mat" for the material
     instantiations of kernels 1-7 (the grid ones, kernel 3's
     vrl_sum_mat_kernel among them, at the run-time step count, "tri" for
-    the trilinear read), "tex" for the textured forms of kernels 1, 2 and
-    5 (vrl_tex.cuh); kernel 7's counting instantiation, "ext" for its
+    the trilinear read), "tex" for the textured forms of kernels 1-7
+    (vrl_tex.cuh; the grid ones "grid,uv*", their mode and "tri", kernel
+    7's "ext" and "count"; kernels 4 and 6's in place of "mat"); kernel 7's
+    counting instantiation, "ext" for its
     forms on the extended medium pack (vrl_sum_bvh_ext_kernel); and the
     VJPs' forms: "ext" (the extended medium pack), "tri" and "mat" of
     kernels 8-11."""
@@ -652,7 +664,8 @@ def ptxas_summary(log):
                           r"sum_clustered_bwd|sum_clustered_bwd_warps|"
                           r"sum_clustered_warps|r|sum_bvh|sum_plane|"
                           r"sum_tri|sum_mat|sum_bvh_ext|sum_tex|"
-                          r"sum_clustered_tex|r_tex)_kernel)"
+                          r"sum_clustered_tex|r_tex|sum_grid_tex|sum_bvh_tex)"
+                          r"_kernel)"
                           r"I((?:L[ib]\d+E)+)E",
                           line)
             name = None
@@ -681,21 +694,30 @@ def ptxas_summary(log):
                     label.append(PLANE_MODE[rest[0]])
                     if len(rest) > 1 and rest[1]:  # the material one
                         label.append("mat")
+                elif kernel == "vrl_sum_grid_tex_kernel":  # <.., tri>
+                    label += ["grid", "uv*", "tex"] + (["tri"] if rest[0]
+                                                       else [])
+                elif kernel == "vrl_sum_bvh_tex_kernel":  # <.., count>
+                    label += ["ext"] + (["count"] if rest[0] else []) + [
+                        "tex", "bvh"]
                 elif kernel.endswith("_tex_kernel"):  # <phase, short, mode>
                     label += [PLANE_MODE[rest[0]], "tex"]
                 elif rest:
                     label.append("grid" if rest[0] else "homog")
                     if rest[0] and len(rest) > 1:  # the step count
                         label.append(f"uv{rest[1]}" if rest[1] else "uv*")
+                    # kernels 4 and 6: "tex" for the textured form
+                    # (<.., TEX>), which is a material form
+                    tex = len(rest) > 5 and rest[5]
                     if kernel == "vrl_r_kernel":  # <.., mode, material, tri>
                         label.append(PLANE_MODE[rest[2]])
                         if rest[3]:
-                            label.append("mat")
+                            label.append("tex" if tex else "mat")
                     if kernel == "vrl_sum_clustered_kernel":
                         # <.., mode, tri, material>
                         label.append(PLANE_MODE[rest[2]])
                         if len(rest) > 4 and rest[4]:
-                            label.append("mat")
+                            label.append("tex" if tex else "mat")
                     tri_at = 4 if kernel == "vrl_r_kernel" else 3
                     if kernel in ("vrl_r_kernel", "vrl_sum_clustered_kernel") \
                             and len(rest) > tri_at and rest[tri_at]:
@@ -7144,7 +7166,8 @@ def textured_path(dev, card, cfg, sass_check):
         "vrl_r": bound(tex_ops("vrl_r", s5, r_counts),
                        nbytes(*rpacks) + mat_bytes + 2 * n_rep * n_vrls * 4),
     }
-    regs = [r for r in ptxas_summary(_build.build_log()) if ",tex>" in r]
+    regs = [r for r in ptxas_summary(_build.build_log())
+            if ",tex>" in r and ",grid," not in r]
     print(f"[50b textured kernels' timing on {card}] " + " | ".join(
         f"{k}: textured {t[0]:.4f} ms (spread {t[1]:.1%}), material form on "
         f"the same packs {m[0]:.4f} ms (spread {m[1]:.1%}), in turns; plain "
@@ -7184,6 +7207,534 @@ def textured_path(dev, card, cfg, sass_check):
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
         "library_ms": None} for k in ("vrl_sum", "vrl_sum_clustered",
                                       "vrl_r")]
+
+
+# phase 51: textured surfaces in a grid medium and on large meshes. The
+# textured grid scene: cornell_textured's surfaces (presets.
+# cornell_textured_desc) in config 4's medium (its 48^3 plume) at
+# 512x512, its VRLs traced 192 x 10 into 512 slots, 128 slices; the
+# textured cube field: phase 29/30's 15,984-triangle field with
+# cornell_textured's walls and its seven materials seen from the camera
+# on the cubes in turn (presets.textured_cube_field), in its HG balance
+# medium and in phase 43's mixture + single medium
+TG_SEED = 20261023
+TG_KIND_RAYS = 512      # held rays of each material, grid scene
+TG_FIELD_RAYS = 500     # held rays of each material, the field (both media)
+# the forms of phase 51 in the kernels line: (name, source, the TPU
+# kernel it replaces)
+TG_FORMS = {
+    "3tex": ("vrl_sum_hetero textured", "vrl_sum_grid_tex.cu", 863),
+    "3ttex": ("vrl_sum_hetero textured trilinear", "vrl_sum_grid_tex.cu",
+              863),
+    "4tex": ("vrl_sum_hetero_clustered textured",
+             "vrl_sum_clustered_grid_tex.cu", 937),
+    "4ttex": ("vrl_sum_hetero_clustered textured trilinear",
+              "vrl_sum_clustered_grid_tex.cu", 937),
+    "6tex": ("vrl_r_hetero textured", "vrl_r_grid_tex.cu", 1082),
+    "6ttex": ("vrl_r_hetero textured trilinear", "vrl_r_grid_tex.cu", 1082),
+    "7tex": ("vrl_sum_bvh textured", "vrl_sum_bvh_tex.cu", 1415),
+}
+TG_RUNS = [
+    ("textured grid vrl", "textured_grid.json", "vrl", 1,
+     ["--particles", "192"], ("vrl_sum_hetero",)),
+    ("textured grid alvrl", "textured_grid.json", "alvrl", 1,
+     ["--particles", "192"], ("vrl_r_hetero", "vrl_sum_hetero_clustered")),
+]
+
+
+def textured_grid_desc(c4_scene, tmp, width, height):
+    """cornell_textured's surfaces (its bitmaps written into tmp) in config
+    4's grid medium, its density in tmp, as a JSON dict."""
+    med = c4_scene.medium
+    path = os.path.join(tmp, "textured_density.npy")
+    np.save(path, med.density.cpu().numpy())
+    desc = presets.cornell_textured_desc(tmp, width, height, seed=TEX_SEED)
+    desc["medium"] = {
+        "type": "grid", "density_npy": path,
+        "sigma_t": med.sigma_t_color.cpu().tolist(),
+        "albedo": med.albedo.cpu().tolist(), "g": float(med.g),
+        "box_min": med.box_min.cpu().tolist(),
+        "box_max": med.box_max.cpu().tolist(), "scale": float(med.scale),
+        "phase": "hg"}
+    return desc
+
+
+def tg_entry(key, launches, err, ms, plain_ms, bnd):
+    name, src, line = TG_FORMS[key]
+    return {"name": name, "route": "cuda",
+            "source": f"alvrl_tpu_torch/csrc/{src}",
+            "replaces": f"alvrl_tpu/ops/vrl_pallas.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None}
+
+
+@contextlib.contextmanager
+def grid_sum_calls():
+    """Record the calls that the integrator's routes make of kernels 3
+    and 4 (integrator.vrl_sum_hetero and vrl_sum_hetero_clustered, the
+    wrappers whose launches they count): yields {name: [(args, kwargs,
+    output)]}."""
+    names = ("vrl_sum_hetero", "vrl_sum_hetero_clustered")
+    saved = [(n, getattr(integrator, n)) for n in names]
+    rec = {n: [] for n in names}
+    for n, fn in saved:
+        def recording(*a, _fn=fn, _n=n, **k):
+            out = _fn(*a, **k)
+            rec[_n].append((a, k, out))
+            return out
+        setattr(integrator, n, recording)
+    try:
+        yield rec
+    finally:
+        for n, fn in saved:
+            setattr(integrator, n, fn)
+
+
+def tg_frame_holds(rec, rng, ids, read, hold):
+    """51a: the main path's own launches of kernels 3 and 4 on the whole
+    frame (grid_sum_calls' records: the unclustered render's sum and
+    render_alvrl's clustered launch on its slices' tables, and its
+    fall-back launch), held on TG_KIND_RAYS seeded rays of each material
+    (the fall-back launch on as many of its rays) against the plain
+    versions on the launch's own packs and tables, with the Philox draws
+    at the rays' frame indices and table columns (a fall-back launch
+    whose pixels all miss: its sums all 0). Returns (a line, each
+    kernel's largest |kernel - plain|)."""
+    dev = rec["vrl_sum_hetero"][0][0][0].device
+    parts, err = [], {"3": 0.0, "4": 0.0}
+
+    def pick(ray_mat, what):
+        seen = {i: int((ray_mat == i).sum()) for i in ids}
+        check(min(seen.values()) >= TG_KIND_RAYS,
+              f"{what}: the rays of each material {seen}")
+        return tg_pick(rng, ray_mat, ids, TG_KIND_RAYS)
+
+    def plain_kw(k):
+        return ({n: v for n, v in k.items() if n not in ("seed", "uniforms")},
+                2 * k["vol_vol_samples"] + k["vol_surf_samples"])
+
+    (a, k, out), = rec["vrl_sum_hetero"]
+    check(k.get("uniforms") is None,
+          "kernel 3's render launch: the Philox stream")
+    rays, kw, n_draws = a[0], *plain_kw(k)
+    ray_mat = torch.where(rays[pk.VALID] > 0.5, rays[pk.GRID_MATID].long(), -1)
+    rows = pick(ray_mat, f"kernel 3 {read}, the render's launch")
+    u = philox_draws(k["seed"], rows[:, None], torch.arange(
+        a[1].shape[1], device=dev)[None], n_draws)
+    with plain_chunk(C4_PLAIN_CHUNK):
+        ref = vrl_sum_hetero_reference(rays[:, rows].contiguous(), *a[1:], u,
+                                       **kw)
+    parts.append(hold(f"kernel 3 {read}, the render's launch ({rays.shape[1]} "
+                      f"rays x {a[1].shape[1]})", out[:, rows].T, ref.T,
+                      ray_mat[rows]))
+    err["3"] = float((out[:, rows] - ref).abs().max())
+    launches = rec["vrl_sum_hetero_clustered"]
+    check(len(launches) == 2, f"render_alvrl's launches of kernel 4: "
+          f"{len(launches)}, not the clustered one and the fall-back's")
+    for i, (a, k, out) in enumerate(launches):
+        check(k.get("uniforms") is None,
+              "kernel 4's render launch: the Philox stream")
+        rays, kw, n_draws = a[0], *plain_kw(k)
+        sl = torch.as_tensor(np.asarray(torch.as_tensor(a[5]).cpu()),
+                             device=dev).long()
+        ray_mat = torch.where((rays[pk.VALID] > 0.5) & (sl >= 0),
+                              rays[pk.GRID_MATID].long(), -1)
+        if i == 0:
+            rows = pick(ray_mat, f"kernel 4 {read}, the clustered launch")
+        else:  # the fall-back pixels that hit: a seeded sample of them
+            kept = torch.nonzero(ray_mat >= 0)[:, 0].cpu().numpy()
+            if not len(kept):  # none hit: every sum of the launch is 0
+                check(float(out.abs().max()) == 0.0, "kernel 4's fall-back "
+                      "launch: sums where no fall-back pixel hits")
+                parts.append(f"kernel 4 {read}, render_alvrl's fall-back "
+                             f"launch: {int((sl >= 0).sum())} pixels, none "
+                             "a hit, its sums all 0")
+                continue
+            rows = torch.as_tensor(np.sort(rng.choice(kept, min(
+                len(kept), len(ids) * TG_KIND_RAYS), replace=False)),
+                device=dev)
+        r = sl[rows]
+        tid, tw = a[6], a[7]
+        u = torch.where((r >= 0)[:, None, None], philox_draws(
+            k["seed"], rows[:, None], tid[r.clamp(min=0)].long(), n_draws),
+            0.0)
+        with plain_chunk(C4_PLAIN_CHUNK):
+            ref = vrl_sum_hetero_clustered_reference(
+                rays[:, rows].contiguous(), *a[1:5], r, tid, tw, u, **kw)
+        label = (f"kernel 4 {read}, render_alvrl's "
+                 f"{('clustered', 'fall-back')[i]} launch ({rays.shape[1]} "
+                 f"rays, {tid.shape[0]} x {tid.shape[1]} table)")
+        if i == 0:
+            parts.append(hold(label, out[:, rows].T, ref.T, ray_mat[rows]))
+        else:
+            median, share = homog_bar(out[:, rows].T, ref.T)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"{label}: {len(rows)} rays, {median}, {share}")
+            parts.append(f"{label}: {len(rows)} rays {median:.2e}/"
+                         f"{share:.4f}")
+        err["4"] = max(err["4"], float((out[:, rows] - ref).abs().max()))
+    return "; ".join(parts), err
+
+
+def tg_pick(rng, ray_mat, ids, n):
+    """n rays of each material id in `ids` (a seeded pick), on the card."""
+    mat = ray_mat.cpu().numpy()
+    return torch.as_tensor(np.concatenate([rng.choice(
+        np.flatnonzero(mat == k), n, replace=False) for k in sorted(ids)]),
+        device=ray_mat.device)
+
+
+def textured_grid(dev, card, cfg, c4):
+    """Phase 51: the textured forms of kernels 3, 4 and 6 (nearest and
+    trilinear) on the textured grid scene and kernel 7's on the textured
+    cube field, against their plain versions material by material and
+    over the held rays, their checking and counting launches, the main
+    paths' textured launches, times beside the material forms on the
+    same packs (the textures dropped), registers, bounds; the CLI on the
+    grid scene file. Returns the kernels line's seven entries."""
+    t51 = time.perf_counter()
+    entries = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        desc = textured_grid_desc(c4["scene"], tmp, "$w", "$h")
+        names = [m["name"] for m in desc["materials"]]
+        path = os.path.join(tmp, "textured_grid.json")
+        with open(path, "w") as f:
+            f.write(json.dumps(desc).replace('"$w"', "$w").replace(
+                '"$h"', "$h"))
+        scene = loader.load_json(path, {"w": C4_SIZE, "h": C4_SIZE},
+                                 device=dev)
+        check(scene.textured() and hasattr(scene.medium, "density")
+              and torch.equal(scene.medium.density,
+                              c4["scene"].medium.density),
+              "the textured grid scene's table and medium")
+        entries.update(tg_grid_forms(dev, card, cfg, scene, c4, names))
+        entries.update(tg_field_form(dev, card, scene, names))
+        runs = [(label, name, integ, passes,
+                 ["-D", f"w={C4_SIZE}", "-D", f"h={C4_SIZE}", *opts], route)
+                for label, name, integ, passes, opts, route in TG_RUNS]
+        fns = (vs.vrl_sum_hetero, vr.vrl_r_hetero,
+               vsc.vrl_sum_hetero_clustered)
+        for fn in fns:
+            fn.tex_launches = 0
+        t_cli = time.perf_counter()
+        cli = cli_runs(dev, card, tmp, runs, "51c the CLI on the textured "
+                       "grid scene file")
+        check(all(fn.tex_launches >= 1 for fn in fns),
+              "the CLI runs took no textured launch of kernels 3, 6 and 4")
+        t_cli = time.perf_counter() - t_cli
+    print(f"[51 on {card}] the CLI's ms a pass: " + ", ".join(
+        f"{k} {v[0]:.1f}" for k, v in cli.items())
+        + f" | 51c {t_cli:.1f} s, phase 51 {time.perf_counter() - t51:.1f} s",
+        flush=True)
+    return [entries[k] for k in TG_FORMS]
+
+
+def tg_grid_forms(dev, card, cfg, scene, c4, names):
+    """51a: kernels 3, 4 and 6's textured forms, nearest and trilinear."""
+    t0 = time.perf_counter()
+    params, tcfg = c4["params"], c4["tcfg"]
+    vrls = vrl.compact(tracer.trace(scene, torch.Generator().manual_seed(
+        TG_SEED), params.num_particles, tcfg), params.vrl_target_num,
+        slots_per_particle=C4_DEPTH)
+    n_vrls, seed, uv = vrls.capacity, TG_SEED, cfg.uv_tau_steps
+    info = alvrl.build_slice_info(scene, params)
+    seen_ids = {names.index(n) for n in TEX_SEEN}
+    rng = np.random.default_rng(51)
+    lines, entries = [], {}
+    for fast_tau, tag in ((True, ""), (False, "t")):
+        sc = replace(scene, medium=replace(scene.medium, fast_tau=fast_tau))
+        read = "nearest" if fast_tau else "trilinear"
+        mats = integrator.material_pack(sc)
+        packs = integrator.pack_frame(sc, vrls, materials=mats)[3]
+        check(packs[0].shape[0] == pk.GRID_TEX_RAY_ROWS
+              and pk.is_trilinear(packs[3]) != fast_tau,
+              f"the textured grid packs ({read})")
+        valid = packs[0][pk.VALID] > 0.5
+        ray_mat = torch.where(valid, packs[0][pk.GRID_MATID].long(), -1)
+        seen = {k: int((ray_mat == k).sum()) for k in seen_ids}
+        check(set(ray_mat[valid].tolist()) == seen_ids
+              and min(seen.values()) >= TG_KIND_RAYS,
+              f"the materials seen ({read}): {seen}")
+        pick = tg_pick(rng, ray_mat, seen_ids, TG_KIND_RAYS)
+        sub = (packs[0][:, pick].contiguous(), *packs[1:])
+        msub = (sub[0][:pk.GRID_MAT_RAY_ROWS].contiguous(), *sub[1:])
+        n_sub = len(pick)
+        sop = np.arange(n_sub, dtype=np.int32) % GG_SLICES
+        tv = torch.as_tensor(rng.integers(0, n_vrls, (GG_SLICES, GG_COLS)),
+                             dtype=torch.int32, device=dev)
+        tw = torch.as_tensor(rng.uniform(0.0, 2.0, (GG_SLICES, GG_COLS)),
+                             dtype=torch.float32, device=dev)
+        mkw = dict(materials=mats, uv_steps=uv)
+        u3 = philox_uniforms(seed, n_sub, n_vrls, 6, device=dev)
+        u4 = philox_table_uniforms(seed, sop, tv, 6)
+        outs = {"3": vs.vrl_sum_hetero(*sub, seed=seed, **mkw),
+                "4": vsc.vrl_sum_hetero_clustered(*sub, sop, tv, tw,
+                                                  seed=seed, **mkw),
+                "6": vr.vrl_r_hetero(*sub, seed=seed, **mkw)}
+        surf = mats[0][sub[0][pk.GRID_MATID].long(), pk.MT_SMOOTH] > 0.5
+        with plain_chunk(C4_PLAIN_CHUNK):
+            with SweepCount(pair_masks(*sub[:2])[0], surf) as s3:
+                ref3, p3 = timed_call(lambda: vrl_sum_hetero_reference(
+                    *sub, u3, **mkw))
+            with SweepCount(table_pair_ok(sub[0], sub[1], sop, tv, tw),
+                            surf) as s4:
+                ref4, p4 = timed_call(
+                    lambda: vrl_sum_hetero_clustered_reference(
+                        *sub, sop, tv, tw, u4, **mkw))
+            ref6, p6 = timed_call(lambda: vrl_r_hetero_reference(
+                *sub, u3, **mkw))
+        torch.cuda.synchronize()
+        s6 = s3  # kernel 6 meets kernel 3's samples on the same uniforms
+        for k, o in outs.items():
+            check(bool(torch.isfinite(o).all()) and float(o.abs().sum()) > 0,
+                  f"kernel {k} ({read}, textured): finite and non-zero")
+        ksub = ray_mat[pick]
+
+        def hold(label, out, ref, kind, channels=3, min_items=TG_KIND_RAYS):
+            line = hold_by_kind(label, out, ref, kind, channels, min_items,
+                                kinds=seen_ids)
+            median, share = homog_bar(out, ref, channels)
+            check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+                  f"{label}: the held rays {median}, {share}")
+            return line + f"; all {median:.2e}/{share:.4f}"
+
+        held = [hold(f"kernel 3 {read}", outs["3"].T, ref3.T, ksub),
+                hold(f"kernel 4 {read} ({GG_COLS} columns)", outs["4"].T,
+                     ref4.T, ksub),
+                hold(f"kernel 6 {read} mean", outs["6"][0], ref6[0],
+                     ksub[:, None].expand(-1, n_vrls), 1,
+                     TG_KIND_RAYS * n_vrls)]
+        nz = ref6[1] > R_VAR_FLOOR
+        v_med = float(((outs["6"][1] - ref6[1]).abs()[nz] / ref6[1][nz])
+                      .median())
+        check(v_med < R_VAR_MEDIAN, f"kernel 6 {read} (textured) var {v_med}")
+        errs = {"3": float((outs["3"] - ref3).abs().max()),
+                "4": float((outs["4"] - ref4).abs().max()),
+                "6": float((outs["6"] - ref6).abs().max())}
+        c_chk, c_counts = vsc.vrl_sum_hetero_clustered_check(
+            *sub, sop, tv, tw, seed=seed, **mkw)
+        _, r_counts = vr.vrl_r_hetero_check(*sub, seed=seed, **mkw)
+        for what, counts in (("kernel 4", c_counts), ("kernel 6", r_counts)):
+            check(counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+                  and counts["segments"] > 0, f"{what} {read} (textured): "
+                  f"the checking launch: {counts}")
+        check(torch.equal(c_chk, outs["4"]), f"kernel 4 {read} (textured): "
+              "the checking launch is not the sum's")
+        # the main path: the unclustered render and render_alvrl
+        fns = (vs.vrl_sum_hetero, vr.vrl_r_hetero,
+               vsc.vrl_sum_hetero_clustered)
+        for fn in fns:
+            fn.launches = fn.tex_launches = fn.tri_launches = 0
+        with plain_calls() as plain, grid_sum_calls() as rec:
+            img = integrator.render_with_vrls_kernel(
+                sc, vrls, torch.Generator().manual_seed(151), cfg)
+            img_c, _, _ = alvrl.render_alvrl(
+                sc, torch.Generator().manual_seed(251), params, cfg, tcfg,
+                slice_info=info)
+            torch.cuda.synchronize()
+        launches = {fn.__name__: (fn.launches, fn.tex_launches,
+                                  fn.tri_launches) for fn in fns}
+        check(plain[0] == 0 and all(
+            n >= 1 and t == n and r == (0 if fast_tau else n)
+            for n, t, r in launches.values()),
+            f"the main path's launches ({read}): {launches}, plain calls "
+            f"{plain[0]}")
+        for name, im in (("unclustered", img), ("clustered", img_c)):
+            check(tuple(im.shape) == (C4_SIZE, C4_SIZE, 3)
+                  and bool(torch.isfinite(im).all())
+                  and float(im.abs().max()) > 0, f"the {name} image")
+        frame_line, frame_err = tg_frame_holds(rec, rng, seen_ids, read, hold)
+        for key, e in frame_err.items():
+            errs[key] = max(errs[key], e)
+        # times: each textured form beside its material form on the same
+        # packs (the textures dropped), in turns (material, textured,
+        # textured, material)
+        block = vsc.ray_block(True)
+        tiles = [torch.as_tensor(a, device=dev)
+                 for a in group_by_slice(sop, block)]
+        c_out = torch.zeros((3, n_sub), device=dev)
+        grid_arg = (sub[4], uv)
+
+        def c_launch(p):
+            return lambda: vsc._launch(vsc._library(), *p[:4], *tiles, tv,
+                                       tw, None, seed, 2, 2, True, 0, c_out,
+                                       grid_arg, materials=mats)
+
+        timed = {"3": (lambda: vs.vrl_sum_hetero(*sub, seed=seed, **mkw),
+                       lambda: vs.vrl_sum_hetero(*msub, seed=seed, **mkw)),
+                 "4": (c_launch(sub), c_launch(msub)),
+                 "6": (lambda: vr.vrl_r_hetero(*sub, seed=seed, **mkw),
+                       lambda: vr.vrl_r_hetero(*msub, seed=seed, **mkw))}
+        ms = {}
+        for k, (tex_fn, mat_fn) in timed.items():
+            runs = [cuda_ms_batched(f, 2, 3, 5) for f in (mat_fn, tex_fn,
+                                                          tex_fn, mat_fn)]
+            ms[k] = (summary(runs[1] + runs[2]), summary(runs[0] + runs[3]))
+
+        def tex_ops(kernel, sweep, counts=None):
+            # the textured eval priced as the material one (its leaves read
+            # the ray's albedos in place of the row's)
+            f, s = kernel_ops(kernel, sweep, True, True, uv, tri=not fast_tau)
+            if counts is not None:
+                f, s = plane_ops((f, s), sweep, counts)
+            return (f + sweep.open[1] * OPS["eval_smooth"][0],
+                    s + sweep.open[1] * OPS["eval_smooth"][1])
+
+        mat_bytes = nbytes(*mats)
+        bounds = {
+            "3": bound(tex_ops("vrl_sum", s3), nbytes(*sub) + mat_bytes
+                       + 3 * n_sub * 4),
+            "4": bound(tex_ops("vrl_sum_clustered", s4, c_counts),
+                       nbytes(*sub, tv, tw, *tiles) + mat_bytes
+                       + 3 * n_sub * 4),
+            "6": bound(tex_ops("vrl_r", s6, r_counts), nbytes(*sub)
+                       + mat_bytes + 2 * n_sub * n_vrls * 4)}
+        plain_ms = {"3": p3, "4": p4, "6": p6}
+        counts = {"3": launches["vrl_sum_hetero"][1],
+                  "4": launches["vrl_sum_hetero_clustered"][1],
+                  "6": launches["vrl_r_hetero"][1]}
+        for k in ("3", "4", "6"):
+            entries[f"{k}{tag}tex"] = tg_entry(
+                f"{k}{tag}tex", counts[k], errs[k], ms[k][0][0], plain_ms[k],
+                bounds[k])
+        lines.append(
+            f"{read}: " + "; ".join(held) + f"; the main path's launches on "
+            f"the whole frame: {frame_line}; kernel 6 var median "
+            f"{v_med:.2e} | checking launches: kernel 4 "
+            f"{check_line(c_counts)}; kernel 6 {check_line(r_counts)} | "
+            f"main path launches (all, textured, trilinear) {launches}, "
+            f"no plain call; images' means {float(img.mean()):.6g} and "
+            f"{float(img_c.mean()):.6g} | ms (CUDA events, textured / "
+            "material on the same packs, in turns): " + "; ".join(
+                f"kernel {k} {t[0]:.4f} (spread {t[1]:.1%}) / {m[0]:.4f} "
+                f"(x{t[0] / m[0]:.2f})" for k, (t, m) in ms.items())
+            + " | plain " + ", ".join(f"kernel {k} {v:.1f} ms"
+                                      for k, v in plain_ms.items())
+            + "; bounds " + ", ".join(f"kernel {k} {b[0]:.4f} ms by {b[1]}"
+                                      for k, b in bounds.items())
+            + f"; samples: kernel 3 {s3}; kernel 4 {s4}")
+    regs = [r for r in ptxas_summary(_build.build_log())
+            if ",grid," in r and ",tex" in r]
+    print(f"[51a grid textured forms on {card}, cornell_textured in config "
+          f"4's {C4_GRID}^3 medium {C4_SIZE}x{C4_SIZE}, {n_vrls} traced VRL "
+          f"slots; kernels 3, 4 and 6 on {TG_KIND_RAYS} rays of each "
+          f"material] " + " || ".join(lines) + " | ptxas: " + " ; ".join(regs)
+          + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+def tg_field_form(dev, card, tex_scene, names):
+    """51b: kernel 7's textured form on the textured cube field, in its HG
+    balance medium and in phase 43's mixture + single medium."""
+    t0 = time.perf_counter()
+    ids = [names.index(n) for n in TEX_SEEN]
+    field = presets.textured_cube_field(
+        bbl.scene_of("cubes", FIELD_AXES, device=dev), tex_scene, ids)
+    vrls = bbl.bench_vrls(field)
+    seed = TG_SEED
+    cases = [("hg", field, TG_FIELD_RAYS),
+             (*field_media(field)[0], TG_FIELD_RAYS)]
+    small = presets.textured_cube_field(
+        bbl.scene_of("cubes", SMALL_AXES, device=dev), tex_scene, ids)
+    rng = np.random.default_rng(52)
+    lines, errs, plain_ms, launches = [], {}, {}, 0
+    ms = bnd = None
+    for name, sc, per_mat in cases:
+        mats = integrator.material_pack(sc)
+        kw = dict(phase_kind=sc.medium.phase_kind, materials=mats)
+        f = vb.vrl_sum_bvh
+        f.launches = f.mat_launches = f.tex_launches = f.mix_launches = 0
+        with plain_calls() as plain:
+            img = integrator.render_with_vrls_kernel_bvh(
+                sc, vrls, torch.Generator().manual_seed(351))
+            torch.cuda.synchronize()
+        moved = (f.launches, f.mat_launches, f.tex_launches, f.mix_launches)
+        check(plain[0] == 0 and moved == (1, 1, 1, 0)
+              and bool(torch.isfinite(img).all())
+              and float(img.abs().max()) > 0,
+              f"kernel 7 {name} (textured): the render's launches {moved}")
+        launches += moved[2]
+        packs = integrator.pack_frame_bvh(sc, vrls, materials=mats)[3]
+        check(pk.is_textured(packs[0]), f"kernel 7 {name}: the textured pack")
+        valid = packs[0][pk.VALID] > 0.5
+        ray_mat = torch.where(valid, packs[0][pk.MATID].long(), -1)
+        seen = {k: int((ray_mat == k).sum()) for k in ids}
+        check(set(ray_mat[valid].tolist()) == set(ids)
+              and min(seen.values()) >= TG_FIELD_RAYS,
+              f"the field's materials seen: {seen}")
+        out = vb.vrl_sum_bvh(*packs, seed=seed, **kw)
+        rows = tg_pick(rng, ray_mat, set(ids), per_mat)
+        u = philox_draws(seed, rows[:, None], torch.arange(
+            packs[1].shape[1], device=dev)[None], 6)
+        ref, p_ms = timed_call(lambda: vb.vrl_sum_bvh_reference(
+            packs[0][:, rows].contiguous(), *packs[1:], u, **kw))
+        torch.cuda.synchronize()
+        held = hold_by_kind(f"kernel 7 {name}", out[:, rows].T, ref.T,
+                            ray_mat[rows], min_items=per_mat, kinds=set(ids))
+        median, share = homog_bar(out[:, rows].T, ref.T)
+        check(median < HOMOG_MEDIAN and share < HOMOG_SHARE,
+              f"kernel 7 {name} (textured) against its plain version: "
+              f"{median}, {share}")
+        errs[name] = float((out[:, rows] - ref).abs().max())
+        plain_ms[name] = p_ms
+        _, counts = vb.vrl_sum_bvh_counts(*packs, seed=seed, **kw)
+        check(counts["differ"] == 0 and counts["segments"] > 0,
+              f"kernel 7 {name} (textured): the counting launch {counts}")
+        # kernel 1's textured form on the 780-triangle field, the same
+        # rays, VRLs and uniforms
+        spk = integrator.pack_frame_bvh(replace(small, medium=sc.medium),
+                                        vrls, materials=mats)[3]
+        us = torch.rand((spk[0].shape[1], spk[1].shape[1], 6), device=dev,
+                        generator=torch.Generator(dev).manual_seed(51))
+        a = vb.vrl_sum_bvh(*spk, uniforms=us, **kw)
+        b = vrl_sum(spk[0], spk[1], spk[2].tris, spk[3], uniforms=us, **kw)
+        k1_bar = homog_bar(a.T, b.T)
+        check(k1_bar[0] < HOMOG_MEDIAN and k1_bar[1] < HOMOG_SHARE,
+              f"kernel 7 {name} (textured) against kernel 1 at 780 "
+              f"triangles: {k1_bar}")
+        line = (f"{name} ({sc.faces.shape[0]} triangles): vs plain on "
+                f"{len(rows)} rays ({per_mat} a material) {held}; all "
+                f"{median:.2e}/{share:.4f}; vs kernel 1 at "
+                f"{small.faces.shape[0]} triangles {k1_bar[0]:.2e}/"
+                f"{k1_bar[1]:.4f}; counting launch differ 0; render "
+                f"launches {moved}, mean {float(img.mean()):.6g}; plain "
+                f"{p_ms:.1f} ms")
+        if name == "hg":
+            # times beside the material form on the same packs (the
+            # textures dropped), in turns; the bound as phase 48's on this
+            # run's samples with each open vol-surf sample's eval
+            mpacks = (packs[0][:pk.MAT_RAY_ROWS].contiguous(), *packs[1:])
+            new_fn = lambda: vb.vrl_sum_bvh(*packs, seed=seed, **kw)  # noqa: E731
+            old_fn = lambda: vb.vrl_sum_bvh(*mpacks, seed=seed, **kw)  # noqa: E731
+            runs = [cuda_ms_batched(g, 1, 3, 3) for g in (old_fn, new_fn,
+                                                          new_fn, old_fn)]
+            ms = (summary(runs[1] + runs[2]), summary(runs[0] + runs[3]))
+            sweep = BvhSweep(packs[0], packs[1], counts)
+            smooth = mats[0][packs[0][pk.MATID].long(), pk.MT_SMOOTH] > 0.5
+            sweep.drawn[1] = 2 * int((pair_masks(packs[0], packs[1])[0]
+                                      & smooth[:, None]).sum())
+            fo, so = kernel_ops("vrl_sum", replace_counts(
+                sweep, tri_tests=sweep.needed_tris), True, True)
+            fo += sweep.needed_boxes * OPS["node"][0]
+            so += sweep.tested[0] * OPS["bvh_segment"][1]
+            fo += sweep.open[1] * OPS["eval_smooth"][0]
+            so += sweep.open[1] * OPS["eval_smooth"][1]
+            bnd = bound((fo, so), nbytes(packs[0], packs[1], packs[2].nodes,
+                                         packs[2].tris, packs[3])
+                        + nbytes(*mats) + 3 * packs[0].shape[1] * 4)
+            line += (f"; ms {ms[0][0]:.4f} (spread {ms[0][1]:.1%}) against "
+                     f"the material form's {ms[1][0]:.4f} on the same packs "
+                     f"(x{ms[0][0] / ms[1][0]:.2f}); bound {bnd[0]:.4f} ms by "
+                     f"{bnd[1]}; {sweep}")
+        lines.append(line)
+    regs = [r for r in ptxas_summary(_build.build_log()) if ",bvh>" in r]
+    print(f"[51b kernel 7's textured form on {card}, the textured cube field "
+          f"{bbl.WIDTH}x{bbl.WIDTH}, {vrls.capacity} traced VRL slots] "
+          + " | ".join(lines) + " | ptxas: " + " ; ".join(regs)
+          + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"7tex": tg_entry("7tex", launches, max(errs.values()), ms[0][0],
+                             plain_ms["hg"], bnd)}
 
 
 def main():
@@ -7610,19 +8161,31 @@ def main():
               + " | ".join(f"{v:.3f} ms {k[:60]}" for v, k in top),
               flush=True)
 
-    c2_kernels, c2 = config2(dev, card, cfg)
-    c4_kernels, c4 = config4(dev, card, cfg)
-    c4_grad_kernel = config4_grad(dev, card, cfg, c4)
-    clustered_grad_kernels = clustered_grad(dev, card, cfg, c2, c4)
-    bvh_kernel = large_mesh(dev, card, cfg, vrls)
-    probe_kernels = gather_probes(dev, card)
-    glossy_kernels_line = scene_path(dev, card, vrls)
-    sky_kernels_line = sky_path(dev, card)
-    tri_kernels = grid_options(dev, card, cfg, c4)
+    walls = [("build", build_s), ("1-10", time.time() - t0 - build_s)]
+
+    def walled(fn, *args):
+        """fn(*args), its wall time kept in `walls` by name."""
+        t = time.time()
+        out = fn(*args)
+        walls.append((fn.__name__, time.time() - t))
+        return out
+
+    c2_kernels, c2 = walled(config2, dev, card, cfg)
+    c4_kernels, c4 = walled(config4, dev, card, cfg)
+    c4_grad_kernel = walled(config4_grad, dev, card, cfg, c4)
+    clustered_grad_kernels = walled(clustered_grad, dev, card, cfg, c2, c4)
+    bvh_kernel = walled(large_mesh, dev, card, cfg, vrls)
+    probe_kernels = walled(gather_probes, dev, card)
+    glossy_kernels_line = walled(scene_path, dev, card, vrls)
+    sky_kernels_line = walled(sky_path, dev, card)
+    tri_kernels = walled(grid_options, dev, card, cfg, c4)
     c1 = presets.cornell_smoke(WIDTH, HEIGHT, device=dev)
-    glossy_grid_kernels = glossy_grid(dev, card, cfg, c1, c4)
-    gradient_kernels = gradient_forms(dev, card, cfg, c1, c2, c4)
-    textured_kernels = textured_path(dev, card, cfg, sass_check)
+    glossy_grid_kernels = walled(glossy_grid, dev, card, cfg, c1, c4)
+    gradient_kernels = walled(gradient_forms, dev, card, cfg, c1, c2, c4)
+    textured_kernels = walled(textured_path, dev, card, cfg, sass_check)
+    textured_grid_kernels = walled(textured_grid, dev, card, cfg, c4)
+    print(f"[walls on {card}] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls)
+          + f" | total {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "vrl_sum", "route": "cuda",
@@ -7641,7 +8204,7 @@ def main():
     }, *c2_kernels, *c4_kernels, c4_grad_kernel, *clustered_grad_kernels,
         bvh_kernel, *probe_kernels, *glossy_kernels_line,
         *sky_kernels_line, *tri_kernels, *glossy_grid_kernels,
-        *gradient_kernels, *textured_kernels]}))
+        *gradient_kernels, *textured_kernels, *textured_grid_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

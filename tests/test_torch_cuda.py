@@ -11,7 +11,9 @@ and the dispatch's refusal of a phase kind it has no form for; the
 material forms of the grid kernels 3, 4 and 6 (nearest and trilinear)
 and of kernel 7, and kernel 7's mixture and strategy forms; the textured
 forms of kernels 1, 2 and 5 on cornell_textured's textured, normal-
-mapped, bump-mapped and HK surfaces.
+mapped, bump-mapped and HK surfaces, and of kernels 3, 4 and 6 on that
+box in a grid medium (nearest and trilinear) and of kernel 7 on the cube
+field with its surfaces (presets.textured_cube_field).
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one. They import no jax; tests/conftest.py does, so on a host
@@ -2536,7 +2538,7 @@ def test_cuda_textured_renders_take_the_textured_kernels(cuda, tmp_path):
     """render_with_vrls_kernel, the specular-chain render and render_alvrl
     on cornell_textured launch the textured forms of kernels 1, 5 and 2
     only; the images are finite and non-zero; the routes without a
-    textured form refuse the scene."""
+    textured form (the differentiable ones) refuse the scene."""
     scene, vrls, _, _ = _textured(cuda, 16, tmp_path)
     fns = (vrl_sum, vrl_r, vrl_sum_clustered)
     before = [(f.launches, f.tex_launches) for f in fns]
@@ -2552,8 +2554,213 @@ def test_cuda_textured_renders_take_the_textured_kernels(cuda, tmp_path):
     for im in (img, img_s, img_c):
         assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0
     with pytest.raises(ValueError, match="A11a"):
-        integrator.render_with_vrls_kernel_bvh(
-            scene, vrls, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="A11a"):
         integrator.render_with_vrls_kernel_diff(
             scene, vrls, torch.Generator().manual_seed(0))
+
+
+# --- the textured forms of kernels 3, 4 and 6 (cornell_textured's
+# surfaces in a grid medium) and of kernel 7 (the cube field with them)
+
+TEX_SEEN = ("bitmap", "checker", "grid", "noise", "hk", "normalmap",
+            "bumpmap")
+
+
+def _textured_grid(device, fast_tau, tmp, size=128):
+    """cornell_textured's box at size^2 in a seeded grid medium (8 x 9 x 10
+    voxels) read nearest or trilinearly, the bench VRLs: (scene, vrls,
+    material pack, the grid textured packs)."""
+    from alvrl_tpu_torch.scene import loader
+
+    desc = presets.cornell_textured_desc(str(tmp), size, size)
+    desc["medium"] = {
+        "type": "grid", "sigma_t": [0.8, 0.85, 0.9],
+        "albedo": [0.9, 0.85, 0.8], "g": 0.3,
+        "density": np.random.default_rng(23).uniform(
+            0.2, 1.5, (8, 9, 10)).astype(np.float32).tolist()}
+    scene = loader.build_scene(desc, device=device)
+    scene = replace(scene, medium=replace(scene.medium, fast_tau=fast_tau))
+    vrls = _bench_vrls(device)
+    mats = integrator.material_pack(scene)
+    packs = integrator.pack_frame(scene, vrls, materials=mats)[3]
+    return scene, vrls, mats, packs
+
+
+def _pick_by_material(packs, row, device, seed):
+    """TEX_RAYS eye rays of each material the packs' valid rays hit (a
+    seeded pick; the material id in row `row`): (their packs, their
+    material ids, the ids, the picked rays' indices)."""
+    valid = packs[0][pk.VALID] > 0.5
+    mid = packs[0][row].long()
+    ids = sorted(set(mid[valid].tolist()))
+    rng = np.random.default_rng(seed)
+    pick = torch.as_tensor(np.concatenate([rng.choice(np.flatnonzero(
+        ((mid == i) & valid).cpu().numpy()), TEX_RAYS, replace=False)
+        for i in ids]), device=device)
+    return ((packs[0][:, pick].contiguous(), *packs[1:]), mid[pick],
+            set(ids), pick)
+
+
+@pytest.mark.parametrize("fast_tau", [True, False],
+                         ids=["nearest", "trilinear"])
+@pytest.mark.parametrize("kernel", ["vrl_sum_hetero",
+                                    "vrl_sum_hetero_clustered",
+                                    "vrl_r_hetero"])
+def test_cuda_grid_textured_forms_match_plain(cuda, tmp_path, kernel,
+                                              fast_tau):
+    """The textured forms of kernels 3, 4 and 6 on cornell_textured in a
+    grid medium (TEX_RAYS eye rays of each material x 512 VRLs; kernel 4
+    on a seeded table) against their plain versions on the same uniforms,
+    at the homogeneous bar over all rays and over each material's rays
+    alone; each launch counted on the wrapper's tex_launches (and
+    tri_launches for the trilinear read)."""
+    _, _, mats, packs = _textured_grid(cuda, fast_tau, tmp_path)
+    assert packs[0].shape[0] == pk.GRID_TEX_RAY_ROWS
+    packs, ray_mat, ids, _ = _pick_by_material(packs, pk.GRID_MATID, cuda,
+                                               23)
+    assert len(ids) == 7  # the seven materials the camera sees
+    n_rays = packs[0].shape[1]
+    kw = dict(materials=mats)
+    fn = {"vrl_sum_hetero": vrl_sum_hetero,
+          "vrl_sum_hetero_clustered": vrl_sum_hetero_clustered,
+          "vrl_r_hetero": vrl_r_hetero}[kernel]
+    before = (fn.tex_launches, fn.tri_launches)
+    u_gen = torch.Generator(cuda).manual_seed(3)
+    if kernel == "vrl_sum_hetero_clustered":
+        sop, t_ids, w = _glossy_table(packs, cuda)
+        u = torch.rand((n_rays, t_ids.shape[1], 6), device=cuda,
+                       generator=u_gen)
+        out = fn(*packs, sop, t_ids, w, uniforms=u, **kw)
+        ref = vrl_sum_hetero_clustered_reference(*packs, sop, t_ids, w, u,
+                                                 **kw)
+    else:
+        u = torch.rand((n_rays, 512, 6), device=cuda, generator=u_gen)
+        out = fn(*packs, uniforms=u, **kw)
+        plain = (vrl_sum_hetero_reference if kernel == "vrl_sum_hetero"
+                 else vrl_r_hetero_reference)
+        ref = plain(*packs, u, **kw)
+    torch.cuda.synchronize()
+    assert (fn.tex_launches - before[0], fn.tri_launches - before[1]) == (
+        1, int(not fast_tau))
+    if kernel == "vrl_r_hetero":
+        out, ref, channels = out[0], ref[0], 1
+        item_mat = ray_mat[:, None].expand(-1, 512)
+    else:
+        out, ref, channels, item_mat = out.T, ref.T, 3, ray_mat
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    median, share = homog_bar(out, ref, channels)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    groups = homog_bar_by_kind(out, ref, item_mat, channels)
+    assert set(groups) == ids
+    for k, (n, median, share) in groups.items():
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (k, n, median,
+                                                               share)
+
+
+@pytest.mark.parametrize("fast_tau", [True, False],
+                         ids=["nearest", "trilinear"])
+def test_cuda_grid_textured_checking_launches(cuda, tmp_path, fast_tau):
+    """The checking forms of kernels 4 and 6's textured forms: 0
+    disagreements of the plane pre-reject; their outputs the sums'
+    (kernel 4's bit for bit, kernel 6's within the bar)."""
+    _, _, mats, packs = _textured_grid(cuda, fast_tau, tmp_path, 32)
+    sop, ids, w = _glossy_table(packs, cuda)
+    out, counts = vrl_sum_hetero_clustered_check(*packs, sop, ids, w, seed=3,
+                                                 materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    assert counts["segments"] > 0 and counts["skipped"] > 0
+    assert torch.equal(out, vrl_sum_hetero_clustered(
+        *packs, sop, ids, w, seed=3, materials=mats))
+    out, counts = vrl_r_hetero_check(*packs, seed=3, materials=mats)
+    assert counts["bad_tris"] == 0 and counts["bad_segments"] == 0
+    median, share = homog_bar(out[0], vrl_r_hetero(
+        *packs, seed=3, materials=mats)[0], channels=1)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def _textured_field(device, tmp, n_axis=11):
+    """The cube field of n_axis^3 cubes with cornell_textured's surfaces
+    (presets.textured_cube_field, TEX_SEEN on the cubes in turn) and its
+    bench VRLs."""
+    from alvrl_tpu_torch.scene import loader
+
+    desc = presets.cornell_textured_desc(str(tmp), 16, 16)
+    names = [m["name"] for m in desc["materials"]]
+    field = presets.textured_cube_field(
+        bbl.scene_of("cubes", n_axis, device=device),
+        loader.build_scene(desc, device=device),
+        [names.index(n) for n in TEX_SEEN])
+    return field, bbl.bench_vrls(field)
+
+
+def test_cuda_bvh_textured_form_matches_plain(cuda, tmp_path):
+    """Kernel 7's textured form on the textured cube field (15,984
+    triangles) against its plain version on TEX_RAYS rays of each
+    material (Philox), over all of them and each material alone; its
+    counting form's decisions the needed traversal's; against kernel 1's
+    textured form on the field's box alone (the same Wald test)."""
+    field, vrls = _textured_field(cuda, tmp_path)
+    mats = integrator.material_pack(field)
+    packs = integrator.pack_frame_bvh(field, vrls, materials=mats)[3]
+    assert pk.is_textured(packs[0])
+    before = (vb.vrl_sum_bvh.tex_launches, vb.vrl_sum_bvh.mat_launches)
+    out = vb.vrl_sum_bvh(*packs, seed=71, materials=mats)
+    assert (vb.vrl_sum_bvh.tex_launches - before[0],
+            vb.vrl_sum_bvh.mat_launches - before[1]) == (1, 1)
+    sub, ray_mat, ids, pick = _pick_by_material(packs, pk.MATID, cuda, 71)
+    assert len(ids) == 7
+    # the picked rays' Philox uniforms, at their frame indices
+    u = vs.philox_draws(71, pick[:, None], torch.arange(
+        packs[1].shape[1], device=cuda)[None], 6)
+    ref = vb.vrl_sum_bvh_reference(*sub, u, materials=mats)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and float(out.abs().sum()) > 0.0
+    o, r = out[:, pick].T, ref.T
+    median, share = homog_bar(o, r)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+    for k, (n, median, share) in homog_bar_by_kind(o, r, ray_mat).items():
+        assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (k, n, median,
+                                                               share)
+    _, counts = vb.vrl_sum_bvh_counts(*packs, seed=71, materials=mats)
+    assert counts["differ"] == 0 and counts["segments"] > 0
+    box = replace(field, faces=field.faces[:12], material=field.material[:12],
+                  face_uv=field.face_uv[:12])
+    bpacks = integrator.pack_frame_bvh(box, vrls, materials=mats)[3]
+    a = vb.vrl_sum_bvh(*bpacks, seed=72, materials=mats)
+    b = vrl_sum(bpacks[0], bpacks[1], bpacks[2].tris, bpacks[3], seed=72,
+                materials=mats)
+    median, share = homog_bar(a.T, b.T)
+    assert median < HOMOG_MEDIAN and share < HOMOG_SHARE, (median, share)
+
+
+def test_cuda_grid_and_field_renders_take_the_textured_forms(cuda,
+                                                             tmp_path):
+    """render_with_vrls_kernel and render_alvrl on cornell_textured in a
+    grid medium (either read) launch only the textured forms of kernels
+    3, 6 and 4, render_with_vrls_kernel_bvh on the textured cube field
+    only kernel 7's; the images are finite and non-zero; the
+    differentiable grid routes refuse the scene by name."""
+    fns = (vrl_sum_hetero, vrl_r_hetero, vrl_sum_hetero_clustered)
+    for fast_tau in (True, False):
+        scene, vrls, _, _ = _textured_grid(cuda, fast_tau, tmp_path, 16)
+        before = [(f.launches, f.tex_launches) for f in fns]
+        img = integrator.render_with_vrls_kernel(
+            scene, vrls, torch.Generator().manual_seed(0))
+        img_c, _, _ = alvrl.render_alvrl(
+            scene, torch.Generator().manual_seed(1), alvrl.ALVRLParams(
+                vrl_target_num=128, num_particles=32))
+        torch.cuda.synchronize()
+        for f, (n, t) in zip(fns, before):
+            assert f.launches > n and f.launches - n == f.tex_launches - t
+        for im in (img, img_c):
+            assert torch.isfinite(im).all() and float(im.abs().max()) > 0.0
+        with pytest.raises(ValueError, match="A11a"):
+            integrator.render_with_vrls_kernel_diff(
+                scene, vrls, torch.Generator().manual_seed(0))
+    field, vrls = _textured_field(cuda, tmp_path, 3)
+    f = vb.vrl_sum_bvh
+    before = (f.launches, f.tex_launches)
+    img = integrator.render_with_vrls_kernel_bvh(
+        field, vrls, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.tex_launches - before[1]) == (1, 1)
+    assert torch.isfinite(img).all() and float(img.abs().max()) > 0.0

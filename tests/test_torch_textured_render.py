@@ -280,10 +280,11 @@ def _grid_textured():
 
 
 def test_routes_without_a_textured_form_refuse_it_by_name():
-    """The grid kernels 3, 4 and 6 (and their packs), the BVH kernel 7,
-    the differentiable routes of kernels 8-11 and the train step refuse
-    a textured table, naming ROADMAP A11a, and the backward wrappers
-    refuse the textured ray pack itself."""
+    """The differentiable routes of kernels 8-11 (in either medium) and
+    the train step refuse a textured table, naming ROADMAP A11a, and the
+    backward wrappers refuse the textured ray pack itself; the forward
+    routes of the grid kernels 3 and 6 and of the BVH kernel 7 take it
+    (their textured forms)."""
     from alvrl_tpu_torch.ops import vrl_sum_bwd as bwd
     from alvrl_tpu_torch.parallel.render import train_step
 
@@ -293,9 +294,6 @@ def test_routes_without_a_textured_form_refuse_it_by_name():
     grid = _grid_textured()
     ray_o, ray_d = (_t(a) for a in _rays())
     calls = [
-        lambda: integrator.render_with_vrls_kernel(grid, vrls, gen),
-        lambda: integrator.build_R_kernel(grid, ray_o, ray_d, vrls, 0),
-        lambda: integrator.render_with_vrls_kernel_bvh(scene, vrls, gen),
         lambda: integrator.render_with_vrls_kernel_diff(scene, vrls, gen),
         lambda: integrator.render_clustered_kernel_diff(
             scene, vrls, np.zeros(N_RAYS, np.int32),
@@ -303,8 +301,6 @@ def test_routes_without_a_textured_form_refuse_it_by_name():
         lambda: integrator.render_with_vrls_kernel_diff(grid, vrls, gen),
         lambda: train_step(scene, gen, torch.zeros((SIZE, SIZE, 3)),
                            integrator.VRLConfig()),
-        lambda: integrator.pack_frame(grid, vrls, materials=integrator
-                                      .material_pack(grid)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="A11a"):
@@ -315,6 +311,10 @@ def test_routes_without_a_textured_form_refuse_it_by_name():
     gbar = torch.zeros((3, packs[0].shape[1]))
     with pytest.raises(ValueError, match="no textured form.*A11a"):
         bwd.vrl_sum_bwd(*packs, gbar, seed=0, materials=mats)
+    gpacks = integrator.pack_frame(grid, vrls, materials=mats)[3]
+    assert gpacks[0].shape[0] == pk.GRID_TEX_RAY_ROWS
+    mean, _ = integrator.build_R_kernel(grid, ray_o[:8], ray_d[:8], vrls, 0)
+    assert torch.isfinite(mean).all()
 
 
 @pytest.mark.parametrize("integ", ["vrl", "alvrl", "volpath"])
